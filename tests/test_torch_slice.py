@@ -1,0 +1,101 @@
+"""The forward-render slice end to end against rrt_tpu.
+
+chap12 at 32x16, 2 spp, depth 8, seed 0: the port's render_image_tiles
+(on the CPU, through the kernel's plain version) against rrt_tpu's
+render_image_tiles with its Pallas tile kernel in interpret mode, as
+tests/test_megakernel.py runs it. The same (seed, pixel, sample,
+bounce) keys drive both, so images differ only where a last-bit
+difference in a sin, log, rsqrt or fused multiply-add flips a discrete
+decision, and dielectric and mirror bounces then carry the path apart.
+
+The tolerance is the reference's own spread. rrt_tpu's _shade run op by
+op, without jit, against its jit-compiled tile render (same keys, same
+code, only XLA's fusion differs) agrees on 98.83% of pixels (506 of
+512) with traced totals 2628 vs 2613 (0.57%); the port lands on the
+same numbers. So the port is held to per-pixel max |delta| < 1e-3 on
+>= 98.5% of pixels and traced totals within 1%: six divergent paths out
+of 1024 pass, a wrong material, texture, camera or key would not."""
+
+import zlib
+
+import numpy as np
+import pytest
+from jax.experimental import pallas as pl
+
+import rrt_tpu.ops.megakernel as jmk
+from rrt_tpu import render as jrender
+from rrt_tpu import scenes as jscenes
+from rrt_tpu_torch import cli, render as trender, scenes as tscenes
+
+W, H, SPP, DEPTH = 32, 16, 2, 8
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    orig = pl.pallas_call
+
+    def interp(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(jmk.pl, "pallas_call", interp)
+
+
+def test_chap12_slice_matches_reference(interpret_pallas):
+    j_scene, j_cam = jscenes.chap12_scene(W, H)
+    j_cfg = jrender.RenderConfig(width=W, height=H, spp=SPP,
+                                 max_depth=DEPTH)
+    j_img, j_n = jrender.render_image_tiles(j_scene, j_cam, j_cfg, 0)
+
+    t_scene, t_cam = tscenes.chap12_scene(W, H)
+    t_cfg = trender.RenderConfig(width=W, height=H, spp=SPP,
+                                 max_depth=DEPTH)
+    t_img, t_n = trender.render_image_tiles(t_scene, t_cam, t_cfg, 0,
+                                            device="cpu")
+
+    a, b = np.asarray(j_img), t_img.numpy()
+    assert b.shape == (H, W, 3) and np.isfinite(b).all()
+    close = np.abs(a - b).max(axis=2) < 1e-3
+    assert close.mean() >= 0.985, close.mean()
+    assert abs(int(t_n) - float(j_n)) / float(j_n) < 1e-2
+
+
+def _read_png(path):
+    """Decode the CLI's PNG (8-bit RGB, filter 0 on every row)."""
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = (int.from_bytes(body[4:8], "big"),
+                    int.from_bytes(body[0:4], "big"))
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    return raw.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+
+
+def test_cli_writes_the_rendered_png(tmp_path):
+    out = tmp_path / "chap12.png"
+    argv = ["--scene", "chap12", "-r", f"{W}x{H}", "-s", str(SPP),
+            "-e", "0", "--max-depth", str(DEPTH), "--device", "cpu",
+            "-o", str(out), "--quiet"]
+    assert cli.main(argv) == 0
+    rgb = _read_png(out)
+    t_scene, t_cam = tscenes.chap12_scene(W, H)
+    cfg = trender.RenderConfig(width=W, height=H, spp=SPP, max_depth=DEPTH)
+    img, _ = trender.render_image_tiles(t_scene, t_cam, cfg, 0,
+                                        device="cpu")
+    np.testing.assert_array_equal(rgb, trender.tonemap(img).numpy())
+    assert (rgb.max(axis=2) > 0).mean() > 0.99
+
+
+def test_cli_rejects_unknown_scene(tmp_path, capsys):
+    assert cli.main(["--scene", "cornell", "--device", "cpu",
+                     "-o", str(tmp_path / "x.ppm")]) == 2
+    assert "unknown scene" in capsys.readouterr().err
