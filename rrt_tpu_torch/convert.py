@@ -7,6 +7,9 @@ the port's objects here without this package importing JAX:
     leaves = {f.name: np.asarray(getattr(scene, f.name))
               for f in dataclasses.fields(scene)}
     scene_t = scene_from_numpy(leaves)
+
+and back: `camera_to_numpy`, and `params_from_numpy` /
+`params_to_numpy` for diff.partition() dicts and their gradients.
 """
 
 import dataclasses
@@ -37,3 +40,21 @@ def camera_from_numpy(leaves: dict) -> Camera:
     return Camera(**{
         f.name: torch.from_numpy(np.array(leaves[f.name], np.float32))
         for f in dataclasses.fields(Camera)})
+
+
+def camera_to_numpy(camera: Camera) -> dict:
+    """The inverse of camera_from_numpy: field name -> numpy array."""
+    return {f.name: getattr(camera, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(Camera)}
+
+
+def params_from_numpy(leaves: dict) -> dict:
+    """A diff.partition() dict (or a gradient of one) from a field-name
+    -> numpy-array dictionary, as float32 tensors."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in leaves.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of params_from_numpy."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

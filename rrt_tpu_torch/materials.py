@@ -28,6 +28,11 @@ class Scatter:
     direction: torch.Tensor  # (3,N) new ray direction
     attenuation: torch.Tensor  # (3,N)
     scattered: torch.Tensor  # (N,) bool; False = absorbed
+    # The discrete decisions and the draws, which the backward replays.
+    degenerate: torch.Tensor  # (N,) bool: lambertian n + u ~ 0
+    reflected: torch.Tensor  # (N,) bool: dielectric reflects
+    unit_rand: torch.Tensor  # (3,N) unit vector (lambertian)
+    sphere_rand: torch.Tensor  # (3,N) point in the unit sphere (metal)
 
 
 def _reflect(v, n):
@@ -92,4 +97,6 @@ def scatter(scene: SceneArrays, d_in, hit, keys, bounce) -> Scatter:
     attenuation = torch.where(is_die, 1.0, albedo)
     scattered = torch.where(is_met, met_ok, is_lam | is_die)
     return Scatter(direction=direction, attenuation=attenuation,
-                   scattered=scattered)
+                   scattered=scattered, degenerate=degenerate,
+                   reflected=reflect_choice, unit_rand=unit_rand,
+                   sphere_rand=sphere_rand)

@@ -2,9 +2,11 @@
 
 The sources in csrc/ compile into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
-build/rrt_tpu_torch/ at the root of the checkout. The file name carries
-a hash of the sources and flags, so an edited source builds anew and an
-unchanged one is reused. Nothing is built when this module is imported.
+build/rrt_tpu_torch/ at the root of the checkout: one nvcc per source,
+all started together, then one link. The file name carries a hash of
+the sources, the header and the flags, so an edited file builds anew
+and an unchanged one is reused. Nothing is built when this module is
+imported.
 """
 
 import ctypes
@@ -14,17 +16,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("tile_render.cu",)
+_SOURCES = ("tile_render.cu", "train.cu")
+_HEADERS = ("bounce.cuh",)  # hashed with the sources, not compiled alone
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rrt_tpu_torch"
 # -fmad=false: no mul+add contraction into FMA; see the note on floats
-# in csrc/tile_render.cu.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+# in csrc/tile_render.cu. The train kernels need it too: the backward
+# replays the forward's paths bit for bit.
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,22 +52,35 @@ def build() -> Build:
     """Compile the kernels unless this exact build exists already."""
     srcs = [_CSRC / name for name in _SOURCES]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + [_CSRC / name for name in _HEADERS]:
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"librrt_kernels-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a part
-    return Build(out, seconds, log)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        for src, proc in zip(srcs, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        tmp = Path(tmp_dir) / out.name
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a part
+    return Build(out, time.perf_counter() - t0, log)
 
 
 @functools.cache
@@ -74,6 +92,12 @@ def load() -> ctypes.CDLL:
     lib.rrt_tile_render.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f,
                                     p, p, p]
     lib.rrt_tile_render.restype = i
+    lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, p, p,
+                                  p, p]
+    lib.rrt_train_fwd.restype = i
+    lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, u, u, u, i, i, i, i, f,
+                                  p, p, p, p]
+    lib.rrt_train_bwd.restype = i
     lib.rrt_error_string.argtypes = [i]
     lib.rrt_error_string.restype = ctypes.c_char_p
     return lib

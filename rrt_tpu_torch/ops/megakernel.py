@@ -34,9 +34,9 @@ from ..scene import MAT_DIELECTRIC, SceneArrays, tensor_fields
 MAX_SLOTS = 3072
 
 
-def check_scope(scene: SceneArrays, rr_depth: int = 0):
-    """Raise NotImplementedError for a scene or option the tile kernel
-    does not cover yet, naming the ROADMAP item that ports it."""
+def scope_gap(scene: SceneArrays, rr_depth: int = 0):
+    """None when the tile kernels cover the scene and option; otherwise
+    (what is outside, the ROADMAP Queue A item that ports it)."""
     outside = (
         (scene.has_moving, "moving spheres", "#9.1"),
         (scene.has_quads, "quads", "#9.2"),
@@ -47,11 +47,18 @@ def check_scope(scene: SceneArrays, rr_depth: int = 0):
         (scene.has_images, "image textures", "#9.5"),
         (rr_depth > 0, "Russian roulette (rr_depth > 0)", "#9.6"),
     )
-    for flag, what, item in outside:
-        if flag:
-            raise NotImplementedError(
-                f"{what}: outside the rrt_tpu_torch tile kernel's scope "
-                f"(ROADMAP Queue A {item})")
+    return next(((what, item) for flag, what, item in outside if flag),
+                None)
+
+
+def check_scope(scene: SceneArrays, rr_depth: int = 0):
+    """Raise NotImplementedError for a scene or option the tile kernel
+    does not cover yet, naming the ROADMAP item that ports it."""
+    gap = scope_gap(scene, rr_depth)
+    if gap is not None:
+        raise NotImplementedError(
+            f"{gap[0]}: outside the rrt_tpu_torch tile kernel's scope "
+            f"(ROADMAP Queue A {gap[1]})")
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +225,21 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
     materials and textures through render._shade. Rays that die are
     dropped from the batch after each bounce. A chunk holds at most one
     sample of each pixel, so radiance is summed into each pixel in the
-    kernel's order: sample by sample, bounce by bounce."""
+    kernel's order: sample by sample, bounce by bounce. Differentiable
+    by plain autograd (slowly: every bounce keeps its (N,S) broadcast)."""
+    rad, traced, _ = trace_paths_reference(
+        sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
+        width=width, height=height, spp=spp, max_depth=max_depth,
+        t_min=t_min, chunk=chunk)
+    return rad, traced
+
+
+def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
+                          width: int, height: int, spp: int,
+                          max_depth: int, t_min: float, chunk: int = 1 << 18):
+    """render_tiles_reference's loop, also returning each path's bounce
+    count: (rad (P,3), traced (P,) i32, lengths (spp, P) uint8), where
+    lengths[s, p] is the number of bounces sample s of pixel p traced."""
     from ..render import _shade  # render imports this module
 
     dev = sph24.device
@@ -229,6 +250,7 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
     chunk = min(chunk, n_pix)
     rad = torch.zeros((3, n_pix), dtype=torch.float32, device=dev)
     traced = torch.zeros((n_pix,), dtype=torch.int32, device=dev)
+    lengths = torch.zeros((n_rays,), dtype=torch.uint8, device=dev)
     for lo in range(0, n_rays, chunk):
         ray = torch.arange(lo, min(lo + chunk, n_rays), device=dev)
         pix = ray % n_pix
@@ -244,10 +266,11 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
                 scene, o, d, keys, bounce, alive, t_min, max_depth)
             rad[:, pix] += thr * contrib
             traced[pix] += 1
+            lengths[ray] += 1
             thr = torch.where(survives, thr * att, thr)
             keep = survives.nonzero()[:, 0]
             if keep.numel() == 0:
                 break
-            pix, keys, o, d, thr = (pix[keep], keys[:, keep], o[:, keep],
-                                    d[:, keep], thr[:, keep])
-    return rad.T.contiguous(), traced
+            pix, ray, keys, o, d, thr = (pix[keep], ray[keep], keys[:, keep],
+                                         o[:, keep], d[:, keep], thr[:, keep])
+    return rad.T.contiguous(), traced, lengths.reshape(spp, n_pix)

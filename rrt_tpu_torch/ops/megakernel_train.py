@@ -1,0 +1,325 @@
+"""The differentiable tile render: train kernels, wrappers, plain versions.
+
+The counterpart of rrt_tpu's `ops/megakernel_train.py` for the sphere
+subset of the tile kernel (spheres, solid / checker textures,
+lambertian / metal / dielectric, sky or solid background, a static
+thin-lens camera, no Russian roulette). `TileTrainChain` is the render
+as a torch.autograd.Function over the packs (sph24, cam24, bg8):
+
+  forward   `render_tiles_train`: the CUDA kernel train_fwd
+            (csrc/train.cu), which renders exactly as tile_render and
+            also writes each path's executed bounce count, one uint8
+            per (sample, pixel): the residual the backward needs;
+  backward  `tiles_adjoint`: the CUDA kernel train_bwd, which replays
+            each path from its counter-addressed key, checks its length
+            against the forward's (`replay_mismatches`), and sweeps the
+            bounces in reverse through the hand-written transpose of
+            megakernel_vjp.diff_step, into the cotangents of the packs.
+
+On the TPU the residual was the 24-row loop carry at segment
+boundaries, because one lane ran many pixels' samples in one loop. A
+GPU thread traces one pixel, and a path restarts from its key
+threefry(s0, s1, pixel, sample), so no carry is parked: the residual is
+P * spp bytes (`boundary_residual_bytes`).
+
+CUDA tensors launch the kernels; CPU tensors run the plain versions
+`render_tiles_train_reference` and `tiles_adjoint_reference`.
+"""
+
+import torch
+
+from .. import rng
+from . import _build
+from . import megakernel as mk
+from .megakernel_vjp import camera_ray_rows, diff_step
+from ..camera import thin_lens_rays
+from ..scene import MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL
+
+# The backward keeps one record per bounce of the path it replays in
+# per-thread storage of this many entries (csrc/train.cu kMaxRecords),
+# so max_depth + 1 may not exceed it.
+MAX_RECORDS = 64
+
+# The sphere-pack rows that receive gradients, in the order the CUDA
+# backward accumulates them: center xyz, r^2, aux, color1 rgb, color2
+# rgb, signed radius.
+GRAD_ROWS = (0, 1, 2, 3, 9, 10, 11, 12, 13, 14, 15, 18)
+
+
+def supports_train(scene) -> bool:
+    """The train kernels' scope: the tile kernel's (mk.scope_gap)."""
+    return mk.scope_gap(scene) is None
+
+
+def boundary_residual_bytes(n_pix: int, chunk: int) -> int:
+    """Bytes one train launch keeps for its backward: the uint8 bounce
+    count of every (pixel, sample) path of the chunk."""
+    return n_pix * chunk
+
+
+def _check_train_inputs(sph24, cam24, bg8, *, width, height, spp, max_depth):
+    mk._check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
+    if sph24.shape[1] > mk.MAX_SLOTS:
+        raise ValueError(f"{sph24.shape[1]} sphere slots exceed the "
+                         f"kernels' {mk.MAX_SLOTS}")
+    if max_depth + 1 > MAX_RECORDS:
+        raise ValueError(f"max_depth {max_depth}: the backward keeps at "
+                         f"most {MAX_RECORDS} bounce records a path "
+                         f"(max_depth <= {MAX_RECORDS - 1})")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.rrt_error_string(err).decode())
+
+
+def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
+                       width: int, height: int, spp: int, max_depth: int,
+                       t_min: float):
+    """Render samples [sample_lo, sample_lo + spp) as render_tiles does,
+    and keep the residual. Returns (radiance sums (P,3) f32, traced
+    counts (P,) i32, lengths (spp, P) uint8: the bounces each path
+    traced).
+
+    CUDA tensors launch train_fwd (counted in
+    `render_tiles_train.launches`); CPU tensors run
+    render_tiles_train_reference."""
+    kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
+              height=height, spp=spp, max_depth=max_depth, t_min=t_min)
+    _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
+                        spp=spp, max_depth=max_depth)
+    device = sph24.device
+    if device.type == "cpu":
+        return render_tiles_train_reference(sph24, cam24, bg8, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"render_tiles_train runs on cuda or cpu, not "
+                         f"{device}")
+    lib = _build.load()
+    n_pix = width * height
+    rad = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
+    traced = torch.empty((n_pix,), dtype=torch.int32, device=device)
+    lengths = torch.empty((spp, n_pix), dtype=torch.uint8, device=device)
+    s0, s1 = rng._seed_words(tuple(seed_words))
+    with torch.cuda.device(device):
+        err = lib.rrt_train_fwd(
+            sph24.data_ptr(), sph24.shape[1], cam24.data_ptr(),
+            bg8.data_ptr(), s0, s1, sample_lo & rng.MASK32, width, height,
+            spp, max_depth, t_min, rad.data_ptr(), traced.data_ptr(),
+            lengths.data_ptr(), _stream(device))
+    _raise_on(lib, err, "train_fwd")
+    render_tiles_train.launches += 1
+    return rad, traced, lengths
+
+
+render_tiles_train.launches = 0
+
+
+def render_tiles_train_reference(sph24, cam24, bg8, *, seed_words,
+                                 sample_lo: int, width: int, height: int,
+                                 spp: int, max_depth: int, t_min: float):
+    """Plain version of render_tiles_train: render_tiles_reference plus
+    the lengths."""
+    return mk.trace_paths_reference(
+        sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
+        width=width, height=height, spp=spp, max_depth=max_depth,
+        t_min=t_min)
+
+
+def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
+                  sample_lo: int, width: int, height: int, spp: int,
+                  max_depth: int, t_min: float):
+    """Cotangents of the packs for the radiance cotangent d_rad (P,3):
+    (d_sph24 (24,S), d_cam24 (24,), d_bg8 (8,), replay mismatches (1,)
+    int32: the paths whose replayed length differs from `lengths`).
+
+    CUDA tensors launch train_bwd (counted in `tiles_adjoint.launches`);
+    CPU tensors run tiles_adjoint_reference. Either way the mismatches
+    are added, on the device and without a synchronize, to
+    `tiles_adjoint.replay_mismatches`, which a caller sets to 0 before
+    a run and reads after it: the autograd Function's backward has no
+    other way to report them, and a replay off the forward's path
+    would give wrong gradients."""
+    kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
+              height=height, spp=spp, max_depth=max_depth, t_min=t_min)
+    _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
+                        spp=spp, max_depth=max_depth)
+    n_pix = width * height
+    if d_rad.dtype != torch.float32 or tuple(d_rad.shape) != (n_pix, 3):
+        raise ValueError(f"d_rad must be ({n_pix}, 3) float32, got "
+                         f"{tuple(d_rad.shape)} {d_rad.dtype}")
+    if lengths.dtype != torch.uint8 or tuple(lengths.shape) != (spp,
+                                                                 n_pix):
+        raise ValueError(f"lengths must be ({spp}, {n_pix}) uint8")
+    device = sph24.device
+    if d_rad.device != device or lengths.device != device:
+        raise ValueError("d_rad and lengths must be on the packs' device")
+    d_rad = d_rad.contiguous()
+    if device.type == "cpu":
+        out = tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
+                                      **kw)
+        _count_mismatches(out[3])
+        return out
+    if device.type != "cuda":
+        raise ValueError(f"tiles_adjoint runs on cuda or cpu, not {device}")
+    lib = _build.load()
+    n_slots = sph24.shape[1]
+    # Per-block partials and, below them, the first reduction's groups of
+    # 64 blocks (csrc/train.cu rrt_train_bwd).
+    n_blocks = -(-width // 16) * -(-height // 16)
+    n_cols = len(GRAD_ROWS) * n_slots + 32
+    partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
+                           dtype=torch.float32, device=device)
+    sums = torch.empty((n_cols,), dtype=torch.float32, device=device)
+    mismatches = torch.zeros((1,), dtype=torch.int32, device=device)
+    s0, s1 = rng._seed_words(tuple(seed_words))
+    with torch.cuda.device(device):
+        err = lib.rrt_train_bwd(
+            sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
+            d_rad.data_ptr(), lengths.data_ptr(), s0, s1,
+            sample_lo & rng.MASK32, width, height, spp, max_depth, t_min,
+            partials.data_ptr(), sums.data_ptr(), mismatches.data_ptr(),
+            _stream(device))
+    _raise_on(lib, err, "train_bwd")
+    tiles_adjoint.launches += 1
+    _count_mismatches(mismatches)
+    d_sph24 = torch.zeros_like(sph24)
+    d_sph24[list(GRAD_ROWS)] = sums[:-32].reshape(len(GRAD_ROWS), n_slots)
+    return d_sph24, sums[-32:-8].clone(), sums[-8:].clone(), mismatches
+
+
+tiles_adjoint.launches = 0
+tiles_adjoint.replay_mismatches = 0
+
+
+def _count_mismatches(mismatches):
+    acc = tiles_adjoint.replay_mismatches
+    tiles_adjoint.replay_mismatches = (
+        acc + mismatches.to(acc.device) if torch.is_tensor(acc)
+        else mismatches + acc)
+
+
+def _replay(scene, basis, cam24, keys, pix, *, width, height, max_depth,
+            t_min):
+    """Replay a batch of paths under no_grad; per bounce, the rays still
+    traced (as positions among the previous bounce's), their winners
+    and decisions. Returns (records, bounces traced per ray)."""
+    from ..render import _bounce  # render imports this package
+
+    o, d, _ = thin_lens_rays(basis, cam24[18], cam24[19], cam24[20],
+                             pix % width, pix // width, width, height, keys)
+    cur = torch.arange(pix.shape[0], device=pix.device)
+    sel = cur
+    n_seg = torch.zeros_like(pix)
+    records = []
+    for bounce in range(max_depth + 1):
+        k = keys[:, cur]
+        b = _bounce(scene, o, d, k, bounce, torch.ones_like(cur, dtype=bool),
+                    t_min, max_depth)
+        n_seg[cur] += 1
+        sc = b.scatter
+        records.append(dict(
+            sel=sel, cur=cur, win=b.win, t_hit=b.t, hit=b.hit_mask,
+            miss=b.miss_mask, survives=b.survives, front=b.hit.front_face,
+            degen=sc.degenerate, do_reflect=sc.reflected, use_c2=b.use_c2,
+            draws=(*sc.unit_rand, *sc.sphere_rand,
+                   torch.zeros_like(b.t))))
+        keep = b.survives.nonzero()[:, 0]
+        if keep.numel() == 0:
+            break
+        sel, cur = keep, cur[keep]
+        o, d = b.new_o[:, keep], b.new_d[:, keep]
+    return records, n_seg
+
+
+def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
+                            seed_words, sample_lo: int, width: int,
+                            height: int, spp: int, max_depth: int,
+                            t_min: float, chunk: int = 1 << 16):
+    """Plain version of tiles_adjoint, same inputs and outputs.
+
+    For each chunk of (pixel, sample) paths: 1. replay the decisions and
+    winners under no_grad with the port's plain physics; 2. rebuild
+    every bounce with diff_step under autograd, from the winners' pack
+    columns only (no (N,S) broadcast); 3. take torch.autograd.grad of
+    sum(d_rad[pixel] . contribution)."""
+    dev = sph24.device
+    scene = mk._scene_from_packs(sph24.detach(), bg8.detach())
+    basis = tuple(cam24.detach()[3 * i:3 * i + 3] for i in range(6))
+    sph = sph24.detach().requires_grad_()
+    cam = cam24.detach().requires_grad_()
+    bg = bg8.detach().requires_grad_()
+    grads = [torch.zeros_like(sph), torch.zeros_like(cam),
+             torch.zeros_like(bg)]
+    mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
+    is_sky = bg8.detach()[6] < 0.5
+    n_pix = width * height
+    n_rays = n_pix * spp
+    chunk = min(chunk, n_pix)
+    for lo in range(0, n_rays, chunk):
+        ray = torch.arange(lo, min(lo + chunk, n_rays), device=dev)
+        pix = ray % n_pix
+        keys = rng.sample_keys(tuple(seed_words), pix,
+                               sample_lo + ray // n_pix)
+        with torch.no_grad():
+            records, n_seg = _replay(scene, basis, cam24.detach(), keys,
+                                     pix, width=width, height=height,
+                                     max_depth=max_depth, t_min=t_min)
+            mismatches += (n_seg != lengths.reshape(-1)[ray].long()
+                           ).sum().to(torch.int32)
+        with torch.enable_grad():
+            state = camera_ray_rows(
+                cam, (pix % width).to(torch.float32),
+                (pix // width).to(torch.float32), rng.camera_draws(keys))
+            state = state + (torch.ones_like(state[0]),) * 3
+            total = 0.0
+            for r in records:
+                state = tuple(row[r["sel"]] for row in state)
+                mtype = sph24.detach()[8, r["win"]]
+                c = dict(r, is_sky=is_sky, is_lam=mtype == MAT_LAMBERTIAN,
+                         is_met=mtype == MAT_METAL,
+                         is_die=mtype == MAT_DIELECTRIC)
+                zero = torch.zeros_like(state[0])
+                out = diff_step(c, *state, zero, zero, zero,
+                                sph[:, r["win"]], *bg[:6])
+                dr = d_rad[pix[r["cur"]]]
+                total = total + (dr[:, 0] * out[10] + dr[:, 1] * out[11]
+                                 + dr[:, 2] * out[12]).sum()
+                state = out[:10]
+            parts = torch.autograd.grad(total, (sph, cam, bg),
+                                        allow_unused=True)
+        for acc, g in zip(grads, parts):
+            if g is not None:
+                acc += g
+    return (*grads, mismatches)
+
+
+class TileTrainChain(torch.autograd.Function):
+    """The tile render as a differentiable function of the packs:
+    apply(sph24, cam24, bg8, seed_words, sample_lo, width, height, spp,
+    max_depth, t_min) -> (radiance sums (P,3), traced counts (P,) i32).
+    Forward: one render_tiles_train; backward: one tiles_adjoint,
+    seeded by the radiance cotangent (P,3). The traced counts carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
+                height, spp, max_depth, t_min):
+        kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
+                  height=height, spp=spp, max_depth=max_depth, t_min=t_min)
+        rad, traced, lengths = render_tiles_train(sph24, cam24, bg8, **kw)
+        ctx.save_for_backward(sph24, cam24, bg8, lengths)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(traced)
+        return rad, traced
+
+    @staticmethod
+    def backward(ctx, d_rad, _d_traced):
+        sph24, cam24, bg8, lengths = ctx.saved_tensors
+        d_sph, d_cam, d_bg, _ = tiles_adjoint(
+            sph24, cam24, bg8, d_rad.to(torch.float32), lengths, **ctx.kw)
+        return (d_sph, d_cam, d_bg) + (None,) * 7

@@ -1,10 +1,12 @@
-"""Forward render: the one-launch tile path and the plain bounce step.
+"""Render: the one-launch tile paths, forward and differentiable.
 
 `render_image_tiles` renders every pixel's samples with one launch of
 the tile-render kernel (ops/megakernel.render_tiles) on a CUDA device,
 or with the kernel's plain PyTorch version for tensors on the CPU.
-`_shade` is one bounce of the plain physics (intersect, shade,
-scatter), shared by the plain version and the tests.
+`render_image_diff` / `trace_tiles_diff` are the differentiable render
+through the train kernels (ops/megakernel_train). `_bounce` is one
+bounce of the plain physics (intersect, shade, scatter), shared by the
+plain versions and the tests.
 
 Every random draw is keyed by (seed, pixel, sample, bounce, stream)
 (rng.py), so a pixel's samples are the same paths whichever version
@@ -17,10 +19,13 @@ import dataclasses
 import torch
 
 from . import rng
-from .geometry import FAM_NONE, FAM_SPHERE, INF, intersect_spheres, make_hit
-from .materials import scatter
+from .geometry import (FAM_NONE, FAM_SPHERE, INF, Hit, intersect_spheres,
+                       make_hit)
+from .materials import Scatter, scatter
 from .ops import megakernel as ops_mega
+from .ops import megakernel_train as ops_train
 from .scene import BG_SKY, SceneArrays
+from .textures import use_color2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,14 +52,28 @@ def background_color(scene: SceneArrays, d):
     return torch.where(scene.bg_mode == BG_SKY, sky, bot.expand_as(sky))
 
 
-def _shade(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
-           max_depth):
+@dataclasses.dataclass(frozen=True)
+class Bounce:
+    """One bounce of a ray batch, with the decisions a replay needs."""
+
+    t: torch.Tensor  # (N,) winner t; INF on a miss
+    win: torch.Tensor  # (N,) int64 winning sphere slot (0 on a miss)
+    hit: Hit
+    scatter: Scatter
+    hit_mask: torch.Tensor  # (N,) bool
+    miss_mask: torch.Tensor  # (N,) bool
+    use_c2: torch.Tensor  # (N,) bool: the checker's odd cell
+    contribution: torch.Tensor  # (3,N) radiance banked this step
+    survives: torch.Tensor  # (N,) bool
+    new_o: torch.Tensor  # (3,N)
+    new_d: torch.Tensor  # (3,N)
+
+
+def _bounce(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
+            max_depth) -> Bounce:
     """One physics step for a ray set: intersect, shade, scatter.
 
-    o, d: (3,N); keys: (2,N); bounce: int or (N,); alive: (N,) bool.
-    Returns (contribution (3,N) — radiance to bank this step, scaled by
-    throughput by the caller — new_o, new_d, attenuation (3,N),
-    survives (N,))."""
+    o, d: (3,N); keys: (2,N); bounce: int or (N,); alive: (N,) bool."""
     ops_mega.check_scope(scene)
     t, idx = intersect_spheres(scene, o, d, t_min, INF)
     fam = torch.where(t < INF, FAM_SPHERE, FAM_NONE)
@@ -69,9 +88,23 @@ def _shade(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
     # scattering (src/lib.rs:58-60); misses at that depth still see the
     # sky.
     survives = hit_mask & sc.scattered & (bounce < max_depth)
-    new_o = torch.where(survives, hit.p, o)
-    new_d = torch.where(survives, sc.direction, d)
-    return contribution, new_o, new_d, sc.attenuation, survives
+    return Bounce(
+        t=t, win=idx, hit=hit, scatter=sc, hit_mask=hit_mask,
+        miss_mask=miss_mask,
+        use_c2=use_color2(scene, scene.mat_tex[hit.mat_id.long()], hit.p),
+        contribution=contribution, survives=survives,
+        new_o=torch.where(survives, hit.p, o),
+        new_d=torch.where(survives, sc.direction, d))
+
+
+def _shade(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
+           max_depth):
+    """One physics step (`_bounce`). Returns (contribution (3,N) —
+    radiance to bank this step, scaled by throughput by the caller —
+    new_o, new_d, attenuation (3,N), survives (N,))."""
+    b = _bounce(scene, o, d, keys, bounce, alive, t_min, max_depth)
+    return (b.contribution, b.new_o, b.new_d, b.scatter.attenuation,
+            b.survives)
 
 
 def _check_device(device) -> torch.device:
@@ -82,20 +115,26 @@ def _check_device(device) -> torch.device:
     return device
 
 
-def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed, *,
+def _packs(scene: SceneArrays, camera, cfg: RenderConfig, device):
+    """The kernels' sphere, camera and background packs on `device`,
+    differentiable functions of the scene and camera."""
+    return (ops_mega.pack_spheres_full(scene).to(device),
+            ops_mega.pack_camera(camera, cfg.width, cfg.height).to(device),
+            ops_mega.pack_bg(scene).to(device))
+
+
+def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
+                sample_lo: int = 0, n_samples: int | None = None, *,
                 device):
-    """Render the cfg.spp samples of every pixel on `device`. Returns
-    (radiance sums (P,3) in scan-line order, n_traced) with
-    P = width * height. (rrt_tpu's progressive sample ranges come with
-    the CLI's chunks, ROADMAP Queue A #12.)"""
+    """Render samples [sample_lo, sample_lo + n_samples) of every pixel
+    on `device` (n_samples defaults to cfg.spp). Returns (radiance sums
+    (P,3) in scan-line order, n_traced) with P = width * height."""
     ops_mega.check_scope(scene, cfg.rr_depth)
     device = _check_device(device)
-    sph24 = ops_mega.pack_spheres_full(scene).to(device)
-    cam24 = ops_mega.pack_camera(camera, cfg.width, cfg.height).to(device)
-    bg8 = ops_mega.pack_bg(scene).to(device)
     rad, traced = ops_mega.render_tiles(
-        sph24, cam24, bg8, seed_words=rng.key_words(seed),
-        sample_lo=0, width=cfg.width, height=cfg.height, spp=cfg.spp,
+        *_packs(scene, camera, cfg, device), seed_words=rng.key_words(seed),
+        sample_lo=sample_lo, width=cfg.width, height=cfg.height,
+        spp=cfg.spp if n_samples is None else n_samples,
         max_depth=cfg.max_depth, t_min=cfg.t_min)
     return rad, traced.sum()
 
@@ -107,6 +146,69 @@ def render_image_tiles(scene: SceneArrays, camera, cfg: RenderConfig,
     rad, n_traced = trace_tiles(scene, camera, cfg, seed, device=device)
     image = rad.reshape(cfg.height, cfg.width, 3) / float(cfg.spp)
     return image, n_traced
+
+
+# Samples per differentiable launch in trace_tiles_diff; make_train_step
+# sends budgets above 4x this to the chunked trainer (as rrt_tpu does).
+DIFF_SAMPLE_BUDGET = 64
+
+
+def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
+    """None when the train kernels cover the scene; otherwise why not.
+    rrt_tpu then takes its scan path, which the port does not have yet
+    (ROADMAP Queue A #10), so the differentiable entry points raise."""
+    if ops_train.supports_train(scene) and cfg.rr_depth == 0:
+        return None
+    what, item = ops_mega.scope_gap(scene, cfg.rr_depth)
+    return (f"{what} is outside the train kernels' scope (ROADMAP "
+            f"Queue A {item})")
+
+
+def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
+    reason = diff_fallback_reason(scene, cfg)
+    if reason is not None:
+        raise NotImplementedError(
+            f"{where}: {reason}; the scan fallback that would render it "
+            "differentiably is not ported (ROADMAP Queue A #10)")
+
+
+def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
+                     sample_lo: int = 0, n_samples: int | None = None,
+                     sample_budget: int | None = None, *, device):
+    """Differentiable render of samples [sample_lo, sample_lo +
+    n_samples): (radiance sums (P,3), n_traced), as trace_tiles, with
+    gradients to the scene's and camera's tensors through the packs.
+
+    Each launch is an ops.megakernel_train.TileTrainChain: forward one
+    train_fwd kernel, backward one train_bwd kernel. Budgets above
+    `sample_budget` (default DIFF_SAMPLE_BUDGET) run as several chains
+    over consecutive sample ranges; autograd sums their gradients. The
+    residual a chain keeps is one byte per path, so no chain is
+    recomputed."""
+    _check_diff_scope("trace_tiles_diff", scene, cfg)
+    device = _check_device(device)
+    budget = sample_budget or DIFF_SAMPLE_BUDGET
+    n_samples = cfg.spp if n_samples is None else n_samples
+    packs = _packs(scene, camera, cfg, device)
+    rad, n_traced = None, 0
+    for lo in range(0, n_samples, budget):
+        r, traced = ops_train.TileTrainChain.apply(
+            *packs, rng.key_words(seed), sample_lo + lo, cfg.width,
+            cfg.height, min(budget, n_samples - lo), cfg.max_depth,
+            cfg.t_min)
+        rad = r if rad is None else rad + r
+        n_traced = n_traced + traced.sum()
+    return rad, n_traced
+
+
+def render_image_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
+                      *, device):
+    """Differentiable full-image render through the train kernels.
+    Returns (image (H,W,3) mean radiance, n_traced). A scene outside
+    their scope raises NotImplementedError naming the reason."""
+    _check_diff_scope("render_image_diff", scene, cfg)
+    rad, n = trace_tiles_diff(scene, camera, cfg, seed, device=device)
+    return rad.reshape(cfg.height, cfg.width, 3) / float(cfg.spp), n
 
 
 def tonemap(image):

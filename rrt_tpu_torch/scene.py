@@ -116,6 +116,11 @@ class SceneArrays:
     def n_spheres(self) -> int:
         return self.sphere_radius.shape[0]
 
+    def to(self, device) -> "SceneArrays":
+        """The same scene with every tensor on `device` (differentiable,
+        like Tensor.to)."""
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).to(device) for name in tensor_fields()})
 
 
 def tensor_fields():

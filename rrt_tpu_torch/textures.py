@@ -7,7 +7,18 @@ rrt_tpu.textures. Perlin and image textures wait for ROADMAP Queue A
 
 import torch
 
-from .scene import TEX_SOLID, SceneArrays
+from .scene import TEX_CHECKER, SceneArrays
+
+
+def use_color2(scene: SceneArrays, tex_id, p):
+    """(N,) bool: the checker's odd cells (RTTNW ch. 4.3 sine form),
+    where the texture shows color2; False on solid textures. A discrete
+    decision, so it carries no gradient."""
+    tex_id = tex_id.long()
+    scale = scene.tex_scale[tex_id]
+    s = (torch.sin(scale * p[0]) * torch.sin(scale * p[1])
+         * torch.sin(scale * p[2]))
+    return (scene.tex_type[tex_id] == TEX_CHECKER) & (s < 0.0)
 
 
 def texture_value(scene: SceneArrays, tex_id, u, v, p):
@@ -20,9 +31,4 @@ def texture_value(scene: SceneArrays, tex_id, u, v, p):
     tex_id = tex_id.long()
     c1 = scene.tex_color1[tex_id].T
     c2 = scene.tex_color2[tex_id].T
-    scale = scene.tex_scale[tex_id]
-    # Checker (RTTNW ch. 4.3 sine form).
-    s = (torch.sin(scale * p[0]) * torch.sin(scale * p[1])
-         * torch.sin(scale * p[2]))
-    checker = torch.where(s < 0.0, c2, c1)
-    return torch.where(scene.tex_type[tex_id] == TEX_SOLID, c1, checker)
+    return torch.where(use_color2(scene, tex_id, p), c2, c1)
