@@ -3,22 +3,28 @@
     python3 chip_smoke.py
 
 Builds the kernels from rrt_tpu_torch/ops/csrc with nvcc and holds each
-against its plain PyTorch version on the card. Then drives the two main
+against its plain PyTorch version on the card. Then drives the main
 paths on chap12 (RTIOW final, 484 spheres), each with the launch counts
 set to 0 just before it and read just after:
 
   [4] the forward render, 1200x800, 32 spp, depth 50, through the CLI;
   [7] training, rrt_tpu_torch.diff.make_train_step at 1200x800, 8 spp,
       depth 50, three SGD steps (train_fwd + train_bwd);
-  [8] the 500-spp north-star step, routed to the chunked trainer.
+  [8] the 500-spp north-star step, routed to the chunked trainer;
+  [Q2] the queue driver through the CLI, 1200x800, 32 spp, depth 50, in
+      four progressive passes of 8 spp (bounce_steps);
+  [Q3] the batch driver through the CLI, 1200x800, 4 spp, depth 50
+      (intersect_only).
 
 [5] holds the train kernels against their plain versions, at two small
 shapes and at [7]'s, and [6] checks their gradients with finite
-differences at full size. Prints the
-card's name and power limit beside every time, one JSON line of the
-kernels, and as its last line {"ok": true, "device": {...}}. Any
-failure raises and exits non-zero; without a CUDA device it exits 2
-before printing any result.
+differences at full size; [Q1] holds bounce_steps against its plain
+version at [Q2]'s queue shape, and intersect_only against its at that
+shape and at [Q3]'s batch shape, on camera rays and after 1-4 bounces. Prints the card's name and power
+limit beside every time, one JSON line of the kernels (with each one's
+least time on the card, `bound_ms`), and as its last line {"ok": true,
+"device": {...}}. Any failure raises and exits non-zero; without a CUDA
+device it exits 2 before printing any result.
 """
 
 import dataclasses
@@ -41,6 +47,39 @@ NORTH_STAR_SPP = 500
 MIX = (1.0, 0.7, 0.3)  # channel weights of the weighted-sum losses
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
+QUEUE_LANES = 131072  # RenderConfig.queue_size, the CLI's default
+QUEUE_CHUNK = 8  # [Q2]'s --spp-chunk: four progressive passes
+BATCH_SPP = 4
+# The batch driver's rays a pass: RenderConfig's tile_pixels x
+# samples_per_pass (the last tile of 1200x800 has 38,912).
+BATCH_RAYS = 16384 * 4
+
+# The least time an H100 SXM could take (NVIDIA's data sheet; at a
+# 700 W power limit): FP32 outside the tensor
+# cores, and HBM3.
+FP32_PEAK = 67e12  # FLOP/s
+HBM_RATE = 3.35e12  # bytes/s
+# FP32 operations one ray-slot test needs (bounce.cuh closest_sphere),
+# with what is constant per sphere (|c|^2 - r^2, 2c) hoisted out of it:
+# d.c (5), o.2c (5), half_b (1), c_coef (2), disc (3) and the test of
+# disc (1). The roots of the rare hit and the shading of the winner (a
+# few hundred operations a bounce, under 3% of a 512-slot scan) are not
+# counted: a lower bound.
+FLOPS_PER_SLOT = 17
+# FP32 operations of one bounce of train.cu's reverse sweep beyond the
+# replay's scan: scatter_adjoint recomputes the winner's quadratic and
+# shade() and runs the transpose (a count of its source, transcendentals
+# as one operation each).
+ADJOINT_FLOPS = 300
+
+
+def bound(ops: float, n_bytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the FP32
+    peak and the bytes (each input read once, each output written once)
+    over the memory rate."""
+    t_ops, t_bytes = ops / FP32_PEAK, n_bytes / HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def card_line() -> str:
@@ -165,8 +204,18 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
           f"|grad delta| {err:.3e}; train_fwd {fwd_ms:.3f} ms (plain "
           f"{fwd_plain_ms:.1f} ms), train_bwd {bwd_ms:.3f} ms (plain "
           f"{bwd_plain_ms:.1f} ms)  [{card}]", flush=True)
+    # Bounds: the forward's scan over the traced segments; the backward's
+    # replay of the same scan plus its adjoint a bounce. Bytes: the packs
+    # and the residual in, the outputs out.
+    segments, n_slots, n_pix = int(traced.sum()), packs[0].shape[1], w * h
+    scan = segments * n_slots * FLOPS_PER_SLOT
+    pack_bytes = 4 * (24 * n_slots + 24 + 8)
+    fwd_bound = bound(scan, pack_bytes + n_pix * (12 + 4 + spp))
+    bwd_bound = bound(scan + segments * ADJOINT_FLOPS,
+                      2 * pack_bytes + n_pix * (12 + spp) + 4)
     return dict(fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, bwd_ms=bwd_ms,
-                bwd_plain_ms=bwd_plain_ms, fwd_err=fwd_err, bwd_err=err)
+                bwd_plain_ms=bwd_plain_ms, fwd_err=fwd_err, bwd_err=err,
+                fwd_bound=fwd_bound, bwd_bound=bwd_bound)
 
 
 def ground_texture(scene):
@@ -247,6 +296,133 @@ def device_breakdown(fn, card):
         print(f"    {t:10.3f} ms  x{n:<4d} {key[:70]}")
     print(f"    device busy {busy:.2f} ms of {ms:.2f} ms wall "
           f"({busy / ms:.1%})  [{card}]", flush=True)
+    return rows, busy, ms
+
+
+def lane_state(scene, cam, w, h, n, device):
+    """A queue state of n camera rays at sample 0 (16, n), its key bits
+    and the packs, on the device; the pixels are spread evenly over the
+    w x h image."""
+    from rrt_tpu_torch import render, rng
+    from rrt_tpu_torch.ops import megakernel as mk
+    pix = torch.arange(n, device=device) * max(1, w * h // n) % (w * h)
+    keys = rng.sample_keys(rng.key_words(0), pix, 0)
+    o, d, tm = render.generate_rays(cam.to(device), pix % w, pix // w, w, h,
+                                    keys)
+    one = torch.ones((n,), device=device)
+    zero = torch.zeros((n,), device=device)
+    st = mk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                       one, zero)
+    return (st, rng.u32_bits(keys), mk.pack_spheres_full(scene).to(device),
+            mk.pack_bg(scene).to(device))
+
+
+def intersect_vs_plain(what, o, d, sph):
+    """intersect_only against its plain version on the rays (o, d): fam
+    and idx equal on >= 99.9% of rays (the card's own spread: they agreed
+    on every camera ray at full size), t within 1e-5 relative where they
+    agree on a hit (both round every product), misses equal. Returns
+    (share of rays agreeing, max |t delta| on agreeing hits, plain ms)."""
+    from rrt_tpu_torch.ops import megakernel as mk
+    t, fam, idx = mk.intersect_only(o, d, sph, t_min=1e-3)
+    (rt, rfam, ridx), plain_ms = wall_ms(
+        lambda: mk.intersect_only_reference(o, d, sph, t_min=1e-3))
+    same = (fam == rfam) & (idx == ridx)
+    hit = same & (fam == 0)
+    miss = same & (fam == -1)
+    t_rel = ((t - rt).abs() / rt)[hit].max().item() if hit.any() else 0.0
+    frac = same.float().mean().item()
+    print(f"  intersect_only {what}: fam and idx agree on {frac:.5f} of "
+          f"{o.shape[1]} rays, {int(hit.sum())} hits, t within {t_rel:.2e} "
+          f"relative", flush=True)
+    check(frac >= 0.999 and t_rel <= 1e-5
+          and torch.equal(t[miss], rt[miss]),
+          ("intersect_only", what, frac, t_rel))
+    abs_err = (t - rt).abs()[hit].max().item() if hit.any() else 0.0
+    return frac, abs_err, plain_ms
+
+
+def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
+    """[Q1] bounce_steps (4 steps, depth 50) against its plain version on
+    n lanes of camera rays, by the rule of tests/test_torch_queue.py at
+    the card's own spread (kernel and plain agreed on 99.995% of lanes
+    at full size): alive agrees on >= 99.9% of lanes, traced and bounce
+    equal there, throughput and pending radiance within 1e-3 on >= 99.5%
+    of them. intersect_only (intersect_vs_plain) on the same n camera
+    rays, and on `batch` lanes, the batch driver's rays a pass, before
+    and after each of 4 bounce steps (all lanes, the dead keeping their
+    last ray, as trace_batch passes them)."""
+    from rrt_tpu_torch import scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    build = checker_scene if name == "checker" else tscenes.SCENES[name]
+    scene, cam = build(w, h)
+    st, keys, sph, bg = lane_state(scene, cam, w, h, n, device)
+    n_slots = sph.shape[1]
+    kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3)
+    out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    ref, plain_ms = wall_ms(
+        lambda: mk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw))
+    agree = (out[14] > 0.5) == (ref[14] > 0.5)
+    frac = agree.float().mean().item()
+    counts = (torch.equal(out[13][agree], ref[13][agree])
+              and torch.equal(out[15][agree], ref[15][agree]))
+    err = (out[7:13] - ref[7:13]).abs().amax(dim=0)[agree]
+    close = (err < 1e-3).float().mean().item()
+    check(frac >= 0.999 and counts and close >= 0.995,
+          ("bounce_steps", name, frac, counts, close))
+    work, log = torch.empty_like(st), []
+    for _ in range(5):  # in place: each launch starts from the same state
+        work.copy_(st)
+        timed(mk.bounce_steps, log)(work, keys, sph, bg, **kw)
+    torch.cuda.synchronize()
+    ms = events_ms(log) / len(log)
+    segments = int((out[15] - st[15]).sum())
+    b_ms, b_by = bound(segments * n_slots * FLOPS_PER_SLOT,
+                       4 * (n * (16 + 2 + 16) + 24 * n_slots + 8))
+    print(f"  bounce_steps {name} {w}x{h}, {n} lanes, 4 steps: alive "
+          f"agrees on {frac:.5f} of lanes, counts equal there, {close:.5f} "
+          f"within 1e-3 (max {err.max().item():.3e}); {segments} segments; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})  [{card}]", flush=True)
+
+    o, d = st[0:3], st[3:6]
+    _, i_err, i_plain_ms = intersect_vs_plain(f"{name} {n} camera rays", o,
+                                              d, sph)
+    i_ms = cuda_ms(lambda: mk.intersect_only(o, d, sph, t_min=1e-3), 5)
+    i_bound = bound(n * n_slots * FLOPS_PER_SLOT,
+                    4 * (n * (6 + 3) + 24 * n_slots))
+    print(f"  intersect_only {name}, {n} rays: kernel {i_ms:.3f} ms, plain "
+          f"{i_plain_ms:.1f} ms, bound {i_bound[0]:.4f} ms ({i_bound[1]})  "
+          f"[{card}]", flush=True)
+    st_b, keys_b, _, _ = lane_state(scene, cam, w, h, batch, device)
+    for depth in range(5):
+        if depth:
+            mk.bounce_steps(st_b, keys_b, sph, bg, k_steps=1,
+                            max_depth=MAIN["max_depth"], t_min=1e-3)
+        alive = int((st_b[14] > 0.5).sum())
+        _, e, _ = intersect_vs_plain(
+            f"{name} batch of {batch} after {depth} bounces ({alive} alive)",
+            st_b[0:3], st_b[3:6], sph)
+        i_err = max(i_err, e)
+    return dict(ms=ms, plain_ms=plain_ms, err=err.max().item(),
+                bound=(b_ms, b_by), i_ms=i_ms, i_plain_ms=i_plain_ms,
+                i_err=i_err, i_bound=i_bound)
+
+
+def hold_to_tile(what, image, n_traced, tile_image, tile_traced):
+    """The rule of [Q2] and [Q3]: the same paths as tile_render, summed in
+    another order, so image means within 0.1%, traced totals within
+    0.05%, and >= 95% of pixels within 1e-3."""
+    mean, tile_mean = image.mean(dim=(0, 1)), tile_image.mean(dim=(0, 1))
+    rel = ((mean - tile_mean).abs() / tile_mean).max().item()
+    dt = abs(n_traced - tile_traced) / tile_traced
+    err = (image - tile_image).abs().amax(dim=2)
+    close = (err < 1e-3).float().mean().item()
+    print(f"  {what} vs tile: image means {rel:.5%} apart, traced {n_traced} "
+          f"vs {tile_traced} ({dt:.5%}), {close:.5f} of pixels within 1e-3, "
+          f"max pixel |delta| {err.max().item():.4f}", flush=True)
+    check(rel < 1e-3 and dt < 5e-4 and close >= 0.95,
+          (what, rel, dt, close))
 
 
 def main() -> int:
@@ -304,6 +480,10 @@ def main() -> int:
         check(rel < 1e-2 and abs(nt - nr) / nr < 1e-2 and close >= 0.9,
               (rel, nt, nr, close))
     kernel_ms, main_plain_ms, main_err = ms, plain_ms, max_err
+    n_slots = tscenes.chap12_scene(8, 8)[0].n_spheres
+    n_pix = MAIN["width"] * MAIN["height"]
+    main_bound = bound(nt * n_slots * FLOPS_PER_SLOT,
+                       4 * (24 * n_slots + 24 + 8) + n_pix * (12 + 4))
 
     print("[4] main path: rrt_tpu_torch.cli, chap12 1200x800 32spp d50",
           flush=True)
@@ -335,6 +515,7 @@ def main() -> int:
     check(nonzero > 0.99, ("non-zero pixels", nonzero))
     check(os.path.getsize(png) > 0, "empty PNG")
     check(res.n_traced == MAIN_TRACED, ("traced", res.n_traced, MAIN_TRACED))
+    tile_image = img
 
     print("[5] train kernels vs tile_render and their plain versions",
           flush=True)
@@ -459,30 +640,134 @@ def main() -> int:
     check(worst < 1e-4 and abs(l4.item() - l1.item()) <= 1e-6 * l1.item(),
           ("chunked vs one-shot", worst))
 
+    print("[Q1] bounce_steps and intersect_only vs their plain versions "
+          "on the card", flush=True)
+    q1 = queue_kernels_vs_plain("chap12", MAIN["width"], MAIN["height"],
+                                QUEUE_LANES, BATCH_RAYS, device, card)
+    queue_kernels_vs_plain("checker", 64, 32, 64 * 32, 64 * 32, device,
+                           card)
+
+    print(f"[Q2] main path: the queue driver through rrt_tpu_torch.cli, "
+          f"chap12 1200x800 32spp d50, --spp-chunk {QUEUE_CHUNK}",
+          flush=True)
+    argv_q = argv + ["--driver", "queue", "--spp-chunk", str(QUEUE_CHUNK)]
+    with tempfile.TemporaryDirectory() as tmp:  # warm-up run
+        warm = cli.render(cli.build_parser().parse_args(
+            argv_q + ["-o", os.path.join(tmp, "warm.png")]))
+    png_q = os.path.join(OUT_DIR, "chip_smoke_chap12_queue.png")
+    mk.bounce_steps.launches = 0
+    render.trace_queue.outer_steps = 0
+    res_q = cli.render(cli.build_parser().parse_args(argv_q + ["-o", png_q]))
+    q_launches = mk.bounce_steps.launches
+    outer_steps = render.trace_queue.outer_steps
+    print(f"  {res_q.seconds:.4f} s wall, {res_q.passes} passes, "
+          f"{res_q.n_traced} rays, {res_q.n_traced / res_q.seconds / 1e6:.2f} "
+          f"Mrays/s, bounce_steps launches {q_launches}, outer steps "
+          f"{outer_steps}  [{card}]", flush=True)
+    check(q_launches >= 1, "the queue driver did not launch bounce_steps")
+    check(res_q.driver == "queue" and res_q.passes == 4, "queue passes")
+    check(bool(torch.isfinite(res_q.image).all()), "non-finite pixels")
+    repeat = (warm.image - res_q.image).abs().max().item()
+    print(f"  same-seed queue renders: bitwise equal "
+          f"{torch.equal(warm.image, res_q.image)}, max |delta| {repeat:.3e}, "
+          f"traced {warm.n_traced} and {res_q.n_traced}", flush=True)
+    check(warm.n_traced == res_q.n_traced and repeat < 1e-4,
+          ("queue repeatability", repeat))
+    hold_to_tile("queue", res_q.image, res_q.n_traced, tile_image,
+                         MAIN_TRACED)
+    print(f"  one {QUEUE_CHUNK}-spp pass of trace_queue under torch.profiler:",
+          flush=True)
+    cfg_q = render.RenderConfig(width=MAIN["width"], height=MAIN["height"],
+                                spp=MAIN["spp"], max_depth=MAIN["max_depth"],
+                                queue_size=QUEUE_LANES)
+    scene_q, cam_q = tscenes.chap12_scene(cfg_q.width, cfg_q.height)
+    ids = torch.arange(n_pix)
+    before = render.trace_queue.outer_steps
+    rows, busy, wall = device_breakdown(lambda: render.trace_queue(
+        scene_q, cam_q, ids % cfg_q.width, ids // cfg_q.width, cfg_q, 0, 0,
+        QUEUE_CHUNK, device=device), card)
+    n_out = render.trace_queue.outer_steps - before
+    k_ms = sum(t for key, t, _ in rows if "bounce_steps" in key)
+    print(f"  per outer step ({n_out}): wall {wall / n_out:.3f} ms, device "
+          f"busy {busy / n_out:.3f} ms (bounce_steps_kernel "
+          f"{k_ms / n_out:.3f} ms), device idle {(wall - busy) / n_out:.3f} "
+          f"ms  [{card}]", flush=True)
+
+    print(f"[Q3] main path: the batch driver through rrt_tpu_torch.cli, "
+          f"chap12 1200x800 {BATCH_SPP}spp d50", flush=True)
+    argv_b = ["--scene", MAIN["scene"], "-r",
+              f"{MAIN['width']}x{MAIN['height']}", "-s", str(BATCH_SPP),
+              "-e", "0", "--max-depth", str(MAIN["max_depth"]), "--driver",
+              "batch", "--device", "cuda:0", "--quiet"]
+    png_b = os.path.join(OUT_DIR, "chip_smoke_chap12_batch.png")
+    mk.intersect_only.launches = 0
+    res_b = cli.render(cli.build_parser().parse_args(argv_b + ["-o", png_b]))
+    b_launches = mk.intersect_only.launches
+    print(f"  {res_b.seconds:.4f} s wall, {res_b.n_traced} rays, "
+          f"{res_b.n_traced / res_b.seconds / 1e6:.2f} Mrays/s, "
+          f"intersect_only launches {b_launches}  [{card}]", flush=True)
+    check(b_launches >= 1, "the batch driver did not launch intersect_only")
+    check(bool(torch.isfinite(res_b.image).all()), "non-finite pixels")
+    cfg_b = render.RenderConfig(width=MAIN["width"], height=MAIN["height"],
+                                spp=BATCH_SPP, max_depth=MAIN["max_depth"])
+    tile_b, tile_b_traced = render.render_image_tiles(
+        scene_q, cam_q, cfg_b, 0, device=device)
+    hold_to_tile("batch", res_b.image, res_b.n_traced, tile_b,
+                 int(tile_b_traced))
+    # The middle tile (rows 395-409: spheres and ground); the first is
+    # all sky and ends after one bounce step.
+    print("  the middle tile of the batch render under torch.profiler:",
+          flush=True)
+    scene_d, cam_d = scene_q.to(device), cam_q.to(device)
+    cfg_b = dataclasses.replace(cfg_b, samples_per_pass=BATCH_SPP)
+    tiles = render._tile_coords(cfg_b, device)
+    px, py = tiles[len(tiles) // 2]
+    before = mk.intersect_only.launches
+    rows, busy, wall = device_breakdown(lambda: render.render_tile(
+        scene_d, cam_d, px, py, cfg_b, 0, 0, 1), card)
+    n_bounce = mk.intersect_only.launches - before
+    k_ms = sum(t for key, t, _ in rows if "intersect_kernel" in key)
+    print(f"  per bounce step ({n_bounce}, {px.numel() * BATCH_SPP} rays): "
+          f"wall {wall / n_bounce:.3f} ms, device busy {busy / n_bounce:.3f} "
+          f"ms (intersect_kernel {k_ms / n_bounce:.3f} ms)  [{card}]",
+          flush=True)
+
     main_fwd = sum(m[0] for m in step_ms) / len(step_ms)
     main_bwd = sum(m[1] for m in step_ms) / len(step_ms)
     print(f"[9] total wall {time.perf_counter() - t_start:.1f} s", flush=True)
-    # ms / plain_ms: the same shape for both (tile_render at MAIN, the
-    # train kernels at [5]'s chap12 1200x800, 8 spp, depth 50); main_ms:
-    # the train kernels' mean per step of [7] (the same shape).
+    # ms / plain_ms / bound_ms: the same shape for each (tile_render at
+    # MAIN, the train kernels at [5]'s chap12 1200x800, 8 spp, depth 50,
+    # bounce_steps and intersect_only at [Q1]'s chap12 131072 lanes;
+    # intersect_only's max_abs_err also covers [Q1]'s batch rays);
+    # main_ms: the train kernels' mean per step of [7] (the same shape).
+    # No single PyTorch call computes any of these functions.
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                **extra}
+
+    csrc = "rrt_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "tile_render", "route": "cuda",
-         "source": "rrt_tpu_torch/ops/csrc/tile_render.cu",
-         "replaces": "rrt_tpu/ops/megakernel.py:2048",
-         "launches": launches, "max_abs_err": main_err,
-         "ms": kernel_ms, "plain_ms": main_plain_ms},
-        {"name": "train_fwd", "route": "cuda",
-         "source": "rrt_tpu_torch/ops/csrc/train.cu",
-         "replaces": "rrt_tpu/ops/megakernel_train.py:376",
-         "launches": fwd_launches, "max_abs_err": t5["fwd_err"],
-         "ms": t5["fwd_ms"], "plain_ms": t5["fwd_plain_ms"],
-         "main_ms": main_fwd},
-        {"name": "train_bwd", "route": "cuda",
-         "source": "rrt_tpu_torch/ops/csrc/train.cu",
-         "replaces": "rrt_tpu/ops/megakernel_train.py:463",
-         "launches": bwd_launches, "max_abs_err": t5["bwd_err"],
-         "ms": t5["bwd_ms"], "plain_ms": t5["bwd_plain_ms"],
-         "main_ms": main_bwd}]}))
+        entry("tile_render", csrc + "tile_render.cu",
+              "rrt_tpu/ops/megakernel.py:2048", launches, main_err,
+              kernel_ms, main_plain_ms, main_bound),
+        entry("train_fwd", csrc + "train.cu",
+              "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
+              t5["fwd_err"], t5["fwd_ms"], t5["fwd_plain_ms"],
+              t5["fwd_bound"], main_ms=main_fwd),
+        entry("train_bwd", csrc + "train.cu",
+              "rrt_tpu/ops/megakernel_train.py:463", bwd_launches,
+              t5["bwd_err"], t5["bwd_ms"], t5["bwd_plain_ms"],
+              t5["bwd_bound"], main_ms=main_bwd),
+        entry("bounce_steps", csrc + "queue.cu",
+              "rrt_tpu/ops/megakernel.py:645", q_launches, q1["err"],
+              q1["ms"], q1["plain_ms"], q1["bound"]),
+        entry("intersect_only", csrc + "queue.cu",
+              "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
+              q1["i_ms"], q1["i_plain_ms"], q1["i_bound"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

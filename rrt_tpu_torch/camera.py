@@ -40,6 +40,12 @@ class Camera:
             fov_deg=f32(fov_deg), aspect=f32(aspect), aperture=f32(aperture),
             focus_dist=f32(focus_dist), time0=f32(time0), time1=f32(time1))
 
+    def to(self, device) -> "Camera":
+        """The same camera with every field on `device` (differentiable,
+        like Tensor.to)."""
+        return Camera(**{f.name: getattr(self, f.name).to(device)
+                         for f in dataclasses.fields(self)})
+
     def basis(self):
         """Derived frame: (origin, lower_left, horizontal, vertical, u, v),
         each (3,)."""

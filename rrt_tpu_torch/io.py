@@ -1,8 +1,13 @@
-"""Image output: PPM and PNG writers (format by file extension).
+"""Image output and checkpoints.
 
-The same dependency-free writers as rrt_tpu.io; the port's CLI writes
-its tonemapped RGB8 images through them."""
+The same dependency-free PPM and PNG writers as rrt_tpu.io (format by
+file extension), and its checkpoint format: an .npz of the float
+radiance accumulator (sum over samples), the samples done, the seed and
+a JSON meta, so that a checkpoint written by either package resumes in
+the other. Resuming is exact because sample keys are (pixel, sample)
+addressed."""
 
+import json
 import struct
 import zlib
 
@@ -39,3 +44,20 @@ def write_image(path: str, rgb8: np.ndarray) -> None:
         write_png(path, rgb8)
     else:
         write_ppm(path, rgb8)
+
+
+def save_checkpoint(path: str, radiance_sum: np.ndarray, spp_done: int,
+                    seed: int, meta: dict | None = None) -> None:
+    """Persist the radiance accumulator (P,3) and the (seed, spp) cursor
+    a resumed render needs (numpy adds .npz to a path without it)."""
+    np.savez_compressed(
+        path, radiance_sum=np.asarray(radiance_sum, np.float32),
+        spp_done=np.int64(spp_done), seed=np.int64(seed),
+        meta=json.dumps(meta or {}))
+
+
+def load_checkpoint(path: str):
+    """(radiance_sum (P,3) f32, spp_done, seed, meta dict)."""
+    z = np.load(path, allow_pickle=False)
+    meta = json.loads(str(z["meta"]))
+    return z["radiance_sum"], int(z["spp_done"]), int(z["seed"]), meta

@@ -21,12 +21,13 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("tile_render.cu", "train.cu")
+_SOURCES = ("tile_render.cu", "train.cu", "queue.cu")
 _HEADERS = ("bounce.cuh",)  # hashed with the sources, not compiled alone
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rrt_tpu_torch"
 # -fmad=false: no mul+add contraction into FMA; see the note on floats
 # in csrc/tile_render.cu. The train kernels need it too: the backward
-# replays the forward's paths bit for bit.
+# replays the forward's paths bit for bit; and the queue kernel, so that
+# it traces the paths tile_render traces.
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -98,6 +99,10 @@ def load() -> ctypes.CDLL:
     lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, u, u, u, i, i, i, i, f,
                                   p, p, p, p]
     lib.rrt_train_bwd.restype = i
+    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, i, i, f, p]
+    lib.rrt_bounce_steps.restype = i
+    lib.rrt_intersect.argtypes = [p, p, i, p, i, f, p, p, p, p]
+    lib.rrt_intersect.restype = i
     lib.rrt_error_string.argtypes = [i]
     lib.rrt_error_string.restype = ctypes.c_char_p
     return lib

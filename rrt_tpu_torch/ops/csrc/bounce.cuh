@@ -1,6 +1,7 @@
 // Device functions of one path-tracing bounce, shared by the forward
-// (tile_render.cu) and the train kernels (train.cu), so that the three
-// run the same arithmetic under the same flags (-fmad=false, see the
+// (tile_render.cu), the train kernels (train.cu) and the queue and batch
+// drivers' kernels (queue.cu), so that all of them run the same
+// arithmetic under the same flags (-fmad=false, see the
 // note on floats in tile_render.cu): Threefry, uniforms, Box-Muller, the
 // thin-lens camera ray, the closest-sphere scan, and the shading step
 // of the winner, which exposes its decisions and intermediates to the
@@ -395,19 +396,27 @@ __device__ __forceinline__ int bounce_step(const float* sph,
   return kScattered;
 }
 
-// Stage a block's packs in shared memory: the intersection rows (0-3)
-// of every slot as float4 (invalid slots carry r^2 = -1 and so never
-// have a positive discriminant), the camera and the background.
-__device__ __forceinline__ void stage_packs(const float* sph, int n_slots,
-                                            const float* cam_g,
-                                            const float* bg_g, float4* sph4,
-                                            float* cam, float* bg) {
+// Stage the intersection rows (0-3) of every slot in shared memory as
+// float4 (invalid slots carry r^2 = -1 and so never have a positive
+// discriminant).
+__device__ __forceinline__ void stage_spheres(const float* sph, int n_slots,
+                                              float4* sph4) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   for (int i = tid; i < n_slots; i += n_threads) {
     sph4[i] = make_float4(sph[i], sph[n_slots + i], sph[2 * n_slots + i],
                           sph[kRowR2 * n_slots + i]);
   }
+}
+
+// Stage a block's packs in shared memory: the spheres' intersection
+// rows, the camera and the background.
+__device__ __forceinline__ void stage_packs(const float* sph, int n_slots,
+                                            const float* cam_g,
+                                            const float* bg_g, float4* sph4,
+                                            float* cam, float* bg) {
+  stage_spheres(sph, n_slots, sph4);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < 24) cam[tid] = cam_g[tid];
   if (tid < 8) bg[tid] = bg_g[tid];
 }

@@ -1,9 +1,19 @@
-"""The tile-render kernel's packs, its wrapper and its plain version.
+"""The forward kernels' packs, wrappers and plain versions.
 
-`render_tiles` renders every pixel's samples in one launch of the CUDA
-kernel in csrc/tile_render.cu, the counterpart of rrt_tpu's
-`ops/megakernel.py::_tile_render_kernel`. For tensors on the CPU it
-runs `render_tiles_reference`, the same function in plain PyTorch.
+Three CUDA kernels, each beside its plain PyTorch version, which tensors
+on the CPU run instead:
+
+  `render_tiles`   every pixel's samples in one launch
+                   (csrc/tile_render.cu), the counterpart of rrt_tpu's
+                   `ops/megakernel.py::_tile_render_kernel`; plain
+                   version `render_tiles_reference`;
+  `bounce_steps`   K bounce steps of the queue driver's (16, Q) lane
+                   state (csrc/queue.cu), the counterpart of
+                   `_bounce_megakernel`; plain `bounce_steps_reference`;
+  `intersect_only` the closest sphere of each ray for the batch driver
+                   (csrc/queue.cu), the counterpart of
+                   `_intersect_kernel` for the sphere family; plain
+                   `intersect_only_reference`.
 
 The kernel reads the scene as packs, laid out as in rrt_tpu:
 
@@ -21,6 +31,8 @@ Background pack, f32 (8,): bottom rgb | top rgb | mode | pad
 The sphere pack keeps the scene's own slot count (a multiple of 128):
 unlike the TPU kernel, the GPU kernel has no tile width to pad to.
 """
+
+import types
 
 import torch
 
@@ -274,3 +286,185 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
             pix, ray, keys, o, d, thr = (pix[keep], ray[keep], keys[:, keep],
                                          o[:, keep], d[:, keep], thr[:, keep])
     return rad.T.contiguous(), traced, lengths.reshape(spp, n_pix)
+
+
+# ---------------------------------------------------------------------------
+# The queue state and the bounce-steps kernel
+# ---------------------------------------------------------------------------
+
+# Rows of the (16, Q) f32 queue state, in rrt_tpu's order: o xyz, d xyz,
+# time, throughput rgb, pending radiance rgb, bounce, alive, traced.
+STATE_ROWS = 16
+ROW_TIME, ROW_BOUNCE, ROW_ALIVE, ROW_TRACED = 6, 13, 14, 15
+
+
+def pack_state(o, d, time, thr, pend, bounce, alive, traced):
+    """o, d, thr, pend (3,Q) and time, bounce, alive, traced (Q,) -> the
+    (16, Q) f32 queue state (rrt_tpu/ops/megakernel.py pack_state)."""
+    f32 = torch.float32
+    return torch.cat([
+        o, d, time[None], thr, pend, bounce.to(f32)[None],
+        alive.to(f32)[None], traced.to(f32)[None]]).to(f32).contiguous()
+
+
+def unpack_state(st):
+    """(o (3,Q), d (3,Q), time (Q,), thr (3,Q), pend (3,Q), bounce (Q,)
+    int32, alive (Q,) bool, traced (Q,) f32) of a (16, Q) state."""
+    return (st[0:3], st[3:6], st[ROW_TIME], st[7:10], st[10:13],
+            st[ROW_BOUNCE].to(torch.int32), st[ROW_ALIVE] > 0.5,
+            st[ROW_TRACED])
+
+
+def _check_lanes(name, t, rows, dtype, device):
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+        raise TypeError(f"{name} must be a {dtype} tensor")
+    if t.dim() != 2 or t.shape[0] != rows:
+        raise ValueError(f"{name} must be ({rows}, Q), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, sph24 on {device}")
+
+
+def _check_spheres(sph24, bg8=None):
+    _check_lanes("sph24", sph24, 24, torch.float32, sph24.device)
+    if bg8 is not None:
+        if (not isinstance(bg8, torch.Tensor) or bg8.dtype != torch.float32
+                or tuple(bg8.shape) != (8,) or bg8.device != sph24.device):
+            raise ValueError("bg8 must be an (8,) float32 tensor on sph24's "
+                             "device")
+    device = sph24.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cuda or cpu, not {device}")
+    if device.type == "cuda" and sph24.shape[1] > MAX_SLOTS:
+        raise ValueError(f"{sph24.shape[1]} sphere slots exceed the "
+                         f"kernels' {MAX_SLOTS}")
+    return device
+
+
+def _launch_error(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.rrt_error_string(err).decode())
+
+
+def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
+                 t_min: float):
+    """Run k_steps bounce steps on every live lane of a queue state.
+
+    state: (16, Q) f32 (pack_state's rows), updated IN PLACE and
+    returned: each lane is read and written where it lies, which saves a
+    (16, Q) copy a launch. keys: (2, Q) int32 holding each lane's u32
+    sample-key words (rng.u32_bits). sph24 (24, S), bg8 (8,): the packs.
+
+    Per live lane and step, as rrt_tpu's _one_bounce: traced += 1; a
+    miss adds throughput x background to the pending radiance and kills
+    the lane; a scatter below max_depth multiplies the throughput by the
+    albedo (a dielectric's by 1), moves o and d, and adds 1 to bounce;
+    an absorption, or a hit at max_depth, kills the lane. A dead lane
+    (alive row 0) passes through unchanged.
+
+    CUDA tensors launch the kernel (counted in `bounce_steps.launches`);
+    CPU tensors run bounce_steps_reference."""
+    device = _check_spheres(sph24, bg8)
+    _check_lanes("state", state, STATE_ROWS, torch.float32, device)
+    _check_lanes("keys", keys, 2, torch.int32, device)
+    q = state.shape[1]
+    if keys.shape[1] != q:
+        raise ValueError(f"keys has {keys.shape[1]} lanes, state {q}")
+    if k_steps < 1 or max_depth < 0:
+        raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth}")
+    kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min)
+    if device.type == "cpu":
+        return bounce_steps_reference(state, keys, sph24, bg8, **kw)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        err = lib.rrt_bounce_steps(
+            state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(),
+            sph24.shape[1], bg8.data_ptr(), k_steps, max_depth, t_min,
+            torch.cuda.current_stream(device).cuda_stream)
+    _launch_error(lib, err, "bounce_steps")
+    bounce_steps.launches += 1
+    return state
+
+
+bounce_steps.launches = 0
+
+
+def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
+                           max_depth: int, t_min: float):
+    """Plain PyTorch version of `bounce_steps`, same inputs and outputs
+    (the state is updated in place and returned): each step runs
+    render._shade on the live lanes, with their own bounce counts."""
+    from ..render import _shade  # render imports this module
+
+    scene = _scene_from_packs(sph24, bg8)
+    keys = rng.from_u32_bits(keys)
+    for _ in range(k_steps):
+        lanes = (state[ROW_ALIVE] > 0.5).nonzero()[:, 0]
+        if lanes.numel() == 0:
+            break
+        st = state[:, lanes]
+        o, d, time, thr, pend, bounce, alive, traced = unpack_state(st)
+        contrib, new_o, new_d, att, survives = _shade(
+            scene, o, d, keys[:, lanes], bounce, alive, t_min, max_depth)
+        state[:, lanes] = pack_state(
+            new_o, new_d, time, torch.where(survives, thr * att, thr),
+            pend + thr * contrib, bounce + survives.to(torch.int32),
+            survives, traced + 1.0)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# The intersect-only kernel
+# ---------------------------------------------------------------------------
+
+
+def intersect_only(o, d, sph24, *, t_min: float):
+    """Closest sphere of each ray. o, d: (3, Q) f32 rows x y z of the
+    rays' origins and directions (rrt_tpu's kernel takes (8, Q) rows that
+    add each ray's time and bounce, for the moving-sphere and media
+    families, ROADMAP Queue A #9.1 and #9.4; the sphere family reads
+    neither, so this kernel takes no time, bounce or keys). Returns (t
+    (Q,) f32, INF on a miss; fam (Q,) int32, 0 for a sphere, -1 on a
+    miss; idx (Q,) int32, the winning slot, 0 on a miss): rrt_tpu's
+    intersect_all contract.
+
+    CUDA tensors launch the kernel (counted in `intersect_only.launches`);
+    CPU tensors run intersect_only_reference."""
+    device = _check_spheres(sph24)
+    _check_lanes("o", o, 3, torch.float32, device)
+    _check_lanes("d", d, 3, torch.float32, device)
+    q = o.shape[1]
+    if d.shape[1] != q:
+        raise ValueError(f"d has {d.shape[1]} rays, o {q}")
+    if device.type == "cpu":
+        return intersect_only_reference(o, d, sph24, t_min=t_min)
+    t = torch.empty((q,), dtype=torch.float32, device=device)
+    fam = torch.empty((q,), dtype=torch.int32, device=device)
+    idx = torch.empty((q,), dtype=torch.int32, device=device)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        err = lib.rrt_intersect(
+            o.data_ptr(), d.data_ptr(), q, sph24.data_ptr(), sph24.shape[1],
+            t_min, t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _launch_error(lib, err, "intersect_only")
+    intersect_only.launches += 1
+    return t, fam, idx
+
+
+intersect_only.launches = 0
+
+
+def intersect_only_reference(o, d, sph24, *, t_min: float):
+    """Plain PyTorch version of `intersect_only`, same inputs and
+    outputs: geometry.intersect_spheres on the pack's slots."""
+    from ..geometry import INF, intersect_spheres
+
+    spheres = types.SimpleNamespace(sphere_c0=sph24[0:3].T,
+                                    sphere_radius=sph24[18],
+                                    sphere_valid=sph24[7] > 0.5)
+    t, idx = intersect_spheres(spheres, o, d, t_min, INF)
+    idx = idx.to(torch.int32)
+    return t, torch.where(t < INF, 0, -1).to(torch.int32), idx

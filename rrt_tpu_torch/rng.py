@@ -100,6 +100,18 @@ def sample_keys(seed, pixel_gid, sample_id):
     return torch.stack([k0, k1], dim=0)
 
 
+def u32_bits(words):
+    """u32 words held in int64 -> an int32 tensor of the same 32 bits,
+    which a CUDA kernel reads as uint32_t."""
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def from_u32_bits(bits):
+    """The inverse of u32_bits: int32 bits -> u32 words in int64."""
+    return bits.to(torch.int64) & MASK32
+
+
 def _words(keys, counter, n_words: int):
     """n_words u32 streams for this (bounce*8+stream) counter.
     keys: (2, N) rows. Returns (n_words, N) int64."""
