@@ -14,17 +14,42 @@ set to 0 just before it and read just after:
   [Q2] the queue driver through the CLI, 1200x800, 32 spp, depth 50, in
       four progressive passes of 8 spp (bounce_steps);
   [Q3] the batch driver through the CLI, 1200x800, 4 spp, depth 50
-      (intersect_only).
+      (intersect_only);
+  [C2] bench.py's backward_chain in the port: chap12 1200x800, 262,144
+      lanes at pixel ids * 3, depth 50, the gradient of the mean
+      radiance through trace_batch(differentiable=True, fused_vjp=True)
+      (bounce_steps forward, chain_bwd backward, chains 4, 4, 43);
+  [C3] render_image(differentiable=True), 1200x800, 4 spp, depth 50, and
+      the gradient of an L2 loss.
 
 [5] holds the train kernels against their plain versions, at two small
 shapes and at [7]'s, and [6] checks their gradients with finite
 differences at full size; [Q1] holds bounce_steps against its plain
 version at [Q2]'s queue shape, and intersect_only against its at that
-shape and at [Q3]'s batch shape, on camera rays and after 1-4 bounces. Prints the card's name and power
-limit beside every time, one JSON line of the kernels (with each one's
+shape and at [Q3]'s batch shape, on camera rays and after 1-4 bounces;
+[C1] holds chain_bwd against its plain version on each of [C2]'s three
+chains and on small cases. Prints the card's name and power limit
+beside every time, one JSON line of the kernels (with each one's
 least time on the card, `bound_ms`), and as its last line {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero; without a CUDA
 device it exits 2 before printing any result.
+
+What the checks may rest on, so that a run passes or fails alike on any
+H100 whatever else shares the machine:
+
+  * never on torch.profiler: its tables are printed, and a profile
+    without device events (CUPTI may record nothing where another
+    client holds it) prints so and the run goes on. The kernel times of
+    the JSON line come from CUDA events (graph_ms, cuda_ms);
+  * bit-equality only on values that are equal by construction: each
+    lane's input cotangent (one thread a lane) and sums taken in a fixed
+    order. What atomics accumulate is held to a stated spread;
+  * each gate has at least twice the margin of the worst reading seen
+    on the card, written beside it.
+
+Each phase prints its tag before it starts, its readings before the
+checks they feed, and its wall time when it ends; [C1]-[C3] also print
+their peak device memory.
 """
 
 import dataclasses
@@ -53,6 +78,9 @@ BATCH_SPP = 4
 # The batch driver's rays a pass: RenderConfig's tile_pixels x
 # samples_per_pass (the last tile of 1200x800 has 38,912).
 BATCH_RAYS = 16384 * 4
+# bench.py's backward_chain: 262,144 lanes at pixel ids * 3 of chap12
+# 1200x800, sample 0, depth 50.
+CHAIN_LANES = 262144
 
 # The least time an H100 SXM could take (NVIDIA's data sheet; at a
 # 700 W power limit): FP32 outside the tensor
@@ -71,6 +99,32 @@ FLOPS_PER_SLOT = 17
 # shade() and runs the transpose (a count of its source, transcendentals
 # as one operation each).
 ADJOINT_FLOPS = 300
+# chain_bwd sums its pack cotangents with shared-memory atomics whose
+# order within a block changes from run to run. With a seeded normal
+# output cotangent the sums cancel, and over 40 repeats on an H100 80GB
+# HBM3 at 700 W two runs of the checker case of [C1] differed by up to
+# 1.5e-6 of the largest pack cotangent (at [C2]'s chains by up to
+# 1.5e-7): train_bwd's 1e-6 failed there. A repeat, and a run at
+# MAX_SLOTS, must agree within PACK_SPREAD of the largest, 6.6 times the
+# worst reading; a cotangent sent to a wrong slot moves a whole
+# contribution, far above it. [C1] repeats the checker case
+# PACK_REPEATS times and prints the widest spread.
+PACK_SPREAD = 1e-5
+PACK_REPEATS = 40
+# [C1] requires the kernel's and the plain chain's forwards to agree on
+# at least this share of lanes (a near-tie winner flip, or hit points
+# moved in their last digits on the ground sphere, parts a lane). Worst
+# reading on an H100 80GB HBM3 at 700 W: 0.99949 on chain 1 of [C2]'s
+# rays, a parted share of 5.1e-4; the gate allows 2e-3, four times it.
+MIN_FORWARD_AGREE = 0.998
+# The plain chain runs this many lanes at a time: at full width its
+# replay's (slots, lanes) intersection tables would take gigabytes.
+PLAIN_CHUNK = 65536
+# Launches captured in one CUDA graph to time a kernel (graph_ms).
+GRAPH_LAUNCHES = 20
+# The gradient fields [7] and [C2] require to be finite and non-zero.
+GRAD_FIELDS = ("sphere_c0", "sphere_radius", "tex_color1", "mat_fuzz",
+               "mat_ior", "bg_top")
 
 
 def bound(ops: float, n_bytes: float):
@@ -106,6 +160,58 @@ def cuda_ms(fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def graph_ms(fn, *wrappers) -> float:
+    """Mean device milliseconds of one fn() call: GRAPH_LAUNCHES calls
+    captured into a CUDA graph and replayed between two CUDA events, so
+    the host's launch cost is not counted. fn launches on
+    torch.cuda.current_stream(), as the wrappers do; it runs once first,
+    so that nothing is built or loaded during the capture. The capture
+    adds to the `wrappers`' launch and mismatch counts; they are put
+    back as they were."""
+    saved = [(w, dict(vars(w))) for w in wrappers]
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    for w, attrs in saved:
+        vars(w).update(attrs)
+    return start.elapsed_time(end) / GRAPH_LAUNCHES
+
+
+class Phases:
+    """Prints each phase's tag as it starts and its wall time as it
+    ends (when the next one starts, or at `end`)."""
+
+    def __init__(self):
+        self.tag, self.t0 = None, 0.0
+
+    def start(self, tag: str, title: str) -> None:
+        self.end()
+        print(f"[{tag}] {title}", flush=True)
+        self.tag, self.t0 = tag, time.perf_counter()
+
+    def end(self) -> None:
+        if self.tag is not None:
+            print(f"  [{self.tag}] wall {time.perf_counter() - self.t0:.1f} s",
+                  flush=True)
+            self.tag = None
+
+
+def peak_memory(what: str, device, card) -> None:
+    print(f"  {what} peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB  [{card}]",
+          flush=True)
 
 
 def compare(mk, tscenes, device, card, *, width, height, spp, max_depth,
@@ -281,22 +387,56 @@ def events_ms(log):
     return sum(s.elapsed_time(e) for s, e in log)
 
 
-def device_breakdown(fn, card):
-    """Run fn() under torch.profiler; print device time by kernel and
-    the device's busy share of the host wall time."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, ms = wall_ms(fn)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+# The profiler's readings are printed and never checked: whether CUPTI
+# records the card's kernels depends on the machine, not on the port.
+
+
+def profile_rows(events):
+    """(name, device ms, count) of each device entry of a profile's
+    key_averages()."""
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def print_profile(rows, wall, card) -> None:
+    """Print the six largest rows and the device's busy share of `wall`
+    host milliseconds, or that the profile holds no device events."""
+    if not rows:
+        print(f"    no device events recorded ({wall:.2f} ms wall)  "
+              f"[{card}]", flush=True)
+        return
     busy = sum(r[1] for r in rows)
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"    {t:10.3f} ms  x{n:<4d} {key[:70]}")
-    print(f"    device busy {busy:.2f} ms of {ms:.2f} ms wall "
-          f"({busy / ms:.1%})  [{card}]", flush=True)
-    return rows, busy, ms
+    print(f"    device busy {busy:.2f} ms of {wall:.2f} ms wall "
+          f"({busy / max(wall, 1e-9):.1%})  [{card}]", flush=True)
+
+
+def print_per_step(what, rows, wall, n, kernel, card) -> None:
+    """Print a profiled run's wall, device busy and `kernel` time per
+    step, over its n steps."""
+    n = max(n, 1)
+    if not rows:
+        print(f"  per {what} ({n}): wall {wall / n:.3f} ms; no device events "
+              f"recorded  [{card}]", flush=True)
+        return
+    busy = sum(r[1] for r in rows)
+    k_ms = sum(t for key, t, _ in rows if kernel in key)
+    print(f"  per {what} ({n}): wall {wall / n:.3f} ms, device busy "
+          f"{busy / n:.3f} ms ({kernel} {k_ms / n:.3f} ms), device idle "
+          f"{(wall - busy) / n:.3f} ms  [{card}]", flush=True)
+
+
+def device_breakdown(fn, card):
+    """Run fn() under torch.profiler and print its device time by kernel
+    (print_profile). Returns (rows, wall ms) for print_per_step."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, wall = wall_ms(fn)
+    rows = profile_rows(prof.key_averages())
+    print_profile(rows, wall, card)
+    return rows, wall
 
 
 def lane_state(scene, cam, w, h, n, device):
@@ -368,8 +508,6 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
               and torch.equal(out[15][agree], ref[15][agree]))
     err = (out[7:13] - ref[7:13]).abs().amax(dim=0)[agree]
     close = (err < 1e-3).float().mean().item()
-    check(frac >= 0.999 and counts and close >= 0.995,
-          ("bounce_steps", name, frac, counts, close))
     work, log = torch.empty_like(st), []
     for _ in range(5):  # in place: each launch starts from the same state
         work.copy_(st)
@@ -384,11 +522,14 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
           f"within 1e-3 (max {err.max().item():.3e}); {segments} segments; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
           f"({b_by})  [{card}]", flush=True)
+    check(frac >= 0.999 and counts and close >= 0.995,
+          ("bounce_steps", name, frac, counts, close))
 
     o, d = st[0:3], st[3:6]
     _, i_err, i_plain_ms = intersect_vs_plain(f"{name} {n} camera rays", o,
                                               d, sph)
-    i_ms = cuda_ms(lambda: mk.intersect_only(o, d, sph, t_min=1e-3), 5)
+    i_ms = graph_ms(lambda: mk.intersect_only(o, d, sph, t_min=1e-3),
+                    mk.intersect_only)
     i_bound = bound(n * n_slots * FLOPS_PER_SLOT,
                     4 * (n * (6 + 3) + 24 * n_slots))
     print(f"  intersect_only {name}, {n} rays: kernel {i_ms:.3f} ms, plain "
@@ -425,6 +566,373 @@ def hold_to_tile(what, image, n_traced, tile_image, tile_traced):
           (what, rel, dt, close))
 
 
+def chain_rays(device):
+    """[C2]'s rays, bench.py's backward_chain: chap12 at MAIN's size,
+    CHAIN_LANES lanes at pixel ids * 3, sample 0. Returns (scene, cam,
+    cfg, px, py, keys) with px, py, keys on the device."""
+    from rrt_tpu_torch import render, rng, scenes as tscenes
+    w, h = MAIN["width"], MAIN["height"]
+    scene, cam = tscenes.chap12_scene(w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=1,
+                              max_depth=MAIN["max_depth"])
+    ids = torch.arange(CHAIN_LANES, device=device) * (w * h // CHAIN_LANES)
+    px, py = ids % w, (ids // w) % h
+    keys = rng.sample_keys(rng.key_words(0), py * w + px, 0)
+    return scene, cam, cfg, px, py, keys
+
+
+def by_lanes(fn, *lane_args):
+    """fn(*chunk) over PLAIN_CHUNK lanes at a time of the (rows, Q)
+    `lane_args`. Each chunk is a contiguous copy, also when it spans all
+    Q lanes: bounce_steps_reference updates its state in place. Returns
+    the list of the chunks' results."""
+    q = lane_args[0].shape[-1]
+    return [fn(*(a[..., i:i + PLAIN_CHUNK].clone(
+                memory_format=torch.contiguous_format) for a in lane_args))
+            for i in range(0, q, PLAIN_CHUNK)]
+
+
+def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
+                   device, card):
+    """[C1] chain_bwd against chain_adjoint_reference on one chain input.
+    A lane agrees when the two forwards (bounce_steps and its plain
+    version) end it with equal bounce and alive rows and rows 0-12
+    within 1e-3 absolute and relative: a near-tie winner flip can leave
+    the counts equal and send the lane's gradient to another sphere
+    (with the counts alone, 1.4% of chap12's tex_color1 entries broke
+    gradcheck's rule at 262,144 lanes on an H100), while the expanded
+    quadratic's cancellation on the ground moves hit points in their
+    last digits (with 1e-6 absolute, 1% of lanes failed). At least
+    MIN_FORWARD_AGREE of lanes must agree; the others get a zero output
+    cotangent, the rest a seeded normal one. Each version's replay is
+    held to its own forward's bounce row. The plain versions run
+    PLAIN_CHUNK lanes at a time (by_lanes).
+
+    A second kernel run must repeat the input cotangent bit for bit (one
+    thread computes each lane's, with no atomics) and the background's
+    (warp shuffles, then warps and blocks summed in a fixed order), and
+    the pack's, which shared-memory atomics sum, within PACK_SPREAD of
+    their largest. Then, by the rule of tests/test_torch_cuda.py: the
+    input cotangent within 1e-3 of each row's largest on >= 99.5% of
+    live lanes and equal to d_out on dead ones, rows 13-15 zero; the
+    pack and background cotangents by rrt_tpu_torch.gradcheck's rule at
+    the level of partition() fields; no replay mismatch in either.
+    Returns the kernel's forward output and the numbers of the kernels
+    line."""
+    from rrt_tpu_torch import diff, gradcheck
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
+    kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3)
+    out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    ref_out = torch.cat(by_lanes(
+        lambda s, k: mk.bounce_steps_reference(s, k, sph, bg, **kw), st,
+        keys), dim=1)
+    agree = ((out[mk.ROW_BOUNCE] == ref_out[mk.ROW_BOUNCE])
+             & ((out[mk.ROW_ALIVE] > 0.5) == (ref_out[mk.ROW_ALIVE] > 0.5))
+             & ((out[:13] - ref_out[:13]).abs()
+                <= 1e-3 * ref_out[:13].abs() + 1e-3).all(dim=0))
+    frac = agree.float().mean().item()
+    gen = torch.Generator().manual_seed(k_steps)
+    d_out = (torch.randn(tuple(st.shape), generator=gen).to(device)
+             * agree).contiguous()
+    ob, ref_ob = out[mk.ROW_BOUNCE].clone(), ref_out[mk.ROW_BOUNCE].clone()
+    k = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    parts, plain_ms = wall_ms(lambda: by_lanes(
+        lambda s, ks, g, b: mkv.chain_adjoint_reference(s, ks, sph, bg, g, b,
+                                                        **kw),
+        st, keys, d_out, ref_ob))
+    # The phase's peak so far ([C1] resets it as it starts): the plain
+    # chain is what sets it.
+    plain_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    p = (torch.cat([x[0] for x in parts], dim=1),
+         *(sum(x[j] for x in parts) for j in (1, 2, 3)))
+    ms = graph_ms(lambda: mkv.chain_adjoint(st, keys, sph, bg, d_out, ob,
+                                            **kw), mkv.chain_adjoint)
+    k2 = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    repeat = ((k2[1] - k[1]).abs().max()
+              / k[1].abs().max().clamp(min=1e-30)).item()
+    same = torch.equal(k2[0], k[0]) and torch.equal(k2[2], k[2])
+    mism = (int(k[3]), int(p[3]))
+    live = st[mk.ROW_ALIVE] > 0.5
+    scale = p[0][:13].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    lane_ok = ((k[0][:13] - p[0][:13]).abs() <= 1e-3 * scale).all(dim=0)
+    lanes = lane_ok[live].float().mean().item() if live.any() else 1.0
+    dead_equal = torch.equal(k[0][:13, ~live], d_out[:13, ~live])
+    no_cam = torch.zeros((24,), device=device)
+    kp, kc = diff.field_grads(scene, cam, cfg, k[1], no_cam, k[2],
+                              device=device)
+    pp, pc = diff.field_grads(scene, cam, cfg, p[1], no_cam, p[2],
+                              device=device)
+    faults, err = gradcheck.field_grad_faults(kp, kc, pp, pc)
+    rel = max(((kp[f] - pp[f]).abs().max()
+               / pp[f].abs().max().clamp(min=1e-30)).item() for f in pp)
+    segments = int((out[mk.ROW_TRACED] - st[mk.ROW_TRACED]).sum())
+    print(f"  chain_bwd {what}, {st.shape[1]} lanes ({int(live.sum())} "
+          f"alive), k={k_steps}: forwards agree on {frac:.5f} of lanes "
+          f"(rule {MIN_FORWARD_AGREE}), input cotangent within 1e-3 on "
+          f"{lanes:.5f} of live lanes (rule 0.995), dead lanes pass d_out "
+          f"{dead_equal}, replay_mismatches {mism}, max |field grad delta| "
+          f"{err:.3e} (largest over a field's largest gradient: {rel:.3e}, "
+          f"rule 2e-3); a repeat: input and background cotangents bit-equal "
+          f"{same}, the pack's within {repeat:.2e} (rule {PACK_SPREAD:g}); "
+          f"{segments} segments; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
+          f"([C1] peak so far {plain_gb:.3f} GB)  [{card}]", flush=True)
+    check(frac >= MIN_FORWARD_AGREE and lanes >= 0.995 and dead_equal
+          and not faults and mism == (0, 0) and not k[0][13:].any() and same
+          and repeat <= PACK_SPREAD,
+          ("chain_bwd", what, frac, lanes, dead_equal, faults, mism, same,
+           repeat))
+    return out, dict(ms=ms, plain_ms=plain_ms, segments=segments, err=err,
+                     q=st.shape[1], n_slots=sph.shape[1])
+
+
+def chain_small_cases(device, card):
+    """[C1] on the checker scene at 64x32 lanes: chains of 4 and 1 steps
+    from camera rays and of 12 after 3 steps; a chain whose lanes are
+    all dead (the input cotangent is d_out); PACK_REPEATS runs at the
+    pack's own slots and at MAX_SLOTS. The slots past the pack's copy its
+    last slot, an empty one, which no ray hits: the same arithmetic runs
+    for every lane, so its input cotangent and the fixed-order
+    background sums are bit-equal by construction; the empty slots get
+    no cotangent and the pack's (atomics) agree within PACK_SPREAD."""
+    from rrt_tpu_torch import render
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
+    w, h = 64, 32
+    scene, cam = checker_scene(w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=1, max_depth=50)
+    st, keys, sph, bg = lane_state(scene, cam, w, h, w * h, device)
+    for k_steps, pre in ((4, 0), (1, 0), (12, 3)):
+        s0 = st.clone()
+        if pre:
+            mk.bounce_steps(s0, keys, sph, bg, k_steps=pre, max_depth=50,
+                            t_min=1e-3)
+        chain_vs_plain(f"checker after {pre} steps", s0, keys, sph, bg,
+                       k_steps, scene, cam, cfg, device, card)
+    kw = dict(k_steps=4, max_depth=50, t_min=1e-3)
+    gen = torch.Generator().manual_seed(1)
+    d_out = torch.randn(tuple(st.shape), generator=gen).to(device)
+    dead = st.clone()
+    dead[mk.ROW_ALIVE] = 0.0
+    d_st, d_sph, d_bg, mism = mkv.chain_adjoint(
+        dead, keys, sph, bg, d_out, dead[mk.ROW_BOUNCE].clone(), **kw)
+    dead_ok = (torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
+               and not d_sph.any() and not d_bg.any() and int(mism) == 0)
+    n = sph.shape[1]
+    empty_pad = bool(sph[7, -1] < 0.5)  # the pack's last slot is empty
+    wide = torch.cat([sph, sph[:, -1:].expand(-1, mk.MAX_SLOTS - n)],
+                     dim=1).contiguous()
+    out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    ob = out[mk.ROW_BOUNCE].clone()
+    a = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    largest = a[1].abs().max().item()
+    spread = {"repeat": 0.0, f"{mk.MAX_SLOTS} slots": 0.0}
+    equal = {k: True for k in spread}
+    for _ in range(PACK_REPEATS):
+        for what, pack in (("repeat", sph), (f"{mk.MAX_SLOTS} slots", wide)):
+            b = mkv.chain_adjoint(st, keys, pack, bg, d_out, ob, **kw)
+            equal[what] &= (torch.equal(a[0], b[0])
+                            and torch.equal(a[2], b[2])
+                            and not b[1][:, n:].any() and int(b[3]) == 0)
+            spread[what] = max(spread[what], (b[1][:, :n] - a[1]).abs()
+                               .max().item() / largest)
+    print(f"  chain_bwd checker: dead lanes pass d_out through {dead_ok}; "
+          f"over {PACK_REPEATS} runs, each at {n} and at {mk.MAX_SLOTS} "
+          f"slots (padded with an empty slot: {empty_pad}), the input and "
+          f"background cotangents bit-equal, the padding without cotangent "
+          f"and no mismatch: " + ", ".join(f"{v} ({k})" for k, v in
+                                           equal.items())
+          + "; the pack's within "
+          + ", ".join(f"{v:.3e} ({k})" for k, v in spread.items())
+          + f" of the largest, {largest:.4e} (rule {PACK_SPREAD:g})",
+          flush=True)
+    check(dead_ok, "chain_bwd on dead lanes")
+    check(empty_pad and all(equal.values()), ("chain_bwd", equal))
+    check(max(spread.values()) <= PACK_SPREAD, ("chain_bwd pack", spread))
+
+
+def grads_check(what, gp, gc):
+    """The gradients of [7], [C2] and [C3]: finite, and not zero for
+    GRAD_FIELDS and the camera's look_from."""
+    for key, g in list(gp.items()) + [("camera", g) for g in gc]:
+        check(bool(torch.isfinite(g).all()), (what, "non-finite", key))
+    for key in GRAD_FIELDS:
+        check(gp[key].abs().max().item() > 0, (what, "zero gradient", key))
+    check(gc[0].abs().max().item() > 0, (what, "zero gradient: look_from"))
+
+
+def batch_loss_and_grads(cfg, scene, cam, target, seed, device):
+    """The MSE loss of render_image(differentiable=True) against `target`
+    and its gradients: (image, n_traced, loss, partition() gradients,
+    the nine Camera gradients)."""
+    from rrt_tpu_torch import diff, render
+    scene_d, params, camera = diff._leaves(scene, cam, device)
+    img, n = render.render_image(scene_d, camera, cfg, seed,
+                                 differentiable=True, device=device)
+    loss = torch.mean((img - target) ** 2)
+    gp, gc = diff._grads(loss, params, camera)
+    return img.detach(), int(n), loss.detach(), gp, gc
+
+
+def chain_bound(c1):
+    """chain_bwd's least time over [C1]'s three chains: the replay's scan
+    (FLOPS_PER_SLOT a ray-slot test) and ADJOINT_FLOPS a replayed
+    segment; bytes: a lane's state, keys, output cotangent and bounce
+    row in and its input cotangent out, the packs in and their
+    cotangents out, each chain."""
+    n_slots = c1[0]["n_slots"]
+    segments = sum(c["segments"] for c in c1)
+    return bound(segments * (n_slots * FLOPS_PER_SLOT + ADJOINT_FLOPS),
+                 sum(4 * (c["q"] * (16 + 2 + 16 + 1 + 16) + 36 * n_slots
+                          + 16) for c in c1))
+
+
+def chain_kernel_phase(device, card):
+    """[C1] chain_bwd against its plain version on each chain of [C2]'s
+    path (the kernels' forward gives each chain's input) and on
+    chain_small_cases. Returns (per-chain numbers, [C2]'s inputs)."""
+    from rrt_tpu_torch import render, rng
+    from rrt_tpu_torch.ops import megakernel as mk
+    scene, cam, cfg, px, py, keys = chain_rays(device)
+    sph = mk.pack_spheres_full(scene).to(device)
+    bg = mk.pack_bg(scene).to(device)
+    n = px.shape[0]
+    o, d, tm = render.generate_rays(cam.to(device), px, py, cfg.width,
+                                    cfg.height, keys)
+    one = torch.ones((n,), device=device)
+    zero = torch.zeros((n,), device=device)
+    st = mk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                       one, zero)
+    kbits, lane = rng.u32_bits(keys), torch.arange(n, device=device)
+    schedule = render._fused_schedule(cfg.max_depth)
+    c1 = []
+    for j, k_steps in enumerate(schedule):
+        out, numbers = chain_vs_plain(
+            f"chain {j + 1} of {schedule}", st, kbits, sph, bg, k_steps,
+            scene, cam, cfg, device, card)
+        c1.append(numbers)
+        if j < len(schedule) - 1:
+            st, kbits, lane = render._compact_lanes(out, kbits, lane)
+    chain_small_cases(device, card)
+    b_ms, b_by = chain_bound(c1)
+    print(f"  the three chains: chain_bwd {sum(c['ms'] for c in c1):.3f} ms,"
+          f" plain {sum(c['plain_ms'] for c in c1):.1f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), "
+          f"{sum(c['segments'] for c in c1)} replayed segments  [{card}]",
+          flush=True)
+    return c1, (scene, cam, cfg, px, py, keys)
+
+
+def chain_step_phase(chain, device, card):
+    """[C2] the main path: bench.py's backward_chain in the port, a
+    warm-up and three timed gradient steps, the chains' forwards and
+    backwards by CUDA events, one more step under torch.profiler.
+    Returns the launches of (bounce_steps, chain_bwd) in the timed
+    steps."""
+    from rrt_tpu_torch import diff, render
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
+    scene, cam, cfg, px, py, keys = chain
+
+    def step():
+        scene_d, params, camera = diff._leaves(scene, cam, device)
+        o, d, _ = render.generate_rays(camera, px, py, cfg.width,
+                                       cfg.height, keys)
+        rad, n = render.trace_batch(scene_d, o, d, keys, cfg.max_depth,
+                                    1e-3, differentiable=True,
+                                    fused_vjp=True)
+        loss = rad[0].mean() + rad[1].mean() + rad[2].mean()
+        gp, gc = diff._grads(loss, params, camera)
+        return loss.detach(), gp, gc, int(n)
+
+    fwd_log, bwd_log = [], []
+    fn = mkv.BounceChain
+    fwd, bwd = fn.forward, fn.backward
+    fn.forward = staticmethod(timed(fwd, fwd_log))
+    fn.backward = staticmethod(timed(bwd, bwd_log))
+    step()  # warm-up
+    mk.bounce_steps.launches = mkv.chain_adjoint.launches = 0
+    mkv.chain_adjoint.replay_mismatches = 0
+    runs = []
+    for i in range(3):
+        fwd_log.clear()
+        bwd_log.clear()
+        (loss, gp, gc, traced), ms = wall_ms(step)
+        runs.append((ms, events_ms(fwd_log), events_ms(bwd_log)))
+        print(f"  step {i}: loss {loss.item():.6e}, {traced} traced "
+              f"segments, chain forwards {runs[-1][1]:.2f} ms, chain "
+              f"backwards {runs[-1][2]:.2f} ms, step {ms:.2f} ms  [{card}]",
+              flush=True)
+    launches = (mk.bounce_steps.launches, mkv.chain_adjoint.launches)
+    mismatches = int(mkv.chain_adjoint.replay_mismatches)
+    fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+    med = sorted(runs)[1][0]
+    print(f"  median step {med:.2f} ms: {traced / med / 1e3:.4f} Mrays/s "
+          f"(traced segments over step wall); launches bounce_steps "
+          f"{launches[0]}, chain_bwd {launches[1]}; replay_mismatches "
+          f"{mismatches}  [{card}]", flush=True)
+    check(min(launches) >= 3,
+          ("the chain step did not launch the kernels", launches))
+    check(mismatches == 0, ("replay_mismatches", mismatches))
+    check(bool(torch.isfinite(loss)), "non-finite chain loss")
+    grads_check("[C2]", gp, gc)
+    print("  one more step under torch.profiler:", flush=True)
+    device_breakdown(step, card)
+    return launches
+
+
+def differentiable_batch_phase(tile_image, tile_traced, device, card):
+    """[C3] render_image(differentiable=True) at 1200x800, BATCH_SPP spp
+    in one pass of 59 tiles, with the gradient of an L2 loss: held to
+    the tile image (tile_image, tile_traced: render_image_tiles at the
+    same samples) by hold_to_tile, gradients finite. Then at 240x160 the
+    same loss through render_image_diff's route (the train kernels): the
+    two drivers trace the same keys and only the eager camera rays
+    differ from the kernel's in their last bits; prints how far the
+    gradients lie apart, each partition() field against its largest
+    gradient, each Camera field against the largest Camera gradient
+    (information: no gate reads it)."""
+    from rrt_tpu_torch import diff, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
+    cfg = render.RenderConfig(width=MAIN["width"], height=MAIN["height"],
+                              spp=BATCH_SPP, max_depth=MAIN["max_depth"],
+                              samples_per_pass=BATCH_SPP)
+    scene, cam = tscenes.chap12_scene(cfg.width, cfg.height)
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    mk.bounce_steps.launches = mkv.chain_adjoint.launches = 0
+    mkv.chain_adjoint.replay_mismatches = 0
+    (img, n, loss, gp, gc), ms = wall_ms(lambda: batch_loss_and_grads(
+        cfg, scene, cam, target, 0, device))
+    launches = (mk.bounce_steps.launches, mkv.chain_adjoint.launches)
+    mismatches = int(mkv.chain_adjoint.replay_mismatches)
+    print(f"  loss {loss.item():.6e}, {n} traced segments, forward and "
+          f"backward {ms / 1e3:.3f} s wall, launches bounce_steps "
+          f"{launches[0]}, chain_bwd {launches[1]}, replay_mismatches "
+          f"{mismatches}  [{card}]", flush=True)
+    check(min(launches) >= 3 and mismatches == 0,
+          ("[C3] launches", launches, mismatches))
+    hold_to_tile("differentiable batch", img, n, tile_image, tile_traced)
+    for key, g in list(gp.items()) + [("camera", g) for g in gc]:
+        check(bool(torch.isfinite(g).all()), ("[C3] non-finite", key))
+    cfg_s = dataclasses.replace(cfg, width=240, height=160)
+    scene_s, cam_s = tscenes.chap12_scene(240, 160)
+    target_s, _ = render.render_image_tiles(scene_s, cam_s, cfg_s, 1,
+                                            device=device)
+    _, _, loss_b, gp_b, gc_b = batch_loss_and_grads(
+        cfg_s, scene_s, cam_s, target_s, 0, device)
+    loss_t, gp_t, gc_t = diff.loss_and_grads(cfg_s, scene_s, cam_s,
+                                             target_s, 0, device=device)
+    spread = {k: ((gp_b[k] - gp_t[k]).abs().max()
+                  / gp_t[k].abs().max().clamp(min=1e-30)).item()
+              for k in GRAD_FIELDS + ("bg_bottom",)}
+    cam_max = max(g.abs().max().item() for g in gc_t)
+    for i, f in enumerate(dataclasses.fields(cam_s)):
+        spread["camera." + f.name] = (
+            (gc_b[i] - gc_t[i]).abs().max().item() / cam_max)
+    print(f"  240x160 {BATCH_SPP}spp: losses {loss_b.item():.8e} (batch) "
+          f"and {loss_t.item():.8e} (train kernels); max |gradient "
+          f"delta| / largest gradient: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in spread.items()),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -436,6 +944,7 @@ def main() -> int:
     from rrt_tpu_torch.ops import megakernel_train as mkt
 
     t_start = time.perf_counter()
+    phases = Phases()
     device = torch.device("cuda:0")
     torch.cuda.set_device(device)
     card = card_line()
@@ -447,7 +956,7 @@ def main() -> int:
     print(f"[2] built {os.path.relpath(built.path, REPO)} in "
           f"{built.seconds:.1f} s\n{built.log.strip()}", flush=True)
 
-    print("[3] kernel vs plain version on the card", flush=True)
+    phases.start("3", "kernel vs plain version on the card")
     # 64x32, 4 spp, depth 8: the tolerance of tests/test_torch_slice.py.
     (rad, traced), (ref, ref_traced), _, _ = compare(
         mk, tscenes, device, card, width=64, height=32, spp=4, max_depth=8)
@@ -479,14 +988,13 @@ def main() -> int:
               f"{max_err:.4f}", flush=True)
         check(rel < 1e-2 and abs(nt - nr) / nr < 1e-2 and close >= 0.9,
               (rel, nt, nr, close))
-    kernel_ms, main_plain_ms, main_err = ms, plain_ms, max_err
+    tile_ms, main_plain_ms, main_err = ms, plain_ms, max_err
     n_slots = tscenes.chap12_scene(8, 8)[0].n_spheres
     n_pix = MAIN["width"] * MAIN["height"]
     main_bound = bound(nt * n_slots * FLOPS_PER_SLOT,
                        4 * (24 * n_slots + 24 + 8) + n_pix * (12 + 4))
 
-    print("[4] main path: rrt_tpu_torch.cli, chap12 1200x800 32spp d50",
-          flush=True)
+    phases.start("4", "main path: rrt_tpu_torch.cli, chap12 1200x800 32spp d50")
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, "chip_smoke_chap12.png")
     argv = ["--scene", MAIN["scene"], "-r",
@@ -517,8 +1025,7 @@ def main() -> int:
     check(res.n_traced == MAIN_TRACED, ("traced", res.n_traced, MAIN_TRACED))
     tile_image = img
 
-    print("[5] train kernels vs tile_render and their plain versions",
-          flush=True)
+    phases.start("5", "train kernels vs tile_render and their plain versions")
     train_vs_plain("chap12", 240, 160, 2, 50, device, card)
     train_vs_plain("checker", 64, 32, 4, 8, device, card)
     # At [7]'s shape. A path parts ways with the plain version with odds
@@ -530,11 +1037,11 @@ def main() -> int:
                         min_pixels=0.96, min_paths=0.995,
                         plain_chunk=1 << 19)
 
-    print("[6] finite differences at chap12 1200x800 8spp d50", flush=True)
+    phases.start("6", "finite differences at chap12 1200x800 8spp d50")
     finite_differences(device, card)
 
-    print("[7] main path: rrt_tpu_torch.diff.make_train_step, chap12 "
-          "1200x800 8spp d50, 3 SGD steps", flush=True)
+    phases.start("7", "main path: rrt_tpu_torch.diff.make_train_step, "
+                 "chap12 1200x800 8spp d50, 3 SGD steps")
     cfg = render.RenderConfig(**TRAIN)
     scene, cam = tscenes.chap12_scene(cfg.width, cfg.height)
     target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
@@ -547,12 +1054,7 @@ def main() -> int:
     loss0, gp, gc = diff.loss_and_grads(cfg, start, cam, target, 0,
                                         device=device)
     check(bool(torch.isfinite(loss0)), "non-finite loss")
-    for key, g in list(gp.items()) + [("camera", g) for g in gc]:
-        check(bool(torch.isfinite(g).all()), ("non-finite gradient", key))
-    for key in ("sphere_c0", "sphere_radius", "tex_color1", "mat_fuzz",
-                "mat_ior", "bg_top"):
-        check(gp[key].abs().max().item() > 0, ("zero gradient", key))
-    check(gc[0].abs().max().item() > 0, "zero gradient: look_from")
+    grads_check("[7]", gp, gc)
     step = diff.make_train_step(cfg, device=device)  # lr 1e-2, as rrt_tpu
     # CUDA events around the autograd Function's forward (train_fwd) and
     # backward (train_bwd); the launch counts stay on the wrappers.
@@ -593,8 +1095,8 @@ def main() -> int:
     print("  one more step under torch.profiler:", flush=True)
     device_breakdown(lambda: step(start, cam, target, 0), card)
 
-    print(f"[8] north star: make_train_step at 1200x800 "
-          f"{NORTH_STAR_SPP}spp d50 (the chunked trainer)", flush=True)
+    phases.start("8", f"north star: make_train_step at 1200x800 "
+                 f"{NORTH_STAR_SPP}spp d50 (the chunked trainer)")
     cfg_ns = dataclasses.replace(cfg, spp=NORTH_STAR_SPP)
     chunk = diff.resolve_spp_chunk(cfg_ns, device=device)
     step_ns = diff.make_train_step(cfg_ns, device=device)
@@ -640,16 +1142,16 @@ def main() -> int:
     check(worst < 1e-4 and abs(l4.item() - l1.item()) <= 1e-6 * l1.item(),
           ("chunked vs one-shot", worst))
 
-    print("[Q1] bounce_steps and intersect_only vs their plain versions "
-          "on the card", flush=True)
+    phases.start("Q1", "bounce_steps and intersect_only vs their plain "
+                 "versions on the card")
     q1 = queue_kernels_vs_plain("chap12", MAIN["width"], MAIN["height"],
                                 QUEUE_LANES, BATCH_RAYS, device, card)
     queue_kernels_vs_plain("checker", 64, 32, 64 * 32, 64 * 32, device,
                            card)
 
-    print(f"[Q2] main path: the queue driver through rrt_tpu_torch.cli, "
-          f"chap12 1200x800 32spp d50, --spp-chunk {QUEUE_CHUNK}",
-          flush=True)
+    phases.start("Q2", f"main path: the queue driver through "
+                 f"rrt_tpu_torch.cli, chap12 1200x800 32spp d50, --spp-chunk "
+                 f"{QUEUE_CHUNK}")
     argv_q = argv + ["--driver", "queue", "--spp-chunk", str(QUEUE_CHUNK)]
     with tempfile.TemporaryDirectory() as tmp:  # warm-up run
         warm = cli.render(cli.build_parser().parse_args(
@@ -683,18 +1185,15 @@ def main() -> int:
     scene_q, cam_q = tscenes.chap12_scene(cfg_q.width, cfg_q.height)
     ids = torch.arange(n_pix)
     before = render.trace_queue.outer_steps
-    rows, busy, wall = device_breakdown(lambda: render.trace_queue(
+    rows, wall = device_breakdown(lambda: render.trace_queue(
         scene_q, cam_q, ids % cfg_q.width, ids // cfg_q.width, cfg_q, 0, 0,
         QUEUE_CHUNK, device=device), card)
-    n_out = render.trace_queue.outer_steps - before
-    k_ms = sum(t for key, t, _ in rows if "bounce_steps" in key)
-    print(f"  per outer step ({n_out}): wall {wall / n_out:.3f} ms, device "
-          f"busy {busy / n_out:.3f} ms (bounce_steps_kernel "
-          f"{k_ms / n_out:.3f} ms), device idle {(wall - busy) / n_out:.3f} "
-          f"ms  [{card}]", flush=True)
+    print_per_step("outer step", rows, wall,
+                   render.trace_queue.outer_steps - before,
+                   "bounce_steps_kernel", card)
 
-    print(f"[Q3] main path: the batch driver through rrt_tpu_torch.cli, "
-          f"chap12 1200x800 {BATCH_SPP}spp d50", flush=True)
+    phases.start("Q3", f"main path: the batch driver through "
+                 f"rrt_tpu_torch.cli, chap12 1200x800 {BATCH_SPP}spp d50")
     argv_b = ["--scene", MAIN["scene"], "-r",
               f"{MAIN['width']}x{MAIN['height']}", "-s", str(BATCH_SPP),
               "-e", "0", "--max-depth", str(MAIN["max_depth"]), "--driver",
@@ -723,14 +1222,30 @@ def main() -> int:
     tiles = render._tile_coords(cfg_b, device)
     px, py = tiles[len(tiles) // 2]
     before = mk.intersect_only.launches
-    rows, busy, wall = device_breakdown(lambda: render.render_tile(
+    rows, wall = device_breakdown(lambda: render.render_tile(
         scene_d, cam_d, px, py, cfg_b, 0, 0, 1), card)
-    n_bounce = mk.intersect_only.launches - before
-    k_ms = sum(t for key, t, _ in rows if "intersect_kernel" in key)
-    print(f"  per bounce step ({n_bounce}, {px.numel() * BATCH_SPP} rays): "
-          f"wall {wall / n_bounce:.3f} ms, device busy {busy / n_bounce:.3f} "
-          f"ms (intersect_kernel {k_ms / n_bounce:.3f} ms)  [{card}]",
-          flush=True)
+    print_per_step(f"bounce step of {px.numel() * BATCH_SPP} rays", rows,
+                   wall, mk.intersect_only.launches - before,
+                   "intersect_kernel", card)
+
+    phases.start("C1", "chain_bwd vs its plain version on the card")
+    torch.cuda.reset_peak_memory_stats(device)
+    c1, chain = chain_kernel_phase(device, card)
+    peak_memory("[C1]", device, card)
+    phases.start("C2", f"main path: bench.py's backward_chain, chap12 "
+                 f"{MAIN['width']}x{MAIN['height']}, {CHAIN_LANES} lanes, "
+                 f"d{MAIN['max_depth']}, trace_batch(differentiable=True, "
+                 f"fused_vjp=True)")
+    torch.cuda.reset_peak_memory_stats(device)
+    c2_launches = chain_step_phase(chain, device, card)
+    peak_memory("[C2]", device, card)
+    phases.start("C3", f"main path: render_image(differentiable=True), "
+                 f"chap12 {MAIN['width']}x{MAIN['height']} {BATCH_SPP}spp "
+                 f"d{MAIN['max_depth']}, gradient of an L2 loss")
+    torch.cuda.reset_peak_memory_stats(device)
+    differentiable_batch_phase(tile_b, int(tile_b_traced), device, card)
+    peak_memory("[C3]", device, card)
+    phases.end()
 
     main_fwd = sum(m[0] for m in step_ms) / len(step_ms)
     main_bwd = sum(m[1] for m in step_ms) / len(step_ms)
@@ -738,7 +1253,10 @@ def main() -> int:
     # ms / plain_ms / bound_ms: the same shape for each (tile_render at
     # MAIN, the train kernels at [5]'s chap12 1200x800, 8 spp, depth 50,
     # bounce_steps and intersect_only at [Q1]'s chap12 131072 lanes;
-    # intersect_only's max_abs_err also covers [Q1]'s batch rays);
+    # intersect_only's max_abs_err also covers [Q1]'s batch rays; its ms
+    # and chain_bwd's are device time by graph_ms; chain_bwd's
+    # ms, plain_ms and bound_ms are sums over [C1]'s three chains, its
+    # max_abs_err the largest |field gradient delta| of gradcheck there);
     # main_ms: the train kernels' mean per step of [7] (the same shape).
     # No single PyTorch call computes any of these functions.
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
@@ -753,7 +1271,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("tile_render", csrc + "tile_render.cu",
               "rrt_tpu/ops/megakernel.py:2048", launches, main_err,
-              kernel_ms, main_plain_ms, main_bound),
+              tile_ms, main_plain_ms, main_bound),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
               t5["fwd_err"], t5["fwd_ms"], t5["fwd_plain_ms"],
@@ -767,7 +1285,11 @@ def main() -> int:
               q1["ms"], q1["plain_ms"], q1["bound"]),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
-              q1["i_ms"], q1["i_plain_ms"], q1["i_bound"])]}))
+              q1["i_ms"], q1["i_plain_ms"], q1["i_bound"]),
+        entry("chain_bwd", csrc + "chain.cu",
+              "rrt_tpu/ops/megakernel_vjp.py:487", c2_launches[1],
+              max(c["err"] for c in c1), sum(c["ms"] for c in c1),
+              sum(c["plain_ms"] for c in c1), chain_bound(c1))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -226,10 +226,17 @@ def _scene_from_packs(sph24, bg8) -> SceneArrays:
         bg_top=bg8[3:6], n_spheres_active=n, **empty)
 
 
+# Rays a chunk of the plain tile loop. The loop is bound by the host's
+# dispatch of a bounce's eager ops, so fewer, larger chunks are faster;
+# the (N, S) intersection broadcast of a chunk at 512 slots takes about
+# 1 GB a tensor on the device.
+PLAIN_CHUNK = 1 << 19
+
+
 def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
                            sample_lo: int, width: int, height: int,
                            spp: int, max_depth: int, t_min: float,
-                           chunk: int = 1 << 18):
+                           chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of `render_tiles`, same inputs and outputs.
 
     A wavefront loop over (pixel, sample) rays, `chunk` rays at a time in
@@ -248,7 +255,8 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
 
 def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                           width: int, height: int, spp: int,
-                          max_depth: int, t_min: float, chunk: int = 1 << 18):
+                          max_depth: int, t_min: float,
+                          chunk: int = PLAIN_CHUNK):
     """render_tiles_reference's loop, also returning each path's bounce
     count: (rad (P,3), traced (P,) i32, lengths (spp, P) uint8), where
     lengths[s, p] is the number of bounces sample s of pixel p traced."""

@@ -31,19 +31,10 @@ import torch
 from .. import rng
 from . import _build
 from . import megakernel as mk
-from .megakernel_vjp import camera_ray_rows, diff_step
+from .megakernel_vjp import (GRAD_ROWS, MAX_RECORDS, camera_ray_rows,
+                             count_mismatches, diff_step, replay_steps,
+                             step_constants)
 from ..camera import thin_lens_rays
-from ..scene import MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL
-
-# The backward keeps one record per bounce of the path it replays in
-# per-thread storage of this many entries (csrc/train.cu kMaxRecords),
-# so max_depth + 1 may not exceed it.
-MAX_RECORDS = 64
-
-# The sphere-pack rows that receive gradients, in the order the CUDA
-# backward accumulates them: center xyz, r^2, aux, color1 rgb, color2
-# rgb, signed radius.
-GRAD_ROWS = (0, 1, 2, 3, 9, 10, 11, 12, 13, 14, 15, 18)
 
 
 def supports_train(scene) -> bool:
@@ -139,10 +130,8 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
 
     CUDA tensors launch train_bwd (counted in `tiles_adjoint.launches`);
     CPU tensors run tiles_adjoint_reference. Either way the mismatches
-    are added, on the device and without a synchronize, to
-    `tiles_adjoint.replay_mismatches`, which a caller sets to 0 before
-    a run and reads after it: the autograd Function's backward has no
-    other way to report them, and a replay off the forward's path
+    are added to `tiles_adjoint.replay_mismatches`
+    (megakernel_vjp.count_mismatches): a replay off the forward's path
     would give wrong gradients."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min)
@@ -162,7 +151,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
     if device.type == "cpu":
         out = tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                                       **kw)
-        _count_mismatches(out[3])
+        count_mismatches(tiles_adjoint, out[3])
         return out
     if device.type != "cuda":
         raise ValueError(f"tiles_adjoint runs on cuda or cpu, not {device}")
@@ -186,7 +175,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
             _stream(device))
     _raise_on(lib, err, "train_bwd")
     tiles_adjoint.launches += 1
-    _count_mismatches(mismatches)
+    count_mismatches(tiles_adjoint, mismatches)
     d_sph24 = torch.zeros_like(sph24)
     d_sph24[list(GRAD_ROWS)] = sums[:-32].reshape(len(GRAD_ROWS), n_slots)
     return d_sph24, sums[-32:-8].clone(), sums[-8:].clone(), mismatches
@@ -194,46 +183,6 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
 
 tiles_adjoint.launches = 0
 tiles_adjoint.replay_mismatches = 0
-
-
-def _count_mismatches(mismatches):
-    acc = tiles_adjoint.replay_mismatches
-    tiles_adjoint.replay_mismatches = (
-        acc + mismatches.to(acc.device) if torch.is_tensor(acc)
-        else mismatches + acc)
-
-
-def _replay(scene, basis, cam24, keys, pix, *, width, height, max_depth,
-            t_min):
-    """Replay a batch of paths under no_grad; per bounce, the rays still
-    traced (as positions among the previous bounce's), their winners
-    and decisions. Returns (records, bounces traced per ray)."""
-    from ..render import _bounce  # render imports this package
-
-    o, d, _ = thin_lens_rays(basis, cam24[18], cam24[19], cam24[20],
-                             pix % width, pix // width, width, height, keys)
-    cur = torch.arange(pix.shape[0], device=pix.device)
-    sel = cur
-    n_seg = torch.zeros_like(pix)
-    records = []
-    for bounce in range(max_depth + 1):
-        k = keys[:, cur]
-        b = _bounce(scene, o, d, k, bounce, torch.ones_like(cur, dtype=bool),
-                    t_min, max_depth)
-        n_seg[cur] += 1
-        sc = b.scatter
-        records.append(dict(
-            sel=sel, cur=cur, win=b.win, t_hit=b.t, hit=b.hit_mask,
-            miss=b.miss_mask, survives=b.survives, front=b.hit.front_face,
-            degen=sc.degenerate, do_reflect=sc.reflected, use_c2=b.use_c2,
-            draws=(*sc.unit_rand, *sc.sphere_rand,
-                   torch.zeros_like(b.t))))
-        keep = b.survives.nonzero()[:, 0]
-        if keep.numel() == 0:
-            break
-        sel, cur = keep, cur[keep]
-        o, d = b.new_o[:, keep], b.new_d[:, keep]
-    return records, n_seg
 
 
 def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
@@ -256,7 +205,6 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
     grads = [torch.zeros_like(sph), torch.zeros_like(cam),
              torch.zeros_like(bg)]
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
-    is_sky = bg8.detach()[6] < 0.5
     n_pix = width * height
     n_rays = n_pix * spp
     chunk = min(chunk, n_pix)
@@ -266,9 +214,12 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
         keys = rng.sample_keys(tuple(seed_words), pix,
                                sample_lo + ray // n_pix)
         with torch.no_grad():
-            records, n_seg = _replay(scene, basis, cam24.detach(), keys,
-                                     pix, width=width, height=height,
-                                     max_depth=max_depth, t_min=t_min)
+            o, d, _ = thin_lens_rays(basis, cam24[18], cam24[19], cam24[20],
+                                     pix % width, pix // width, width,
+                                     height, keys)
+            records, n_seg, _ = replay_steps(
+                scene, o, d, keys, torch.zeros_like(pix), max_depth + 1,
+                max_depth=max_depth, t_min=t_min)
             mismatches += (n_seg != lengths.reshape(-1)[ray].long()
                            ).sum().to(torch.int32)
         with torch.enable_grad():
@@ -279,13 +230,9 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
             total = 0.0
             for r in records:
                 state = tuple(row[r["sel"]] for row in state)
-                mtype = sph24.detach()[8, r["win"]]
-                c = dict(r, is_sky=is_sky, is_lam=mtype == MAT_LAMBERTIAN,
-                         is_met=mtype == MAT_METAL,
-                         is_die=mtype == MAT_DIELECTRIC)
                 zero = torch.zeros_like(state[0])
-                out = diff_step(c, *state, zero, zero, zero,
-                                sph[:, r["win"]], *bg[:6])
+                out = diff_step(step_constants(r, sph24, bg8), *state, zero,
+                                zero, zero, sph[:, r["win"]], *bg[:6])
                 dr = d_rad[pix[r["cur"]]]
                 total = total + (dr[:, 0] * out[10] + dr[:, 1] * out[11]
                                  + dr[:, 2] * out[12]).sum()

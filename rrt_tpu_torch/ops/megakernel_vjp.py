@@ -1,4 +1,4 @@
-"""The differentiable bounce: one step re-derived from the winner's rows.
+"""The differentiable bounce and the bounce chain's backward.
 
 `diff_step` is the sphere-subset counterpart of rrt_tpu's
 `ops/megakernel_vjp.py::_make_diff_step`: one bounce as a function of
@@ -7,9 +7,10 @@ radiance), the winner's 24 sphere-pack rows and the 6 background rows,
 with every discrete decision (root, front face, checker parity,
 degenerate lambertian, reflect-vs-refract, hit / miss / survival) and
 every random draw supplied as a replayed constant. It is the math the
-CUDA backward (csrc/train.cu) transposes by hand, and the body of that
-kernel's plain version (megakernel_train.tiles_adjoint_reference),
-which differentiates it with autograd.
+CUDA backwards transpose by hand (csrc/adjoint.cuh, shared by train.cu
+and chain.cu), and the body of their plain versions
+(megakernel_train.tiles_adjoint_reference, chain_adjoint_reference),
+which differentiate it with autograd.
 
 `camera_ray_rows` is the thin-lens camera ray as a function of the 24
 camera-pack rows (rrt_tpu's `megakernel_train._camera_ray_rows`); the
@@ -18,9 +19,36 @@ backward applies it at bounce 0 of every sample.
 Square roots and reciprocals on masked branches are guarded with a
 double `where`, as rrt_tpu does, so a branch that is not taken never
 leaks NaN into a gradient.
+
+`BounceChain` (`bounce_chain`) is K bounce steps of the (16, Q) lane
+state as a torch.autograd.Function over the state and the packs, the
+counterpart of rrt_tpu's `bounce_chain` custom_vjp:
+
+  forward   ops.megakernel.bounce_steps (csrc/queue.cu) on a copy of the
+            input state, which is the only residual besides the keys,
+            the packs and the output's bounce row;
+  backward  `chain_adjoint`: the CUDA kernel chain_bwd (csrc/chain.cu),
+            the counterpart of rrt_tpu's `_bwd_kernel`, which replays
+            the K steps from the input state and sweeps them in reverse
+            through the hand-written transpose of diff_step. Its plain
+            version is `chain_adjoint_reference`, which CPU tensors run.
 """
 
 import torch
+
+from .. import rng
+from . import _build
+from . import megakernel as mk
+from ..scene import MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL
+
+# The backward kernels keep one record per replayed bounce in
+# per-thread storage of this many entries (csrc/adjoint.cuh kMaxRecords).
+MAX_RECORDS = 64
+
+# The sphere-pack rows that receive gradients, in the order the CUDA
+# backwards accumulate them: center xyz, r^2, aux, color1 rgb, color2
+# rgb, signed radius.
+GRAD_ROWS = (0, 1, 2, 3, 9, 10, 11, 12, 13, 14, 15, 18)
 
 # The families outside the sphere subset, by flag: the ROADMAP Queue A
 # item that ports each.
@@ -177,3 +205,234 @@ def camera_ray_rows(cam, pxr, pyr, draws):
     dz = cam[5] + cam[8] * s + cam[11] * t - oz
     tm = cam[19] + cam[20] * time_u
     return ox, oy, oz, dx, dy, dz, tm
+
+
+# ---------------------------------------------------------------------------
+# The bounce chain
+# ---------------------------------------------------------------------------
+
+
+def supports_backward(scene) -> bool:
+    """The chain backward's scope: the tile kernel's (mk.scope_gap), which
+    already leaves out the constant media rrt_tpu's excludes."""
+    return mk.scope_gap(scene) is None
+
+
+def count_mismatches(wrapper, mismatches):
+    """Add a backward's replay-mismatch count (1,) int32 to
+    `wrapper.replay_mismatches`, on the device and without a
+    synchronize; a caller sets it to 0 before a run and reads it after:
+    an autograd Function's backward has no other way to report it."""
+    acc = wrapper.replay_mismatches
+    wrapper.replay_mismatches = (
+        acc + mismatches.to(acc.device) if torch.is_tensor(acc)
+        else mismatches + acc)
+
+
+def replay_steps(scene, o, d, keys, bounce0, n_steps: int, *, max_depth,
+                 t_min):
+    """Replay up to n_steps bounces of rays (o, d (3,N), keys (2,N) u32
+    words in int64, bounce0 (N,) their bounce counters) under no_grad
+    with the plain physics (render._bounce). Per bounce, a record of the
+    rays still traced (`sel`: positions among the previous bounce's,
+    `cur`: among the N) with their winners and decisions. Returns
+    (records, bounces traced per ray, bounces scattered per ray)."""
+    from ..render import _bounce  # render imports this package
+
+    cur = torch.arange(o.shape[1], device=o.device)
+    sel = cur
+    n_seg = torch.zeros_like(cur)
+    n_scattered = torch.zeros_like(cur)
+    records = []
+    for k in range(n_steps):
+        b = _bounce(scene, o, d, keys[:, cur], bounce0[cur] + k,
+                    torch.ones_like(cur, dtype=torch.bool), t_min, max_depth)
+        n_seg[cur] += 1
+        n_scattered[cur] += b.survives.long()
+        sc = b.scatter
+        records.append(dict(
+            sel=sel, cur=cur, win=b.win, t_hit=b.t, hit=b.hit_mask,
+            miss=b.miss_mask, survives=b.survives, front=b.hit.front_face,
+            degen=sc.degenerate, do_reflect=sc.reflected, use_c2=b.use_c2,
+            draws=(*sc.unit_rand, *sc.sphere_rand, torch.zeros_like(b.t))))
+        keep = b.survives.nonzero()[:, 0]
+        if keep.numel() == 0:
+            break
+        sel, cur = keep, cur[keep]
+        o, d = b.new_o[:, keep], b.new_d[:, keep]
+    return records, n_seg, n_scattered
+
+
+def step_constants(record, sph24, bg8):
+    """diff_step's replayed constants for one record of replay_steps."""
+    mtype = sph24.detach()[8, record["win"]]
+    return dict(record, is_sky=bg8.detach()[6] < 0.5,
+                is_lam=mtype == MAT_LAMBERTIAN, is_met=mtype == MAT_METAL,
+                is_die=mtype == MAT_DIELECTRIC)
+
+
+def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
+                        k_steps):
+    device = mk._check_spheres(sph24, bg8)
+    mk._check_lanes("state", state, mk.STATE_ROWS, torch.float32, device)
+    mk._check_lanes("keys", keys, 2, torch.int32, device)
+    mk._check_lanes("d_out", d_out, mk.STATE_ROWS, torch.float32, device)
+    q = state.shape[1]
+    if keys.shape[1] != q or d_out.shape[1] != q:
+        raise ValueError(f"keys has {keys.shape[1]} lanes and d_out "
+                         f"{d_out.shape[1]}, state {q}")
+    if (out_bounce.dtype != torch.float32 or tuple(out_bounce.shape) != (q,)
+            or out_bounce.device != device):
+        raise ValueError(f"out_bounce must be a ({q},) float32 tensor on "
+                         f"{device}")
+    if not 1 <= k_steps <= MAX_RECORDS:
+        raise ValueError(f"k_steps {k_steps}: the backward keeps at most "
+                         f"{MAX_RECORDS} bounce records a lane")
+    return device
+
+
+def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
+                  k_steps: int, max_depth: int, t_min: float):
+    """The backward of k_steps bounce steps (ops.megakernel.bounce_steps)
+    of a lane state.
+
+    state: the chain's input state (16, Q) f32; keys (2, Q) int32 (the
+    lanes' u32 words); sph24 (24, S), bg8 (8,): the packs; d_out (16, Q)
+    f32: the output state's cotangent; out_bounce (Q,) f32: the forward
+    output's bounce row. Returns (d_state (16, Q), rows 13-15 zero;
+    d_sph24 (24, S), the GRAD_ROWS filled; d_bg8 (8,); replay mismatches
+    (1,) int32: the lanes whose replayed bounce row differs from
+    out_bounce).
+
+    CUDA tensors launch chain_bwd (counted in `chain_adjoint.launches`);
+    CPU tensors run chain_adjoint_reference. Either way the mismatches
+    are added to `chain_adjoint.replay_mismatches` (count_mismatches)."""
+    device = _check_chain_inputs(state, keys, sph24, bg8, d_out,
+                                 out_bounce, k_steps)
+    kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min)
+    if device.type == "cpu":
+        out = chain_adjoint_reference(state, keys, sph24, bg8, d_out,
+                                      out_bounce, **kw)
+        count_mismatches(chain_adjoint, out[3])
+        return out
+    lib = _build.load()
+    q, n_slots = state.shape[1], sph24.shape[1]
+    # Per-block partials of 256 lanes and, below them, the first
+    # reduction's groups of 64 blocks (csrc/chain.cu rrt_chain_bwd).
+    n_blocks = -(-q // 256)
+    n_cols = len(GRAD_ROWS) * n_slots + 8
+    partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
+                           dtype=torch.float32, device=device)
+    sums = torch.empty((n_cols,), dtype=torch.float32, device=device)
+    d_state = torch.empty_like(state)
+    mismatches = torch.zeros((1,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.rrt_chain_bwd(
+            state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(), n_slots,
+            bg8.data_ptr(), d_out.data_ptr(), out_bounce.data_ptr(), k_steps,
+            max_depth, t_min, d_state.data_ptr(), partials.data_ptr(),
+            sums.data_ptr(), mismatches.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    mk._launch_error(lib, err, "chain_bwd")
+    chain_adjoint.launches += 1
+    count_mismatches(chain_adjoint, mismatches)
+    # Row by row: an index list would be copied from the host, which a
+    # CUDA graph capturing this wrapper does not allow.
+    d_sph24 = torch.zeros_like(sph24)
+    g = sums[:-8].view(len(GRAD_ROWS), n_slots)
+    for i, row in enumerate(GRAD_ROWS):
+        d_sph24[row] = g[i]
+    return d_state, d_sph24, sums[-8:].clone(), mismatches
+
+
+chain_adjoint.launches = 0
+chain_adjoint.replay_mismatches = 0
+
+
+def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
+                            k_steps: int, max_depth: int, t_min: float):
+    """Plain version of chain_adjoint, same inputs and outputs.
+
+    1. replay the live lanes' steps under no_grad with the port's plain
+    physics (replay_steps); 2. rebuild every step with diff_step under
+    autograd, from the winners' pack columns only; 3. take
+    torch.autograd.grad of the sum of d_out . (each lane's state where
+    its chain ends). Dead lanes pass d_out through."""
+    dev = state.device
+    st = state.detach()
+    d_state = torch.zeros_like(st)
+    d_state[:13] = d_out[:13]
+    sph = sph24.detach().requires_grad_()
+    bg = bg8.detach().requires_grad_()
+    mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lanes = (st[mk.ROW_ALIVE] > 0.5).nonzero()[:, 0]
+    if lanes.numel() == 0:
+        return (d_state, torch.zeros_like(sph24), torch.zeros_like(bg8),
+                mismatches)
+    scene = mk._scene_from_packs(sph24.detach(), bg8.detach())
+    bounce0 = st[mk.ROW_BOUNCE, lanes].long()
+    with torch.no_grad():
+        records, _, n_scattered = replay_steps(
+            scene, st[0:3, lanes], st[3:6, lanes],
+            rng.from_u32_bits(keys[:, lanes]), bounce0, k_steps,
+            max_depth=max_depth, t_min=t_min)
+        mismatches += ((bounce0 + n_scattered).float()
+                       != out_bounce[lanes]).sum().to(torch.int32)
+    seed = d_out[:13, lanes]
+    with torch.enable_grad():
+        rows_in = tuple(st[r, lanes].clone().requires_grad_()
+                        for r in range(13))
+        rows, total = rows_in, 0.0
+        for i, r in enumerate(records):
+            rows = tuple(x[r["sel"]] for x in rows)
+            rows = diff_step(step_constants(r, sph24, bg8), *rows,
+                             sph[:, r["win"]], *bg[:6])
+            # A lane's chain ends at its last step, or where it stops.
+            ends = (torch.ones_like(r["survives"]) if i + 1 == len(records)
+                    else ~r["survives"])
+            total = total + (seed[:, r["cur"]] * ends
+                             * torch.stack(rows)).sum()
+        grads = torch.autograd.grad(total, (*rows_in, sph, bg),
+                                    allow_unused=True)
+    zero = torch.zeros_like(lanes, dtype=torch.float32)
+    d_state[:13, lanes] = torch.stack(
+        [zero if g is None else g for g in grads[:13]])
+    d_sph, d_bg = (torch.zeros_like(x) if g is None else g
+                   for x, g in zip((sph24, bg8), grads[13:]))
+    return d_state, d_sph, d_bg, mismatches
+
+
+class BounceChain(torch.autograd.Function):
+    """K bounce steps of a lane state as a differentiable function of
+    the state and the packs: apply(state (16,Q), keys (2,Q) int32,
+    sph24, bg8, k_steps, max_depth, t_min) -> state' (16,Q). Forward:
+    one bounce_steps launch on a copy of the state (bounce_steps updates
+    in place, and the input is the backward's residual); backward: one
+    chain_adjoint, seeded with zeros where the output has no cotangent
+    (autograd materialises them). The keys carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min):
+        kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min)
+        out = mk.bounce_steps(state.clone(), keys, sph24, bg8, **kw)
+        ctx.save_for_backward(state, keys, sph24, bg8,
+                              out[mk.ROW_BOUNCE].clone())
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        state, keys, sph24, bg8, out_bounce = ctx.saved_tensors
+        d_state, d_sph, d_bg, _ = chain_adjoint(
+            state, keys, sph24, bg8, d_out.contiguous(), out_bounce,
+            **ctx.kw)
+        return d_state, None, d_sph, d_bg, None, None, None
+
+
+def bounce_chain(k_steps: int, max_depth: int, t_min: float):
+    """chain(state, keys, sph24, bg8) -> state': BounceChain with its
+    step count and options bound, as rrt_tpu's bounce_chain returns."""
+    def chain(state, keys, sph24, bg8):
+        return BounceChain.apply(state, keys, sph24, bg8, k_steps,
+                                 max_depth, t_min)
+    return chain

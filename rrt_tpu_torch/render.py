@@ -13,10 +13,15 @@ for tensors on the CPU:
          batches traced bounce by bounce in eager PyTorch, intersecting
          through ops/megakernel.intersect_only.
 
-`render_image_diff` / `trace_tiles_diff` are the differentiable render
-through the train kernels (ops/megakernel_train). `_bounce` is one
-bounce of the plain physics (intersect, shade, scatter), shared by the
-plain versions, the batch driver and the tests.
+Two differentiable renders: `render_image_diff` / `trace_tiles_diff`
+through the train kernels (ops/megakernel_train), and the batch driver
+with differentiable=True, whose passes run `trace_batch_fused`: a few
+bounce chains (ops/megakernel_vjp.BounceChain: forward
+ops/megakernel.bounce_steps, backward the chain_bwd kernel) with
+differentiable lane compaction between them. `trace_batch`'s
+checkpointed scan is the route for what the chain does not cover.
+`_bounce` is one bounce of the plain physics (intersect, shade,
+scatter), shared by the plain versions, the batch driver and the tests.
 
 Every random draw is keyed by (seed, pixel, sample, bounce, stream)
 (rng.py), so a pixel's samples are the same paths whichever driver or
@@ -25,8 +30,11 @@ sums, and the rare near-tie winner flip rounding causes.
 """
 
 import dataclasses
+import functools
+import logging
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import rng
 from .camera import generate_rays
@@ -35,6 +43,7 @@ from .geometry import (FAM_NONE, FAM_SPHERE, INF, Hit, intersect_spheres,
 from .materials import Scatter, scatter
 from .ops import megakernel as ops_mega
 from .ops import megakernel_train as ops_train
+from .ops import megakernel_vjp as ops_vjp
 from .scene import BG_SKY, SceneArrays
 from .textures import use_color2
 
@@ -183,9 +192,8 @@ DIFF_SAMPLE_BUDGET = 64
 
 
 def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
-    """None when the train kernels cover the scene; otherwise why not.
-    rrt_tpu then takes its scan path, which the port does not have yet
-    (ROADMAP Queue A #10), so the differentiable entry points raise."""
+    """None when the train kernels cover the scene; otherwise why not, and
+    render_image_diff takes the batch driver's differentiable path."""
     if ops_train.supports_train(scene) and cfg.rr_depth == 0:
         return None
     what, item = ops_mega.scope_gap(scene, cfg.rr_depth)
@@ -196,9 +204,21 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
 def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
     reason = diff_fallback_reason(scene, cfg)
     if reason is not None:
-        raise NotImplementedError(
-            f"{where}: {reason}; the scan fallback that would render it "
-            "differentiably is not ported (ROADMAP Queue A #10)")
+        raise NotImplementedError(f"{where}: {reason}")
+
+
+_logger = logging.getLogger("rrt_tpu_torch.render")
+_warned_fallbacks: set = set()
+
+
+def _warn_diff_fallback(where: str, reason: str):
+    """One log line per (site, reason) a process: a scene that drops off
+    the train kernels renders far slower through the batch driver."""
+    key = (where, reason)
+    if key not in _warned_fallbacks:
+        _warned_fallbacks.add(key)
+        _logger.warning("%s: using the batch driver's differentiable path "
+                        "because %s", where, reason)
 
 
 def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
@@ -232,10 +252,16 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
 
 def render_image_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
                       *, device):
-    """Differentiable full-image render through the train kernels.
-    Returns (image (H,W,3) mean radiance, n_traced). A scene outside
-    their scope raises NotImplementedError naming the reason."""
-    _check_diff_scope("render_image_diff", scene, cfg)
+    """Differentiable full-image render, through the train kernels when
+    they cover the scene (trace_tiles_diff), otherwise through
+    render_image(differentiable=True) after one log line naming the
+    reason, as rrt_tpu routes. Returns (image (H,W,3) mean radiance,
+    n_traced)."""
+    reason = diff_fallback_reason(scene, cfg)
+    if reason is not None:
+        _warn_diff_fallback("render_image_diff", reason)
+        return render_image(scene, camera, cfg, seed, differentiable=True,
+                            device=device)
     rad, n = trace_tiles_diff(scene, camera, cfg, seed, device=device)
     return rad.reshape(cfg.height, cfg.width, 3) / float(cfg.spp), n
 
@@ -251,43 +277,133 @@ def pack_scene(scene: SceneArrays, device):
     return {"sph24": ops_mega.pack_spheres_full(scene).to(device)}
 
 
+def _bounce_body(scene: SceneArrays, t_min, keys, o, d, thr, rad, alive,
+                 bounce, max_depth, packed=None):
+    """One bounce of trace_batch's carry (o, d, throughput, radiance,
+    alive) -> the next (rrt_tpu's _bounce_body, without the shutter time,
+    which the sphere subset never reads)."""
+    contrib, o, d, att, survives = _shade(
+        scene, o, d, keys, bounce, alive, t_min, max_depth, packed=packed)
+    return (o, d, torch.where(survives, thr * att, thr), rad + thr * contrib,
+            survives)
+
+
+def _fused_schedule(max_depth: int):
+    """Chain lengths between compactions, as rrt_tpu's: after 4 steps
+    about 18% of chap12's lanes are alive and after 8 about 3%, so the
+    first two chains of 4 are compacted and one long chain takes the
+    tail."""
+    steps = max_depth + 1
+    schedule = []
+    for k in (4, 4):
+        if steps > k + 4:
+            schedule.append(k)
+            steps -= k
+    schedule.append(steps)
+    return tuple(schedule)
+
+
+def _compact_lanes(st, keys, lane):
+    """Stable alive-first permutation of a lane state (16, Q), its keys
+    (2, Q) and lane ids (Q,). The permutation comes from the detached
+    alive row, so under autograd the state's index_select is a constant
+    linear map whose gradient is the inverse scatter: index_select's
+    backward is an index_add_ of distinct columns, where advanced
+    indexing's sorts the indices first (on an H100 that sort cost as
+    much as the three chain_bwd launches of a 262,144-lane step)."""
+    alive = st[ops_mega.ROW_ALIVE].detach() > 0.5
+    ca = torch.cumsum(alive.to(torch.int64), 0)
+    i = torch.arange(lane.shape[0], device=lane.device)
+    pos = torch.where(alive, ca - 1, ca[-1] + i - ca)
+    perm = torch.empty_like(i).scatter_(0, pos, i)
+    return (st.index_select(1, perm), keys.index_select(1, perm),
+            lane.index_select(0, perm))
+
+
+def trace_batch_fused(scene: SceneArrays, o, d, keys, max_depth: int,
+                      t_min: float, schedule: tuple | None = None,
+                      rr_depth: int = 0):
+    """Reverse-differentiable trace of a ray batch through the bounce
+    chain (rrt_tpu's trace_batch_fused).
+
+    The max_depth + 1 bounces run as the chains of `schedule` (default
+    _fused_schedule), each one ops/megakernel_vjp.BounceChain: forward a
+    bounce_steps launch, backward a chain_bwd launch that replays the
+    chain from its input state, the only residual besides the keys.
+    _compact_lanes packs the live lanes first between chains. o, d: (3,N)
+    rays; keys: (2,N) sample key words (rng.sample_keys). The kernels
+    take any N (no tile alignment). Returns (radiance (3,N) in the rays'
+    order, n_traced () int64: exact, from the traced row)."""
+    ops_mega.check_scope(scene, rr_depth)
+    if schedule is None:
+        schedule = _fused_schedule(max_depth)
+    n, dev = o.shape[1], o.device
+    sph24 = ops_mega.pack_spheres_full(scene).to(dev)
+    bg8 = ops_mega.pack_bg(scene).to(dev)
+    ones = torch.ones((n,), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+    st = ops_mega.pack_state(o, d, zeros, ones.expand(3, n),
+                             zeros.expand(3, n), zeros, ones, zeros)
+    keys = rng.u32_bits(keys)
+    lane = torch.arange(n, device=dev)
+    for j, k in enumerate(schedule):
+        st = ops_vjp.bounce_chain(k, max_depth, t_min)(st, keys, sph24, bg8)
+        if j < len(schedule) - 1:
+            st, keys, lane = _compact_lanes(st, keys, lane)
+    # Undo the compactions: callers index by the rays' order.
+    rad = torch.zeros_like(st[10:13]).index_copy(1, lane, st[10:13])
+    return rad, st[ops_mega.ROW_TRACED].to(torch.int64).sum()
+
+
 def trace_batch(scene: SceneArrays, o, d, keys, max_depth: int,
                 t_min: float, differentiable: bool = False, packed=None,
-                rr_depth: int = 0):
-    """Trace a fixed ray batch to completion (forward only).
+                fused_vjp: bool = False, rr_depth: int = 0):
+    """Trace a fixed ray batch to completion.
 
-    o, d: (3,N) rays; keys: (2,N) sample key words (rng.sample_keys);
-    packed: pack_scene(scene, o.device), made here when not given. Every
-    bounce intersects through ops.megakernel.intersect_only: its kernel
-    for rays on a CUDA device, its plain version for rays on the CPU.
-    rrt_tpu's lax.while_loop is a Python loop here
-    that ends at max_depth or when no lane is alive, which costs one
-    device-to-host read a bounce. Returns (radiance (3,N), n_traced ()
-    int64: exact, where rrt_tpu sums it in f32)."""
-    if differentiable:
-        raise NotImplementedError(
-            "trace_batch(differentiable=True): the rematerialised scan "
-            "(ROADMAP Queue A #10) and its chain-vjp kernel "
-            "megakernel_vjp._bwd_kernel (Queue B #6) are not ported yet; "
-            "render_image_diff is the differentiable render")
+    o, d: (3,N) rays; keys: (2,N) sample key words (rng.sample_keys).
+    differentiable and fused_vjp: trace_batch_fused. Otherwise a Python
+    loop of _bounce_body that ends at max_depth or when no lane is
+    alive (one device-to-host read a bounce; dead lanes are the identity,
+    so stopping early changes no gradient):
+
+      forward         every bounce intersects through
+                      ops.megakernel.intersect_only (its kernel for rays
+                      on a CUDA device, its plain version on the CPU), on
+                      packed = pack_scene(scene, o.device), made here
+                      when not given;
+      differentiable  the scan: each bounce under
+                      torch.utils.checkpoint, so only the carry between
+                      bounces is kept and the bounce is recomputed in
+                      the backward (rrt_tpu's lax.scan of
+                      jax.checkpoint); it intersects through
+                      geometry.intersect_spheres, as rrt_tpu's scan does
+                      (`packed` is not used): the kernel's t carries no
+                      gradient.
+
+    Returns (radiance (3,N), n_traced () int64: exact, where rrt_tpu
+    sums it in f32)."""
+    if differentiable and fused_vjp:
+        return trace_batch_fused(scene, o, d, keys, max_depth, t_min,
+                                 rr_depth=rr_depth)
     ops_mega.check_scope(scene, rr_depth)
-    if packed is None:
+    if differentiable:
+        packed = None
+    elif packed is None:
         packed = pack_scene(scene, o.device)
-    thr = torch.ones_like(o)
-    rad = torch.zeros_like(o)
+    body = functools.partial(_bounce_body, scene, t_min, keys,
+                             max_depth=max_depth, packed=packed)
     alive = torch.ones((o.shape[1],), dtype=torch.bool, device=o.device)
+    carry = (o, d, torch.ones_like(o), torch.zeros_like(o), alive)
     n_traced = torch.zeros((), dtype=torch.int64, device=o.device)
     bounce = 0
-    while bounce <= max_depth and bool(alive.any()):
-        contrib, o, d, att, survives = _shade(
-            scene, o, d, keys, bounce, alive, t_min, max_depth,
-            packed=packed)
-        rad = rad + thr * contrib
-        thr = torch.where(survives, thr * att, thr)
-        n_traced = n_traced + alive.sum()
-        alive = survives
+    while bounce <= max_depth and bool(carry[4].any()):
+        n_traced = n_traced + carry[4].sum()
+        if differentiable:
+            carry = checkpoint(body, *carry, bounce, use_reentrant=False)
+        else:
+            carry = body(*carry, bounce)
         bounce += 1
-    return rad, n_traced
+    return carry[3], n_traced
 
 
 def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
@@ -295,14 +411,19 @@ def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     """Render one tile of pixels (px, py: (P,) on the scene's device)
     with n_passes sample passes through the batch driver. Pass i covers
     samples [(pass_start+i)*spc, ...+spc), spc = cfg.samples_per_pass.
-    Returns (radiance sums (P,3), n_traced)."""
+    differentiable: each pass through trace_batch's bounce chain
+    (trace_batch_fused) when ops_vjp.supports_backward(scene), else its
+    checkpointed scan; rrt_tpu also requires a TPU and tile-aligned
+    batches there, the port neither. Returns (radiance sums (P,3),
+    n_traced)."""
     p_count = px.shape[0]
     spc = cfg.samples_per_pass
     pxr, pyr = px.repeat(spc), py.repeat(spc)
     gid = pyr * cfg.width + pxr
     replica = torch.arange(spc, device=px.device).repeat_interleave(p_count)
     seed_words = rng.key_words(seed)
-    packed = pack_scene(scene, px.device)
+    packed = None if differentiable else pack_scene(scene, px.device)
+    fused_vjp = differentiable and ops_vjp.supports_backward(scene)
     acc = torch.zeros((p_count, 3), dtype=torch.float32, device=px.device)
     n_traced = torch.zeros((), dtype=torch.int64, device=px.device)
     for i in range(n_passes):
@@ -312,7 +433,7 @@ def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
                                 keys)
         rad, nt = trace_batch(scene, o, d, keys, cfg.max_depth, cfg.t_min,
                               differentiable, packed=packed,
-                              rr_depth=cfg.rr_depth)
+                              fused_vjp=fused_vjp, rr_depth=cfg.rr_depth)
         acc = acc + rad.T.reshape(spc, p_count, 3).sum(dim=0)
         n_traced = n_traced + nt
     return acc, n_traced
@@ -336,12 +457,13 @@ def render_image(scene: SceneArrays, camera, cfg: RenderConfig, seed,
 
     pass_start / n_passes select samples [pass_start*spc, (pass_start +
     n_passes)*spc) for progressive and resumed renders; the default is
-    all cfg.spp. Returns (image (H,W,3) mean radiance over the rendered
-    samples, n_traced). The queue and tile drivers render the same image
-    faster."""
+    all cfg.spp. differentiable: the image is a differentiable function
+    of the scene's and camera's tensors (render_tile). Returns (image
+    (H,W,3) mean radiance over the rendered samples, n_traced). The queue
+    and tile drivers render the same image faster."""
+    ops_mega.check_scope(scene, cfg.rr_depth)
     if cfg.spp % cfg.samples_per_pass != 0:
         raise ValueError("spp must be a multiple of samples_per_pass")
-    ops_mega.check_scope(scene, cfg.rr_depth)
     device = _check_device(device)
     scene, camera = scene.to(device), camera.to(device)
     if n_passes is None:

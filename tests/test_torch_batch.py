@@ -151,12 +151,21 @@ def test_spp_not_a_multiple_of_the_pass_raises():
         render.render_image(scene, cam, cfg, 0, device="cpu")
 
 
-def test_differentiable_batch_raises():
+def test_differentiable_batch_runs():
+    """render_image(differentiable=True) renders the forward's image, and
+    its gradient reaches the scene (tests/test_torch_chain.py holds it
+    against rrt_tpu)."""
     scene, cam = tscenes.SCENES["diffuse"](8, 4)
     cfg = render.RenderConfig(width=8, height=4, spp=2, samples_per_pass=2)
-    with pytest.raises(NotImplementedError, match="#10.*#6"):
-        render.render_image(scene, cam, cfg, 0, differentiable=True,
-                            device="cpu")
+    color = scene.tex_color1.clone().requires_grad_()
+    img, n = render.render_image(dataclasses.replace(scene, tex_color1=color),
+                                 cam, cfg, 0, differentiable=True,
+                                 device="cpu")
+    fwd, n_fwd = render.render_image(scene, cam, cfg, 0, device="cpu")
+    torch.testing.assert_close(img.detach(), fwd, atol=1e-5, rtol=1e-5)
+    assert int(n) == int(n_fwd)
+    (g,) = torch.autograd.grad(img.sum(), color)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def _leaves(obj):

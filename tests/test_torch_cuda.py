@@ -1,6 +1,6 @@
-"""The CUDA kernels on the card: tile_render, the train kernels and
-the queue and batch drivers' kernels (marked `cuda`; skip without a
-CUDA device).
+"""The CUDA kernels on the card: tile_render, the train kernels, the
+queue and batch drivers' kernels and the bounce chain's backward
+(marked `cuda`; skip without a CUDA device).
 
 This file imports neither JAX nor rrt_tpu, so it also runs where only
 PyTorch is installed:
@@ -11,7 +11,10 @@ Each kernel is held against its plain PyTorch version on the same
 packs. tile_render: the tolerance of tests/test_torch_slice.py,
 per-pixel mean |delta| < 1e-3 on >= 98.5% of pixels, traced totals
 within 1%. train_fwd: tile_render's outputs bit for bit. train_bwd,
-bounce_steps and intersect_only: the tolerances stated in each test."""
+bounce_steps, intersect_only and chain_bwd: the tolerances stated in
+each test."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -21,6 +24,7 @@ from rrt_tpu_torch import scenes as tscenes
 from rrt_tpu_torch.camera import Camera
 from rrt_tpu_torch.ops import megakernel as tmk
 from rrt_tpu_torch.ops import megakernel_train as tmkt
+from rrt_tpu_torch.ops import megakernel_vjp as tmkv
 from rrt_tpu_torch.scene import SceneBuilder
 
 pytestmark = pytest.mark.cuda
@@ -246,6 +250,35 @@ def test_kernels_run_at_max_slots(device):
     assert not gw[0][:, n:].any()
 
 
+# train_bwd's camera and background cotangents on _train_case(chap12)
+# with d_rad = 1, as the kernel gave them before its adjoints moved into
+# csrc/adjoint.cuh (H100 80GB HBM3, CUDA 12.8, nvcc -fmad=false): they
+# are sums in a fixed order, so bit-identical from run to run.
+TRAIN_BWD_BG = ("0x1.296f8ep+10", "0x1.29d968p+10", "0x1.1bcdecp+10",
+                "0x1.48a512p+11", "0x1.4887f6p+11", "0x1.31e684p+11")
+TRAIN_BWD_CAM_BG_SHA = "8303079e42f74fa7"
+
+
+def test_train_bwd_unchanged_by_the_shared_header(device):
+    """The move of miss_adjoint and scatter_adjoint into adjoint.cuh
+    (miss_adjoint now adds to the cotangents it is given, zeroed here)
+    left train_bwd's outputs as they were: the camera and background
+    cotangents bit for bit, the pack's (shared atomics) as a sum within
+    1e-6."""
+    import hashlib
+    _, _, _, packs, kw = _train_case(device, "chap12")
+    rad, _, lengths = tmkt.render_tiles_train(*packs, **kw)
+    d_sph, d_cam, d_bg, mism = tmkt.tiles_adjoint(
+        *packs, torch.ones_like(rad), lengths, **kw)
+    assert int(mism) == 0
+    assert [float(x).hex() for x in d_bg[:6].cpu()] == [
+        float.fromhex(h).hex() for h in TRAIN_BWD_BG]
+    blob = d_cam.cpu().numpy().tobytes() + d_bg.cpu().numpy().tobytes()
+    assert hashlib.sha256(blob).hexdigest()[:16] == TRAIN_BWD_CAM_BG_SHA
+    assert abs(d_sph.double().sum().item() - 11716.329432595001) \
+        <= 1e-6 * 11716.33
+
+
 def test_train_record_cap_raises(device):
     _, _, _, packs, kw = _train_case(device, "chap12")
     kw["max_depth"] = tmkt.MAX_RECORDS
@@ -410,3 +443,142 @@ def test_cli_drivers_launch_their_kernels(device, tmp_path, driver, kernel):
                      "-o", str(tmp_path / "o.png"), "--quiet"]) == 0
     assert wrapper.launches > before
     assert (tmp_path / "o.png").stat().st_size > 0
+
+
+# ---------------------------------------------------------------------------
+# The bounce chain's backward (csrc/chain.cu)
+# ---------------------------------------------------------------------------
+
+
+def _chain_case(device, name="chap12", k_steps=4, pre_steps=0):
+    """A lane state after `pre_steps` kernel bounce steps, the kernel's
+    output after k_steps more, and a seeded output cotangent."""
+    st, keys, sph, bg = _lane_state(device, name)
+    if pre_steps:
+        tmk.bounce_steps(st, keys, sph, bg, k_steps=pre_steps, max_depth=50,
+                         t_min=1e-3)
+    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3)
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d_out = torch.randn((16, st.shape[1]), generator=gen).to(device)
+    return st, keys, sph, bg, out, d_out, kw
+
+
+@pytest.mark.parametrize("k_steps,pre_steps", [(4, 0), (1, 0), (12, 3)])
+@pytest.mark.parametrize("name", ["chap12", "checker"])
+def test_chain_bwd_matches_plain_version(device, name, k_steps, pre_steps):
+    """chain_bwd against chain_adjoint_reference on the same state, by
+    chip_smoke.py [C1]'s rule: on the lanes whose kernel and plain
+    forwards agree (bounce and alive rows equal, rows 0-12 within 1e-3
+    absolute and relative; the others get a zero cotangent) the input
+    cotangent within 1e-3 of each row's largest on >= 99.5% of lanes,
+    the pack's and the background's within 1e-3 of their largest; each
+    replay retraces its own forward."""
+    st, keys, sph, bg, out, d_out, kw = _chain_case(device, name, k_steps,
+                                                    pre_steps)
+    ref_out = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
+    agree = ((out[13] == ref_out[13])
+             & ((out[14] > 0.5) == (ref_out[14] > 0.5))
+             & ((out[:13] - ref_out[:13]).abs()
+                <= 1e-3 * ref_out[:13].abs() + 1e-3).all(dim=0))
+    assert agree.float().mean() >= 0.999
+    d_out = d_out * agree
+    before = tmkv.chain_adjoint.launches
+    k = tmkv.chain_adjoint(st, keys, sph, bg, d_out,
+                           out[tmk.ROW_BOUNCE].clone(), **kw)
+    torch.cuda.synchronize(device)
+    assert tmkv.chain_adjoint.launches == before + 1
+    p = tmkv.chain_adjoint_reference(st, keys, sph, bg, d_out,
+                                     ref_out[tmk.ROW_BOUNCE].clone(), **kw)
+    assert int(k[3]) == 0 and int(p[3]) == 0
+    assert not k[0][13:].any()
+    scale = p[0][:13].abs().amax(dim=1, keepdim=True).clamp(min=1e-6)
+    lane_ok = ((k[0][:13] - p[0][:13]).abs() <= 1e-3 * scale).all(dim=0)
+    assert lane_ok.float().mean() >= 0.995
+    for got, exp in zip(k[1:3], p[1:3]):
+        torch.testing.assert_close(got, exp, rtol=0,
+                                   atol=1e-3 * exp.abs().max().item())
+
+
+def test_chain_bwd_determinism(device):
+    """As csrc/chain.cu states: the input and background cotangents are
+    bit-identical from run to run; the pack's are summed with
+    shared-memory atomics and agree within 1e-5 of their largest
+    (chip_smoke.py PACK_SPREAD: repeats on an H100 differed by up to
+    1.5e-6)."""
+    st, keys, sph, bg, out, d_out, kw = _chain_case(device)
+    ob = out[tmk.ROW_BOUNCE].clone()
+    a = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    b = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    torch.testing.assert_close(a[1], b[1], rtol=0,
+                               atol=1e-5 * a[1].abs().max().item())
+
+
+def test_chain_bwd_dead_lanes_pass_through(device):
+    st, keys, sph, bg, _, d_out, kw = _chain_case(device)
+    st[tmk.ROW_ALIVE] = 0.0
+    d_st, d_sph, d_bg, mism = tmkv.chain_adjoint(
+        st, keys, sph, bg, d_out, st[tmk.ROW_BOUNCE].clone(), **kw)
+    assert torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
+    assert not d_sph.any() and not d_bg.any() and int(mism) == 0
+
+
+def test_chain_bwd_runs_at_max_slots(device):
+    """Empty slots (r^2 = -1) up to MAX_SLOTS change no input cotangent
+    and no background one (fixed-order sums) and get no pack cotangent;
+    the pack's agree within the atomics' order."""
+    st, keys, sph, bg, out, d_out, kw = _chain_case(device)
+    n = sph.shape[1]
+    wide = torch.cat([sph, sph[:, -1:].expand(-1, tmk.MAX_SLOTS - n)],
+                     dim=1).contiguous()
+    ob = out[tmk.ROW_BOUNCE].clone()
+    a = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    b = tmkv.chain_adjoint(st, keys, wide, bg, d_out, ob, **kw)
+    assert int(b[3]) == 0
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    torch.testing.assert_close(b[1][:, :n], a[1], rtol=0,
+                               atol=1e-5 * a[1].abs().max().item())
+    assert not b[1][:, n:].any()
+
+
+def test_bounce_chain_launches_both_kernels(device):
+    """BounceChain's forward runs bounce_steps on a copy (the saved input
+    is untouched), its backward chain_bwd, with no replay mismatch."""
+    st, keys, sph, bg, out, _, kw = _chain_case(device)
+    st = st.requires_grad_()
+    saved = st.detach().clone()
+    fwd, bwd = tmk.bounce_steps.launches, tmkv.chain_adjoint.launches
+    tmkv.chain_adjoint.replay_mismatches = 0
+    y = tmkv.bounce_chain(kw["k_steps"], 50, 1e-3)(st, keys, sph, bg)
+    assert torch.equal(st.detach(), saved) and torch.equal(y, out)
+    (g,) = torch.autograd.grad(y[10:13].sum(), st)
+    assert tmk.bounce_steps.launches == fwd + 1
+    assert tmkv.chain_adjoint.launches == bwd + 1
+    assert torch.isfinite(g).all() and g[0:10].abs().max() > 0
+    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
+
+
+def test_differentiable_batch_launches_the_chain(device):
+    """render_image(differentiable=True) on the card goes through the
+    chain's kernels, renders the forward's image within the batch
+    driver's rule, and its gradient is finite."""
+    from rrt_tpu_torch import render
+    scene, cam = tscenes.chap12_scene(64, 32)
+    cfg = render.RenderConfig(width=64, height=32, spp=4, max_depth=50)
+    color = scene.tex_color1.clone().requires_grad_()
+    s = dataclasses.replace(scene, tex_color1=color)
+    fwd, bwd = tmk.bounce_steps.launches, tmkv.chain_adjoint.launches
+    tmkv.chain_adjoint.replay_mismatches = 0
+    img, n = render.render_image(s, cam, cfg, 0, differentiable=True,
+                                 device=device)
+    (g,) = torch.autograd.grad(img.sum(), color)
+    assert tmk.bounce_steps.launches - fwd >= 3
+    assert tmkv.chain_adjoint.launches - bwd >= 3
+    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    tile, n_tile = render.render_image_tiles(scene, cam, cfg, 0,
+                                             device=device)
+    assert abs(int(n) - int(n_tile)) / int(n_tile) < 1e-2
+    close = (img.detach() - tile).abs().amax(dim=2) < 1e-3
+    assert close.float().mean() >= 0.9
