@@ -28,7 +28,22 @@ differences at full size; [Q1] holds bounce_steps against its plain
 version at [Q2]'s queue shape, and intersect_only against its at that
 shape and at [Q3]'s batch shape, on camera rays and after 1-4 bounces;
 [C1] holds chain_bwd against its plain version on each of [C2]'s three
-chains and on small cases. Prints the card's name and power limit
+chains and on small cases. Then the motion-blur scene book2chap2 (the
+same field with moving diffuse spheres, shutter [0, 1]) and the probes:
+
+  [M1] each of the six kernels' moving variants against its plain
+       version on book2chap2 at the shapes of [3] (2 spp), [Q1], [5]
+       (1200x800, 8 spp) and [C1], each timed (moving_ms);
+  [M2] the main path: python -m rrt_tpu_torch.cli with its defaults
+       (book2chap2, 1200x800, 10 spp, the tile driver);
+  [M3] the main path: one 8-spp make_train_step on book2chap2 with
+       sphere_dc among the leaves, and finite differences of one moving
+       sphere's sphere_dc;
+  [P1] the main path: the three probes' main() at the JAX probes' full
+       ITERS, each kernel held against its plain version at 8
+       iterations.
+
+Prints the card's name and power limit
 beside every time, one JSON line of the kernels (with each one's
 least time on the card, `bound_ms`), and as its last line {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero; without a CUDA
@@ -55,12 +70,15 @@ their peak device memory.
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+from rrt_tpu_torch.probes import FP32_PEAK, HBM_RATE, card_line  # noqa: E402
 
 MAIN = dict(scene="chap12", width=1200, height=800, spp=32, max_depth=50)
 # tile_render's traced-ray count at MAIN, seed 0, on an H100: the kernel
@@ -70,7 +88,6 @@ MAIN_TRACED = 87_995_506
 TRAIN = dict(width=1200, height=800, spp=8, max_depth=50)
 NORTH_STAR_SPP = 500
 MIX = (1.0, 0.7, 0.3)  # channel weights of the weighted-sum losses
-REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 QUEUE_LANES = 131072  # RenderConfig.queue_size, the CLI's default
 QUEUE_CHUNK = 8  # [Q2]'s --spp-chunk: four progressive passes
@@ -81,12 +98,14 @@ BATCH_RAYS = 16384 * 4
 # bench.py's backward_chain: 262,144 lanes at pixel ids * 3 of chap12
 # 1200x800, sample 0, depth 50.
 CHAIN_LANES = 262144
+# [M1]: tile_render's moving variant against its plain version at this
+# many samples (the plain version's time grows with them).
+MOTION_SPP = 2
+# [P1]: the probes against their plain versions at this many iterations.
+PROBE_CHECK_ITERS = 8
 
-# The least time an H100 SXM could take (NVIDIA's data sheet; at a
-# 700 W power limit): FP32 outside the tensor
-# cores, and HBM3.
-FP32_PEAK = 67e12  # FLOP/s
-HBM_RATE = 3.35e12  # bytes/s
+# The least time an H100 SXM could take: FP32_PEAK and HBM_RATE
+# (rrt_tpu_torch.probes, NVIDIA's data sheet at a 700 W power limit).
 # FP32 operations one ray-slot test needs (bounce.cuh closest_sphere),
 # with what is constant per sphere (|c|^2 - r^2, 2c) hoisted out of it:
 # d.c (5), o.2c (5), half_b (1), c_coef (2), disc (3) and the test of
@@ -94,6 +113,9 @@ HBM_RATE = 3.35e12  # bytes/s
 # few hundred operations a bounce, under 3% of a 512-slot scan) are not
 # counted: a lower bound.
 FLOPS_PER_SLOT = 17
+# A moving slot first takes its center at the ray's time, base + time *
+# vel: three multiplies and three adds more.
+FLOPS_PER_MOVING_SLOT = 23
 # FP32 operations of one bounce of train.cu's reverse sweep beyond the
 # replay's scan: scatter_adjoint recomputes the winner's quadratic and
 # shade() and runs the transpose (a count of its source, transcendentals
@@ -136,12 +158,8 @@ def bound(ops: float, n_bytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def card_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return proc.stdout.strip().splitlines()[0]
+def slot_flops(moving: bool) -> int:
+    return FLOPS_PER_MOVING_SLOT if moving else FLOPS_PER_SLOT
 
 
 def check(ok: bool, what) -> None:
@@ -215,15 +233,16 @@ def peak_memory(what: str, device, card) -> None:
 
 
 def compare(mk, tscenes, device, card, *, width, height, spp, max_depth,
-            repeats=1):
+            repeats=1, name="chap12"):
     """Kernel vs plain version on the card, on the same packs. Returns
     (kernel out, plain out, kernel ms, plain ms)."""
-    scene, cam = tscenes.chap12_scene(width, height)
+    scene, cam = tscenes.SCENES[name](width, height)
     packs = (mk.pack_spheres_full(scene).to(device),
              mk.pack_camera(cam, width, height).to(device),
              mk.pack_bg(scene).to(device))
     kw = dict(seed_words=(0, 0), sample_lo=0, width=width, height=height,
-              spp=spp, max_depth=max_depth, t_min=1e-3)
+              spp=spp, max_depth=max_depth, t_min=1e-3,
+              moving=scene.has_moving)
     out = mk.render_tiles(*packs, **kw)  # warm-up
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: mk.render_tiles(*packs, **kw), repeats)
@@ -231,7 +250,7 @@ def compare(mk, tscenes, device, card, *, width, height, spp, max_depth,
     ref = mk.render_tiles_reference(*packs, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    print(f"  chap12 {width}x{height} {spp}spp d{max_depth}: kernel "
+    print(f"  {name} {width}x{height} {spp}spp d{max_depth}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms  [{card}]", flush=True)
     return out, ref, ms, plain_ms
 
@@ -276,7 +295,7 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
     packs = [p.detach() for p in render._packs(scene, cam, cfg, device)]
     kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
-              max_depth=depth, t_min=1e-3)
+              max_depth=depth, t_min=1e-3, moving=scene.has_moving)
     rad, traced, lengths = mkt.render_tiles_train(*packs, **kw)
     ref_rad, ref_traced = mk.render_tiles(*packs, **kw)
     check(torch.equal(rad, ref_rad) and torch.equal(traced, ref_traced),
@@ -314,7 +333,7 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     # replay of the same scan plus its adjoint a bounce. Bytes: the packs
     # and the residual in, the outputs out.
     segments, n_slots, n_pix = int(traced.sum()), packs[0].shape[1], w * h
-    scan = segments * n_slots * FLOPS_PER_SLOT
+    scan = segments * n_slots * slot_flops(scene.has_moving)
     pack_bytes = 4 * (24 * n_slots + 24 + 8)
     fwd_bound = bound(scan, pack_bytes + n_pix * (12 + 4 + spp))
     bwd_bound = bound(scan + segments * ADJOINT_FLOPS,
@@ -340,7 +359,7 @@ def finite_differences(device, card):
     cfg = render.RenderConfig(**TRAIN)
     kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
               height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
-              t_min=cfg.t_min)
+              t_min=cfg.t_min, moving=False)
     mix = torch.tensor(MIX, device=device)
 
     def forward(s):
@@ -457,16 +476,17 @@ def lane_state(scene, cam, w, h, n, device):
             mk.pack_bg(scene).to(device))
 
 
-def intersect_vs_plain(what, o, d, sph):
+def intersect_vs_plain(what, o, d, tm, sph, moving):
     """intersect_only against its plain version on the rays (o, d): fam
     and idx equal on >= 99.9% of rays (the card's own spread: they agreed
     on every camera ray at full size), t within 1e-5 relative where they
     agree on a hit (both round every product), misses equal. Returns
     (share of rays agreeing, max |t delta| on agreeing hits, plain ms)."""
     from rrt_tpu_torch.ops import megakernel as mk
-    t, fam, idx = mk.intersect_only(o, d, sph, t_min=1e-3)
+    kw = dict(t_min=1e-3, time=tm if moving else None)
+    t, fam, idx = mk.intersect_only(o, d, sph, **kw)
     (rt, rfam, ridx), plain_ms = wall_ms(
-        lambda: mk.intersect_only_reference(o, d, sph, t_min=1e-3))
+        lambda: mk.intersect_only_reference(o, d, sph, **kw))
     same = (fam == rfam) & (idx == ridx)
     hit = same & (fam == 0)
     miss = same & (fam == -1)
@@ -498,7 +518,9 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
     scene, cam = build(w, h)
     st, keys, sph, bg = lane_state(scene, cam, w, h, n, device)
     n_slots = sph.shape[1]
-    kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3)
+    moving = scene.has_moving
+    kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3,
+              moving=moving)
     out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
     ref, plain_ms = wall_ms(
         lambda: mk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw))
@@ -515,7 +537,7 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
     torch.cuda.synchronize()
     ms = events_ms(log) / len(log)
     segments = int((out[15] - st[15]).sum())
-    b_ms, b_by = bound(segments * n_slots * FLOPS_PER_SLOT,
+    b_ms, b_by = bound(segments * n_slots * slot_flops(moving),
                        4 * (n * (16 + 2 + 16) + 24 * n_slots + 8))
     print(f"  bounce_steps {name} {w}x{h}, {n} lanes, 4 steps: alive "
           f"agrees on {frac:.5f} of lanes, counts equal there, {close:.5f} "
@@ -525,13 +547,14 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
     check(frac >= 0.999 and counts and close >= 0.995,
           ("bounce_steps", name, frac, counts, close))
 
-    o, d = st[0:3], st[3:6]
+    o, d, tm = st[0:3], st[3:6], st[6].contiguous()
     _, i_err, i_plain_ms = intersect_vs_plain(f"{name} {n} camera rays", o,
-                                              d, sph)
-    i_ms = graph_ms(lambda: mk.intersect_only(o, d, sph, t_min=1e-3),
-                    mk.intersect_only)
-    i_bound = bound(n * n_slots * FLOPS_PER_SLOT,
-                    4 * (n * (6 + 3) + 24 * n_slots))
+                                              d, tm, sph, moving)
+    i_ms = graph_ms(lambda: mk.intersect_only(
+        o, d, sph, t_min=1e-3, time=tm if moving else None),
+        mk.intersect_only)
+    i_bound = bound(n * n_slots * slot_flops(moving),
+                    4 * (n * (6 + 3 + moving) + 24 * n_slots))
     print(f"  intersect_only {name}, {n} rays: kernel {i_ms:.3f} ms, plain "
           f"{i_plain_ms:.1f} ms, bound {i_bound[0]:.4f} ms ({i_bound[1]})  "
           f"[{card}]", flush=True)
@@ -539,11 +562,12 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
     for depth in range(5):
         if depth:
             mk.bounce_steps(st_b, keys_b, sph, bg, k_steps=1,
-                            max_depth=MAIN["max_depth"], t_min=1e-3)
+                            max_depth=MAIN["max_depth"], t_min=1e-3,
+                            moving=moving)
         alive = int((st_b[14] > 0.5).sum())
         _, e, _ = intersect_vs_plain(
             f"{name} batch of {batch} after {depth} bounces ({alive} alive)",
-            st_b[0:3], st_b[3:6], sph)
+            st_b[0:3], st_b[3:6], st_b[6].contiguous(), sph, moving)
         i_err = max(i_err, e)
     return dict(ms=ms, plain_ms=plain_ms, err=err.max().item(),
                 bound=(b_ms, b_by), i_ms=i_ms, i_plain_ms=i_plain_ms,
@@ -566,13 +590,13 @@ def hold_to_tile(what, image, n_traced, tile_image, tile_traced):
           (what, rel, dt, close))
 
 
-def chain_rays(device):
-    """[C2]'s rays, bench.py's backward_chain: chap12 at MAIN's size,
+def chain_rays(device, name="chap12"):
+    """[C2]'s rays, bench.py's backward_chain: the scene at MAIN's size,
     CHAIN_LANES lanes at pixel ids * 3, sample 0. Returns (scene, cam,
     cfg, px, py, keys) with px, py, keys on the device."""
     from rrt_tpu_torch import render, rng, scenes as tscenes
     w, h = MAIN["width"], MAIN["height"]
-    scene, cam = tscenes.chap12_scene(w, h)
+    scene, cam = tscenes.SCENES[name](w, h)
     cfg = render.RenderConfig(width=w, height=h, spp=1,
                               max_depth=MAIN["max_depth"])
     ids = torch.arange(CHAIN_LANES, device=device) * (w * h // CHAIN_LANES)
@@ -621,7 +645,8 @@ def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
     line."""
     from rrt_tpu_torch import diff, gradcheck
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
-    kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3)
+    kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3,
+              moving=scene.has_moving)
     out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
     ref_out = torch.cat(by_lanes(
         lambda s, k: mk.bounce_steps_reference(s, k, sph, bg, **kw), st,
@@ -682,7 +707,8 @@ def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
           ("chain_bwd", what, frac, lanes, dead_equal, faults, mism, same,
            repeat))
     return out, dict(ms=ms, plain_ms=plain_ms, segments=segments, err=err,
-                     q=st.shape[1], n_slots=sph.shape[1])
+                     q=st.shape[1], n_slots=sph.shape[1],
+                     moving=scene.has_moving)
 
 
 def chain_small_cases(device, card):
@@ -704,10 +730,10 @@ def chain_small_cases(device, card):
         s0 = st.clone()
         if pre:
             mk.bounce_steps(s0, keys, sph, bg, k_steps=pre, max_depth=50,
-                            t_min=1e-3)
+                            t_min=1e-3, moving=False)
         chain_vs_plain(f"checker after {pre} steps", s0, keys, sph, bg,
                        k_steps, scene, cam, cfg, device, card)
-    kw = dict(k_steps=4, max_depth=50, t_min=1e-3)
+    kw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False)
     gen = torch.Generator().manual_seed(1)
     d_out = torch.randn(tuple(st.shape), generator=gen).to(device)
     dead = st.clone()
@@ -780,18 +806,20 @@ def chain_bound(c1):
     cotangents out, each chain."""
     n_slots = c1[0]["n_slots"]
     segments = sum(c["segments"] for c in c1)
-    return bound(segments * (n_slots * FLOPS_PER_SLOT + ADJOINT_FLOPS),
+    flops = slot_flops(c1[0]["moving"])
+    return bound(segments * (n_slots * flops + ADJOINT_FLOPS),
                  sum(4 * (c["q"] * (16 + 2 + 16 + 1 + 16) + 36 * n_slots
                           + 16) for c in c1))
 
 
-def chain_kernel_phase(device, card):
+def chain_kernel_phase(device, card, name="chap12"):
     """[C1] chain_bwd against its plain version on each chain of [C2]'s
-    path (the kernels' forward gives each chain's input) and on
-    chain_small_cases. Returns (per-chain numbers, [C2]'s inputs)."""
+    path on the scene (the kernels' forward gives each chain's input)
+    and, on chap12, on chain_small_cases. Returns (per-chain numbers,
+    [C2]'s inputs)."""
     from rrt_tpu_torch import render, rng
     from rrt_tpu_torch.ops import megakernel as mk
-    scene, cam, cfg, px, py, keys = chain_rays(device)
+    scene, cam, cfg, px, py, keys = chain_rays(device, name)
     sph = mk.pack_spheres_full(scene).to(device)
     bg = mk.pack_bg(scene).to(device)
     n = px.shape[0]
@@ -811,9 +839,11 @@ def chain_kernel_phase(device, card):
         c1.append(numbers)
         if j < len(schedule) - 1:
             st, kbits, lane = render._compact_lanes(out, kbits, lane)
-    chain_small_cases(device, card)
+    if name == "chap12":
+        chain_small_cases(device, card)
     b_ms, b_by = chain_bound(c1)
-    print(f"  the three chains: chain_bwd {sum(c['ms'] for c in c1):.3f} ms,"
+    print(f"  {name}'s three chains: chain_bwd "
+          f"{sum(c['ms'] for c in c1):.3f} ms,"
           f" plain {sum(c['plain_ms'] for c in c1):.1f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}), "
           f"{sum(c['segments'] for c in c1)} replayed segments  [{card}]",
@@ -833,9 +863,9 @@ def chain_step_phase(chain, device, card):
 
     def step():
         scene_d, params, camera = diff._leaves(scene, cam, device)
-        o, d, _ = render.generate_rays(camera, px, py, cfg.width,
-                                       cfg.height, keys)
-        rad, n = render.trace_batch(scene_d, o, d, keys, cfg.max_depth,
+        o, d, tm = render.generate_rays(camera, px, py, cfg.width,
+                                        cfg.height, keys)
+        rad, n = render.trace_batch(scene_d, o, d, tm, keys, cfg.max_depth,
                                     1e-3, differentiable=True,
                                     fused_vjp=True)
         loss = rad[0].mean() + rad[1].mean() + rad[2].mean()
@@ -933,12 +963,237 @@ def differentiable_batch_phase(tile_image, tile_traced, device, card):
           flush=True)
 
 
+def motion_tile_phase(device, card):
+    """[M1] tile_render's moving variant on book2chap2 at MAIN's size and
+    depth: against its plain version at MOTION_SPP spp by [3]'s
+    full-size rule, then timed at MAIN's spp. Returns its numbers."""
+    from rrt_tpu_torch import scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    w, h, depth = MAIN["width"], MAIN["height"], MAIN["max_depth"]
+    (rad, traced), (ref, ref_traced), _, plain_ms = compare(
+        mk, tscenes, device, card, width=w, height=h, spp=MOTION_SPP,
+        max_depth=depth, name="book2chap2")
+    mean_k, mean_p = rad.mean(dim=0), ref.mean(dim=0)
+    rel = ((mean_k - mean_p).abs() / mean_p).max().item()
+    nt, nr = int(traced.sum()), int(ref_traced.sum())
+    err = (rad - ref).abs().max(dim=1).values / MOTION_SPP
+    close = (err < 1e-3).float().mean().item()
+    print(f"  book2chap2 {w}x{h} {MOTION_SPP}spp: image means {rel:.4%} "
+          f"apart, traced {nt} vs {nr}, {close:.4f} of pixels within 1e-3, "
+          f"max pixel |delta| {err.max().item():.4f}", flush=True)
+    check(rel < 1e-2 and abs(nt - nr) / nr < 1e-2 and close >= 0.9,
+          ("[M1] tile_render", rel, nt, nr, close))
+    scene, cam = tscenes.book2chap2_scene(w, h)
+    packs = (mk.pack_spheres_full(scene).to(device),
+             mk.pack_camera(cam, w, h).to(device),
+             mk.pack_bg(scene).to(device))
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h,
+              spp=MAIN["spp"], max_depth=depth, t_min=1e-3, moving=True)
+    _, traced32 = mk.render_tiles(*packs, **kw)  # warm-up
+    ms = cuda_ms(lambda: mk.render_tiles(*packs, **kw), 3)
+    n_slots = packs[0].shape[1]
+    segments = int(traced32.sum())
+    bnd = bound(segments * n_slots * FLOPS_PER_MOVING_SLOT,
+                4 * (24 * n_slots + 24 + 8) + w * h * (12 + 4))
+    print(f"  book2chap2 {w}x{h} {MAIN['spp']}spp d{depth}: tile_render "
+          f"{ms:.3f} ms, {segments} segments, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})  [{card}]", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, err=err.max().item(), bound=bnd)
+
+
+def motion_cli_phase(device, card):
+    """[M2] python -m rrt_tpu_torch.cli with its defaults (book2chap2,
+    1200x800, 10 spp, the tile driver), on the card. Returns
+    tile_render's launches in the counted run."""
+    from rrt_tpu_torch import cli
+    from rrt_tpu_torch.ops import megakernel as mk
+    png = os.path.join(OUT_DIR, "chip_smoke_book2chap2.png")
+    args = cli.build_parser().parse_args(["--device", str(device),
+                                          "--quiet", "-o", png])
+    check((args.scene, args.resolution, args.samples, args.driver)
+          == ("book2chap2", (1200, 800), 10, "auto"), "the CLI's defaults")
+    with tempfile.TemporaryDirectory() as tmp:  # warm-up run
+        cli.render(cli.build_parser().parse_args(
+            ["--device", str(device), "--quiet", "-o",
+             os.path.join(tmp, "warm.png")]))
+    mk.render_tiles.launches = 0
+    res = cli.render(args)
+    launches = mk.render_tiles.launches
+    n_paths = 1200 * 800 * 10
+    nonzero = (res.image.amax(dim=2) > 0).float().mean().item()
+    print(f"  {res.seconds:.4f} s wall, {res.n_traced} rays, "
+          f"{res.n_traced / res.seconds / 1e6:.2f} Mrays/s, driver "
+          f"{res.driver}, tile_render launches {launches}, non-zero pixels "
+          f"{nonzero:.4f}  [{card}]", flush=True)
+    check(launches >= 1 and res.driver == "tile",
+          ("the CLI's default did not launch tile_render", launches,
+           res.driver))
+    check(bool(torch.isfinite(res.image).all()) and nonzero > 0.99,
+          ("[M2] image", nonzero))
+    check(n_paths <= res.n_traced <= n_paths * 51, ("traced", res.n_traced))
+    check(os.path.getsize(png) > 0, "empty PNG")
+    return launches
+
+
+def moving_sphere_scene(w, h):
+    """One moving mirror sphere filling the frame under the sky
+    (tests/test_torch_motion.py's finite-difference scene): every path is
+    camera -> sphere -> sky, smooth in the sphere's motion (a lambertian
+    sphere's grazing scatters re-hit it now and then, which moves path
+    lengths under a finite difference)."""
+    from rrt_tpu_torch.camera import Camera
+    from rrt_tpu_torch.scene import SceneBuilder
+    b = SceneBuilder()
+    b.moving_sphere((0.0, 0.0, -1.0), (0.05, 0.03, -1.0), 0.0, 1.0, 0.5,
+                    b.metal((0.6, 0.3, 0.2), fuzz=0.0))
+    cam = Camera.create(look_from=(0.0, 0.0, 1.0), look_at=(0.0, 0.0, -1.0),
+                        fov_deg=10.0, aspect=w / h, time0=0.0, time1=1.0)
+    return b.build(), cam
+
+
+def motion_train_phase(device, card):
+    """[M3] one 8-spp make_train_step on book2chap2 at 1200x800, depth
+    50, with sphere_dc among the leaves; then d loss / d sphere_dc of
+    one moving sphere (moving_sphere_scene at 1200x800, 8 spp) from
+    train_bwd against central differences of train_fwd (eps 1e-3), loss
+    = sum(MIX . radiance) in float64, within 1e-2 of the largest
+    component (the plain versions agreed within 7.2e-7 of it at 120x80 on
+    a CPU). Returns the launches of (train_fwd, train_bwd)."""
+    from rrt_tpu_torch import diff, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    cfg = render.RenderConfig(**TRAIN)
+    scene, cam = tscenes.book2chap2_scene(cfg.width, cfg.height)
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    start = diff.combine(scene, {"sphere_dc": scene.sphere_dc * 0.5})
+    step = diff.make_train_step(cfg, lr=1e-3, device=device)
+    step(start, cam, target, 0)  # warm-up
+    fwd, bwd = mkt.render_tiles_train, mkt.tiles_adjoint
+    fwd.launches = bwd.launches = 0
+    bwd.replay_mismatches = 0
+    (new, _, loss), ms = wall_ms(lambda: step(start, cam, target, 0))
+    launches = (fwd.launches, bwd.launches)
+    mism = int(bwd.replay_mismatches)
+    moved = (new.sphere_dc.cpu() - start.sphere_dc).abs().max().item()
+    print(f"  book2chap2 step: loss {loss.item():.6e}, {ms:.2f} ms, launches "
+          f"train_fwd {launches[0]}, train_bwd {launches[1]}, "
+          f"replay_mismatches {mism}, sphere_dc moved by up to {moved:.3e}  "
+          f"[{card}]", flush=True)
+    check(min(launches) >= 1 and mism == 0, ("[M3] step", launches, mism))
+    check(bool(torch.isfinite(loss)) and moved > 0, ("[M3] sphere_dc",
+                                                     moved))
+    scene1, cam1 = moving_sphere_scene(cfg.width, cfg.height)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
+              height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
+              t_min=cfg.t_min, moving=True)
+    mix = torch.tensor(MIX, device=device)
+
+    def forward(s):
+        packs = [p.detach() for p in render._packs(s, cam1, cfg, device)]
+        return packs, mkt.render_tiles_train(*packs, **kw)
+
+    packs, (rad, _, lengths) = forward(scene1)
+    d_sph, d_cam, d_bg, mism = mkt.tiles_adjoint(
+        *packs, mix.expand_as(rad).contiguous(), lengths, **kw)
+    gp, _ = diff.field_grads(scene1, cam1, cfg, d_sph, d_cam, d_bg,
+                             device=device)
+    auto = gp["sphere_dc"][0].cpu()
+    eps = 1e-3
+    fd = torch.zeros(3, dtype=torch.float64)
+    for j in range(3):
+        def loss_at(delta):
+            dc = scene1.sphere_dc.clone()
+            dc[0, j] += delta
+            r = forward(diff.combine(scene1, {"sphere_dc": dc}))[1][0]
+            return (r.double() * mix.double()).sum().item()
+        fd[j] = (loss_at(eps) - loss_at(-eps)) / (2.0 * eps)
+    worst = (auto.double() - fd).abs().max().item() / fd.abs().max().item()
+    print(f"  d loss / d sphere_dc[0]: train_bwd {auto.tolist()}, central "
+          f"differences {fd.tolist()}, {worst:.2e} of the largest apart, "
+          f"replay_mismatches {int(mism)}", flush=True)
+    check(int(mism) == 0 and worst < 1e-2 and fd.abs().max() > 0,
+          ("[M3] finite differences", worst))
+    return launches
+
+
+def probe_phase(device, card):
+    """[P1] the three probes: each kernel against its plain version at
+    PROBE_CHECK_ITERS iterations (tests/test_torch_cuda.py's rule), then
+    each probe's main() at the JAX probe's full ITERS, with the launch
+    counts set to 0 just before and read just after. Returns the
+    numbers of the kernels line."""
+    from rrt_tpu_torch import probes, rng
+    from rrt_tpu_torch.probes import probe_reshape, probe_rng, probe_row_layout
+    it = PROBE_CHECK_ITERS
+    gen = torch.Generator().manual_seed(0)
+    # Values near 1, where a chain of 128 steps moves them by about 1.5e-5
+    # relative, and values between 1e-8 and 1e-6, where the addend moves
+    # them by at least 12%: the kernels are held bit for bit to their
+    # plain versions (fmaf's single rounding) on both.
+    inputs = ((0.5 + 0.5 * torch.rand((16, 1024), generator=gen)),
+              10.0 ** (-8.0 + 2.0 * torch.rand((16, 1024), generator=gen)))
+    plain = probe_row_layout.fma_chain_reference
+    chain_err = relayout_err = 0.0
+    plain_ms = []  # (chain, relayout) of each input
+    moved = True
+    for x in inputs:
+        x = x.to(device)
+        chain, chain_ms = wall_ms(lambda: plain(x, iters=it))
+        y = probe_row_layout.fma_chain(x, iters=it)
+        relayout = probe_reshape.fma_chain_relayout(x, iters=it)
+        ref_relayout, relayout_ms = wall_ms(
+            lambda: plain(x, iters=it, relayout=True))
+        plain_ms.append((chain_ms, relayout_ms))
+        moved &= not torch.equal(chain, x)
+        chain_err = max(chain_err, (y - chain).abs().max().item())
+        relayout_err = max(relayout_err,
+                           (relayout - ref_relayout).abs().max().item())
+    u = torch.randint(-2**31, 2**31, (1, 1024), generator=gen,
+                      dtype=torch.int64).to(torch.int32).to(device)
+    rng_err, rng_plain_ms = 0, 0.0
+    for mode in probe_rng.MODES:
+        ref, ms = wall_ms(lambda: probe_rng.mix_reference(u, mode=mode,
+                                                          iters=it))
+        rng_plain_ms += ms
+        out = probe_rng.mix(u, mode=mode, iters=it)
+        diff = rng.from_u32_bits(out) - rng.from_u32_bits(ref)
+        rng_err = max(rng_err, diff.abs().max().item())
+    print(f"  at {it} iterations, near 1 and between 1e-8 and 1e-6: "
+          f"fma_chain's largest difference from its plain version "
+          f"{chain_err:.3e}, fma_chain_relayout's {relayout_err:.3e} (rule: "
+          f"0, fmaf's single rounding in both); the three mixers' largest "
+          f"difference {rng_err} (rule: 0)", flush=True)
+    check(moved and chain_err == 0.0 and relayout_err == 0.0
+          and rng_err == 0,
+          ("[P1] probes vs plain", moved, chain_err, relayout_err, rng_err))
+    wrappers = (probe_row_layout.fma_chain, probe_reshape.fma_chain_relayout,
+                probe_rng.mix)
+    for w in wrappers:
+        w.launches = 0
+    for mod in (probe_row_layout, probe_rng, probe_reshape):
+        check(mod.main() == 0, (mod.__name__, "main"))
+    launches = [w.launches for w in wrappers]
+    print(f"  launches: fma_chain {launches[0]}, fma_chain_relayout "
+          f"{launches[1]}, rng {launches[2]}", flush=True)
+    check(min(launches) >= 1, ("[P1] launches", launches))
+    rows = probe_row_layout.run(device)
+    reshape_rows = probe_reshape.run(device)
+    rng_rows = probe_rng.run(device)
+    clock = probes.sm_clock_hz()
+    print(f"  max SM clock {clock / 1e9:.3f} GHz, INT32 "
+          f"{probes.int32_rate(device) / 1e12:.2f} Tops/s  [{card}]",
+          flush=True)
+    return dict(
+        row=rows, reshape=reshape_rows, rng=rng_rows, launches=launches,
+        chain_err=chain_err, chain_plain_ms=plain_ms[0][0],
+        relayout_plain_ms=plain_ms[0][1], rng_plain_ms=rng_plain_ms,
+        rng_err=float(rng_err), relayout_err=relayout_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from rrt_tpu_torch import cli, diff, render, scenes as tscenes
     from rrt_tpu_torch.ops import _build, megakernel as mk
     from rrt_tpu_torch.ops import megakernel_train as mkt
@@ -1245,6 +1500,32 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(device)
     differentiable_batch_phase(tile_b, int(tile_b_traced), device, card)
     peak_memory("[C3]", device, card)
+
+    phases.start("M1", f"book2chap2 {MAIN['width']}x{MAIN['height']} "
+                 f"d{MAIN['max_depth']}: the kernels' moving variants vs "
+                 f"their plain versions")
+    torch.cuda.reset_peak_memory_stats(device)
+    m_tile = motion_tile_phase(device, card)
+    m_q = queue_kernels_vs_plain("book2chap2", MAIN["width"], MAIN["height"],
+                                 QUEUE_LANES, BATCH_RAYS, device, card)
+    # The readings on an H100 80GB HBM3 at 700 W: 0.9786 of pixels and
+    # 0.99724 of paths agreed; the gates allow twice their complements.
+    m_t = train_vs_plain("book2chap2", TRAIN["width"], TRAIN["height"],
+                         TRAIN["spp"], TRAIN["max_depth"], device, card,
+                         min_pixels=0.955, min_paths=0.994,
+                         plain_chunk=1 << 19)
+    m_c1, _ = chain_kernel_phase(device, card, "book2chap2")
+    peak_memory("[M1]", device, card)
+    phases.start("M2", "main path: python -m rrt_tpu_torch.cli with its "
+                 "defaults (book2chap2 1200x800 10spp, the tile driver)")
+    m2_launches = motion_cli_phase(device, card)
+    phases.start("M3", "main path: make_train_step on book2chap2 1200x800 "
+                 "8spp d50, sphere_dc among the leaves; finite differences")
+    torch.cuda.reset_peak_memory_stats(device)
+    m3_launches = motion_train_phase(device, card)
+    peak_memory("[M3]", device, card)
+    phases.start("P1", "main path: the three probes at their full ITERS")
+    p1 = probe_phase(device, card)
     phases.end()
 
     main_fwd = sum(m[0] for m in step_ms) / len(step_ms)
@@ -1258,7 +1539,14 @@ def main() -> int:
     # ms, plain_ms and bound_ms are sums over [C1]'s three chains, its
     # max_abs_err the largest |field gradient delta| of gradcheck there);
     # main_ms: the train kernels' mean per step of [7] (the same shape).
-    # No single PyTorch call computes any of these functions.
+    # moving_ms (and moving_bound_ms): the same kernel's moving variant on
+    # book2chap2 at the same shape ([M1]); moving_launches: its launches
+    # on [M2]'s and [M3]'s main paths. The probes ([P1]): ms and bound_ms
+    # of the probe's headline variant at the JAX probe's full ITERS (the
+    # (1, 1024) row, Threefry, the reshape; every variant in `variants`),
+    # plain_ms and max_abs_err at PROBE_CHECK_ITERS iterations
+    # (plain_iters). No single PyTorch call computes any of these
+    # functions.
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1267,29 +1555,57 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                 **extra}
 
+    def moving(ms, bnd, **extra):
+        return dict(moving_ms=ms, moving_bound_ms=bnd[0], **extra)
+
+    def probe(name, replaces, launches, err, rows, plain_ms):
+        return entry(name, csrc + "probes.cu", replaces, launches, err,
+                     rows[0][1], plain_ms, (rows[0][2], "operations"),
+                     plain_iters=PROBE_CHECK_ITERS,
+                     variants={str(r[0]): {"ms": r[1], "bound_ms": r[2]}
+                               for r in rows})
+
     csrc = "rrt_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
         entry("tile_render", csrc + "tile_render.cu",
               "rrt_tpu/ops/megakernel.py:2048", launches, main_err,
-              tile_ms, main_plain_ms, main_bound),
+              tile_ms, main_plain_ms, main_bound,
+              **moving(m_tile["ms"], m_tile["bound"],
+                       moving_launches=m2_launches)),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
               t5["fwd_err"], t5["fwd_ms"], t5["fwd_plain_ms"],
-              t5["fwd_bound"], main_ms=main_fwd),
+              t5["fwd_bound"], main_ms=main_fwd,
+              **moving(m_t["fwd_ms"], m_t["fwd_bound"],
+                       moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:463", bwd_launches,
               t5["bwd_err"], t5["bwd_ms"], t5["bwd_plain_ms"],
-              t5["bwd_bound"], main_ms=main_bwd),
+              t5["bwd_bound"], main_ms=main_bwd,
+              **moving(m_t["bwd_ms"], m_t["bwd_bound"],
+                       moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:645", q_launches, q1["err"],
-              q1["ms"], q1["plain_ms"], q1["bound"]),
+              q1["ms"], q1["plain_ms"], q1["bound"],
+              **moving(m_q["ms"], m_q["bound"])),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
-              q1["i_ms"], q1["i_plain_ms"], q1["i_bound"]),
+              q1["i_ms"], q1["i_plain_ms"], q1["i_bound"],
+              **moving(m_q["i_ms"], m_q["i_bound"])),
         entry("chain_bwd", csrc + "chain.cu",
               "rrt_tpu/ops/megakernel_vjp.py:487", c2_launches[1],
               max(c["err"] for c in c1), sum(c["ms"] for c in c1),
-              sum(c["plain_ms"] for c in c1), chain_bound(c1))]}))
+              sum(c["plain_ms"] for c in c1), chain_bound(c1),
+              **moving(sum(c["ms"] for c in m_c1), chain_bound(m_c1))),
+        probe("fma_chain", "benchmarks/probe_row_layout.py:38",
+              p1["launches"][0], p1["chain_err"], p1["row"],
+              p1["chain_plain_ms"]),
+        probe("rng", "benchmarks/probe_rng.py:56", p1["launches"][2],
+              p1["rng_err"], [p1["rng"][i] for i in (1, 0, 2)],
+              p1["rng_plain_ms"]),
+        probe("fma_chain_relayout", "benchmarks/probe_reshape.py:38",
+              p1["launches"][1], p1["relayout_err"], p1["reshape"][::-1],
+              p1["relayout_plain_ms"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ samples, and checkpoints to resume from (`--checkpoint`,
 picks the device: `cuda` (the default) launches the CUDA kernels, `cpu`
 runs their plain PyTorch versions.
 
+    python -m rrt_tpu_torch.cli            # book2chap2, 1200x800, 10 spp
     python -m rrt_tpu_torch.cli --scene chap12 -r 1200x800 -s 32 -o out.png
     python -m rrt_tpu_torch.cli --scene chap12 -s 64 --driver queue \\
         --spp-chunk 8 --checkpoint ck.npz -o out.png
@@ -55,8 +56,9 @@ def build_parser():
                    help="samples per pixel (default 10)")
     p.add_argument("-e", "--seed", type=int, default=0,
                    help="render seed (default 0)")
-    p.add_argument("--scene", default="chap12",
-                   help="scene name: " + ", ".join(sorted(SCENES)))
+    p.add_argument("--scene", default="book2chap2",
+                   help="scene name (default book2chap2, rrt_tpu's): "
+                   + ", ".join(sorted(SCENES)))
     p.add_argument("-o", "--output", default="o.ppm",
                    help="output path; .png or .ppm by extension")
     p.add_argument("--max-depth", type=int, default=50)

@@ -24,13 +24,15 @@ from .camera import Camera
 from .ops import megakernel as ops_mega
 from .ops import megakernel_train as ops_train
 from .render import (DIFF_SAMPLE_BUDGET, RenderConfig, _check_device,
-                     _check_diff_scope, _packs, render_image_diff)
+                     _check_diff_scope, _packs, _warn_diff_fallback,
+                     diff_fallback_reason, render_image_diff)
 from .rng import key_words
 from .scene import SceneArrays
 
 # Scene leaves that make sense to optimize (continuous scene parameters),
-# as in rrt_tpu; the families outside the sphere subset get no gradient
-# until they are ported (ROADMAP Queue A #9).
+# as in rrt_tpu; sphere_dc (a moving sphere's motion) gets its gradient
+# through the velocity pack rows; the families outside the sphere subset
+# get none until they are ported (ROADMAP Queue A #9).
 DIFFERENTIABLE_FIELDS = (
     "sphere_c0", "sphere_dc", "sphere_radius",
     "quad_q", "quad_u", "quad_v",
@@ -197,7 +199,8 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
     def chain(lo):
         rad, _ = ops_train.TileTrainChain.apply(
             *_packs(scene_d, cam, cfg, device), key_words(seed), lo,
-            cfg.width, cfg.height, chunk, cfg.max_depth, cfg.t_min)
+            cfg.width, cfg.height, chunk, cfg.max_depth, cfg.t_min,
+            scene.has_moving)
         return rad
 
     rad0 = chain(0)
@@ -208,7 +211,8 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
             r, _ = ops_mega.render_tiles(
                 *packs, seed_words=key_words(seed), sample_lo=lo,
                 width=cfg.width, height=cfg.height, spp=chunk,
-                max_depth=cfg.max_depth, t_min=cfg.t_min)
+                max_depth=cfg.max_depth, t_min=cfg.t_min,
+                moving=scene.has_moving)
             rad_sum = rad_sum + r
     rs = rad_sum.requires_grad_()
     img = rs.reshape(cfg.height, cfg.width, 3) / float(cfg.spp)
@@ -232,7 +236,19 @@ def make_train_step_chunked(cfg: RenderConfig, lr: float = 1e-2,
     _no_mesh(mesh)
     device = _check_device(device)
 
+    fallback = []
+
     def step(scene: SceneArrays, camera: Camera, target, seed):
+        # As rrt_tpu: a scene or depth the train kernels do not take
+        # runs the one-shot step (render_image_diff's route), with one
+        # log line naming why.
+        reason = diff_fallback_reason(scene, cfg)
+        if reason is not None:
+            _warn_diff_fallback("make_train_step_chunked", reason)
+            if not fallback:
+                fallback.append(_make_train_step_oneshot(cfg, lr,
+                                                         device=device))
+            return fallback[0](scene, camera, target, seed)
         loss, gp, gc = loss_and_grads_chunked(cfg, scene, camera, target,
                                               seed, spp_chunk, device=device)
         return (*_sgd(scene, camera, gp, gc, lr, device), loss)

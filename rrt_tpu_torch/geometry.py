@@ -5,8 +5,10 @@ A ray batch is tested against the whole sphere family at once as
 rebuilt afterwards (`make_hit`), as in rrt_tpu.geometry. Vectors are
 (3,N) tensors, one row per component.
 
-Only stationary spheres are covered; quads, boxes and media wait for
-ROADMAP Queue A #9.2-#9.4 and moving spheres for #9.1.
+Spheres move linearly over their shutter interval: the center at a
+ray's time is base + time * vel, folded from (center0, center1 - center0,
+time0, 1 / (time1 - time0)) as in rrt_tpu.geometry. Quads, boxes and
+media wait for ROADMAP Queue A #9.2-#9.4.
 """
 
 import dataclasses
@@ -44,15 +46,26 @@ def _safe_sqrt(x):
     return torch.sqrt(torch.where(x > 0.0, x, 1.0)) * (x > 0.0)
 
 
-def intersect_spheres(scene, o, d, t_min, t_max):
-    """Closest valid sphere per ray. o, d: (3,N); t_min, t_max: floats
-    or (N,). Returns (t (N,), idx (N,) int64); misses have t == INF.
+def intersect_spheres(scene, o, d, time, t_min, t_max):
+    """Closest valid sphere per ray. o, d: (3,N); time: (N,) the rays'
+    times (read when scene.has_moving); t_min, t_max: floats or (N,).
+    Returns (t (N,), idx (N,) int64); misses have t == INF.
 
     Root selection matches the reference (src/sphere.rs:79-87): near
     root if inside (t_min, t_max), else far root, else miss. The
     quadratic is the expanded form of rrt_tpu.geometry and of the tile
-    kernel, so the three agree up to rounding."""
-    cx, cy, cz = (c[None, :] for c in scene.sphere_c0.T)  # (1,S)
+    kernel, and a moving sphere's center is base + time * vel as there,
+    so the three agree up to rounding."""
+    inv_dt = scene.sphere_inv_dt[:, None]
+    base = scene.sphere_c0 - scene.sphere_dc * (scene.sphere_t0[:, None]
+                                                 * inv_dt)
+    if scene.has_moving:
+        f = time[:, None]  # (N,1)
+        vel = scene.sphere_dc * inv_dt
+        cx, cy, cz = (b[None, :] + f * v[None, :]  # (N,S)
+                      for b, v in zip(base.T, vel.T))
+    else:
+        cx, cy, cz = (b[None, :] for b in base.T)  # (1,S)
     a = dot(d, d)[:, None]  # (N,1)
     o_dot_d = dot(o, d)[:, None]
     o_dot_o = dot(o, o)[:, None]
@@ -84,15 +97,17 @@ def intersect_spheres(scene, o, d, t_min, t_max):
     return t_hit.gather(1, idx[:, None])[:, 0], idx
 
 
-def make_hit(scene, o, d, t, fam, idx) -> Hit:
-    """Rebuild the hit record of each ray's winning sphere."""
+def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
+    """Rebuild the hit record of each ray's winning sphere, its center
+    at the ray's time (N,)."""
     hit_mask = fam == FAM_SPHERE
     # Misses carry t == INF; clamp so the (masked-out) miss rays' normal
     # math stays finite.
     t_eff = torch.where(hit_mask, t, 0.0)
     p = o + d * t_eff
     si = torch.where(hit_mask, idx, 0)
-    center = scene.sphere_c0[si].T
+    f = (time - scene.sphere_t0[si]) * scene.sphere_inv_dt[si]
+    center = scene.sphere_c0[si].T + scene.sphere_dc[si].T * f
     radius = scene.sphere_radius[si]
     outward = (p - center) * (1.0 / radius)  # sign(r) flips inward
     unit_out = (p - center) * (1.0 / torch.abs(radius))

@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("tile_render.cu", "train.cu", "queue.cu", "chain.cu")
+_SOURCES = ("tile_render.cu", "train.cu", "queue.cu", "chain.cu",
+            "probes.cu")
 # Hashed with the sources, not compiled alone.
 _HEADERS = ("bounce.cuh", "adjoint.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rrt_tpu_torch"
@@ -92,22 +93,26 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
-    lib.rrt_tile_render.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f,
+    lib.rrt_tile_render.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i,
                                     p, p, p]
     lib.rrt_tile_render.restype = i
-    lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, p, p,
-                                  p, p]
+    lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i, p,
+                                  p, p, p]
     lib.rrt_train_fwd.restype = i
     lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, u, u, u, i, i, i, i, f,
-                                  p, p, p, p]
+                                  i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
-    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, i, i, f, p]
+    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, i, i, f, i, p]
     lib.rrt_bounce_steps.restype = i
-    lib.rrt_intersect.argtypes = [p, p, i, p, i, f, p, p, p, p]
+    lib.rrt_intersect.argtypes = [p, p, p, i, p, i, f, i, p, p, p, p]
     lib.rrt_intersect.restype = i
-    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, p, i, i, f, p, p, p,
-                                  p, p]
+    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, p, i, i, f, i, p, p,
+                                  p, p, p]
     lib.rrt_chain_bwd.restype = i
+    lib.rrt_probe_fma_chain.argtypes = [p, p, i, i, f, f, i, p]
+    lib.rrt_probe_fma_chain.restype = i
+    lib.rrt_probe_rng.argtypes = [p, p, i, i, i, p]
+    lib.rrt_probe_rng.restype = i
     lib.rrt_error_string.argtypes = [i]
     lib.rrt_error_string.restype = ctypes.c_char_p
     return lib

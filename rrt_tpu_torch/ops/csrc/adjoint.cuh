@@ -12,12 +12,18 @@ namespace {
 
 // Bounce records a thread keeps while it replays a path or a chain.
 constexpr int kMaxRecords = 64;
-// Pack rows with gradients, in accumulator order (megakernel_train.py
-// GRAD_ROWS): center 0-2, r^2 3, aux 4, color1 5-7, color2 8-10,
-// signed radius 11.
+// Pack rows with gradients, in accumulator order (megakernel_vjp.py
+// GRAD_ROWS): center (motion base) 0-2, r^2 3, aux 4, color1 5-7,
+// color2 8-10, signed radius 11, and with moving spheres the velocity
+// 12-14 (pack rows 4-6): a static scene's accumulator keeps 12 rows.
 constexpr int kGradRows = 12;
+constexpr int kGradRowsMoving = 15;
 constexpr int kAccR2 = 3, kAccAux = 4, kAccColor1 = 5, kAccColor2 = 8,
-              kAccRadius = 11;
+              kAccRadius = 11, kAccVel = 12;
+
+__host__ __device__ constexpr int grad_rows(bool moving) {
+  return moving ? kGradRowsMoving : kGradRows;
+}
 // Rows of a reduction group of per-block partials.
 constexpr int kReduceGroup = 64;
 
@@ -73,16 +79,21 @@ __device__ __forceinline__ void miss_adjoint(const Record& r,
 // survives = true). In: go, gd, gt, the cotangents of the new origin,
 // direction and throughput. Out: the same arrays hold the cotangents of
 // the bounce's input origin, direction and throughput; the winner's
-// pack cotangents go to the block accumulator.
+// pack cotangents go to the block accumulator. With kMoving the center
+// is base + time * vel (time: the path's time): base gets the center's
+// cotangent, vel time times it, and g_time gains vel . it.
+template <bool kMoving>
 __device__ __forceinline__ void scatter_adjoint(
     const float* sph, int n_slots, const Record& rec, uint32_t k0,
-    uint32_t k1, int bounce, float t_min, float* go, float* gd, float* gt,
-    float* acc) {
+    uint32_t k1, int bounce, float t_min, float time, float* go, float* gd,
+    float* gt, float* acc, float& g_time) {
   Ray ray;
   ray.ox = rec.o[0]; ray.oy = rec.o[1]; ray.oz = rec.o[2];
   ray.dx = rec.d[0]; ray.dy = rec.d[1]; ray.dz = rec.d[2];
+  ray.time = time;
   const float* col = sph + rec.win;
-  const float c[3] = {col[0], col[n_slots], col[2 * n_slots]};
+  float c[3];
+  center_at<kMoving>(col, n_slots, time, c);
   const RayDots q = ray_dots(ray);
   const Quadratic k =
       quadratic(ray, q, c[0], c[1], c[2], col[kRowR2 * n_slots]);
@@ -95,7 +106,7 @@ __device__ __forceinline__ void scatter_adjoint(
   const bool pick0 = root0 > t_min;
   const float t = pick0 ? root0 : root1;
   Shade sh;
-  shade(col, n_slots, ray, q.a, t, k0, k1, bounce, sh);
+  shade<kMoving>(col, n_slots, ray, q.a, t, k0, k1, bounce, sh);
 
   const bool is_lam = sh.mtype == kMatLambertian;
   const bool is_met = sh.mtype == kMatMetal;
@@ -225,6 +236,10 @@ __device__ __forceinline__ void scatter_adjoint(
     g_d[j] += g_h * rec.o[j] - g_h * c[j] + 2.0f * g_a * rec.d[j];
     g_c[j] += -g_h * rec.d[j] - 2.0f * g_cc * rec.o[j] + 2.0f * g_cc * c[j];
     acc_add(acc, n_slots, j, rec.win, g_c[j]);
+    if (kMoving) {
+      acc_add(acc, n_slots, kAccVel + j, rec.win, time * g_c[j]);
+      g_time += col[(kRowVel + j) * n_slots] * g_c[j];
+    }
   }
   acc_add(acc, n_slots, kAccR2, rec.win, -g_cc);
 
@@ -273,11 +288,12 @@ inline cudaError_t reduce_partials(float* scratch, int n_blocks, int n_cols,
   return cudaGetLastError();
 }
 
-// Dynamic shared memory of a backward block: the 4 intersection rows of
-// every slot (float4), then the 12 gradient rows of every slot.
-inline size_t adjoint_smem(int n_slots) {
-  return (sizeof(float4) + kGradRows * sizeof(float)) *
-         static_cast<size_t>(n_slots);
+// Dynamic shared memory of a backward block: the staged rows of every
+// slot (one float4, two with moving spheres: staged_bytes), then the 12
+// (15) gradient rows of every slot.
+inline size_t adjoint_smem(int n_slots, bool moving) {
+  return staged_bytes(n_slots, moving) +
+         grad_rows(moving) * sizeof(float) * static_cast<size_t>(n_slots);
 }
 
 }  // namespace

@@ -8,8 +8,17 @@
 // backward.
 //
 // Sphere subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary
-// spheres, solid and checker textures, lambertian / metal / dielectric
-// materials, sky or solid background, no Russian roulette.
+// and moving spheres, solid and checker textures, lambertian / metal /
+// dielectric materials, sky or solid background, no Russian roulette.
+//
+// Moving spheres (kMoving = true, the scene's has_moving): a sphere's
+// center at a ray's time is base + time * vel, pack rows 0-2 and 4-6, in
+// the closest-sphere scan (rrt_tpu's megakernel.py:1033-1038) and in the
+// shading normal (:1247-1250); each ray carries its time, the camera's
+// shutter draw. The velocity rows are staged in shared memory beside the
+// intersection rows (a second float4 a slot, 8 KB at 512 slots). The
+// kMoving = false instantiation reads no time and runs the static
+// arithmetic unchanged.
 
 #pragma once
 
@@ -26,6 +35,7 @@ constexpr uint32_t kStreamScatter = 1u;
 
 // Sphere pack rows (row-major (24, S)).
 constexpr int kRowR2 = 3;  // r^2 (-1 on invalid slots)
+constexpr int kRowVel = 4;  // 4-6: motion velocity (0 on static slots)
 constexpr int kRowMatType = 8;
 constexpr int kRowAux = 9;  // fuzz (metal) or ior (dielectric)
 constexpr int kRowColor1 = 10;
@@ -37,7 +47,8 @@ constexpr int kRowRadius = 18;  // signed: negative flips the normal
 // Camera pack (24,).
 constexpr int kCamOrigin = 0, kCamLowerLeft = 3, kCamHorizontal = 6,
               kCamVertical = 9, kCamU = 12, kCamV = 15, kCamLens = 18,
-              kCamW = 21, kCamH = 22, kCamHm1 = 23;
+              kCamTime0 = 19, kCamDt = 20, kCamW = 21, kCamH = 22,
+              kCamHm1 = 23;
 
 constexpr float kMatLambertian = 0.0f, kMatMetal = 1.0f,
                 kMatDielectric = 2.0f, kTexChecker = 1.0f;
@@ -105,9 +116,10 @@ __device__ __forceinline__ void box_muller(float u1, float u2, float& g0,
   g1 = r * sinf(th);
 }
 
-// The camera's draws of one sample: pixel jitter and lens disc.
+// The camera's draws of one sample: pixel jitter, lens disc and the
+// shutter draw.
 struct CamDraws {
-  float jx, jy, dcx, dcy;
+  float jx, jy, dcx, dcy, tu;
 };
 
 __device__ __forceinline__ CamDraws camera_draws(uint32_t k0, uint32_t k1) {
@@ -120,14 +132,17 @@ __device__ __forceinline__ CamDraws camera_draws(uint32_t k0, uint32_t k1) {
   c.jy = u[1];
   c.dcx = r * cosf(theta);
   c.dcy = r * sinf(theta);
+  c.tu = u[4];
   return c;
 }
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
+  float time;  // read by the moving-sphere variant only
 };
 
-// Thin-lens camera ray (rrt_tpu/ops/megakernel.py _camera_rays).
+// Thin-lens camera ray (rrt_tpu/ops/megakernel.py _camera_rays); the
+// time is time0 + (time1 - time0) * u, as megakernel_vjp.camera_ray_rows.
 __device__ __forceinline__ Ray camera_ray(const float* cam,
                                           const CamDraws& c, float pxf,
                                           float pyf) {
@@ -145,6 +160,7 @@ __device__ __forceinline__ Ray camera_ray(const float* cam,
            cam[kCamVertical + 1] * t - ray.oy;
   ray.dz = cam[kCamLowerLeft + 2] + cam[kCamHorizontal + 2] * s +
            cam[kCamVertical + 2] * t - ray.oz;
+  ray.time = cam[kCamTime0] + cam[kCamDt] * c.tu;
   return ray;
 }
 
@@ -183,16 +199,25 @@ __device__ __forceinline__ Quadratic quadratic(const Ray& r,
 }
 
 // Closest sphere: a strict `<` running minimum over the slots in order,
-// the first minimum winning like argmin. sph4: rows 0-3 of each slot.
-// Returns t (kInf on a miss) and the winner in `win`.
+// the first minimum winning like argmin. sph4: rows 0-3 of each slot;
+// vel4: rows 4-6 (kMoving only), the center at the ray's time being
+// base + time * vel. Returns t (kInf on a miss) and the winner in `win`.
+template <bool kMoving>
 __device__ __forceinline__ float closest_sphere(const float4* sph4,
+                                                const float4* vel4,
                                                 int n_slots, const Ray& r,
                                                 const RayDots& q,
                                                 float t_min, int& win) {
   float t_best = kInf;
   win = 0;
   for (int i = 0; i < n_slots; ++i) {
-    const float4 c = sph4[i];
+    float4 c = sph4[i];
+    if (kMoving) {
+      const float4 v = vel4[i];
+      c.x = c.x + r.time * v.x;
+      c.y = c.y + r.time * v.y;
+      c.z = c.z + r.time * v.z;
+    }
     const Quadratic k = quadratic(r, q, c.x, c.y, c.z, c.w);
     if (k.disc > 0.0f) {
       const float sq = sqrtf(k.disc);
@@ -243,8 +268,21 @@ struct Shade {
   bool scattered;
 };
 
+// The winner's center at the ray's time: pack rows 0-2, plus time times
+// rows 4-6 when the spheres move.
+template <bool kMoving>
+__device__ __forceinline__ void center_at(const float* col, int n_slots,
+                                          float time, float* c) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    c[j] = kMoving ? col[j * n_slots] + time * col[(kRowVel + j) * n_slots]
+                   : col[j * n_slots];
+  }
+}
+
 // Shade the hit at t on the winner whose pack column starts at `col`
 // (row r at col[r * n_slots]); a is |d|^2.
+template <bool kMoving>
 __device__ __forceinline__ void shade(const float* col, int n_slots,
                                       const Ray& r, float a, float t,
                                       uint32_t k0, uint32_t k1, int bounce,
@@ -254,9 +292,11 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
   sh.h[2] = r.oz + t * r.dz;
   const float srad = col[kRowRadius * n_slots];
   sh.inv_r = 1.0f / (fabsf(srad) > 1e-20f ? srad : 1.0f);
-  const float outx = (sh.h[0] - col[0]) * sh.inv_r;
-  const float outy = (sh.h[1] - col[n_slots]) * sh.inv_r;
-  const float outz = (sh.h[2] - col[2 * n_slots]) * sh.inv_r;
+  float c[3];
+  center_at<kMoving>(col, n_slots, r.time, c);
+  const float outx = (sh.h[0] - c[0]) * sh.inv_r;
+  const float outy = (sh.h[1] - c[1]) * sh.inv_r;
+  const float outz = (sh.h[2] - c[2]) * sh.inv_r;
   sh.front = r.dx * outx + r.dy * outy + r.dz * outz < 0.0f;
   sh.sgn = sh.front ? 1.0f : -1.0f;
   sh.n[0] = outx * sh.sgn;
@@ -364,16 +404,19 @@ struct Path {
 // One bounce of a path: closest sphere, then the background on a miss
 // (its radiance, throughput included, into `rad`) or the winner's shading
 // and scatter. `win` is the winner, -1 on a miss. Returns the Outcome;
-// on kScattered the path has moved on.
+// on kScattered the path has moved on (its time stays).
+template <bool kMoving>
 __device__ __forceinline__ int bounce_step(const float* sph,
-                                           const float4* sph4, int n_slots,
+                                           const float4* sph4,
+                                           const float4* vel4, int n_slots,
                                            const float* bg, bool sky,
                                            uint32_t k0, uint32_t k1,
                                            int bounce, int max_depth,
                                            float t_min, Path& p, float* rad,
                                            int& win) {
   const RayDots q = ray_dots(p.ray);
-  const float t_best = closest_sphere(sph4, n_slots, p.ray, q, t_min, win);
+  const float t_best =
+      closest_sphere<kMoving>(sph4, vel4, n_slots, p.ray, q, t_min, win);
   if (!(t_best < kInf)) {  // miss: bank the background and stop
     float rgb[3], tsky, inv_len;
     background(bg, sky, p.ray.dy, q.a, rgb, tsky, inv_len);
@@ -384,7 +427,8 @@ __device__ __forceinline__ int bounce_step(const float* sph,
     return kMissed;
   }
   Shade sh;
-  shade(sph + win, n_slots, p.ray, q.a, t_best, k0, k1, bounce, sh);
+  shade<kMoving>(sph + win, n_slots, p.ray, q.a, t_best, k0, k1, bounce,
+                 sh);
   if (!sh.scattered || bounce >= max_depth) return kAbsorbed;
   if (sh.mtype != kMatDielectric) {  // dielectrics attenuate by 1
     p.thr[0] *= sh.alb[0];
@@ -398,24 +442,37 @@ __device__ __forceinline__ int bounce_step(const float* sph,
 
 // Stage the intersection rows (0-3) of every slot in shared memory as
 // float4 (invalid slots carry r^2 = -1 and so never have a positive
-// discriminant).
+// discriminant) and, when vel4 is given, the velocity rows (4-6) as a
+// second float4 a slot.
 __device__ __forceinline__ void stage_spheres(const float* sph, int n_slots,
-                                              float4* sph4) {
+                                              float4* sph4, float4* vel4) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   for (int i = tid; i < n_slots; i += n_threads) {
     sph4[i] = make_float4(sph[i], sph[n_slots + i], sph[2 * n_slots + i],
                           sph[kRowR2 * n_slots + i]);
+    if (vel4 != nullptr) {
+      vel4[i] = make_float4(sph[kRowVel * n_slots + i],
+                            sph[(kRowVel + 1) * n_slots + i],
+                            sph[(kRowVel + 2) * n_slots + i], 0.0f);
+    }
   }
 }
 
+// Shared memory of a block's staged sphere rows: one float4 a slot, two
+// with moving spheres; vel4 starts n_slots float4 after sph4.
+inline size_t staged_bytes(int n_slots, bool moving) {
+  return sizeof(float4) * static_cast<size_t>(n_slots) * (moving ? 2 : 1);
+}
+
 // Stage a block's packs in shared memory: the spheres' intersection
-// rows, the camera and the background.
+// rows (and velocity rows), the camera and the background.
 __device__ __forceinline__ void stage_packs(const float* sph, int n_slots,
                                             const float* cam_g,
                                             const float* bg_g, float4* sph4,
-                                            float* cam, float* bg) {
-  stage_spheres(sph, n_slots, sph4);
+                                            float4* vel4, float* cam,
+                                            float* bg) {
+  stage_spheres(sph, n_slots, sph4, vel4);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < 24) cam[tid] = cam_g[tid];
   if (tid < 8) bg[tid] = bg_g[tid];
@@ -427,12 +484,13 @@ __device__ __forceinline__ void stage_packs(const float* sph, int n_slots,
 // path's random numbers are bit-identical to the reference's). Radiance
 // is summed in sample order, bounce by bounce. With kLengths, each
 // path's bounce count goes to lengths[s * n_pix + gid].
-template <bool kLengths>
+template <bool kLengths, bool kMoving>
 __device__ __forceinline__ void render_pixel(
-    const float* sph, const float4* sph4, int n_slots, const float* cam,
-    const float* bg, uint32_t s0, uint32_t s1, uint32_t lo, int px, int py,
-    int width, int n_pix, int spp, int max_depth, float t_min, float* rad,
-    int* traced, uint8_t* lengths) {
+    const float* sph, const float4* sph4, const float4* vel4, int n_slots,
+    const float* cam, const float* bg, uint32_t s0, uint32_t s1,
+    uint32_t lo, int px, int py, int width, int n_pix, int spp,
+    int max_depth, float t_min, float* rad, int* traced,
+    uint8_t* lengths) {
   const uint32_t gid = static_cast<uint32_t>(py * width + px);
   const bool sky = bg[6] < 0.5f;  // BG_SKY == 0
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -450,8 +508,9 @@ __device__ __forceinline__ void render_pixel(
       ++n_bounces;
       float c[3];
       int win;
-      const int out = bounce_step(sph, sph4, n_slots, bg, sky, k0, k1,
-                                  bounce, max_depth, t_min, p, c, win);
+      const int out =
+          bounce_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky, k0, k1,
+                               bounce, max_depth, t_min, p, c, win);
       if (out == kMissed) {
         acc_r += c[0];
         acc_g += c[1];

@@ -3,7 +3,8 @@
 //
 // chain_bwd_kernel replaces rrt_tpu/ops/megakernel_vjp.py::_bwd_kernel
 // (body _bwd_tile_body, launched by _bwd_call) for the sphere subset of
-// tile_render.cu. rrt_tpu_torch/ops/megakernel_vjp.py holds the wrapper
+// tile_render.cu, static and moving spheres (a kMoving instantiation).
+// rrt_tpu_torch/ops/megakernel_vjp.py holds the wrapper
 // (chain_adjoint), its plain PyTorch version (chain_adjoint_reference)
 // and the autograd.Function BounceChain, whose forward is queue.cu's
 // bounce_steps_kernel and whose backward is this kernel.
@@ -24,13 +25,16 @@
 //     train.cu); the bounce that missed passes o, d and throughput
 //     through and adds the background's adjoint with the pending
 //     radiance's cotangent; a bounce that ends on a surface (absorbed,
-//     or a hit at max_depth) is the identity. Time and pending radiance
-//     pass through every bounce.
+//     or a hit at max_depth) is the identity. Pending radiance passes
+//     through every bounce; so does time, which with moving spheres
+//     also gains each scattering bounce's vel . (the center's
+//     cotangent), as rrt_tpu's _make_diff_step gives it under jax.vjp.
 // A lane that is dead on entry went through the forward unchanged: its
 // input cotangent is the output's, the GPU form of the TPU kernel's
 // dead-tile pass-through. Rows 13-15 (bounce, alive, traced) get none.
 //
-// The sphere pack's 12 gradient rows accumulate as in train_bwd:
+// The sphere pack's 12 (15 moving) gradient rows accumulate as in
+// train_bwd:
 // shared-memory atomics per block, then per-block partials summed by
 // reduce_partials in a fixed order of blocks. The background's six rows
 // are warp sums added in a fixed order of warps, so they are
@@ -59,8 +63,10 @@ constexpr int kBgCols = 8;  // 6 background rows, 2 pad
 
 // The backward of one lane: writes its rows of d_in, adds its pack
 // cotangents to `acc` (shared) and its background ones to g_bg.
+template <bool kMoving>
 __device__ __forceinline__ void adjoint_lane(
-    const float* sph, const float4* sph4, int n_slots, const float* bg,
+    const float* sph, const float4* sph4, const float4* vel4, int n_slots,
+    const float* bg,
     const float* st, const uint32_t* keys, size_t n, int lane,
     const float* d_out, const float* out_bounce, int k_steps, int max_depth,
     float t_min, float* d_in, float* acc, float* g_bg, int* mismatches) {
@@ -81,6 +87,7 @@ __device__ __forceinline__ void adjoint_lane(
   p.ray.dx = row[(kStD + 0) * n];
   p.ray.dy = row[(kStD + 1) * n];
   p.ray.dz = row[(kStD + 2) * n];
+  p.ray.time = kMoving ? row[kStTime * n] : 0.0f;
   for (int c = 0; c < 3; ++c) p.thr[c] = row[(kStThr + c) * n];
   const int bounce0 = static_cast<int>(row[kStBounce * n]);
 
@@ -93,8 +100,8 @@ __device__ __forceinline__ void adjoint_lane(
     r.d[0] = p.ray.dx; r.d[1] = p.ray.dy; r.d[2] = p.ray.dz;
     r.thr[0] = p.thr[0]; r.thr[1] = p.thr[1]; r.thr[2] = p.thr[2];
     float c[3];
-    last = bounce_step(sph, sph4, n_slots, bg, sky, k0, k1, bounce0 + k,
-                       max_depth, t_min, p, c, r.win);
+    last = bounce_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky, k0, k1,
+                                bounce0 + k, max_depth, t_min, p, c, r.win);
     if (last != kScattered) break;
   }
   // 2. the replay must end on the forward's bounce row.
@@ -111,14 +118,15 @@ __device__ __forceinline__ void adjoint_lane(
     gt[j] = dso[(kStThr + j) * n];
     gp[j] = dso[(kStPend + j) * n];
   }
+  float g_time = dso[kStTime * n];
   int k = n_rec - 1;
   if (last == kMissed) {
     miss_adjoint(rec[k], gp, bg, sky, gd, gt, g_bg);
   }
   if (last != kScattered) --k;  // a surface that ends the path: identity
   for (; k >= 0; --k) {
-    scatter_adjoint(sph, n_slots, rec[k], k0, k1, bounce0 + k, t_min, go, gd,
-                    gt, acc);
+    scatter_adjoint<kMoving>(sph, n_slots, rec[k], k0, k1, bounce0 + k,
+                             t_min, p.ray.time, go, gd, gt, acc, g_time);
   }
   for (int j = 0; j < 3; ++j) {
     dsi[(kStO + j) * n] = go[j];
@@ -126,9 +134,10 @@ __device__ __forceinline__ void adjoint_lane(
     dsi[(kStThr + j) * n] = gt[j];
     dsi[(kStPend + j) * n] = gp[j];
   }
-  dsi[kStTime * n] = dso[kStTime * n];
+  dsi[kStTime * n] = g_time;
 }
 
+template <bool kMoving>
 __global__ void __launch_bounds__(kThreads)
     chain_bwd_kernel(const float* __restrict__ st,
                      const uint32_t* __restrict__ keys, int q,
@@ -141,22 +150,24 @@ __global__ void __launch_bounds__(kThreads)
                      int* __restrict__ mismatches) {
   extern __shared__ float4 smem[];
   float4* sph4 = smem;
-  float* acc = reinterpret_cast<float*>(smem + n_slots);
+  float4* vel4 = kMoving ? smem + n_slots : nullptr;
+  float* acc = reinterpret_cast<float*>(smem + (kMoving ? 2 : 1) * n_slots);
   __shared__ float bg[8];
   __shared__ float warp_part[kThreads / 32][kBgCols];
-  stage_spheres(sph, n_slots, sph4);
+  stage_spheres(sph, n_slots, sph4, vel4);
   const int tid = threadIdx.x;
   if (tid < 8) bg[tid] = bg_g[tid];
-  const int n_acc = kGradRows * n_slots;
+  const int n_acc = grad_rows(kMoving) * n_slots;
   for (int i = tid; i < n_acc; i += blockDim.x) acc[i] = 0.0f;
   __syncthreads();
 
   float g_bg[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const int lane = blockIdx.x * blockDim.x + tid;
   if (lane < q) {  // no early return: all threads sync below
-    adjoint_lane(sph, sph4, n_slots, bg, st, keys, static_cast<size_t>(q),
-                 lane, d_out, out_bounce, k_steps, max_depth, t_min, d_in,
-                 acc, g_bg, mismatches);
+    adjoint_lane<kMoving>(sph, sph4, vel4, n_slots, bg, st, keys,
+                          static_cast<size_t>(q), lane, d_out, out_bounce,
+                          k_steps, max_depth, t_min, d_in, acc, g_bg,
+                          mismatches);
   }
 
   // Background: warp sums, then warps in order.
@@ -182,32 +193,34 @@ __global__ void __launch_bounds__(kThreads)
 // success). st: the chain's input state (16, q) f32; keys: (2, q) u32;
 // sph: (24, n_slots) f32; bg: (8,) f32; d_out: (16, q) f32, the output
 // state's cotangent; out_bounce: (q,) f32, the forward output's bounce
-// row. Outputs: d_in (16, q) f32; scratch: (n_blocks + ceil(n_blocks /
-// 64)) * n_cols f32 with n_blocks = ceil(q / 256) and n_cols = 12 *
-// n_slots + 8; sums: (n_cols,) f32 (12 pack rows x n_slots, then 6
+// row; moving: nonzero for the moving-sphere variant. Outputs: d_in
+// (16, q) f32; scratch: (n_blocks + ceil(n_blocks / 64)) * n_cols f32
+// with n_blocks = ceil(q / 256) and n_cols = R * n_slots + 8, R = 12 (15
+// when moving); sums: (n_cols,) f32 (R pack rows x n_slots, then 6
 // background rows, 2 pad); mismatches: one int32, zeroed by the caller.
 extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
                              const float* sph, int n_slots, const float* bg,
                              const float* d_out, const float* out_bounce,
                              int k_steps, int max_depth, float t_min,
-                             float* d_in, float* scratch, float* sums,
-                             int* mismatches, void* stream) {
+                             int moving, float* d_in, float* scratch,
+                             float* sums, int* mismatches, void* stream) {
   if (k_steps < 1 || k_steps > kMaxRecords) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_cols = kGradRows * n_slots + kBgCols;
+  const int n_cols = grad_rows(moving != 0) * n_slots + kBgCols;
   if (q == 0) {
     return static_cast<int>(
         cudaMemsetAsync(sums, 0, sizeof(float) * n_cols, s));
   }
-  const size_t smem = adjoint_smem(n_slots);
+  const size_t smem = adjoint_smem(n_slots, moving != 0);
+  auto kernel = moving ? chain_bwd_kernel<true> : chain_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_blocks = (q + kThreads - 1) / kThreads;
-  chain_bwd_kernel<<<n_blocks, kThreads, smem, s>>>(
+  kernel<<<n_blocks, kThreads, smem, s>>>(
       st, keys, q, sph, n_slots, bg, d_out, out_bounce, k_steps, max_depth,
       t_min, d_in, scratch, mismatches);
   err = cudaGetLastError();

@@ -4,19 +4,24 @@
 // bounce_steps_kernel replaces rrt_tpu/ops/megakernel.py::
 // _bounce_megakernel (launched by _bounce_steps_launch): k_steps bounces
 // of every live lane of the queue state, for the sphere subset of
-// tile_render.cu (stationary spheres, solid and checker textures,
-// lambertian / metal / dielectric, sky or solid background, no Russian
-// roulette). intersect_kernel replaces _intersect_kernel (launched by
-// intersect_only) for the sphere family: the closest hit (t, family,
-// slot) of each ray. rrt_tpu_torch/ops/megakernel.py holds the wrappers
+// tile_render.cu (stationary and moving spheres, solid and checker
+// textures, lambertian / metal / dielectric, sky or solid background, no
+// Russian roulette). intersect_kernel replaces _intersect_kernel
+// (launched by intersect_only) for the sphere family: the closest hit (t,
+// family, slot) of each ray. Each has a kMoving instantiation for scenes
+// with moving spheres: bounce_steps reads each lane's time from state row
+// 6 (rrt_tpu's pack_state puts it there), intersect takes the rays' times
+// as a (Q,) row beside the (3, Q) origins and directions.
+// rrt_tpu_torch/ops/megakernel.py holds the wrappers
 // (bounce_steps, intersect_only) and the plain PyTorch versions
 // (bounce_steps_reference, intersect_only_reference).
 //
 // What bounds them: arithmetic, as tile_render. Each bounce tests the ray
-// against every sphere slot (at least 17 FP32 operations a slot, 512
-// slots on chap12), while a lane moves 136 bytes (16 state rows and 2 key
-// words read, 16 rows written) for bounce_steps and 36 bytes (o and d
-// read; t, family and slot written) for intersect.
+// against every sphere slot (at least 17 FP32 operations a slot, 23 for
+// a moving one, 512 slots on chap12 and book2chap2), while a lane moves
+// 136 bytes (16 state rows and 2 key words read, 16 rows written) for
+// bounce_steps and 36 bytes (o and d read; t, family and slot written;
+// 40 with the time) for intersect.
 // The sphere rows are staged in shared memory as in tile_render.
 //
 // Design, against the TPU kernels:
@@ -40,10 +45,11 @@
 namespace {
 
 // Rows of the (16, Q) queue state (rrt_tpu/ops/megakernel.py pack_state).
-constexpr int kStO = 0, kStD = 3, kStThr = 7, kStPend = 10, kStBounce = 13,
-              kStAlive = 14, kStTraced = 15;
+constexpr int kStO = 0, kStD = 3, kStTime = 6, kStThr = 7, kStPend = 10,
+              kStBounce = 13, kStAlive = 14, kStTraced = 15;
 constexpr int kThreads = 256;
 
+template <bool kMoving>
 __global__ void __launch_bounds__(kThreads)
     bounce_steps_kernel(float* __restrict__ st,
                         const uint32_t* __restrict__ keys, int q,
@@ -51,8 +57,9 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ bg_g, int k_steps,
                         int max_depth, float t_min) {
   extern __shared__ float4 sph4[];
+  float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
   __shared__ float bg[8];
-  stage_spheres(sph, n_slots, sph4);
+  stage_spheres(sph, n_slots, sph4, vel4);
   if (threadIdx.x < 8) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
@@ -71,6 +78,7 @@ __global__ void __launch_bounds__(kThreads)
   p.ray.dx = row[(kStD + 0) * n];
   p.ray.dy = row[(kStD + 1) * n];
   p.ray.dz = row[(kStD + 2) * n];
+  p.ray.time = kMoving ? row[kStTime * n] : 0.0f;
   float pend[3];
   for (int c = 0; c < 3; ++c) {
     p.thr[c] = row[(kStThr + c) * n];
@@ -83,8 +91,9 @@ __global__ void __launch_bounds__(kThreads)
     traced += 1.0f;
     float c[3];
     int win;
-    const int out = bounce_step(sph, sph4, n_slots, bg, sky, k0, k1, bounce,
-                                max_depth, t_min, p, c, win);
+    const int out = bounce_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky,
+                                         k0, k1, bounce, max_depth, t_min, p,
+                                         c, win);
     if (out == kMissed) {
       pend[0] += c[0];
       pend[1] += c[1];
@@ -111,17 +120,20 @@ __global__ void __launch_bounds__(kThreads)
   row[kStTraced * n] = traced;
 }
 
-// o, d: (3, Q) rows x y z of the rays' origins and directions. The
-// moving-sphere and media families, which this kernel does not cover
-// yet, will also need each ray's time and bounce.
+// o, d: (3, Q) rows x y z of the rays' origins and directions; time:
+// (Q,) the rays' times (kMoving only). The media family, which this
+// kernel does not cover yet, will also need each ray's bounce.
+template <bool kMoving>
 __global__ void __launch_bounds__(kThreads)
     intersect_kernel(const float* __restrict__ o,
-                     const float* __restrict__ d, int q,
+                     const float* __restrict__ d,
+                     const float* __restrict__ time, int q,
                      const float* __restrict__ sph, int n_slots, float t_min,
                      float* __restrict__ t_out, int* __restrict__ fam_out,
                      int* __restrict__ idx_out) {
   extern __shared__ float4 sph4[];
-  stage_spheres(sph, n_slots, sph4);
+  float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
+  stage_spheres(sph, n_slots, sph4, vel4);
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -134,19 +146,21 @@ __global__ void __launch_bounds__(kThreads)
   r.dx = d[lane];
   r.dy = d[n + lane];
   r.dz = d[2 * n + lane];
+  r.time = kMoving ? time[lane] : 0.0f;
   int win;
-  const float t = closest_sphere(sph4, n_slots, r, ray_dots(r), t_min, win);
+  const float t = closest_sphere<kMoving>(sph4, vel4, n_slots, r,
+                                          ray_dots(r), t_min, win);
   t_out[lane] = t;
   fam_out[lane] = t < kInf ? 0 : -1;  // sphere family, or a miss
   idx_out[lane] = win;                // 0 on a miss
 }
 
 // Shared memory of a launch: the staged sphere rows. MAX_SLOTS (3072)
-// slots stage 48 KB, which with bg passes the 48 KB a block gets without
-// the opt-in.
+// slots stage 48 KB (96 KB moving), which with bg passes the 48 KB a
+// block gets without the opt-in.
 template <typename Kernel>
-int set_smem(Kernel kernel, int n_slots, size_t& smem) {
-  smem = sizeof(float4) * static_cast<size_t>(n_slots);
+int set_smem(Kernel kernel, int n_slots, bool moving, size_t& smem) {
+  smem = staged_bytes(n_slots, moving);
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
@@ -156,33 +170,37 @@ int set_smem(Kernel kernel, int n_slots, size_t& smem) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // st: (16, q) f32, updated in place; keys: (2, q) u32; sph: (24, n_slots)
-// f32; bg: (8,) f32; all on the device.
+// f32; bg: (8,) f32; all on the device; moving: nonzero for the
+// moving-sphere variant.
 extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 const float* sph, int n_slots,
                                 const float* bg, int k_steps, int max_depth,
-                                float t_min, void* stream) {
+                                float t_min, int moving, void* stream) {
   if (q == 0) return 0;
+  auto kernel =
+      moving ? bounce_steps_kernel<true> : bounce_steps_kernel<false>;
   size_t smem;
-  const int err = set_smem(bounce_steps_kernel, n_slots, smem);
+  const int err = set_smem(kernel, n_slots, moving != 0, smem);
   if (err != 0) return err;
   const int grid = (q + kThreads - 1) / kThreads;
-  bounce_steps_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       st, keys, q, sph, n_slots, bg, k_steps, max_depth, t_min);
   return static_cast<int>(cudaGetLastError());
 }
 
-// o, d: (3, q) f32; outputs t (q,) f32, fam (q,) i32, idx (q,) i32.
-extern "C" int rrt_intersect(const float* o, const float* d, int q,
-                             const float* sph, int n_slots, float t_min,
-                             float* t, int* fam, int* idx, void* stream) {
+// o, d: (3, q) f32; time: (q,) f32 when moving (else unused, may be
+// null); outputs t (q,) f32, fam (q,) i32, idx (q,) i32.
+extern "C" int rrt_intersect(const float* o, const float* d,
+                             const float* time, int q, const float* sph,
+                             int n_slots, float t_min, int moving, float* t,
+                             int* fam, int* idx, void* stream) {
   if (q == 0) return 0;
+  auto kernel = moving ? intersect_kernel<true> : intersect_kernel<false>;
   size_t smem;
-  const int err = set_smem(intersect_kernel, n_slots, smem);
+  const int err = set_smem(kernel, n_slots, moving != 0, smem);
   if (err != 0) return err;
   const int grid = (q + kThreads - 1) / kThreads;
-  intersect_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      o, d, q, sph, n_slots, t_min, t, fam, idx);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      o, d, time, q, sph, n_slots, t_min, t, fam, idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,11 +3,13 @@
 //
 // Replaces rrt_tpu/ops/megakernel.py::_tile_render_kernel (launched by
 // _render_tiles_launch) for the scenes rrt_tpu_torch renders: stationary
-// spheres, solid and checker textures, lambertian / metal / dielectric
-// materials, sky or solid background, a thin-lens camera, no Russian
-// roulette. rrt_tpu_torch/ops/megakernel.py holds the wrapper
-// (render_tiles), the packs' layouts and the plain PyTorch version
-// (render_tiles_reference).
+// and moving spheres, solid and checker textures, lambertian / metal /
+// dielectric materials, sky or solid background, a thin-lens camera with
+// a shutter, no Russian roulette. A scene with moving spheres launches
+// the kMoving instantiation (bounce.cuh), which stages the velocity rows
+// too and tests each slot's center at the ray's time.
+// rrt_tpu_torch/ops/megakernel.py holds the wrapper (render_tiles), the
+// packs' layouts and the plain PyTorch version (render_tiles_reference).
 //
 // What bounds it: arithmetic. Each bounce tests the ray against every
 // sphere slot (about 25 FLOPs a slot, 512 slots on chap12), while the whole
@@ -48,6 +50,7 @@
 
 namespace {
 
+template <bool kMoving>
 __global__ void __launch_bounds__(256)
     tile_render_kernel(const float* __restrict__ sph, int n_slots,
                        const float* __restrict__ cam_g,
@@ -56,41 +59,45 @@ __global__ void __launch_bounds__(256)
                        int spp, int max_depth, float t_min,
                        float* __restrict__ rad, int* __restrict__ traced) {
   extern __shared__ float4 sph4[];
+  float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
   __shared__ float cam[24];
   __shared__ float bg[8];
-  stage_packs(sph, n_slots, cam_g, bg_g, sph4, cam, bg);
+  stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
   __syncthreads();
 
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  render_pixel<false>(sph, sph4, n_slots, cam, bg, s0, s1, lo, px, py,
-                      width, width * height, spp, max_depth, t_min, rad,
-                      traced, nullptr);
+  render_pixel<false, kMoving>(sph, sph4, vel4, n_slots, cam, bg, s0, s1,
+                               lo, px, py, width, width * height, spp,
+                               max_depth, t_min, rad, traced, nullptr);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32 on the device;
-// rad: (width*height, 3) f32 and traced: (width*height,) i32 outputs.
+// moving: nonzero for the moving-sphere variant; rad: (width*height, 3)
+// f32 and traced: (width*height,) i32 outputs.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const float* cam, const float* bg, uint32_t s0,
                                uint32_t s1, uint32_t lo, int width, int height,
-                               int spp, int max_depth, float t_min, float* rad,
-                               int* traced, void* stream) {
+                               int spp, int max_depth, float t_min,
+                               int moving, float* rad, int* traced,
+                               void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
-  const size_t smem = sizeof(float4) * static_cast<size_t>(n_slots);
-  // MAX_SLOTS (3072) slots stage 48 KB, which with the static cam/bg
-  // arrays passes the 48 KB a block gets without the opt-in.
+  const size_t smem = staged_bytes(n_slots, moving != 0);
+  // MAX_SLOTS (3072) slots stage 48 KB (96 KB moving), which with the
+  // static cam/bg arrays passes the 48 KB a block gets without the
+  // opt-in.
+  auto kernel = moving ? tile_render_kernel<true> : tile_render_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      tile_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  tile_render_kernel<<<grid, block, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       sph, n_slots, cam, bg, s0, s1, lo, width, height, spp, max_depth, t_min,
       rad, traced);
   return static_cast<int>(cudaGetLastError());

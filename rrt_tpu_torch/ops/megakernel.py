@@ -30,9 +30,13 @@ Background pack, f32 (8,): bottom rgb | top rgb | mode | pad
 
 The sphere pack keeps the scene's own slot count (a multiple of 128):
 unlike the TPU kernel, the GPU kernel has no tile width to pad to.
-"""
 
-import types
+A scene with moving spheres (`SceneArrays.has_moving`, the wrappers'
+`moving=True`) runs each kernel's moving variant: a sphere's center at a
+ray's time is base + time * vel (pack rows 0-2 and 4-6), and every ray
+carries its time (the camera's shutter draw; state row 6). A static
+scene runs the static variant, whose arithmetic reads no time.
+"""
 
 import torch
 
@@ -50,7 +54,6 @@ def scope_gap(scene: SceneArrays, rr_depth: int = 0):
     """None when the tile kernels cover the scene and option; otherwise
     (what is outside, the ROADMAP Queue A item that ports it)."""
     outside = (
-        (scene.has_moving, "moving spheres", "#9.1"),
         (scene.has_quads, "quads", "#9.2"),
         (scene.has_emissive, "emissive materials", "#9.2"),
         (scene.has_boxes, "boxes", "#9.3"),
@@ -151,11 +154,12 @@ def _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth):
 
 def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                  width: int, height: int, spp: int, max_depth: int,
-                 t_min: float):
+                 t_min: float, moving: bool):
     """Render samples [sample_lo, sample_lo + spp) of every pixel.
 
     sph24 (24,S), cam24 (24,) and bg8 (8,) are the packs, all on one
-    device; seed_words: the (s0, s1) u32 key words of the seed.
+    device; seed_words: the (s0, s1) u32 key words of the seed; moving:
+    the moving-sphere variant (the scene's has_moving).
     Returns (radiance sums (P,3) f32 in scan-line order, traced-ray
     counts (P,) int32), P = width * height, on the packs' device.
 
@@ -163,7 +167,8 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     `render_tiles.launches`); CPU tensors run render_tiles_reference."""
     _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
-              height=height, spp=spp, max_depth=max_depth, t_min=t_min)
+              height=height, spp=spp, max_depth=max_depth, t_min=t_min,
+              moving=moving)
     device = sph24.device
     if device.type == "cpu":
         return render_tiles_reference(sph24, cam24, bg8, **kw)
@@ -183,7 +188,7 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         err = lib.rrt_tile_render(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
             s0, s1, sample_lo & rng.MASK32, width, height, spp, max_depth,
-            t_min, rad.data_ptr(), traced.data_ptr(), stream)
+            t_min, int(moving), rad.data_ptr(), traced.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("tile_render launch failed: "
                            + lib.rrt_error_string(err).decode())
@@ -199,18 +204,26 @@ render_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _scene_from_packs(sph24, bg8) -> SceneArrays:
+def _scene_from_packs(sph24, bg8, moving: bool) -> SceneArrays:
     """The sphere scene the packs describe, with one material and one
-    texture per slot (the pack holds each slot's resolved material)."""
+    texture per slot (the pack holds each slot's resolved material).
+    moving: the spheres move with the velocity rows 4-6 from base rows
+    0-2 (time0 0, time1 1), so make_hit's center is base + time * vel;
+    otherwise the scene is static. Without bg8 the background is the
+    default sky (intersection only)."""
     dev = sph24.device
     n = sph24.shape[1]
+    if bg8 is None:
+        bg8 = torch.zeros((8,), device=dev)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
     mtype = sph24[8].to(torch.int32)
     is_die = mtype == MAT_DIELECTRIC
     empty = {name: torch.zeros((0,), device=dev) for name in tensor_fields()
              if name.startswith(("quad_", "box_", "med_"))}
     return SceneArrays(
-        sphere_c0=sph24[0:3].T, sphere_dc=torch.zeros((n, 3), device=dev),
+        sphere_c0=sph24[0:3].T,
+        sphere_dc=(sph24[4:7].T if moving
+                   else torch.zeros((n, 3), device=dev)),
         sphere_t0=torch.zeros((n,), device=dev),
         sphere_inv_dt=torch.ones((n,), device=dev),
         sphere_radius=sph24[18], sphere_mat=slots,
@@ -223,7 +236,7 @@ def _scene_from_packs(sph24, bg8) -> SceneArrays:
         tex_image=sph24[19].to(torch.int32),
         images=torch.zeros((1, 1, 1, 3), device=dev),
         bg_mode=bg8[6].to(torch.int32), bg_bottom=bg8[0:3],
-        bg_top=bg8[3:6], n_spheres_active=n, **empty)
+        bg_top=bg8[3:6], n_spheres_active=n, has_moving=moving, **empty)
 
 
 # Rays a chunk of the plain tile loop. The loop is bound by the host's
@@ -236,7 +249,7 @@ PLAIN_CHUNK = 1 << 19
 def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
                            sample_lo: int, width: int, height: int,
                            spp: int, max_depth: int, t_min: float,
-                           chunk: int = PLAIN_CHUNK):
+                           moving: bool, chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of `render_tiles`, same inputs and outputs.
 
     A wavefront loop over (pixel, sample) rays, `chunk` rays at a time in
@@ -249,13 +262,13 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
     rad, traced, _ = trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
-        t_min=t_min, chunk=chunk)
+        t_min=t_min, moving=moving, chunk=chunk)
     return rad, traced
 
 
 def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                           width: int, height: int, spp: int,
-                          max_depth: int, t_min: float,
+                          max_depth: int, t_min: float, moving: bool,
                           chunk: int = PLAIN_CHUNK):
     """render_tiles_reference's loop, also returning each path's bounce
     count: (rad (P,3), traced (P,) i32, lengths (spp, P) uint8), where
@@ -263,7 +276,7 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     from ..render import _shade  # render imports this module
 
     dev = sph24.device
-    scene = _scene_from_packs(sph24, bg8)
+    scene = _scene_from_packs(sph24, bg8, moving)
     basis = tuple(cam24[3 * i:3 * i + 3] for i in range(6))
     n_pix = width * height
     n_rays = n_pix * spp
@@ -276,14 +289,14 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         pix = ray % n_pix
         keys = rng.sample_keys(tuple(seed_words), pix,
                                sample_lo + ray // n_pix)
-        o, d, _ = thin_lens_rays(basis, cam24[18], cam24[19], cam24[20],
-                                 pix % width, pix // width, width, height,
-                                 keys)
+        o, d, tm = thin_lens_rays(basis, cam24[18], cam24[19], cam24[20],
+                                  pix % width, pix // width, width, height,
+                                  keys)
         thr = torch.ones_like(o)
         for bounce in range(max_depth + 1):
             alive = torch.ones_like(pix, dtype=torch.bool)
             contrib, o, d, att, survives = _shade(
-                scene, o, d, keys, bounce, alive, t_min, max_depth)
+                scene, o, d, tm, keys, bounce, alive, t_min, max_depth)
             rad[:, pix] += thr * contrib
             traced[pix] += 1
             lengths[ray] += 1
@@ -291,8 +304,9 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
             keep = survives.nonzero()[:, 0]
             if keep.numel() == 0:
                 break
-            pix, ray, keys, o, d, thr = (pix[keep], ray[keep], keys[:, keep],
-                                         o[:, keep], d[:, keep], thr[:, keep])
+            pix, ray, keys, o, d, tm, thr = (
+                pix[keep], ray[keep], keys[:, keep], o[:, keep], d[:, keep],
+                tm[keep], thr[:, keep])
     return rad.T.contiguous(), traced, lengths.reshape(spp, n_pix)
 
 
@@ -357,13 +371,15 @@ def _launch_error(lib, err, what):
 
 
 def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
-                 t_min: float):
+                 t_min: float, moving: bool):
     """Run k_steps bounce steps on every live lane of a queue state.
 
     state: (16, Q) f32 (pack_state's rows), updated IN PLACE and
     returned: each lane is read and written where it lies, which saves a
     (16, Q) copy a launch. keys: (2, Q) int32 holding each lane's u32
     sample-key words (rng.u32_bits). sph24 (24, S), bg8 (8,): the packs.
+    moving: the moving-sphere variant, which reads each lane's time (row
+    6).
 
     Per live lane and step, as rrt_tpu's _one_bounce: traced += 1; a
     miss adds throughput x background to the pending radiance and kills
@@ -382,7 +398,8 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
         raise ValueError(f"keys has {keys.shape[1]} lanes, state {q}")
     if k_steps < 1 or max_depth < 0:
         raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth}")
-    kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min)
+    kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
+              moving=moving)
     if device.type == "cpu":
         return bounce_steps_reference(state, keys, sph24, bg8, **kw)
     lib = _build.load()
@@ -390,7 +407,7 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
         err = lib.rrt_bounce_steps(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(),
             sph24.shape[1], bg8.data_ptr(), k_steps, max_depth, t_min,
-            torch.cuda.current_stream(device).cuda_stream)
+            int(moving), torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "bounce_steps")
     bounce_steps.launches += 1
     return state
@@ -400,13 +417,14 @@ bounce_steps.launches = 0
 
 
 def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
-                           max_depth: int, t_min: float):
+                           max_depth: int, t_min: float,
+                           moving: bool):
     """Plain PyTorch version of `bounce_steps`, same inputs and outputs
     (the state is updated in place and returned): each step runs
     render._shade on the live lanes, with their own bounce counts."""
     from ..render import _shade  # render imports this module
 
-    scene = _scene_from_packs(sph24, bg8)
+    scene = _scene_from_packs(sph24, bg8, moving)
     keys = rng.from_u32_bits(keys)
     for _ in range(k_steps):
         lanes = (state[ROW_ALIVE] > 0.5).nonzero()[:, 0]
@@ -415,7 +433,8 @@ def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
         st = state[:, lanes]
         o, d, time, thr, pend, bounce, alive, traced = unpack_state(st)
         contrib, new_o, new_d, att, survives = _shade(
-            scene, o, d, keys[:, lanes], bounce, alive, t_min, max_depth)
+            scene, o, d, time, keys[:, lanes], bounce, alive, t_min,
+            max_depth)
         state[:, lanes] = pack_state(
             new_o, new_d, time, torch.where(survives, thr * att, thr),
             pend + thr * contrib, bounce + survives.to(torch.int32),
@@ -428,15 +447,17 @@ def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
 # ---------------------------------------------------------------------------
 
 
-def intersect_only(o, d, sph24, *, t_min: float):
+def intersect_only(o, d, sph24, *, t_min: float, time=None):
     """Closest sphere of each ray. o, d: (3, Q) f32 rows x y z of the
-    rays' origins and directions (rrt_tpu's kernel takes (8, Q) rows that
-    add each ray's time and bounce, for the moving-sphere and media
-    families, ROADMAP Queue A #9.1 and #9.4; the sphere family reads
-    neither, so this kernel takes no time, bounce or keys). Returns (t
-    (Q,) f32, INF on a miss; fam (Q,) int32, 0 for a sphere, -1 on a
-    miss; idx (Q,) int32, the winning slot, 0 on a miss): rrt_tpu's
-    intersect_all contract.
+    rays' origins and directions; time: None for a static scene, or for
+    moving spheres (Q,) f32 the rays' times, a sphere's center then being
+    base + time * vel: the kernel's moving variant (rrt_tpu's
+    kernel takes (8, Q) rows that also hold each ray's bounce, for the
+    media family, ROADMAP Queue A #9.4; the sphere family reads only o,
+    d and time, so this kernel takes (3, Q) rows and a (Q,) time).
+    Returns (t (Q,) f32, INF on a miss; fam (Q,) int32, 0 for a sphere,
+    -1 on a miss; idx (Q,) int32, the winning slot, 0 on a miss):
+    rrt_tpu's intersect_all contract.
 
     CUDA tensors launch the kernel (counted in `intersect_only.launches`);
     CPU tensors run intersect_only_reference."""
@@ -446,16 +467,24 @@ def intersect_only(o, d, sph24, *, t_min: float):
     q = o.shape[1]
     if d.shape[1] != q:
         raise ValueError(f"d has {d.shape[1]} rays, o {q}")
+    moving = time is not None
+    if moving and (not isinstance(time, torch.Tensor)
+                   or time.dtype != torch.float32
+                   or tuple(time.shape) != (q,) or not time.is_contiguous()
+                   or time.device != device):
+        raise ValueError(f"time must be a contiguous ({q},) float32 tensor "
+                         f"on {device}")
     if device.type == "cpu":
-        return intersect_only_reference(o, d, sph24, t_min=t_min)
+        return intersect_only_reference(o, d, sph24, t_min=t_min, time=time)
     t = torch.empty((q,), dtype=torch.float32, device=device)
     fam = torch.empty((q,), dtype=torch.int32, device=device)
     idx = torch.empty((q,), dtype=torch.int32, device=device)
     lib = _build.load()
     with torch.cuda.device(device):
         err = lib.rrt_intersect(
-            o.data_ptr(), d.data_ptr(), q, sph24.data_ptr(), sph24.shape[1],
-            t_min, t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
+            o.data_ptr(), d.data_ptr(), time.data_ptr() if moving else None,
+            q, sph24.data_ptr(), sph24.shape[1], t_min, int(moving),
+            t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "intersect_only")
     intersect_only.launches += 1
@@ -465,14 +494,12 @@ def intersect_only(o, d, sph24, *, t_min: float):
 intersect_only.launches = 0
 
 
-def intersect_only_reference(o, d, sph24, *, t_min: float):
+def intersect_only_reference(o, d, sph24, *, t_min: float, time=None):
     """Plain PyTorch version of `intersect_only`, same inputs and
     outputs: geometry.intersect_spheres on the pack's slots."""
     from ..geometry import INF, intersect_spheres
 
-    spheres = types.SimpleNamespace(sphere_c0=sph24[0:3].T,
-                                    sphere_radius=sph24[18],
-                                    sphere_valid=sph24[7] > 0.5)
-    t, idx = intersect_spheres(spheres, o, d, t_min, INF)
+    spheres = _scene_from_packs(sph24, None, time is not None)
+    t, idx = intersect_spheres(spheres, o, d, time, t_min, INF)
     idx = idx.to(torch.int32)
     return t, torch.where(t < INF, 0, -1).to(torch.int32), idx

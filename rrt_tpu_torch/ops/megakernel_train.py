@@ -1,10 +1,11 @@
 """The differentiable tile render: train kernels, wrappers, plain versions.
 
 The counterpart of rrt_tpu's `ops/megakernel_train.py` for the sphere
-subset of the tile kernel (spheres, solid / checker textures,
-lambertian / metal / dielectric, sky or solid background, a static
-thin-lens camera, no Russian roulette). `TileTrainChain` is the render
-as a torch.autograd.Function over the packs (sph24, cam24, bg8):
+subset of the tile kernel (stationary and moving spheres, solid /
+checker textures, lambertian / metal / dielectric, sky or solid
+background, a thin-lens camera with a shutter, no Russian roulette).
+`TileTrainChain` is the render as a torch.autograd.Function over the
+packs (sph24, cam24, bg8):
 
   forward   `render_tiles_train`: the CUDA kernel train_fwd
             (csrc/train.cu), which renders exactly as tile_render and
@@ -31,15 +32,11 @@ import torch
 from .. import rng
 from . import _build
 from . import megakernel as mk
-from .megakernel_vjp import (GRAD_ROWS, MAX_RECORDS, camera_ray_rows,
-                             count_mismatches, diff_step, replay_steps,
+from .megakernel_vjp import (MAX_RECORDS, camera_ray_rows,
+                             check_backward_slots, count_mismatches,
+                             diff_step, grad_rows, replay_steps,
                              step_constants)
 from ..camera import thin_lens_rays
-
-
-def supports_train(scene) -> bool:
-    """The train kernels' scope: the tile kernel's (mk.scope_gap)."""
-    return mk.scope_gap(scene) is None
 
 
 def boundary_residual_bytes(n_pix: int, chunk: int) -> int:
@@ -48,11 +45,13 @@ def boundary_residual_bytes(n_pix: int, chunk: int) -> int:
     return n_pix * chunk
 
 
-def _check_train_inputs(sph24, cam24, bg8, *, width, height, spp, max_depth):
+def _check_train_inputs(sph24, cam24, bg8, *, width, height, spp, max_depth,
+                        moving):
     mk._check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
     if sph24.shape[1] > mk.MAX_SLOTS:
         raise ValueError(f"{sph24.shape[1]} sphere slots exceed the "
                          f"kernels' {mk.MAX_SLOTS}")
+    check_backward_slots(sph24, moving)
     if max_depth + 1 > MAX_RECORDS:
         raise ValueError(f"max_depth {max_depth}: the backward keeps at "
                          f"most {MAX_RECORDS} bounce records a path "
@@ -71,19 +70,20 @@ def _raise_on(lib, err, what):
 
 def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                        width: int, height: int, spp: int, max_depth: int,
-                       t_min: float):
+                       t_min: float, moving: bool):
     """Render samples [sample_lo, sample_lo + spp) as render_tiles does,
     and keep the residual. Returns (radiance sums (P,3) f32, traced
     counts (P,) i32, lengths (spp, P) uint8: the bounces each path
-    traced).
+    traced); moving: the moving-sphere variant.
 
     CUDA tensors launch train_fwd (counted in
     `render_tiles_train.launches`); CPU tensors run
     render_tiles_train_reference."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
-              height=height, spp=spp, max_depth=max_depth, t_min=t_min)
+              height=height, spp=spp, max_depth=max_depth, t_min=t_min,
+              moving=moving)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
-                        spp=spp, max_depth=max_depth)
+                        spp=spp, max_depth=max_depth, moving=moving)
     device = sph24.device
     if device.type == "cpu":
         return render_tiles_train_reference(sph24, cam24, bg8, **kw)
@@ -100,8 +100,8 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         err = lib.rrt_train_fwd(
             sph24.data_ptr(), sph24.shape[1], cam24.data_ptr(),
             bg8.data_ptr(), s0, s1, sample_lo & rng.MASK32, width, height,
-            spp, max_depth, t_min, rad.data_ptr(), traced.data_ptr(),
-            lengths.data_ptr(), _stream(device))
+            spp, max_depth, t_min, int(moving), rad.data_ptr(),
+            traced.data_ptr(), lengths.data_ptr(), _stream(device))
     _raise_on(lib, err, "train_fwd")
     render_tiles_train.launches += 1
     return rad, traced, lengths
@@ -112,21 +112,24 @@ render_tiles_train.launches = 0
 
 def render_tiles_train_reference(sph24, cam24, bg8, *, seed_words,
                                  sample_lo: int, width: int, height: int,
-                                 spp: int, max_depth: int, t_min: float):
+                                 spp: int, max_depth: int, t_min: float,
+                                 moving: bool):
     """Plain version of render_tiles_train: render_tiles_reference plus
     the lengths."""
     return mk.trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
-        t_min=t_min)
+        t_min=t_min, moving=moving)
 
 
 def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
                   sample_lo: int, width: int, height: int, spp: int,
-                  max_depth: int, t_min: float):
+                  max_depth: int, t_min: float, moving: bool):
     """Cotangents of the packs for the radiance cotangent d_rad (P,3):
     (d_sph24 (24,S), d_cam24 (24,), d_bg8 (8,), replay mismatches (1,)
     int32: the paths whose replayed length differs from `lengths`).
+    With moving spheres the velocity rows 4-6 get cotangents, and the
+    shutter rows 19-20 of the camera through each ray's time.
 
     CUDA tensors launch train_bwd (counted in `tiles_adjoint.launches`);
     CPU tensors run tiles_adjoint_reference. Either way the mismatches
@@ -134,9 +137,10 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
     (megakernel_vjp.count_mismatches): a replay off the forward's path
     would give wrong gradients."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
-              height=height, spp=spp, max_depth=max_depth, t_min=t_min)
+              height=height, spp=spp, max_depth=max_depth, t_min=t_min,
+              moving=moving)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
-                        spp=spp, max_depth=max_depth)
+                        spp=spp, max_depth=max_depth, moving=moving)
     n_pix = width * height
     if d_rad.dtype != torch.float32 or tuple(d_rad.shape) != (n_pix, 3):
         raise ValueError(f"d_rad must be ({n_pix}, 3) float32, got "
@@ -159,8 +163,9 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
     n_slots = sph24.shape[1]
     # Per-block partials and, below them, the first reduction's groups of
     # 64 blocks (csrc/train.cu rrt_train_bwd).
+    rows = grad_rows(moving)
     n_blocks = -(-width // 16) * -(-height // 16)
-    n_cols = len(GRAD_ROWS) * n_slots + 32
+    n_cols = len(rows) * n_slots + 32
     partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
                            dtype=torch.float32, device=device)
     sums = torch.empty((n_cols,), dtype=torch.float32, device=device)
@@ -171,13 +176,13 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, *, seed_words,
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
             d_rad.data_ptr(), lengths.data_ptr(), s0, s1,
             sample_lo & rng.MASK32, width, height, spp, max_depth, t_min,
-            partials.data_ptr(), sums.data_ptr(), mismatches.data_ptr(),
-            _stream(device))
+            int(moving), partials.data_ptr(), sums.data_ptr(),
+            mismatches.data_ptr(), _stream(device))
     _raise_on(lib, err, "train_bwd")
     tiles_adjoint.launches += 1
     count_mismatches(tiles_adjoint, mismatches)
     d_sph24 = torch.zeros_like(sph24)
-    d_sph24[list(GRAD_ROWS)] = sums[:-32].reshape(len(GRAD_ROWS), n_slots)
+    d_sph24[list(rows)] = sums[:-32].reshape(len(rows), n_slots)
     return d_sph24, sums[-32:-8].clone(), sums[-8:].clone(), mismatches
 
 
@@ -188,7 +193,8 @@ tiles_adjoint.replay_mismatches = 0
 def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
                             seed_words, sample_lo: int, width: int,
                             height: int, spp: int, max_depth: int,
-                            t_min: float, chunk: int = 1 << 16):
+                            t_min: float, moving: bool,
+                            chunk: int = 1 << 16):
     """Plain version of tiles_adjoint, same inputs and outputs.
 
     For each chunk of (pixel, sample) paths: 1. replay the decisions and
@@ -197,7 +203,7 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
     columns only (no (N,S) broadcast); 3. take torch.autograd.grad of
     sum(d_rad[pixel] . contribution)."""
     dev = sph24.device
-    scene = mk._scene_from_packs(sph24.detach(), bg8.detach())
+    scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving)
     basis = tuple(cam24.detach()[3 * i:3 * i + 3] for i in range(6))
     sph = sph24.detach().requires_grad_()
     cam = cam24.detach().requires_grad_()
@@ -214,11 +220,11 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
         keys = rng.sample_keys(tuple(seed_words), pix,
                                sample_lo + ray // n_pix)
         with torch.no_grad():
-            o, d, _ = thin_lens_rays(basis, cam24[18], cam24[19], cam24[20],
-                                     pix % width, pix // width, width,
-                                     height, keys)
+            o, d, tm = thin_lens_rays(basis, cam24[18], cam24[19],
+                                      cam24[20], pix % width, pix // width,
+                                      width, height, keys)
             records, n_seg, _ = replay_steps(
-                scene, o, d, keys, torch.zeros_like(pix), max_depth + 1,
+                scene, o, d, tm, keys, torch.zeros_like(pix), max_depth + 1,
                 max_depth=max_depth, t_min=t_min)
             mismatches += (n_seg != lengths.reshape(-1)[ray].long()
                            ).sum().to(torch.int32)
@@ -232,7 +238,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
                 state = tuple(row[r["sel"]] for row in state)
                 zero = torch.zeros_like(state[0])
                 out = diff_step(step_constants(r, sph24, bg8), *state, zero,
-                                zero, zero, sph[:, r["win"]], *bg[:6])
+                                zero, zero, sph[:, r["win"]], *bg[:6],
+                                moving=moving)
                 dr = d_rad[pix[r["cur"]]]
                 total = total + (dr[:, 0] * out[10] + dr[:, 1] * out[11]
                                  + dr[:, 2] * out[12]).sum()
@@ -248,16 +255,18 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths, *,
 class TileTrainChain(torch.autograd.Function):
     """The tile render as a differentiable function of the packs:
     apply(sph24, cam24, bg8, seed_words, sample_lo, width, height, spp,
-    max_depth, t_min) -> (radiance sums (P,3), traced counts (P,) i32).
+    max_depth, t_min, moving) -> (radiance sums (P,3), traced counts (P,)
+    i32).
     Forward: one render_tiles_train; backward: one tiles_adjoint,
     seeded by the radiance cotangent (P,3). The traced counts carry no
     gradient."""
 
     @staticmethod
     def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
-                height, spp, max_depth, t_min):
+                height, spp, max_depth, t_min, moving):
         kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
-                  height=height, spp=spp, max_depth=max_depth, t_min=t_min)
+                  height=height, spp=spp, max_depth=max_depth, t_min=t_min,
+                  moving=moving)
         rad, traced, lengths = render_tiles_train(sph24, cam24, bg8, **kw)
         ctx.save_for_backward(sph24, cam24, bg8, lengths)
         ctx.kw = kw
@@ -269,4 +278,4 @@ class TileTrainChain(torch.autograd.Function):
         sph24, cam24, bg8, lengths = ctx.saved_tensors
         d_sph, d_cam, d_bg, _ = tiles_adjoint(
             sph24, cam24, bg8, d_rad.to(torch.float32), lengths, **ctx.kw)
-        return (d_sph, d_cam, d_bg) + (None,) * 7
+        return (d_sph, d_cam, d_bg) + (None,) * 8

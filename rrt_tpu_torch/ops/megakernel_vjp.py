@@ -3,7 +3,9 @@
 `diff_step` is the sphere-subset counterpart of rrt_tpu's
 `ops/megakernel_vjp.py::_make_diff_step`: one bounce as a function of
 the 13 state rows (origin, direction, time, throughput, pending
-radiance), the winner's 24 sphere-pack rows and the 6 background rows,
+radiance), the winner's 24 sphere-pack rows and the 6 background rows
+(with moving spheres, the winner's center at the ray's time, so the
+velocity rows and the time get gradients too),
 with every discrete decision (root, front face, checker parity,
 degenerate lambertian, reflect-vs-refract, hit / miss / survival) and
 every random draw supplied as a replayed constant. It is the math the
@@ -46,14 +48,34 @@ from ..scene import MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL
 MAX_RECORDS = 64
 
 # The sphere-pack rows that receive gradients, in the order the CUDA
-# backwards accumulate them: center xyz, r^2, aux, color1 rgb, color2
-# rgb, signed radius.
-GRAD_ROWS = (0, 1, 2, 3, 9, 10, 11, 12, 13, 14, 15, 18)
+# backwards accumulate them: center (motion base) xyz, r^2, aux, color1
+# rgb, color2 rgb, signed radius, then, with moving spheres only, the
+# velocity xyz (csrc/adjoint.cuh kGradRows; grad_rows).
+GRAD_ROWS = (0, 1, 2, 3, 9, 10, 11, 12, 13, 14, 15, 18, 4, 5, 6)
+# Shared memory holds each slot's staged rows and its gradient rows (64
+# bytes a slot, 92 with the velocity rows), inside a block's 227 KB:
+# the backwards take MAX_SLOTS slots, or this many with moving spheres.
+MAX_SLOTS_MOVING = 2048
+
+
+def grad_rows(moving: bool):
+    """The GRAD_ROWS a backward accumulates: the velocity rows only with
+    moving spheres, so a static scene's backward is unchanged."""
+    return GRAD_ROWS if moving else GRAD_ROWS[:12]
+
+
+def check_backward_slots(sph24, moving: bool):
+    """Raise for more slots than a CUDA backward's shared memory takes."""
+    cap = MAX_SLOTS_MOVING if moving else mk.MAX_SLOTS
+    if sph24.device.type == "cuda" and sph24.shape[1] > cap:
+        raise ValueError(f"{sph24.shape[1]} sphere slots exceed the "
+                         f"backward kernels' {cap}"
+                         + (" with moving spheres" if moving else ""))
+
 
 # The families outside the sphere subset, by flag: the ROADMAP Queue A
 # item that ports each.
-_NOT_PORTED = (("moving", "moving spheres", "#9.1"),
-               ("has_quads", "quads", "#9.2"),
+_NOT_PORTED = (("has_quads", "quads", "#9.2"),
                ("has_boxes", "boxes", "#9.3"),
                ("n_media", "constant media", "#9.4"),
                ("has_perlin", "perlin textures", "#9.5"),
@@ -61,7 +83,7 @@ _NOT_PORTED = (("moving", "moving spheres", "#9.1"),
                ("rr_depth", "Russian roulette", "#9.6"))
 
 
-def diff_step(c, *ins, moving=False, has_quads=False, has_boxes=False,
+def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
               has_perlin=False, has_images=False, n_media=0, rr_depth=0):
     """One bounce, differentiable in `ins`: 13 state rows (ox, oy, oz,
     dx, dy, dz, time, thx, thy, thz, pex, pey, pez), sel_s (24, N) (the
@@ -71,9 +93,10 @@ def diff_step(c, *ins, moving=False, has_quads=False, has_boxes=False,
     c: the replayed constants, (N,) bool tensors t_hit (float), hit,
     miss, survives, front, degen, do_reflect, use_c2, is_lam, is_met,
     is_die; is_sky (0-d bool); draws, the 7 rows (unit xyz, sphere xyz,
-    choice) of the bounce's scatter draws. The other families' flags
-    raise NotImplementedError."""
-    flags = dict(moving=moving, has_quads=has_quads, has_boxes=has_boxes,
+    choice) of the bounce's scatter draws. moving: the winner's center
+    is sel_s rows 0-2 + time * rows 4-6, in the quadratic and the
+    normal. The other families' flags raise NotImplementedError."""
+    flags = dict(has_quads=has_quads, has_boxes=has_boxes,
                  n_media=n_media, has_perlin=has_perlin,
                  has_images=has_images, rr_depth=rr_depth)
     for flag, what, item in _NOT_PORTED:
@@ -95,7 +118,12 @@ def diff_step(c, *ins, moving=False, has_quads=False, has_boxes=False,
 
     # --- the winner's t: the tile loop's quadratic on its rows; the root
     # is the one the forward accepted (the one nearest the stored t).
-    cx, cy, cz = sel_s[0], sel_s[1], sel_s[2]
+    if moving:
+        cx = sel_s[0] + time * sel_s[4]
+        cy = sel_s[1] + time * sel_s[5]
+        cz = sel_s[2] + time * sel_s[6]
+    else:
+        cx, cy, cz = sel_s[0], sel_s[1], sel_s[2]
     d_c = dx * cx + dy * cy + dz * cz
     o_c = ox * cx + oy * cy + oz * cz
     c_sq = cx * cx + cy * cy + cz * cz
@@ -229,13 +257,14 @@ def count_mismatches(wrapper, mismatches):
         else mismatches + acc)
 
 
-def replay_steps(scene, o, d, keys, bounce0, n_steps: int, *, max_depth,
-                 t_min):
-    """Replay up to n_steps bounces of rays (o, d (3,N), keys (2,N) u32
-    words in int64, bounce0 (N,) their bounce counters) under no_grad
-    with the plain physics (render._bounce). Per bounce, a record of the
-    rays still traced (`sel`: positions among the previous bounce's,
-    `cur`: among the N) with their winners and decisions. Returns
+def replay_steps(scene, o, d, time, keys, bounce0, n_steps: int, *,
+                 max_depth, t_min):
+    """Replay up to n_steps bounces of rays (o, d (3,N), time (N,), keys
+    (2,N) u32 words in int64, bounce0 (N,) their bounce counters) under
+    no_grad with the plain physics (render._bounce). Per bounce, a
+    record of the rays still traced (`sel`: positions among the previous
+    bounce's, `cur`: among the N) with their winners and decisions.
+    Returns
     (records, bounces traced per ray, bounces scattered per ray)."""
     from ..render import _bounce  # render imports this package
 
@@ -245,7 +274,7 @@ def replay_steps(scene, o, d, keys, bounce0, n_steps: int, *, max_depth,
     n_scattered = torch.zeros_like(cur)
     records = []
     for k in range(n_steps):
-        b = _bounce(scene, o, d, keys[:, cur], bounce0[cur] + k,
+        b = _bounce(scene, o, d, time[cur], keys[:, cur], bounce0[cur] + k,
                     torch.ones_like(cur, dtype=torch.bool), t_min, max_depth)
         n_seg[cur] += 1
         n_scattered[cur] += b.survives.long()
@@ -272,8 +301,9 @@ def step_constants(record, sph24, bg8):
 
 
 def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
-                        k_steps):
+                        k_steps, moving):
     device = mk._check_spheres(sph24, bg8)
+    check_backward_slots(sph24, moving)
     mk._check_lanes("state", state, mk.STATE_ROWS, torch.float32, device)
     mk._check_lanes("keys", keys, 2, torch.int32, device)
     mk._check_lanes("d_out", d_out, mk.STATE_ROWS, torch.float32, device)
@@ -292,15 +322,17 @@ def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
 
 
 def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
-                  k_steps: int, max_depth: int, t_min: float):
+                  k_steps: int, max_depth: int, t_min: float,
+                  moving: bool):
     """The backward of k_steps bounce steps (ops.megakernel.bounce_steps)
-    of a lane state.
+    of a lane state; moving: the moving-sphere variant.
 
     state: the chain's input state (16, Q) f32; keys (2, Q) int32 (the
     lanes' u32 words); sph24 (24, S), bg8 (8,): the packs; d_out (16, Q)
     f32: the output state's cotangent; out_bounce (Q,) f32: the forward
     output's bounce row. Returns (d_state (16, Q), rows 13-15 zero;
-    d_sph24 (24, S), the GRAD_ROWS filled; d_bg8 (8,); replay mismatches
+    d_sph24 (24, S), the grad_rows(moving) filled; d_bg8 (8,); replay
+    mismatches
     (1,) int32: the lanes whose replayed bounce row differs from
     out_bounce).
 
@@ -308,8 +340,9 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     CPU tensors run chain_adjoint_reference. Either way the mismatches
     are added to `chain_adjoint.replay_mismatches` (count_mismatches)."""
     device = _check_chain_inputs(state, keys, sph24, bg8, d_out,
-                                 out_bounce, k_steps)
-    kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min)
+                                 out_bounce, k_steps, moving)
+    kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
+              moving=moving)
     if device.type == "cpu":
         out = chain_adjoint_reference(state, keys, sph24, bg8, d_out,
                                       out_bounce, **kw)
@@ -319,8 +352,9 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     q, n_slots = state.shape[1], sph24.shape[1]
     # Per-block partials of 256 lanes and, below them, the first
     # reduction's groups of 64 blocks (csrc/chain.cu rrt_chain_bwd).
+    rows = grad_rows(moving)
     n_blocks = -(-q // 256)
-    n_cols = len(GRAD_ROWS) * n_slots + 8
+    n_cols = len(rows) * n_slots + 8
     partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
                            dtype=torch.float32, device=device)
     sums = torch.empty((n_cols,), dtype=torch.float32, device=device)
@@ -330,7 +364,8 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
         err = lib.rrt_chain_bwd(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(), n_slots,
             bg8.data_ptr(), d_out.data_ptr(), out_bounce.data_ptr(), k_steps,
-            max_depth, t_min, d_state.data_ptr(), partials.data_ptr(),
+            max_depth, t_min, int(moving), d_state.data_ptr(),
+            partials.data_ptr(),
             sums.data_ptr(), mismatches.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     mk._launch_error(lib, err, "chain_bwd")
@@ -339,8 +374,8 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     # Row by row: an index list would be copied from the host, which a
     # CUDA graph capturing this wrapper does not allow.
     d_sph24 = torch.zeros_like(sph24)
-    g = sums[:-8].view(len(GRAD_ROWS), n_slots)
-    for i, row in enumerate(GRAD_ROWS):
+    g = sums[:-8].view(len(rows), n_slots)
+    for i, row in enumerate(rows):
         d_sph24[row] = g[i]
     return d_state, d_sph24, sums[-8:].clone(), mismatches
 
@@ -350,7 +385,8 @@ chain_adjoint.replay_mismatches = 0
 
 
 def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
-                            k_steps: int, max_depth: int, t_min: float):
+                            k_steps: int, max_depth: int, t_min: float,
+                            moving: bool):
     """Plain version of chain_adjoint, same inputs and outputs.
 
     1. replay the live lanes' steps under no_grad with the port's plain
@@ -369,11 +405,11 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
     if lanes.numel() == 0:
         return (d_state, torch.zeros_like(sph24), torch.zeros_like(bg8),
                 mismatches)
-    scene = mk._scene_from_packs(sph24.detach(), bg8.detach())
+    scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving)
     bounce0 = st[mk.ROW_BOUNCE, lanes].long()
     with torch.no_grad():
         records, _, n_scattered = replay_steps(
-            scene, st[0:3, lanes], st[3:6, lanes],
+            scene, st[0:3, lanes], st[3:6, lanes], st[mk.ROW_TIME, lanes],
             rng.from_u32_bits(keys[:, lanes]), bounce0, k_steps,
             max_depth=max_depth, t_min=t_min)
         mismatches += ((bounce0 + n_scattered).float()
@@ -386,7 +422,7 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
         for i, r in enumerate(records):
             rows = tuple(x[r["sel"]] for x in rows)
             rows = diff_step(step_constants(r, sph24, bg8), *rows,
-                             sph[:, r["win"]], *bg[:6])
+                             sph[:, r["win"]], *bg[:6], moving=moving)
             # A lane's chain ends at its last step, or where it stops.
             ends = (torch.ones_like(r["survives"]) if i + 1 == len(records)
                     else ~r["survives"])
@@ -405,15 +441,18 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
 class BounceChain(torch.autograd.Function):
     """K bounce steps of a lane state as a differentiable function of
     the state and the packs: apply(state (16,Q), keys (2,Q) int32,
-    sph24, bg8, k_steps, max_depth, t_min) -> state' (16,Q). Forward:
+    sph24, bg8, k_steps, max_depth, t_min, moving) -> state' (16,Q).
+    Forward:
     one bounce_steps launch on a copy of the state (bounce_steps updates
     in place, and the input is the backward's residual); backward: one
     chain_adjoint, seeded with zeros where the output has no cotangent
     (autograd materialises them). The keys carry no gradient."""
 
     @staticmethod
-    def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min):
-        kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min)
+    def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min,
+                moving):
+        kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
+                  moving=moving)
         out = mk.bounce_steps(state.clone(), keys, sph24, bg8, **kw)
         ctx.save_for_backward(state, keys, sph24, bg8,
                               out[mk.ROW_BOUNCE].clone())
@@ -426,13 +465,14 @@ class BounceChain(torch.autograd.Function):
         d_state, d_sph, d_bg, _ = chain_adjoint(
             state, keys, sph24, bg8, d_out.contiguous(), out_bounce,
             **ctx.kw)
-        return d_state, None, d_sph, d_bg, None, None, None
+        return d_state, None, d_sph, d_bg, None, None, None, None
 
 
-def bounce_chain(k_steps: int, max_depth: int, t_min: float):
+def bounce_chain(k_steps: int, max_depth: int, t_min: float,
+                 moving: bool):
     """chain(state, keys, sph24, bg8) -> state': BounceChain with its
     step count and options bound, as rrt_tpu's bounce_chain returns."""
     def chain(state, keys, sph24, bg8):
         return BounceChain.apply(state, keys, sph24, bg8, k_steps,
-                                 max_depth, t_min)
+                                 max_depth, t_min, moving)
     return chain

@@ -96,11 +96,12 @@ class Bounce:
     new_d: torch.Tensor  # (3,N)
 
 
-def _bounce(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
+def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
             max_depth, packed=None) -> Bounce:
     """One physics step for a ray set: intersect, shade, scatter.
 
-    o, d: (3,N); keys: (2,N); bounce: int or (N,); alive: (N,) bool.
+    o, d: (3,N); time: (N,) the rays' times (moving spheres' centers);
+    keys: (2,N); bounce: int or (N,); alive: (N,) bool.
     packed: pack_scene's dict on the rays' device, to intersect through
     ops.megakernel.intersect_only (the kernel on a CUDA device, its plain
     version on the CPU), as the batch driver does; None intersects
@@ -108,16 +109,17 @@ def _bounce(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
     do, which must launch no kernel."""
     ops_mega.check_scope(scene)
     if packed is None:
-        t, idx = intersect_spheres(scene, o, d, t_min, INF)
+        t, idx = intersect_spheres(scene, o, d, time, t_min, INF)
         fam = torch.where(t < INF, FAM_SPHERE, FAM_NONE)
     else:
         t, fam, idx = ops_mega.intersect_only(
-            o.contiguous(), d.contiguous(), packed["sph24"], t_min=t_min)
+            o.contiguous(), d.contiguous(), packed["sph24"], t_min=t_min,
+            time=time.contiguous() if scene.has_moving else None)
         idx = idx.long()
     hit_mask = (t < INF) & alive
     miss_mask = alive & ~hit_mask
 
-    hit = make_hit(scene, o, d, t, fam, idx)
+    hit = make_hit(scene, o, d, time, t, fam, idx)
     sc = scatter(scene, d, hit, keys, bounce)
     contribution = background_color(scene, d) * miss_mask
 
@@ -134,12 +136,12 @@ def _bounce(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
         new_d=torch.where(survives, sc.direction, d))
 
 
-def _shade(scene: SceneArrays, o, d, keys, bounce, alive, t_min,
+def _shade(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
            max_depth, packed=None):
     """One physics step (`_bounce`). Returns (contribution (3,N) —
     radiance to bank this step, scaled by throughput by the caller —
     new_o, new_d, attenuation (3,N), survives (N,))."""
-    b = _bounce(scene, o, d, keys, bounce, alive, t_min, max_depth,
+    b = _bounce(scene, o, d, time, keys, bounce, alive, t_min, max_depth,
                 packed=packed)
     return (b.contribution, b.new_o, b.new_d, b.scatter.attenuation,
             b.survives)
@@ -173,7 +175,7 @@ def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
         *_packs(scene, camera, cfg, device), seed_words=rng.key_words(seed),
         sample_lo=sample_lo, width=cfg.width, height=cfg.height,
         spp=cfg.spp if n_samples is None else n_samples,
-        max_depth=cfg.max_depth, t_min=cfg.t_min)
+        max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving)
     return rad, traced.sum()
 
 
@@ -192,19 +194,29 @@ DIFF_SAMPLE_BUDGET = 64
 
 
 def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
-    """None when the train kernels cover the scene; otherwise why not, and
-    render_image_diff takes the batch driver's differentiable path."""
-    if ops_train.supports_train(scene) and cfg.rr_depth == 0:
-        return None
-    what, item = ops_mega.scope_gap(scene, cfg.rr_depth)
-    return (f"{what} is outside the train kernels' scope (ROADMAP "
-            f"Queue A {item})")
+    """None when the train kernels cover the scene and depth; otherwise
+    why not, and render_image_diff takes the batch driver's
+    differentiable path, whose chains split any depth (_fused_schedule).
+    The train backward keeps one record a bounce, at most MAX_RECORDS a
+    path."""
+    gap = ops_mega.scope_gap(scene, cfg.rr_depth)
+    if gap is not None:
+        return (f"{gap[0]} is outside the train kernels' scope (ROADMAP "
+                f"Queue A {gap[1]})")
+    if cfg.max_depth + 1 > ops_vjp.MAX_RECORDS:
+        return (f"max_depth {cfg.max_depth} is past the train kernels' "
+                f"{ops_vjp.MAX_RECORDS} bounce records a path")
+    return None
 
 
 def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
-    reason = diff_fallback_reason(scene, cfg)
-    if reason is not None:
-        raise NotImplementedError(f"{where}: {reason}")
+    """Raise for a scene outside the train kernels' scope (a depth past
+    their records raises ValueError in the kernels' wrappers)."""
+    gap = ops_mega.scope_gap(scene, cfg.rr_depth)
+    if gap is not None:
+        raise NotImplementedError(
+            f"{where}: {gap[0]} is outside the train kernels' scope "
+            f"(ROADMAP Queue A {gap[1]})")
 
 
 _logger = logging.getLogger("rrt_tpu_torch.render")
@@ -244,7 +256,7 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
         r, traced = ops_train.TileTrainChain.apply(
             *packs, rng.key_words(seed), sample_lo + lo, cfg.width,
             cfg.height, min(budget, n_samples - lo), cfg.max_depth,
-            cfg.t_min)
+            cfg.t_min, scene.has_moving)
         rad = r if rad is None else rad + r
         n_traced = n_traced + traced.sum()
     return rad, n_traced
@@ -277,29 +289,34 @@ def pack_scene(scene: SceneArrays, device):
     return {"sph24": ops_mega.pack_spheres_full(scene).to(device)}
 
 
-def _bounce_body(scene: SceneArrays, t_min, keys, o, d, thr, rad, alive,
-                 bounce, max_depth, packed=None):
-    """One bounce of trace_batch's carry (o, d, throughput, radiance,
-    alive) -> the next (rrt_tpu's _bounce_body, without the shutter time,
-    which the sphere subset never reads)."""
+def _bounce_body(scene: SceneArrays, t_min, keys, o, d, time, thr, rad,
+                 alive, bounce, max_depth, packed=None):
+    """One bounce of trace_batch's carry (o, d, time, throughput,
+    radiance, alive) -> the next (rrt_tpu's _bounce_body)."""
     contrib, o, d, att, survives = _shade(
-        scene, o, d, keys, bounce, alive, t_min, max_depth, packed=packed)
-    return (o, d, torch.where(survives, thr * att, thr), rad + thr * contrib,
-            survives)
+        scene, o, d, time, keys, bounce, alive, t_min, max_depth,
+        packed=packed)
+    return (o, d, time, torch.where(survives, thr * att, thr),
+            rad + thr * contrib, survives)
 
 
 def _fused_schedule(max_depth: int):
     """Chain lengths between compactions, as rrt_tpu's: after 4 steps
     about 18% of chap12's lanes are alive and after 8 about 3%, so the
     first two chains of 4 are compacted and one long chain takes the
-    tail."""
+    tail. A chain's backward keeps one record a step, at most
+    MAX_RECORDS (csrc/adjoint.cuh), so a longer tail runs as chains of
+    MAX_RECORDS steps and the rest; compaction between them is exact,
+    so the gradient is the one of a single chain."""
     steps = max_depth + 1
     schedule = []
     for k in (4, 4):
         if steps > k + 4:
             schedule.append(k)
             steps -= k
-    schedule.append(steps)
+    cap = ops_vjp.MAX_RECORDS
+    schedule += [cap] * ((steps - 1) // cap)
+    schedule.append(steps - cap * ((steps - 1) // cap))
     return tuple(schedule)
 
 
@@ -320,7 +337,7 @@ def _compact_lanes(st, keys, lane):
             lane.index_select(0, perm))
 
 
-def trace_batch_fused(scene: SceneArrays, o, d, keys, max_depth: int,
+def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
                       t_min: float, schedule: tuple | None = None,
                       rr_depth: int = 0):
     """Reverse-differentiable trace of a ray batch through the bounce
@@ -331,7 +348,8 @@ def trace_batch_fused(scene: SceneArrays, o, d, keys, max_depth: int,
     bounce_steps launch, backward a chain_bwd launch that replays the
     chain from its input state, the only residual besides the keys.
     _compact_lanes packs the live lanes first between chains. o, d: (3,N)
-    rays; keys: (2,N) sample key words (rng.sample_keys). The kernels
+    rays; time: (N,) their times (state row 6, differentiable); keys:
+    (2,N) sample key words (rng.sample_keys). The kernels
     take any N (no tile alignment). Returns (radiance (3,N) in the rays'
     order, n_traced () int64: exact, from the traced row)."""
     ops_mega.check_scope(scene, rr_depth)
@@ -342,12 +360,13 @@ def trace_batch_fused(scene: SceneArrays, o, d, keys, max_depth: int,
     bg8 = ops_mega.pack_bg(scene).to(dev)
     ones = torch.ones((n,), dtype=torch.float32, device=dev)
     zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
-    st = ops_mega.pack_state(o, d, zeros, ones.expand(3, n),
+    st = ops_mega.pack_state(o, d, time, ones.expand(3, n),
                              zeros.expand(3, n), zeros, ones, zeros)
     keys = rng.u32_bits(keys)
     lane = torch.arange(n, device=dev)
     for j, k in enumerate(schedule):
-        st = ops_vjp.bounce_chain(k, max_depth, t_min)(st, keys, sph24, bg8)
+        st = ops_vjp.bounce_chain(k, max_depth, t_min, scene.has_moving)(
+            st, keys, sph24, bg8)
         if j < len(schedule) - 1:
             st, keys, lane = _compact_lanes(st, keys, lane)
     # Undo the compactions: callers index by the rays' order.
@@ -355,12 +374,13 @@ def trace_batch_fused(scene: SceneArrays, o, d, keys, max_depth: int,
     return rad, st[ops_mega.ROW_TRACED].to(torch.int64).sum()
 
 
-def trace_batch(scene: SceneArrays, o, d, keys, max_depth: int,
+def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
                 t_min: float, differentiable: bool = False, packed=None,
                 fused_vjp: bool = False, rr_depth: int = 0):
     """Trace a fixed ray batch to completion.
 
-    o, d: (3,N) rays; keys: (2,N) sample key words (rng.sample_keys).
+    o, d: (3,N) rays; time: (N,) their times; keys: (2,N) sample key
+    words (rng.sample_keys).
     differentiable and fused_vjp: trace_batch_fused. Otherwise a Python
     loop of _bounce_body that ends at max_depth or when no lane is
     alive (one device-to-host read a bounce; dead lanes are the identity,
@@ -383,7 +403,7 @@ def trace_batch(scene: SceneArrays, o, d, keys, max_depth: int,
     Returns (radiance (3,N), n_traced () int64: exact, where rrt_tpu
     sums it in f32)."""
     if differentiable and fused_vjp:
-        return trace_batch_fused(scene, o, d, keys, max_depth, t_min,
+        return trace_batch_fused(scene, o, d, time, keys, max_depth, t_min,
                                  rr_depth=rr_depth)
     ops_mega.check_scope(scene, rr_depth)
     if differentiable:
@@ -393,17 +413,17 @@ def trace_batch(scene: SceneArrays, o, d, keys, max_depth: int,
     body = functools.partial(_bounce_body, scene, t_min, keys,
                              max_depth=max_depth, packed=packed)
     alive = torch.ones((o.shape[1],), dtype=torch.bool, device=o.device)
-    carry = (o, d, torch.ones_like(o), torch.zeros_like(o), alive)
+    carry = (o, d, time, torch.ones_like(o), torch.zeros_like(o), alive)
     n_traced = torch.zeros((), dtype=torch.int64, device=o.device)
     bounce = 0
-    while bounce <= max_depth and bool(carry[4].any()):
-        n_traced = n_traced + carry[4].sum()
+    while bounce <= max_depth and bool(carry[5].any()):
+        n_traced = n_traced + carry[5].sum()
         if differentiable:
             carry = checkpoint(body, *carry, bounce, use_reentrant=False)
         else:
             carry = body(*carry, bounce)
         bounce += 1
-    return carry[3], n_traced
+    return carry[4], n_traced
 
 
 def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
@@ -429,10 +449,10 @@ def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     for i in range(n_passes):
         keys = rng.sample_keys(seed_words, gid,
                                (pass_start + i) * spc + replica)
-        o, d, _ = generate_rays(camera, pxr, pyr, cfg.width, cfg.height,
-                                keys)
-        rad, nt = trace_batch(scene, o, d, keys, cfg.max_depth, cfg.t_min,
-                              differentiable, packed=packed,
+        o, d, tm = generate_rays(camera, pxr, pyr, cfg.width, cfg.height,
+                                 keys)
+        rad, nt = trace_batch(scene, o, d, tm, keys, cfg.max_depth,
+                              cfg.t_min, differentiable, packed=packed,
                               fused_vjp=fused_vjp, rr_depth=cfg.rr_depth)
         acc = acc + rad.T.reshape(spc, p_count, 3).sum(dim=0)
         n_traced = n_traced + nt
@@ -549,7 +569,8 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
             pix = torch.where(issue, p_new, pix)
             next_s += n_issue
         ops_mega.bounce_steps(st, keys, sph24, bg8, k_steps=k_steps,
-                              max_depth=cfg.max_depth, t_min=cfg.t_min)
+                              max_depth=cfg.max_depth, t_min=cfg.t_min,
+                              moving=scene.has_moving)
         trace_queue.outer_steps += 1
         n_alive = int((st[ops_mega.ROW_ALIVE] > 0.5).sum())
     acc.index_add_(1, pix, st[10:13])  # the final flush

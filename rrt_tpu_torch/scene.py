@@ -7,8 +7,9 @@ are tables indexed by integer ids. The layout, padding and slot order
 are the same as `rrt_tpu.scene`, so the port's arrays equal the JAX
 package's element for element.
 
-This port builds the sphere family with solid and checker textures,
-the lambertian, metal and dielectric materials and either background.
+This port builds the sphere family (stationary and moving spheres) with
+solid and checker textures, the lambertian, metal and dielectric
+materials and either background.
 The other builders raise NotImplementedError naming the ROADMAP item
 that ports them; their families stay at the empty padded layout.
 """
@@ -210,7 +211,9 @@ class SceneBuilder:
 
     def moving_sphere(self, center0, center1, time0: float, time1: float,
                       radius: float, mat_id: int):
-        _not_ported("the moving sphere", "#9.1")
+        self._spheres.append((np.asarray(center0, np.float32),
+                              np.asarray(center1, np.float32), float(time0),
+                              float(time1), float(radius), mat_id))
 
     def quad(self, q, u, v, mat_id: int, rotate_y_deg: float = 0.0,
              translate=(0.0, 0.0, 0.0)):

@@ -110,12 +110,12 @@ def test_trace_batch_kernel_route_matches_broadcast_route():
     n = W * H
     ids = torch.arange(n)
     keys = rng.sample_keys(rng.key_words(0), ids, 0)
-    o, d, _ = render.generate_rays(cam, ids % W, ids // W, W, H, keys)
+    o, d, tm = render.generate_rays(cam, ids % W, ids // W, W, H, keys)
     alive = torch.ones((n,), dtype=torch.bool)
     packed = render.pack_scene(scene, "cpu")
     for bounce in range(DEPTH):
-        a = render._shade(scene, o, d, keys, bounce, alive, 1e-3, DEPTH)
-        b = render._shade(scene, o, d, keys, bounce, alive, 1e-3, DEPTH,
+        a = render._shade(scene, o, d, tm, keys, bounce, alive, 1e-3, DEPTH)
+        b = render._shade(scene, o, d, tm, keys, bounce, alive, 1e-3, DEPTH,
                           packed=packed)
         for x, y in zip(a, b):
             assert torch.equal(x, y)
@@ -138,8 +138,8 @@ def test_trace_batch_always_intersects_through_intersect_only(monkeypatch):
     scene, cam = tscenes.SCENES["chap11"](16, 8)
     ids = torch.arange(16 * 8)
     keys = rng.sample_keys(rng.key_words(0), ids, 0)
-    o, d, _ = render.generate_rays(cam, ids % 16, ids // 16, 16, 8, keys)
-    rad, n_traced = render.trace_batch(scene, o, d, keys, DEPTH, 1e-3)
+    o, d, tm = render.generate_rays(cam, ids % 16, ids // 16, 16, 8, keys)
+    rad, n_traced = render.trace_batch(scene, o, d, tm, keys, DEPTH, 1e-3)
     assert calls and all(c == 16 * 8 for c in calls)
     assert torch.isfinite(rad).all() and int(n_traced) >= 16 * 8
 

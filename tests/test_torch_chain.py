@@ -129,13 +129,13 @@ def _port_rad(name, path):
         for f in dataclasses.fields(cam)})
     px, py = (torch.from_numpy(a) for a in _lanes())
     keys = rng.sample_keys(rng.key_words(0), py * W + px, 0)
-    o, d, _ = render.generate_rays(camera, px, py, W, H, keys)
+    o, d, tm = render.generate_rays(camera, px, py, W, H, keys)
     s = diff.combine(scene, params)
     if path == "chain":
-        rad, _ = render.trace_batch_fused(s, o, d, keys, DEPTH, 1e-3,
+        rad, _ = render.trace_batch_fused(s, o, d, tm, keys, DEPTH, 1e-3,
                                           schedule=SCHEDULE)
     else:
-        rad, _ = render.trace_batch(s, o, d, keys, DEPTH, 1e-3,
+        rad, _ = render.trace_batch(s, o, d, tm, keys, DEPTH, 1e-3,
                                     differentiable=True)
     return rad, params, camera
 
@@ -223,10 +223,10 @@ def test_fused_forward_matches_nondiff(name):
     scene, cam = _port_scene(name)
     px, py = (torch.from_numpy(a) for a in _lanes())
     keys = rng.sample_keys(rng.key_words(3), py * W + px, 0)
-    o, d, _ = render.generate_rays(cam, px, py, W, H, keys)
-    rad, n = render.trace_batch_fused(scene, o, d, keys, 4, 1e-3,
+    o, d, tm = render.generate_rays(cam, px, py, W, H, keys)
+    rad, n = render.trace_batch_fused(scene, o, d, tm, keys, 4, 1e-3,
                                       schedule=(2, 3))
-    rad2, n2 = render.trace_batch(scene, o, d, keys, 4, 1e-3)
+    rad2, n2 = render.trace_batch(scene, o, d, tm, keys, 4, 1e-3)
     torch.testing.assert_close(rad, rad2, atol=2e-4, rtol=0)
     assert n.dtype == torch.int64 and int(n) == int(n2) >= N
 
@@ -349,14 +349,14 @@ def test_adjoint_of_dead_lanes_is_d_out():
         np.random.default_rng(1).standard_normal((16, N)).astype(np.float32))
     d_st, d_sph, d_bg, mism = tmkv.chain_adjoint_reference(
         st, keys, sph, bg, d_out, st[tmk.ROW_BOUNCE].clone(), k_steps=4,
-        max_depth=50, t_min=1e-3)
+        max_depth=50, t_min=1e-3, moving=False)
     assert torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
     assert not d_sph.any() and not d_bg.any() and int(mism) == 0
 
 
 def test_chain_adjoint_checks_its_inputs():
     st, keys, sph, bg = _chain_inputs()
-    kw = dict(max_depth=80, t_min=1e-3)
+    kw = dict(max_depth=80, t_min=1e-3, moving=False)
     with pytest.raises(ValueError, match="records"):
         tmkv.chain_adjoint(st, keys, sph, bg, torch.zeros_like(st),
                            st[tmk.ROW_BOUNCE].clone(),
@@ -373,7 +373,7 @@ def test_bounce_chain_keeps_its_input():
     st = st.requires_grad_()
     before = st.detach().clone()
     tmkv.chain_adjoint.replay_mismatches = 0
-    out = tmkv.bounce_chain(3, 50, 1e-3)(st, keys, sph, bg)
+    out = tmkv.bounce_chain(3, 50, 1e-3, False)(st, keys, sph, bg)
     assert torch.equal(st.detach(), before)
     assert not torch.equal(out.detach(), before)
     (g,) = torch.autograd.grad(out[10:13].sum(), st)
@@ -391,3 +391,153 @@ def test_render_image_diff_out_of_scope_still_raises(caplog):
         render.render_image_diff(dataclasses.replace(scene, has_perlin=True),
                                  cam, cfg, 0, device="cpu")
     assert "batch driver's differentiable path" in caplog.text
+
+
+# ---------------------------------------------------------------------------
+# Any depth: chains of at most MAX_RECORDS steps, and the route past the
+# train kernels' records
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("depth", [63, 71, 72, 99, 200])
+def test_fused_schedule_splits_long_tails(depth):
+    """A chain's backward keeps at most MAX_RECORDS bounce records a lane,
+    so the tail splits into chains of at most that many steps; below 72
+    the schedule is rrt_tpu's."""
+    schedule = render._fused_schedule(depth)
+    assert sum(schedule) == depth + 1
+    assert max(schedule) <= tmkv.MAX_RECORDS and min(schedule) >= 1
+    assert schedule[:2] == (4, 4)
+    if depth < 72:
+        assert schedule == jrender._fused_schedule(depth)
+    if depth == 99:
+        assert schedule == (4, 4, 64, 28)
+
+
+def _deep_cfg(**kw):
+    base = dict(width=16, height=8, spp=1, max_depth=80, samples_per_pass=1,
+                tile_pixels=128)
+    base.update(kw)
+    return render.RenderConfig(**base)
+
+
+def test_chain_matches_scan_at_depth_80():
+    """trace_batch(differentiable=True, fused_vjp=True) at depth 80, chains
+    (4, 4, 64, 9), against the checkpointed scan (fused_vjp=False) at
+    16x8, 1 spp: the same plain physics, so the loss within 1e-5
+    relative; the gradients by test_chain_matches_scan's rule, lanes
+    whose radiance parts by 1e-3 relative (gradcheck.sample_agreement's
+    rule) weighted 0."""
+    cfg = _deep_cfg()
+    scene, cam = _port_scene("chap12")
+    n = cfg.width * cfg.height
+    ids = torch.arange(n)
+    px, py = ids % cfg.width, ids // cfg.width
+    keys = rng.sample_keys(rng.key_words(0), py * cfg.width + px, 0)
+    assert render._fused_schedule(cfg.max_depth) == (4, 4, 64, 9)
+    tmkv.chain_adjoint.replay_mismatches = 0
+    out = {}
+    for fused in (True, False):
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in diff.partition(scene).items()}
+        camera = dataclasses.replace(cam, **{
+            f.name: getattr(cam, f.name).detach().clone().requires_grad_()
+            for f in dataclasses.fields(cam)})
+        o, d, tm = render.generate_rays(camera, px, py, cfg.width,
+                                        cfg.height, keys)
+        rad, _ = render.trace_batch(diff.combine(scene, params), o, d, tm,
+                                    keys, cfg.max_depth, 1e-3,
+                                    differentiable=True, fused_vjp=fused)
+        out[fused] = (rad, params, camera)
+    a, b = out[True][0].detach(), out[False][0].detach()
+    agree = ((a - b).abs() <= 1e-3 * b.abs() + 1e-6).all(dim=0).numpy()
+    assert agree.mean() >= 0.985, agree.mean()
+    w = np.sin(np.arange(n) * 0.1).astype(np.float32) * agree
+    cot = (np.asarray(MIX, np.float32)[:, None] * w).astype(np.float32)
+    lc = float((torch.from_numpy(cot) * a).sum())
+    ls = float((torch.from_numpy(cot) * b).sum())
+    assert lc == pytest.approx(ls, rel=1e-5)
+    got, exp = (_port_grads(*out[f], cot) for f in (True, False))
+    assert np.abs(exp["sphere_radius"]).max() > 0
+    _assert_grads_close(got, exp)
+    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
+
+
+def test_matches_reference_at_depth_80(interpret_pallas):
+    """trace_batch(differentiable=True, fused_vjp=True) at depth 80, where
+    the port splits its tail into chains (4, 4, 64, 9), against rrt_tpu's
+    trace_batch(differentiable=True) under jax.vjp, chap12 16x8, 1 spp:
+    lanes whose radiance parts by gradcheck.sample_agreement's rule (1e-3
+    relative) weighted 0; at most 3 of the 128 lanes may be (2 are,
+    measured: 80 bounces give a last-bit decision flip more chances than
+    the module's 4); then the module's rule for the two packages."""
+    w, h, depth = 16, 8, 80
+    j_scene, j_cam = jscenes.SCENES["chap12"](w, h)
+    scene = convert.scene_from_numpy(_leaves(j_scene))
+    cam = convert.camera_from_numpy(_leaves(j_cam))
+    ids = np.arange(w * h)
+    px, py = ids % w, ids // w
+
+    def j_rad(params, camera):
+        jpx, jpy = jnp.asarray(px, jnp.int32), jnp.asarray(py, jnp.int32)
+        keys = jrng.sample_keys(jax.random.key(0),
+                                (jpy * w + jpx).astype(jnp.uint32), 0)
+        o, d, tm = jgenerate_rays(camera, jpx, jpy, w, h, keys)
+        r, _ = jrender.trace_batch(jdiff.combine(j_scene, params), o, d, tm,
+                                   keys, depth, 1e-3, differentiable=True)
+        return jnp.stack([r.x, r.y, r.z])
+
+    ref_rad, vjp = jax.vjp(jax.jit(j_rad), jdiff.partition(j_scene), j_cam)
+    ref_rad = np.asarray(ref_rad)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in diff.partition(scene).items()}
+    camera = dataclasses.replace(cam, **{
+        f.name: getattr(cam, f.name).detach().clone().requires_grad_()
+        for f in dataclasses.fields(cam)})
+    tpx, tpy = torch.from_numpy(px), torch.from_numpy(py)
+    keys = rng.sample_keys(rng.key_words(0), tpy * w + tpx, 0)
+    o, d, tm = render.generate_rays(camera, tpx, tpy, w, h, keys)
+    assert render._fused_schedule(depth) == (4, 4, 64, 9)
+    tmkv.chain_adjoint.replay_mismatches = 0
+    rad, _ = render.trace_batch(diff.combine(scene, params), o, d, tm, keys,
+                                depth, 1e-3, differentiable=True,
+                                fused_vjp=True)
+    a = rad.detach().numpy()
+    agree = (np.abs(a - ref_rad) <= 1e-3 * np.abs(ref_rad) + 1e-6).all(axis=0)
+    assert (~agree).sum() <= 3, agree.mean()
+    weight = np.sin(ids * 0.1).astype(np.float32) * agree
+    cot = (np.asarray(MIX, np.float32)[:, None] * weight).astype(np.float32)
+    loss = float((cot * a).sum())
+    assert loss == pytest.approx(float((cot * ref_rad).sum()), rel=1e-4)
+    got = _port_grads(rad, params, camera, cot)
+    exp = _jax_grads(vjp, cot)
+    assert np.abs(exp["sphere_radius"]).max() > 0
+    _assert_grads_close(got, exp, share=0.995, cam_slack=2e-2)
+    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
+
+
+def test_render_image_diff_and_train_step_at_depth_80(caplog):
+    """Past the train kernels' records (max_depth + 1 > MAX_RECORDS)
+    render_image_diff routes to render_image(differentiable=True), whose
+    chains split the depth, after one log line, as rrt_tpu's scope
+    fallback does; make_train_step takes the same route, at 100 too."""
+    scene, cam = _port_scene("chap12")
+    cfg = _deep_cfg()
+    reason = render.diff_fallback_reason(scene, cfg)
+    assert reason is not None and "records" in reason
+    assert render.diff_fallback_reason(
+        scene, dataclasses.replace(cfg, max_depth=63)) is None
+    before = tmkv.chain_adjoint.launches
+    img, n = render.render_image_diff(scene, cam, cfg, 0, device="cpu")
+    fwd, n_fwd = render.render_image(scene, cam, cfg, 0, device="cpu")
+    torch.testing.assert_close(img, fwd, atol=2e-4, rtol=0)
+    assert int(n) == int(n_fwd)
+    assert "batch driver's differentiable path" in caplog.text
+    assert tmkv.chain_adjoint.launches == before  # plain versions here
+    for depth in (80, 100):
+        step = diff.make_train_step(dataclasses.replace(cfg,
+                                                        max_depth=depth),
+                                    lr=0.5, device="cpu")
+        new, new_cam, loss = step(scene, cam, torch.full((8, 16, 3), 0.2), 0)
+        assert torch.isfinite(loss)
+        assert not torch.equal(new.tex_color1, scene.tex_color1)

@@ -63,7 +63,7 @@ def _packs(device, name="chap12", w=64, h=32):
 
 def _kw(**over):
     kw = dict(seed_words=(0, 0), sample_lo=0, width=64, height=32, spp=4,
-              max_depth=8, t_min=1e-3)
+              max_depth=8, t_min=1e-3, moving=False)
     kw.update(over)
     return kw
 
@@ -138,7 +138,8 @@ def _train_case(device, name, w=64, h=32, spp=4, depth=8):
     cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
     packs = [p.detach() for p in render._packs(scene, cam, cfg, device)]
     return scene, cam, cfg, packs, _kw(width=w, height=h, spp=spp,
-                                        max_depth=depth)
+                                        max_depth=depth,
+                                        moving=scene.has_moving)
 
 
 @pytest.mark.parametrize("name", ["chap12", "chap11", "diffuse", "checker"])
@@ -339,7 +340,7 @@ def test_bounce_steps_matches_plain_version(device, name, k_steps):
     those, traced and bounce are equal and throughput and pending
     radiance agree within 1e-3 on >= 99.5%."""
     st, keys, sph, bg = _lane_state(device, name)
-    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3)
+    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=False)
     before = tmk.bounce_steps.launches
     out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
     torch.cuda.synchronize(device)
@@ -359,7 +360,7 @@ def test_bounce_steps_dead_lanes_pass_through(device):
     st[14] = 0.0
     st[15] = 7.0
     out = tmk.bounce_steps(st.clone(), keys, sph, bg, k_steps=4,
-                           max_depth=50, t_min=1e-3)
+                           max_depth=50, t_min=1e-3, moving=False)
     assert torch.equal(out, st)
 
 
@@ -375,7 +376,7 @@ def test_intersect_only_matches_plain_version(device, name, bounces):
     st, keys, sph, bg = _lane_state(device, name)
     if bounces:
         tmk.bounce_steps(st, keys, sph, bg, k_steps=bounces, max_depth=50,
-                         t_min=1e-3)
+                         t_min=1e-3, moving=False)
     o, d = st[0:3], st[3:6]
     before = tmk.intersect_only.launches
     t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3)
@@ -423,9 +424,9 @@ def test_queue_kernels_run_at_max_slots(device):
     wide = torch.cat([sph, sph[:, -1:].expand(-1, tmk.MAX_SLOTS - n)],
                      dim=1).contiguous()
     a = tmk.bounce_steps(st.clone(), keys, sph, bg, k_steps=4, max_depth=50,
-                         t_min=1e-3)
+                         t_min=1e-3, moving=False)
     b = tmk.bounce_steps(st.clone(), keys, wide, bg, k_steps=4,
-                         max_depth=50, t_min=1e-3)
+                         max_depth=50, t_min=1e-3, moving=False)
     assert torch.equal(a, b)
     for x, y in zip(tmk.intersect_only(st[0:3], st[3:6], sph, t_min=1e-3),
                     tmk.intersect_only(st[0:3], st[3:6], wide, t_min=1e-3)):
@@ -456,8 +457,8 @@ def _chain_case(device, name="chap12", k_steps=4, pre_steps=0):
     st, keys, sph, bg = _lane_state(device, name)
     if pre_steps:
         tmk.bounce_steps(st, keys, sph, bg, k_steps=pre_steps, max_depth=50,
-                         t_min=1e-3)
-    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3)
+                         t_min=1e-3, moving=False)
+    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=False)
     out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
     gen = torch.Generator(device="cpu").manual_seed(0)
     d_out = torch.randn((16, st.shape[1]), generator=gen).to(device)
@@ -550,7 +551,7 @@ def test_bounce_chain_launches_both_kernels(device):
     saved = st.detach().clone()
     fwd, bwd = tmk.bounce_steps.launches, tmkv.chain_adjoint.launches
     tmkv.chain_adjoint.replay_mismatches = 0
-    y = tmkv.bounce_chain(kw["k_steps"], 50, 1e-3)(st, keys, sph, bg)
+    y = tmkv.bounce_chain(kw["k_steps"], 50, 1e-3, False)(st, keys, sph, bg)
     assert torch.equal(st.detach(), saved) and torch.equal(y, out)
     (g,) = torch.autograd.grad(y[10:13].sum(), st)
     assert tmk.bounce_steps.launches == fwd + 1
@@ -582,3 +583,150 @@ def test_differentiable_batch_launches_the_chain(device):
     assert abs(int(n) - int(n_tile)) / int(n_tile) < 1e-2
     close = (img.detach() - tile).abs().amax(dim=2) < 1e-3
     assert close.float().mean() >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# Moving spheres: each kernel's kMoving variant on a small book2chap2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed_words", [(0, 0), (0, 7)])
+def test_moving_tile_render_matches_plain_version(device, seed_words):
+    packs = _packs(device, "book2chap2")
+    kw = _kw(seed_words=seed_words, moving=True)
+    out = tmk.render_tiles(*packs, **kw)
+    _assert_close(out, tmk.render_tiles_reference(*packs, **kw), 4)
+    # The static variant on the same packs renders another image.
+    static = tmk.render_tiles(*packs, **_kw(seed_words=seed_words))
+    assert (static[0] - out[0]).abs().max() > 1e-2
+
+
+def test_moving_train_kernels_match_plain_versions(device):
+    """train_fwd's moving variant equals tile_render's bit for bit;
+    train_bwd's against its plain version by
+    test_train_bwd_matches_plain_version's rule, with the velocity rows
+    and the shutter's camera rows among the gradients."""
+    from rrt_tpu_torch import diff, gradcheck
+    scene, cam, cfg, packs, kw = _train_case(device, "book2chap2")
+    assert kw["moving"]
+    rad, traced, lengths = tmkt.render_tiles_train(*packs, **kw)
+    ref, ref_traced = tmk.render_tiles(*packs, **kw)
+    assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.agree.float().mean() >= 0.99
+    n = kw["width"] * kw["height"]
+    weight = torch.sin(torch.arange(n, device=device) * 0.1) * agreement.agree
+    d_rad = (weight[:, None] * torch.tensor(_MIX, device=device)).contiguous()
+    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, **kw)
+    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths, **kw)
+    assert int(k[3]) == 0 and int(p[3]) == 0  # replay_mismatches
+    assert k[0][4:7].abs().max() > 0 and k[1][19:21].abs().max() > 0
+    kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], device=device)
+    pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], device=device)
+    faults, _ = gradcheck.field_grad_faults(kp, kc, pp, pc)
+    assert not faults, faults
+    assert kp["sphere_dc"].abs().max() > 0
+
+
+@pytest.mark.parametrize("k_steps", [1, 4])
+def test_moving_bounce_steps_matches_plain_version(device, k_steps):
+    st, keys, sph, bg = _lane_state(device, "book2chap2")
+    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=True)
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    ref = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
+    assert torch.equal(out[6], st[6])  # the time stays
+    agree = (out[14] > 0.5) == (ref[14] > 0.5)
+    assert agree.float().mean() >= 0.999
+    assert torch.equal(out[15][agree], ref[15][agree])
+    assert torch.equal(out[13][agree], ref[13][agree])
+    close = ((out[7:13] - ref[7:13]).abs() < 1e-3).all(dim=0)[agree]
+    assert close.float().mean() >= 0.995
+
+
+@pytest.mark.parametrize("bounces", [0, 2])
+def test_moving_intersect_only_matches_plain_version(device, bounces):
+    st, keys, sph, bg = _lane_state(device, "book2chap2")
+    if bounces:
+        tmk.bounce_steps(st, keys, sph, bg, k_steps=bounces, max_depth=50,
+                         t_min=1e-3, moving=True)
+    o, d, tm = st[0:3], st[3:6], st[6].contiguous()
+    t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3, time=tm)
+    rt, rfam, ridx = tmk.intersect_only_reference(o, d, sph, t_min=1e-3,
+                                                  time=tm)
+    same = (fam == rfam) & (idx == ridx)
+    assert same.float().mean() >= 0.999
+    hit = same & (fam == 0)
+    assert hit.any()
+    torch.testing.assert_close(t[hit], rt[hit], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("k_steps,pre_steps", [(4, 0), (12, 3)])
+def test_moving_chain_bwd_matches_plain_version(device, k_steps, pre_steps):
+    """test_chain_bwd_matches_plain_version's rule on book2chap2, the
+    time row's cotangent included."""
+    st, keys, sph, bg = _lane_state(device, "book2chap2")
+    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=True)
+    if pre_steps:
+        tmk.bounce_steps(st, keys, sph, bg, **dict(kw, k_steps=pre_steps))
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    ref_out = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
+    agree = ((out[13] == ref_out[13])
+             & ((out[14] > 0.5) == (ref_out[14] > 0.5))
+             & ((out[:13] - ref_out[:13]).abs()
+                <= 1e-3 * ref_out[:13].abs() + 1e-3).all(dim=0))
+    assert agree.float().mean() >= 0.999
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d_out = torch.randn((16, st.shape[1]), generator=gen).to(device) * agree
+    k = tmkv.chain_adjoint(st, keys, sph, bg, d_out,
+                           out[tmk.ROW_BOUNCE].clone(), **kw)
+    p = tmkv.chain_adjoint_reference(st, keys, sph, bg, d_out,
+                                     ref_out[tmk.ROW_BOUNCE].clone(), **kw)
+    assert int(k[3]) == 0 and int(p[3]) == 0
+    live = st[tmk.ROW_ALIVE] > 0.5
+    assert (k[0][tmk.ROW_TIME, live] != d_out[tmk.ROW_TIME, live]).any()
+    scale = p[0][:13].abs().amax(dim=1, keepdim=True).clamp(min=1e-6)
+    lane_ok = ((k[0][:13] - p[0][:13]).abs() <= 1e-3 * scale).all(dim=0)
+    assert lane_ok.float().mean() >= 0.995
+    assert k[1][4:7].abs().max() > 0
+    for got, exp in zip(k[1:3], p[1:3]):
+        torch.testing.assert_close(got, exp, rtol=0,
+                                   atol=1e-3 * exp.abs().max().item())
+
+
+def test_moving_backwards_cap_their_slots(device):
+    sph, cam, bg = _packs(device, "book2chap2")
+    wide = sph.repeat(1, tmkv.MAX_SLOTS_MOVING // sph.shape[1] + 1)
+    kw = _kw(moving=True)
+    with pytest.raises(ValueError, match="moving"):
+        tmkt.render_tiles_train(wide.contiguous(), cam, bg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The probes (csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+
+def test_probe_kernels_match_plain_versions(device):
+    """At 8 iterations: the f32 chains bit for bit equal to their plain
+    versions (which round once a step, as fmaf does), on values near 1
+    and on values between 1e-8 and 1e-6 where the addend moves them by
+    at least 12%, the relayout's values equal to the flat chain's, the
+    u32 mixers bit for bit."""
+    from rrt_tpu_torch.probes import probe_reshape, probe_rng, probe_row_layout
+    gen = torch.Generator().manual_seed(0)
+    for shape in probe_row_layout.SHAPES:
+        near_one = 0.5 + 0.5 * torch.rand(shape, generator=gen)
+        small = 10.0 ** (-8.0 + 2.0 * torch.rand(shape, generator=gen))
+        for x in (near_one.to(device), small.to(device)):
+            y = probe_row_layout.fma_chain(x, iters=8)
+            assert not torch.equal(y, x)
+            assert torch.equal(
+                y, probe_row_layout.fma_chain_reference(x, iters=8))
+            if x.numel() % 1024 == 0:
+                assert torch.equal(
+                    probe_reshape.fma_chain_relayout(x, iters=8), y)
+    x = torch.randint(-2**31, 2**31, (1, 1024), generator=gen,
+                      dtype=torch.int64).to(torch.int32).to(device)
+    for mode in probe_rng.MODES:
+        assert torch.equal(probe_rng.mix(x, mode=mode, iters=8),
+                           probe_rng.mix_reference(x, mode=mode, iters=8))

@@ -76,12 +76,17 @@ def _lanes(seed):
     return state, sel.astype(f32), bg6, consts, draws
 
 
-def _run_both(seed, is_sky, cot_seed):
+def _run_both(seed, is_sky, cot_seed, moving=False):
     state, sel, bg6, consts, draws = _lanes(seed)
+    if moving:  # the same centers at each lane's time, reached by motion
+        rs = np.random.default_rng(seed + 1)
+        vel = rs.uniform(-0.5, 0.5, (3, N)).astype(np.float32)
+        sel[4:7] = vel
+        sel[0:3] = sel[0:3] - state[6] * vel
     jc = {k: jnp.asarray(v) for k, v in consts.items()}
     jc.update(draws=tuple(jnp.asarray(x) for x in draws),
               is_sky=jnp.asarray(is_sky), is_light=jnp.zeros(N, bool))
-    g = jmkv._make_diff_step(jc, moving=False, has_quads=False,
+    g = jmkv._make_diff_step(jc, moving=moving, has_quads=False,
                              has_boxes=False, has_rot_boxes=False,
                              has_perlin=False, has_images=False, img_ah=1,
                              img_aw=1)
@@ -99,7 +104,7 @@ def _run_both(seed, is_sky, cot_seed):
     t_ins = [torch.from_numpy(x.copy()).requires_grad_() for x in state] + [
         torch.from_numpy(sel).requires_grad_()] + [
         torch.from_numpy(x.copy()).requires_grad_() for x in bg6]
-    t_out = diff_step(tc, *t_ins)
+    t_out = diff_step(tc, *t_ins, moving=moving)
     t_grads = torch.autograd.grad(
         t_out, t_ins, [torch.from_numpy(x) for x in cot], allow_unused=True)
     return j_out, t_out, j_grads, t_grads, t_ins
@@ -108,7 +113,22 @@ def _run_both(seed, is_sky, cot_seed):
 @pytest.mark.parametrize("is_sky", [True, False])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_diff_step_matches_reference(seed, is_sky):
-    j_out, t_out, j_grads, t_grads, t_ins = _run_both(seed, is_sky, 100)
+    _assert_steps_agree(*_run_both(seed, is_sky, 100))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moving_diff_step_matches_reference(seed):
+    """Moving spheres: the center at the lane's time (state row 6) from
+    pack rows 0-2 and 4-6, so the velocity rows and the time get
+    gradients, as under rrt_tpu's jax.vjp."""
+    out = _run_both(seed, True, 100, moving=True)
+    _assert_steps_agree(*out)
+    t_grads = out[3]
+    assert t_grads[6].abs().max() > 0  # the time
+    assert t_grads[13][4:7].abs().max() > 0  # the velocity rows
+
+
+def _assert_steps_agree(j_out, t_out, j_grads, t_grads, t_ins):
     for i, (jo, to) in enumerate(zip(j_out, t_out)):
         jo = np.broadcast_to(np.asarray(jo).reshape(-1), (N,))
         to = np.broadcast_to(to.detach().numpy(), (N,))
@@ -136,9 +156,9 @@ def test_diff_step_has_gradient_power():
 
 def test_diff_step_other_families_raise():
     with pytest.raises(NotImplementedError, match="#9.2"):
-        diff_step({}, has_quads=True)
+        diff_step({}, moving=False, has_quads=True)
     with pytest.raises(NotImplementedError, match="#9.6"):
-        diff_step({}, rr_depth=2)
+        diff_step({}, moving=False, rr_depth=2)
 
 
 def test_camera_ray_rows_matches_reference():

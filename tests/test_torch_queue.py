@@ -87,7 +87,8 @@ def test_bounce_steps_matches_reference(interpret_pallas, k_steps):
         has_quads=False, n_media=0, max_depth=50, t_min=1e-3))
     state, kbits, sph, bg = _port_inputs(j_scene, st, keys)
     out = tmk.bounce_steps_reference(state, kbits, sph, bg, k_steps=k_steps,
-                                     max_depth=50, t_min=1e-3).numpy()
+                                     max_depth=50, t_min=1e-3,
+                                     moving=False).numpy()
     assert float(ref[15].sum()) >= 1024  # every lane traced a segment
     agree = (out[14] > 0.5) == (ref[14] > 0.5)
     assert agree.mean() >= 0.98, agree.mean()
@@ -123,10 +124,11 @@ def test_cpu_wrapper_updates_in_place_without_launch():
     j_scene, st, keys = _camera_state(n=256)
     state, kbits, sph, bg = _port_inputs(j_scene, st, keys)
     expect = tmk.bounce_steps_reference(state.clone(), kbits, sph, bg,
-                                        k_steps=2, max_depth=8, t_min=1e-3)
+                                        k_steps=2, max_depth=8, t_min=1e-3,
+                                        moving=False)
     before = tmk.bounce_steps.launches
     out = tmk.bounce_steps(state, kbits, sph, bg, k_steps=2, max_depth=8,
-                           t_min=1e-3)
+                           t_min=1e-3, moving=False)
     assert tmk.bounce_steps.launches == before
     assert out is state and torch.equal(state, expect)
 
@@ -140,7 +142,7 @@ def test_dead_lanes_pass_through():
                                                        np.float32), keys)
     before = state.clone()
     tmk.bounce_steps(state, kbits, sph, bg, k_steps=3, max_depth=50,
-                     t_min=1e-3)
+                     t_min=1e-3, moving=False)
     assert torch.equal(state, before)
 
 
@@ -159,7 +161,7 @@ def test_bounce_steps_rejects_bad_inputs(bad):
         state = torch.cat([state, state], dim=1)[:, ::2]
     with pytest.raises((TypeError, ValueError)):
         tmk.bounce_steps(state, kbits, sph, bg, k_steps=1, max_depth=8,
-                         t_min=1e-3)
+                         t_min=1e-3, moving=False)
 
 
 @pytest.mark.parametrize("bounce", [0, 1])

@@ -70,7 +70,7 @@ def test_one_bounce_matches_reference(name, depth):
                                      alive, 1e-3, 50)
 
     c_t, _, _, att_t, sv_t = render._shade(
-        t_scene, _rows(o), _rows(d),
+        t_scene, _rows(o), _rows(d), torch.from_numpy(np.array(tm)),
         torch.from_numpy(np.asarray(keys).astype(np.int64)), depth,
         torch.from_numpy(np.array(alive)), 1e-3, 50)
 
@@ -93,7 +93,7 @@ def _packs(name="chap12", w=16, h=8, device="cpu"):
 
 
 KW = dict(seed_words=(0, 0), sample_lo=0, width=16, height=8, spp=2,
-          max_depth=8, t_min=1e-3)
+          max_depth=8, t_min=1e-3, moving=False)
 
 
 def test_cpu_wrapper_runs_plain_version_without_launch():
@@ -139,7 +139,7 @@ def test_wrapper_rejects_bad_inputs(bad):
         tmk.render_tiles(sph, cam, bg, **KW)
 
 
-@pytest.mark.parametrize("name", ["cornell", "book2chap2", "earth"])
+@pytest.mark.parametrize("name", ["cornell", "earth"])
 def test_scenes_outside_the_kernel_scope_raise(name):
     j_scene, j_cam = jscenes.SCENES[name](16, 8)
     scene = convert.scene_from_numpy(_leaves(j_scene))

@@ -137,7 +137,7 @@ def test_adjoint_reference_matches_autograd(name):
     weight = torch.sin(torch.arange(w * h) * 0.1)[:, None] * torch.tensor(
         [1.0, 0.7, 0.3])
     kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
-              max_depth=depth, t_min=1e-3)
+              max_depth=depth, t_min=1e-3, moving=False)
 
     def grads(fn):
         params, camera = _grad_leaves(scene, cam)
@@ -147,7 +147,7 @@ def test_adjoint_reference_matches_autograd(name):
         return _field_grads((weight * rad).sum(), params, camera)
 
     chain = grads(lambda *p: tmkt.TileTrainChain.apply(
-        *p, (0, 0), 0, w, h, spp, depth, 1e-3)[0])
+        *p, (0, 0), 0, w, h, spp, depth, 1e-3, False)[0])
     plain = grads(lambda *p: tmk.render_tiles_reference(*p, **kw)[0])
     # (Under a solid background a path's radiance is a product of
     # albedos, so only chap12's sky gives geometry a gradient.)
