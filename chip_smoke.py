@@ -22,8 +22,14 @@ set to 0 just before it and read just after:
   [C3] render_image(differentiable=True), 1200x800, 4 spp, depth 50, and
       the gradient of an L2 loss.
 
-[5] holds the train kernels against their plain versions, at two small
-shapes and at [7]'s, and [6] checks their gradients with finite
+[5] holds the train kernels against tile_render and their plain
+versions, at two small shapes and at [7]'s: train_fwd's radiance,
+traced counts and lengths equal tile_render's bit for bit, its pooled
+winners its own of each sample traced alone, and all but 1e-4 of them
+the plain version's on the agreeing paths; train_bwd from the
+winners gives the scan route's (winners=None) camera and background
+cotangents bit for bit; it prints the path-length histogram and the
+segments past the winner pool. [6] checks the gradients with finite
 differences at full size; [Q1] holds bounce_steps against its plain
 version at [Q2]'s queue shape, and intersect_only against its at that
 shape and at [Q3]'s batch shape, on camera rays and after 1-4 bounces;
@@ -43,6 +49,10 @@ same field with moving diffuse spheres, shutter [0, 1]) and the probes:
        ITERS, each kernel held against its plain version at 8
        iterations.
 
+[2] prints ptxas's registers and spills of every kernel; [7], [8] and
+[M3] print the train kernels' times beside the step's least time
+(`step_bound_ms`: one scan a segment, the backward's adjoint, the bytes)
+and the peak memory, and [8] requires the 500-spp step to be one chunk.
 Prints the card's name and power limit
 beside every time, one JSON line of the kernels (with each one's
 least time on the card, `bound_ms`), and as its last line {"ok": true,
@@ -67,7 +77,9 @@ checks they feed, and its wall time when it ends; [C1]-[C3] also print
 their peak device memory.
 """
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -116,11 +128,30 @@ FLOPS_PER_SLOT = 17
 # A moving slot first takes its center at the ray's time, base + time *
 # vel: three multiplies and three adds more.
 FLOPS_PER_MOVING_SLOT = 23
-# FP32 operations of one bounce of train.cu's reverse sweep beyond the
+# FP32 operations of one bounce of chain.cu's reverse sweep beyond the
 # replay's scan: scatter_adjoint recomputes the winner's quadratic and
 # shade() and runs the transpose (a count of its source, transcendentals
-# as one operation each).
+# as one operation each): chain_bwd's bound.
 ADJOINT_FLOPS = 300
+# FP32 operations of one segment of train.cu's backward beyond any scan,
+# counted from its source for the commonest segment (a lambertian hit on
+# a solid texture), a transcendental as one operation, the warp sums
+# uncounted, so a lower bound: the replay's ray dots, the stored
+# winner's quadratic and roots (slot_t) and shade(), about 144; the
+# sweep's recomputation of the same and the transpose, about 280.
+BWD_SEGMENT_FLOPS = 420
+# INT32 operations: a Threefry call is 80 (probe_rng.OPS_PER_CALL). A
+# path draws 4 calls (its key and the camera's three pairs) and a
+# segment that hits a sphere 4 more (shade()'s scatter draws); a path
+# ends in at most one miss, which draws nothing, so at least segments -
+# paths segments draw. train_fwd draws each once. train_bwd's replay
+# draws them once again; its sweep reshades each hit from what the
+# replay kept of the draws (shade's kForAdjoint) and draws nothing, so
+# the backward's Threefry work is the forward's. Over [P1]'s INT32 rate
+# (probes.int32_rate: 132 SMs x 64 lanes x the maximum SM clock).
+THREEFRY_OPS = 80
+THREEFRY_PER_HIT = 4
+THREEFRY_PER_PATH = 4
 # chain_bwd sums its pack cotangents with shared-memory atomics whose
 # order within a block changes from run to run. With a seeded normal
 # output cotangent the sums cancel, and over 40 repeats on an H100 80GB
@@ -139,6 +170,23 @@ PACK_REPEATS = 40
 # reading on an H100 80GB HBM3 at 700 W: 0.99949 on chain 1 of [C2]'s
 # rays, a parted share of 5.1e-4; the gate allows 2e-3, four times it.
 MIN_FORWARD_AGREE = 0.998
+# [5] holds train_fwd's winners to the plain version's on the paths whose
+# length and radiance agree (gradcheck.sample_agreement). Such a path
+# can still have parted ways, by drift over many bounces or by an earlier
+# decision, and agree: two paths that both end absorbed at max_depth + 1
+# bounces have radiance 0. At chap12 1200x800, 8 spp, depth 50, 924 of
+# 21,670,766 compared entries differed (4.3e-5) on an H100 80GB HBM3 at
+# 700 W, on 149 paths, 82 of them 51 bounces long. At none of their
+# first differing bounces were the two winners' roots on the plain
+# version's ray within one float32 rounding bound of each other
+# (gradcheck.tie_gaps: the closest 1.6 bounds; 85 with one root
+# missing), so they are no near-ties (PERF.md, open questions).
+# book2chap2: 909 of 21,419,333 on 213 paths; none at the two small
+# shapes. The gate allows 1e-4, 2.3 times the reading. The pool's
+# layout has its own exact gate: the pooled winners equal the kernel's
+# own winners of each sample traced alone (gradcheck.pool_faults), and
+# train_bwd checks every stored winner it replays (replay_mismatches).
+MAX_WINNER_FAULTS = 1e-4
 # The plain chain runs this many lanes at a time: at full width its
 # replay's (slots, lanes) intersection tables would take gigabytes.
 PLAIN_CHUNK = 65536
@@ -149,13 +197,77 @@ GRAD_FIELDS = ("sphere_c0", "sphere_radius", "tex_color1", "mat_fuzz",
                "mat_ior", "bg_top")
 
 
-def bound(ops: float, n_bytes: float):
-    """(bound_ms, bound_by): the larger of the operations over the FP32
-    peak and the bytes (each input read once, each output written once)
-    over the memory rate."""
-    t_ops, t_bytes = ops / FP32_PEAK, n_bytes / HBM_RATE
+def bound(ops: float, n_bytes: float, int_ops: float = 0.0):
+    """(bound_ms, bound_by): the largest of the FP32 operations over the
+    FP32 peak, the INT32 operations over the INT32 rate, and the bytes
+    (each input read once, each output written once) over the memory
+    rate."""
+    t_ops = max(ops / FP32_PEAK, int_ops / int32_rate() if int_ops else 0)
+    t_bytes = n_bytes / HBM_RATE
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+@functools.cache
+def int32_rate() -> float:
+    from rrt_tpu_torch import probes
+    return probes.int32_rate(torch.device("cuda:0"))
+
+
+def train_bounds(traced, spp: int, n_slots: int, moving: bool):
+    """The least times of one train launch whose forward traced `traced`
+    (P,) segments a pixel: (train_fwd's, train_bwd's, the step's), each
+    (ms, by). The forward scans every slot for every segment and writes
+    the residual; the backward scans only for the segments past a
+    pixel's winner pool (mkt.winner_capacity), and reads the residual.
+    The step counts one scan a segment, both kernels' other work and
+    both kernels' bytes."""
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    n_pix = traced.numel()
+    segments = int(traced.sum())
+    stored = int(traced.long().clamp(max=mkt.winner_capacity(spp)).sum())
+    paths = n_pix * spp
+    scan = segments * n_slots * slot_flops(moving)
+    bwd_ops = (segments * BWD_SEGMENT_FLOPS
+               + (segments - stored) * n_slots * slot_flops(moving))
+    # The same draws in both kernels (THREEFRY_PER_HIT).
+    fwd_int = bwd_int = THREEFRY_OPS * (
+        THREEFRY_PER_HIT * (segments - paths) + THREEFRY_PER_PATH * paths)
+    pack_bytes = 4 * (24 * n_slots + 24 + 8)
+    residual = paths + 2 * stored  # lengths, stored winners
+    fwd_bytes = pack_bytes + n_pix * (12 + 4) + residual
+    bwd_bytes = 2 * pack_bytes + n_pix * 12 + residual + 4
+    return (bound(scan, fwd_bytes, fwd_int),
+            bound(bwd_ops, bwd_bytes, bwd_int),
+            bound(scan + segments * BWD_SEGMENT_FLOPS,
+                  fwd_bytes + bwd_bytes, fwd_int + bwd_int))
+
+
+def residual_line(traced, lengths, spp: int) -> str:
+    """The path-length histogram of a forward's lengths (spp, P) and the
+    share of its segments past the winner pool."""
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    hist = torch.bincount(lengths.flatten().long()).tolist()
+    head = ", ".join(f"{n}: {hist[n]}" for n in range(1, min(9, len(hist))))
+    tail = sum(hist[9:])
+    segments = int(traced.sum())
+    past = segments - int(traced.long().clamp(
+        max=mkt.winner_capacity(spp)).sum())
+    return (f"path lengths {{{head}, >8: {tail}}}, longest "
+            f"{len(hist) - 1}; {past} of {segments} segments "
+            f"({past / segments:.3e}) past the pool of "
+            f"{mkt.WINNERS_PER_SAMPLE} winners a sample")
+
+
+def spread_line(v) -> str:
+    """The least and largest of v and its 10%, 50% and 90% points."""
+    ranked = v.sort().values.tolist()
+    if not ranked:
+        return "none"
+    spots = ", ".join(
+        f"{q}: {ranked[min(int(q * len(ranked)), len(ranked) - 1)]:.2e}"
+        for q in (0.1, 0.5, 0.9))
+    return f"{ranked[0]:.3e} to {ranked[-1]:.3e} ({spots})"
 
 
 def slot_flops(moving: bool) -> int:
@@ -287,7 +399,12 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     """[5] The train kernels against tile_render and their plain
     versions on one configuration, by rrt_tpu_torch.gradcheck's rule:
     at least `min_pixels` of pixels and `min_paths` of paths agree
-    sample by sample; the pixels that do not get loss weight 0."""
+    sample by sample; the pixels that do not get loss weight 0. The
+    forward's rad, traced and lengths equal tile_render's bit for bit
+    and its winners the plain version's on every agreeing path; the
+    backward from the winners gives the camera and background
+    cotangents of the scan alone (winners=None) bit for bit, and the
+    pack's within PACK_SPREAD of their largest."""
     from rrt_tpu_torch import diff, gradcheck, render, scenes as tscenes
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
     build = checker_scene if name == "checker" else tscenes.SCENES[name]
@@ -296,27 +413,76 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     packs = [p.detach() for p in render._packs(scene, cam, cfg, device)]
     kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
               max_depth=depth, t_min=1e-3, moving=scene.has_moving)
-    rad, traced, lengths = mkt.render_tiles_train(*packs, **kw)
+    rad, traced, lengths, winners = mkt.render_tiles_train(*packs, **kw)
     ref_rad, ref_traced = mk.render_tiles(*packs, **kw)
     check(torch.equal(rad, ref_rad) and torch.equal(traced, ref_traced),
           "train_fwd differs from tile_render")
     check(torch.equal(lengths.sum(dim=0, dtype=torch.int32), traced),
           "lengths do not add up to the traced counts")
+    print(f"  {name} {w}x{h} {spp}spp d{depth}: "
+          f"{residual_line(traced, lengths, spp)}", flush=True)
     fwd_ms = cuda_ms(lambda: mkt.render_tiles_train(*packs, **kw), 3)
     agreement = gradcheck.sample_agreement(packs, kw)
     frac = agreement.agree.float().mean().item()
     check(frac >= min_pixels and agreement.path_share >= min_paths,
           ("forward agreement", frac, agreement.path_share))
+    w_faults, w_compared, differ = gradcheck.winner_faults(
+        winners, lengths, agreement)
+    key = differ[:, [1, 3, 4]]  # bounce, kernel's winner, plain's winner
+    pairs, counts = key.unique(dim=0, return_counts=True) \
+        if w_faults else (key, key[:, 0])
+    top = [(tuple(pairs[i].tolist()), int(counts[i]))
+           for i in counts.argsort(descending=True)[:5].tolist()]
+    print(f"  winners: {w_faults} of {w_compared} stored entries of agreeing "
+          f"paths differ from the plain version's "
+          f"({w_faults / max(w_compared, 1):.2e}, gate "
+          f"{MAX_WINNER_FAULTS:.0e}); by bounce "
+          f"{torch.bincount(differ[:, 1]).tolist()}, most often (bounce, "
+          f"kernel's, plain's): {top}", flush=True)
+    firsts = gradcheck.first_differences(differ)
+    ties = gradcheck.tie_gaps(packs, kw, firsts)
+    ended = lengths[firsts[:, 0], firsts[:, 2]] == depth + 1
+    both = ties.gap.isfinite()
+    print(f"  {firsts.shape[0]} paths hold them, {int(ended.sum())} of them "
+          f"{depth + 1} bounces long; at each one's first differing bounce, "
+          f"on the plain version's ray (float64), one of the two winners "
+          f"has no root on {int((~both).sum())}; on the others the roots "
+          f"are apart by {spread_line(ties.gap[both])} relative and by "
+          f"{spread_line(ties.ulps[both])} of their float32 rounding "
+          f"bounds, {int((ties.ulps <= 1).sum())} within one (a near-tie); "
+          f"the plain replay retraced "
+          f"{int((ties.replayed == firsts[:, 4]).sum())}", flush=True)
+    p_faults, p_compared = gradcheck.pool_faults(winners, lengths, agreement)
+    print(f"  pooled winners vs each sample traced alone: {p_faults} of "
+          f"{p_compared} differ (rule: 0)", flush=True)
+    check(torch.equal(ties.replayed, firsts[:, 4]),
+          "tie_gaps' replay differs from the plain version's winners")
+    check(w_compared > 0 and w_faults <= MAX_WINNER_FAULTS * w_compared,
+          ("winners vs the plain version", w_faults, w_compared))
+    check(p_compared > 0 and p_faults == 0,
+          ("pooled winners vs each sample alone", p_faults, p_compared))
     weight = torch.sin(torch.arange(w * h, device=device) * 0.1) \
         * agreement.agree
     d_rad = (weight[:, None] * torch.tensor(MIX, device=device)).contiguous()
-    k = mkt.tiles_adjoint(*packs, d_rad, lengths, **kw)
-    bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, lengths, **kw),
-                     3)
+    k = mkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, lengths,
+                                               winners, **kw), 3)
+    scan = mkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
+    scan_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, lengths,
+                                                None, **kw), 3)
+    spread = ((k[0] - scan[0]).abs().max()
+              / scan[0].abs().max().clamp(min=1e-30)).item()
+    same = torch.equal(k[1], scan[1]) and torch.equal(k[2], scan[2])
     p, bwd_plain_ms = wall_ms(lambda: mkt.tiles_adjoint_reference(
-        *packs, d_rad, agreement.lengths, chunk=plain_chunk, **kw))
-    mism, p_mism = int(k[3]), int(p[3])
-    check(mism == 0 and p_mism == 0, ("replay_mismatches", mism, p_mism))
+        *packs, d_rad, agreement.lengths, None, chunk=plain_chunk, **kw))
+    mism, s_mism, p_mism = int(k[3]), int(scan[3]), int(p[3])
+    print(f"  backward from the winners vs the scan "
+          f"alone: d_cam and d_bg bit-equal {same}, d_sph within "
+          f"{spread:.2e} of its largest (gate {PACK_SPREAD:.0e}); "
+          f"replay_mismatches {mism}, {s_mism}, plain {p_mism}", flush=True)
+    check(mism == 0 and s_mism == 0 and p_mism == 0,
+          ("replay_mismatches", mism, s_mism, p_mism))
+    check(same and spread <= PACK_SPREAD, ("winners vs scan", same, spread))
     kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], device=device)
     pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], device=device)
     faults, err = gradcheck.field_grad_faults(kp, kc, pp, pc)
@@ -327,20 +493,19 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
           f"{frac:.4f} of pixels and {agreement.path_share:.5f} of paths "
           f"agree with the plain version, replay_mismatches {mism}, max "
           f"|grad delta| {err:.3e}; train_fwd {fwd_ms:.3f} ms (plain "
-          f"{fwd_plain_ms:.1f} ms), train_bwd {bwd_ms:.3f} ms (plain "
+          f"{fwd_plain_ms:.1f} ms), train_bwd {bwd_ms:.3f} ms, "
+          f"{scan_ms:.3f} ms without the winners (plain "
           f"{bwd_plain_ms:.1f} ms)  [{card}]", flush=True)
-    # Bounds: the forward's scan over the traced segments; the backward's
-    # replay of the same scan plus its adjoint a bounce. Bytes: the packs
-    # and the residual in, the outputs out.
-    segments, n_slots, n_pix = int(traced.sum()), packs[0].shape[1], w * h
-    scan = segments * n_slots * slot_flops(scene.has_moving)
-    pack_bytes = 4 * (24 * n_slots + 24 + 8)
-    fwd_bound = bound(scan, pack_bytes + n_pix * (12 + 4 + spp))
-    bwd_bound = bound(scan + segments * ADJOINT_FLOPS,
-                      2 * pack_bytes + n_pix * (12 + spp) + 4)
+    fwd_bound, bwd_bound, step_bound = train_bounds(
+        traced, spp, packs[0].shape[1], scene.has_moving)
+    print(f"  bounds: train_fwd {fwd_bound[0]:.4f} ms ({fwd_bound[1]}), "
+          f"train_bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}), the step "
+          f"{step_bound[0]:.4f} ms ({step_bound[1]}) against the kernels' "
+          f"{fwd_ms + bwd_ms:.3f} ms", flush=True)
     return dict(fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, bwd_ms=bwd_ms,
-                bwd_plain_ms=bwd_plain_ms, fwd_err=fwd_err, bwd_err=err,
-                fwd_bound=fwd_bound, bwd_bound=bwd_bound)
+                bwd_plain_ms=bwd_plain_ms, bwd_scan_ms=scan_ms,
+                fwd_err=fwd_err, bwd_err=err, fwd_bound=fwd_bound,
+                bwd_bound=bwd_bound, step_bound=step_bound)
 
 
 def ground_texture(scene):
@@ -366,9 +531,9 @@ def finite_differences(device, card):
         packs = [p.detach() for p in render._packs(s, cam, cfg, device)]
         return packs, mkt.render_tiles_train(*packs, **kw)
 
-    packs, (rad, _, lengths) = forward(scene)
+    packs, (rad, _, lengths, winners) = forward(scene)
     d_sph, d_cam, d_bg, _ = mkt.tiles_adjoint(
-        *packs, mix.expand_as(rad).contiguous(), lengths, **kw)
+        *packs, mix.expand_as(rad).contiguous(), lengths, winners, **kw)
     gp, _ = diff.field_grads(scene, cam, cfg, d_sph, d_cam, d_bg,
                              device=device)
     eps = 1e-2
@@ -404,6 +569,48 @@ def timed(fn, log):
 
 def events_ms(log):
     return sum(s.elapsed_time(e) for s, e in log)
+
+
+@contextlib.contextmanager
+def chain_events():
+    """CUDA events around TileTrainChain's forward (train_fwd) and
+    backward (train_bwd) while the block runs: yields their two logs;
+    the launch counts stay on the wrappers."""
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    chain = mkt.TileTrainChain
+    fwd, bwd = chain.forward, chain.backward
+    logs = ([], [])
+    chain.forward = staticmethod(timed(fwd, logs[0]))
+    chain.backward = staticmethod(timed(bwd, logs[1]))
+    try:
+        yield logs
+    finally:
+        chain.forward = staticmethod(fwd)
+        chain.backward = staticmethod(bwd)
+
+
+def step_bound(scene, cam, cfg, device):
+    """train_bounds' step bound of make_train_step at cfg, seed 0: one
+    launch of cfg.spp samples (cfg.spp <= 64, or one chunk), whose paths
+    tile_render traces alike (a color moves no path)."""
+    from rrt_tpu_torch import render
+    from rrt_tpu_torch.ops import megakernel as mk
+    packs = render._packs(scene, cam, cfg, device)
+    _, traced = mk.render_tiles(
+        *[p.detach() for p in packs], seed_words=(0, 0), sample_lo=0,
+        width=cfg.width, height=cfg.height, spp=cfg.spp,
+        max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving)
+    return train_bounds(traced, cfg.spp, packs[0].shape[1],
+                        scene.has_moving)[2]
+
+
+def print_step(what, fwd_ms, bwd_ms, bnd, device, card) -> None:
+    kernels = fwd_ms + bwd_ms
+    print(f"  {what}: train_fwd {fwd_ms:.2f} ms + train_bwd {bwd_ms:.2f} ms "
+          f"= {kernels:.2f} ms; step_bound_ms {bnd[0]:.4f} ({bnd[1]}), "
+          f"{bnd[0] / kernels:.2%} of the kernels' time; peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB  "
+          f"[{card}]", flush=True)
 
 
 # The profiler's readings are printed and never checked: whether CUPTI
@@ -1067,10 +1274,13 @@ def motion_train_phase(device, card):
     start = diff.combine(scene, {"sphere_dc": scene.sphere_dc * 0.5})
     step = diff.make_train_step(cfg, lr=1e-3, device=device)
     step(start, cam, target, 0)  # warm-up
+    bnd = step_bound(start, cam, cfg, device)
     fwd, bwd = mkt.render_tiles_train, mkt.tiles_adjoint
     fwd.launches = bwd.launches = 0
     bwd.replay_mismatches = 0
-    (new, _, loss), ms = wall_ms(lambda: step(start, cam, target, 0))
+    torch.cuda.reset_peak_memory_stats(device)
+    with chain_events() as (fwd_log, bwd_log):
+        (new, _, loss), ms = wall_ms(lambda: step(start, cam, target, 0))
     launches = (fwd.launches, bwd.launches)
     mism = int(bwd.replay_mismatches)
     moved = (new.sphere_dc.cpu() - start.sphere_dc).abs().max().item()
@@ -1078,6 +1288,8 @@ def motion_train_phase(device, card):
           f"train_fwd {launches[0]}, train_bwd {launches[1]}, "
           f"replay_mismatches {mism}, sphere_dc moved by up to {moved:.3e}  "
           f"[{card}]", flush=True)
+    print_step("the step", events_ms(fwd_log), events_ms(bwd_log), bnd,
+               device, card)
     check(min(launches) >= 1 and mism == 0, ("[M3] step", launches, mism))
     check(bool(torch.isfinite(loss)) and moved > 0, ("[M3] sphere_dc",
                                                      moved))
@@ -1091,9 +1303,9 @@ def motion_train_phase(device, card):
         packs = [p.detach() for p in render._packs(s, cam1, cfg, device)]
         return packs, mkt.render_tiles_train(*packs, **kw)
 
-    packs, (rad, _, lengths) = forward(scene1)
+    packs, (rad, _, lengths, winners) = forward(scene1)
     d_sph, d_cam, d_bg, mism = mkt.tiles_adjoint(
-        *packs, mix.expand_as(rad).contiguous(), lengths, **kw)
+        *packs, mix.expand_as(rad).contiguous(), lengths, winners, **kw)
     gp, _ = diff.field_grads(scene1, cam1, cfg, d_sph, d_cam, d_bg,
                              device=device)
     auto = gp["sphere_dc"][0].cpu()
@@ -1209,7 +1421,16 @@ def main() -> int:
 
     built = _build.build()
     print(f"[2] built {os.path.relpath(built.path, REPO)} in "
-          f"{built.seconds:.1f} s\n{built.log.strip()}", flush=True)
+          f"{built.seconds:.1f} s; ptxas, registers (stack, spill stores "
+          f"and loads in bytes):", flush=True)
+    resources = _build.kernel_resources(built.log)
+    for name, r in sorted(resources.items()):
+        print(f"  {name}: {r.get('registers')} registers ({r.get('stack')}, "
+              f"{r.get('spill_stores')}, {r.get('spill_loads')})")
+    for line in built.log.splitlines():  # warnings, if any
+        if line.strip() and "ptxas info" not in line \
+                and "bytes stack frame" not in line:
+            print(f"  {line.strip()}")
 
     phases.start("3", "kernel vs plain version on the card")
     # 64x32, 4 spp, depth 8: the tolerance of tests/test_torch_slice.py.
@@ -1311,30 +1532,29 @@ def main() -> int:
     check(bool(torch.isfinite(loss0)), "non-finite loss")
     grads_check("[7]", gp, gc)
     step = diff.make_train_step(cfg, device=device)  # lr 1e-2, as rrt_tpu
-    # CUDA events around the autograd Function's forward (train_fwd) and
-    # backward (train_bwd); the launch counts stay on the wrappers.
     fwd_fn, bwd_fn = mkt.render_tiles_train, mkt.tiles_adjoint
-    chain = mkt.TileTrainChain
-    chain_fwd, chain_bwd = chain.forward, chain.backward
-    fwd_log, bwd_log = [], []
-    chain.forward = staticmethod(timed(chain_fwd, fwd_log))
-    chain.backward = staticmethod(timed(chain_bwd, bwd_log))
     s_scene, s_cam = start, cam
     fwd_fn.launches = bwd_fn.launches = 0
     bwd_fn.replay_mismatches = 0
+    torch.cuda.reset_peak_memory_stats(device)
     step_ms = []
-    for i in range(3):
-        fwd_log.clear()
-        bwd_log.clear()
-        (s_scene, s_cam, loss), ms = wall_ms(
-            lambda: step(s_scene, s_cam, target, 0))
-        step_ms.append((events_ms(fwd_log), events_ms(bwd_log), ms))
-        print(f"  step {i}: loss {loss.item():.6e}, forward "
-              f"{step_ms[-1][0]:.2f} ms, backward {step_ms[-1][1]:.2f} ms, "
-              f"total {ms:.2f} ms  [{card}]", flush=True)
-        check(bool(torch.isfinite(loss)), ("non-finite loss", i))
+    with chain_events() as (fwd_log, bwd_log):
+        for i in range(3):
+            fwd_log.clear()
+            bwd_log.clear()
+            (s_scene, s_cam, loss), ms = wall_ms(
+                lambda: step(s_scene, s_cam, target, 0))
+            step_ms.append((events_ms(fwd_log), events_ms(bwd_log), ms))
+            print(f"  step {i}: loss {loss.item():.6e}, forward "
+                  f"{step_ms[-1][0]:.2f} ms, backward "
+                  f"{step_ms[-1][1]:.2f} ms, total {ms:.2f} ms  [{card}]",
+                  flush=True)
+            check(bool(torch.isfinite(loss)), ("non-finite loss", i))
     fwd_launches, bwd_launches = fwd_fn.launches, bwd_fn.launches
     mismatches = int(bwd_fn.replay_mismatches)
+    print_step("per step, median", sorted(m[0] for m in step_ms)[1],
+               sorted(m[1] for m in step_ms)[1],
+               step_bound(start, cam, cfg, device), device, card)
     print(f"  launches: train_fwd {fwd_launches}, train_bwd {bwd_launches}; "
           f"replay_mismatches {mismatches}; "
           f"ground albedo {start.tex_color1[tex].tolist()} -> "
@@ -1357,24 +1577,26 @@ def main() -> int:
     step_ns = diff.make_train_step(cfg_ns, device=device)
     check(step_ns.__qualname__.startswith("make_train_step_chunked"),
           "500 spp did not route to the chunked trainer")
+    # Half the card's free memory holds the 500-spp residual (15.84 GB):
+    # the step is one chunk, one train_fwd and one train_bwd.
+    check(chunk == NORTH_STAR_SPP, ("north-star chunk", chunk))
+    ns_bound = step_bound(start, cam, cfg_ns, device)
     fwd_fn.launches = bwd_fn.launches = 0
     bwd_fn.replay_mismatches = 0
-    fwd_log.clear()
-    bwd_log.clear()
     torch.cuda.reset_peak_memory_stats(device)  # the step's peak alone
-    (_, _, loss_ns), ns_ms = wall_ms(lambda: step_ns(start, cam, target, 0))
-    chain.forward = staticmethod(chain_fwd)
-    chain.backward = staticmethod(chain_bwd)
+    with chain_events() as (fwd_log, bwd_log):
+        (_, _, loss_ns), ns_ms = wall_ms(
+            lambda: step_ns(start, cam, target, 0))
     ns_mismatches = int(bwd_fn.replay_mismatches)
     print(f"  chunk {chunk} spp, loss {loss_ns.item():.6e}, wall "
-          f"{ns_ms / 1e3:.3f} s (forward {events_ms(fwd_log):.1f} ms, "
-          f"backward {events_ms(bwd_log):.1f} ms), launches train_fwd "
-          f"{fwd_fn.launches} train_bwd {bwd_fn.launches}, "
-          f"replay_mismatches {ns_mismatches}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]",
-          flush=True)
-    check(bool(torch.isfinite(loss_ns)) and fwd_fn.launches >= 1
-          and bwd_fn.launches >= 1, "north-star step")
+          f"{ns_ms / 1e3:.3f} s, launches train_fwd {fwd_fn.launches} "
+          f"train_bwd {bwd_fn.launches}, replay_mismatches "
+          f"{ns_mismatches}  [{card}]", flush=True)
+    print_step("the step", events_ms(fwd_log), events_ms(bwd_log), ns_bound,
+               device, card)
+    check(bool(torch.isfinite(loss_ns)) and fwd_fn.launches == 1
+          and bwd_fn.launches == 1, ("north-star step", fwd_fn.launches,
+                                     bwd_fn.launches))
     check(ns_mismatches == 0, ("replay_mismatches", ns_mismatches))
     print("  one more north-star step under torch.profiler:", flush=True)
     device_breakdown(lambda: step_ns(start, cam, target, 0), card)
@@ -1576,12 +1798,17 @@ def main() -> int:
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
               t5["fwd_err"], t5["fwd_ms"], t5["fwd_plain_ms"],
               t5["fwd_bound"], main_ms=main_fwd,
+              step_bound_ms=t5["step_bound"][0],
+              registers=resources.get("train_fwd_kernel"),
               **moving(m_t["fwd_ms"], m_t["fwd_bound"],
                        moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:463", bwd_launches,
               t5["bwd_err"], t5["bwd_ms"], t5["bwd_plain_ms"],
               t5["bwd_bound"], main_ms=main_bwd,
+              step_bound_ms=t5["step_bound"][0],
+              scan_ms=t5["bwd_scan_ms"],
+              registers=resources.get("train_bwd_kernel"),
               **moving(m_t["bwd_ms"], m_t["bwd_bound"],
                        moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",

@@ -87,7 +87,7 @@ def _residual_budget_bytes(device) -> int:
 
 
 def resolve_spp_chunk(cfg: RenderConfig, spp_chunk: int | None = None,
-                      *, device="cpu") -> int:
+                      *, device) -> int:
     """The chunked trainer's samples per chunk: a divisor of cfg.spp
     whose residual (ops_train.boundary_residual_bytes) fits the budget
     (_residual_budget_bytes). Without a request it is cfg.spp when that

@@ -14,6 +14,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,7 +41,41 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 class Build:
     path: Path  # the shared library
     seconds: float  # nvcc wall time; 0.0 when an earlier build was reused
-    log: str  # nvcc's output (ptxas registers, shared memory, spills)
+    log: str  # nvcc's output (ptxas registers, shared memory, spills),
+    # kept beside the library for a reused build
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name in a mangled entry name, with " (moving)" for
+    a kMoving = true instantiation."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("_kernel"):
+            moving = mangled[m.end() + len(name):].startswith("ILb1E")
+            return name + (" (moving)" if moving else "")
+    return mangled
+
+
+def kernel_resources(log: str) -> dict:
+    """ptxas's registers, stack frame and spill bytes of each kernel in
+    a build log: {kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(zip(
+                ("stack", "spill_stores", "spill_loads"),
+                map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def _nvcc() -> str:
@@ -59,8 +94,10 @@ def build() -> Build:
     for src in srcs + [_CSRC / name for name in _HEADERS]:
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"librrt_kernels-{digest.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return Build(out, 0.0, "")
+        return Build(out, 0.0,
+                     log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -83,6 +120,7 @@ def build() -> Build:
         log += link.stdout + link.stderr
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        log_path.write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build never sees a part
     return Build(out, time.perf_counter() - t0, log)
 
@@ -96,11 +134,11 @@ def load() -> ctypes.CDLL:
     lib.rrt_tile_render.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i,
                                     p, p, p]
     lib.rrt_tile_render.restype = i
-    lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i, p,
-                                  p, p, p]
+    lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i, i,
+                                  p, p, p, p, p]
     lib.rrt_train_fwd.restype = i
-    lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, u, u, u, i, i, i, i, f,
-                                  i, p, p, p, p]
+    lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, p, i, u, u, u, i, i, i,
+                                  i, f, i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
     lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, i, i, f, i, p]
     lib.rrt_bounce_steps.restype = i

@@ -37,10 +37,23 @@ __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
-__device__ __forceinline__ void acc_add(float* acc, int n_slots, int row,
-                                        int win, float v) {
-  if (v != 0.0f) atomicAdd(&acc[row * n_slots + win], v);
-}
+// Where scatter_adjoint puts the winner's pack cotangents, one add() a
+// gradient row (accumulator order). SlotAtomics adds each straight to the
+// block's shared accumulator with one atomic (chain.cu); RowSums keeps
+// them for the caller (train.cu).
+struct SlotAtomics {
+  float* acc;
+  int n_slots, win;
+  __device__ __forceinline__ void add(int row, float v) {
+    if (v != 0.0f) atomicAdd(&acc[row * n_slots + win], v);
+  }
+};
+
+template <int kRows>
+struct RowSums {
+  float g[kRows];
+  __device__ __forceinline__ void add(int row, float v) { g[row] = v; }
+};
 
 // Adjoint of a miss: the pending radiance gains thr * background(d) and
 // o, d and thr pass through. dr: the pending radiance's cotangent. ADDS
@@ -79,14 +92,17 @@ __device__ __forceinline__ void miss_adjoint(const Record& r,
 // survives = true). In: go, gd, gt, the cotangents of the new origin,
 // direction and throughput. Out: the same arrays hold the cotangents of
 // the bounce's input origin, direction and throughput; the winner's
-// pack cotangents go to the block accumulator. With kMoving the center
+// pack cotangents go to `sink` (SlotAtomics or RowSums, above), one
+// add() a gradient row. With kMoving the center
 // is base + time * vel (time: the path's time): base gets the center's
-// cotangent, vel time times it, and g_time gains vel . it.
-template <bool kMoving>
+// cotangent, vel time times it, and g_time gains vel . it. With
+// kKept the shading is recomputed without the scatter draws, from what
+// the replay's shade() kept of them (`kept`: shade's kForAdjoint).
+template <bool kMoving, class Sink, bool kKept = false>
 __device__ __forceinline__ void scatter_adjoint(
     const float* sph, int n_slots, const Record& rec, uint32_t k0,
     uint32_t k1, int bounce, float t_min, float time, float* go, float* gd,
-    float* gt, float* acc, float& g_time) {
+    float* gt, Sink& sink, float& g_time, float* kept = nullptr) {
   Ray ray;
   ray.ox = rec.o[0]; ray.oy = rec.o[1]; ray.oz = rec.o[2];
   ray.dx = rec.d[0]; ray.dy = rec.d[1]; ray.dz = rec.d[2];
@@ -106,7 +122,8 @@ __device__ __forceinline__ void scatter_adjoint(
   const bool pick0 = root0 > t_min;
   const float t = pick0 ? root0 : root1;
   Shade sh;
-  shade<kMoving>(col, n_slots, ray, q.a, t, k0, k1, bounce, sh);
+  shade<kMoving, kKept>(col, n_slots, ray, q.a, t, k0, k1, bounce, sh,
+                        kept);
 
   const bool is_lam = sh.mtype == kMatLambertian;
   const bool is_met = sh.mtype == kMatMetal;
@@ -191,10 +208,11 @@ __device__ __forceinline__ void scatter_adjoint(
   }
 
   // --- albedo -> color1 or color2, aux -> its row.
-  const int alb_row = sh.use_c2 ? kAccColor2 : kAccColor1;
-  for (int j = 0; j < 3; ++j) acc_add(acc, n_slots, alb_row + j, rec.win,
-                                      g_alb[j]);
-  acc_add(acc, n_slots, kAccAux, rec.win, g_aux);
+  for (int j = 0; j < 3; ++j) {
+    sink.add(kAccColor1 + j, sh.use_c2 ? 0.0f : g_alb[j]);
+    sink.add(kAccColor2 + j, sh.use_c2 ? g_alb[j] : 0.0f);
+  }
+  sink.add(kAccAux, g_aux);
 
   // --- normal: n = (h - c) * inv_r * sgn.
   float g_p[3], g_c[3];
@@ -206,10 +224,8 @@ __device__ __forceinline__ void scatter_adjoint(
     g_inv_r += g_out * (sh.h[j] - c[j]);
   }
   const float srad = col[kRowRadius * n_slots];
-  if (fabsf(srad) > 1e-20f) {
-    acc_add(acc, n_slots, kAccRadius, rec.win,
-            -g_inv_r * sh.inv_r * sh.inv_r);
-  }
+  sink.add(kAccRadius,
+           fabsf(srad) > 1e-20f ? -g_inv_r * sh.inv_r * sh.inv_r : 0.0f);
 
   // --- hit point: h = o + t d.
   float g_o[3];
@@ -235,13 +251,13 @@ __device__ __forceinline__ void scatter_adjoint(
     g_o[j] += g_h * rec.d[j] + 2.0f * g_cc * rec.o[j] - 2.0f * g_cc * c[j];
     g_d[j] += g_h * rec.o[j] - g_h * c[j] + 2.0f * g_a * rec.d[j];
     g_c[j] += -g_h * rec.d[j] - 2.0f * g_cc * rec.o[j] + 2.0f * g_cc * c[j];
-    acc_add(acc, n_slots, j, rec.win, g_c[j]);
-    if (kMoving) {
-      acc_add(acc, n_slots, kAccVel + j, rec.win, time * g_c[j]);
+    sink.add(j, g_c[j]);
+    if constexpr (kMoving) {
+      sink.add(kAccVel + j, time * g_c[j]);
       g_time += col[(kRowVel + j) * n_slots] * g_c[j];
     }
   }
-  acc_add(acc, n_slots, kAccR2, rec.win, -g_cc);
+  sink.add(kAccR2, -g_cc);
 
   for (int j = 0; j < 3; ++j) {
     go[j] = g_o[j];

@@ -184,13 +184,18 @@ struct Quadratic {
   float half_b, c_coef, disc;
 };
 
+// |c|^2 of a center, as quadratic() computes it.
+__device__ __forceinline__ float center_sq(float cx, float cy, float cz) {
+  return cx * cx + cy * cy + cz * cz;
+}
+
+// quadratic() with |c|^2 given (center_sq, computed once a slot).
 __device__ __forceinline__ Quadratic quadratic(const Ray& r,
                                                const RayDots& q, float cx,
                                                float cy, float cz,
-                                               float r2) {
+                                               float c_sq, float r2) {
   const float d_c = r.dx * cx + r.dy * cy + r.dz * cz;
   const float o_c = r.ox * cx + r.oy * cy + r.oz * cz;
-  const float c_sq = cx * cx + cy * cy + cz * cz;
   Quadratic k;
   k.half_b = q.o_dot_d - d_c;
   k.c_coef = q.o_dot_o - 2.0f * o_c + c_sq - r2;
@@ -198,34 +203,64 @@ __device__ __forceinline__ Quadratic quadratic(const Ray& r,
   return k;
 }
 
+__device__ __forceinline__ Quadratic quadratic(const Ray& r,
+                                               const RayDots& q, float cx,
+                                               float cy, float cz,
+                                               float r2) {
+  return quadratic(r, q, cx, cy, cz, center_sq(cx, cy, cz), r2);
+}
+
+// Slot i's staged center and r^2 (x, y, z, w), the center at `time`
+// when the spheres move (base + time * vel).
+template <bool kMoving>
+__device__ __forceinline__ float4 slot_center(const float4* sph4,
+                                              const float4* vel4, int i,
+                                              float time) {
+  float4 c = sph4[i];
+  if (kMoving) {
+    const float4 v = vel4[i];
+    c.x = c.x + time * v.x;
+    c.y = c.y + time * v.y;
+    c.z = c.z + time * v.z;
+  }
+  return c;
+}
+
+// The nearer root of a quadratic with a positive discriminant that
+// clears t_min, kInf when neither does.
+__device__ __forceinline__ float nearest_root(const Quadratic& k,
+                                              const RayDots& q,
+                                              float t_min) {
+  const float sq = sqrtf(k.disc);
+  const float root0 = (-k.half_b - sq) * q.inv_a;
+  const float root1 = (-k.half_b + sq) * q.inv_a;
+  const float t0c = root0 > t_min ? root0 : kInf;
+  const float t1c = root1 > t_min ? root1 : kInf;
+  return fminf(t0c, t1c);
+}
+
 // Closest sphere: a strict `<` running minimum over the slots in order,
 // the first minimum winning like argmin. sph4: rows 0-3 of each slot;
 // vel4: rows 4-6 (kMoving only), the center at the ray's time being
-// base + time * vel. Returns t (kInf on a miss) and the winner in `win`.
-template <bool kMoving>
+// base + time * vel. With kCsq (static spheres only), csq holds each
+// slot's center_sq (stage_center_sq), the same bits as computing it
+// here. Returns t (kInf on a miss) and the winner in `win`.
+template <bool kMoving, bool kCsq = false>
 __device__ __forceinline__ float closest_sphere(const float4* sph4,
                                                 const float4* vel4,
                                                 int n_slots, const Ray& r,
                                                 const RayDots& q,
-                                                float t_min, int& win) {
+                                                float t_min, int& win,
+                                                const float* csq = nullptr) {
+  static_assert(!(kMoving && kCsq), "a moving center's |c|^2 varies");
   float t_best = kInf;
   win = 0;
   for (int i = 0; i < n_slots; ++i) {
-    float4 c = sph4[i];
-    if (kMoving) {
-      const float4 v = vel4[i];
-      c.x = c.x + r.time * v.x;
-      c.y = c.y + r.time * v.y;
-      c.z = c.z + r.time * v.z;
-    }
-    const Quadratic k = quadratic(r, q, c.x, c.y, c.z, c.w);
+    const float4 c = slot_center<kMoving>(sph4, vel4, i, r.time);
+    const Quadratic k = kCsq ? quadratic(r, q, c.x, c.y, c.z, csq[i], c.w)
+                             : quadratic(r, q, c.x, c.y, c.z, c.w);
     if (k.disc > 0.0f) {
-      const float sq = sqrtf(k.disc);
-      const float root0 = (-k.half_b - sq) * q.inv_a;
-      const float root1 = (-k.half_b + sq) * q.inv_a;
-      const float t0c = root0 > t_min ? root0 : kInf;
-      const float t1c = root1 > t_min ? root1 : kInf;
-      const float t_cand = fminf(t0c, t1c);
+      const float t_cand = nearest_root(k, q, t_min);
       if (t_cand < t_best) {
         t_best = t_cand;
         win = i;
@@ -233,6 +268,19 @@ __device__ __forceinline__ float closest_sphere(const float4* sph4,
     }
   }
   return t_best;
+}
+
+// The closest_sphere test of slot i alone: its t (kInf when it gives no
+// root beyond t_min), by the scan's arithmetic on the same staged rows,
+// so a recomputed winner has the scan's t bit for bit.
+template <bool kMoving>
+__device__ __forceinline__ float slot_t(const float4* sph4,
+                                        const float4* vel4, int i,
+                                        const Ray& r, const RayDots& q,
+                                        float t_min) {
+  const float4 c = slot_center<kMoving>(sph4, vel4, i, r.time);
+  const Quadratic k = quadratic(r, q, c.x, c.y, c.z, c.w);
+  return k.disc > 0.0f ? nearest_root(k, q, t_min) : kInf;
 }
 
 // The miss shader: sky lerp or solid background. Also gives tsky and
@@ -280,13 +328,49 @@ __device__ __forceinline__ void center_at(const float* col, int n_slots,
   }
 }
 
+// The mirror direction of a metal or dielectric hit: 1/|d|, the unit
+// direction, its cosine with the normal and the reflection.
+__device__ __forceinline__ void mirror(const Ray& r, float a, Shade& sh) {
+  const float nx = sh.n[0], ny = sh.n[1], nz = sh.n[2];
+  sh.inv_dl = 1.0f / fmaxf(sqrtf(a), 1e-20f);
+  sh.ud[0] = r.dx * sh.inv_dl;
+  sh.ud[1] = r.dy * sh.inv_dl;
+  sh.ud[2] = r.dz * sh.inv_dl;
+  sh.ud_n = sh.ud[0] * nx + sh.ud[1] * ny + sh.ud[2] * nz;
+  sh.rf[0] = sh.ud[0] - 2.0f * sh.ud_n * nx;
+  sh.rf[1] = sh.ud[1] - 2.0f * sh.ud_n * ny;
+  sh.rf[2] = sh.ud[2] - 2.0f * sh.ud_n * nz;
+}
+
+// A dielectric's refracted direction (rp, then nd), once it refracts.
+__device__ __forceinline__ void refract(Shade& sh) {
+  const float nx = sh.n[0], ny = sh.n[1], nz = sh.n[2];
+  sh.rp[0] = sh.ratio * (sh.ud[0] + sh.cos_t * nx);
+  sh.rp[1] = sh.ratio * (sh.ud[1] + sh.cos_t * ny);
+  sh.rp[2] = sh.ratio * (sh.ud[2] + sh.cos_t * nz);
+  const float rlen = sqrtf(fmaxf(
+      1.0f - (sh.rp[0] * sh.rp[0] + sh.rp[1] * sh.rp[1] +
+              sh.rp[2] * sh.rp[2]),
+      0.0f));
+  sh.nd[0] = sh.rp[0] - rlen * nx;
+  sh.nd[1] = sh.rp[1] - rlen * ny;
+  sh.nd[2] = sh.rp[2] - rlen * nz;
+}
+
 // Shade the hit at t on the winner whose pack column starts at `col`
-// (row r at col[r * n_slots]); a is |d|^2.
-template <bool kMoving>
+// (row r at col[r * n_slots]); a is |d|^2. `kept`, when given, receives
+// what the scatter draws decided that the adjoint reads: a metal's point
+// in the unit sphere (sv), a dielectric's reflect-or-refract (kept[0],
+// 1 or 0).
+//
+// kForAdjoint (the backward's sweep) takes those from `kept` instead of
+// drawing: it fills only what scatter_adjoint reads (not unit, degen,
+// scattered, nor nd but for a refraction).
+template <bool kMoving, bool kForAdjoint = false>
 __device__ __forceinline__ void shade(const float* col, int n_slots,
                                       const Ray& r, float a, float t,
                                       uint32_t k0, uint32_t k1, int bounce,
-                                      Shade& sh) {
+                                      Shade& sh, float* kept = nullptr) {
   sh.h[0] = r.ox + t * r.dx;
   sh.h[1] = r.oy + t * r.dy;
   sh.h[2] = r.oz + t * r.dz;
@@ -316,6 +400,23 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
   sh.alb[0] = col[c_row * n_slots];
   sh.alb[1] = col[(c_row + 1) * n_slots];
   sh.alb[2] = col[(c_row + 2) * n_slots];
+
+  if constexpr (kForAdjoint) {
+    sh.reflect = false;
+    if (sh.mtype == kMatLambertian) return;
+    mirror(r, a, sh);
+    if (sh.mtype == kMatMetal) {
+      sh.sv[0] = kept[0];
+      sh.sv[1] = kept[1];
+      sh.sv[2] = kept[2];
+    } else if (sh.mtype == kMatDielectric) {
+      sh.ratio = sh.front ? 1.0f / fmaxf(sh.aux, 1e-20f) : sh.aux;
+      sh.cos_t = fminf(-sh.ud_n, 1.0f);
+      sh.reflect = kept[0] != 0.0f;
+      if (!sh.reflect) refract(sh);
+    }
+    return;
+  }
 
   // --- scatter draws (rrt_tpu/ops/megakernel.py _draws).
   float u[8];
@@ -347,14 +448,7 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
     sh.scattered = true;
     return;
   }
-  sh.inv_dl = 1.0f / fmaxf(sqrtf(a), 1e-20f);
-  sh.ud[0] = r.dx * sh.inv_dl;
-  sh.ud[1] = r.dy * sh.inv_dl;
-  sh.ud[2] = r.dz * sh.inv_dl;
-  sh.ud_n = sh.ud[0] * nx + sh.ud[1] * ny + sh.ud[2] * nz;
-  sh.rf[0] = sh.ud[0] - 2.0f * sh.ud_n * nx;
-  sh.rf[1] = sh.ud[1] - 2.0f * sh.ud_n * ny;
-  sh.rf[2] = sh.ud[2] - 2.0f * sh.ud_n * nz;
+  mirror(r, a, sh);
   if (sh.mtype == kMatMetal) {
     const float inv2 = rsqrtf(fmaxf(g3 * g3 + g4 * g4 + g5 * g5, 1e-20f));
     const float rad3 = expf(logf(fmaxf(u[6], 1e-12f)) * (1.0f / 3.0f));
@@ -365,6 +459,11 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
     sh.nd[1] = sh.rf[1] + sh.aux * sh.sv[1];
     sh.nd[2] = sh.rf[2] + sh.aux * sh.sv[2];
     sh.scattered = sh.nd[0] * nx + sh.nd[1] * ny + sh.nd[2] * nz > 0.0f;
+    if (kept != nullptr) {
+      kept[0] = sh.sv[0];
+      kept[1] = sh.sv[1];
+      kept[2] = sh.sv[2];
+    }
   } else if (sh.mtype == kMatDielectric) {
     sh.ratio = sh.front ? 1.0f / fmaxf(sh.aux, 1e-20f) : sh.aux;
     sh.cos_t = fminf(-sh.ud_n, 1.0f);
@@ -377,17 +476,9 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
     if (sh.reflect) {
       sh.nd[0] = sh.rf[0]; sh.nd[1] = sh.rf[1]; sh.nd[2] = sh.rf[2];
     } else {
-      sh.rp[0] = sh.ratio * (sh.ud[0] + sh.cos_t * nx);
-      sh.rp[1] = sh.ratio * (sh.ud[1] + sh.cos_t * ny);
-      sh.rp[2] = sh.ratio * (sh.ud[2] + sh.cos_t * nz);
-      const float rlen = sqrtf(fmaxf(
-          1.0f - (sh.rp[0] * sh.rp[0] + sh.rp[1] * sh.rp[1] +
-                  sh.rp[2] * sh.rp[2]),
-          0.0f));
-      sh.nd[0] = sh.rp[0] - rlen * nx;
-      sh.nd[1] = sh.rp[1] - rlen * ny;
-      sh.nd[2] = sh.rp[2] - rlen * nz;
+      refract(sh);
     }
+    if (kept != nullptr) kept[0] = sh.reflect ? 1.0f : 0.0f;
     sh.scattered = true;
   } else {  // outside this kernel's material set: absorb
     sh.nd[0] = r.dx; sh.nd[1] = r.dy; sh.nd[2] = r.dz;
@@ -401,10 +492,44 @@ struct Path {
   float thr[3];
 };
 
-// One bounce of a path: closest sphere, then the background on a miss
-// (its radiance, throughput included, into `rad`) or the winner's shading
-// and scatter. `win` is the winner, -1 on a miss. Returns the Outcome;
-// on kScattered the path has moved on (its time stays).
+// The rest of a bounce once its closest hit is known (t_best, win;
+// t_best = kInf on a miss): the background on a miss (its radiance,
+// throughput included, into `rad`; win becomes -1) or the winner's
+// shading and scatter (`kept`: as shade's). Returns the Outcome; on
+// kScattered the path has moved on (its time stays).
+template <bool kMoving>
+__device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
+                                             const float* bg, bool sky,
+                                             uint32_t k0, uint32_t k1,
+                                             int bounce, int max_depth,
+                                             const RayDots& q, float t_best,
+                                             Path& p, float* rad, int& win,
+                                             float* kept = nullptr) {
+  if (!(t_best < kInf)) {  // miss: bank the background and stop
+    float rgb[3], tsky, inv_len;
+    background(bg, sky, p.ray.dy, q.a, rgb, tsky, inv_len);
+    rad[0] = p.thr[0] * rgb[0];
+    rad[1] = p.thr[1] * rgb[1];
+    rad[2] = p.thr[2] * rgb[2];
+    win = -1;
+    return kMissed;
+  }
+  Shade sh;
+  shade<kMoving>(sph + win, n_slots, p.ray, q.a, t_best, k0, k1, bounce,
+                 sh, kept);
+  if (!sh.scattered || bounce >= max_depth) return kAbsorbed;
+  if (sh.mtype != kMatDielectric) {  // dielectrics attenuate by 1
+    p.thr[0] *= sh.alb[0];
+    p.thr[1] *= sh.alb[1];
+    p.thr[2] *= sh.alb[2];
+  }
+  p.ray.ox = sh.h[0]; p.ray.oy = sh.h[1]; p.ray.oz = sh.h[2];
+  p.ray.dx = sh.nd[0]; p.ray.dy = sh.nd[1]; p.ray.dz = sh.nd[2];
+  return kScattered;
+}
+
+// One bounce of a path: the closest-sphere scan, then finish_bounce.
+// `win` is the winner, -1 on a miss.
 template <bool kMoving>
 __device__ __forceinline__ int bounce_step(const float* sph,
                                            const float4* sph4,
@@ -417,27 +542,25 @@ __device__ __forceinline__ int bounce_step(const float* sph,
   const RayDots q = ray_dots(p.ray);
   const float t_best =
       closest_sphere<kMoving>(sph4, vel4, n_slots, p.ray, q, t_min, win);
-  if (!(t_best < kInf)) {  // miss: bank the background and stop
-    float rgb[3], tsky, inv_len;
-    background(bg, sky, p.ray.dy, q.a, rgb, tsky, inv_len);
-    rad[0] = p.thr[0] * rgb[0];
-    rad[1] = p.thr[1] * rgb[1];
-    rad[2] = p.thr[2] * rgb[2];
-    win = -1;
-    return kMissed;
-  }
-  Shade sh;
-  shade<kMoving>(sph + win, n_slots, p.ray, q.a, t_best, k0, k1, bounce,
-                 sh);
-  if (!sh.scattered || bounce >= max_depth) return kAbsorbed;
-  if (sh.mtype != kMatDielectric) {  // dielectrics attenuate by 1
-    p.thr[0] *= sh.alb[0];
-    p.thr[1] *= sh.alb[1];
-    p.thr[2] *= sh.alb[2];
-  }
-  p.ray.ox = sh.h[0]; p.ray.oy = sh.h[1]; p.ray.oz = sh.h[2];
-  p.ray.dx = sh.nd[0]; p.ray.dy = sh.nd[1]; p.ray.dz = sh.nd[2];
-  return kScattered;
+  return finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1, bounce,
+                                max_depth, q, t_best, p, rad, win);
+}
+
+// The first ray of sample `sample` of pixel (px, py), gid = py * width +
+// px: its key threefry2x32(s0, s1, gid, sample), the camera's draws and
+// the thin-lens ray, with throughput 1. Returns the draws (the backward's
+// camera adjoint reads them).
+__device__ __forceinline__ CamDraws start_path(const float* cam,
+                                               uint32_t s0, uint32_t s1,
+                                               uint32_t gid, uint32_t sample,
+                                               int px, int py, uint32_t& k0,
+                                               uint32_t& k1, Path& p) {
+  threefry2x32(s0, s1, gid, sample, k0, k1);
+  const CamDraws cd = camera_draws(k0, k1);
+  p.ray = camera_ray(cam, cd, static_cast<float>(px),
+                     static_cast<float>(py));
+  p.thr[0] = p.thr[1] = p.thr[2] = 1.0f;
+  return cd;
 }
 
 // Stage the intersection rows (0-3) of every slot in shared memory as
@@ -456,6 +579,15 @@ __device__ __forceinline__ void stage_spheres(const float* sph, int n_slots,
                             sph[(kRowVel + 1) * n_slots + i],
                             sph[(kRowVel + 2) * n_slots + i], 0.0f);
     }
+  }
+}
+
+// Each slot's center_sq into csq (a block's threads share the work).
+__device__ __forceinline__ void stage_center_sq(const float* sph,
+                                                int n_slots, float* csq) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < n_slots; i += blockDim.x * blockDim.y) {
+    csq[i] = center_sq(sph[i], sph[n_slots + i], sph[2 * n_slots + i]);
   }
 }
 

@@ -125,8 +125,9 @@ __device__ __forceinline__ void adjoint_lane(
   }
   if (last != kScattered) --k;  // a surface that ends the path: identity
   for (; k >= 0; --k) {
+    SlotAtomics sink{acc, n_slots, rec[k].win};
     scatter_adjoint<kMoving>(sph, n_slots, rec[k], k0, k1, bounce0 + k,
-                             t_min, p.ray.time, go, gd, gt, acc, g_time);
+                             t_min, p.ray.time, go, gd, gt, sink, g_time);
   }
   for (int j = 0; j < 3; ++j) {
     dsi[(kStO + j) * n] = go[j];

@@ -254,12 +254,12 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
 
     A wavefront loop over (pixel, sample) rays, `chunk` rays at a time in
     sample-major order, built from the port's camera, geometry,
-    materials and textures through render._shade. Rays that die are
+    materials and textures through render._bounce. Rays that die are
     dropped from the batch after each bounce. A chunk holds at most one
     sample of each pixel, so radiance is summed into each pixel in the
     kernel's order: sample by sample, bounce by bounce. Differentiable
     by plain autograd (slowly: every bounce keeps its (N,S) broadcast)."""
-    rad, traced, _ = trace_paths_reference(
+    rad, traced, _, _ = trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
         t_min=t_min, moving=moving, chunk=chunk)
@@ -269,11 +269,15 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
 def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                           width: int, height: int, spp: int,
                           max_depth: int, t_min: float, moving: bool,
-                          chunk: int = PLAIN_CHUNK):
+                          win_cap: int = 0, chunk: int = PLAIN_CHUNK):
     """render_tiles_reference's loop, also returning each path's bounce
-    count: (rad (P,3), traced (P,) i32, lengths (spp, P) uint8), where
-    lengths[s, p] is the number of bounces sample s of pixel p traced."""
-    from ..render import _shade  # render imports this module
+    count and the first win_cap segments' winners of each pixel: (rad
+    (P,3), traced (P,) i32, lengths (spp, P) uint8, winners (win_cap, P)
+    int16), where lengths[s, p] is the number of bounces sample s of
+    pixel p traced, and winners[j, p] the slot that pixel p's j-th
+    segment hit (-1 on a miss, -2 past its segments), in the order the
+    pixel traces them: sample by sample, bounce by bounce."""
+    from ..render import _bounce  # render imports this module
 
     dev = sph24.device
     scene = _scene_from_packs(sph24, bg8, moving)
@@ -284,6 +288,8 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     rad = torch.zeros((3, n_pix), dtype=torch.float32, device=dev)
     traced = torch.zeros((n_pix,), dtype=torch.int32, device=dev)
     lengths = torch.zeros((n_rays,), dtype=torch.uint8, device=dev)
+    winners = torch.full((win_cap, n_pix), -2, dtype=torch.int16,
+                         device=dev)
     for lo in range(0, n_rays, chunk):
         ray = torch.arange(lo, min(lo + chunk, n_rays), device=dev)
         pix = ray % n_pix
@@ -295,19 +301,29 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         thr = torch.ones_like(o)
         for bounce in range(max_depth + 1):
             alive = torch.ones_like(pix, dtype=torch.bool)
-            contrib, o, d, att, survives = _shade(
-                scene, o, d, tm, keys, bounce, alive, t_min, max_depth)
-            rad[:, pix] += thr * contrib
+            b = _bounce(scene, o, d, tm, keys, bounce, alive, t_min,
+                        max_depth)
+            if win_cap:
+                # A chunk holds at most one sample of a pixel, and its
+                # earlier samples are done: traced[pix] is the segment's j.
+                j = traced[pix].long()
+                stored = j < win_cap
+                winners[j[stored], pix[stored]] = torch.where(
+                    b.miss_mask, -1, b.win)[stored].to(torch.int16)
+            rad[:, pix] += thr * b.contribution
             traced[pix] += 1
             lengths[ray] += 1
-            thr = torch.where(survives, thr * att, thr)
+            survives = b.survives
+            thr = torch.where(survives, thr * b.scatter.attenuation, thr)
+            o, d = b.new_o, b.new_d
             keep = survives.nonzero()[:, 0]
             if keep.numel() == 0:
                 break
             pix, ray, keys, o, d, tm, thr = (
                 pix[keep], ray[keep], keys[:, keep], o[:, keep], d[:, keep],
                 tm[keep], thr[:, keep])
-    return rad.T.contiguous(), traced, lengths.reshape(spp, n_pix)
+    return (rad.T.contiguous(), traced, lengths.reshape(spp, n_pix),
+            winners)
 
 
 # ---------------------------------------------------------------------------

@@ -244,8 +244,9 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     train_fwd kernel, backward one train_bwd kernel. Budgets above
     `sample_budget` (default DIFF_SAMPLE_BUDGET) run as several chains
     over consecutive sample ranges; autograd sums their gradients. The
-    residual a chain keeps is one byte per path, so no chain is
-    recomputed."""
+    residual a chain keeps is 33 bytes a path (its length and its share
+    of the winners: ops.megakernel_train.boundary_residual_bytes), so no
+    chain is recomputed."""
     _check_diff_scope("trace_tiles_diff", scene, cfg)
     device = _check_device(device)
     budget = sample_budget or DIFF_SAMPLE_BUDGET

@@ -10,7 +10,8 @@ PyTorch is installed:
 Each kernel is held against its plain PyTorch version on the same
 packs. tile_render: the tolerance of tests/test_torch_slice.py,
 per-pixel mean |delta| < 1e-3 on >= 98.5% of pixels, traced totals
-within 1%. train_fwd: tile_render's outputs bit for bit. train_bwd,
+within 1%. train_fwd: tile_render's outputs bit for bit, and its
+winners the plain version's on every path that agrees. train_bwd,
 bounce_steps, intersect_only and chain_bwd: the tolerances stated in
 each test."""
 
@@ -146,7 +147,7 @@ def _train_case(device, name, w=64, h=32, spp=4, depth=8):
 def test_train_fwd_equals_tile_render(device, name):
     _, _, _, packs, kw = _train_case(device, name)
     before = tmkt.render_tiles_train.launches
-    rad, traced, lengths = tmkt.render_tiles_train(*packs, **kw)
+    rad, traced, lengths, _ = tmkt.render_tiles_train(*packs, **kw)
     ref, ref_traced = tmk.render_tiles(*packs, **kw)
     torch.cuda.synchronize(device)
     assert tmkt.render_tiles_train.launches == before + 1
@@ -164,15 +165,16 @@ def test_train_bwd_matches_plain_version(device, name):
     Camera gradients then follow tests/test_tile_grad.py's rule."""
     from rrt_tpu_torch import diff, gradcheck
     scene, cam, cfg, packs, kw = _train_case(device, name)
-    _, _, lengths = tmkt.render_tiles_train(*packs, **kw)
+    _, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
     agreement = gradcheck.sample_agreement(packs, kw)
     assert agreement.agree.float().mean() >= 0.99
     n = kw["width"] * kw["height"]
     weight = torch.sin(torch.arange(n, device=device) * 0.1) * agreement.agree
     d_rad = (weight[:, None] * torch.tensor(_MIX, device=device)).contiguous()
     before = tmkt.tiles_adjoint.launches
-    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, **kw)
-    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths, **kw)
+    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths,
+                                     None, **kw)
     assert tmkt.tiles_adjoint.launches == before + 1
     assert int(k[3]) == 0 and int(p[3]) == 0  # replay_mismatches
     kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], device=device)
@@ -189,9 +191,10 @@ def test_albedo_finite_difference(device):
     scene, cam, cfg, packs, kw = _train_case(device, "chap12", spp=4,
                                              depth=50)
     mix = torch.tensor(_MIX, device=device)
-    rad, _, lengths = tmkt.render_tiles_train(*packs, **kw)
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
     d_rad = mix.expand_as(rad).contiguous()
-    d_sph, d_cam, d_bg, _ = tmkt.tiles_adjoint(*packs, d_rad, lengths, **kw)
+    d_sph, d_cam, d_bg, _ = tmkt.tiles_adjoint(*packs, d_rad, lengths,
+                                               winners, **kw)
     gp, _ = diff.field_grads(scene, cam, cfg, d_sph, d_cam, d_bg,
                              device=device)
     tex = int(scene.mat_tex[scene.sphere_mat[0]])
@@ -211,13 +214,13 @@ def test_albedo_finite_difference(device):
 
 def test_train_bwd_determinism(device):
     """As csrc/train.cu states: the camera and background cotangents are
-    bit-identical from run to run; the pack's are summed with
-    shared-memory atomics and agree within 1e-6 of their largest."""
+    bit-identical from run to run; the pack's are summed with atomic
+    reductions and agree within 1e-6 of their largest."""
     _, _, _, packs, kw = _train_case(device, "chap12")
-    rad, _, lengths = tmkt.render_tiles_train(*packs, **kw)
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
     d_rad = torch.ones_like(rad)
-    a = tmkt.tiles_adjoint(*packs, d_rad, lengths, **kw)
-    b = tmkt.tiles_adjoint(*packs, d_rad, lengths, **kw)
+    a = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    b = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
     assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
     torch.testing.assert_close(a[0], b[0], rtol=0,
                                atol=1e-6 * a[0].abs().max().item())
@@ -239,11 +242,12 @@ def test_kernels_run_at_max_slots(device):
     ref = tmk.render_tiles(sph, *rest, **kw)
     out = tmk.render_tiles(wide, *rest, **kw)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
-    rad, traced, lengths = tmkt.render_tiles_train(wide, *rest, **kw)
+    rad, traced, lengths, winners = tmkt.render_tiles_train(wide, *rest,
+                                                            **kw)
     assert torch.equal(rad, ref[0]) and torch.equal(traced, ref[1])
     d_rad = torch.ones_like(rad)
-    g = tmkt.tiles_adjoint(sph, *rest, d_rad, lengths, **kw)
-    gw = tmkt.tiles_adjoint(wide, *rest, d_rad, lengths, **kw)
+    g = tmkt.tiles_adjoint(sph, *rest, d_rad, lengths, winners, **kw)
+    gw = tmkt.tiles_adjoint(wide, *rest, d_rad, lengths, winners, **kw)
     assert int(gw[3]) == 0
     assert torch.equal(gw[1], g[1]) and torch.equal(gw[2], g[2])
     torch.testing.assert_close(gw[0][:, :n], g[0], rtol=0,
@@ -263,14 +267,14 @@ TRAIN_BWD_CAM_BG_SHA = "8303079e42f74fa7"
 def test_train_bwd_unchanged_by_the_shared_header(device):
     """The move of miss_adjoint and scatter_adjoint into adjoint.cuh
     (miss_adjoint now adds to the cotangents it is given, zeroed here)
-    left train_bwd's outputs as they were: the camera and background
-    cotangents bit for bit, the pack's (shared atomics) as a sum within
-    1e-6."""
+    left train_bwd's outputs as they were, and so did its replay from the
+    forward's winners: the camera and background cotangents bit for bit,
+    the pack's (atomics) as a sum within 1e-6."""
     import hashlib
     _, _, _, packs, kw = _train_case(device, "chap12")
-    rad, _, lengths = tmkt.render_tiles_train(*packs, **kw)
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
     d_sph, d_cam, d_bg, mism = tmkt.tiles_adjoint(
-        *packs, torch.ones_like(rad), lengths, **kw)
+        *packs, torch.ones_like(rad), lengths, winners, **kw)
     assert int(mism) == 0
     assert [float(x).hex() for x in d_bg[:6].cpu()] == [
         float.fromhex(h).hex() for h in TRAIN_BWD_BG]
@@ -288,7 +292,84 @@ def test_train_record_cap_raises(device):
     rad = torch.zeros((64 * 32, 3), device=device)
     lengths = torch.ones((4, 64 * 32), dtype=torch.uint8, device=device)
     with pytest.raises(ValueError, match="records"):
-        tmkt.tiles_adjoint(*packs, rad, lengths, **kw)
+        tmkt.tiles_adjoint(*packs, rad, lengths, None, **kw)
+
+
+@pytest.mark.parametrize("name", ["chap12", "checker", "book2chap2"])
+def test_train_fwd_winners_match_plain_version(device, name):
+    """The forward's winners against the plain version's on every path
+    gradcheck.sample_agreement counts as agreeing, depth 50 on chap12:
+    every stored segment of those paths, which hold 95% of the segments
+    or more (the paths that part ways are long ones)."""
+    from rrt_tpu_torch import gradcheck
+    depth = 50 if name == "chap12" else 8
+    _, _, _, packs, kw = _train_case(device, name, depth=depth)
+    rad, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    assert winners.shape == (tmkt.WINNERS_PER_SAMPLE * kw["spp"],
+                             kw["width"] * kw["height"])
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.path_share >= 0.99
+    faults, compared, _ = gradcheck.winner_faults(winners, lengths,
+                                                  agreement)
+    assert faults == 0 and compared >= 0.95 * int(traced.sum())
+    stored = winners[:, traced > 0]
+    assert (stored == -1).any() and (stored >= 0).any()
+
+
+@pytest.mark.parametrize("name", ["chap12", "checker", "book2chap2"])
+def test_train_fwd_pooled_winners_match_each_sample_alone(device, name):
+    """The forward's pooled winners equal its own winners of each sample
+    traced alone (gradcheck.pool_faults), entry for entry: the same code
+    traces the same paths, so only a fault in the pool's layout parts
+    them."""
+    from rrt_tpu_torch import gradcheck
+    depth = 50 if name == "chap12" else 8
+    _, _, _, packs, kw = _train_case(device, name, depth=depth)
+    _, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    faults, compared = gradcheck.pool_faults(winners, lengths, agreement)
+    assert faults == 0 and compared >= 0.95 * int(traced.sum())
+
+
+@pytest.mark.parametrize("name", ["chap12", "checker", "book2chap2"])
+def test_train_bwd_with_and_without_winners(device, name):
+    """tiles_adjoint from the forward's winners, from a pool cut to one
+    entry a sample (most segments past it scan), and from the scan alone
+    (winners=None): the same replayed arithmetic, so the camera and
+    background cotangents bit for bit; the pack's (atomics) within 1e-5
+    of their largest; no mismatches."""
+    depth = 50 if name == "chap12" else 8
+    _, _, _, packs, kw = _train_case(device, name, depth=depth)
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    d_rad = torch.sin(torch.arange(rad.numel(), device=device) * 0.3
+                      ).reshape(rad.shape).contiguous()
+    scan = tmkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
+    assert int(scan[3]) == 0
+    for pool in (winners, winners[:kw["spp"]]):
+        got = tmkt.tiles_adjoint(*packs, d_rad, lengths, pool, **kw)
+        assert int(got[3]) == 0
+        assert torch.equal(got[1], scan[1]) and torch.equal(got[2], scan[2])
+        torch.testing.assert_close(got[0], scan[0], rtol=0,
+                                   atol=1e-5 * scan[0].abs().max().item())
+
+
+def test_train_bwd_counts_bad_winners(device):
+    """A stored winner the replay cannot find (here an empty slot, r^2 =
+    -1, in place of a hit) counts as a replay mismatch, and so does a
+    length that differs from the replay's."""
+    _, _, _, packs, kw = _train_case(device, "chap12")
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    d_rad = torch.ones_like(rad)
+    empty = packs[0].shape[1] - 1
+    assert packs[0][3, empty].item() == -1.0
+    bad = winners.clone()
+    pix = (bad[0] >= 0).nonzero()[0, 0].item()
+    bad[0, pix] = empty
+    assert int(tmkt.tiles_adjoint(*packs, d_rad, lengths, bad, **kw)[3]) == 1
+    longer = lengths.clone()
+    longer[0, pix] += 1
+    assert int(tmkt.tiles_adjoint(*packs, d_rad, longer, winners,
+                                  **kw)[3]) >= 1
 
 
 def test_train_step_launches_the_kernels(device):
@@ -609,7 +690,7 @@ def test_moving_train_kernels_match_plain_versions(device):
     from rrt_tpu_torch import diff, gradcheck
     scene, cam, cfg, packs, kw = _train_case(device, "book2chap2")
     assert kw["moving"]
-    rad, traced, lengths = tmkt.render_tiles_train(*packs, **kw)
+    rad, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
     ref, ref_traced = tmk.render_tiles(*packs, **kw)
     assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
     agreement = gradcheck.sample_agreement(packs, kw)
@@ -617,8 +698,9 @@ def test_moving_train_kernels_match_plain_versions(device):
     n = kw["width"] * kw["height"]
     weight = torch.sin(torch.arange(n, device=device) * 0.1) * agreement.agree
     d_rad = (weight[:, None] * torch.tensor(_MIX, device=device)).contiguous()
-    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, **kw)
-    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths, **kw)
+    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths,
+                                     None, **kw)
     assert int(k[3]) == 0 and int(p[3]) == 0  # replay_mismatches
     assert k[0][4:7].abs().max() > 0 and k[1][19:21].abs().max() > 0
     kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], device=device)

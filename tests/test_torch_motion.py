@@ -349,6 +349,33 @@ def test_train_gradients_match_reference():
                                    err_msg=k_)
 
 
+def test_train_winners_match_replay():
+    """The moving variant's plain forward keeps the winners of the
+    backward's plain replay (gradcheck.replay_winners) entry for entry,
+    and tiles_adjoint_reference given them computes as without them,
+    with 0 mismatches: book2chap2 at 16x8, 2 spp, depth 8."""
+    from rrt_tpu_torch import gradcheck
+    from rrt_tpu_torch.ops import megakernel_train as tmkt
+    scene, cam = tscenes.book2chap2_scene(16, 8)
+    cfg = render.RenderConfig(width=16, height=8, spp=2, max_depth=8)
+    packs = render._packs(scene, cam, cfg, "cpu")
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=16, height=8, spp=2,
+              max_depth=8, t_min=1e-3, moving=True)
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    expected = gradcheck.replay_winners(
+        *packs, win_cap=tmkt.winner_capacity(2), **kw)
+    assert torch.equal(winners, expected)
+    assert (winners == -1).any() and (winners >= 0).any()
+    d_rad = torch.sin(torch.arange(rad.numel()) * 0.3).reshape(rad.shape)
+    with_w = tmkt.tiles_adjoint_reference(*packs, d_rad, lengths, winners,
+                                          **kw)
+    without = tmkt.tiles_adjoint_reference(*packs, d_rad, lengths, None, **kw)
+    assert int(with_w[3]) == 0 and int(without[3]) == 0
+    for a, b in zip(with_w[:3], without[:3]):
+        assert torch.equal(a, b)
+    assert with_w[0][4:7].abs().max() > 0  # the velocity rows
+
+
 def test_chain_matches_reference(interpret_pallas):
     """The port's bounce chain (trace_batch_fused; on the CPU
     chain_adjoint_reference) against rrt_tpu's (its bounce_chain backward

@@ -402,22 +402,217 @@ def test_record_cap_raises():
 
 
 def test_resolve_spp_chunk(monkeypatch, caplog):
+    # 33 bytes a path (tmkt.boundary_residual_bytes): 31.68 MB a sample
+    # at 1200x800.
     cfg = render.RenderConfig(width=1200, height=800, spp=500, max_depth=50)
-    monkeypatch.setenv("RRT_RESIDUAL_BUDGET_GB", "1")
-    assert diff.resolve_spp_chunk(cfg) == 500  # 480 MB: one chunk
-    monkeypatch.setenv("RRT_RESIDUAL_BUDGET_GB", "0.2")
-    assert diff.resolve_spp_chunk(cfg) == 125  # largest divisor <= 208
-    monkeypatch.setenv("RRT_RESIDUAL_BUDGET_GB", "1")
+    monkeypatch.setenv("RRT_RESIDUAL_BUDGET_GB", "16")
+    # 15.84 GB: one chunk
+    assert diff.resolve_spp_chunk(cfg, device="cpu") == 500
+    monkeypatch.setenv("RRT_RESIDUAL_BUDGET_GB", "4")
+    # largest divisor <= 126
+    assert diff.resolve_spp_chunk(cfg, device="cpu") == 125
+    monkeypatch.setenv("RRT_RESIDUAL_BUDGET_GB", "16")
     with caplog.at_level(logging.WARNING, logger="rrt_tpu_torch.diff"):
-        assert diff.resolve_spp_chunk(cfg, spp_chunk=300) == 250
+        assert diff.resolve_spp_chunk(cfg, spp_chunk=300,
+                                      device="cpu") == 250
     assert "adjusted to 250" in caplog.text
-    assert diff.resolve_spp_chunk(cfg, spp_chunk=100) == 100
+    assert diff.resolve_spp_chunk(cfg, spp_chunk=100, device="cpu") == 100
     monkeypatch.setenv("RRT_RESIDUAL_BUDGET_GB", "0.0001")
     with pytest.raises(ValueError, match="budget"):
-        diff.resolve_spp_chunk(cfg)
+        diff.resolve_spp_chunk(cfg, device="cpu")
     monkeypatch.delenv("RRT_RESIDUAL_BUDGET_GB")
     assert diff._residual_budget_bytes("cpu") > 0
-    assert tmkt.boundary_residual_bytes(1200 * 800, 500) == 480_000_000
+    assert tmkt.boundary_residual_bytes(1200 * 800, 500) == 15_840_000_000
+    with pytest.raises(TypeError):
+        diff.resolve_spp_chunk(cfg)  # the device is required
+
+
+def _train_kw(w, h, spp, depth, moving=False):
+    return dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
+                max_depth=depth, t_min=1e-3, moving=moving)
+
+
+@pytest.mark.parametrize("win_cap", [None, 5])
+def test_plain_winners_match_replay(win_cap):
+    """The plain forward's winners (render_tiles_train_reference, or
+    trace_paths_reference with a pool of 5 entries a pixel, which cuts
+    most pixels' later segments) equal those of the backward's plain
+    replay (megakernel_vjp.replay_steps) entry for entry: -1 at misses,
+    in each pixel's trace order, -2 past its segments; and the camera
+    rays' winners equal rrt_tpu's intersect_spheres on rrt_tpu's rays
+    with the same keys."""
+    from rrt_tpu import geometry as jgeometry
+    from rrt_tpu_torch import gradcheck
+    j_scene, j_cam = jscenes.chap12_scene(16, 8)
+    scene, cam = _port(j_scene, j_cam)
+    cfg = render.RenderConfig(width=16, height=8, spp=2, max_depth=8)
+    packs = render._packs(scene, cam, cfg, "cpu")
+    kw = _train_kw(16, 8, 2, 8)
+    if win_cap is None:
+        win_cap = tmkt.winner_capacity(2)
+        rad, traced, lengths, winners = tmkt.render_tiles_train_reference(
+            *packs, **kw)
+    else:
+        rad, traced, lengths, winners = tmk.trace_paths_reference(
+            *packs, win_cap=win_cap, **kw)
+    assert winners.shape == (win_cap, 16 * 8)
+    assert winners.dtype == torch.int16
+    torch.testing.assert_close(rad, tmk.render_tiles_reference(*packs,
+                                                               **kw)[0],
+                               rtol=0, atol=0)
+    assert torch.equal(lengths.sum(dim=0, dtype=torch.int32), traced)
+    expected = gradcheck.replay_winners(*packs, win_cap=win_cap, **kw)
+    assert torch.equal(winners, expected)
+    assert (winners == -1).any() and (winners >= 0).any()
+    j = torch.arange(win_cap)[:, None]
+    assert torch.equal(winners == -2, j >= traced.long()[None, :])
+    # Bounce 0 of sample 0 against rrt_tpu's intersect of its own rays.
+    ids = jnp.arange(16 * 8, dtype=jnp.int32)
+    keys = jrng.sample_keys(jax.random.key(0), ids.astype(jnp.uint32), 0)
+    o, d, tm = generate_rays(j_cam, ids % 16, ids // 16, 16, 8, keys)
+    n = ids.shape[0]
+    j_t, j_idx = jgeometry.intersect_spheres(
+        j_scene, o, d, tm, jnp.full((n,), 1e-3), jnp.full((n,), 3e38))
+    j_win = np.where(np.asarray(j_t) < 1e38, np.asarray(j_idx), -1)
+    np.testing.assert_array_equal(winners[0].numpy(), j_win)
+
+
+def test_adjoint_reference_with_winners():
+    """tiles_adjoint_reference given the forward's winners computes as
+    without them (its own replay), bit for bit, with 0 mismatches; a
+    stored winner that differs from the replay's counts as one, through
+    the CPU wrapper too."""
+    scene, cam = _chap12_small()
+    cfg = render.RenderConfig(width=16, height=8, spp=2, max_depth=4)
+    packs = render._packs(scene, cam, cfg, "cpu")
+    kw = _train_kw(16, 8, 2, 4)
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    d_rad = torch.sin(torch.arange(rad.numel()) * 0.3).reshape(rad.shape)
+    with_w = tmkt.tiles_adjoint_reference(*packs, d_rad, lengths, winners,
+                                          **kw)
+    without = tmkt.tiles_adjoint_reference(*packs, d_rad, lengths, None, **kw)
+    assert int(with_w[3]) == 0 and int(without[3]) == 0
+    for a, b in zip(with_w[:3], without[:3]):
+        assert torch.equal(a, b)
+    bad = winners.clone()
+    pix = (bad[0] >= 0).nonzero()[0, 0].item()
+    bad[0, pix] = (bad[0, pix] + 1) % packs[0].shape[1]
+    tmkt.tiles_adjoint.replay_mismatches = 0
+    got = tmkt.tiles_adjoint(*packs, d_rad, lengths, bad, **kw)
+    assert int(got[3]) == 1 and int(tmkt.tiles_adjoint.replay_mismatches) == 1
+    for a, b in zip(got[:3], without[:3]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="winners"):
+        tmkt.tiles_adjoint(*packs, d_rad, lengths, bad.int(), **kw)
+
+
+def test_tie_gaps_measures_both_winners_on_the_plain_ray():
+    """gradcheck.tie_gaps, the witness chip_smoke.py holds differing
+    winners to: a row whose two winners are the plain one has gap 0, a
+    row with a miss has gap inf, and a row that names the ground against
+    the camera ray's winner has the gap of the two slots' float32 t from
+    geometry.intersect_spheres (each slot alone) within the sum of their
+    rounding bounds, and each of those t within its own bound of the
+    float64 root; its replay retraces the plain winners at every
+    bounce."""
+    from rrt_tpu_torch import gradcheck
+    from rrt_tpu_torch.geometry import intersect_spheres
+    from rrt_tpu_torch.ops.megakernel import _scene_from_packs
+    scene, cam = _chap12_small()
+    cfg = render.RenderConfig(width=16, height=8, spp=2, max_depth=8)
+    packs = render._packs(scene, cam, cfg, "cpu")
+    kw = _train_kw(16, 8, 2, 8)
+    plain = gradcheck.sample_agreement(packs, kw).winners  # (spp, d+1, P)
+    s, b, p = (plain >= 0).nonzero(as_tuple=True)
+    same = torch.stack([s, b, p, plain[s, b, p], plain[s, b, p]], 1).long()
+    ties = gradcheck.tie_gaps(packs, kw, same)
+    assert same.shape[0] > 100 and b.max() >= 3
+    firsts = {}  # (sample, pixel): its least bounce (rows run by bounce)
+    for row in same.tolist():
+        firsts.setdefault((row[0], row[2]), row[1])
+    got = gradcheck.first_differences(same)[:, :3].tolist()
+    assert sorted(map(tuple, got)) == sorted(
+        (s_, b_, p_) for (s_, p_), b_ in firsts.items())
+    assert torch.equal(ties.replayed, same[:, 4])
+    assert bool((ties.gap == 0).all()) and bool((ties.ulps == 0).all())
+    missed = same[:5].clone()
+    missed[:, 3] = -1
+    assert bool(torch.isinf(gradcheck.tie_gaps(packs, kw, missed).gap).all())
+    # Bounce 0 of sample 0: the ground (slot 0) against the winner.
+    first = same[(same[:, 0] == 0) & (same[:, 1] == 0)
+                 & (same[:, 4] > 0)].clone()
+    first[:, 3] = 0
+    ties = gradcheck.tie_gaps(packs, kw, first)
+    sph24, cam24, _ = packs
+    o, d, tm = thin_lens_rays_of(cam24, first[:, 2], 16, 8, kw)
+    t32, t64, bound = [], [], []
+    for col in (3, 4):
+        alone = []
+        for i, slot in enumerate(first[:, col].tolist()):
+            one = sph24.clone()
+            one[7] = 0.0
+            one[7, slot] = 1.0
+            alone.append(intersect_spheres(
+                _scene_from_packs(one, None, False), o[:, i:i + 1],
+                d[:, i:i + 1], tm[i:i + 1], 1e-3, float("inf"))[0])
+        t32.append(torch.cat(alone).double())
+        t, e = gradcheck._slot_t64(sph24, o, d, tm, first[:, col], kw)
+        t64.append(t)
+        bound.append(e)
+    hit = t32[0] < 1e38  # geometry's INF is 3e38
+    assert int(hit.sum()) >= 5
+    for a, b, e in zip(t32, t64, bound):
+        assert bool(((a - b).abs() <= e)[hit].all())
+    gap32 = (t32[0] - t32[1]).abs()
+    gap64 = ties.gap * torch.minimum(*t64)
+    assert bool(((gap32 - gap64).abs() <= bound[0] + bound[1])[hit].all())
+    assert bool((ties.ulps[hit] > 1.0).all())
+    assert bool(torch.isinf(ties.gap[~hit]).all())
+
+
+def test_pool_faults_count_a_misplaced_winner():
+    """gradcheck.pool_faults holds a forward's pooled winners to its
+    winners of each sample traced alone: equal for the plain forward on
+    the CPU, and one entry moved is one fault."""
+    from rrt_tpu_torch import gradcheck
+    scene, cam = _chap12_small()
+    cfg = render.RenderConfig(width=16, height=8, spp=3, max_depth=8)
+    packs = render._packs(scene, cam, cfg, "cpu")
+    kw = _train_kw(16, 8, 3, 8)
+    _, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.alone.shape == (3, tmkt.WINNERS_PER_SAMPLE, 16 * 8)
+    faults, compared = gradcheck.pool_faults(winners, lengths, agreement)
+    assert faults == 0 and compared == int(traced.sum())
+    pix = int((lengths[0] >= 2).nonzero()[0, 0])
+    bad = winners.clone()
+    bad[0, pix], bad[1, pix] = winners[1, pix], winners[0, pix]
+    n_bad = int(winners[0, pix] != winners[1, pix])
+    assert gradcheck.pool_faults(bad, lengths, agreement)[0] == 2 * n_bad
+    moved = winners.clone()
+    moved[int(lengths[0, pix]), pix] = -7  # sample 1's first entry
+    assert gradcheck.pool_faults(moved, lengths, agreement)[0] == 1
+
+
+def thin_lens_rays_of(cam24, pix, w, h, kw):
+    from rrt_tpu_torch import rng
+    from rrt_tpu_torch.camera import thin_lens_rays
+    keys = rng.sample_keys(kw["seed_words"], pix, kw["sample_lo"])
+    basis = tuple(cam24[3 * i:3 * i + 3] for i in range(6))
+    return thin_lens_rays(basis, cam24[18], cam24[19], cam24[20], pix % w,
+                          pix // w, w, h, keys)
+
+
+def test_boundary_residual_bytes_counts_the_winners():
+    assert tmkt.boundary_residual_bytes(10, 3) == 10 * 3 * (
+        1 + 2 * tmkt.WINNERS_PER_SAMPLE)
+    scene, cam = _chap12_small()
+    cfg = render.RenderConfig(width=16, height=8, spp=3, max_depth=4)
+    _, _, lengths, winners = tmkt.render_tiles_train(
+        *render._packs(scene, cam, cfg, "cpu"), **_train_kw(16, 8, 3, 4))
+    assert (lengths.numel() * lengths.element_size()
+            + winners.numel() * winners.element_size()
+            == tmkt.boundary_residual_bytes(16 * 8, 3))
 
 
 def test_make_train_step_routes_by_budget():
