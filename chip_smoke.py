@@ -22,9 +22,17 @@ set to 0 just before it and read just after:
   [C3] render_image(differentiable=True), 1200x800, 4 spp, depth 50, and
       the gradient of an L2 loss.
 
+tile_render and intersect_only walk a BVH of the spheres
+(rrt_tpu_torch/accel.py); the other kernels scan every slot. [3] and
+[Q1] print the tree (nodes, depth, shared memory), the walk's node and
+slot tests a segment on [Q1]'s rays (accel.bvh_closest_reference) and
+the walk's bound beside the scan's.
+
 [5] holds the train kernels against tile_render and their plain
 versions, at two small shapes and at [7]'s: train_fwd's radiance,
-traced counts and lengths equal tile_render's bit for bit, its pooled
+traced counts and lengths equal tile_render's bit for bit (the scan
+against the walk: the walk's exact gate, also on book2chap2 in [M1]),
+its pooled
 winners its own of each sample traced alone, and all but 1e-4 of them
 the plain version's on the agreeing paths; train_bwd from the
 winners gives the scan route's (winners=None) camera and background
@@ -128,6 +136,16 @@ FLOPS_PER_SLOT = 17
 # A moving slot first takes its center at the ray's time, base + time *
 # vel: three multiplies and three adds more.
 FLOPS_PER_MOVING_SLOT = 23
+# FP32 operations of the BVH walk (bounce.cuh closest_sphere_bvh) that
+# tile_render and intersect_only run instead of the scan: a node's slab
+# test, six subtractions, six multiplies, twelve min / max, the far
+# pad's multiply and the compare (26); a segment's set-up, three
+# reciprocals and the origin's pad (WALK_RAY_FLOPS, 15); each slot it
+# tests, FLOPS_PER_SLOT (moving: FLOPS_PER_MOVING_SLOT). The tests a
+# segment needs are counted by accel.bvh_closest_reference on [Q1]'s
+# rays (camera rays and after 1-4 bounces, walk_counts).
+NODE_FLOPS = 26
+WALK_RAY_FLOPS = 15
 # FP32 operations of one bounce of chain.cu's reverse sweep beyond the
 # replay's scan: scatter_adjoint recomputes the winner's quadratic and
 # shade() and runs the transpose (a count of its source, transcendentals
@@ -274,6 +292,77 @@ def slot_flops(moving: bool) -> int:
     return FLOPS_PER_MOVING_SLOT if moving else FLOPS_PER_SLOT
 
 
+def tile_bounds(segments, paths, n_slots, counts, moving: bool):
+    """tile_render's least times for `segments` segments of `paths`
+    paths, each (ms, by): the walk's (its FP32 tests at `counts`' tests a
+    segment, the Threefry draws as train_bounds counts them, the packs
+    read and the pixels written once) and the scan's (every slot a
+    segment, FP32 only: the work of the scan the kernel replaced)."""
+    n_bytes = 4 * (24 * n_slots + 24 + 8) + (12 + 4) * (
+        MAIN["width"] * MAIN["height"])
+    draws = THREEFRY_OPS * (THREEFRY_PER_HIT * (segments - paths)
+                            + THREEFRY_PER_PATH * paths)
+    return (bound(walk_flops(segments, counts, moving), n_bytes, draws),
+            bound(segments * n_slots * slot_flops(moving), n_bytes))
+
+
+def tile_bvh(packs):
+    """The BVH tile_render walks on the packs (sph24, cam24, ...): over
+    the camera pack's shutter, rows 19-20 (render._packs' rule)."""
+    from rrt_tpu_torch import accel
+    cam24 = packs[1].detach()
+    return accel.pack_bvh(packs[0].detach(),
+                          (cam24[19], cam24[19] + cam24[20]))
+
+
+def walk_counts(scene, cam, w, h, n, device):
+    """The walk's tests on [Q1]'s rays: n camera rays of the w x h image
+    (lane_state), and the live ones after 1-4 bounce steps, through
+    accel.bvh_closest_reference. Returns {"depth": [(segments, node
+    tests, slot tests) at each of the 5 depths], "nodes", "slots": the
+    tests a segment over all 5, "bvh": the pack}."""
+    from rrt_tpu_torch import accel, render
+    from rrt_tpu_torch.ops import megakernel as mk
+    st, keys, sph, bg = lane_state(scene, cam, w, h, n, device)
+    bvh = render.pack_scene(scene, device, render._shutter(cam))["bvh"]
+    rows = []
+    for depth in range(5):
+        if depth:
+            mk.bounce_steps(st, keys, sph, bg, k_steps=1,
+                            max_depth=MAIN["max_depth"], t_min=1e-3,
+                            moving=scene.has_moving)
+        live = (st[14] > 0.5).nonzero()[:, 0]
+        sel = st[:, live]
+        _, _, _, nodes, slots = accel.bvh_closest_reference(
+            sel[0:3].contiguous(), sel[3:6].contiguous(), sph, bvh,
+            t_min=1e-3, time=sel[6].contiguous() if scene.has_moving
+            else None)
+        rows.append((live.numel(), int(nodes.sum()), int(slots.sum())))
+    segments = sum(r[0] for r in rows)
+    return dict(depth=rows, bvh=bvh,
+                nodes=sum(r[1] for r in rows) / segments,
+                slots=sum(r[2] for r in rows) / segments)
+
+
+def walk_flops(segments, counts, moving: bool) -> float:
+    """FP32 operations of `segments` walks at counts' tests a segment."""
+    return segments * (WALK_RAY_FLOPS + counts["nodes"] * NODE_FLOPS
+                       + counts["slots"] * slot_flops(moving))
+
+
+def walk_line(what, counts, moving: bool) -> str:
+    """The tree's size and the walk's tests a segment, for printing."""
+    b = counts["bvh"]
+    per = ", ".join(f"{r[1] / r[0]:.2f}/{r[2] / r[0]:.2f}"
+                    for r in counts["depth"])
+    return (f"{what} BVH: {b.n_nodes} nodes, {b.n_rows} rows "
+            f"({b.n_always} tested by every segment), depth {b.depth}, "
+            f"{b.smem_bytes(moving)} bytes of shared memory; node/slot "
+            f"tests a segment at depths 0-4: {per}; over all "
+            f"{counts['nodes']:.3f}/{counts['slots']:.3f} (the scan: "
+            f"{b.n_slots} slots)")
+
+
 def check(ok: bool, what) -> None:
     """Fail the run (a check that `python -O` does not strip)."""
     if not ok:
@@ -355,9 +444,10 @@ def compare(mk, tscenes, device, card, *, width, height, spp, max_depth,
     kw = dict(seed_words=(0, 0), sample_lo=0, width=width, height=height,
               spp=spp, max_depth=max_depth, t_min=1e-3,
               moving=scene.has_moving)
-    out = mk.render_tiles(*packs, **kw)  # warm-up
+    bvh = tile_bvh(packs)
+    out = mk.render_tiles(*packs, bvh=bvh, **kw)  # warm-up
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: mk.render_tiles(*packs, **kw), repeats)
+    ms = cuda_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw), repeats)
     t0 = time.perf_counter()
     ref = mk.render_tiles_reference(*packs, **kw)
     torch.cuda.synchronize()
@@ -414,9 +504,10 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
               max_depth=depth, t_min=1e-3, moving=scene.has_moving)
     rad, traced, lengths, winners = mkt.render_tiles_train(*packs, **kw)
-    ref_rad, ref_traced = mk.render_tiles(*packs, **kw)
+    ref_rad, ref_traced = mk.render_tiles(*packs, bvh=tile_bvh(packs), **kw)
+    # tile_render walks the BVH, train_fwd scans: the walk's exact gate.
     check(torch.equal(rad, ref_rad) and torch.equal(traced, ref_traced),
-          "train_fwd differs from tile_render")
+          "train_fwd (the scan) differs from tile_render (the walk)")
     check(torch.equal(lengths.sum(dim=0, dtype=torch.int32), traced),
           "lengths do not add up to the traced counts")
     print(f"  {name} {w}x{h} {spp}spp d{depth}: "
@@ -597,7 +688,8 @@ def step_bound(scene, cam, cfg, device):
     from rrt_tpu_torch.ops import megakernel as mk
     packs = render._packs(scene, cam, cfg, device)
     _, traced = mk.render_tiles(
-        *[p.detach() for p in packs], seed_words=(0, 0), sample_lo=0,
+        *[p.detach() for p in packs], bvh=tile_bvh(packs), seed_words=(0, 0),
+        sample_lo=0,
         width=cfg.width, height=cfg.height, spp=cfg.spp,
         max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving)
     return train_bounds(traced, cfg.spp, packs[0].shape[1],
@@ -683,7 +775,7 @@ def lane_state(scene, cam, w, h, n, device):
             mk.pack_bg(scene).to(device))
 
 
-def intersect_vs_plain(what, o, d, tm, sph, moving):
+def intersect_vs_plain(what, o, d, tm, sph, moving, bvh):
     """intersect_only against its plain version on the rays (o, d): fam
     and idx equal on >= 99.9% of rays (the card's own spread: they agreed
     on every camera ray at full size), t within 1e-5 relative where they
@@ -691,7 +783,7 @@ def intersect_vs_plain(what, o, d, tm, sph, moving):
     (share of rays agreeing, max |t delta| on agreeing hits, plain ms)."""
     from rrt_tpu_torch.ops import megakernel as mk
     kw = dict(t_min=1e-3, time=tm if moving else None)
-    t, fam, idx = mk.intersect_only(o, d, sph, **kw)
+    t, fam, idx = mk.intersect_only(o, d, sph, bvh=bvh, **kw)
     (rt, rfam, ridx), plain_ms = wall_ms(
         lambda: mk.intersect_only_reference(o, d, sph, **kw))
     same = (fam == rfam) & (idx == ridx)
@@ -755,16 +847,27 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
           ("bounce_steps", name, frac, counts, close))
 
     o, d, tm = st[0:3], st[3:6], st[6].contiguous()
+    counts = walk_counts(scene, cam, w, h, n, device)
+    bvh = counts["bvh"]
+    print(f"  {walk_line(name, counts, moving)}", flush=True)
     _, i_err, i_plain_ms = intersect_vs_plain(f"{name} {n} camera rays", o,
-                                              d, tm, sph, moving)
+                                              d, tm, sph, moving, bvh)
     i_ms = graph_ms(lambda: mk.intersect_only(
-        o, d, sph, t_min=1e-3, time=tm if moving else None),
+        o, d, sph, t_min=1e-3, time=tm if moving else None, bvh=bvh),
         mk.intersect_only)
-    i_bound = bound(n * n_slots * slot_flops(moving),
-                    4 * (n * (6 + 3 + moving) + 24 * n_slots))
-    print(f"  intersect_only {name}, {n} rays: kernel {i_ms:.3f} ms, plain "
-          f"{i_plain_ms:.1f} ms, bound {i_bound[0]:.4f} ms ({i_bound[1]})  "
-          f"[{card}]", flush=True)
+    i_bytes = 4 * (n * (6 + 3 + moving) + 24 * n_slots)
+    i_scan_bound = bound(n * n_slots * slot_flops(moving), i_bytes)
+    cam_rays, cam_nodes, cam_slots = counts["depth"][0]
+    cam_counts = dict(nodes=cam_nodes / cam_rays, slots=cam_slots / cam_rays)
+    i_walk = walk_flops(n, cam_counts, moving)
+    i_bound = bound(i_walk, i_bytes)
+    print(f"  intersect_only {name}, {n} rays: kernel {i_ms:.4f} ms, plain "
+          f"{i_plain_ms:.1f} ms, bound {i_bound[0]:.4f} ms ({i_bound[1]}; "
+          f"the walk's {cam_counts['nodes']:.2f} node and "
+          f"{cam_counts['slots']:.2f} slot tests a ray, "
+          f"{i_walk / FP32_PEAK * 1e3:.4f} ms of FP32), the scan's "
+          f"{i_scan_bound[0]:.4f} ms ({i_scan_bound[1]})  [{card}]",
+          flush=True)
     st_b, keys_b, _, _ = lane_state(scene, cam, w, h, batch, device)
     for depth in range(5):
         if depth:
@@ -774,11 +877,12 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
         alive = int((st_b[14] > 0.5).sum())
         _, e, _ = intersect_vs_plain(
             f"{name} batch of {batch} after {depth} bounces ({alive} alive)",
-            st_b[0:3], st_b[3:6], st_b[6].contiguous(), sph, moving)
+            st_b[0:3], st_b[3:6], st_b[6].contiguous(), sph, moving, bvh)
         i_err = max(i_err, e)
     return dict(ms=ms, plain_ms=plain_ms, err=err.max().item(),
                 bound=(b_ms, b_by), i_ms=i_ms, i_plain_ms=i_plain_ms,
-                i_err=i_err, i_bound=i_bound)
+                i_err=i_err, i_bound=i_bound, i_scan_bound=i_scan_bound,
+                counts=counts)
 
 
 def hold_to_tile(what, image, n_traced, tile_image, tile_traced):
@@ -1196,16 +1300,21 @@ def motion_tile_phase(device, card):
              mk.pack_bg(scene).to(device))
     kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h,
               spp=MAIN["spp"], max_depth=depth, t_min=1e-3, moving=True)
-    _, traced32 = mk.render_tiles(*packs, **kw)  # warm-up
-    ms = cuda_ms(lambda: mk.render_tiles(*packs, **kw), 3)
+    bvh = tile_bvh(packs)
+    _, traced32 = mk.render_tiles(*packs, bvh=bvh, **kw)  # warm-up
+    ms = cuda_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw), 3)
     n_slots = packs[0].shape[1]
     segments = int(traced32.sum())
-    bnd = bound(segments * n_slots * FLOPS_PER_MOVING_SLOT,
-                4 * (24 * n_slots + 24 + 8) + w * h * (12 + 4))
+    counts = walk_counts(scene, cam, w, h, QUEUE_LANES, device)
+    bnd, scan_bnd = tile_bounds(segments, w * h * MAIN["spp"], n_slots,
+                                counts, True)
+    print(f"  {walk_line('book2chap2', counts, True)}", flush=True)
     print(f"  book2chap2 {w}x{h} {MAIN['spp']}spp d{depth}: tile_render "
           f"{ms:.3f} ms, {segments} segments, bound {bnd[0]:.4f} ms "
-          f"({bnd[1]})  [{card}]", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, err=err.max().item(), bound=bnd)
+          f"({bnd[1]}), the scan's {scan_bnd[0]:.4f} ms ({scan_bnd[1]})  "
+          f"[{card}]", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, err=err.max().item(), bound=bnd,
+                scan_bound=scan_bnd, counts=counts)
 
 
 def motion_cli_phase(device, card):
@@ -1467,8 +1576,19 @@ def main() -> int:
     tile_ms, main_plain_ms, main_err = ms, plain_ms, max_err
     n_slots = tscenes.chap12_scene(8, 8)[0].n_spheres
     n_pix = MAIN["width"] * MAIN["height"]
-    main_bound = bound(nt * n_slots * FLOPS_PER_SLOT,
-                       4 * (24 * n_slots + 24 + 8) + n_pix * (12 + 4))
+    scene3, cam3 = tscenes.chap12_scene(MAIN["width"], MAIN["height"])
+    counts3 = walk_counts(scene3, cam3, MAIN["width"], MAIN["height"],
+                          QUEUE_LANES, device)
+    main_bound, main_scan_bound = tile_bounds(
+        nt, MAIN["width"] * MAIN["height"] * MAIN["spp"], n_slots, counts3,
+        False)
+    print(f"  {walk_line('chap12', counts3, False)}", flush=True)
+    print(f"  tile_render {MAIN['width']}x{MAIN['height']} {MAIN['spp']}spp: "
+          f"{tile_ms:.3f} ms, bound {main_bound[0]:.4f} ms "
+          f"({main_bound[1]}: {nt} segments at the walk's tests a segment, "
+          f"{walk_flops(nt, counts3, False) / FP32_PEAK * 1e3:.4f} ms of "
+          f"FP32, and the draws), the scan's {main_scan_bound[0]:.4f} ms "
+          f"({main_scan_bound[1]})  [{card}]", flush=True)
 
     phases.start("4", "main path: rrt_tpu_torch.cli, chap12 1200x800 32spp d50")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1780,6 +1900,15 @@ def main() -> int:
     def moving(ms, bnd, **extra):
         return dict(moving_ms=ms, moving_bound_ms=bnd[0], **extra)
 
+    def walk(scan_bnd, counts, moving_scan_bnd, moving_counts):
+        # tile_render and intersect_only walk the BVH: bound_ms is the
+        # walk's; the scan's, which they ran before, beside it.
+        return dict(scan_bound_ms=scan_bnd[0],
+                    moving_scan_bound_ms=moving_scan_bnd[0],
+                    walk_tests=[counts["nodes"], counts["slots"]],
+                    moving_walk_tests=[moving_counts["nodes"],
+                                       moving_counts["slots"]])
+
     def probe(name, replaces, launches, err, rows, plain_ms):
         return entry(name, csrc + "probes.cu", replaces, launches, err,
                      rows[0][1], plain_ms, (rows[0][2], "operations"),
@@ -1793,7 +1922,10 @@ def main() -> int:
               "rrt_tpu/ops/megakernel.py:2048", launches, main_err,
               tile_ms, main_plain_ms, main_bound,
               **moving(m_tile["ms"], m_tile["bound"],
-                       moving_launches=m2_launches)),
+                       moving_launches=m2_launches),
+              **walk(main_scan_bound, counts3, m_tile["scan_bound"],
+                     m_tile["counts"]),
+              registers=resources.get("tile_render_kernel")),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
               t5["fwd_err"], t5["fwd_ms"], t5["fwd_plain_ms"],
@@ -1818,7 +1950,9 @@ def main() -> int:
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
               q1["i_ms"], q1["i_plain_ms"], q1["i_bound"],
-              **moving(m_q["i_ms"], m_q["i_bound"])),
+              **moving(m_q["i_ms"], m_q["i_bound"]),
+              **walk(q1["i_scan_bound"], q1["counts"], m_q["i_scan_bound"],
+                     m_q["counts"])),
         entry("chain_bwd", csrc + "chain.cu",
               "rrt_tpu/ops/megakernel_vjp.py:487", c2_launches[1],
               max(c["err"] for c in c1), sum(c["ms"] for c in c1),

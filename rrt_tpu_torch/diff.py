@@ -206,13 +206,14 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
     rad0 = chain(0)
     rad_sum = rad0.detach()
     with torch.no_grad():
-        packs = _packs(scene_d, cam, cfg, device)
+        if chunk < cfg.spp:
+            *packs, bvh = _packs(scene_d, cam, cfg, device, bvh=True)
         for lo in range(chunk, cfg.spp, chunk):
             r, _ = ops_mega.render_tiles(
                 *packs, seed_words=key_words(seed), sample_lo=lo,
                 width=cfg.width, height=cfg.height, spp=chunk,
                 max_depth=cfg.max_depth, t_min=cfg.t_min,
-                moving=scene.has_moving)
+                moving=scene.has_moving, bvh=bvh)
             rad_sum = rad_sum + r
     rs = rad_sum.requires_grad_()
     img = rs.reshape(cfg.height, cfg.width, 3) / float(cfg.spp)

@@ -49,7 +49,15 @@ def _safe_sqrt(x):
 def intersect_spheres(scene, o, d, time, t_min, t_max):
     """Closest valid sphere per ray. o, d: (3,N); time: (N,) the rays'
     times (read when scene.has_moving); t_min, t_max: floats or (N,).
-    Returns (t (N,), idx (N,) int64); misses have t == INF.
+    Returns (t (N,), idx (N,) int64); misses have t == INF."""
+    t_hit = sphere_roots(scene, o, d, time, t_min, t_max)
+    idx = torch.argmin(t_hit, dim=-1)  # the first minimum, like jnp
+    return t_hit.gather(1, idx[:, None])[:, 0], idx
+
+
+def sphere_roots(scene, o, d, time, t_min, t_max):
+    """Every ray's root on every sphere slot, (N,S): INF where the slot
+    is invalid or gives no root in (t_min, t_max).
 
     Root selection matches the reference (src/sphere.rs:79-87): near
     root if inside (t_min, t_max), else far root, else miss. The
@@ -92,9 +100,7 @@ def intersect_spheres(scene, o, d, time, t_min, t_max):
     ok = (disc > 0.0) & scene.sphere_valid[None, :]
     in0 = ok & (root0 > t_min) & (root0 < t_max)
     in1 = ok & (root1 > t_min) & (root1 < t_max)
-    t_hit = torch.where(in0, root0, torch.where(in1, root1, INF))
-    idx = torch.argmin(t_hit, dim=-1)  # the first minimum, like jnp
-    return t_hit.gather(1, idx[:, None])[:, 0], idx
+    return torch.where(in0, root0, torch.where(in1, root1, INF))
 
 
 def make_hit(scene, o, d, time, t, fam, idx) -> Hit:

@@ -131,8 +131,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
-    lib.rrt_tile_render.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i,
-                                    p, p, p]
+    lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, u, u, u, i,
+                                    i, i, i, f, i, p, p, p]
     lib.rrt_tile_render.restype = i
     lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i, i,
                                   p, p, p, p, p]
@@ -142,7 +142,8 @@ def load() -> ctypes.CDLL:
     lib.rrt_train_bwd.restype = i
     lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, i, i, f, i, p]
     lib.rrt_bounce_steps.restype = i
-    lib.rrt_intersect.argtypes = [p, p, p, i, p, i, f, i, p, p, p, p]
+    lib.rrt_intersect.argtypes = [p, p, p, i, p, i, p, p, i, i, i, f, i, p,
+                                  p, p, p]
     lib.rrt_intersect.restype = i
     lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, p, i, i, f, i, p, p,
                                   p, p, p]

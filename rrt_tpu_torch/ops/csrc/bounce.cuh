@@ -3,9 +3,11 @@
 // drivers' kernels (queue.cu), so that all of them run the same
 // arithmetic under the same flags (-fmad=false, see the
 // note on floats in tile_render.cu): Threefry, uniforms, Box-Muller, the
-// thin-lens camera ray, the closest-sphere scan, and the shading step
-// of the winner, which exposes its decisions and intermediates to the
-// backward.
+// thin-lens camera ray, the closest-sphere scan and the BVH walk that
+// gives the scan's (t, winner) bit for bit (tile_render and intersect),
+// the shading step of the winner, which exposes its decisions and
+// intermediates to the backward, and the back-to-back loop over a
+// pixel's samples (trace_pixel: tile_render and train_fwd).
 //
 // Sphere subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary
 // and moving spheres, solid and checker textures, lambertian / metal /
@@ -610,50 +612,247 @@ __device__ __forceinline__ void stage_packs(const float* sph, int n_slots,
   if (tid < 8) bg[tid] = bg_g[tid];
 }
 
-// Trace samples [lo, lo + spp) of pixel (px, py): sample s uses the key
-// threefry2x32(s0, s1, gid, lo + s), the camera draws counter 0 and the
-// scatter draws counter bounce*8+1 (rrt_tpu.rng's addressing, so a
-// path's random numbers are bit-identical to the reference's). Radiance
-// is summed in sample order, bounce by bounce. With kLengths, each
-// path's bounce count goes to lengths[s * n_pix + gid].
-template <bool kLengths, bool kMoving>
-__device__ __forceinline__ void render_pixel(
-    const float* sph, const float4* sph4, const float4* vel4, int n_slots,
-    const float* cam, const float* bg, uint32_t s0, uint32_t s1,
-    uint32_t lo, int px, int py, int width, int n_pix, int spp,
-    int max_depth, float t_min, float* rad, int* traced,
-    uint8_t* lengths) {
+// The closest-sphere scan as trace_pixel's closest-hit functor: sph4 and
+// vel4 as closest_sphere's, csq each slot's staged center_sq (kCsq).
+template <bool kMoving, bool kCsq>
+struct SlotScan {
+  const float4* sph4;
+  const float4* vel4;
+  const float* csq;
+  int n_slots;
+  __device__ __forceinline__ float operator()(const Ray& r, const RayDots& q,
+                                              float t_min, int& win) const {
+    return closest_sphere<kMoving, kCsq>(sph4, vel4, n_slots, r, q, t_min,
+                                         win, csq);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The BVH walk (tile_render and intersect_only)
+// ---------------------------------------------------------------------------
+//
+// rrt_tpu_torch/accel.py builds the tree (pack_bvh) and states the rule
+// that makes the walk's result the scan's bit for bit: every box is
+// padded so that no slot inside a skipped node can produce a root below
+// the best t under this file's arithmetic. On chap12 a segment tests
+// some tens of nodes and slots instead of 512 slots.
+
+// The per-thread stack of far children (the tree's depth may not exceed
+// it: accel.BVH_STACK); rrt_tpu's far pad float32(1 + 2 gamma(3)) of the
+// slab test; the ray's pad, times the L1 norm of its origin
+// (accel.RAY_PAD).
+constexpr int kBvhStack = 32;
+constexpr float kFarPad = 1.00000036f;
+constexpr float kRayPad = 0.00390625f;  // 2^-8
+
+// A block's staged BVH (stage_bvh): nodes, two float4 each (lo.xyz and
+// w0, hi.xyz and w1, w0 and w1 int32 bits; accel.py's layout), and the
+// rows in walk order, the always-tested first: each row's center and
+// r^2, its velocity (kMoving) or its center_sq (static), and its slot.
+struct BvhView {
+  const float4* nodes;
+  const float4* sph4;
+  const float4* vel4;
+  const float* csq;
+  const int* slot;
+  int n_nodes, n_always;
+};
+
+// Shared memory of a staged BVH (accel.BvhPack.smem_bytes).
+inline size_t bvh_bytes(int n_nodes, int n_rows, bool moving) {
+  return 32 * static_cast<size_t>(n_nodes) +
+         static_cast<size_t>(n_rows) * (16 + (moving ? 16 : 4) + 4);
+}
+
+// Stage the BVH of the sphere pack `sph` (24, n_slots) in `smem`: the
+// nodes (n_nodes x 8 f32 in device memory, 16-byte aligned) and the
+// rows of the slots rows_g[0:n_rows]. The same values as stage_spheres
+// and stage_center_sq, so every slot test has the scan's bits.
+template <bool kMoving>
+__device__ __forceinline__ BvhView stage_bvh(const float* sph, int n_slots,
+                                             const float* nodes_g,
+                                             const int* rows_g, int n_nodes,
+                                             int n_rows, int n_always,
+                                             float4* smem) {
+  float4* nodes = smem;
+  float4* sph4 = nodes + 2 * n_nodes;
+  float4* vel4 = kMoving ? sph4 + n_rows : nullptr;
+  float* csq = kMoving ? nullptr : reinterpret_cast<float*>(sph4 + n_rows);
+  int* slot = kMoving ? reinterpret_cast<int*>(vel4 + n_rows)
+                      : reinterpret_cast<int*>(csq + n_rows);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  const float4* src = reinterpret_cast<const float4*>(nodes_g);
+  for (int i = tid; i < 2 * n_nodes; i += n_threads) nodes[i] = src[i];
+  for (int j = tid; j < n_rows; j += n_threads) {
+    const int s = rows_g[j];
+    slot[j] = s;
+    sph4[j] = make_float4(sph[s], sph[n_slots + s], sph[2 * n_slots + s],
+                          sph[kRowR2 * n_slots + s]);
+    if (kMoving) {
+      vel4[j] = make_float4(sph[kRowVel * n_slots + s],
+                            sph[(kRowVel + 1) * n_slots + s],
+                            sph[(kRowVel + 2) * n_slots + s], 0.0f);
+    } else {
+      csq[j] = center_sq(sph[s], sph[n_slots + s], sph[2 * n_slots + s]);
+    }
+  }
+  BvhView b;
+  b.nodes = nodes;
+  b.sph4 = sph4;
+  b.vel4 = vel4;
+  b.csq = csq;
+  b.slot = slot;
+  b.n_nodes = n_nodes;
+  b.n_always = n_always;
+  return b;
+}
+
+// Row j's test: the scan's arithmetic on the same staged values, so the
+// same t; the update keeps the scan's first minimum in slot order.
+template <bool kMoving>
+__device__ __forceinline__ void bvh_test(const BvhView& b, int j,
+                                         const Ray& r, const RayDots& q,
+                                         float t_min, float& t_best,
+                                         int& win) {
+  const float4 c = slot_center<kMoving>(b.sph4, b.vel4, j, r.time);
+  const Quadratic k = kMoving
+                          ? quadratic(r, q, c.x, c.y, c.z, c.w)
+                          : quadratic(r, q, c.x, c.y, c.z, b.csq[j], c.w);
+  if (k.disc > 0.0f) {
+    const float t = nearest_root(k, q, t_min);
+    const int s = b.slot[j];
+    if (t < t_best || (t == t_best && s < win)) {
+      t_best = t;
+      win = s;
+    }
+  }
+}
+
+// Closest sphere by the BVH walk: closest_sphere's (t, win), kInf and 0
+// on a miss. The always-tested rows first, then the tree, near child
+// first by the sign of the ray's direction on the split axis; a node is
+// skipped only when its slab test misses or its near distance exceeds
+// the best t (times kFarPad), so a tied lower slot is still reached.
+template <bool kMoving>
+__device__ __forceinline__ float closest_sphere_bvh(const BvhView& b,
+                                                    const Ray& r,
+                                                    const RayDots& q,
+                                                    float t_min, int& win) {
+  float t_best = kInf;
+  win = 0;
+  for (int j = 0; j < b.n_always; ++j) {
+    bvh_test<kMoving>(b, j, r, q, t_min, t_best, win);
+  }
+  if (b.n_nodes == 0) return t_best;
+  const float pad = kRayPad * (fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz));
+  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
+  const float px = r.ox + pad, py = r.oy + pad, pz = r.oz + pad;
+  const float mx = r.ox - pad, my = r.oy - pad, mz = r.oz - pad;
+  int stack[kBvhStack];
+  int sp = 0, node = 0;
+  for (;;) {
+    const float4 lo = b.nodes[2 * node];
+    const float4 hi = b.nodes[2 * node + 1];
+    const float ax = (lo.x - px) * ix, bx = (hi.x - mx) * ix;
+    const float ay = (lo.y - py) * iy, by = (hi.y - my) * iy;
+    const float az = (lo.z - pz) * iz, bz = (hi.z - mz) * iz;
+    const float t_near = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)),
+                               fmaxf(fminf(az, bz), t_min));
+    const float t_far = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)),
+                              fminf(fmaxf(az, bz), t_best)) *
+                        kFarPad;
+    if (t_near <= t_far) {
+      const int w0 = __float_as_int(lo.w), w1 = __float_as_int(hi.w);
+      if (w1 < 0) {  // inner: left child node + 1, right w0, axis -1 - w1
+        const int axis = -1 - w1;
+        const float dir = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+        stack[sp++] = dir < 0.0f ? node + 1 : w0;
+        node = dir < 0.0f ? w0 : node + 1;
+        continue;
+      }
+      for (int j = w0; j < w0 + w1; ++j) {  // leaf: rows w0 .. w0 + w1
+        bvh_test<kMoving>(b, j, r, q, t_min, t_best, win);
+      }
+    }
+    if (sp == 0) break;
+    node = stack[--sp];
+  }
+  return t_best;
+}
+
+// The walk as trace_pixel's closest-hit functor.
+template <bool kMoving>
+struct BvhWalk {
+  BvhView b;
+  __device__ __forceinline__ float operator()(const Ray& r, const RayDots& q,
+                                              float t_min, int& win) const {
+    return closest_sphere_bvh<kMoving>(b, r, q, t_min, win);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// A pixel's samples, back to back (tile_render and train_fwd)
+// ---------------------------------------------------------------------------
+
+// Trace samples [lo, lo + spp) of pixel (px, py), gid = py * width + px,
+// back to back: one loop over segments that starts sample s + 1's
+// camera ray as soon as sample s misses, is absorbed or reaches
+// max_depth, as the TPU kernel regenerates a dead path, so a warp waits
+// for its slowest pixel's total rather than for each sample's longest
+// path. Sample s uses the key threefry2x32(s0, s1, gid, lo + s), the
+// camera draws counter 0 and the scatter draws counter bounce*8+1
+// (rrt_tpu.rng's addressing, so a path's random numbers are
+// bit-identical to the reference's). Radiance is summed in sample order,
+// bounce by bounce. `closest` finds each segment's closest hit
+// (SlotScan or BvhWalk: the same (t, win) bit for bit). With kResidual
+// (train_fwd) it keeps the backward's residual: each path's bounce
+// count in lengths[s * n_pix + gid], and the winner of the pixel's j-th
+// segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss).
+template <bool kMoving, bool kResidual, typename Closest>
+__device__ __forceinline__ void trace_pixel(
+    const Closest& closest, const float* sph, int n_slots, const float* cam,
+    const float* bg, uint32_t s0, uint32_t s1, uint32_t lo, int px, int py,
+    int width, int n_pix, int spp, int max_depth, float t_min, int win_cap,
+    float* rad, int* traced, uint8_t* lengths, int16_t* winners) {
   const uint32_t gid = static_cast<uint32_t>(py * width + px);
   const bool sky = bg[6] < 0.5f;  // BG_SKY == 0
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  int n_traced = 0;
-  for (int s = 0; s < spp; ++s) {
-    uint32_t k0, k1;
-    threefry2x32(s0, s1, gid, lo + static_cast<uint32_t>(s), k0, k1);
-    Path p;
-    p.ray = camera_ray(cam, camera_draws(k0, k1), static_cast<float>(px),
-                       static_cast<float>(py));
-    p.thr[0] = p.thr[1] = p.thr[2] = 1.0f;
-    int n_bounces = 0;
-    for (int bounce = 0; bounce <= max_depth; ++bounce) {
-      ++n_traced;
-      ++n_bounces;
-      float c[3];
-      int win;
-      const int out =
-          bounce_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky, k0, k1,
-                               bounce, max_depth, t_min, p, c, win);
-      if (out == kMissed) {
-        acc_r += c[0];
-        acc_g += c[1];
-        acc_b += c[2];
-      }
-      if (out != kScattered) break;
+  int n_traced = 0;  // also the next segment's winner entry
+  int s = 0, bounce = 0;
+  uint32_t k0, k1;
+  Path p;
+  start_path(cam, s0, s1, gid, lo, px, py, k0, k1, p);
+  for (;;) {
+    float c[3];
+    int win;
+    const RayDots q = ray_dots(p.ray);
+    const float t_best = closest(p.ray, q, t_min, win);
+    const int out = finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1,
+                                           bounce, max_depth, q, t_best, p,
+                                           c, win);
+    if (kResidual && n_traced < win_cap) {
+      winners[static_cast<size_t>(n_traced) * n_pix + gid] =
+          static_cast<int16_t>(win);
     }
-    if (kLengths) {
+    ++n_traced;
+    if (out == kMissed) {
+      acc_r += c[0];
+      acc_g += c[1];
+      acc_b += c[2];
+    }
+    if (out == kScattered) {
+      ++bounce;
+      continue;
+    }
+    if (kResidual) {
       lengths[static_cast<size_t>(s) * n_pix + gid] =
-          static_cast<uint8_t>(n_bounces);
+          static_cast<uint8_t>(bounce + 1);
     }
+    if (++s == spp) break;
+    bounce = 0;
+    start_path(cam, s0, s1, gid, lo + static_cast<uint32_t>(s), px, py, k0,
+               k1, p);
   }
   rad[3 * gid + 0] = acc_r;
   rad[3 * gid + 1] = acc_g;

@@ -16,13 +16,15 @@
 // (bounce_steps, intersect_only) and the plain PyTorch versions
 // (bounce_steps_reference, intersect_only_reference).
 //
-// What bounds them: arithmetic, as tile_render. Each bounce tests the ray
-// against every sphere slot (at least 17 FP32 operations a slot, 23 for
-// a moving one, 512 slots on chap12 and book2chap2), while a lane moves
-// 136 bytes (16 state rows and 2 key words read, 16 rows written) for
-// bounce_steps and 36 bytes (o and d read; t, family and slot written;
-// 40 with the time) for intersect.
-// The sphere rows are staged in shared memory as in tile_render.
+// What bounds them: arithmetic, as tile_render. bounce_steps tests each
+// bounce's ray against every sphere slot (at least 17 FP32 operations a
+// slot, 23 for a moving one, 512 slots on chap12 and book2chap2), on
+// sphere rows staged in shared memory; a lane moves 136 bytes (16 state
+// rows and 2 key words read, 16 rows written). intersect walks
+// tile_render's BVH instead (bounce.cuh closest_sphere_bvh, the scan's
+// (t, slot) bit for bit), staged in shared memory with each static
+// slot's |c|^2; a ray moves 36 bytes (o and d read; t, family and slot
+// written; 40 with the time).
 //
 // Design, against the TPU kernels:
 //  * one thread per lane, 256 lanes a block; the state is (16, Q)
@@ -121,19 +123,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // o, d: (3, Q) rows x y z of the rays' origins and directions; time:
-// (Q,) the rays' times (kMoving only). The media family, which this
-// kernel does not cover yet, will also need each ray's bounce.
+// (Q,) the rays' times (kMoving only); the BVH as tile_render's. The
+// media family, which this kernel does not cover yet, will also need
+// each ray's bounce.
 template <bool kMoving>
 __global__ void __launch_bounds__(kThreads)
     intersect_kernel(const float* __restrict__ o,
                      const float* __restrict__ d,
                      const float* __restrict__ time, int q,
-                     const float* __restrict__ sph, int n_slots, float t_min,
-                     float* __restrict__ t_out, int* __restrict__ fam_out,
-                     int* __restrict__ idx_out) {
-  extern __shared__ float4 sph4[];
-  float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
-  stage_spheres(sph, n_slots, sph4, vel4);
+                     const float* __restrict__ sph, int n_slots,
+                     const float* __restrict__ nodes_g,
+                     const int* __restrict__ rows_g, int n_nodes, int n_rows,
+                     int n_always, float t_min, float* __restrict__ t_out,
+                     int* __restrict__ fam_out, int* __restrict__ idx_out) {
+  extern __shared__ float4 smem[];
+  const BvhView b = stage_bvh<kMoving>(sph, n_slots, nodes_g, rows_g,
+                                       n_nodes, n_rows, n_always, smem);
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -148,8 +153,7 @@ __global__ void __launch_bounds__(kThreads)
   r.dz = d[2 * n + lane];
   r.time = kMoving ? time[lane] : 0.0f;
   int win;
-  const float t = closest_sphere<kMoving>(sph4, vel4, n_slots, r,
-                                          ray_dots(r), t_min, win);
+  const float t = closest_sphere_bvh<kMoving>(b, r, ray_dots(r), t_min, win);
   t_out[lane] = t;
   fam_out[lane] = t < kInf ? 0 : -1;  // sphere family, or a miss
   idx_out[lane] = win;                // 0 on a miss
@@ -189,18 +193,24 @@ extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
 }
 
 // o, d: (3, q) f32; time: (q,) f32 when moving (else unused, may be
-// null); outputs t (q,) f32, fam (q,) i32, idx (q,) i32.
+// null); the BVH as rrt_tile_render's; outputs t (q,) f32, fam (q,) i32,
+// idx (q,) i32.
 extern "C" int rrt_intersect(const float* o, const float* d,
                              const float* time, int q, const float* sph,
-                             int n_slots, float t_min, int moving, float* t,
-                             int* fam, int* idx, void* stream) {
+                             int n_slots, const float* nodes, const int* rows,
+                             int n_nodes, int n_rows, int n_always,
+                             float t_min, int moving, float* t, int* fam,
+                             int* idx, void* stream) {
   if (q == 0) return 0;
   auto kernel = moving ? intersect_kernel<true> : intersect_kernel<false>;
-  size_t smem;
-  const int err = set_smem(kernel, n_slots, moving != 0, smem);
-  if (err != 0) return err;
+  const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      o, d, time, q, sph, n_slots, t_min, t, fam, idx);
+      o, d, time, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
+      t_min, t, fam, idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,30 +11,38 @@
 // rrt_tpu_torch/ops/megakernel.py holds the wrapper (render_tiles), the
 // packs' layouts and the plain PyTorch version (render_tiles_reference).
 //
-// What bounds it: arithmetic. Each bounce tests the ray against every
-// sphere slot (about 25 FLOPs a slot, 512 slots on chap12), while the whole
-// sphere pack is 24 x 512 x 4 B = 48 KB and stays on chip: the four
-// intersection rows are staged in shared memory (8 KB on chap12), and the
-// winner's shading rows are one cached load of column `win`. A pixel
-// writes 16 bytes once. This first version makes no attempt at speed: one
-// thread per pixel, a linear scan of all slots (no BVH, no culling), no
-// ray sorting or regrouping of divergent paths.
+// What bounds it: arithmetic, the closest-sphere test of every segment,
+// while the whole sphere pack is 24 x 512 x 4 B = 48 KB and stays on
+// chip, and a pixel writes 16 bytes once. A linear scan tests every
+// slot (17 FP32 operations a slot, 23 moving, 512 slots on chap12);
+// this kernel walks a BVH instead (bounce.cuh closest_sphere_bvh, built
+// by rrt_tpu_torch/accel.py's pack_bvh), whose padded boxes make its
+// (t, winner) the scan's bit for bit, so it renders the paths of
+// train_fwd, which scans.
 //
 // Design, against the TPU kernel:
 //  * one thread per pixel in 16x16 blocks, so a warp's primary rays are
 //    coherent; the thread traces its pixel's spp samples back to back
-//    (the TPU lane's regenerate-on-death loop becomes a plain loop);
+//    (bounce.cuh trace_pixel, train_fwd's loop: the TPU lane's
+//    regenerate-on-death loop), so a warp waits for its slowest pixel's
+//    total, not for each sample's longest path;
+//  * the BVH's nodes and its rows in walk order (center and r^2, each
+//    static slot's |c|^2 staged once, the velocity rows when moving)
+//    sit in dynamic shared memory; a thread walks them with a stack of
+//    far children, near child first, after testing the few slots too
+//    large to box usefully (chap12's ground sphere); rrt_tpu's kernel
+//    culled whole tiles of slots by their boxes instead, the TPU's
+//    answer to the reference's BVH walk;
+//  * __launch_bounds__(256, 4): 64 registers, 4 blocks an SM;
 //  * sample s uses the key threefry2x32(s0, s1, gid, lo + s), the camera
 //    draws counter 0 and the scatter draws counter bounce*8+1, word pair
 //    p at pair*0x9E3779B9+pair: the same addressing as rrt_tpu.rng, so a
 //    path's random numbers are bit-identical to the reference's;
-//  * the closest hit is a strict `<` running minimum over the slots in
-//    order, the first minimum winning like argmin; the winner's
-//    attributes are a direct load, not the TPU's one-hot MXU select;
+//  * the closest hit is the first minimum over the slots in slot order,
+//    like argmin; the winner's attributes are a direct load, not the
+//    TPU's one-hot MXU select;
 //  * radiance is summed per pixel in sample order, bounce by bounce, with
 //    no atomics, so a run is deterministic.
-// The bounce itself (Threefry, camera ray, closest-sphere scan, shading)
-// lives in bounce.cuh, which the train kernels (train.cu) share.
 // Floats: built with -fmad=false (ops/_build.py). The expanded sphere
 // quadratic cancels catastrophically on the radius-1000 ground sphere,
 // and contracting its mul+add pairs into FMAs changes where rays leaving
@@ -51,55 +59,64 @@
 namespace {
 
 template <bool kMoving>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 4)
     tile_render_kernel(const float* __restrict__ sph, int n_slots,
                        const float* __restrict__ cam_g,
-                       const float* __restrict__ bg_g, uint32_t s0,
-                       uint32_t s1, uint32_t lo, int width, int height,
-                       int spp, int max_depth, float t_min,
-                       float* __restrict__ rad, int* __restrict__ traced) {
-  extern __shared__ float4 sph4[];
-  float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
+                       const float* __restrict__ bg_g,
+                       const float* __restrict__ nodes_g,
+                       const int* __restrict__ rows_g, int n_nodes,
+                       int n_rows, int n_always, uint32_t s0, uint32_t s1,
+                       uint32_t lo, int width, int height, int spp,
+                       int max_depth, float t_min, float* __restrict__ rad,
+                       int* __restrict__ traced) {
+  extern __shared__ float4 smem[];
   __shared__ float cam[24];
   __shared__ float bg[8];
-  stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
+  const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
+      sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if (tid < 24) cam[tid] = cam_g[tid];
+  if (tid < 8) bg[tid] = bg_g[tid];
   __syncthreads();
 
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  render_pixel<false, kMoving>(sph, sph4, vel4, n_slots, cam, bg, s0, s1,
-                               lo, px, py, width, width * height, spp,
-                               max_depth, t_min, rad, traced, nullptr);
+  trace_pixel<kMoving, false>(walk, sph, n_slots, cam, bg, s0, s1, lo, px,
+                              py, width, width * height, spp, max_depth,
+                              t_min, 0, rad, traced, nullptr, nullptr);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-// sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32 on the device;
+// sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32, and the BVH
+// (accel.BvhPack): nodes (n_nodes, 8) f32, rows (n_rows,) i32 of which
+// the first n_always are tested by every segment, all on the device;
 // moving: nonzero for the moving-sphere variant; rad: (width*height, 3)
 // f32 and traced: (width*height,) i32 outputs.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
-                               const float* cam, const float* bg, uint32_t s0,
-                               uint32_t s1, uint32_t lo, int width, int height,
-                               int spp, int max_depth, float t_min,
-                               int moving, float* rad, int* traced,
-                               void* stream) {
+                               const float* cam, const float* bg,
+                               const float* nodes, const int* rows,
+                               int n_nodes, int n_rows, int n_always,
+                               uint32_t s0, uint32_t s1, uint32_t lo,
+                               int width, int height, int spp, int max_depth,
+                               float t_min, int moving, float* rad,
+                               int* traced, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
-  const size_t smem = staged_bytes(n_slots, moving != 0);
-  // MAX_SLOTS (3072) slots stage 48 KB (96 KB moving), which with the
-  // static cam/bg arrays passes the 48 KB a block gets without the
-  // opt-in.
+  const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
+  // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
+  // what the card allows.
   auto kernel = moving ? tile_render_kernel<true> : tile_render_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      sph, n_slots, cam, bg, s0, s1, lo, width, height, spp, max_depth, t_min,
-      rad, traced);
+      sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always, s0, s1,
+      lo, width, height, spp, max_depth, t_min, rad, traced);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,12 +10,10 @@
 // TileTrainChain) and their plain PyTorch versions.
 //
 // train_fwd: one thread a pixel (16x16 blocks) traces its samples back
-// to back: one loop over segments that starts sample s + 1's camera ray
-// as soon as sample s misses, is absorbed or reaches max_depth
-// (trace_pixel), as the TPU kernel regenerates a dead path. Radiance is
-// summed in tile_render's order (sample by sample, bounce by bounce) by
-// the same bounce.cuh code, so rad and traced are tile_render's bit for
-// bit. It keeps the residual the backward needs:
+// to back through bounce.cuh's trace_pixel, tile_render's loop, with
+// the closest-sphere scan where tile_render walks its BVH (the same
+// winners and t bit for bit), so rad and traced are tile_render's bit
+// for bit. It keeps the residual the backward needs:
 //  * lengths[s * P + pixel], each path's executed bounce count (uint8);
 //  * winners[j * P + pixel], the winning slot of the pixel's j-th
 //    segment in trace order (int16, -1 on a miss), for j < win_cap
@@ -111,62 +109,6 @@ inline size_t fwd_smem(int n_slots, bool moving) {
          (moving ? 0 : sizeof(float) * n_slots);
 }
 
-// Trace samples [lo, lo + spp) of pixel (px, py) back to back, as
-// render_pixel's radiance and traced counts, and keep the residual:
-// each path's bounce count in lengths[s * n_pix + gid], and the winner
-// of the pixel's j-th segment in winners[j * n_pix + gid] for j < win_cap.
-// With kHoist, csq holds each slot's center_sq (static spheres).
-template <bool kMoving, bool kHoist>
-__device__ __forceinline__ void trace_pixel(
-    const float* sph, const float4* sph4, const float4* vel4,
-    const float* csq, int n_slots, const float* cam, const float* bg,
-    uint32_t s0, uint32_t s1, uint32_t lo, int px, int py, int width,
-    int n_pix, int spp, int max_depth, float t_min, int win_cap, float* rad,
-    int* traced, uint8_t* lengths, int16_t* winners) {
-  const uint32_t gid = static_cast<uint32_t>(py * width + px);
-  const bool sky = bg[6] < 0.5f;  // BG_SKY == 0
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  int n_traced = 0;  // also the next segment's winner entry
-  int s = 0, bounce = 0;
-  uint32_t k0, k1;
-  Path p;
-  start_path(cam, s0, s1, gid, lo, px, py, k0, k1, p);
-  for (;;) {
-    float c[3];
-    int win;
-    const RayDots q = ray_dots(p.ray);
-    const float t_best = closest_sphere<kMoving, kHoist>(
-        sph4, vel4, n_slots, p.ray, q, t_min, win, csq);
-    const int out = finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1,
-                                           bounce, max_depth, q, t_best, p,
-                                           c, win);
-    if (n_traced < win_cap) {
-      winners[static_cast<size_t>(n_traced) * n_pix + gid] =
-          static_cast<int16_t>(win);
-    }
-    ++n_traced;
-    if (out == kMissed) {
-      acc_r += c[0];
-      acc_g += c[1];
-      acc_b += c[2];
-    }
-    if (out == kScattered) {
-      ++bounce;
-      continue;
-    }
-    lengths[static_cast<size_t>(s) * n_pix + gid] =
-        static_cast<uint8_t>(bounce + 1);
-    if (++s == spp) break;
-    bounce = 0;
-    start_path(cam, s0, s1, gid, lo + static_cast<uint32_t>(s), px, py, k0,
-               k1, p);
-  }
-  rad[3 * gid + 0] = acc_r;
-  rad[3 * gid + 1] = acc_g;
-  rad[3 * gid + 2] = acc_b;
-  traced[gid] = n_traced;
-}
-
 template <bool kMoving>
 __global__ void __launch_bounds__(256, kFwdMinBlocks)
     train_fwd_kernel(const float* __restrict__ sph, int n_slots,
@@ -193,10 +135,10 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  trace_pixel<kMoving, kHoist>(sph, sph4, vel4, csq, n_slots, cam, bg, s0,
-                               s1, lo, px, py, width, width * height, spp,
-                               max_depth, t_min, win_cap, rad, traced,
-                               lengths, winners);
+  const SlotScan<kMoving, kHoist> scan{sph4, vel4, csq, n_slots};
+  trace_pixel<kMoving, true>(scan, sph, n_slots, cam, bg, s0, s1, lo, px, py,
+                             width, width * height, spp, max_depth, t_min,
+                             win_cap, rad, traced, lengths, winners);
 }
 
 // Adjoint of camera_ray: the cotangents of the bounce-0 origin,

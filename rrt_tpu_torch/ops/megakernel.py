@@ -1,7 +1,9 @@
 """The forward kernels' packs, wrappers and plain versions.
 
 Three CUDA kernels, each beside its plain PyTorch version, which tensors
-on the CPU run instead:
+on the CPU run instead (tile_render and intersect walk the sphere pack's
+BVH, rrt_tpu_torch/accel.py, which their callers build once a pack;
+the plain versions scan, the same function):
 
   `render_tiles`   every pixel's samples in one launch
                    (csrc/tile_render.cu), the counterpart of rrt_tpu's
@@ -40,7 +42,7 @@ scene runs the static variant, whose arithmetic reads no time.
 
 import torch
 
-from .. import rng
+from .. import accel, rng
 from . import _build
 from ..camera import thin_lens_rays
 from ..scene import MAT_DIELECTRIC, SceneArrays, tensor_fields
@@ -152,19 +154,41 @@ def _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth):
                          f"max_depth={max_depth}")
 
 
+def _check_bvh(bvh, sph24, what: str):
+    """The BVH pack a walking kernel takes on the card: accel.pack_bvh's
+    of this sphere pack, on its device."""
+    if bvh is None:
+        raise ValueError(f"{what} on {sph24.device} needs the sphere pack's "
+                         f"BVH (accel.pack_bvh)")
+    if bvh.n_slots != sph24.shape[1] or bvh.nodes.device != sph24.device \
+            or bvh.rows.device != sph24.device:
+        raise ValueError(f"the BVH is of {bvh.n_slots} slots on "
+                         f"{bvh.nodes.device}, sph24 ({sph24.shape[1]}) on "
+                         f"{sph24.device}")
+    if bvh.depth > accel.BVH_STACK:
+        raise ValueError(f"the BVH is {bvh.depth} levels deep, past the "
+                         f"kernels' stack of {accel.BVH_STACK}")
+    return (bvh.nodes.data_ptr(), bvh.rows.data_ptr(), bvh.n_nodes,
+            bvh.n_rows, bvh.n_always)
+
+
 def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                  width: int, height: int, spp: int, max_depth: int,
-                 t_min: float, moving: bool):
+                 t_min: float, moving: bool, bvh=None):
     """Render samples [sample_lo, sample_lo + spp) of every pixel.
 
     sph24 (24,S), cam24 (24,) and bg8 (8,) are the packs, all on one
     device; seed_words: the (s0, s1) u32 key words of the seed; moving:
-    the moving-sphere variant (the scene's has_moving).
+    the moving-sphere variant (the scene's has_moving); bvh: the sphere
+    pack's accel.BvhPack on the same device, its shutter the camera's
+    (cam24 rows 19-20), which the kernel walks: required on a CUDA
+    device, not read on the CPU.
     Returns (radiance sums (P,3) f32 in scan-line order, traced-ray
     counts (P,) int32), P = width * height, on the packs' device.
 
     CUDA tensors launch the kernel (and count the launch in
-    `render_tiles.launches`); CPU tensors run render_tiles_reference."""
+    `render_tiles.launches`); CPU tensors run render_tiles_reference,
+    whose linear scan gives the walk's winners."""
     _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
@@ -178,6 +202,7 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     if n_slots > MAX_SLOTS:
         raise ValueError(f"{n_slots} sphere slots exceed the kernel's "
                          f"{MAX_SLOTS}")
+    tree = _check_bvh(bvh, sph24, "render_tiles")
     lib = _build.load()
     n_pix = width * height
     rad = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
@@ -187,8 +212,9 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rrt_tile_render(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
-            s0, s1, sample_lo & rng.MASK32, width, height, spp, max_depth,
-            t_min, int(moving), rad.data_ptr(), traced.data_ptr(), stream)
+            *tree, s0, s1, sample_lo & rng.MASK32, width, height, spp,
+            max_depth, t_min, int(moving), rad.data_ptr(), traced.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError("tile_render launch failed: "
                            + lib.rrt_error_string(err).decode())
@@ -463,7 +489,7 @@ def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
 # ---------------------------------------------------------------------------
 
 
-def intersect_only(o, d, sph24, *, t_min: float, time=None):
+def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None):
     """Closest sphere of each ray. o, d: (3, Q) f32 rows x y z of the
     rays' origins and directions; time: None for a static scene, or for
     moving spheres (Q,) f32 the rays' times, a sphere's center then being
@@ -473,10 +499,14 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None):
     d and time, so this kernel takes (3, Q) rows and a (Q,) time).
     Returns (t (Q,) f32, INF on a miss; fam (Q,) int32, 0 for a sphere,
     -1 on a miss; idx (Q,) int32, the winning slot, 0 on a miss):
-    rrt_tpu's intersect_all contract.
+    rrt_tpu's intersect_all contract. bvh: the sphere pack's
+    accel.BvhPack on the rays' device, its shutter covering the rays'
+    times, which the kernel walks: required on a CUDA device, not read on
+    the CPU.
 
     CUDA tensors launch the kernel (counted in `intersect_only.launches`);
-    CPU tensors run intersect_only_reference."""
+    CPU tensors run intersect_only_reference, whose linear scan gives the
+    walk's (t, fam, idx)."""
     device = _check_spheres(sph24)
     _check_lanes("o", o, 3, torch.float32, device)
     _check_lanes("d", d, 3, torch.float32, device)
@@ -492,6 +522,7 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None):
                          f"on {device}")
     if device.type == "cpu":
         return intersect_only_reference(o, d, sph24, t_min=t_min, time=time)
+    tree = _check_bvh(bvh, sph24, "intersect_only")
     t = torch.empty((q,), dtype=torch.float32, device=device)
     fam = torch.empty((q,), dtype=torch.int32, device=device)
     idx = torch.empty((q,), dtype=torch.int32, device=device)
@@ -499,7 +530,7 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None):
     with torch.cuda.device(device):
         err = lib.rrt_intersect(
             o.data_ptr(), d.data_ptr(), time.data_ptr() if moving else None,
-            q, sph24.data_ptr(), sph24.shape[1], t_min, int(moving),
+            q, sph24.data_ptr(), sph24.shape[1], *tree, t_min, int(moving),
             t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "intersect_only")

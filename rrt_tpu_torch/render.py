@@ -36,7 +36,7 @@ import logging
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import rng
+from . import accel, rng
 from .camera import generate_rays
 from .geometry import (FAM_NONE, FAM_SPHERE, INF, Hit, intersect_spheres,
                        make_hit)
@@ -114,7 +114,8 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
     else:
         t, fam, idx = ops_mega.intersect_only(
             o.contiguous(), d.contiguous(), packed["sph24"], t_min=t_min,
-            time=time.contiguous() if scene.has_moving else None)
+            time=time.contiguous() if scene.has_moving else None,
+            bvh=packed["bvh"])
         idx = idx.long()
     hit_mask = (t < INF) & alive
     miss_mask = alive & ~hit_mask
@@ -155,12 +156,21 @@ def _check_device(device) -> torch.device:
     return device
 
 
-def _packs(scene: SceneArrays, camera, cfg: RenderConfig, device):
+def _packs(scene: SceneArrays, camera, cfg: RenderConfig, device, *,
+           bvh: bool = False):
     """The kernels' sphere, camera and background packs on `device`,
-    differentiable functions of the scene and camera."""
-    return (ops_mega.pack_spheres_full(scene).to(device),
-            ops_mega.pack_camera(camera, cfg.width, cfg.height).to(device),
-            ops_mega.pack_bg(scene).to(device))
+    differentiable functions of the scene and camera; with bvh, also
+    the sphere pack's accel.BvhPack over the camera's shutter, which
+    tile_render walks (built on the host: one device-to-host copy of the
+    spheres; the train kernels scan and need none)."""
+    packs = (ops_mega.pack_spheres_full(scene).to(device),
+             ops_mega.pack_camera(camera, cfg.width, cfg.height).to(device),
+             ops_mega.pack_bg(scene).to(device))
+    if not bvh:
+        return packs
+    cam24 = packs[1].detach().cpu()
+    shutter = (cam24[19], cam24[19] + cam24[20])  # the kernel's ray times
+    return (*packs, accel.pack_bvh(packs[0], shutter))
 
 
 def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
@@ -171,11 +181,13 @@ def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     (P,3) in scan-line order, n_traced) with P = width * height."""
     ops_mega.check_scope(scene, cfg.rr_depth)
     device = _check_device(device)
+    sph24, cam24, bg8, bvh = _packs(scene, camera, cfg, device, bvh=True)
     rad, traced = ops_mega.render_tiles(
-        *_packs(scene, camera, cfg, device), seed_words=rng.key_words(seed),
+        sph24, cam24, bg8, seed_words=rng.key_words(seed),
         sample_lo=sample_lo, width=cfg.width, height=cfg.height,
         spp=cfg.spp if n_samples is None else n_samples,
-        max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving)
+        max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving,
+        bvh=bvh)
     return rad, traced.sum()
 
 
@@ -284,10 +296,22 @@ def render_image_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
 # ---------------------------------------------------------------------------
 
 
-def pack_scene(scene: SceneArrays, device):
-    """The intersect kernel's packs on `device`. Only the sphere family
-    is ported (quads and media: ROADMAP Queue A #9.2 and #9.4)."""
-    return {"sph24": ops_mega.pack_spheres_full(scene).to(device)}
+def pack_scene(scene: SceneArrays, device, shutter=None):
+    """The intersect kernel's packs on `device`: the sphere pack and its
+    accel.BvhPack, whose boxes cover the moving spheres over `shutter`
+    (time0, time1), the interval of the rays' times (required when the
+    scene moves). Built once a render and passed to every bounce's
+    intersect_only; a pack of changed spheres needs a new one. Only the
+    sphere family is ported (quads and media: ROADMAP Queue A #9.2 and
+    #9.4)."""
+    sph24 = ops_mega.pack_spheres_full(scene).to(device)
+    return {"sph24": sph24, "bvh": accel.pack_bvh(sph24, shutter)}
+
+
+def _shutter(camera):
+    """The camera's shutter (time0, time1), which its rays' times lie in
+    (camera.thin_lens_rays)."""
+    return (float(camera.time0), float(camera.time1))
 
 
 def _bounce_body(scene: SceneArrays, t_min, keys, o, d, time, thr, rad,
@@ -391,7 +415,8 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
                       ops.megakernel.intersect_only (its kernel for rays
                       on a CUDA device, its plain version on the CPU), on
                       packed = pack_scene(scene, o.device), made here
-                      when not given;
+                      when not given, over the rays' own range of times
+                      (one device-to-host read);
       differentiable  the scan: each bounce under
                       torch.utils.checkpoint, so only the carry between
                       bounces is kept and the bounce is recomputed in
@@ -410,7 +435,8 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
     if differentiable:
         packed = None
     elif packed is None:
-        packed = pack_scene(scene, o.device)
+        packed = pack_scene(scene, o.device, (time.min(), time.max())
+                            if scene.has_moving else None)
     body = functools.partial(_bounce_body, scene, t_min, keys,
                              max_depth=max_depth, packed=packed)
     alive = torch.ones((o.shape[1],), dtype=torch.bool, device=o.device)
@@ -428,10 +454,13 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
 
 
 def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
-                pass_start: int, n_passes: int, differentiable: bool = False):
+                pass_start: int, n_passes: int, differentiable: bool = False,
+                packed=None):
     """Render one tile of pixels (px, py: (P,) on the scene's device)
     with n_passes sample passes through the batch driver. Pass i covers
     samples [(pass_start+i)*spc, ...+spc), spc = cfg.samples_per_pass.
+    packed: pack_scene's dict over the camera's shutter (render_image
+    makes it once an image), made here when not given.
     differentiable: each pass through trace_batch's bounce chain
     (trace_batch_fused) when ops_vjp.supports_backward(scene), else its
     checkpointed scan; rrt_tpu also requires a TPU and tile-aligned
@@ -443,7 +472,10 @@ def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     gid = pyr * cfg.width + pxr
     replica = torch.arange(spc, device=px.device).repeat_interleave(p_count)
     seed_words = rng.key_words(seed)
-    packed = None if differentiable else pack_scene(scene, px.device)
+    if differentiable:
+        packed = None
+    elif packed is None:
+        packed = pack_scene(scene, px.device, _shutter(camera))
     fused_vjp = differentiable and ops_vjp.supports_backward(scene)
     acc = torch.zeros((p_count, 3), dtype=torch.float32, device=px.device)
     n_traced = torch.zeros((), dtype=torch.int64, device=px.device)
@@ -489,10 +521,12 @@ def render_image(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     scene, camera = scene.to(device), camera.to(device)
     if n_passes is None:
         n_passes = cfg.spp // cfg.samples_per_pass
+    packed = None if differentiable else pack_scene(scene, device,
+                                                    _shutter(camera))
     rads, n_traced = [], 0
     for px, py in _tile_coords(cfg, device):
         r, n = render_tile(scene, camera, px, py, cfg, seed, pass_start,
-                           n_passes, differentiable)
+                           n_passes, differentiable, packed=packed)
         rads.append(r)
         n_traced = n_traced + n
     rad = torch.cat(rads)

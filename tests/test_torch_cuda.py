@@ -10,7 +10,8 @@ PyTorch is installed:
 Each kernel is held against its plain PyTorch version on the same
 packs. tile_render: the tolerance of tests/test_torch_slice.py,
 per-pixel mean |delta| < 1e-3 on >= 98.5% of pixels, traced totals
-within 1%. train_fwd: tile_render's outputs bit for bit, and its
+within 1%; its BVH walk gives train_fwd's scan's paths bit for bit.
+train_fwd: tile_render's outputs bit for bit, and its
 winners the plain version's on every path that agrees. train_bwd,
 bounce_steps, intersect_only and chain_bwd: the tolerances stated in
 each test."""
@@ -20,7 +21,7 @@ import dataclasses
 import pytest
 import torch
 
-from rrt_tpu_torch import cli
+from rrt_tpu_torch import accel, cli
 from rrt_tpu_torch import scenes as tscenes
 from rrt_tpu_torch.camera import Camera
 from rrt_tpu_torch.ops import megakernel as tmk
@@ -62,6 +63,18 @@ def _packs(device, name="chap12", w=64, h=32):
             tmk.pack_bg(scene).to(device))
 
 
+def _tree(sph, cam=None):
+    """The sphere pack's BVH, which tile_render and intersect_only walk,
+    over the camera pack's shutter (rows 19-20)."""
+    shutter = None if cam is None else (cam[19], cam[19] + cam[20])
+    return accel.pack_bvh(sph, shutter)
+
+
+def _tiles(packs, **kw):
+    """render_tiles on the packs (sph, cam, bg) with their BVH."""
+    return tmk.render_tiles(*packs, bvh=_tree(packs[0], packs[1]), **kw)
+
+
 def _kw(**over):
     kw = dict(seed_words=(0, 0), sample_lo=0, width=64, height=32, spp=4,
               max_depth=8, t_min=1e-3, moving=False)
@@ -83,7 +96,7 @@ def test_kernel_matches_plain_version(device, name, seed_words):
     packs = _packs(device, name)
     kw = _kw(seed_words=seed_words)
     before = tmk.render_tiles.launches
-    out = tmk.render_tiles(*packs, **kw)
+    out = _tiles(packs, **kw)
     torch.cuda.synchronize(device)
     assert tmk.render_tiles.launches == before + 1
     assert out[0].device == packs[0].device and out[1].dtype == torch.int32
@@ -92,17 +105,17 @@ def test_kernel_matches_plain_version(device, name, seed_words):
 
 def test_kernel_is_deterministic(device):
     packs = _packs(device)
-    a = tmk.render_tiles(*packs, **_kw())
-    b = tmk.render_tiles(*packs, **_kw())
+    a = _tiles(packs, **_kw())
+    b = _tiles(packs, **_kw())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_sample_ranges_add_up(device):
     """Samples [0,2) + [2,4) are the paths of samples [0,4)."""
     packs = _packs(device)
-    lo = tmk.render_tiles(*packs, **_kw(spp=2))
-    hi = tmk.render_tiles(*packs, **_kw(spp=2, sample_lo=2))
-    full = tmk.render_tiles(*packs, **_kw())
+    lo = _tiles(packs, **_kw(spp=2))
+    hi = _tiles(packs, **_kw(spp=2, sample_lo=2))
+    full = _tiles(packs, **_kw())
     torch.testing.assert_close(lo[0] + hi[0], full[0], rtol=1e-5,
                                atol=1e-5)
     assert torch.equal(lo[1] + hi[1], full[1])
@@ -148,11 +161,37 @@ def test_train_fwd_equals_tile_render(device, name):
     _, _, _, packs, kw = _train_case(device, name)
     before = tmkt.render_tiles_train.launches
     rad, traced, lengths, _ = tmkt.render_tiles_train(*packs, **kw)
-    ref, ref_traced = tmk.render_tiles(*packs, **kw)
+    ref, ref_traced = _tiles(packs, **kw)
     torch.cuda.synchronize(device)
     assert tmkt.render_tiles_train.launches == before + 1
     assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
     assert torch.equal(lengths.sum(dim=0, dtype=torch.int32), traced)
+
+
+@pytest.mark.parametrize("name", ["chap12", "book2chap2"])
+def test_tile_render_walk_equals_train_fwd_scan(device, name):
+    """tile_render walks the BVH, train_fwd scans every slot: the same
+    winners and t bit for bit, so the same paths, radiance and traced
+    counts at 240x160, 4 spp, depth 50, static and moving."""
+    _, _, _, packs, kw = _train_case(device, name, 240, 160, 4, 50)
+    rad, traced, _, _ = tmkt.render_tiles_train(*packs, **kw)
+    ref, ref_traced = _tiles(packs, **kw)
+    assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
+    assert int(traced.sum()) > 240 * 160 * 4 * 2
+
+
+def test_walking_kernels_raise_without_the_bvh(device):
+    """On the card tile_render and intersect_only walk the BVH or raise;
+    a pack built for other spheres raises too."""
+    sph, cam, bg = _packs(device)
+    with pytest.raises(ValueError, match="BVH"):
+        tmk.render_tiles(sph, cam, bg, **_kw())
+    o = torch.zeros((3, 8), device=device)
+    with pytest.raises(ValueError, match="BVH"):
+        tmk.intersect_only(o, o + 1.0, sph, t_min=1e-3)
+    other = _tree(sph[:, :128].contiguous())
+    with pytest.raises(ValueError, match="slots"):
+        tmk.intersect_only(o, o + 1.0, sph, t_min=1e-3, bvh=other)
 
 
 @pytest.mark.parametrize("name", ["chap12", "chap11", "diffuse", "checker"])
@@ -239,8 +278,8 @@ def test_kernels_run_at_max_slots(device):
     assert empty[3].item() == -1.0
     wide = torch.cat([sph, empty.expand(-1, tmk.MAX_SLOTS - n)],
                      dim=1).contiguous()
-    ref = tmk.render_tiles(sph, *rest, **kw)
-    out = tmk.render_tiles(wide, *rest, **kw)
+    ref = _tiles((sph, *rest), **kw)
+    out = _tiles((wide, *rest), **kw)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     rad, traced, lengths, winners = tmkt.render_tiles_train(wide, *rest,
                                                             **kw)
@@ -445,7 +484,7 @@ def test_bounce_steps_dead_lanes_pass_through(device):
     assert torch.equal(out, st)
 
 
-@pytest.mark.parametrize("bounces", [0, 2])
+@pytest.mark.parametrize("bounces", [0, 2, 4])
 @pytest.mark.parametrize("name", ["chap12", "checker"])
 def test_intersect_only_matches_plain_version(device, name, bounces):
     """Camera rays, and the rays after `bounces` bounce steps (secondary
@@ -460,7 +499,7 @@ def test_intersect_only_matches_plain_version(device, name, bounces):
                          t_min=1e-3, moving=False)
     o, d = st[0:3], st[3:6]
     before = tmk.intersect_only.launches
-    t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3)
+    t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3, bvh=_tree(sph))
     torch.cuda.synchronize(device)
     assert tmk.intersect_only.launches == before + 1
     rt, rfam, ridx = tmk.intersect_only_reference(o, d, sph, t_min=1e-3)
@@ -509,8 +548,10 @@ def test_queue_kernels_run_at_max_slots(device):
     b = tmk.bounce_steps(st.clone(), keys, wide, bg, k_steps=4,
                          max_depth=50, t_min=1e-3, moving=False)
     assert torch.equal(a, b)
-    for x, y in zip(tmk.intersect_only(st[0:3], st[3:6], sph, t_min=1e-3),
-                    tmk.intersect_only(st[0:3], st[3:6], wide, t_min=1e-3)):
+    for x, y in zip(tmk.intersect_only(st[0:3], st[3:6], sph, t_min=1e-3,
+                                       bvh=_tree(sph)),
+                    tmk.intersect_only(st[0:3], st[3:6], wide, t_min=1e-3,
+                                       bvh=_tree(wide))):
         assert torch.equal(x, y)
 
 
@@ -675,10 +716,10 @@ def test_differentiable_batch_launches_the_chain(device):
 def test_moving_tile_render_matches_plain_version(device, seed_words):
     packs = _packs(device, "book2chap2")
     kw = _kw(seed_words=seed_words, moving=True)
-    out = tmk.render_tiles(*packs, **kw)
+    out = _tiles(packs, **kw)
     _assert_close(out, tmk.render_tiles_reference(*packs, **kw), 4)
     # The static variant on the same packs renders another image.
-    static = tmk.render_tiles(*packs, **_kw(seed_words=seed_words))
+    static = _tiles(packs, **_kw(seed_words=seed_words))
     assert (static[0] - out[0]).abs().max() > 1e-2
 
 
@@ -691,7 +732,7 @@ def test_moving_train_kernels_match_plain_versions(device):
     scene, cam, cfg, packs, kw = _train_case(device, "book2chap2")
     assert kw["moving"]
     rad, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
-    ref, ref_traced = tmk.render_tiles(*packs, **kw)
+    ref, ref_traced = _tiles(packs, **kw)
     assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
     agreement = gradcheck.sample_agreement(packs, kw)
     assert agreement.agree.float().mean() >= 0.99
@@ -725,14 +766,16 @@ def test_moving_bounce_steps_matches_plain_version(device, k_steps):
     assert close.float().mean() >= 0.995
 
 
-@pytest.mark.parametrize("bounces", [0, 2])
+@pytest.mark.parametrize("bounces", [0, 2, 4])
 def test_moving_intersect_only_matches_plain_version(device, bounces):
     st, keys, sph, bg = _lane_state(device, "book2chap2")
     if bounces:
         tmk.bounce_steps(st, keys, sph, bg, k_steps=bounces, max_depth=50,
                          t_min=1e-3, moving=True)
     o, d, tm = st[0:3], st[3:6], st[6].contiguous()
-    t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3, time=tm)
+    t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3, time=tm,
+                                     bvh=_tree(sph, _packs(device,
+                                                           "book2chap2")[1]))
     rt, rfam, ridx = tmk.intersect_only_reference(o, d, sph, t_min=1e-3,
                                                   time=tm)
     same = (fam == rfam) & (idx == ridx)
