@@ -22,11 +22,12 @@ set to 0 just before it and read just after:
   [C3] render_image(differentiable=True), 1200x800, 4 spp, depth 50, and
       the gradient of an L2 loss.
 
-tile_render and intersect_only walk a BVH of the spheres
-(rrt_tpu_torch/accel.py); the other kernels scan every slot. [3] and
-[Q1] print the tree (nodes, depth, shared memory), the walk's node and
-slot tests a segment on [Q1]'s rays (accel.bvh_closest_reference) and
-the walk's bound beside the scan's.
+tile_render, bounce_steps, intersect_only and chain_bwd walk a BVH of
+the spheres (rrt_tpu_torch/accel.py); the train kernels scan every
+slot. [3] and [Q1] print the tree (nodes, depth, shared memory), the
+walk's node and slot tests a segment on [Q1]'s rays
+(accel.bvh_closest_reference), and [3], [Q1] and [C1] the walk's bound
+beside the scan's.
 
 [5] holds the train kernels against tile_render and their plain
 versions, at two small shapes and at [7]'s: train_fwd's radiance,
@@ -137,7 +138,7 @@ FLOPS_PER_SLOT = 17
 # vel: three multiplies and three adds more.
 FLOPS_PER_MOVING_SLOT = 23
 # FP32 operations of the BVH walk (bounce.cuh closest_sphere_bvh) that
-# tile_render and intersect_only run instead of the scan: a node's slab
+# every kernel but the train kernels runs instead of the scan: a node's slab
 # test, six subtractions, six multiplies, twelve min / max, the far
 # pad's multiply and the compare (26); a segment's set-up, three
 # reciprocals and the origin's pad (WALK_RAY_FLOPS, 15); each slot it
@@ -147,9 +148,9 @@ FLOPS_PER_MOVING_SLOT = 23
 NODE_FLOPS = 26
 WALK_RAY_FLOPS = 15
 # FP32 operations of one bounce of chain.cu's reverse sweep beyond the
-# replay's scan: scatter_adjoint recomputes the winner's quadratic and
-# shade() and runs the transpose (a count of its source, transcendentals
-# as one operation each): chain_bwd's bound.
+# replay's closest hit: scatter_adjoint recomputes the winner's
+# quadratic and shade() and runs the transpose (a count of its source,
+# transcendentals as one operation each): chain_bwd's bound.
 ADJOINT_FLOPS = 300
 # FP32 operations of one segment of train.cu's backward beyond any scan,
 # counted from its source for the commonest segment (a lambertian hit on
@@ -170,16 +171,19 @@ BWD_SEGMENT_FLOPS = 420
 THREEFRY_OPS = 80
 THREEFRY_PER_HIT = 4
 THREEFRY_PER_PATH = 4
-# chain_bwd sums its pack cotangents with shared-memory atomics whose
-# order within a block changes from run to run. With a seeded normal
-# output cotangent the sums cancel, and over 40 repeats on an H100 80GB
-# HBM3 at 700 W two runs of the checker case of [C1] differed by up to
-# 1.5e-6 of the largest pack cotangent (at [C2]'s chains by up to
-# 1.5e-7): train_bwd's 1e-6 failed there. A repeat, and a run at
-# MAX_SLOTS, must agree within PACK_SPREAD of the largest, 6.6 times the
-# worst reading; a cotangent sent to a wrong slot moves a whole
-# contribution, far above it. [C1] repeats the checker case
-# PACK_REPEATS times and prints the widest spread.
+# chain_bwd sums its pack cotangents with four-float atomic reductions
+# into per-block partials in device memory, whose order within a block
+# changes from run to run. With a seeded normal output cotangent the
+# sums cancel, and on an H100 80GB HBM3 at 700 W two runs of the checker
+# case of [C1] differed by up to 6.9e-7 of the largest pack cotangent
+# over 40 repeats, at [C2]'s chains by up to 1.1e-7 (when the kernel
+# summed them with shared-memory atomics: 1.5e-6 and 1.5e-7; train_bwd's
+# 1e-6 failed there). A repeat, and a run at MAX_SLOTS, must agree within
+# PACK_SPREAD of the largest, 14 times the worst reading (6.6 times the
+# shared-memory atomics'); a cotangent sent to a wrong slot moves a
+# whole contribution, far above it. [C1]
+# repeats the checker case PACK_REPEATS times and prints the widest
+# spread.
 PACK_SPREAD = 1e-5
 PACK_REPEATS = 40
 # [C1] requires the kernel's and the plain chain's forwards to agree on
@@ -320,7 +324,8 @@ def walk_counts(scene, cam, w, h, n, device):
     (lane_state), and the live ones after 1-4 bounce steps, through
     accel.bvh_closest_reference. Returns {"depth": [(segments, node
     tests, slot tests) at each of the 5 depths], "nodes", "slots": the
-    tests a segment over all 5, "bvh": the pack}."""
+    tests a segment over all 5, "bvh": the pack (render.trace_queue's:
+    over the camera's shutter)}."""
     from rrt_tpu_torch import accel, render
     from rrt_tpu_torch.ops import megakernel as mk
     st, keys, sph, bg = lane_state(scene, cam, w, h, n, device)
@@ -330,7 +335,7 @@ def walk_counts(scene, cam, w, h, n, device):
         if depth:
             mk.bounce_steps(st, keys, sph, bg, k_steps=1,
                             max_depth=MAIN["max_depth"], t_min=1e-3,
-                            moving=scene.has_moving)
+                            moving=scene.has_moving, bvh=bvh)
         live = (st[14] > 0.5).nonzero()[:, 0]
         sel = st[:, live]
         _, _, _, nodes, slots = accel.bvh_closest_reference(
@@ -348,6 +353,15 @@ def walk_flops(segments, counts, moving: bool) -> float:
     """FP32 operations of `segments` walks at counts' tests a segment."""
     return segments * (WALK_RAY_FLOPS + counts["nodes"] * NODE_FLOPS
                        + counts["slots"] * slot_flops(moving))
+
+
+def hits(st, out) -> int:
+    """Segments that hit a sphere between a lane state st and the state
+    out some bounce steps later: the traced segments less the lanes
+    that missed (their pending radiance gained the background, which
+    is not black in these scenes). A hit draws THREEFRY_PER_HIT calls."""
+    segments = int((out[15] - st[15]).sum())
+    return segments - int((out[10:13] != st[10:13]).any(dim=0).sum())
 
 
 def walk_line(what, counts, moving: bool) -> str:
@@ -662,6 +676,36 @@ def events_ms(log):
     return sum(s.elapsed_time(e) for s, e in log)
 
 
+def host_timed(fn, log):
+    """fn with the host's milliseconds of each call appended to `log`
+    (no synchronize: what the calling thread spends in it, waits for
+    the device included)."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+@contextlib.contextmanager
+def pack_clock():
+    """Host clocks on the chain's BVH pack while the block runs: yields
+    two logs, the ms of each render.chain_bvh call (its device-to-host
+    read, which waits for the queued work, the host build and the copy
+    to the card) and of each accel.pack_bvh call inside it (the host
+    build alone)."""
+    from rrt_tpu_torch import accel, render
+    chain_bvh, pack_bvh = render.chain_bvh, accel.pack_bvh
+    logs = ([], [])
+    render.chain_bvh = host_timed(chain_bvh, logs[0])
+    accel.pack_bvh = host_timed(pack_bvh, logs[1])
+    try:
+        yield logs
+    finally:
+        render.chain_bvh, accel.pack_bvh = chain_bvh, pack_bvh
+
+
 @contextlib.contextmanager
 def chain_events():
     """CUDA events around TileTrainChain's forward (train_fwd) and
@@ -818,38 +862,44 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
     st, keys, sph, bg = lane_state(scene, cam, w, h, n, device)
     n_slots = sph.shape[1]
     moving = scene.has_moving
+    counts = walk_counts(scene, cam, w, h, n, device)
+    bvh = counts["bvh"]
+    print(f"  {walk_line(name, counts, moving)}", flush=True)
     kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3,
               moving=moving)
-    out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     ref, plain_ms = wall_ms(
         lambda: mk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw))
     agree = (out[14] > 0.5) == (ref[14] > 0.5)
     frac = agree.float().mean().item()
-    counts = (torch.equal(out[13][agree], ref[13][agree])
-              and torch.equal(out[15][agree], ref[15][agree]))
+    equal = (torch.equal(out[13][agree], ref[13][agree])
+             and torch.equal(out[15][agree], ref[15][agree]))
     err = (out[7:13] - ref[7:13]).abs().amax(dim=0)[agree]
     close = (err < 1e-3).float().mean().item()
     work, log = torch.empty_like(st), []
     for _ in range(5):  # in place: each launch starts from the same state
         work.copy_(st)
-        timed(mk.bounce_steps, log)(work, keys, sph, bg, **kw)
+        timed(mk.bounce_steps, log)(work, keys, sph, bg, bvh=bvh, **kw)
     torch.cuda.synchronize()
     ms = events_ms(log) / len(log)
     segments = int((out[15] - st[15]).sum())
-    b_ms, b_by = bound(segments * n_slots * slot_flops(moving),
-                       4 * (n * (16 + 2 + 16) + 24 * n_slots + 8))
+    n_hits = hits(st, out)
+    s_bytes = 4 * (n * (16 + 2 + 16) + 24 * n_slots + 8)
+    b_ms, b_by = bound(walk_flops(segments, counts, moving), s_bytes,
+                       THREEFRY_OPS * THREEFRY_PER_HIT * n_hits)
+    scan_bound = bound(segments * n_slots * slot_flops(moving), s_bytes)
     print(f"  bounce_steps {name} {w}x{h}, {n} lanes, 4 steps: alive "
           f"agrees on {frac:.5f} of lanes, counts equal there, {close:.5f} "
-          f"within 1e-3 (max {err.max().item():.3e}); {segments} segments; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})  [{card}]", flush=True)
-    check(frac >= 0.999 and counts and close >= 0.995,
-          ("bounce_steps", name, frac, counts, close))
+          f"within 1e-3 (max {err.max().item():.3e}); {segments} segments, "
+          f"{n_hits} hits; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; the walk at "
+          f"{counts['nodes']:.2f} node and {counts['slots']:.2f} slot tests "
+          f"a segment and the hits' draws), the scan's "
+          f"{scan_bound[0]:.4f} ms ({scan_bound[1]})  [{card}]", flush=True)
+    check(frac >= 0.999 and equal and close >= 0.995,
+          ("bounce_steps", name, frac, equal, close))
 
     o, d, tm = st[0:3], st[3:6], st[6].contiguous()
-    counts = walk_counts(scene, cam, w, h, n, device)
-    bvh = counts["bvh"]
-    print(f"  {walk_line(name, counts, moving)}", flush=True)
     _, i_err, i_plain_ms = intersect_vs_plain(f"{name} {n} camera rays", o,
                                               d, tm, sph, moving, bvh)
     i_ms = graph_ms(lambda: mk.intersect_only(
@@ -873,14 +923,15 @@ def queue_kernels_vs_plain(name, w, h, n, batch, device, card):
         if depth:
             mk.bounce_steps(st_b, keys_b, sph, bg, k_steps=1,
                             max_depth=MAIN["max_depth"], t_min=1e-3,
-                            moving=moving)
+                            moving=moving, bvh=bvh)
         alive = int((st_b[14] > 0.5).sum())
         _, e, _ = intersect_vs_plain(
             f"{name} batch of {batch} after {depth} bounces ({alive} alive)",
             st_b[0:3], st_b[3:6], st_b[6].contiguous(), sph, moving, bvh)
         i_err = max(i_err, e)
     return dict(ms=ms, plain_ms=plain_ms, err=err.max().item(),
-                bound=(b_ms, b_by), i_ms=i_ms, i_plain_ms=i_plain_ms,
+                bound=(b_ms, b_by), scan_bound=scan_bound, i_ms=i_ms,
+                i_plain_ms=i_plain_ms,
                 i_err=i_err, i_bound=i_bound, i_scan_bound=i_scan_bound,
                 counts=counts)
 
@@ -927,7 +978,7 @@ def by_lanes(fn, *lane_args):
             for i in range(0, q, PLAIN_CHUNK)]
 
 
-def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
+def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
                    device, card):
     """[C1] chain_bwd against chain_adjoint_reference on one chain input.
     A lane agrees when the two forwards (bounce_steps and its plain
@@ -946,19 +997,20 @@ def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
     A second kernel run must repeat the input cotangent bit for bit (one
     thread computes each lane's, with no atomics) and the background's
     (warp shuffles, then warps and blocks summed in a fixed order), and
-    the pack's, which shared-memory atomics sum, within PACK_SPREAD of
-    their largest. Then, by the rule of tests/test_torch_cuda.py: the
-    input cotangent within 1e-3 of each row's largest on >= 99.5% of
-    live lanes and equal to d_out on dead ones, rows 13-15 zero; the
-    pack and background cotangents by rrt_tpu_torch.gradcheck's rule at
-    the level of partition() fields; no replay mismatch in either.
+    the pack's, which atomic reductions sum, within PACK_SPREAD of their
+    largest. Both kernels walk `bvh`. Then, by the rule of
+    tests/test_torch_cuda.py: the input cotangent within 1e-3 of each
+    row's largest on >= 99.5% of live lanes and equal to d_out on dead
+    ones, rows 13-15 zero; the pack and background cotangents by
+    rrt_tpu_torch.gradcheck's rule at the level of partition() fields;
+    no replay mismatch in either.
     Returns the kernel's forward output and the numbers of the kernels
     line."""
     from rrt_tpu_torch import diff, gradcheck
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
     kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3,
               moving=scene.has_moving)
-    out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     ref_out = torch.cat(by_lanes(
         lambda s, k: mk.bounce_steps_reference(s, k, sph, bg, **kw), st,
         keys), dim=1)
@@ -971,7 +1023,7 @@ def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
     d_out = (torch.randn(tuple(st.shape), generator=gen).to(device)
              * agree).contiguous()
     ob, ref_ob = out[mk.ROW_BOUNCE].clone(), ref_out[mk.ROW_BOUNCE].clone()
-    k = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    k = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
     parts, plain_ms = wall_ms(lambda: by_lanes(
         lambda s, ks, g, b: mkv.chain_adjoint_reference(s, ks, sph, bg, g, b,
                                                         **kw),
@@ -982,8 +1034,8 @@ def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
     p = (torch.cat([x[0] for x in parts], dim=1),
          *(sum(x[j] for x in parts) for j in (1, 2, 3)))
     ms = graph_ms(lambda: mkv.chain_adjoint(st, keys, sph, bg, d_out, ob,
-                                            **kw), mkv.chain_adjoint)
-    k2 = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+                                            bvh=bvh, **kw), mkv.chain_adjoint)
+    k2 = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
     repeat = ((k2[1] - k[1]).abs().max()
               / k[1].abs().max().clamp(min=1e-30)).item()
     same = torch.equal(k2[0], k[0]) and torch.equal(k2[2], k[2])
@@ -1018,7 +1070,7 @@ def chain_vs_plain(what, st, keys, sph, bg, k_steps, scene, cam, cfg,
           ("chain_bwd", what, frac, lanes, dead_equal, faults, mism, same,
            repeat))
     return out, dict(ms=ms, plain_ms=plain_ms, segments=segments, err=err,
-                     q=st.shape[1], n_slots=sph.shape[1],
+                     hits=hits(st, out), q=st.shape[1], n_slots=sph.shape[1],
                      moving=scene.has_moving)
 
 
@@ -1031,20 +1083,21 @@ def chain_small_cases(device, card):
     for every lane, so its input cotangent and the fixed-order
     background sums are bit-equal by construction; the empty slots get
     no cotangent and the pack's (atomics) agree within PACK_SPREAD."""
-    from rrt_tpu_torch import render
+    from rrt_tpu_torch import accel, render
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
     w, h = 64, 32
     scene, cam = checker_scene(w, h)
     cfg = render.RenderConfig(width=w, height=h, spp=1, max_depth=50)
     st, keys, sph, bg = lane_state(scene, cam, w, h, w * h, device)
+    bvh = accel.pack_bvh(sph)
     for k_steps, pre in ((4, 0), (1, 0), (12, 3)):
         s0 = st.clone()
         if pre:
             mk.bounce_steps(s0, keys, sph, bg, k_steps=pre, max_depth=50,
-                            t_min=1e-3, moving=False)
-        chain_vs_plain(f"checker after {pre} steps", s0, keys, sph, bg,
+                            t_min=1e-3, moving=False, bvh=bvh)
+        chain_vs_plain(f"checker after {pre} steps", s0, keys, sph, bg, bvh,
                        k_steps, scene, cam, cfg, device, card)
-    kw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False)
+    kw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False, bvh=bvh)
     gen = torch.Generator().manual_seed(1)
     d_out = torch.randn(tuple(st.shape), generator=gen).to(device)
     dead = st.clone()
@@ -1057,6 +1110,7 @@ def chain_small_cases(device, card):
     empty_pad = bool(sph[7, -1] < 0.5)  # the pack's last slot is empty
     wide = torch.cat([sph, sph[:, -1:].expand(-1, mk.MAX_SLOTS - n)],
                      dim=1).contiguous()
+    wide_kw = dict(kw, bvh=accel.pack_bvh(wide))
     out = mk.bounce_steps(st.clone(), keys, sph, bg, **kw)
     ob = out[mk.ROW_BOUNCE].clone()
     a = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
@@ -1064,8 +1118,9 @@ def chain_small_cases(device, card):
     spread = {"repeat": 0.0, f"{mk.MAX_SLOTS} slots": 0.0}
     equal = {k: True for k in spread}
     for _ in range(PACK_REPEATS):
-        for what, pack in (("repeat", sph), (f"{mk.MAX_SLOTS} slots", wide)):
-            b = mkv.chain_adjoint(st, keys, pack, bg, d_out, ob, **kw)
+        for what, pack, pkw in (("repeat", sph, kw),
+                                (f"{mk.MAX_SLOTS} slots", wide, wide_kw)):
+            b = mkv.chain_adjoint(st, keys, pack, bg, d_out, ob, **pkw)
             equal[what] &= (torch.equal(a[0], b[0])
                             and torch.equal(a[2], b[2])
                             and not b[1][:, n:].any() and int(b[3]) == 0)
@@ -1109,25 +1164,49 @@ def batch_loss_and_grads(cfg, scene, cam, target, seed, device):
     return img.detach(), int(n), loss.detach(), gp, gc
 
 
-def chain_bound(c1):
-    """chain_bwd's least time over [C1]'s three chains: the replay's scan
-    (FLOPS_PER_SLOT a ray-slot test) and ADJOINT_FLOPS a replayed
-    segment; bytes: a lane's state, keys, output cotangent and bounce
-    row in and its input cotangent out, the packs in and their
-    cotangents out, each chain."""
-    n_slots = c1[0]["n_slots"]
+def chain_bound(c1, counts):
+    """chain_bwd's least times over [C1]'s three chains, each (ms, by):
+    the walk's and the scan's. The walk's: the replay's walk at counts'
+    tests a segment ([Q1]'s, walk_flops) and the draws of its hits
+    (THREEFRY_PER_HIT calls; the sweep reshades from what the replay
+    kept and draws nothing), ADJOINT_FLOPS a replayed segment; bytes: a
+    lane's state, keys, output cotangent and bounce row in and its input
+    cotangent out, the packs in and their cotangents out, each chain:
+    what the function needs, as train_bounds counts it. The kernel's
+    per-block partials of the pack cotangents are its design, not the
+    function's work, and stay out of both bounds (partial_bytes prints
+    them). The scan's, the work of the replay that scanned: every slot a
+    replayed segment (FLOPS_PER_SLOT a ray-slot test) and ADJOINT_FLOPS,
+    the same bytes."""
+    n_slots, moving = c1[0]["n_slots"], c1[0]["moving"]
     segments = sum(c["segments"] for c in c1)
-    flops = slot_flops(c1[0]["moving"])
-    return bound(segments * (n_slots * flops + ADJOINT_FLOPS),
-                 sum(4 * (c["q"] * (16 + 2 + 16 + 1 + 16) + 36 * n_slots
-                          + 16) for c in c1))
+    lane_bytes = sum(4 * (c["q"] * (16 + 2 + 16 + 1 + 16) + 36 * n_slots
+                          + 16) for c in c1)
+    draws = THREEFRY_OPS * THREEFRY_PER_HIT * sum(c["hits"] for c in c1)
+    return (bound(walk_flops(segments, counts, moving)
+                  + segments * ADJOINT_FLOPS, lane_bytes, draws),
+            bound(segments * (n_slots * slot_flops(moving) + ADJOINT_FLOPS),
+                  lane_bytes))
 
 
-def chain_kernel_phase(device, card, name="chap12"):
+def partial_bytes(c1) -> int:
+    """The bytes chain_bwd's per-block partials of the pack cotangents
+    take over [C1]'s chains (256 lanes a block, SLOT_COLS floats a slot
+    and 8 of the background, written and read once): informational,
+    outside chain_bound."""
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    n_slots = c1[0]["n_slots"]
+    return sum(2 * 4 * -(-c["q"] // 256) * (mkv.SLOT_COLS * n_slots + 8)
+               for c in c1)
+
+
+def chain_kernel_phase(device, card, counts, name="chap12"):
     """[C1] chain_bwd against its plain version on each chain of [C2]'s
-    path on the scene (the kernels' forward gives each chain's input)
-    and, on chap12, on chain_small_cases. Returns (per-chain numbers,
-    [C2]'s inputs)."""
+    path on the scene (the kernels' forward gives each chain's input;
+    both walk the BVH render.trace_batch_fused builds, over the rays'
+    own times) and, on chap12, on chain_small_cases. counts: [Q1]'s
+    walk_counts on the scene, for the walk's bound. Returns (per-chain
+    numbers, [C2]'s inputs)."""
     from rrt_tpu_torch import render, rng
     from rrt_tpu_torch.ops import megakernel as mk
     scene, cam, cfg, px, py, keys = chain_rays(device, name)
@@ -1136,6 +1215,7 @@ def chain_kernel_phase(device, card, name="chap12"):
     n = px.shape[0]
     o, d, tm = render.generate_rays(cam.to(device), px, py, cfg.width,
                                     cfg.height, keys)
+    bvh = render.chain_bvh(sph, tm, scene.has_moving)
     one = torch.ones((n,), device=device)
     zero = torch.zeros((n,), device=device)
     st = mk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
@@ -1145,20 +1225,24 @@ def chain_kernel_phase(device, card, name="chap12"):
     c1 = []
     for j, k_steps in enumerate(schedule):
         out, numbers = chain_vs_plain(
-            f"chain {j + 1} of {schedule}", st, kbits, sph, bg, k_steps,
-            scene, cam, cfg, device, card)
+            f"chain {j + 1} of {schedule}", st, kbits, sph, bg, bvh,
+            k_steps, scene, cam, cfg, device, card)
         c1.append(numbers)
         if j < len(schedule) - 1:
             st, kbits, lane = render._compact_lanes(out, kbits, lane)
     if name == "chap12":
         chain_small_cases(device, card)
-    b_ms, b_by = chain_bound(c1)
-    print(f"  {name}'s three chains: chain_bwd "
-          f"{sum(c['ms'] for c in c1):.3f} ms,"
-          f" plain {sum(c['plain_ms'] for c in c1):.1f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}), "
-          f"{sum(c['segments'] for c in c1)} replayed segments  [{card}]",
-          flush=True)
+    (b_ms, b_by), scan = chain_bound(c1, counts)
+    ms = sum(c["ms"] for c in c1)
+    print(f"  {name}'s three chains: chain_bwd {ms:.4f} ms "
+          f"({ms / len(c1):.4f} a launch), plain "
+          f"{sum(c['plain_ms'] for c in c1):.1f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; the walk at {counts['nodes']:.2f} node and "
+          f"{counts['slots']:.2f} slot tests a segment, the hits' draws), "
+          f"the scan's {scan[0]:.4f} ms ({scan[1]}); the kernel's "
+          f"partials {partial_bytes(c1) / 1e6:.1f} MB (outside the bound); "
+          f"{sum(c['segments'] for c in c1)} replayed segments, "
+          f"{sum(c['hits'] for c in c1)} hits  [{card}]", flush=True)
     return c1, (scene, cam, cfg, px, py, keys)
 
 
@@ -1195,11 +1279,17 @@ def chain_step_phase(chain, device, card):
     for i in range(3):
         fwd_log.clear()
         bwd_log.clear()
-        (loss, gp, gc, traced), ms = wall_ms(step)
-        runs.append((ms, events_ms(fwd_log), events_ms(bwd_log)))
+        with pack_clock() as (chain_log, build_log):
+            (loss, gp, gc, traced), ms = wall_ms(step)
+        runs.append((ms, events_ms(fwd_log), events_ms(bwd_log),
+                     sum(chain_log), sum(build_log)))
         print(f"  step {i}: loss {loss.item():.6e}, {traced} traced "
               f"segments, chain forwards {runs[-1][1]:.2f} ms, chain "
-              f"backwards {runs[-1][2]:.2f} ms, step {ms:.2f} ms  [{card}]",
+              f"backwards {runs[-1][2]:.2f} ms, step {ms:.2f} ms, of it "
+              f"the chain's BVH pack (render.chain_bvh, host clock) "
+              f"{runs[-1][3]:.3f} ms ({100 * runs[-1][3] / ms:.1f}%; "
+              f"{len(chain_log)} a step), its host build "
+              f"(accel.pack_bvh) {runs[-1][4]:.3f} ms  [{card}]",
               flush=True)
     launches = (mk.bounce_steps.launches, mkv.chain_adjoint.launches)
     mismatches = int(mkv.chain_adjoint.replay_mismatches)
@@ -1827,7 +1917,7 @@ def main() -> int:
 
     phases.start("C1", "chain_bwd vs its plain version on the card")
     torch.cuda.reset_peak_memory_stats(device)
-    c1, chain = chain_kernel_phase(device, card)
+    c1, chain = chain_kernel_phase(device, card, q1["counts"])
     peak_memory("[C1]", device, card)
     phases.start("C2", f"main path: bench.py's backward_chain, chap12 "
                  f"{MAIN['width']}x{MAIN['height']}, {CHAIN_LANES} lanes, "
@@ -1856,7 +1946,7 @@ def main() -> int:
                          TRAIN["spp"], TRAIN["max_depth"], device, card,
                          min_pixels=0.955, min_paths=0.994,
                          plain_chunk=1 << 19)
-    m_c1, _ = chain_kernel_phase(device, card, "book2chap2")
+    m_c1, _ = chain_kernel_phase(device, card, m_q["counts"], "book2chap2")
     peak_memory("[M1]", device, card)
     phases.start("M2", "main path: python -m rrt_tpu_torch.cli with its "
                  "defaults (book2chap2 1200x800 10spp, the tile driver)")
@@ -1901,8 +1991,8 @@ def main() -> int:
         return dict(moving_ms=ms, moving_bound_ms=bnd[0], **extra)
 
     def walk(scan_bnd, counts, moving_scan_bnd, moving_counts):
-        # tile_render and intersect_only walk the BVH: bound_ms is the
-        # walk's; the scan's, which they ran before, beside it.
+        # Every kernel but the train kernels walks the BVH: bound_ms is
+        # the walk's; the scan's, which they ran before, beside it.
         return dict(scan_bound_ms=scan_bnd[0],
                     moving_scan_bound_ms=moving_scan_bnd[0],
                     walk_tests=[counts["nodes"], counts["slots"]],
@@ -1917,6 +2007,8 @@ def main() -> int:
                                for r in rows})
 
     csrc = "rrt_tpu_torch/ops/csrc/"
+    c1_bound = chain_bound(c1, q1["counts"])
+    m_c1_bound = chain_bound(m_c1, m_q["counts"])
     print(json.dumps({"kernels": [
         entry("tile_render", csrc + "tile_render.cu",
               "rrt_tpu/ops/megakernel.py:2048", launches, main_err,
@@ -1946,7 +2038,10 @@ def main() -> int:
         entry("bounce_steps", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:645", q_launches, q1["err"],
               q1["ms"], q1["plain_ms"], q1["bound"],
-              **moving(m_q["ms"], m_q["bound"])),
+              **moving(m_q["ms"], m_q["bound"]),
+              **walk(q1["scan_bound"], q1["counts"], m_q["scan_bound"],
+                     m_q["counts"]),
+              registers=resources.get("bounce_steps_kernel")),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
               q1["i_ms"], q1["i_plain_ms"], q1["i_bound"],
@@ -1956,8 +2051,11 @@ def main() -> int:
         entry("chain_bwd", csrc + "chain.cu",
               "rrt_tpu/ops/megakernel_vjp.py:487", c2_launches[1],
               max(c["err"] for c in c1), sum(c["ms"] for c in c1),
-              sum(c["plain_ms"] for c in c1), chain_bound(c1),
-              **moving(sum(c["ms"] for c in m_c1), chain_bound(m_c1))),
+              sum(c["plain_ms"] for c in c1), c1_bound[0],
+              **moving(sum(c["ms"] for c in m_c1), m_c1_bound[0]),
+              **walk(c1_bound[1], q1["counts"], m_c1_bound[1],
+                     m_q["counts"]),
+              registers=resources.get("chain_bwd_kernel")),
         probe("fma_chain", "benchmarks/probe_row_layout.py:38",
               p1["launches"][0], p1["chain_err"], p1["row"],
               p1["chain_plain_ms"]),

@@ -118,49 +118,81 @@ def build_sphere_bvh(scene) -> BvhArrays:
 def build_bvh(prim_min: np.ndarray, prim_max: np.ndarray,
               prim_ids: np.ndarray) -> BvhArrays:
     """rrt_tpu.accel.build_bvh over primitive boxes, its default Middle
-    method (host numpy, recursive, once per pack)."""
+    method (host numpy, once per pack).
+
+    rrt_tpu recurses node by node; this builds the same tree a level at
+    a time, every node of a level in one pass of array operations (the
+    render and the differentiable chain build a pack a call, where the
+    recursion's small numpy calls cost milliseconds). A node's
+    primitives are a run of `perm`; an inner node's run is split in
+    place, stably, into its left child's run and its right child's, so
+    each level's runs keep the recursion's order, and the leaves' runs
+    end up in preorder: `perm` is then the recursion's prim_order and a
+    leaf's run start its prim_start. Nodes are numbered in preorder at
+    the end."""
     centroid = 0.5 * (prim_min + prim_max)
-    nodes = []  # [min, max, left, right, axis, prim_start, prim_count]
-    order: list[int] = []
-
-    def emit(node):
-        nodes.append(node)
-        return len(nodes) - 1
-
-    def rec(sel: np.ndarray) -> int:
-        lo = prim_min[sel].min(axis=0)
-        hi = prim_max[sel].max(axis=0)
-        if len(sel) <= LEAF_SIZE:
-            start = len(order)
-            order.extend(prim_ids[sel].tolist())
-            return emit([lo, hi, -1, -1, 0, start, len(sel)])
-        cb_lo = centroid[sel].min(axis=0)
-        cb_hi = centroid[sel].max(axis=0)
-        axis = int(np.argmax(cb_hi - cb_lo))
-        mask = centroid[sel, axis] < 0.5 * (cb_lo[axis] + cb_hi[axis])
-        if mask.all() or not mask.any():
-            # A degenerate split: the per-split EqualCount fallback.
-            ordr = np.argsort(centroid[sel, axis], kind="stable")
-            half = len(sel) // 2
-            left_sel, right_sel = sel[ordr[:half]], sel[ordr[half:]]
-        else:
-            left_sel, right_sel = sel[mask], sel[~mask]
-        me = emit([lo, hi, -2, -2, axis, 0, 0])
-        nodes[me][2] = rec(left_sel)
-        nodes[me][3] = rec(right_sel)
-        return me
-
-    rec(np.arange(len(prim_ids)))
+    boxes = np.concatenate([prim_min, prim_max, centroid], axis=1)
+    perm = np.arange(len(prim_ids))
+    # Each level's nodes, in the order they are made: boxes, split axis
+    # (0 on a leaf), a leaf's run, the made ids of an inner node's
+    # children (-1 on a leaf).
+    levels = []
+    starts, sizes = np.zeros(1, np.int64), np.array([len(prim_ids)])
+    n_made = 0
+    while starts.size:
+        k = starts.size
+        offs = np.cumsum(sizes) - sizes  # each run's first compact slot
+        seg = np.repeat(np.arange(k), sizes)  # each element's run
+        pos = np.repeat(starts - offs, sizes) + np.arange(sizes.sum())
+        el = perm[pos]
+        box = boxes[el]  # min xyz, max xyz, centroid xyz
+        lo = np.minimum.reduceat(box, offs, axis=0)
+        hi = np.maximum.reduceat(box, offs, axis=0)
+        axis = np.argmax(hi[:, 6:] - lo[:, 6:], axis=1)
+        rows = np.arange(k)
+        mid = 0.5 * (lo[rows, 6 + axis] + hi[rows, 6 + axis])
+        key = box[np.arange(el.size), 6 + axis[seg]]
+        mask = key < mid[seg]
+        n_left = np.add.reduceat(mask.astype(np.int64), offs)
+        inner = sizes > LEAF_SIZE
+        # A degenerate split: the per-split EqualCount fallback, half of
+        # the run in stable order of the centroids on the axis.
+        even = inner & ((n_left == 0) | (n_left == sizes))
+        n_left = np.where(even, sizes // 2, n_left)
+        rank = np.where(even[seg], key, (~mask).astype(np.float32))
+        rank = np.where(inner[seg], rank, 0.0)
+        perm[pos] = el[np.lexsort((np.arange(el.size), rank, seg))]
+        kid = np.full((k, 2), -1, np.int64)
+        kid[inner] = n_made + k + np.arange(2 * int(inner.sum())).reshape(
+            -1, 2)
+        levels.append((lo[:, 0:3], hi[:, 3:6],
+                       np.where(inner, axis, 0), np.where(inner, 0, starts),
+                       np.where(inner, 0, sizes), kid))
+        n_made += k
+        starts = np.stack([starts[inner], starts[inner] + n_left[inner]],
+                          axis=1).ravel()
+        sizes = np.stack([n_left[inner], sizes[inner] - n_left[inner]],
+                         axis=1).ravel()
+    lo, hi, axis, start, count, kid = (np.concatenate(f)
+                                       for f in zip(*levels))
+    # Preorder: a node, its left subtree, then its right subtree.
+    order, stack, kids = [], [0], kid.tolist()
+    while stack:
+        i = stack.pop()
+        order.append(i)
+        if kids[i][0] >= 0:
+            stack += [kids[i][1], kids[i][0]]
+    pre = np.empty(len(order), np.int64)
+    pre[order] = np.arange(len(order))
+    kid = np.where(kid >= 0, pre[kid], -1)[order]
     i32 = np.int32
     return BvhArrays(
-        node_min=np.stack([n[0] for n in nodes]).astype(np.float32),
-        node_max=np.stack([n[1] for n in nodes]).astype(np.float32),
-        left=np.asarray([n[2] for n in nodes], i32),
-        right=np.asarray([n[3] for n in nodes], i32),
-        axis=np.asarray([n[4] for n in nodes], i32),
-        prim_start=np.asarray([n[5] for n in nodes], i32),
-        prim_count=np.asarray([n[6] for n in nodes], i32),
-        prim_order=np.asarray(order, i32))
+        node_min=lo[order].astype(np.float32),
+        node_max=hi[order].astype(np.float32),
+        left=kid[:, 0].astype(i32), right=kid[:, 1].astype(i32),
+        axis=axis[order].astype(i32), prim_start=start[order].astype(i32),
+        prim_count=count[order].astype(i32),
+        prim_order=np.asarray(prim_ids[perm], i32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,13 +314,14 @@ def pack_bvh(sph24, shutter=None) -> BvhPack:
 
 
 def _depth(bvh: BvhArrays) -> int:
-    """Edges from the root to the deepest leaf (preorder: a node's
-    parent comes before it)."""
-    level = np.zeros(bvh.n_nodes, np.int64)
-    for i in range(bvh.n_nodes):
-        if bvh.left[i] != -1:
-            level[bvh.left[i]] = level[bvh.right[i]] = level[i] + 1
-    return int(level.max())
+    """Edges from the root to the deepest leaf, a level at a time."""
+    depth, level = 0, np.zeros(1, np.int64)
+    while True:
+        inner = level[bvh.left[level] != -1]
+        if inner.size == 0:
+            return depth
+        depth, level = depth + 1, np.concatenate([bvh.left[inner],
+                                                  bvh.right[inner]])
 
 
 # float32(1 + 2 gamma(3)) (rrt_tpu/utils/fp.py AABB_T_FAR_PAD).

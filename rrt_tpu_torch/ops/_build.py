@@ -47,12 +47,15 @@ class Build:
 
 def _kernel_name(mangled: str) -> str:
     """The kernel's name in a mangled entry name, with " (moving)" for
-    a kMoving = true instantiation."""
+    a kMoving = true instantiation. A name's length prefix may follow
+    other digits (the anonymous namespace's hash), so every split of a
+    run of digits is tried."""
     for m in re.finditer(r"\d+", mangled):
-        name = mangled[m.end():m.end() + int(m.group())]
-        if name.endswith("_kernel"):
-            moving = mangled[m.end() + len(name):].startswith("ILb1E")
-            return name + (" (moving)" if moving else "")
+        for start in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[start:m.end()])]
+            if name.endswith("_kernel") and name.isidentifier():
+                moving = mangled[m.end() + len(name):].startswith("ILb1E")
+                return name + (" (moving)" if moving else "")
     return mangled
 
 
@@ -140,13 +143,14 @@ def load() -> ctypes.CDLL:
     lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, p, i, u, u, u, i, i, i,
                                   i, f, i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
-    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, i, i, f, i, p]
+    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, p, i, i,
+                                     f, i, p]
     lib.rrt_bounce_steps.restype = i
     lib.rrt_intersect.argtypes = [p, p, p, i, p, i, p, p, i, i, i, f, i, p,
                                   p, p, p]
     lib.rrt_intersect.restype = i
-    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, p, i, i, f, i, p, p,
-                                  p, p, p]
+    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, p, p, p, i,
+                                  i, f, i, p, p, p, p, p]
     lib.rrt_chain_bwd.restype = i
     lib.rrt_probe_fma_chain.argtypes = [p, p, i, i, f, f, i, p]
     lib.rrt_probe_fma_chain.restype = i

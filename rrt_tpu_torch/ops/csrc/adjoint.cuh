@@ -1,8 +1,9 @@
 // Adjoints of one bounce, shared by the train backward (train.cu) and the
 // bounce chain's backward (chain.cu): the hand-written transpose of
 // rrt_tpu_torch/ops/megakernel_vjp.py diff_step for a miss and for a
-// scattering bounce, the per-block accumulator of the sphere pack's
-// cotangents, and the fixed-order reduction of per-block partials.
+// scattering bounce, the four-float reductions of the sphere pack's
+// cotangents into per-block partials in device memory (add_slot), and
+// the fixed-order reduction of those partials.
 
 #pragma once
 
@@ -38,22 +39,33 @@ __device__ __forceinline__ float dot3(const float* a, const float* b) {
 }
 
 // Where scatter_adjoint puts the winner's pack cotangents, one add() a
-// gradient row (accumulator order). SlotAtomics adds each straight to the
-// block's shared accumulator with one atomic (chain.cu); RowSums keeps
-// them for the caller (train.cu).
-struct SlotAtomics {
-  float* acc;
-  int n_slots, win;
-  __device__ __forceinline__ void add(int row, float v) {
-    if (v != 0.0f) atomicAdd(&acc[row * n_slots + win], v);
-  }
-};
-
+// gradient row (accumulator order): RowSums keeps them for the caller,
+// which adds them to its block's partials with add_slot.
 template <int kRows>
 struct RowSums {
   float g[kRows];
   __device__ __forceinline__ void add(int row, float v) { g[row] = v; }
 };
+
+// Pack cotangent floats a slot in the backwards' per-block partials in
+// device memory (slot-major: grad rows 0-11, or 0-14 with moving spheres,
+// then zeros), so that a bounce adds its cotangents with four-float
+// atomics.
+constexpr int kSlotCols = 16;
+
+// Add a bounce's pack cotangents g (kRows <= kSlotCols rows) to its
+// winner's kSlotCols floats of the block's partials in device memory
+// (16-byte aligned): four-float reductions, done in L2 without a reply.
+template <int kRows>
+__device__ __forceinline__ void add_slot(float* slot, const float* g) {
+#pragma unroll
+  for (int r = 0; r < kRows; r += 4) {
+    atomicAdd(reinterpret_cast<float4*>(slot + r),
+              make_float4(g[r], r + 1 < kRows ? g[r + 1] : 0.0f,
+                          r + 2 < kRows ? g[r + 2] : 0.0f,
+                          r + 3 < kRows ? g[r + 3] : 0.0f));
+  }
+}
 
 // Adjoint of a miss: the pending radiance gains thr * background(d) and
 // o, d and thr pass through. dr: the pending radiance's cotangent. ADDS
@@ -92,8 +104,8 @@ __device__ __forceinline__ void miss_adjoint(const Record& r,
 // survives = true). In: go, gd, gt, the cotangents of the new origin,
 // direction and throughput. Out: the same arrays hold the cotangents of
 // the bounce's input origin, direction and throughput; the winner's
-// pack cotangents go to `sink` (SlotAtomics or RowSums, above), one
-// add() a gradient row. With kMoving the center
+// pack cotangents go to `sink` (RowSums, above), one add() a gradient
+// row. With kMoving the center
 // is base + time * vel (time: the path's time): base gets the center's
 // cotangent, vel time times it, and g_time gains vel . it. With
 // kKept the shading is recomputed without the scatter draws, from what
@@ -302,14 +314,6 @@ inline cudaError_t reduce_partials(float* scratch, int n_blocks, int n_cols,
   reduce_blocks_kernel<<<dim3((n_cols + 255) / 256, 1), 256, 0, st>>>(
       mid, n_groups, n_cols, n_groups, sums);
   return cudaGetLastError();
-}
-
-// Dynamic shared memory of a backward block: the staged rows of every
-// slot (one float4, two with moving spheres: staged_bytes), then the 12
-// (15) gradient rows of every slot.
-inline size_t adjoint_smem(int n_slots, bool moving) {
-  return staged_bytes(n_slots, moving) +
-         grad_rows(moving) * sizeof(float) * static_cast<size_t>(n_slots);
 }
 
 }  // namespace

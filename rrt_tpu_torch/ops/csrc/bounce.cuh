@@ -1,13 +1,15 @@
 // Device functions of one path-tracing bounce, shared by the forward
-// (tile_render.cu), the train kernels (train.cu) and the queue and batch
-// drivers' kernels (queue.cu), so that all of them run the same
-// arithmetic under the same flags (-fmad=false, see the
-// note on floats in tile_render.cu): Threefry, uniforms, Box-Muller, the
-// thin-lens camera ray, the closest-sphere scan and the BVH walk that
-// gives the scan's (t, winner) bit for bit (tile_render and intersect),
-// the shading step of the winner, which exposes its decisions and
-// intermediates to the backward, and the back-to-back loop over a
-// pixel's samples (trace_pixel: tile_render and train_fwd).
+// (tile_render.cu), the train kernels (train.cu), the queue and batch
+// drivers' kernels (queue.cu) and the bounce chain's backward
+// (chain.cu), so that all of them run the same arithmetic under the same
+// flags (-fmad=false, see the note on floats in tile_render.cu):
+// Threefry, uniforms, Box-Muller, the thin-lens camera ray, the
+// closest-sphere scan (train_fwd, train_bwd) and the BVH walk that gives
+// the scan's (t, winner) bit for bit (every other kernel), the shading
+// step of the winner, which exposes its decisions and intermediates to
+// the backward, one bounce over either (bounce_step) and the
+// back-to-back loop over a pixel's samples (trace_pixel: tile_render and
+// train_fwd).
 //
 // Sphere subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary
 // and moving spheres, solid and checker textures, lambertian / metal /
@@ -530,22 +532,21 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
   return kScattered;
 }
 
-// One bounce of a path: the closest-sphere scan, then finish_bounce.
-// `win` is the winner, -1 on a miss.
-template <bool kMoving>
-__device__ __forceinline__ int bounce_step(const float* sph,
-                                           const float4* sph4,
-                                           const float4* vel4, int n_slots,
+// One bounce of a path: the closest hit by `closest` (SlotScan or
+// BvhWalk, below: the same (t, win) bit for bit), then finish_bounce.
+// `win` is the winner, -1 on a miss; `kept`: as shade's.
+template <bool kMoving, typename Closest>
+__device__ __forceinline__ int bounce_step(const Closest& closest,
+                                           const float* sph, int n_slots,
                                            const float* bg, bool sky,
                                            uint32_t k0, uint32_t k1,
                                            int bounce, int max_depth,
                                            float t_min, Path& p, float* rad,
-                                           int& win) {
+                                           int& win, float* kept = nullptr) {
   const RayDots q = ray_dots(p.ray);
-  const float t_best =
-      closest_sphere<kMoving>(sph4, vel4, n_slots, p.ray, q, t_min, win);
+  const float t_best = closest(p.ray, q, t_min, win);
   return finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1, bounce,
-                                max_depth, q, t_best, p, rad, win);
+                                max_depth, q, t_best, p, rad, win, kept);
 }
 
 // The first ray of sample `sample` of pixel (px, py), gid = py * width +
@@ -612,7 +613,7 @@ __device__ __forceinline__ void stage_packs(const float* sph, int n_slots,
   if (tid < 8) bg[tid] = bg_g[tid];
 }
 
-// The closest-sphere scan as trace_pixel's closest-hit functor: sph4 and
+// The closest-sphere scan as bounce_step's closest-hit functor: sph4 and
 // vel4 as closest_sphere's, csq each slot's staged center_sq (kCsq).
 template <bool kMoving, bool kCsq>
 struct SlotScan {
@@ -628,7 +629,7 @@ struct SlotScan {
 };
 
 // ---------------------------------------------------------------------------
-// The BVH walk (tile_render and intersect_only)
+// The BVH walk (tile_render, bounce_steps, intersect and chain_bwd)
 // ---------------------------------------------------------------------------
 //
 // rrt_tpu_torch/accel.py builds the tree (pack_bvh) and states the rule
@@ -781,7 +782,7 @@ __device__ __forceinline__ float closest_sphere_bvh(const BvhView& b,
   return t_best;
 }
 
-// The walk as trace_pixel's closest-hit functor.
+// The walk as bounce_step's closest-hit functor.
 template <bool kMoving>
 struct BvhWalk {
   BvhView b;
@@ -826,11 +827,9 @@ __device__ __forceinline__ void trace_pixel(
   for (;;) {
     float c[3];
     int win;
-    const RayDots q = ray_dots(p.ray);
-    const float t_best = closest(p.ray, q, t_min, win);
-    const int out = finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1,
-                                           bounce, max_depth, q, t_best, p,
-                                           c, win);
+    const int out = bounce_step<kMoving>(closest, sph, n_slots, bg, sky, k0,
+                                         k1, bounce, max_depth, t_min, p, c,
+                                         win);
     if (kResidual && n_traced < win_cap) {
       winners[static_cast<size_t>(n_traced) * n_pix + gid] =
           static_cast<int16_t>(win);

@@ -16,23 +16,31 @@
 // (bounce_steps, intersect_only) and the plain PyTorch versions
 // (bounce_steps_reference, intersect_only_reference).
 //
-// What bounds them: arithmetic, as tile_render. bounce_steps tests each
-// bounce's ray against every sphere slot (at least 17 FP32 operations a
-// slot, 23 for a moving one, 512 slots on chap12 and book2chap2), on
-// sphere rows staged in shared memory; a lane moves 136 bytes (16 state
-// rows and 2 key words read, 16 rows written). intersect walks
-// tile_render's BVH instead (bounce.cuh closest_sphere_bvh, the scan's
-// (t, slot) bit for bit), staged in shared memory with each static
-// slot's |c|^2; a ray moves 36 bytes (o and d read; t, family and slot
-// written; 40 with the time).
+// What bounds them. Both walk tile_render's BVH (bounce.cuh
+// closest_sphere_bvh, the linear scan's (t, slot) bit for bit), staged in
+// shared memory with each static slot's |c|^2 (stage_bvh). intersect: a
+// ray moves 36 bytes (o and d read; t, family and slot written; 40 with
+// the time) and walks about 20 nodes and 7 slots. bounce_steps: a lane
+// moves 136 bytes (16 state rows and 2 key words read, 16 rows written);
+// a segment walks the tree, and one that hits shades its winner, whose
+// pack column it reads from device memory, and draws 4 Threefry calls
+// (80 INT32 operations each). On an H100 80GB HBM3 at 700 W, at 131,072
+// camera-ray lanes of chap12 1200x800 and 4 steps, bounce_steps took
+// 0.1052-0.1237 ms in turns with the scan, which took 0.3304-0.3410
+// (book2chap2 0.1222-0.1332 where 0.4229-0.4339), and 0.1172-0.1415 ms
+// (0.1374-0.1550) in chip_smoke.py's runs, against a least time of some
+// microseconds (PERF.md).
+// At __launch_bounds__(256) ptxas gives it 64 registers, 4 blocks an SM;
+// (256, 4) ran no faster, so ptxas's own choice stays.
 //
 // Design, against the TPU kernels:
 //  * one thread per lane, 256 lanes a block; the state is (16, Q)
 //    row-major, so each row is lane-contiguous and a warp's loads and
 //    stores coalesce;
-//  * a lane runs its k_steps bounces through bounce_step of bounce.cuh,
-//    the same function tile_render's paths go through, so a ray the
-//    queue traces takes the path tile_render gives it;
+//  * a lane runs its k_steps bounces through bounce_step of bounce.cuh
+//    with the walk (BvhWalk), the function tile_render's paths go
+//    through, so a ray the queue traces takes the path tile_render gives
+//    it, and the same winners as the scan the TPU kernel runs;
 //  * a dead lane returns at once and writes nothing: its state passes
 //    through unchanged, the GPU form of the TPU kernel's whole-tile
 //    early-out (a warp of dead lanes costs one load each);
@@ -51,17 +59,22 @@ constexpr int kStO = 0, kStD = 3, kStTime = 6, kStThr = 7, kStPend = 10,
               kStBounce = 13, kStAlive = 14, kStTraced = 15;
 constexpr int kThreads = 256;
 
+// st: (16, Q) state, updated in place; keys: (2, Q); the BVH as
+// tile_render's (stage_bvh).
 template <bool kMoving>
 __global__ void __launch_bounds__(kThreads)
     bounce_steps_kernel(float* __restrict__ st,
                         const uint32_t* __restrict__ keys, int q,
                         const float* __restrict__ sph, int n_slots,
+                        const float* __restrict__ nodes_g,
+                        const int* __restrict__ rows_g, int n_nodes,
+                        int n_rows, int n_always,
                         const float* __restrict__ bg_g, int k_steps,
                         int max_depth, float t_min) {
-  extern __shared__ float4 sph4[];
-  float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
+  extern __shared__ float4 smem[];
   __shared__ float bg[8];
-  stage_spheres(sph, n_slots, sph4, vel4);
+  const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
+      sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
   if (threadIdx.x < 8) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
@@ -93,9 +106,9 @@ __global__ void __launch_bounds__(kThreads)
     traced += 1.0f;
     float c[3];
     int win;
-    const int out = bounce_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky,
-                                         k0, k1, bounce, max_depth, t_min, p,
-                                         c, win);
+    const int out = bounce_step<kMoving>(walk, sph, n_slots, bg, sky, k0,
+                                         k1, bounce, max_depth, t_min, p, c,
+                                         win);
     if (out == kMissed) {
       pend[0] += c[0];
       pend[1] += c[1];
@@ -159,12 +172,11 @@ __global__ void __launch_bounds__(kThreads)
   idx_out[lane] = win;                // 0 on a miss
 }
 
-// Shared memory of a launch: the staged sphere rows. MAX_SLOTS (3072)
-// slots stage 48 KB (96 KB moving), which with bg passes the 48 KB a
-// block gets without the opt-in.
+// Opt the kernel into `smem` bytes of dynamic shared memory, the staged
+// BVH (bvh_bytes): past the 48 KB a block gets without the opt-in at
+// MAX_SLOTS (3072) slots.
 template <typename Kernel>
-int set_smem(Kernel kernel, int n_slots, bool moving, size_t& smem) {
-  smem = staged_bytes(n_slots, moving);
+int set_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
@@ -174,21 +186,24 @@ int set_smem(Kernel kernel, int n_slots, bool moving, size_t& smem) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // st: (16, q) f32, updated in place; keys: (2, q) u32; sph: (24, n_slots)
-// f32; bg: (8,) f32; all on the device; moving: nonzero for the
-// moving-sphere variant.
+// f32; the BVH as rrt_tile_render's; bg: (8,) f32; all on the device;
+// moving: nonzero for the moving-sphere variant.
 extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 const float* sph, int n_slots,
+                                const float* nodes, const int* rows,
+                                int n_nodes, int n_rows, int n_always,
                                 const float* bg, int k_steps, int max_depth,
                                 float t_min, int moving, void* stream) {
   if (q == 0) return 0;
   auto kernel =
       moving ? bounce_steps_kernel<true> : bounce_steps_kernel<false>;
-  size_t smem;
-  const int err = set_smem(kernel, n_slots, moving != 0, smem);
+  const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
+  const int err = set_smem(kernel, smem);
   if (err != 0) return err;
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      st, keys, q, sph, n_slots, bg, k_steps, max_depth, t_min);
+      st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always, bg,
+      k_steps, max_depth, t_min);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -204,10 +219,8 @@ extern "C" int rrt_intersect(const float* o, const float* d,
   if (q == 0) return 0;
   auto kernel = moving ? intersect_kernel<true> : intersect_kernel<false>;
   const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       o, d, time, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,

@@ -178,25 +178,6 @@ __device__ __forceinline__ void camera_adjoint(const float* cam,
   }
 }
 
-// Pack cotangent floats a slot in the backward's per-block partials
-// (slot-major: grad rows 0-11, or 0-14 with moving spheres, then zeros),
-// so that a bounce adds its cotangents with four-float atomics.
-constexpr int kSlotCols = 16;
-
-// Add a bounce's pack cotangents g (kRows <= kSlotCols rows) to its
-// winner's kSlotCols floats of the block's partials in device memory
-// (16-byte aligned): four-float reductions, done in L2 without a reply.
-template <int kRows>
-__device__ __forceinline__ void add_slot(float* slot, const float* g) {
-#pragma unroll
-  for (int r = 0; r < kRows; r += 4) {
-    atomicAdd(reinterpret_cast<float4*>(slot + r),
-              make_float4(g[r], r + 1 < kRows ? g[r + 1] : 0.0f,
-                          r + 2 < kRows ? g[r + 2] : 0.0f,
-                          r + 3 < kRows ? g[r + 3] : 0.0f));
-  }
-}
-
 // A winner entry that holds nothing: the segment is past the pixel's
 // pool, or past its path's forward length.
 constexpr int kUnstored = -2;

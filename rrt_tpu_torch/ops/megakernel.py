@@ -1,9 +1,9 @@
 """The forward kernels' packs, wrappers and plain versions.
 
 Three CUDA kernels, each beside its plain PyTorch version, which tensors
-on the CPU run instead (tile_render and intersect walk the sphere pack's
-BVH, rrt_tpu_torch/accel.py, which their callers build once a pack;
-the plain versions scan, the same function):
+on the CPU run instead (the kernels walk the sphere pack's BVH,
+rrt_tpu_torch/accel.py, which their callers build once a pack; the
+plain versions scan, the same function):
 
   `render_tiles`   every pixel's samples in one launch
                    (csrc/tile_render.cu), the counterpart of rrt_tpu's
@@ -413,7 +413,7 @@ def _launch_error(lib, err, what):
 
 
 def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
-                 t_min: float, moving: bool):
+                 t_min: float, moving: bool, bvh=None):
     """Run k_steps bounce steps on every live lane of a queue state.
 
     state: (16, Q) f32 (pack_state's rows), updated IN PLACE and
@@ -421,7 +421,9 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     (16, Q) copy a launch. keys: (2, Q) int32 holding each lane's u32
     sample-key words (rng.u32_bits). sph24 (24, S), bg8 (8,): the packs.
     moving: the moving-sphere variant, which reads each lane's time (row
-    6).
+    6). bvh: the sphere pack's accel.BvhPack on its device, its shutter
+    covering the lanes' times, which the kernel walks: required on a
+    CUDA device, not read on the CPU.
 
     Per live lane and step, as rrt_tpu's _one_bounce: traced += 1; a
     miss adds throughput x background to the pending radiance and kills
@@ -431,7 +433,8 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     (alive row 0) passes through unchanged.
 
     CUDA tensors launch the kernel (counted in `bounce_steps.launches`);
-    CPU tensors run bounce_steps_reference."""
+    CPU tensors run bounce_steps_reference, whose linear scan gives the
+    walk's winners."""
     device = _check_spheres(sph24, bg8)
     _check_lanes("state", state, STATE_ROWS, torch.float32, device)
     _check_lanes("keys", keys, 2, torch.int32, device)
@@ -444,11 +447,12 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
               moving=moving)
     if device.type == "cpu":
         return bounce_steps_reference(state, keys, sph24, bg8, **kw)
+    tree = _check_bvh(bvh, sph24, "bounce_steps")
     lib = _build.load()
     with torch.cuda.device(device):
         err = lib.rrt_bounce_steps(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(),
-            sph24.shape[1], bg8.data_ptr(), k_steps, max_depth, t_min,
+            sph24.shape[1], *tree, bg8.data_ptr(), k_steps, max_depth, t_min,
             int(moving), torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "bounce_steps")
     bounce_steps.launches += 1

@@ -37,7 +37,7 @@ import torch
 from .. import rng
 from . import _build
 from . import megakernel as mk
-from .megakernel_vjp import (MAX_RECORDS, camera_ray_rows,
+from .megakernel_vjp import (MAX_RECORDS, SLOT_COLS, camera_ray_rows,
                              check_backward_slots, count_mismatches,
                              diff_step, grad_rows, replay_steps,
                              step_constants)
@@ -50,11 +50,6 @@ from ..camera import thin_lens_rays
 # pool are well under 1% (chip_smoke.py [5] prints the share), and each
 # costs the backward a scan.
 WINNERS_PER_SAMPLE = 16
-
-
-# Floats a slot in train_bwd's per-block partials (csrc/train.cu
-# kSlotCols): the slot's gradient rows, then zeros.
-SLOT_COLS = 16
 
 
 def winner_capacity(spp: int) -> int:

@@ -28,12 +28,13 @@ counterpart of rrt_tpu's `bounce_chain` custom_vjp:
 
   forward   ops.megakernel.bounce_steps (csrc/queue.cu) on a copy of the
             input state, which is the only residual besides the keys,
-            the packs and the output's bounce row;
+            the packs, the BVH pack and the output's bounce row;
   backward  `chain_adjoint`: the CUDA kernel chain_bwd (csrc/chain.cu),
             the counterpart of rrt_tpu's `_bwd_kernel`, which replays
-            the K steps from the input state and sweeps them in reverse
-            through the hand-written transpose of diff_step. Its plain
-            version is `chain_adjoint_reference`, which CPU tensors run.
+            the K steps from the input state, walking the forward's BVH,
+            and sweeps them in reverse through the hand-written
+            transpose of diff_step. Its plain version is
+            `chain_adjoint_reference`, which CPU tensors run.
 """
 
 import torch
@@ -52,10 +53,13 @@ MAX_RECORDS = 64
 # rgb, color2 rgb, signed radius, then, with moving spheres only, the
 # velocity xyz (csrc/adjoint.cuh kGradRows; grad_rows).
 GRAD_ROWS = (0, 1, 2, 3, 9, 10, 11, 12, 13, 14, 15, 18, 4, 5, 6)
-# Shared memory holds each slot's staged rows and its gradient rows (64
-# bytes a slot, 92 with the velocity rows), inside a block's 227 KB:
-# the backwards take MAX_SLOTS slots, or this many with moving spheres.
+# The backwards take MAX_SLOTS slots, or this many with moving spheres
+# (the limit their shared-memory accumulators once set, which the tests
+# hold; the pack cotangents now go to device memory).
 MAX_SLOTS_MOVING = 2048
+# Pack cotangent floats a slot in the CUDA backwards' per-block partials
+# and sums (csrc/adjoint.cuh kSlotCols): grad_rows(moving), then zeros.
+SLOT_COLS = 16
 
 
 def grad_rows(moving: bool):
@@ -323,18 +327,19 @@ def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
 
 def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                   k_steps: int, max_depth: int, t_min: float,
-                  moving: bool):
+                  moving: bool, bvh=None):
     """The backward of k_steps bounce steps (ops.megakernel.bounce_steps)
     of a lane state; moving: the moving-sphere variant.
 
     state: the chain's input state (16, Q) f32; keys (2, Q) int32 (the
     lanes' u32 words); sph24 (24, S), bg8 (8,): the packs; d_out (16, Q)
     f32: the output state's cotangent; out_bounce (Q,) f32: the forward
-    output's bounce row. Returns (d_state (16, Q), rows 13-15 zero;
+    output's bounce row; bvh: the sphere pack's accel.BvhPack that the
+    forward walked, which the replay walks: required on a CUDA device,
+    not read on the CPU. Returns (d_state (16, Q), rows 13-15 zero;
     d_sph24 (24, S), the grad_rows(moving) filled; d_bg8 (8,); replay
-    mismatches
-    (1,) int32: the lanes whose replayed bounce row differs from
-    out_bounce).
+    mismatches (1,) int32: the lanes whose replayed bounce row differs
+    from out_bounce).
 
     CUDA tensors launch chain_bwd (counted in `chain_adjoint.launches`);
     CPU tensors run chain_adjoint_reference. Either way the mismatches
@@ -348,13 +353,14 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                                       out_bounce, **kw)
         count_mismatches(chain_adjoint, out[3])
         return out
+    tree = mk._check_bvh(bvh, sph24, "chain_adjoint")
     lib = _build.load()
     q, n_slots = state.shape[1], sph24.shape[1]
-    # Per-block partials of 256 lanes and, below them, the first
-    # reduction's groups of 64 blocks (csrc/chain.cu rrt_chain_bwd).
-    rows = grad_rows(moving)
+    # Per-block partials of 256 lanes, SLOT_COLS floats a slot and 8 of
+    # the background, and, below them, the first reduction's groups of
+    # 64 blocks (csrc/chain.cu rrt_chain_bwd).
     n_blocks = -(-q // 256)
-    n_cols = len(rows) * n_slots + 8
+    n_cols = SLOT_COLS * n_slots + 8
     partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
                            dtype=torch.float32, device=device)
     sums = torch.empty((n_cols,), dtype=torch.float32, device=device)
@@ -363,10 +369,9 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     with torch.cuda.device(device):
         err = lib.rrt_chain_bwd(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(), n_slots,
-            bg8.data_ptr(), d_out.data_ptr(), out_bounce.data_ptr(), k_steps,
-            max_depth, t_min, int(moving), d_state.data_ptr(),
-            partials.data_ptr(),
-            sums.data_ptr(), mismatches.data_ptr(),
+            *tree, bg8.data_ptr(), d_out.data_ptr(), out_bounce.data_ptr(),
+            k_steps, max_depth, t_min, int(moving), d_state.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), mismatches.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     mk._launch_error(lib, err, "chain_bwd")
     chain_adjoint.launches += 1
@@ -374,9 +379,9 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     # Row by row: an index list would be copied from the host, which a
     # CUDA graph capturing this wrapper does not allow.
     d_sph24 = torch.zeros_like(sph24)
-    g = sums[:-8].view(len(rows), n_slots)
-    for i, row in enumerate(rows):
-        d_sph24[row] = g[i]
+    g = sums[:-8].view(n_slots, SLOT_COLS)
+    for i, row in enumerate(grad_rows(moving)):
+        d_sph24[row] = g[:, i]
     return d_state, d_sph24, sums[-8:].clone(), mismatches
 
 
@@ -441,18 +446,19 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
 class BounceChain(torch.autograd.Function):
     """K bounce steps of a lane state as a differentiable function of
     the state and the packs: apply(state (16,Q), keys (2,Q) int32,
-    sph24, bg8, k_steps, max_depth, t_min, moving) -> state' (16,Q).
-    Forward:
-    one bounce_steps launch on a copy of the state (bounce_steps updates
-    in place, and the input is the backward's residual); backward: one
-    chain_adjoint, seeded with zeros where the output has no cotangent
-    (autograd materialises them). The keys carry no gradient."""
+    sph24, bg8, k_steps, max_depth, t_min, moving, bvh) -> state' (16,Q),
+    bvh the sphere pack's accel.BvhPack (required on a CUDA device).
+    Forward: one bounce_steps launch on a copy of the state
+    (bounce_steps updates in place, and the input is the backward's
+    residual); backward: one chain_adjoint on the same BVH, seeded with
+    zeros where the output has no cotangent (autograd materialises
+    them). The keys carry no gradient."""
 
     @staticmethod
     def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min,
-                moving):
+                moving, bvh):
         kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-                  moving=moving)
+                  moving=moving, bvh=bvh)
         out = mk.bounce_steps(state.clone(), keys, sph24, bg8, **kw)
         ctx.save_for_backward(state, keys, sph24, bg8,
                               out[mk.ROW_BOUNCE].clone())
@@ -465,14 +471,16 @@ class BounceChain(torch.autograd.Function):
         d_state, d_sph, d_bg, _ = chain_adjoint(
             state, keys, sph24, bg8, d_out.contiguous(), out_bounce,
             **ctx.kw)
-        return d_state, None, d_sph, d_bg, None, None, None, None
+        return d_state, None, d_sph, d_bg, None, None, None, None, None
 
 
 def bounce_chain(k_steps: int, max_depth: int, t_min: float,
                  moving: bool):
-    """chain(state, keys, sph24, bg8) -> state': BounceChain with its
-    step count and options bound, as rrt_tpu's bounce_chain returns."""
-    def chain(state, keys, sph24, bg8):
+    """chain(state, keys, sph24, bg8, bvh=None) -> state': BounceChain
+    with its step count and options bound, as rrt_tpu's bounce_chain
+    returns; bvh: the sphere pack's accel.BvhPack, which both kernels
+    walk (required on a CUDA device)."""
+    def chain(state, keys, sph24, bg8, bvh=None):
         return BounceChain.apply(state, keys, sph24, bg8, k_steps,
-                                 max_depth, t_min, moving)
+                                 max_depth, t_min, moving, bvh)
     return chain

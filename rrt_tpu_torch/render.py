@@ -308,6 +308,23 @@ def pack_scene(scene: SceneArrays, device, shutter=None):
     return {"sph24": sph24, "bvh": accel.pack_bvh(sph24, shutter)}
 
 
+def chain_bvh(sph24, time, moving: bool):
+    """The accel.BvhPack that trace_batch_fused's chains walk, over the
+    sphere pack sph24 (24, S) and, when the scene moves, the rays' own
+    range of times `time` (N,): one device-to-host read of the spheres
+    and that range together, the host build (accel.pack_bvh), and the
+    pack's copy to sph24's device. Trained spheres move every step, so
+    a pack is built a call and never reused."""
+    sph = sph24.detach()
+    shutter = None
+    if moving:
+        tm = time.detach()
+        flat = torch.cat([sph.reshape(-1), tm.min()[None], tm.max()[None]])
+        flat = flat.cpu()
+        sph, shutter = flat[:-2].reshape(sph.shape), (flat[-2], flat[-1])
+    return accel.pack_bvh(sph.cpu(), shutter).to(sph24.device)
+
+
 def _shutter(camera):
     """The camera's shutter (time0, time1), which its rays' times lie in
     (camera.thin_lens_rays)."""
@@ -364,14 +381,19 @@ def _compact_lanes(st, keys, lane):
 
 def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
                       t_min: float, schedule: tuple | None = None,
-                      rr_depth: int = 0):
+                      rr_depth: int = 0, bvh=None):
     """Reverse-differentiable trace of a ray batch through the bounce
     chain (rrt_tpu's trace_batch_fused).
 
     The max_depth + 1 bounces run as the chains of `schedule` (default
     _fused_schedule), each one ops/megakernel_vjp.BounceChain: forward a
     bounce_steps launch, backward a chain_bwd launch that replays the
-    chain from its input state, the only residual besides the keys.
+    chain from its input state, the only residual besides the keys; both
+    walk one BVH pack of the scene's spheres: `bvh` when given (a pack of
+    these spheres whose shutter covers the rays' times: render_image
+    builds one an image), otherwise chain_bvh's, built here over the
+    rays' own range of times (one device-to-host read and a host build a
+    call).
     _compact_lanes packs the live lanes first between chains. o, d: (3,N)
     rays; time: (N,) their times (state row 6, differentiable); keys:
     (2,N) sample key words (rng.sample_keys). The kernels
@@ -382,6 +404,8 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
         schedule = _fused_schedule(max_depth)
     n, dev = o.shape[1], o.device
     sph24 = ops_mega.pack_spheres_full(scene).to(dev)
+    if bvh is None:
+        bvh = chain_bvh(sph24, time, scene.has_moving)
     bg8 = ops_mega.pack_bg(scene).to(dev)
     ones = torch.ones((n,), dtype=torch.float32, device=dev)
     zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -391,7 +415,7 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     lane = torch.arange(n, device=dev)
     for j, k in enumerate(schedule):
         st = ops_vjp.bounce_chain(k, max_depth, t_min, scene.has_moving)(
-            st, keys, sph24, bg8)
+            st, keys, sph24, bg8, bvh)
         if j < len(schedule) - 1:
             st, keys, lane = _compact_lanes(st, keys, lane)
     # Undo the compactions: callers index by the rays' order.
@@ -424,13 +448,15 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
                       jax.checkpoint); it intersects through
                       geometry.intersect_spheres, as rrt_tpu's scan does
                       (`packed` is not used): the kernel's t carries no
-                      gradient.
+                      gradient. With fused_vjp, packed's BVH, when
+                      given, goes to trace_batch_fused.
 
     Returns (radiance (3,N), n_traced () int64: exact, where rrt_tpu
     sums it in f32)."""
     if differentiable and fused_vjp:
         return trace_batch_fused(scene, o, d, time, keys, max_depth, t_min,
-                                 rr_depth=rr_depth)
+                                 rr_depth=rr_depth,
+                                 bvh=None if packed is None else packed["bvh"])
     ops_mega.check_scope(scene, rr_depth)
     if differentiable:
         packed = None
@@ -460,21 +486,20 @@ def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     with n_passes sample passes through the batch driver. Pass i covers
     samples [(pass_start+i)*spc, ...+spc), spc = cfg.samples_per_pass.
     packed: pack_scene's dict over the camera's shutter (render_image
-    makes it once an image), made here when not given.
+    makes it once an image), made here when not given (forward only:
+    without it each bounce chain builds its own BVH).
     differentiable: each pass through trace_batch's bounce chain
-    (trace_batch_fused) when ops_vjp.supports_backward(scene), else its
-    checkpointed scan; rrt_tpu also requires a TPU and tile-aligned
-    batches there, the port neither. Returns (radiance sums (P,3),
-    n_traced)."""
+    (trace_batch_fused, which walks packed's BVH) when
+    ops_vjp.supports_backward(scene), else its checkpointed scan;
+    rrt_tpu also requires a TPU and tile-aligned batches there, the port
+    neither. Returns (radiance sums (P,3), n_traced)."""
     p_count = px.shape[0]
     spc = cfg.samples_per_pass
     pxr, pyr = px.repeat(spc), py.repeat(spc)
     gid = pyr * cfg.width + pxr
     replica = torch.arange(spc, device=px.device).repeat_interleave(p_count)
     seed_words = rng.key_words(seed)
-    if differentiable:
-        packed = None
-    elif packed is None:
+    if packed is None and not differentiable:
         packed = pack_scene(scene, px.device, _shutter(camera))
     fused_vjp = differentiable and ops_vjp.supports_backward(scene)
     acc = torch.zeros((p_count, 3), dtype=torch.float32, device=px.device)
@@ -521,8 +546,8 @@ def render_image(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     scene, camera = scene.to(device), camera.to(device)
     if n_passes is None:
         n_passes = cfg.spp // cfg.samples_per_pass
-    packed = None if differentiable else pack_scene(scene, device,
-                                                    _shutter(camera))
+    with torch.no_grad():  # the packs carry no gradient
+        packed = pack_scene(scene, device, _shutter(camera))
     rads, n_traced = [], 0
     for px, py in _tile_coords(cfg, device):
         r, n = render_tile(scene, camera, px, py, cfg, seed, pass_start,
@@ -548,7 +573,8 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     P * n_samples) lanes, in rrt_tpu's (16, Q) state layout.
 
     An outer step flushes and refills, then runs cfg.bounces_per_refill
-    bounce steps in one launch of ops.megakernel.bounce_steps. The
+    bounce steps in one launch of ops.megakernel.bounce_steps, which walks
+    the BVH pack_scene builds once a call over the camera's shutter. The
     refill is rrt_tpu's, in eager PyTorch: a cumsum ranks the dead lanes;
     the first of them take the next (pixel, sample) ids, sample-major
     (every pixel at sample s, then s+1), so fresh camera rays are
@@ -570,7 +596,8 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     total = p_count * (sample_hi - sample_lo)
     q = min(queue_size or cfg.queue_size, total)
     k_steps = max(1, cfg.bounces_per_refill)
-    sph24 = ops_mega.pack_spheres_full(scene).to(device)
+    packed = pack_scene(scene, device, _shutter(camera))
+    sph24, bvh = packed["sph24"], packed["bvh"]
     bg8 = ops_mega.pack_bg(scene).to(device)
     seed_words = rng.key_words(seed)
     pixel_gid = py * cfg.width + px
@@ -605,7 +632,7 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
             next_s += n_issue
         ops_mega.bounce_steps(st, keys, sph24, bg8, k_steps=k_steps,
                               max_depth=cfg.max_depth, t_min=cfg.t_min,
-                              moving=scene.has_moving)
+                              moving=scene.has_moving, bvh=bvh)
         trace_queue.outer_steps += 1
         n_alive = int((st[ops_mega.ROW_ALIVE] > 0.5).sum())
     acc.index_add_(1, pix, st[10:13])  # the final flush

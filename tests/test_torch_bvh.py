@@ -1,13 +1,21 @@
 """The port's closest-sphere BVH (rrt_tpu_torch/accel.py), on the CPU.
 
-build_sphere_bvh equals rrt_tpu.accel.build_sphere_bvh node for node.
+build_sphere_bvh equals rrt_tpu.accel.build_sphere_bvh node for node,
+and build_bvh equals rrt_tpu.accel.build_bvh on random boxes whose
+centroids coincide in part or all.
 The kernels' walk, in its plain form (bvh_closest_reference over
 pack_bvh's layout), gives intersect_only_reference's (t, fam, idx) bit
 for bit: on camera rays, on the same rays after 1-4 bounce steps, on
 rays leaving the ground sphere's surface and on rays grazing small
-spheres, static and moving. Every root a slot gives under the plain
-arithmetic lies inside the slot's padded box (the walk's premise), and
-a tree too deep or too large for the kernels raises."""
+spheres, static and moving; and on the lanes the queue driver and the
+differentiable batch driver hand bounce_steps and chain_bwd, with the
+pack each builds once a call and passes to every launch. Every root a
+slot gives under the plain arithmetic lies inside the slot's padded box
+(the walk's premise), and a tree too deep or too large for the kernels
+raises."""
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -17,6 +25,7 @@ from rrt_tpu import accel as jaccel
 from rrt_tpu import scenes as jscenes
 from rrt_tpu_torch import accel, geometry, render, rng, scenes as tscenes
 from rrt_tpu_torch.ops import megakernel as tmk
+from rrt_tpu_torch.ops import megakernel_vjp as tmkv
 
 W, H = 48, 27
 FIELDS = ("node_min", "node_max", "left", "right", "axis", "prim_start",
@@ -27,6 +36,40 @@ FIELDS = ("node_min", "node_max", "left", "right", "axis", "prim_start",
 def test_build_matches_rrt_tpu(name):
     ours = accel.build_sphere_bvh(tscenes.SCENES[name](W, H)[0])
     ref = jaccel.build_sphere_bvh(jscenes.SCENES[name](W, H)[0])
+    for field in FIELDS:
+        np.testing.assert_array_equal(getattr(ours, field),
+                                      np.asarray(getattr(ref, field)),
+                                      err_msg=field)
+
+
+def _random_boxes(kind, n, seed):
+    """n primitive boxes made from a seed: "spread" centers anywhere,
+    "grid" centers on a 3 x 3 x 3 lattice (many coincide, so splits go
+    degenerate deep in the tree), "coincident" one center for all (every
+    split is degenerate)."""
+    gen = np.random.default_rng(seed)
+    if kind == "spread":
+        c = gen.uniform(-50.0, 50.0, (n, 3))
+    elif kind == "grid":
+        c = gen.integers(-1, 2, (n, 3)) * 4.0
+    else:
+        c = np.full((n, 3), 1.5)
+    r = gen.uniform(0.1, 2.0, (n, 1))
+    ids = gen.permutation(4 * n)[:n].astype(np.int32)
+    return ((c - r).astype(np.float32), (c + r).astype(np.float32), ids)
+
+
+@pytest.mark.parametrize("kind,n,seed", [
+    ("spread", 1, 0), ("spread", 5, 1), ("spread", 300, 2),
+    ("grid", 40, 3), ("grid", 257, 4), ("coincident", 9, 5),
+    ("coincident", 70, 6)])
+def test_build_bvh_matches_rrt_tpu_on_random_boxes(kind, n, seed):
+    """The level-at-a-time builder against rrt_tpu's recursion node for
+    node, on random boxes, with the per-split EqualCount fallback taken
+    where centroids coincide."""
+    lo, hi, ids = _random_boxes(kind, n, seed)
+    ours = accel.build_bvh(lo, hi, ids)
+    ref = jaccel.build_bvh(lo, hi, ids)
     for field in FIELDS:
         np.testing.assert_array_equal(getattr(ours, field),
                                       np.asarray(getattr(ref, field)),
@@ -184,6 +227,156 @@ def test_too_deep_or_too_large_raises(monkeypatch):
         accel.pack_bvh(sph)
     with pytest.raises(ValueError, match="BVH"):
         tmk._check_bvh(None, sph, "intersect_only")
+
+
+def _record_bounce_steps(monkeypatch):
+    """Record the state (a copy) and BVH pack of every bounce_steps call;
+    the calls run as before."""
+    calls = []
+    bounce_steps = tmk.bounce_steps
+
+    def recorded(state, keys, sph24, bg8, **kw):
+        calls.append(dict(state=state.detach().clone(), sph24=sph24.detach(),
+                          bvh=kw["bvh"], moving=kw["moving"]))
+        return bounce_steps(state, keys, sph24, bg8, **kw)
+
+    monkeypatch.setattr(tmk, "bounce_steps", recorded)
+    return calls
+
+
+def _queue_render(name):
+    """trace_queue on the scene at W x H, 1 spp, depth 8, 256 lanes for
+    1,296 samples, one bounce step a refill."""
+    scene, cam = tscenes.SCENES[name](W, H)
+    cfg = render.RenderConfig(width=W, height=H, spp=1, max_depth=8,
+                              queue_size=256, bounces_per_refill=1)
+    ids = torch.arange(W * H)
+    return scene, cam, render.trace_queue(scene, cam, ids % W, ids // W, cfg,
+                                          0, 0, 1, device="cpu")
+
+
+def _fused_trace(name, requires_grad=False):
+    """trace_batch_fused on the scene's W x H camera rays at sample 0,
+    depth 8 (chains of 4 and 5 steps). Returns (scene, o, time, rad)."""
+    scene, cam = tscenes.SCENES[name](W, H)
+    ids = torch.arange(W * H)
+    keys = rng.sample_keys(rng.key_words(0), ids, 0)
+    o, d, tm = render.generate_rays(cam, ids % W, ids // W, W, H, keys)
+    o = o.requires_grad_(requires_grad)
+    rad, _ = render.trace_batch_fused(scene, o, d, tm, keys, 8, 1e-3)
+    return scene, o, tm, rad
+
+
+def _walk_equals_scan_on(calls):
+    """Every recorded call's lanes, live and dead (a dead lane keeps its
+    last ray), through the walk of the calls' one pack and the scan, in
+    one batch (the walk is a loop of small ops a node level)."""
+    assert all(c["bvh"] is calls[0]["bvh"] for c in calls)
+    st = torch.cat([c["state"] for c in calls], dim=1)
+    time = st[6].contiguous() if calls[0]["moving"] else None
+    (_, fam, _), _, _ = _same(st[0:3], st[3:6], time, dict(
+        sph24=calls[0]["sph24"], bvh=calls[0]["bvh"]))
+    for i in range(len(calls)):  # hits in every call's lanes
+        n = calls[i]["state"].shape[1]
+        assert (fam[i * n:(i + 1) * n] == 0).any()
+
+
+@pytest.mark.parametrize("name", ["chap12", "book2chap2"])
+def test_walk_equals_scan_on_queue_lanes(name, monkeypatch):
+    """The queue's lanes at each launch: fresh camera rays beside lanes
+    1-8 bounces into their paths, after refills (256 lanes for 1,296
+    samples), with the pack trace_queue builds."""
+    calls = _record_bounce_steps(monkeypatch)
+    _queue_render(name)
+    assert len(calls) >= 12
+    # A fresh lane is alive at bounce 0; a lane mid-path has scattered.
+    mid = [int((c["state"][13] > 0).sum()) for c in calls]
+    fresh = [int(((c["state"][13] == 0)
+                  & (c["state"][14] > 0.5)).sum()) for c in calls]
+    assert max(mid) > 0 and sum(f > 0 and m > 0
+                                for f, m in zip(fresh, mid)) >= 2
+    _walk_equals_scan_on(calls)
+
+
+@pytest.mark.parametrize("name", ["chap12", "book2chap2"])
+def test_walk_equals_scan_on_chain_inputs(name, monkeypatch):
+    """trace_batch_fused's chain inputs (camera rays, then the lanes
+    after the first chain of 4 steps, compacted), with the pack it
+    builds over the rays' own times."""
+    calls = _record_bounce_steps(monkeypatch)
+    scene, _, tm, _ = _fused_trace(name)
+    assert len(calls) == 2
+    shutter = (float(tm.min()), float(tm.max())) if scene.has_moving else None
+    assert calls[0]["bvh"].shutter == shutter
+    _walk_equals_scan_on(calls)
+
+
+@pytest.mark.parametrize("name", ["chap12", "book2chap2"])
+def test_chain_bvh_is_the_pack_over_the_rays_times(name):
+    """render.chain_bvh, the pack trace_batch_fused builds from one read
+    of the spheres and the times' range, is pack_bvh's over the rays'
+    own shutter (none for a static scene)."""
+    scene, cam = tscenes.SCENES[name](W, H)
+    sph = tmk.pack_spheres_full(scene)
+    tm = torch.rand(W * H, generator=torch.Generator().manual_seed(3))
+    ours = render.chain_bvh(sph, tm, scene.has_moving)
+    ref = accel.pack_bvh(sph, (float(tm.min()), float(tm.max()))
+                         if scene.has_moving else None)
+    assert ours.shutter == ref.shutter
+    assert (ours.shutter is None) == (not scene.has_moving)
+    # Bits: a node's w0 and w1 are int32 words, some of them NaN floats.
+    assert torch.equal(ours.nodes.view(torch.int32),
+                       ref.nodes.view(torch.int32))
+    assert torch.equal(ours.rows, ref.rows)
+    assert (ours.n_always, ours.depth, ours.n_slots) == (
+        ref.n_always, ref.depth, ref.n_slots)
+
+
+@pytest.mark.parametrize("driver", ["queue", "fused", "image"])
+def test_drivers_build_one_pack_and_pass_it(driver, monkeypatch):
+    """trace_queue and trace_batch_fused build one BVH pack a call (the
+    queue over the camera's shutter, the chain over the rays' times),
+    render_image(differentiable=True) one an image over the camera's
+    shutter for all its tiles' chains, and each hands that same pack to
+    every bounce_steps call and, backward, to every chain_adjoint
+    call."""
+    built, seen = [], []
+    pack_bvh, chain_adjoint = accel.pack_bvh, tmkv.chain_adjoint
+
+    def counted_pack(*args, **kwargs):
+        built.append(args[1] if len(args) > 1 else kwargs.get("shutter"))
+        return pack_bvh(*args, **kwargs)
+
+    @functools.wraps(chain_adjoint)  # its launch and mismatch counts
+    def counted_chain(*args, **kwargs):
+        seen.append(("chain_adjoint", kwargs["bvh"]))
+        return chain_adjoint(*args, **kwargs)
+
+    monkeypatch.setattr(accel, "pack_bvh", counted_pack)
+    monkeypatch.setattr(tmkv, "chain_adjoint", counted_chain)
+    calls = _record_bounce_steps(monkeypatch)
+    if driver == "queue":
+        _queue_render("book2chap2")
+        assert built == [(0.0, 1.0)]
+    elif driver == "fused":
+        _, o, tm, rad = _fused_trace("book2chap2", requires_grad=True)
+        rad.sum().backward()
+        assert len(built) == 1
+        assert o.grad is not None and o.grad.abs().max() > 0
+        assert [w for w, _ in seen] == ["chain_adjoint"] * 2
+    else:
+        scene, cam = tscenes.SCENES["book2chap2"](16, 8)
+        color = scene.tex_color1.clone().requires_grad_()
+        cfg = render.RenderConfig(width=16, height=8, spp=2, max_depth=3,
+                                  tile_pixels=64, samples_per_pass=2)
+        img, _ = render.render_image(
+            dataclasses.replace(scene, tex_color1=color), cam, cfg, 0,
+            differentiable=True, device="cpu")
+        img.sum().backward()
+        assert built == [(0.0, 1.0)] and color.grad.abs().max() > 0
+        assert len(seen) == len(calls) == 2  # two tiles, one chain each
+    packs = [c["bvh"] for c in calls] + [b for _, b in seen]
+    assert len(calls) >= 2 and all(b is packs[0] for b in packs)
 
 
 def test_render_image_builds_one_pack_and_passes_it(monkeypatch):

@@ -181,8 +181,9 @@ def test_tile_render_walk_equals_train_fwd_scan(device, name):
 
 
 def test_walking_kernels_raise_without_the_bvh(device):
-    """On the card tile_render and intersect_only walk the BVH or raise;
-    a pack built for other spheres raises too."""
+    """On the card every kernel but the train kernels walks the BVH or
+    raises: tile_render, intersect_only, bounce_steps and chain_bwd; a
+    pack built for other spheres raises too."""
     sph, cam, bg = _packs(device)
     with pytest.raises(ValueError, match="BVH"):
         tmk.render_tiles(sph, cam, bg, **_kw())
@@ -192,6 +193,18 @@ def test_walking_kernels_raise_without_the_bvh(device):
     other = _tree(sph[:, :128].contiguous())
     with pytest.raises(ValueError, match="slots"):
         tmk.intersect_only(o, o + 1.0, sph, t_min=1e-3, bvh=other)
+    st, keys, sph, bg = _lane_state(device)
+    kw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False)
+    with pytest.raises(ValueError, match="BVH"):
+        tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    with pytest.raises(ValueError, match="slots"):
+        tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=other, **kw)
+    ob = st[tmk.ROW_BOUNCE].clone()
+    with pytest.raises(ValueError, match="BVH"):
+        tmkv.chain_adjoint(st, keys, sph, bg, torch.zeros_like(st), ob, **kw)
+    with pytest.raises(ValueError, match="slots"):
+        tmkv.chain_adjoint(st, keys, sph, bg, torch.zeros_like(st), ob,
+                           bvh=other, **kw)
 
 
 @pytest.mark.parametrize("name", ["chap12", "chap11", "diffuse", "checker"])
@@ -451,6 +464,12 @@ def _lane_state(device, name="chap12", w=64, h=32):
             tmk.pack_bg(scene).to(device))
 
 
+def _lane_tree(sph, name="chap12"):
+    """The BVH the queue kernels walk on _lane_state's lanes: over the
+    camera's shutter, as render.trace_queue builds it."""
+    return _tree(sph, _packs(sph.device, name)[1])
+
+
 @pytest.mark.parametrize("k_steps", [1, 4])
 @pytest.mark.parametrize("name", ["chap12", "checker"])
 def test_bounce_steps_matches_plain_version(device, name, k_steps):
@@ -462,7 +481,8 @@ def test_bounce_steps_matches_plain_version(device, name, k_steps):
     st, keys, sph, bg = _lane_state(device, name)
     kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=False)
     before = tmk.bounce_steps.launches
-    out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg,
+                           bvh=_lane_tree(sph, name), **kw)
     torch.cuda.synchronize(device)
     assert tmk.bounce_steps.launches == before + 1
     ref = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
@@ -480,7 +500,8 @@ def test_bounce_steps_dead_lanes_pass_through(device):
     st[14] = 0.0
     st[15] = 7.0
     out = tmk.bounce_steps(st.clone(), keys, sph, bg, k_steps=4,
-                           max_depth=50, t_min=1e-3, moving=False)
+                           max_depth=50, t_min=1e-3, moving=False,
+                           bvh=_lane_tree(sph))
     assert torch.equal(out, st)
 
 
@@ -496,7 +517,7 @@ def test_intersect_only_matches_plain_version(device, name, bounces):
     st, keys, sph, bg = _lane_state(device, name)
     if bounces:
         tmk.bounce_steps(st, keys, sph, bg, k_steps=bounces, max_depth=50,
-                         t_min=1e-3, moving=False)
+                         t_min=1e-3, moving=False, bvh=_lane_tree(sph, name))
     o, d = st[0:3], st[3:6]
     before = tmk.intersect_only.launches
     t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3, bvh=_tree(sph))
@@ -537,16 +558,17 @@ def test_queue_image_matches_tile_image(device):
 
 
 def test_queue_kernels_run_at_max_slots(device):
-    """At MAX_SLOTS the staged rows need the shared-memory opt-in;
-    padding with empty slots (r^2 = -1) changes no bit."""
+    """At MAX_SLOTS padding with empty slots (r^2 = -1), which the BVH
+    leaves out, changes no bit."""
     st, keys, sph, bg = _lane_state(device)
     n = sph.shape[1]
     wide = torch.cat([sph, sph[:, -1:].expand(-1, tmk.MAX_SLOTS - n)],
                      dim=1).contiguous()
     a = tmk.bounce_steps(st.clone(), keys, sph, bg, k_steps=4, max_depth=50,
-                         t_min=1e-3, moving=False)
+                         t_min=1e-3, moving=False, bvh=_tree(sph))
     b = tmk.bounce_steps(st.clone(), keys, wide, bg, k_steps=4,
-                         max_depth=50, t_min=1e-3, moving=False)
+                         max_depth=50, t_min=1e-3, moving=False,
+                         bvh=_tree(wide))
     assert torch.equal(a, b)
     for x, y in zip(tmk.intersect_only(st[0:3], st[3:6], sph, t_min=1e-3,
                                        bvh=_tree(sph)),
@@ -575,16 +597,19 @@ def test_cli_drivers_launch_their_kernels(device, tmp_path, driver, kernel):
 
 def _chain_case(device, name="chap12", k_steps=4, pre_steps=0):
     """A lane state after `pre_steps` kernel bounce steps, the kernel's
-    output after k_steps more, and a seeded output cotangent."""
+    output after k_steps more, a seeded output cotangent, the plain
+    versions' keywords and the BVH both kernels walk."""
     st, keys, sph, bg = _lane_state(device, name)
+    moving = name == "book2chap2"
+    bvh = _lane_tree(sph, name)
+    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=moving)
     if pre_steps:
-        tmk.bounce_steps(st, keys, sph, bg, k_steps=pre_steps, max_depth=50,
-                         t_min=1e-3, moving=False)
-    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=False)
-    out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+        tmk.bounce_steps(st, keys, sph, bg, bvh=bvh,
+                         **dict(kw, k_steps=pre_steps))
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     gen = torch.Generator(device="cpu").manual_seed(0)
     d_out = torch.randn((16, st.shape[1]), generator=gen).to(device)
-    return st, keys, sph, bg, out, d_out, kw
+    return st, keys, sph, bg, out, d_out, kw, bvh
 
 
 @pytest.mark.parametrize("k_steps,pre_steps", [(4, 0), (1, 0), (12, 3)])
@@ -597,8 +622,8 @@ def test_chain_bwd_matches_plain_version(device, name, k_steps, pre_steps):
     cotangent within 1e-3 of each row's largest on >= 99.5% of lanes,
     the pack's and the background's within 1e-3 of their largest; each
     replay retraces its own forward."""
-    st, keys, sph, bg, out, d_out, kw = _chain_case(device, name, k_steps,
-                                                    pre_steps)
+    st, keys, sph, bg, out, d_out, kw, bvh = _chain_case(
+        device, name, k_steps, pre_steps)
     ref_out = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
     agree = ((out[13] == ref_out[13])
              & ((out[14] > 0.5) == (ref_out[14] > 0.5))
@@ -608,7 +633,7 @@ def test_chain_bwd_matches_plain_version(device, name, k_steps, pre_steps):
     d_out = d_out * agree
     before = tmkv.chain_adjoint.launches
     k = tmkv.chain_adjoint(st, keys, sph, bg, d_out,
-                           out[tmk.ROW_BOUNCE].clone(), **kw)
+                           out[tmk.ROW_BOUNCE].clone(), bvh=bvh, **kw)
     torch.cuda.synchronize(device)
     assert tmkv.chain_adjoint.launches == before + 1
     p = tmkv.chain_adjoint_reference(st, keys, sph, bg, d_out,
@@ -623,41 +648,45 @@ def test_chain_bwd_matches_plain_version(device, name, k_steps, pre_steps):
                                    atol=1e-3 * exp.abs().max().item())
 
 
-def test_chain_bwd_determinism(device):
+@pytest.mark.parametrize("name", ["chap12", "book2chap2"])
+def test_chain_bwd_determinism(device, name):
     """As csrc/chain.cu states: the input and background cotangents are
-    bit-identical from run to run; the pack's are summed with
-    shared-memory atomics and agree within 1e-5 of their largest
-    (chip_smoke.py PACK_SPREAD: repeats on an H100 differed by up to
-    1.5e-6)."""
-    st, keys, sph, bg, out, d_out, kw = _chain_case(device)
+    bit-identical from run to run; the pack's are summed with four-float
+    atomic reductions in device memory and agree within 1e-5 of their
+    largest (chip_smoke.py PACK_SPREAD)."""
+    st, keys, sph, bg, out, d_out, kw, bvh = _chain_case(device, name)
     ob = out[tmk.ROW_BOUNCE].clone()
-    a = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
-    b = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
+    a = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
+    b = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
     assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
     torch.testing.assert_close(a[1], b[1], rtol=0,
                                atol=1e-5 * a[1].abs().max().item())
 
 
 def test_chain_bwd_dead_lanes_pass_through(device):
-    st, keys, sph, bg, _, d_out, kw = _chain_case(device)
+    st, keys, sph, bg, _, d_out, kw, bvh = _chain_case(device)
     st[tmk.ROW_ALIVE] = 0.0
     d_st, d_sph, d_bg, mism = tmkv.chain_adjoint(
-        st, keys, sph, bg, d_out, st[tmk.ROW_BOUNCE].clone(), **kw)
+        st, keys, sph, bg, d_out, st[tmk.ROW_BOUNCE].clone(), bvh=bvh, **kw)
     assert torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
     assert not d_sph.any() and not d_bg.any() and int(mism) == 0
 
 
-def test_chain_bwd_runs_at_max_slots(device):
-    """Empty slots (r^2 = -1) up to MAX_SLOTS change no input cotangent
-    and no background one (fixed-order sums) and get no pack cotangent;
-    the pack's agree within the atomics' order."""
-    st, keys, sph, bg, out, d_out, kw = _chain_case(device)
+@pytest.mark.parametrize("name,cap", [("chap12", tmk.MAX_SLOTS),
+                                      ("book2chap2", tmkv.MAX_SLOTS_MOVING)])
+def test_chain_bwd_runs_at_max_slots(device, name, cap):
+    """Empty slots (r^2 = -1) up to the backwards' cap (3,072 static,
+    2,048 moving slots), which the BVH leaves out, change no input
+    cotangent and no background one (fixed-order sums) and get no pack
+    cotangent; the pack's agree within the atomics' order."""
+    st, keys, sph, bg, out, d_out, kw, bvh = _chain_case(device, name)
     n = sph.shape[1]
-    wide = torch.cat([sph, sph[:, -1:].expand(-1, tmk.MAX_SLOTS - n)],
+    wide = torch.cat([sph, sph[:, -1:].expand(-1, cap - n)],
                      dim=1).contiguous()
     ob = out[tmk.ROW_BOUNCE].clone()
-    a = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, **kw)
-    b = tmkv.chain_adjoint(st, keys, wide, bg, d_out, ob, **kw)
+    a = tmkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
+    b = tmkv.chain_adjoint(st, keys, wide, bg, d_out, ob,
+                           bvh=_lane_tree(wide, name), **kw)
     assert int(b[3]) == 0
     assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
     torch.testing.assert_close(b[1][:, :n], a[1], rtol=0,
@@ -668,12 +697,13 @@ def test_chain_bwd_runs_at_max_slots(device):
 def test_bounce_chain_launches_both_kernels(device):
     """BounceChain's forward runs bounce_steps on a copy (the saved input
     is untouched), its backward chain_bwd, with no replay mismatch."""
-    st, keys, sph, bg, out, _, kw = _chain_case(device)
+    st, keys, sph, bg, out, _, kw, bvh = _chain_case(device)
     st = st.requires_grad_()
     saved = st.detach().clone()
     fwd, bwd = tmk.bounce_steps.launches, tmkv.chain_adjoint.launches
     tmkv.chain_adjoint.replay_mismatches = 0
-    y = tmkv.bounce_chain(kw["k_steps"], 50, 1e-3, False)(st, keys, sph, bg)
+    y = tmkv.bounce_chain(kw["k_steps"], 50, 1e-3, False)(st, keys, sph, bg,
+                                                           bvh)
     assert torch.equal(st.detach(), saved) and torch.equal(y, out)
     (g,) = torch.autograd.grad(y[10:13].sum(), st)
     assert tmk.bounce_steps.launches == fwd + 1
@@ -755,7 +785,8 @@ def test_moving_train_kernels_match_plain_versions(device):
 def test_moving_bounce_steps_matches_plain_version(device, k_steps):
     st, keys, sph, bg = _lane_state(device, "book2chap2")
     kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=True)
-    out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg,
+                           bvh=_lane_tree(sph, "book2chap2"), **kw)
     ref = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
     assert torch.equal(out[6], st[6])  # the time stays
     agree = (out[14] > 0.5) == (ref[14] > 0.5)
@@ -769,13 +800,13 @@ def test_moving_bounce_steps_matches_plain_version(device, k_steps):
 @pytest.mark.parametrize("bounces", [0, 2, 4])
 def test_moving_intersect_only_matches_plain_version(device, bounces):
     st, keys, sph, bg = _lane_state(device, "book2chap2")
+    bvh = _lane_tree(sph, "book2chap2")
     if bounces:
         tmk.bounce_steps(st, keys, sph, bg, k_steps=bounces, max_depth=50,
-                         t_min=1e-3, moving=True)
+                         t_min=1e-3, moving=True, bvh=bvh)
     o, d, tm = st[0:3], st[3:6], st[6].contiguous()
     t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3, time=tm,
-                                     bvh=_tree(sph, _packs(device,
-                                                           "book2chap2")[1]))
+                                     bvh=bvh)
     rt, rfam, ridx = tmk.intersect_only_reference(o, d, sph, t_min=1e-3,
                                                   time=tm)
     same = (fam == rfam) & (idx == ridx)
@@ -789,11 +820,8 @@ def test_moving_intersect_only_matches_plain_version(device, bounces):
 def test_moving_chain_bwd_matches_plain_version(device, k_steps, pre_steps):
     """test_chain_bwd_matches_plain_version's rule on book2chap2, the
     time row's cotangent included."""
-    st, keys, sph, bg = _lane_state(device, "book2chap2")
-    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=True)
-    if pre_steps:
-        tmk.bounce_steps(st, keys, sph, bg, **dict(kw, k_steps=pre_steps))
-    out = tmk.bounce_steps(st.clone(), keys, sph, bg, **kw)
+    st, keys, sph, bg, out, _, kw, bvh = _chain_case(
+        device, "book2chap2", k_steps, pre_steps)
     ref_out = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
     agree = ((out[13] == ref_out[13])
              & ((out[14] > 0.5) == (ref_out[14] > 0.5))
@@ -803,7 +831,7 @@ def test_moving_chain_bwd_matches_plain_version(device, k_steps, pre_steps):
     gen = torch.Generator(device="cpu").manual_seed(0)
     d_out = torch.randn((16, st.shape[1]), generator=gen).to(device) * agree
     k = tmkv.chain_adjoint(st, keys, sph, bg, d_out,
-                           out[tmk.ROW_BOUNCE].clone(), **kw)
+                           out[tmk.ROW_BOUNCE].clone(), bvh=bvh, **kw)
     p = tmkv.chain_adjoint_reference(st, keys, sph, bg, d_out,
                                      ref_out[tmk.ROW_BOUNCE].clone(), **kw)
     assert int(k[3]) == 0 and int(p[3]) == 0
