@@ -58,6 +58,28 @@ same field with moving diffuse spheres, shutter [0, 1]) and the probes:
        ITERS, each kernel held against its plain version at 8
        iterations.
 
+Then the Cornell box (quads, boxes rotated about Y, a light; the three
+forward kernels' solid-family variants), at bench.py's scene-phase size
+400x400, 32 spp, depth 50:
+
+  [K1] tile_render, bounce_steps ([Q1]'s 131,072 lanes) and
+       intersect_only ([Q3]'s 65,536 rays) against their plain versions,
+       each timed by graph replay beside its bound (the 6 quad and 2 box
+       tests a segment, the draws, the bytes); the exact gates: chap12
+       through the solid-family variants with no quad or box gives the
+       sphere variants' outputs bit for bit, and on mixed_scene (spheres,
+       quads, boxes, a light) the BVH walk seeded by the quads' and
+       boxes' t gives the seeded scan's (accel.pack_scan) in all three;
+  [K2] the main path: python -m rrt_tpu_torch.cli --scene cornell -r
+       400x400 -s 32 on the tile driver (auto), then the queue and batch
+       drivers through the CLI held against the tile image;
+  [K3] cornell's gradient on the card: make_train_step, its chunked
+       step, render_image_diff and render_image(differentiable=True) at
+       2 spp each raise NotImplementedError naming ROADMAP Queue A #9.7
+       (the quad, box and light backwards of the train kernels and
+       chain_bwd), and train_fwd, train_bwd and chain_bwd launch 0
+       times: the checkpointed scan is the CPU's route only.
+
 [2] prints ptxas's registers and spills of every kernel; [7], [8] and
 [M3] print the train kernels' times beside the step's least time
 (`step_bound_ms`: one scan a segment, the backward's adjoint, the bytes)
@@ -214,6 +236,34 @@ MAX_WINNER_FAULTS = 1e-4
 PLAIN_CHUNK = 65536
 # Launches captured in one CUDA graph to time a kernel (graph_ms).
 GRAPH_LAUNCHES = 20
+# [K1]-[K3]: the Cornell box (rrt_tpu/scenes/book2.py, RTTNW ch. 8.2,
+# BASELINE.json config #4's scene) at the size bench.py's scene phase
+# renders it (bench.py:427-440); [K3]'s train step (which raises) at 2
+# spp.
+CORNELL = dict(scene="cornell", width=400, height=400, spp=32, max_depth=50)
+CORNELL_TRAIN_SPP = 2
+# FP32 operations of one quad test (bounce.cuh closest_solid): d.n and
+# o.n (5 each), the parallel test (3), t (2), alpha and beta (13 each:
+# two dot products, a multiply, an add and a subtract), the t window and
+# the four range tests (6): 47. One box test: the offsets (3), the
+# rotated offsets and direction (12), three slabs (the parallel test,
+# the reciprocal, two multiplies, |inv|, a negate, two subtracts, a max
+# and a min: 11 each), the far-face pick and the three tests (4): 52. A
+# segment of the solid-family variants also takes |d| (1). A lower bound:
+# the shading of the winner is not counted.
+QUAD_TEST_FLOPS = 47
+BOX_TEST_FLOPS = 52
+# [K1]: cornell's pixels within 1e-3 of the plain version. On an H100
+# 80GB HBM3 at 700 W all but a handful of the 160,000 agreed (a share
+# of 1.0000 to four places; max pixel |delta| 0.16, traced 34,301,381
+# vs 34,301,293); the gate allows 1% to part.
+CORNELL_MIN_CLOSE = 0.99
+# [K2]: the cornell tile image's non-zero pixels. The box is dark: 3% of
+# its paths reach the light (tests/test_torch_golden.py), so at 32 spp
+# 0.97^32 = 38% of pixels stay black; 0.5960 were lit on an H100 80GB
+# HBM3 at 700 W. The gate requires half that.
+CORNELL_MIN_LIT = 0.3
+
 # The gradient fields [7] and [C2] require to be finite and non-zero.
 GRAD_FIELDS = ("sphere_c0", "sphere_radius", "tex_color1", "mat_fuzz",
                "mat_ior", "bg_top")
@@ -819,19 +869,19 @@ def lane_state(scene, cam, w, h, n, device):
             mk.pack_bg(scene).to(device))
 
 
-def intersect_vs_plain(what, o, d, tm, sph, moving, bvh):
+def intersect_vs_plain(what, o, d, tm, sph, moving, bvh, solids=None):
     """intersect_only against its plain version on the rays (o, d): fam
     and idx equal on >= 99.9% of rays (the card's own spread: they agreed
     on every camera ray at full size), t within 1e-5 relative where they
     agree on a hit (both round every product), misses equal. Returns
     (share of rays agreeing, max |t delta| on agreeing hits, plain ms)."""
     from rrt_tpu_torch.ops import megakernel as mk
-    kw = dict(t_min=1e-3, time=tm if moving else None)
+    kw = dict(t_min=1e-3, time=tm if moving else None, solids=solids)
     t, fam, idx = mk.intersect_only(o, d, sph, bvh=bvh, **kw)
     (rt, rfam, ridx), plain_ms = wall_ms(
         lambda: mk.intersect_only_reference(o, d, sph, **kw))
     same = (fam == rfam) & (idx == ridx)
-    hit = same & (fam == 0)
+    hit = same & (fam >= 0)
     miss = same & (fam == -1)
     t_rel = ((t - rt).abs() / rt)[hit].max().item() if hit.any() else 0.0
     frac = same.float().mean().item()
@@ -1526,6 +1576,356 @@ def motion_train_phase(device, card):
     return launches
 
 
+def solid_flops(segments, solids) -> float:
+    """FP32 operations of `segments` segments' quad and box tests."""
+    return segments * (solids.n_quads * QUAD_TEST_FLOPS
+                       + solids.n_boxes * BOX_TEST_FLOPS + 1)
+
+
+def pack_bytes(*packs) -> int:
+    """Bytes of the packs, each read once."""
+    return sum(4 * p.numel() for p in packs)
+
+
+def drawing_segments(st, out) -> int:
+    """Segments between a lane state st and the state out some bounce
+    steps later that drew the scatter's 4 Threefry calls, at least: the
+    traced segments less the lanes that ended (a miss or a light ends a
+    lane without drawing)."""
+    ended = int(((st[14] > 0.5) & (out[14] <= 0.5)).sum())
+    return int((out[15] - st[15]).sum()) - ended
+
+
+def launch_copy_ms(fn, work, st, *wrappers) -> float:
+    """Device ms of one in-place launch fn() on `work` reset from st:
+    the graph of copy and launch less the graph of the copy alone."""
+    def both():
+        work.copy_(st)
+        fn()
+    return graph_ms(both, *wrappers) - graph_ms(lambda: work.copy_(st))
+
+
+def tile_vs_plain(what, packs, bvh, kw, card, *, min_close):
+    """tile_render against its plain version on the packs (sph, cam,
+    bg): image means and traced totals within 1%, min_close of pixels
+    within 1e-3. Returns (rad, traced, kernel ms by graph replay, plain
+    ms, max pixel |delta|)."""
+    from rrt_tpu_torch.ops import megakernel as mk
+    rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
+    ms = graph_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw),
+                  mk.render_tiles)
+    (ref, ref_traced), plain_ms = wall_ms(
+        lambda: mk.render_tiles_reference(*packs, **kw))
+    spp = kw["spp"]
+    mean_k, mean_p = rad.mean(dim=0) / spp, ref.mean(dim=0) / spp
+    rel = ((mean_k - mean_p).abs() / mean_p).max().item()
+    nt, nr = int(traced.sum()), int(ref_traced.sum())
+    err = (rad - ref).abs().max(dim=1).values / spp
+    close = (err < 1e-3).float().mean().item()
+    print(f"  tile_render {what} {kw['width']}x{kw['height']} {spp}spp "
+          f"d{kw['max_depth']}: image means {mean_k.tolist()} vs "
+          f"{mean_p.tolist()} ({rel:.4%} apart), traced {nt} vs {nr}, "
+          f"{close:.4f} of pixels within 1e-3, max pixel |delta| "
+          f"{err.max().item():.4f}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms  [{card}]", flush=True)
+    check(rel < 1e-2 and abs(nt - nr) / nr < 1e-2 and close >= min_close,
+          ("tile_render", what, rel, nt, nr, close))
+    return rad, traced, ms, plain_ms, err.max().item()
+
+
+def bounce_vs_plain(what, st, keys, sph, bg, bvh, solids, card):
+    """bounce_steps (4 steps, depth 50) against its plain version, [Q1]'s
+    rule. Returns (out, kernel ms, plain ms, max |delta|)."""
+    from rrt_tpu_torch.ops import megakernel as mk
+    kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3,
+              moving=False, solids=solids)
+    out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
+    ref, plain_ms = wall_ms(
+        lambda: mk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw))
+    agree = (out[14] > 0.5) == (ref[14] > 0.5)
+    frac = agree.float().mean().item()
+    equal = (torch.equal(out[13][agree], ref[13][agree])
+             and torch.equal(out[15][agree], ref[15][agree]))
+    err = (out[7:13] - ref[7:13]).abs().amax(dim=0)[agree]
+    close = (err < 1e-3).float().mean().item()
+    work = torch.empty_like(st)
+    ms = launch_copy_ms(lambda: mk.bounce_steps(work, keys, sph, bg, bvh=bvh,
+                                                **kw), work, st,
+                        mk.bounce_steps)
+    print(f"  bounce_steps {what}, {st.shape[1]} lanes, 4 steps: alive "
+          f"agrees on {frac:.5f} of lanes, counts equal there, {close:.5f} "
+          f"within 1e-3 (max {err.max().item():.3e}); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.1f} ms  [{card}]", flush=True)
+    check(frac >= 0.999 and equal and close >= 0.995,
+          ("bounce_steps", what, frac, equal, close))
+    return out, ms, plain_ms, err.max().item()
+
+
+def same_bits(what, a, b):
+    """Print and require that two kernels' outputs are equal bit for
+    bit."""
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"  {what}: bit for bit {equal}", flush=True)
+    check(equal, what)
+
+
+def cornell_kernels_phase(device, card):
+    """[K1] the solid-family variants of tile_render, bounce_steps and
+    intersect_only against their plain versions on cornell (tile_render
+    at CORNELL's 400x400, 32 spp, depth 50, the plain version in lane
+    chunks; bounce_steps at [Q1]'s 131,072 lanes, 4 steps; intersect_only
+    at [Q3]'s 65,536 rays, camera rays and after 1-4 bounces), each timed
+    by graph replay beside its bound (the 6 quad and 2 box tests a
+    segment, the draws, the bytes); the exact gates: chap12 through the
+    solid-family variants with empty solid packs gives the sphere
+    variants' outputs, and on scenes.book2.mixed_scene the walk seeded by
+    the quads' and boxes' t gives the seeded scan's (accel.pack_scan)
+    bit for bit in all three kernels; the mixed scene against the plain
+    versions too."""
+    from rrt_tpu_torch import accel, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.scenes import book2
+    w, h, spp = CORNELL["width"], CORNELL["height"], CORNELL["spp"]
+    depth = CORNELL["max_depth"]
+    scene, cam = tscenes.cornell_box_scene(w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    solids = mk.pack_solids(scene, device)
+    print(f"  cornell: {solids.n_quads} quads, {solids.n_boxes} boxes, "
+          f"{scene.n_spheres_active} spheres (BVH: {bvh.n_nodes} nodes, "
+          f"{bvh.n_rows} rows)", flush=True)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
+              max_depth=depth, t_min=1e-3, moving=False, solids=solids)
+    rad, traced, ms, plain_ms, err = tile_vs_plain(
+        "cornell", packs, bvh, kw, card, min_close=CORNELL_MIN_CLOSE)
+    segments, paths = int(traced.sum()), w * h * spp
+    t_bytes = pack_bytes(*packs, solids.quad24, solids.box24) + 16 * w * h
+    t_bound = bound(solid_flops(segments, solids), t_bytes, THREEFRY_OPS * (
+        THREEFRY_PER_PATH * paths + THREEFRY_PER_HIT * (segments - paths)))
+    print(f"  tile_render cornell: {segments} segments "
+          f"({segments / paths:.2f} a path), bound {t_bound[0]:.4f} ms "
+          f"({t_bound[1]}: "
+          f"{solid_flops(segments, solids) / FP32_PEAK * 1e3:.4f}"
+          f" ms of FP32 tests, the draws), kernel {ms:.3f} ms  [{card}]",
+          flush=True)
+    tile = dict(ms=ms, plain_ms=plain_ms, err=err, bound=t_bound,
+                traced=segments)
+
+    st, keys, sph, bg = lane_state(scene, cam, w, h, QUEUE_LANES, device)
+    q_bvh = render.pack_scene(scene, device, render._shutter(cam))["bvh"]
+    out, q_ms, q_plain_ms, q_err = bounce_vs_plain(
+        "cornell", st, keys, sph, bg, q_bvh, solids, card)
+    q_bytes = 4 * QUEUE_LANES * (16 + 2 + 16) + pack_bytes(
+        sph, bg, solids.quad24, solids.box24)
+    q_segments = int((out[15] - st[15]).sum())
+    q_bound = bound(solid_flops(q_segments, solids), q_bytes,
+                    THREEFRY_OPS * THREEFRY_PER_HIT
+                    * drawing_segments(st, out))
+    print(f"  bounce_steps cornell: {q_segments} segments, bound "
+          f"{q_bound[0]:.4f} ms ({q_bound[1]}), kernel {q_ms:.4f} ms  "
+          f"[{card}]", flush=True)
+    queue = dict(ms=q_ms, plain_ms=q_plain_ms, err=q_err, bound=q_bound)
+
+    st_b, keys_b, _, _ = lane_state(scene, cam, w, h, BATCH_RAYS, device)
+    o, d = st_b[0:3].clone(), st_b[3:6].clone()  # the camera rays
+    i_err, i_plain = 0.0, []
+    for k in range(5):
+        if k:
+            mk.bounce_steps(st_b, keys_b, sph, bg, k_steps=1, max_depth=depth,
+                            t_min=1e-3, moving=False, bvh=q_bvh,
+                            solids=solids)
+        _, e, p_ms = intersect_vs_plain(
+            f"cornell batch of {BATCH_RAYS} after {k} bounces",
+            st_b[0:3].contiguous(), st_b[3:6].contiguous(), None, sph,
+            False, q_bvh, solids)
+        i_err = max(i_err, e)
+        i_plain.append(p_ms)
+    i_ms = graph_ms(lambda: mk.intersect_only(o, d, sph, t_min=1e-3,
+                                              bvh=q_bvh, solids=solids),
+                    mk.intersect_only)
+    i_bound = bound(solid_flops(BATCH_RAYS, solids),
+                    4 * BATCH_RAYS * 9 + pack_bytes(sph, solids.quad24,
+                                                    solids.box24))
+    print(f"  intersect_only cornell, {BATCH_RAYS} camera rays: kernel "
+          f"{i_ms:.4f} ms, bound {i_bound[0]:.4f} ms ({i_bound[1]})  "
+          f"[{card}]", flush=True)
+    inter = dict(ms=i_ms, plain_ms=i_plain[0], err=i_err, bound=i_bound)
+
+    # Exact gate 1: the sphere scenes through the solid-family variants.
+    scene12, cam12 = tscenes.chap12_scene(240, 160)
+    cfg12 = render.RenderConfig(width=240, height=160, spp=4, max_depth=depth)
+    *p12, b12 = render._packs(scene12, cam12, cfg12, device, bvh=True)
+    empty = mk.SolidPacks(solids.quad24, solids.box24, 0, 0)
+    kw12 = dict(kw, width=240, height=160, spp=4, solids=None)
+    same_bits("tile_render chap12 240x160 4spp d50, the solid-family "
+              "variant with no quad or box vs the sphere variant",
+              mk.render_tiles(*p12, bvh=b12, **kw12),
+              mk.render_tiles(*p12, bvh=b12, **dict(kw12, solids=empty)))
+    st12, k12, s12, bg12 = lane_state(scene12, cam12, 240, 160, 38400, device)
+    kwq = dict(k_steps=4, max_depth=depth, t_min=1e-3, moving=False, bvh=b12)
+    same_bits("bounce_steps chap12, the same",
+              [mk.bounce_steps(st12.clone(), k12, s12, bg12, **kwq)],
+              [mk.bounce_steps(st12.clone(), k12, s12, bg12, solids=empty,
+                               **kwq)])
+    same_bits("intersect_only chap12, the same",
+              mk.intersect_only(st12[0:3], st12[3:6], s12, t_min=1e-3,
+                                bvh=b12),
+              mk.intersect_only(st12[0:3], st12[3:6], s12, t_min=1e-3,
+                                bvh=b12, solids=empty))
+
+    # Exact gate 2: the seeded walk against the seeded scan, and the mixed
+    # scene against the plain versions.
+    mixed, mcam = book2.mixed_scene(320, 240)
+    cfgm = render.RenderConfig(width=320, height=240, spp=4, max_depth=depth)
+    *pm, bm = render._packs(mixed, mcam, cfgm, device, bvh=True)
+    sm = mk.pack_solids(mixed, device)
+    scan = accel.pack_scan(pm[0])
+    kwm = dict(kw, width=320, height=240, spp=4, solids=sm)
+    print(f"  mixed: {sm.n_quads} quads, {sm.n_boxes} boxes, "
+          f"{mixed.n_spheres_active} spheres, BVH {bm.n_nodes} nodes, "
+          f"{bm.n_always} always tested", flush=True)
+    same_bits("tile_render mixed 320x240 4spp d50, the walk vs the scan",
+              mk.render_tiles(*pm, bvh=bm, **kwm),
+              mk.render_tiles(*pm, bvh=scan, **kwm))
+    stm, km, sphm, bgm = lane_state(mixed, mcam, 320, 240, 76800, device)
+    for k in range(4):
+        same_bits(f"intersect_only mixed after {k} bounces, the walk vs "
+                  f"the scan",
+                  mk.intersect_only(stm[0:3], stm[3:6], sphm, t_min=1e-3,
+                                    bvh=bm, solids=sm),
+                  mk.intersect_only(stm[0:3], stm[3:6], sphm, t_min=1e-3,
+                                    bvh=scan, solids=sm))
+        kwb = dict(k_steps=1, max_depth=depth, t_min=1e-3, moving=False,
+                   solids=sm)
+        walked = mk.bounce_steps(stm.clone(), km, sphm, bgm, bvh=bm, **kwb)
+        same_bits(f"bounce_steps mixed step {k + 1}, the walk vs the scan",
+                  [walked], [mk.bounce_steps(stm.clone(), km, sphm, bgm,
+                                             bvh=scan, **kwb)])
+        stm = walked
+    small, scam = book2.mixed_scene(64, 32)
+    cfgs = render.RenderConfig(width=64, height=32, spp=4, max_depth=8)
+    *ps, bs = render._packs(small, scam, cfgs, device, bvh=True)
+    tile_vs_plain("mixed", ps, bs, dict(kwm, width=64, height=32,
+                                        max_depth=8), card, min_close=0.985)
+    stm, km, sphm, bgm = lane_state(mixed, mcam, 320, 240, 76800, device)
+    bounce_vs_plain("mixed", stm, km, sphm, bgm, bm, sm, card)
+    intersect_vs_plain("mixed camera rays", stm[0:3].contiguous(),
+                       stm[3:6].contiguous(), None, sphm, False, bm, sm)
+    return dict(tile=tile, queue=queue, inter=inter)
+
+
+def cornell_cli_phase(device, card):
+    """[K2] the main path: python -m rrt_tpu_torch.cli --scene cornell
+    -r 400x400 -s 32 on the tile driver (auto), launches counted; then
+    the queue driver (four passes of 8 spp) and the batch driver (4 spp)
+    through the CLI, each held against the tile image of its samples by
+    [Q2]'s and [Q3]'s rule (hold_to_tile): on an H100 80GB HBM3 at 700 W
+    their image means were 5.7e-6 and 0 apart, traced totals 2.6e-6 and
+    1.1e-5, pixels within 1e-3 0.99997 and 1.
+    Returns (tile_render launches, bounce_steps launches, intersect_only
+    launches)."""
+    from rrt_tpu_torch import cli, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    w, h, spp = CORNELL["width"], CORNELL["height"], CORNELL["spp"]
+    argv = ["--scene", "cornell", "-r", f"{w}x{h}", "-s", str(spp), "-e",
+            "0", "--max-depth", str(CORNELL["max_depth"]), "--device",
+            "cuda:0", "--quiet"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    def run(extra, name, counter):
+        with tempfile.TemporaryDirectory() as tmp:  # warm-up run
+            cli.render(cli.build_parser().parse_args(
+                argv + extra + ["-o", os.path.join(tmp, "warm.png")]))
+        counter.launches = 0
+        res = cli.render(cli.build_parser().parse_args(
+            argv + extra + ["-o", os.path.join(OUT_DIR, name)]))
+        launches = counter.launches
+        print(f"  {res.driver}: {res.seconds:.4f} s wall, {res.passes} "
+              f"passes, {res.n_traced} rays, "
+              f"{res.n_traced / res.seconds / 1e6:.2f} Mrays/s, "
+              f"{counter.__name__} launches {launches}  [{card}]", flush=True)
+        check(launches >= 1 and bool(torch.isfinite(res.image).all()),
+              (res.driver, launches))
+        return res, launches
+
+    res, t_launches = run([], "chip_smoke_cornell.png", mk.render_tiles)
+    img = res.image
+    n_paths = w * h * spp
+    nonzero = (img.amax(dim=2) > 0).float().mean().item()
+    peak = img.max().item()
+    print(f"  tile image: non-zero pixels {nonzero:.4f}, largest value "
+          f"{peak} (the light's emission, 15, on pixels whose every "
+          f"sample sees it)", flush=True)
+    check(res.driver == "tile", ("auto driver", res.driver))
+    check(n_paths <= res.n_traced <= n_paths * (CORNELL["max_depth"] + 1),
+          ("traced", res.n_traced))
+    check(nonzero > CORNELL_MIN_LIT and peak == 15.0,
+          ("cornell image", nonzero, peak))
+    res_q, q_launches = run(["--driver", "queue", "--spp-chunk",
+                             str(QUEUE_CHUNK)], "chip_smoke_cornell_queue.png",
+                            mk.bounce_steps)
+    check(res_q.passes == spp // QUEUE_CHUNK, "queue passes")
+    hold_to_tile("cornell queue", res_q.image, res_q.n_traced, img,
+                 res.n_traced)
+    res_b, b_launches = run(["-s", str(BATCH_SPP), "--driver", "batch"],
+                            "chip_smoke_cornell_batch.png", mk.intersect_only)
+    scene, cam = tscenes.cornell_box_scene(w, h)
+    cfg_b = render.RenderConfig(width=w, height=h, spp=BATCH_SPP,
+                                max_depth=CORNELL["max_depth"])
+    tile_b, tile_b_n = render.render_image_tiles(scene, cam, cfg_b, 0,
+                                                 device=device)
+    hold_to_tile("cornell batch", res_b.image, res_b.n_traced, tile_b,
+                 int(tile_b_n))
+    return t_launches, q_launches, b_launches
+
+
+def cornell_train_phase(device, card):
+    """[K3] cornell's gradient on the card: make_train_step (one-shot and
+    chunked), render_image_diff and render_image(differentiable=True) at
+    400x400, 2 spp, depth 50 each raise NotImplementedError naming
+    ROADMAP Queue A #9.7 (the quad, box and light backwards of train_fwd,
+    train_bwd and chain_bwd) before anything runs: the checkpointed scan
+    is the CPU's route and runs on no card. train_fwd, train_bwd and
+    chain_bwd launch 0 times."""
+    from rrt_tpu_torch import diff, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    w, h = CORNELL["width"], CORNELL["height"]
+    cfg = render.RenderConfig(width=w, height=h, spp=CORNELL_TRAIN_SPP,
+                              max_depth=CORNELL["max_depth"],
+                              samples_per_pass=CORNELL_TRAIN_SPP)
+    scene, cam = tscenes.cornell_box_scene(w, h)
+    target = torch.zeros((h, w, 3), device=device)
+    counters = (mkt.render_tiles_train, mkt.tiles_adjoint, mkv.chain_adjoint)
+    for c in counters:
+        c.launches = 0
+    calls = {
+        "make_train_step": lambda: diff.make_train_step(
+            cfg, device=device)(scene, cam, target, 0),
+        "make_train_step_chunked": lambda: diff.make_train_step_chunked(
+            cfg, device=device)(scene, cam, target, 0),
+        "render_image_diff": lambda: render.render_image_diff(
+            scene, cam, cfg, 0, device=device),
+        "render_image(differentiable=True)": lambda: render.render_image(
+            scene, cam, cfg, 0, differentiable=True, device=device),
+    }
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+            raised[name] = None
+        except NotImplementedError as e:
+            raised[name] = str(e)
+        print(f"  {name}: {raised[name]}", flush=True)
+    launches = [c.launches for c in counters]
+    print(f"  launches train_fwd {launches[0]}, train_bwd {launches[1]}, "
+          f"chain_bwd {launches[2]}  [{card}]", flush=True)
+    check(all(m is not None and "#9.7" in m for m in raised.values()),
+          ("[K3] cornell's gradient on the card", raised))
+    check(launches == [0, 0, 0], ("[K3] launched", launches))
+    return dict(launches=launches)
+
+
 def probe_phase(device, card):
     """[P1] the three probes: each kernel against its plain version at
     PROBE_CHECK_ITERS iterations (tests/test_torch_cuda.py's rule), then
@@ -1956,6 +2356,22 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(device)
     m3_launches = motion_train_phase(device, card)
     peak_memory("[M3]", device, card)
+    phases.start("K1", f"cornell {CORNELL['width']}x{CORNELL['height']}: "
+                 f"the kernels' solid-family variants vs their plain "
+                 f"versions; the seeded walk's exact gates")
+    torch.cuda.reset_peak_memory_stats(device)
+    k1 = cornell_kernels_phase(device, card)
+    peak_memory("[K1]", device, card)
+    phases.start("K2", f"main path: python -m rrt_tpu_torch.cli --scene "
+                 f"cornell -r {CORNELL['width']}x{CORNELL['height']} -s "
+                 f"{CORNELL['spp']} (tile), then the queue and batch "
+                 f"drivers")
+    k2_launches = cornell_cli_phase(device, card)
+    phases.start("K3", f"cornell's gradient on the card at "
+                 f"{CORNELL['width']}x{CORNELL['height']} "
+                 f"{CORNELL_TRAIN_SPP}spp d{CORNELL['max_depth']}: raises "
+                 f"naming #9.7, no train or chain kernel launched")
+    cornell_train_phase(device, card)
     phases.start("P1", "main path: the three probes at their full ITERS")
     p1 = probe_phase(device, card)
     phases.end()
@@ -1990,6 +2406,14 @@ def main() -> int:
     def moving(ms, bnd, **extra):
         return dict(moving_ms=ms, moving_bound_ms=bnd[0], **extra)
 
+    def cornell(k, launches, name):
+        # The kernel's solid-family variant on cornell ([K1], [K2]).
+        return dict(cornell_ms=k["ms"], cornell_plain_ms=k["plain_ms"],
+                    cornell_bound_ms=k["bound"][0],
+                    cornell_bound_by=k["bound"][1],
+                    cornell_max_abs_err=k["err"], cornell_launches=launches,
+                    cornell_registers=resources.get(name + " (solids)"))
+
     def walk(scan_bnd, counts, moving_scan_bnd, moving_counts):
         # Every kernel but the train kernels walks the BVH: bound_ms is
         # the walk's; the scan's, which they ran before, beside it.
@@ -2017,6 +2441,7 @@ def main() -> int:
                        moving_launches=m2_launches),
               **walk(main_scan_bound, counts3, m_tile["scan_bound"],
                      m_tile["counts"]),
+              **cornell(k1["tile"], k2_launches[0], "tile_render_kernel"),
               registers=resources.get("tile_render_kernel")),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
@@ -2041,13 +2466,15 @@ def main() -> int:
               **moving(m_q["ms"], m_q["bound"]),
               **walk(q1["scan_bound"], q1["counts"], m_q["scan_bound"],
                      m_q["counts"]),
+              **cornell(k1["queue"], k2_launches[1], "bounce_steps_kernel"),
               registers=resources.get("bounce_steps_kernel")),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
               q1["i_ms"], q1["i_plain_ms"], q1["i_bound"],
               **moving(m_q["i_ms"], m_q["i_bound"]),
               **walk(q1["i_scan_bound"], q1["counts"], m_q["i_scan_bound"],
-                     m_q["counts"])),
+                     m_q["counts"]),
+              **cornell(k1["inter"], k2_launches[2], "intersect_kernel")),
         entry("chain_bwd", csrc + "chain.cu",
               "rrt_tpu/ops/megakernel_vjp.py:487", c2_launches[1],
               max(c["err"] for c in c1), sum(c["ms"] for c in c1),

@@ -58,7 +58,12 @@ always-tested slots first, then each leaf's slots as a contiguous run.
 
 `bvh_closest_reference` walks the packed layout in plain PyTorch with
 intersect_only_reference's arithmetic, counting its node and slot tests
-(for tests, and for chip_smoke.py's bound of the walk).
+(for tests, and for chip_smoke.py's bound of the walk). Seeded by the t
+of another family (the quads and boxes, which the kernels test first),
+the walk keeps it unless a sphere beats it strictly, as the seeded scan
+does. `pack_scan` is the pack whose walk is that scan: every valid slot
+tested in slot order, no tree; the kernels walking it give the scan's
+(t, winner), which the walk over the tree must equal bit for bit.
 """
 
 import dataclasses
@@ -313,6 +318,18 @@ def pack_bvh(sph24, shutter=None) -> BvhPack:
     return pack.to(sph24.device)
 
 
+def pack_scan(sph24) -> BvhPack:
+    """The BvhPack whose walk is the linear scan over sph24's valid
+    slots in slot order (every slot always tested, no node), on sph24's
+    device: the reference the tree's walk is held to."""
+    p = sph24.detach().cpu().numpy()
+    rows = np.nonzero((p[7] > 0.5) & (p[3] >= 0.0))[0].astype(np.int32)
+    return BvhPack(nodes=torch.zeros((0, 8), dtype=torch.float32),
+                   rows=torch.from_numpy(rows), n_always=int(rows.size),
+                   depth=0, n_slots=int(sph24.shape[1]),
+                   shutter=None).to(sph24.device)
+
+
 def _depth(bvh: BvhArrays) -> int:
     """Edges from the root to the deepest leaf, a level at a time."""
     depth, level = 0, np.zeros(1, np.int64)
@@ -329,13 +346,17 @@ FAR_PAD = float(np.float32(1.0 + 2.0 * (3 * _U / (1 - 3 * _U))))
 
 
 def bvh_closest_reference(o, d, sph24, bvh: BvhPack, *, t_min: float,
-                          time=None):
+                          time=None, seed=None):
     """The kernels' walk (bounce.cuh closest_sphere_bvh) in plain
     PyTorch over the packed layout, each slot tested with
     intersect_only_reference's arithmetic, one node a ray an iteration
-    in the kernel's order. o, d: (3, N); time: (N,) for moving spheres.
+    in the kernel's order. o, d: (3, N); time: (N,) for moving spheres;
+    seed: None, or (N,) another family's t, which a sphere must beat
+    strictly (the kernel's seeded walk).
     Returns (t (N,), fam (N,) i32, idx (N,) i32: intersect_only's
-    contract; node_tests (N,) i64, slot_tests (N,) i64)."""
+    contract for the spheres, and with a seed t the seed where no sphere
+    beats it, fam -1 and idx -1 there; node_tests (N,) i64, slot_tests
+    (N,) i64)."""
     from .geometry import INF, dot
 
     dev = o.device
@@ -354,6 +375,9 @@ def bvh_closest_reference(o, d, sph24, bvh: BvhPack, *, t_min: float,
     inv_a = 1.0 / a
     t_best = torch.full((n,), INF, dtype=f32, device=dev)
     win = torch.zeros((n,), dtype=torch.long, device=dev)
+    if seed is not None:  # win -1: the seed's family, which no tie beats
+        t_best = seed.to(f32).clone()
+        win = torch.where(t_best < INF, -1, 0)
     node_tests = torch.zeros((n,), dtype=torch.long, device=dev)
     slot_tests = torch.zeros((n,), dtype=torch.long, device=dev)
 
@@ -423,5 +447,5 @@ def bvh_closest_reference(o, d, sph24, bvh: BvhPack, *, t_min: float,
             stack[r_in, sp[r_in]] = torch.where(neg, left, right)
             stack[r_in, sp[r_in] + 1] = torch.where(neg, right, left)
             sp[r_in] += 2
-    fam = torch.where(t_best < INF, 0, -1).to(torch.int32)
+    fam = torch.where((t_best < INF) & (win >= 0), 0, -1).to(torch.int32)
     return t_best, fam, win.to(torch.int32), node_tests, slot_tests

@@ -23,16 +23,19 @@ import torch
 from .camera import Camera
 from .ops import megakernel as ops_mega
 from .ops import megakernel_train as ops_train
-from .render import (DIFF_SAMPLE_BUDGET, RenderConfig, _check_device,
-                     _check_diff_scope, _packs, _warn_diff_fallback,
-                     diff_fallback_reason, render_image_diff)
+from .render import (DIFF_SAMPLE_BUDGET, RenderConfig, _check_card_scope,
+                     _check_device, _check_diff_scope, _packs,
+                     _warn_diff_fallback, diff_fallback_reason,
+                     render_image_diff)
 from .rng import key_words
 from .scene import SceneArrays
 
 # Scene leaves that make sense to optimize (continuous scene parameters),
 # as in rrt_tpu; sphere_dc (a moving sphere's motion) gets its gradient
-# through the velocity pack rows; the families outside the sphere subset
-# get none until they are ported (ROADMAP Queue A #9).
+# through the velocity pack rows; the quads' and boxes' through the
+# checkpointed scan on the CPU (render_image_diff's route for them; on a
+# CUDA device their backward waits for ROADMAP Queue A #9.7); the media
+# get none until they are ported (#9.4).
 DIFFERENTIABLE_FIELDS = (
     "sphere_c0", "sphere_dc", "sphere_radius",
     "quad_q", "quad_u", "quad_v",
@@ -242,7 +245,10 @@ def make_train_step_chunked(cfg: RenderConfig, lr: float = 1e-2,
     def step(scene: SceneArrays, camera: Camera, target, seed):
         # As rrt_tpu: a scene or depth the train kernels do not take
         # runs the one-shot step (render_image_diff's route), with one
-        # log line naming why.
+        # log line naming why (on a CUDA device a scene outside the
+        # kernels' backward scope raises instead).
+        _check_card_scope("make_train_step_chunked", scene, cfg.rr_depth,
+                          device)
         reason = diff_fallback_reason(scene, cfg)
         if reason is not None:
             _warn_diff_fallback("make_train_step_chunked", reason)

@@ -1,14 +1,23 @@
-"""Batched ray-sphere intersection and hit records, component rows.
+"""Batched ray-primitive intersection and hit records, component rows.
 
-A ray batch is tested against the whole sphere family at once as
-(N,1) x (1,S) broadcasts, and only the winning sphere's hit record is
-rebuilt afterwards (`make_hit`), as in rrt_tpu.geometry. Vectors are
-(3,N) tensors, one row per component.
+A ray batch is tested against a whole primitive family at once as
+(N,1) x (1,S) broadcasts, the families' closest hits are merged
+(`intersect_all`), and only the winner's hit record is rebuilt
+afterwards (`make_hit`), as in rrt_tpu.geometry. Vectors are (3,N)
+tensors, one row per component. The families: spheres, quads
+(parallelograms) and boxes (axis-aligned in their own frame, rotated
+about the world Y axis); constant media wait for ROADMAP Queue A #9.4.
 
 Spheres move linearly over their shutter interval: the center at a
 ray's time is base + time * vel, folded from (center0, center1 - center0,
-time0, 1 / (time1 - time0)) as in rrt_tpu.geometry. Quads, boxes and
-media wait for ROADMAP Queue A #9.2-#9.4.
+time0, 1 / (time1 - time0)) as in rrt_tpu.geometry.
+
+The quad and box tests (`quad_roots`, `box_roots`) are written in the
+arithmetic of rrt_tpu's kernel (ops/megakernel.py `_one_bounce`'s
+scalar family loops), which the CUDA kernels share (ops/csrc/bounce.cuh):
+the quad test on each quad's plane frame (`quad_frames`, which the
+kernels compute from the same rows), the box test by its closed-form
+slab interval.
 """
 
 import dataclasses
@@ -20,6 +29,8 @@ INF = 3.0e38
 
 FAM_NONE = -1
 FAM_SPHERE = 0
+FAM_QUAD = 1
+FAM_BOX = 3  # rrt_tpu's FAM_MEDIUM (2) waits for ROADMAP Queue A #9.4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,15 +114,166 @@ def sphere_roots(scene, o, d, time, t_min, t_max):
     return torch.where(in0, root0, torch.where(in1, root1, INF))
 
 
+def cross(a, b):
+    """Row-wise cross product of (3,...) tensors."""
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadFrames:
+    """Each quad's plane frame (rrt_tpu's pack_quads_full rows 0-12):
+    n = u x v, g = (v x n) / |n|^2 and h = (n x u) / |n|^2, so a point p
+    of the plane is q + alpha u + beta v with alpha = p.g - q.g and beta
+    = p.h - q.h; d_plane = n.q; eps_n = 1e-8 |n| (the parallel test)."""
+
+    n: torch.Tensor  # (3,Q)
+    g: torch.Tensor  # (3,Q)
+    h: torch.Tensor  # (3,Q)
+    d_plane: torch.Tensor  # (Q,)
+    q_g: torch.Tensor  # (Q,)
+    q_h: torch.Tensor  # (Q,)
+    eps_n: torch.Tensor  # (Q,)
+
+
+def quad_frames(q, u, v) -> QuadFrames:
+    """The frames of quads with corners q and edges u, v, each (3,Q)."""
+    n = cross(u, v)
+    nn = dot(n, n)
+    inv_nn = 1.0 / torch.clamp(nn, min=1e-20)
+    g = cross(v, n) * inv_nn
+    h = cross(n, u) * inv_nn
+    return QuadFrames(n=n, g=g, h=h, d_plane=dot(n, q), q_g=dot(g, q),
+                      q_h=dot(h, q),
+                      eps_n=1e-8 * torch.sqrt(torch.clamp(nn, min=1e-20)))
+
+
+def _limits(t_min, t_max, device):
+    """t_min, t_max (floats or (N,)) as tensors that broadcast over
+    (N, family)."""
+    lims = []
+    for x in (t_min, t_max):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        lims.append(x[:, None] if x.dim() else x)
+    return lims
+
+
+def quad_roots(fr: QuadFrames, valid, o, d, t_min, t_max):
+    """Every ray's t on every quad, (N,Q): INF where the quad is invalid,
+    the ray parallel to its plane, the plane's t outside (t_min, t_max),
+    or the plane's point outside the parallelogram."""
+    def pair(r, p):  # (3,N) ray rows x (3,Q) quad rows -> (N,Q)
+        return (r[0][:, None] * p[0][None, :] + r[1][:, None] * p[1][None, :]
+                + r[2][:, None] * p[2][None, :])
+
+    denom = pair(d, fr.n)
+    o_n = pair(o, fr.n)
+    d_len = torch.sqrt(dot(d, d))[:, None]
+    not_par = torch.abs(denom) > fr.eps_n[None, :] * d_len
+    t = (fr.d_plane[None, :] - o_n) / torch.where(not_par, denom, 1.0)
+    alpha = pair(o, fr.g) + t * pair(d, fr.g) - fr.q_g[None, :]
+    beta = pair(o, fr.h) + t * pair(d, fr.h) - fr.q_h[None, :]
+    t_min, t_max = _limits(t_min, t_max, o.device)
+    ok = (valid[None, :] & not_par & (t > t_min) & (t < t_max)
+          & (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0))
+    return torch.where(ok, t, INF)
+
+
+def box_roots(center, half, cos_t, sin_t, valid, o, d, t_min, t_max):
+    """Every ray's t on every box, (N,B): the slab test in each box's
+    frame (center (B,3), half extents (B,3), the world-from-box Y
+    rotation's cos and sin (B,)), by the closed-form interval of
+    rrt_tpu's kernel: per axis, with inv = 1 / db (1e18 where |db| <=
+    1e-12), the slab is -ob inv -/+ h |inv|. A ray starting inside a box
+    hits its far face. INF where the box is invalid or missed."""
+    cth, sth = cos_t[None, :], sin_t[None, :]
+    wx = o[0][:, None] - center[:, 0][None, :]
+    wy = o[1][:, None] - center[:, 1][None, :]
+    wz = o[2][:, None] - center[:, 2][None, :]
+    dx, dy, dz = d[0][:, None], d[1][:, None], d[2][:, None]
+    obs = (cth * wx - sth * wz, wy, sth * wx + cth * wz)
+    dbs = (cth * dx - sth * dz, dy.expand_as(wy), sth * dx + cth * dz)
+    lo = hi = None
+    for k in range(3):
+        db = dbs[k]
+        par = torch.abs(db) <= 1e-12
+        inv = torch.where(par, 1e18, 1.0 / torch.where(par, 1.0, db))
+        a_t = obs[k] * inv
+        b_t = half[:, k][None, :] * torch.abs(inv)
+        k_lo, k_hi = -a_t - b_t, b_t - a_t
+        lo = k_lo if lo is None else torch.maximum(lo, k_lo)
+        hi = k_hi if hi is None else torch.minimum(hi, k_hi)
+    t_min, t_max = _limits(t_min, t_max, o.device)
+    t = torch.where(lo > t_min, lo, hi)
+    ok = valid[None, :] & (lo < hi) & (t > t_min) & (t < t_max)
+    return torch.where(ok, t, INF)
+
+
+def _closest(t_hit):
+    """(t (N,), idx (N,) int64) of the first minimum of each row."""
+    idx = torch.argmin(t_hit, dim=-1)
+    return t_hit.gather(1, idx[:, None])[:, 0], idx
+
+
+def intersect_quads(scene, o, d, t_min, t_max):
+    """Closest valid quad per ray: (t (N,), idx (N,) int64)."""
+    fr = quad_frames(scene.quad_q.T, scene.quad_u.T, scene.quad_v.T)
+    return _closest(quad_roots(fr, scene.quad_valid, o, d, t_min, t_max))
+
+
+def intersect_boxes(scene, o, d, t_min, t_max):
+    """Closest valid box per ray: (t (N,), idx (N,) int64)."""
+    return _closest(box_roots(scene.box_center, scene.box_half,
+                              scene.box_cos, scene.box_sin, scene.box_valid,
+                              o, d, t_min, t_max))
+
+
+def merge_solid(ts, is_, tq, iq, tb, ib):
+    """The families' closest hits (t, idx each (N,)) -> (t, fam, idx).
+
+    Exact ties between families go by the kernels' order (rrt_tpu's
+    kernel's and the CUDA kernels'): quad, box, sphere, each seeded by
+    the one before and won only by a strictly smaller t. rrt_tpu's eager
+    merge_solid_medium gives them to the sphere, then the box; the two
+    differ on exact ties only."""
+    t = torch.minimum(torch.minimum(ts, tq), tb)
+    use_s = ts < torch.minimum(tq, tb)
+    use_b = ~use_s & (tb < tq)
+    fam = torch.where(use_s, FAM_SPHERE, torch.where(use_b, FAM_BOX,
+                                                     FAM_QUAD))
+    idx = torch.where(use_s, is_, torch.where(use_b, ib, iq))
+    return t, torch.where(t < INF, fam, FAM_NONE), idx
+
+
+def intersect_all(scene, o, d, time, t_min, t_max):
+    """The closest hit over the scene's solid families (rrt_tpu's
+    intersect_all without media, ties by merge_solid's order): (t (N,),
+    fam (N,) int64, idx (N,) int64); misses have t == INF, fam
+    FAM_NONE."""
+    ts, is_ = intersect_spheres(scene, o, d, time, t_min, t_max)
+    none = (torch.full_like(ts, INF), torch.zeros_like(is_))
+    tq, iq = (intersect_quads(scene, o, d, t_min, t_max) if scene.has_quads
+              else none)
+    tb, ib = (intersect_boxes(scene, o, d, t_min, t_max) if scene.has_boxes
+              else none)
+    return merge_solid(ts, is_, tq, iq, tb, ib)
+
+
 def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
-    """Rebuild the hit record of each ray's winning sphere, its center
-    at the ray's time (N,)."""
-    hit_mask = fam == FAM_SPHERE
+    """Rebuild the hit record of each ray's winner (rrt_tpu's make_hit
+    without media): a sphere's center at the ray's time (N,); a quad's
+    normal u x v / |u x v|; a box's the axis of its frame whose |q_k| -
+    h_k is largest at the hit point, rotated back. Texture uv is the
+    sphere's (quads' and boxes' are read by image textures only, ROADMAP
+    Queue A #9.5)."""
+    hit_mask = fam != FAM_NONE
     # Misses carry t == INF; clamp so the (masked-out) miss rays' normal
     # math stays finite.
     t_eff = torch.where(hit_mask, t, 0.0)
     p = o + d * t_eff
-    si = torch.where(hit_mask, idx, 0)
+    is_sphere = fam == FAM_SPHERE
+    si = torch.where(is_sphere, idx, 0)
     f = (time - scene.sphere_t0[si]) * scene.sphere_inv_dt[si]
     center = scene.sphere_c0[si].T + scene.sphere_dc[si].T * f
     radius = scene.sphere_radius[si]
@@ -119,8 +281,37 @@ def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
     unit_out = (p - center) * (1.0 / torch.abs(radius))
     theta = torch.arccos(torch.clamp(-unit_out[1], -1.0, 1.0))
     phi = torch.atan2(-unit_out[2], unit_out[0]) + math.pi
+    mat_id = scene.sphere_mat[si]
+    u, v = phi * (0.5 / math.pi), theta * (1.0 / math.pi)
+    if scene.has_quads:
+        is_quad = fam == FAM_QUAD
+        qi = torch.where(is_quad, idx, 0)
+        qn = cross(scene.quad_u[qi].T, scene.quad_v[qi].T)
+        outward_q = qn * torch.rsqrt(torch.clamp(dot(qn, qn), min=1e-20))
+        outward = torch.where(is_quad, outward_q, outward)
+        mat_id = torch.where(is_quad, scene.quad_mat[qi], mat_id)
+    if scene.has_boxes:
+        is_box = fam == FAM_BOX
+        bi = torch.where(is_box, idx, 0)
+        w = p - scene.box_center[bi].T
+        bh = scene.box_half[bi].T
+        cth, sth = scene.box_cos[bi], scene.box_sin[bi]
+        qx, qy, qz = cth * w[0] - sth * w[2], w[1], sth * w[0] + cth * w[2]
+        fx = torch.abs(qx) - bh[0]
+        fy = torch.abs(qy) - bh[1]
+        fz = torch.abs(qz) - bh[2]
+        use_x = (fx >= fy) & (fx >= fz)
+        use_y = ~use_x & (fy >= fz)
+        nbx = torch.where(use_x, torch.sign(qx), 0.0)
+        nby = torch.where(use_y, torch.sign(qy), 0.0)
+        nbz = torch.where(use_x | use_y, 0.0, torch.sign(qz))
+        outward_b = torch.stack([cth * nbx + sth * nbz, nby,
+                                 -sth * nbx + cth * nbz])
+        outward = torch.where(is_box, outward_b, outward)
+        mat_id = torch.where(is_box, scene.box_mat[bi], mat_id)
+    if scene.has_quads or scene.has_boxes:
+        u, v = torch.where(is_sphere, u, 0.0), torch.where(is_sphere, v, 0.0)
     front_face = dot(d, outward) < 0.0
     normal = torch.where(front_face, outward, -outward)
     return Hit(t=t, p=p, normal=normal, front_face=front_face,
-               mat_id=scene.sphere_mat[si], u=phi * (0.5 / math.pi),
-               v=theta * (1.0 / math.pi), hit_mask=hit_mask)
+               mat_id=mat_id, u=u, v=v, hit_mask=hit_mask)

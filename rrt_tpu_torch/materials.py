@@ -1,4 +1,5 @@
-"""Branchless batched material scatter: lambertian, metal, dielectric.
+"""Branchless batched material scatter: lambertian, metal, dielectric,
+diffuse_light.
 
 Every material model is evaluated for the whole batch and the result is
 selected by material id, as in rrt_tpu.materials. Semantics follow the
@@ -9,8 +10,9 @@ books and the reference:
               absorbed if dir.n <= 0                     (materials.rs:44-61)
   dielectric  Schlick reflectance, TIR, stochastic
               reflect-vs-refract, attenuation = 1        (materials.rs:75-104)
+  diffuse_light  emits its texture's color, never scatters  (RTTNW ch. 7)
 
-diffuse_light and isotropic wait for ROADMAP Queue A #9.2 and #9.4.
+isotropic waits for ROADMAP Queue A #9.4.
 """
 
 import dataclasses
@@ -19,7 +21,8 @@ import torch
 
 from . import rng
 from .geometry import dot
-from .scene import MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL, SceneArrays
+from .scene import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_LAMBERTIAN,
+                    MAT_METAL, SceneArrays)
 from .textures import texture_value
 
 
@@ -27,6 +30,7 @@ from .textures import texture_value
 class Scatter:
     direction: torch.Tensor  # (3,N) new ray direction
     attenuation: torch.Tensor  # (3,N)
+    emitted: torch.Tensor  # (3,N) a diffuse_light's emission, else 0
     scattered: torch.Tensor  # (N,) bool; False = absorbed
     # The discrete decisions and the draws, which the backward replays.
     degenerate: torch.Tensor  # (N,) bool: lambertian n + u ~ 0
@@ -95,8 +99,10 @@ def scatter(scene: SceneArrays, d_in, hit, keys, bounce) -> Scatter:
     direction = torch.where(is_lam, lam_dir,
                             torch.where(is_met, met_dir, die_dir))
     attenuation = torch.where(is_die, 1.0, albedo)
+    emitted = (torch.where(mtype == MAT_DIFFUSE_LIGHT, albedo, 0.0)
+               if scene.has_emissive else torch.zeros_like(albedo))
     scattered = torch.where(is_met, met_ok, is_lam | is_die)
     return Scatter(direction=direction, attenuation=attenuation,
-                   scattered=scattered, degenerate=degenerate,
+                   emitted=emitted, scattered=scattered, degenerate=degenerate,
                    reflected=reflect_choice, unit_rand=unit_rand,
                    sphere_rand=sphere_rand)

@@ -46,16 +46,22 @@ class Build:
 
 
 def _kernel_name(mangled: str) -> str:
-    """The kernel's name in a mangled entry name, with " (moving)" for
-    a kMoving = true instantiation. A name's length prefix may follow
-    other digits (the anonymous namespace's hash), so every split of a
-    run of digits is tried."""
+    """The kernel's name in a mangled entry name, with " (moving)",
+    " (solids)" or " (moving, solids)" for an instantiation whose first
+    bool template argument (kMoving) or second (kSolids) is true. A
+    name's length prefix may follow other digits (the anonymous
+    namespace's hash), so every split of a run of digits is tried."""
     for m in re.finditer(r"\d+", mangled):
         for start in range(m.start(), m.end()):
             name = mangled[m.end():m.end() + int(mangled[start:m.end()])]
             if name.endswith("_kernel") and name.isidentifier():
-                moving = mangled[m.end() + len(name):].startswith("ILb1E")
-                return name + (" (moving)" if moving else "")
+                args = re.match(r"I((?:Lb[01]E)+)",
+                                mangled[m.end() + len(name):])
+                flags = re.findall(r"Lb([01])E", args.group(1)) if args \
+                    else []
+                tags = [tag for tag, bit in zip(("moving", "solids"), flags)
+                        if bit == "1"]
+                return name + (f" ({', '.join(tags)})" if tags else "")
     return mangled
 
 
@@ -128,13 +134,24 @@ def build() -> Build:
     return Build(out, time.perf_counter() - t0, log)
 
 
+class SolidArgs(ctypes.Structure):
+    """The solid families' C argument (csrc/bounce.cuh SolidArgs): the
+    quad and box packs, their widths and active slot counts; a null
+    pointer in its place launches the sphere variant."""
+
+    _fields_ = [("quad", ctypes.c_void_p), ("quad_slots", ctypes.c_int),
+                ("n_quads", ctypes.c_int), ("box", ctypes.c_void_p),
+                ("box_slots", ctypes.c_int), ("n_boxes", ctypes.c_int)]
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernels' library, built at first use, with C signatures."""
     lib = ctypes.CDLL(str(build().path))
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
-    lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, u, u, u, i,
+    s = ctypes.POINTER(SolidArgs)
+    lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, s, u, u, u, i,
                                     i, i, i, f, i, p, p, p]
     lib.rrt_tile_render.restype = i
     lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i, i,
@@ -143,11 +160,11 @@ def load() -> ctypes.CDLL:
     lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, p, i, u, u, u, i, i, i,
                                   i, f, i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
-    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, p, i, i,
-                                     f, i, p]
+    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, s, p, i,
+                                     i, f, i, p]
     lib.rrt_bounce_steps.restype = i
-    lib.rrt_intersect.argtypes = [p, p, p, i, p, i, p, p, i, i, i, f, i, p,
-                                  p, p, p]
+    lib.rrt_intersect.argtypes = [p, p, p, i, p, i, p, p, i, i, i, s, f, i,
+                                  p, p, p, p]
     lib.rrt_intersect.restype = i
     lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, p, p, p, i,
                                   i, f, i, p, p, p, p, p]

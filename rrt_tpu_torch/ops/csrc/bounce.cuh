@@ -11,9 +11,23 @@
 // back-to-back loop over a pixel's samples (trace_pixel: tile_render and
 // train_fwd).
 //
-// Sphere subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary
-// and moving spheres, solid and checker textures, lambertian / metal /
-// dielectric materials, sky or solid background, no Russian roulette.
+// Subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary and
+// moving spheres, quads and boxes, solid and checker textures, lambertian
+// / metal / dielectric / diffuse_light materials, sky or solid
+// background, no Russian roulette.
+//
+// The solid families (kSolids = true: quads, boxes and emission, which
+// the scenes with quads, boxes or a diffuse_light launch): each segment
+// first tests the active quads, then the active boxes, as scalar loops
+// over their rows staged in shared memory (stage_solids), each family
+// seeded by the one before and won only by a strictly smaller t, so a
+// quad wins an exact tie, then a box; the sphere scan or BVH walk is
+// then seeded by that t (rrt_tpu's _one_bounce, megakernel.py:811-1150).
+// A quad's normal is n / |n|, a box's the axis of its frame whose |q_k| -
+// h_k is largest at the hit point, rotated back; a hit on a diffuse_light
+// banks throughput x its color and ends the path (:1457-1489). The
+// kSolids = false instantiations, which the sphere scenes launch, are the
+// sphere subset's code as it was.
 //
 // Moving spheres (kMoving = true, the scene's has_moving): a sphere's
 // center at a ray's time is base + time * vel, pack rows 0-2 and 4-6, in
@@ -28,6 +42,19 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The host's argument of the solid families (ops/_build.py SolidArgs):
+// the quad (24, quad_slots) and box (24, box_slots) packs in device
+// memory, whose first n_quads and n_boxes slots are tested; a null
+// pointer in its place launches the sphere variant. Outside the
+// anonymous namespace: the extern "C" entry points take it, and a type
+// of internal linkage in their signature would hide them.
+struct SolidArgs {
+  const float* quad;
+  int quad_slots, n_quads;
+  const float* box;
+  int box_slots, n_boxes;
+};
 
 namespace {
 
@@ -54,12 +81,23 @@ constexpr int kCamOrigin = 0, kCamLowerLeft = 3, kCamHorizontal = 6,
               kCamTime0 = 19, kCamDt = 20, kCamW = 21, kCamH = 22,
               kCamHm1 = 23;
 
+// A winner's material rows, from its pack's material row on (spheres 8,
+// quads 10, boxes 9), a row a pack width apart: type, aux (fuzz or ior),
+// color1 rgb, color2 rgb, texture type, texture scale.
+constexpr int kMatType = 0, kMatAux = 1, kMatColor1 = 2, kMatColor2 = 5,
+              kMatTexType = 8, kMatTexScale = 9;
+constexpr int kQuadMatRow = 10, kBoxMatRow = 9;
+
 constexpr float kMatLambertian = 0.0f, kMatMetal = 1.0f,
-                kMatDielectric = 2.0f, kTexChecker = 1.0f;
+                kMatDielectric = 2.0f, kMatDiffuseLight = 3.0f,
+                kTexChecker = 1.0f;
+
+// Families of a closest hit (rrt_tpu.geometry's FAM_*).
+constexpr int kFamNone = -1, kFamSphere = 0, kFamQuad = 1, kFamBox = 3;
 
 // What a bounce did: the path banked the background, or ended on a
-// surface, or goes on.
-enum Outcome { kMissed = 0, kAbsorbed = 1, kScattered = 2 };
+// surface, or goes on, or banked a light's emission and ended.
+enum Outcome { kMissed = 0, kAbsorbed = 1, kScattered = 2, kEmitted = 3 };
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -361,49 +399,37 @@ __device__ __forceinline__ void refract(Shade& sh) {
   sh.nd[2] = sh.rp[2] - rlen * nz;
 }
 
-// Shade the hit at t on the winner whose pack column starts at `col`
-// (row r at col[r * n_slots]); a is |d|^2. `kept`, when given, receives
-// what the scatter draws decided that the adjoint reads: a metal's point
-// in the unit sphere (sv), a dielectric's reflect-or-refract (kept[0],
-// 1 or 0).
-//
-// kForAdjoint (the backward's sweep) takes those from `kept` instead of
-// drawing: it fills only what scatter_adjoint reads (not unit, degen,
-// scattered, nor nd but for a refraction).
-template <bool kMoving, bool kForAdjoint = false>
-__device__ __forceinline__ void shade(const float* col, int n_slots,
-                                      const Ray& r, float a, float t,
-                                      uint32_t k0, uint32_t k1, int bounce,
-                                      Shade& sh, float* kept = nullptr) {
-  sh.h[0] = r.ox + t * r.dx;
-  sh.h[1] = r.oy + t * r.dy;
-  sh.h[2] = r.oz + t * r.dz;
-  const float srad = col[kRowRadius * n_slots];
-  sh.inv_r = 1.0f / (fabsf(srad) > 1e-20f ? srad : 1.0f);
-  float c[3];
-  center_at<kMoving>(col, n_slots, r.time, c);
-  const float outx = (sh.h[0] - c[0]) * sh.inv_r;
-  const float outy = (sh.h[1] - c[1]) * sh.inv_r;
-  const float outz = (sh.h[2] - c[2]) * sh.inv_r;
-  sh.front = r.dx * outx + r.dy * outy + r.dz * outz < 0.0f;
+// The material half of a shade: the face against the ray of the winner's
+// outward normal `out`, its material and texture at the hit point sh.h
+// (the rows from `mat` on, a row `stride` floats apart: kMatType ...),
+// and the scatter (shade's `kept` and kForAdjoint). With kEmit, a
+// diffuse_light draws nothing and does not scatter.
+template <bool kForAdjoint, bool kEmit = false>
+__device__ __forceinline__ void shade_material(const float* mat, int stride,
+                                               const Ray& r, float a,
+                                               const float* out,
+                                               uint32_t k0, uint32_t k1,
+                                               int bounce, Shade& sh,
+                                               float* kept) {
+  sh.front = r.dx * out[0] + r.dy * out[1] + r.dz * out[2] < 0.0f;
   sh.sgn = sh.front ? 1.0f : -1.0f;
-  sh.n[0] = outx * sh.sgn;
-  sh.n[1] = outy * sh.sgn;
-  sh.n[2] = outz * sh.sgn;
-  sh.mtype = col[kRowMatType * n_slots];
-  sh.aux = col[kRowAux * n_slots];
+  sh.n[0] = out[0] * sh.sgn;
+  sh.n[1] = out[1] * sh.sgn;
+  sh.n[2] = out[2] * sh.sgn;
+  sh.mtype = mat[kMatType * stride];
+  sh.aux = mat[kMatAux * stride];
 
   // --- texture: solid or checker (RTTNW ch. 4.3 sine form).
   sh.use_c2 = false;
-  if (col[kRowTexType * n_slots] == kTexChecker) {
-    const float ts = col[kRowTexScale * n_slots];
+  if (mat[kMatTexType * stride] == kTexChecker) {
+    const float ts = mat[kMatTexScale * stride];
     sh.use_c2 = sinf(ts * sh.h[0]) * sinf(ts * sh.h[1]) * sinf(ts * sh.h[2]) <
                 0.0f;
   }
-  const int c_row = sh.use_c2 ? kRowColor2 : kRowColor1;
-  sh.alb[0] = col[c_row * n_slots];
-  sh.alb[1] = col[(c_row + 1) * n_slots];
-  sh.alb[2] = col[(c_row + 2) * n_slots];
+  const int c_row = sh.use_c2 ? kMatColor2 : kMatColor1;
+  sh.alb[0] = mat[c_row * stride];
+  sh.alb[1] = mat[(c_row + 1) * stride];
+  sh.alb[2] = mat[(c_row + 2) * stride];
 
   if constexpr (kForAdjoint) {
     sh.reflect = false;
@@ -420,6 +446,12 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
       if (!sh.reflect) refract(sh);
     }
     return;
+  }
+  if constexpr (kEmit) {
+    if (sh.mtype == kMatDiffuseLight) {  // emits sh.alb; draws nothing
+      sh.scattered = false;
+      return;
+    }
   }
 
   // --- scatter draws (rrt_tpu/ops/megakernel.py _draws).
@@ -490,6 +522,228 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
   }
 }
 
+// Shade the hit at t on the sphere whose pack column starts at `col`
+// (row r at col[r * n_slots]); a is |d|^2. `kept`, when given, receives
+// what the scatter draws decided that the adjoint reads: a metal's point
+// in the unit sphere (sv), a dielectric's reflect-or-refract (kept[0],
+// 1 or 0).
+//
+// kForAdjoint (the backward's sweep) takes those from `kept` instead of
+// drawing: it fills only what scatter_adjoint reads (not unit, degen,
+// scattered, nor nd but for a refraction). kEmit: shade_material's.
+template <bool kMoving, bool kForAdjoint = false, bool kEmit = false>
+__device__ __forceinline__ void shade(const float* col, int n_slots,
+                                      const Ray& r, float a, float t,
+                                      uint32_t k0, uint32_t k1, int bounce,
+                                      Shade& sh, float* kept = nullptr) {
+  sh.h[0] = r.ox + t * r.dx;
+  sh.h[1] = r.oy + t * r.dy;
+  sh.h[2] = r.oz + t * r.dz;
+  const float srad = col[kRowRadius * n_slots];
+  sh.inv_r = 1.0f / (fabsf(srad) > 1e-20f ? srad : 1.0f);
+  float c[3];
+  center_at<kMoving>(col, n_slots, r.time, c);
+  const float out[3] = {(sh.h[0] - c[0]) * sh.inv_r,
+                        (sh.h[1] - c[1]) * sh.inv_r,
+                        (sh.h[2] - c[2]) * sh.inv_r};
+  shade_material<kForAdjoint, kEmit>(col + kRowMatType * n_slots, n_slots, r,
+                                     a, out, k0, k1, bounce, sh, kept);
+}
+
+// ---------------------------------------------------------------------------
+// The solid families: quads and boxes (kSolids)
+// ---------------------------------------------------------------------------
+//
+// rrt_tpu_torch/ops/megakernel.py packs them: a quad (24, Q) pack holds
+// q (rows 0-2), u (3-5), v (6-8), valid (9) and the material rows from
+// 10; a box (24, B) pack rrt_tpu's center (0-2), half extents (3-5, 0 on
+// an invalid slot), cos and sin of the world-from-box Y rotation (6, 7),
+// valid (8) and the material rows from 9. A block stages its scene's
+// active slots' test rows in shared memory (stage_solids): each quad's
+// plane frame (geometry.quad_frames' arithmetic: n = u x v, g, h,
+// d_plane, q.g, q.h, eps_n), each box's center, half extents, cos, sin.
+
+// The active slots a kernel stages (ops/megakernel.py SOLID_CAP).
+constexpr int kSolidCap = 64;
+
+
+// A block's staged solid families and their packs in device memory.
+struct Solids {
+  const float4* qn;  // n.xyz, d_plane
+  const float4* qg;  // g.xyz, q.g
+  const float4* qh;  // h.xyz, q.h
+  const float* qe;   // eps_n; kInf on an invalid slot (never not parallel)
+  const float4* bc;  // center.xyz, cos
+  const float4* bh;  // half.xyz, sin
+  int n_quads, n_boxes;
+  const float* quad;  // the (24, quad_slots) pack
+  int quad_slots;
+  const float* box;   // the (24, box_slots) pack
+  int box_slots;
+};
+
+// Shared memory of the staged solids (after the BVH, 16-byte aligned).
+__host__ __device__ inline size_t solid_bytes(int n_quads, int n_boxes) {
+  return 16 * static_cast<size_t>(3 * n_quads + 2 * n_boxes) +
+         4 * static_cast<size_t>(n_quads);
+}
+
+__host__ __device__ inline size_t aligned16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// Stage the active quads' frames and boxes' rows in `smem` (16-byte
+// aligned, solid_bytes long); the caller syncs the block after.
+__device__ __forceinline__ Solids stage_solids(const float* quad,
+                                               int quad_slots, int n_quads,
+                                               const float* box,
+                                               int box_slots, int n_boxes,
+                                               float4* smem) {
+  Solids sv;
+  float4* qn = smem;
+  float4* qg = qn + n_quads;
+  float4* qh = qg + n_quads;
+  float4* bc = qh + n_quads;
+  float4* bh = bc + n_boxes;
+  float* qe = reinterpret_cast<float*>(bh + n_boxes);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  const int qs = quad_slots;
+  for (int i = tid; i < n_quads; i += n_threads) {
+    const float q0 = quad[i], q1 = quad[qs + i], q2 = quad[2 * qs + i];
+    const float u0 = quad[3 * qs + i], u1 = quad[4 * qs + i],
+                u2 = quad[5 * qs + i];
+    const float v0 = quad[6 * qs + i], v1 = quad[7 * qs + i],
+                v2 = quad[8 * qs + i];
+    const float n0 = u1 * v2 - u2 * v1;
+    const float n1 = u2 * v0 - u0 * v2;
+    const float n2 = u0 * v1 - u1 * v0;
+    const float nn = n0 * n0 + n1 * n1 + n2 * n2;
+    const float inv_nn = 1.0f / fmaxf(nn, 1e-20f);
+    const float g0 = (v1 * n2 - v2 * n1) * inv_nn;
+    const float g1 = (v2 * n0 - v0 * n2) * inv_nn;
+    const float g2 = (v0 * n1 - v1 * n0) * inv_nn;
+    const float h0 = (n1 * u2 - n2 * u1) * inv_nn;
+    const float h1 = (n2 * u0 - n0 * u2) * inv_nn;
+    const float h2 = (n0 * u1 - n1 * u0) * inv_nn;
+    qn[i] = make_float4(n0, n1, n2, n0 * q0 + n1 * q1 + n2 * q2);
+    qg[i] = make_float4(g0, g1, g2, g0 * q0 + g1 * q1 + g2 * q2);
+    qh[i] = make_float4(h0, h1, h2, h0 * q0 + h1 * q1 + h2 * q2);
+    qe[i] = quad[9 * qs + i] > 0.5f ? 1e-8f * sqrtf(fmaxf(nn, 1e-20f))
+                                    : kInf;
+  }
+  const int bs = box_slots;
+  for (int i = tid; i < n_boxes; i += n_threads) {
+    bc[i] = make_float4(box[i], box[bs + i], box[2 * bs + i],
+                        box[6 * bs + i]);
+    bh[i] = make_float4(box[3 * bs + i], box[4 * bs + i], box[5 * bs + i],
+                        box[7 * bs + i]);
+  }
+  sv.qn = qn; sv.qg = qg; sv.qh = qh; sv.qe = qe;
+  sv.bc = bc; sv.bh = bh;
+  sv.n_quads = n_quads; sv.n_boxes = n_boxes;
+  sv.quad = quad; sv.quad_slots = quad_slots;
+  sv.box = box; sv.box_slots = box_slots;
+  return sv;
+}
+
+// One axis of the box slab test, rrt_tpu's closed form: with inv = 1/db
+// (1e18 where |db| <= 1e-12), the slab is [-ob inv - h |inv|, h |inv| -
+// ob inv].
+__device__ __forceinline__ void slab(float ob, float db, float hk, float& lo,
+                                     float& hi) {
+  const float inv = fabsf(db) <= 1e-12f ? 1e18f : 1.0f / db;
+  const float a_t = ob * inv;
+  const float b_t = hk * fabsf(inv);
+  lo = fmaxf(lo, -a_t - b_t);
+  hi = fminf(hi, b_t - a_t);
+}
+
+// The closest quad, then box, with a strict `<` running minimum over the
+// active slots in order (a quad wins an exact tie with a box): t (kInf
+// on a miss), its family (kFamNone on a miss) and slot.
+__device__ __forceinline__ float closest_solid(const Solids& sv,
+                                               const Ray& r, const RayDots& q,
+                                               float t_min, int& fam,
+                                               int& win) {
+  float t_best = kInf;
+  fam = kFamNone;
+  win = 0;
+  const float d_len = sqrtf(q.a);
+  for (int i = 0; i < sv.n_quads; ++i) {
+    const float4 n = sv.qn[i];
+    const float denom = r.dx * n.x + r.dy * n.y + r.dz * n.z;
+    const float o_n = r.ox * n.x + r.oy * n.y + r.oz * n.z;
+    const bool not_par = fabsf(denom) > sv.qe[i] * d_len;
+    const float t = (n.w - o_n) / (not_par ? denom : 1.0f);
+    const float4 g = sv.qg[i];
+    const float4 h = sv.qh[i];
+    const float alpha = (r.ox * g.x + r.oy * g.y + r.oz * g.z) +
+                        t * (r.dx * g.x + r.dy * g.y + r.dz * g.z) - g.w;
+    const float beta = (r.ox * h.x + r.oy * h.y + r.oz * h.z) +
+                       t * (r.dx * h.x + r.dy * h.y + r.dz * h.z) - h.w;
+    if (not_par && t > t_min && t < t_best && alpha >= 0.0f &&
+        alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f) {
+      t_best = t;
+      fam = kFamQuad;
+      win = i;
+    }
+  }
+  for (int i = 0; i < sv.n_boxes; ++i) {
+    const float4 c = sv.bc[i];
+    const float4 h = sv.bh[i];
+    const float wx = r.ox - c.x, wy = r.oy - c.y, wz = r.oz - c.z;
+    float lo = -kInf, hi = kInf;
+    slab(c.w * wx - h.w * wz, c.w * r.dx - h.w * r.dz, h.x, lo, hi);
+    slab(wy, r.dy, h.y, lo, hi);
+    slab(h.w * wx + c.w * wz, h.w * r.dx + c.w * r.dz, h.z, lo, hi);
+    const float t = lo > t_min ? lo : hi;  // inside: the far face
+    if (lo < hi && t > t_min && t < t_best) {
+      t_best = t;
+      fam = kFamBox;
+      win = i;
+    }
+  }
+  return t_best;
+}
+
+// The outward normal of solid `win` of family `fam` at the hit point h,
+// and its material rows (shade_material's `mat`, `stride`).
+__device__ __forceinline__ const float* solid_surface(const Solids& sv,
+                                                      int fam, int win,
+                                                      const float* h,
+                                                      float* out,
+                                                      int& stride) {
+  if (fam == kFamQuad) {
+    const float4 n = sv.qn[win];
+    const float inv = rsqrtf(fmaxf(n.x * n.x + n.y * n.y + n.z * n.z,
+                                   1e-20f));
+    out[0] = n.x * inv;
+    out[1] = n.y * inv;
+    out[2] = n.z * inv;
+    stride = sv.quad_slots;
+    return sv.quad + kQuadMatRow * stride + win;
+  }
+  const float4 c = sv.bc[win];
+  const float4 hb = sv.bh[win];
+  const float wx = h[0] - c.x, wy = h[1] - c.y, wz = h[2] - c.z;
+  const float qx = c.w * wx - hb.w * wz;
+  const float qz = hb.w * wx + c.w * wz;
+  const float fx = fabsf(qx) - hb.x;
+  const float fy = fabsf(wy) - hb.y;
+  const float fz = fabsf(qz) - hb.z;
+  const bool use_x = fx >= fy && fx >= fz;
+  const bool use_y = !use_x && fy >= fz;
+  const float nbx = use_x ? (qx >= 0.0f ? 1.0f : -1.0f) : 0.0f;
+  const float nby = use_y ? (wy >= 0.0f ? 1.0f : -1.0f) : 0.0f;
+  const float nbz = use_x || use_y ? 0.0f : (qz >= 0.0f ? 1.0f : -1.0f);
+  out[0] = c.w * nbx + hb.w * nbz;
+  out[1] = nby;
+  out[2] = -hb.w * nbx + c.w * nbz;
+  stride = sv.box_slots;
+  return sv.box + kBoxMatRow * stride + win;
+}
+
 // Path state between bounces.
 struct Path {
   Ray ray;
@@ -499,16 +753,21 @@ struct Path {
 // The rest of a bounce once its closest hit is known (t_best, win;
 // t_best = kInf on a miss): the background on a miss (its radiance,
 // throughput included, into `rad`; win becomes -1) or the winner's
-// shading and scatter (`kept`: as shade's). Returns the Outcome; on
-// kScattered the path has moved on (its time stays).
-template <bool kMoving>
+// shading and scatter (`kept`: as shade's). With kSolids the winner is
+// of family `fam` (a quad or box of `sv`, or a sphere), and a hit on a
+// diffuse_light banks throughput x its color into `rad` and ends the
+// path (kEmitted). Returns the Outcome; on kScattered the path has moved
+// on (its time stays).
+template <bool kMoving, bool kSolids = false>
 __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
                                              const float* bg, bool sky,
                                              uint32_t k0, uint32_t k1,
                                              int bounce, int max_depth,
                                              const RayDots& q, float t_best,
                                              Path& p, float* rad, int& win,
-                                             float* kept = nullptr) {
+                                             float* kept = nullptr,
+                                             int fam = kFamSphere,
+                                             const Solids* sv = nullptr) {
   if (!(t_best < kInf)) {  // miss: bank the background and stop
     float rgb[3], tsky, inv_len;
     background(bg, sky, p.ray.dy, q.a, rgb, tsky, inv_len);
@@ -519,8 +778,30 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
     return kMissed;
   }
   Shade sh;
-  shade<kMoving>(sph + win, n_slots, p.ray, q.a, t_best, k0, k1, bounce,
-                 sh, kept);
+  if constexpr (kSolids) {
+    if (fam == kFamSphere) {
+      shade<kMoving, false, true>(sph + win, n_slots, p.ray, q.a, t_best,
+                                  k0, k1, bounce, sh, kept);
+    } else {
+      sh.h[0] = p.ray.ox + t_best * p.ray.dx;
+      sh.h[1] = p.ray.oy + t_best * p.ray.dy;
+      sh.h[2] = p.ray.oz + t_best * p.ray.dz;
+      float out[3];
+      int stride;
+      const float* mat = solid_surface(*sv, fam, win, sh.h, out, stride);
+      shade_material<false, true>(mat, stride, p.ray, q.a, out, k0, k1,
+                                  bounce, sh, kept);
+    }
+    if (sh.mtype == kMatDiffuseLight) {  // emits and ends, at any depth
+      rad[0] = p.thr[0] * sh.alb[0];
+      rad[1] = p.thr[1] * sh.alb[1];
+      rad[2] = p.thr[2] * sh.alb[2];
+      return kEmitted;
+    }
+  } else {
+    shade<kMoving>(sph + win, n_slots, p.ray, q.a, t_best, k0, k1, bounce,
+                   sh, kept);
+  }
   if (!sh.scattered || bounce >= max_depth) return kAbsorbed;
   if (sh.mtype != kMatDielectric) {  // dielectrics attenuate by 1
     p.thr[0] *= sh.alb[0];
@@ -532,21 +813,58 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
   return kScattered;
 }
 
+// The closest hit of a segment: with kSolids the closest quad or box of
+// `sv` (closest_solid), then the spheres by `closest` seeded by its t,
+// which a sphere wins only with a strictly smaller t; without, the
+// spheres alone. Returns t (kInf on a miss), the winner's family `fam`
+// and slot `win` (0 on a miss).
+template <bool kSolids, typename Closest>
+__device__ __forceinline__ float closest_hit(const Closest& closest,
+                                             const Solids* sv, const Ray& r,
+                                             const RayDots& q, float t_min,
+                                             int& fam, int& win) {
+  if constexpr (!kSolids) {
+    const float t = closest(r, q, t_min, win);
+    fam = t < kInf ? kFamSphere : kFamNone;
+    return t;
+  } else {
+    const float t_solid = closest_solid(*sv, r, q, t_min, fam, win);
+    int ws;
+    const float t = closest(r, q, t_min, ws, t_solid);
+    if (t < t_solid) {
+      fam = kFamSphere;
+      win = ws;
+    }
+    return t;
+  }
+}
+
 // One bounce of a path: the closest hit by `closest` (SlotScan or
-// BvhWalk, below: the same (t, win) bit for bit), then finish_bounce.
-// `win` is the winner, -1 on a miss; `kept`: as shade's.
-template <bool kMoving, typename Closest>
+// BvhWalk, below: the same (t, win) bit for bit; with kSolids seeded by
+// the quads and boxes of `sv`, closest_hit), then finish_bounce. `win`
+// is the winner, -1 on a miss; `kept`: as shade's.
+template <bool kMoving, bool kSolids = false, typename Closest>
 __device__ __forceinline__ int bounce_step(const Closest& closest,
                                            const float* sph, int n_slots,
                                            const float* bg, bool sky,
                                            uint32_t k0, uint32_t k1,
                                            int bounce, int max_depth,
                                            float t_min, Path& p, float* rad,
-                                           int& win, float* kept = nullptr) {
+                                           int& win, float* kept = nullptr,
+                                           const Solids* sv = nullptr) {
   const RayDots q = ray_dots(p.ray);
-  const float t_best = closest(p.ray, q, t_min, win);
-  return finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1, bounce,
-                                max_depth, q, t_best, p, rad, win, kept);
+  if constexpr (!kSolids) {
+    const float t_best = closest(p.ray, q, t_min, win);
+    return finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1, bounce,
+                                  max_depth, q, t_best, p, rad, win, kept);
+  } else {
+    int fam;
+    const float t_best = closest_hit<true>(closest, sv, p.ray, q, t_min, fam,
+                                           win);
+    return finish_bounce<kMoving, true>(sph, n_slots, bg, sky, k0, k1,
+                                        bounce, max_depth, q, t_best, p, rad,
+                                        win, kept, fam, sv);
+  }
 }
 
 // The first ray of sample `sample` of pixel (px, py), gid = py * width +
@@ -660,7 +978,8 @@ struct BvhView {
 };
 
 // Shared memory of a staged BVH (accel.BvhPack.smem_bytes).
-inline size_t bvh_bytes(int n_nodes, int n_rows, bool moving) {
+__host__ __device__ inline size_t bvh_bytes(int n_nodes, int n_rows,
+                                            bool moving) {
   return 32 * static_cast<size_t>(n_nodes) +
          static_cast<size_t>(n_rows) * (16 + (moving ? 16 : 4) + 4);
 }
@@ -735,13 +1054,17 @@ __device__ __forceinline__ void bvh_test(const BvhView& b, int j,
 // first by the sign of the ray's direction on the split axis; a node is
 // skipped only when its slab test misses or its near distance exceeds
 // the best t (times kFarPad), so a tied lower slot is still reached.
+// Seeded by another family's t_seed < kInf, a sphere must beat it
+// strictly: win starts at -1, which no tie replaces, and stays -1 (with
+// t_seed returned) when no sphere does.
 template <bool kMoving>
 __device__ __forceinline__ float closest_sphere_bvh(const BvhView& b,
                                                     const Ray& r,
                                                     const RayDots& q,
-                                                    float t_min, int& win) {
-  float t_best = kInf;
-  win = 0;
+                                                    float t_min, int& win,
+                                                    float t_seed = kInf) {
+  float t_best = t_seed;
+  win = t_seed < kInf ? -1 : 0;
   for (int j = 0; j < b.n_always; ++j) {
     bvh_test<kMoving>(b, j, r, q, t_min, t_best, win);
   }
@@ -782,13 +1105,15 @@ __device__ __forceinline__ float closest_sphere_bvh(const BvhView& b,
   return t_best;
 }
 
-// The walk as bounce_step's closest-hit functor.
+// The walk as bounce_step's closest-hit functor (t_seed: as
+// closest_sphere_bvh's).
 template <bool kMoving>
 struct BvhWalk {
   BvhView b;
   __device__ __forceinline__ float operator()(const Ray& r, const RayDots& q,
-                                              float t_min, int& win) const {
-    return closest_sphere_bvh<kMoving>(b, r, q, t_min, win);
+                                              float t_min, int& win,
+                                              float t_seed = kInf) const {
+    return closest_sphere_bvh<kMoving>(b, r, q, t_min, win, t_seed);
   }
 };
 
@@ -806,16 +1131,19 @@ struct BvhWalk {
 // (rrt_tpu.rng's addressing, so a path's random numbers are
 // bit-identical to the reference's). Radiance is summed in sample order,
 // bounce by bounce. `closest` finds each segment's closest hit
-// (SlotScan or BvhWalk: the same (t, win) bit for bit). With kResidual
+// (SlotScan or BvhWalk: the same (t, win) bit for bit; with kSolids
+// seeded by the quads and boxes of `sv`). With kResidual
 // (train_fwd) it keeps the backward's residual: each path's bounce
 // count in lengths[s * n_pix + gid], and the winner of the pixel's j-th
 // segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss).
-template <bool kMoving, bool kResidual, typename Closest>
+template <bool kMoving, bool kResidual, bool kSolids = false,
+          typename Closest>
 __device__ __forceinline__ void trace_pixel(
     const Closest& closest, const float* sph, int n_slots, const float* cam,
     const float* bg, uint32_t s0, uint32_t s1, uint32_t lo, int px, int py,
     int width, int n_pix, int spp, int max_depth, float t_min, int win_cap,
-    float* rad, int* traced, uint8_t* lengths, int16_t* winners) {
+    float* rad, int* traced, uint8_t* lengths, int16_t* winners,
+    const Solids* sv = nullptr) {
   const uint32_t gid = static_cast<uint32_t>(py * width + px);
   const bool sky = bg[6] < 0.5f;  // BG_SKY == 0
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -827,15 +1155,16 @@ __device__ __forceinline__ void trace_pixel(
   for (;;) {
     float c[3];
     int win;
-    const int out = bounce_step<kMoving>(closest, sph, n_slots, bg, sky, k0,
-                                         k1, bounce, max_depth, t_min, p, c,
-                                         win);
+    const int out = bounce_step<kMoving, kSolids>(closest, sph, n_slots, bg,
+                                                  sky, k0, k1, bounce,
+                                                  max_depth, t_min, p, c, win,
+                                                  nullptr, sv);
     if (kResidual && n_traced < win_cap) {
       winners[static_cast<size_t>(n_traced) * n_pix + gid] =
           static_cast<int16_t>(win);
     }
     ++n_traced;
-    if (out == kMissed) {
+    if (out == kMissed || (kSolids && out == kEmitted)) {
       acc_r += c[0];
       acc_g += c[1];
       acc_b += c[2];

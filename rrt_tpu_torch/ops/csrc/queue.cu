@@ -3,15 +3,21 @@
 //
 // bounce_steps_kernel replaces rrt_tpu/ops/megakernel.py::
 // _bounce_megakernel (launched by _bounce_steps_launch): k_steps bounces
-// of every live lane of the queue state, for the sphere subset of
-// tile_render.cu (stationary and moving spheres, solid and checker
-// textures, lambertian / metal / dielectric, sky or solid background, no
-// Russian roulette). intersect_kernel replaces _intersect_kernel
-// (launched by intersect_only) for the sphere family: the closest hit (t,
-// family, slot) of each ray. Each has a kMoving instantiation for scenes
+// of every live lane of the queue state, for the scenes of
+// tile_render.cu (stationary and moving spheres, quads and boxes, solid
+// and checker textures, lambertian / metal / dielectric / diffuse_light,
+// sky or solid background, no Russian roulette). intersect_kernel
+// replaces _intersect_kernel (launched by intersect_only): the closest
+// hit (t, family, slot) of each ray over the spheres and, in its kSolids
+// instantiation, the quads and boxes. rrt_tpu's intersect kernel has no
+// box family (its batch driver intersects box scenes in XLA); this one
+// has, so the port's batch driver intersects every scene it renders on
+// the card here. Each has a kMoving instantiation for scenes
 // with moving spheres: bounce_steps reads each lane's time from state row
 // 6 (rrt_tpu's pack_state puts it there), intersect takes the rays' times
-// as a (Q,) row beside the (3, Q) origins and directions.
+// as a (Q,) row beside the (3, Q) origins and directions; and a kSolids
+// one for scenes with quads, boxes or a light (bounce.cuh's, the solid
+// families staged after the BVH).
 // rrt_tpu_torch/ops/megakernel.py holds the wrappers
 // (bounce_steps, intersect_only) and the plain PyTorch versions
 // (bounce_steps_reference, intersect_only_reference).
@@ -59,9 +65,23 @@ constexpr int kStO = 0, kStD = 3, kStTime = 6, kStThr = 7, kStPend = 10,
               kStBounce = 13, kStAlive = 14, kStTraced = 15;
 constexpr int kThreads = 256;
 
-// st: (16, Q) state, updated in place; keys: (2, Q); the BVH as
-// tile_render's (stage_bvh).
-template <bool kMoving>
+// The solid families as tile_render stages them: after the BVH's rows.
+template <bool kMoving, bool kSolids>
+__device__ __forceinline__ Solids stage_solids_after(
+    float4* smem, int n_nodes, int n_rows, const float* quad, int quad_slots,
+    int n_quads, const float* box, int box_slots, int n_boxes) {
+  Solids sv{};
+  if constexpr (kSolids) {
+    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
+                      smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
+                                 sizeof(float4));
+  }
+  return sv;
+}
+
+// st: (16, Q) state, updated in place; keys: (2, Q); the BVH and the
+// solid families as tile_render's.
+template <bool kMoving, bool kSolids>
 __global__ void __launch_bounds__(kThreads)
     bounce_steps_kernel(float* __restrict__ st,
                         const uint32_t* __restrict__ keys, int q,
@@ -69,12 +89,18 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ nodes_g,
                         const int* __restrict__ rows_g, int n_nodes,
                         int n_rows, int n_always,
+                        const float* __restrict__ quad, int quad_slots,
+                        int n_quads, const float* __restrict__ box,
+                        int box_slots, int n_boxes,
                         const float* __restrict__ bg_g, int k_steps,
                         int max_depth, float t_min) {
   extern __shared__ float4 smem[];
   __shared__ float bg[8];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
+  const Solids sv = stage_solids_after<kMoving, kSolids>(
+      smem, n_nodes, n_rows, quad, quad_slots, n_quads, box, box_slots,
+      n_boxes);
   if (threadIdx.x < 8) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
@@ -106,10 +132,11 @@ __global__ void __launch_bounds__(kThreads)
     traced += 1.0f;
     float c[3];
     int win;
-    const int out = bounce_step<kMoving>(walk, sph, n_slots, bg, sky, k0,
-                                         k1, bounce, max_depth, t_min, p, c,
-                                         win);
-    if (out == kMissed) {
+    const int out = bounce_step<kMoving, kSolids>(walk, sph, n_slots, bg,
+                                                  sky, k0, k1, bounce,
+                                                  max_depth, t_min, p, c, win,
+                                                  nullptr, &sv);
+    if (out == kMissed || (kSolids && out == kEmitted)) {
       pend[0] += c[0];
       pend[1] += c[1];
       pend[2] += c[2];
@@ -136,10 +163,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // o, d: (3, Q) rows x y z of the rays' origins and directions; time:
-// (Q,) the rays' times (kMoving only); the BVH as tile_render's. The
-// media family, which this kernel does not cover yet, will also need
-// each ray's bounce.
-template <bool kMoving>
+// (Q,) the rays' times (kMoving only); the BVH and the solid families as
+// tile_render's. The media family, which this kernel does not cover yet,
+// will also need each ray's bounce.
+template <bool kMoving, bool kSolids>
 __global__ void __launch_bounds__(kThreads)
     intersect_kernel(const float* __restrict__ o,
                      const float* __restrict__ d,
@@ -147,11 +174,17 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ nodes_g,
                      const int* __restrict__ rows_g, int n_nodes, int n_rows,
-                     int n_always, float t_min, float* __restrict__ t_out,
+                     int n_always, const float* __restrict__ quad,
+                     int quad_slots, int n_quads,
+                     const float* __restrict__ box, int box_slots,
+                     int n_boxes, float t_min, float* __restrict__ t_out,
                      int* __restrict__ fam_out, int* __restrict__ idx_out) {
   extern __shared__ float4 smem[];
-  const BvhView b = stage_bvh<kMoving>(sph, n_slots, nodes_g, rows_g,
-                                       n_nodes, n_rows, n_always, smem);
+  const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
+      sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
+  const Solids sv = stage_solids_after<kMoving, kSolids>(
+      smem, n_nodes, n_rows, quad, quad_slots, n_quads, box, box_slots,
+      n_boxes);
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -165,11 +198,12 @@ __global__ void __launch_bounds__(kThreads)
   r.dy = d[n + lane];
   r.dz = d[2 * n + lane];
   r.time = kMoving ? time[lane] : 0.0f;
-  int win;
-  const float t = closest_sphere_bvh<kMoving>(b, r, ray_dots(r), t_min, win);
+  int fam, win;
+  const float t = closest_hit<kSolids>(walk, &sv, r, ray_dots(r), t_min, fam,
+                                       win);
   t_out[lane] = t;
-  fam_out[lane] = t < kInf ? 0 : -1;  // sphere family, or a miss
-  idx_out[lane] = win;                // 0 on a miss
+  fam_out[lane] = fam;  // kFamNone (-1) on a miss
+  idx_out[lane] = win;  // 0 on a miss
 }
 
 // Opt the kernel into `smem` bytes of dynamic shared memory, the staged
@@ -182,48 +216,104 @@ int set_smem(Kernel kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// The dynamic shared memory of a launch: the staged BVH, then the solid
+// families (kSolids).
+size_t launch_smem(int n_nodes, int n_rows, bool moving,
+                   const SolidArgs* solids) {
+  const size_t smem = bvh_bytes(n_nodes, n_rows, moving);
+  return solids != nullptr
+             ? aligned16(smem) + solid_bytes(solids->n_quads, solids->n_boxes)
+             : smem;
+}
+
+template <bool kMoving, bool kSolids>
+int launch_bounce_steps(size_t smem, cudaStream_t stream, float* st,
+                        const uint32_t* keys, int q, const float* sph,
+                        int n_slots, const float* nodes, const int* rows,
+                        int n_nodes, int n_rows, int n_always,
+                        const float* quad, int quad_slots, int n_quads,
+                        const float* box, int box_slots, int n_boxes,
+                        const float* bg, int k_steps, int max_depth,
+                        float t_min) {
+  auto kernel = bounce_steps_kernel<kMoving, kSolids>;
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const int grid = (q + kThreads - 1) / kThreads;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
+      quad, quad_slots, n_quads, box, box_slots, n_boxes, bg, k_steps,
+      max_depth, t_min);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMoving, bool kSolids>
+int launch_intersect(size_t smem, cudaStream_t stream, const float* o,
+                     const float* d, const float* time, int q,
+                     const float* sph, int n_slots, const float* nodes,
+                     const int* rows, int n_nodes, int n_rows, int n_always,
+                     const float* quad, int quad_slots, int n_quads,
+                     const float* box, int box_slots, int n_boxes,
+                     float t_min, float* t, int* fam, int* idx) {
+  auto kernel = intersect_kernel<kMoving, kSolids>;
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const int grid = (q + kThreads - 1) / kThreads;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      o, d, time, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
+      quad, quad_slots, n_quads, box, box_slots, n_boxes, t_min, t, fam,
+      idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // st: (16, q) f32, updated in place; keys: (2, q) u32; sph: (24, n_slots)
-// f32; the BVH as rrt_tile_render's; bg: (8,) f32; all on the device;
-// moving: nonzero for the moving-sphere variant.
+// f32; the BVH and the solid families (solids, or null) as
+// rrt_tile_render's; bg: (8,) f32; all on the device; moving: nonzero for
+// the moving-sphere variant.
 extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 const float* sph, int n_slots,
                                 const float* nodes, const int* rows,
                                 int n_nodes, int n_rows, int n_always,
-                                const float* bg, int k_steps, int max_depth,
-                                float t_min, int moving, void* stream) {
+                                const SolidArgs* solids, const float* bg,
+                                int k_steps, int max_depth, float t_min,
+                                int moving, void* stream) {
   if (q == 0) return 0;
-  auto kernel =
-      moving ? bounce_steps_kernel<true> : bounce_steps_kernel<false>;
-  const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
-  const int err = set_smem(kernel, smem);
-  if (err != 0) return err;
-  const int grid = (q + kThreads - 1) / kThreads;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always, bg,
-      k_steps, max_depth, t_min);
-  return static_cast<int>(cudaGetLastError());
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs& sa = solids != nullptr ? *solids : none;
+  auto go = moving ? (solids ? launch_bounce_steps<true, true>
+                             : launch_bounce_steps<true, false>)
+                   : (solids ? launch_bounce_steps<false, true>
+                             : launch_bounce_steps<false, false>);
+  return go(launch_smem(n_nodes, n_rows, moving != 0, solids),
+            static_cast<cudaStream_t>(stream), st, keys, q, sph, n_slots,
+            nodes, rows, n_nodes, n_rows, n_always, sa.quad, sa.quad_slots,
+            sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, bg, k_steps,
+            max_depth, t_min);
 }
 
 // o, d: (3, q) f32; time: (q,) f32 when moving (else unused, may be
-// null); the BVH as rrt_tile_render's; outputs t (q,) f32, fam (q,) i32,
-// idx (q,) i32.
+// null); the BVH and the solid families (solids, or null) as
+// rrt_tile_render's; outputs t (q,) f32, fam (q,) i32 (-1 on a miss, 0
+// sphere, 1 quad, 3 box), idx (q,) i32.
 extern "C" int rrt_intersect(const float* o, const float* d,
                              const float* time, int q, const float* sph,
                              int n_slots, const float* nodes, const int* rows,
                              int n_nodes, int n_rows, int n_always,
-                             float t_min, int moving, float* t, int* fam,
-                             int* idx, void* stream) {
+                             const SolidArgs* solids, float t_min,
+                             int moving, float* t, int* fam, int* idx,
+                             void* stream) {
   if (q == 0) return 0;
-  auto kernel = moving ? intersect_kernel<true> : intersect_kernel<false>;
-  const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
-  const int err = set_smem(kernel, smem);
-  if (err != 0) return err;
-  const int grid = (q + kThreads - 1) / kThreads;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      o, d, time, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
-      t_min, t, fam, idx);
-  return static_cast<int>(cudaGetLastError());
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs& sa = solids != nullptr ? *solids : none;
+  auto go = moving ? (solids ? launch_intersect<true, true>
+                             : launch_intersect<true, false>)
+                   : (solids ? launch_intersect<false, true>
+                             : launch_intersect<false, false>);
+  return go(launch_smem(n_nodes, n_rows, moving != 0, solids),
+            static_cast<cudaStream_t>(stream), o, d, time, q, sph, n_slots,
+            nodes, rows, n_nodes, n_rows, n_always, sa.quad, sa.quad_slots,
+            sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, t_min, t, fam,
+            idx);
 }

@@ -1,13 +1,17 @@
-// Tile-render kernel: the forward render of a sphere scene, every pixel's
+// Tile-render kernel: the forward render of a scene, every pixel's
 // samples in one launch.
 //
 // Replaces rrt_tpu/ops/megakernel.py::_tile_render_kernel (launched by
 // _render_tiles_launch) for the scenes rrt_tpu_torch renders: stationary
-// and moving spheres, solid and checker textures, lambertian / metal /
-// dielectric materials, sky or solid background, a thin-lens camera with
-// a shutter, no Russian roulette. A scene with moving spheres launches
-// the kMoving instantiation (bounce.cuh), which stages the velocity rows
-// too and tests each slot's center at the ray's time.
+// and moving spheres, quads and boxes, solid and checker textures,
+// lambertian / metal / dielectric / diffuse_light materials, sky or solid
+// background, a thin-lens camera with a shutter, no Russian roulette. A
+// scene with moving spheres launches the kMoving instantiation
+// (bounce.cuh), which stages the velocity rows too and tests each slot's
+// center at the ray's time; a scene with quads, boxes or a light the
+// kSolids one, which stages the active quads' plane frames and boxes'
+// rows after the BVH (stage_solids) and tests them before the walk,
+// seeding it (the Cornell box: six quads, two boxes, no sphere).
 // rrt_tpu_torch/ops/megakernel.py holds the wrapper (render_tiles), the
 // packs' layouts and the plain PyTorch version (render_tiles_reference).
 //
@@ -58,14 +62,17 @@
 
 namespace {
 
-template <bool kMoving>
+template <bool kMoving, bool kSolids>
 __global__ void __launch_bounds__(256, 4)
     tile_render_kernel(const float* __restrict__ sph, int n_slots,
                        const float* __restrict__ cam_g,
                        const float* __restrict__ bg_g,
                        const float* __restrict__ nodes_g,
                        const int* __restrict__ rows_g, int n_nodes,
-                       int n_rows, int n_always, uint32_t s0, uint32_t s1,
+                       int n_rows, int n_always,
+                       const float* __restrict__ quad, int quad_slots,
+                       int n_quads, const float* __restrict__ box,
+                       int box_slots, int n_boxes, uint32_t s0, uint32_t s1,
                        uint32_t lo, int width, int height, int spp,
                        int max_depth, float t_min, float* __restrict__ rad,
                        int* __restrict__ traced) {
@@ -74,6 +81,12 @@ __global__ void __launch_bounds__(256, 4)
   __shared__ float bg[8];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
+  Solids sv{};
+  if constexpr (kSolids) {
+    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
+                      smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
+                                 sizeof(float4));
+  }
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < 24) cam[tid] = cam_g[tid];
   if (tid < 8) bg[tid] = bg_g[tid];
@@ -82,9 +95,32 @@ __global__ void __launch_bounds__(256, 4)
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  trace_pixel<kMoving, false>(walk, sph, n_slots, cam, bg, s0, s1, lo, px,
-                              py, width, width * height, spp, max_depth,
-                              t_min, 0, rad, traced, nullptr, nullptr);
+  trace_pixel<kMoving, false, kSolids>(walk, sph, n_slots, cam, bg, s0, s1,
+                                       lo, px, py, width, width * height, spp,
+                                       max_depth, t_min, 0, rad, traced,
+                                       nullptr, nullptr, &sv);
+}
+
+template <bool kMoving, bool kSolids>
+int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
+           const float* sph, int n_slots, const float* cam, const float* bg,
+           const float* nodes, const int* rows, int n_nodes, int n_rows,
+           int n_always, const float* quad, int quad_slots, int n_quads,
+           const float* box, int box_slots, int n_boxes, uint32_t s0,
+           uint32_t s1, uint32_t lo, int width, int height, int spp,
+           int max_depth, float t_min, float* rad, int* traced) {
+  // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
+  // what the card allows.
+  auto kernel = tile_render_kernel<kMoving, kSolids>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, block, smem, stream>>>(
+      sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always, quad,
+      quad_slots, n_quads, box, box_slots, n_boxes, s0, s1, lo, width,
+      height, spp, max_depth, t_min, rad, traced);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -93,31 +129,33 @@ __global__ void __launch_bounds__(256, 4)
 // sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32, and the BVH
 // (accel.BvhPack): nodes (n_nodes, 8) f32, rows (n_rows,) i32 of which
 // the first n_always are tested by every segment, all on the device;
-// moving: nonzero for the moving-sphere variant; rad: (width*height, 3)
-// f32 and traced: (width*height,) i32 outputs.
+// moving: nonzero for the moving-sphere variant; solids: the quad and box
+// packs (at most kSolidCap active slots each) for the solid-family
+// variant, or null; rad: (width*height, 3) f32 and traced:
+// (width*height,) i32 outputs.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const float* cam, const float* bg,
                                const float* nodes, const int* rows,
                                int n_nodes, int n_rows, int n_always,
-                               uint32_t s0, uint32_t s1, uint32_t lo,
-                               int width, int height, int spp, int max_depth,
+                               const SolidArgs* solids, uint32_t s0,
+                               uint32_t s1, uint32_t lo, int width,
+                               int height, int spp, int max_depth,
                                float t_min, int moving, float* rad,
                                int* traced, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
-  const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
-  // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
-  // what the card allows.
-  auto kernel = moving ? tile_render_kernel<true> : tile_render_kernel<false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always, s0, s1,
-      lo, width, height, spp, max_depth, t_min, rad, traced);
-  return static_cast<int>(cudaGetLastError());
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs& sa = solids != nullptr ? *solids : none;
+  size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
+  if (solids) smem = aligned16(smem) + solid_bytes(sa.n_quads, sa.n_boxes);
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto go = moving ? (solids ? launch<true, true> : launch<true, false>)
+                   : (solids ? launch<false, true> : launch<false, false>);
+  return go(grid, block, smem, st, sph, n_slots, cam, bg, nodes, rows,
+            n_nodes, n_rows, n_always, sa.quad, sa.quad_slots, sa.n_quads,
+            sa.box, sa.box_slots, sa.n_boxes, s0, s1, lo, width, height, spp,
+            max_depth, t_min, rad, traced);
 }
 
 extern "C" const char* rrt_error_string(int err) {

@@ -12,12 +12,14 @@ plain versions scan, the same function):
   `bounce_steps`   K bounce steps of the queue driver's (16, Q) lane
                    state (csrc/queue.cu), the counterpart of
                    `_bounce_megakernel`; plain `bounce_steps_reference`;
-  `intersect_only` the closest sphere of each ray for the batch driver
+  `intersect_only` the closest hit of each ray for the batch driver
                    (csrc/queue.cu), the counterpart of
-                   `_intersect_kernel` for the sphere family; plain
-                   `intersect_only_reference`.
+                   `_intersect_kernel`, with a box family that rrt_tpu's
+                   lacks; plain `intersect_only_reference`.
 
-The kernel reads the scene as packs, laid out as in rrt_tpu:
+The kernel reads the scene as packs, laid out as in rrt_tpu but for the
+quad pack, which keeps each quad's corner and edges (the kernels derive
+its plane frame, rrt_tpu's rows 0-12, from them: geometry.quad_frames):
 
 Sphere pack, f32 (24, S):
   0-2 motion base | 3 r^2 (-1 on invalid slots) | 4-6 motion vel
@@ -29,9 +31,20 @@ Camera pack, f32 (24,):
   | 12-14 u | 15-17 v | 18 lens_radius | 19 time0 | 20 time1-time0
   | 21 W | 22 H | 23 H-1
 Background pack, f32 (8,): bottom rgb | top rgb | mode | pad
+Quad pack, f32 (24, Q):
+  0-2 q | 3-5 u | 6-8 v | 9 valid | 10 mat_type | 11 aux | 12-14 color1
+  | 15-17 color2 | 18 tex_type | 19 tex_scale | 20-23 pad
+Box pack, f32 (24, B), rrt_tpu's:
+  0-2 center | 3-5 half (0 on invalid slots) | 6 cos | 7 sin (the
+  world-from-box Y rotation) | 8 valid | 9 mat_type | 10 aux
+  | 11-13 color1 | 14-16 color2 | 17 tex_type | 18 tex_scale | 19-23 pad
 
-The sphere pack keeps the scene's own slot count (a multiple of 128):
-unlike the TPU kernel, the GPU kernel has no tile width to pad to.
+Every pack keeps the scene's own slot count (a multiple of 128): unlike
+the TPU kernel, the GPU kernel has no tile width to pad to. A scene with
+quads, boxes or a diffuse_light hands the kernels its quad and box packs
+and their active slot counts (`SolidPacks`, `pack_solids`), and they run
+their solid-family variant: the quads, then the boxes, as loops over the
+active slots (at most SOLID_CAP of each), seeding the spheres' BVH walk.
 
 A scene with moving spheres (`SceneArrays.has_moving`, the wrappers'
 `moving=True`) runs each kernel's moving variant: a sphere's center at a
@@ -39,6 +52,9 @@ ray's time is base + time * vel (pack rows 0-2 and 4-6), and every ray
 carries its time (the camera's shutter draw; state row 6). A static
 scene runs the static variant, whose arithmetic reads no time.
 """
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -50,19 +66,25 @@ from ..scene import MAT_DIELECTRIC, SceneArrays, tensor_fields
 # Shared memory holds the intersection rows (0-3) of every slot, 16
 # bytes a slot, inside the 48 KB a block gets without opting in.
 MAX_SLOTS = 3072
+# Active quads and boxes a kernel stages (each; csrc/bounce.cuh
+# kSolidCap). rttnw_final's 400 ground boxes need more, with its image
+# and perlin textures (ROADMAP Queue A #9.5).
+SOLID_CAP = 64
+SOLID_CAP_ITEM = "#9.5"
 
 
 def scope_gap(scene: SceneArrays, rr_depth: int = 0):
-    """None when the tile kernels cover the scene and option; otherwise
-    (what is outside, the ROADMAP Queue A item that ports it)."""
+    """None when the forward kernels cover the scene and option;
+    otherwise (what is outside, the ROADMAP Queue A item that ports it).
+    The train kernels' and chain_bwd's scope is narrower
+    (megakernel_vjp.backward_scope_gap)."""
     outside = (
-        (scene.has_quads, "quads", "#9.2"),
-        (scene.has_emissive, "emissive materials", "#9.2"),
-        (scene.has_boxes, "boxes", "#9.3"),
         (scene.has_media, "constant media", "#9.4"),
         (scene.has_perlin, "perlin textures", "#9.5"),
         (scene.has_images, "image textures", "#9.5"),
         (rr_depth > 0, "Russian roulette (rr_depth > 0)", "#9.6"),
+        (max(scene.n_quads_active, scene.n_boxes_active) > SOLID_CAP,
+         f"more than {SOLID_CAP} quads or boxes", SOLID_CAP_ITEM),
     )
     return next(((what, item) for flag, what, item in outside if flag),
                 None)
@@ -76,6 +98,34 @@ def check_scope(scene: SceneArrays, rr_depth: int = 0):
         raise NotImplementedError(
             f"{gap[0]}: outside the rrt_tpu_torch tile kernel's scope "
             f"(ROADMAP Queue A {gap[1]})")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolidPacks:
+    """The quad and box packs (layouts in the module docstring) of a
+    scene with quads, boxes or a diffuse_light, and their active slot
+    counts: the kernels test slots [0, n_quads) and [0, n_boxes) (the
+    builder puts a family's valid slots first)."""
+
+    quad24: torch.Tensor  # (24, Q)
+    box24: torch.Tensor  # (24, B)
+    n_quads: int
+    n_boxes: int
+
+    def to(self, device) -> "SolidPacks":
+        return dataclasses.replace(self, quad24=self.quad24.to(device),
+                                   box24=self.box24.to(device))
+
+
+def pack_solids(scene: SceneArrays, device=None):
+    """The scene's SolidPacks (on `device`, when given), differentiable
+    functions of its tensors; None for a scene of spheres alone without a
+    light, which the kernels' sphere variants render."""
+    if not (scene.has_quads or scene.has_boxes or scene.has_emissive):
+        return None
+    packs = SolidPacks(pack_quads_full(scene), pack_boxes_full(scene),
+                       scene.n_quads_active, scene.n_boxes_active)
+    return packs if device is None else packs.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -92,20 +142,55 @@ def pack_spheres_full(scene: SceneArrays):
     vel = inv_dt[:, None] * scene.sphere_dc
     radius = scene.sphere_radius
     r2 = torch.where(scene.sphere_valid, radius * radius, -1.0)
-    mat = scene.sphere_mat.long()
+    tex = scene.mat_tex[scene.sphere_mat.long()].long()
+    f32 = torch.float32
+    return torch.cat([
+        base.T, r2[None], vel.T, scene.sphere_valid.to(f32)[None],
+        _mat_rows(scene, scene.sphere_mat), radius[None],
+        scene.tex_image[tex].to(f32)[None],
+        torch.zeros((4, radius.shape[0]), dtype=f32, device=radius.device),
+    ], dim=0).contiguous()
+
+
+def _mat_rows(scene: SceneArrays, mat_ids):
+    """(10, n) rows of each slot's resolved material: type, aux (a
+    dielectric's ior, else the fuzz), color1 rgb, color2 rgb, texture
+    type, texture scale (rrt_tpu's megakernel._mat_rows)."""
+    mat = mat_ids.long()
     mtype = scene.mat_type[mat]
     aux = torch.where(mtype == MAT_DIELECTRIC, scene.mat_ior[mat],
                       scene.mat_fuzz[mat])
     tex = scene.mat_tex[mat].long()
     f32 = torch.float32
     return torch.cat([
-        base.T, r2[None], vel.T, scene.sphere_valid.to(f32)[None],
         mtype.to(f32)[None], aux[None], scene.tex_color1[tex].T,
         scene.tex_color2[tex].T, scene.tex_type[tex].to(f32)[None],
-        scene.tex_scale[tex][None], radius[None],
-        scene.tex_image[tex].to(f32)[None],
-        torch.zeros((4, radius.shape[0]), dtype=f32, device=radius.device),
-    ], dim=0).contiguous()
+        scene.tex_scale[tex][None]])
+
+
+def pack_quads_full(scene: SceneArrays):
+    """(24, Q) f32 quad pack (layout in the module docstring)."""
+    n = scene.quad_q.shape[0]
+    f32 = torch.float32
+    return torch.cat([
+        scene.quad_q.T, scene.quad_u.T, scene.quad_v.T,
+        scene.quad_valid.to(f32)[None], _mat_rows(scene, scene.quad_mat),
+        torch.zeros((4, n), dtype=f32, device=scene.quad_q.device),
+    ]).contiguous()
+
+
+def pack_boxes_full(scene: SceneArrays):
+    """(24, B) f32 box pack, rrt_tpu's (layout in the module docstring):
+    invalid slots pack zero half extents, which no ray's slab interval
+    can enter."""
+    n = scene.box_half.shape[0]
+    f32 = torch.float32
+    half = torch.where(scene.box_valid[:, None], scene.box_half, 0.0)
+    return torch.cat([
+        scene.box_center.T, half.T, scene.box_cos[None], scene.box_sin[None],
+        scene.box_valid.to(f32)[None], _mat_rows(scene, scene.box_mat),
+        torch.zeros((5, n), dtype=f32, device=scene.box_half.device),
+    ]).contiguous()
 
 
 def pack_camera(camera, width: int, height: int):
@@ -172,9 +257,35 @@ def _check_bvh(bvh, sph24, what: str):
             bvh.n_rows, bvh.n_always)
 
 
+def _check_solids(solids, device):
+    """The C argument of the solid families (a pointer to an
+    _build.SolidArgs), checked: both packs float32 (24, n), contiguous,
+    on `device`, their active counts within their widths and SOLID_CAP;
+    None (a null pointer: the sphere variants) for None."""
+    if solids is None:
+        return None
+    for name, t, n in (("quad24", solids.quad24, solids.n_quads),
+                       ("box24", solids.box24, solids.n_boxes)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                or t.dim() != 2 or t.shape[0] != 24 or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{name} must be a contiguous (24, n) float32 "
+                             f"tensor on {device}")
+        if not 0 <= n <= t.shape[1]:
+            raise ValueError(f"{n} active slots of {name}'s {t.shape[1]}")
+        if n > SOLID_CAP:
+            raise NotImplementedError(
+                f"{n} active slots of {name}: the kernels stage at most "
+                f"{SOLID_CAP} quads and {SOLID_CAP} boxes (ROADMAP Queue A "
+                f"{SOLID_CAP_ITEM})")
+    return ctypes.byref(_build.SolidArgs(
+        solids.quad24.data_ptr(), solids.quad24.shape[1], solids.n_quads,
+        solids.box24.data_ptr(), solids.box24.shape[1], solids.n_boxes))
+
+
 def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                  width: int, height: int, spp: int, max_depth: int,
-                 t_min: float, moving: bool, bvh=None):
+                 t_min: float, moving: bool, bvh=None, solids=None):
     """Render samples [sample_lo, sample_lo + spp) of every pixel.
 
     sph24 (24,S), cam24 (24,) and bg8 (8,) are the packs, all on one
@@ -182,7 +293,8 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     the moving-sphere variant (the scene's has_moving); bvh: the sphere
     pack's accel.BvhPack on the same device, its shutter the camera's
     (cam24 rows 19-20), which the kernel walks: required on a CUDA
-    device, not read on the CPU.
+    device, not read on the CPU; solids: the scene's SolidPacks (quads,
+    boxes, a light: the kernel's solid-family variant) or None.
     Returns (radiance sums (P,3) f32 in scan-line order, traced-ray
     counts (P,) int32), P = width * height, on the packs' device.
 
@@ -192,8 +304,9 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving)
+              moving=moving, solids=solids)
     device = sph24.device
+    solid_arg = _check_solids(solids, device)
     if device.type == "cpu":
         return render_tiles_reference(sph24, cam24, bg8, **kw)
     if device.type != "cuda":
@@ -212,7 +325,8 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rrt_tile_render(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
-            *tree, s0, s1, sample_lo & rng.MASK32, width, height, spp,
+            *tree, solid_arg, s0, s1, sample_lo & rng.MASK32, width,
+            height, spp,
             max_depth, t_min, int(moving), rad.data_ptr(), traced.data_ptr(),
             stream)
     if err != 0:
@@ -230,39 +344,59 @@ render_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _scene_from_packs(sph24, bg8, moving: bool) -> SceneArrays:
-    """The sphere scene the packs describe, with one material and one
-    texture per slot (the pack holds each slot's resolved material).
-    moving: the spheres move with the velocity rows 4-6 from base rows
-    0-2 (time0 0, time1 1), so make_hit's center is base + time * vel;
-    otherwise the scene is static. Without bg8 the background is the
-    default sky (intersection only)."""
+def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
+    """The scene the packs describe, with one material and one texture
+    per slot (the packs hold each slot's resolved material: the
+    spheres', then the active quads', then the active boxes'). moving:
+    the spheres move with the velocity rows 4-6 from base rows 0-2
+    (time0 0, time1 1), so make_hit's center is base + time * vel;
+    otherwise the scene is static. solids: SolidPacks, whose active
+    slots become the quad and box families (and whose presence turns on
+    the lights' emission, as in the kernels' solid-family variant).
+    Without bg8 the background is the default sky (intersection only)."""
     dev = sph24.device
     n = sph24.shape[1]
     if bg8 is None:
         bg8 = torch.zeros((8,), device=dev)
-    slots = torch.arange(n, dtype=torch.int32, device=dev)
-    mtype = sph24[8].to(torch.int32)
+    mats = [sph24[8:18]]
+    fam = {name: torch.zeros((0,), device=dev) for name in tensor_fields()
+           if name.startswith(("quad_", "box_", "med_"))}
+    counts = dict(n_quads_active=0, n_boxes_active=0)
+    if solids is not None:
+        nq, nb = solids.n_quads, solids.n_boxes
+        quad, box = solids.quad24[:, :nq], solids.box24[:, :nb]
+        ids = torch.arange(nq + nb, dtype=torch.int32, device=dev) + n
+        fam.update(quad_q=quad[0:3].T, quad_u=quad[3:6].T,
+                   quad_v=quad[6:9].T, quad_mat=ids[:nq],
+                   quad_valid=quad[9] > 0.5, box_center=box[0:3].T,
+                   box_half=box[3:6].T, box_cos=box[6], box_sin=box[7],
+                   box_mat=ids[nq:], box_valid=box[8] > 0.5)
+        mats += [quad[10:20], box[9:19]]
+        counts = dict(n_quads_active=nq, n_boxes_active=nb, has_quads=nq > 0,
+                      has_boxes=nb > 0, has_emissive=True)
+    mat = torch.cat(mats, dim=1)
+    slots = torch.arange(mat.shape[1], dtype=torch.int32, device=dev)
+    mtype = mat[0].to(torch.int32)
     is_die = mtype == MAT_DIELECTRIC
-    empty = {name: torch.zeros((0,), device=dev) for name in tensor_fields()
-             if name.startswith(("quad_", "box_", "med_"))}
     return SceneArrays(
         sphere_c0=sph24[0:3].T,
         sphere_dc=(sph24[4:7].T if moving
                    else torch.zeros((n, 3), device=dev)),
         sphere_t0=torch.zeros((n,), device=dev),
         sphere_inv_dt=torch.ones((n,), device=dev),
-        sphere_radius=sph24[18], sphere_mat=slots,
+        sphere_radius=sph24[18], sphere_mat=slots[:n],
         sphere_valid=sph24[7] > 0.5,
         mat_type=mtype, mat_tex=slots,
-        mat_fuzz=torch.where(is_die, 0.0, sph24[9]),
-        mat_ior=torch.where(is_die, sph24[9], 1.0),
-        tex_type=sph24[16].to(torch.int32), tex_color1=sph24[10:13].T,
-        tex_color2=sph24[13:16].T, tex_scale=sph24[17],
-        tex_image=sph24[19].to(torch.int32),
+        mat_fuzz=torch.where(is_die, 0.0, mat[1]),
+        mat_ior=torch.where(is_die, mat[1], 1.0),
+        tex_type=mat[8].to(torch.int32), tex_color1=mat[2:5].T,
+        tex_color2=mat[5:8].T, tex_scale=mat[9],
+        tex_image=torch.cat([sph24[19], torch.full(
+            (mat.shape[1] - n,), -1.0, device=dev)]).to(torch.int32),
         images=torch.zeros((1, 1, 1, 3), device=dev),
         bg_mode=bg8[6].to(torch.int32), bg_bottom=bg8[0:3],
-        bg_top=bg8[3:6], n_spheres_active=n, has_moving=moving, **empty)
+        bg_top=bg8[3:6], n_spheres_active=n, has_moving=moving, **counts,
+        **fam)
 
 
 # Rays a chunk of the plain tile loop. The loop is bound by the host's
@@ -275,7 +409,8 @@ PLAIN_CHUNK = 1 << 19
 def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
                            sample_lo: int, width: int, height: int,
                            spp: int, max_depth: int, t_min: float,
-                           moving: bool, chunk: int = PLAIN_CHUNK):
+                           moving: bool, solids=None,
+                           chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of `render_tiles`, same inputs and outputs.
 
     A wavefront loop over (pixel, sample) rays, `chunk` rays at a time in
@@ -284,18 +419,20 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
     dropped from the batch after each bounce. A chunk holds at most one
     sample of each pixel, so radiance is summed into each pixel in the
     kernel's order: sample by sample, bounce by bounce. Differentiable
-    by plain autograd (slowly: every bounce keeps its (N,S) broadcast)."""
+    by plain autograd (slowly: every bounce keeps its (N,S) broadcast).
+    Its families' exact ties go as in the kernel (quad, box, sphere)."""
     rad, traced, _, _ = trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
-        t_min=t_min, moving=moving, chunk=chunk)
+        t_min=t_min, moving=moving, solids=solids, chunk=chunk)
     return rad, traced
 
 
 def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                           width: int, height: int, spp: int,
                           max_depth: int, t_min: float, moving: bool,
-                          win_cap: int = 0, chunk: int = PLAIN_CHUNK):
+                          solids=None, win_cap: int = 0,
+                          chunk: int = PLAIN_CHUNK):
     """render_tiles_reference's loop, also returning each path's bounce
     count and the first win_cap segments' winners of each pixel: (rad
     (P,3), traced (P,) i32, lengths (spp, P) uint8, winners (win_cap, P)
@@ -306,7 +443,7 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     from ..render import _bounce  # render imports this module
 
     dev = sph24.device
-    scene = _scene_from_packs(sph24, bg8, moving)
+    scene = _scene_from_packs(sph24, bg8, moving, solids)
     basis = tuple(cam24[3 * i:3 * i + 3] for i in range(6))
     n_pix = width * height
     n_rays = n_pix * spp
@@ -413,7 +550,7 @@ def _launch_error(lib, err, what):
 
 
 def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
-                 t_min: float, moving: bool, bvh=None):
+                 t_min: float, moving: bool, bvh=None, solids=None):
     """Run k_steps bounce steps on every live lane of a queue state.
 
     state: (16, Q) f32 (pack_state's rows), updated IN PLACE and
@@ -423,11 +560,12 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     moving: the moving-sphere variant, which reads each lane's time (row
     6). bvh: the sphere pack's accel.BvhPack on its device, its shutter
     covering the lanes' times, which the kernel walks: required on a
-    CUDA device, not read on the CPU.
+    CUDA device, not read on the CPU. solids: as render_tiles'.
 
     Per live lane and step, as rrt_tpu's _one_bounce: traced += 1; a
     miss adds throughput x background to the pending radiance and kills
-    the lane; a scatter below max_depth multiplies the throughput by the
+    the lane, as does a hit on a diffuse_light, with throughput x its
+    color; a scatter below max_depth multiplies the throughput by the
     albedo (a dielectric's by 1), moves o and d, and adds 1 to bounce;
     an absorption, or a hit at max_depth, kills the lane. A dead lane
     (alive row 0) passes through unchanged.
@@ -444,7 +582,8 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     if k_steps < 1 or max_depth < 0:
         raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth}")
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-              moving=moving)
+              moving=moving, solids=solids)
+    solid_arg = _check_solids(solids, device)
     if device.type == "cpu":
         return bounce_steps_reference(state, keys, sph24, bg8, **kw)
     tree = _check_bvh(bvh, sph24, "bounce_steps")
@@ -452,8 +591,9 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     with torch.cuda.device(device):
         err = lib.rrt_bounce_steps(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(),
-            sph24.shape[1], *tree, bg8.data_ptr(), k_steps, max_depth, t_min,
-            int(moving), torch.cuda.current_stream(device).cuda_stream)
+            sph24.shape[1], *tree, solid_arg, bg8.data_ptr(), k_steps,
+            max_depth, t_min, int(moving),
+            torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "bounce_steps")
     bounce_steps.launches += 1
     return state
@@ -464,13 +604,14 @@ bounce_steps.launches = 0
 
 def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
                            max_depth: int, t_min: float,
-                           moving: bool):
+                           moving: bool, solids=None):
     """Plain PyTorch version of `bounce_steps`, same inputs and outputs
     (the state is updated in place and returned): each step runs
-    render._shade on the live lanes, with their own bounce counts."""
+    render._shade on the live lanes, with their own bounce counts, the
+    families' exact ties as in the kernel (quad, box, sphere)."""
     from ..render import _shade  # render imports this module
 
-    scene = _scene_from_packs(sph24, bg8, moving)
+    scene = _scene_from_packs(sph24, bg8, moving, solids)
     keys = rng.from_u32_bits(keys)
     for _ in range(k_steps):
         lanes = (state[ROW_ALIVE] > 0.5).nonzero()[:, 0]
@@ -493,20 +634,23 @@ def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
 # ---------------------------------------------------------------------------
 
 
-def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None):
-    """Closest sphere of each ray. o, d: (3, Q) f32 rows x y z of the
+def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None,
+                   solids=None):
+    """Closest hit of each ray. o, d: (3, Q) f32 rows x y z of the
     rays' origins and directions; time: None for a static scene, or for
     moving spheres (Q,) f32 the rays' times, a sphere's center then being
     base + time * vel: the kernel's moving variant (rrt_tpu's
     kernel takes (8, Q) rows that also hold each ray's bounce, for the
-    media family, ROADMAP Queue A #9.4; the sphere family reads only o,
+    media family, ROADMAP Queue A #9.4; the other families read only o,
     d and time, so this kernel takes (3, Q) rows and a (Q,) time).
-    Returns (t (Q,) f32, INF on a miss; fam (Q,) int32, 0 for a sphere,
-    -1 on a miss; idx (Q,) int32, the winning slot, 0 on a miss):
-    rrt_tpu's intersect_all contract. bvh: the sphere pack's
-    accel.BvhPack on the rays' device, its shutter covering the rays'
-    times, which the kernel walks: required on a CUDA device, not read on
-    the CPU.
+    solids: as render_tiles' (the quads and boxes; rrt_tpu's kernel has
+    no box family). Returns (t (Q,) f32, INF on a miss; fam (Q,) int32,
+    0 for a sphere, 1 a quad, 3 a box, -1 on a miss; idx (Q,) int32, the
+    winning slot of its family, 0 on a miss): rrt_tpu's intersect_all
+    contract, its exact ties between families going to the quad, then
+    the box, as in its kernel. bvh: the sphere pack's accel.BvhPack on
+    the rays' device, its shutter covering the rays' times, which the
+    kernel walks: required on a CUDA device, not read on the CPU.
 
     CUDA tensors launch the kernel (counted in `intersect_only.launches`);
     CPU tensors run intersect_only_reference, whose linear scan gives the
@@ -524,8 +668,10 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None):
                    or time.device != device):
         raise ValueError(f"time must be a contiguous ({q},) float32 tensor "
                          f"on {device}")
+    solid_arg = _check_solids(solids, device)
     if device.type == "cpu":
-        return intersect_only_reference(o, d, sph24, t_min=t_min, time=time)
+        return intersect_only_reference(o, d, sph24, t_min=t_min, time=time,
+                                        solids=solids)
     tree = _check_bvh(bvh, sph24, "intersect_only")
     t = torch.empty((q,), dtype=torch.float32, device=device)
     fam = torch.empty((q,), dtype=torch.int32, device=device)
@@ -534,8 +680,8 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None):
     with torch.cuda.device(device):
         err = lib.rrt_intersect(
             o.data_ptr(), d.data_ptr(), time.data_ptr() if moving else None,
-            q, sph24.data_ptr(), sph24.shape[1], *tree, t_min, int(moving),
-            t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
+            q, sph24.data_ptr(), sph24.shape[1], *tree, solid_arg, t_min,
+            int(moving), t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "intersect_only")
     intersect_only.launches += 1
@@ -545,12 +691,13 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None):
 intersect_only.launches = 0
 
 
-def intersect_only_reference(o, d, sph24, *, t_min: float, time=None):
+def intersect_only_reference(o, d, sph24, *, t_min: float, time=None,
+                             solids=None):
     """Plain PyTorch version of `intersect_only`, same inputs and
-    outputs: geometry.intersect_spheres on the pack's slots."""
-    from ..geometry import INF, intersect_spheres
+    outputs: geometry.intersect_all on the packs' slots, with the
+    kernel's order of exact ties (quad, box, sphere)."""
+    from ..geometry import INF, intersect_all
 
-    spheres = _scene_from_packs(sph24, None, time is not None)
-    t, idx = intersect_spheres(spheres, o, d, time, t_min, INF)
-    idx = idx.to(torch.int32)
-    return t, torch.where(t < INF, 0, -1).to(torch.int32), idx
+    scene = _scene_from_packs(sph24, None, time is not None, solids)
+    t, fam, idx = intersect_all(scene, o, d, time, t_min, INF)
+    return t, fam.to(torch.int32), idx.to(torch.int32)

@@ -77,10 +77,15 @@ def check_backward_slots(sph24, moving: bool):
                          + (" with moving spheres" if moving else ""))
 
 
+# The ROADMAP Queue A item of the quad and box backwards (and the
+# lights'): diff_step's branches, adjoint.cuh's, and the train kernels
+# and chain_bwd on the solid families.
+SOLIDS_BACKWARD_ITEM = "#9.7"
+
 # The families outside the sphere subset, by flag: the ROADMAP Queue A
 # item that ports each.
-_NOT_PORTED = (("has_quads", "quads", "#9.2"),
-               ("has_boxes", "boxes", "#9.3"),
+_NOT_PORTED = (("has_quads", "quads", SOLIDS_BACKWARD_ITEM),
+               ("has_boxes", "boxes", SOLIDS_BACKWARD_ITEM),
                ("n_media", "constant media", "#9.4"),
                ("has_perlin", "perlin textures", "#9.5"),
                ("has_images", "image textures", "#9.5"),
@@ -244,10 +249,37 @@ def camera_ray_rows(cam, pxr, pyr, draws):
 # ---------------------------------------------------------------------------
 
 
+def backward_scope_gap(scene, rr_depth: int = 0):
+    """The scope of the train kernels and chain_bwd: None when they cover
+    the scene and option, otherwise (what is outside, the ROADMAP Queue
+    A item that ports it). Narrower than the forward kernels'
+    (mk.scope_gap, checked first): the quads, boxes and lights those
+    render have no backward here yet, so such scenes differentiate
+    through trace_batch's checkpointed scan (render_image_diff's
+    route)."""
+    gap = mk.scope_gap(scene, rr_depth)
+    if gap is not None:
+        return gap
+    outside = ((scene.has_quads, "quads"), (scene.has_boxes, "boxes"),
+               (scene.has_emissive, "emissive materials"))
+    return next(((what, SOLIDS_BACKWARD_ITEM) for flag, what in outside
+                 if flag), None)
+
+
+def check_backward_scope(where: str, scene, rr_depth: int = 0):
+    """Raise NotImplementedError naming the ROADMAP item for a scene
+    outside backward_scope_gap's scope."""
+    gap = backward_scope_gap(scene, rr_depth)
+    if gap is not None:
+        raise NotImplementedError(
+            f"{where}: {gap[0]} is outside the train kernels' and "
+            f"chain_bwd's scope (ROADMAP Queue A {gap[1]})")
+
+
 def supports_backward(scene) -> bool:
-    """The chain backward's scope: the tile kernel's (mk.scope_gap), which
-    already leaves out the constant media rrt_tpu's excludes."""
-    return mk.scope_gap(scene) is None
+    """Whether the chain backward covers the scene (backward_scope_gap),
+    which also leaves out the constant media rrt_tpu's excludes."""
+    return backward_scope_gap(scene) is None
 
 
 def count_mismatches(wrapper, mismatches):

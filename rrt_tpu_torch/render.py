@@ -19,7 +19,9 @@ with differentiable=True, whose passes run `trace_batch_fused`: a few
 bounce chains (ops/megakernel_vjp.BounceChain: forward
 ops/megakernel.bounce_steps, backward the chain_bwd kernel) with
 differentiable lane compaction between them. `trace_batch`'s
-checkpointed scan is the route for what the chain does not cover.
+checkpointed scan is the CPU's route for what the chain does not cover;
+on a CUDA device such a scene raises, naming the ROADMAP item that
+ports its backward.
 `_bounce` is one bounce of the plain physics (intersect, shade,
 scatter), shared by the plain versions, the batch driver and the tests.
 
@@ -38,8 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import accel, rng
 from .camera import generate_rays
-from .geometry import (FAM_NONE, FAM_SPHERE, INF, Hit, intersect_spheres,
-                       make_hit)
+from .geometry import INF, Hit, intersect_all, make_hit
 from .materials import Scatter, scatter
 from .ops import megakernel as ops_mega
 from .ops import megakernel_train as ops_train
@@ -84,7 +85,7 @@ class Bounce:
     """One bounce of a ray batch, with the decisions a replay needs."""
 
     t: torch.Tensor  # (N,) winner t; INF on a miss
-    win: torch.Tensor  # (N,) int64 winning sphere slot (0 on a miss)
+    win: torch.Tensor  # (N,) int64 winning slot of its family (0 on a miss)
     hit: Hit
     scatter: Scatter
     hit_mask: torch.Tensor  # (N,) bool
@@ -105,17 +106,16 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
     packed: pack_scene's dict on the rays' device, to intersect through
     ops.megakernel.intersect_only (the kernel on a CUDA device, its plain
     version on the CPU), as the batch driver does; None intersects
-    through geometry.intersect_spheres, as the kernels' plain versions
-    do, which must launch no kernel."""
+    through geometry.intersect_all, as the kernels' plain versions and
+    the differentiable scan do, which must launch no kernel."""
     ops_mega.check_scope(scene)
     if packed is None:
-        t, idx = intersect_spheres(scene, o, d, time, t_min, INF)
-        fam = torch.where(t < INF, FAM_SPHERE, FAM_NONE)
+        t, fam, idx = intersect_all(scene, o, d, time, t_min, INF)
     else:
         t, fam, idx = ops_mega.intersect_only(
             o.contiguous(), d.contiguous(), packed["sph24"], t_min=t_min,
             time=time.contiguous() if scene.has_moving else None,
-            bvh=packed["bvh"])
+            bvh=packed["bvh"], solids=packed["solids"])
         idx = idx.long()
     hit_mask = (t < INF) & alive
     miss_mask = alive & ~hit_mask
@@ -123,6 +123,8 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
     hit = make_hit(scene, o, d, time, t, fam, idx)
     sc = scatter(scene, d, hit, keys, bounce)
     contribution = background_color(scene, d) * miss_mask
+    if scene.has_emissive:  # a light's emission (rrt_tpu/render.py:153)
+        contribution = contribution + sc.emitted * hit_mask
 
     # The reference kills rays that hit at depth >= max_depth *before*
     # scattering (src/lib.rs:58-60); misses at that depth still see the
@@ -187,7 +189,7 @@ def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
         sample_lo=sample_lo, width=cfg.width, height=cfg.height,
         spp=cfg.spp if n_samples is None else n_samples,
         max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving,
-        bvh=bvh)
+        bvh=bvh, solids=ops_mega.pack_solids(scene, device))
     return rad, traced.sum()
 
 
@@ -211,7 +213,7 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
     differentiable path, whose chains split any depth (_fused_schedule).
     The train backward keeps one record a bounce, at most MAX_RECORDS a
     path."""
-    gap = ops_mega.scope_gap(scene, cfg.rr_depth)
+    gap = ops_vjp.backward_scope_gap(scene, cfg.rr_depth)
     if gap is not None:
         return (f"{gap[0]} is outside the train kernels' scope (ROADMAP "
                 f"Queue A {gap[1]})")
@@ -224,11 +226,22 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
 def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
     """Raise for a scene outside the train kernels' scope (a depth past
     their records raises ValueError in the kernels' wrappers)."""
-    gap = ops_mega.scope_gap(scene, cfg.rr_depth)
+    gap = ops_vjp.backward_scope_gap(scene, cfg.rr_depth)
     if gap is not None:
         raise NotImplementedError(
             f"{where}: {gap[0]} is outside the train kernels' scope "
             f"(ROADMAP Queue A {gap[1]})")
+
+
+def _check_card_scope(where: str, scene: SceneArrays, rr_depth: int,
+                      device):
+    """On a CUDA device a differentiable render runs the train kernels or
+    the bounce chain, never the checkpointed scan (the CPU's route for
+    the scenes outside their scope): a scene outside their scope raises
+    there, naming the ROADMAP item that ports its backward
+    (ops.megakernel_vjp.backward_scope_gap)."""
+    if torch.device(device).type == "cuda":
+        ops_vjp.check_backward_scope(where, scene, rr_depth)
 
 
 _logger = logging.getLogger("rrt_tpu_torch.render")
@@ -280,8 +293,10 @@ def render_image_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     """Differentiable full-image render, through the train kernels when
     they cover the scene (trace_tiles_diff), otherwise through
     render_image(differentiable=True) after one log line naming the
-    reason, as rrt_tpu routes. Returns (image (H,W,3) mean radiance,
-    n_traced)."""
+    reason, as rrt_tpu routes; on a CUDA device a scene outside the
+    kernels' backward scope raises instead (_check_card_scope). Returns
+    (image (H,W,3) mean radiance, n_traced)."""
+    _check_card_scope("render_image_diff", scene, cfg.rr_depth, device)
     reason = diff_fallback_reason(scene, cfg)
     if reason is not None:
         _warn_diff_fallback("render_image_diff", reason)
@@ -297,15 +312,17 @@ def render_image_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
 
 
 def pack_scene(scene: SceneArrays, device, shutter=None):
-    """The intersect kernel's packs on `device`: the sphere pack and its
-    accel.BvhPack, whose boxes cover the moving spheres over `shutter`
-    (time0, time1), the interval of the rays' times (required when the
-    scene moves). Built once a render and passed to every bounce's
-    intersect_only; a pack of changed spheres needs a new one. Only the
-    sphere family is ported (quads and media: ROADMAP Queue A #9.2 and
-    #9.4)."""
+    """The intersect and bounce-steps kernels' packs on `device`: the
+    sphere pack, its accel.BvhPack, whose boxes cover the moving spheres
+    over `shutter` (time0, time1), the interval of the rays' times
+    (required when the scene moves), and the quad and box families'
+    ops.megakernel.SolidPacks (None for a scene of spheres alone without
+    a light). Built once a render and passed to every bounce's
+    intersect_only; a pack of changed spheres needs a new one. The media
+    family waits for ROADMAP Queue A #9.4."""
     sph24 = ops_mega.pack_spheres_full(scene).to(device)
-    return {"sph24": sph24, "bvh": accel.pack_bvh(sph24, shutter)}
+    return {"sph24": sph24, "bvh": accel.pack_bvh(sph24, shutter),
+            "solids": ops_mega.pack_solids(scene, device)}
 
 
 def chain_bvh(sph24, time, moving: bool):
@@ -399,7 +416,7 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     (2,N) sample key words (rng.sample_keys). The kernels
     take any N (no tile alignment). Returns (radiance (3,N) in the rays'
     order, n_traced () int64: exact, from the traced row)."""
-    ops_mega.check_scope(scene, rr_depth)
+    ops_vjp.check_backward_scope("trace_batch_fused", scene, rr_depth)
     if schedule is None:
         schedule = _fused_schedule(max_depth)
     n, dev = o.shape[1], o.device
@@ -446,10 +463,15 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
                       bounces is kept and the bounce is recomputed in
                       the backward (rrt_tpu's lax.scan of
                       jax.checkpoint); it intersects through
-                      geometry.intersect_spheres, as rrt_tpu's scan does
+                      geometry.intersect_all, as rrt_tpu's scan does
                       (`packed` is not used): the kernel's t carries no
-                      gradient. With fused_vjp, packed's BVH, when
-                      given, goes to trace_batch_fused.
+                      gradient. It is the route of the scenes outside
+                      the chain's scope (ops.megakernel_vjp.
+                      backward_scope_gap: quads, boxes, lights), for
+                      tensors on the CPU only: on a CUDA device it
+                      raises (_check_card_scope). With fused_vjp,
+                      packed's BVH, when given, goes to
+                      trace_batch_fused.
 
     Returns (radiance (3,N), n_traced () int64: exact, where rrt_tpu
     sums it in f32)."""
@@ -459,6 +481,12 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
                                  bvh=None if packed is None else packed["bvh"])
     ops_mega.check_scope(scene, rr_depth)
     if differentiable:
+        if o.is_cuda:
+            _check_card_scope("trace_batch", scene, rr_depth, o.device)
+            raise ValueError("trace_batch: on a CUDA device the "
+                             "differentiable batch runs the bounce chain "
+                             "(fused_vjp=True); the checkpointed scan is "
+                             "the CPU's route")
         packed = None
     elif packed is None:
         packed = pack_scene(scene, o.device, (time.min(), time.max())
@@ -490,7 +518,8 @@ def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     without it each bounce chain builds its own BVH).
     differentiable: each pass through trace_batch's bounce chain
     (trace_batch_fused, which walks packed's BVH) when
-    ops_vjp.supports_backward(scene), else its checkpointed scan;
+    ops_vjp.supports_backward(scene), else its checkpointed scan (on the
+    CPU only: render_image raises for such a scene on a CUDA device);
     rrt_tpu also requires a TPU and tile-aligned batches there, the port
     neither. Returns (radiance sums (P,3), n_traced)."""
     p_count = px.shape[0]
@@ -540,6 +569,9 @@ def render_image(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     (H,W,3) mean radiance over the rendered samples, n_traced). The queue
     and tile drivers render the same image faster."""
     ops_mega.check_scope(scene, cfg.rr_depth)
+    if differentiable:
+        _check_card_scope("render_image(differentiable=True)", scene,
+                          cfg.rr_depth, device)
     if cfg.spp % cfg.samples_per_pass != 0:
         raise ValueError("spp must be a multiple of samples_per_pass")
     device = _check_device(device)
@@ -597,7 +629,7 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     q = min(queue_size or cfg.queue_size, total)
     k_steps = max(1, cfg.bounces_per_refill)
     packed = pack_scene(scene, device, _shutter(camera))
-    sph24, bvh = packed["sph24"], packed["bvh"]
+    sph24, bvh, solids = packed["sph24"], packed["bvh"], packed["solids"]
     bg8 = ops_mega.pack_bg(scene).to(device)
     seed_words = rng.key_words(seed)
     pixel_gid = py * cfg.width + px
@@ -632,7 +664,7 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
             next_s += n_issue
         ops_mega.bounce_steps(st, keys, sph24, bg8, k_steps=k_steps,
                               max_depth=cfg.max_depth, t_min=cfg.t_min,
-                              moving=scene.has_moving, bvh=bvh)
+                              moving=scene.has_moving, bvh=bvh, solids=solids)
         trace_queue.outer_steps += 1
         n_alive = int((st[ops_mega.ROW_ALIVE] > 0.5).sum())
     acc.index_add_(1, pix, st[10:13])  # the final flush

@@ -7,14 +7,17 @@ are tables indexed by integer ids. The layout, padding and slot order
 are the same as `rrt_tpu.scene`, so the port's arrays equal the JAX
 package's element for element.
 
-This port builds the sphere family (stationary and moving spheres) with
-solid and checker textures, the lambertian, metal and dielectric
+This port builds the sphere family (stationary and moving spheres), the
+quad family and the box family (rrt_tpu's slab-test box, with its
+rotation about the world Y axis baked into cos/sin), with solid and
+checker textures, the lambertian, metal, dielectric and diffuse_light
 materials and either background.
 The other builders raise NotImplementedError naming the ROADMAP item
 that ports them; their families stay at the empty padded layout.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -134,6 +137,13 @@ def _pad_to(n: int, lane: int = _LANE) -> int:
     return max(lane, ((n + lane - 1) // lane) * lane)
 
 
+def _rot_y(deg: float) -> np.ndarray:
+    r = math.radians(deg)
+    c, s = math.cos(r), math.sin(r)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]],
+                    dtype=np.float32)
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to rrt_tpu_torch yet (ROADMAP Queue A "
@@ -148,6 +158,8 @@ class SceneBuilder:
 
     def __init__(self):
         self._spheres = []  # (c0, c1, t0, t1, radius, mat_id)
+        self._quads = []  # (q, u, v, mat_id)
+        self._boxes = []  # (center, half, cos, sin, mat_id)
         self._materials = []  # (type, tex_id, fuzz, ior)
         self._textures = []  # (type, c1, c2, scale, image_idx)
         self.bg_mode = BG_SKY
@@ -197,7 +209,7 @@ class SceneBuilder:
                                   ior=ior)
 
     def diffuse_light(self, emit) -> int:
-        _not_ported("the diffuse_light material", "#9.2")
+        return self._add_material(MAT_DIFFUSE_LIGHT, self._as_tex(emit))
 
     def isotropic(self, albedo) -> int:
         _not_ported("the isotropic material", "#9.4")
@@ -217,11 +229,37 @@ class SceneBuilder:
 
     def quad(self, q, u, v, mat_id: int, rotate_y_deg: float = 0.0,
              translate=(0.0, 0.0, 0.0)):
-        _not_ported("the quad family", "#9.2")
+        """Parallelogram with corner q and edges u, v; the instance
+        transform is baked into the vertices, rotation about the world Y
+        axis first, then translation (the books' translate(rotate_y(...)))."""
+        q = np.asarray(q, np.float32)
+        u = np.asarray(u, np.float32)
+        v = np.asarray(v, np.float32)
+        if rotate_y_deg:
+            r = _rot_y(rotate_y_deg)
+            q, u, v = r @ q, r @ u, r @ v
+        q = q + np.asarray(translate, np.float32)
+        self._quads.append((q, u, v, mat_id))
 
     def box(self, corner0, corner1, mat_id: int, rotate_y_deg: float = 0.0,
             translate=(0.0, 0.0, 0.0)):
-        _not_ported("the box family", "#9.3")
+        """Axis-aligned box [corner0, corner1], rotated about world Y and
+        then translated, into the box family (one slab test). rrt_tpu
+        builds a box whose material carries an image texture as the
+        books' 6 quads instead; image textures are not ported."""
+        if self._textures[self._materials[mat_id][1]][0] == TEX_IMAGE:
+            _not_ported("a box with an image texture", "#9.5")
+        a = np.minimum(np.asarray(corner0, np.float32),
+                       np.asarray(corner1, np.float32))
+        b = np.maximum(np.asarray(corner0, np.float32),
+                       np.asarray(corner1, np.float32))
+        r = math.radians(rotate_y_deg)
+        c, s = np.float32(math.cos(r)), np.float32(math.sin(r))
+        center = _rot_y(rotate_y_deg) @ (0.5 * (a + b)) \
+            + np.asarray(translate, np.float32)
+        self._boxes.append((center.astype(np.float32),
+                            (0.5 * (b - a)).astype(np.float32), c, s,
+                            mat_id))
 
     def medium_sphere(self, center, radius: float, density: float,
                       albedo) -> None:
@@ -266,9 +304,30 @@ class SceneBuilder:
             sphere_radius[i] = r
             sphere_mat[i] = m
             sphere_valid[i] = True
-        # Empty quad / box / medium families at rrt_tpu's padded layout.
-        nq = _pad_to(0)
-        nb = _pad_to(0)
+        nq = _pad_to(len(self._quads))
+        quad_q = np.zeros((nq, 3), f32)
+        quad_u = np.tile(np.array([1, 0, 0], f32), (nq, 1))
+        quad_v = np.tile(np.array([0, 1, 0], f32), (nq, 1))
+        quad_mat = np.zeros((nq,), i32)
+        quad_valid = np.zeros((nq,), bool)
+        for i, (q, u, v, m) in enumerate(self._quads):
+            quad_q[i], quad_u[i], quad_v[i] = q, u, v
+            quad_mat[i] = m
+            quad_valid[i] = True
+
+        nb = _pad_to(len(self._boxes))
+        box_center = np.zeros((nb, 3), f32)
+        box_half = np.zeros((nb, 3), f32)
+        box_cos = np.ones((nb,), f32)
+        box_sin = np.zeros((nb,), f32)
+        box_mat = np.zeros((nb,), i32)
+        box_valid = np.zeros((nb,), bool)
+        for i, (c, h, cth, sth, m) in enumerate(self._boxes):
+            box_center[i], box_half[i] = c, h
+            box_cos[i], box_sin[i] = cth, sth
+            box_mat[i] = m
+            box_valid[i] = True
+        # The medium family stays empty, at rrt_tpu's padded layout.
         nd = _pad_to(0, lane=8)
 
         if not self._materials:
@@ -293,15 +352,11 @@ class SceneBuilder:
             sphere_t0=t(sphere_t0), sphere_inv_dt=t(sphere_inv_dt),
             sphere_radius=t(sphere_radius), sphere_mat=t(sphere_mat),
             sphere_valid=t(sphere_valid),
-            quad_q=torch.zeros((nq, 3)),
-            quad_u=torch.tensor([1.0, 0.0, 0.0]).repeat(nq, 1),
-            quad_v=torch.tensor([0.0, 1.0, 0.0]).repeat(nq, 1),
-            quad_mat=torch.zeros((nq,), dtype=torch.int32),
-            quad_valid=torch.zeros((nq,), dtype=torch.bool),
-            box_center=torch.zeros((nb, 3)), box_half=torch.zeros((nb, 3)),
-            box_cos=torch.ones((nb,)), box_sin=torch.zeros((nb,)),
-            box_mat=torch.zeros((nb,), dtype=torch.int32),
-            box_valid=torch.zeros((nb,), dtype=torch.bool),
+            quad_q=t(quad_q), quad_u=t(quad_u), quad_v=t(quad_v),
+            quad_mat=t(quad_mat), quad_valid=t(quad_valid),
+            box_center=t(box_center), box_half=t(box_half),
+            box_cos=t(box_cos), box_sin=t(box_sin), box_mat=t(box_mat),
+            box_valid=t(box_valid),
             med_btype=torch.zeros((nd,), dtype=torch.int32),
             med_center=torch.zeros((nd, 3)), med_radius=torch.ones((nd,)),
             med_half=torch.ones((nd, 3)),
@@ -318,9 +373,14 @@ class SceneBuilder:
             bg_mode=torch.tensor(self.bg_mode, dtype=torch.int32),
             bg_bottom=torch.tensor(self.bg_bottom, dtype=torch.float32),
             bg_top=torch.tensor(self.bg_top, dtype=torch.float32),
+            has_quads=bool(self._quads),
+            has_boxes=bool(self._boxes),
+            has_rot_boxes=any(abs(float(b[3])) > 0.0 for b in self._boxes),
             has_perlin=bool((tex_type == TEX_PERLIN).any()),
             has_emissive=bool((mat_type == MAT_DIFFUSE_LIGHT).any()),
             has_moving=bool(np.abs(sphere_dc).max() > 0.0)
             if len(self._spheres) else False,
             n_spheres_active=len(self._spheres),
+            n_quads_active=len(self._quads),
+            n_boxes_active=len(self._boxes),
         )

@@ -2,10 +2,12 @@
 
 from .book1 import (book2chap2_scene, chap11_scene, chap12_scene,
                     diffuse_scene)
+from .book2 import cornell_box_scene
 
 SCENES = {
     "diffuse": diffuse_scene,
     "chap11": chap11_scene,
     "chap12": chap12_scene,
     "book2chap2": book2chap2_scene,
+    "cornell": cornell_box_scene,
 }

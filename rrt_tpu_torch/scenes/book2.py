@@ -1,0 +1,76 @@
+"""RTTNW (book 2) scenes, with rrt_tpu.scenes.book2's geometry and
+constants. Only the Cornell box is ported; simple_light waits for the
+perlin texture (ROADMAP Queue A #9.5), cornell_smoke for the constant
+media (#9.4), earth and rttnw_final for the image texture (#9.5).
+mixed_scene is test data for the solid families beside spheres, not a
+book scene. Returns (SceneArrays, Camera)."""
+
+from ..camera import Camera
+from ..scene import SceneBuilder
+
+
+def _cornell_walls(b: SceneBuilder, light_emit, light_q, light_u, light_v):
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    light = b.diffuse_light(light_emit)
+    b.quad((555.0, 0.0, 0.0), (0.0, 555.0, 0.0), (0.0, 0.0, 555.0), green)
+    b.quad((0.0, 0.0, 0.0), (0.0, 555.0, 0.0), (0.0, 0.0, 555.0), red)
+    b.quad(light_q, light_u, light_v, light)
+    b.quad((0.0, 0.0, 0.0), (555.0, 0.0, 0.0), (0.0, 0.0, 555.0), white)
+    b.quad((555.0, 555.0, 555.0), (-555.0, 0.0, 0.0), (0.0, 0.0, -555.0),
+           white)
+    b.quad((0.0, 0.0, 555.0), (555.0, 0.0, 0.0), (0.0, 555.0, 0.0), white)
+    return white
+
+
+def _cornell_camera(nx: int, ny: int) -> Camera:
+    return Camera.create(look_from=(278.0, 278.0, -800.0),
+                         look_at=(278.0, 278.0, 0.0), fov_deg=40.0,
+                         aspect=nx / ny)
+
+
+def cornell_box_scene(nx: int, ny: int):
+    """The standard Cornell box with two rotate_y-instanced boxes (RTTNW
+    ch. 8.2), in the box family with the rotation baked into cos/sin:
+    six quads (five walls and the light), two boxes, no sphere."""
+    b = SceneBuilder()
+    b.solid_background((0.0, 0.0, 0.0))
+    white = _cornell_walls(b, (15.0, 15.0, 15.0), (213.0, 554.0, 227.0),
+                           (130.0, 0.0, 0.0), (0.0, 0.0, 105.0))
+    b.box((0.0, 0.0, 0.0), (165.0, 330.0, 165.0), white, rotate_y_deg=15.0,
+          translate=(265.0, 0.0, 295.0))
+    b.box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0), white, rotate_y_deg=-18.0,
+          translate=(130.0, 0.0, 65.0))
+    return b.build(), _cornell_camera(nx, ny)
+
+
+def mixed_scene(w, h, builder=SceneBuilder, camera=Camera):
+    """Spheres, quads, rotated boxes and a quad light together under the
+    sky: test data for the kernels' solid-family variants with a BVH to
+    seed (a ground sphere the walk always tests, 24 small spheres in its
+    tree, a checker texture, metal, glass). Not a scene of the book and
+    not in SCENES. The tests also pass rrt_tpu's builder and camera
+    classes, so both packages build it with the same calls."""
+    b = builder()
+    ground = b.lambertian(b.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9),
+                                    scale=2.0))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, ground)
+    mats = (b.lambertian((0.7, 0.3, 0.3)), b.metal((0.8, 0.8, 0.6), fuzz=0.2),
+            b.dielectric(1.5))
+    for i in range(24):
+        b.sphere((1.6 * (i % 6) - 4.0, 0.35, 1.6 * (i // 6) - 2.4), 0.35,
+                 mats[i % 3])
+    white = b.lambertian((0.73, 0.73, 0.73))
+    b.quad((-6.0, 0.0, -4.5), (12.0, 0.0, 0.0), (0.0, 5.0, 0.0), white)
+    b.quad((-5.5, 0.2, 3.0), (0.0, 1.5, 0.0), (1.2, 0.0, 0.5),
+           b.metal((0.9, 0.9, 0.9), fuzz=0.0), rotate_y_deg=10.0)
+    b.box((0.0, 0.0, 0.0), (1.0, 2.0, 1.0), white, rotate_y_deg=30.0,
+          translate=(2.7, 0.05, -3.0))
+    b.box((0.0, 0.0, 0.0), (0.8, 0.8, 0.8), mats[0], rotate_y_deg=-20.0,
+          translate=(-3.3, 0.05, 1.1))
+    b.quad((-1.0, 4.0, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0),
+           b.diffuse_light((6.0, 6.0, 6.0)))
+    cam = camera.create(look_from=(0.0, 3.0, 9.0), look_at=(0.0, 0.5, 0.0),
+                        fov_deg=45.0, aspect=w / h)
+    return b.build(), cam

@@ -28,6 +28,7 @@ from rrt_tpu_torch.ops import megakernel as tmk
 from rrt_tpu_torch.ops import megakernel_train as tmkt
 from rrt_tpu_torch.ops import megakernel_vjp as tmkv
 from rrt_tpu_torch.scene import SceneBuilder
+from rrt_tpu_torch.scenes import book2
 
 pytestmark = pytest.mark.cuda
 
@@ -883,3 +884,190 @@ def test_probe_kernels_match_plain_versions(device):
     for mode in probe_rng.MODES:
         assert torch.equal(probe_rng.mix(x, mode=mode, iters=8),
                            probe_rng.mix_reference(x, mode=mode, iters=8))
+
+
+# ---------------------------------------------------------------------------
+# The solid families: quads, boxes and lights (the Cornell box)
+# ---------------------------------------------------------------------------
+
+
+def _solid_case(device, name, w=64, h=32, spp=4, depth=8):
+    """(packs (sph, cam, bg), the sphere BVH, SolidPacks, render_tiles
+    keywords) of cornell or the mixed scene on the device."""
+    from rrt_tpu_torch import render
+    scene, cam = (book2.mixed_scene(w, h) if name == "mixed"
+                  else tscenes.SCENES[name](w, h))
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    solids = tmk.pack_solids(scene, device)
+    return packs, bvh, solids, _kw(width=w, height=h, spp=spp,
+                                   max_depth=depth, solids=solids)
+
+
+def _solid_lanes(device, name, w=64, h=32):
+    """_lane_state's lanes of cornell or the mixed scene, with the BVH
+    and SolidPacks."""
+    from rrt_tpu_torch import render, rng
+    scene, cam = (book2.mixed_scene(w, h) if name == "mixed"
+                  else tscenes.SCENES[name](w, h))
+    n = w * h
+    ids = torch.arange(n, device=device)
+    keys = rng.sample_keys(rng.key_words(0), ids, 0)
+    o, d, tm = render.generate_rays(cam.to(device), ids % w, ids // w, w, h,
+                                    keys)
+    one, zero = torch.ones((n,), device=device), torch.zeros((n,),
+                                                             device=device)
+    st = tmk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                        one, zero)
+    packed = render.pack_scene(scene, device, render._shutter(cam))
+    return (st, rng.u32_bits(keys), packed["sph24"],
+            tmk.pack_bg(scene).to(device), packed["bvh"], packed["solids"])
+
+
+@pytest.mark.parametrize("name", ["cornell", "mixed"])
+def test_solid_tile_render_matches_plain_version(device, name):
+    """tile_render's solid-family variant against its plain version, the
+    tolerance of tests/test_torch_slice.py."""
+    packs, bvh, solids, kw = _solid_case(device, name)
+    before = tmk.render_tiles.launches
+    out = tmk.render_tiles(*packs, bvh=bvh, **kw)
+    torch.cuda.synchronize(device)
+    assert tmk.render_tiles.launches == before + 1
+    _assert_close(out, tmk.render_tiles_reference(*packs, **kw), 4)
+    assert out[0].max() > 0
+
+
+@pytest.mark.parametrize("name", ["cornell", "mixed"])
+def test_solid_bounce_steps_matches_plain_version(device, name):
+    """bounce_steps' solid-family variant against its plain version, the
+    rule of test_bounce_steps_matches_plain_version."""
+    st, keys, sph, bg, bvh, solids = _solid_lanes(device, name)
+    kw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False,
+              solids=solids)
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
+    ref = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
+    agree = (out[14] > 0.5) == (ref[14] > 0.5)
+    assert agree.float().mean() >= 0.999
+    assert torch.equal(out[15][agree], ref[15][agree])
+    assert torch.equal(out[13][agree], ref[13][agree])
+    close = ((out[7:13] - ref[7:13]).abs() < 1e-3).all(dim=0)[agree]
+    assert close.float().mean() >= 0.995
+
+
+@pytest.mark.parametrize("name", ["cornell", "mixed"])
+def test_solid_intersect_only_matches_plain_version(device, name):
+    """intersect_only's solid-family variant: fam and idx equal on >=
+    99.9% of camera rays and rays after 2 bounces, t within 1e-5
+    relative where they agree; every family a miss, a quad or a box (and
+    on the mixed scene a sphere) appears."""
+    st, keys, sph, bg, bvh, solids = _solid_lanes(device, name)
+    fams = set()
+    for bounces in (0, 2):
+        if bounces:
+            tmk.bounce_steps(st, keys, sph, bg, k_steps=bounces, max_depth=50,
+                             t_min=1e-3, moving=False, bvh=bvh, solids=solids)
+        o, d = st[0:3], st[3:6]
+        t, fam, idx = tmk.intersect_only(o, d, sph, t_min=1e-3, bvh=bvh,
+                                         solids=solids)
+        rt, rfam, ridx = tmk.intersect_only_reference(o, d, sph, t_min=1e-3,
+                                                      solids=solids)
+        same = (fam == rfam) & (idx == ridx)
+        assert same.float().mean() >= 0.999
+        hit = same & (fam >= 0)
+        torch.testing.assert_close(t[hit], rt[hit], rtol=1e-5, atol=0)
+        fams |= set(fam.tolist())
+    assert fams >= ({1, 3, 0} if name == "mixed" else {1, 3})
+
+
+def test_seeded_walk_equals_seeded_scan(device):
+    """On the mixed scene the BVH walk seeded by the quads' and boxes' t
+    gives the seeded scan's (accel.pack_scan: every slot tested in slot
+    order) outputs bit for bit, in all three kernels, at depth 50."""
+    packs, bvh, solids, kw = _solid_case(device, "mixed", 96, 64, 4, 50)
+    scan = accel.pack_scan(packs[0])
+    for a, b in zip(tmk.render_tiles(*packs, bvh=bvh, **kw),
+                    tmk.render_tiles(*packs, bvh=scan, **kw)):
+        assert torch.equal(a, b)
+    st, keys, sph, bg, bvh, solids = _solid_lanes(device, "mixed", 96, 64)
+    kw = dict(k_steps=1, max_depth=50, t_min=1e-3, moving=False,
+              solids=solids)
+    for _ in range(4):
+        for a, b in zip(
+                tmk.intersect_only(st[0:3], st[3:6], sph, t_min=1e-3,
+                                   bvh=bvh, solids=solids),
+                tmk.intersect_only(st[0:3], st[3:6], sph, t_min=1e-3,
+                                   bvh=accel.pack_scan(sph), solids=solids)):
+            assert torch.equal(a, b)
+        walked = tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
+        assert torch.equal(walked, tmk.bounce_steps(
+            st.clone(), keys, sph, bg, bvh=accel.pack_scan(sph), **kw))
+        st = walked
+
+
+def test_solid_variants_without_solids_equal_the_sphere_variants(device):
+    """The solid-family variants with no active quad or box (the seed
+    kInf) give the sphere variants' outputs on chap12 bit for bit."""
+    packs = _packs(device)
+    kw = _kw(max_depth=50)
+    cornell, _ = tscenes.cornell_box_scene(8, 8)
+    full = tmk.pack_solids(cornell, device)
+    empty = tmk.SolidPacks(full.quad24, full.box24, 0, 0)
+    a = _tiles(packs, **kw)
+    b = _tiles(packs, solids=empty, **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    st, keys, sph, bg = _lane_state(device)
+    kwq = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False,
+               bvh=_lane_tree(sph))
+    assert torch.equal(tmk.bounce_steps(st.clone(), keys, sph, bg, **kwq),
+                       tmk.bounce_steps(st.clone(), keys, sph, bg,
+                                        solids=empty, **kwq))
+
+
+def test_cli_renders_cornell_through_the_kernels(device, tmp_path):
+    """--scene cornell: auto picks the tile driver; the queue and batch
+    drivers launch their kernels."""
+    for driver, kernel in (("auto", "render_tiles"),
+                           ("queue", "bounce_steps"),
+                           ("batch", "intersect_only")):
+        wrapper = getattr(tmk, kernel)
+        before = wrapper.launches
+        assert cli.main(["--scene", "cornell", "-r", "32x32", "-s", "4",
+                         "--max-depth", "8", "--driver", driver,
+                         "--device", str(device),
+                         "-o", str(tmp_path / f"{driver}.png"),
+                         "--quiet"]) == 0
+        assert wrapper.launches > before
+
+
+def test_solid_cap_raises_on_the_card(device):
+    packs, bvh, solids, kw = _solid_case(device, "cornell", 8, 8, 1, 2)
+    over = dataclasses.replace(solids, n_quads=tmk.SOLID_CAP + 1)
+    with pytest.raises((NotImplementedError, ValueError)):
+        tmk.render_tiles(*packs, bvh=bvh, **dict(kw, solids=over))
+
+
+def test_cornell_gradient_raises_on_the_card(device):
+    """Cornell's gradient has no kernel on the card yet (ROADMAP Queue A
+    #9.7): every differentiable entry point raises naming it, and no
+    train or chain kernel launches; the checkpointed scan is the CPU's
+    route."""
+    from rrt_tpu_torch import diff, render
+    scene, cam = tscenes.cornell_box_scene(8, 8)
+    cfg = render.RenderConfig(width=8, height=8, spp=2, max_depth=4,
+                              samples_per_pass=2)
+    target = torch.zeros((8, 8, 3), device=device)
+    counters = (tmkt.render_tiles_train, tmkt.tiles_adjoint,
+                tmkv.chain_adjoint)
+    before = [c.launches for c in counters]
+    for call in (lambda: diff.make_train_step(cfg, device=device)(
+                     scene, cam, target, 0),
+                 lambda: diff.make_train_step_chunked(cfg, device=device)(
+                     scene, cam, target, 0),
+                 lambda: render.render_image_diff(scene, cam, cfg, 0,
+                                                  device=device),
+                 lambda: render.render_image(scene, cam, cfg, 0,
+                                             differentiable=True,
+                                             device=device)):
+        with pytest.raises(NotImplementedError, match="#9.7"):
+            call()
+    assert [c.launches for c in counters] == before

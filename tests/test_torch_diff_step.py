@@ -155,7 +155,7 @@ def test_diff_step_has_gradient_power():
 
 
 def test_diff_step_other_families_raise():
-    with pytest.raises(NotImplementedError, match="#9.2"):
+    with pytest.raises(NotImplementedError, match="#9.7"):
         diff_step({}, moving=False, has_quads=True)
     with pytest.raises(NotImplementedError, match="#9.6"):
         diff_step({}, moving=False, rr_depth=2)

@@ -11,7 +11,11 @@ near an argmin tie or a dielectric threshold flips a whole path). Of
 these 128 rays, 1% is 1.3: rrt_tpu's own batch driver parts from the
 golden on 2 of the 128 book2chap2 rays (rays 61 and 89, measured), so
 at most 2 may part. book2chap2's golden moves each sphere to the ray's
-time as the port does."""
+time as the port does. cornell's golden builds the boxes as six quads
+each (rrt_tpu.scene.boxes_as_quads) and traces to depth 50, where the
+paths that reach the light run long; the box is dark, so only 3% of its
+rays carry radiance (4 of the 128, measured), and every ray must
+match (none parted)."""
 
 import jax
 import jax.numpy as jnp
@@ -26,9 +30,14 @@ from rrt_tpu_torch import render, rng
 from rrt_tpu_torch import scenes as tscenes
 
 W, H, MAX_DEPTH = 16, 8, 8
+# Per scene: the depth traced, the share of rays that must carry
+# radiance, and the rays that may part from the golden.
+DEPTH = {"cornell": 50}
+LIT = {"cornell": 0.02}
+PARTED = {"cornell": 0}
 
 
-@pytest.mark.parametrize("name", ["chap12", "book2chap2"])
+@pytest.mark.parametrize("name", ["chap12", "book2chap2", "cornell"])
 def test_batch_radiance_matches_golden(name):
     n = W * H
     ids = torch.arange(n)
@@ -41,20 +50,21 @@ def test_batch_radiance_matches_golden(name):
         rng.u32_bits(keys).numpy().view(np.uint32), np.asarray(j_keys))
     scene, cam = tscenes.SCENES[name](W, H)
     o, d, tm = render.generate_rays(cam, px, py, W, H, keys)
-    rad, _ = render.trace_batch(scene, o, d, tm, keys, MAX_DEPTH, 1e-3)
+    depth = DEPTH.get(name, MAX_DEPTH)
+    rad, _ = render.trace_batch(scene, o, d, tm, keys, depth, 1e-3)
     radiance = rad.T.numpy()
 
     j_scene, _ = jscenes.SCENES[name](W, H)
     gs = golden.GoldenScene(j_scene)
-    draws = golden.extract_draws(j_keys, j_scene.n_media, MAX_DEPTH)
+    draws = golden.extract_draws(j_keys, j_scene.n_media, depth)
     o_np, d_np = o.T.numpy(), d.T.numpy()
     expected = np.stack([
         golden.trace_ray(gs, o_np[i], d_np[i], float(tm[i]), i, draws,
-                         MAX_DEPTH) for i in range(n)])
+                         depth) for i in range(n)])
     if name == "book2chap2":
         assert float(tm.min()) < 0.2 and float(tm.max()) > 0.8
     close = np.all(np.abs(radiance - expected)
                    <= 2e-3 + 1e-2 * np.abs(expected), axis=-1)
-    assert (~close).sum() <= 2, (np.where(~close)[0],
-                                 np.abs(radiance - expected).max())
-    assert (expected.max(axis=-1) > 0).mean() > 0.9
+    assert (~close).sum() <= PARTED.get(name, 2), (
+        np.where(~close)[0], np.abs(radiance - expected).max())
+    assert (expected.max(axis=-1) > 0).mean() > LIT.get(name, 0.9)

@@ -93,14 +93,10 @@ def test_xoshiro_seed_zero_stream():
 @pytest.mark.parametrize("call", [
     lambda b: b.perlin(),
     lambda b: b.image(np.zeros((2, 2, 3))),
-    lambda b: b.diffuse_light((1, 1, 1)),
     lambda b: b.isotropic((1, 1, 1)),
-    lambda b: b.quad((0, 0, 0), (1, 0, 0), (0, 1, 0), 0),
-    lambda b: b.box((0, 0, 0), (1, 1, 1), 0),
     lambda b: b.medium_sphere((0, 0, 0), 1.0, 0.1, (1, 1, 1)),
     lambda b: b.medium_box((0, 0, 0), (1, 1, 1), 0.1, (1, 1, 1)),
-], ids=["perlin", "image", "diffuse_light", "isotropic", "quad", "box",
-        "medium_sphere", "medium_box"])
+], ids=["perlin", "image", "isotropic", "medium_sphere", "medium_box"])
 def test_unported_builders_name_their_roadmap_item(call):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A #9"):
         call(SceneBuilder())

@@ -376,8 +376,8 @@ def test_no_nan_gradients_on_masked_branches():
 def test_out_of_scope_scenes_raise():
     scene, cam = _chap12_small()
     cfg = render.RenderConfig(width=16, height=8, spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="#9.2"):
-        render.render_image_diff(dataclasses.replace(scene, has_quads=True),
+    with pytest.raises(NotImplementedError, match="#9.5"):
+        render.render_image_diff(dataclasses.replace(scene, has_perlin=True),
                                  cam, cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="#9.6"):
         render.render_image_diff(scene, cam, dataclasses.replace(
