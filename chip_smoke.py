@@ -73,12 +73,17 @@ forward kernels' solid-family variants), at bench.py's scene-phase size
   [K2] the main path: python -m rrt_tpu_torch.cli --scene cornell -r
        400x400 -s 32 on the tile driver (auto), then the queue and batch
        drivers through the CLI held against the tile image;
-  [K3] cornell's gradient on the card: make_train_step, its chunked
-       step, render_image_diff and render_image(differentiable=True) at
-       2 spp each raise NotImplementedError naming ROADMAP Queue A #9.7
-       (the quad, box and light backwards of the train kernels and
-       chain_bwd), and train_fwd, train_bwd and chain_bwd launch 0
-       times: the checkpointed scan is the CPU's route only.
+  [K3] cornell's gradient on the card at 400x400, depth 50, 8 spp: the
+       solid-family variants of train_fwd, train_bwd and chain_bwd
+       against their plain versions (train_fwd against tile_render bit
+       for bit, the winner codes, the gradients by gradcheck's rule,
+       chain_bwd on the three chains of one pass of
+       render_image(differentiable=True)'s first tile), finite
+       differences of an albedo and the light's emission, the same
+       checks on scenes.book2.mixed_scene (whose quad_q and box_center
+       gradients are not 0); then the main path: make_train_step (three
+       SGD steps; the loss falls), make_train_step_chunked and
+       render_image(differentiable=True), with no replay mismatch.
 
 [2] prints ptxas's registers and spills of every kernel; [7], [8] and
 [M3] print the train kernels' times beside the step's least time
@@ -238,10 +243,35 @@ PLAIN_CHUNK = 65536
 GRAPH_LAUNCHES = 20
 # [K1]-[K3]: the Cornell box (rrt_tpu/scenes/book2.py, RTTNW ch. 8.2,
 # BASELINE.json config #4's scene) at the size bench.py's scene phase
-# renders it (bench.py:427-440); [K3]'s train step (which raises) at 2
-# spp.
+# renders it (bench.py:427-440); [K3]'s train step at bench.py's
+# train_step_8spp sample count.
 CORNELL = dict(scene="cornell", width=400, height=400, spp=32, max_depth=50)
-CORNELL_TRAIN_SPP = 2
+CORNELL_TRAIN_SPP = 8
+# [K3]: the pixels each of whose samples the train kernels and the plain
+# version render alike (gradcheck.sample_agreement), on cornell at
+# 400x400 8 spp and on the mixed scene at 320x240 4 spp. On an H100 80GB
+# HBM3 at 700 W 0.99995 and 0.99885 agreed (0.99999 and 0.99971 of
+# paths); the gates allow many times their complements.
+CORNELL_MIN_AGREE = 0.98
+MIXED_MIN_AGREE = 0.95
+# [K3]'s mixed scene (scenes.book2.mixed_scene): the train kernels at
+# this size, chain_bwd on one camera ray a pixel, held on the quads',
+# boxes' and textures' fields (MIXED_FIELDS). Depth 8: its spheres rest
+# on the ground and beside the boxes, and the short hops between them
+# multiply derivatives chaotically; at depth 50 two float32 evaluations
+# of the same code (the kernels' device functions compiled for the CPU,
+# and the plain version) put box_center 20% and the camera 11% of their
+# largest apart on agreeing pixels, at depth 8 within 4.8e-3 on one
+# element, at depth 4 within 3.7e-3.
+MIXED_TRAIN = dict(width=320, height=240, spp=4, max_depth=8)
+MIXED_FIELDS = ("quad_q", "quad_u", "quad_v", "box_center", "box_half",
+                "tex_color1", "tex_color2", "bg_bottom", "bg_top")
+# The kernel's gradient of each of MIXED_FIELDS within this share of the
+# field's largest from the plain version's. On an H100 80GB HBM3 at 700 W
+# the worst reading was box_center's 4.74e-3 (box_half 4.21e-3, the
+# quads' below 3e-4): one box element, whose paths hop between the box
+# and a sphere beside it.
+MIXED_FIELD_GATE = 1e-2
 # FP32 operations of one quad test (bounce.cuh closest_solid): d.n and
 # o.n (5 each), the parallel test (3), t (2), alpha and beta (13 each:
 # two dot products, a multiply, an add and a subtract), the t window and
@@ -687,7 +717,7 @@ def finite_differences(device, card):
         return packs, mkt.render_tiles_train(*packs, **kw)
 
     packs, (rad, _, lengths, winners) = forward(scene)
-    d_sph, d_cam, d_bg, _ = mkt.tiles_adjoint(
+    d_sph, d_cam, d_bg, _, _ = mkt.tiles_adjoint(
         *packs, mix.expand_as(rad).contiguous(), lengths, winners, **kw)
     gp, _ = diff.field_grads(scene, cam, cfg, d_sph, d_cam, d_bg,
                              device=device)
@@ -1029,7 +1059,7 @@ def by_lanes(fn, *lane_args):
 
 
 def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
-                   device, card):
+                   device, card, solids=None, radiance_only=False):
     """[C1] chain_bwd against chain_adjoint_reference on one chain input.
     A lane agrees when the two forwards (bounce_steps and its plain
     version) end it with equal bounce and alive rows and rows 0-12
@@ -1053,13 +1083,18 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     row's largest on >= 99.5% of live lanes and equal to d_out on dead
     ones, rows 13-15 zero; the pack and background cotangents by
     rrt_tpu_torch.gradcheck's rule at the level of partition() fields;
-    no replay mismatch in either.
+    no replay mismatch in either. solids: the scene's SolidPacks (the
+    kernels' solid-family variants; the quad and box packs' cotangents
+    join the fields), or None. radiance_only: the output cotangent on
+    the pending radiance rows (10-12) alone, as a render's loss gives
+    the last chain of a path (no later chain reads its o, d or
+    throughput).
     Returns the kernel's forward output and the numbers of the kernels
     line."""
     from rrt_tpu_torch import diff, gradcheck
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
     kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3,
-              moving=scene.has_moving)
+              moving=scene.has_moving, solids=solids)
     out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     ref_out = torch.cat(by_lanes(
         lambda s, k: mk.bounce_steps_reference(s, k, sph, bg, **kw), st,
@@ -1071,7 +1106,11 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     frac = agree.float().mean().item()
     gen = torch.Generator().manual_seed(k_steps)
     d_out = (torch.randn(tuple(st.shape), generator=gen).to(device)
-             * agree).contiguous()
+             * agree)
+    if radiance_only:
+        d_out[:10] = 0.0
+        d_out[13:] = 0.0
+    d_out = d_out.contiguous()
     ob, ref_ob = out[mk.ROW_BOUNCE].clone(), ref_out[mk.ROW_BOUNCE].clone()
     k = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
     parts, plain_ms = wall_ms(lambda: by_lanes(
@@ -1082,12 +1121,17 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     # chain is what sets it.
     plain_gb = torch.cuda.max_memory_allocated(device) / 1e9
     p = (torch.cat([x[0] for x in parts], dim=1),
-         *(sum(x[j] for x in parts) for j in (1, 2, 3)))
+         *(sum(x[j] for x in parts) for j in (1, 2, 3)),
+         None if solids is None else dataclasses.replace(
+             solids, quad24=sum(x[4].quad24 for x in parts),
+             box24=sum(x[4].box24 for x in parts)))
     ms = graph_ms(lambda: mkv.chain_adjoint(st, keys, sph, bg, d_out, ob,
                                             bvh=bvh, **kw), mkv.chain_adjoint)
     k2 = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
-    repeat = ((k2[1] - k[1]).abs().max()
-              / k[1].abs().max().clamp(min=1e-30)).item()
+    repeat = max(((b - a).abs().max() / a.abs().max().clamp(min=1e-30))
+                 .item() for a, b in [(k[1], k2[1])] + ([] if solids is None
+                 else [(k[4].quad24, k2[4].quad24),
+                       (k[4].box24, k2[4].box24)]))
     same = torch.equal(k2[0], k[0]) and torch.equal(k2[2], k[2])
     mism = (int(k[3]), int(p[3]))
     live = st[mk.ROW_ALIVE] > 0.5
@@ -1096,9 +1140,9 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     lanes = lane_ok[live].float().mean().item() if live.any() else 1.0
     dead_equal = torch.equal(k[0][:13, ~live], d_out[:13, ~live])
     no_cam = torch.zeros((24,), device=device)
-    kp, kc = diff.field_grads(scene, cam, cfg, k[1], no_cam, k[2],
+    kp, kc = diff.field_grads(scene, cam, cfg, k[1], no_cam, k[2], k[4],
                               device=device)
-    pp, pc = diff.field_grads(scene, cam, cfg, p[1], no_cam, p[2],
+    pp, pc = diff.field_grads(scene, cam, cfg, p[1], no_cam, p[2], p[4],
                               device=device)
     faults, err = gradcheck.field_grad_faults(kp, kc, pp, pc)
     rel = max(((kp[f] - pp[f]).abs().max()
@@ -1121,7 +1165,8 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
            repeat))
     return out, dict(ms=ms, plain_ms=plain_ms, segments=segments, err=err,
                      hits=hits(st, out), q=st.shape[1], n_slots=sph.shape[1],
-                     moving=scene.has_moving)
+                     moving=scene.has_moving, grads=pp,
+                     drawing=drawing_segments(st, out))
 
 
 def chain_small_cases(device, card):
@@ -1152,7 +1197,7 @@ def chain_small_cases(device, card):
     d_out = torch.randn(tuple(st.shape), generator=gen).to(device)
     dead = st.clone()
     dead[mk.ROW_ALIVE] = 0.0
-    d_st, d_sph, d_bg, mism = mkv.chain_adjoint(
+    d_st, d_sph, d_bg, mism, _ = mkv.chain_adjoint(
         dead, keys, sph, bg, d_out, dead[mk.ROW_BOUNCE].clone(), **kw)
     dead_ok = (torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
                and not d_sph.any() and not d_bg.any() and int(mism) == 0)
@@ -1553,7 +1598,7 @@ def motion_train_phase(device, card):
         return packs, mkt.render_tiles_train(*packs, **kw)
 
     packs, (rad, _, lengths, winners) = forward(scene1)
-    d_sph, d_cam, d_bg, mism = mkt.tiles_adjoint(
+    d_sph, d_cam, d_bg, mism, _ = mkt.tiles_adjoint(
         *packs, mix.expand_as(rad).contiguous(), lengths, winners, **kw)
     gp, _ = diff.field_grads(scene1, cam1, cfg, d_sph, d_cam, d_bg,
                              device=device)
@@ -1879,51 +1924,374 @@ def cornell_cli_phase(device, card):
     return t_launches, q_launches, b_launches
 
 
-def cornell_train_phase(device, card):
-    """[K3] cornell's gradient on the card: make_train_step (one-shot and
-    chunked), render_image_diff and render_image(differentiable=True) at
-    400x400, 2 spp, depth 50 each raise NotImplementedError naming
-    ROADMAP Queue A #9.7 (the quad, box and light backwards of train_fwd,
-    train_bwd and chain_bwd) before anything runs: the checkpointed scan
-    is the CPU's route and runs on no card. train_fwd, train_bwd and
-    chain_bwd launch 0 times."""
+def solid_train_bounds(traced, spp, solids, n_slots):
+    """train_fwd's and train_bwd's least times on a solid-family scene
+    without spheres ([K3]: cornell), each (ms, by), counted as [K1]'s:
+    each segment's quad and box tests (solid_flops), the draws
+    (THREEFRY_PER_PATH calls a path, THREEFRY_PER_HIT a segment that
+    scatters: segments less paths, an over-count by the lights' hits),
+    and the bytes. train_bwd: one recomputed test a stored segment, the
+    full tests for the segments past the pool, BWD_SEGMENT_FLOPS of
+    adjoint a segment, the same draws, the residual read and d_rad."""
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    n_pix = traced.numel()
+    segments = int(traced.sum())
+    stored = int(traced.long().clamp(max=mkt.winner_capacity(spp)).sum())
+    paths = n_pix * spp
+    draws = THREEFRY_OPS * (THREEFRY_PER_HIT * (segments - paths)
+                            + THREEFRY_PER_PATH * paths)
+    packs = 4 * (24 * (n_slots + solids.quad24.shape[1]
+                       + solids.box24.shape[1]) + 24 + 8)
+    residual = paths + 2 * stored
+    per_test = (solids.n_quads * QUAD_TEST_FLOPS
+                + solids.n_boxes * BOX_TEST_FLOPS) / max(
+        solids.n_quads + solids.n_boxes, 1)
+    bwd_ops = (stored * per_test + solid_flops(segments - stored, solids)
+               + segments * BWD_SEGMENT_FLOPS)
+    return (bound(solid_flops(segments, solids),
+                  packs + n_pix * (12 + 4) + residual, draws),
+            bound(bwd_ops, 2 * packs + n_pix * 12 + residual + 4, draws))
+
+
+def cornell_chain_lanes(scene, cam, w, h, device):
+    """The lanes of one pass of render_image(differentiable=True)'s first
+    tile (render.render_tile): tile_pixels pixels times samples_per_pass
+    samples, pixel-major within each sample, sample 0's keys first."""
+    from rrt_tpu_torch import render, rng
+    from rrt_tpu_torch.ops import megakernel as mk
+    cfg = render.RenderConfig(width=w, height=h)
+    spc, p = cfg.samples_per_pass, min(cfg.tile_pixels, w * h)
+    pix = torch.arange(p, device=device).repeat(spc)
+    sample = torch.arange(spc, device=device).repeat_interleave(p)
+    keys = rng.sample_keys(rng.key_words(0), pix, sample)
+    o, d, tm = render.generate_rays(cam.to(device), pix % w, pix // w, w, h,
+                                    keys)
+    n = pix.numel()
+    one = torch.ones((n,), device=device)
+    zero = torch.zeros((n,), device=device)
+    st = mk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                       one, zero)
+    return st, rng.u32_bits(keys)
+
+
+def solid_chain_bound(c1, solids):
+    """chain_bwd's least time over [K3]'s chains of a solid-family scene
+    without spheres, (ms, by): each replayed segment's quad and box tests
+    and ADJOINT_FLOPS, the draws of the segments that scatter, and the
+    bytes chain_bound counts (the packs' included)."""
+    segments = sum(c["segments"] for c in c1)
+    lane_bytes = sum(4 * c["q"] * (16 + 2 + 16 + 1 + 16) for c in c1) \
+        + len(c1) * 2 * pack_bytes(solids.quad24, solids.box24)
+    draws = THREEFRY_OPS * THREEFRY_PER_HIT * sum(c["drawing"] for c in c1)
+    return bound(solid_flops(segments, solids) + segments * ADJOINT_FLOPS,
+                 lane_bytes, draws)
+
+
+def solid_train_vs_plain(what, scene, cam, cfg, device, card, *,
+                         min_pixels, fields=None):
+    """The train kernels' solid-family variants against tile_render and
+    their plain versions on one scene, [5]'s rule (gradcheck): train_fwd
+    gives tile_render's radiance and traced counts bit for bit, its
+    pooled winner codes each sample's traced alone (0 faults) and the
+    plain version's on the agreeing paths (MAX_WINNER_FAULTS); the
+    agreeing pixels (min_pixels at least) weight the backward, whose
+    partition() and Camera gradients (the quads' and boxes' fields
+    among them) follow gradcheck.field_grad_faults against the plain
+    version's (fields: only these partition() fields, each within
+    MIXED_FIELD_GATE of its largest, and no camera field); no replay
+    mismatch, from the winners or without them.
+    Returns the numbers of the kernels line and the plain gradients."""
+    from rrt_tpu_torch import diff, gradcheck, render
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
+    packs = [p.detach() for p in render._packs(scene, cam, cfg, device)]
+    solids = mk.pack_solids(scene, device)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
+              height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
+              t_min=cfg.t_min, moving=scene.has_moving, solids=solids)
+    rad, traced, lengths, winners = mkt.render_tiles_train(*packs, **kw)
+    ref_rad, ref_traced = mk.render_tiles(*packs, bvh=tile_bvh(packs), **kw)
+    same = torch.equal(rad, ref_rad) and torch.equal(traced, ref_traced)
+    fwd_ms = cuda_ms(lambda: mkt.render_tiles_train(*packs, **kw), 3)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    frac = agreement.agree.float().mean().item()
+    w_faults, w_compared, _ = gradcheck.winner_faults(winners, lengths,
+                                                      agreement)
+    p_faults, p_compared = gradcheck.pool_faults(winners, lengths, agreement)
+    print(f"  {what} {cfg.width}x{cfg.height} {cfg.spp}spp "
+          f"d{cfg.max_depth}: train_fwd == tile_render {same}; "
+          f"{residual_line(traced, lengths, cfg.spp)}; {frac:.5f} of pixels "
+          f"and {agreement.path_share:.5f} of paths agree with the plain "
+          f"version (gate {min_pixels}); winner codes: {w_faults} of "
+          f"{w_compared} differ from the plain version's (gate "
+          f"{MAX_WINNER_FAULTS:.0e}), {p_faults} of {p_compared} from each "
+          f"sample traced alone (gate 0)", flush=True)
+    check(same, (what, "train_fwd vs tile_render"))
+    check(frac >= min_pixels, (what, "agreement", frac))
+    check(w_compared > 0 and w_faults <= MAX_WINNER_FAULTS * w_compared,
+          (what, "winners", w_faults, w_compared))
+    check(p_compared > 0 and p_faults == 0,
+          (what, "pooled winners", p_faults, p_compared))
+    n_pix = cfg.width * cfg.height
+    weight = torch.sin(torch.arange(n_pix, device=device) * 0.1) \
+        * agreement.agree
+    d_rad = (weight[:, None] * torch.tensor(MIX, device=device)).contiguous()
+    k = mkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, lengths,
+                                               winners, **kw), 3)
+    scan = mkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
+    p, bwd_plain_ms = wall_ms(lambda: mkt.tiles_adjoint_reference(
+        *packs, d_rad, agreement.lengths, None, chunk=1 << 19, **kw))
+    mism = (int(k[3]), int(scan[3]), int(p[3]))
+    kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], k[4], device=device)
+    pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], p[4], device=device)
+    worst = {f: ((kp[f] - pp[f]).abs().max()
+                 / pp[f].abs().max().clamp(min=1e-30)).item()
+             for f in fields or ("quad_q", "quad_u", "quad_v", "box_center",
+                                 "box_half", "tex_color1", "bg_bottom")}
+    if fields is None:
+        faults, err = gradcheck.field_grad_faults(kp, kc, pp, pc)
+        rule = "gradcheck's rule, 2e-3 of each field's largest"
+    else:
+        faults = [(f, v) for f, v in worst.items() if v > MIXED_FIELD_GATE]
+        err = max((kp[f] - pp[f]).abs().max().item() for f in fields)
+        rule = f"{MIXED_FIELD_GATE:g} of each field's largest"
+    print(f"  {what}: replay_mismatches {mism} (gate 0); d_cam and d_bg "
+          f"from the winners vs without bit-equal "
+          f"{torch.equal(k[1], scan[1]) and torch.equal(k[2], scan[2])}; "
+          f"field faults {faults} ({rule}); max |grad delta| {err:.3e}; "
+          f"over each field's largest: " + ", ".join(f"{f} {v:.2e} (largest "
+                                   f"{pp[f].abs().max().item():.3e})"
+                                   for f, v in worst.items())
+          + f"; train_fwd {fwd_ms:.3f} ms (plain "
+          f"{agreement.plain_seconds * 1e3:.1f} ms), train_bwd {bwd_ms:.3f} "
+          f"ms (plain {bwd_plain_ms:.1f} ms)  [{card}]", flush=True)
+    check(mism == (0, 0, 0), (what, "replay_mismatches", mism))
+    check(torch.equal(k[1], scan[1]) and torch.equal(k[2], scan[2]),
+          (what, "winners vs scan"))
+    check(not faults, (what, "gradients", faults))
+    fwd_err = ((rad - agreement.rad).abs().max() / cfg.spp).item()
+    return dict(fwd_ms=fwd_ms, fwd_plain_ms=agreement.plain_seconds * 1e3,
+                bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, fwd_err=fwd_err,
+                bwd_err=err, traced=traced, solids=solids,
+                n_slots=packs[0].shape[1], grads=pp, packs=packs, kw=kw)
+
+
+def cornell_finite_differences(t, scene, cam, cfg, device):
+    """d loss / d (red wall's albedo, red) and d loss / d (the light's
+    emission, red) from train_bwd against central differences of the
+    train_fwd forward, loss = sum(MIX . radiance) in float64 (eps 1e-2
+    and 1e-1: neither moves a path; the CPU's 48x48 readings agreed
+    within 5e-6, the gate is [6]'s 1e-2). quad_u[2][1] (the light's
+    tilt) is printed beside its central difference without a gate:
+    cornell's radiance is a product of albedos and the emission, so
+    path-replay gives its geometry no gradient (0, as rrt_tpu's), and
+    the difference comes from silhouettes crossing pixels and paths,
+    which the estimator leaves out."""
+    from rrt_tpu_torch import diff, render
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
+    kw = t["kw"]
+    mix = torch.tensor(MIX, device=device)
+
+    def forward(s):
+        packs = [p.detach() for p in render._packs(s, cam, cfg, device)]
+        return packs, mkt.render_tiles_train(
+            *packs, **dict(kw, solids=mk.pack_solids(s, device)))
+
+    packs, (rad, _, lengths, winners) = forward(scene)
+    out = mkt.tiles_adjoint(*packs, mix.expand_as(rad).contiguous(), lengths,
+                            winners, **kw)
+    gp, _ = diff.field_grads(scene, cam, cfg, *out[:3], out[4],
+                             device=device)
+    light = int(scene.mat_tex[scene.quad_mat[int(
+        (scene.mat_type[scene.quad_mat[:scene.n_quads_active]] == 3)
+        .nonzero()[0, 0])]])
+    red = int(scene.mat_tex[scene.quad_mat[1]])
+    worst = 0.0
+    for field, index, eps, gated in (("tex_color1", (red, 0), 1e-2, True),
+                                     ("tex_color1", (light, 0), 1e-1, True),
+                                     ("quad_u", (2, 1), 1.0, False)):
+        def loss(delta):
+            v = getattr(scene, field).clone()
+            v[index] += delta
+            r = forward(diff.combine(scene, {field: v}))[1][0]
+            return (r.double() * mix.double()).sum().item()
+
+        fd = (loss(eps) - loss(-eps)) / (2.0 * eps)
+        auto = gp[field][index].item()
+        rel = abs(auto - fd) / max(abs(fd), 1e-30)
+        print(f"  d loss / d {field}{list(index)}: train_bwd {auto:.6e}, "
+              f"central difference (eps {eps:g}) {fd:.6e}, {rel:.2e} apart"
+              + (" (gate 1e-2)" if gated else " (no gate: silhouettes)"),
+              flush=True)
+        if gated:
+            worst = max(worst, rel)
+            check(auto != 0.0 and rel < 1e-2, (field, index, auto, fd))
+        else:
+            check(auto == 0.0, (field, index, "geometry gradient", auto))
+    return worst
+
+
+def cornell_train_phase(device, card, resources):
+    """[K3] cornell's gradient on the card, at 400x400, depth 50, 8 spp
+    (bench.py's train_step_8spp count): the train kernels' and
+    chain_bwd's solid-family variants against their plain versions
+    (solid_train_vs_plain; chain_vs_plain on the three chains of one
+    pass of render_image(differentiable=True)'s first tile), finite
+    differences (cornell_finite_differences), the same on
+    scenes.book2.mixed_scene at 320x240, 4 spp, depth 8, whose quad_q and
+    box_center gradients are not 0; then the main path with the launch
+    counts set to 0: make_train_step (three SGD steps, the loss must
+    fall), make_train_step_chunked (two chunks of 4 spp) and
+    render_image(differentiable=True) at 4 spp with an L2 loss's
+    gradient. Returns the numbers of the kernels line."""
     from rrt_tpu_torch import diff, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
     from rrt_tpu_torch.ops import megakernel_train as mkt
     from rrt_tpu_torch.ops import megakernel_vjp as mkv
-    w, h = CORNELL["width"], CORNELL["height"]
+    from rrt_tpu_torch.scenes import book2
+    w, h, depth = CORNELL["width"], CORNELL["height"], CORNELL["max_depth"]
     cfg = render.RenderConfig(width=w, height=h, spp=CORNELL_TRAIN_SPP,
-                              max_depth=CORNELL["max_depth"],
-                              samples_per_pass=CORNELL_TRAIN_SPP)
+                              max_depth=depth)
     scene, cam = tscenes.cornell_box_scene(w, h)
-    target = torch.zeros((h, w, 3), device=device)
-    counters = (mkt.render_tiles_train, mkt.tiles_adjoint, mkv.chain_adjoint)
+    torch.cuda.reset_peak_memory_stats(device)
+    t = solid_train_vs_plain("cornell", scene, cam, cfg, device, card,
+                             min_pixels=CORNELL_MIN_AGREE)
+    fwd_bound, bwd_bound = solid_train_bounds(t["traced"], cfg.spp,
+                                              t["solids"], t["n_slots"])
+    print(f"  cornell train bounds: train_fwd {fwd_bound[0]:.4f} ms "
+          f"({fwd_bound[1]}), train_bwd {bwd_bound[0]:.4f} ms "
+          f"({bwd_bound[1]}); {int(t['traced'].sum())} segments", flush=True)
+    fd_worst = cornell_finite_differences(t, scene, cam, cfg, device)
+
+    st, keys = cornell_chain_lanes(scene, cam, w, h, device)
+    solids = t["solids"]
+    sph, bg = t["packs"][0], t["packs"][2]
+    bvh = render.chain_bvh(sph, st[6], False)
+    lane = torch.arange(st.shape[1], device=device)
+    c1 = []
+    schedule = render._fused_schedule(depth)
+    # The last chain's geometric cotangents stay 0, as the loss gives
+    # them: 43 steps of random ones in the closed box grew to 2.6e6 on one
+    # lane of 65,536, where float32 rounding put the kernel's and the
+    # plain version's box_center gradients 15% apart (an H100 80GB HBM3
+    # at 700 W; the other lanes within 1e-3).
+    for j, k_steps in enumerate(schedule):
+        out, numbers = chain_vs_plain(
+            f"cornell chain {j + 1} of {schedule}", st, keys, sph, bg, bvh,
+            k_steps, scene, cam, cfg, device, card, solids=solids,
+            radiance_only=j == len(schedule) - 1)
+        c1.append(numbers)
+        if j < len(schedule) - 1:
+            st, keys, lane = render._compact_lanes(out, keys, lane)
+    c_bound = solid_chain_bound(c1, solids)
+    c_ms = sum(c["ms"] for c in c1)
+    print(f"  cornell's three chains: chain_bwd {c_ms:.4f} ms, plain "
+          f"{sum(c['plain_ms'] for c in c1):.1f} ms, bound "
+          f"{c_bound[0]:.4f} ms ({c_bound[1]}); "
+          f"{sum(c['segments'] for c in c1)} replayed segments  [{card}]",
+          flush=True)
+
+    mw, mh = MIXED_TRAIN["width"], MIXED_TRAIN["height"]
+    mixed, mcam = book2.mixed_scene(mw, mh)
+    mcfg = render.RenderConfig(**MIXED_TRAIN)
+    m = solid_train_vs_plain("mixed", mixed, mcam, mcfg, device, card,
+                             min_pixels=MIXED_MIN_AGREE, fields=MIXED_FIELDS)
+    mst, mkeys, msph, mbg = lane_state(mixed, mcam, mw, mh, mw * mh, device)
+    msol = mk.pack_solids(mixed, device)
+    # Radiance cotangents only: a random one on o and d at 76,800 lanes
+    # meets grazing hits on the quads and boxes, whose t moves as 1 /
+    # (d.n), and two float32 evaluations of the same code part there
+    # (the CPU: box_center outside the rule on 2 lanes of 76,800).
+    _, mc = chain_vs_plain("mixed camera rays", mst, mkeys, msph, mbg,
+                           render.chain_bvh(msph, mst[6], False), 4, mixed,
+                           mcam, mcfg, device, card, solids=msol,
+                           radiance_only=True)
+    for key in ("quad_q", "box_center"):
+        largest = (m["grads"][key].abs().max().item(),
+                   mc["grads"][key].abs().max().item())
+        print(f"  mixed: the plain versions' largest {key} gradient "
+              f"{largest[0]:.4e} (train), {largest[1]:.4e} (chain)",
+              flush=True)
+        check(min(largest) > 0, ("mixed", key, largest))
+    peak_memory("[K3] kernels vs plain versions", device, card)
+
+    # The main path, launches counted from 0.
+    bcfg = dataclasses.replace(cfg, spp=BATCH_SPP, samples_per_pass=BATCH_SPP)
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    target_b, _ = render.render_image_tiles(scene, cam, bcfg, 1,
+                                            device=device)
+    n_tex = scene.tex_color1.shape[0]
+    start = diff.combine(scene, {"tex_color1": scene.tex_color1
+                                 * torch.linspace(0.8, 1.1, n_tex)[:, None]})
+    step = diff.make_train_step(cfg, device=device)
+    chunked = diff.make_train_step_chunked(cfg, spp_chunk=4, device=device)
+    chunked(start, cam, target, 0)  # warm-up (a build, the first packs)
+    counters = (mkt.render_tiles_train, mkt.tiles_adjoint, mk.bounce_steps,
+                mkv.chain_adjoint, mk.render_tiles)
     for c in counters:
         c.launches = 0
-    calls = {
-        "make_train_step": lambda: diff.make_train_step(
-            cfg, device=device)(scene, cam, target, 0),
-        "make_train_step_chunked": lambda: diff.make_train_step_chunked(
-            cfg, device=device)(scene, cam, target, 0),
-        "render_image_diff": lambda: render.render_image_diff(
-            scene, cam, cfg, 0, device=device),
-        "render_image(differentiable=True)": lambda: render.render_image(
-            scene, cam, cfg, 0, differentiable=True, device=device),
-    }
-    raised = {}
-    for name, call in calls.items():
-        try:
-            call()
-            raised[name] = None
-        except NotImplementedError as e:
-            raised[name] = str(e)
-        print(f"  {name}: {raised[name]}", flush=True)
+    mkt.tiles_adjoint.replay_mismatches = 0
+    mkv.chain_adjoint.replay_mismatches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    s_scene, s_cam = start, cam
+    with chain_events() as (fwd_log, bwd_log):
+        for i in range(3):
+            fwd_log.clear()
+            bwd_log.clear()
+            (s_scene, s_cam, loss), ms = wall_ms(
+                lambda: step(s_scene, s_cam, target, 0))
+            losses.append(loss.item())
+            step_ms.append((events_ms(fwd_log), events_ms(bwd_log), ms))
+            print(f"  make_train_step {i}: loss {losses[-1]:.8e}, train_fwd "
+                  f"{step_ms[-1][0]:.3f} ms, train_bwd {step_ms[-1][1]:.3f} "
+                  f"ms, step {ms:.2f} ms  [{card}]", flush=True)
+        (_, _, c_loss), c_wall = wall_ms(lambda: chunked(start, cam, target,
+                                                         0))
+    print(f"  make_train_step_chunked (2 chunks of 4 spp): loss "
+          f"{c_loss.item():.8e} (one-shot's first {losses[0]:.8e}), step "
+          f"{c_wall:.2f} ms  [{card}]", flush=True)
+    (img, n, b_loss, gp, gc), b_ms = wall_ms(lambda: batch_loss_and_grads(
+        bcfg, start, cam, target_b, 0, device))
     launches = [c.launches for c in counters]
+    mism = (int(mkt.tiles_adjoint.replay_mismatches),
+            int(mkv.chain_adjoint.replay_mismatches))
+    print(f"  render_image(differentiable=True) {BATCH_SPP}spp: loss "
+          f"{b_loss.item():.8e}, {n} traced segments, {b_ms / 1e3:.3f} s "
+          f"wall", flush=True)
     print(f"  launches train_fwd {launches[0]}, train_bwd {launches[1]}, "
-          f"chain_bwd {launches[2]}  [{card}]", flush=True)
-    check(all(m is not None and "#9.7" in m for m in raised.values()),
-          ("[K3] cornell's gradient on the card", raised))
-    check(launches == [0, 0, 0], ("[K3] launched", launches))
-    return dict(launches=launches)
+          f"bounce_steps {launches[2]}, chain_bwd {launches[3]}, "
+          f"tile_render {launches[4]}; replay_mismatches {mism} (gate 0); "
+          f"losses {losses} (must fall)  [{card}]", flush=True)
+    peak_memory("[K3] main path", device, card)
+    check(launches[0] >= 5 and launches[1] >= 5 and launches[2] >= 3
+          and launches[3] >= 3, ("[K3] launches", launches))
+    check(mism == (0, 0), ("[K3] replay_mismatches", mism))
+    check(losses[2] < losses[1] < losses[0], ("[K3] the loss", losses))
+    check(abs(c_loss.item() - losses[0]) <= 1e-5 * losses[0],
+          ("[K3] chunked vs one-shot", c_loss.item(), losses[0]))
+    for key, g in list(gp.items()) + [("camera", g) for g in gc]:
+        check(bool(torch.isfinite(g).all()), ("[K3] non-finite", key))
+    check(gp["tex_color1"].abs().max().item() > 0, "[K3] zero albedo grad")
+    fwd_main = sum(m_[0] for m_ in step_ms) / len(step_ms)
+    bwd_main = sum(m_[1] for m_ in step_ms) / len(step_ms)
+
+    def numbers(ms, plain_ms, err, bnd, n_launch, name):
+        return dict(cornell_ms=ms, cornell_plain_ms=plain_ms,
+                    cornell_bound_ms=bnd[0], cornell_bound_by=bnd[1],
+                    cornell_max_abs_err=err, cornell_launches=n_launch,
+                    cornell_registers=resources.get(name + " (solids)"))
+
+    return dict(
+        fd_worst=fd_worst,
+        train_fwd=numbers(t["fwd_ms"], t["fwd_plain_ms"], t["fwd_err"],
+                          fwd_bound, launches[0], "train_fwd_kernel"),
+        train_bwd=numbers(t["bwd_ms"], t["bwd_plain_ms"], t["bwd_err"],
+                          bwd_bound, launches[1], "train_bwd_kernel"),
+        chain_bwd=numbers(c_ms, sum(c["plain_ms"] for c in c1),
+                          max(c["err"] for c in c1), c_bound, launches[3],
+                          "chain_bwd_kernel"),
+        step_ms=(fwd_main, bwd_main))
 
 
 def probe_phase(device, card):
@@ -2369,9 +2737,11 @@ def main() -> int:
     k2_launches = cornell_cli_phase(device, card)
     phases.start("K3", f"cornell's gradient on the card at "
                  f"{CORNELL['width']}x{CORNELL['height']} "
-                 f"{CORNELL_TRAIN_SPP}spp d{CORNELL['max_depth']}: raises "
-                 f"naming #9.7, no train or chain kernel launched")
-    cornell_train_phase(device, card)
+                 f"{CORNELL_TRAIN_SPP}spp d{CORNELL['max_depth']}: the train "
+                 f"kernels and chain_bwd (solid families) vs their plain "
+                 f"versions, then make_train_step, its chunked step and "
+                 f"render_image(differentiable=True)")
+    k3 = cornell_train_phase(device, card, resources)
     phases.start("P1", "main path: the three probes at their full ITERS")
     p1 = probe_phase(device, card)
     phases.end()
@@ -2449,6 +2819,7 @@ def main() -> int:
               t5["fwd_bound"], main_ms=main_fwd,
               step_bound_ms=t5["step_bound"][0],
               registers=resources.get("train_fwd_kernel"),
+              **k3["train_fwd"],
               **moving(m_t["fwd_ms"], m_t["fwd_bound"],
                        moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
@@ -2458,6 +2829,7 @@ def main() -> int:
               step_bound_ms=t5["step_bound"][0],
               scan_ms=t5["bwd_scan_ms"],
               registers=resources.get("train_bwd_kernel"),
+              **k3["train_bwd"],
               **moving(m_t["bwd_ms"], m_t["bwd_bound"],
                        moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",
@@ -2482,7 +2854,8 @@ def main() -> int:
               **moving(sum(c["ms"] for c in m_c1), m_c1_bound[0]),
               **walk(c1_bound[1], q1["counts"], m_c1_bound[1],
                      m_q["counts"]),
-              registers=resources.get("chain_bwd_kernel")),
+              registers=resources.get("chain_bwd_kernel"),
+              **k3["chain_bwd"]),
         probe("fma_chain", "benchmarks/probe_row_layout.py:38",
               p1["launches"][0], p1["chain_err"], p1["row"],
               p1["chain_plain_ms"]),

@@ -23,6 +23,7 @@ import torch
 from .camera import Camera
 from .ops import megakernel as ops_mega
 from .ops import megakernel_train as ops_train
+from .ops.megakernel_vjp import solid_inputs
 from .render import (DIFF_SAMPLE_BUDGET, RenderConfig, _check_card_scope,
                      _check_device, _check_diff_scope, _packs,
                      _warn_diff_fallback, diff_fallback_reason,
@@ -32,10 +33,10 @@ from .scene import SceneArrays
 
 # Scene leaves that make sense to optimize (continuous scene parameters),
 # as in rrt_tpu; sphere_dc (a moving sphere's motion) gets its gradient
-# through the velocity pack rows; the quads' and boxes' through the
-# checkpointed scan on the CPU (render_image_diff's route for them; on a
-# CUDA device their backward waits for ROADMAP Queue A #9.7); the media
-# get none until they are ported (#9.4).
+# through the velocity pack rows; the quads' and boxes' through their
+# packs in the train kernels' and chain_bwd's solid-family variants (a
+# quad's q, u, v through its plane frame: geometry.quad_frame_vjp); the
+# media get none until they are ported (#9.4).
 DIFFERENTIABLE_FIELDS = (
     "sphere_c0", "sphere_dc", "sphere_radius",
     "quad_q", "quad_u", "quad_v",
@@ -158,13 +159,20 @@ def _grads(out, params, camera, cot=None):
 
 
 def field_grads(scene: SceneArrays, camera: Camera, cfg: RenderConfig,
-                d_sph24, d_cam24, d_bg8, *, device):
+                d_sph24, d_cam24, d_bg8, d_solids=None, *, device):
     """The gradients of the partition() fields and of the nine Camera
-    fields that the pack cotangents (d_sph24, d_cam24, d_bg8) stand for:
-    the VJP of the packing. Returns (dict, list of nine tensors)."""
+    fields that the pack cotangents (d_sph24, d_cam24, d_bg8, and
+    d_solids: the SolidPacks of the quad and box packs' cotangents, or
+    None) stand for: the VJP of the packing. Returns (dict, list of nine
+    tensors)."""
     scene_d, params, cam = _leaves(scene, camera, device)
-    return _grads(_packs(scene_d, cam, cfg, device), params, cam,
-                  (d_sph24, d_cam24, d_bg8))
+    packs = _packs(scene_d, cam, cfg, device)
+    cots = (d_sph24, d_cam24, d_bg8)
+    if d_solids is not None:
+        solids = ops_mega.pack_solids(scene_d, device)
+        packs += (solids.quad24, solids.box24)
+        cots += (d_solids.quad24, d_solids.box24)
+    return _grads(packs, params, cam, cots)
 
 
 def loss_and_grads(cfg: RenderConfig, scene: SceneArrays, camera: Camera,
@@ -203,7 +211,8 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
         rad, _ = ops_train.TileTrainChain.apply(
             *_packs(scene_d, cam, cfg, device), key_words(seed), lo,
             cfg.width, cfg.height, chunk, cfg.max_depth, cfg.t_min,
-            scene.has_moving)
+            scene.has_moving,
+            *solid_inputs(ops_mega.pack_solids(scene_d, device)))
         return rad
 
     rad0 = chain(0)
@@ -211,12 +220,13 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
     with torch.no_grad():
         if chunk < cfg.spp:
             *packs, bvh = _packs(scene_d, cam, cfg, device, bvh=True)
+            solids = ops_mega.pack_solids(scene_d, device)
         for lo in range(chunk, cfg.spp, chunk):
             r, _ = ops_mega.render_tiles(
                 *packs, seed_words=key_words(seed), sample_lo=lo,
                 width=cfg.width, height=cfg.height, spp=chunk,
                 max_depth=cfg.max_depth, t_min=cfg.t_min,
-                moving=scene.has_moving, bvh=bvh)
+                moving=scene.has_moving, bvh=bvh, solids=solids)
             rad_sum = rad_sum + r
     rs = rad_sum.requires_grad_()
     img = rs.reshape(cfg.height, cfg.width, 3) / float(cfg.spp)

@@ -149,6 +149,15 @@ def quad_frames(q, u, v) -> QuadFrames:
                       eps_n=1e-8 * torch.sqrt(torch.clamp(nn, min=1e-20)))
 
 
+def quad_frame_vjp(q, u, v, g_n, g_plane):
+    """The cotangents of q, u, v (each (3,Q)) for the cotangents g_n
+    (3,Q) of n = u x v and g_plane (Q,) of d_plane = n.q: the only frame
+    rows a bounce's gradient reaches (the quad's t and normal; g, h and
+    eps_n feed decisions only). Returns (g_q, g_u, g_v)."""
+    g = g_n + g_plane * q  # n's cotangent, d_plane's share included
+    return g_plane * cross(u, v), cross(v, g), cross(g, u)
+
+
 def _limits(t_min, t_max, device):
     """t_min, t_max (floats or (N,)) as tensors that broadcast over
     (N, family)."""

@@ -28,7 +28,10 @@ float32 rounding bounds): such a path had parted ways earlier, by
 drift or by an earlier decision, and still agrees by the rule above,
 mostly at 51 bounces, where both paths end absorbed with radiance 0.
 `replay_winners` builds the winners' layout from the backward's plain
-replay, for the CPU tests.
+replay, for the CPU tests. A scene with quads, boxes or a light passes
+its SolidPacks as kw's `solids`: its winners are codes
+(ops.megakernel.encode_winner), and tie_gaps reads a quad's or box's t
+in float64 as the sphere's.
 
 `field_grad_faults` is the rule of tests/test_tile_grad.py at the level
 of partition() and Camera fields (the kernel and the plain version
@@ -55,8 +58,8 @@ class Agreement(NamedTuple):
     lengths: torch.Tensor  # (spp, P) uint8 the plain version's bounces
     plain_seconds: float  # host seconds of the plain renders
     paths: torch.Tensor  # (spp, P) bool: the sample's path agrees
-    # (spp, max_depth + 1, P) int16: the plain version's winner of each
-    # path's bounces (-1 a miss, -2 past the path)
+    # (spp, max_depth + 1, P) int16: the plain version's winner code of
+    # each path's bounces (-1 a miss, -2 past the path)
     winners: torch.Tensor
     # (spp, WINNERS_PER_SAMPLE, P) int16: render_tiles_train's winners of
     # each sample traced alone (entry j: bounce j; past the path unset)
@@ -66,7 +69,8 @@ class Agreement(NamedTuple):
 def sample_agreement(packs, kw) -> Agreement:
     """Render every sample of kw's range alone through the kernel
     (render_tiles_train) and the plain version, and compare their
-    radiance and bounce counts. The plain renders also give that
+    radiance and bounce counts (kw: render_tiles_train's keywords, its
+    `solids` included). The plain renders also give that
     version's full radiance and lengths, so a caller need not run it
     again."""
     n_pix = kw["width"] * kw["height"]
@@ -173,13 +177,14 @@ class Ties(NamedTuple):
 
 def tie_gaps(packs, kw, differ) -> Ties:
     """Whether winner_faults' differing entries are near-ties. For each
-    row (sample, bounce, pixel, forward's winner, plain winner)
-    replay the plain version's path of that pixel and sample
+    row (sample, bounce, pixel, forward's winner, plain winner), each a
+    winner code, replay the plain version's path of that pixel and sample
     (render._bounce, as trace_paths_reference) to that bounce and take
-    both slots' first root beyond t_min on its ray, in float64, with the
-    bound on the rounding error of the same root in float32. Gaps are
-    inf where either slot is -1 or has no such root; the replayed
-    winners must be the rows' plain winners."""
+    both winners' t beyond t_min on its ray, in float64, with the bound
+    on the rounding error of the same t in float32 (_slot_t64 for a
+    sphere, _solid_t64 for a quad or box of kw's `solids`). Gaps are inf
+    where either winner is -1 or has no such t; the replayed winners
+    must be the rows' plain winners."""
     from . import rng
     from .camera import thin_lens_rays
     from .render import _bounce
@@ -189,7 +194,8 @@ def tie_gaps(packs, kw, differ) -> Ties:
     n = differ.shape[0]
     gaps = torch.full((2, n), float("inf"), dtype=torch.float64, device=dev)
     replayed = torch.full((n,), -2, dtype=torch.int64, device=dev)
-    scene = mk._scene_from_packs(sph24, bg8, kw["moving"])
+    solids = kw.get("solids")
+    scene = mk._scene_from_packs(sph24, bg8, kw["moving"], solids)
     basis = tuple(cam24[3 * i:3 * i + 3] for i in range(6))
     width = kw["width"]
     for s in differ[:, 0].unique().tolist():
@@ -209,10 +215,11 @@ def tie_gaps(packs, kw, differ) -> Ties:
             now = differ[rows, 1] == k
             at, u = rows[now], at_pix[now]
             if at.numel():
-                replayed[at] = torch.where(b.miss_mask, -1, b.win)[u]
+                replayed[at] = torch.where(
+                    b.miss_mask, -1, mk.encode_winner(b.fam, b.win))[u]
                 (ta, ea), (tb, eb) = (
-                    _slot_t64(sph24, o[:, u], d[:, u], tm[u],
-                              differ[at, col], kw) for col in (3, 4))
+                    _winner_t64(sph24, solids, o[:, u], d[:, u], tm[u],
+                                differ[at, col], kw) for col in (3, 4))
                 gap = (ta - tb).abs()
                 off = torch.isinf(ta) | torch.isinf(tb)
                 gaps[0, at] = torch.where(off, float("inf"),
@@ -220,6 +227,61 @@ def tie_gaps(packs, kw, differ) -> Ties:
                 gaps[1, at] = torch.where(off, float("inf"), gap / (ea + eb))
             o, d = b.new_o, b.new_d
     return Ties(gaps[0], gaps[1], replayed)
+
+
+def _winner_t64(sph24, solids, o, d, time, code, kw) -> tuple:
+    """_slot_t64 for winner codes: a sphere's by _slot_t64, a quad's or
+    box's by _solid_t64, inf for -1."""
+    from .geometry import FAM_SPHERE
+    fam, idx = mk.decode_winner(code)
+    t, e = _slot_t64(sph24, o, d, time, torch.where(fam == FAM_SPHERE, idx,
+                                                     -1), kw)
+    if solids is not None:
+        ts, es = _solid_t64(solids, o, d, fam, idx, kw["t_min"])
+        solid = (fam != FAM_SPHERE) & (code >= 0)
+        t, e = torch.where(solid, ts, t), torch.where(solid, es, e)
+    return t, e
+
+
+def _solid_t64(solids, o, d, fam, idx, t_min) -> tuple:
+    """A quad's or box's t beyond t_min on the rays (o, d (3, n)), in
+    float64 (inf where the ray misses it), and a first-order bound on
+    the rounding error of the same t in float32 as the kernels compute
+    it: a quad's (d_plane - n.o) / (n.d), a box's slab (side h - o_k) /
+    d_k in its frame. fam, idx: the winners' families and slots (n,)."""
+    from .geometry import FAM_QUAD, quad_roots, box_roots, quad_frames
+    u = 2.0 ** -24
+    o, d = o.double(), d.double()
+    n = o.shape[1]
+    t = torch.full((n,), float("inf"), dtype=torch.float64, device=o.device)
+    err = torch.zeros_like(t)
+    is_quad = fam == FAM_QUAD
+    nq, nb = solids.n_quads, solids.n_boxes
+    if nq:
+        quad = solids.quad24[:, :nq].double()
+        fr = quad_frames(quad[0:3], quad[3:6], quad[6:9])
+        q = idx.clamp(0, nq - 1)
+        tq = quad_roots(fr, quad[9] > 0.5, o, d, t_min, float("inf"))
+        tq = tq.gather(1, q[:, None])[:, 0]
+        n_o = (o.abs() * fr.n[:, q].abs()).sum(0)
+        den = (d * fr.n[:, q]).sum(0).abs()
+        e_q = (4 * u * (fr.d_plane[q].abs() + n_o)
+               + 4 * u * tq.abs() * (d.abs() * fr.n[:, q].abs()).sum(0)) \
+            / den + u * tq.abs()
+        t = torch.where(is_quad, tq, t)
+        err = torch.where(is_quad, e_q, err)
+    if nb:
+        box = solids.box24[:, :nb].double()
+        b = idx.clamp(0, nb - 1)
+        tb = box_roots(box[0:3].T, box[3:6].T, box[6], box[7], box[8] > 0.5,
+                       o, d, t_min, float("inf"))
+        tb = tb.gather(1, b[:, None])[:, 0]
+        scale = (o - box[0:3, b]).abs().sum(0) + box[3:6, b].abs().sum(0)
+        e_b = 6 * u * (scale / d.abs().sum(0).clamp(min=1e-30)
+                       + tb.abs())
+        t = torch.where(is_quad, t, tb)
+        err = torch.where(is_quad, err, e_b)
+    return torch.where(torch.isfinite(t) & (t < 1e30), t, float("inf")), err
 
 
 def _slot_t64(sph24, o, d, time, slot, kw) -> tuple:
@@ -262,9 +324,9 @@ def _slot_t64(sph24, o, d, time, slot, kw) -> tuple:
 
 def field_grad_faults(kp: dict, kc, pp: dict, pc):
     """Kernel gradients (kp: partition() fields, kc: the nine Camera
-    fields) against the plain version's (pp, pc). Returns (the fields
-    that break the rule, with what was found; the largest |difference|
-    over all fields)."""
+    fields, or none) against the plain version's (pp, pc). Returns (the
+    fields that break the rule, with what was found; the largest
+    |difference| over all fields)."""
     faults, worst = [], 0.0
     for key in pp:
         a, b = kp[key], pp[key]
@@ -277,7 +339,7 @@ def field_grad_faults(kp: dict, kc, pp: dict, pc):
         if not (share >= 0.995 if a.numel() > 64 else bool(close.all())):
             faults.append((key, share))
         worst = max(worst, (a - b).abs().max().item())
-    cam_max = max(g.abs().max().item() for g in pc)
+    cam_max = max((g.abs().max().item() for g in pc), default=0.0)
     for i, (a, b) in enumerate(zip(kc, pc)):
         if not bool(torch.isfinite(a).all()):
             faults.append((f"camera[{i}]", "non-finite"))
@@ -291,18 +353,19 @@ def field_grad_faults(kp: dict, kc, pp: dict, pc):
 
 def replay_winners(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                    width: int, height: int, spp: int, max_depth: int,
-                   t_min: float, moving: bool, win_cap: int):
+                   t_min: float, moving: bool, win_cap: int, solids=None):
     """The pooled winners (win_cap, P) int16 of samples [sample_lo,
     sample_lo + spp), built apart from the forward's plain version: each
     sample's paths replayed by megakernel_vjp.replay_steps (the
-    backward's replay), their records' winners (-1 on a miss) laid out
-    pixel by pixel in trace order, -2 past a pixel's segments."""
+    backward's replay), their records' winner codes (-1 on a miss) laid
+    out pixel by pixel in trace order, -2 past a pixel's segments;
+    solids: the scene's SolidPacks, or None."""
     from .camera import thin_lens_rays
     from .ops import megakernel as mk
     from .ops.megakernel_vjp import replay_steps
     from . import rng
 
-    scene = mk._scene_from_packs(sph24, bg8, moving)
+    scene = mk._scene_from_packs(sph24, bg8, moving, solids)
     basis = tuple(cam24[3 * i:3 * i + 3] for i in range(6))
     n_pix = width * height
     pix = torch.arange(n_pix, device=sph24.device)
@@ -322,6 +385,7 @@ def replay_winners(sph24, cam24, bg8, *, seed_words, sample_lo: int,
             j = first[p] + k
             ok = j < win_cap
             winners[j[ok], p[ok]] = torch.where(
-                r["miss"], -1, r["win"])[ok].to(torch.int16)
+                r["miss"], -1, mk.encode_winner(r["fam"], r["win"]))[ok].to(
+                    torch.int16)
         first += n_seg
     return winners

@@ -154,11 +154,11 @@ def load() -> ctypes.CDLL:
     lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, s, u, u, u, i,
                                     i, i, i, f, i, p, p, p]
     lib.rrt_tile_render.restype = i
-    lib.rrt_train_fwd.argtypes = [p, i, p, p, u, u, u, i, i, i, i, f, i, i,
-                                  p, p, p, p, p]
+    lib.rrt_train_fwd.argtypes = [p, i, p, p, s, u, u, u, i, i, i, i, f, i,
+                                  i, p, p, p, p, p]
     lib.rrt_train_fwd.restype = i
-    lib.rrt_train_bwd.argtypes = [p, i, p, p, p, p, p, i, u, u, u, i, i, i,
-                                  i, f, i, p, p, p, p]
+    lib.rrt_train_bwd.argtypes = [p, i, p, p, s, p, p, p, i, u, u, u, i, i,
+                                  i, i, f, i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
     lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, s, p, i,
                                      i, f, i, p]
@@ -166,8 +166,8 @@ def load() -> ctypes.CDLL:
     lib.rrt_intersect.argtypes = [p, p, p, i, p, i, p, p, i, i, i, s, f, i,
                                   p, p, p, p]
     lib.rrt_intersect.restype = i
-    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, p, p, p, i,
-                                  i, f, i, p, p, p, p, p]
+    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, s, p, p, p,
+                                  i, i, f, i, p, p, p, p, p]
     lib.rrt_chain_bwd.restype = i
     lib.rrt_probe_fma_chain.argtypes = [p, p, i, i, f, f, i, p]
     lib.rrt_probe_fma_chain.restype = i

@@ -1,9 +1,10 @@
 // Adjoints of one bounce, shared by the train backward (train.cu) and the
 // bounce chain's backward (chain.cu): the hand-written transpose of
-// rrt_tpu_torch/ops/megakernel_vjp.py diff_step for a miss and for a
-// scattering bounce, the four-float reductions of the sphere pack's
-// cotangents into per-block partials in device memory (add_slot), and
-// the fixed-order reduction of those partials.
+// rrt_tpu_torch/ops/megakernel_vjp.py diff_step for a miss, a light's
+// emission and a scattering bounce on a sphere, a quad or a box, the
+// four-float reductions of the pack cotangents into per-block partials
+// in device memory (add_slot), and the fixed-order reduction of those
+// partials.
 
 #pragma once
 
@@ -27,6 +28,15 @@ __host__ __device__ constexpr int grad_rows(bool moving) {
 }
 // Rows of a reduction group of per-block partials.
 constexpr int kReduceGroup = 64;
+// The columns of a quad's and a box's cotangents in the partials
+// (megakernel_vjp.py QUAD_MAT_ROWS, BOX_GRAD_ROWS): aux, color1 and
+// color2 at a sphere's (kAccAux, kAccColor1, kAccColor2); a quad's frame
+// normal n xyz at 0-2 and d_plane at 3 (geometry.quad_frame_vjp takes
+// them to q, u, v); a box's center at 0-2, cos at 3, sin at 11 and half
+// extents at 12-14. kSolidRows: the columns either fills.
+constexpr int kQuadAccPlane = 3;
+constexpr int kBoxAccCos = 3, kBoxAccSin = 11, kBoxAccHalf = 12;
+constexpr int kSolidRows = 15;
 
 // The input of one replayed bounce.
 struct Record {
@@ -40,7 +50,8 @@ __device__ __forceinline__ float dot3(const float* a, const float* b) {
 
 // Where scatter_adjoint puts the winner's pack cotangents, one add() a
 // gradient row (accumulator order): RowSums keeps them for the caller,
-// which adds them to its block's partials with add_slot.
+// which adds them to its block's partials with add_slot. The adjoints
+// that fill only some rows take it zeroed (RowSums<k> sums{}).
 template <int kRows>
 struct RowSums {
   float g[kRows];
@@ -271,6 +282,301 @@ __device__ __forceinline__ void scatter_adjoint(
   }
   sink.add(kAccR2, -g_cc);
 
+  for (int j = 0; j < 3; ++j) {
+    go[j] = g_o[j];
+    gd[j] = g_d[j];
+    gt[j] = g_thr[j];
+  }
+}
+
+// The material rows of a winner (shade_material's `mat` and `stride`):
+// sphere slot `slot` of the pack sph (24, n_slots), or quad or box
+// `slot` of sv's packs.
+__device__ __forceinline__ const float* winner_material(const float* sph,
+                                                       int n_slots,
+                                                       const Solids* sv,
+                                                       int fam, int slot,
+                                                       int& stride) {
+  if (fam == kFamQuad) {
+    stride = sv->quad_slots;
+    return sv->quad + kQuadMatRow * stride + slot;
+  }
+  if (fam == kFamBox) {
+    stride = sv->box_slots;
+    return sv->box + kBoxMatRow * stride + slot;
+  }
+  stride = n_slots;
+  return sph + kRowMatType * n_slots + slot;
+}
+
+// Where a winner's cotangents start in a block's row of the partials:
+// kSlotCols floats a slot, the n_slots spheres', then sv's active quads',
+// then its boxes'.
+__device__ __forceinline__ int winner_column(int n_slots, const Solids* sv,
+                                             int fam, int slot) {
+  const int i = fam == kFamQuad
+                    ? n_slots + slot
+                    : (fam == kFamBox ? n_slots + sv->n_quads + slot : slot);
+  return i * kSlotCols;
+}
+
+// Adjoint of the bounce that ends a path on a diffuse_light (either
+// side), winner code rec.win: the pending radiance gains thr * albedo.
+// kept: what the replay kept (kept[0]: the checker parity); dr: the
+// pending radiance's cotangent. ADDS the throughput's cotangent to gt,
+// and the albedo's to the light's color rows in `acc` (the block's row
+// of the partials).
+__device__ __forceinline__ void emit_adjoint(const float* sph, int n_slots,
+                                             const Solids& sv,
+                                             const Record& rec,
+                                             const float* kept,
+                                             const float* dr, float* gt,
+                                             float* acc) {
+  int slot, stride;
+  const int fam = code_family(rec.win, slot);
+  const float* mat = winner_material(sph, n_slots, &sv, fam, slot, stride);
+  const bool c2 = kept[0] != 0.0f;
+  const int row = c2 ? kMatColor2 : kMatColor1;
+  RowSums<kSolidRows> sums{};
+  for (int j = 0; j < 3; ++j) {
+    gt[j] += dr[j] * mat[(row + j) * stride];
+    sums.add((c2 ? kAccColor2 : kAccColor1) + j, dr[j] * rec.thr[j]);
+  }
+  add_slot<kSolidRows>(acc + winner_column(n_slots, &sv, fam, slot), sums.g);
+}
+
+// The material half of a scattering bounce's adjoint, for a shade `sh`
+// of the winner recomputed with kForAdjoint: from gd and gt, the
+// cotangents of the new direction and throughput, the throughput's
+// (g_thr), the albedo's (g_alb), the face normal's (g_n), the incoming
+// direction's through its unit vector (g_d) and |d|^2 (g_a), and aux's
+// (g_aux). scatter_adjoint's arithmetic; the sphere's copy there stays
+// as it was, so that the sphere variants compile unchanged.
+__device__ __forceinline__ void material_adjoint(
+    const Shade& sh, const Record& rec, float a, const float* gd,
+    const float* gt, float* g_thr, float* g_alb, float* g_n, float* g_d,
+    float& g_a, float& g_aux) {
+  const bool is_lam = sh.mtype == kMatLambertian;
+  const bool is_met = sh.mtype == kMatMetal;
+  const bool is_die = sh.mtype == kMatDielectric;
+  const float* n = sh.n;
+  for (int j = 0; j < 3; ++j) {
+    g_thr[j] = is_die ? gt[j] : gt[j] * sh.alb[j];
+    g_alb[j] = is_die ? 0.0f : gt[j] * rec.thr[j];
+    g_n[j] = 0.0f;
+    g_d[j] = 0.0f;
+  }
+  g_a = 0.0f;
+  g_aux = 0.0f;
+  if (is_lam) {  // n + unit, or n when degenerate
+    for (int j = 0; j < 3; ++j) g_n[j] += gd[j];
+  } else if (is_met || is_die) {
+    float g_rf[3] = {0.0f, 0.0f, 0.0f};
+    float g_ud[3] = {0.0f, 0.0f, 0.0f};
+    float g_udn = 0.0f;
+    if (is_met) {  // rf + aux * sv
+      for (int j = 0; j < 3; ++j) g_rf[j] = gd[j];
+      g_aux += dot3(gd, sh.sv);
+    } else if (sh.reflect) {
+      for (int j = 0; j < 3; ++j) g_rf[j] = gd[j];
+    } else {  // rp - rlen * n, rp = ratio * (ud + cos_t * n)
+      const float rpar_sq =
+          1.0f - (sh.rp[0] * sh.rp[0] + sh.rp[1] * sh.rp[1] +
+                  sh.rp[2] * sh.rp[2]);
+      const bool refr_ok = rpar_sq > 1e-12f;
+      const float rlen = refr_ok ? sqrtf(rpar_sq) : 0.0f;
+      float g_rp[3];
+      const float g_rlen = -dot3(gd, n);
+      for (int j = 0; j < 3; ++j) {
+        g_rp[j] = gd[j];
+        g_n[j] += -rlen * gd[j];
+      }
+      if (refr_ok) {
+        const float g_rpsq = g_rlen * 0.5f / rlen;
+        for (int j = 0; j < 3; ++j) g_rp[j] += -2.0f * g_rpsq * sh.rp[j];
+      }
+      float w[3], g_w[3];
+      for (int j = 0; j < 3; ++j) {
+        w[j] = sh.ud[j] + sh.cos_t * n[j];
+        g_w[j] = sh.ratio * g_rp[j];
+        g_ud[j] += g_w[j];
+        g_n[j] += sh.cos_t * g_w[j];
+      }
+      const float g_ratio = dot3(g_rp, w);
+      const float g_cos = dot3(g_w, n);
+      if (-sh.ud_n <= 1.0f) g_udn += -g_cos;  // cos_t = min(-ud_n, 1)
+      if (sh.front) {  // ratio = 1 / aux (guarded), else aux
+        if (sh.aux > 1e-10f) g_aux += -g_ratio / (sh.aux * sh.aux);
+      } else {
+        g_aux += g_ratio;
+      }
+    }
+    // rf = ud - 2 ud_n n
+    const float g_rf_n = dot3(g_rf, n);
+    for (int j = 0; j < 3; ++j) {
+      g_ud[j] += g_rf[j];
+      g_n[j] += -2.0f * sh.ud_n * g_rf[j];
+    }
+    g_udn += -2.0f * g_rf_n;
+    // ud_n = ud . n
+    for (int j = 0; j < 3; ++j) {
+      g_ud[j] += g_udn * n[j];
+      g_n[j] += g_udn * sh.ud[j];
+    }
+    // ud = d / max(|d|, 1e-20)
+    const float g_inv_dl = dot3(g_ud, rec.d);
+    for (int j = 0; j < 3; ++j) g_d[j] += g_ud[j] * sh.inv_dl;
+    const float len = sqrtf(a);
+    if (len > 1e-20f) {
+      g_a += -g_inv_dl * sh.inv_dl * sh.inv_dl * 0.5f / len;
+    }
+  }
+}
+
+// Adjoint of a scattering bounce on quad or box `slot` (fam) of the
+// staged solids sv: diff_step's quad and box branches with survives =
+// true. The forward's t is recomputed alone (solid_t, its bits) and the
+// winner reshaded from what the replay kept (shade_material's
+// kForAdjoint). A quad's t is (d_plane - n.o) / (n.d) and its normal
+// n / |n|; a box's t is that of its face nearest the forward's t, (side
+// h_k - o_k) / d_k in the box's frame, and its normal the frame axis
+// solid_surface picks, rotated back: the face, the axis and their signs
+// are detached. In: go, gd, gt, the cotangents of the new origin,
+// direction and throughput; out: those of the bounce's input. The
+// winner's cotangents go to `sink` (zeroed by the caller) in the quad's
+// or box's columns (kQuadAccPlane, kBoxAccCos, ...).
+template <class Sink>
+__device__ __forceinline__ void solid_scatter_adjoint(
+    const Solids& sv, int fam, int slot, const Record& rec, uint32_t k0,
+    uint32_t k1, int bounce, float t_min, float* go, float* gd, float* gt,
+    Sink& sink, float* kept) {
+  Ray ray;
+  ray.ox = rec.o[0]; ray.oy = rec.o[1]; ray.oz = rec.o[2];
+  ray.dx = rec.d[0]; ray.dy = rec.d[1]; ray.dz = rec.d[2];
+  ray.time = 0.0f;
+  const RayDots q = ray_dots(ray);
+  const float t = solid_t(sv, fam, slot, ray, q, t_min);
+  Shade sh;
+  for (int j = 0; j < 3; ++j) sh.h[j] = rec.o[j] + t * rec.d[j];
+  float out[3];
+  int stride;
+  const float* mat = solid_surface(sv, fam, slot, sh.h, out, stride);
+  shade_material<true>(mat, stride, ray, q.a, out, k0, k1, bounce, sh,
+                       kept);
+
+  float g_thr[3], g_alb[3], g_n[3], g_d[3], g_a, g_aux;
+  material_adjoint(sh, rec, q.a, gd, gt, g_thr, g_alb, g_n, g_d, g_a,
+                   g_aux);
+  for (int j = 0; j < 3; ++j) {
+    sink.add(kAccColor1 + j, sh.use_c2 ? 0.0f : g_alb[j]);
+    sink.add(kAccColor2 + j, sh.use_c2 ? g_alb[j] : 0.0f);
+  }
+  sink.add(kAccAux, g_aux);
+
+  // --- the hit point h = o + t d; the outward normal's cotangent.
+  float g_o[3], g_out[3];
+  for (int j = 0; j < 3; ++j) {
+    g_o[j] = go[j];
+    g_d[j] += t * go[j] + 2.0f * g_a * rec.d[j];  // and a = d.d
+    g_out[j] = g_n[j] * sh.sgn;
+  }
+  const float g_t = dot3(go, rec.d);
+
+  if (fam == kFamQuad) {
+    const float4 nw = sv.qn[slot];
+    const float n[3] = {nw.x, nw.y, nw.z};
+    // out = n rsqrt(n.n), guarded as diff_step.
+    const float nn = dot3(n, n);
+    const float qinv = rsqrtf(nn > 1e-20f ? nn : 1.0f);
+    const float g_nn =
+        nn > 1e-20f ? dot3(g_out, n) * -0.5f * qinv * qinv * qinv : 0.0f;
+    // t = (d_plane - o.n) / (d.n)
+    const float denom = dot3(rec.d, n);
+    const float inv = 1.0f / denom;
+    const float num = nw.w - dot3(rec.o, n);
+    const float g_num = g_t * inv;
+    const float g_den = -g_t * num * inv * inv;
+    for (int j = 0; j < 3; ++j) {
+      sink.add(j, g_out[j] * qinv + 2.0f * g_nn * n[j] - g_num * rec.o[j] +
+                      g_den * rec.d[j]);
+      g_o[j] += -g_num * n[j];
+      g_d[j] += g_den * n[j];
+    }
+    sink.add(kQuadAccPlane, g_num);
+  } else {
+    const float4 c4 = sv.bc[slot];
+    const float4 h4 = sv.bh[slot];
+    const float cth = c4.w, sth = h4.w;
+    // The normal: out = (cth nbx + sth nbz, nby, -sth nbx + cth nbz).
+    const float wx = sh.h[0] - c4.x, wy = sh.h[1] - c4.y,
+                wz = sh.h[2] - c4.z;
+    const float qx = cth * wx - sth * wz;
+    const float qz = sth * wx + cth * wz;
+    const float fx = fabsf(qx) - h4.x;
+    const float fy = fabsf(wy) - h4.y;
+    const float fz = fabsf(qz) - h4.z;
+    const bool use_x = fx >= fy && fx >= fz;
+    const bool use_y = !use_x && fy >= fz;
+    const float nbx = use_x ? (qx >= 0.0f ? 1.0f : -1.0f) : 0.0f;
+    const float nbz = use_x || use_y ? 0.0f : (qz >= 0.0f ? 1.0f : -1.0f);
+    float g_cos = g_out[0] * nbx + g_out[2] * nbz;
+    float g_sin = g_out[0] * nbz - g_out[2] * nbx;
+    // t: the face (axis k, side) whose t is nearest the forward's.
+    const float bw[3] = {rec.o[0] - c4.x, rec.o[1] - c4.y, rec.o[2] - c4.z};
+    const float half[3] = {h4.x, h4.y, h4.z};
+    float ob[3], db[3];
+    ob[0] = cth * bw[0] - sth * bw[2];
+    db[0] = cth * rec.d[0] - sth * rec.d[2];
+    ob[1] = bw[1];
+    db[1] = rec.d[1];
+    ob[2] = sth * bw[0] + cth * bw[2];
+    db[2] = sth * rec.d[0] + cth * rec.d[2];
+    int axis = 0;
+    float side = -1.0f, best = kInf;
+    for (int k = 0; k < 3; ++k) {
+      if (!(fabsf(db[k]) > 1e-12f)) continue;
+      const float inv_db = 1.0f / db[k];
+      for (int sgn = -1; sgn <= 1; sgn += 2) {
+        const float err =
+            fabsf((static_cast<float>(sgn) * half[k] - ob[k]) * inv_db - t);
+        if (err < best) {
+          best = err;
+          axis = k;
+          side = static_cast<float>(sgn);
+        }
+      }
+    }
+    // t = (side h_k - ob_k) / db_k
+    const float inv_db = 1.0f / db[axis];
+    const float g_ob = -g_t * inv_db;
+    const float g_db = -g_t * (side * half[axis] - ob[axis]) * inv_db * inv_db;
+    sink.add(kBoxAccHalf + axis, side * g_t * inv_db);
+    float g_w[3] = {0.0f, 0.0f, 0.0f};
+    if (axis == 0) {  // ob = cth wx - sth wz, db = cth dx - sth dz
+      g_cos += g_ob * bw[0] + g_db * rec.d[0];
+      g_sin += -g_ob * bw[2] - g_db * rec.d[2];
+      g_w[0] = g_ob * cth;
+      g_w[2] = -g_ob * sth;
+      g_d[0] += g_db * cth;
+      g_d[2] += -g_db * sth;
+    } else if (axis == 1) {
+      g_w[1] = g_ob;
+      g_d[1] += g_db;
+    } else {  // ob = sth wx + cth wz, db = sth dx + cth dz
+      g_sin += g_ob * bw[0] + g_db * rec.d[0];
+      g_cos += g_ob * bw[2] + g_db * rec.d[2];
+      g_w[0] = g_ob * sth;
+      g_w[2] = g_ob * cth;
+      g_d[0] += g_db * sth;
+      g_d[2] += g_db * cth;
+    }
+    for (int j = 0; j < 3; ++j) {  // w = o - center
+      g_o[j] += g_w[j];
+      sink.add(j, -g_w[j]);
+    }
+    sink.add(kBoxAccCos, g_cos);
+    sink.add(kBoxAccSin, g_sin);
+  }
   for (int j = 0; j < 3; ++j) {
     go[j] = g_o[j];
     gd[j] = g_d[j];

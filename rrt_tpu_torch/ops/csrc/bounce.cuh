@@ -95,6 +95,32 @@ constexpr float kMatLambertian = 0.0f, kMatMetal = 1.0f,
 // Families of a closest hit (rrt_tpu.geometry's FAM_*).
 constexpr int kFamNone = -1, kFamSphere = 0, kFamQuad = 1, kFamBox = 3;
 
+// A winner as one int (train_fwd's int16 residual, the backwards'
+// records; ops/megakernel.py encode_winner): a sphere's slot, kQuadCode
+// + a quad's, kBoxCode + a box's; -1 a miss. kQuadCode is the most
+// sphere slots a kernel stages (MAX_SLOTS), kBoxCode adds the most quads
+// (kSolidCap).
+constexpr int kQuadCode = 3072, kBoxCode = 3072 + 64;
+
+__device__ __forceinline__ int winner_code(int fam, int win) {
+  return fam == kFamQuad ? kQuadCode + win
+                         : (fam == kFamBox ? kBoxCode + win : win);
+}
+
+// The family and slot of a winner code >= 0.
+__device__ __forceinline__ int code_family(int code, int& slot) {
+  if (code >= kBoxCode) {
+    slot = code - kBoxCode;
+    return kFamBox;
+  }
+  if (code >= kQuadCode) {
+    slot = code - kQuadCode;
+    return kFamQuad;
+  }
+  slot = code;
+  return kFamSphere;
+}
+
 // What a bounce did: the path banked the background, or ended on a
 // surface, or goes on, or banked a light's emission and ended.
 enum Outcome { kMissed = 0, kAbsorbed = 1, kScattered = 2, kEmitted = 3 };
@@ -286,16 +312,19 @@ __device__ __forceinline__ float nearest_root(const Quadratic& k,
 // vel4: rows 4-6 (kMoving only), the center at the ray's time being
 // base + time * vel. With kCsq (static spheres only), csq holds each
 // slot's center_sq (stage_center_sq), the same bits as computing it
-// here. Returns t (kInf on a miss) and the winner in `win`.
+// here. Returns t (kInf on a miss) and the winner in `win`. Seeded by
+// another family's t_seed, a sphere must beat it strictly, and t_seed
+// comes back when none does.
 template <bool kMoving, bool kCsq = false>
 __device__ __forceinline__ float closest_sphere(const float4* sph4,
                                                 const float4* vel4,
                                                 int n_slots, const Ray& r,
                                                 const RayDots& q,
                                                 float t_min, int& win,
-                                                const float* csq = nullptr) {
+                                                const float* csq = nullptr,
+                                                float t_seed = kInf) {
   static_assert(!(kMoving && kCsq), "a moving center's |c|^2 varies");
-  float t_best = kInf;
+  float t_best = t_seed;
   win = 0;
   for (int i = 0; i < n_slots; ++i) {
     const float4 c = slot_center<kMoving>(sph4, vel4, i, r.time);
@@ -403,7 +432,8 @@ __device__ __forceinline__ void refract(Shade& sh) {
 // outward normal `out`, its material and texture at the hit point sh.h
 // (the rows from `mat` on, a row `stride` floats apart: kMatType ...),
 // and the scatter (shade's `kept` and kForAdjoint). With kEmit, a
-// diffuse_light draws nothing and does not scatter.
+// diffuse_light draws nothing and does not scatter, and keeps its
+// checker parity in kept[0] (1 or 0: the emission's adjoint reads it).
 template <bool kForAdjoint, bool kEmit = false>
 __device__ __forceinline__ void shade_material(const float* mat, int stride,
                                                const Ray& r, float a,
@@ -450,6 +480,7 @@ __device__ __forceinline__ void shade_material(const float* mat, int stride,
   if constexpr (kEmit) {
     if (sh.mtype == kMatDiffuseLight) {  // emits sh.alb; draws nothing
       sh.scattered = false;
+      if (kept != nullptr) kept[0] = sh.use_c2 ? 1.0f : 0.0f;
       return;
     }
   }
@@ -659,6 +690,42 @@ __device__ __forceinline__ void slab(float ob, float db, float hk, float& lo,
   hi = fminf(hi, b_t - a_t);
 }
 
+// Quad i's test: its plane's t, and whether the ray hits the
+// parallelogram beyond t_min (d_len = |d|).
+__device__ __forceinline__ bool quad_hit(const Solids& sv, int i,
+                                         const Ray& r, float d_len,
+                                         float t_min, float& t) {
+  const float4 n = sv.qn[i];
+  const float denom = r.dx * n.x + r.dy * n.y + r.dz * n.z;
+  const float o_n = r.ox * n.x + r.oy * n.y + r.oz * n.z;
+  const bool not_par = fabsf(denom) > sv.qe[i] * d_len;
+  t = (n.w - o_n) / (not_par ? denom : 1.0f);
+  const float4 g = sv.qg[i];
+  const float4 h = sv.qh[i];
+  const float alpha = (r.ox * g.x + r.oy * g.y + r.oz * g.z) +
+                      t * (r.dx * g.x + r.dy * g.y + r.dz * g.z) - g.w;
+  const float beta = (r.ox * h.x + r.oy * h.y + r.oz * h.z) +
+                     t * (r.dx * h.x + r.dy * h.y + r.dz * h.z) - h.w;
+  return not_par && t > t_min && alpha >= 0.0f && alpha <= 1.0f &&
+         beta >= 0.0f && beta <= 1.0f;
+}
+
+// Box i's slab test: its t (the far face from inside), and whether the
+// ray enters it beyond t_min.
+__device__ __forceinline__ bool box_hit(const Solids& sv, int i,
+                                        const Ray& r, float t_min,
+                                        float& t) {
+  const float4 c = sv.bc[i];
+  const float4 h = sv.bh[i];
+  const float wx = r.ox - c.x, wy = r.oy - c.y, wz = r.oz - c.z;
+  float lo = -kInf, hi = kInf;
+  slab(c.w * wx - h.w * wz, c.w * r.dx - h.w * r.dz, h.x, lo, hi);
+  slab(wy, r.dy, h.y, lo, hi);
+  slab(h.w * wx + c.w * wz, h.w * r.dx + c.w * r.dz, h.z, lo, hi);
+  t = lo > t_min ? lo : hi;  // inside: the far face
+  return lo < hi && t > t_min;
+}
+
 // The closest quad, then box, with a strict `<` running minimum over the
 // active slots in order (a quad wins an exact tie with a box): t (kInf
 // on a miss), its family (kFamNone on a miss) and slot.
@@ -671,40 +738,36 @@ __device__ __forceinline__ float closest_solid(const Solids& sv,
   win = 0;
   const float d_len = sqrtf(q.a);
   for (int i = 0; i < sv.n_quads; ++i) {
-    const float4 n = sv.qn[i];
-    const float denom = r.dx * n.x + r.dy * n.y + r.dz * n.z;
-    const float o_n = r.ox * n.x + r.oy * n.y + r.oz * n.z;
-    const bool not_par = fabsf(denom) > sv.qe[i] * d_len;
-    const float t = (n.w - o_n) / (not_par ? denom : 1.0f);
-    const float4 g = sv.qg[i];
-    const float4 h = sv.qh[i];
-    const float alpha = (r.ox * g.x + r.oy * g.y + r.oz * g.z) +
-                        t * (r.dx * g.x + r.dy * g.y + r.dz * g.z) - g.w;
-    const float beta = (r.ox * h.x + r.oy * h.y + r.oz * h.z) +
-                       t * (r.dx * h.x + r.dy * h.y + r.dz * h.z) - h.w;
-    if (not_par && t > t_min && t < t_best && alpha >= 0.0f &&
-        alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f) {
+    float t;
+    if (quad_hit(sv, i, r, d_len, t_min, t) && t < t_best) {
       t_best = t;
       fam = kFamQuad;
       win = i;
     }
   }
   for (int i = 0; i < sv.n_boxes; ++i) {
-    const float4 c = sv.bc[i];
-    const float4 h = sv.bh[i];
-    const float wx = r.ox - c.x, wy = r.oy - c.y, wz = r.oz - c.z;
-    float lo = -kInf, hi = kInf;
-    slab(c.w * wx - h.w * wz, c.w * r.dx - h.w * r.dz, h.x, lo, hi);
-    slab(wy, r.dy, h.y, lo, hi);
-    slab(h.w * wx + c.w * wz, h.w * r.dx + c.w * r.dz, h.z, lo, hi);
-    const float t = lo > t_min ? lo : hi;  // inside: the far face
-    if (lo < hi && t > t_min && t < t_best) {
+    float t;
+    if (box_hit(sv, i, r, t_min, t) && t < t_best) {
       t_best = t;
       fam = kFamBox;
       win = i;
     }
   }
   return t_best;
+}
+
+// The closest_solid test of quad or box `slot` alone (fam kFamQuad or
+// kFamBox): its t, kInf when the ray misses it, by closest_solid's
+// arithmetic on the same staged rows, so a recomputed winner has the
+// forward's t bit for bit.
+__device__ __forceinline__ float solid_t(const Solids& sv, int fam, int slot,
+                                         const Ray& r, const RayDots& q,
+                                         float t_min) {
+  float t;
+  const bool hit = fam == kFamQuad
+                       ? quad_hit(sv, slot, r, sqrtf(q.a), t_min, t)
+                       : box_hit(sv, slot, r, t_min, t);
+  return hit ? t : kInf;
 }
 
 // The outward normal of solid `win` of family `fam` at the hit point h,
@@ -842,7 +905,8 @@ __device__ __forceinline__ float closest_hit(const Closest& closest,
 // One bounce of a path: the closest hit by `closest` (SlotScan or
 // BvhWalk, below: the same (t, win) bit for bit; with kSolids seeded by
 // the quads and boxes of `sv`, closest_hit), then finish_bounce. `win`
-// is the winner, -1 on a miss; `kept`: as shade's.
+// is the winner, -1 on a miss (with kSolids its winner_code); `kept`: as
+// shade's.
 template <bool kMoving, bool kSolids = false, typename Closest>
 __device__ __forceinline__ int bounce_step(const Closest& closest,
                                            const float* sph, int n_slots,
@@ -861,9 +925,12 @@ __device__ __forceinline__ int bounce_step(const Closest& closest,
     int fam;
     const float t_best = closest_hit<true>(closest, sv, p.ray, q, t_min, fam,
                                            win);
-    return finish_bounce<kMoving, true>(sph, n_slots, bg, sky, k0, k1,
-                                        bounce, max_depth, q, t_best, p, rad,
-                                        win, kept, fam, sv);
+    const int out = finish_bounce<kMoving, true>(sph, n_slots, bg, sky, k0,
+                                                 k1, bounce, max_depth, q,
+                                                 t_best, p, rad, win, kept,
+                                                 fam, sv);
+    win = winner_code(fam, win);
+    return out;
   }
 }
 
@@ -914,7 +981,7 @@ __device__ __forceinline__ void stage_center_sq(const float* sph,
 
 // Shared memory of a block's staged sphere rows: one float4 a slot, two
 // with moving spheres; vel4 starts n_slots float4 after sph4.
-inline size_t staged_bytes(int n_slots, bool moving) {
+__host__ __device__ inline size_t staged_bytes(int n_slots, bool moving) {
   return sizeof(float4) * static_cast<size_t>(n_slots) * (moving ? 2 : 1);
 }
 
@@ -940,9 +1007,10 @@ struct SlotScan {
   const float* csq;
   int n_slots;
   __device__ __forceinline__ float operator()(const Ray& r, const RayDots& q,
-                                              float t_min, int& win) const {
+                                              float t_min, int& win,
+                                              float t_seed = kInf) const {
     return closest_sphere<kMoving, kCsq>(sph4, vel4, n_slots, r, q, t_min,
-                                         win, csq);
+                                         win, csq, t_seed);
   }
 };
 
@@ -1135,7 +1203,8 @@ struct BvhWalk {
 // seeded by the quads and boxes of `sv`). With kResidual
 // (train_fwd) it keeps the backward's residual: each path's bounce
 // count in lengths[s * n_pix + gid], and the winner of the pixel's j-th
-// segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss).
+// segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss;
+// with kSolids its winner_code).
 template <bool kMoving, bool kResidual, bool kSolids = false,
           typename Closest>
 __device__ __forceinline__ void trace_pixel(

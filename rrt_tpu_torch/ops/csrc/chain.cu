@@ -2,8 +2,11 @@
 // state and sweep them in reverse.
 //
 // chain_bwd_kernel replaces rrt_tpu/ops/megakernel_vjp.py::_bwd_kernel
-// (body _bwd_tile_body, launched by _bwd_call) for the sphere subset of
-// tile_render.cu, static and moving spheres (a kMoving instantiation).
+// (body _bwd_tile_body, launched by _bwd_call) for the scenes of
+// tile_render.cu: static and moving spheres (a kMoving instantiation),
+// and quads, boxes rotated about Y and diffuse_light (a kSolids
+// instantiation: the solid families staged after the BVH, as
+// bounce_steps_kernel stages them).
 // rrt_tpu_torch/ops/megakernel_vjp.py holds the wrapper
 // (chain_adjoint), its plain PyTorch version (chain_adjoint_reference)
 // and the autograd.Function BounceChain, whose forward is queue.cu's
@@ -15,9 +18,11 @@
 //     shared memory), the function bounce_steps_kernel runs, from the
 //     chain's saved input state and the lane's key, with the bounce
 //     counter of state row 13, so its decisions are the forward's bit for
-//     bit; it keeps a record of each bounce (origin, direction,
-//     throughput, winner) and what its scatter draws decided (`kept`: a
-//     metal's point in the unit sphere, a dielectric's reflection) in
+//     bit (with kSolids the walk seeded by the quads and boxes, as the
+//     forward's); it keeps a record of each bounce (origin, direction,
+//     throughput, winner or its winner_code) and what its scatter draws
+//     decided (`kept`: a metal's point in the unit sphere, a dielectric's
+//     reflection, a light's checker parity) in
 //     thread-local storage (kMaxRecords; the wrapper refuses k_steps
 //     above it);
 //  2. counts in `mismatches` a lane whose replayed bounce row differs
@@ -28,8 +33,10 @@
 //     train.cu), which reshades the winner from its record and what the
 //     replay kept, so the sweep draws nothing; the bounce that missed
 //     passes o, d and throughput through and adds the background's
-//     adjoint with the pending radiance's cotangent; a bounce that ends
-//     on a surface (absorbed, or a hit at max_depth) is the identity.
+//     adjoint with the pending radiance's cotangent, the one that ends on
+//     a light adds its emission's (emit_adjoint); a bounce that ends on a
+//     surface (absorbed, or a hit at max_depth) is the identity. A quad's
+//     or box's bounce goes through solid_scatter_adjoint.
 //     Pending radiance passes through every bounce; so does time, which
 //     with moving spheres also gains each scattering bounce's vel . (the
 //     center's cotangent), as rrt_tpu's _make_diff_step gives it under
@@ -38,7 +45,8 @@
 // input cotangent is the output's, the GPU form of the TPU kernel's
 // dead-tile pass-through. Rows 13-15 (bounce, alive, traced) get none.
 //
-// The sphere pack's 12 (15 moving) gradient rows accumulate as in
+// The sphere pack's 12 (15 moving) gradient rows, and with kSolids the
+// active quads' and boxes' columns after them, accumulate as in
 // train_bwd: each scattering bounce adds its winner's cotangents to its
 // block's row of per-block partials in device memory (kSlotCols floats a
 // slot, zeroed by the block first) with four-float atomic reductions
@@ -78,11 +86,13 @@ constexpr int kBgCols = 8;  // 6 background rows, 2 pad
 
 // The backward of one lane: writes its rows of d_in, adds its pack
 // cotangents to `acc` (its block's row of the partials, kSlotCols floats
-// a slot) and its background ones to g_bg.
-template <bool kMoving>
+// a slot: the spheres', then with kSolids the active quads' and boxes')
+// and its background ones to g_bg.
+template <bool kMoving, bool kSolids>
 __device__ __forceinline__ void adjoint_lane(
     const BvhWalk<kMoving>& walk, const float* sph, int n_slots,
-    const float* bg, const float* st, const uint32_t* keys, size_t n,
+    const Solids& sv, const float* bg, const float* st,
+    const uint32_t* keys, size_t n,
     int lane, const float* d_out, const float* out_bounce, int k_steps,
     int max_depth, float t_min, float* d_in, float* acc, float* g_bg,
     int* mismatches) {
@@ -118,9 +128,9 @@ __device__ __forceinline__ void adjoint_lane(
     r.d[0] = p.ray.dx; r.d[1] = p.ray.dy; r.d[2] = p.ray.dz;
     r.thr[0] = p.thr[0]; r.thr[1] = p.thr[1]; r.thr[2] = p.thr[2];
     float c[3];
-    last = bounce_step<kMoving>(walk, sph, n_slots, bg, sky, k0, k1,
-                                bounce0 + k, max_depth, t_min, p, c, r.win,
-                                kept[k]);
+    last = bounce_step<kMoving, kSolids>(walk, sph, n_slots, bg, sky, k0, k1,
+                                         bounce0 + k, max_depth, t_min, p, c,
+                                         r.win, kept[k], &sv);
     if (last != kScattered) break;
   }
   // 2. the replay must end on the forward's bounce row.
@@ -142,8 +152,25 @@ __device__ __forceinline__ void adjoint_lane(
   if (last == kMissed) {
     miss_adjoint(rec[k], gp, bg, sky, gd, gt, g_bg);
   }
-  if (last != kScattered) --k;  // a surface that ends the path: identity
+  if constexpr (kSolids) {
+    if (last == kEmitted) emit_adjoint(sph, n_slots, sv, rec[k], kept[k], gp,
+                                       gt, acc);
+  }
+  // A surface that absorbs or ends the depth: the identity.
+  if (last != kScattered) --k;
   for (; k >= 0; --k) {
+    if constexpr (kSolids) {
+      int slot;
+      const int fam = code_family(rec[k].win, slot);
+      if (fam != kFamSphere) {
+        RowSums<kSolidRows> sums{};
+        solid_scatter_adjoint(sv, fam, slot, rec[k], k0, k1, bounce0 + k,
+                              t_min, go, gd, gt, sums, kept[k]);
+        add_slot<kSolidRows>(acc + winner_column(n_slots, &sv, fam, slot),
+                             sums.g);
+        continue;
+      }
+    }
     RowSums<grad_rows(kMoving)> sums;
     scatter_adjoint<kMoving, decltype(sums), true>(
         sph, n_slots, rec[k], k0, k1, bounce0 + k, t_min, p.ray.time, go, gd,
@@ -159,29 +186,40 @@ __device__ __forceinline__ void adjoint_lane(
   dsi[kStTime * n] = g_time;
 }
 
-template <bool kMoving>
+template <bool kMoving, bool kSolids>
 __global__ void __launch_bounds__(kThreads)
     chain_bwd_kernel(const float* __restrict__ st,
                      const uint32_t* __restrict__ keys, int q,
                      const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ nodes_g,
                      const int* __restrict__ rows_g, int n_nodes, int n_rows,
-                     int n_always, const float* __restrict__ bg_g,
+                     int n_always, const float* __restrict__ quad,
+                     int quad_slots, int n_quads,
+                     const float* __restrict__ box, int box_slots,
+                     int n_boxes, const float* __restrict__ bg_g,
                      const float* __restrict__ d_out,
                      const float* __restrict__ out_bounce, int k_steps,
                      int max_depth, float t_min, float* __restrict__ d_in,
                      float* __restrict__ partials,
                      int* __restrict__ mismatches) {
-  // Dynamic shared memory (bvh_bytes): the staged BVH. The pack
+  // Dynamic shared memory (bvh_bytes): the staged BVH, then with kSolids
+  // the solid families (as bounce_steps_kernel stages them). The pack
   // cotangents go to this block's row of the partials, zeroed here.
   extern __shared__ float4 smem[];
   __shared__ float bg[8];
   __shared__ float warp_part[kThreads / 32][kBgCols];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
+  Solids sv{};
+  if constexpr (kSolids) {
+    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
+                      smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
+                                 sizeof(float4));
+  }
   const int tid = threadIdx.x;
   if (tid < 8) bg[tid] = bg_g[tid];
-  const int n_acc = kSlotCols * n_slots;
+  const int n_acc =
+      kSlotCols * (kSolids ? n_slots + n_quads + n_boxes : n_slots);
   float* out =
       partials + blockIdx.x * (static_cast<size_t>(n_acc) + kBgCols);
   for (int i = tid; i < n_acc; i += kThreads) out[i] = 0.0f;
@@ -190,10 +228,10 @@ __global__ void __launch_bounds__(kThreads)
   float g_bg[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const int lane = blockIdx.x * blockDim.x + tid;
   if (lane < q) {  // no early return: all threads sync below
-    adjoint_lane<kMoving>(walk, sph, n_slots, bg, st, keys,
-                          static_cast<size_t>(q), lane, d_out, out_bounce,
-                          k_steps, max_depth, t_min, d_in, out, g_bg,
-                          mismatches);
+    adjoint_lane<kMoving, kSolids>(walk, sph, n_slots, sv, bg, st, keys,
+                                   static_cast<size_t>(q), lane, d_out,
+                                   out_bounce, k_steps, max_depth, t_min,
+                                   d_in, out, g_bg, mismatches);
   }
 
   // Background: warp sums, then warps in order.
@@ -215,42 +253,53 @@ __global__ void __launch_bounds__(kThreads)
 // The chain's backward on `stream`; returns cudaGetLastError() (0 on
 // success). st: the chain's input state (16, q) f32; keys: (2, q) u32;
 // sph: (24, n_slots) f32; the BVH as rrt_tile_render's, the one the
-// forward walked; bg: (8,) f32; d_out: (16, q) f32, the output state's
-// cotangent; out_bounce: (q,) f32, the forward output's bounce row;
-// moving: nonzero for the moving-sphere variant. Outputs: d_in (16, q)
-// f32; scratch: (n_blocks + ceil(n_blocks / 64)) * n_cols f32 with
-// n_blocks = ceil(q / 256) and n_cols = kSlotCols * n_slots + 8; sums:
-// (n_cols,) f32 (slot-major: kSlotCols floats a slot, its 12 (15 when
-// moving) gradient rows then zeros; then 6 background rows, 2 pad);
-// mismatches: one int32, zeroed by the caller.
+// forward walked; solids: the quad and box packs for the solid-family
+// variant, or null, as rrt_bounce_steps'; bg: (8,) f32; d_out: (16, q)
+// f32, the output state's cotangent; out_bounce: (q,) f32, the forward
+// output's bounce row; moving: nonzero for the moving-sphere variant.
+// Outputs: d_in (16, q) f32; scratch: (n_blocks + ceil(n_blocks / 64)) *
+// n_cols f32 with n_blocks = ceil(q / 256) and n_cols = kSlotCols *
+// (n_slots + n_quads + n_boxes) + 8; sums: (n_cols,) f32 (slot-major:
+// kSlotCols floats a slot, a sphere's 12 (15 when moving) gradient rows
+// then zeros, then the active quads' and boxes' columns (adjoint.cuh
+// kQuadAccPlane ...); then 6 background rows, 2 pad); mismatches: one
+// int32, zeroed by the caller.
 extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
                              const float* sph, int n_slots,
                              const float* nodes, const int* rows,
                              int n_nodes, int n_rows, int n_always,
-                             const float* bg, const float* d_out,
-                             const float* out_bounce, int k_steps,
-                             int max_depth, float t_min, int moving,
-                             float* d_in, float* scratch, float* sums,
-                             int* mismatches, void* stream) {
+                             const SolidArgs* solids, const float* bg,
+                             const float* d_out, const float* out_bounce,
+                             int k_steps, int max_depth, float t_min,
+                             int moving, float* d_in, float* scratch,
+                             float* sums, int* mismatches, void* stream) {
   if (k_steps < 1 || k_steps > kMaxRecords) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_cols = kSlotCols * n_slots + kBgCols;
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs& sa = solids != nullptr ? *solids : none;
+  const int n_cols = kSlotCols * (n_slots + sa.n_quads + sa.n_boxes) +
+                     kBgCols;
   if (q == 0) {
     return static_cast<int>(
         cudaMemsetAsync(sums, 0, sizeof(float) * n_cols, s));
   }
-  const size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
-  auto kernel = moving ? chain_bwd_kernel<true> : chain_bwd_kernel<false>;
+  size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
+  if (solids) smem = aligned16(smem) + solid_bytes(sa.n_quads, sa.n_boxes);
+  auto kernel = moving ? (solids ? chain_bwd_kernel<true, true>
+                                 : chain_bwd_kernel<true, false>)
+                       : (solids ? chain_bwd_kernel<false, true>
+                                 : chain_bwd_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_blocks = (q + kThreads - 1) / kThreads;
   kernel<<<n_blocks, kThreads, smem, s>>>(
-      st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always, bg,
-      d_out, out_bounce, k_steps, max_depth, t_min, d_in, scratch,
+      st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
+      sa.quad, sa.quad_slots, sa.n_quads, sa.box, sa.box_slots, sa.n_boxes,
+      bg, d_out, out_bounce, k_steps, max_depth, t_min, d_in, scratch,
       mismatches);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

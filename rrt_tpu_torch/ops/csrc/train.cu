@@ -1,10 +1,12 @@
-// Train kernels: the differentiable tile render of a sphere scene.
+// Train kernels: the differentiable tile render.
 //
 // train_fwd replaces rrt_tpu/ops/megakernel_train.py::_train_fwd_kernel
 // (launched by _fwd_launch), train_bwd replaces _train_bwd_kernel
-// (launched by _bwd_launch), for the sphere subset of tile_render.cu,
-// static and moving spheres (a kMoving instantiation of each, as
-// tile_render's).
+// (launched by _bwd_launch), for the scenes of tile_render.cu: static
+// and moving spheres (a kMoving instantiation of each, as
+// tile_render's), and quads, boxes rotated about Y and diffuse_light
+// (a kSolids instantiation, the Cornell box's; bounce.cuh's solid
+// families, staged in shared memory after the spheres).
 // rrt_tpu_torch/ops/megakernel_train.py holds the wrappers
 // (render_tiles_train, tiles_adjoint, the autograd.Function
 // TileTrainChain) and their plain PyTorch versions.
@@ -15,8 +17,11 @@
 // winners and t bit for bit), so rad and traced are tile_render's bit
 // for bit. It keeps the residual the backward needs:
 //  * lengths[s * P + pixel], each path's executed bounce count (uint8);
-//  * winners[j * P + pixel], the winning slot of the pixel's j-th
-//    segment in trace order (int16, -1 on a miss), for j < win_cap
+//  * winners[j * P + pixel], the winner of the pixel's j-th segment in
+//    trace order (int16: a sphere's slot, or with kSolids bounce.cuh's
+//    winner_code, kQuadCode + a quad's slot or kBoxCode + a box's; -1 on
+//    a miss: 3,072 sphere slots, 64 quads and 64 boxes fit), for j <
+//    win_cap
 //    (the wrapper's WINNERS_PER_SAMPLE = 16 entries a sample, pooled
 //    over the pixel's samples so that a long path borrows what short
 //    ones leave); a segment past the pool is not stored.
@@ -47,8 +52,13 @@
 //     segment with a stored winner recomputes only that slot's quadratic
 //     (slot_t: the scan's arithmetic, so the scan's t bit for bit) and
 //     shades as the forward did; a stored miss banks the background; a
-//     segment past the pool runs the scan. Sample s's first entry is
-//     the sum of the forward's lengths before it;
+//     segment past the pool runs the scan. With kSolids a stored quad
+//     or box winner is recomputed alone too (bounce.cuh solid_t, the
+//     forward's arithmetic on the same staged rows, so its t bit for
+//     bit; replay_solid_step), the scan is seeded by the quads and boxes
+//     as the forward's was, and a light's hit ends the path (kEmitted)
+//     keeping its checker parity. Sample s's first entry is the sum of
+//     the forward's lengths before it;
 //  2. counts in `mismatches` the paths whose replayed length differs
 //     from the forward's, and the stored winners that are no slot or
 //     whose recomputed quadratic gives no root beyond t_min (those
@@ -58,8 +68,9 @@
 //     bounce-chain backward), seeded by d_rad[pixel]: each bounce's
 //     intermediates are recomputed from the record, the winner's pack
 //     column and what the replay kept of its draws, so the sweep draws
-//     nothing (shade's kForAdjoint); the sweep ends in the adjoint of
-//     camera_ray, into d_cam.
+//     nothing (shade's kForAdjoint); a light's emission, a quad's and a
+//     box's bounce go through emit_adjoint and solid_scatter_adjoint;
+//     the sweep ends in the adjoint of camera_ray, into d_cam.
 // With win_cap = 0 (tiles_adjoint(winners=None)) every segment scans,
 // as the replay did before the residual. A sample's radiance enters its
 // pixel's sum with weight 1, so unlike the TPU kernel there is no
@@ -74,6 +85,13 @@
 // a slot, with four-float atomic reductions (add_slot); the camera and
 // background cotangents take a fixed-order warp-shuffle reduction into
 // the same row; reduce_blocks sums the rows in a fixed order of blocks.
+// With kSolids the active quads' and boxes' columns follow the spheres'
+// in the row (adjoint.cuh winner_column): a quad's frame normal and
+// d_plane, a box's center, half extents and rotation, and the material
+// rows of both; the wrapper takes a quad's frame cotangents to its q, u
+// and v (geometry.quad_frame_vjp). Accumulating on the staged frame
+// rows keeps the transpose of geometry.quad_frames out of every
+// segment: it runs once, on at most kSolidCap quads.
 //
 // Determinism: d_cam and d_bg are bit-identical from run to run, and
 // with or without the winners (the same replayed arithmetic). d_sph is
@@ -104,16 +122,41 @@ constexpr int kFwdMinBlocks = 4;
 
 // train_fwd's dynamic shared memory: staged_bytes, and with static
 // spheres a float a slot for its center_sq, computed once while staging.
-inline size_t fwd_smem(int n_slots, bool moving) {
+__host__ __device__ inline size_t fwd_smem(int n_slots, bool moving) {
   return staged_bytes(n_slots, moving) +
          (moving ? 0 : sizeof(float) * n_slots);
 }
 
-template <bool kMoving>
+// The staged solid families (kSolids) after a kernel's `base` bytes of
+// staged spheres at `smem`; the caller syncs the block after.
+template <bool kSolids>
+__device__ __forceinline__ Solids stage_solids_at(
+    float4* smem, size_t base, const float* quad, int quad_slots,
+    int n_quads, const float* box, int box_slots, int n_boxes) {
+  Solids sv{};
+  if constexpr (kSolids) {
+    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
+                      smem + aligned16(base) / sizeof(float4));
+  }
+  return sv;
+}
+
+// A launch's dynamic shared memory: `base` bytes of staged spheres, then
+// the solid families' (solids not null).
+inline size_t with_solids(size_t base, const SolidArgs* solids) {
+  return solids != nullptr
+             ? aligned16(base) + solid_bytes(solids->n_quads, solids->n_boxes)
+             : base;
+}
+
+template <bool kMoving, bool kSolids>
 __global__ void __launch_bounds__(256, kFwdMinBlocks)
     train_fwd_kernel(const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ cam_g,
-                     const float* __restrict__ bg_g, uint32_t s0,
+                     const float* __restrict__ bg_g,
+                     const float* __restrict__ quad, int quad_slots,
+                     int n_quads, const float* __restrict__ box,
+                     int box_slots, int n_boxes, uint32_t s0,
                      uint32_t s1, uint32_t lo, int width, int height,
                      int spp, int max_depth, float t_min, int win_cap,
                      float* __restrict__ rad, int* __restrict__ traced,
@@ -121,7 +164,8 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
                      int16_t* __restrict__ winners) {
   // Dynamic shared memory (fwd_smem): the staged rows of every slot
   // (float4: intersection rows, then velocity rows when moving), then,
-  // for static spheres, every slot's center_sq.
+  // for static spheres, every slot's center_sq; with kSolids, then the
+  // solid families (stage_solids).
   constexpr bool kHoist = !kMoving;
   extern __shared__ float4 sph4[];
   float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
@@ -130,15 +174,19 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
   __shared__ float bg[8];
   stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
   if (kHoist) stage_center_sq(sph, n_slots, csq);
+  const Solids sv = stage_solids_at<kSolids>(
+      sph4, fwd_smem(n_slots, kMoving), quad, quad_slots, n_quads, box,
+      box_slots, n_boxes);
   __syncthreads();
 
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
   const SlotScan<kMoving, kHoist> scan{sph4, vel4, csq, n_slots};
-  trace_pixel<kMoving, true>(scan, sph, n_slots, cam, bg, s0, s1, lo, px, py,
-                             width, width * height, spp, max_depth, t_min,
-                             win_cap, rad, traced, lengths, winners);
+  trace_pixel<kMoving, true, kSolids>(scan, sph, n_slots, cam, bg, s0, s1, lo,
+                                      px, py, width, width * height, spp,
+                                      max_depth, t_min, win_cap, rad, traced,
+                                      lengths, winners, &sv);
 }
 
 // Adjoint of camera_ray: the cotangents of the bounce-0 origin,
@@ -216,14 +264,55 @@ __device__ __forceinline__ int replay_step(
                                 max_depth, q, t_best, p, c, win, kept);
 }
 
-// The backward of one pixel's samples [lo, lo + spp): pack cotangents
-// into `acc` (the block's row of the partials, kSlotCols floats a slot),
-// camera and background ones into g_cam / g_bg.
+// replay_step of the solid-family variant: `stored` is a winner_code,
+// the forward's quad or box winner recomputed alone (solid_t), a sphere
+// as replay_step's; the scan is seeded by the quads and boxes of sv. A
+// light's hit ends the path (kEmitted) and keeps its checker parity in
+// kept[0]. `win` gets the winner's code (-1 on a miss).
 template <bool kMoving>
+__device__ __forceinline__ int replay_solid_step(
+    const float* sph, const float4* sph4, const float4* vel4, int n_slots,
+    const Solids& sv, const float* bg, bool sky, uint32_t k0, uint32_t k1,
+    int bounce, int max_depth, float t_min, int stored, Path& p, int& win,
+    int& bad, float* kept) {
+  const RayDots q = ray_dots(p.ray);
+  float t_best = kInf;
+  int fam = kFamNone, slot = -1;
+  if (stored >= 0) {
+    fam = code_family(stored, slot);
+    const int n = fam == kFamQuad ? sv.n_quads
+                                  : (fam == kFamBox ? sv.n_boxes : n_slots);
+    if (slot < n) {
+      t_best = fam == kFamSphere
+                   ? slot_t<kMoving>(sph4, vel4, slot, p.ray, q, t_min)
+                   : solid_t(sv, fam, slot, p.ray, q, t_min);
+    }
+    if (!(t_best < kInf)) {
+      ++bad;
+      stored = kUnstored;
+    }
+  }
+  if (stored == kUnstored) {
+    const SlotScan<kMoving, false> scan{sph4, vel4, nullptr, n_slots};
+    t_best = closest_hit<true>(scan, &sv, p.ray, q, t_min, fam, slot);
+  }
+  float c[3];
+  const int out = finish_bounce<kMoving, true>(sph, n_slots, bg, sky, k0, k1,
+                                               bounce, max_depth, q, t_best,
+                                               p, c, slot, kept, fam, &sv);
+  win = winner_code(fam, slot);
+  return out;
+}
+
+// The backward of one pixel's samples [lo, lo + spp): pack cotangents
+// into `acc` (the block's row of the partials, kSlotCols floats a slot:
+// the spheres', then with kSolids the active quads' and boxes'), camera
+// and background ones into g_cam / g_bg.
+template <bool kMoving, bool kSolids>
 __device__ __forceinline__ void adjoint_pixel(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
-    const float* cam, const float* bg, uint32_t s0, uint32_t s1,
-    uint32_t lo, int px, int py, int width, int n_pix, int spp,
+    const Solids& sv, const float* cam, const float* bg, uint32_t s0,
+    uint32_t s1, uint32_t lo, int px, int py, int width, int n_pix, int spp,
     int max_depth, float t_min, const float* d_rad, const uint8_t* lengths,
     const int16_t* winners, int win_cap, float* acc, float* g_cam,
     float* g_bg, int* mismatches) {
@@ -255,20 +344,46 @@ __device__ __forceinline__ void adjoint_pixel(
           bounce < length && j < win_cap
               ? winners[static_cast<size_t>(j) * n_pix + gid]
               : kUnstored;
-      last = replay_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky, k0, k1,
-                                  bounce, max_depth, t_min, stored, p, r.win,
-                                  bad, kept[n - 1]);
+      if constexpr (kSolids) {
+        last = replay_solid_step<kMoving>(sph, sph4, vel4, n_slots, sv, bg,
+                                          sky, k0, k1, bounce, max_depth,
+                                          t_min, stored, p, r.win, bad,
+                                          kept[n - 1]);
+      } else {
+        last = replay_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky, k0,
+                                    k1, bounce, max_depth, t_min, stored, p,
+                                    r.win, bad, kept[n - 1]);
+      }
       if (last != kScattered) break;
     }
     first += length;
     // 2. the replay must retrace the forward's path.
     if (n != length) ++bad;
     // 3. reverse sweep. The last record ended the path: a miss banks
-    // the background, a surface that absorbs or ends the depth banks 0.
+    // the background, a light its emission, a surface that absorbs or
+    // ends the depth banks 0.
     float go[3] = {0.0f, 0.0f, 0.0f}, gd[3] = {0.0f, 0.0f, 0.0f},
           gt[3] = {0.0f, 0.0f, 0.0f}, g_time = 0.0f;
     if (last == kMissed) miss_adjoint(rec[n - 1], dr, bg, sky, gd, gt, g_bg);
+    if constexpr (kSolids) {
+      if (last == kEmitted) {
+        emit_adjoint(sph, n_slots, sv, rec[n - 1], kept[n - 1], dr, gt,
+                     acc);
+      }
+    }
     for (int k = n - 2; k >= 0; --k) {
+      if constexpr (kSolids) {
+        int slot;
+        const int fam = code_family(rec[k].win, slot);
+        if (fam != kFamSphere) {
+          RowSums<kSolidRows> sums{};
+          solid_scatter_adjoint(sv, fam, slot, rec[k], k0, k1, k, t_min, go,
+                                gd, gt, sums, kept[k]);
+          add_slot<kSolidRows>(acc + winner_column(n_slots, &sv, fam, slot),
+                               sums.g);
+          continue;
+        }
+      }
       RowSums<grad_rows(kMoving)> sums;
       scatter_adjoint<kMoving, decltype(sums), true>(
           sph, n_slots, rec[k], k0, k1, k, t_min, p.ray.time, go, gd, gt,
@@ -281,11 +396,14 @@ __device__ __forceinline__ void adjoint_pixel(
   if (bad != 0) atomicAdd(mismatches, bad);
 }
 
-template <bool kMoving>
+template <bool kMoving, bool kSolids>
 __global__ void __launch_bounds__(kBwdThreads)
     train_bwd_kernel(const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ cam_g,
                      const float* __restrict__ bg_g,
+                     const float* __restrict__ quad, int quad_slots,
+                     int n_quads, const float* __restrict__ box,
+                     int box_slots, int n_boxes,
                      const float* __restrict__ d_rad,
                      const uint8_t* __restrict__ lengths,
                      const int16_t* __restrict__ winners, int win_cap,
@@ -294,18 +412,23 @@ __global__ void __launch_bounds__(kBwdThreads)
                      float* __restrict__ partials,
                      int* __restrict__ mismatches) {
   // Dynamic shared memory (staged_bytes): the staged rows of every slot
-  // (float4: intersection rows, then velocity rows when moving). The
-  // pack cotangents go to this block's row of the partials, zeroed here.
+  // (float4: intersection rows, then velocity rows when moving); with
+  // kSolids, then the solid families. The pack cotangents go to this
+  // block's row of the partials, zeroed here.
   extern __shared__ float4 smem[];
   float4* sph4 = smem;
   float4* vel4 = kMoving ? smem + n_slots : nullptr;
   const int block = blockIdx.y * gridDim.x + blockIdx.x;
-  const int n_acc = kSlotCols * n_slots;
+  const int n_acc = kSlotCols * (kSolids ? n_slots + n_quads + n_boxes
+                                         : n_slots);
   float* out = partials + block * (static_cast<size_t>(n_acc) + kCamBgCols);
   __shared__ float cam[24];
   __shared__ float bg[8];
   __shared__ float warp_part[kBwdThreads / 32][kCamBgCols];
   stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
+  const Solids sv = stage_solids_at<kSolids>(
+      smem, staged_bytes(n_slots, kMoving), quad, quad_slots, n_quads, box,
+      box_slots, n_boxes);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < n_acc; i += kBwdThreads) out[i] = 0.0f;
   __syncthreads();
@@ -316,10 +439,10 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {  // no early return: all sync below
-    adjoint_pixel<kMoving>(sph, sph4, vel4, n_slots, cam, bg, s0, s1, lo,
-                           px, py, width, width * height, spp, max_depth,
-                           t_min, d_rad, lengths, winners, win_cap, out,
-                           g_cam, g_bg, mismatches);
+    adjoint_pixel<kMoving, kSolids>(
+        sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
+        width * height, spp, max_depth, t_min, d_rad, lengths, winners,
+        win_cap, out, g_cam, g_bg, mismatches);
   }
 
   // Camera and background: warp sums, then warps in order.
@@ -337,74 +460,92 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-}  // namespace
-
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-// sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32 on the device;
-// moving: nonzero for the moving-sphere variant; outputs rad:
-// (width*height, 3) f32, traced: (width*height,) i32, lengths: (spp,
-// width*height) uint8, winners: (win_cap, width*height) int16 (the
-// entries past a pixel's segments are left as they were).
-extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
-                             const float* bg, uint32_t s0, uint32_t s1,
-                             uint32_t lo, int width, int height, int spp,
-                             int max_depth, float t_min, int moving,
-                             int win_cap, float* rad, int* traced,
-                             uint8_t* lengths, int16_t* winners,
-                             void* stream) {
-  const dim3 block(16, 16);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
-  const size_t smem = fwd_smem(n_slots, moving != 0);
-  // As tile_render: 3072 slots need the opt-in above 48 KB.
-  auto kernel = moving ? train_fwd_kernel<true> : train_fwd_kernel<false>;
+// Opt `kernel` into `smem` bytes of dynamic shared memory (past 48 KB at
+// 3072 slots), then launch it on `grid` blocks of 16x16.
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
+                 Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      sph, n_slots, cam, bg, s0, s1, lo, width, height, spp, max_depth, t_min,
-      win_cap, rad, traced, lengths, winners);
+  kernel<<<grid, dim3(16, 16), smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32 on the device;
+// solids: the quad and box packs (at most kSolidCap active slots each)
+// for the solid-family variant, or null; moving: nonzero for the
+// moving-sphere variant; outputs rad: (width*height, 3) f32, traced:
+// (width*height,) i32, lengths: (spp, width*height) uint8, winners:
+// (win_cap, width*height) int16, winner codes (the entries past a
+// pixel's segments are left as they were).
+extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
+                             const float* bg, const SolidArgs* solids,
+                             uint32_t s0, uint32_t s1, uint32_t lo,
+                             int width, int height, int spp, int max_depth,
+                             float t_min, int moving, int win_cap,
+                             float* rad, int* traced, uint8_t* lengths,
+                             int16_t* winners, void* stream) {
+  const dim3 grid((width + 15) / 16, (height + 15) / 16);
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs& sa = solids != nullptr ? *solids : none;
+  const size_t smem = with_solids(fwd_smem(n_slots, moving != 0), solids);
+  // As tile_render: 3072 slots need the opt-in above 48 KB.
+  auto kernel = moving ? (solids ? train_fwd_kernel<true, true>
+                                 : train_fwd_kernel<true, false>)
+                       : (solids ? train_fwd_kernel<false, true>
+                                 : train_fwd_kernel<false, false>);
+  return launch_tiles(kernel, grid, smem, static_cast<cudaStream_t>(stream),
+                      sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
+                      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, s0, s1,
+                      lo, width, height, spp, max_depth, t_min, win_cap, rad,
+                      traced, lengths, winners);
+}
+
 // The backward: train_bwd_kernel, then two fixed-order reductions of its
-// per-block partials. d_rad: (width*height, 3) f32; lengths and winners
-// as written by rrt_train_fwd with the same win_cap (win_cap 0: no
-// winners, every segment scans; winners may be null); scratch: (n_blocks
-// + ceil(n_blocks / 64)) * n_cols f32 with n_blocks = ceil(width/16) *
-// ceil(height/16) and n_cols = kSlotCols * n_slots + 32; sums: (n_cols,)
-// f32 out (slot-major: kSlotCols floats a slot, its 12 (15 when moving)
-// gradient rows then zeros; then 24 camera rows, 6 background, 2 pad);
-// mismatches: one int32, zeroed by the caller.
+// per-block partials. solids as rrt_train_fwd's; d_rad: (width*height,
+// 3) f32; lengths and winners as written by rrt_train_fwd with the same
+// win_cap and solids (win_cap 0: no winners, every segment scans;
+// winners may be null); scratch: (n_blocks + ceil(n_blocks / 64)) *
+// n_cols f32 with n_blocks = ceil(width/16) * ceil(height/16) and n_cols
+// = kSlotCols * (n_slots + n_quads + n_boxes) + 32; sums: (n_cols,) f32
+// out (slot-major: kSlotCols floats a slot, a sphere's 12 (15 when
+// moving) gradient rows then zeros, then the active quads' and boxes'
+// columns (adjoint.cuh kQuadAccPlane ...); then 24 camera rows, 6
+// background, 2 pad); mismatches: one int32, zeroed by the caller.
 extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
-                             const float* bg, const float* d_rad,
-                             const uint8_t* lengths, const int16_t* winners,
-                             int win_cap, uint32_t s0, uint32_t s1,
-                             uint32_t lo, int width, int height, int spp,
-                             int max_depth, float t_min, int moving,
+                             const float* bg, const SolidArgs* solids,
+                             const float* d_rad, const uint8_t* lengths,
+                             const int16_t* winners, int win_cap, uint32_t s0,
+                             uint32_t s1, uint32_t lo, int width, int height,
+                             int spp, int max_depth, float t_min, int moving,
                              float* scratch, float* sums, int* mismatches,
                              void* stream) {
   if (max_depth + 1 > kMaxRecords) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(16, 16);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
+  const dim3 grid((width + 15) / 16, (height + 15) / 16);
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs& sa = solids != nullptr ? *solids : none;
   const int n_blocks = static_cast<int>(grid.x * grid.y);
-  const int n_cols = kSlotCols * n_slots + kCamBgCols;
-  const size_t smem = staged_bytes(n_slots, moving != 0);
-  auto kernel = moving ? train_bwd_kernel<true> : train_bwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, block, smem, st>>>(
-      sph, n_slots, cam, bg, d_rad, lengths, winners, win_cap, s0, s1, lo,
-      width, height, spp, max_depth, t_min, scratch, mismatches);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_cols =
+      kSlotCols * (n_slots + sa.n_quads + sa.n_boxes) + kCamBgCols;
+  const size_t smem = with_solids(staged_bytes(n_slots, moving != 0), solids);
+  auto kernel = moving ? (solids ? train_bwd_kernel<true, true>
+                                 : train_bwd_kernel<true, false>)
+                       : (solids ? train_bwd_kernel<false, true>
+                                 : train_bwd_kernel<false, false>);
+  const int err = launch_tiles(
+      kernel, grid, smem, st, sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
+      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, d_rad, lengths, winners,
+      win_cap, s0, s1, lo, width, height, spp, max_depth, t_min, scratch,
+      mismatches);
+  if (err != 0) return err;
   return static_cast<int>(
       reduce_partials(scratch, n_blocks, n_cols, sums, st));
 }

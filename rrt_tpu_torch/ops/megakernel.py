@@ -71,6 +71,35 @@ MAX_SLOTS = 3072
 # and perlin textures (ROADMAP Queue A #9.5).
 SOLID_CAP = 64
 SOLID_CAP_ITEM = "#9.5"
+# A winner as one int16 (train_fwd's residual, the backwards' records):
+# a sphere's slot, QUAD_CODE + a quad's, BOX_CODE + a box's; -1 a miss
+# (csrc/bounce.cuh kQuadCode, kBoxCode).
+QUAD_CODE = MAX_SLOTS
+BOX_CODE = MAX_SLOTS + SOLID_CAP
+
+
+def encode_winner(fam, idx):
+    """The int16 code of each winner (fam, idx (N,), geometry.FAM_*),
+    as an int64 tensor: -1 on a miss."""
+    from ..geometry import FAM_BOX, FAM_NONE, FAM_QUAD
+    fam, idx = fam.long(), idx.long()
+    code = torch.where(fam == FAM_QUAD, QUAD_CODE + idx,
+                       torch.where(fam == FAM_BOX, BOX_CODE + idx, idx))
+    return torch.where(fam == FAM_NONE, -1, code)
+
+
+def decode_winner(code):
+    """(fam, idx) of int16 winner codes (N,), both int64; a miss (-1)
+    decodes to (FAM_NONE, -1), an unstored entry (-2) to (FAM_NONE,
+    -2)."""
+    from ..geometry import FAM_BOX, FAM_NONE, FAM_QUAD, FAM_SPHERE
+    code = code.long()
+    fam = torch.where(code >= BOX_CODE, FAM_BOX,
+                      torch.where(code >= QUAD_CODE, FAM_QUAD, FAM_SPHERE))
+    fam = torch.where(code < 0, FAM_NONE, fam)
+    base = torch.where(fam == FAM_BOX, BOX_CODE,
+                       torch.where(fam == FAM_QUAD, QUAD_CODE, 0))
+    return fam, code - base
 
 
 def scope_gap(scene: SceneArrays, rr_depth: int = 0):
@@ -177,6 +206,19 @@ def pack_quads_full(scene: SceneArrays):
         scene.quad_valid.to(f32)[None], _mat_rows(scene, scene.quad_mat),
         torch.zeros((4, n), dtype=f32, device=scene.quad_q.device),
     ]).contiguous()
+
+
+def quad_frame_pack(quad24):
+    """rrt_tpu's (24, Q) quad pack of the port's quad pack (24, Q): the
+    plane frame (geometry.quad_frames: 0-2 n, 3-5 g, 6-8 h, 9 d_plane,
+    10 q.g, 11 q.h, 12 eps_n), then 13 valid, 14 mat_type, 15 aux, 16-18
+    color1, 19-21 color2, 22 tex_type, 23 tex_scale: the rows
+    megakernel_vjp.diff_step reads of a quad winner, differentiable in
+    quad24."""
+    from ..geometry import quad_frames
+    fr = quad_frames(quad24[0:3], quad24[3:6], quad24[6:9])
+    return torch.cat([fr.n, fr.g, fr.h, fr.d_plane[None], fr.q_g[None],
+                      fr.q_h[None], fr.eps_n[None], quad24[9:20]])
 
 
 def pack_boxes_full(scene: SceneArrays):
@@ -439,7 +481,9 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     int16), where lengths[s, p] is the number of bounces sample s of
     pixel p traced, and winners[j, p] the slot that pixel p's j-th
     segment hit (-1 on a miss, -2 past its segments), in the order the
-    pixel traces them: sample by sample, bounce by bounce."""
+    pixel traces them: sample by sample, bounce by bounce; a winner is
+    its encode_winner code (a quad's or box's slot offset by QUAD_CODE or
+    BOX_CODE)."""
     from ..render import _bounce  # render imports this module
 
     dev = sph24.device
@@ -471,8 +515,10 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                 # earlier samples are done: traced[pix] is the segment's j.
                 j = traced[pix].long()
                 stored = j < win_cap
-                winners[j[stored], pix[stored]] = torch.where(
-                    b.miss_mask, -1, b.win)[stored].to(torch.int16)
+                code = torch.where(b.miss_mask, -1,
+                                   encode_winner(b.fam, b.win))
+                winners[j[stored], pix[stored]] = code[stored].to(
+                    torch.int16)
             rad[:, pix] += thr * b.contribution
             traced[pix] += 1
             lengths[ray] += 1

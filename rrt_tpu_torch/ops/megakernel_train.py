@@ -1,25 +1,30 @@
 """The differentiable tile render: train kernels, wrappers, plain versions.
 
-The counterpart of rrt_tpu's `ops/megakernel_train.py` for the sphere
-subset of the tile kernel (stationary and moving spheres, solid /
-checker textures, lambertian / metal / dielectric, sky or solid
-background, a thin-lens camera with a shutter, no Russian roulette).
-`TileTrainChain` is the render as a torch.autograd.Function over the
-packs (sph24, cam24, bg8):
+The counterpart of rrt_tpu's `ops/megakernel_train.py` for the tile
+kernel's scenes (stationary and moving spheres, quads, boxes rotated
+about Y, solid / checker textures, lambertian / metal / dielectric /
+diffuse_light, sky or solid background, a thin-lens camera with a
+shutter, no Russian roulette). `TileTrainChain` is the render as a
+torch.autograd.Function over the packs (sph24, cam24, bg8, and for a
+scene with quads, boxes or a light its quad and box packs):
 
   forward   `render_tiles_train`: the CUDA kernel train_fwd
             (csrc/train.cu), which renders exactly as tile_render, each
             pixel's samples back to back, and keeps the residual the
             backward needs: each path's executed bounce count (uint8 a
-            path) and the winning slot of each pixel's first
-            WINNERS_PER_SAMPLE * spp segments (int16 a segment);
+            path) and the winner of each pixel's first
+            WINNERS_PER_SAMPLE * spp segments (int16 a segment: a
+            sphere's slot, or mk.QUAD_CODE + a quad's, mk.BOX_CODE + a
+            box's; -1 a miss: mk.encode_winner);
   backward  `tiles_adjoint`: the CUDA kernel train_bwd, which replays
             each path from its counter-addressed key, recomputing only
-            the stored winner's quadratic where there is one and
-            scanning every slot where there is none, checks its length
+            the stored winner's test where there is one and scanning
+            every slot where there is none, checks its length
             against the forward's (`replay_mismatches`), and sweeps the
             bounces in reverse through the hand-written transpose of
-            megakernel_vjp.diff_step, into the cotangents of the packs.
+            megakernel_vjp.diff_step, into the cotangents of the packs
+            (a quad's through its plane frame's n and d_plane, which the
+            wrapper takes to q, u, v: geometry.quad_frame_vjp).
 
 On the TPU the residual was the 24-row loop carry at segment
 boundaries, because one lane ran many pixels' samples in one loop. A
@@ -39,8 +44,9 @@ from . import _build
 from . import megakernel as mk
 from .megakernel_vjp import (MAX_RECORDS, SLOT_COLS, camera_ray_rows,
                              check_backward_slots, count_mismatches,
-                             diff_step, grad_rows, replay_steps,
-                             step_constants)
+                             diff_step, grad_rows, kernel_solid_grads,
+                             replay_steps, solid_grads, solid_leaves,
+                             step_constants, winner_rows)
 from ..camera import thin_lens_rays
 
 
@@ -89,25 +95,28 @@ def _raise_on(lib, err, what):
 
 def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                        width: int, height: int, spp: int, max_depth: int,
-                       t_min: float, moving: bool):
+                       t_min: float, moving: bool, solids=None):
     """Render samples [sample_lo, sample_lo + spp) as render_tiles does,
     and keep the residual. Returns (radiance sums (P,3) f32, traced
     counts (P,) i32, lengths (spp, P) uint8: the bounces each path
     traced, winners (winner_capacity(spp), P) int16: winners[j, p] the
-    slot pixel p's j-th segment hit, in trace order, -1 on a miss);
-    moving: the moving-sphere variant. The kernel leaves the entries
-    past a pixel's segments unwritten; the plain version sets them to
-    -2.
+    code of the winner of pixel p's j-th segment, in trace order
+    (mk.encode_winner: a sphere's slot, or a quad's or box's offset by
+    mk.QUAD_CODE or mk.BOX_CODE; -1 on a miss)); moving: the
+    moving-sphere variant; solids: the scene's SolidPacks (the
+    solid-family variant) or None. The kernel leaves the entries past a
+    pixel's segments unwritten; the plain version sets them to -2.
 
     CUDA tensors launch train_fwd (counted in
     `render_tiles_train.launches`); CPU tensors run
     render_tiles_train_reference."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving)
+              moving=moving, solids=solids)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving)
     device = sph24.device
+    solid_arg = mk._check_solids(solids, device)
     if device.type == "cpu":
         return render_tiles_train_reference(sph24, cam24, bg8, **kw)
     if device.type != "cuda":
@@ -124,8 +133,8 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     with torch.cuda.device(device):
         err = lib.rrt_train_fwd(
             sph24.data_ptr(), sph24.shape[1], cam24.data_ptr(),
-            bg8.data_ptr(), s0, s1, sample_lo & rng.MASK32, width, height,
-            spp, max_depth, t_min, int(moving), cap, rad.data_ptr(),
+            bg8.data_ptr(), solid_arg, s0, s1, sample_lo & rng.MASK32, width,
+            height, spp, max_depth, t_min, int(moving), cap, rad.data_ptr(),
             traced.data_ptr(), lengths.data_ptr(), winners.data_ptr(),
             _stream(device))
     _raise_on(lib, err, "train_fwd")
@@ -139,22 +148,26 @@ render_tiles_train.launches = 0
 def render_tiles_train_reference(sph24, cam24, bg8, *, seed_words,
                                  sample_lo: int, width: int, height: int,
                                  spp: int, max_depth: int, t_min: float,
-                                 moving: bool):
+                                 moving: bool, solids=None):
     """Plain version of render_tiles_train: render_tiles_reference plus
     the lengths and the winners (mk.trace_paths_reference)."""
     return mk.trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
-        t_min=t_min, moving=moving, win_cap=winner_capacity(spp))
+        t_min=t_min, moving=moving, solids=solids,
+        win_cap=winner_capacity(spp))
 
 
 def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
                   seed_words, sample_lo: int, width: int, height: int,
-                  spp: int, max_depth: int, t_min: float, moving: bool):
+                  spp: int, max_depth: int, t_min: float, moving: bool,
+                  solids=None):
     """Cotangents of the packs for the radiance cotangent d_rad (P,3):
     (d_sph24 (24,S), d_cam24 (24,), d_bg8 (8,), replay mismatches (1,)
     int32: the paths whose replayed length differs from `lengths`, and
-    the stored winners the replay does not find). With moving spheres
+    the stored winners the replay does not find; d_solids: with solids
+    (the scene's SolidPacks: the solid-family variant) the SolidPacks of
+    the quad and box packs' cotangents, else None). With moving spheres
     the velocity rows 4-6 get cotangents, and the shutter rows 19-20 of
     the camera through each ray's time. `winners` is
     render_tiles_train's (any number of entries a pixel, int16), or None:
@@ -168,7 +181,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     would give wrong gradients."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving)
+              moving=moving, solids=solids)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving)
     n_pix = width * height
@@ -188,6 +201,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
            for t in (d_rad, lengths, winners)):
         raise ValueError("d_rad, lengths and winners must be on the packs' "
                          "device")
+    solid_arg = mk._check_solids(solids, device)
     d_rad = d_rad.contiguous()
     if device.type == "cpu":
         out = tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
@@ -198,11 +212,14 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
         raise ValueError(f"tiles_adjoint runs on cuda or cpu, not {device}")
     lib = _build.load()
     n_slots = sph24.shape[1]
-    # Per-block partials and, below them, the first reduction's groups of
-    # 64 blocks (csrc/train.cu rrt_train_bwd).
+    n_solid = 0 if solids is None else solids.n_quads + solids.n_boxes
+    # Per-block partials (SLOT_COLS floats a slot: the spheres', then the
+    # active quads' and boxes'; then 32 of the camera and background)
+    # and, below them, the first reduction's groups of 64 blocks
+    # (csrc/train.cu rrt_train_bwd).
     rows = grad_rows(moving)
     n_blocks = -(-width // 16) * -(-height // 16)
-    n_cols = SLOT_COLS * n_slots + 32
+    n_cols = SLOT_COLS * (n_slots + n_solid) + 32
     partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
                            dtype=torch.float32, device=device)
     sums = torch.empty((n_cols,), dtype=torch.float32, device=device)
@@ -211,7 +228,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     with torch.cuda.device(device):
         err = lib.rrt_train_bwd(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
-            d_rad.data_ptr(), lengths.data_ptr(),
+            solid_arg, d_rad.data_ptr(), lengths.data_ptr(),
             None if winners is None else winners.data_ptr(),
             0 if winners is None else winners.shape[0], s0, s1,
             sample_lo & rng.MASK32, width, height, spp, max_depth, t_min,
@@ -220,10 +237,13 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     _raise_on(lib, err, "train_bwd")
     tiles_adjoint.launches += 1
     count_mismatches(tiles_adjoint, mismatches)
+    g = sums[:-32].reshape(n_slots + n_solid, SLOT_COLS)
     d_sph24 = torch.zeros_like(sph24)
-    d_sph24[list(rows)] = sums[:-32].reshape(n_slots, SLOT_COLS)[
-        :, :len(rows)].T
-    return d_sph24, sums[-32:-8].clone(), sums[-8:].clone(), mismatches
+    d_sph24[list(rows)] = g[:n_slots, :len(rows)].T
+    d_solids = (None if solids is None
+                else kernel_solid_grads(g[n_slots:], solids))
+    return (d_sph24, sums[-32:-8].clone(), sums[-8:].clone(), mismatches,
+            d_solids)
 
 
 tiles_adjoint.launches = 0
@@ -234,7 +254,7 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                             winners, *, seed_words, sample_lo: int,
                             width: int, height: int, spp: int,
                             max_depth: int, t_min: float, moving: bool,
-                            chunk: int = 1 << 16):
+                            solids=None, chunk: int = 1 << 16):
     """Plain version of tiles_adjoint, same inputs and outputs.
 
     For each chunk of (pixel, sample) paths: 1. replay the decisions and
@@ -244,16 +264,20 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
     earlier lengths; none when winners is None) that differs from the
     replay's; 2. rebuild every
     bounce with diff_step under autograd, from the winners' pack columns
-    only (no (N,S) broadcast); 3. take torch.autograd.grad of
-    sum(d_rad[pixel] . contribution)."""
+    only (no (N,S) broadcast; the quads' through mk.quad_frame_pack);
+    3. take torch.autograd.grad of sum(d_rad[pixel] . contribution)."""
     dev = sph24.device
-    scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving)
+    scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving,
+                                 solids)
     basis = tuple(cam24.detach()[3 * i:3 * i + 3] for i in range(6))
     sph = sph24.detach().requires_grad_()
     cam = cam24.detach().requires_grad_()
     bg = bg8.detach().requires_grad_()
-    grads = [torch.zeros_like(sph), torch.zeros_like(cam),
-             torch.zeros_like(bg)]
+    quads, boxes = solid_leaves(solids)
+    leaves = {k: x for k, x in (("sph", sph), ("cam", cam), ("bg", bg),
+                                ("quad", quads), ("box", boxes))
+              if x is not None}
+    grads = {k: torch.zeros_like(x) for k, x in leaves.items()}
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
     n_pix = width * height
     n_rays = n_pix * spp
@@ -279,6 +303,7 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                 mismatches += _stored_winner_faults(
                     records, ray, winners, first, flat_lengths, n_pix)
         with torch.enable_grad():
+            frames = None if quads is None else mk.quad_frame_pack(quads)
             state = camera_ray_rows(
                 cam, (pix % width).to(torch.float32),
                 (pix // width).to(torch.float32), rng.camera_draws(keys))
@@ -287,32 +312,37 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
             for r in records:
                 state = tuple(row[r["sel"]] for row in state)
                 zero = torch.zeros_like(state[0])
-                out = diff_step(step_constants(r, sph24, bg8), *state, zero,
-                                zero, zero, sph[:, r["win"]], *bg[:6],
-                                moving=moving)
+                sel, flags = winner_rows(r, sph, frames, boxes)
+                out = diff_step(step_constants(r, sph24, bg8, solids),
+                                *state, zero, zero, zero, *sel, *bg[:6],
+                                moving=moving, **flags)
                 dr = d_rad[pix[r["cur"]]]
                 total = total + (dr[:, 0] * out[10] + dr[:, 1] * out[11]
                                  + dr[:, 2] * out[12]).sum()
                 state = out[:10]
-            parts = torch.autograd.grad(total, (sph, cam, bg),
+            parts = torch.autograd.grad(total, list(leaves.values()),
                                         allow_unused=True)
-        for acc, g in zip(grads, parts):
+        for k, g in zip(leaves, parts):
             if g is not None:
-                acc += g
-    return (*grads, mismatches)
+                grads[k] += g
+    d_solids = None if solids is None else solid_grads(
+        solids, grads.get("quad"), grads.get("box"))
+    return grads["sph"], grads["cam"], grads["bg"], mismatches, d_solids
 
 
 def _stored_winner_faults(records, ray, winners, first, flat_lengths,
                           n_pix):
     """The stored winners (winners[first[ray] + k, pixel] for bounces k
     inside the path's forward length and the pool) that differ from the
-    replay's records (-1 on a miss). (1,) int32."""
+    replay's records' codes (mk.encode_winner, -1 on a miss). (1,)
+    int32."""
     faults = torch.zeros((1,), dtype=torch.int32, device=ray.device)
     for k, r in enumerate(records):
         rays = ray[r["cur"]]
         j = first[rays] + k
         ok = (j < winners.shape[0]) & (k < flat_lengths[rays])
-        replayed = torch.where(r["miss"], -1, r["win"])[ok]
+        replayed = torch.where(r["miss"], -1,
+                               mk.encode_winner(r["fam"], r["win"]))[ok]
         stored = winners[j[ok], rays[ok] % n_pix].long()
         faults += (stored != replayed).sum().to(torch.int32)
     return faults
@@ -321,29 +351,41 @@ def _stored_winner_faults(records, ray, winners, first, flat_lengths,
 class TileTrainChain(torch.autograd.Function):
     """The tile render as a differentiable function of the packs:
     apply(sph24, cam24, bg8, seed_words, sample_lo, width, height, spp,
-    max_depth, t_min, moving) -> (radiance sums (P,3), traced counts (P,)
-    i32).
+    max_depth, t_min, moving, *solid_inputs(solids)) -> (radiance sums
+    (P,3), traced counts (P,) i32), the last three arguments the quad
+    and box packs and their active slot counts of a scene with quads,
+    boxes or a light (megakernel_vjp.solid_inputs).
     Forward: one render_tiles_train, whose lengths and winners it saves;
     backward: one tiles_adjoint on them, seeded by the radiance
     cotangent (P,3). The traced counts carry no gradient."""
 
     @staticmethod
     def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
-                height, spp, max_depth, t_min, moving):
+                height, spp, max_depth, t_min, moving, quad24=None,
+                box24=None, counts=None):
         kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
                   height=height, spp=spp, max_depth=max_depth, t_min=t_min,
                   moving=moving)
-        rad, traced, lengths, winners = render_tiles_train(sph24, cam24,
-                                                           bg8, **kw)
-        ctx.save_for_backward(sph24, cam24, bg8, lengths, winners)
+        solids = None if counts is None else mk.SolidPacks(
+            quad24, box24, *counts)
+        rad, traced, lengths, winners = render_tiles_train(
+            sph24, cam24, bg8, solids=solids, **kw)
+        ctx.save_for_backward(sph24, cam24, bg8, lengths, winners, quad24,
+                              box24)
         ctx.kw = kw
+        ctx.counts = counts
         ctx.mark_non_differentiable(traced)
         return rad, traced
 
     @staticmethod
     def backward(ctx, d_rad, _d_traced):
-        sph24, cam24, bg8, lengths, winners = ctx.saved_tensors
-        d_sph, d_cam, d_bg, _ = tiles_adjoint(
+        sph24, cam24, bg8, lengths, winners, quad24, box24 = \
+            ctx.saved_tensors
+        solids = None if ctx.counts is None else mk.SolidPacks(
+            quad24, box24, *ctx.counts)
+        d_sph, d_cam, d_bg, _, d_solids = tiles_adjoint(
             sph24, cam24, bg8, d_rad.to(torch.float32), lengths, winners,
-            **ctx.kw)
-        return (d_sph, d_cam, d_bg) + (None,) * 8
+            solids=solids, **ctx.kw)
+        d_quad, d_box = ((None, None) if d_solids is None
+                         else (d_solids.quad24, d_solids.box24))
+        return (d_sph, d_cam, d_bg) + (None,) * 8 + (d_quad, d_box, None)

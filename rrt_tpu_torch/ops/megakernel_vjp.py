@@ -1,16 +1,17 @@
 """The differentiable bounce and the bounce chain's backward.
 
-`diff_step` is the sphere-subset counterpart of rrt_tpu's
-`ops/megakernel_vjp.py::_make_diff_step`: one bounce as a function of
-the 13 state rows (origin, direction, time, throughput, pending
-radiance), the winner's 24 sphere-pack rows and the 6 background rows
-(with moving spheres, the winner's center at the ray's time, so the
-velocity rows and the time get gradients too),
-with every discrete decision (root, front face, checker parity,
-degenerate lambertian, reflect-vs-refract, hit / miss / survival) and
-every random draw supplied as a replayed constant. It is the math the
-CUDA backwards transpose by hand (csrc/adjoint.cuh, shared by train.cu
-and chain.cu), and the body of their plain versions
+`diff_step` is the counterpart of rrt_tpu's
+`ops/megakernel_vjp.py::_make_diff_step` for spheres, quads, boxes and
+lights: one bounce as a function of the 13 state rows (origin,
+direction, time, throughput, pending radiance), the winner's 24
+sphere-pack rows (with moving spheres, the winner's center at the ray's
+time, so the velocity rows and the time get gradients too), its quad
+and box rows (rrt_tpu's layouts) and the 6 background rows, with every
+discrete decision (root, box face, front face, checker parity,
+degenerate lambertian, reflect-vs-refract, hit / miss / light /
+survival) and every random draw supplied as a replayed constant. It is
+the math the CUDA backwards transpose by hand (csrc/adjoint.cuh, shared
+by train.cu and chain.cu), and the body of their plain versions
 (megakernel_train.tiles_adjoint_reference, chain_adjoint_reference),
 which differentiate it with autograd.
 
@@ -42,7 +43,9 @@ import torch
 from .. import rng
 from . import _build
 from . import megakernel as mk
-from ..scene import MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL
+from ..geometry import FAM_BOX, FAM_QUAD, FAM_SPHERE, INF, quad_frame_vjp
+from ..scene import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_LAMBERTIAN,
+                     MAT_METAL)
 
 # The backward kernels keep one record per replayed bounce in
 # per-thread storage of this many entries (csrc/adjoint.cuh kMaxRecords).
@@ -77,36 +80,45 @@ def check_backward_slots(sph24, moving: bool):
                          + (" with moving spheres" if moving else ""))
 
 
-# The ROADMAP Queue A item of the quad and box backwards (and the
-# lights'): diff_step's branches, adjoint.cuh's, and the train kernels
-# and chain_bwd on the solid families.
-SOLIDS_BACKWARD_ITEM = "#9.7"
-
-# The families outside the sphere subset, by flag: the ROADMAP Queue A
-# item that ports each.
-_NOT_PORTED = (("has_quads", "quads", SOLIDS_BACKWARD_ITEM),
-               ("has_boxes", "boxes", SOLIDS_BACKWARD_ITEM),
-               ("n_media", "constant media", "#9.4"),
+# The families and options outside the backwards' scope, by flag: the
+# ROADMAP Queue A item that ports each.
+_NOT_PORTED = (("n_media", "constant media", "#9.4"),
                ("has_perlin", "perlin textures", "#9.5"),
                ("has_images", "image textures", "#9.5"),
                ("rr_depth", "Russian roulette", "#9.6"))
+
+# The quad and box cotangents the CUDA backwards accumulate, kSlotCols
+# floats a slot as the spheres' (csrc/adjoint.cuh): a quad's frame n xyz
+# and d_plane (geometry.quad_frame_vjp takes them to q, u, v), then, as
+# for a sphere, aux at 4, color1 at 5-7, color2 at 8-10; a box's pack
+# rows in the order of its columns: center 0-2, cos, aux, color1,
+# color2, sin, half 3-5.
+QUAD_MAT_ROWS = (11, 12, 13, 14, 15, 16, 17)  # quad pack rows, cols 4-10
+BOX_GRAD_ROWS = (0, 1, 2, 6, 10, 11, 12, 13, 14, 15, 16, 7, 3, 4, 5)
 
 
 def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
               has_perlin=False, has_images=False, n_media=0, rr_depth=0):
     """One bounce, differentiable in `ins`: 13 state rows (ox, oy, oz,
     dx, dy, dz, time, thx, thy, thz, pex, pey, pez), sel_s (24, N) (the
-    winner's pack column per ray) and 6 background rows (bottom rgb,
-    top rgb). Returns the 13 state rows after the bounce.
+    winner's sphere-pack column per ray), with has_quads sel_q (24, N)
+    (its quad column in rrt_tpu's layout: ops.megakernel.quad_frame_pack),
+    with has_boxes sel_b (24, N) (its box-pack column), then 6 background
+    rows (bottom rgb, top rgb). Returns the 13 state rows after the
+    bounce.
 
     c: the replayed constants, (N,) bool tensors t_hit (float), hit,
     miss, survives, front, degen, do_reflect, use_c2, is_lam, is_met,
-    is_die; is_sky (0-d bool); draws, the 7 rows (unit xyz, sphere xyz,
-    choice) of the bounce's scatter draws. moving: the winner's center
-    is sel_s rows 0-2 + time * rows 4-6, in the quadratic and the
-    normal. The other families' flags raise NotImplementedError."""
-    flags = dict(has_quads=has_quads, has_boxes=has_boxes,
-                 n_media=n_media, has_perlin=has_perlin,
+    is_die, and with quads or boxes use_q, use_b (the winner's family)
+    and is_light (a diffuse_light: the bounce adds throughput x its color
+    to the pending radiance and ends the path); is_sky (0-d bool); draws,
+    the 7 rows (unit xyz, sphere xyz, choice) of the bounce's scatter
+    draws. moving: the winner's center is sel_s rows 0-2 + time * rows
+    4-6, in the quadratic and the normal. A box's face and a quad's side
+    are replayed: the face is the candidate nearest t_hit, its axis and
+    sign detached. Media, perlin and image textures and Russian roulette
+    raise NotImplementedError naming their ROADMAP items."""
+    flags = dict(n_media=n_media, has_perlin=has_perlin,
                  has_images=has_images, rr_depth=rr_depth)
     for flag, what, item in _NOT_PORTED:
         if flags[flag]:
@@ -116,7 +128,14 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     (ox, oy, oz, dx, dy, dz, time, thx, thy, thz,
      pex, pey, pez) = ins[:13]
     sel_s = ins[13]
-    bg6 = ins[14:20]
+    i = 14
+    if has_quads:
+        sel_q = ins[i]
+        i += 1
+    if has_boxes:
+        sel_b = ins[i]
+        i += 1
+    bg6 = ins[i:i + 6]
     where = torch.where
 
     a = dx * dx + dy * dy + dz * dz
@@ -146,24 +165,86 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     pick0 = (root0 - c["t_hit"]).abs() <= (root1 - c["t_hit"]).abs()
     t_hit = where(pick0, root0, root1)
 
+    # --- a box winner's t: the face nearest the stored t (its axis and
+    # side replayed) of the slab test in the box's frame.
+    if has_boxes:
+        cthb, sthb = sel_b[6], sel_b[7]
+        bwx, bwy, bwz = ox - sel_b[0], oy - sel_b[1], oz - sel_b[2]
+        faces = ((cthb * bwx - sthb * bwz, cthb * dx - sthb * dz, sel_b[3]),
+                 (bwy, dy, sel_b[4]),
+                 (sthb * bwx + cthb * bwz, sthb * dx + cthb * dz, sel_b[5]))
+        t_box = torch.zeros_like(t_hit)
+        best = torch.full_like(t_hit, INF)
+        for ob, db, hk in faces:
+            ok_db = db.abs() > 1e-12
+            inv_db = 1.0 / where(ok_db, db, 1.0)
+            for side in (-1.0, 1.0):
+                t_f = (side * hk - ob) * inv_db
+                err = where(ok_db, (t_f - c["t_hit"]).abs(), INF).detach()
+                take = err < best
+                best = where(take, err, best)
+                t_box = where(take, t_f, t_box)
+        t_hit = where(c["use_b"], t_box, t_hit)
+    # --- a quad winner's t: its plane's, (d_plane - n.o) / (n.d).
+    if has_quads:
+        nqx, nqy, nqz = sel_q[0], sel_q[1], sel_q[2]
+        denom = dx * nqx + dy * nqy + dz * nqz
+        o_n = ox * nqx + oy * nqy + oz * nqz
+        not_par = (denom.abs() > sel_q[12] * d_len).detach()
+        t_quad = (sel_q[9] - o_n) / where(not_par, denom, 1.0)
+        t_hit = where(c["use_q"], t_quad, t_hit)
+
     t_eff = where(c["hit"], t_hit, 0.0)
     px_ = ox + t_eff * dx
     py_ = oy + t_eff * dy
     pz_ = oz + t_eff * dz
 
-    # --- the winner's normal (a negative radius flips it inward).
+    # --- the winner's outward normal (a negative radius flips a sphere's
+    # inward) and material rows.
     srad = sel_s[18]
     inv_r = 1.0 / where(srad.abs() > 1e-20, srad, 1.0)
-    sgn = where(c["front"], 1.0, -1.0)
-    nx_ = (px_ - cx) * inv_r * sgn
-    ny_ = (py_ - cy) * inv_r * sgn
-    nz_ = (pz_ - cz) * inv_r * sgn
+    outx, outy, outz = (px_ - cx) * inv_r, (py_ - cy) * inv_r, \
+        (pz_ - cz) * inv_r
     aux_v = sel_s[9]
+    c1 = (sel_s[10], sel_s[11], sel_s[12])
+    c2 = (sel_s[13], sel_s[14], sel_s[15])
+    if has_boxes:
+        # The axis whose |q_k| - h_k is largest at the hit point, and its
+        # sign, are discrete; the rotation rows carry the gradient.
+        bpx, bpy, bpz = px_ - sel_b[0], py_ - sel_b[1], pz_ - sel_b[2]
+        bqx = cthb * bpx - sthb * bpz
+        bqz = sthb * bpx + cthb * bpz
+        fxb = bqx.abs() - sel_b[3]
+        fyb = bpy.abs() - sel_b[4]
+        fzb = bqz.abs() - sel_b[5]
+        use_x = ((fxb >= fyb) & (fxb >= fzb)).detach()
+        use_y = (~use_x & (fyb >= fzb)).detach()
+        nbx = where(use_x, where(bqx >= 0.0, 1.0, -1.0), 0.0).detach()
+        nby = where(use_y, where(bpy >= 0.0, 1.0, -1.0), 0.0).detach()
+        nbz = where(use_x | use_y, 0.0,
+                    where(bqz >= 0.0, 1.0, -1.0)).detach()
+        ub = c["use_b"]
+        outx = where(ub, cthb * nbx + sthb * nbz, outx)
+        outy = where(ub, nby, outy)
+        outz = where(ub, -sthb * nbx + cthb * nbz, outz)
+        aux_v = where(ub, sel_b[10], aux_v)
+        c1 = tuple(where(ub, sel_b[11 + j], c1[j]) for j in range(3))
+        c2 = tuple(where(ub, sel_b[14 + j], c2[j]) for j in range(3))
+    if has_quads:
+        nn = nqx * nqx + nqy * nqy + nqz * nqz
+        qinv = torch.rsqrt(where(nn > 1e-20, nn, 1.0))
+        uq = c["use_q"]
+        outx = where(uq, nqx * qinv, outx)
+        outy = where(uq, nqy * qinv, outy)
+        outz = where(uq, nqz * qinv, outz)
+        aux_v = where(uq, sel_q[15], aux_v)
+        c1 = tuple(where(uq, sel_q[16 + j], c1[j]) for j in range(3))
+        c2 = tuple(where(uq, sel_q[19 + j], c2[j]) for j in range(3))
+    sgn = where(c["front"], 1.0, -1.0)
+    nx_, ny_, nz_ = outx * sgn, outy * sgn, outz * sgn
 
     # --- albedo (checker parity replayed).
-    albr = where(c["use_c2"], sel_s[13], sel_s[10])
-    albg = where(c["use_c2"], sel_s[14], sel_s[11])
-    albb = where(c["use_c2"], sel_s[15], sel_s[12])
+    albr, albg, albb = (where(c["use_c2"], c2[j], c1[j]) for j in range(3))
 
     # --- scatter (draws and decisions replayed).
     ux, uy_, uz, sx, sy, sz, _u_choice = c["draws"]
@@ -205,7 +286,7 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     atg = where(is_die, 1.0, albg)
     atb = where(is_die, 1.0, albb)
 
-    # --- the miss's background (no emitters in this subset).
+    # --- the miss's background, and a light's emission (on either side).
     inv_dl2 = torch.rsqrt(torch.clamp(a, min=1e-20))
     tsky = 0.5 * (dy * inv_dl2 + 1.0)
     is_sky = c["is_sky"]
@@ -213,9 +294,15 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     bgg = where(is_sky, (1.0 - tsky) * bg6[1] + tsky * bg6[4], bg6[1])
     bgb = where(is_sky, (1.0 - tsky) * bg6[2] + tsky * bg6[5], bg6[2])
     missf = c["miss"].to(torch.float32)
-    pex = pex + thx * (bgr * missf)
-    pey = pey + thy * (bgg * missf)
-    pez = pez + thz * (bgb * missf)
+    if "is_light" in c:
+        lightf = (c["hit"] & c["is_light"]).to(torch.float32)
+        pex = pex + thx * (bgr * missf + albr * lightf)
+        pey = pey + thy * (bgg * missf + albg * lightf)
+        pez = pez + thz * (bgb * missf + albb * lightf)
+    else:
+        pex = pex + thx * (bgr * missf)
+        pey = pey + thy * (bgg * missf)
+        pez = pez + thz * (bgb * missf)
 
     sv = c["survives"]
     return (where(sv, px_, ox), where(sv, py_, oy), where(sv, pz_, oz),
@@ -252,18 +339,10 @@ def camera_ray_rows(cam, pxr, pyr, draws):
 def backward_scope_gap(scene, rr_depth: int = 0):
     """The scope of the train kernels and chain_bwd: None when they cover
     the scene and option, otherwise (what is outside, the ROADMAP Queue
-    A item that ports it). Narrower than the forward kernels'
-    (mk.scope_gap, checked first): the quads, boxes and lights those
-    render have no backward here yet, so such scenes differentiate
-    through trace_batch's checkpointed scan (render_image_diff's
-    route)."""
-    gap = mk.scope_gap(scene, rr_depth)
-    if gap is not None:
-        return gap
-    outside = ((scene.has_quads, "quads"), (scene.has_boxes, "boxes"),
-               (scene.has_emissive, "emissive materials"))
-    return next(((what, SOLIDS_BACKWARD_ITEM) for flag, what in outside
-                 if flag), None)
+    A item that ports it). The forward kernels' (mk.scope_gap): spheres,
+    quads, boxes and lights; constant media, perlin and image textures
+    and Russian roulette wait for their items."""
+    return mk.scope_gap(scene, rr_depth)
 
 
 def check_backward_scope(where: str, scene, rr_depth: int = 0):
@@ -316,9 +395,10 @@ def replay_steps(scene, o, d, time, keys, bounce0, n_steps: int, *,
         n_scattered[cur] += b.survives.long()
         sc = b.scatter
         records.append(dict(
-            sel=sel, cur=cur, win=b.win, t_hit=b.t, hit=b.hit_mask,
-            miss=b.miss_mask, survives=b.survives, front=b.hit.front_face,
-            degen=sc.degenerate, do_reflect=sc.reflected, use_c2=b.use_c2,
+            sel=sel, cur=cur, win=b.win, fam=b.fam, t_hit=b.t,
+            hit=b.hit_mask, miss=b.miss_mask, survives=b.survives,
+            front=b.hit.front_face, degen=sc.degenerate,
+            do_reflect=sc.reflected, use_c2=b.use_c2,
             draws=(*sc.unit_rand, *sc.sphere_rand, torch.zeros_like(b.t))))
         keep = b.survives.nonzero()[:, 0]
         if keep.numel() == 0:
@@ -328,12 +408,89 @@ def replay_steps(scene, o, d, time, keys, bounce0, n_steps: int, *,
     return records, n_seg, n_scattered
 
 
-def step_constants(record, sph24, bg8):
-    """diff_step's replayed constants for one record of replay_steps."""
-    mtype = sph24.detach()[8, record["win"]]
-    return dict(record, is_sky=bg8.detach()[6] < 0.5,
-                is_lam=mtype == MAT_LAMBERTIAN, is_met=mtype == MAT_METAL,
-                is_die=mtype == MAT_DIELECTRIC)
+def step_constants(record, sph24, bg8, solids=None):
+    """diff_step's replayed constants for one record of replay_steps;
+    solids: the replayed scene's SolidPacks (the quads' and boxes'
+    material types, and the use_q, use_b and is_light constants)."""
+    fam, win = record["fam"], record["win"]
+    mtype = sph24.detach()[8, torch.where(fam == FAM_SPHERE, win, 0)]
+    c = dict(record, is_sky=bg8.detach()[6] < 0.5)
+    if solids is not None:
+        for f, pack, n, row in ((FAM_QUAD, solids.quad24, solids.n_quads,
+                                 10),
+                                (FAM_BOX, solids.box24, solids.n_boxes, 9)):
+            if n:
+                use = fam == f
+                mtype = torch.where(use, pack.detach()[
+                    row, torch.where(use, win, 0)], mtype)
+        c.update(use_q=fam == FAM_QUAD, use_b=fam == FAM_BOX,
+                 is_light=mtype == MAT_DIFFUSE_LIGHT)
+    c.update(is_lam=mtype == MAT_LAMBERTIAN, is_met=mtype == MAT_METAL,
+             is_die=mtype == MAT_DIELECTRIC)
+    return c
+
+
+def winner_rows(record, sph, quads=None, boxes=None):
+    """diff_step's winner inputs for a record of replay_steps: (sel_s,
+    [sel_q], [sel_b]) from the sphere pack sph (24, S), the active
+    quads' frame pack quads (mk.quad_frame_pack, (24, nq); None without
+    quads) and the active boxes' pack boxes ((24, nb); None without),
+    each a column a ray; and diff_step's has_quads, has_boxes."""
+    fam, win = record["fam"], record["win"]
+    sel = [sph[:, torch.where(fam == FAM_SPHERE, win, 0)]]
+    for f, pack in ((FAM_QUAD, quads), (FAM_BOX, boxes)):
+        if pack is not None:
+            sel.append(pack[:, torch.where(fam == f, win, 0)])
+    return sel, dict(has_quads=quads is not None, has_boxes=boxes is not None)
+
+
+def solid_leaves(solids):
+    """Gradient leaves of the active quads' and boxes' packs (detached
+    copies of solids' first n_quads and n_boxes slots), None for a family
+    without active slots. Returns (quad leaf, box leaf)."""
+    if solids is None:
+        return None, None
+    q = (solids.quad24.detach()[:, :solids.n_quads].clone()
+         .requires_grad_() if solids.n_quads else None)
+    b = (solids.box24.detach()[:, :solids.n_boxes].clone()
+         .requires_grad_() if solids.n_boxes else None)
+    return q, b
+
+
+def solid_grads(solids, g_quad, g_box):
+    """The SolidPacks of the pack cotangents: solids' shapes, g_quad and
+    g_box (the active slots' cotangents, or None) in the first slots."""
+    d_quad = torch.zeros_like(solids.quad24)
+    d_box = torch.zeros_like(solids.box24)
+    if g_quad is not None:
+        d_quad[:, :solids.n_quads] = g_quad
+    if g_box is not None:
+        d_box[:, :solids.n_boxes] = g_box
+    return mk.SolidPacks(d_quad, d_box, solids.n_quads, solids.n_boxes)
+
+
+def kernel_solid_grads(g, solids):
+    """The SolidPacks of the pack cotangents from a CUDA backward's sums
+    of the solid slots, g ((n_quads + n_boxes, SLOT_COLS): the quads'
+    then the boxes' columns, csrc/adjoint.cuh): the quads' frame
+    cotangents taken to q, u, v (geometry.quad_frame_vjp), the material
+    and box rows put back in their pack rows, row by row (an index list
+    would be copied from the host, which a CUDA graph capturing the
+    wrapper does not allow)."""
+    nq, nb = solids.n_quads, solids.n_boxes
+    d_quad = torch.zeros_like(solids.quad24)
+    d_box = torch.zeros_like(solids.box24)
+    gq, gb = g[:nq], g[nq:nq + nb]
+    quad = solids.quad24[:, :nq]
+    parts = quad_frame_vjp(quad[0:3], quad[3:6], quad[6:9], gq[:, 0:3].T,
+                           gq[:, 3])
+    for j, part in enumerate(parts):
+        d_quad[3 * j:3 * j + 3, :nq] = part
+    for i, row in enumerate(QUAD_MAT_ROWS):
+        d_quad[row, :nq] = gq[:, 4 + i]
+    for i, row in enumerate(BOX_GRAD_ROWS):
+        d_box[row, :nb] = gb[:, i]
+    return mk.SolidPacks(d_quad, d_box, nq, nb)
 
 
 def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
@@ -359,9 +516,11 @@ def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
 
 def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                   k_steps: int, max_depth: int, t_min: float,
-                  moving: bool, bvh=None):
+                  moving: bool, bvh=None, solids=None):
     """The backward of k_steps bounce steps (ops.megakernel.bounce_steps)
-    of a lane state; moving: the moving-sphere variant.
+    of a lane state; moving: the moving-sphere variant; solids: the
+    scene's SolidPacks (quads, boxes, lights: the solid-family variant)
+    or None.
 
     state: the chain's input state (16, Q) f32; keys (2, Q) int32 (the
     lanes' u32 words); sph24 (24, S), bg8 (8,): the packs; d_out (16, Q)
@@ -371,15 +530,17 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     not read on the CPU. Returns (d_state (16, Q), rows 13-15 zero;
     d_sph24 (24, S), the grad_rows(moving) filled; d_bg8 (8,); replay
     mismatches (1,) int32: the lanes whose replayed bounce row differs
-    from out_bounce).
+    from out_bounce; d_solids: the SolidPacks of the quad and box packs'
+    cotangents, None without solids).
 
     CUDA tensors launch chain_bwd (counted in `chain_adjoint.launches`);
     CPU tensors run chain_adjoint_reference. Either way the mismatches
     are added to `chain_adjoint.replay_mismatches` (count_mismatches)."""
     device = _check_chain_inputs(state, keys, sph24, bg8, d_out,
                                  out_bounce, k_steps, moving)
+    solid_arg = mk._check_solids(solids, device)
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-              moving=moving)
+              moving=moving, solids=solids)
     if device.type == "cpu":
         out = chain_adjoint_reference(state, keys, sph24, bg8, d_out,
                                       out_bounce, **kw)
@@ -388,11 +549,13 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     tree = mk._check_bvh(bvh, sph24, "chain_adjoint")
     lib = _build.load()
     q, n_slots = state.shape[1], sph24.shape[1]
-    # Per-block partials of 256 lanes, SLOT_COLS floats a slot and 8 of
-    # the background, and, below them, the first reduction's groups of
-    # 64 blocks (csrc/chain.cu rrt_chain_bwd).
+    n_solid = 0 if solids is None else solids.n_quads + solids.n_boxes
+    # Per-block partials of 256 lanes, SLOT_COLS floats a slot (the
+    # spheres', then the active quads' and boxes') and 8 of the
+    # background, and, below them, the first reduction's groups of 64
+    # blocks (csrc/chain.cu rrt_chain_bwd).
     n_blocks = -(-q // 256)
-    n_cols = SLOT_COLS * n_slots + 8
+    n_cols = SLOT_COLS * (n_slots + n_solid) + 8
     partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
                            dtype=torch.float32, device=device)
     sums = torch.empty((n_cols,), dtype=torch.float32, device=device)
@@ -401,9 +564,10 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     with torch.cuda.device(device):
         err = lib.rrt_chain_bwd(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(), n_slots,
-            *tree, bg8.data_ptr(), d_out.data_ptr(), out_bounce.data_ptr(),
-            k_steps, max_depth, t_min, int(moving), d_state.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), mismatches.data_ptr(),
+            *tree, solid_arg, bg8.data_ptr(), d_out.data_ptr(),
+            out_bounce.data_ptr(), k_steps, max_depth, t_min, int(moving),
+            d_state.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+            mismatches.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     mk._launch_error(lib, err, "chain_bwd")
     chain_adjoint.launches += 1
@@ -411,10 +575,12 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     # Row by row: an index list would be copied from the host, which a
     # CUDA graph capturing this wrapper does not allow.
     d_sph24 = torch.zeros_like(sph24)
-    g = sums[:-8].view(n_slots, SLOT_COLS)
+    g = sums[:-8].view(n_slots + n_solid, SLOT_COLS)
     for i, row in enumerate(grad_rows(moving)):
-        d_sph24[row] = g[:, i]
-    return d_state, d_sph24, sums[-8:].clone(), mismatches
+        d_sph24[row] = g[:n_slots, i]
+    d_solids = (None if solids is None
+                else kernel_solid_grads(g[n_slots:], solids))
+    return d_state, d_sph24, sums[-8:].clone(), mismatches, d_solids
 
 
 chain_adjoint.launches = 0
@@ -423,12 +589,13 @@ chain_adjoint.replay_mismatches = 0
 
 def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
                             k_steps: int, max_depth: int, t_min: float,
-                            moving: bool):
+                            moving: bool, solids=None):
     """Plain version of chain_adjoint, same inputs and outputs.
 
     1. replay the live lanes' steps under no_grad with the port's plain
     physics (replay_steps); 2. rebuild every step with diff_step under
-    autograd, from the winners' pack columns only; 3. take
+    autograd, from the winners' pack columns only (the quads' through
+    mk.quad_frame_pack, so their cotangents reach q, u and v); 3. take
     torch.autograd.grad of the sum of d_out . (each lane's state where
     its chain ends). Dead lanes pass d_out through."""
     dev = state.device
@@ -437,12 +604,15 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
     d_state[:13] = d_out[:13]
     sph = sph24.detach().requires_grad_()
     bg = bg8.detach().requires_grad_()
+    quads, boxes = solid_leaves(solids)
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
     lanes = (st[mk.ROW_ALIVE] > 0.5).nonzero()[:, 0]
+    no_solids = None if solids is None else solid_grads(solids, None, None)
     if lanes.numel() == 0:
         return (d_state, torch.zeros_like(sph24), torch.zeros_like(bg8),
-                mismatches)
-    scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving)
+                mismatches, no_solids)
+    scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving,
+                                 solids)
     bounce0 = st[mk.ROW_BOUNCE, lanes].long()
     with torch.no_grad():
         records, _, n_scattered = replay_steps(
@@ -452,34 +622,52 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
         mismatches += ((bounce0 + n_scattered).float()
                        != out_bounce[lanes]).sum().to(torch.int32)
     seed = d_out[:13, lanes]
+    leaves = {k: x for k, x in (("sph", sph), ("bg", bg), ("quad", quads),
+                                ("box", boxes)) if x is not None}
     with torch.enable_grad():
+        frames = None if quads is None else mk.quad_frame_pack(quads)
         rows_in = tuple(st[r, lanes].clone().requires_grad_()
                         for r in range(13))
         rows, total = rows_in, 0.0
         for i, r in enumerate(records):
             rows = tuple(x[r["sel"]] for x in rows)
-            rows = diff_step(step_constants(r, sph24, bg8), *rows,
-                             sph[:, r["win"]], *bg[:6], moving=moving)
+            sel, flags = winner_rows(r, sph, frames, boxes)
+            rows = diff_step(step_constants(r, sph24, bg8, solids), *rows,
+                             *sel, *bg[:6], moving=moving, **flags)
             # A lane's chain ends at its last step, or where it stops.
             ends = (torch.ones_like(r["survives"]) if i + 1 == len(records)
                     else ~r["survives"])
             total = total + (seed[:, r["cur"]] * ends
                              * torch.stack(rows)).sum()
-        grads = torch.autograd.grad(total, (*rows_in, sph, bg),
+        grads = torch.autograd.grad(total, (*rows_in, *leaves.values()),
                                     allow_unused=True)
     zero = torch.zeros_like(lanes, dtype=torch.float32)
     d_state[:13, lanes] = torch.stack(
         [zero if g is None else g for g in grads[:13]])
-    d_sph, d_bg = (torch.zeros_like(x) if g is None else g
-                   for x, g in zip((sph24, bg8), grads[13:]))
-    return d_state, d_sph, d_bg, mismatches
+    got = {k: torch.zeros_like(x) if g is None else g
+           for (k, x), g in zip(leaves.items(), grads[13:])}
+    d_solids = None if solids is None else solid_grads(
+        solids, got.get("quad"), got.get("box"))
+    return d_state, got["sph"], got["bg"], mismatches, d_solids
+
+
+def solid_inputs(solids) -> tuple:
+    """The trailing arguments of BounceChain.apply and
+    TileTrainChain.apply for a scene's SolidPacks: (quad24, box24,
+    (n_quads, n_boxes)), or none for None."""
+    if solids is None:
+        return ()
+    return solids.quad24, solids.box24, (solids.n_quads, solids.n_boxes)
 
 
 class BounceChain(torch.autograd.Function):
     """K bounce steps of a lane state as a differentiable function of
     the state and the packs: apply(state (16,Q), keys (2,Q) int32,
-    sph24, bg8, k_steps, max_depth, t_min, moving, bvh) -> state' (16,Q),
-    bvh the sphere pack's accel.BvhPack (required on a CUDA device).
+    sph24, bg8, k_steps, max_depth, t_min, moving, bvh,
+    *solid_inputs(solids)) -> state' (16,Q), bvh the sphere pack's
+    accel.BvhPack (required on a CUDA device), the last three arguments
+    the quad and box packs and their active slot counts of a scene with
+    quads, boxes or a light.
     Forward: one bounce_steps launch on a copy of the state
     (bounce_steps updates in place, and the input is the backward's
     residual); backward: one chain_adjoint on the same BVH, seeded with
@@ -488,31 +676,42 @@ class BounceChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min,
-                moving, bvh):
+                moving, bvh, quad24=None, box24=None, counts=None):
+        solids = None if counts is None else mk.SolidPacks(
+            quad24, box24, *counts)
         kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
                   moving=moving, bvh=bvh)
-        out = mk.bounce_steps(state.clone(), keys, sph24, bg8, **kw)
+        out = mk.bounce_steps(state.clone(), keys, sph24, bg8, solids=solids,
+                              **kw)
         ctx.save_for_backward(state, keys, sph24, bg8,
-                              out[mk.ROW_BOUNCE].clone())
+                              out[mk.ROW_BOUNCE].clone(), quad24, box24)
         ctx.kw = kw
+        ctx.counts = counts
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        state, keys, sph24, bg8, out_bounce = ctx.saved_tensors
-        d_state, d_sph, d_bg, _ = chain_adjoint(
+        state, keys, sph24, bg8, out_bounce, quad24, box24 = \
+            ctx.saved_tensors
+        solids = None if ctx.counts is None else mk.SolidPacks(
+            quad24, box24, *ctx.counts)
+        d_state, d_sph, d_bg, _, d_solids = chain_adjoint(
             state, keys, sph24, bg8, d_out.contiguous(), out_bounce,
-            **ctx.kw)
-        return d_state, None, d_sph, d_bg, None, None, None, None, None
+            solids=solids, **ctx.kw)
+        d_quad, d_box = ((None, None) if d_solids is None
+                         else (d_solids.quad24, d_solids.box24))
+        return ((d_state, None, d_sph, d_bg) + (None,) * 5
+                + (d_quad, d_box, None))
 
 
 def bounce_chain(k_steps: int, max_depth: int, t_min: float,
                  moving: bool):
-    """chain(state, keys, sph24, bg8, bvh=None) -> state': BounceChain
-    with its step count and options bound, as rrt_tpu's bounce_chain
-    returns; bvh: the sphere pack's accel.BvhPack, which both kernels
-    walk (required on a CUDA device)."""
-    def chain(state, keys, sph24, bg8, bvh=None):
-        return BounceChain.apply(state, keys, sph24, bg8, k_steps,
-                                 max_depth, t_min, moving, bvh)
+    """chain(state, keys, sph24, bg8, bvh=None, solids=None) -> state':
+    BounceChain with its step count and options bound, as rrt_tpu's
+    bounce_chain returns; bvh: the sphere pack's accel.BvhPack, which
+    both kernels walk (required on a CUDA device); solids: the scene's
+    SolidPacks, or None."""
+    def chain(state, keys, sph24, bg8, bvh=None, solids=None):
+        return BounceChain.apply(state, keys, sph24, bg8, k_steps, max_depth,
+                                 t_min, moving, bvh, *solid_inputs(solids))
     return chain

@@ -18,10 +18,11 @@ through the train kernels (ops/megakernel_train), and the batch driver
 with differentiable=True, whose passes run `trace_batch_fused`: a few
 bounce chains (ops/megakernel_vjp.BounceChain: forward
 ops/megakernel.bounce_steps, backward the chain_bwd kernel) with
-differentiable lane compaction between them. `trace_batch`'s
-checkpointed scan is the CPU's route for what the chain does not cover;
-on a CUDA device such a scene raises, naming the ROADMAP item that
-ports its backward.
+differentiable lane compaction between them. Both take every scene the
+forward kernels take (spheres, quads, boxes, lights); a scene outside
+their scope (media, perlin and image textures, Russian roulette)
+raises, naming the ROADMAP item that ports it. `trace_batch`'s
+checkpointed scan is a CPU route only.
 `_bounce` is one bounce of the plain physics (intersect, shade,
 scatter), shared by the plain versions, the batch driver and the tests.
 
@@ -86,6 +87,7 @@ class Bounce:
 
     t: torch.Tensor  # (N,) winner t; INF on a miss
     win: torch.Tensor  # (N,) int64 winning slot of its family (0 on a miss)
+    fam: torch.Tensor  # (N,) the winner's family (geometry.FAM_*)
     hit: Hit
     scatter: Scatter
     hit_mask: torch.Tensor  # (N,) bool
@@ -131,7 +133,7 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
     # sky.
     survives = hit_mask & sc.scattered & (bounce < max_depth)
     return Bounce(
-        t=t, win=idx, hit=hit, scatter=sc, hit_mask=hit_mask,
+        t=t, win=idx, fam=fam, hit=hit, scatter=sc, hit_mask=hit_mask,
         miss_mask=miss_mask,
         use_c2=use_color2(scene, scene.mat_tex[hit.mat_id.long()], hit.p),
         contribution=contribution, survives=survives,
@@ -236,9 +238,9 @@ def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
 def _check_card_scope(where: str, scene: SceneArrays, rr_depth: int,
                       device):
     """On a CUDA device a differentiable render runs the train kernels or
-    the bounce chain, never the checkpointed scan (the CPU's route for
-    the scenes outside their scope): a scene outside their scope raises
-    there, naming the ROADMAP item that ports its backward
+    the bounce chain, never the checkpointed scan (a CPU route): a scene
+    outside their scope raises there before anything runs, naming the
+    ROADMAP item that ports its backward
     (ops.megakernel_vjp.backward_scope_gap)."""
     if torch.device(device).type == "cuda":
         ops_vjp.check_backward_scope(where, scene, rr_depth)
@@ -266,7 +268,9 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     gradients to the scene's and camera's tensors through the packs.
 
     Each launch is an ops.megakernel_train.TileTrainChain: forward one
-    train_fwd kernel, backward one train_bwd kernel. Budgets above
+    train_fwd kernel, backward one train_bwd kernel (their solid-family
+    variant for a scene with quads, boxes or a light, whose packs then
+    get gradients too). Budgets above
     `sample_budget` (default DIFF_SAMPLE_BUDGET) run as several chains
     over consecutive sample ranges; autograd sums their gradients. The
     residual a chain keeps is 33 bytes a path (its length and its share
@@ -277,12 +281,13 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     budget = sample_budget or DIFF_SAMPLE_BUDGET
     n_samples = cfg.spp if n_samples is None else n_samples
     packs = _packs(scene, camera, cfg, device)
+    solids = ops_mega.pack_solids(scene, device)
     rad, n_traced = None, 0
     for lo in range(0, n_samples, budget):
         r, traced = ops_train.TileTrainChain.apply(
             *packs, rng.key_words(seed), sample_lo + lo, cfg.width,
             cfg.height, min(budget, n_samples - lo), cfg.max_depth,
-            cfg.t_min, scene.has_moving)
+            cfg.t_min, scene.has_moving, *ops_vjp.solid_inputs(solids))
         rad = r if rad is None else rad + r
         n_traced = n_traced + traced.sum()
     return rad, n_traced
@@ -424,6 +429,7 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     if bvh is None:
         bvh = chain_bvh(sph24, time, scene.has_moving)
     bg8 = ops_mega.pack_bg(scene).to(dev)
+    solids = ops_mega.pack_solids(scene, dev)
     ones = torch.ones((n,), dtype=torch.float32, device=dev)
     zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
     st = ops_mega.pack_state(o, d, time, ones.expand(3, n),
@@ -432,7 +438,7 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     lane = torch.arange(n, device=dev)
     for j, k in enumerate(schedule):
         st = ops_vjp.bounce_chain(k, max_depth, t_min, scene.has_moving)(
-            st, keys, sph24, bg8, bvh)
+            st, keys, sph24, bg8, bvh, solids)
         if j < len(schedule) - 1:
             st, keys, lane = _compact_lanes(st, keys, lane)
     # Undo the compactions: callers index by the rays' order.
@@ -465,10 +471,8 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
                       jax.checkpoint); it intersects through
                       geometry.intersect_all, as rrt_tpu's scan does
                       (`packed` is not used): the kernel's t carries no
-                      gradient. It is the route of the scenes outside
-                      the chain's scope (ops.megakernel_vjp.
-                      backward_scope_gap: quads, boxes, lights), for
-                      tensors on the CPU only: on a CUDA device it
+                      gradient. It is the CPU's route only (the tests
+                      hold the chain against it); on a CUDA device it
                       raises (_check_card_scope). With fused_vjp,
                       packed's BVH, when given, goes to
                       trace_batch_fused.

@@ -347,7 +347,7 @@ def test_adjoint_of_dead_lanes_is_d_out():
     st, keys, sph, bg = _chain_inputs(alive=False)
     d_out = torch.from_numpy(
         np.random.default_rng(1).standard_normal((16, N)).astype(np.float32))
-    d_st, d_sph, d_bg, mism = tmkv.chain_adjoint_reference(
+    d_st, d_sph, d_bg, mism, _ = tmkv.chain_adjoint_reference(
         st, keys, sph, bg, d_out, st[tmk.ROW_BOUNCE].clone(), k_steps=4,
         max_depth=50, t_min=1e-3, moving=False)
     assert torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()

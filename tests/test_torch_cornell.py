@@ -19,8 +19,7 @@ run in interpret mode, as tests/test_megakernel.py runs them. Rules:
     pixels within 1e-3, traced within 1%); the three drivers against each
     other within 1e-5 (the same plain physics, the same keys);
   * the seeded BVH walk gives the seeded scan's (t, winner) bit for bit;
-  * gradients of the scan route (the CPU's: on a CUDA device cornell's
-    gradient raises naming ROADMAP Queue A #9.7) against rrt_tpu's scan,
+  * gradients of the checkpointed scan against rrt_tpu's scan,
     weighting out the lanes whose radiance parts by 1e-3
     (gradcheck.sample_agreement's rule), by tests/test_torch_chain.py's
     rule, on cornell and on the mixed scene, where the quads' and boxes'
@@ -424,24 +423,19 @@ def _no_spheres(sph24):
 
 
 def test_scopes():
-    """The forward kernels take cornell, the train kernels and chain_bwd
-    do not (#9.7): on the CPU its gradients take the scan. The book-2
-    scenes whose
-    families are not ported raise naming their items, in every driver
-    and in the backward scope."""
+    """The forward kernels, the train kernels and chain_bwd take cornell
+    (#9.7 is ported): its gradients need no fallback. The book-2 scenes
+    whose families are not ported raise naming their items, in every
+    driver and in the backward scope."""
     scene, cam = tscenes.cornell_box_scene(8, 8)
     assert tmk.scope_gap(scene) is None
-    assert tmkv.backward_scope_gap(scene) == ("quads", "#9.7")
-    assert not tmkv.supports_backward(scene)
+    assert tmkv.backward_scope_gap(scene) is None
+    assert tmkv.supports_backward(scene)
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
-    assert "#9.7" in render.diff_fallback_reason(scene, cfg)
-    with pytest.raises(NotImplementedError, match="#9.7"):
-        render.trace_tiles_diff(scene, cam, cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="#9.7"):
-        o = torch.zeros((3, 4))
-        render.trace_batch_fused(scene, o, o + 1.0, torch.zeros(4),
-                                 torch.zeros((2, 4), dtype=torch.int64), 2,
-                                 1e-3)
+    assert render.diff_fallback_reason(scene, cfg) is None
+    rad, n = render.trace_tiles_diff(scene, cam, cfg, 0, device="cpu")
+    ref, n_ref = render.trace_tiles(scene, cam, cfg, 0, device="cpu")
+    assert torch.equal(rad, ref) and int(n) == int(n_ref)
     items = {"simple_light": "#9.5", "cornell_smoke": "#9.4",
              "earth": "#9.5", "rttnw_final": "#9.4"}
     for name, item in items.items():
@@ -458,14 +452,21 @@ def test_scopes():
 
 
 def test_cornell_gradient_raises_for_a_cuda_device():
-    """The scan is the CPU's route: for a CUDA device cornell's
-    differentiable renders raise naming #9.7 before they touch the device
-    (tests/test_torch_cuda.py runs make_train_step on the card)."""
-    scene, cam = tscenes.cornell_box_scene(8, 8)
+    """On a CUDA device a differentiable render runs the train kernels or
+    the bounce chain, never the checkpointed scan: cornell passes the
+    card's scope check (its backward is ported, #9.7), and a scene with
+    constant media (cornell_smoke) raises naming #9.4 before it touches
+    the device (tests/test_torch_cuda.py runs cornell's gradients on the
+    card)."""
+    cornell, _ = tscenes.cornell_box_scene(8, 8)
+    render._check_card_scope("cornell", cornell, 0, "cuda")
+    j_scene, j_cam = jscenes.SCENES["cornell_smoke"](8, 8)
+    scene = convert.scene_from_numpy(_leaves(j_scene))
+    cam = convert.camera_from_numpy(_leaves(j_cam))
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="#9.7"):
+    with pytest.raises(NotImplementedError, match="#9.4"):
         render.render_image_diff(scene, cam, cfg, 0, device="cuda")
-    with pytest.raises(NotImplementedError, match="#9.7"):
+    with pytest.raises(NotImplementedError, match="#9.4"):
         render.render_image(scene, cam, cfg, 0, differentiable=True,
                             device="cuda")
     spheres, _ = tscenes.chap12_scene(8, 8)
@@ -560,15 +561,20 @@ def test_scan_gradients_match_reference(name):
 
 
 def test_train_step_takes_the_scan_route(monkeypatch, caplog):
-    """make_train_step and render_image_diff on cornell take
-    render_image(differentiable=True)'s checkpointed scan with one log
-    line; the train kernels and chain_bwd never run (their plain
-    versions on the CPU count no call either)."""
+    """make_train_step and render_image_diff on cornell take the train
+    kernels (their plain versions on the CPU) with no fallback log line,
+    and render_image(differentiable=True) takes the bounce chain
+    (chain_adjoint); the checkpointed scan is not run."""
     calls = []
-    for mod, name in ((tmkt, "render_tiles_train"), (tmkt, "tiles_adjoint"),
-                      (tmkv, "chain_adjoint")):
-        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
-                            calls.append(_n))
+    for mod, name in ((tmkt, "render_tiles_train_reference"),
+                      (tmkt, "tiles_adjoint_reference"),
+                      (tmkv, "chain_adjoint_reference")):
+        def counted(*a, _f=getattr(mod, name), _n=name, **k):
+            calls.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    monkeypatch.setattr(render, "checkpoint", lambda *a, **k: calls.append(
+        "checkpoint"))
     scene, cam = tscenes.cornell_box_scene(8, 8)
     cfg = render.RenderConfig(width=8, height=8, spp=2, max_depth=3,
                               samples_per_pass=2)
@@ -577,18 +583,27 @@ def test_train_step_takes_the_scan_route(monkeypatch, caplog):
         target, _ = render.render_image_tiles(scene, cam, cfg, 1,
                                               device="cpu")
         img, n = render.render_image_diff(scene, cam, cfg, 0, device="cpu")
-        fwd, n_fwd = render.render_image(scene, cam, cfg, 0, device="cpu")
-        torch.testing.assert_close(img, fwd, atol=1e-5, rtol=0)
-        assert int(n) == int(n_fwd)
+        torch.testing.assert_close(img, render.render_image_tiles(
+            scene, cam, cfg, 0, device="cpu")[0], atol=0, rtol=0)
         start = diff.combine(scene, {"tex_color1": scene.tex_color1 * 0.9})
         step = diff.make_train_step(cfg, lr=1.0, device="cpu")
         new, _, loss = step(start, cam, target, 0)
-    assert calls == []
+        assert calls == ["render_tiles_train_reference"] * 2 + [
+            "tiles_adjoint_reference"]
+        fwd, n_fwd = render.render_image(scene, cam, cfg, 0, device="cpu")
+        albedo = scene.tex_color1.clone().requires_grad_()
+        dimg, dn = render.render_image(
+            diff.combine(scene, {"tex_color1": albedo}), cam, cfg, 0,
+            differentiable=True, device="cpu")
+        torch.testing.assert_close(dimg, fwd, atol=1e-5, rtol=0)
+        assert int(dn) == int(n_fwd)
+        dimg.sum().backward()
+        assert albedo.grad.abs().max() > 0
+    assert "chain_adjoint_reference" in calls and "checkpoint" not in calls
     assert bool(torch.isfinite(loss))
     assert not torch.equal(new.tex_color1, start.tex_color1)
-    lines = [r for r in caplog.records
-             if "batch driver's differentiable path" in r.getMessage()]
-    assert len(lines) == 1 and "#9.7" in lines[0].getMessage()
+    assert not [r for r in caplog.records
+                if "batch driver's differentiable path" in r.getMessage()]
 
 
 def test_cli_renders_cornell_on_the_tile_driver(tmp_path):

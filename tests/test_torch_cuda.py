@@ -14,7 +14,8 @@ within 1%; its BVH walk gives train_fwd's scan's paths bit for bit.
 train_fwd: tile_render's outputs bit for bit, and its
 winners the plain version's on every path that agrees. train_bwd,
 bounce_steps, intersect_only and chain_bwd: the tolerances stated in
-each test."""
+each test. Each kernel's solid-family variant (quads, boxes, lights) is
+held on cornell and scenes.book2.mixed_scene by the same rules."""
 
 import dataclasses
 
@@ -246,7 +247,7 @@ def test_albedo_finite_difference(device):
     mix = torch.tensor(_MIX, device=device)
     rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
     d_rad = mix.expand_as(rad).contiguous()
-    d_sph, d_cam, d_bg, _ = tmkt.tiles_adjoint(*packs, d_rad, lengths,
+    d_sph, d_cam, d_bg, _, _ = tmkt.tiles_adjoint(*packs, d_rad, lengths,
                                                winners, **kw)
     gp, _ = diff.field_grads(scene, cam, cfg, d_sph, d_cam, d_bg,
                              device=device)
@@ -326,7 +327,7 @@ def test_train_bwd_unchanged_by_the_shared_header(device):
     import hashlib
     _, _, _, packs, kw = _train_case(device, "chap12")
     rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
-    d_sph, d_cam, d_bg, mism = tmkt.tiles_adjoint(
+    d_sph, d_cam, d_bg, mism, _ = tmkt.tiles_adjoint(
         *packs, torch.ones_like(rad), lengths, winners, **kw)
     assert int(mism) == 0
     assert [float(x).hex() for x in d_bg[:6].cpu()] == [
@@ -667,7 +668,7 @@ def test_chain_bwd_determinism(device, name):
 def test_chain_bwd_dead_lanes_pass_through(device):
     st, keys, sph, bg, _, d_out, kw, bvh = _chain_case(device)
     st[tmk.ROW_ALIVE] = 0.0
-    d_st, d_sph, d_bg, mism = tmkv.chain_adjoint(
+    d_st, d_sph, d_bg, mism, _ = tmkv.chain_adjoint(
         st, keys, sph, bg, d_out, st[tmk.ROW_BOUNCE].clone(), bvh=bvh, **kw)
     assert torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
     assert not d_sph.any() and not d_bg.any() and int(mism) == 0
@@ -1046,28 +1047,143 @@ def test_solid_cap_raises_on_the_card(device):
         tmk.render_tiles(*packs, bvh=bvh, **dict(kw, solids=over))
 
 
+@pytest.mark.parametrize("name", ["cornell", "mixed"])
+def test_solid_train_fwd_equals_tile_render(device, name):
+    """train_fwd's solid-family variant (the scan seeded by the quads and
+    boxes) gives tile_render's (the walk seeded by them) radiance and
+    traced counts bit for bit; its pooled winner codes are the plain
+    version's on every agreeing path, and each sample's traced alone."""
+    from rrt_tpu_torch import gradcheck
+    packs, _, solids, kw = _solid_case(device, name, depth=50)
+    before = tmkt.render_tiles_train.launches
+    rad, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    ref, ref_traced = _tiles(packs, **kw)
+    assert tmkt.render_tiles_train.launches == before + 1
+    assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
+    assert torch.equal(lengths.sum(dim=0, dtype=torch.int32), traced)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.agree.float().mean() >= 0.99
+    faults, compared, _ = gradcheck.winner_faults(winners, lengths,
+                                                  agreement)
+    assert compared > 0 and faults == 0
+    faults, compared = gradcheck.pool_faults(winners, lengths, agreement)
+    assert compared > 0 and faults == 0
+    assert bool((winners >= tmk.BOX_CODE).any())
+    assert bool(((winners >= tmk.QUAD_CODE) & (winners < tmk.BOX_CODE)).any())
+
+
+@pytest.mark.parametrize("name", ["cornell", "mixed"])
+def test_solid_train_bwd_matches_plain_version(device, name):
+    """train_bwd's solid-family variant against its plain version by
+    test_train_bwd_matches_plain_version's rule (gradcheck), the quads'
+    and boxes' fields among the partition() gradients; no replay
+    mismatch, from the winners or without them."""
+    from rrt_tpu_torch import diff, gradcheck, render
+    scene, cam = (book2.mixed_scene(64, 32) if name == "mixed"
+                  else tscenes.SCENES[name](64, 32))
+    cfg = render.RenderConfig(width=64, height=32, spp=4, max_depth=50)
+    packs, _, solids, kw = _solid_case(device, name, depth=50)
+    _, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.agree.float().mean() >= 0.99
+    weight = torch.sin(torch.arange(64 * 32, device=device) * 0.1) \
+        * agreement.agree
+    d_rad = (weight[:, None] * torch.tensor(_MIX, device=device)).contiguous()
+    before = tmkt.tiles_adjoint.launches
+    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    scan = tmkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
+    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths, None,
+                                     **kw)
+    assert tmkt.tiles_adjoint.launches == before + 2
+    assert int(k[3]) == 0 and int(scan[3]) == 0 and int(p[3]) == 0
+    assert torch.equal(k[1], scan[1]) and torch.equal(k[2], scan[2])
+    kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], k[4], device=device)
+    pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], p[4], device=device)
+    faults, _ = gradcheck.field_grad_faults(kp, kc, pp, pc)
+    assert not faults, faults
+    # Cornell's radiance is a product of albedos and the emission, so its
+    # geometry gets no gradient; the mixed scene's sky gives it one.
+    assert pp["tex_color1"].abs().max() > 0
+    if name == "mixed":
+        for key in ("quad_q", "quad_u", "box_center"):
+            assert pp[key].abs().max() > 0, key
+
+
+@pytest.mark.parametrize("k_steps,pre_steps", [(4, 0), (12, 3)])
+@pytest.mark.parametrize("name", ["cornell", "mixed"])
+def test_solid_chain_bwd_matches_plain_version(device, name, k_steps,
+                                               pre_steps):
+    """chain_bwd's solid-family variant against its plain version by
+    test_chain_bwd_matches_plain_version's rule, the quad and box packs'
+    cotangents within 1e-3 of their largest too."""
+    st, keys, sph, bg, bvh, solids = _solid_lanes(device, name)
+    kw = dict(k_steps=k_steps, max_depth=50, t_min=1e-3, moving=False,
+              solids=solids)
+    if pre_steps:
+        tmk.bounce_steps(st, keys, sph, bg, bvh=bvh,
+                         **dict(kw, k_steps=pre_steps))
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
+    ref_out = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
+    agree = ((out[13] == ref_out[13])
+             & ((out[14] > 0.5) == (ref_out[14] > 0.5))
+             & ((out[:13] - ref_out[:13]).abs()
+                <= 1e-3 * ref_out[:13].abs() + 1e-3).all(dim=0))
+    assert agree.float().mean() >= 0.999
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d_out = torch.randn((16, st.shape[1]), generator=gen).to(device) * agree
+    before = tmkv.chain_adjoint.launches
+    k = tmkv.chain_adjoint(st, keys, sph, bg, d_out,
+                           out[tmk.ROW_BOUNCE].clone(), bvh=bvh, **kw)
+    torch.cuda.synchronize(device)
+    assert tmkv.chain_adjoint.launches == before + 1
+    p = tmkv.chain_adjoint_reference(st, keys, sph, bg, d_out,
+                                     ref_out[tmk.ROW_BOUNCE].clone(), **kw)
+    assert int(k[3]) == 0 and int(p[3]) == 0
+    assert not k[0][13:].any()
+    scale = p[0][:13].abs().amax(dim=1, keepdim=True).clamp(min=1e-6)
+    lane_ok = ((k[0][:13] - p[0][:13]).abs() <= 1e-3 * scale).all(dim=0)
+    assert lane_ok.float().mean() >= 0.995
+    for got, exp in zip((*k[1:3], k[4].quad24, k[4].box24),
+                        (*p[1:3], p[4].quad24, p[4].box24)):
+        torch.testing.assert_close(got, exp, rtol=0,
+                                   atol=1e-3 * exp.abs().max().item())
+    assert p[4].quad24.abs().max() > 0 and p[4].box24.abs().max() > 0
+
+
 def test_cornell_gradient_raises_on_the_card(device):
-    """Cornell's gradient has no kernel on the card yet (ROADMAP Queue A
-    #9.7): every differentiable entry point raises naming it, and no
-    train or chain kernel launches; the checkpointed scan is the CPU's
-    route."""
+    """Cornell's gradient runs on the card's kernels (ROADMAP Queue A
+    #9.7): make_train_step, its chunked step and render_image_diff launch
+    train_fwd and train_bwd, render_image(differentiable=True) bounce_steps
+    and chain_bwd, with no replay mismatch and finite losses and
+    gradients; a scene with constant media still raises naming #9.4."""
     from rrt_tpu_torch import diff, render
-    scene, cam = tscenes.cornell_box_scene(8, 8)
-    cfg = render.RenderConfig(width=8, height=8, spp=2, max_depth=4,
+    scene, cam = tscenes.cornell_box_scene(16, 16)
+    cfg = render.RenderConfig(width=16, height=16, spp=2, max_depth=8,
                               samples_per_pass=2)
-    target = torch.zeros((8, 8, 3), device=device)
-    counters = (tmkt.render_tiles_train, tmkt.tiles_adjoint,
-                tmkv.chain_adjoint)
-    before = [c.launches for c in counters]
-    for call in (lambda: diff.make_train_step(cfg, device=device)(
-                     scene, cam, target, 0),
-                 lambda: diff.make_train_step_chunked(cfg, device=device)(
-                     scene, cam, target, 0),
-                 lambda: render.render_image_diff(scene, cam, cfg, 0,
-                                                  device=device),
-                 lambda: render.render_image(scene, cam, cfg, 0,
-                                             differentiable=True,
-                                             device=device)):
-        with pytest.raises(NotImplementedError, match="#9.7"):
-            call()
-    assert [c.launches for c in counters] == before
+    target = torch.zeros((16, 16, 3), device=device)
+    tmkt.tiles_adjoint.replay_mismatches = 0
+    tmkv.chain_adjoint.replay_mismatches = 0
+    for step in (diff.make_train_step(cfg, device=device),
+                 diff.make_train_step_chunked(cfg, spp_chunk=1,
+                                              device=device)):
+        fwd, bwd = (tmkt.render_tiles_train.launches,
+                    tmkt.tiles_adjoint.launches)
+        new, _, loss = step(scene, cam, target, 0)
+        assert tmkt.render_tiles_train.launches > fwd
+        assert tmkt.tiles_adjoint.launches > bwd
+        assert bool(torch.isfinite(loss))
+        assert not torch.equal(new.tex_color1.cpu(), scene.tex_color1)
+    color = scene.tex_color1.clone().requires_grad_()
+    s = dataclasses.replace(scene, tex_color1=color)
+    fwd, bwd = tmk.bounce_steps.launches, tmkv.chain_adjoint.launches
+    img, _ = render.render_image(s, cam, cfg, 0, differentiable=True,
+                                 device=device)
+    (g,) = torch.autograd.grad(img.sum(), color)
+    assert tmk.bounce_steps.launches > fwd
+    assert tmkv.chain_adjoint.launches > bwd
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    assert int(tmkt.tiles_adjoint.replay_mismatches) == 0
+    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
+    smoke = dataclasses.replace(scene, has_media=True)
+    with pytest.raises(NotImplementedError, match="#9.4"):
+        render.render_image_diff(smoke, cam, cfg, 0, device=device)

@@ -155,10 +155,15 @@ def test_diff_step_has_gradient_power():
 
 
 def test_diff_step_other_families_raise():
-    with pytest.raises(NotImplementedError, match="#9.7"):
-        diff_step({}, moving=False, has_quads=True)
-    with pytest.raises(NotImplementedError, match="#9.6"):
-        diff_step({}, moving=False, rr_depth=2)
+    """Media, perlin and image textures and Russian roulette raise naming
+    their ROADMAP items; quads, boxes and lights are diff_step's since
+    #9.7 (tests/test_torch_cornell_grad.py)."""
+    for kw, item in ((dict(n_media=1), "#9.4"),
+                     (dict(has_perlin=True), "#9.5"),
+                     (dict(has_images=True), "#9.5"),
+                     (dict(rr_depth=2), "#9.6")):
+        with pytest.raises(NotImplementedError, match=item):
+            diff_step({}, moving=False, **kw)
 
 
 def test_camera_ray_rows_matches_reference():
