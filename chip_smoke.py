@@ -85,6 +85,27 @@ forward kernels' solid-family variants), at bench.py's scene-phase size
        SGD steps; the loss falls), make_train_step_chunked and
        render_image(differentiable=True), with no replay mismatch.
 
+Then constant media and the isotropic material on the Cornell smoke
+box (cornell_smoke: cornell's walls, two rotated medium boxes of
+density 0.01; the same size), through the kernels' solid-family
+variants, whose media loop runs when a scene has media:
+
+  [S1] tile_render (held to its plain version at SMOKE_PLAIN_SPP),
+       bounce_steps and intersect_only (bit for bit) against their
+       plain versions, each timed beside its bound; then the main path:
+       the CLI with --scene cornell_smoke on the tile, queue and batch
+       drivers, held against the tile image;
+  [S2] its gradient at 8 spp: train_fwd and train_bwd against their
+       plain versions (gradcheck's rule), finite differences of the
+       white smoke's albedo, then the main path: make_train_step (three
+       SGD steps; the loss falls) and its chunked step, no bounce_steps
+       or chain_bwd launch, and render_image(differentiable=True) and
+       the bounce chain raising before any launch (the chain leaves
+       media out, as rrt_tpu's does);
+  [S3] the media adjoint on scenes.book2.media_scene (a medium sphere
+       and a medium box under the sky, 320x240, 4 spp, depth 8): the
+       medium pack's cotangents against the plain version's.
+
 [2] prints ptxas's registers and spills of every kernel; [7], [8] and
 [M3] print the train kernels' times beside the step's least time
 (`step_bound_ms`: one scan a segment, the backward's adjoint, the bytes)
@@ -117,6 +138,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import sys
 import tempfile
@@ -293,6 +315,48 @@ CORNELL_MIN_CLOSE = 0.99
 # 0.97^32 = 38% of pixels stay black; 0.5960 were lit on an H100 80GB
 # HBM3 at 700 W. The gate requires half that.
 CORNELL_MIN_LIT = 0.3
+# [S1]-[S3]: constant media and the isotropic material. cornell_smoke
+# (rrt_tpu/scenes/book2.py, RTTNW ch. 9.2: cornell's walls under a larger
+# light, its boxes two rotated medium boxes of density 0.01, one black,
+# one white; BASELINE.json config #5's constant-medium volumes) at
+# CORNELL's size, uncut; [S3]'s scenes.book2.media_scene (a medium
+# sphere inside a glass one, a rotated medium box, under the sky).
+SMOKE = dict(CORNELL, scene="cornell_smoke")
+# [S1]: tile_render against its plain version at this many spp (the
+# kernel's time and bound are at SMOKE's 32); [S2]: the train kernels
+# against theirs at this many (the main path's step at
+# CORNELL_TRAIN_SPP): the plain versions' time grows with the samples.
+SMOKE_PLAIN_SPP = 2
+# [S1]: cornell_smoke's pixels within 1e-3 of the plain version, [K1]'s
+# rule; [S2]: the pixels each of whose samples the train kernels and the
+# plain version render alike, [K3]'s. On an H100 80GB HBM3 at 700 W
+# 1.0000 (max pixel |delta| 0.0000, traced 1,849,620 vs 1,849,621) and
+# 0.99999 agreed; the gates allow many times their complements.
+SMOKE_MIN_CLOSE = 0.99
+SMOKE_MIN_AGREE = 0.98
+# [S3]: media_scene at this size; its agreeing pixels, [K3]'s mixed
+# scene's rule; the fields held within MIXED_FIELD_GATE of their
+# largest, the medium pack's cotangents (MED_COLS) within MEDIA_SPREAD
+# of their largest. On an H100 80GB HBM3 at 700 W: 0.99938 of pixels
+# agreed, 16 of 750,304 winner codes differed (MAX_WINNER_FAULTS),
+# med_half read 3.2e-5 of its largest, the pack cotangents 5.0e-6.
+MEDIA_ADJ = dict(width=320, height=240, spp=4, max_depth=8)
+MEDIA_MIN_AGREE = 0.95
+MEDIA_FIELDS = ("med_center", "med_radius", "med_half",
+                "med_neg_inv_density", "tex_color1", "sphere_c0", "bg_top")
+MEDIA_SPREAD = 1e-2
+# FP32 operations of one medium test (bounce.cuh medium_t): a box
+# boundary's offsets (3), three slabs (the rotated offset and direction,
+# 5 each; the parallel test and the reciprocal, 3; t1 and t2, 5; the
+# inside test, 2; min, max and the two selects, 4; the running max and
+# min, 2: 26 each), the clips and their tests (6), the sampled distance
+# (log, a multiply, the inside-length test, 4) and t (2): 93; a sphere
+# boundary's offsets (3), half_b and c_coef (12), the discriminant (3),
+# its root (2), the entry and exit (4) and its test (1), then the same
+# 12: 37. A segment of a media scene also takes 1 / |d| (2); each pair of
+# media draws one Threefry call (80 INT32 operations) a segment.
+MEDIUM_BOX_FLOPS = 93
+MEDIUM_SPHERE_FLOPS = 37
 
 # The gradient fields [7] and [C2] require to be finite and non-zero.
 GRAD_FIELDS = ("sphere_c0", "sphere_radius", "tex_color1", "mat_fuzz",
@@ -1622,9 +1686,23 @@ def motion_train_phase(device, card):
 
 
 def solid_flops(segments, solids) -> float:
-    """FP32 operations of `segments` segments' quad and box tests."""
-    return segments * (solids.n_quads * QUAD_TEST_FLOPS
-                       + solids.n_boxes * BOX_TEST_FLOPS + 1)
+    """FP32 operations of `segments` segments' quad, box and medium
+    tests (no medium term without media, so [K1]-[K3] count as before)."""
+    flops = segments * (solids.n_quads * QUAD_TEST_FLOPS
+                        + solids.n_boxes * BOX_TEST_FLOPS + 1)
+    n_media = getattr(solids, "n_media", 0)
+    if n_media:
+        boxes = int((solids.med24[:n_media, 0] > 0.5).sum())
+        flops += segments * (boxes * MEDIUM_BOX_FLOPS + 2 + (
+            n_media - boxes) * MEDIUM_SPHERE_FLOPS)
+    return flops
+
+
+def media_draws(segments, solids) -> float:
+    """INT32 operations of `segments` segments' STREAM_MEDIUM draws: a
+    Threefry call a pair of media."""
+    return THREEFRY_OPS * segments * ((getattr(solids, "n_media", 0) + 1)
+                                      // 2)
 
 
 def pack_bytes(*packs) -> int:
@@ -1678,9 +1756,11 @@ def tile_vs_plain(what, packs, bvh, kw, card, *, min_close):
     return rad, traced, ms, plain_ms, err.max().item()
 
 
-def bounce_vs_plain(what, st, keys, sph, bg, bvh, solids, card):
+def bounce_vs_plain(what, st, keys, sph, bg, bvh, solids, card,
+                    exact=False):
     """bounce_steps (4 steps, depth 50) against its plain version, [Q1]'s
-    rule. Returns (out, kernel ms, plain ms, max |delta|)."""
+    rule; with `exact`, bit for bit. Returns (out, kernel ms, plain ms,
+    max |delta|)."""
     from rrt_tpu_torch.ops import megakernel as mk
     kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3,
               moving=False, solids=solids)
@@ -1703,6 +1783,8 @@ def bounce_vs_plain(what, st, keys, sph, bg, bvh, solids, card):
           f"plain {plain_ms:.1f} ms  [{card}]", flush=True)
     check(frac >= 0.999 and equal and close >= 0.995,
           ("bounce_steps", what, frac, equal, close))
+    if exact:
+        same_bits(f"bounce_steps {what}, kernel vs plain", [out], [ref])
     return out, ms, plain_ms, err.max().item()
 
 
@@ -1859,20 +1941,21 @@ def cornell_kernels_phase(device, card):
     return dict(tile=tile, queue=queue, inter=inter)
 
 
-def cornell_cli_phase(device, card):
+def cornell_cli_phase(device, card, name="cornell"):
     """[K2] the main path: python -m rrt_tpu_torch.cli --scene cornell
     -r 400x400 -s 32 on the tile driver (auto), launches counted; then
     the queue driver (four passes of 8 spp) and the batch driver (4 spp)
     through the CLI, each held against the tile image of its samples by
     [Q2]'s and [Q3]'s rule (hold_to_tile): on an H100 80GB HBM3 at 700 W
     their image means were 5.7e-6 and 0 apart, traced totals 2.6e-6 and
-    1.1e-5, pixels within 1e-3 0.99997 and 1.
+    1.1e-5, pixels within 1e-3 0.99997 and 1. [S1] runs it on
+    cornell_smoke (`name`), whose light emits 7.
     Returns (tile_render launches, bounce_steps launches, intersect_only
     launches)."""
     from rrt_tpu_torch import cli, render, scenes as tscenes
     from rrt_tpu_torch.ops import megakernel as mk
     w, h, spp = CORNELL["width"], CORNELL["height"], CORNELL["spp"]
-    argv = ["--scene", "cornell", "-r", f"{w}x{h}", "-s", str(spp), "-e",
+    argv = ["--scene", name, "-r", f"{w}x{h}", "-s", str(spp), "-e",
             "0", "--max-depth", str(CORNELL["max_depth"]), "--device",
             "cuda:0", "--quiet"]
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1893,33 +1976,35 @@ def cornell_cli_phase(device, card):
               (res.driver, launches))
         return res, launches
 
-    res, t_launches = run([], "chip_smoke_cornell.png", mk.render_tiles)
+    res, t_launches = run([], f"chip_smoke_{name}.png", mk.render_tiles)
     img = res.image
     n_paths = w * h * spp
     nonzero = (img.amax(dim=2) > 0).float().mean().item()
     peak = img.max().item()
+    scene, cam = tscenes.SCENES[name](w, h)
+    light = scene.tex_color1[
+        scene.mat_tex[scene.mat_type == 3].long()].max().item()
     print(f"  tile image: non-zero pixels {nonzero:.4f}, largest value "
-          f"{peak} (the light's emission, 15, on pixels whose every "
+          f"{peak} (the light's emission, {light:g}, on pixels whose every "
           f"sample sees it)", flush=True)
     check(res.driver == "tile", ("auto driver", res.driver))
     check(n_paths <= res.n_traced <= n_paths * (CORNELL["max_depth"] + 1),
           ("traced", res.n_traced))
-    check(nonzero > CORNELL_MIN_LIT and peak == 15.0,
-          ("cornell image", nonzero, peak))
+    check(nonzero > CORNELL_MIN_LIT and peak == light,
+          (f"{name} image", nonzero, peak))
     res_q, q_launches = run(["--driver", "queue", "--spp-chunk",
-                             str(QUEUE_CHUNK)], "chip_smoke_cornell_queue.png",
+                             str(QUEUE_CHUNK)], f"chip_smoke_{name}_queue.png",
                             mk.bounce_steps)
     check(res_q.passes == spp // QUEUE_CHUNK, "queue passes")
-    hold_to_tile("cornell queue", res_q.image, res_q.n_traced, img,
+    hold_to_tile(f"{name} queue", res_q.image, res_q.n_traced, img,
                  res.n_traced)
     res_b, b_launches = run(["-s", str(BATCH_SPP), "--driver", "batch"],
-                            "chip_smoke_cornell_batch.png", mk.intersect_only)
-    scene, cam = tscenes.cornell_box_scene(w, h)
+                            f"chip_smoke_{name}_batch.png", mk.intersect_only)
     cfg_b = render.RenderConfig(width=w, height=h, spp=BATCH_SPP,
                                 max_depth=CORNELL["max_depth"])
     tile_b, tile_b_n = render.render_image_tiles(scene, cam, cfg_b, 0,
                                                  device=device)
-    hold_to_tile("cornell batch", res_b.image, res_b.n_traced, tile_b,
+    hold_to_tile(f"{name} batch", res_b.image, res_b.n_traced, tile_b,
                  int(tile_b_n))
     return t_launches, q_launches, b_launches
 
@@ -1939,9 +2024,12 @@ def solid_train_bounds(traced, spp, solids, n_slots):
     stored = int(traced.long().clamp(max=mkt.winner_capacity(spp)).sum())
     paths = n_pix * spp
     draws = THREEFRY_OPS * (THREEFRY_PER_HIT * (segments - paths)
-                            + THREEFRY_PER_PATH * paths)
+                            + THREEFRY_PER_PATH * paths) \
+        + media_draws(segments, solids)
+    med = getattr(solids, "med24", None)
     packs = 4 * (24 * (n_slots + solids.quad24.shape[1]
-                       + solids.box24.shape[1]) + 24 + 8)
+                       + solids.box24.shape[1]) + 24 + 8) \
+        + (0 if med is None else 4 * med.numel())
     residual = paths + 2 * stored
     per_test = (solids.n_quads * QUAD_TEST_FLOPS
                 + solids.n_boxes * BOX_TEST_FLOPS) / max(
@@ -2073,7 +2161,8 @@ def solid_train_vs_plain(what, scene, cam, cfg, device, card, *,
     return dict(fwd_ms=fwd_ms, fwd_plain_ms=agreement.plain_seconds * 1e3,
                 bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, fwd_err=fwd_err,
                 bwd_err=err, traced=traced, solids=solids,
-                n_slots=packs[0].shape[1], grads=pp, packs=packs, kw=kw)
+                n_slots=packs[0].shape[1], grads=pp, packs=packs, kw=kw,
+                winners=winners, d_solids=(k[4], p[4]))
 
 
 def cornell_finite_differences(t, scene, cam, cfg, device):
@@ -2292,6 +2381,316 @@ def cornell_train_phase(device, card, resources):
                           max(c["err"] for c in c1), c_bound, launches[3],
                           "chain_bwd_kernel"),
         step_ms=(fwd_main, bwd_main))
+
+
+def smoke_kernels_phase(device, card):
+    """[S1] the media variants of tile_render, bounce_steps and
+    intersect_only on cornell_smoke against their plain versions:
+    tile_render at SMOKE's 400x400, 32 spp, depth 50 timed by graph
+    replay and held to the plain version at SMOKE_PLAIN_SPP by [K1]'s
+    rule; bounce_steps at [Q1]'s 131,072 lanes, 4 steps, and
+    intersect_only at [Q3]'s 65,536 rays (camera rays and after 1-4
+    bounces, each with its keys and bounce counter for the media's
+    draws) bit for bit (quads and media: the same arithmetic, CUDA's libm
+    in both); each beside its bound (each segment's 6 quad and 2 medium
+    tests, the draws, the bytes)."""
+    from rrt_tpu_torch import render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    w, h, spp = SMOKE["width"], SMOKE["height"], SMOKE["spp"]
+    depth = SMOKE["max_depth"]
+    scene, cam = tscenes.cornell_smoke_scene(w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    solids = mk.pack_solids(scene, device)
+    print(f"  cornell_smoke: {solids.n_quads} quads, {solids.n_boxes} "
+          f"boxes, {solids.n_media} media (medium boxes rotated about Y, "
+          f"density 0.01), {scene.n_spheres_active} spheres", flush=True)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
+              max_depth=depth, t_min=1e-3, moving=False, solids=solids)
+    rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
+    ms = graph_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw),
+                  mk.render_tiles)
+    _, _, _, plain_ms, err = tile_vs_plain(
+        "cornell_smoke", packs, bvh, dict(kw, spp=SMOKE_PLAIN_SPP), card,
+        min_close=SMOKE_MIN_CLOSE)
+    segments, paths = int(traced.sum()), w * h * spp
+    t_bytes = pack_bytes(*packs, solids.quad24, solids.box24,
+                         solids.med24) + 16 * w * h
+    t_bound = bound(solid_flops(segments, solids), t_bytes, THREEFRY_OPS * (
+        THREEFRY_PER_PATH * paths + THREEFRY_PER_HIT * (segments - paths))
+        + media_draws(segments, solids))
+    print(f"  tile_render cornell_smoke {w}x{h} {spp}spp d{depth}: "
+          f"{segments} segments ({segments / paths:.2f} a path), bound "
+          f"{t_bound[0]:.4f} ms ({t_bound[1]}: "
+          f"{solid_flops(segments, solids) / FP32_PEAK * 1e3:.4f} ms of FP32 "
+          f"tests, the draws), kernel {ms:.3f} ms  [{card}]", flush=True)
+    tile = dict(ms=ms, plain_ms=plain_ms, err=err, bound=t_bound,
+                traced=segments)
+
+    st, keys, sph, bg = lane_state(scene, cam, w, h, QUEUE_LANES, device)
+    q_bvh = render.pack_scene(scene, device, render._shutter(cam))["bvh"]
+    out, q_ms, q_plain_ms, q_err = bounce_vs_plain(
+        "cornell_smoke", st, keys, sph, bg, q_bvh, solids, card, exact=True)
+    q_bytes = 4 * QUEUE_LANES * (16 + 2 + 16) + pack_bytes(
+        sph, bg, solids.quad24, solids.box24, solids.med24)
+    q_segments = int((out[15] - st[15]).sum())
+    q_bound = bound(solid_flops(q_segments, solids), q_bytes,
+                    THREEFRY_OPS * THREEFRY_PER_HIT
+                    * drawing_segments(st, out)
+                    + media_draws(q_segments, solids))
+    print(f"  bounce_steps cornell_smoke: {q_segments} segments, bound "
+          f"{q_bound[0]:.4f} ms ({q_bound[1]}), kernel {q_ms:.4f} ms  "
+          f"[{card}]", flush=True)
+    queue = dict(ms=q_ms, plain_ms=q_plain_ms, err=q_err, bound=q_bound)
+
+    st_b, keys_b, _, _ = lane_state(scene, cam, w, h, BATCH_RAYS, device)
+    i_plain, scattered = [], 0
+    for k in range(5):
+        if k:
+            mk.bounce_steps(st_b, keys_b, sph, bg, k_steps=1, max_depth=depth,
+                            t_min=1e-3, moving=False, bvh=q_bvh,
+                            solids=solids)
+        ikw = dict(t_min=1e-3, solids=solids, keys=keys_b,
+                   bounce=st_b[13].to(torch.int32))
+        o, d = st_b[0:3].contiguous(), st_b[3:6].contiguous()
+        hit = mk.intersect_only(o, d, sph, bvh=q_bvh, **ikw)
+        ref, p_ms = wall_ms(lambda: mk.intersect_only_reference(o, d, sph,
+                                                                **ikw))
+        i_plain.append(p_ms)
+        scattered += int((hit[1] == 2).sum())
+        same_bits(f"intersect_only cornell_smoke, {BATCH_RAYS} rays after "
+                  f"{k} bounces, kernel vs plain", hit, ref)
+        if k == 0:
+            i_ms = graph_ms(lambda: mk.intersect_only(o, d, sph, bvh=q_bvh,
+                                                      **ikw),
+                            mk.intersect_only)
+    i_bound = bound(solid_flops(BATCH_RAYS, solids),
+                    4 * BATCH_RAYS * 12 + pack_bytes(
+                        sph, solids.quad24, solids.box24, solids.med24),
+                    media_draws(BATCH_RAYS, solids))
+    print(f"  intersect_only cornell_smoke, {BATCH_RAYS} camera rays: "
+          f"kernel {i_ms:.4f} ms, bound {i_bound[0]:.4f} ms ({i_bound[1]}); "
+          f"{scattered} of the rays over the 5 sets scatter in a medium  "
+          f"[{card}]", flush=True)
+    check(scattered > 0, "[S1] no ray scattered in a medium")
+    inter = dict(ms=i_ms, plain_ms=i_plain[0], err=0.0, bound=i_bound)
+    return dict(tile=tile, queue=queue, inter=inter)
+
+
+def smoke_finite_differences(t, scene, cam, cfg, device):
+    """d loss / d (the white smoke's albedo, red) from train_bwd against
+    central differences of the train_fwd forward, loss = sum(MIX .
+    radiance) in float64, eps 1e-2 (the albedo scales the throughput of
+    the paths that scatter in the smoke and moves no path), the gate
+    [6]'s 1e-2 (1.44e-4 on an H100 80GB HBM3 at 700 W). Returns the
+    relative difference."""
+    from rrt_tpu_torch import diff, render
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
+    kw = dict(t["kw"], spp=cfg.spp)
+    mix = torch.tensor(MIX, device=device)
+
+    def forward(s):
+        packs = [p.detach() for p in render._packs(s, cam, cfg, device)]
+        return packs, mkt.render_tiles_train(
+            *packs, **dict(kw, solids=mk.pack_solids(s, device)))
+
+    packs, (rad, _, lengths, winners) = forward(scene)
+    out = mkt.tiles_adjoint(*packs, mix.expand_as(rad).contiguous(), lengths,
+                            winners, **kw)
+    gp, _ = diff.field_grads(scene, cam, cfg, *out[:3], out[4],
+                             device=device)
+    white = int(scene.mat_tex[scene.med_mat[1]])
+    eps = 1e-2
+
+    def loss(delta):
+        v = scene.tex_color1.clone()
+        v[white, 0] += delta
+        r = forward(diff.combine(scene, {"tex_color1": v}))[1][0]
+        return (r.double() * mix.double()).sum().item()
+
+    fd = (loss(eps) - loss(-eps)) / (2.0 * eps)
+    auto = gp["tex_color1"][white, 0].item()
+    rel = abs(auto - fd) / max(abs(fd), 1e-30)
+    print(f"  d loss / d tex_color1[{white}][0] (the white smoke's albedo): "
+          f"train_bwd {auto:.6e}, central difference (eps {eps:g}) "
+          f"{fd:.6e}, {rel:.2e} apart (gate 1e-2)", flush=True)
+    check(auto != 0.0 and rel < 1e-2, ("[S2] smoke albedo", auto, fd))
+    return rel
+
+
+def smoke_train_phase(device, card, resources):
+    """[S2] cornell_smoke's gradient on the card at 400x400, depth 50:
+    the train kernels' media variants against tile_render and their
+    plain versions at SMOKE_PLAIN_SPP (solid_train_vs_plain,
+    gradcheck's rule), timed at CORNELL_TRAIN_SPP beside their bounds;
+    central differences of the white smoke's albedo; then the main path
+    with the launch counts set to 0: make_train_step at 8 spp (three SGD
+    steps, the loss must fall) and make_train_step_chunked (two chunks of
+    4 spp), with no replay mismatch, no bounce_steps or chain_bwd launch;
+    render_image(differentiable=True) and the bounce chain must raise
+    before any launch (rrt_tpu's chain leaves media out, and the port
+    keeps the scan off the card). Returns the numbers of the kernels
+    line."""
+    from rrt_tpu_torch import diff, render, rng, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    w, h, depth = SMOKE["width"], SMOKE["height"], SMOKE["max_depth"]
+    cfg = render.RenderConfig(width=w, height=h, spp=CORNELL_TRAIN_SPP,
+                              max_depth=depth)
+    scene, cam = tscenes.cornell_smoke_scene(w, h)
+    torch.cuda.reset_peak_memory_stats(device)
+    t = solid_train_vs_plain("cornell_smoke", scene, cam,
+                             dataclasses.replace(cfg, spp=SMOKE_PLAIN_SPP),
+                             device, card, min_pixels=SMOKE_MIN_AGREE)
+    packs, kw = t["packs"], dict(t["kw"], spp=cfg.spp)
+    fwd = mkt.render_tiles_train(*packs, **kw)
+    fwd_ms = cuda_ms(lambda: mkt.render_tiles_train(*packs, **kw), 3)
+    d_rad = torch.ones_like(fwd[0])
+    bwd = mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **kw)
+    bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, *fwd[2:],
+                                               **kw), 3)
+    fwd_bound, bwd_bound = solid_train_bounds(fwd[1], cfg.spp, t["solids"],
+                                              t["n_slots"])
+    print(f"  cornell_smoke {w}x{h} {cfg.spp}spp d{depth}: train_fwd "
+          f"{fwd_ms:.3f} ms (bound {fwd_bound[0]:.4f}, {fwd_bound[1]}), "
+          f"train_bwd {bwd_ms:.3f} ms (bound {bwd_bound[0]:.4f}, "
+          f"{bwd_bound[1]}); replay mismatches {int(bwd[3])}; "
+          f"{int(fwd[1].sum())} segments  [{card}]", flush=True)
+    check(int(bwd[3]) == 0, ("[S2] replay_mismatches", int(bwd[3])))
+    fd_rel = smoke_finite_differences(t, scene, cam, cfg, device)
+    peak_memory("[S2] kernels vs plain versions", device, card)
+
+    # The main path, launches counted from 0.
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    n_tex = scene.tex_color1.shape[0]
+    start = diff.combine(scene, {"tex_color1": scene.tex_color1
+                                 * torch.linspace(0.8, 1.1, n_tex)[:, None]})
+    step = diff.make_train_step(cfg, device=device)
+    chunked = diff.make_train_step_chunked(cfg, spp_chunk=4, device=device)
+    chunked(start, cam, target, 0)  # warm-up
+    counters = (mkt.render_tiles_train, mkt.tiles_adjoint, mk.bounce_steps,
+                mkv.chain_adjoint, mk.render_tiles)
+    for c in counters:
+        c.launches = 0
+    mkt.tiles_adjoint.replay_mismatches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    s_scene, s_cam = start, cam
+    with chain_events() as (fwd_log, bwd_log):
+        for i in range(3):
+            fwd_log.clear()
+            bwd_log.clear()
+            (s_scene, s_cam, loss), ms = wall_ms(
+                lambda: step(s_scene, s_cam, target, 0))
+            losses.append(loss.item())
+            step_ms.append((events_ms(fwd_log), events_ms(bwd_log), ms))
+            print(f"  make_train_step {i}: loss {losses[-1]:.8e}, train_fwd "
+                  f"{step_ms[-1][0]:.3f} ms, train_bwd {step_ms[-1][1]:.3f} "
+                  f"ms, step {ms:.2f} ms  [{card}]", flush=True)
+        (_, _, c_loss), c_wall = wall_ms(lambda: chunked(start, cam, target,
+                                                         0))
+    print(f"  make_train_step_chunked (2 chunks of 4 spp): loss "
+          f"{c_loss.item():.8e} (one-shot's first {losses[0]:.8e}), step "
+          f"{c_wall:.2f} ms  [{card}]", flush=True)
+    launches = [c.launches for c in counters]
+    mism = int(mkt.tiles_adjoint.replay_mismatches)
+    raised = []
+    for what, fn in (
+            ("render_image(differentiable=True)",
+             lambda: render.render_image(start, cam, cfg, 0,
+                                         differentiable=True,
+                                         device=device)),
+            ("trace_batch_fused", lambda: render.trace_batch_fused(
+                start.to(device), *smoke_chain_rays(start, cam, device),
+                depth, 1e-3))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            raised.append(what)
+            print(f"  {what} raises: {e}", flush=True)
+    after = [c.launches for c in counters]
+    print(f"  launches train_fwd {launches[0]}, train_bwd {launches[1]}, "
+          f"bounce_steps {launches[2]}, chain_bwd {launches[3]}, "
+          f"tile_render {launches[4]}; after the two raises {after}; "
+          f"replay_mismatches {mism} (gate 0); losses {losses} (must "
+          f"fall)  [{card}]", flush=True)
+    peak_memory("[S2] main path", device, card)
+    check(launches[0] >= 5 and launches[1] >= 5 and launches[2] == 0
+          and launches[3] == 0, ("[S2] launches", launches))
+    check(after == launches and len(raised) == 2, ("[S2] raises", raised,
+                                                   after))
+    check(mism == 0, ("[S2] replay_mismatches", mism))
+    check(all(math.isfinite(x) for x in losses)
+          and losses[2] < losses[1] < losses[0], ("[S2] the loss", losses))
+    check(abs(c_loss.item() - losses[0]) <= 1e-5 * losses[0],
+          ("[S2] chunked vs one-shot", c_loss.item(), losses[0]))
+
+    def numbers(ms, plain_ms, err, bnd, n_launch, name):
+        return dict(smoke_ms=ms, smoke_plain_ms=plain_ms,
+                    smoke_bound_ms=bnd[0], smoke_bound_by=bnd[1],
+                    smoke_max_abs_err=err, smoke_launches=n_launch,
+                    smoke_registers=resources.get(name + " (solids)"))
+
+    return dict(
+        fd_rel=fd_rel,
+        train_fwd=numbers(fwd_ms, t["fwd_plain_ms"], t["fwd_err"], fwd_bound,
+                          launches[0], "train_fwd_kernel"),
+        train_bwd=numbers(bwd_ms, t["bwd_plain_ms"], t["bwd_err"], bwd_bound,
+                          launches[1], "train_bwd_kernel"))
+
+
+def smoke_chain_rays(scene, cam, device):
+    """(o, d, time, keys) of 4,096 camera rays of `scene` at 64x64, the
+    bounce chain's inputs for [S2]'s raise."""
+    from rrt_tpu_torch import render, rng
+    pix = torch.arange(4096, device=device)
+    keys = rng.sample_keys(rng.key_words(0), pix, 0)
+    o, d, tm = render.generate_rays(cam.to(device), pix % 64, pix // 64, 64,
+                                    64, keys)
+    return o, d, tm, keys
+
+
+def media_adjoint_phase(device, card):
+    """[S3] the media adjoint on scenes.book2.media_scene at MEDIA_ADJ
+    (320x240, 4 spp, depth 8), where the sky gives the media a gradient
+    (cornell_smoke's black background and constant albedos give its
+    media's positions none, as rrt_tpu's): train_fwd and train_bwd
+    against their plain versions (solid_train_vs_plain: MEDIA_FIELDS
+    within MIXED_FIELD_GATE of their largest), the medium pack's
+    cotangents within MEDIA_SPREAD of their largest; both media, the
+    sphere boundary (inside the glass sphere) and the box one, must be
+    hit, and get non-zero center and density cotangents."""
+    from rrt_tpu_torch import render
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    from rrt_tpu_torch.scenes import book2
+    scene, cam = book2.media_scene(MEDIA_ADJ["width"], MEDIA_ADJ["height"])
+    cfg = render.RenderConfig(**MEDIA_ADJ)
+    torch.cuda.reset_peak_memory_stats(device)
+    m = solid_train_vs_plain("media", scene, cam, cfg, device, card,
+                             min_pixels=MEDIA_MIN_AGREE, fields=MEDIA_FIELDS)
+    k_med, p_med = (d.med24 for d in m["d_solids"])
+    cols = list(mkv.MED_COLS)
+    largest = p_med[:, cols].abs().max().item()
+    spread = (k_med - p_med)[:, cols].abs().max().item() / largest
+    hits = [int((m["winners"] == mk.MEDIUM_CODE + i).sum())
+            for i in range(scene.n_media_active)]
+    print(f"  media: stored medium winners {hits} (sphere, box); medium "
+          f"pack cotangents: kernel vs plain {spread:.3e} of their largest "
+          f"{largest:.4e} (gate {MEDIA_SPREAD:g}); plain center "
+          f"{p_med[:2, 1:4].tolist()}, -1/density {p_med[:2, 17].tolist()}",
+          flush=True)
+    peak_memory("[S3]", device, card)
+    check(min(hits) > 0, ("[S3] both boundaries hit", hits))
+    check(spread <= MEDIA_SPREAD, ("[S3] med24 spread", spread))
+    # The sphere medium fills the glass sphere, so its paths start on its
+    # boundary (t_min clamps the entry: no center gradient, as in
+    # rrt_tpu); the box medium's are entered from outside.
+    check(p_med[:2, 17].abs().min().item() > 0
+          and p_med[1, 1:4].abs().max().item() > 0,
+          ("[S3] zero media cotangents", p_med[:2].tolist()))
+    return dict(spread=spread, hits=hits)
 
 
 def probe_phase(device, card):
@@ -2742,6 +3141,25 @@ def main() -> int:
                  f"versions, then make_train_step, its chunked step and "
                  f"render_image(differentiable=True)")
     k3 = cornell_train_phase(device, card, resources)
+    phases.start("S1", f"cornell_smoke {SMOKE['width']}x{SMOKE['height']}: "
+                 f"the kernels' media variants vs their plain versions, then "
+                 f"the main path: python -m rrt_tpu_torch.cli --scene "
+                 f"cornell_smoke -s {SMOKE['spp']} (tile), the queue and "
+                 f"batch drivers")
+    torch.cuda.reset_peak_memory_stats(device)
+    s1 = smoke_kernels_phase(device, card)
+    s1_launches = cornell_cli_phase(device, card, "cornell_smoke")
+    peak_memory("[S1]", device, card)
+    phases.start("S2", f"cornell_smoke's gradient on the card at "
+                 f"{SMOKE['width']}x{SMOKE['height']} {CORNELL_TRAIN_SPP}spp "
+                 f"d{SMOKE['max_depth']}: the train kernels' media variants "
+                 f"vs their plain versions, finite differences, then "
+                 f"make_train_step and its chunked step; the chain's raises")
+    s2 = smoke_train_phase(device, card, resources)
+    phases.start("S3", f"the media adjoint on media_scene "
+                 f"{MEDIA_ADJ['width']}x{MEDIA_ADJ['height']} "
+                 f"{MEDIA_ADJ['spp']}spp d{MEDIA_ADJ['max_depth']}")
+    media_adjoint_phase(device, card)
     phases.start("P1", "main path: the three probes at their full ITERS")
     p1 = probe_phase(device, card)
     phases.end()
@@ -2784,6 +3202,16 @@ def main() -> int:
                     cornell_max_abs_err=k["err"], cornell_launches=launches,
                     cornell_registers=resources.get(name + " (solids)"))
 
+    def smoke(k, launches, name):
+        # The kernel's media variant on cornell_smoke ([S1]: tile_render's
+        # plain_ms and max_abs_err at SMOKE_PLAIN_SPP; launches on [S1]'s
+        # CLI main path; the train kernels' from [S2]).
+        return dict(smoke_ms=k["ms"], smoke_plain_ms=k["plain_ms"],
+                    smoke_bound_ms=k["bound"][0],
+                    smoke_bound_by=k["bound"][1],
+                    smoke_max_abs_err=k["err"], smoke_launches=launches,
+                    smoke_registers=resources.get(name + " (solids)"))
+
     def walk(scan_bnd, counts, moving_scan_bnd, moving_counts):
         # Every kernel but the train kernels walks the BVH: bound_ms is
         # the walk's; the scan's, which they ran before, beside it.
@@ -2812,6 +3240,7 @@ def main() -> int:
               **walk(main_scan_bound, counts3, m_tile["scan_bound"],
                      m_tile["counts"]),
               **cornell(k1["tile"], k2_launches[0], "tile_render_kernel"),
+              **smoke(s1["tile"], s1_launches[0], "tile_render_kernel"),
               registers=resources.get("tile_render_kernel")),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
@@ -2819,7 +3248,7 @@ def main() -> int:
               t5["fwd_bound"], main_ms=main_fwd,
               step_bound_ms=t5["step_bound"][0],
               registers=resources.get("train_fwd_kernel"),
-              **k3["train_fwd"],
+              **k3["train_fwd"], **s2["train_fwd"],
               **moving(m_t["fwd_ms"], m_t["fwd_bound"],
                        moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
@@ -2829,7 +3258,7 @@ def main() -> int:
               step_bound_ms=t5["step_bound"][0],
               scan_ms=t5["bwd_scan_ms"],
               registers=resources.get("train_bwd_kernel"),
-              **k3["train_bwd"],
+              **k3["train_bwd"], **s2["train_bwd"],
               **moving(m_t["bwd_ms"], m_t["bwd_bound"],
                        moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",
@@ -2839,6 +3268,7 @@ def main() -> int:
               **walk(q1["scan_bound"], q1["counts"], m_q["scan_bound"],
                      m_q["counts"]),
               **cornell(k1["queue"], k2_launches[1], "bounce_steps_kernel"),
+              **smoke(s1["queue"], s1_launches[1], "bounce_steps_kernel"),
               registers=resources.get("bounce_steps_kernel")),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
@@ -2846,7 +3276,8 @@ def main() -> int:
               **moving(m_q["i_ms"], m_q["i_bound"]),
               **walk(q1["i_scan_bound"], q1["counts"], m_q["i_scan_bound"],
                      m_q["counts"]),
-              **cornell(k1["inter"], k2_launches[2], "intersect_kernel")),
+              **cornell(k1["inter"], k2_launches[2], "intersect_kernel"),
+              **smoke(s1["inter"], s1_launches[2], "intersect_kernel")),
         entry("chain_bwd", csrc + "chain.cu",
               "rrt_tpu/ops/megakernel_vjp.py:487", c2_launches[1],
               max(c["err"] for c in c1), sum(c["ms"] for c in c1),

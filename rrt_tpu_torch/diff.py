@@ -36,7 +36,9 @@ from .scene import SceneArrays
 # through the velocity pack rows; the quads' and boxes' through their
 # packs in the train kernels' and chain_bwd's solid-family variants (a
 # quad's q, u, v through its plane frame: geometry.quad_frame_vjp); the
-# media get none until they are ported (#9.4).
+# media's (med_center, med_radius, med_half, med_neg_inv_density, and
+# their albedo's tex_color1) through the medium pack in the train
+# kernels' (megakernel_vjp.MED_COLS).
 DIFFERENTIABLE_FIELDS = (
     "sphere_c0", "sphere_dc", "sphere_radius",
     "quad_q", "quad_u", "quad_v",
@@ -162,9 +164,9 @@ def field_grads(scene: SceneArrays, camera: Camera, cfg: RenderConfig,
                 d_sph24, d_cam24, d_bg8, d_solids=None, *, device):
     """The gradients of the partition() fields and of the nine Camera
     fields that the pack cotangents (d_sph24, d_cam24, d_bg8, and
-    d_solids: the SolidPacks of the quad and box packs' cotangents, or
-    None) stand for: the VJP of the packing. Returns (dict, list of nine
-    tensors)."""
+    d_solids: the SolidPacks of the quad, box and medium packs'
+    cotangents, or None) stand for: the VJP of the packing. Returns
+    (dict, list of nine tensors)."""
     scene_d, params, cam = _leaves(scene, camera, device)
     packs = _packs(scene_d, cam, cfg, device)
     cots = (d_sph24, d_cam24, d_bg8)
@@ -172,6 +174,9 @@ def field_grads(scene: SceneArrays, camera: Camera, cfg: RenderConfig,
         solids = ops_mega.pack_solids(scene_d, device)
         packs += (solids.quad24, solids.box24)
         cots += (d_solids.quad24, d_solids.box24)
+        if d_solids.med24 is not None:
+            packs += (solids.med24,)
+            cots += (d_solids.med24,)
     return _grads(packs, params, cam, cots)
 
 

@@ -5,8 +5,10 @@ A ray batch is tested against a whole primitive family at once as
 (`intersect_all`), and only the winner's hit record is rebuilt
 afterwards (`make_hit`), as in rrt_tpu.geometry. Vectors are (3,N)
 tensors, one row per component. The families: spheres, quads
-(parallelograms) and boxes (axis-aligned in their own frame, rotated
-about the world Y axis); constant media wait for ROADMAP Queue A #9.4.
+(parallelograms), boxes (axis-aligned in their own frame, rotated
+about the world Y axis) and constant media (RTTNW ch. 9: a sphere or an
+oriented box boundary whose interval, clipped by the closest solid's t,
+holds a sampled scattering distance).
 
 Spheres move linearly over their shutter interval: the center at a
 ray's time is base + time * vel, folded from (center0, center1 - center0,
@@ -17,7 +19,8 @@ arithmetic of rrt_tpu's kernel (ops/megakernel.py `_one_bounce`'s
 scalar family loops), which the CUDA kernels share (ops/csrc/bounce.cuh):
 the quad test on each quad's plane frame (`quad_frames`, which the
 kernels compute from the same rows), the box test by its closed-form
-slab interval.
+slab interval; the media (`medium_interval`, `intersect_media`) in the
+arithmetic of its `_one_bounce` medium loop.
 """
 
 import dataclasses
@@ -30,7 +33,8 @@ INF = 3.0e38
 FAM_NONE = -1
 FAM_SPHERE = 0
 FAM_QUAD = 1
-FAM_BOX = 3  # rrt_tpu's FAM_MEDIUM (2) waits for ROADMAP Queue A #9.4
+FAM_MEDIUM = 2
+FAM_BOX = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,27 +259,118 @@ def merge_solid(ts, is_, tq, iq, tb, ib):
     return t, torch.where(t < INF, fam, FAM_NONE), idx
 
 
-def intersect_all(scene, o, d, time, t_min, t_max):
-    """The closest hit over the scene's solid families (rrt_tpu's
-    intersect_all without media, ties by merge_solid's order): (t (N,),
-    fam (N,) int64, idx (N,) int64); misses have t == INF, fam
-    FAM_NONE."""
+def medium_interval(scene, i: int, o, d, a, inv_a):
+    """Medium slot i's boundary interval over the unbounded line of each
+    ray, (t_enter, t_exit, ok) each (N,), in the arithmetic of rrt_tpu's
+    kernel (ops/megakernel.py `_one_bounce`): a sphere boundary by the
+    quadratic of o - c (entered where the discriminant is positive), an
+    oriented box by the slab test in its frame (med_rot is world from
+    box), an axis whose |d_k| <= 1e-12 bounding nothing or everything as
+    the origin lies inside its slab or not. a, inv_a: |d|^2 and 1 / a
+    (N,)."""
+    c = scene.med_center[i]
+    ocx, ocy, ocz = o[0] - c[0], o[1] - c[1], o[2] - c[2]
+    half_b = ocx * d[0] + ocy * d[1] + ocz * d[2]
+    r = scene.med_radius[i]
+    c_coef = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    disc = half_b * half_b - a * c_coef
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    rot = scene.med_rot[i]
+    lo = torch.full_like(a, -INF)
+    hi = torch.full_like(a, INF)
+    for k in range(3):
+        ob = rot[0, k] * ocx + rot[1, k] * ocy + rot[2, k] * ocz
+        db = rot[0, k] * d[0] + rot[1, k] * d[1] + rot[2, k] * d[2]
+        hk = scene.med_half[i, k]
+        par = torch.abs(db) <= 1e-12
+        inv_db = 1.0 / torch.where(par, 1.0, db)
+        t1 = (-hk - ob) * inv_db
+        t2 = (hk - ob) * inv_db
+        big = torch.where(torch.abs(ob) <= hk, INF, -INF)
+        lo = torch.maximum(lo, torch.where(par, -big, torch.minimum(t1, t2)))
+        hi = torch.minimum(hi, torch.where(par, big, torch.maximum(t1, t2)))
+    is_sph = scene.med_btype[i] == 0  # scene.BOUND_SPHERE
+    t_enter = torch.where(is_sph, (-half_b - sq) * inv_a, lo)
+    t_exit = torch.where(is_sph, (-half_b + sq) * inv_a, hi)
+    ok = torch.where(is_sph, disc > 0.0, lo < hi) & scene.med_valid[i]
+    return t_enter, t_exit, ok
+
+
+def intersect_media(scene, o, d, t_min, t_max, u_med):
+    """Stochastic constant-medium intersection (RTTNW ch. 9): each
+    medium's interval clipped to [t_min, t_max] and to t >= 0 holds a
+    sampled distance -log(U) / density along the ray, which the ray
+    scatters at if it lies inside. o, d: (3,N); t_min: a float; t_max:
+    a float or (N,) (the closest solid's t); u_med: (n_media_active, N)
+    uniforms (rng.medium_draws). Returns (t (N,), idx (N,) int64): the
+    first medium with the strictly smallest t, as the kernels loop them;
+    t == INF where none scatters."""
+    a = dot(d, d)
+    inv_a = 1.0 / a
+    d_len = torch.sqrt(a)
+    inv_dlen = 1.0 / torch.clamp(d_len, min=1e-20)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    t_med = torch.full_like(a, INF)
+    idx = torch.zeros(a.shape, dtype=torch.int64, device=o.device)
+    for i in range(scene.n_media_active):
+        t_enter, t_exit, ok = medium_interval(scene, i, o, d, a, inv_a)
+        te = torch.clamp(t_enter, min=t_min)
+        tx = torch.minimum(t_exit, t_max)
+        ok = ok & (te < tx)
+        te = torch.clamp(te, min=0.0)
+        ok = ok & (te < tx)
+        # neg_inv_density * log(U) == -log(U) / density.
+        hit_dist = scene.med_neg_inv_density[i] * torch.log(
+            torch.clamp(u_med[i], min=1e-12))
+        ok = ok & (hit_dist <= (tx - te) * d_len)
+        t = torch.where(ok, te + hit_dist * inv_dlen, INF)
+        better = t < t_med
+        t_med = torch.where(better, t, t_med)
+        idx = torch.where(better, i, idx)
+    return t_med, idx
+
+
+def merge_solid_medium(scene, o, d, t_min, t_max, u_med, ts, is_, tq, iq, tb,
+                       ib):
+    """The solid families' closest hits merged (merge_solid: quad, box,
+    sphere on exact ties), then the media intersected against a t_max
+    shrunk to the closest solid's t, as the books do: a medium wins with
+    a strictly smaller t. Returns (t, fam, idx), each (N,)."""
+    t, fam, idx = merge_solid(ts, is_, tq, iq, tb, ib)
+    if scene.has_media:
+        tm, im = intersect_media(scene, o, d, t_min, torch.minimum(
+            torch.as_tensor(t_max, dtype=torch.float32, device=o.device), t),
+            u_med)
+        use = tm < t
+        t = torch.where(use, tm, t)
+        fam = torch.where(use, FAM_MEDIUM, fam)
+        idx = torch.where(use, im, idx)
+    return t, fam, idx
+
+
+def intersect_all(scene, o, d, time, t_min, t_max, u_med=None):
+    """The closest hit over the scene's families (rrt_tpu's
+    intersect_all, solid ties by merge_solid's order): (t (N,), fam (N,)
+    int64, idx (N,) int64); misses have t == INF, fam FAM_NONE. u_med:
+    the media's uniforms (rng.medium_draws), read when scene.has_media."""
     ts, is_ = intersect_spheres(scene, o, d, time, t_min, t_max)
     none = (torch.full_like(ts, INF), torch.zeros_like(is_))
     tq, iq = (intersect_quads(scene, o, d, t_min, t_max) if scene.has_quads
               else none)
     tb, ib = (intersect_boxes(scene, o, d, t_min, t_max) if scene.has_boxes
               else none)
-    return merge_solid(ts, is_, tq, iq, tb, ib)
+    return merge_solid_medium(scene, o, d, t_min, t_max, u_med, ts, is_, tq,
+                              iq, tb, ib)
 
 
 def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
-    """Rebuild the hit record of each ray's winner (rrt_tpu's make_hit
-    without media): a sphere's center at the ray's time (N,); a quad's
-    normal u x v / |u x v|; a box's the axis of its frame whose |q_k| -
-    h_k is largest at the hit point, rotated back. Texture uv is the
-    sphere's (quads' and boxes' are read by image textures only, ROADMAP
-    Queue A #9.5)."""
+    """Rebuild the hit record of each ray's winner (rrt_tpu's make_hit):
+    a sphere's center at the ray's time (N,); a quad's normal u x v /
+    |u x v|; a box's the axis of its frame whose |q_k| - h_k is largest
+    at the hit point, rotated back; a medium's a constant (1, 0, 0),
+    front face (a volumetric scatter has no surface), its material the
+    medium's. Texture uv is the sphere's (quads' and boxes' are read by
+    image textures only, ROADMAP Queue A #9.5)."""
     hit_mask = fam != FAM_NONE
     # Misses carry t == INF; clamp so the (masked-out) miss rays' normal
     # math stays finite.
@@ -318,9 +413,16 @@ def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
                                  -sth * nbx + cth * nbz])
         outward = torch.where(is_box, outward_b, outward)
         mat_id = torch.where(is_box, scene.box_mat[bi], mat_id)
-    if scene.has_quads or scene.has_boxes:
-        u, v = torch.where(is_sphere, u, 0.0), torch.where(is_sphere, v, 0.0)
     front_face = dot(d, outward) < 0.0
+    if scene.has_media:
+        is_medium = fam == FAM_MEDIUM
+        mi = torch.where(is_medium, idx, 0)
+        axis = torch.tensor([1.0, 0.0, 0.0], device=o.device)[:, None]
+        outward = torch.where(is_medium, axis, outward)
+        front_face = front_face | is_medium
+        mat_id = torch.where(is_medium, scene.med_mat[mi], mat_id)
+    if scene.has_quads or scene.has_boxes or scene.has_media:
+        u, v = torch.where(is_sphere, u, 0.0), torch.where(is_sphere, v, 0.0)
     normal = torch.where(front_face, outward, -outward)
     return Hit(t=t, p=p, normal=normal, front_face=front_face,
                mat_id=mat_id, u=u, v=v, hit_mask=hit_mask)

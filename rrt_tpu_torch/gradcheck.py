@@ -28,10 +28,11 @@ float32 rounding bounds): such a path had parted ways earlier, by
 drift or by an earlier decision, and still agrees by the rule above,
 mostly at 51 bounces, where both paths end absorbed with radiance 0.
 `replay_winners` builds the winners' layout from the backward's plain
-replay, for the CPU tests. A scene with quads, boxes or a light passes
-its SolidPacks as kw's `solids`: its winners are codes
-(ops.megakernel.encode_winner), and tie_gaps reads a quad's or box's t
-in float64 as the sphere's.
+replay, for the CPU tests. A scene with quads, boxes, media or a light
+passes its SolidPacks as kw's `solids`: its winners are codes
+(ops.megakernel.encode_winner), and tie_gaps reads a quad's, box's or
+medium's t in float64 as the sphere's (a medium's with the ray's own
+STREAM_MEDIUM draw).
 
 `field_grad_faults` is the rule of tests/test_tile_grad.py at the level
 of partition() and Camera fields (the kernel and the plain version
@@ -43,6 +44,7 @@ gradient.
 """
 
 import time
+import types
 from typing import NamedTuple
 
 import torch
@@ -182,7 +184,8 @@ def tie_gaps(packs, kw, differ) -> Ties:
     (render._bounce, as trace_paths_reference) to that bounce and take
     both winners' t beyond t_min on its ray, in float64, with the bound
     on the rounding error of the same t in float32 (_slot_t64 for a
-    sphere, _solid_t64 for a quad or box of kw's `solids`). Gaps are inf
+    sphere, _solid_t64 for a quad or box of kw's `solids`, _medium_t64
+    for a medium, with the bounce's draw). Gaps are inf
     where either winner is -1 or has no such t; the replayed winners
     must be the rows' plain winners."""
     from . import rng
@@ -217,9 +220,11 @@ def tie_gaps(packs, kw, differ) -> Ties:
             if at.numel():
                 replayed[at] = torch.where(
                     b.miss_mask, -1, mk.encode_winner(b.fam, b.win))[u]
+                u_med = None if b.u_med is None else b.u_med[:, u]
                 (ta, ea), (tb, eb) = (
                     _winner_t64(sph24, solids, o[:, u], d[:, u], tm[u],
-                                differ[at, col], kw) for col in (3, 4))
+                                differ[at, col], kw, u_med)
+                    for col in (3, 4))
                 gap = (ta - tb).abs()
                 off = torch.isinf(ta) | torch.isinf(tb)
                 gaps[0, at] = torch.where(off, float("inf"),
@@ -229,18 +234,55 @@ def tie_gaps(packs, kw, differ) -> Ties:
     return Ties(gaps[0], gaps[1], replayed)
 
 
-def _winner_t64(sph24, solids, o, d, time, code, kw) -> tuple:
+def _winner_t64(sph24, solids, o, d, time, code, kw, u_med=None) -> tuple:
     """_slot_t64 for winner codes: a sphere's by _slot_t64, a quad's or
-    box's by _solid_t64, inf for -1."""
-    from .geometry import FAM_SPHERE
+    box's by _solid_t64, a medium's by _medium_t64 with u_med (n_media,
+    n), the rays' draws; inf for -1."""
+    from .geometry import FAM_MEDIUM, FAM_SPHERE
     fam, idx = mk.decode_winner(code)
     t, e = _slot_t64(sph24, o, d, time, torch.where(fam == FAM_SPHERE, idx,
                                                      -1), kw)
     if solids is not None:
         ts, es = _solid_t64(solids, o, d, fam, idx, kw["t_min"])
-        solid = (fam != FAM_SPHERE) & (code >= 0)
+        solid = (fam != FAM_SPHERE) & (fam != FAM_MEDIUM) & (code >= 0)
         t, e = torch.where(solid, ts, t), torch.where(solid, es, e)
+        if solids.n_media:
+            tm, em = _medium_t64(solids, o, d, idx, kw["t_min"], u_med)
+            med = fam == FAM_MEDIUM
+            t, e = torch.where(med, tm, t), torch.where(med, em, e)
     return t, e
+
+
+def _medium_t64(solids, o, d, idx, t_min, u_med) -> tuple:
+    """Medium idx's scattering t on the rays (o, d (3, n)) in float64,
+    its sampled distance from the rays' draws u_med (n_media, n), not
+    clipped by any solid (inf where the ray does not scatter in it), and
+    a first-order bound on the rounding error of the same t in float32:
+    a few units of roundoff of the entry t and of the sampled distance
+    over |d|."""
+    from .geometry import intersect_media
+    uu = 2.0 ** -24
+    nm = solids.n_media
+    i = idx.clamp(0, nm - 1)
+    med = solids.med24[:nm].double()
+    o, d = o.double(), d.double()
+    t = torch.full((o.shape[1],), float("inf"), dtype=torch.float64,
+                   device=o.device)
+    for m in range(nm):  # one medium at a time: the others do not clip it
+        one = types.SimpleNamespace(
+            n_media_active=1, med_btype=med[m:m + 1, 0].round().int(),
+            med_center=med[m:m + 1, 1:4], med_radius=med[m:m + 1, 4],
+            med_half=med[m:m + 1, 5:8],
+            med_rot=med[m:m + 1, 8:17].reshape(1, 3, 3),
+            med_neg_inv_density=med[m:m + 1, 17],
+            med_valid=med[m:m + 1, 18] > 0.5)
+        tm, _ = intersect_media(one, o, d, t_min, float("inf"),
+                                u_med[m:m + 1].double())
+        t = torch.where(i == m, tm, t)
+    scale = torch.where(torch.isfinite(t), t.abs(), 0.0)
+    err = 8 * uu * (scale + (o.abs().sum(0) + med[i, 1:8].abs().sum(1))
+                    / d.abs().sum(0).clamp(min=1e-30))
+    return torch.where(t < 1e30, t, float("inf")), err
 
 
 def _solid_t64(solids, o, d, fam, idx, t_min) -> tuple:

@@ -1,5 +1,5 @@
 """Branchless batched material scatter: lambertian, metal, dielectric,
-diffuse_light.
+diffuse_light, isotropic.
 
 Every material model is evaluated for the whole batch and the result is
 selected by material id, as in rrt_tpu.materials. Semantics follow the
@@ -11,8 +11,7 @@ books and the reference:
   dielectric  Schlick reflectance, TIR, stochastic
               reflect-vs-refract, attenuation = 1        (materials.rs:75-104)
   diffuse_light  emits its texture's color, never scatters  (RTTNW ch. 7)
-
-isotropic waits for ROADMAP Queue A #9.4.
+  isotropic   dir = in_sphere, always scatters           (RTTNW ch. 9)
 """
 
 import dataclasses
@@ -21,8 +20,8 @@ import torch
 
 from . import rng
 from .geometry import dot
-from .scene import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_LAMBERTIAN,
-                    MAT_METAL, SceneArrays)
+from .scene import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC,
+                    MAT_LAMBERTIAN, MAT_METAL, SceneArrays)
 from .textures import texture_value
 
 
@@ -36,7 +35,8 @@ class Scatter:
     degenerate: torch.Tensor  # (N,) bool: lambertian n + u ~ 0
     reflected: torch.Tensor  # (N,) bool: dielectric reflects
     unit_rand: torch.Tensor  # (3,N) unit vector (lambertian)
-    sphere_rand: torch.Tensor  # (3,N) point in the unit sphere (metal)
+    sphere_rand: torch.Tensor  # (3,N) point in the unit sphere (metal,
+    # and an isotropic medium's new direction)
 
 
 def _reflect(v, n):
@@ -96,12 +96,13 @@ def scatter(scene: SceneArrays, d_in, hit, keys, bounce) -> Scatter:
     is_lam = mtype == MAT_LAMBERTIAN
     is_met = mtype == MAT_METAL
     is_die = mtype == MAT_DIELECTRIC
-    direction = torch.where(is_lam, lam_dir,
-                            torch.where(is_met, met_dir, die_dir))
+    is_iso = mtype == MAT_ISOTROPIC
+    direction = torch.where(is_lam, lam_dir, torch.where(
+        is_met, met_dir, torch.where(is_die, die_dir, sphere_rand)))
     attenuation = torch.where(is_die, 1.0, albedo)
     emitted = (torch.where(mtype == MAT_DIFFUSE_LIGHT, albedo, 0.0)
                if scene.has_emissive else torch.zeros_like(albedo))
-    scattered = torch.where(is_met, met_ok, is_lam | is_die)
+    scattered = torch.where(is_met, met_ok, is_lam | is_die | is_iso)
     return Scatter(direction=direction, attenuation=attenuation,
                    emitted=emitted, scattered=scattered, degenerate=degenerate,
                    reflected=reflect_choice, unit_rand=unit_rand,

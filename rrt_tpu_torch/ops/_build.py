@@ -136,12 +136,14 @@ def build() -> Build:
 
 class SolidArgs(ctypes.Structure):
     """The solid families' C argument (csrc/bounce.cuh SolidArgs): the
-    quad and box packs, their widths and active slot counts; a null
-    pointer in its place launches the sphere variant."""
+    quad and box packs, their widths and active slot counts, and the
+    medium pack and its active media; a null pointer in its place
+    launches the sphere variant."""
 
     _fields_ = [("quad", ctypes.c_void_p), ("quad_slots", ctypes.c_int),
                 ("n_quads", ctypes.c_int), ("box", ctypes.c_void_p),
-                ("box_slots", ctypes.c_int), ("n_boxes", ctypes.c_int)]
+                ("box_slots", ctypes.c_int), ("n_boxes", ctypes.c_int),
+                ("med", ctypes.c_void_p), ("n_media", ctypes.c_int)]
 
 
 @functools.cache
@@ -163,8 +165,8 @@ def load() -> ctypes.CDLL:
     lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, s, p, i,
                                      i, f, i, p]
     lib.rrt_bounce_steps.restype = i
-    lib.rrt_intersect.argtypes = [p, p, p, i, p, i, p, p, i, i, i, s, f, i,
-                                  p, p, p, p]
+    lib.rrt_intersect.argtypes = [p, p, p, p, p, i, p, i, p, p, i, i, i, s,
+                                  f, i, p, p, p, p]
     lib.rrt_intersect.restype = i
     lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, s, p, p, p,
                                   i, i, f, i, p, p, p, p, p]

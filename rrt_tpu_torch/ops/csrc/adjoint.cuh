@@ -1,7 +1,8 @@
 // Adjoints of one bounce, shared by the train backward (train.cu) and the
 // bounce chain's backward (chain.cu): the hand-written transpose of
 // rrt_tpu_torch/ops/megakernel_vjp.py diff_step for a miss, a light's
-// emission and a scattering bounce on a sphere, a quad or a box, the
+// emission and a scattering bounce on a sphere, a quad, a box or in a
+// constant medium, the
 // four-float reductions of the pack cotangents into per-block partials
 // in device memory (add_slot), and the fixed-order reduction of those
 // partials.
@@ -37,6 +38,11 @@ constexpr int kReduceGroup = 64;
 constexpr int kQuadAccPlane = 3;
 constexpr int kBoxAccCos = 3, kBoxAccSin = 11, kBoxAccHalf = 12;
 constexpr int kSolidRows = 15;
+// A medium's columns (megakernel_vjp.py MED_COLS, its pack's columns 1-7,
+// 17, 19-21): center 0-2, radius 3, half extents 4-6, -1/density 7,
+// albedo 8-10.
+constexpr int kMedAccRadius = 3, kMedAccHalf = 4, kMedAccNid = 7,
+              kMedAccAlbedo = 8, kMediumRows = 11;
 
 // The input of one replayed bounce.
 struct Record {
@@ -311,13 +317,138 @@ __device__ __forceinline__ const float* winner_material(const float* sph,
 
 // Where a winner's cotangents start in a block's row of the partials:
 // kSlotCols floats a slot, the n_slots spheres', then sv's active quads',
-// then its boxes'.
+// then its boxes', then its media's.
 __device__ __forceinline__ int winner_column(int n_slots, const Solids* sv,
                                              int fam, int slot) {
-  const int i = fam == kFamQuad
-                    ? n_slots + slot
-                    : (fam == kFamBox ? n_slots + sv->n_quads + slot : slot);
+  const int i =
+      fam == kFamQuad
+          ? n_slots + slot
+          : (fam == kFamBox
+                 ? n_slots + sv->n_quads + slot
+                 : (fam == kFamMedium
+                        ? n_slots + sv->n_quads + sv->n_boxes + slot
+                        : slot));
   return i * kSlotCols;
+}
+
+// Adjoint of a scatter in medium `slot` of sv (diff_step's medium branch
+// with survives = true): the new origin is h = o + t d with t = te +
+// (-1/density) log(u) / |d|, te = max(t_enter, t_min, 0) the boundary's
+// entry t, the new throughput thr * albedo, the new direction the
+// in-sphere draw (no gradient). The boundary's type, its rotation, the
+// slab that bounds te and its side, and the clamps are replayed
+// decisions: ties between them go to the first, where rrt_tpu's scan
+// splits them (measure zero). In: go, gd, gt, the cotangents of the new
+// origin, direction and throughput; out: those of the bounce's input.
+// The medium's 11 cotangents go to `sink` (zeroed by the caller) in its
+// columns (kMedAccRadius ...).
+template <class Sink>
+__device__ __forceinline__ void medium_adjoint(const Solids& sv, int slot,
+                                               const Record& rec,
+                                               uint32_t k0, uint32_t k1,
+                                               int bounce, float t_min,
+                                               float* go, float* gd,
+                                               float* gt, Sink& sink) {
+  const float* m = sv.med + slot * kMedCols;
+  const float a = dot3(rec.d, rec.d);
+  const float inv_a = 1.0f / a;
+  const float d_len = sqrtf(a);
+  const float inv_dlen = 1.0f / fmaxf(d_len, 1e-20f);
+  const float logu = logf(fmaxf(medium_uniform(k0, k1, bounce, slot),
+                                1e-12f));
+  float oc[3];
+  for (int j = 0; j < 3; ++j) oc[j] = rec.o[j] - m[kMedCenter + j];
+
+  // --- the forward: the entry t, and what its gradient follows.
+  const bool is_sph = m[0] < 0.5f;
+  float t_enter, hb = 0.0f, cc = 0.0f, sq = 1.0f, inv_db = 0.0f;
+  float side = 0.0f;  // the box slab's t: (side h_k - ob_k) / db_k
+  int axis = -1;
+  if (is_sph) {
+    hb = dot3(oc, rec.d);
+    cc = dot3(oc, oc) - m[kMedRadius] * m[kMedRadius];
+    const float disc = hb * hb - a * cc;
+    sq = sqrtf(disc > 0.0f ? disc : 1.0f);
+    t_enter = (-hb - sq) * inv_a;
+  } else {
+    t_enter = -kInf;
+    for (int k = 0; k < 3; ++k) {
+      const float r0 = m[kMedRot + k], r1 = m[kMedRot + 3 + k],
+                  r2 = m[kMedRot + 6 + k];
+      const float ob = r0 * oc[0] + r1 * oc[1] + r2 * oc[2];
+      const float db = r0 * rec.d[0] + r1 * rec.d[1] + r2 * rec.d[2];
+      const float hk = m[kMedHalf + k];
+      // A parallel axis bounds nothing on a ray that scattered inside
+      // (it starts inside that slab), and carries no gradient.
+      if (fabsf(db) <= 1e-12f) continue;
+      const float inv = 1.0f / db;
+      const float t1 = (-hk - ob) * inv, t2 = (hk - ob) * inv;
+      const float klo = fminf(t1, t2);
+      if (klo > t_enter) {
+        t_enter = klo;
+        axis = k;
+        side = t1 <= t2 ? -1.0f : 1.0f;
+        inv_db = inv;
+      }
+    }
+  }
+  const float te0 = fmaxf(t_enter, t_min);
+  const float te = fmaxf(te0, 0.0f);
+  const float hit_dist = m[kMedNid] * logu;
+  const float t = te + hit_dist * inv_dlen;
+
+  // --- throughput: thr' = thr * albedo.
+  for (int j = 0; j < 3; ++j) {
+    sink.add(kMedAccAlbedo + j, gt[j] * rec.thr[j]);
+    gt[j] = gt[j] * m[kMedAlbedo + j];
+  }
+  // --- the new origin h = o + t d.
+  float g_o[3], g_d[3], g_oc[3] = {0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < 3; ++j) {
+    g_o[j] = go[j];
+    g_d[j] = t * go[j];
+  }
+  const float g_t = dot3(go, rec.d);
+  // t = te + hit_dist * inv_dlen, inv_dlen = 1 / max(sqrt(a), 1e-20).
+  sink.add(kMedAccNid, g_t * inv_dlen * logu);
+  float g_a = 0.0f;
+  if (d_len > 1e-20f) {
+    g_a += -g_t * hit_dist * inv_dlen * inv_dlen * 0.5f / d_len;
+  }
+  const float g_enter = t_enter > t_min && te0 > 0.0f ? g_t : 0.0f;
+  if (is_sph) {  // t_enter = (-hb - sq) inv_a
+    float g_hb = -g_enter * inv_a;
+    g_a += -g_enter * (-hb - sq) * inv_a * inv_a;
+    const float g_disc = -g_enter * inv_a * 0.5f / sq;
+    g_hb += 2.0f * hb * g_disc;
+    g_a += -cc * g_disc;
+    const float g_cc = -a * g_disc;
+    for (int j = 0; j < 3; ++j) {  // hb = oc.d, cc = oc.oc - r^2
+      g_oc[j] = g_hb * rec.d[j] + 2.0f * g_cc * oc[j];
+      g_d[j] += g_hb * oc[j];
+    }
+    sink.add(kMedAccRadius, -2.0f * m[kMedRadius] * g_cc);
+  } else if (axis >= 0) {  // t_enter = (side h - ob) inv_db
+    const float hk = m[kMedHalf + axis];
+    const float ob = m[kMedRot + axis] * oc[0] +
+                     m[kMedRot + 3 + axis] * oc[1] +
+                     m[kMedRot + 6 + axis] * oc[2];
+    const float g_ob = -g_enter * inv_db;
+    const float g_db = -g_enter * (side * hk - ob) * inv_db * inv_db;
+    sink.add(kMedAccHalf + axis, side * g_enter * inv_db);
+    for (int j = 0; j < 3; ++j) {
+      const float rk = m[kMedRot + 3 * j + axis];
+      g_oc[j] = g_ob * rk;
+      g_d[j] += g_db * rk;
+    }
+  }
+  for (int j = 0; j < 3; ++j) {  // oc = o - c; a = d.d
+    g_o[j] += g_oc[j];
+    sink.add(j, -g_oc[j]);
+    g_d[j] += 2.0f * g_a * rec.d[j];
+    go[j] = g_o[j];
+    gd[j] = g_d[j];
+  }
 }
 
 // Adjoint of the bounce that ends a path on a diffuse_light (either

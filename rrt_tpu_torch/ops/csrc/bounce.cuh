@@ -12,9 +12,9 @@
 // train_fwd).
 //
 // Subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary and
-// moving spheres, quads and boxes, solid and checker textures, lambertian
-// / metal / dielectric / diffuse_light materials, sky or solid
-// background, no Russian roulette.
+// moving spheres, quads, boxes and constant media, solid and checker
+// textures, lambertian / metal / dielectric / diffuse_light / isotropic
+// materials, sky or solid background, no Russian roulette.
 //
 // The solid families (kSolids = true: quads, boxes and emission, which
 // the scenes with quads, boxes or a diffuse_light launch): each segment
@@ -25,9 +25,19 @@
 // then seeded by that t (rrt_tpu's _one_bounce, megakernel.py:811-1150).
 // A quad's normal is n / |n|, a box's the axis of its frame whose |q_k| -
 // h_k is largest at the hit point, rotated back; a hit on a diffuse_light
-// banks throughput x its color and ends the path (:1457-1489). The
+// banks throughput x its color and ends the path (:1457-1489). Then the
+// constant media (RTTNW ch. 9, :1153-1233), a loop over the active media
+// whose length is set at run time, read from their pack in device memory
+// (every thread of a warp reads the same row): each medium's boundary
+// interval (a sphere's quadratic, an oriented box's slabs), clipped to
+// [t_min, the closest solid's t] and to t >= 0, holds a distance
+// -log(u) / density along the ray, u the medium's STREAM_MEDIUM draw; the
+// first medium with the strictly smallest such t wins if it is strictly
+// below the solid's. A medium's hit scatters isotropically (the in-sphere
+// draw), its normal the constant (1, 0, 0), its albedo its pack's. The
 // kSolids = false instantiations, which the sphere scenes launch, are the
-// sphere subset's code as it was.
+// sphere subset's code as it was; a scene of media alone runs kSolids
+// with no quad or box.
 //
 // Moving spheres (kMoving = true, the scene's has_moving): a sphere's
 // center at a ray's time is base + time * vel, pack rows 0-2 and 4-6, in
@@ -54,6 +64,8 @@ struct SolidArgs {
   int quad_slots, n_quads;
   const float* box;
   int box_slots, n_boxes;
+  const float* med;  // the (D, 24) medium pack, rows [0, n_media) tested
+  int n_media;
 };
 
 namespace {
@@ -63,6 +75,7 @@ constexpr float kTwoPi = 6.28318548f;  // f32(2 pi), as the reference rounds
 constexpr uint32_t kPairStep = 0x9E3779B9u;
 constexpr uint32_t kNumStreams = 8u;
 constexpr uint32_t kStreamScatter = 1u;
+constexpr uint32_t kStreamMedium = 2u;
 
 // Sphere pack rows (row-major (24, S)).
 constexpr int kRowR2 = 3;  // r^2 (-1 on invalid slots)
@@ -90,25 +103,34 @@ constexpr int kQuadMatRow = 10, kBoxMatRow = 9;
 
 constexpr float kMatLambertian = 0.0f, kMatMetal = 1.0f,
                 kMatDielectric = 2.0f, kMatDiffuseLight = 3.0f,
-                kTexChecker = 1.0f;
+                kMatIsotropic = 4.0f, kTexChecker = 1.0f;
 
 // Families of a closest hit (rrt_tpu.geometry's FAM_*).
-constexpr int kFamNone = -1, kFamSphere = 0, kFamQuad = 1, kFamBox = 3;
+constexpr int kFamNone = -1, kFamSphere = 0, kFamQuad = 1, kFamMedium = 2,
+              kFamBox = 3;
 
 // A winner as one int (train_fwd's int16 residual, the backwards'
 // records; ops/megakernel.py encode_winner): a sphere's slot, kQuadCode
-// + a quad's, kBoxCode + a box's; -1 a miss. kQuadCode is the most
-// sphere slots a kernel stages (MAX_SLOTS), kBoxCode adds the most quads
-// (kSolidCap).
-constexpr int kQuadCode = 3072, kBoxCode = 3072 + 64;
+// + a quad's, kBoxCode + a box's, kMediumCode + a medium's; -1 a miss.
+// kQuadCode is the most sphere slots a kernel stages (MAX_SLOTS),
+// kBoxCode adds the most quads (kSolidCap), kMediumCode the most boxes.
+constexpr int kQuadCode = 3072, kBoxCode = 3072 + 64,
+              kMediumCode = 3072 + 64 + 64;
 
 __device__ __forceinline__ int winner_code(int fam, int win) {
-  return fam == kFamQuad ? kQuadCode + win
-                         : (fam == kFamBox ? kBoxCode + win : win);
+  return fam == kFamQuad
+             ? kQuadCode + win
+             : (fam == kFamBox ? kBoxCode + win
+                               : (fam == kFamMedium ? kMediumCode + win
+                                                    : win));
 }
 
 // The family and slot of a winner code >= 0.
 __device__ __forceinline__ int code_family(int code, int& slot) {
+  if (code >= kMediumCode) {
+    slot = code - kMediumCode;
+    return kFamMedium;
+  }
   if (code >= kBoxCode) {
     slot = code - kBoxCode;
     return kFamBox;
@@ -428,6 +450,17 @@ __device__ __forceinline__ void refract(Shade& sh) {
   sh.nd[2] = sh.rp[2] - rlen * nz;
 }
 
+// The in-sphere draw of a metal's fuzz and an isotropic scatter: the unit
+// vector of three normals times cbrt(u), as exp(log(u) / 3).
+__device__ __forceinline__ void in_sphere(float g3, float g4, float g5,
+                                          float u, float* sv) {
+  const float inv2 = rsqrtf(fmaxf(g3 * g3 + g4 * g4 + g5 * g5, 1e-20f));
+  const float rad3 = expf(logf(fmaxf(u, 1e-12f)) * (1.0f / 3.0f));
+  sv[0] = g3 * inv2 * rad3;
+  sv[1] = g4 * inv2 * rad3;
+  sv[2] = g5 * inv2 * rad3;
+}
+
 // The material half of a shade: the face against the ray of the winner's
 // outward normal `out`, its material and texture at the hit point sh.h
 // (the rows from `mat` on, a row `stride` floats apart: kMatType ...),
@@ -517,11 +550,7 @@ __device__ __forceinline__ void shade_material(const float* mat, int stride,
   }
   mirror(r, a, sh);
   if (sh.mtype == kMatMetal) {
-    const float inv2 = rsqrtf(fmaxf(g3 * g3 + g4 * g4 + g5 * g5, 1e-20f));
-    const float rad3 = expf(logf(fmaxf(u[6], 1e-12f)) * (1.0f / 3.0f));
-    sh.sv[0] = g3 * inv2 * rad3;
-    sh.sv[1] = g4 * inv2 * rad3;
-    sh.sv[2] = g5 * inv2 * rad3;
+    in_sphere(g3, g4, g5, u[6], sh.sv);
     sh.nd[0] = sh.rf[0] + sh.aux * sh.sv[0];
     sh.nd[1] = sh.rf[1] + sh.aux * sh.sv[1];
     sh.nd[2] = sh.rf[2] + sh.aux * sh.sv[2];
@@ -611,6 +640,8 @@ struct Solids {
   int quad_slots;
   const float* box;   // the (24, box_slots) pack
   int box_slots;
+  const float* med;   // the (D, 24) medium pack in device memory
+  int n_media;        // its rows [0, n_media) are tested
 };
 
 // Shared memory of the staged solids (after the BVH, 16-byte aligned).
@@ -625,11 +656,15 @@ __host__ __device__ inline size_t aligned16(size_t n) {
 
 // Stage the active quads' frames and boxes' rows in `smem` (16-byte
 // aligned, solid_bytes long); the caller syncs the block after.
+// The media are not staged: sv.med points at their pack (med, n_media;
+// none by default).
 __device__ __forceinline__ Solids stage_solids(const float* quad,
                                                int quad_slots, int n_quads,
                                                const float* box,
                                                int box_slots, int n_boxes,
-                                               float4* smem) {
+                                               float4* smem,
+                                               const float* med = nullptr,
+                                               int n_media = 0) {
   Solids sv;
   float4* qn = smem;
   float4* qg = qn + n_quads;
@@ -675,6 +710,7 @@ __device__ __forceinline__ Solids stage_solids(const float* quad,
   sv.n_quads = n_quads; sv.n_boxes = n_boxes;
   sv.quad = quad; sv.quad_slots = quad_slots;
   sv.box = box; sv.box_slots = box_slots;
+  sv.med = med; sv.n_media = n_media;
   return sv;
 }
 
@@ -807,6 +843,174 @@ __device__ __forceinline__ const float* solid_surface(const Solids& sv,
   return sv.box + kBoxMatRow * stride + win;
 }
 
+// The medium pack's columns (ops/megakernel.py pack_media: (D, 24)
+// row-major, rrt_tpu's layout): boundary type (0 sphere, 1 box), center,
+// radius, half extents, the world-from-box rotation row major,
+// -1/density, valid, the isotropic albedo.
+constexpr int kMedCols = 24, kMedCenter = 1, kMedRadius = 4, kMedHalf = 5,
+              kMedRot = 8, kMedNid = 17, kMedValid = 18, kMedAlbedo = 19;
+
+// Medium `slot`'s STREAM_MEDIUM uniform at `bounce`: word slot % 2 of the
+// counter's pair slot / 2 (rrt_tpu.rng.medium_draws).
+__device__ __forceinline__ float medium_uniform(uint32_t k0, uint32_t k1,
+                                                int bounce, int slot) {
+  const uint32_t pair = static_cast<uint32_t>(slot >> 1);
+  uint32_t a, b;
+  threefry2x32(k0, k1,
+               static_cast<uint32_t>(bounce) * kNumStreams + kStreamMedium,
+               pair * kPairStep + pair, a, b);
+  return to_uniform((slot & 1) ? b : a);
+}
+
+// Medium row m's boundary interval over the unbounded line of the ray:
+// (t_enter, t_exit), and whether the line crosses it. A sphere by the
+// quadratic of o - c; an oriented box by the slab test in its frame, an
+// axis with |d_k| <= 1e-12 bounding nothing or everything as the origin
+// lies inside its slab or not (rrt_tpu's _one_bounce, :1172-1209).
+__device__ __forceinline__ bool medium_interval(const float* m, const Ray& r,
+                                                const RayDots& q,
+                                                float& t_enter,
+                                                float& t_exit) {
+  const float ocx = r.ox - m[kMedCenter], ocy = r.oy - m[kMedCenter + 1],
+              ocz = r.oz - m[kMedCenter + 2];
+  if (m[0] < 0.5f) {  // a sphere boundary
+    const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    const float c_coef =
+        ocx * ocx + ocy * ocy + ocz * ocz - m[kMedRadius] * m[kMedRadius];
+    const float disc = half_b * half_b - q.a * c_coef;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    t_enter = (-half_b - sq) * q.inv_a;
+    t_exit = (-half_b + sq) * q.inv_a;
+    return disc > 0.0f;
+  }
+  float lo = -kInf, hi = kInf;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float r0 = m[kMedRot + k], r1 = m[kMedRot + 3 + k],
+                r2 = m[kMedRot + 6 + k];
+    const float ob = r0 * ocx + r1 * ocy + r2 * ocz;
+    const float db = r0 * r.dx + r1 * r.dy + r2 * r.dz;
+    const float hk = m[kMedHalf + k];
+    const bool par = fabsf(db) <= 1e-12f;
+    const float inv_db = 1.0f / (par ? 1.0f : db);
+    const float t1 = (-hk - ob) * inv_db;
+    const float t2 = (hk - ob) * inv_db;
+    const float big = fabsf(ob) <= hk ? kInf : -kInf;
+    lo = fmaxf(lo, par ? -big : fminf(t1, t2));
+    hi = fminf(hi, par ? big : fmaxf(t1, t2));
+  }
+  t_enter = lo;
+  t_exit = hi;
+  return lo < hi;
+}
+
+// Where the ray scatters in medium row m, kInf if it passes through: the
+// boundary interval clipped to [t_min, t_clip] and to t >= 0, and the
+// sampled distance hit_dist = (-1/density) log(u) inside it; t = te +
+// hit_dist / |d| (d_len = |d|, inv_dlen = 1 / max(|d|, 1e-20)).
+__device__ __forceinline__ float medium_t(const float* m, const Ray& r,
+                                          const RayDots& q, float d_len,
+                                          float inv_dlen, float t_min,
+                                          float t_clip, float u) {
+  float t_enter, t_exit;
+  bool ok = medium_interval(m, r, q, t_enter, t_exit) && m[kMedValid] > 0.5f;
+  float te = fmaxf(t_enter, t_min);
+  const float tx = fminf(t_exit, t_clip);
+  ok = ok && te < tx;
+  te = fmaxf(te, 0.0f);
+  ok = ok && te < tx;
+  const float hit_dist = m[kMedNid] * logf(fmaxf(u, 1e-12f));
+  ok = ok && hit_dist <= (tx - te) * d_len;
+  return ok ? te + hit_dist * inv_dlen : kInf;
+}
+
+// The closest medium of sv: a strict `<` running minimum over its media
+// in order, each clipped by t_solid (the closest solid's t, kInf on a
+// miss), each with its own draw at `bounce`. Returns t (kInf when the ray
+// scatters in none) and the medium in `win`. Inlined: as a call (not
+// inlined) the kSolids variants of cornell, which never take it, ran
+// 2-34% slower in turns on an H100, the call's stack and spills in their
+// hot loops (PERF.md, PR 12).
+__device__ __forceinline__ float closest_medium(const Solids& sv,
+                                                const Ray& r,
+                                                const RayDots& q,
+                                                float t_min, float t_solid,
+                                                uint32_t k0, uint32_t k1,
+                                                int bounce, int& win) {
+  const float d_len = sqrtf(q.a);
+  const float inv_dlen = 1.0f / fmaxf(d_len, 1e-20f);
+  const uint32_t counter =
+      static_cast<uint32_t>(bounce) * kNumStreams + kStreamMedium;
+  float t_best = kInf, ua = 0.0f, ub = 0.0f;
+  win = 0;
+  for (int i = 0; i < sv.n_media; ++i) {
+    if ((i & 1) == 0) {  // one Threefry call draws a pair of media
+      const uint32_t pair = static_cast<uint32_t>(i >> 1);
+      uint32_t a, b;
+      threefry2x32(k0, k1, counter, pair * kPairStep + pair, a, b);
+      ua = to_uniform(a);
+      ub = to_uniform(b);
+    }
+    const float t = medium_t(sv.med + i * kMedCols, r, q, d_len, inv_dlen,
+                             t_min, t_solid, (i & 1) ? ub : ua);
+    if (t < t_best) {
+      t_best = t;
+      win = i;
+    }
+  }
+  return t_best;
+}
+
+// Medium `slot`'s t alone (train_bwd's replay of a stored medium winner):
+// closest_medium's arithmetic without the solid's clip, which moves no t.
+__device__ __forceinline__ float medium_slot_t(const Solids& sv, int slot,
+                                               const Ray& r,
+                                               const RayDots& q, float t_min,
+                                               uint32_t k0, uint32_t k1,
+                                               int bounce) {
+  const float d_len = sqrtf(q.a);
+  return medium_t(sv.med + slot * kMedCols, r, q, d_len,
+                  1.0f / fmaxf(d_len, 1e-20f), t_min, kInf,
+                  medium_uniform(k0, k1, bounce, slot));
+}
+
+// The shade of a scatter in medium row m at t: the isotropic model, its
+// normal the constant (1, 0, 0), front face, its albedo the pack's, its
+// new direction the in-sphere draw of the bounce's scatter draws.
+__device__ __forceinline__ void shade_medium(const float* m, const Ray& r,
+                                             float t, uint32_t k0,
+                                             uint32_t k1, int bounce,
+                                             Shade& sh) {
+  sh.h[0] = r.ox + t * r.dx;
+  sh.h[1] = r.oy + t * r.dy;
+  sh.h[2] = r.oz + t * r.dz;
+  sh.n[0] = 1.0f;
+  sh.n[1] = 0.0f;
+  sh.n[2] = 0.0f;
+  sh.front = true;
+  sh.sgn = 1.0f;
+  sh.mtype = kMatIsotropic;
+  sh.aux = 0.0f;
+  sh.use_c2 = false;
+  sh.degen = false;
+  sh.reflect = false;
+  sh.alb[0] = m[kMedAlbedo];
+  sh.alb[1] = m[kMedAlbedo + 1];
+  sh.alb[2] = m[kMedAlbedo + 2];
+  float u[8];
+  uniforms<4>(k0, k1,
+              static_cast<uint32_t>(bounce) * kNumStreams + kStreamScatter,
+              u);
+  float g2, g3, g4, g5;
+  box_muller(u[2], u[3], g2, g3);
+  box_muller(u[4], u[5], g4, g5);
+  in_sphere(g3, g4, g5, u[6], sh.sv);
+  sh.nd[0] = sh.sv[0];
+  sh.nd[1] = sh.sv[1];
+  sh.nd[2] = sh.sv[2];
+  sh.scattered = true;
+}
+
 // Path state between bounces.
 struct Path {
   Ray ray;
@@ -817,11 +1021,12 @@ struct Path {
 // t_best = kInf on a miss): the background on a miss (its radiance,
 // throughput included, into `rad`; win becomes -1) or the winner's
 // shading and scatter (`kept`: as shade's). With kSolids the winner is
-// of family `fam` (a quad or box of `sv`, or a sphere), and a hit on a
-// diffuse_light banks throughput x its color into `rad` and ends the
-// path (kEmitted). Returns the Outcome; on kScattered the path has moved
-// on (its time stays).
-template <bool kMoving, bool kSolids = false>
+// of family `fam` (a quad, box or medium of `sv`, or a sphere), and a hit
+// on a diffuse_light banks throughput x its color into `rad` and ends
+// the path (kEmitted). kMedia = false leaves the media's shade out (a
+// caller that knows the scene has none). Returns the Outcome; on
+// kScattered the path has moved on (its time stays).
+template <bool kMoving, bool kSolids = false, bool kMedia = true>
 __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
                                              const float* bg, bool sky,
                                              uint32_t k0, uint32_t k1,
@@ -845,6 +1050,9 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
     if (fam == kFamSphere) {
       shade<kMoving, false, true>(sph + win, n_slots, p.ray, q.a, t_best,
                                   k0, k1, bounce, sh, kept);
+    } else if (kMedia && fam == kFamMedium) {
+      shade_medium(sv->med + win * kMedCols, p.ray, t_best, k0, k1, bounce,
+                   sh);
     } else {
       sh.h[0] = p.ray.ox + t_best * p.ray.dx;
       sh.h[1] = p.ray.oy + t_best * p.ray.dy;
@@ -878,14 +1086,19 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
 
 // The closest hit of a segment: with kSolids the closest quad or box of
 // `sv` (closest_solid), then the spheres by `closest` seeded by its t,
-// which a sphere wins only with a strictly smaller t; without, the
-// spheres alone. Returns t (kInf on a miss), the winner's family `fam`
-// and slot `win` (0 on a miss).
-template <bool kSolids, typename Closest>
+// which a sphere wins only with a strictly smaller t, then sv's media
+// against that t (closest_medium, their draws at `bounce` of the keys
+// k0, k1), which a medium wins only with a strictly smaller t; without,
+// the spheres alone. kMedia = false leaves the media out (a caller that
+// knows the scene has none). Returns t (kInf on a miss), the winner's
+// family `fam` and slot `win` (0 on a miss).
+template <bool kSolids, typename Closest, bool kMedia = true>
 __device__ __forceinline__ float closest_hit(const Closest& closest,
                                              const Solids* sv, const Ray& r,
                                              const RayDots& q, float t_min,
-                                             int& fam, int& win) {
+                                             int& fam, int& win,
+                                             uint32_t k0 = 0, uint32_t k1 = 0,
+                                             int bounce = 0) {
   if constexpr (!kSolids) {
     const float t = closest(r, q, t_min, win);
     fam = t < kInf ? kFamSphere : kFamNone;
@@ -893,10 +1106,20 @@ __device__ __forceinline__ float closest_hit(const Closest& closest,
   } else {
     const float t_solid = closest_solid(*sv, r, q, t_min, fam, win);
     int ws;
-    const float t = closest(r, q, t_min, ws, t_solid);
+    float t = closest(r, q, t_min, ws, t_solid);
     if (t < t_solid) {
       fam = kFamSphere;
       win = ws;
+    }
+    if (kMedia && sv->n_media > 0) {
+      int wm;
+      const float tm = closest_medium(*sv, r, q, t_min, t, k0, k1, bounce,
+                                      wm);
+      if (tm < t) {
+        t = tm;
+        fam = kFamMedium;
+        win = wm;
+      }
     }
     return t;
   }
@@ -924,7 +1147,7 @@ __device__ __forceinline__ int bounce_step(const Closest& closest,
   } else {
     int fam;
     const float t_best = closest_hit<true>(closest, sv, p.ray, q, t_min, fam,
-                                           win);
+                                           win, k0, k1, bounce);
     const int out = finish_bounce<kMoving, true>(sph, n_slots, bg, sky, k0,
                                                  k1, bounce, max_depth, q,
                                                  t_best, p, rad, win, kept,

@@ -4,17 +4,20 @@
 // bounce_steps_kernel replaces rrt_tpu/ops/megakernel.py::
 // _bounce_megakernel (launched by _bounce_steps_launch): k_steps bounces
 // of every live lane of the queue state, for the scenes of
-// tile_render.cu (stationary and moving spheres, quads and boxes, solid
-// and checker textures, lambertian / metal / dielectric / diffuse_light,
-// sky or solid background, no Russian roulette). intersect_kernel
-// replaces _intersect_kernel (launched by intersect_only): the closest
-// hit (t, family, slot) of each ray over the spheres and, in its kSolids
-// instantiation, the quads and boxes. rrt_tpu's intersect kernel has no
-// box family (its batch driver intersects box scenes in XLA); this one
-// has, so the port's batch driver intersects every scene it renders on
-// the card here. Each has a kMoving instantiation for scenes
-// with moving spheres: bounce_steps reads each lane's time from state row
-// 6 (rrt_tpu's pack_state puts it there), intersect takes the rays' times
+// tile_render.cu (stationary and moving spheres, quads, boxes and
+// constant media, solid and checker textures, lambertian / metal /
+// dielectric / diffuse_light / isotropic, sky or solid background, no
+// Russian roulette). intersect_kernel replaces _intersect_kernel
+// (launched by intersect_only): the closest hit (t, family, slot) of each
+// ray over the spheres and, in its kSolids instantiation, the quads,
+// boxes and media (rrt_tpu's megakernel.py:1804-1840), a medium's draw
+// addressed by the ray's keys and bounce, as rrt_tpu's rays8 row 7 gives
+// it. rrt_tpu's intersect kernel has no box family (its batch driver
+// intersects box scenes in XLA); this one has, so the port's batch driver
+// intersects every scene it renders on the card here. Each has a kMoving
+// instantiation for scenes with moving spheres: bounce_steps reads each
+// lane's time from state row 6 (rrt_tpu's pack_state puts it there),
+// intersect takes the rays' times
 // as a (Q,) row beside the (3, Q) origins and directions; and a kSolids
 // one for scenes with quads, boxes or a light (bounce.cuh's, the solid
 // families staged after the BVH).
@@ -36,8 +39,9 @@
 // (book2chap2 0.1222-0.1332 where 0.4229-0.4339), and 0.1172-0.1415 ms
 // (0.1374-0.1550) in chip_smoke.py's runs, against a least time of some
 // microseconds (PERF.md).
-// At __launch_bounds__(256) ptxas gives it 64 registers, 4 blocks an SM;
-// (256, 4) ran no faster, so ptxas's own choice stays.
+// At __launch_bounds__(256) ptxas gave it 64 registers, 4 blocks an SM,
+// and (256, 4) ran no faster; since the media (PR 12) the solid-family
+// variant needs (256, 4) to keep 4 blocks.
 //
 // Design, against the TPU kernels:
 //  * one thread per lane, 256 lanes a block; the state is (16, Q)
@@ -69,20 +73,25 @@ constexpr int kThreads = 256;
 template <bool kMoving, bool kSolids>
 __device__ __forceinline__ Solids stage_solids_after(
     float4* smem, int n_nodes, int n_rows, const float* quad, int quad_slots,
-    int n_quads, const float* box, int box_slots, int n_boxes) {
+    int n_quads, const float* box, int box_slots, int n_boxes,
+    const float* med, int n_media) {
   Solids sv{};
   if constexpr (kSolids) {
     sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
                       smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
-                                 sizeof(float4));
+                                 sizeof(float4),
+                      med, n_media);
   }
   return sv;
 }
 
 // st: (16, Q) state, updated in place; keys: (2, Q); the BVH and the
-// solid families as tile_render's.
+// solid families as tile_render's. At least 4 blocks an SM, 64
+// registers: with the media code the solid-family variant took 75
+// registers and 3 blocks, and cornell's 512 blocks two waves on 132 SMs
+// (30% slower in turns on an H100).
 template <bool kMoving, bool kSolids>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
     bounce_steps_kernel(float* __restrict__ st,
                         const uint32_t* __restrict__ keys, int q,
                         const float* __restrict__ sph, int n_slots,
@@ -92,6 +101,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ quad, int quad_slots,
                         int n_quads, const float* __restrict__ box,
                         int box_slots, int n_boxes,
+                        const float* __restrict__ med, int n_media,
                         const float* __restrict__ bg_g, int k_steps,
                         int max_depth, float t_min) {
   extern __shared__ float4 smem[];
@@ -100,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
   const Solids sv = stage_solids_after<kMoving, kSolids>(
       smem, n_nodes, n_rows, quad, quad_slots, n_quads, box, box_slots,
-      n_boxes);
+      n_boxes, med, n_media);
   if (threadIdx.x < 8) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
@@ -163,28 +173,34 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // o, d: (3, Q) rows x y z of the rays' origins and directions; time:
-// (Q,) the rays' times (kMoving only); the BVH and the solid families as
-// tile_render's. The media family, which this kernel does not cover yet,
-// will also need each ray's bounce.
+// (Q,) the rays' times (kMoving only); keys (2, Q) and bounce (Q,): each
+// ray's u32 key words and bounce counter, read with media only (their
+// STREAM_MEDIUM draws); the BVH and the solid families as tile_render's.
+// The solid-family variant at 5 blocks an SM (51 registers at most), its
+// register count before media: at 64 cornell's rays ran 9-15% slower in
+// turns on an H100.
 template <bool kMoving, bool kSolids>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSolids ? 5 : 1)
     intersect_kernel(const float* __restrict__ o,
                      const float* __restrict__ d,
-                     const float* __restrict__ time, int q,
+                     const float* __restrict__ time,
+                     const uint32_t* __restrict__ keys,
+                     const int* __restrict__ bounce, int q,
                      const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ nodes_g,
                      const int* __restrict__ rows_g, int n_nodes, int n_rows,
                      int n_always, const float* __restrict__ quad,
                      int quad_slots, int n_quads,
                      const float* __restrict__ box, int box_slots,
-                     int n_boxes, float t_min, float* __restrict__ t_out,
+                     int n_boxes, const float* __restrict__ med,
+                     int n_media, float t_min, float* __restrict__ t_out,
                      int* __restrict__ fam_out, int* __restrict__ idx_out) {
   extern __shared__ float4 smem[];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
   const Solids sv = stage_solids_after<kMoving, kSolids>(
       smem, n_nodes, n_rows, quad, quad_slots, n_quads, box, box_slots,
-      n_boxes);
+      n_boxes, med, n_media);
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -199,8 +215,16 @@ __global__ void __launch_bounds__(kThreads)
   r.dz = d[2 * n + lane];
   r.time = kMoving ? time[lane] : 0.0f;
   int fam, win;
-  const float t = closest_hit<kSolids>(walk, &sv, r, ray_dots(r), t_min, fam,
-                                       win);
+  float t;
+  // A scene without media takes the closest hit without the media's code.
+  if (kSolids && sv.n_media > 0) {
+    t = closest_hit<kSolids>(walk, &sv, r, ray_dots(r), t_min, fam, win,
+                             keys[lane], keys[n + lane], bounce[lane]);
+  } else {
+    t = closest_hit<kSolids, BvhWalk<kMoving>, false>(walk, &sv, r,
+                                                      ray_dots(r), t_min,
+                                                      fam, win);
+  }
   t_out[lane] = t;
   fam_out[lane] = fam;  // kFamNone (-1) on a miss
   idx_out[lane] = win;  // 0 on a miss
@@ -233,35 +257,36 @@ int launch_bounce_steps(size_t smem, cudaStream_t stream, float* st,
                         int n_nodes, int n_rows, int n_always,
                         const float* quad, int quad_slots, int n_quads,
                         const float* box, int box_slots, int n_boxes,
-                        const float* bg, int k_steps, int max_depth,
-                        float t_min) {
+                        const float* med, int n_media, const float* bg,
+                        int k_steps, int max_depth, float t_min) {
   auto kernel = bounce_steps_kernel<kMoving, kSolids>;
   const int err = set_smem(kernel, smem);
   if (err != 0) return err;
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, stream>>>(
       st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
-      quad, quad_slots, n_quads, box, box_slots, n_boxes, bg, k_steps,
-      max_depth, t_min);
+      quad, quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, bg,
+      k_steps, max_depth, t_min);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kMoving, bool kSolids>
 int launch_intersect(size_t smem, cudaStream_t stream, const float* o,
-                     const float* d, const float* time, int q,
-                     const float* sph, int n_slots, const float* nodes,
-                     const int* rows, int n_nodes, int n_rows, int n_always,
-                     const float* quad, int quad_slots, int n_quads,
-                     const float* box, int box_slots, int n_boxes,
-                     float t_min, float* t, int* fam, int* idx) {
+                     const float* d, const float* time, const uint32_t* keys,
+                     const int* bounce, int q, const float* sph, int n_slots,
+                     const float* nodes, const int* rows, int n_nodes,
+                     int n_rows, int n_always, const float* quad,
+                     int quad_slots, int n_quads, const float* box,
+                     int box_slots, int n_boxes, const float* med,
+                     int n_media, float t_min, float* t, int* fam, int* idx) {
   auto kernel = intersect_kernel<kMoving, kSolids>;
   const int err = set_smem(kernel, smem);
   if (err != 0) return err;
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, stream>>>(
-      o, d, time, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
-      quad, quad_slots, n_quads, box, box_slots, n_boxes, t_min, t, fam,
-      idx);
+      o, d, time, keys, bounce, q, sph, n_slots, nodes, rows, n_nodes,
+      n_rows, n_always, quad, quad_slots, n_quads, box, box_slots, n_boxes,
+      med, n_media, t_min, t, fam, idx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -280,7 +305,7 @@ extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 int k_steps, int max_depth, float t_min,
                                 int moving, void* stream) {
   if (q == 0) return 0;
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   auto go = moving ? (solids ? launch_bounce_steps<true, true>
                              : launch_bounce_steps<true, false>)
@@ -289,31 +314,33 @@ extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
   return go(launch_smem(n_nodes, n_rows, moving != 0, solids),
             static_cast<cudaStream_t>(stream), st, keys, q, sph, n_slots,
             nodes, rows, n_nodes, n_rows, n_always, sa.quad, sa.quad_slots,
-            sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, bg, k_steps,
-            max_depth, t_min);
+            sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media,
+            bg, k_steps, max_depth, t_min);
 }
 
 // o, d: (3, q) f32; time: (q,) f32 when moving (else unused, may be
-// null); the BVH and the solid families (solids, or null) as
-// rrt_tile_render's; outputs t (q,) f32, fam (q,) i32 (-1 on a miss, 0
-// sphere, 1 quad, 3 box), idx (q,) i32.
+// null); keys: (2, q) u32 and bounce: (q,) i32 when solids holds media
+// (else unused, may be null); the BVH and the solid families (solids, or
+// null) as rrt_tile_render's; outputs t (q,) f32, fam (q,) i32 (-1 on a
+// miss, 0 sphere, 1 quad, 2 medium, 3 box), idx (q,) i32.
 extern "C" int rrt_intersect(const float* o, const float* d,
-                             const float* time, int q, const float* sph,
+                             const float* time, const uint32_t* keys,
+                             const int* bounce, int q, const float* sph,
                              int n_slots, const float* nodes, const int* rows,
                              int n_nodes, int n_rows, int n_always,
                              const SolidArgs* solids, float t_min,
                              int moving, float* t, int* fam, int* idx,
                              void* stream) {
   if (q == 0) return 0;
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   auto go = moving ? (solids ? launch_intersect<true, true>
                              : launch_intersect<true, false>)
                    : (solids ? launch_intersect<false, true>
                              : launch_intersect<false, false>);
   return go(launch_smem(n_nodes, n_rows, moving != 0, solids),
-            static_cast<cudaStream_t>(stream), o, d, time, q, sph, n_slots,
-            nodes, rows, n_nodes, n_rows, n_always, sa.quad, sa.quad_slots,
-            sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, t_min, t, fam,
-            idx);
+            static_cast<cudaStream_t>(stream), o, d, time, keys, bounce, q,
+            sph, n_slots, nodes, rows, n_nodes, n_rows, n_always, sa.quad,
+            sa.quad_slots, sa.n_quads, sa.box, sa.box_slots, sa.n_boxes,
+            sa.med, sa.n_media, t_min, t, fam, idx);
 }

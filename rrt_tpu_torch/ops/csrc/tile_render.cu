@@ -3,15 +3,18 @@
 //
 // Replaces rrt_tpu/ops/megakernel.py::_tile_render_kernel (launched by
 // _render_tiles_launch) for the scenes rrt_tpu_torch renders: stationary
-// and moving spheres, quads and boxes, solid and checker textures,
-// lambertian / metal / dielectric / diffuse_light materials, sky or solid
-// background, a thin-lens camera with a shutter, no Russian roulette. A
+// and moving spheres, quads, boxes and constant media, solid and checker
+// textures, lambertian / metal / dielectric / diffuse_light / isotropic
+// materials, sky or solid background, a thin-lens camera with a shutter,
+// no Russian roulette. A
 // scene with moving spheres launches the kMoving instantiation
 // (bounce.cuh), which stages the velocity rows too and tests each slot's
 // center at the ray's time; a scene with quads, boxes or a light the
 // kSolids one, which stages the active quads' plane frames and boxes'
 // rows after the BVH (stage_solids) and tests them before the walk,
-// seeding it (the Cornell box: six quads, two boxes, no sphere).
+// seeding it (the Cornell box: six quads, two boxes, no sphere), then
+// the media against the closest solid's t, their rows read from the
+// medium pack in device memory (cornell_smoke: six quads, two media).
 // rrt_tpu_torch/ops/megakernel.py holds the wrapper (render_tiles), the
 // packs' layouts and the plain PyTorch version (render_tiles_reference).
 //
@@ -72,7 +75,9 @@ __global__ void __launch_bounds__(256, 4)
                        int n_rows, int n_always,
                        const float* __restrict__ quad, int quad_slots,
                        int n_quads, const float* __restrict__ box,
-                       int box_slots, int n_boxes, uint32_t s0, uint32_t s1,
+                       int box_slots, int n_boxes,
+                       const float* __restrict__ med, int n_media,
+                       uint32_t s0, uint32_t s1,
                        uint32_t lo, int width, int height, int spp,
                        int max_depth, float t_min, float* __restrict__ rad,
                        int* __restrict__ traced) {
@@ -85,7 +90,8 @@ __global__ void __launch_bounds__(256, 4)
   if constexpr (kSolids) {
     sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
                       smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
-                                 sizeof(float4));
+                                 sizeof(float4),
+                      med, n_media);
   }
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < 24) cam[tid] = cam_g[tid];
@@ -106,9 +112,10 @@ int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
            const float* sph, int n_slots, const float* cam, const float* bg,
            const float* nodes, const int* rows, int n_nodes, int n_rows,
            int n_always, const float* quad, int quad_slots, int n_quads,
-           const float* box, int box_slots, int n_boxes, uint32_t s0,
-           uint32_t s1, uint32_t lo, int width, int height, int spp,
-           int max_depth, float t_min, float* rad, int* traced) {
+           const float* box, int box_slots, int n_boxes, const float* med,
+           int n_media, uint32_t s0, uint32_t s1, uint32_t lo, int width,
+           int height, int spp, int max_depth, float t_min, float* rad,
+           int* traced) {
   // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
   // what the card allows.
   auto kernel = tile_render_kernel<kMoving, kSolids>;
@@ -118,8 +125,8 @@ int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, block, smem, stream>>>(
       sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always, quad,
-      quad_slots, n_quads, box, box_slots, n_boxes, s0, s1, lo, width,
-      height, spp, max_depth, t_min, rad, traced);
+      quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, s0, s1, lo,
+      width, height, spp, max_depth, t_min, rad, traced);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -130,8 +137,9 @@ int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
 // (accel.BvhPack): nodes (n_nodes, 8) f32, rows (n_rows,) i32 of which
 // the first n_always are tested by every segment, all on the device;
 // moving: nonzero for the moving-sphere variant; solids: the quad and box
-// packs (at most kSolidCap active slots each) for the solid-family
-// variant, or null; rad: (width*height, 3) f32 and traced:
+// packs (at most kSolidCap active slots each) and the medium pack (any
+// number of media) for the solid-family variant, or null; rad:
+// (width*height, 3) f32 and traced:
 // (width*height,) i32 outputs.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const float* cam, const float* bg,
@@ -145,7 +153,7 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
   if (solids) smem = aligned16(smem) + solid_bytes(sa.n_quads, sa.n_boxes);
@@ -154,8 +162,8 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
                    : (solids ? launch<false, true> : launch<false, false>);
   return go(grid, block, smem, st, sph, n_slots, cam, bg, nodes, rows,
             n_nodes, n_rows, n_always, sa.quad, sa.quad_slots, sa.n_quads,
-            sa.box, sa.box_slots, sa.n_boxes, s0, s1, lo, width, height, spp,
-            max_depth, t_min, rad, traced);
+            sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media, s0, s1, lo,
+            width, height, spp, max_depth, t_min, rad, traced);
 }
 
 extern "C" const char* rrt_error_string(int err) {

@@ -4,9 +4,11 @@
 // (launched by _fwd_launch), train_bwd replaces _train_bwd_kernel
 // (launched by _bwd_launch), for the scenes of tile_render.cu: static
 // and moving spheres (a kMoving instantiation of each, as
-// tile_render's), and quads, boxes rotated about Y and diffuse_light
-// (a kSolids instantiation, the Cornell box's; bounce.cuh's solid
-// families, staged in shared memory after the spheres).
+// tile_render's), and quads, boxes rotated about Y, diffuse_light and
+// up to 8 constant media (a kSolids instantiation, the Cornell box's and
+// cornell_smoke's; bounce.cuh's solid families, the quads and boxes
+// staged in shared memory after the spheres, the media read from their
+// pack in device memory).
 // rrt_tpu_torch/ops/megakernel_train.py holds the wrappers
 // (render_tiles_train, tiles_adjoint, the autograd.Function
 // TileTrainChain) and their plain PyTorch versions.
@@ -19,8 +21,9 @@
 //  * lengths[s * P + pixel], each path's executed bounce count (uint8);
 //  * winners[j * P + pixel], the winner of the pixel's j-th segment in
 //    trace order (int16: a sphere's slot, or with kSolids bounce.cuh's
-//    winner_code, kQuadCode + a quad's slot or kBoxCode + a box's; -1 on
-//    a miss: 3,072 sphere slots, 64 quads and 64 boxes fit), for j <
+//    winner_code, kQuadCode + a quad's slot, kBoxCode + a box's or
+//    kMediumCode + a medium's; -1 on a miss: 3,072 sphere slots, 64 quads,
+//    64 boxes and the media fit), for j <
 //    win_cap
 //    (the wrapper's WINNERS_PER_SAMPLE = 16 entries a sample, pooled
 //    over the pixel's samples so that a long path borrows what short
@@ -55,10 +58,12 @@
 //     segment past the pool runs the scan. With kSolids a stored quad
 //     or box winner is recomputed alone too (bounce.cuh solid_t, the
 //     forward's arithmetic on the same staged rows, so its t bit for
-//     bit; replay_solid_step), the scan is seeded by the quads and boxes
-//     as the forward's was, and a light's hit ends the path (kEmitted)
-//     keeping its checker parity. Sample s's first entry is the sum of
-//     the forward's lengths before it;
+//     bit; replay_solid_step), as is a stored medium winner (bounce.cuh
+//     medium_slot_t, its recomputed STREAM_MEDIUM draw), the scan is
+//     seeded by the quads and boxes as the forward's was and followed by
+//     the media, and a light's hit ends the path (kEmitted) keeping its
+//     checker parity. Sample s's first entry is the sum of the forward's
+//     lengths before it;
 //  2. counts in `mismatches` the paths whose replayed length differs
 //     from the forward's, and the stored winners that are no slot or
 //     whose recomputed quadratic gives no root beyond t_min (those
@@ -69,7 +74,8 @@
 //     intermediates are recomputed from the record, the winner's pack
 //     column and what the replay kept of its draws, so the sweep draws
 //     nothing (shade's kForAdjoint); a light's emission, a quad's and a
-//     box's bounce go through emit_adjoint and solid_scatter_adjoint;
+//     box's bounce go through emit_adjoint and solid_scatter_adjoint, a
+//     medium's through medium_adjoint (its draw recomputed);
 //     the sweep ends in the adjoint of camera_ray, into d_cam.
 // With win_cap = 0 (tiles_adjoint(winners=None)) every segment scans,
 // as the replay did before the residual. A sample's radiance enters its
@@ -88,10 +94,12 @@
 // With kSolids the active quads' and boxes' columns follow the spheres'
 // in the row (adjoint.cuh winner_column): a quad's frame normal and
 // d_plane, a box's center, half extents and rotation, and the material
-// rows of both; the wrapper takes a quad's frame cotangents to its q, u
-// and v (geometry.quad_frame_vjp). Accumulating on the staged frame
-// rows keeps the transpose of geometry.quad_frames out of every
-// segment: it runs once, on at most kSolidCap quads.
+// rows of both, then a medium's 11 (center, radius, half extents,
+// -1/density, albedo: megakernel_vjp.MED_COLS); the wrapper takes a
+// quad's frame cotangents to its q, u and v (geometry.quad_frame_vjp).
+// Accumulating on the staged frame rows keeps the transpose of
+// geometry.quad_frames out of every segment: it runs once, on at most
+// kSolidCap quads.
 //
 // Determinism: d_cam and d_bg are bit-identical from run to run, and
 // with or without the winners (the same replayed arithmetic). d_sph is
@@ -132,11 +140,12 @@ __host__ __device__ inline size_t fwd_smem(int n_slots, bool moving) {
 template <bool kSolids>
 __device__ __forceinline__ Solids stage_solids_at(
     float4* smem, size_t base, const float* quad, int quad_slots,
-    int n_quads, const float* box, int box_slots, int n_boxes) {
+    int n_quads, const float* box, int box_slots, int n_boxes,
+    const float* med, int n_media) {
   Solids sv{};
   if constexpr (kSolids) {
     sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
-                      smem + aligned16(base) / sizeof(float4));
+                      smem + aligned16(base) / sizeof(float4), med, n_media);
   }
   return sv;
 }
@@ -156,9 +165,11 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
                      const float* __restrict__ bg_g,
                      const float* __restrict__ quad, int quad_slots,
                      int n_quads, const float* __restrict__ box,
-                     int box_slots, int n_boxes, uint32_t s0,
-                     uint32_t s1, uint32_t lo, int width, int height,
-                     int spp, int max_depth, float t_min, int win_cap,
+                     int box_slots, int n_boxes,
+                     const float* __restrict__ med, int n_media,
+                     uint32_t s0, uint32_t s1, uint32_t lo, int width,
+                     int height, int spp, int max_depth, float t_min,
+                     int win_cap,
                      float* __restrict__ rad, int* __restrict__ traced,
                      uint8_t* __restrict__ lengths,
                      int16_t* __restrict__ winners) {
@@ -176,7 +187,7 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
   if (kHoist) stage_center_sq(sph, n_slots, csq);
   const Solids sv = stage_solids_at<kSolids>(
       sph4, fwd_smem(n_slots, kMoving), quad, quad_slots, n_quads, box,
-      box_slots, n_boxes);
+      box_slots, n_boxes, med, n_media);
   __syncthreads();
 
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
@@ -265,11 +276,13 @@ __device__ __forceinline__ int replay_step(
 }
 
 // replay_step of the solid-family variant: `stored` is a winner_code,
-// the forward's quad or box winner recomputed alone (solid_t), a sphere
-// as replay_step's; the scan is seeded by the quads and boxes of sv. A
+// the forward's quad or box winner recomputed alone (solid_t), a medium
+// alone with its draw (medium_slot_t), a sphere as replay_step's; the
+// scan is seeded by the quads and boxes of sv and followed by its media. A
 // light's hit ends the path (kEmitted) and keeps its checker parity in
-// kept[0]. `win` gets the winner's code (-1 on a miss).
-template <bool kMoving>
+// kept[0]. `win` gets the winner's code (-1 on a miss). kMedia = false:
+// sv has no media, and their code is left out.
+template <bool kMoving, bool kMedia>
 __device__ __forceinline__ int replay_solid_step(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* bg, bool sky, uint32_t k0, uint32_t k1,
@@ -280,12 +293,19 @@ __device__ __forceinline__ int replay_solid_step(
   int fam = kFamNone, slot = -1;
   if (stored >= 0) {
     fam = code_family(stored, slot);
-    const int n = fam == kFamQuad ? sv.n_quads
-                                  : (fam == kFamBox ? sv.n_boxes : n_slots);
+    const int n = fam == kFamQuad
+                      ? sv.n_quads
+                      : (fam == kFamBox
+                             ? sv.n_boxes
+                             : (fam == kFamMedium ? sv.n_media : n_slots));
     if (slot < n) {
-      t_best = fam == kFamSphere
-                   ? slot_t<kMoving>(sph4, vel4, slot, p.ray, q, t_min)
-                   : solid_t(sv, fam, slot, p.ray, q, t_min);
+      if (fam == kFamSphere) {
+        t_best = slot_t<kMoving>(sph4, vel4, slot, p.ray, q, t_min);
+      } else if (kMedia && fam == kFamMedium) {
+        t_best = medium_slot_t(sv, slot, p.ray, q, t_min, k0, k1, bounce);
+      } else {
+        t_best = solid_t(sv, fam, slot, p.ray, q, t_min);
+      }
     }
     if (!(t_best < kInf)) {
       ++bad;
@@ -294,21 +314,23 @@ __device__ __forceinline__ int replay_solid_step(
   }
   if (stored == kUnstored) {
     const SlotScan<kMoving, false> scan{sph4, vel4, nullptr, n_slots};
-    t_best = closest_hit<true>(scan, &sv, p.ray, q, t_min, fam, slot);
+    t_best = closest_hit<true, SlotScan<kMoving, false>, kMedia>(
+        scan, &sv, p.ray, q, t_min, fam, slot, k0, k1, bounce);
   }
   float c[3];
-  const int out = finish_bounce<kMoving, true>(sph, n_slots, bg, sky, k0, k1,
-                                               bounce, max_depth, q, t_best,
-                                               p, c, slot, kept, fam, &sv);
+  const int out = finish_bounce<kMoving, true, kMedia>(
+      sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, c, slot,
+      kept, fam, &sv);
   win = winner_code(fam, slot);
   return out;
 }
 
 // The backward of one pixel's samples [lo, lo + spp): pack cotangents
 // into `acc` (the block's row of the partials, kSlotCols floats a slot:
-// the spheres', then with kSolids the active quads' and boxes'), camera
-// and background ones into g_cam / g_bg.
-template <bool kMoving, bool kSolids>
+// the spheres', then with kSolids the active quads', boxes' and media's),
+// camera and background ones into g_cam / g_bg. kMedia = false: sv has
+// no media, and their code is left out.
+template <bool kMoving, bool kSolids, bool kMedia>
 __device__ __forceinline__ void adjoint_pixel(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* cam, const float* bg, uint32_t s0,
@@ -345,10 +367,9 @@ __device__ __forceinline__ void adjoint_pixel(
               ? winners[static_cast<size_t>(j) * n_pix + gid]
               : kUnstored;
       if constexpr (kSolids) {
-        last = replay_solid_step<kMoving>(sph, sph4, vel4, n_slots, sv, bg,
-                                          sky, k0, k1, bounce, max_depth,
-                                          t_min, stored, p, r.win, bad,
-                                          kept[n - 1]);
+        last = replay_solid_step<kMoving, kMedia>(
+            sph, sph4, vel4, n_slots, sv, bg, sky, k0, k1, bounce, max_depth,
+            t_min, stored, p, r.win, bad, kept[n - 1]);
       } else {
         last = replay_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky, k0,
                                     k1, bounce, max_depth, t_min, stored, p,
@@ -375,6 +396,14 @@ __device__ __forceinline__ void adjoint_pixel(
       if constexpr (kSolids) {
         int slot;
         const int fam = code_family(rec[k].win, slot);
+        if (kMedia && fam == kFamMedium) {
+          RowSums<kMediumRows> sums{};
+          medium_adjoint(sv, slot, rec[k], k0, k1, k, t_min, go, gd, gt,
+                         sums);
+          add_slot<kMediumRows>(acc + winner_column(n_slots, &sv, fam, slot),
+                                sums.g);
+          continue;
+        }
         if (fam != kFamSphere) {
           RowSums<kSolidRows> sums{};
           solid_scatter_adjoint(sv, fam, slot, rec[k], k0, k1, k, t_min, go,
@@ -404,6 +433,7 @@ __global__ void __launch_bounds__(kBwdThreads)
                      const float* __restrict__ quad, int quad_slots,
                      int n_quads, const float* __restrict__ box,
                      int box_slots, int n_boxes,
+                     const float* __restrict__ med, int n_media,
                      const float* __restrict__ d_rad,
                      const uint8_t* __restrict__ lengths,
                      const int16_t* __restrict__ winners, int win_cap,
@@ -419,8 +449,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   float4* sph4 = smem;
   float4* vel4 = kMoving ? smem + n_slots : nullptr;
   const int block = blockIdx.y * gridDim.x + blockIdx.x;
-  const int n_acc = kSlotCols * (kSolids ? n_slots + n_quads + n_boxes
-                                         : n_slots);
+  const int n_acc =
+      kSlotCols * (kSolids ? n_slots + n_quads + n_boxes + n_media : n_slots);
   float* out = partials + block * (static_cast<size_t>(n_acc) + kCamBgCols);
   __shared__ float cam[24];
   __shared__ float bg[8];
@@ -428,7 +458,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
   const Solids sv = stage_solids_at<kSolids>(
       smem, staged_bytes(n_slots, kMoving), quad, quad_slots, n_quads, box,
-      box_slots, n_boxes);
+      box_slots, n_boxes, med, n_media);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < n_acc; i += kBwdThreads) out[i] = 0.0f;
   __syncthreads();
@@ -439,10 +469,20 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {  // no early return: all sync below
-    adjoint_pixel<kMoving, kSolids>(
-        sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
-        width * height, spp, max_depth, t_min, d_rad, lengths, winners,
-        win_cap, out, g_cam, g_bg, mismatches);
+    // A scene without media takes the pixel's backward without the media's
+    // code, the kernel's before media: with it, cornell's backward ran 5%
+    // slower in turns on an H100 (more spills in the sweep).
+    if (kSolids && n_media > 0) {
+      adjoint_pixel<kMoving, kSolids, true>(
+          sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
+          width * height, spp, max_depth, t_min, d_rad, lengths, winners,
+          win_cap, out, g_cam, g_bg, mismatches);
+    } else {
+      adjoint_pixel<kMoving, kSolids, false>(
+          sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
+          width * height, spp, max_depth, t_min, d_rad, lengths, winners,
+          win_cap, out, g_cam, g_bg, mismatches);
+    }
   }
 
   // Camera and background: warp sums, then warps in order.
@@ -491,7 +531,7 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
                              float* rad, int* traced, uint8_t* lengths,
                              int16_t* winners, void* stream) {
   const dim3 grid((width + 15) / 16, (height + 15) / 16);
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   const size_t smem = with_solids(fwd_smem(n_slots, moving != 0), solids);
   // As tile_render: 3072 slots need the opt-in above 48 KB.
@@ -501,9 +541,9 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
                                  : train_fwd_kernel<false, false>);
   return launch_tiles(kernel, grid, smem, static_cast<cudaStream_t>(stream),
                       sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
-                      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, s0, s1,
-                      lo, width, height, spp, max_depth, t_min, win_cap, rad,
-                      traced, lengths, winners);
+                      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med,
+                      sa.n_media, s0, s1, lo, width, height, spp, max_depth,
+                      t_min, win_cap, rad, traced, lengths, winners);
 }
 
 // The backward: train_bwd_kernel, then two fixed-order reductions of its
@@ -512,10 +552,11 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
 // win_cap and solids (win_cap 0: no winners, every segment scans;
 // winners may be null); scratch: (n_blocks + ceil(n_blocks / 64)) *
 // n_cols f32 with n_blocks = ceil(width/16) * ceil(height/16) and n_cols
-// = kSlotCols * (n_slots + n_quads + n_boxes) + 32; sums: (n_cols,) f32
-// out (slot-major: kSlotCols floats a slot, a sphere's 12 (15 when
-// moving) gradient rows then zeros, then the active quads' and boxes'
-// columns (adjoint.cuh kQuadAccPlane ...); then 24 camera rows, 6
+// = kSlotCols * (n_slots + n_quads + n_boxes + n_media) + 32; sums:
+// (n_cols,) f32 out (slot-major: kSlotCols floats a slot, a sphere's 12
+// (15 when moving) gradient rows then zeros, then the active quads',
+// boxes' and media's columns (adjoint.cuh kQuadAccPlane, kMedAccRadius
+// ...); then 24 camera rows, 6
 // background, 2 pad); mismatches: one int32, zeroed by the caller.
 extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
@@ -530,11 +571,12 @@ extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((width + 15) / 16, (height + 15) / 16);
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   const int n_blocks = static_cast<int>(grid.x * grid.y);
   const int n_cols =
-      kSlotCols * (n_slots + sa.n_quads + sa.n_boxes) + kCamBgCols;
+      kSlotCols * (n_slots + sa.n_quads + sa.n_boxes + sa.n_media) +
+      kCamBgCols;
   const size_t smem = with_solids(staged_bytes(n_slots, moving != 0), solids);
   auto kernel = moving ? (solids ? train_bwd_kernel<true, true>
                                  : train_bwd_kernel<true, false>)
@@ -542,9 +584,9 @@ extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
                                  : train_bwd_kernel<false, false>);
   const int err = launch_tiles(
       kernel, grid, smem, st, sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
-      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, d_rad, lengths, winners,
-      win_cap, s0, s1, lo, width, height, spp, max_depth, t_min, scratch,
-      mismatches);
+      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media, d_rad,
+      lengths, winners, win_cap, s0, s1, lo, width, height, spp, max_depth,
+      t_min, scratch, mismatches);
   if (err != 0) return err;
   return static_cast<int>(
       reduce_partials(scratch, n_blocks, n_cols, sums, st));

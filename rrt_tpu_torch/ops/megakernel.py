@@ -14,8 +14,9 @@ plain versions scan, the same function):
                    `_bounce_megakernel`; plain `bounce_steps_reference`;
   `intersect_only` the closest hit of each ray for the batch driver
                    (csrc/queue.cu), the counterpart of
-                   `_intersect_kernel`, with a box family that rrt_tpu's
-                   lacks; plain `intersect_only_reference`.
+                   `_intersect_kernel` (spheres, quads, media), with a
+                   box family that rrt_tpu's lacks; plain
+                   `intersect_only_reference`.
 
 The kernel reads the scene as packs, laid out as in rrt_tpu but for the
 quad pack, which keeps each quad's corner and edges (the kernels derive
@@ -38,13 +39,21 @@ Box pack, f32 (24, B), rrt_tpu's:
   0-2 center | 3-5 half (0 on invalid slots) | 6 cos | 7 sin (the
   world-from-box Y rotation) | 8 valid | 9 mat_type | 10 aux
   | 11-13 color1 | 14-16 color2 | 17 tex_type | 18 tex_scale | 19-23 pad
+Medium pack, f32 (D, 24), rrt_tpu's, a row a medium slot:
+  0 boundary type (0 sphere, 1 box) | 1-3 center | 4 radius | 5-7 half
+  | 8-16 world-from-box rotation, row major | 17 -1/density | 18 valid
+  | 19-21 the isotropic albedo (its texture's color1) | 22-23 pad
 
 Every pack keeps the scene's own slot count (a multiple of 128): unlike
 the TPU kernel, the GPU kernel has no tile width to pad to. A scene with
-quads, boxes or a diffuse_light hands the kernels its quad and box packs
-and their active slot counts (`SolidPacks`, `pack_solids`), and they run
-their solid-family variant: the quads, then the boxes, as loops over the
-active slots (at most SOLID_CAP of each), seeding the spheres' BVH walk.
+quads, boxes, constant media or a diffuse_light hands the kernels its
+quad, box and medium packs and their active slot counts (`SolidPacks`,
+`pack_solids`), and they run their solid-family variant: the quads, then
+the boxes, as loops over the active slots (at most SOLID_CAP of each),
+seeding the spheres' BVH walk; then every active medium, read from its
+pack in device memory (no cap), against the closest solid's t, each with
+its own STREAM_MEDIUM draw (a scene of media alone runs it with no quad
+or box).
 
 A scene with moving spheres (`SceneArrays.has_moving`, the wrappers'
 `moving=True`) runs each kernel's moving variant: a sphere's center at a
@@ -61,7 +70,8 @@ import torch
 from .. import accel, rng
 from . import _build
 from ..camera import thin_lens_rays
-from ..scene import MAT_DIELECTRIC, SceneArrays, tensor_fields
+from ..scene import (MAT_DIELECTRIC, MAT_ISOTROPIC, SceneArrays,
+                     tensor_fields)
 
 # Shared memory holds the intersection rows (0-3) of every slot, 16
 # bytes a slot, inside the 48 KB a block gets without opting in.
@@ -72,19 +82,22 @@ MAX_SLOTS = 3072
 SOLID_CAP = 64
 SOLID_CAP_ITEM = "#9.5"
 # A winner as one int16 (train_fwd's residual, the backwards' records):
-# a sphere's slot, QUAD_CODE + a quad's, BOX_CODE + a box's; -1 a miss
-# (csrc/bounce.cuh kQuadCode, kBoxCode).
+# a sphere's slot, QUAD_CODE + a quad's, BOX_CODE + a box's, MEDIUM_CODE
+# + a medium's; -1 a miss (csrc/bounce.cuh kQuadCode, kBoxCode,
+# kMediumCode).
 QUAD_CODE = MAX_SLOTS
 BOX_CODE = MAX_SLOTS + SOLID_CAP
+MEDIUM_CODE = BOX_CODE + SOLID_CAP
 
 
 def encode_winner(fam, idx):
     """The int16 code of each winner (fam, idx (N,), geometry.FAM_*),
     as an int64 tensor: -1 on a miss."""
-    from ..geometry import FAM_BOX, FAM_NONE, FAM_QUAD
+    from ..geometry import FAM_BOX, FAM_MEDIUM, FAM_NONE, FAM_QUAD
     fam, idx = fam.long(), idx.long()
     code = torch.where(fam == FAM_QUAD, QUAD_CODE + idx,
                        torch.where(fam == FAM_BOX, BOX_CODE + idx, idx))
+    code = torch.where(fam == FAM_MEDIUM, MEDIUM_CODE + idx, code)
     return torch.where(fam == FAM_NONE, -1, code)
 
 
@@ -92,23 +105,26 @@ def decode_winner(code):
     """(fam, idx) of int16 winner codes (N,), both int64; a miss (-1)
     decodes to (FAM_NONE, -1), an unstored entry (-2) to (FAM_NONE,
     -2)."""
-    from ..geometry import FAM_BOX, FAM_NONE, FAM_QUAD, FAM_SPHERE
+    from ..geometry import (FAM_BOX, FAM_MEDIUM, FAM_NONE, FAM_QUAD,
+                            FAM_SPHERE)
     code = code.long()
     fam = torch.where(code >= BOX_CODE, FAM_BOX,
                       torch.where(code >= QUAD_CODE, FAM_QUAD, FAM_SPHERE))
+    fam = torch.where(code >= MEDIUM_CODE, FAM_MEDIUM, fam)
     fam = torch.where(code < 0, FAM_NONE, fam)
     base = torch.where(fam == FAM_BOX, BOX_CODE,
                        torch.where(fam == FAM_QUAD, QUAD_CODE, 0))
+    base = torch.where(fam == FAM_MEDIUM, MEDIUM_CODE, base)
     return fam, code - base
 
 
 def scope_gap(scene: SceneArrays, rr_depth: int = 0):
     """None when the forward kernels cover the scene and option;
     otherwise (what is outside, the ROADMAP Queue A item that ports it).
-    The train kernels' and chain_bwd's scope is narrower
+    The train kernels' scope is narrower
+    (megakernel_vjp.train_scope_gap), and chain_bwd's narrower still
     (megakernel_vjp.backward_scope_gap)."""
     outside = (
-        (scene.has_media, "constant media", "#9.4"),
         (scene.has_perlin, "perlin textures", "#9.5"),
         (scene.has_images, "image textures", "#9.5"),
         (rr_depth > 0, "Russian roulette (rr_depth > 0)", "#9.6"),
@@ -131,29 +147,36 @@ def check_scope(scene: SceneArrays, rr_depth: int = 0):
 
 @dataclasses.dataclass(frozen=True)
 class SolidPacks:
-    """The quad and box packs (layouts in the module docstring) of a
-    scene with quads, boxes or a diffuse_light, and their active slot
-    counts: the kernels test slots [0, n_quads) and [0, n_boxes) (the
-    builder puts a family's valid slots first)."""
+    """The quad, box and medium packs (layouts in the module docstring)
+    of a scene with quads, boxes, media or a diffuse_light, and their
+    active slot counts: the kernels test slots [0, n_quads), [0, n_boxes)
+    and [0, n_media) (the builder puts a family's valid slots first).
+    med24 is None for a scene without media."""
 
     quad24: torch.Tensor  # (24, Q)
     box24: torch.Tensor  # (24, B)
     n_quads: int
     n_boxes: int
+    n_media: int = 0
+    med24: torch.Tensor | None = None  # (D, 24)
 
     def to(self, device) -> "SolidPacks":
-        return dataclasses.replace(self, quad24=self.quad24.to(device),
-                                   box24=self.box24.to(device))
+        return dataclasses.replace(
+            self, quad24=self.quad24.to(device), box24=self.box24.to(device),
+            med24=None if self.med24 is None else self.med24.to(device))
 
 
 def pack_solids(scene: SceneArrays, device=None):
     """The scene's SolidPacks (on `device`, when given), differentiable
     functions of its tensors; None for a scene of spheres alone without a
-    light, which the kernels' sphere variants render."""
-    if not (scene.has_quads or scene.has_boxes or scene.has_emissive):
+    light or a medium, which the kernels' sphere variants render."""
+    if not (scene.has_quads or scene.has_boxes or scene.has_emissive
+            or scene.has_media):
         return None
     packs = SolidPacks(pack_quads_full(scene), pack_boxes_full(scene),
-                       scene.n_quads_active, scene.n_boxes_active)
+                       scene.n_quads_active, scene.n_boxes_active,
+                       scene.n_media_active,
+                       pack_media(scene) if scene.has_media else None)
     return packs if device is None else packs.to(device)
 
 
@@ -235,6 +258,23 @@ def pack_boxes_full(scene: SceneArrays):
     ]).contiguous()
 
 
+def pack_media(scene: SceneArrays):
+    """(D, 24) f32 medium pack, rrt_tpu's (layout in the module
+    docstring), a differentiable function of the scene's tensors. A
+    medium's material is isotropic by construction (SceneBuilder's
+    medium_* make it), so its albedo, its texture's color1, is packed and
+    no material type."""
+    d = scene.med_radius.shape[0]
+    f32 = torch.float32
+    alb = scene.tex_color1[scene.mat_tex[scene.med_mat.long()].long()]
+    return torch.cat([
+        scene.med_btype.to(f32)[:, None], scene.med_center,
+        scene.med_radius[:, None], scene.med_half,
+        scene.med_rot.reshape(d, 9), scene.med_neg_inv_density[:, None],
+        scene.med_valid.to(f32)[:, None], alb,
+        torch.zeros((d, 2), dtype=f32, device=alb.device)], dim=1).contiguous()
+
+
 def pack_camera(camera, width: int, height: int):
     """(24,) f32 camera pack: the derived thin-lens frame + jitter
     scales (layout in the module docstring)."""
@@ -301,9 +341,11 @@ def _check_bvh(bvh, sph24, what: str):
 
 def _check_solids(solids, device):
     """The C argument of the solid families (a pointer to an
-    _build.SolidArgs), checked: both packs float32 (24, n), contiguous,
-    on `device`, their active counts within their widths and SOLID_CAP;
-    None (a null pointer: the sphere variants) for None."""
+    _build.SolidArgs), checked: the quad and box packs float32 (24, n),
+    contiguous, on `device`, their active counts within their widths and
+    SOLID_CAP; the medium pack, with n_media > 0, float32 (D, 24),
+    contiguous, on `device`, D >= n_media; None (a null pointer: the
+    sphere variants) for None."""
     if solids is None:
         return None
     for name, t, n in (("quad24", solids.quad24, solids.n_quads),
@@ -320,9 +362,19 @@ def _check_solids(solids, device):
                 f"{n} active slots of {name}: the kernels stage at most "
                 f"{SOLID_CAP} quads and {SOLID_CAP} boxes (ROADMAP Queue A "
                 f"{SOLID_CAP_ITEM})")
+    med = solids.med24
+    if solids.n_media:
+        if (not isinstance(med, torch.Tensor) or med.dtype != torch.float32
+                or med.dim() != 2 or med.shape[1] != 24
+                or not med.is_contiguous() or med.device != device
+                or not 0 < solids.n_media <= med.shape[0]):
+            raise ValueError(f"med24 must be a contiguous (D, 24) float32 "
+                             f"tensor on {device} with D >= n_media "
+                             f"({solids.n_media})")
     return ctypes.byref(_build.SolidArgs(
         solids.quad24.data_ptr(), solids.quad24.shape[1], solids.n_quads,
-        solids.box24.data_ptr(), solids.box24.shape[1], solids.n_boxes))
+        solids.box24.data_ptr(), solids.box24.shape[1], solids.n_boxes,
+        med.data_ptr() if solids.n_media else None, solids.n_media))
 
 
 def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
@@ -393,8 +445,9 @@ def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
     the spheres move with the velocity rows 4-6 from base rows 0-2
     (time0 0, time1 1), so make_hit's center is base + time * vel;
     otherwise the scene is static. solids: SolidPacks, whose active
-    slots become the quad and box families (and whose presence turns on
-    the lights' emission, as in the kernels' solid-family variant).
+    slots become the quad, box and medium families (and whose presence
+    turns on the lights' emission, as in the kernels' solid-family
+    variant), a medium's material isotropic with its packed albedo.
     Without bg8 the background is the default sky (intersection only)."""
     dev = sph24.device
     n = sph24.shape[1]
@@ -416,6 +469,22 @@ def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
         mats += [quad[10:20], box[9:19]]
         counts = dict(n_quads_active=nq, n_boxes_active=nb, has_quads=nq > 0,
                       has_boxes=nb > 0, has_emissive=True)
+        nm = solids.n_media
+        if nm:
+            med = solids.med24[:nm]
+            fam.update(med_btype=med[:, 0].to(torch.int32),
+                       med_center=med[:, 1:4], med_radius=med[:, 4],
+                       med_half=med[:, 5:8],
+                       med_rot=med[:, 8:17].reshape(nm, 3, 3),
+                       med_neg_inv_density=med[:, 17],
+                       med_mat=torch.arange(nm, dtype=torch.int32,
+                                            device=dev) + n + nq + nb,
+                       med_valid=med[:, 18] > 0.5)
+            iso = torch.zeros((10, nm), device=dev)
+            iso[0] = MAT_ISOTROPIC
+            iso[2:5] = med[:, 19:22].T
+            mats.append(iso)
+            counts.update(has_media=True, n_media_active=nm)
     mat = torch.cat(mats, dim=1)
     slots = torch.arange(mat.shape[1], dtype=torch.int32, device=dev)
     mtype = mat[0].to(torch.int32)
@@ -681,22 +750,25 @@ def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
 
 
 def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None,
-                   solids=None):
+                   solids=None, keys=None, bounce=None):
     """Closest hit of each ray. o, d: (3, Q) f32 rows x y z of the
     rays' origins and directions; time: None for a static scene, or for
     moving spheres (Q,) f32 the rays' times, a sphere's center then being
-    base + time * vel: the kernel's moving variant (rrt_tpu's
-    kernel takes (8, Q) rows that also hold each ray's bounce, for the
-    media family, ROADMAP Queue A #9.4; the other families read only o,
-    d and time, so this kernel takes (3, Q) rows and a (Q,) time).
-    solids: as render_tiles' (the quads and boxes; rrt_tpu's kernel has
-    no box family). Returns (t (Q,) f32, INF on a miss; fam (Q,) int32,
-    0 for a sphere, 1 a quad, 3 a box, -1 on a miss; idx (Q,) int32, the
-    winning slot of its family, 0 on a miss): rrt_tpu's intersect_all
-    contract, its exact ties between families going to the quad, then
-    the box, as in its kernel. bvh: the sphere pack's accel.BvhPack on
-    the rays' device, its shutter covering the rays' times, which the
-    kernel walks: required on a CUDA device, not read on the CPU.
+    base + time * vel: the kernel's moving variant (rrt_tpu's kernel
+    takes (8, Q) rows of o, d, time and bounce; this one takes them
+    apart). solids: as render_tiles' (the quads, boxes and media;
+    rrt_tpu's kernel has no box family); with media, keys (2, Q) int32
+    (each ray's u32 sample-key words, rng.u32_bits) and bounce (Q,) int32
+    (its bounce counter) address each medium's STREAM_MEDIUM draw, as
+    rrt_tpu's rays8 row 7 does. Returns (t (Q,) f32, INF on a miss; fam
+    (Q,) int32, 0 for a sphere, 1 a quad, 2 a medium, 3 a box, -1 on a
+    miss; idx (Q,) int32, the winning slot of its family, 0 on a miss):
+    rrt_tpu's intersect_all contract, its exact ties between solid
+    families going to the quad, then the box, as in its kernel, a medium
+    winning with a strictly smaller t. bvh: the sphere pack's
+    accel.BvhPack on the rays' device, its shutter covering the rays'
+    times, which the kernel walks: required on a CUDA device, not read on
+    the CPU.
 
     CUDA tensors launch the kernel (counted in `intersect_only.launches`);
     CPU tensors run intersect_only_reference, whose linear scan gives the
@@ -715,9 +787,18 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None,
         raise ValueError(f"time must be a contiguous ({q},) float32 tensor "
                          f"on {device}")
     solid_arg = _check_solids(solids, device)
+    media = solids is not None and solids.n_media > 0
+    if media:
+        _check_lanes("keys", keys, 2, torch.int32, device)
+        if (not isinstance(bounce, torch.Tensor) or bounce.dtype != torch.int32
+                or tuple(bounce.shape) != (q,) or not bounce.is_contiguous()
+                or bounce.device != device or keys.shape[1] != q):
+            raise ValueError(f"a scene with media needs keys (2, {q}) and "
+                             f"bounce ({q},) int32 on {device}")
     if device.type == "cpu":
         return intersect_only_reference(o, d, sph24, t_min=t_min, time=time,
-                                        solids=solids)
+                                        solids=solids, keys=keys,
+                                        bounce=bounce)
     tree = _check_bvh(bvh, sph24, "intersect_only")
     t = torch.empty((q,), dtype=torch.float32, device=device)
     fam = torch.empty((q,), dtype=torch.int32, device=device)
@@ -726,8 +807,10 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None,
     with torch.cuda.device(device):
         err = lib.rrt_intersect(
             o.data_ptr(), d.data_ptr(), time.data_ptr() if moving else None,
-            q, sph24.data_ptr(), sph24.shape[1], *tree, solid_arg, t_min,
-            int(moving), t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
+            keys.data_ptr() if media else None,
+            bounce.data_ptr() if media else None, q, sph24.data_ptr(),
+            sph24.shape[1], *tree, solid_arg, t_min, int(moving),
+            t.data_ptr(), fam.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "intersect_only")
     intersect_only.launches += 1
@@ -738,12 +821,16 @@ intersect_only.launches = 0
 
 
 def intersect_only_reference(o, d, sph24, *, t_min: float, time=None,
-                             solids=None):
+                             solids=None, keys=None, bounce=None):
     """Plain PyTorch version of `intersect_only`, same inputs and
     outputs: geometry.intersect_all on the packs' slots, with the
-    kernel's order of exact ties (quad, box, sphere)."""
+    kernel's order of exact ties (quad, box, sphere) and its media."""
     from ..geometry import INF, intersect_all
 
     scene = _scene_from_packs(sph24, None, time is not None, solids)
-    t, fam, idx = intersect_all(scene, o, d, time, t_min, INF)
+    u_med = None
+    if scene.has_media:
+        u_med = rng.medium_draws(rng.from_u32_bits(keys), bounce,
+                                 scene.n_media_active)
+    t, fam, idx = intersect_all(scene, o, d, time, t_min, INF, u_med)
     return t, fam.to(torch.int32), idx.to(torch.int32)

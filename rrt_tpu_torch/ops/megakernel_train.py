@@ -2,11 +2,13 @@
 
 The counterpart of rrt_tpu's `ops/megakernel_train.py` for the tile
 kernel's scenes (stationary and moving spheres, quads, boxes rotated
-about Y, solid / checker textures, lambertian / metal / dielectric /
-diffuse_light, sky or solid background, a thin-lens camera with a
-shutter, no Russian roulette). `TileTrainChain` is the render as a
+about Y, up to MAX_TRAIN_MEDIA constant media, solid / checker
+textures, lambertian / metal / dielectric / diffuse_light / isotropic,
+sky or solid background, a thin-lens camera with a shutter, no Russian
+roulette: `train_scope_gap`). `TileTrainChain` is the render as a
 torch.autograd.Function over the packs (sph24, cam24, bg8, and for a
-scene with quads, boxes or a light its quad and box packs):
+scene with quads, boxes, media or a light its quad, box and medium
+packs):
 
   forward   `render_tiles_train`: the CUDA kernel train_fwd
             (csrc/train.cu), which renders exactly as tile_render, each
@@ -15,7 +17,8 @@ scene with quads, boxes or a light its quad and box packs):
             path) and the winner of each pixel's first
             WINNERS_PER_SAMPLE * spp segments (int16 a segment: a
             sphere's slot, or mk.QUAD_CODE + a quad's, mk.BOX_CODE + a
-            box's; -1 a miss: mk.encode_winner);
+            box's, mk.MEDIUM_CODE + a medium's; -1 a miss:
+            mk.encode_winner);
   backward  `tiles_adjoint`: the CUDA kernel train_bwd, which replays
             each path from its counter-addressed key, recomputing only
             the stored winner's test where there is one and scanning
@@ -24,7 +27,8 @@ scene with quads, boxes or a light its quad and box packs):
             bounces in reverse through the hand-written transpose of
             megakernel_vjp.diff_step, into the cotangents of the packs
             (a quad's through its plane frame's n and d_plane, which the
-            wrapper takes to q, u, v: geometry.quad_frame_vjp).
+            wrapper takes to q, u, v: geometry.quad_frame_vjp; a
+            medium's into its MED_COLS).
 
 On the TPU the residual was the 24-row loop carry at segment
 boundaries, because one lane ran many pixels' samples in one loop. A
@@ -48,6 +52,51 @@ from .megakernel_vjp import (MAX_RECORDS, SLOT_COLS, camera_ray_rows,
                              replay_steps, solid_grads, solid_leaves,
                              step_constants, winner_rows)
 from ..camera import thin_lens_rays
+
+
+# The constant media the train kernels take, rrt_tpu's gradient scope
+# (ops/megakernel_train.py MAX_TRAIN_MEDIA: SceneArrays pads media to 8
+# slots). A scene with more renders on the forward kernels, and its
+# gradient takes rrt_tpu's scan on the CPU; on a card it raises.
+MAX_TRAIN_MEDIA = 8
+
+
+def train_scope_gap(scene, rr_depth: int = 0):
+    """The train kernels' scope (rrt_tpu's supports_train): None when
+    they cover the scene and option, otherwise (what is outside, the
+    ROADMAP Queue A item), with rrt_tpu's reasons first: an image
+    texture on a medium, more than MAX_TRAIN_MEDIA media; then the
+    forward kernels' (mk.scope_gap)."""
+    if scene.has_images_on_media:
+        return ("an image texture on a constant medium (media albedo must "
+                "pack to a solid)", "#9.5")
+    gap = mk.scope_gap(scene, rr_depth)
+    if gap is None and scene.n_media_active > MAX_TRAIN_MEDIA:
+        return (f"{scene.n_media_active} constant media, past the train "
+                f"kernels' {MAX_TRAIN_MEDIA}-slot gradient scope", "#9.4")
+    return gap
+
+
+def supports_train(scene) -> bool:
+    """Whether the train kernels cover the scene (train_scope_gap)."""
+    return train_scope_gap(scene) is None
+
+
+def check_train_scope(where: str, scene, rr_depth: int = 0):
+    """Raise NotImplementedError naming the ROADMAP item for a scene
+    outside train_scope_gap's scope."""
+    gap = train_scope_gap(scene, rr_depth)
+    if gap is not None:
+        raise NotImplementedError(
+            f"{where}: {gap[0]} is outside the train kernels' scope "
+            f"(ROADMAP Queue A {gap[1]})")
+
+
+def _check_train_media(solids):
+    if solids is not None and solids.n_media > MAX_TRAIN_MEDIA:
+        raise NotImplementedError(
+            f"{solids.n_media} constant media: the train kernels take at "
+            f"most {MAX_TRAIN_MEDIA} (ROADMAP Queue A #9.4)")
 
 
 # Winner entries a sample, pooled over a pixel's samples (csrc/train.cu):
@@ -101,10 +150,11 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     counts (P,) i32, lengths (spp, P) uint8: the bounces each path
     traced, winners (winner_capacity(spp), P) int16: winners[j, p] the
     code of the winner of pixel p's j-th segment, in trace order
-    (mk.encode_winner: a sphere's slot, or a quad's or box's offset by
-    mk.QUAD_CODE or mk.BOX_CODE; -1 on a miss)); moving: the
-    moving-sphere variant; solids: the scene's SolidPacks (the
-    solid-family variant) or None. The kernel leaves the entries past a
+    (mk.encode_winner: a sphere's slot, or a quad's, box's or medium's
+    offset by mk.QUAD_CODE, mk.BOX_CODE or mk.MEDIUM_CODE; -1 on a
+    miss)); moving: the moving-sphere variant; solids: the scene's
+    SolidPacks (the solid-family variant; at most MAX_TRAIN_MEDIA
+    media) or None. The kernel leaves the entries past a
     pixel's segments unwritten; the plain version sets them to -2.
 
     CUDA tensors launch train_fwd (counted in
@@ -115,6 +165,7 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
               moving=moving, solids=solids)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving)
+    _check_train_media(solids)
     device = sph24.device
     solid_arg = mk._check_solids(solids, device)
     if device.type == "cpu":
@@ -167,7 +218,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     int32: the paths whose replayed length differs from `lengths`, and
     the stored winners the replay does not find; d_solids: with solids
     (the scene's SolidPacks: the solid-family variant) the SolidPacks of
-    the quad and box packs' cotangents, else None). With moving spheres
+    the quad, box and medium packs' cotangents, else None). With moving spheres
     the velocity rows 4-6 get cotangents, and the shutter rows 19-20 of
     the camera through each ray's time. `winners` is
     render_tiles_train's (any number of entries a pixel, int16), or None:
@@ -201,6 +252,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
            for t in (d_rad, lengths, winners)):
         raise ValueError("d_rad, lengths and winners must be on the packs' "
                          "device")
+    _check_train_media(solids)
     solid_arg = mk._check_solids(solids, device)
     d_rad = d_rad.contiguous()
     if device.type == "cpu":
@@ -212,9 +264,11 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
         raise ValueError(f"tiles_adjoint runs on cuda or cpu, not {device}")
     lib = _build.load()
     n_slots = sph24.shape[1]
-    n_solid = 0 if solids is None else solids.n_quads + solids.n_boxes
+    n_solid = 0 if solids is None else (solids.n_quads + solids.n_boxes
+                                        + solids.n_media)
     # Per-block partials (SLOT_COLS floats a slot: the spheres', then the
-    # active quads' and boxes'; then 32 of the camera and background)
+    # active quads', boxes' and media's; then 32 of the camera and
+    # background)
     # and, below them, the first reduction's groups of 64 blocks
     # (csrc/train.cu rrt_train_bwd).
     rows = grad_rows(moving)
@@ -264,7 +318,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
     earlier lengths; none when winners is None) that differs from the
     replay's; 2. rebuild every
     bounce with diff_step under autograd, from the winners' pack columns
-    only (no (N,S) broadcast; the quads' through mk.quad_frame_pack);
+    only (no (N,S) broadcast; the quads' through mk.quad_frame_pack, the
+    media's rows of their pack);
     3. take torch.autograd.grad of sum(d_rad[pixel] . contribution)."""
     dev = sph24.device
     scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving,
@@ -273,9 +328,10 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
     sph = sph24.detach().requires_grad_()
     cam = cam24.detach().requires_grad_()
     bg = bg8.detach().requires_grad_()
-    quads, boxes = solid_leaves(solids)
+    quads, boxes, media = solid_leaves(solids)
     leaves = {k: x for k, x in (("sph", sph), ("cam", cam), ("bg", bg),
-                                ("quad", quads), ("box", boxes))
+                                ("quad", quads), ("box", boxes),
+                                ("med", media))
               if x is not None}
     grads = {k: torch.zeros_like(x) for k, x in leaves.items()}
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -312,10 +368,10 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
             for r in records:
                 state = tuple(row[r["sel"]] for row in state)
                 zero = torch.zeros_like(state[0])
-                sel, flags = winner_rows(r, sph, frames, boxes)
+                sel, flags = winner_rows(r, sph, frames, boxes, media)
                 out = diff_step(step_constants(r, sph24, bg8, solids),
                                 *state, zero, zero, zero, *sel, *bg[:6],
-                                moving=moving, **flags)
+                                moving=moving, t_min=t_min, **flags)
                 dr = d_rad[pix[r["cur"]]]
                 total = total + (dr[:, 0] * out[10] + dr[:, 1] * out[11]
                                  + dr[:, 2] * out[12]).sum()
@@ -326,7 +382,7 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
             if g is not None:
                 grads[k] += g
     d_solids = None if solids is None else solid_grads(
-        solids, grads.get("quad"), grads.get("box"))
+        solids, grads.get("quad"), grads.get("box"), grads.get("med"))
     return grads["sph"], grads["cam"], grads["bg"], mismatches, d_solids
 
 
@@ -352,9 +408,10 @@ class TileTrainChain(torch.autograd.Function):
     """The tile render as a differentiable function of the packs:
     apply(sph24, cam24, bg8, seed_words, sample_lo, width, height, spp,
     max_depth, t_min, moving, *solid_inputs(solids)) -> (radiance sums
-    (P,3), traced counts (P,) i32), the last three arguments the quad
-    and box packs and their active slot counts of a scene with quads,
-    boxes or a light (megakernel_vjp.solid_inputs).
+    (P,3), traced counts (P,) i32), the last four arguments the quad
+    and box packs, their active slot counts and the medium pack (or
+    None) of a scene with quads, boxes, media or a light
+    (megakernel_vjp.solid_inputs).
     Forward: one render_tiles_train, whose lengths and winners it saves;
     backward: one tiles_adjoint on them, seeded by the radiance
     cotangent (P,3). The traced counts carry no gradient."""
@@ -362,16 +419,16 @@ class TileTrainChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
                 height, spp, max_depth, t_min, moving, quad24=None,
-                box24=None, counts=None):
+                box24=None, counts=None, med24=None):
         kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
                   height=height, spp=spp, max_depth=max_depth, t_min=t_min,
                   moving=moving)
         solids = None if counts is None else mk.SolidPacks(
-            quad24, box24, *counts)
+            quad24, box24, *counts, med24)
         rad, traced, lengths, winners = render_tiles_train(
             sph24, cam24, bg8, solids=solids, **kw)
         ctx.save_for_backward(sph24, cam24, bg8, lengths, winners, quad24,
-                              box24)
+                              box24, med24)
         ctx.kw = kw
         ctx.counts = counts
         ctx.mark_non_differentiable(traced)
@@ -379,13 +436,15 @@ class TileTrainChain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_rad, _d_traced):
-        sph24, cam24, bg8, lengths, winners, quad24, box24 = \
+        sph24, cam24, bg8, lengths, winners, quad24, box24, med24 = \
             ctx.saved_tensors
         solids = None if ctx.counts is None else mk.SolidPacks(
-            quad24, box24, *ctx.counts)
+            quad24, box24, *ctx.counts, med24)
         d_sph, d_cam, d_bg, _, d_solids = tiles_adjoint(
             sph24, cam24, bg8, d_rad.to(torch.float32), lengths, winners,
             solids=solids, **ctx.kw)
-        d_quad, d_box = ((None, None) if d_solids is None
-                         else (d_solids.quad24, d_solids.box24))
-        return (d_sph, d_cam, d_bg) + (None,) * 8 + (d_quad, d_box, None)
+        d_quad, d_box, d_med = ((None, None, None) if d_solids is None
+                                else (d_solids.quad24, d_solids.box24,
+                                      d_solids.med24))
+        return ((d_sph, d_cam, d_bg) + (None,) * 8
+                + (d_quad, d_box, None, d_med))

@@ -1,15 +1,16 @@
 """The differentiable bounce and the bounce chain's backward.
 
 `diff_step` is the counterpart of rrt_tpu's
-`ops/megakernel_vjp.py::_make_diff_step` for spheres, quads, boxes and
-lights: one bounce as a function of the 13 state rows (origin,
-direction, time, throughput, pending radiance), the winner's 24
-sphere-pack rows (with moving spheres, the winner's center at the ray's
-time, so the velocity rows and the time get gradients too), its quad
-and box rows (rrt_tpu's layouts) and the 6 background rows, with every
-discrete decision (root, box face, front face, checker parity,
-degenerate lambertian, reflect-vs-refract, hit / miss / light /
-survival) and every random draw supplied as a replayed constant. It is
+`ops/megakernel_vjp.py::_make_diff_step` for spheres, quads, boxes,
+lights and constant media: one bounce as a function of the 13 state
+rows (origin, direction, time, throughput, pending radiance), the
+winner's 24 sphere-pack rows (with moving spheres, the winner's center
+at the ray's time, so the velocity rows and the time get gradients
+too), its quad, box and medium rows (rrt_tpu's layouts) and the 6
+background rows, with every discrete decision (root, box face, front
+face, checker parity, degenerate lambertian, reflect-vs-refract, which
+medium and whether it scatters, hit / miss / light / survival) and
+every random draw supplied as a replayed constant. It is
 the math the CUDA backwards transpose by hand (csrc/adjoint.cuh, shared
 by train.cu and chain.cu), and the body of their plain versions
 (megakernel_train.tiles_adjoint_reference, chain_adjoint_reference),
@@ -43,9 +44,10 @@ import torch
 from .. import rng
 from . import _build
 from . import megakernel as mk
-from ..geometry import FAM_BOX, FAM_QUAD, FAM_SPHERE, INF, quad_frame_vjp
-from ..scene import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_LAMBERTIAN,
-                     MAT_METAL)
+from ..geometry import (FAM_BOX, FAM_MEDIUM, FAM_QUAD, FAM_SPHERE, INF,
+                        quad_frame_vjp)
+from ..scene import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC,
+                     MAT_LAMBERTIAN, MAT_METAL)
 
 # The backward kernels keep one record per replayed bounce in
 # per-thread storage of this many entries (csrc/adjoint.cuh kMaxRecords).
@@ -82,8 +84,7 @@ def check_backward_slots(sph24, moving: bool):
 
 # The families and options outside the backwards' scope, by flag: the
 # ROADMAP Queue A item that ports each.
-_NOT_PORTED = (("n_media", "constant media", "#9.4"),
-               ("has_perlin", "perlin textures", "#9.5"),
+_NOT_PORTED = (("has_perlin", "perlin textures", "#9.5"),
                ("has_images", "image textures", "#9.5"),
                ("rr_depth", "Russian roulette", "#9.6"))
 
@@ -95,15 +96,22 @@ _NOT_PORTED = (("n_media", "constant media", "#9.4"),
 # color2, sin, half 3-5.
 QUAD_MAT_ROWS = (11, 12, 13, 14, 15, 16, 17)  # quad pack rows, cols 4-10
 BOX_GRAD_ROWS = (0, 1, 2, 6, 10, 11, 12, 13, 14, 15, 16, 7, 3, 4, 5)
+# The medium-pack columns a medium's cotangent fills, rrt_tpu's MED_COLS
+# (ops/megakernel_train.py): center 1-3, radius 4, half 5-7, -1/density
+# 17, albedo 19-21; the CUDA backwards keep them in this order in a
+# medium's kSlotCols floats (csrc/adjoint.cuh medium_adjoint).
+MED_COLS = (1, 2, 3, 4, 5, 6, 7, 17, 19, 20, 21)
 
 
 def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
-              has_perlin=False, has_images=False, n_media=0, rr_depth=0):
+              has_media=False, has_perlin=False, has_images=False,
+              rr_depth=0, t_min=1e-3):
     """One bounce, differentiable in `ins`: 13 state rows (ox, oy, oz,
     dx, dy, dz, time, thx, thy, thz, pex, pey, pez), sel_s (24, N) (the
     winner's sphere-pack column per ray), with has_quads sel_q (24, N)
     (its quad column in rrt_tpu's layout: ops.megakernel.quad_frame_pack),
-    with has_boxes sel_b (24, N) (its box-pack column), then 6 background
+    with has_boxes sel_b (24, N) (its box-pack column), with has_media
+    sel_m (24, N) (its medium-pack row, transposed), then 6 background
     rows (bottom rgb, top rgb). Returns the 13 state rows after the
     bounce.
 
@@ -116,10 +124,16 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     draws. moving: the winner's center is sel_s rows 0-2 + time * rows
     4-6, in the quadratic and the normal. A box's face and a quad's side
     are replayed: the face is the candidate nearest t_hit, its axis and
-    sign detached. Media, perlin and image textures and Russian roulette
-    raise NotImplementedError naming their ROADMAP items."""
-    flags = dict(n_media=n_media, has_perlin=has_perlin,
-                 has_images=has_images, rr_depth=rr_depth)
+    sign detached. With media, use_med (a medium won) and med_logu (the
+    log of its clamped STREAM_MEDIUM uniform): a medium's t is te +
+    (-1/density) log(u) / |d|, te its boundary's entry t clamped to
+    t_min and 0 (rrt_tpu's rule: the boundary type, the rotation, which
+    slab and whether it scatters are replayed), its normal the constant
+    (1, 0, 0), its albedo its pack's columns 19-21, its new direction the
+    in-sphere draw. Perlin and image textures and Russian roulette raise
+    NotImplementedError naming their ROADMAP items."""
+    flags = dict(has_perlin=has_perlin, has_images=has_images,
+                 rr_depth=rr_depth)
     for flag, what, item in _NOT_PORTED:
         if flags[flag]:
             raise NotImplementedError(
@@ -134,6 +148,9 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         i += 1
     if has_boxes:
         sel_b = ins[i]
+        i += 1
+    if has_media:
+        sel_m = ins[i]
         i += 1
     bg6 = ins[i:i + 6]
     where = torch.where
@@ -193,6 +210,12 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         not_par = (denom.abs() > sel_q[12] * d_len).detach()
         t_quad = (sel_q[9] - o_n) / where(not_par, denom, 1.0)
         t_hit = where(c["use_q"], t_quad, t_hit)
+    # --- a medium winner's t: its boundary's entry t, clamped, plus the
+    # sampled distance.
+    if has_media:
+        t_hit = where(c["use_med"], _medium_t(
+            sel_m, ox, oy, oz, dx, dy, dz, a, inv_a, d_len, t_min,
+            c["med_logu"]), t_hit)
 
     t_eff = where(c["hit"], t_hit, 0.0)
     px_ = ox + t_eff * dx
@@ -242,9 +265,16 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         c2 = tuple(where(uq, sel_q[19 + j], c2[j]) for j in range(3))
     sgn = where(c["front"], 1.0, -1.0)
     nx_, ny_, nz_ = outx * sgn, outy * sgn, outz * sgn
+    if has_media:  # a medium's normal: a constant (isotropic ignores it)
+        um = c["use_med"]
+        nx_, ny_, nz_ = where(um, 1.0, nx_), where(um, 0.0, ny_), \
+            where(um, 0.0, nz_)
 
     # --- albedo (checker parity replayed).
     albr, albg, albb = (where(c["use_c2"], c2[j], c1[j]) for j in range(3))
+    if has_media:
+        albr, albg, albb = (where(um, sel_m[19 + j], alb)
+                            for j, alb in enumerate((albr, albg, albb)))
 
     # --- scatter (draws and decisions replayed).
     ux, uy_, uz, sx, sy, sz, _u_choice = c["draws"]
@@ -311,6 +341,38 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
             where(sv, thz * atb, thz), pex, pey, pez)
 
 
+def _medium_t(sel_m, ox, oy, oz, dx, dy, dz, a, inv_a, d_len, t_min,
+              logu):
+    """diff_step's medium t (rrt_tpu's medium branch of _make_diff_step)
+    from the winner's medium-pack rows sel_m (24, N): the boundary's
+    entry t (a sphere's near root; an oriented box's slab entry, the
+    rotation detached), clamped to t_min and 0, plus (-1/density) logu /
+    |d|. Square roots and reciprocals are double-guarded."""
+    where = torch.where
+    ocx, ocy, ocz = ox - sel_m[1], oy - sel_m[2], oz - sel_m[3]
+    hb = ocx * dx + ocy * dy + ocz * dz
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - sel_m[4] * sel_m[4]
+    disc = hb * hb - a * cc
+    dok = (disc > 0.0).detach()
+    sq = torch.sqrt(where(dok, disc, 1.0))
+    sph_enter = (-hb - sq) * inv_a
+    rot = sel_m[8:17].detach()
+    lo = torch.full_like(a, -INF)
+    for k in range(3):
+        ob = rot[k] * ocx + rot[3 + k] * ocy + rot[6 + k] * ocz
+        db = rot[k] * dx + rot[3 + k] * dy + rot[6 + k] * dz
+        hk = sel_m[5 + k]
+        par = (db.abs() <= 1e-12).detach()
+        inv_db = 1.0 / where(par, 1.0, db)
+        klo = torch.minimum((-hk - ob) * inv_db, (hk - ob) * inv_db)
+        inside = (ob.abs() <= hk).detach()
+        lo = torch.maximum(lo, where(par, where(inside, -INF, INF), klo))
+    t_enter = where((sel_m[0] < 0.5).detach(), sph_enter, lo)
+    te = torch.maximum(torch.maximum(t_enter, torch.full_like(a, t_min)),
+                       torch.zeros_like(a))
+    return te + sel_m[17] * logu * (1.0 / torch.clamp(d_len, min=1e-20))
+
+
 def camera_ray_rows(cam, pxr, pyr, draws):
     """Thin-lens ray from the 24 camera-pack rows `cam` (a (24,) tensor
     or 24 rows), pixel coordinates pxr, pyr (float, row 0 at the top)
@@ -336,13 +398,24 @@ def camera_ray_rows(cam, pxr, pyr, draws):
 # ---------------------------------------------------------------------------
 
 
+# Why chain_bwd leaves out the constant media, as rrt_tpu's does: a
+# medium's sampled interval couples the closest solid's t into the
+# decision, and rrt_tpu's scan, its route there, is the CPU's here.
+CHAIN_MEDIA = ("constant media (rrt_tpu's chain leaves them out too; "
+               "render_image_diff and make_train_step run their gradient "
+               "on the train kernels)")
+
+
 def backward_scope_gap(scene, rr_depth: int = 0):
-    """The scope of the train kernels and chain_bwd: None when they cover
-    the scene and option, otherwise (what is outside, the ROADMAP Queue
-    A item that ports it). The forward kernels' (mk.scope_gap): spheres,
-    quads, boxes and lights; constant media, perlin and image textures
-    and Russian roulette wait for their items."""
-    return mk.scope_gap(scene, rr_depth)
+    """chain_bwd's scope (rrt_tpu's supports_backward): None when it
+    covers the scene and option, otherwise (what is outside, the ROADMAP
+    Queue A item). The forward kernels' (mk.scope_gap) but the constant
+    media, which it leaves out by decision (#9.4; the train kernels take
+    them: megakernel_train.train_scope_gap)."""
+    gap = mk.scope_gap(scene, rr_depth)
+    if gap is None and scene.has_media:
+        return CHAIN_MEDIA, "#9.4"
+    return gap
 
 
 def check_backward_scope(where: str, scene, rr_depth: int = 0):
@@ -351,13 +424,13 @@ def check_backward_scope(where: str, scene, rr_depth: int = 0):
     gap = backward_scope_gap(scene, rr_depth)
     if gap is not None:
         raise NotImplementedError(
-            f"{where}: {gap[0]} is outside the train kernels' and "
-            f"chain_bwd's scope (ROADMAP Queue A {gap[1]})")
+            f"{where}: {gap[0]} is outside chain_bwd's scope (ROADMAP "
+            f"Queue A {gap[1]})")
 
 
 def supports_backward(scene) -> bool:
     """Whether the chain backward covers the scene (backward_scope_gap),
-    which also leaves out the constant media rrt_tpu's excludes."""
+    which leaves out the constant media rrt_tpu's excludes."""
     return backward_scope_gap(scene) is None
 
 
@@ -399,7 +472,8 @@ def replay_steps(scene, o, d, time, keys, bounce0, n_steps: int, *,
             hit=b.hit_mask, miss=b.miss_mask, survives=b.survives,
             front=b.hit.front_face, degen=sc.degenerate,
             do_reflect=sc.reflected, use_c2=b.use_c2,
-            draws=(*sc.unit_rand, *sc.sphere_rand, torch.zeros_like(b.t))))
+            draws=(*sc.unit_rand, *sc.sphere_rand, torch.zeros_like(b.t)),
+            med_logu=_winner_logu(b)))
         keep = b.survives.nonzero()[:, 0]
         if keep.numel() == 0:
             break
@@ -408,10 +482,22 @@ def replay_steps(scene, o, d, time, keys, bounce0, n_steps: int, *,
     return records, n_seg, n_scattered
 
 
+def _winner_logu(b):
+    """log(max(u, 1e-12)) of the STREAM_MEDIUM uniform of each ray's
+    winning medium in a render.Bounce (0 where no medium won, or the
+    scene has none): diff_step's med_logu."""
+    if b.u_med is None:
+        return torch.zeros_like(b.t)
+    use = b.fam == FAM_MEDIUM
+    u = b.u_med.gather(0, torch.where(use, b.win, 0)[None])[0]
+    return torch.where(use, torch.log(torch.clamp(u, min=1e-12)), 0.0)
+
+
 def step_constants(record, sph24, bg8, solids=None):
     """diff_step's replayed constants for one record of replay_steps;
     solids: the replayed scene's SolidPacks (the quads' and boxes'
-    material types, and the use_q, use_b and is_light constants)."""
+    material types, a medium's isotropic one, and the use_q, use_b,
+    use_med and is_light constants)."""
     fam, win = record["fam"], record["win"]
     mtype = sph24.detach()[8, torch.where(fam == FAM_SPHERE, win, 0)]
     c = dict(record, is_sky=bg8.detach()[6] < 0.5)
@@ -423,64 +509,80 @@ def step_constants(record, sph24, bg8, solids=None):
                 use = fam == f
                 mtype = torch.where(use, pack.detach()[
                     row, torch.where(use, win, 0)], mtype)
-        c.update(use_q=fam == FAM_QUAD, use_b=fam == FAM_BOX,
+        use_med = fam == FAM_MEDIUM
+        mtype = torch.where(use_med, float(MAT_ISOTROPIC), mtype)
+        c.update(use_q=fam == FAM_QUAD, use_b=fam == FAM_BOX, use_med=use_med,
                  is_light=mtype == MAT_DIFFUSE_LIGHT)
     c.update(is_lam=mtype == MAT_LAMBERTIAN, is_met=mtype == MAT_METAL,
              is_die=mtype == MAT_DIELECTRIC)
     return c
 
 
-def winner_rows(record, sph, quads=None, boxes=None):
+def winner_rows(record, sph, quads=None, boxes=None, media=None):
     """diff_step's winner inputs for a record of replay_steps: (sel_s,
-    [sel_q], [sel_b]) from the sphere pack sph (24, S), the active
-    quads' frame pack quads (mk.quad_frame_pack, (24, nq); None without
-    quads) and the active boxes' pack boxes ((24, nb); None without),
-    each a column a ray; and diff_step's has_quads, has_boxes."""
+    [sel_q], [sel_b], [sel_m]) from the sphere pack sph (24, S), the
+    active quads' frame pack quads (mk.quad_frame_pack, (24, nq); None
+    without quads), the active boxes' pack boxes ((24, nb); None without)
+    and the active media's pack media ((nm, 24); None without), each a
+    column a ray; and diff_step's has_quads, has_boxes, has_media."""
     fam, win = record["fam"], record["win"]
     sel = [sph[:, torch.where(fam == FAM_SPHERE, win, 0)]]
     for f, pack in ((FAM_QUAD, quads), (FAM_BOX, boxes)):
         if pack is not None:
             sel.append(pack[:, torch.where(fam == f, win, 0)])
-    return sel, dict(has_quads=quads is not None, has_boxes=boxes is not None)
+    if media is not None:
+        sel.append(media[torch.where(fam == FAM_MEDIUM, win, 0)].T)
+    return sel, dict(has_quads=quads is not None, has_boxes=boxes is not None,
+                     has_media=media is not None)
 
 
 def solid_leaves(solids):
-    """Gradient leaves of the active quads' and boxes' packs (detached
-    copies of solids' first n_quads and n_boxes slots), None for a family
-    without active slots. Returns (quad leaf, box leaf)."""
+    """Gradient leaves of the active quads', boxes' and media's packs
+    (detached copies of solids' first n_quads, n_boxes and n_media
+    slots), None for a family without active slots. Returns (quad leaf,
+    box leaf, medium leaf)."""
     if solids is None:
-        return None, None
+        return None, None, None
     q = (solids.quad24.detach()[:, :solids.n_quads].clone()
          .requires_grad_() if solids.n_quads else None)
     b = (solids.box24.detach()[:, :solids.n_boxes].clone()
          .requires_grad_() if solids.n_boxes else None)
-    return q, b
+    m = (solids.med24.detach()[:solids.n_media].clone().requires_grad_()
+         if solids.n_media else None)
+    return q, b, m
 
 
-def solid_grads(solids, g_quad, g_box):
-    """The SolidPacks of the pack cotangents: solids' shapes, g_quad and
-    g_box (the active slots' cotangents, or None) in the first slots."""
+def solid_grads(solids, g_quad, g_box, g_med=None):
+    """The SolidPacks of the pack cotangents: solids' shapes, g_quad,
+    g_box and g_med (the active slots' cotangents, or None) in the first
+    slots."""
     d_quad = torch.zeros_like(solids.quad24)
     d_box = torch.zeros_like(solids.box24)
+    d_med = None if solids.med24 is None else torch.zeros_like(solids.med24)
     if g_quad is not None:
         d_quad[:, :solids.n_quads] = g_quad
     if g_box is not None:
         d_box[:, :solids.n_boxes] = g_box
-    return mk.SolidPacks(d_quad, d_box, solids.n_quads, solids.n_boxes)
+    if g_med is not None:
+        d_med[:solids.n_media] = g_med
+    return mk.SolidPacks(d_quad, d_box, solids.n_quads, solids.n_boxes,
+                         solids.n_media, d_med)
 
 
 def kernel_solid_grads(g, solids):
     """The SolidPacks of the pack cotangents from a CUDA backward's sums
-    of the solid slots, g ((n_quads + n_boxes, SLOT_COLS): the quads'
-    then the boxes' columns, csrc/adjoint.cuh): the quads' frame
-    cotangents taken to q, u, v (geometry.quad_frame_vjp), the material
-    and box rows put back in their pack rows, row by row (an index list
-    would be copied from the host, which a CUDA graph capturing the
-    wrapper does not allow)."""
-    nq, nb = solids.n_quads, solids.n_boxes
+    of the solid slots, g ((n_quads + n_boxes + n_media, SLOT_COLS): the
+    quads', the boxes', then the media's columns, csrc/adjoint.cuh): the
+    quads' frame cotangents taken to q, u, v (geometry.quad_frame_vjp),
+    the material and box rows put back in their pack rows, and the
+    media's MED_COLS in theirs, row by row (an index list would be
+    copied from the host, which a CUDA graph capturing the wrapper does
+    not allow)."""
+    nq, nb, nm = solids.n_quads, solids.n_boxes, solids.n_media
     d_quad = torch.zeros_like(solids.quad24)
     d_box = torch.zeros_like(solids.box24)
-    gq, gb = g[:nq], g[nq:nq + nb]
+    d_med = None if solids.med24 is None else torch.zeros_like(solids.med24)
+    gq, gb, gm = g[:nq], g[nq:nq + nb], g[nq + nb:nq + nb + nm]
     quad = solids.quad24[:, :nq]
     parts = quad_frame_vjp(quad[0:3], quad[3:6], quad[6:9], gq[:, 0:3].T,
                            gq[:, 3])
@@ -490,7 +592,9 @@ def kernel_solid_grads(g, solids):
         d_quad[row, :nq] = gq[:, 4 + i]
     for i, row in enumerate(BOX_GRAD_ROWS):
         d_box[row, :nb] = gb[:, i]
-    return mk.SolidPacks(d_quad, d_box, nq, nb)
+    for i, col in enumerate(MED_COLS if nm else ()):
+        d_med[:nm, col] = gm[:, i]
+    return mk.SolidPacks(d_quad, d_box, nq, nb, nm, d_med)
 
 
 def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
@@ -538,6 +642,9 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     are added to `chain_adjoint.replay_mismatches` (count_mismatches)."""
     device = _check_chain_inputs(state, keys, sph24, bg8, d_out,
                                  out_bounce, k_steps, moving)
+    if solids is not None and solids.n_media:
+        raise NotImplementedError(f"chain_adjoint: {CHAIN_MEDIA} are outside "
+                                  f"chain_bwd's scope (ROADMAP Queue A #9.4)")
     solid_arg = mk._check_solids(solids, device)
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
               moving=moving, solids=solids)
@@ -604,7 +711,7 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
     d_state[:13] = d_out[:13]
     sph = sph24.detach().requires_grad_()
     bg = bg8.detach().requires_grad_()
-    quads, boxes = solid_leaves(solids)
+    quads, boxes, _ = solid_leaves(solids)
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
     lanes = (st[mk.ROW_ALIVE] > 0.5).nonzero()[:, 0]
     no_solids = None if solids is None else solid_grads(solids, None, None)
@@ -633,7 +740,8 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
             rows = tuple(x[r["sel"]] for x in rows)
             sel, flags = winner_rows(r, sph, frames, boxes)
             rows = diff_step(step_constants(r, sph24, bg8, solids), *rows,
-                             *sel, *bg[:6], moving=moving, **flags)
+                             *sel, *bg[:6], moving=moving, t_min=t_min,
+                             **flags)
             # A lane's chain ends at its last step, or where it stops.
             ends = (torch.ones_like(r["survives"]) if i + 1 == len(records)
                     else ~r["survives"])
@@ -654,10 +762,11 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
 def solid_inputs(solids) -> tuple:
     """The trailing arguments of BounceChain.apply and
     TileTrainChain.apply for a scene's SolidPacks: (quad24, box24,
-    (n_quads, n_boxes)), or none for None."""
+    (n_quads, n_boxes, n_media), med24 or None), or none for None."""
     if solids is None:
         return ()
-    return solids.quad24, solids.box24, (solids.n_quads, solids.n_boxes)
+    return (solids.quad24, solids.box24,
+            (solids.n_quads, solids.n_boxes, solids.n_media), solids.med24)
 
 
 class BounceChain(torch.autograd.Function):
@@ -665,9 +774,10 @@ class BounceChain(torch.autograd.Function):
     the state and the packs: apply(state (16,Q), keys (2,Q) int32,
     sph24, bg8, k_steps, max_depth, t_min, moving, bvh,
     *solid_inputs(solids)) -> state' (16,Q), bvh the sphere pack's
-    accel.BvhPack (required on a CUDA device), the last three arguments
-    the quad and box packs and their active slot counts of a scene with
-    quads, boxes or a light.
+    accel.BvhPack (required on a CUDA device), the last four arguments
+    the quad and box packs, their active slot counts and the medium pack
+    (None: the chain takes no media) of a scene with quads, boxes or a
+    light.
     Forward: one bounce_steps launch on a copy of the state
     (bounce_steps updates in place, and the input is the backward's
     residual); backward: one chain_adjoint on the same BVH, seeded with
@@ -676,9 +786,10 @@ class BounceChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min,
-                moving, bvh, quad24=None, box24=None, counts=None):
+                moving, bvh, quad24=None, box24=None, counts=None,
+                med24=None):
         solids = None if counts is None else mk.SolidPacks(
-            quad24, box24, *counts)
+            quad24, box24, *counts, med24)
         kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
                   moving=moving, bvh=bvh)
         out = mk.bounce_steps(state.clone(), keys, sph24, bg8, solids=solids,
@@ -701,7 +812,7 @@ class BounceChain(torch.autograd.Function):
         d_quad, d_box = ((None, None) if d_solids is None
                          else (d_solids.quad24, d_solids.box24))
         return ((d_state, None, d_sph, d_bg) + (None,) * 5
-                + (d_quad, d_box, None))
+                + (d_quad, d_box, None, None))
 
 
 def bounce_chain(k_steps: int, max_depth: int, t_min: float,

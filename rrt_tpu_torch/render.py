@@ -18,11 +18,13 @@ through the train kernels (ops/megakernel_train), and the batch driver
 with differentiable=True, whose passes run `trace_batch_fused`: a few
 bounce chains (ops/megakernel_vjp.BounceChain: forward
 ops/megakernel.bounce_steps, backward the chain_bwd kernel) with
-differentiable lane compaction between them. Both take every scene the
-forward kernels take (spheres, quads, boxes, lights); a scene outside
-their scope (media, perlin and image textures, Russian roulette)
-raises, naming the ROADMAP item that ports it. `trace_batch`'s
-checkpointed scan is a CPU route only.
+differentiable lane compaction between them. The train kernels take
+every scene the forward kernels take (spheres, quads, boxes, lights,
+up to MAX_TRAIN_MEDIA constant media); the chain takes them but the
+media, which rrt_tpu's chain leaves out too. A scene outside a route's
+scope (perlin and image textures, Russian roulette; more media, or any
+on the chain) raises there on a CUDA device, naming the ROADMAP item.
+`trace_batch`'s checkpointed scan is a CPU route only.
 `_bounce` is one bounce of the plain physics (intersect, shade,
 scatter), shared by the plain versions, the batch driver and the tests.
 
@@ -97,6 +99,9 @@ class Bounce:
     survives: torch.Tensor  # (N,) bool
     new_o: torch.Tensor  # (3,N)
     new_d: torch.Tensor  # (3,N)
+    # (n_media, N) the media's STREAM_MEDIUM uniforms (rng.medium_draws),
+    # drawn where the bounce intersects without a kernel; else None.
+    u_med: torch.Tensor | None = None
 
 
 def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
@@ -111,13 +116,23 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
     through geometry.intersect_all, as the kernels' plain versions and
     the differentiable scan do, which must launch no kernel."""
     ops_mega.check_scope(scene)
+    u_med = None
     if packed is None:
-        t, fam, idx = intersect_all(scene, o, d, time, t_min, INF)
+        if scene.has_media:
+            u_med = rng.medium_draws(keys, bounce, scene.n_media_active)
+        t, fam, idx = intersect_all(scene, o, d, time, t_min, INF, u_med)
     else:
+        media = {}
+        if scene.has_media:  # the kernel draws each medium's uniform
+            n = o.shape[1]
+            media = dict(keys=rng.u32_bits(keys).contiguous(),
+                         bounce=torch.broadcast_to(torch.as_tensor(
+                             bounce, dtype=torch.int32, device=o.device),
+                             (n,)).contiguous())
         t, fam, idx = ops_mega.intersect_only(
             o.contiguous(), d.contiguous(), packed["sph24"], t_min=t_min,
             time=time.contiguous() if scene.has_moving else None,
-            bvh=packed["bvh"], solids=packed["solids"])
+            bvh=packed["bvh"], solids=packed["solids"], **media)
         idx = idx.long()
     hit_mask = (t < INF) & alive
     miss_mask = alive & ~hit_mask
@@ -138,7 +153,7 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
         use_c2=use_color2(scene, scene.mat_tex[hit.mat_id.long()], hit.p),
         contribution=contribution, survives=survives,
         new_o=torch.where(survives, hit.p, o),
-        new_d=torch.where(survives, sc.direction, d))
+        new_d=torch.where(survives, sc.direction, d), u_med=u_med)
 
 
 def _shade(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
@@ -214,8 +229,9 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
     why not, and render_image_diff takes the batch driver's
     differentiable path, whose chains split any depth (_fused_schedule).
     The train backward keeps one record a bounce, at most MAX_RECORDS a
-    path."""
-    gap = ops_vjp.backward_scope_gap(scene, cfg.rr_depth)
+    path, and at most MAX_TRAIN_MEDIA media (rrt_tpu's reasons:
+    ops.megakernel_train.train_scope_gap)."""
+    gap = ops_train.train_scope_gap(scene, cfg.rr_depth)
     if gap is not None:
         return (f"{gap[0]} is outside the train kernels' scope (ROADMAP "
                 f"Queue A {gap[1]})")
@@ -228,7 +244,7 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
 def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
     """Raise for a scene outside the train kernels' scope (a depth past
     their records raises ValueError in the kernels' wrappers)."""
-    gap = ops_vjp.backward_scope_gap(scene, cfg.rr_depth)
+    gap = ops_train.train_scope_gap(scene, cfg.rr_depth)
     if gap is not None:
         raise NotImplementedError(
             f"{where}: {gap[0]} is outside the train kernels' scope "
@@ -239,9 +255,21 @@ def _check_card_scope(where: str, scene: SceneArrays, rr_depth: int,
                       device):
     """On a CUDA device a differentiable render runs the train kernels or
     the bounce chain, never the checkpointed scan (a CPU route): a scene
-    outside their scope raises there before anything runs, naming the
-    ROADMAP item that ports its backward
-    (ops.megakernel_vjp.backward_scope_gap)."""
+    outside the train kernels' scope (render_image_diff, the train
+    steps) raises there before anything runs, naming the ROADMAP item
+    (ops.megakernel_train.train_scope_gap)."""
+    if torch.device(device).type == "cuda":
+        ops_train.check_train_scope(where, scene, rr_depth)
+
+
+def _check_chain_card_scope(where: str, scene: SceneArrays, rr_depth: int,
+                            device):
+    """_check_card_scope for the bounce chain's route
+    (render_image(differentiable=True), trace_batch): chain_bwd's scope,
+    which leaves out the constant media, as rrt_tpu's does
+    (ops.megakernel_vjp.backward_scope_gap). rrt_tpu runs its scan
+    there; the port keeps the scan off the card, so a media scene raises,
+    naming the train kernels' route, which takes its gradient."""
     if torch.device(device).type == "cuda":
         ops_vjp.check_backward_scope(where, scene, rr_depth)
 
@@ -269,8 +297,8 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
 
     Each launch is an ops.megakernel_train.TileTrainChain: forward one
     train_fwd kernel, backward one train_bwd kernel (their solid-family
-    variant for a scene with quads, boxes or a light, whose packs then
-    get gradients too). Budgets above
+    variant for a scene with quads, boxes, media or a light, whose packs
+    then get gradients too). Budgets above
     `sample_budget` (default DIFF_SAMPLE_BUDGET) run as several chains
     over consecutive sample ranges; autograd sums their gradients. The
     residual a chain keeps is 33 bytes a path (its length and its share
@@ -300,7 +328,9 @@ def render_image_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     render_image(differentiable=True) after one log line naming the
     reason, as rrt_tpu routes; on a CUDA device a scene outside the
     kernels' backward scope raises instead (_check_card_scope). Returns
-    (image (H,W,3) mean radiance, n_traced)."""
+    (image (H,W,3) mean radiance, n_traced). A media scene whose depth
+    is past the train kernels' records raises there, since the bounce
+    chain leaves media out."""
     _check_card_scope("render_image_diff", scene, cfg.rr_depth, device)
     reason = diff_fallback_reason(scene, cfg)
     if reason is not None:
@@ -321,10 +351,10 @@ def pack_scene(scene: SceneArrays, device, shutter=None):
     sphere pack, its accel.BvhPack, whose boxes cover the moving spheres
     over `shutter` (time0, time1), the interval of the rays' times
     (required when the scene moves), and the quad and box families'
-    ops.megakernel.SolidPacks (None for a scene of spheres alone without
-    a light). Built once a render and passed to every bounce's
-    intersect_only; a pack of changed spheres needs a new one. The media
-    family waits for ROADMAP Queue A #9.4."""
+    ops.megakernel.SolidPacks, the media's among them (None for a scene
+    of spheres alone without a light or a medium). Built once a render
+    and passed to every bounce's intersect_only; a pack of changed
+    spheres needs a new one."""
     sph24 = ops_mega.pack_spheres_full(scene).to(device)
     return {"sph24": sph24, "bvh": accel.pack_bvh(sph24, shutter),
             "solids": ops_mega.pack_solids(scene, device)}
@@ -486,7 +516,7 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
     ops_mega.check_scope(scene, rr_depth)
     if differentiable:
         if o.is_cuda:
-            _check_card_scope("trace_batch", scene, rr_depth, o.device)
+            _check_chain_card_scope("trace_batch", scene, rr_depth, o.device)
             raise ValueError("trace_batch: on a CUDA device the "
                              "differentiable batch runs the bounce chain "
                              "(fused_vjp=True); the checkpointed scan is "
@@ -523,7 +553,8 @@ def render_tile(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     differentiable: each pass through trace_batch's bounce chain
     (trace_batch_fused, which walks packed's BVH) when
     ops_vjp.supports_backward(scene), else its checkpointed scan (on the
-    CPU only: render_image raises for such a scene on a CUDA device);
+    CPU only, as for a media scene: render_image raises for such a scene
+    on a CUDA device);
     rrt_tpu also requires a TPU and tile-aligned batches there, the port
     neither. Returns (radiance sums (P,3), n_traced)."""
     p_count = px.shape[0]
@@ -574,8 +605,8 @@ def render_image(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     and tile drivers render the same image faster."""
     ops_mega.check_scope(scene, cfg.rr_depth)
     if differentiable:
-        _check_card_scope("render_image(differentiable=True)", scene,
-                          cfg.rr_depth, device)
+        _check_chain_card_scope("render_image(differentiable=True)", scene,
+                                cfg.rr_depth, device)
     if cfg.spp % cfg.samples_per_pass != 0:
         raise ValueError("spp must be a multiple of samples_per_pass")
     device = _check_device(device)

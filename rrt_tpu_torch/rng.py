@@ -26,10 +26,11 @@ import torch
 
 # Stream ids: every distinct consumer of randomness inside one bounce gets
 # its own stream (the bounce/stream counter is bounce * 8 + stream).
-# rrt_tpu also uses 2 (constant-medium distances) and 3 (Russian
-# roulette), which come with those features (ROADMAP Queue A #9).
+# rrt_tpu also uses 3 (Russian roulette), which comes with that feature
+# (ROADMAP Queue A #9.6).
 STREAM_CAMERA = 0  # pixel jitter (2) + lens disc (2) + shutter time (1)
-STREAM_SCATTER = 1  # lambertian/metal dirs + dielectric choice
+STREAM_SCATTER = 1  # lambertian/metal/isotropic dirs + dielectric choice
+STREAM_MEDIUM = 2  # constant-medium distance sampling
 
 _NUM_STREAMS = 8
 
@@ -177,3 +178,11 @@ def scatter_draws(keys, bounce):
     radius = _cbrt01(u[6])
     sphere = torch.stack(_normalize3_rows(g3, g4, g5)) * radius
     return unit, sphere, u[7]
+
+
+def medium_draws(keys, bounce, n_media: int):
+    """(n_media, N) uniforms for constant-medium distance sampling, one
+    a medium slot (media-major). The kernels draw the same words in
+    pairs: medium i reads word i % 2 of pair i // 2 of the counter
+    bounce * 8 + STREAM_MEDIUM."""
+    return uniform_words(keys, bounce, STREAM_MEDIUM, n_media)

@@ -8,12 +8,13 @@ are the same as `rrt_tpu.scene`, so the port's arrays equal the JAX
 package's element for element.
 
 This port builds the sphere family (stationary and moving spheres), the
-quad family and the box family (rrt_tpu's slab-test box, with its
-rotation about the world Y axis baked into cos/sin), with solid and
-checker textures, the lambertian, metal, dielectric and diffuse_light
-materials and either background.
-The other builders raise NotImplementedError naming the ROADMAP item
-that ports them; their families stay at the empty padded layout.
+quad family, the box family (rrt_tpu's slab-test box, with its
+rotation about the world Y axis baked into cos/sin) and the
+constant-medium family (a sphere or an oriented box boundary, padded to
+8 slots), with solid and checker textures, the lambertian, metal,
+dielectric, diffuse_light and isotropic materials and either
+background. The perlin and image textures raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 
 import dataclasses
@@ -34,6 +35,10 @@ TEX_SOLID = 0
 TEX_CHECKER = 1
 TEX_PERLIN = 2
 TEX_IMAGE = 3
+
+# Constant-medium boundary types (med_btype).
+BOUND_SPHERE = 0
+BOUND_OBB = 1
 
 # Background modes.
 BG_SKY = 0  # vertical lerp between bg_bottom and bg_top (the RTIOW sky)
@@ -160,6 +165,7 @@ class SceneBuilder:
         self._spheres = []  # (c0, c1, t0, t1, radius, mat_id)
         self._quads = []  # (q, u, v, mat_id)
         self._boxes = []  # (center, half, cos, sin, mat_id)
+        self._media = []  # (btype, center, radius, half, rot, -1/density, mat)
         self._materials = []  # (type, tex_id, fuzz, ior)
         self._textures = []  # (type, c1, c2, scale, image_idx)
         self.bg_mode = BG_SKY
@@ -212,7 +218,7 @@ class SceneBuilder:
         return self._add_material(MAT_DIFFUSE_LIGHT, self._as_tex(emit))
 
     def isotropic(self, albedo) -> int:
-        _not_ported("the isotropic material", "#9.4")
+        return self._add_material(MAT_ISOTROPIC, self._as_tex(albedo))
 
     # -- primitives -------------------------------------------------------
 
@@ -263,12 +269,32 @@ class SceneBuilder:
 
     def medium_sphere(self, center, radius: float, density: float,
                       albedo) -> None:
-        _not_ported("the constant medium", "#9.4")
+        """A constant medium (RTTNW ch. 9) inside a sphere boundary, with
+        an isotropic material of `albedo`."""
+        mat = self.isotropic(albedo)
+        self._media.append((BOUND_SPHERE, np.asarray(center, np.float32),
+                            float(radius), np.zeros(3, np.float32),
+                            np.eye(3, dtype=np.float32),
+                            -1.0 / float(density), mat))
 
     def medium_box(self, corner0, corner1, density: float, albedo,
                    rotate_y_deg: float = 0.0,
                    translate=(0.0, 0.0, 0.0)) -> None:
-        _not_ported("the constant medium", "#9.4")
+        """A constant medium inside the box [corner0, corner1], rotated
+        about world Y and then translated: an oriented box boundary whose
+        world-from-box rotation is kept as a matrix (med_rot)."""
+        a = np.minimum(np.asarray(corner0, np.float32),
+                       np.asarray(corner1, np.float32))
+        b = np.maximum(np.asarray(corner0, np.float32),
+                       np.asarray(corner1, np.float32))
+        center = 0.5 * (a + b)
+        half = 0.5 * (b - a)
+        rot = _rot_y(rotate_y_deg) if rotate_y_deg else np.eye(
+            3, dtype=np.float32)
+        center = rot @ center + np.asarray(translate, np.float32)
+        mat = self.isotropic(albedo)
+        self._media.append((BOUND_OBB, center, 0.0, half, rot,
+                            -1.0 / float(density), mat))
 
     # -- background -------------------------------------------------------
 
@@ -327,8 +353,19 @@ class SceneBuilder:
             box_cos[i], box_sin[i] = cth, sth
             box_mat[i] = m
             box_valid[i] = True
-        # The medium family stays empty, at rrt_tpu's padded layout.
-        nd = _pad_to(0, lane=8)
+        nd = _pad_to(len(self._media), lane=8)
+        med_btype = np.zeros((nd,), i32)
+        med_center = np.zeros((nd, 3), f32)
+        med_radius = np.ones((nd,), f32)
+        med_half = np.ones((nd, 3), f32)
+        med_rot = np.tile(np.eye(3, dtype=f32), (nd, 1, 1))
+        med_nid = np.full((nd,), -1.0, f32)
+        med_mat = np.zeros((nd,), i32)
+        med_valid = np.zeros((nd,), bool)
+        for i, (bt, c, r, h, rot, nidv, m) in enumerate(self._media):
+            med_btype[i], med_center[i], med_radius[i] = bt, c, r
+            med_half[i], med_rot[i], med_nid[i], med_mat[i] = h, rot, nidv, m
+            med_valid[i] = True
 
         if not self._materials:
             self._add_material(MAT_LAMBERTIAN, self.solid((0.5, 0.5, 0.5)))
@@ -357,13 +394,10 @@ class SceneBuilder:
             box_center=t(box_center), box_half=t(box_half),
             box_cos=t(box_cos), box_sin=t(box_sin), box_mat=t(box_mat),
             box_valid=t(box_valid),
-            med_btype=torch.zeros((nd,), dtype=torch.int32),
-            med_center=torch.zeros((nd, 3)), med_radius=torch.ones((nd,)),
-            med_half=torch.ones((nd, 3)),
-            med_rot=torch.eye(3).repeat(nd, 1, 1),
-            med_neg_inv_density=torch.full((nd,), -1.0),
-            med_mat=torch.zeros((nd,), dtype=torch.int32),
-            med_valid=torch.zeros((nd,), dtype=torch.bool),
+            med_btype=t(med_btype), med_center=t(med_center),
+            med_radius=t(med_radius), med_half=t(med_half),
+            med_rot=t(med_rot), med_neg_inv_density=t(med_nid),
+            med_mat=t(med_mat), med_valid=t(med_valid),
             mat_type=t(mat_type), mat_tex=t(mat_tex),
             mat_fuzz=t(mat_fuzz), mat_ior=t(mat_ior),
             tex_type=t(tex_type), tex_color1=t(tex_color1),
@@ -376,10 +410,15 @@ class SceneBuilder:
             has_quads=bool(self._quads),
             has_boxes=bool(self._boxes),
             has_rot_boxes=any(abs(float(b[3])) > 0.0 for b in self._boxes),
+            has_media=bool(self._media),
             has_perlin=bool((tex_type == TEX_PERLIN).any()),
             has_emissive=bool((mat_type == MAT_DIFFUSE_LIGHT).any()),
             has_moving=bool(np.abs(sphere_dc).max() > 0.0)
             if len(self._spheres) else False,
+            # Image textures are not ported (#9.5), so none lies on a
+            # medium (rrt_tpu's _has_images_on_media).
+            has_images_on_media=False,
+            n_media_active=len(self._media),
             n_spheres_active=len(self._spheres),
             n_quads_active=len(self._quads),
             n_boxes_active=len(self._boxes),

@@ -2,7 +2,7 @@
 
 from .book1 import (book2chap2_scene, chap11_scene, chap12_scene,
                     diffuse_scene)
-from .book2 import cornell_box_scene
+from .book2 import cornell_box_scene, cornell_smoke_scene
 
 SCENES = {
     "diffuse": diffuse_scene,
@@ -10,4 +10,5 @@ SCENES = {
     "chap12": chap12_scene,
     "book2chap2": book2chap2_scene,
     "cornell": cornell_box_scene,
+    "cornell_smoke": cornell_smoke_scene,
 }

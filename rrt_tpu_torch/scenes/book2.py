@@ -1,9 +1,10 @@
 """RTTNW (book 2) scenes, with rrt_tpu.scenes.book2's geometry and
-constants. Only the Cornell box is ported; simple_light waits for the
-perlin texture (ROADMAP Queue A #9.5), cornell_smoke for the constant
-media (#9.4), earth and rttnw_final for the image texture (#9.5).
-mixed_scene is test data for the solid families beside spheres, not a
-book scene. Returns (SceneArrays, Camera)."""
+constants. The Cornell box and its smoke version are ported;
+simple_light waits for the perlin texture (ROADMAP Queue A #9.5), earth
+and rttnw_final for the image texture (#9.5). mixed_scene and
+media_scene are test data (the solid families beside spheres; both
+constant-medium boundaries where the sky gives them a gradient), not
+book scenes. Returns (SceneArrays, Camera)."""
 
 from ..camera import Camera
 from ..scene import SceneBuilder
@@ -43,6 +44,48 @@ def cornell_box_scene(nx: int, ny: int):
     b.box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0), white, rotate_y_deg=-18.0,
           translate=(130.0, 0.0, 65.0))
     return b.build(), _cornell_camera(nx, ny)
+
+
+def cornell_smoke_scene(nx: int, ny: int):
+    """Cornell box with the boxes swapped for smoke and fog constant
+    media of density 0.01 (RTTNW ch. 9.2): a black one in the tall box,
+    a white one in the short box, both rotated about Y, under the larger
+    light."""
+    b = SceneBuilder()
+    b.solid_background((0.0, 0.0, 0.0))
+    _cornell_walls(b, (7.0, 7.0, 7.0), (113.0, 554.0, 127.0),
+                   (330.0, 0.0, 0.0), (0.0, 0.0, 305.0))
+    b.medium_box((0.0, 0.0, 0.0), (165.0, 330.0, 165.0), density=0.01,
+                 albedo=(0.0, 0.0, 0.0), rotate_y_deg=15.0,
+                 translate=(265.0, 0.0, 295.0))
+    b.medium_box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0), density=0.01,
+                 albedo=(1.0, 1.0, 1.0), rotate_y_deg=-18.0,
+                 translate=(130.0, 0.0, 65.0))
+    return b.build(), _cornell_camera(nx, ny)
+
+
+def media_scene(w, h, builder=SceneBuilder, camera=Camera):
+    """Both constant-medium boundaries under the sky: test data for the
+    media's gradients, which cornell_smoke's black background and
+    constant albedos leave at 0. A glass sphere holding a medium sphere
+    (rttnw_final's subsurface sphere), a metal sphere, a rotated medium
+    box on a checker ground. Not a scene of the book and not in SCENES;
+    the tests also pass rrt_tpu's builder and camera classes, so both
+    packages build it with the same calls."""
+    b = builder()
+    ground = b.lambertian(b.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9),
+                                    scale=2.0))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, ground)
+    b.sphere((-1.6, 1.0, 0.0), 1.0, b.metal((0.8, 0.8, 0.9), fuzz=0.3))
+    b.sphere((1.2, 1.0, 0.5), 1.0, b.dielectric(1.5))
+    b.medium_sphere((1.2, 1.0, 0.5), 1.0, density=0.8,
+                    albedo=(0.2, 0.4, 0.9))
+    b.medium_box((0.0, 0.0, 0.0), (1.2, 1.6, 1.2), density=0.6,
+                 albedo=(0.8, 0.5, 0.3), rotate_y_deg=25.0,
+                 translate=(-0.8, 0.0, -2.2))
+    cam = camera.create(look_from=(0.0, 2.0, 7.0), look_at=(0.0, 0.8, 0.0),
+                        fov_deg=40.0, aspect=w / h)
+    return b.build(), cam
 
 
 def mixed_scene(w, h, builder=SceneBuilder, camera=Camera):

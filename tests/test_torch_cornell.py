@@ -50,6 +50,7 @@ from rrt_tpu_torch import scenes as tscenes
 from rrt_tpu_torch.ops import megakernel as tmk
 from rrt_tpu_torch.ops import megakernel_train as tmkt
 from rrt_tpu_torch.ops import megakernel_vjp as tmkv
+from rrt_tpu_torch.scene import SceneBuilder
 from rrt_tpu_torch.scenes import book2
 
 W = H = 16
@@ -425,8 +426,9 @@ def _no_spheres(sph24):
 def test_scopes():
     """The forward kernels, the train kernels and chain_bwd take cornell
     (#9.7 is ported): its gradients need no fallback. The book-2 scenes
-    whose families are not ported raise naming their items, in every
-    driver and in the backward scope."""
+    whose textures are not ported raise naming #9.5, in every driver and
+    in the backward scope; cornell_smoke (#9.4) is in SCENES, and in
+    every scope but chain_bwd's."""
     scene, cam = tscenes.cornell_box_scene(8, 8)
     assert tmk.scope_gap(scene) is None
     assert tmkv.backward_scope_gap(scene) is None
@@ -436,8 +438,11 @@ def test_scopes():
     rad, n = render.trace_tiles_diff(scene, cam, cfg, 0, device="cpu")
     ref, n_ref = render.trace_tiles(scene, cam, cfg, 0, device="cpu")
     assert torch.equal(rad, ref) and int(n) == int(n_ref)
-    items = {"simple_light": "#9.5", "cornell_smoke": "#9.4",
-             "earth": "#9.5", "rttnw_final": "#9.4"}
+    smoke, _ = tscenes.SCENES["cornell_smoke"](8, 8)
+    assert tmk.scope_gap(smoke) is None
+    assert render.diff_fallback_reason(smoke, cfg) is None
+    assert tmkv.backward_scope_gap(smoke)[1] == "#9.4"
+    items = {"simple_light": "#9.5", "earth": "#9.5", "rttnw_final": "#9.5"}
     for name, item in items.items():
         j_scene, j_cam = jscenes.SCENES[name](8, 8)
         t_scene = convert.scene_from_numpy(_leaves(j_scene))
@@ -453,19 +458,25 @@ def test_scopes():
 
 def test_cornell_gradient_raises_for_a_cuda_device():
     """On a CUDA device a differentiable render runs the train kernels or
-    the bounce chain, never the checkpointed scan: cornell passes the
-    card's scope check (its backward is ported, #9.7), and a scene with
-    constant media (cornell_smoke) raises naming #9.4 before it touches
-    the device (tests/test_torch_cuda.py runs cornell's gradients on the
-    card)."""
+    the bounce chain, never the checkpointed scan: cornell and
+    cornell_smoke pass the train kernels' card scope check (their
+    backwards are ported, #9.7 and #9.4); a scene with constant media
+    raises naming #9.4 before it touches the device on the bounce chain's
+    route (render_image(differentiable=True)), and one with more than
+    MAX_TRAIN_MEDIA media on the train kernels' (tests/test_torch_cuda.py
+    runs the gradients on the card)."""
     cornell, _ = tscenes.cornell_box_scene(8, 8)
     render._check_card_scope("cornell", cornell, 0, "cuda")
     j_scene, j_cam = jscenes.SCENES["cornell_smoke"](8, 8)
     scene = convert.scene_from_numpy(_leaves(j_scene))
     cam = convert.camera_from_numpy(_leaves(j_cam))
+    render._check_card_scope("cornell_smoke", scene, 0, "cuda")
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
+    fog = SceneBuilder()
+    for i in range(tmkt.MAX_TRAIN_MEDIA + 1):
+        fog.medium_sphere((float(i), 0.0, 0.0), 0.4, 0.5, (0.5, 0.5, 0.5))
     with pytest.raises(NotImplementedError, match="#9.4"):
-        render.render_image_diff(scene, cam, cfg, 0, device="cuda")
+        render.render_image_diff(fog.build(), cam, cfg, 0, device="cuda")
     with pytest.raises(NotImplementedError, match="#9.4"):
         render.render_image(scene, cam, cfg, 0, differentiable=True,
                             device="cuda")

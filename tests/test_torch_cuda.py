@@ -15,7 +15,10 @@ train_fwd: tile_render's outputs bit for bit, and its
 winners the plain version's on every path that agrees. train_bwd,
 bounce_steps, intersect_only and chain_bwd: the tolerances stated in
 each test. Each kernel's solid-family variant (quads, boxes, lights) is
-held on cornell and scenes.book2.mixed_scene by the same rules."""
+held on cornell and scenes.book2.mixed_scene by the same rules, and its
+media (constant media, the isotropic material) on cornell_smoke and
+scenes.book2.media_scene: bounce_steps and intersect_only bit for bit on
+cornell_smoke."""
 
 import dataclasses
 
@@ -892,12 +895,19 @@ def test_probe_kernels_match_plain_versions(device):
 # ---------------------------------------------------------------------------
 
 
+def _scene(name, w, h):
+    """A scene of SCENES, or scenes.book2's mixed_scene or media_scene."""
+    if name in ("mixed", "media"):
+        return getattr(book2, f"{name}_scene")(w, h)
+    return tscenes.SCENES[name](w, h)
+
+
 def _solid_case(device, name, w=64, h=32, spp=4, depth=8):
     """(packs (sph, cam, bg), the sphere BVH, SolidPacks, render_tiles
-    keywords) of cornell or the mixed scene on the device."""
+    keywords) of cornell, cornell_smoke, the mixed or the media scene on
+    the device."""
     from rrt_tpu_torch import render
-    scene, cam = (book2.mixed_scene(w, h) if name == "mixed"
-                  else tscenes.SCENES[name](w, h))
+    scene, cam = _scene(name, w, h)
     cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
     *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
     solids = tmk.pack_solids(scene, device)
@@ -906,11 +916,10 @@ def _solid_case(device, name, w=64, h=32, spp=4, depth=8):
 
 
 def _solid_lanes(device, name, w=64, h=32):
-    """_lane_state's lanes of cornell or the mixed scene, with the BVH
-    and SolidPacks."""
+    """_lane_state's lanes of _solid_case's scenes, with the BVH and
+    SolidPacks."""
     from rrt_tpu_torch import render, rng
-    scene, cam = (book2.mixed_scene(w, h) if name == "mixed"
-                  else tscenes.SCENES[name](w, h))
+    scene, cam = _scene(name, w, h)
     n = w * h
     ids = torch.arange(n, device=device)
     keys = rng.sample_keys(rng.key_words(0), ids, 0)
@@ -1155,7 +1164,10 @@ def test_cornell_gradient_raises_on_the_card(device):
     #9.7): make_train_step, its chunked step and render_image_diff launch
     train_fwd and train_bwd, render_image(differentiable=True) bounce_steps
     and chain_bwd, with no replay mismatch and finite losses and
-    gradients; a scene with constant media still raises naming #9.4."""
+    gradients; a scene with constant media still raises naming #9.4 on
+    the bounce chain's route (render_image(differentiable=True)), and
+    one with more than MAX_TRAIN_MEDIA media on render_image_diff, before
+    any launch."""
     from rrt_tpu_torch import diff, render
     scene, cam = tscenes.cornell_box_scene(16, 16)
     cfg = render.RenderConfig(width=16, height=16, spp=2, max_depth=8,
@@ -1185,5 +1197,156 @@ def test_cornell_gradient_raises_on_the_card(device):
     assert int(tmkt.tiles_adjoint.replay_mismatches) == 0
     assert int(tmkv.chain_adjoint.replay_mismatches) == 0
     smoke = dataclasses.replace(scene, has_media=True)
+    fog = dataclasses.replace(smoke,
+                              n_media_active=tmkt.MAX_TRAIN_MEDIA + 1)
+    launches = (tmk.bounce_steps.launches, tmkv.chain_adjoint.launches,
+                tmkt.render_tiles_train.launches)
     with pytest.raises(NotImplementedError, match="#9.4"):
-        render.render_image_diff(smoke, cam, cfg, 0, device=device)
+        render.render_image(smoke, cam, cfg, 0, differentiable=True,
+                            device=device)
+    with pytest.raises(NotImplementedError, match="#9.4"):
+        render.render_image_diff(fog, cam, cfg, 0, device=device)
+    assert launches == (tmk.bounce_steps.launches,
+                        tmkv.chain_adjoint.launches,
+                        tmkt.render_tiles_train.launches)
+
+
+# ---------------------------------------------------------------------------
+# Constant media and the isotropic material (cornell_smoke)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["cornell_smoke", "media"])
+def test_media_tile_render_matches_plain_version(device, name):
+    """tile_render's solid-family variant with media against its plain
+    version, the tolerance of tests/test_torch_slice.py, at depth 50."""
+    packs, bvh, solids, kw = _solid_case(device, name, depth=50)
+    assert solids.n_media == 2
+    before = tmk.render_tiles.launches
+    out = tmk.render_tiles(*packs, bvh=bvh, **kw)
+    torch.cuda.synchronize(device)
+    assert tmk.render_tiles.launches == before + 1
+    _assert_close(out, tmk.render_tiles_reference(*packs, **kw), 4)
+    assert out[0].max() > 0
+
+
+@pytest.mark.parametrize("name", ["cornell_smoke", "media"])
+def test_media_bounce_steps_and_intersect_match_plain_versions(device, name):
+    """bounce_steps and intersect_only with media against their plain
+    versions on camera rays and after 1-4 bounces: bit for bit on
+    cornell_smoke (quads and media: the same arithmetic, CUDA's libm in
+    both), test_solid_bounce_steps_matches_plain_version's rule on the
+    media scene (its spheres' dielectric and metal branches round
+    differently); some rays scatter in a medium."""
+    st, keys, sph, bg, bvh, solids = _solid_lanes(device, name)
+    kw = dict(k_steps=1, max_depth=50, t_min=1e-3, moving=False,
+              solids=solids)
+    scattered = 0
+    for _ in range(5):
+        bounce = st[tmk.ROW_BOUNCE].to(torch.int32)
+        hit = tmk.intersect_only(st[0:3], st[3:6], sph, t_min=1e-3, bvh=bvh,
+                                 solids=solids, keys=keys, bounce=bounce)
+        ref = tmk.intersect_only_reference(st[0:3], st[3:6], sph, t_min=1e-3,
+                                           solids=solids, keys=keys,
+                                           bounce=bounce)
+        live = st[tmk.ROW_ALIVE] > 0.5
+        scattered += int((hit[1][live] == 2).sum())
+        out = tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
+        plain = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
+        if name == "cornell_smoke":
+            assert all(torch.equal(a, b) for a, b in zip(hit, ref))
+            assert torch.equal(out, plain)
+        else:
+            same = (hit[1] == ref[1]) & (hit[2] == ref[2])
+            assert same[live].float().mean() >= 0.999
+            agree = (out[14] > 0.5) == (plain[14] > 0.5)
+            assert agree.float().mean() >= 0.999
+        st = out
+    assert scattered > 0
+
+
+@pytest.mark.parametrize("name", ["cornell_smoke", "media"])
+def test_media_train_fwd_equals_tile_render(device, name):
+    """train_fwd with media gives tile_render's radiance and traced
+    counts bit for bit, and its pooled winner codes, medium codes among
+    them, are the plain version's on every agreeing path."""
+    from rrt_tpu_torch import gradcheck
+    packs, _, solids, kw = _solid_case(device, name, depth=50)
+    rad, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    ref, ref_traced = _tiles(packs, **kw)
+    assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.agree.float().mean() >= 0.95
+    faults, compared, _ = gradcheck.winner_faults(winners, lengths,
+                                                  agreement)
+    assert compared > 0 and faults <= 1e-4 * compared
+    faults, compared = gradcheck.pool_faults(winners, lengths, agreement)
+    assert compared > 0 and faults == 0
+    assert bool((winners >= tmk.MEDIUM_CODE).any())
+
+
+@pytest.mark.parametrize("name", ["cornell_smoke", "media"])
+def test_media_train_bwd_matches_plain_version(device, name):
+    """train_bwd with media against its plain version by gradcheck's rule
+    on the agreeing pixels (the media's fields among the partition()
+    gradients), no replay mismatch from the winners or without them; the
+    media scene's med_center and med_neg_inv_density get gradients."""
+    from rrt_tpu_torch import diff, gradcheck, render
+    scene, cam = _scene(name, 64, 32)
+    cfg = render.RenderConfig(width=64, height=32, spp=4, max_depth=8)
+    packs, _, solids, kw = _solid_case(device, name)
+    _, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    weight = torch.sin(torch.arange(64 * 32, device=device) * 0.1) \
+        * agreement.agree
+    d_rad = (weight[:, None] * torch.tensor(_MIX, device=device)).contiguous()
+    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    scan = tmkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
+    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths, None,
+                                     **kw)
+    assert int(k[3]) == 0 and int(scan[3]) == 0 and int(p[3]) == 0
+    assert torch.equal(k[1], scan[1]) and torch.equal(k[2], scan[2])
+    kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], k[4], device=device)
+    pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], p[4], device=device)
+    faults, _ = gradcheck.field_grad_faults(kp, kc, pp, pc)
+    assert not faults, faults
+    assert pp["tex_color1"].abs().max() > 0
+    if name == "media":
+        for key in ("med_center", "med_neg_inv_density"):
+            assert pp[key].abs().max() > 0, key
+
+
+def test_media_train_step_launches_the_train_kernels(device):
+    """make_train_step on cornell_smoke runs train_fwd and train_bwd (no
+    chain_bwd, which leaves media out), with no replay mismatch and a
+    finite loss; the CLI renders it through the tile, queue and batch
+    drivers' kernels."""
+    from rrt_tpu_torch import diff, render
+    scene, cam = tscenes.cornell_smoke_scene(16, 16)
+    cfg = render.RenderConfig(width=16, height=16, spp=2, max_depth=8)
+    tmkt.tiles_adjoint.replay_mismatches = 0
+    before = (tmkt.render_tiles_train.launches, tmkt.tiles_adjoint.launches,
+              tmkv.chain_adjoint.launches)
+    _, _, loss = diff.make_train_step(cfg, device=device)(
+        scene, cam, torch.zeros((16, 16, 3), device=device), 0)
+    assert tmkt.render_tiles_train.launches > before[0]
+    assert tmkt.tiles_adjoint.launches > before[1]
+    assert tmkv.chain_adjoint.launches == before[2]
+    assert int(tmkt.tiles_adjoint.replay_mismatches) == 0
+    assert bool(torch.isfinite(loss))
+
+
+def test_cli_renders_cornell_smoke_through_the_kernels(device, tmp_path):
+    """--scene cornell_smoke: auto picks the tile driver; the queue and
+    batch drivers launch their kernels."""
+    for driver, kernel in (("auto", "render_tiles"),
+                           ("queue", "bounce_steps"),
+                           ("batch", "intersect_only")):
+        wrapper = getattr(tmk, kernel)
+        before = wrapper.launches
+        assert cli.main(["--scene", "cornell_smoke", "-r", "32x32", "-s",
+                         "4", "--max-depth", "8", "--driver", driver,
+                         "--device", str(device),
+                         "-o", str(tmp_path / f"{driver}.png"),
+                         "--quiet"]) == 0
+        assert wrapper.launches > before

@@ -155,11 +155,11 @@ def test_diff_step_has_gradient_power():
 
 
 def test_diff_step_other_families_raise():
-    """Media, perlin and image textures and Russian roulette raise naming
-    their ROADMAP items; quads, boxes and lights are diff_step's since
-    #9.7 (tests/test_torch_cornell_grad.py)."""
-    for kw, item in ((dict(n_media=1), "#9.4"),
-                     (dict(has_perlin=True), "#9.5"),
+    """Perlin and image textures and Russian roulette raise naming their
+    ROADMAP items; quads, boxes and lights are diff_step's since #9.7
+    (tests/test_torch_cornell_grad.py), media since #9.4
+    (tests/test_torch_media_grad.py)."""
+    for kw, item in ((dict(has_perlin=True), "#9.5"),
                      (dict(has_images=True), "#9.5"),
                      (dict(rr_depth=2), "#9.6")):
         with pytest.raises(NotImplementedError, match=item):

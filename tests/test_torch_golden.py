@@ -15,7 +15,9 @@ time as the port does. cornell's golden builds the boxes as six quads
 each (rrt_tpu.scene.boxes_as_quads) and traces to depth 50, where the
 paths that reach the light run long; the box is dark, so only 3% of its
 rays carry radiance (4 of the 128, measured), and every ray must
-match (none parted)."""
+match (none parted). cornell_smoke (its boxes constant media, which the
+golden samples with the same STREAM_MEDIUM draws) has cornell's rule;
+9 of its 128 rays carry radiance (measured)."""
 
 import jax
 import jax.numpy as jnp
@@ -32,12 +34,13 @@ from rrt_tpu_torch import scenes as tscenes
 W, H, MAX_DEPTH = 16, 8, 8
 # Per scene: the depth traced, the share of rays that must carry
 # radiance, and the rays that may part from the golden.
-DEPTH = {"cornell": 50}
-LIT = {"cornell": 0.02}
-PARTED = {"cornell": 0}
+DEPTH = {"cornell": 50, "cornell_smoke": 50}
+LIT = {"cornell": 0.02, "cornell_smoke": 0.02}
+PARTED = {"cornell": 0, "cornell_smoke": 0}
 
 
-@pytest.mark.parametrize("name", ["chap12", "book2chap2", "cornell"])
+@pytest.mark.parametrize("name", ["chap12", "book2chap2", "cornell",
+                                  "cornell_smoke"])
 def test_batch_radiance_matches_golden(name):
     n = W * H
     ids = torch.arange(n)

@@ -139,7 +139,7 @@ def test_wrapper_rejects_bad_inputs(bad):
         tmk.render_tiles(sph, cam, bg, **KW)
 
 
-@pytest.mark.parametrize("name", ["cornell_smoke", "earth"])
+@pytest.mark.parametrize("name", ["simple_light", "earth"])
 def test_scenes_outside_the_kernel_scope_raise(name):
     j_scene, j_cam = jscenes.SCENES[name](16, 8)
     scene = convert.scene_from_numpy(_leaves(j_scene))

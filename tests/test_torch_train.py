@@ -383,8 +383,8 @@ def test_out_of_scope_scenes_raise():
         render.render_image_diff(scene, cam, dataclasses.replace(
             cfg, rr_depth=1), 0, device="cpu")
     step = diff.make_train_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="#9.4"):
-        step(dataclasses.replace(scene, has_media=True), cam,
+    with pytest.raises(NotImplementedError, match="#9.5"):
+        step(dataclasses.replace(scene, has_images=True), cam,
              torch.zeros((8, 16, 3)), 0)
     with pytest.raises(NotImplementedError, match="#12"):
         diff.render_loss(diff.partition(scene), cam, scene,

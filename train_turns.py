@@ -1,7 +1,8 @@
 """Time the train kernels of checkouts of this repository in turns.
 
     python train_turns.py TREE_A [TREE_B ...] [--order ABBA] \
-        [--north-star] [--check] [--forward] [--queue] [--no-train]
+        [--north-star] [--check] [--forward] [--queue] [--cornell] \
+        [--no-train]
 
 Each turn is a fresh process on the card whose `rrt_tpu_torch` (and
 `chip_smoke.py`) come from that turn's tree, a directory holding a
@@ -35,7 +36,15 @@ step (its loss, bit for bit, traced count, median wall of 3 after a
 warm one, and each step's wall and host time in the chain's BVH pack,
 chip_smoke.pack_clock, where the tree has it); and [C3]'s differentiable batch render with the gradient of
 its loss (chip_smoke.batch_loss_and_grads at 1200x800, BATCH_SPP spp:
-its loss and wall after a warm one); on chap12 and book2chap2.
+its loss and wall after a warm one); on chap12 and book2chap2. With
+--cornell the six kernels' solid-family variants on cornell at
+chip_smoke.py [K1]'s and [K3]'s shapes (tile_render 400x400, 32 spp;
+bounce_steps 131,072 lanes, 4 steps; intersect_only 65,536 camera rays;
+train_fwd and train_bwd 400x400, 8 spp; chain_bwd on one pass of
+render_image(differentiable=True)'s first tile), each timed by CUDA
+events (bounce_steps, intersect_only and chain_bwd by graph replay, as
+[K1] and [K3] time them) with a digest of its output, and, in a tree that has the scene,
+the five media kernels on cornell_smoke at the same shapes.
 --no-train skips the train kernels. The default order is ABBA for two
 trees and AAA for one, so that two versions are compared within one
 call, on one card; with more trees, --order names them (A, B, C, ...).
@@ -109,6 +118,92 @@ def _forward(out: dict) -> None:
             tile_ms=tile_ms, tile_traced=int(traced.sum()),
             tile_rad_sum=float(rad.double().sum()),
             intersect_ms=i_ms)
+
+
+def _cornell(out: dict) -> None:
+    """--cornell: cornell's (and cornell_smoke's, where the tree has it)
+    kernels at chip_smoke.py [K1]'s and [K3]'s shapes, into out[name]."""
+    import torch
+    import chip_smoke as cs
+    from rrt_tpu_torch import render, scenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+
+    dev = torch.device("cuda:0")
+    w = h = 400
+    for name in ("cornell", "cornell_smoke"):
+        if name not in scenes.SCENES:
+            continue
+        scene, cam = scenes.SCENES[name](w, h)
+        cfg = render.RenderConfig(width=w, height=h, spp=32, max_depth=50)
+        *packs, bvh = render._packs(scene, cam, cfg, dev, bvh=True)
+        packs = [p.detach() for p in packs]
+        solids = mk.pack_solids(scene, dev)
+        kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=32,
+                  max_depth=50, t_min=1e-3, moving=False, solids=solids)
+        rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
+        tile_ms = cs.cuda_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw),
+                             3)
+        st, keys, sph, bg = cs.lane_state(scene, cam, w, h, cs.QUEUE_LANES,
+                                          dev)
+        qbvh = render.pack_scene(scene, dev, render._shutter(cam))["bvh"]
+        qkw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False,
+                   bvh=qbvh, solids=solids)
+        work = st.clone()
+        mk.bounce_steps(work, keys, sph, bg, **qkw)
+        state_digest = _digest(work)
+        # In place: each replayed launch from a fresh copy of the state,
+        # the copy's own graph subtracted (chip_smoke.py [K1]'s timing).
+        steps_ms = cs.launch_copy_ms(
+            lambda: mk.bounce_steps(work, keys, sph, bg, **qkw), work, st,
+            mk.bounce_steps)
+        stb, kb, _, _ = cs.lane_state(scene, cam, w, h, cs.BATCH_RAYS, dev)
+        o, d = stb[0:3].clone(), stb[3:6].clone()
+        ikw = dict(t_min=1e-3, bvh=qbvh, solids=solids)
+        if getattr(solids, "n_media", 0):
+            ikw.update(keys=kb, bounce=torch.zeros(
+                (cs.BATCH_RAYS,), dtype=torch.int32, device=dev))
+        hit = mk.intersect_only(o, d, sph, **ikw)
+        i_ms = cs.graph_ms(lambda: mk.intersect_only(o, d, sph, **ikw),
+                           mk.intersect_only)
+        tkw = dict(kw, spp=8)
+        fwd = mkt.render_tiles_train(*packs, **tkw)
+        fwd_ms = cs.cuda_ms(lambda: mkt.render_tiles_train(*packs, **tkw), 3)
+        weight = torch.sin(torch.arange(w * h, device=dev) * 0.1)
+        d_rad = (weight[:, None] * torch.tensor(MIX, device=dev)).contiguous()
+        bwd = mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **tkw)
+        bwd_ms = cs.cuda_ms(
+            lambda: mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **tkw), 3)
+        res = dict(tile_ms=tile_ms, tile_traced=int(traced.sum()),
+                   tile_digest=_digest(rad), bounce_steps_ms=steps_ms,
+                   state_digest=state_digest, intersect_ms=i_ms,
+                   intersect_digest=_digest(torch.cat(
+                       [hit[0], hit[1].float(), hit[2].float()])),
+                   fwd_ms=fwd_ms, fwd_digest=_digest(fwd[0]), bwd_ms=bwd_ms,
+                   bwd_mismatches=int(bwd[3]), d_bg_digest=_digest(bwd[2]))
+        if not scene.has_media:  # the chain leaves media out
+            cst, ckeys = cs.cornell_chain_lanes(scene, cam, w, h, dev)
+            cbvh = render.chain_bvh(sph, cst[6], False)
+            lane = torch.arange(cst.shape[1], device=dev)
+            schedule = render._fused_schedule(50)
+            chain_ms = []
+            for j, k_steps in enumerate(schedule):
+                ckw = dict(qkw, k_steps=k_steps, bvh=cbvh)
+                out_st = mk.bounce_steps(cst.clone(), ckeys, sph, bg, **ckw)
+                gen = torch.Generator().manual_seed(k_steps)
+                d_out = torch.randn(tuple(cst.shape), generator=gen).to(dev)
+                if j == len(schedule) - 1:  # a loss seeds the radiance
+                    d_out[:10] = 0.0
+                ob = out_st[mk.ROW_BOUNCE].clone()
+                g = mkv.chain_adjoint(cst, ckeys, sph, bg, d_out, ob, **ckw)
+                chain_ms.append(cs.graph_ms(lambda: mkv.chain_adjoint(
+                    cst, ckeys, sph, bg, d_out, ob, **ckw),
+                    mkv.chain_adjoint))
+                res.setdefault("chain_digests", []).append(_digest(g[0]))
+                cst, ckeys, lane = render._compact_lanes(out_st, ckeys, lane)
+            res.update(chain_ms=chain_ms, chain_total_ms=sum(chain_ms))
+        out[name] = res
 
 
 def _digest(t) -> str:
@@ -222,7 +317,8 @@ def _queue(out: dict, save: str) -> None:
 
 
 def _turn(tree: str, north_star: bool, check: bool, forward: bool,
-          train: bool, queue: str | None = None) -> dict:
+          train: bool, queue: str | None = None,
+          cornell: bool = False) -> dict:
     sys.path.insert(0, tree)  # ahead of this script's own directory
     import torch
     import chip_smoke as cs
@@ -237,6 +333,8 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
         _forward(out)
     if queue:
         _queue(out, queue)
+    if cornell:
+        _cornell(out)
     if not train:
         return out
     cfg = render.RenderConfig(**SHAPE)
@@ -297,6 +395,7 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--queue", action="store_true")
+    ap.add_argument("--cornell", action="store_true")
     ap.add_argument("--no-train", action="store_true")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
@@ -304,7 +403,8 @@ def main(argv=None) -> int:
     if args.turn:
         print("TURN " + json.dumps(
             _turn(os.path.abspath(args.trees[0]), args.north_star,
-                  args.check, args.forward, not args.no_train, args.save),
+                  args.check, args.forward, not args.no_train, args.save,
+                  args.cornell),
             default=str), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees]
@@ -312,6 +412,7 @@ def main(argv=None) -> int:
     flags = [f for f, on in (("--north-star", args.north_star),
                              ("--check", args.check),
                              ("--forward", args.forward),
+                             ("--cornell", args.cornell),
                              ("--no-train", args.no_train)) if on]
     with tempfile.TemporaryDirectory() as tmp:
         for i, letter in enumerate(order):
