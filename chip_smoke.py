@@ -106,6 +106,24 @@ variants, whose media loop runs when a scene has media:
        and a medium box under the sky, 320x240, 4 spp, depth 8): the
        medium pack's cotangents against the plain version's.
 
+Then the perlin-marble and image textures (simple_light: two marble
+spheres, a quad light and a sphere light; earth: one sphere with an
+image; RTTNW's 400x225, depth 50), through the kernels' texture
+variants (kTex), one scene after the other:
+
+  [T1] tile_render (32 spp, held to its plain version at
+       TEXTURE_PLAIN_SPP) and bounce_steps ([Q1]'s 131,072 lanes)
+       against their plain versions, each timed beside its bound; then
+       the main path: the CLI on the tile, queue and batch drivers, held
+       against the tile image;
+  [T2] its gradient at 8 spp: train_fwd and train_bwd against their
+       plain versions (gradcheck's rule, the atlas cotangent within its
+       spread), chain_bwd on a tile pass's camera rays, simple_light's
+       marble scale and color1 by central differences, then the main
+       path: three make_train_step steps (the loss falls, no replay
+       mismatch; simple_light's camera and geometry held, TEXTURE_TRAINED)
+       and render_image(differentiable=True) on a 64x36 view.
+
 [2] prints ptxas's registers and spills of every kernel; [7], [8] and
 [M3] print the train kernels' times beside the step's least time
 (`step_bound_ms`: one scan a segment, the backward's adjoint, the bytes)
@@ -781,7 +799,7 @@ def finite_differences(device, card):
         return packs, mkt.render_tiles_train(*packs, **kw)
 
     packs, (rad, _, lengths, winners) = forward(scene)
-    d_sph, d_cam, d_bg, _, _ = mkt.tiles_adjoint(
+    d_sph, d_cam, d_bg, _, _, _ = mkt.tiles_adjoint(
         *packs, mix.expand_as(rad).contiguous(), lengths, winners, **kw)
     gp, _ = diff.field_grads(scene, cam, cfg, d_sph, d_cam, d_bg,
                              device=device)
@@ -1123,7 +1141,7 @@ def by_lanes(fn, *lane_args):
 
 
 def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
-                   device, card, solids=None, radiance_only=False):
+                   device, card, solids=None, radiance_only=False, tex=None):
     """[C1] chain_bwd against chain_adjoint_reference on one chain input.
     A lane agrees when the two forwards (bounce_steps and its plain
     version) end it with equal bounce and alive rows and rows 0-12
@@ -1152,13 +1170,15 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     join the fields), or None. radiance_only: the output cotangent on
     the pending radiance rows (10-12) alone, as a render's loss gives
     the last chain of a path (no later chain reads its o, d or
-    throughput).
+    throughput). tex: the scene's TexPack (the texture variants), or
+    None; with images the atlas cotangents of the kernel and the plain
+    version are held within PACK_SPREAD of their largest (`atlas`).
     Returns the kernel's forward output and the numbers of the kernels
     line."""
     from rrt_tpu_torch import diff, gradcheck
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
     kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3,
-              moving=scene.has_moving, solids=solids)
+              moving=scene.has_moving, solids=solids, tex=tex)
     out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     ref_out = torch.cat(by_lanes(
         lambda s, k: mk.bounce_steps_reference(s, k, sph, bg, **kw), st,
@@ -1188,7 +1208,8 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
          *(sum(x[j] for x in parts) for j in (1, 2, 3)),
          None if solids is None else dataclasses.replace(
              solids, quad24=sum(x[4].quad24 for x in parts),
-             box24=sum(x[4].box24 for x in parts)))
+             box24=sum(x[4].box24 for x in parts)),
+         None if k[5] is None else sum(x[5] for x in parts))
     ms = graph_ms(lambda: mkv.chain_adjoint(st, keys, sph, bg, d_out, ob,
                                             bvh=bvh, **kw), mkv.chain_adjoint)
     k2 = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh, **kw)
@@ -1211,6 +1232,14 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     faults, err = gradcheck.field_grad_faults(kp, kc, pp, pc)
     rel = max(((kp[f] - pp[f]).abs().max()
                / pp[f].abs().max().clamp(min=1e-30)).item() for f in pp)
+    atlas = None if k[5] is None else (
+        (k[5] - p[5]).abs().max() / p[5].abs().max().clamp(min=1e-30)).item()
+    if atlas is not None:
+        print(f"  chain_bwd {what}: the atlas cotangent within {atlas:.2e} "
+              f"of its largest (rule {PACK_SPREAD:g}; the plain version's "
+              f"largest {p[5].abs().max().item():.4e})", flush=True)
+        check(atlas <= PACK_SPREAD and p[5].abs().max().item() > 0,
+              ("chain_bwd", what, "atlas", atlas))
     segments = int((out[mk.ROW_TRACED] - st[mk.ROW_TRACED]).sum())
     print(f"  chain_bwd {what}, {st.shape[1]} lanes ({int(live.sum())} "
           f"alive), k={k_steps}: forwards agree on {frac:.5f} of lanes "
@@ -1230,7 +1259,7 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     return out, dict(ms=ms, plain_ms=plain_ms, segments=segments, err=err,
                      hits=hits(st, out), q=st.shape[1], n_slots=sph.shape[1],
                      moving=scene.has_moving, grads=pp,
-                     drawing=drawing_segments(st, out))
+                     drawing=drawing_segments(st, out), atlas=atlas)
 
 
 def chain_small_cases(device, card):
@@ -1261,7 +1290,7 @@ def chain_small_cases(device, card):
     d_out = torch.randn(tuple(st.shape), generator=gen).to(device)
     dead = st.clone()
     dead[mk.ROW_ALIVE] = 0.0
-    d_st, d_sph, d_bg, mism, _ = mkv.chain_adjoint(
+    d_st, d_sph, d_bg, mism, _, _ = mkv.chain_adjoint(
         dead, keys, sph, bg, d_out, dead[mk.ROW_BOUNCE].clone(), **kw)
     dead_ok = (torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
                and not d_sph.any() and not d_bg.any() and int(mism) == 0)
@@ -1662,7 +1691,7 @@ def motion_train_phase(device, card):
         return packs, mkt.render_tiles_train(*packs, **kw)
 
     packs, (rad, _, lengths, winners) = forward(scene1)
-    d_sph, d_cam, d_bg, mism, _ = mkt.tiles_adjoint(
+    d_sph, d_cam, d_bg, mism, _, _ = mkt.tiles_adjoint(
         *packs, mix.expand_as(rad).contiguous(), lengths, winners, **kw)
     gp, _ = diff.field_grads(scene1, cam1, cfg, d_sph, d_cam, d_bg,
                              device=device)
@@ -1757,13 +1786,13 @@ def tile_vs_plain(what, packs, bvh, kw, card, *, min_close):
 
 
 def bounce_vs_plain(what, st, keys, sph, bg, bvh, solids, card,
-                    exact=False):
+                    exact=False, tex=None):
     """bounce_steps (4 steps, depth 50) against its plain version, [Q1]'s
-    rule; with `exact`, bit for bit. Returns (out, kernel ms, plain ms,
-    max |delta|)."""
+    rule; with `exact`, bit for bit; tex: the scene's TexPack or None.
+    Returns (out, kernel ms, plain ms, max |delta|)."""
     from rrt_tpu_torch.ops import megakernel as mk
     kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3,
-              moving=False, solids=solids)
+              moving=False, solids=solids, tex=tex)
     out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     ref, plain_ms = wall_ms(
         lambda: mk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw))
@@ -2095,7 +2124,8 @@ def solid_train_vs_plain(what, scene, cam, cfg, device, card, *,
     solids = mk.pack_solids(scene, device)
     kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
               height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
-              t_min=cfg.t_min, moving=scene.has_moving, solids=solids)
+              t_min=cfg.t_min, moving=scene.has_moving, solids=solids,
+              tex=mk.pack_textures(scene, device))
     rad, traced, lengths, winners = mkt.render_tiles_train(*packs, **kw)
     ref_rad, ref_traced = mk.render_tiles(*packs, bvh=tile_bvh(packs), **kw)
     same = torch.equal(rad, ref_rad) and torch.equal(traced, ref_traced)
@@ -2162,7 +2192,7 @@ def solid_train_vs_plain(what, scene, cam, cfg, device, card, *,
                 bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, fwd_err=fwd_err,
                 bwd_err=err, traced=traced, solids=solids,
                 n_slots=packs[0].shape[1], grads=pp, packs=packs, kw=kw,
-                winners=winners, d_solids=(k[4], p[4]))
+                winners=winners, d_solids=(k[4], p[4]), d_atlas=(k[5], p[5]))
 
 
 def cornell_finite_differences(t, scene, cam, cfg, device):
@@ -2693,6 +2723,396 @@ def media_adjoint_phase(device, card):
     return dict(spread=spread, hits=hits)
 
 
+# [T1]-[T2]: the perlin-marble and image textures. simple_light (RTTNW
+# ch. 7.1: two marble spheres, a quad light and a sphere light, a black
+# background) and earth (ch. 6: one sphere with the 128x256 procedural
+# stand-in image under the sky; BASELINE.json config #4) at RTTNW's
+# 400x225, depth 50, uncut; [T1] tile_render at 32 spp, [T2] the train
+# step at 8 spp.
+TEXTURE = dict(width=400, height=225, spp=32, max_depth=50)
+TEXTURE_SCENES = ("simple_light", "earth")
+# The plain versions run at this many spp ([T1] tile_render, [T2] the
+# train kernels): their time grows with the samples.
+TEXTURE_PLAIN_SPP = 2
+# [T1]: pixels within 1e-3 of the plain version (the slice rule, 98.5%);
+# [T2]: pixels each of whose samples agree, [S2]'s gate. The kernels and
+# the plain versions pick the same texel by the same polynomial rule
+# (geometry.sphere_uv); rsqrtf, sinf and the hash products may differ in
+# the last bits, and a marble's radiance with them.
+TEXTURE_MIN_CLOSE = 0.985
+TEXTURE_MIN_AGREE = 0.98
+# FP32 and INT32 operations of one marble (bounce.cuh turbulence): 7
+# octaves, each the floor, fraction and hermite weights (18), 8 corners
+# of the gradient (3 conversions, 3 scale-and-shift pairs, the squared
+# length, its clamp and rsqrtf, 3 scalings: 19), the dot (8), the
+# weight (2) and the sum (2), and |n| and the weighted sum (3): 270 an
+# octave; then the phase, the sine and the albedo (8). The hash is 12
+# INT32 operations a corner. One image lookup: the sphere's uv (two
+# atan2 of 17 and the rest, 55) or the quad's (14), and the texel's
+# index (12). Lower bounds: the rest of the shading is not counted.
+MARBLE_FLOPS = 7 * 270 + 8
+MARBLE_INT_OPS = 7 * 8 * 12
+IMAGE_FLOPS = 67
+# [T2]: the marble's texture scale and color1 by central differences
+# (eps below) against train_bwd, [6]'s gate.
+TEXTURE_FD_EPS = 1e-2
+# [T1]: the lit share of the CLI's tile image, about half of what an
+# H100 80GB HBM3 at 700 W read: simple_light 0.3180 (a black
+# background: a pixel is lit when a path reaches a light), earth 1.0000
+# (the sky).
+TEXTURE_MIN_LIT = {"simple_light": 0.15, "earth": 0.5}
+# [T2]: simple_light's three make_train_step steps keep its camera and
+# geometry (each step gets the first step's camera, and from the step's
+# scene these fields alone: the albedos and the background). The
+# marble's 7 octaves of turbulence, 10 times the phase, make the loss
+# rough along the camera's and the spheres' parameters, and a step there
+# moves the lights' silhouettes, a change path replay does not see: with
+# every field trained the loss rose at the default learning rate 1e-2
+# (0.02803 -> 0.02812 -> 0.02844) and at 1e-4 (0.028033 -> 0.028038 ->
+# 0.028050) on an H100 80GB HBM3 at 700 W, and was not monotone at 1e-5
+# (the plain versions on the CPU at the same size). earth trains every
+# field.
+TEXTURE_TRAINED = {"simple_light": ("tex_color1", "tex_color2", "bg_bottom",
+                                    "bg_top")}
+# [T2]: train_bwd's atlas cotangent against its plain version's, over
+# the plain version's largest: float atomics in another order, on the
+# agreeing paths (which read the same texels).
+TEXTURE_ATLAS_SPREAD = 1e-4
+
+
+def texture_bound(segments, paths, tex, solids, n_bytes):
+    """(bound_ms, by) of `segments` traced segments of `paths` paths on a
+    textured scene: each scattering segment (segments less paths, every
+    surface of simple_light and earth but the lights) evaluates its
+    texture once (MARBLE_FLOPS and MARBLE_INT_OPS, or IMAGE_FLOPS), the
+    solid families' tests, the draws; n_bytes: the packs, the atlas and
+    the outputs."""
+    hits = segments - paths
+    flops = hits * (MARBLE_FLOPS if tex.has_perlin else IMAGE_FLOPS)
+    ints = THREEFRY_OPS * (THREEFRY_PER_HIT * hits + THREEFRY_PER_PATH * paths)
+    if tex.has_perlin:
+        ints += hits * MARBLE_INT_OPS
+    if solids is not None:
+        flops += solid_flops(segments, solids)
+    return bound(flops, n_bytes, ints)
+
+
+def texture_kernels_phase(name, device, card):
+    """[T1] tile_render's and bounce_steps' texture variants on `name` at
+    TEXTURE's size against their plain versions: tile_render timed at 32
+    spp by graph replay and held to its plain version at
+    TEXTURE_PLAIN_SPP ([K1]'s rule with TEXTURE_MIN_CLOSE); bounce_steps
+    at [Q1]'s 131,072 lanes, 4 steps, by [Q1]'s rule; each beside its
+    bound (texture_bound). Returns the numbers of the kernels line."""
+    from rrt_tpu_torch import render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    w, h, spp = TEXTURE["width"], TEXTURE["height"], TEXTURE["spp"]
+    depth = TEXTURE["max_depth"]
+    scene, cam = tscenes.SCENES[name](w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    solids = mk.pack_solids(scene, device)
+    tex = mk.pack_textures(scene, device)
+    print(f"  {name}: {scene.n_spheres_active} spheres, "
+          f"{scene.n_quads_active} quads, perlin {tex.has_perlin}, images "
+          f"{tex.has_images} (atlas {tex.shape}, {4 * tex.atlas.numel()} "
+          f"bytes)", flush=True)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
+              max_depth=depth, t_min=1e-3, moving=False, solids=solids,
+              tex=tex)
+    rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
+    ms = graph_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw),
+                  mk.render_tiles)
+    _, _, _, plain_ms, err = tile_vs_plain(
+        name, packs, bvh, dict(kw, spp=TEXTURE_PLAIN_SPP), card,
+        min_close=TEXTURE_MIN_CLOSE)
+    segments, paths = int(traced.sum()), w * h * spp
+    solid_packs = () if solids is None else (solids.quad24, solids.box24)
+    t_bound = texture_bound(segments, paths, tex, solids, pack_bytes(
+        *packs, *solid_packs, tex.atlas) + 16 * w * h)
+    print(f"  tile_render {name} {w}x{h} {spp}spp d{depth}: {segments} "
+          f"segments ({segments / paths:.2f} a path), bound "
+          f"{t_bound[0]:.4f} ms ({t_bound[1]}), kernel {ms:.3f} ms  "
+          f"[{card}]", flush=True)
+    st, keys, sph, bg = lane_state(scene, cam, w, h, QUEUE_LANES, device)
+    q_bvh = render.pack_scene(scene, device, render._shutter(cam))["bvh"]
+    out, q_ms, q_plain_ms, q_err = bounce_vs_plain(
+        name, st, keys, sph, bg, q_bvh, solids, card, tex=tex)
+    q_segments = int((out[15] - st[15]).sum())
+    q_bound = texture_bound(
+        q_segments, q_segments - drawing_segments(st, out), tex, solids,
+        4 * QUEUE_LANES * (16 + 2 + 16) + pack_bytes(sph, bg, *solid_packs,
+                                                     tex.atlas))
+    print(f"  bounce_steps {name}: {q_segments} segments, bound "
+          f"{q_bound[0]:.4f} ms ({q_bound[1]}), kernel {q_ms:.4f} ms  "
+          f"[{card}]", flush=True)
+    return dict(tile=dict(ms=ms, plain_ms=plain_ms, err=err, bound=t_bound),
+                queue=dict(ms=q_ms, plain_ms=q_plain_ms, err=q_err,
+                           bound=q_bound))
+
+
+def texture_cli_phase(name, device, card):
+    """[T1]'s main path: python -m rrt_tpu_torch.cli --scene `name` -r
+    400x225 -s 32 on the tile driver (auto), then the queue driver (four
+    passes of 8 spp) and the batch driver (4 spp), each held against the
+    tile image of its samples by [Q2]'s and [Q3]'s rule (hold_to_tile),
+    launches counted from 0 for each. Returns (tile_render,
+    bounce_steps, intersect_only) launches."""
+    from rrt_tpu_torch import cli, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    w, h, spp = TEXTURE["width"], TEXTURE["height"], TEXTURE["spp"]
+    argv = ["--scene", name, "-r", f"{w}x{h}", "-s", str(spp), "-e", "0",
+            "--max-depth", str(TEXTURE["max_depth"]), "--device", "cuda:0",
+            "--quiet"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    def run(extra, out, counter):
+        with tempfile.TemporaryDirectory() as tmp:  # warm-up run
+            cli.render(cli.build_parser().parse_args(
+                argv + extra + ["-o", os.path.join(tmp, "warm.png")]))
+        counter.launches = 0
+        res = cli.render(cli.build_parser().parse_args(
+            argv + extra + ["-o", os.path.join(OUT_DIR, out)]))
+        launches = counter.launches
+        print(f"  {name} {res.driver}: {res.seconds:.4f} s wall, "
+              f"{res.passes} passes, {res.n_traced} rays, "
+              f"{res.n_traced / res.seconds / 1e6:.2f} Mrays/s, "
+              f"{counter.__name__} launches {launches}  [{card}]", flush=True)
+        check(launches >= 1 and bool(torch.isfinite(res.image).all()),
+              (name, res.driver, launches))
+        return res, launches
+
+    res, t_launches = run([], f"chip_smoke_{name}.png", mk.render_tiles)
+    lit = (res.image.amax(dim=2) > 0).float().mean().item()
+    print(f"  {name} tile image: lit pixels {lit:.4f}, mean "
+          f"{res.image.mean().item():.6f}", flush=True)
+    check(res.driver == "tile" and lit > TEXTURE_MIN_LIT[name],
+          (name, res.driver, lit))
+    res_q, q_launches = run(["--driver", "queue", "--spp-chunk",
+                             str(QUEUE_CHUNK)], f"chip_smoke_{name}_queue.png",
+                            mk.bounce_steps)
+    hold_to_tile(f"{name} queue", res_q.image, res_q.n_traced, res.image,
+                 res.n_traced)
+    res_b, b_launches = run(["-s", str(BATCH_SPP), "--driver", "batch"],
+                            f"chip_smoke_{name}_batch.png", mk.intersect_only)
+    scene, cam = tscenes.SCENES[name](w, h)
+    cfg_b = render.RenderConfig(width=w, height=h, spp=BATCH_SPP,
+                                max_depth=TEXTURE["max_depth"])
+    tile_b, tile_b_n = render.render_image_tiles(scene, cam, cfg_b, 0,
+                                                 device=device)
+    hold_to_tile(f"{name} batch", res_b.image, res_b.n_traced, tile_b,
+                 int(tile_b_n))
+    return t_launches, q_launches, b_launches
+
+
+def marble_finite_differences(t, scene, cam, cfg, device):
+    """d loss / d (the marble's texture scale) and d loss / d (its
+    color1, red) from train_bwd against central differences of the
+    train_fwd forward, loss = sum(MIX . radiance) in float64, eps
+    TEXTURE_FD_EPS (the scale moves the marble's phase; neither moves a
+    path), the gate [6]'s 1e-2. Returns the worst relative difference."""
+    from rrt_tpu_torch import diff, render
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
+    from rrt_tpu_torch.scene import TEX_PERLIN
+    kw = dict(t["kw"], spp=cfg.spp)
+    mix = torch.tensor(MIX, device=device)
+
+    def forward(s):
+        packs = [p.detach() for p in render._packs(s, cam, cfg, device)]
+        return packs, mkt.render_tiles_train(
+            *packs, **dict(kw, solids=mk.pack_solids(s, device),
+                           tex=mk.pack_textures(s, device)))
+
+    packs, (rad, _, lengths, winners) = forward(scene)
+    out = mkt.tiles_adjoint(*packs, mix.expand_as(rad).contiguous(), lengths,
+                            winners, **kw)
+    gp, _ = diff.field_grads(scene, cam, cfg, *out[:3], out[4],
+                             device=device)
+    marble = int((scene.tex_type == TEX_PERLIN).nonzero()[0, 0])
+    eps, worst = TEXTURE_FD_EPS, 0.0
+    for field, idx in (("tex_scale", (marble,)), ("tex_color1", (marble, 0))):
+        def loss(delta):
+            v = getattr(scene, field).clone()
+            v[idx] += delta
+            r = forward(diff.combine(scene, {field: v}))[1][0]
+            return (r.double() * mix.double()).sum().item()
+
+        fd = (loss(eps) - loss(-eps)) / (2.0 * eps)
+        auto = gp[field][idx].item()
+        rel = abs(auto - fd) / max(abs(fd), 1e-30)
+        worst = max(worst, rel)
+        print(f"  d loss / d {field}{list(idx)} (the marble): train_bwd "
+              f"{auto:.6e}, central difference (eps {eps:g}) {fd:.6e}, "
+              f"{rel:.2e} apart (gate 1e-2)", flush=True)
+        check(auto != 0.0 and rel < 1e-2, ("[T2] marble", field, auto, fd))
+    return worst
+
+
+def texture_train_phase(name, device, card, resources):
+    """[T2] `name`'s gradient on the card at TEXTURE's size, depth 50:
+    the train kernels' texture variants against tile_render and their
+    plain versions at TEXTURE_PLAIN_SPP (solid_train_vs_plain,
+    gradcheck's rule; with images the atlas cotangent within
+    TEXTURE_ATLAS_SPREAD of the plain version's largest), timed at
+    CORNELL_TRAIN_SPP; chain_bwd against its plain version on one pass of
+    render_image(differentiable=True)'s first tile (four steps, the
+    radiance's cotangent); simple_light's marble by central differences
+    (marble_finite_differences); then the main path with the launch
+    counts set to 0: make_train_step at 8 spp (three SGD steps, on
+    simple_light of the fields TEXTURE_TRAINED names, the loss must
+    fall, no replay mismatch) and render_image(differentiable=True)
+    at 4 spp on a 64x36 crop of the camera's view with an L2 loss's
+    gradient (bounce_steps and chain_bwd). Returns the numbers of the
+    kernels line."""
+    from rrt_tpu_torch import diff, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    w, h, depth = TEXTURE["width"], TEXTURE["height"], TEXTURE["max_depth"]
+    cfg = render.RenderConfig(width=w, height=h, spp=CORNELL_TRAIN_SPP,
+                              max_depth=depth)
+    scene, cam = tscenes.SCENES[name](w, h)
+    torch.cuda.reset_peak_memory_stats(device)
+    t = solid_train_vs_plain(name, scene, cam,
+                             dataclasses.replace(cfg, spp=TEXTURE_PLAIN_SPP),
+                             device, card, min_pixels=TEXTURE_MIN_AGREE)
+    k_atlas, p_atlas = t["d_atlas"]
+    atlas_rel = None
+    if p_atlas is not None:
+        atlas_rel = ((k_atlas - p_atlas).abs().max()
+                     / p_atlas.abs().max().clamp(min=1e-30)).item()
+        print(f"  {name}: train_bwd's atlas cotangent within "
+              f"{atlas_rel:.2e} of the plain version's largest "
+              f"({p_atlas.abs().max().item():.4e}; float atomics, rule "
+              f"{TEXTURE_ATLAS_SPREAD:g})", flush=True)
+        check(atlas_rel <= TEXTURE_ATLAS_SPREAD
+              and p_atlas.abs().max().item() > 0, (name, "atlas", atlas_rel))
+    packs, kw = t["packs"], dict(t["kw"], spp=cfg.spp)
+    fwd = mkt.render_tiles_train(*packs, **kw)
+    fwd_ms = cuda_ms(lambda: mkt.render_tiles_train(*packs, **kw), 3)
+    d_rad = torch.ones_like(fwd[0])
+    bwd = mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **kw)
+    bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, *fwd[2:],
+                                               **kw), 3)
+    tex, solids = kw["tex"], kw["solids"]
+    segments, paths = int(fwd[1].sum()), w * h * cfg.spp
+    solid_packs = () if solids is None else (solids.quad24, solids.box24)
+    n_bytes = pack_bytes(*packs, *solid_packs, tex.atlas) + w * h * 16 \
+        + paths * 33
+    fwd_bound = texture_bound(segments, paths, tex, solids, n_bytes)
+    # The backward replays each segment and differentiates its texture
+    # (about twice the marble's operations) and the bounce.
+    bwd_bound = texture_bound(2 * segments, 2 * paths, tex, solids,
+                              n_bytes + 4 * tex.atlas.numel())
+    print(f"  {name} {w}x{h} {cfg.spp}spp d{depth}: train_fwd {fwd_ms:.3f} "
+          f"ms (bound {fwd_bound[0]:.4f}, {fwd_bound[1]}), train_bwd "
+          f"{bwd_ms:.3f} ms (bound {bwd_bound[0]:.4f}, {bwd_bound[1]}); "
+          f"replay mismatches {int(bwd[3])}; {segments} segments  [{card}]",
+          flush=True)
+    check(int(bwd[3]) == 0, ("[T2] replay_mismatches", name, int(bwd[3])))
+    fd_rel = (marble_finite_differences(t, scene, cam, cfg, device)
+              if tex.has_perlin else None)
+
+    st, keys = cornell_chain_lanes(scene, cam, w, h, device)
+    sph, bg = packs[0], packs[2]
+    _, c1 = chain_vs_plain(f"{name} camera rays", st, keys, sph, bg,
+                           render.chain_bvh(sph, st[6], False), 4, scene,
+                           cam, cfg, device, card, solids=solids,
+                           radiance_only=True, tex=tex)
+    c_bound = texture_bound(2 * c1["segments"], 2 * c1["q"], tex, solids,
+                            pack_bytes(sph, bg, *solid_packs, tex.atlas)
+                            + 4 * c1["q"] * (16 * 3 + 2))
+    print(f"  chain_bwd {name}: {c1['ms']:.4f} ms, bound {c_bound[0]:.4f} "
+          f"ms ({c_bound[1]})  [{card}]", flush=True)
+    peak_memory(f"[T2] {name} kernels vs plain versions", device, card)
+
+    # The main path, launches counted from 0.
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    n_tex = scene.tex_color1.shape[0]
+    start = diff.combine(scene, {"tex_color1": scene.tex_color1
+                                 * torch.linspace(0.8, 1.1, n_tex)[:, None]})
+    step = diff.make_train_step(cfg, device=device)
+    step(start, cam, target, 0)  # warm-up
+    bw, bh = 64, 36
+    bcfg = render.RenderConfig(width=bw, height=bh, spp=BATCH_SPP,
+                               max_depth=depth, samples_per_pass=BATCH_SPP)
+    b_scene, b_cam = tscenes.SCENES[name](bw, bh)
+    target_b, _ = render.render_image_tiles(b_scene, b_cam, bcfg, 1,
+                                            device=device)
+    counters = (mkt.render_tiles_train, mkt.tiles_adjoint, mk.bounce_steps,
+                mkv.chain_adjoint, mk.render_tiles)
+    for c in counters:
+        c.launches = 0
+    mkt.tiles_adjoint.replay_mismatches = 0
+    mkv.chain_adjoint.replay_mismatches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    s_scene, s_cam = start, cam
+    with chain_events() as (fwd_log, bwd_log):
+        for i in range(3):
+            fwd_log.clear()
+            bwd_log.clear()
+            (s_scene, s_cam, loss), ms = wall_ms(
+                lambda: step(s_scene, s_cam, target, 0))
+            if name in TEXTURE_TRAINED:
+                s_scene = diff.combine(start, {
+                    k: getattr(s_scene, k) for k in TEXTURE_TRAINED[name]})
+                s_cam = cam
+            losses.append(loss.item())
+            step_ms.append((events_ms(fwd_log), events_ms(bwd_log), ms))
+            print(f"  {name} make_train_step {i}: loss {losses[-1]:.8e}, "
+                  f"train_fwd {step_ms[-1][0]:.3f} ms, train_bwd "
+                  f"{step_ms[-1][1]:.3f} ms, step {ms:.2f} ms  [{card}]",
+                  flush=True)
+    (img, n, b_loss, gp, gc), b_ms = wall_ms(lambda: batch_loss_and_grads(
+        bcfg, diff.combine(b_scene, {"tex_color1": start.tex_color1}), b_cam,
+        target_b, 0, device))
+    launches = [c.launches for c in counters]
+    mism = (int(mkt.tiles_adjoint.replay_mismatches),
+            int(mkv.chain_adjoint.replay_mismatches))
+    print(f"  {name} render_image(differentiable=True) {bw}x{bh} "
+          f"{BATCH_SPP}spp: loss {b_loss.item():.8e}, {n} traced segments, "
+          f"{b_ms / 1e3:.3f} s wall", flush=True)
+    print(f"  {name} launches train_fwd {launches[0]}, train_bwd "
+          f"{launches[1]}, bounce_steps {launches[2]}, chain_bwd "
+          f"{launches[3]}, tile_render {launches[4]}; replay_mismatches "
+          f"{mism} (gate 0); losses {losses} (must fall)  [{card}]",
+          flush=True)
+    peak_memory(f"[T2] {name} main path", device, card)
+    check(launches[0] >= 3 and launches[1] >= 3 and launches[2] >= 1
+          and launches[3] >= 1, ("[T2] launches", name, launches))
+    check(mism == (0, 0), ("[T2] replay_mismatches", name, mism))
+    check(all(math.isfinite(x) for x in losses)
+          and losses[2] < losses[1] < losses[0], ("[T2] the loss", name,
+                                                  losses))
+    for key, g in list(gp.items()) + [("camera", g) for g in gc]:
+        check(bool(torch.isfinite(g).all()), ("[T2] non-finite", name, key))
+    fwd_main = sum(m_[0] for m_ in step_ms) / len(step_ms)
+    bwd_main = sum(m_[1] for m_ in step_ms) / len(step_ms)
+    prefix = "light" if name == "simple_light" else name
+
+    def numbers(ms, plain_ms, err, bnd, n_launch, kernel, **extra):
+        return {f"{prefix}_ms": ms, f"{prefix}_plain_ms": plain_ms,
+                f"{prefix}_bound_ms": bnd[0], f"{prefix}_bound_by": bnd[1],
+                f"{prefix}_max_abs_err": err, f"{prefix}_launches": n_launch,
+                f"{prefix}_registers": resources.get(
+                    kernel + (" (solids, tex)" if solids is not None
+                              else " (tex)")),
+                **{f"{prefix}_{k}": v for k, v in extra.items()}}
+
+    return dict(
+        fd_rel=fd_rel,
+        train_fwd=numbers(fwd_ms, t["fwd_plain_ms"], t["fwd_err"], fwd_bound,
+                          launches[0], "train_fwd_kernel", main_ms=fwd_main),
+        train_bwd=numbers(bwd_ms, t["bwd_plain_ms"], t["bwd_err"], bwd_bound,
+                          launches[1], "train_bwd_kernel", main_ms=bwd_main,
+                          atlas_spread=atlas_rel),
+        chain_bwd=numbers(c1["ms"], c1["plain_ms"], c1["err"], c_bound,
+                          launches[3], "chain_bwd_kernel",
+                          atlas_spread=c1["atlas"]),
+        queue_launches=launches[2])
+
+
 def probe_phase(device, card):
     """[P1] the three probes: each kernel against its plain version at
     PROBE_CHECK_ITERS iterations (tests/test_torch_cuda.py's rule), then
@@ -3160,6 +3580,27 @@ def main() -> int:
                  f"{MEDIA_ADJ['width']}x{MEDIA_ADJ['height']} "
                  f"{MEDIA_ADJ['spp']}spp d{MEDIA_ADJ['max_depth']}")
     media_adjoint_phase(device, card)
+    t1, t1_launches = {}, {}
+    for name in TEXTURE_SCENES:
+        phases.start("T1", f"{name} {TEXTURE['width']}x{TEXTURE['height']}: "
+                     f"the kernels' texture variants vs their plain "
+                     f"versions, then the main path: python -m "
+                     f"rrt_tpu_torch.cli --scene {name} -s {TEXTURE['spp']} "
+                     f"(tile), the queue and batch drivers")
+        torch.cuda.reset_peak_memory_stats(device)
+        t1[name] = texture_kernels_phase(name, device, card)
+        t1_launches[name] = texture_cli_phase(name, device, card)
+        peak_memory(f"[T1] {name}", device, card)
+    t2 = {}
+    for name in TEXTURE_SCENES:
+        phases.start("T2", f"{name}'s gradient on the card at "
+                     f"{TEXTURE['width']}x{TEXTURE['height']} "
+                     f"{CORNELL_TRAIN_SPP}spp d{TEXTURE['max_depth']}: the "
+                     f"train kernels' and chain_bwd's texture variants vs "
+                     f"their plain versions, the atlas cotangent, finite "
+                     f"differences, then make_train_step and "
+                     f"render_image(differentiable=True)")
+        t2[name] = texture_train_phase(name, device, card, resources)
     phases.start("P1", "main path: the three probes at their full ITERS")
     p1 = probe_phase(device, card)
     phases.end()
@@ -3212,6 +3653,32 @@ def main() -> int:
                     smoke_max_abs_err=k["err"], smoke_launches=launches,
                     smoke_registers=resources.get(name + " (solids)"))
 
+    def textured(kernel, part, launch_idx, name):
+        # The kernel's texture variants ([T1]: tile_render and
+        # bounce_steps, plain_ms and max_abs_err of tile_render at
+        # TEXTURE_PLAIN_SPP, launches on [T1]'s CLI main path; [T2]: the
+        # train kernels and chain_bwd, launches on [T2]'s main path):
+        # light_* on simple_light, earth_* on earth.
+        out = {}
+        for scene_name, prefix in (("simple_light", "light"),
+                                   ("earth", "earth")):
+            if part in ("tile", "queue"):
+                k = t1[scene_name][part]
+                tag = (" (solids, tex)" if scene_name == "simple_light"
+                       else " (tex)")
+                out.update({f"{prefix}_ms": k["ms"],
+                            f"{prefix}_plain_ms": k["plain_ms"],
+                            f"{prefix}_bound_ms": k["bound"][0],
+                            f"{prefix}_bound_by": k["bound"][1],
+                            f"{prefix}_max_abs_err": k["err"],
+                            f"{prefix}_launches":
+                                t1_launches[scene_name][launch_idx],
+                            f"{prefix}_registers":
+                                resources.get(name + tag)})
+            else:
+                out.update(t2[scene_name][part])
+        return out
+
     def walk(scan_bnd, counts, moving_scan_bnd, moving_counts):
         # Every kernel but the train kernels walks the BVH: bound_ms is
         # the walk's; the scan's, which they ran before, beside it.
@@ -3241,6 +3708,7 @@ def main() -> int:
                      m_tile["counts"]),
               **cornell(k1["tile"], k2_launches[0], "tile_render_kernel"),
               **smoke(s1["tile"], s1_launches[0], "tile_render_kernel"),
+              **textured("tile_render", "tile", 0, "tile_render_kernel"),
               registers=resources.get("tile_render_kernel")),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
@@ -3249,6 +3717,7 @@ def main() -> int:
               step_bound_ms=t5["step_bound"][0],
               registers=resources.get("train_fwd_kernel"),
               **k3["train_fwd"], **s2["train_fwd"],
+              **textured("train_fwd", "train_fwd", 0, "train_fwd_kernel"),
               **moving(m_t["fwd_ms"], m_t["fwd_bound"],
                        moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
@@ -3259,6 +3728,7 @@ def main() -> int:
               scan_ms=t5["bwd_scan_ms"],
               registers=resources.get("train_bwd_kernel"),
               **k3["train_bwd"], **s2["train_bwd"],
+              **textured("train_bwd", "train_bwd", 1, "train_bwd_kernel"),
               **moving(m_t["bwd_ms"], m_t["bwd_bound"],
                        moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",
@@ -3269,6 +3739,7 @@ def main() -> int:
                      m_q["counts"]),
               **cornell(k1["queue"], k2_launches[1], "bounce_steps_kernel"),
               **smoke(s1["queue"], s1_launches[1], "bounce_steps_kernel"),
+              **textured("bounce_steps", "queue", 1, "bounce_steps_kernel"),
               registers=resources.get("bounce_steps_kernel")),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
@@ -3286,7 +3757,8 @@ def main() -> int:
               **walk(c1_bound[1], q1["counts"], m_c1_bound[1],
                      m_q["counts"]),
               registers=resources.get("chain_bwd_kernel"),
-              **k3["chain_bwd"]),
+              **k3["chain_bwd"],
+              **textured("chain_bwd", "chain_bwd", 3, "chain_bwd_kernel")),
         probe("fma_chain", "benchmarks/probe_row_layout.py:38",
               p1["launches"][0], p1["chain_err"], p1["row"],
               p1["chain_plain_ms"]),

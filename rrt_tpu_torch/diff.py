@@ -217,7 +217,8 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
             *_packs(scene_d, cam, cfg, device), key_words(seed), lo,
             cfg.width, cfg.height, chunk, cfg.max_depth, cfg.t_min,
             scene.has_moving,
-            *solid_inputs(ops_mega.pack_solids(scene_d, device)))
+            *solid_inputs(ops_mega.pack_solids(scene_d, device),
+                          ops_mega.pack_textures(scene_d, device)))
         return rad
 
     rad0 = chain(0)
@@ -226,12 +227,13 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
         if chunk < cfg.spp:
             *packs, bvh = _packs(scene_d, cam, cfg, device, bvh=True)
             solids = ops_mega.pack_solids(scene_d, device)
+            tex = ops_mega.pack_textures(scene_d, device)
         for lo in range(chunk, cfg.spp, chunk):
             r, _ = ops_mega.render_tiles(
                 *packs, seed_words=key_words(seed), sample_lo=lo,
                 width=cfg.width, height=cfg.height, spp=chunk,
                 max_depth=cfg.max_depth, t_min=cfg.t_min,
-                moving=scene.has_moving, bvh=bvh, solids=solids)
+                moving=scene.has_moving, bvh=bvh, solids=solids, tex=tex)
             rad_sum = rad_sum + r
     rs = rad_sum.requires_grad_()
     img = rs.reshape(cfg.height, cfg.width, 3) / float(cfg.spp)

@@ -363,14 +363,60 @@ def intersect_all(scene, o, d, time, t_min, t_max, u_med=None):
                               iq, tb, ib)
 
 
+def atan_poly(z):
+    """atan on [-1, 1] by rrt_tpu's kernel polynomial (minimax, odd; max
+    error about 1e-5: rrt_tpu/ops/megakernel.py _atan_poly)."""
+    z2 = z * z
+    return z * (0.9998660 + z2 * (-0.3302995 + z2 * (0.1801410 + z2 * (
+        -0.0851330 + z2 * 0.0208351))))
+
+
+def atan2_poly(y, x):
+    """atan2 from atan_poly on the bounded argument (rrt_tpu's
+    _atan2_rows)."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    swap = ay > ax
+    num = torch.where(swap, ax, ay)
+    den = torch.clamp(torch.where(swap, ay, ax), min=1e-30)
+    r = atan_poly(num / den)
+    r = torch.where(swap, (math.pi / 2) - r, r)
+    r = torch.where(x < 0.0, math.pi - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def sphere_uv(p, center, radius):
+    """A sphere's texture uv at p (3,N) (RTTNW ch. 4.2): u = (atan2(-z,
+    x) + pi) / (2 pi), v = acos(-y) / pi of the unit outward vector
+    (p - c) / max(|r|, 1e-20), by rrt_tpu's kernel polynomials, the one
+    rule of every kernel and plain version here; rrt_tpu's eager code
+    takes exact arccos / arctan2, and the two part only at a texel's
+    edge."""
+    inv_ar = 1.0 / torch.clamp(torch.abs(radius), min=1e-20)
+    ux, uy, uz = ((p - center) * inv_ar).unbind(0)
+    y = torch.clamp(-uy, -1.0, 1.0)
+    theta = atan2_poly(torch.sqrt(torch.clamp(1.0 - y * y, min=0.0)), y)
+    phi = atan2_poly(-uz, ux) + math.pi
+    return phi * (0.5 / math.pi), theta * (1.0 / math.pi)
+
+
+def quad_uv(p, q, u, v):
+    """A quad's texture uv at p (3,N): (alpha, beta) on the winner's
+    plane frame, p.g - q.g and p.h - q.h (quad_frames of q, u, v (3,N),
+    the rows the kernels stage)."""
+    fr = quad_frames(q, u, v)
+    return dot(p, fr.g) - fr.q_g, dot(p, fr.h) - fr.q_h
+
+
 def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
     """Rebuild the hit record of each ray's winner (rrt_tpu's make_hit):
     a sphere's center at the ray's time (N,); a quad's normal u x v /
     |u x v|; a box's the axis of its frame whose |q_k| - h_k is largest
     at the hit point, rotated back; a medium's a constant (1, 0, 0),
     front face (a volumetric scatter has no surface), its material the
-    medium's. Texture uv is the sphere's (quads' and boxes' are read by
-    image textures only, ROADMAP Queue A #9.5)."""
+    medium's. Texture uv is a sphere's (sphere_uv) or a quad's
+    (quad_uv), 0 on a box or a medium (a box with an image is built as
+    quads; a medium's albedo is its texture at uv 0, rrt_tpu's eager
+    rule)."""
     hit_mask = fam != FAM_NONE
     # Misses carry t == INF; clamp so the (masked-out) miss rays' normal
     # math stays finite.
@@ -382,18 +428,19 @@ def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
     center = scene.sphere_c0[si].T + scene.sphere_dc[si].T * f
     radius = scene.sphere_radius[si]
     outward = (p - center) * (1.0 / radius)  # sign(r) flips inward
-    unit_out = (p - center) * (1.0 / torch.abs(radius))
-    theta = torch.arccos(torch.clamp(-unit_out[1], -1.0, 1.0))
-    phi = torch.atan2(-unit_out[2], unit_out[0]) + math.pi
+    u, v = sphere_uv(p, center, radius)
     mat_id = scene.sphere_mat[si]
-    u, v = phi * (0.5 / math.pi), theta * (1.0 / math.pi)
     if scene.has_quads:
         is_quad = fam == FAM_QUAD
         qi = torch.where(is_quad, idx, 0)
-        qn = cross(scene.quad_u[qi].T, scene.quad_v[qi].T)
+        qu, qv = scene.quad_u[qi].T, scene.quad_v[qi].T
+        qn = cross(qu, qv)
         outward_q = qn * torch.rsqrt(torch.clamp(dot(qn, qn), min=1e-20))
         outward = torch.where(is_quad, outward_q, outward)
         mat_id = torch.where(is_quad, scene.quad_mat[qi], mat_id)
+        if scene.has_images:
+            u_q, v_q = quad_uv(p, scene.quad_q[qi].T, qu, qv)
+            u, v = torch.where(is_quad, u_q, u), torch.where(is_quad, v_q, v)
     if scene.has_boxes:
         is_box = fam == FAM_BOX
         bi = torch.where(is_box, idx, 0)
@@ -422,7 +469,8 @@ def make_hit(scene, o, d, time, t, fam, idx) -> Hit:
         front_face = front_face | is_medium
         mat_id = torch.where(is_medium, scene.med_mat[mi], mat_id)
     if scene.has_quads or scene.has_boxes or scene.has_media:
-        u, v = torch.where(is_sphere, u, 0.0), torch.where(is_sphere, v, 0.0)
+        keep = is_sphere | is_quad if scene.has_quads else is_sphere
+        u, v = torch.where(keep, u, 0.0), torch.where(keep, v, 0.0)
     normal = torch.where(front_face, outward, -outward)
     return Hit(t=t, p=p, normal=normal, front_face=front_face,
                mat_id=mat_id, u=u, v=v, hit_mask=hit_mask)

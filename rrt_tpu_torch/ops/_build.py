@@ -47,8 +47,9 @@ class Build:
 
 def _kernel_name(mangled: str) -> str:
     """The kernel's name in a mangled entry name, with " (moving)",
-    " (solids)" or " (moving, solids)" for an instantiation whose first
-    bool template argument (kMoving) or second (kSolids) is true. A
+    " (solids)", " (tex)" or their combinations, such as " (moving,
+    solids)", for an instantiation whose first bool template argument
+    (kMoving), second (kSolids) or third (kTex) is true. A
     name's length prefix may follow other digits (the anonymous
     namespace's hash), so every split of a run of digits is tried."""
     for m in re.finditer(r"\d+", mangled):
@@ -59,8 +60,8 @@ def _kernel_name(mangled: str) -> str:
                                 mangled[m.end() + len(name):])
                 flags = re.findall(r"Lb([01])E", args.group(1)) if args \
                     else []
-                tags = [tag for tag, bit in zip(("moving", "solids"), flags)
-                        if bit == "1"]
+                tags = [tag for tag, bit in zip(("moving", "solids", "tex"),
+                                                flags) if bit == "1"]
                 return name + (f" ({', '.join(tags)})" if tags else "")
     return mangled
 
@@ -146,6 +147,17 @@ class SolidArgs(ctypes.Structure):
                 ("med", ctypes.c_void_p), ("n_media", ctypes.c_int)]
 
 
+class TexArgs(ctypes.Structure):
+    """The textures' C argument (csrc/bounce.cuh TexArgs): the atlas
+    (n_img * ah * aw texels of four floats: rgb, 0), its grid, and the
+    backward's atlas cotangent of the same layout (null in a forward); a
+    null pointer in its place launches the variant without textures."""
+
+    _fields_ = [("atlas", ctypes.c_void_p), ("d_atlas", ctypes.c_void_p),
+                ("n_img", ctypes.c_int), ("ah", ctypes.c_int),
+                ("aw", ctypes.c_int)]
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernels' library, built at first use, with C signatures."""
@@ -153,23 +165,24 @@ def load() -> ctypes.CDLL:
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
     s = ctypes.POINTER(SolidArgs)
-    lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, s, u, u, u, i,
-                                    i, i, i, f, i, p, p, p]
+    t = ctypes.POINTER(TexArgs)
+    lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, s, t, u, u, u,
+                                    i, i, i, i, f, i, p, p, p]
     lib.rrt_tile_render.restype = i
-    lib.rrt_train_fwd.argtypes = [p, i, p, p, s, u, u, u, i, i, i, i, f, i,
-                                  i, p, p, p, p, p]
+    lib.rrt_train_fwd.argtypes = [p, i, p, p, s, t, u, u, u, i, i, i, i, f,
+                                  i, i, p, p, p, p, p]
     lib.rrt_train_fwd.restype = i
-    lib.rrt_train_bwd.argtypes = [p, i, p, p, s, p, p, p, i, u, u, u, i, i,
-                                  i, i, f, i, p, p, p, p]
+    lib.rrt_train_bwd.argtypes = [p, i, p, p, s, t, p, p, p, i, u, u, u, i,
+                                  i, i, i, f, i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
-    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, s, p, i,
-                                     i, f, i, p]
+    lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, s, t, p,
+                                     i, i, f, i, p]
     lib.rrt_bounce_steps.restype = i
     lib.rrt_intersect.argtypes = [p, p, p, p, p, i, p, i, p, p, i, i, i, s,
                                   f, i, p, p, p, p]
     lib.rrt_intersect.restype = i
-    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, s, p, p, p,
-                                  i, i, f, i, p, p, p, p, p]
+    lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, s, t, p, p,
+                                  p, i, i, f, i, p, p, p, p, p]
     lib.rrt_chain_bwd.restype = i
     lib.rrt_probe_fma_chain.argtypes = [p, p, i, i, f, f, i, p]
     lib.rrt_probe_fma_chain.restype = i

@@ -2,7 +2,8 @@
 // bounce chain's backward (chain.cu): the hand-written transpose of
 // rrt_tpu_torch/ops/megakernel_vjp.py diff_step for a miss, a light's
 // emission and a scattering bounce on a sphere, a quad, a box or in a
-// constant medium, the
+// constant medium, with (kTex) the marble's and the image's albedo, the
+// atlas cotangent by float atomics into device memory, the
 // four-float reductions of the pack cotangents into per-block partials
 // in device memory (add_slot), and the fixed-order reduction of those
 // partials.
@@ -23,9 +24,18 @@ constexpr int kGradRows = 12;
 constexpr int kGradRowsMoving = 15;
 constexpr int kAccR2 = 3, kAccAux = 4, kAccColor1 = 5, kAccColor2 = 8,
               kAccRadius = 11, kAccVel = 12;
+// A marble's texture scale: the last column of a sphere's, quad's or
+// box's kSlotCols (megakernel_vjp.py TEX_SCALE_COL), which the variants
+// with textures (kTex) add.
+constexpr int kAccTexScale = 15, kTexRows = 16;
 
 __host__ __device__ constexpr int grad_rows(bool moving) {
   return moving ? kGradRowsMoving : kGradRows;
+}
+// The columns a sphere's adjoint fills: grad_rows, or with textures all
+// of kSlotCols, the texture scale last.
+__host__ __device__ constexpr int sphere_rows(bool moving, bool tex) {
+  return tex ? kTexRows : grad_rows(moving);
 }
 // Rows of a reduction group of per-block partials.
 constexpr int kReduceGroup = 64;
@@ -84,6 +94,52 @@ __device__ __forceinline__ void add_slot(float* slot, const float* g) {
   }
 }
 
+// The albedo's cotangent g_alb to its source, for a shade `sh` of the
+// winner whose material rows start at `mat` (a row `stride` floats
+// apart): color1 or color2 (the checker's parity); with kTex, a marble's
+// color1 (times its factor), texture scale (kAccTexScale) and hit point
+// (ADDED to g_p, through the turbulence's gradient sh.dturb), or an
+// image's texel, whose atlas cotangent gains g_alb (a four-float atomic
+// in device memory; nothing flows to uv, the texel is replayed).
+template <bool kTex, class Sink>
+__device__ __forceinline__ void albedo_adjoint(const Shade& sh,
+                                               const float* mat, int stride,
+                                               const float* g_alb,
+                                               const TexView* tex, float* g_p,
+                                               Sink& sink) {
+  if constexpr (kTex) {
+    const float tt = mat[kMatTexType * stride];
+    if (tt == kTexPerlin) {
+      float g_m = 0.0f;
+      for (int j = 0; j < 3; ++j) {
+        sink.add(kAccColor1 + j, g_alb[j] * sh.marble);
+        sink.add(kAccColor2 + j, 0.0f);
+        g_m += g_alb[j] * mat[(kMatColor1 + j) * stride];
+      }
+      // marble = 0.5 (1 + sin(phase)), phase = scale z + 10 turb(h)
+      const float g_phase = g_m * 0.5f * cosf(sh.phase);
+      sink.add(kAccTexScale, g_phase * sh.h[2]);
+      g_p[2] += g_phase * mat[kMatTexScale * stride];
+      for (int j = 0; j < 3; ++j) g_p[j] += g_phase * 10.0f * sh.dturb[j];
+      return;
+    }
+    sink.add(kAccTexScale, 0.0f);
+    if (tt == kTexImage) {
+      for (int j = 0; j < 3; ++j) {
+        sink.add(kAccColor1 + j, 0.0f);
+        sink.add(kAccColor2 + j, 0.0f);
+      }
+      atomicAdd(tex->d_atlas + sh.texel,
+                make_float4(g_alb[0], g_alb[1], g_alb[2], 0.0f));
+      return;
+    }
+  }
+  for (int j = 0; j < 3; ++j) {
+    sink.add(kAccColor1 + j, sh.use_c2 ? 0.0f : g_alb[j]);
+    sink.add(kAccColor2 + j, sh.use_c2 ? g_alb[j] : 0.0f);
+  }
+}
+
 // Adjoint of a miss: the pending radiance gains thr * background(d) and
 // o, d and thr pass through. dr: the pending radiance's cotangent. ADDS
 // the cotangents of d and thr to gd and gt (a caller with nothing after
@@ -126,12 +182,17 @@ __device__ __forceinline__ void miss_adjoint(const Record& r,
 // is base + time * vel (time: the path's time): base gets the center's
 // cotangent, vel time times it, and g_time gains vel . it. With
 // kKept the shading is recomputed without the scatter draws, from what
-// the replay's shade() kept of them (`kept`: shade's kForAdjoint).
-template <bool kMoving, class Sink, bool kKept = false>
+// the replay's shade() kept of them (`kept`: shade's kForAdjoint). kTex:
+// the albedo's texture (albedo_adjoint; `tex` the atlas and its
+// cotangent). A light's emission (thr * albedo) has this adjoint with
+// the pending radiance's cotangent in gt and none in go and gd
+// (emit_adjoint_tex).
+template <bool kMoving, class Sink, bool kKept = false, bool kTex = false>
 __device__ __forceinline__ void scatter_adjoint(
     const float* sph, int n_slots, const Record& rec, uint32_t k0,
     uint32_t k1, int bounce, float t_min, float time, float* go, float* gd,
-    float* gt, Sink& sink, float& g_time, float* kept = nullptr) {
+    float* gt, Sink& sink, float& g_time, float* kept = nullptr,
+    const TexView* tex = nullptr) {
   Ray ray;
   ray.ox = rec.o[0]; ray.oy = rec.o[1]; ray.oz = rec.o[2];
   ray.dx = rec.d[0]; ray.dy = rec.d[1]; ray.dz = rec.d[2];
@@ -151,8 +212,8 @@ __device__ __forceinline__ void scatter_adjoint(
   const bool pick0 = root0 > t_min;
   const float t = pick0 ? root0 : root1;
   Shade sh;
-  shade<kMoving, kKept>(col, n_slots, ray, q.a, t, k0, k1, bounce, sh,
-                        kept);
+  shade<kMoving, kKept, false, kTex>(col, n_slots, ray, q.a, t, k0, k1,
+                                     bounce, sh, kept, tex);
 
   const bool is_lam = sh.mtype == kMatLambertian;
   const bool is_met = sh.mtype == kMatMetal;
@@ -236,11 +297,10 @@ __device__ __forceinline__ void scatter_adjoint(
     }
   }
 
-  // --- albedo -> color1 or color2, aux -> its row.
-  for (int j = 0; j < 3; ++j) {
-    sink.add(kAccColor1 + j, sh.use_c2 ? 0.0f : g_alb[j]);
-    sink.add(kAccColor2 + j, sh.use_c2 ? g_alb[j] : 0.0f);
-  }
+  // --- albedo -> color1 or color2 (or its texture), aux -> its row.
+  float g_tex[3] = {0.0f, 0.0f, 0.0f};
+  albedo_adjoint<kTex>(sh, col + kRowMatType * n_slots, n_slots, g_alb, tex,
+                       g_tex, sink);
   sink.add(kAccAux, g_aux);
 
   // --- normal: n = (h - c) * inv_r * sgn.
@@ -249,6 +309,7 @@ __device__ __forceinline__ void scatter_adjoint(
   for (int j = 0; j < 3; ++j) {
     const float g_out = g_n[j] * sh.sgn;
     g_p[j] = go[j] + g_out * sh.inv_r;
+    if constexpr (kTex) g_p[j] += g_tex[j];
     g_c[j] = -g_out * sh.inv_r;
     g_inv_r += g_out * (sh.h[j] - c[j]);
   }
@@ -575,8 +636,9 @@ __device__ __forceinline__ void material_adjoint(
 // are detached. In: go, gd, gt, the cotangents of the new origin,
 // direction and throughput; out: those of the bounce's input. The
 // winner's cotangents go to `sink` (zeroed by the caller) in the quad's
-// or box's columns (kQuadAccPlane, kBoxAccCos, ...).
-template <class Sink>
+// or box's columns (kQuadAccPlane, kBoxAccCos, ...). kTex: as
+// scatter_adjoint's (the atlas sv.tex).
+template <class Sink, bool kTex = false>
 __device__ __forceinline__ void solid_scatter_adjoint(
     const Solids& sv, int fam, int slot, const Record& rec, uint32_t k0,
     uint32_t k1, int bounce, float t_min, float* go, float* gd, float* gt,
@@ -592,26 +654,26 @@ __device__ __forceinline__ void solid_scatter_adjoint(
   float out[3];
   int stride;
   const float* mat = solid_surface(sv, fam, slot, sh.h, out, stride);
-  shade_material<true>(mat, stride, ray, q.a, out, k0, k1, bounce, sh,
-                       kept);
+  if constexpr (kTex) solid_uv(sv, fam, slot, sh);
+  shade_material<true, false, kTex>(mat, stride, ray, q.a, out, k0, k1,
+                                    bounce, sh, kept, &sv.tex);
 
   float g_thr[3], g_alb[3], g_n[3], g_d[3], g_a, g_aux;
   material_adjoint(sh, rec, q.a, gd, gt, g_thr, g_alb, g_n, g_d, g_a,
                    g_aux);
-  for (int j = 0; j < 3; ++j) {
-    sink.add(kAccColor1 + j, sh.use_c2 ? 0.0f : g_alb[j]);
-    sink.add(kAccColor2 + j, sh.use_c2 ? g_alb[j] : 0.0f);
-  }
+  // The hit point's cotangent: the new origin's, and the texture's.
+  float g_h[3] = {go[0], go[1], go[2]};
+  albedo_adjoint<kTex>(sh, mat, stride, g_alb, &sv.tex, g_h, sink);
   sink.add(kAccAux, g_aux);
 
   // --- the hit point h = o + t d; the outward normal's cotangent.
   float g_o[3], g_out[3];
   for (int j = 0; j < 3; ++j) {
-    g_o[j] = go[j];
-    g_d[j] += t * go[j] + 2.0f * g_a * rec.d[j];  // and a = d.d
+    g_o[j] = g_h[j];
+    g_d[j] += t * g_h[j] + 2.0f * g_a * rec.d[j];  // and a = d.d
     g_out[j] = g_n[j] * sh.sgn;
   }
-  const float g_t = dot3(go, rec.d);
+  const float g_t = dot3(g_h, rec.d);
 
   if (fam == kFamQuad) {
     const float4 nw = sv.qn[slot];
@@ -712,6 +774,46 @@ __device__ __forceinline__ void solid_scatter_adjoint(
     go[j] = g_o[j];
     gd[j] = g_d[j];
     gt[j] = g_thr[j];
+  }
+}
+
+// Adjoint of the bounce that ends a path on a diffuse_light in a scene
+// with textures (kTex; emit_adjoint without): its emission thr * albedo
+// is a scatter's throughput thr * albedo, so this is the winner's
+// scatter adjoint with the pending radiance's cotangent dr in the
+// throughput's place and none for the new origin and direction, which
+// the path does not take: a textured light's albedo depends on the hit
+// point, whose cotangent reaches t, the ray and the geometry. Its
+// results are ADDED to go, gd, gt (and g_time), the winner's cotangents
+// to its columns of `acc` (the block's row of the partials).
+template <bool kMoving>
+__device__ __forceinline__ void emit_adjoint_tex(
+    const float* sph, int n_slots, const Solids& sv, const Record& rec,
+    uint32_t k0, uint32_t k1, int bounce, float t_min, float time,
+    float* kept, const float* dr, float* go, float* gd, float* gt,
+    float& g_time, float* acc) {
+  float eo[3] = {0.0f, 0.0f, 0.0f}, ed[3] = {0.0f, 0.0f, 0.0f};
+  float et[3] = {dr[0], dr[1], dr[2]};
+  int slot;
+  const int fam = code_family(rec.win, slot);
+  if (fam == kFamSphere) {
+    RowSums<sphere_rows(kMoving, true)> sums{};
+    scatter_adjoint<kMoving, decltype(sums), true, true>(
+        sph, n_slots, rec, k0, k1, bounce, t_min, time, eo, ed, et, sums,
+        g_time, kept, &sv.tex);
+    add_slot<sphere_rows(kMoving, true)>(acc + slot * kSlotCols, sums.g);
+  } else {
+    RowSums<kTexRows> sums{};
+    solid_scatter_adjoint<decltype(sums), true>(sv, fam, slot, rec, k0, k1,
+                                                bounce, t_min, eo, ed, et,
+                                                sums, kept);
+    add_slot<kTexRows>(acc + winner_column(n_slots, &sv, fam, slot),
+                       sums.g);
+  }
+  for (int j = 0; j < 3; ++j) {
+    go[j] += eo[j];
+    gd[j] += ed[j];
+    gt[j] += et[j];
   }
 }
 

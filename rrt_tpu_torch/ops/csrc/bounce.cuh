@@ -12,9 +12,10 @@
 // train_fwd).
 //
 // Subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary and
-// moving spheres, quads, boxes and constant media, solid and checker
-// textures, lambertian / metal / dielectric / diffuse_light / isotropic
-// materials, sky or solid background, no Russian roulette.
+// moving spheres, quads, boxes and constant media, solid, checker,
+// perlin-marble and image textures, lambertian / metal / dielectric /
+// diffuse_light / isotropic materials, sky or solid background, no
+// Russian roulette.
 //
 // The solid families (kSolids = true: quads, boxes and emission, which
 // the scenes with quads, boxes or a diffuse_light launch): each segment
@@ -47,6 +48,20 @@
 // intersection rows (a second float4 a slot, 8 KB at 512 slots). The
 // kMoving = false instantiation reads no time and runs the static
 // arithmetic unchanged.
+//
+// Textures (kTex = true, a scene with perlin or image textures; the
+// kTex = false instantiations never compile this code): the marble
+// (RTTNW ch. 5.7, rrt_tpu's _noise_rows / _turb_rows and :1351-1357) is
+// 7 octaves of a hashed gradient lattice, 8 corners each, u32 hashes
+// and rsqrtf a corner, blended by the hermite weights, its albedo 0.5 (1
+// + sin(scale z + 10 turb)) color1; the image (:1358-1404) reads one
+// texel of the atlas in device memory (ops/megakernel.py TexPack: rgb
+// and a pad, one 16-byte load, L2-resident) at the winner's uv: a
+// sphere's from rrt_tpu's kernel polynomials for atan2 and acos (so the
+// plain versions, geometry.sphere_uv, pick the same texel), a quad's
+// (alpha, beta) on its staged frame. The TPU's one-hot MXU contraction
+// of the atlas is not carried over. The adjoint (adjoint.cuh) replays
+// the texel and differentiates the marble analytically.
 
 #pragma once
 
@@ -68,6 +83,43 @@ struct SolidArgs {
   int n_media;
 };
 
+// The host's argument of the textures (ops/_build.py TexArgs): the atlas
+// of n_img * ah * aw texels, four floats each (rgb, 0), and the
+// backward's atlas cotangent of the same layout (null in a forward); a
+// null pointer in its place launches the variant without textures.
+struct TexArgs {
+  const float* atlas;
+  float* d_atlas;
+  int n_img, ah, aw;
+};
+
+// A kernel's view of the textures (kTex): TexArgs as float4 texels.
+struct TexView {
+  const float4* atlas;
+  float4* d_atlas;
+  int n_img, ah, aw;
+};
+
+inline TexView tex_view(const TexArgs* t) {
+  TexView v{nullptr, nullptr, 1, 1, 1};
+  if (t != nullptr) {
+    v.atlas = reinterpret_cast<const float4*>(t->atlas);
+    v.d_atlas = reinterpret_cast<float4*>(t->d_atlas);
+    v.n_img = t->n_img;
+    v.ah = t->ah;
+    v.aw = t->aw;
+  }
+  return v;
+}
+
+// One of the 8 instantiations F<kMoving, kSolids, kTex> of a launch
+// function, chosen at run time.
+#define RRT_PICK3(F, a, b, c)                                             \
+  ((a) ? ((b) ? ((c) ? F<true, true, true> : F<true, true, false>)       \
+              : ((c) ? F<true, false, true> : F<true, false, false>))    \
+       : ((b) ? ((c) ? F<false, true, true> : F<false, true, false>)     \
+              : ((c) ? F<false, false, true> : F<false, false, false>)))
+
 namespace {
 
 constexpr float kInf = 3.0e38f;
@@ -87,6 +139,7 @@ constexpr int kRowColor2 = 13;
 constexpr int kRowTexType = 16;
 constexpr int kRowTexScale = 17;
 constexpr int kRowRadius = 18;  // signed: negative flips the normal
+constexpr int kRowImage = 19;  // the texture's image index
 
 // Camera pack (24,).
 constexpr int kCamOrigin = 0, kCamLowerLeft = 3, kCamHorizontal = 6,
@@ -100,10 +153,12 @@ constexpr int kCamOrigin = 0, kCamLowerLeft = 3, kCamHorizontal = 6,
 constexpr int kMatType = 0, kMatAux = 1, kMatColor1 = 2, kMatColor2 = 5,
               kMatTexType = 8, kMatTexScale = 9;
 constexpr int kQuadMatRow = 10, kBoxMatRow = 9;
+constexpr int kQuadImageRow = 20;  // a quad's image index
 
 constexpr float kMatLambertian = 0.0f, kMatMetal = 1.0f,
                 kMatDielectric = 2.0f, kMatDiffuseLight = 3.0f,
-                kMatIsotropic = 4.0f, kTexChecker = 1.0f;
+                kMatIsotropic = 4.0f, kTexChecker = 1.0f,
+                kTexPerlin = 2.0f, kTexImage = 3.0f;
 
 // Families of a closest hit (rrt_tpu.geometry's FAM_*).
 constexpr int kFamNone = -1, kFamSphere = 0, kFamQuad = 1, kFamMedium = 2,
@@ -407,7 +462,156 @@ struct Shade {
   bool reflect;    // dielectric reflects
   float nd[3];     // new direction
   bool scattered;
+  // Textures (kTex): the caller's uv (the image's column and row
+  // coordinates in [0, 1]) and image index; the marble's factor and
+  // phase and (the adjoint's) its turbulence's gradient; the texel read.
+  float tu, tv, img;
+  float marble, phase, dturb[3];
+  int texel;
 };
+
+// ---------------------------------------------------------------------------
+// Textures (kTex)
+// ---------------------------------------------------------------------------
+
+// The gradient at an integer lattice point (rrt_tpu/textures.py
+// _lattice_grad): a u32 hash, three 10-bit fields in [-1, 1), scaled to
+// about unit length.
+__device__ __forceinline__ void lattice_grad(int ix, int iy, int iz,
+                                             float& gx, float& gy,
+                                             float& gz) {
+  uint32_t h = static_cast<uint32_t>(ix) * 0x8DA6B343u +
+               static_cast<uint32_t>(iy) * 0xD8163841u +
+               static_cast<uint32_t>(iz) * 0xCB1AB31Fu;
+  h = h ^ (h >> 13);
+  h = h * 0x85EBCA6Bu;
+  h = h ^ (h >> 16);
+  constexpr float kScale = 2.0f / 1024.0f;
+  gx = static_cast<float>(static_cast<int>(h & 1023u)) * kScale - 1.0f;
+  gy = static_cast<float>(static_cast<int>((h >> 10) & 1023u)) * kScale -
+       1.0f;
+  gz = static_cast<float>(static_cast<int>((h >> 20) & 1023u)) * kScale -
+       1.0f;
+  const float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-6f));
+  gx = gx * inv;
+  gy = gy * inv;
+  gz = gz * inv;
+}
+
+// Gradient-lattice noise at q (rrt_tpu's _noise_rows): the hermite
+// blend of the 8 corners' gradient dots, in its order. With kGrad, also
+// its gradient in q (floor and the hash are constant).
+template <bool kGrad>
+__device__ __forceinline__ float lattice_noise(float qx, float qy, float qz,
+                                               float* grad) {
+  const float fx = floorf(qx), fy = floorf(qy), fz = floorf(qz);
+  const float ux = qx - fx, uy = qy - fy, uz = qz - fz;
+  const int i = static_cast<int>(fx), j = static_cast<int>(fy),
+            k = static_cast<int>(fz);
+  const float s[3] = {ux * ux * (3.0f - 2.0f * ux),
+                      uy * uy * (3.0f - 2.0f * uy),
+                      uz * uz * (3.0f - 2.0f * uz)};
+  // The hermite weights' derivatives, 6 u (1 - u).
+  const float ds[3] = {6.0f * ux * (1.0f - ux), 6.0f * uy * (1.0f - uy),
+                       6.0f * uz * (1.0f - uz)};
+  float acc = 0.0f;
+  if (kGrad) grad[0] = grad[1] = grad[2] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int di = c >> 2, dj = (c >> 1) & 1, dk = c & 1;
+    float gx, gy, gz;
+    lattice_grad(i + di, j + dj, k + dk, gx, gy, gz);
+    const float dotv = gx * (ux - static_cast<float>(di)) +
+                       gy * (uy - static_cast<float>(dj)) +
+                       gz * (uz - static_cast<float>(dk));
+    const float wx = di ? s[0] : 1.0f - s[0];
+    const float wy = dj ? s[1] : 1.0f - s[1];
+    const float wz = dk ? s[2] : 1.0f - s[2];
+    acc = acc + wx * wy * wz * dotv;
+    if (kGrad) {
+      const float dwx = di ? ds[0] : -ds[0];
+      const float dwy = dj ? ds[1] : -ds[1];
+      const float dwz = dk ? ds[2] : -ds[2];
+      grad[0] += dwx * wy * wz * dotv + wx * wy * wz * gx;
+      grad[1] += wx * dwy * wz * dotv + wx * wy * wz * gy;
+      grad[2] += wx * wy * dwz * dotv + wx * wy * wz * gz;
+    }
+  }
+  return acc;
+}
+
+// Turbulence at p, sum over 7 octaves of 0.5^k |noise(2^k p)| (rrt_tpu's
+// _turb_rows); with kGrad, also its gradient in p (d|n|/dn = sign(n),
+// 0 at 0).
+template <bool kGrad>
+__device__ __forceinline__ float turbulence(const float* p, float* grad) {
+  float acc = 0.0f, w = 1.0f, sc = 1.0f;
+  if (kGrad) grad[0] = grad[1] = grad[2] = 0.0f;
+#pragma unroll 1
+  for (int od = 0; od < 7; ++od) {
+    float g[3];
+    const float n = lattice_noise<kGrad>(p[0] * sc, p[1] * sc, p[2] * sc, g);
+    acc = acc + w * fabsf(n);
+    if (kGrad) {
+      const float k = n > 0.0f ? w * sc : (n < 0.0f ? -w * sc : 0.0f);
+      grad[0] += k * g[0];
+      grad[1] += k * g[1];
+      grad[2] += k * g[2];
+    }
+    w = w * 0.5f;
+    sc = sc * 2.0f;
+  }
+  return acc;
+}
+
+// atan on [-1, 1] (rrt_tpu's _atan_poly, max error about 1e-5) and the
+// atan2 and acos built on it (_atan2_rows, _acos_rows), the plain
+// versions' geometry.atan2_poly and sphere_uv.
+__device__ __forceinline__ float atan_poly(float z) {
+  const float z2 = z * z;
+  return z * (0.9998660f +
+              z2 * (-0.3302995f +
+                    z2 * (0.1801410f + z2 * (-0.0851330f + z2 * 0.0208351f))));
+}
+
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const bool swap = ay > ax;
+  const float num = swap ? ax : ay;
+  const float den = fmaxf(swap ? ay : ax, 1e-30f);
+  float r = atan_poly(num / den);
+  r = swap ? 1.57079637f - r : r;  // f32(pi / 2) - r
+  r = x < 0.0f ? 3.14159274f - r : r;
+  return y < 0.0f ? -r : r;
+}
+
+// A sphere's texture coordinates at the hit point h, center c, signed
+// radius srad: tu = clip((atan2(-z, x) + pi) / (2 pi)), tv = 1 -
+// clip(acos(-y) / pi) of the unit outward vector (rrt_tpu's kernel).
+__device__ __forceinline__ void sphere_uv(const float* h, const float* c,
+                                          float srad, float& tu, float& tv) {
+  const float inv_ar = 1.0f / fmaxf(fabsf(srad), 1e-20f);
+  const float ux = (h[0] - c[0]) * inv_ar;
+  const float uy = (h[1] - c[1]) * inv_ar;
+  const float uz = (h[2] - c[2]) * inv_ar;
+  const float y = fminf(fmaxf(-uy, -1.0f), 1.0f);
+  const float theta = atan2_poly(sqrtf(fmaxf(1.0f - y * y, 0.0f)), y);
+  const float phi = atan2_poly(-uz, ux) + 3.14159274f;
+  tu = fminf(fmaxf(phi * 0.159154937f, 0.0f), 1.0f);  // f32(0.5 / pi)
+  tv = 1.0f - fminf(fmaxf(theta * 0.318309873f, 0.0f), 1.0f);  // f32(1/pi)
+}
+
+// The texel a nearest lookup reads at (tu, tv) of image `img`:
+// x = int(tu aw), y = int(tv ah), clipped to the grid.
+__device__ __forceinline__ int texel_index(const TexView& t, float tu,
+                                           float tv, float img) {
+  const int xi = min(max(static_cast<int>(tu * static_cast<float>(t.aw)), 0),
+                     t.aw - 1);
+  const int yi = min(max(static_cast<int>(tv * static_cast<float>(t.ah)), 0),
+                     t.ah - 1);
+  const int im = min(max(static_cast<int>(img), 0), t.n_img - 1);
+  return (im * t.ah + yi) * t.aw + xi;
+}
 
 // The winner's center at the ray's time: pack rows 0-2, plus time times
 // rows 4-6 when the spheres move.
@@ -467,13 +671,17 @@ __device__ __forceinline__ void in_sphere(float g3, float g4, float g5,
 // and the scatter (shade's `kept` and kForAdjoint). With kEmit, a
 // diffuse_light draws nothing and does not scatter, and keeps its
 // checker parity in kept[0] (1 or 0: the emission's adjoint reads it).
-template <bool kForAdjoint, bool kEmit = false>
+// With kTex, a marble or image texture gives the albedo (the image's
+// uv and index from the caller, in sh.tu, sh.tv, sh.img; the atlas
+// `tex`); kForAdjoint then also keeps the turbulence's gradient.
+template <bool kForAdjoint, bool kEmit = false, bool kTex = false>
 __device__ __forceinline__ void shade_material(const float* mat, int stride,
                                                const Ray& r, float a,
                                                const float* out,
                                                uint32_t k0, uint32_t k1,
                                                int bounce, Shade& sh,
-                                               float* kept) {
+                                               float* kept,
+                                               const TexView* tex = nullptr) {
   sh.front = r.dx * out[0] + r.dy * out[1] + r.dz * out[2] < 0.0f;
   sh.sgn = sh.front ? 1.0f : -1.0f;
   sh.n[0] = out[0] * sh.sgn;
@@ -493,6 +701,23 @@ __device__ __forceinline__ void shade_material(const float* mat, int stride,
   sh.alb[0] = mat[c_row * stride];
   sh.alb[1] = mat[(c_row + 1) * stride];
   sh.alb[2] = mat[(c_row + 2) * stride];
+  if constexpr (kTex) {
+    const float tt = mat[kMatTexType * stride];
+    if (tt == kTexPerlin) {
+      const float turb = turbulence<kForAdjoint>(sh.h, sh.dturb);
+      sh.phase = mat[kMatTexScale * stride] * sh.h[2] + 10.0f * turb;
+      sh.marble = 0.5f * (1.0f + sinf(sh.phase));
+      sh.alb[0] = sh.marble * sh.alb[0];
+      sh.alb[1] = sh.marble * sh.alb[1];
+      sh.alb[2] = sh.marble * sh.alb[2];
+    } else if (tt == kTexImage) {
+      sh.texel = texel_index(*tex, sh.tu, sh.tv, sh.img);
+      const float4 c = tex->atlas[sh.texel];
+      sh.alb[0] = c.x;
+      sh.alb[1] = c.y;
+      sh.alb[2] = c.z;
+    }
+  }
 
   if constexpr (kForAdjoint) {
     sh.reflect = false;
@@ -590,12 +815,15 @@ __device__ __forceinline__ void shade_material(const float* mat, int stride,
 //
 // kForAdjoint (the backward's sweep) takes those from `kept` instead of
 // drawing: it fills only what scatter_adjoint reads (not unit, degen,
-// scattered, nor nd but for a refraction). kEmit: shade_material's.
-template <bool kMoving, bool kForAdjoint = false, bool kEmit = false>
+// scattered, nor nd but for a refraction). kEmit, kTex and `tex`:
+// shade_material's (the image's uv is the sphere's, sphere_uv).
+template <bool kMoving, bool kForAdjoint = false, bool kEmit = false,
+          bool kTex = false>
 __device__ __forceinline__ void shade(const float* col, int n_slots,
                                       const Ray& r, float a, float t,
                                       uint32_t k0, uint32_t k1, int bounce,
-                                      Shade& sh, float* kept = nullptr) {
+                                      Shade& sh, float* kept = nullptr,
+                                      const TexView* tex = nullptr) {
   sh.h[0] = r.ox + t * r.dx;
   sh.h[1] = r.oy + t * r.dy;
   sh.h[2] = r.oz + t * r.dz;
@@ -606,8 +834,15 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
   const float out[3] = {(sh.h[0] - c[0]) * sh.inv_r,
                         (sh.h[1] - c[1]) * sh.inv_r,
                         (sh.h[2] - c[2]) * sh.inv_r};
-  shade_material<kForAdjoint, kEmit>(col + kRowMatType * n_slots, n_slots, r,
-                                     a, out, k0, k1, bounce, sh, kept);
+  if constexpr (kTex) {
+    if (col[kRowTexType * n_slots] == kTexImage) {
+      sphere_uv(sh.h, c, srad, sh.tu, sh.tv);
+      sh.img = col[kRowImage * n_slots];
+    }
+  }
+  shade_material<kForAdjoint, kEmit, kTex>(col + kRowMatType * n_slots,
+                                           n_slots, r, a, out, k0, k1, bounce,
+                                           sh, kept, tex);
 }
 
 // ---------------------------------------------------------------------------
@@ -642,6 +877,7 @@ struct Solids {
   int box_slots;
   const float* med;   // the (D, 24) medium pack in device memory
   int n_media;        // its rows [0, n_media) are tested
+  TexView tex;        // the textures (kTex; every variant carries it)
 };
 
 // Shared memory of the staged solids (after the BVH, 16-byte aligned).
@@ -843,6 +1079,26 @@ __device__ __forceinline__ const float* solid_surface(const Solids& sv,
   return sv.box + kBoxMatRow * stride + win;
 }
 
+// The image coordinates of solid `win` of family `fam` at the hit
+// point sh.h (kTex): a quad's (clip(alpha), 1 - clip(beta)) on its
+// staged frame, alpha = h.g - q.g and beta = h.h - q.h, and its image
+// index (pack row 20); a box's 0 (a box with an image is built as
+// quads).
+__device__ __forceinline__ void solid_uv(const Solids& sv, int fam, int win,
+                                         Shade& sh) {
+  sh.tu = 0.0f;
+  sh.tv = 1.0f;
+  sh.img = 0.0f;
+  if (fam != kFamQuad) return;
+  const float4 g = sv.qg[win];
+  const float4 h = sv.qh[win];
+  const float alpha = (sh.h[0] * g.x + sh.h[1] * g.y + sh.h[2] * g.z) - g.w;
+  const float beta = (sh.h[0] * h.x + sh.h[1] * h.y + sh.h[2] * h.z) - h.w;
+  sh.tu = fminf(fmaxf(alpha, 0.0f), 1.0f);
+  sh.tv = 1.0f - fminf(fmaxf(beta, 0.0f), 1.0f);
+  sh.img = sv.quad[kQuadImageRow * sv.quad_slots + win];
+}
+
 // The medium pack's columns (ops/megakernel.py pack_media: (D, 24)
 // row-major, rrt_tpu's layout): boundary type (0 sphere, 1 box), center,
 // radius, half extents, the world-from-box rotation row major,
@@ -1024,9 +1280,11 @@ struct Path {
 // of family `fam` (a quad, box or medium of `sv`, or a sphere), and a hit
 // on a diffuse_light banks throughput x its color into `rad` and ends
 // the path (kEmitted). kMedia = false leaves the media's shade out (a
-// caller that knows the scene has none). Returns the Outcome; on
+// caller that knows the scene has none). kTex: textures, sv->tex (sv is
+// then given with or without kSolids). Returns the Outcome; on
 // kScattered the path has moved on (its time stays).
-template <bool kMoving, bool kSolids = false, bool kMedia = true>
+template <bool kMoving, bool kSolids = false, bool kMedia = true,
+          bool kTex = false>
 __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
                                              const float* bg, bool sky,
                                              uint32_t k0, uint32_t k1,
@@ -1048,8 +1306,9 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
   Shade sh;
   if constexpr (kSolids) {
     if (fam == kFamSphere) {
-      shade<kMoving, false, true>(sph + win, n_slots, p.ray, q.a, t_best,
-                                  k0, k1, bounce, sh, kept);
+      shade<kMoving, false, true, kTex>(sph + win, n_slots, p.ray, q.a,
+                                        t_best, k0, k1, bounce, sh, kept,
+                                        &sv->tex);
     } else if (kMedia && fam == kFamMedium) {
       shade_medium(sv->med + win * kMedCols, p.ray, t_best, k0, k1, bounce,
                    sh);
@@ -1060,8 +1319,9 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
       float out[3];
       int stride;
       const float* mat = solid_surface(*sv, fam, win, sh.h, out, stride);
-      shade_material<false, true>(mat, stride, p.ray, q.a, out, k0, k1,
-                                  bounce, sh, kept);
+      if constexpr (kTex) solid_uv(*sv, fam, win, sh);
+      shade_material<false, true, kTex>(mat, stride, p.ray, q.a, out, k0, k1,
+                                        bounce, sh, kept, &sv->tex);
     }
     if (sh.mtype == kMatDiffuseLight) {  // emits and ends, at any depth
       rad[0] = p.thr[0] * sh.alb[0];
@@ -1070,8 +1330,9 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
       return kEmitted;
     }
   } else {
-    shade<kMoving>(sph + win, n_slots, p.ray, q.a, t_best, k0, k1, bounce,
-                   sh, kept);
+    shade<kMoving, false, false, kTex>(sph + win, n_slots, p.ray, q.a,
+                                       t_best, k0, k1, bounce, sh, kept,
+                                       kTex ? &sv->tex : nullptr);
   }
   if (!sh.scattered || bounce >= max_depth) return kAbsorbed;
   if (sh.mtype != kMatDielectric) {  // dielectrics attenuate by 1
@@ -1129,8 +1390,9 @@ __device__ __forceinline__ float closest_hit(const Closest& closest,
 // BvhWalk, below: the same (t, win) bit for bit; with kSolids seeded by
 // the quads and boxes of `sv`, closest_hit), then finish_bounce. `win`
 // is the winner, -1 on a miss (with kSolids its winner_code); `kept`: as
-// shade's.
-template <bool kMoving, bool kSolids = false, typename Closest>
+// shade's; kTex: finish_bounce's.
+template <bool kMoving, bool kSolids = false, bool kTex = false,
+          typename Closest>
 __device__ __forceinline__ int bounce_step(const Closest& closest,
                                            const float* sph, int n_slots,
                                            const float* bg, bool sky,
@@ -1142,16 +1404,16 @@ __device__ __forceinline__ int bounce_step(const Closest& closest,
   const RayDots q = ray_dots(p.ray);
   if constexpr (!kSolids) {
     const float t_best = closest(p.ray, q, t_min, win);
-    return finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1, bounce,
-                                  max_depth, q, t_best, p, rad, win, kept);
+    return finish_bounce<kMoving, false, true, kTex>(
+        sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, rad,
+        win, kept, kFamSphere, sv);
   } else {
     int fam;
     const float t_best = closest_hit<true>(closest, sv, p.ray, q, t_min, fam,
                                            win, k0, k1, bounce);
-    const int out = finish_bounce<kMoving, true>(sph, n_slots, bg, sky, k0,
-                                                 k1, bounce, max_depth, q,
-                                                 t_best, p, rad, win, kept,
-                                                 fam, sv);
+    const int out = finish_bounce<kMoving, true, true, kTex>(
+        sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, rad,
+        win, kept, fam, sv);
     win = winner_code(fam, win);
     return out;
   }
@@ -1427,9 +1689,9 @@ struct BvhWalk {
 // (train_fwd) it keeps the backward's residual: each path's bounce
 // count in lengths[s * n_pix + gid], and the winner of the pixel's j-th
 // segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss;
-// with kSolids its winner_code).
+// with kSolids its winner_code). kTex: bounce_step's (sv given).
 template <bool kMoving, bool kResidual, bool kSolids = false,
-          typename Closest>
+          bool kTex = false, typename Closest>
 __device__ __forceinline__ void trace_pixel(
     const Closest& closest, const float* sph, int n_slots, const float* cam,
     const float* bg, uint32_t s0, uint32_t s1, uint32_t lo, int px, int py,
@@ -1447,10 +1709,9 @@ __device__ __forceinline__ void trace_pixel(
   for (;;) {
     float c[3];
     int win;
-    const int out = bounce_step<kMoving, kSolids>(closest, sph, n_slots, bg,
-                                                  sky, k0, k1, bounce,
-                                                  max_depth, t_min, p, c, win,
-                                                  nullptr, sv);
+    const int out = bounce_step<kMoving, kSolids, kTex>(
+        closest, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, t_min, p,
+        c, win, nullptr, sv);
     if (kResidual && n_traced < win_cap) {
       winners[static_cast<size_t>(n_traced) * n_pix + gid] =
           static_cast<int16_t>(win);

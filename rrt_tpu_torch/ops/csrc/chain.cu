@@ -6,7 +6,11 @@
 // tile_render.cu: static and moving spheres (a kMoving instantiation),
 // and quads, boxes rotated about Y and diffuse_light (a kSolids
 // instantiation: the solid families staged after the BVH, as
-// bounce_steps_kernel stages them).
+// bounce_steps_kernel stages them), and perlin-marble and image textures
+// (a kTex instantiation: a marble's cotangents reach its color1, texture
+// scale and, through the turbulence's gradient, the hit point; an
+// image's go to its texel of the atlas cotangent, four-float atomics in
+// device memory; a light's emission then takes emit_adjoint_tex).
 // rrt_tpu_torch/ops/megakernel_vjp.py holds the wrapper
 // (chain_adjoint), its plain PyTorch version (chain_adjoint_reference)
 // and the autograd.Function BounceChain, whose forward is queue.cu's
@@ -87,8 +91,8 @@ constexpr int kBgCols = 8;  // 6 background rows, 2 pad
 // The backward of one lane: writes its rows of d_in, adds its pack
 // cotangents to `acc` (its block's row of the partials, kSlotCols floats
 // a slot: the spheres', then with kSolids the active quads' and boxes')
-// and its background ones to g_bg.
-template <bool kMoving, bool kSolids>
+// and its background ones to g_bg. kTex: sv's textures.
+template <bool kMoving, bool kSolids, bool kTex>
 __device__ __forceinline__ void adjoint_lane(
     const BvhWalk<kMoving>& walk, const float* sph, int n_slots,
     const Solids& sv, const float* bg, const float* st,
@@ -128,9 +132,10 @@ __device__ __forceinline__ void adjoint_lane(
     r.d[0] = p.ray.dx; r.d[1] = p.ray.dy; r.d[2] = p.ray.dz;
     r.thr[0] = p.thr[0]; r.thr[1] = p.thr[1]; r.thr[2] = p.thr[2];
     float c[3];
-    last = bounce_step<kMoving, kSolids>(walk, sph, n_slots, bg, sky, k0, k1,
-                                         bounce0 + k, max_depth, t_min, p, c,
-                                         r.win, kept[k], &sv);
+    last = bounce_step<kMoving, kSolids, kTex>(walk, sph, n_slots, bg, sky,
+                                               k0, k1, bounce0 + k, max_depth,
+                                               t_min, p, c, r.win, kept[k],
+                                               &sv);
     if (last != kScattered) break;
   }
   // 2. the replay must end on the forward's bounce row.
@@ -153,8 +158,15 @@ __device__ __forceinline__ void adjoint_lane(
     miss_adjoint(rec[k], gp, bg, sky, gd, gt, g_bg);
   }
   if constexpr (kSolids) {
-    if (last == kEmitted) emit_adjoint(sph, n_slots, sv, rec[k], kept[k], gp,
-                                       gt, acc);
+    if (last == kEmitted) {
+      if constexpr (kTex) {
+        emit_adjoint_tex<kMoving>(sph, n_slots, sv, rec[k], k0, k1,
+                                  bounce0 + k, t_min, p.ray.time, kept[k], gp,
+                                  go, gd, gt, g_time, acc);
+      } else {
+        emit_adjoint(sph, n_slots, sv, rec[k], kept[k], gp, gt, acc);
+      }
+    }
   }
   // A surface that absorbs or ends the depth: the identity.
   if (last != kScattered) --k;
@@ -163,19 +175,24 @@ __device__ __forceinline__ void adjoint_lane(
       int slot;
       const int fam = code_family(rec[k].win, slot);
       if (fam != kFamSphere) {
-        RowSums<kSolidRows> sums{};
-        solid_scatter_adjoint(sv, fam, slot, rec[k], k0, k1, bounce0 + k,
-                              t_min, go, gd, gt, sums, kept[k]);
-        add_slot<kSolidRows>(acc + winner_column(n_slots, &sv, fam, slot),
-                             sums.g);
+        constexpr int kRows = kTex ? kTexRows : kSolidRows;
+        RowSums<kRows> sums{};
+        solid_scatter_adjoint<decltype(sums), kTex>(sv, fam, slot, rec[k], k0,
+                                                    k1, bounce0 + k, t_min,
+                                                    go, gd, gt, sums,
+                                                    kept[k]);
+        add_slot<kRows>(acc + winner_column(n_slots, &sv, fam, slot),
+                        sums.g);
         continue;
       }
     }
-    RowSums<grad_rows(kMoving)> sums;
-    scatter_adjoint<kMoving, decltype(sums), true>(
+    constexpr int kRows = sphere_rows(kMoving, kTex);
+    RowSums<kRows> sums;
+    if constexpr (kTex) sums = RowSums<kRows>{};
+    scatter_adjoint<kMoving, decltype(sums), true, kTex>(
         sph, n_slots, rec[k], k0, k1, bounce0 + k, t_min, p.ray.time, go, gd,
-        gt, sums, g_time, kept[k]);
-    add_slot<grad_rows(kMoving)>(acc + rec[k].win * kSlotCols, sums.g);
+        gt, sums, g_time, kept[k], &sv.tex);
+    add_slot<kRows>(acc + rec[k].win * kSlotCols, sums.g);
   }
   for (int j = 0; j < 3; ++j) {
     dsi[(kStO + j) * n] = go[j];
@@ -186,7 +203,7 @@ __device__ __forceinline__ void adjoint_lane(
   dsi[kStTime * n] = g_time;
 }
 
-template <bool kMoving, bool kSolids>
+template <bool kMoving, bool kSolids, bool kTex>
 __global__ void __launch_bounds__(kThreads)
     chain_bwd_kernel(const float* __restrict__ st,
                      const uint32_t* __restrict__ keys, int q,
@@ -196,7 +213,8 @@ __global__ void __launch_bounds__(kThreads)
                      int n_always, const float* __restrict__ quad,
                      int quad_slots, int n_quads,
                      const float* __restrict__ box, int box_slots,
-                     int n_boxes, const float* __restrict__ bg_g,
+                     int n_boxes, TexView tex,
+                     const float* __restrict__ bg_g,
                      const float* __restrict__ d_out,
                      const float* __restrict__ out_bounce, int k_steps,
                      int max_depth, float t_min, float* __restrict__ d_in,
@@ -216,6 +234,7 @@ __global__ void __launch_bounds__(kThreads)
                       smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
                                  sizeof(float4));
   }
+  sv.tex = tex;
   const int tid = threadIdx.x;
   if (tid < 8) bg[tid] = bg_g[tid];
   const int n_acc =
@@ -228,10 +247,11 @@ __global__ void __launch_bounds__(kThreads)
   float g_bg[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const int lane = blockIdx.x * blockDim.x + tid;
   if (lane < q) {  // no early return: all threads sync below
-    adjoint_lane<kMoving, kSolids>(walk, sph, n_slots, sv, bg, st, keys,
-                                   static_cast<size_t>(q), lane, d_out,
-                                   out_bounce, k_steps, max_depth, t_min,
-                                   d_in, out, g_bg, mismatches);
+    adjoint_lane<kMoving, kSolids, kTex>(walk, sph, n_slots, sv, bg, st,
+                                         keys, static_cast<size_t>(q), lane,
+                                         d_out, out_bounce, k_steps,
+                                         max_depth, t_min, d_in, out, g_bg,
+                                         mismatches);
   }
 
   // Background: warp sums, then warps in order.
@@ -263,13 +283,15 @@ __global__ void __launch_bounds__(kThreads)
 // kSlotCols floats a slot, a sphere's 12 (15 when moving) gradient rows
 // then zeros, then the active quads' and boxes' columns (adjoint.cuh
 // kQuadAccPlane ...); then 6 background rows, 2 pad); mismatches: one
-// int32, zeroed by the caller.
+// int32, zeroed by the caller; tex: the atlas for the texture variant,
+// or null, its d_atlas (with images) the atlas cotangent, zeroed by the
+// caller.
 extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
                              const float* sph, int n_slots,
                              const float* nodes, const int* rows,
                              int n_nodes, int n_rows, int n_always,
-                             const SolidArgs* solids, const float* bg,
-                             const float* d_out, const float* out_bounce,
+                             const SolidArgs* solids, const TexArgs* tex,
+                             const float* bg, const float* d_out, const float* out_bounce,
                              int k_steps, int max_depth, float t_min,
                              int moving, float* d_in, float* scratch,
                              float* sums, int* mismatches, void* stream) {
@@ -287,10 +309,8 @@ extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
   }
   size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
   if (solids) smem = aligned16(smem) + solid_bytes(sa.n_quads, sa.n_boxes);
-  auto kernel = moving ? (solids ? chain_bwd_kernel<true, true>
-                                 : chain_bwd_kernel<true, false>)
-                       : (solids ? chain_bwd_kernel<false, true>
-                                 : chain_bwd_kernel<false, false>);
+  auto kernel = RRT_PICK3(chain_bwd_kernel, moving != 0, solids != nullptr,
+                          tex != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -299,7 +319,7 @@ extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
   kernel<<<n_blocks, kThreads, smem, s>>>(
       st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
       sa.quad, sa.quad_slots, sa.n_quads, sa.box, sa.box_slots, sa.n_boxes,
-      bg, d_out, out_bounce, k_steps, max_depth, t_min, d_in, scratch,
+      tex_view(tex), bg, d_out, out_bounce, k_steps, max_depth, t_min, d_in, scratch,
       mismatches);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -5,9 +5,9 @@
 // _bounce_megakernel (launched by _bounce_steps_launch): k_steps bounces
 // of every live lane of the queue state, for the scenes of
 // tile_render.cu (stationary and moving spheres, quads, boxes and
-// constant media, solid and checker textures, lambertian / metal /
-// dielectric / diffuse_light / isotropic, sky or solid background, no
-// Russian roulette). intersect_kernel replaces _intersect_kernel
+// constant media, solid, checker, perlin-marble and image textures,
+// lambertian / metal / dielectric / diffuse_light / isotropic, sky or
+// solid background, no Russian roulette). intersect_kernel replaces _intersect_kernel
 // (launched by intersect_only): the closest hit (t, family, slot) of each
 // ray over the spheres and, in its kSolids instantiation, the quads,
 // boxes and media (rrt_tpu's megakernel.py:1804-1840), a medium's draw
@@ -20,7 +20,8 @@
 // intersect takes the rays' times
 // as a (Q,) row beside the (3, Q) origins and directions; and a kSolids
 // one for scenes with quads, boxes or a light (bounce.cuh's, the solid
-// families staged after the BVH).
+// families staged after the BVH); bounce_steps also a kTex one for
+// scenes with perlin or image textures (intersect does not shade).
 // rrt_tpu_torch/ops/megakernel.py holds the wrappers
 // (bounce_steps, intersect_only) and the plain PyTorch versions
 // (bounce_steps_reference, intersect_only_reference).
@@ -90,7 +91,7 @@ __device__ __forceinline__ Solids stage_solids_after(
 // registers: with the media code the solid-family variant took 75
 // registers and 3 blocks, and cornell's 512 blocks two waves on 132 SMs
 // (30% slower in turns on an H100).
-template <bool kMoving, bool kSolids>
+template <bool kMoving, bool kSolids, bool kTex>
 __global__ void __launch_bounds__(kThreads, 4)
     bounce_steps_kernel(float* __restrict__ st,
                         const uint32_t* __restrict__ keys, int q,
@@ -102,15 +103,17 @@ __global__ void __launch_bounds__(kThreads, 4)
                         int n_quads, const float* __restrict__ box,
                         int box_slots, int n_boxes,
                         const float* __restrict__ med, int n_media,
-                        const float* __restrict__ bg_g, int k_steps,
+                        TexView tex, const float* __restrict__ bg_g,
+                        int k_steps,
                         int max_depth, float t_min) {
   extern __shared__ float4 smem[];
   __shared__ float bg[8];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
-  const Solids sv = stage_solids_after<kMoving, kSolids>(
+  Solids sv = stage_solids_after<kMoving, kSolids>(
       smem, n_nodes, n_rows, quad, quad_slots, n_quads, box, box_slots,
       n_boxes, med, n_media);
+  sv.tex = tex;
   if (threadIdx.x < 8) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
@@ -142,10 +145,9 @@ __global__ void __launch_bounds__(kThreads, 4)
     traced += 1.0f;
     float c[3];
     int win;
-    const int out = bounce_step<kMoving, kSolids>(walk, sph, n_slots, bg,
-                                                  sky, k0, k1, bounce,
-                                                  max_depth, t_min, p, c, win,
-                                                  nullptr, &sv);
+    const int out = bounce_step<kMoving, kSolids, kTex>(
+        walk, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, t_min, p, c,
+        win, nullptr, &sv);
     if (out == kMissed || (kSolids && out == kEmitted)) {
       pend[0] += c[0];
       pend[1] += c[1];
@@ -250,23 +252,24 @@ size_t launch_smem(int n_nodes, int n_rows, bool moving,
              : smem;
 }
 
-template <bool kMoving, bool kSolids>
+template <bool kMoving, bool kSolids, bool kTex>
 int launch_bounce_steps(size_t smem, cudaStream_t stream, float* st,
                         const uint32_t* keys, int q, const float* sph,
                         int n_slots, const float* nodes, const int* rows,
                         int n_nodes, int n_rows, int n_always,
                         const float* quad, int quad_slots, int n_quads,
                         const float* box, int box_slots, int n_boxes,
-                        const float* med, int n_media, const float* bg,
-                        int k_steps, int max_depth, float t_min) {
-  auto kernel = bounce_steps_kernel<kMoving, kSolids>;
+                        const float* med, int n_media, TexView tex,
+                        const float* bg, int k_steps, int max_depth,
+                        float t_min) {
+  auto kernel = bounce_steps_kernel<kMoving, kSolids, kTex>;
   const int err = set_smem(kernel, smem);
   if (err != 0) return err;
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, stream>>>(
       st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
-      quad, quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, bg,
-      k_steps, max_depth, t_min);
+      quad, quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, tex,
+      bg, k_steps, max_depth, t_min);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -294,28 +297,26 @@ int launch_intersect(size_t smem, cudaStream_t stream, const float* o,
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // st: (16, q) f32, updated in place; keys: (2, q) u32; sph: (24, n_slots)
-// f32; the BVH and the solid families (solids, or null) as
-// rrt_tile_render's; bg: (8,) f32; all on the device; moving: nonzero for
+// f32; the BVH, the solid families (solids, or null) and the textures
+// (tex, or null) as rrt_tile_render's; bg: (8,) f32; all on the device; moving: nonzero for
 // the moving-sphere variant.
 extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 const float* sph, int n_slots,
                                 const float* nodes, const int* rows,
                                 int n_nodes, int n_rows, int n_always,
-                                const SolidArgs* solids, const float* bg,
-                                int k_steps, int max_depth, float t_min,
-                                int moving, void* stream) {
+                                const SolidArgs* solids, const TexArgs* tex,
+                                const float* bg, int k_steps, int max_depth,
+                                float t_min, int moving, void* stream) {
   if (q == 0) return 0;
   const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
-  auto go = moving ? (solids ? launch_bounce_steps<true, true>
-                             : launch_bounce_steps<true, false>)
-                   : (solids ? launch_bounce_steps<false, true>
-                             : launch_bounce_steps<false, false>);
+  auto go = RRT_PICK3(launch_bounce_steps, moving != 0, solids != nullptr,
+                      tex != nullptr);
   return go(launch_smem(n_nodes, n_rows, moving != 0, solids),
             static_cast<cudaStream_t>(stream), st, keys, q, sph, n_slots,
             nodes, rows, n_nodes, n_rows, n_always, sa.quad, sa.quad_slots,
             sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media,
-            bg, k_steps, max_depth, t_min);
+            tex_view(tex), bg, k_steps, max_depth, t_min);
 }
 
 // o, d: (3, q) f32; time: (q,) f32 when moving (else unused, may be

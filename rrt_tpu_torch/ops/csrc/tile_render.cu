@@ -3,8 +3,8 @@
 //
 // Replaces rrt_tpu/ops/megakernel.py::_tile_render_kernel (launched by
 // _render_tiles_launch) for the scenes rrt_tpu_torch renders: stationary
-// and moving spheres, quads, boxes and constant media, solid and checker
-// textures, lambertian / metal / dielectric / diffuse_light / isotropic
+// and moving spheres, quads, boxes and constant media, solid, checker,
+// perlin-marble and image textures, lambertian / metal / dielectric / diffuse_light / isotropic
 // materials, sky or solid background, a thin-lens camera with a shutter,
 // no Russian roulette. A
 // scene with moving spheres launches the kMoving instantiation
@@ -14,7 +14,9 @@
 // rows after the BVH (stage_solids) and tests them before the walk,
 // seeding it (the Cornell box: six quads, two boxes, no sphere), then
 // the media against the closest solid's t, their rows read from the
-// medium pack in device memory (cornell_smoke: six quads, two media).
+// medium pack in device memory (cornell_smoke: six quads, two media);
+// a scene with perlin or image textures the kTex one (simple_light:
+// kSolids and kTex; earth: kTex alone), which shades them (bounce.cuh).
 // rrt_tpu_torch/ops/megakernel.py holds the wrapper (render_tiles), the
 // packs' layouts and the plain PyTorch version (render_tiles_reference).
 //
@@ -65,7 +67,7 @@
 
 namespace {
 
-template <bool kMoving, bool kSolids>
+template <bool kMoving, bool kSolids, bool kTex>
 __global__ void __launch_bounds__(256, 4)
     tile_render_kernel(const float* __restrict__ sph, int n_slots,
                        const float* __restrict__ cam_g,
@@ -77,7 +79,7 @@ __global__ void __launch_bounds__(256, 4)
                        int n_quads, const float* __restrict__ box,
                        int box_slots, int n_boxes,
                        const float* __restrict__ med, int n_media,
-                       uint32_t s0, uint32_t s1,
+                       TexView tex, uint32_t s0, uint32_t s1,
                        uint32_t lo, int width, int height, int spp,
                        int max_depth, float t_min, float* __restrict__ rad,
                        int* __restrict__ traced) {
@@ -93,6 +95,7 @@ __global__ void __launch_bounds__(256, 4)
                                  sizeof(float4),
                       med, n_media);
   }
+  sv.tex = tex;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < 24) cam[tid] = cam_g[tid];
   if (tid < 8) bg[tid] = bg_g[tid];
@@ -101,32 +104,31 @@ __global__ void __launch_bounds__(256, 4)
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  trace_pixel<kMoving, false, kSolids>(walk, sph, n_slots, cam, bg, s0, s1,
-                                       lo, px, py, width, width * height, spp,
-                                       max_depth, t_min, 0, rad, traced,
-                                       nullptr, nullptr, &sv);
+  trace_pixel<kMoving, false, kSolids, kTex>(
+      walk, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
+      spp, max_depth, t_min, 0, rad, traced, nullptr, nullptr, &sv);
 }
 
-template <bool kMoving, bool kSolids>
+template <bool kMoving, bool kSolids, bool kTex>
 int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
            const float* sph, int n_slots, const float* cam, const float* bg,
            const float* nodes, const int* rows, int n_nodes, int n_rows,
            int n_always, const float* quad, int quad_slots, int n_quads,
            const float* box, int box_slots, int n_boxes, const float* med,
-           int n_media, uint32_t s0, uint32_t s1, uint32_t lo, int width,
+           int n_media, TexView tex, uint32_t s0, uint32_t s1, uint32_t lo, int width,
            int height, int spp, int max_depth, float t_min, float* rad,
            int* traced) {
   // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
   // what the card allows.
-  auto kernel = tile_render_kernel<kMoving, kSolids>;
+  auto kernel = tile_render_kernel<kMoving, kSolids, kTex>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, block, smem, stream>>>(
       sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always, quad,
-      quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, s0, s1, lo,
-      width, height, spp, max_depth, t_min, rad, traced);
+      quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, tex, s0, s1,
+      lo, width, height, spp, max_depth, t_min, rad, traced);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -138,14 +140,16 @@ int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
 // the first n_always are tested by every segment, all on the device;
 // moving: nonzero for the moving-sphere variant; solids: the quad and box
 // packs (at most kSolidCap active slots each) and the medium pack (any
-// number of media) for the solid-family variant, or null; rad:
+// number of media) for the solid-family variant, or null; tex: the atlas
+// for the texture variant, or null; rad:
 // (width*height, 3) f32 and traced:
 // (width*height,) i32 outputs.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const float* cam, const float* bg,
                                const float* nodes, const int* rows,
                                int n_nodes, int n_rows, int n_always,
-                               const SolidArgs* solids, uint32_t s0,
+                               const SolidArgs* solids,
+                               const TexArgs* tex, uint32_t s0,
                                uint32_t s1, uint32_t lo, int width,
                                int height, int spp, int max_depth,
                                float t_min, int moving, float* rad,
@@ -158,11 +162,11 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
   size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
   if (solids) smem = aligned16(smem) + solid_bytes(sa.n_quads, sa.n_boxes);
   const auto st = static_cast<cudaStream_t>(stream);
-  auto go = moving ? (solids ? launch<true, true> : launch<true, false>)
-                   : (solids ? launch<false, true> : launch<false, false>);
+  auto go = RRT_PICK3(launch, moving != 0, solids != nullptr, tex != nullptr);
   return go(grid, block, smem, st, sph, n_slots, cam, bg, nodes, rows,
             n_nodes, n_rows, n_always, sa.quad, sa.quad_slots, sa.n_quads,
-            sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media, s0, s1, lo,
+            sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media,
+            tex_view(tex), s0, s1, lo,
             width, height, spp, max_depth, t_min, rad, traced);
 }
 

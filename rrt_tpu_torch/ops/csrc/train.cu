@@ -8,7 +8,11 @@
 // up to 8 constant media (a kSolids instantiation, the Cornell box's and
 // cornell_smoke's; bounce.cuh's solid families, the quads and boxes
 // staged in shared memory after the spheres, the media read from their
-// pack in device memory).
+// pack in device memory), and perlin-marble and image textures (a kTex
+// instantiation of each: simple_light's and earth's; the backward adds
+// a marble's cotangents to its color1, texture scale and hit point, and
+// an image's to its texel of the atlas cotangent in device memory with
+// four-float atomics, so that output repeats only within a spread).
 // rrt_tpu_torch/ops/megakernel_train.py holds the wrappers
 // (render_tiles_train, tiles_adjoint, the autograd.Function
 // TileTrainChain) and their plain PyTorch versions.
@@ -158,7 +162,7 @@ inline size_t with_solids(size_t base, const SolidArgs* solids) {
              : base;
 }
 
-template <bool kMoving, bool kSolids>
+template <bool kMoving, bool kSolids, bool kTex>
 __global__ void __launch_bounds__(256, kFwdMinBlocks)
     train_fwd_kernel(const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ cam_g,
@@ -167,9 +171,9 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
                      int n_quads, const float* __restrict__ box,
                      int box_slots, int n_boxes,
                      const float* __restrict__ med, int n_media,
-                     uint32_t s0, uint32_t s1, uint32_t lo, int width,
-                     int height, int spp, int max_depth, float t_min,
-                     int win_cap,
+                     TexView tex, uint32_t s0, uint32_t s1, uint32_t lo,
+                     int width, int height, int spp, int max_depth,
+                     float t_min, int win_cap,
                      float* __restrict__ rad, int* __restrict__ traced,
                      uint8_t* __restrict__ lengths,
                      int16_t* __restrict__ winners) {
@@ -185,19 +189,19 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
   __shared__ float bg[8];
   stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
   if (kHoist) stage_center_sq(sph, n_slots, csq);
-  const Solids sv = stage_solids_at<kSolids>(
+  Solids sv = stage_solids_at<kSolids>(
       sph4, fwd_smem(n_slots, kMoving), quad, quad_slots, n_quads, box,
       box_slots, n_boxes, med, n_media);
+  sv.tex = tex;
   __syncthreads();
 
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
   const SlotScan<kMoving, kHoist> scan{sph4, vel4, csq, n_slots};
-  trace_pixel<kMoving, true, kSolids>(scan, sph, n_slots, cam, bg, s0, s1, lo,
-                                      px, py, width, width * height, spp,
-                                      max_depth, t_min, win_cap, rad, traced,
-                                      lengths, winners, &sv);
+  trace_pixel<kMoving, true, kSolids, kTex>(
+      scan, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
+      spp, max_depth, t_min, win_cap, rad, traced, lengths, winners, &sv);
 }
 
 // Adjoint of camera_ray: the cotangents of the bounce-0 origin,
@@ -245,13 +249,14 @@ constexpr int kUnstored = -2;
 // stored (-1: the forward missed), recomputed alone (slot_t), otherwise
 // the scan. A stored winner that is no slot, or gives no root beyond
 // t_min, counts in `bad`, and the bounce scans instead. `win` gets the
-// winner (-1 on a miss). Returns the Outcome, as bounce_step.
-template <bool kMoving>
+// winner (-1 on a miss). Returns the Outcome, as bounce_step. kTex: the
+// textures of sv.
+template <bool kMoving, bool kTex>
 __device__ __forceinline__ int replay_step(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
-    const float* bg, bool sky, uint32_t k0, uint32_t k1, int bounce,
-    int max_depth, float t_min, int stored, Path& p, int& win, int& bad,
-    float* kept) {
+    const Solids& sv, const float* bg, bool sky, uint32_t k0, uint32_t k1,
+    int bounce, int max_depth, float t_min, int stored, Path& p, int& win,
+    int& bad, float* kept) {
   const RayDots q = ray_dots(p.ray);
   float t_best = kInf;
   win = stored;
@@ -271,8 +276,9 @@ __device__ __forceinline__ int replay_step(
         closest_sphere<kMoving>(sph4, vel4, n_slots, p.ray, q, t_min, win);
   }
   float c[3];
-  return finish_bounce<kMoving>(sph, n_slots, bg, sky, k0, k1, bounce,
-                                max_depth, q, t_best, p, c, win, kept);
+  return finish_bounce<kMoving, false, true, kTex>(
+      sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, c, win,
+      kept, kFamSphere, &sv);
 }
 
 // replay_step of the solid-family variant: `stored` is a winner_code,
@@ -281,8 +287,8 @@ __device__ __forceinline__ int replay_step(
 // scan is seeded by the quads and boxes of sv and followed by its media. A
 // light's hit ends the path (kEmitted) and keeps its checker parity in
 // kept[0]. `win` gets the winner's code (-1 on a miss). kMedia = false:
-// sv has no media, and their code is left out.
-template <bool kMoving, bool kMedia>
+// sv has no media, and their code is left out. kTex: sv's textures.
+template <bool kMoving, bool kMedia, bool kTex>
 __device__ __forceinline__ int replay_solid_step(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* bg, bool sky, uint32_t k0, uint32_t k1,
@@ -318,7 +324,7 @@ __device__ __forceinline__ int replay_solid_step(
         scan, &sv, p.ray, q, t_min, fam, slot, k0, k1, bounce);
   }
   float c[3];
-  const int out = finish_bounce<kMoving, true, kMedia>(
+  const int out = finish_bounce<kMoving, true, kMedia, kTex>(
       sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, c, slot,
       kept, fam, &sv);
   win = winner_code(fam, slot);
@@ -329,8 +335,9 @@ __device__ __forceinline__ int replay_solid_step(
 // into `acc` (the block's row of the partials, kSlotCols floats a slot:
 // the spheres', then with kSolids the active quads', boxes' and media's),
 // camera and background ones into g_cam / g_bg. kMedia = false: sv has
-// no media, and their code is left out.
-template <bool kMoving, bool kSolids, bool kMedia>
+// no media, and their code is left out. kTex: sv's textures (a light's
+// emission then through emit_adjoint_tex).
+template <bool kMoving, bool kSolids, bool kMedia, bool kTex>
 __device__ __forceinline__ void adjoint_pixel(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* cam, const float* bg, uint32_t s0,
@@ -367,13 +374,14 @@ __device__ __forceinline__ void adjoint_pixel(
               ? winners[static_cast<size_t>(j) * n_pix + gid]
               : kUnstored;
       if constexpr (kSolids) {
-        last = replay_solid_step<kMoving, kMedia>(
+        last = replay_solid_step<kMoving, kMedia, kTex>(
             sph, sph4, vel4, n_slots, sv, bg, sky, k0, k1, bounce, max_depth,
             t_min, stored, p, r.win, bad, kept[n - 1]);
       } else {
-        last = replay_step<kMoving>(sph, sph4, vel4, n_slots, bg, sky, k0,
-                                    k1, bounce, max_depth, t_min, stored, p,
-                                    r.win, bad, kept[n - 1]);
+        last = replay_step<kMoving, kTex>(sph, sph4, vel4, n_slots, sv, bg,
+                                          sky, k0, k1, bounce, max_depth,
+                                          t_min, stored, p, r.win, bad,
+                                          kept[n - 1]);
       }
       if (last != kScattered) break;
     }
@@ -388,8 +396,14 @@ __device__ __forceinline__ void adjoint_pixel(
     if (last == kMissed) miss_adjoint(rec[n - 1], dr, bg, sky, gd, gt, g_bg);
     if constexpr (kSolids) {
       if (last == kEmitted) {
-        emit_adjoint(sph, n_slots, sv, rec[n - 1], kept[n - 1], dr, gt,
-                     acc);
+        if constexpr (kTex) {
+          emit_adjoint_tex<kMoving>(sph, n_slots, sv, rec[n - 1], k0, k1,
+                                    n - 1, t_min, p.ray.time, kept[n - 1],
+                                    dr, go, gd, gt, g_time, acc);
+        } else {
+          emit_adjoint(sph, n_slots, sv, rec[n - 1], kept[n - 1], dr, gt,
+                       acc);
+        }
       }
     }
     for (int k = n - 2; k >= 0; --k) {
@@ -405,19 +419,23 @@ __device__ __forceinline__ void adjoint_pixel(
           continue;
         }
         if (fam != kFamSphere) {
-          RowSums<kSolidRows> sums{};
-          solid_scatter_adjoint(sv, fam, slot, rec[k], k0, k1, k, t_min, go,
-                                gd, gt, sums, kept[k]);
-          add_slot<kSolidRows>(acc + winner_column(n_slots, &sv, fam, slot),
-                               sums.g);
+          constexpr int kRows = kTex ? kTexRows : kSolidRows;
+          RowSums<kRows> sums{};
+          solid_scatter_adjoint<decltype(sums), kTex>(sv, fam, slot, rec[k],
+                                                      k0, k1, k, t_min, go,
+                                                      gd, gt, sums, kept[k]);
+          add_slot<kRows>(acc + winner_column(n_slots, &sv, fam, slot),
+                          sums.g);
           continue;
         }
       }
-      RowSums<grad_rows(kMoving)> sums;
-      scatter_adjoint<kMoving, decltype(sums), true>(
+      constexpr int kRows = sphere_rows(kMoving, kTex);
+      RowSums<kRows> sums;
+      if constexpr (kTex) sums = RowSums<kRows>{};
+      scatter_adjoint<kMoving, decltype(sums), true, kTex>(
           sph, n_slots, rec[k], k0, k1, k, t_min, p.ray.time, go, gd, gt,
-          sums, g_time, kept[k]);
-      add_slot<grad_rows(kMoving)>(acc + rec[k].win * kSlotCols, sums.g);
+          sums, g_time, kept[k], &sv.tex);
+      add_slot<kRows>(acc + rec[k].win * kSlotCols, sums.g);
     }
     camera_adjoint<kMoving>(cam, cd, static_cast<float>(px),
                             static_cast<float>(py), go, gd, g_time, g_cam);
@@ -425,7 +443,7 @@ __device__ __forceinline__ void adjoint_pixel(
   if (bad != 0) atomicAdd(mismatches, bad);
 }
 
-template <bool kMoving, bool kSolids>
+template <bool kMoving, bool kSolids, bool kTex>
 __global__ void __launch_bounds__(kBwdThreads)
     train_bwd_kernel(const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ cam_g,
@@ -434,7 +452,7 @@ __global__ void __launch_bounds__(kBwdThreads)
                      int n_quads, const float* __restrict__ box,
                      int box_slots, int n_boxes,
                      const float* __restrict__ med, int n_media,
-                     const float* __restrict__ d_rad,
+                     TexView tex, const float* __restrict__ d_rad,
                      const uint8_t* __restrict__ lengths,
                      const int16_t* __restrict__ winners, int win_cap,
                      uint32_t s0, uint32_t s1, uint32_t lo, int width,
@@ -456,9 +474,10 @@ __global__ void __launch_bounds__(kBwdThreads)
   __shared__ float bg[8];
   __shared__ float warp_part[kBwdThreads / 32][kCamBgCols];
   stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
-  const Solids sv = stage_solids_at<kSolids>(
+  Solids sv = stage_solids_at<kSolids>(
       smem, staged_bytes(n_slots, kMoving), quad, quad_slots, n_quads, box,
       box_slots, n_boxes, med, n_media);
+  sv.tex = tex;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < n_acc; i += kBwdThreads) out[i] = 0.0f;
   __syncthreads();
@@ -473,12 +492,12 @@ __global__ void __launch_bounds__(kBwdThreads)
     // code, the kernel's before media: with it, cornell's backward ran 5%
     // slower in turns on an H100 (more spills in the sweep).
     if (kSolids && n_media > 0) {
-      adjoint_pixel<kMoving, kSolids, true>(
+      adjoint_pixel<kMoving, kSolids, true, kTex>(
           sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
           width * height, spp, max_depth, t_min, d_rad, lengths, winners,
           win_cap, out, g_cam, g_bg, mismatches);
     } else {
-      adjoint_pixel<kMoving, kSolids, false>(
+      adjoint_pixel<kMoving, kSolids, false, kTex>(
           sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
           width * height, spp, max_depth, t_min, d_rad, lengths, winners,
           win_cap, out, g_cam, g_bg, mismatches);
@@ -518,14 +537,15 @@ int launch_tiles(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32 on the device;
 // solids: the quad and box packs (at most kSolidCap active slots each)
-// for the solid-family variant, or null; moving: nonzero for the
+// for the solid-family variant, or null; tex: the atlas for the texture
+// variant, or null; moving: nonzero for the
 // moving-sphere variant; outputs rad: (width*height, 3) f32, traced:
 // (width*height,) i32, lengths: (spp, width*height) uint8, winners:
 // (win_cap, width*height) int16, winner codes (the entries past a
 // pixel's segments are left as they were).
 extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
-                             uint32_t s0, uint32_t s1, uint32_t lo,
+                             const TexArgs* tex, uint32_t s0, uint32_t s1, uint32_t lo,
                              int width, int height, int spp, int max_depth,
                              float t_min, int moving, int win_cap,
                              float* rad, int* traced, uint8_t* lengths,
@@ -535,14 +555,12 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   const size_t smem = with_solids(fwd_smem(n_slots, moving != 0), solids);
   // As tile_render: 3072 slots need the opt-in above 48 KB.
-  auto kernel = moving ? (solids ? train_fwd_kernel<true, true>
-                                 : train_fwd_kernel<true, false>)
-                       : (solids ? train_fwd_kernel<false, true>
-                                 : train_fwd_kernel<false, false>);
+  auto kernel = RRT_PICK3(train_fwd_kernel, moving != 0, solids != nullptr,
+                          tex != nullptr);
   return launch_tiles(kernel, grid, smem, static_cast<cudaStream_t>(stream),
                       sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
                       sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med,
-                      sa.n_media, s0, s1, lo, width, height, spp, max_depth,
+                      sa.n_media, tex_view(tex), s0, s1, lo, width, height, spp, max_depth,
                       t_min, win_cap, rad, traced, lengths, winners);
 }
 
@@ -557,10 +575,13 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
 // (15 when moving) gradient rows then zeros, then the active quads',
 // boxes' and media's columns (adjoint.cuh kQuadAccPlane, kMedAccRadius
 // ...); then 24 camera rows, 6
-// background, 2 pad); mismatches: one int32, zeroed by the caller.
+// background, 2 pad); mismatches: one int32, zeroed by the caller; tex:
+// as rrt_train_fwd's, its d_atlas (with images) the atlas cotangent,
+// zeroed by the caller, which a marble's texture scale does not use
+// (it goes to its slot's column kAccTexScale).
 extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
-                             const float* d_rad, const uint8_t* lengths,
+                             const TexArgs* tex, const float* d_rad, const uint8_t* lengths,
                              const int16_t* winners, int win_cap, uint32_t s0,
                              uint32_t s1, uint32_t lo, int width, int height,
                              int spp, int max_depth, float t_min, int moving,
@@ -578,13 +599,12 @@ extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
       kSlotCols * (n_slots + sa.n_quads + sa.n_boxes + sa.n_media) +
       kCamBgCols;
   const size_t smem = with_solids(staged_bytes(n_slots, moving != 0), solids);
-  auto kernel = moving ? (solids ? train_bwd_kernel<true, true>
-                                 : train_bwd_kernel<true, false>)
-                       : (solids ? train_bwd_kernel<false, true>
-                                 : train_bwd_kernel<false, false>);
+  auto kernel = RRT_PICK3(train_bwd_kernel, moving != 0, solids != nullptr,
+                          tex != nullptr);
   const int err = launch_tiles(
       kernel, grid, smem, st, sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
-      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media, d_rad,
+      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media,
+      tex_view(tex), d_rad,
       lengths, winners, win_cap, s0, s1, lo, width, height, spp, max_depth,
       t_min, scratch, mismatches);
   if (err != 0) return err;

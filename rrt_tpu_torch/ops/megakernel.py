@@ -22,7 +22,8 @@ The kernel reads the scene as packs, laid out as in rrt_tpu but for the
 quad pack, which keeps each quad's corner and edges (the kernels derive
 its plane frame, rrt_tpu's rows 0-12, from them: geometry.quad_frames):
 
-Sphere pack, f32 (24, S):
+Sphere pack, f32 (24, S) (rows 8-19 a slot's resolved material and
+texture):
   0-2 motion base | 3 r^2 (-1 on invalid slots) | 4-6 motion vel
   | 7 valid | 8 mat_type | 9 aux (fuzz or ior) | 10-12 color1
   | 13-15 color2 | 16 tex_type | 17 tex_scale | 18 signed radius
@@ -34,7 +35,9 @@ Camera pack, f32 (24,):
 Background pack, f32 (8,): bottom rgb | top rgb | mode | pad
 Quad pack, f32 (24, Q):
   0-2 q | 3-5 u | 6-8 v | 9 valid | 10 mat_type | 11 aux | 12-14 color1
-  | 15-17 color2 | 18 tex_type | 19 tex_scale | 20-23 pad
+  | 15-17 color2 | 18 tex_type | 19 tex_scale | 20 image index
+  | 21-23 pad (rrt_tpu overloads color2.r with the image index; this
+  layout has the room)
 Box pack, f32 (24, B), rrt_tpu's:
   0-2 center | 3-5 half (0 on invalid slots) | 6 cos | 7 sin (the
   world-from-box Y rotation) | 8 valid | 9 mat_type | 10 aux
@@ -43,6 +46,14 @@ Medium pack, f32 (D, 24), rrt_tpu's, a row a medium slot:
   0 boundary type (0 sphere, 1 box) | 1-3 center | 4 radius | 5-7 half
   | 8-16 world-from-box rotation, row major | 17 -1/density | 18 valid
   | 19-21 the isotropic albedo (its texture's color1) | 22-23 pad
+Atlas, f32 (I * AH * AW, 4) (`TexPack`, `pack_textures`): the scene's
+  images (SceneArrays.images, (I, AH, AW, 3), one grid), a texel a row
+  of rgb and a zero, row (image * AH + y) * AW + x: a lookup is one
+  16-byte load from device memory (earth's 128x256 stand-in is 512 KB,
+  past a block's shared memory; it stays in L2), and the backward adds
+  an albedo's cotangent to its texel with one four-float atomic. The
+  TPU's (I * AH, 3 * AW) channel-major layout served its one-hot MXU
+  contraction, which a GPU does not need.
 
 Every pack keeps the scene's own slot count (a multiple of 128): unlike
 the TPU kernel, the GPU kernel has no tile width to pad to. A scene with
@@ -54,6 +65,13 @@ seeding the spheres' BVH walk; then every active medium, read from its
 pack in device memory (no cap), against the closest solid's t, each with
 its own STREAM_MEDIUM draw (a scene of media alone runs it with no quad
 or box).
+
+A scene with perlin or image textures hands the kernels its TexPack,
+and they run their texture variant (csrc/bounce.cuh kTex): the marble's
+7 octaves of hashed-lattice noise and the atlas lookup at the winner's
+uv (geometry.sphere_uv, quad_uv: rrt_tpu's kernel polynomials for the
+sphere's angles). A scene without them passes None and runs the
+variants as they were, which never compile the texture code.
 
 A scene with moving spheres (`SceneArrays.has_moving`, the wrappers'
 `moving=True`) runs each kernel's moving variant: a sphere's center at a
@@ -77,8 +95,8 @@ from ..scene import (MAT_DIELECTRIC, MAT_ISOTROPIC, SceneArrays,
 # bytes a slot, inside the 48 KB a block gets without opting in.
 MAX_SLOTS = 3072
 # Active quads and boxes a kernel stages (each; csrc/bounce.cuh
-# kSolidCap). rttnw_final's 400 ground boxes need more, with its image
-# and perlin textures (ROADMAP Queue A #9.5).
+# kSolidCap). rttnw_final's 400 ground boxes need more (ROADMAP Queue A
+# #9.5, its rest).
 SOLID_CAP = 64
 SOLID_CAP_ITEM = "#9.5"
 # A winner as one int16 (train_fwd's residual, the backwards' records):
@@ -118,15 +136,32 @@ def decode_winner(code):
     return fam, code - base
 
 
-def scope_gap(scene: SceneArrays, rr_depth: int = 0):
+# The ROADMAP entry of an image texture on a constant medium: rrt_tpu
+# packs a medium's albedo as a solid (its texture's color1) and sends
+# such a scene to its XLA route, whose eager texture samples the image
+# at uv 0; the port's eager route is the CPU's (the batch driver and the
+# scan), and on a card such a scene raises before any launch.
+IMAGES_ON_MEDIA = ("an image texture on a constant medium",
+                   '"Not ported by decision": images on media')
+
+
+def roadmap_ref(item: str) -> str:
+    """Where ROADMAP.md places a scope gap's item: "ROADMAP Queue A
+    #9.6" for a queued item ("#9.6"), else "ROADMAP" and the entry."""
+    return (f"ROADMAP Queue A {item}" if item.startswith("#")
+            else f"ROADMAP {item}")
+
+
+def scope_gap(scene: SceneArrays, rr_depth: int = 0, eager: bool = False):
     """None when the forward kernels cover the scene and option;
-    otherwise (what is outside, the ROADMAP Queue A item that ports it).
-    The train kernels' scope is narrower
-    (megakernel_vjp.train_scope_gap), and chain_bwd's narrower still
-    (megakernel_vjp.backward_scope_gap)."""
+    otherwise (what is outside, its ROADMAP item: "#9.6", or a decision;
+    roadmap_ref names its place). eager: the scope of the eager
+    shading on the CPU (the batch driver, the scan), which takes an
+    image on a medium as rrt_tpu's eager code does. The train kernels'
+    scope is narrower (megakernel_vjp.train_scope_gap), and chain_bwd's
+    narrower still (megakernel_vjp.backward_scope_gap)."""
     outside = (
-        (scene.has_perlin, "perlin textures", "#9.5"),
-        (scene.has_images, "image textures", "#9.5"),
+        (scene.has_images_on_media and not eager, *IMAGES_ON_MEDIA),
         (rr_depth > 0, "Russian roulette (rr_depth > 0)", "#9.6"),
         (max(scene.n_quads_active, scene.n_boxes_active) > SOLID_CAP,
          f"more than {SOLID_CAP} quads or boxes", SOLID_CAP_ITEM),
@@ -135,14 +170,14 @@ def scope_gap(scene: SceneArrays, rr_depth: int = 0):
                 None)
 
 
-def check_scope(scene: SceneArrays, rr_depth: int = 0):
+def check_scope(scene: SceneArrays, rr_depth: int = 0, eager: bool = False):
     """Raise NotImplementedError for a scene or option the tile kernel
-    does not cover yet, naming the ROADMAP item that ports it."""
-    gap = scope_gap(scene, rr_depth)
+    does not cover (scope_gap), naming its ROADMAP entry."""
+    gap = scope_gap(scene, rr_depth, eager)
     if gap is not None:
         raise NotImplementedError(
             f"{gap[0]}: outside the rrt_tpu_torch tile kernel's scope "
-            f"(ROADMAP Queue A {gap[1]})")
+            f"({roadmap_ref(gap[1])})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +199,44 @@ class SolidPacks:
         return dataclasses.replace(
             self, quad24=self.quad24.to(device), box24=self.box24.to(device),
             med24=None if self.med24 is None else self.med24.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class TexPack:
+    """The atlas (layout in the module docstring) of a scene with perlin
+    or image textures, its grid (I, AH, AW), and which of the two the
+    scene has (the plain versions' static flags)."""
+
+    atlas: torch.Tensor  # (I * AH * AW, 4)
+    shape: tuple  # (I, AH, AW)
+    has_perlin: bool
+    has_images: bool
+
+    def to(self, device) -> "TexPack":
+        return dataclasses.replace(self, atlas=self.atlas.to(device))
+
+    def images(self):
+        """The atlas as SceneArrays.images, (I, AH, AW, 3)."""
+        return self.atlas[:, :3].reshape(*self.shape, 3)
+
+
+def pack_atlas(images):
+    """(I * AH * AW, 4) f32 atlas of images (I, AH, AW, 3), a
+    differentiable function of them."""
+    flat = images.reshape(-1, 3)
+    return torch.cat([flat, torch.zeros_like(flat[:, :1])],
+                     dim=1).contiguous()
+
+
+def pack_textures(scene: SceneArrays, device=None):
+    """The scene's TexPack (on `device`, when given); None for a scene
+    without perlin or image textures, which the kernels' variants
+    without textures render."""
+    if not (scene.has_perlin or scene.has_images):
+        return None
+    tex = TexPack(pack_atlas(scene.images), tuple(scene.images.shape[:3]),
+                  scene.has_perlin, scene.has_images)
+    return tex if device is None else tex.to(device)
 
 
 def pack_solids(scene: SceneArrays, device=None):
@@ -224,10 +297,12 @@ def pack_quads_full(scene: SceneArrays):
     """(24, Q) f32 quad pack (layout in the module docstring)."""
     n = scene.quad_q.shape[0]
     f32 = torch.float32
+    tex = scene.mat_tex[scene.quad_mat.long()].long()
     return torch.cat([
         scene.quad_q.T, scene.quad_u.T, scene.quad_v.T,
         scene.quad_valid.to(f32)[None], _mat_rows(scene, scene.quad_mat),
-        torch.zeros((4, n), dtype=f32, device=scene.quad_q.device),
+        scene.tex_image[tex].to(f32)[None],
+        torch.zeros((3, n), dtype=f32, device=scene.quad_q.device),
     ]).contiguous()
 
 
@@ -377,9 +452,32 @@ def _check_solids(solids, device):
         med.data_ptr() if solids.n_media else None, solids.n_media))
 
 
+def _check_tex(tex, device, d_atlas=None):
+    """The C argument of the textures (a pointer to an _build.TexArgs),
+    checked: the atlas a contiguous (I * AH * AW, 4) float32 tensor on
+    `device`, and d_atlas (the backward's cotangent, or None) its like;
+    None (a null pointer: the variants without textures) for None."""
+    if tex is None:
+        return None
+    n_img, ah, aw = tex.shape
+    for name, t in (("atlas", tex.atlas), ("d_atlas", d_atlas)):
+        if t is None and name == "d_atlas":
+            continue
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                or tuple(t.shape) != (n_img * ah * aw, 4)
+                or not t.is_contiguous() or t.device != device):
+            raise ValueError(f"{name} must be a contiguous "
+                             f"({n_img * ah * aw}, 4) float32 tensor on "
+                             f"{device}")
+    return ctypes.byref(_build.TexArgs(
+        tex.atlas.data_ptr(), None if d_atlas is None else d_atlas.data_ptr(),
+        n_img, ah, aw))
+
+
 def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                  width: int, height: int, spp: int, max_depth: int,
-                 t_min: float, moving: bool, bvh=None, solids=None):
+                 t_min: float, moving: bool, bvh=None, solids=None,
+                 tex=None):
     """Render samples [sample_lo, sample_lo + spp) of every pixel.
 
     sph24 (24,S), cam24 (24,) and bg8 (8,) are the packs, all on one
@@ -388,8 +486,9 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     pack's accel.BvhPack on the same device, its shutter the camera's
     (cam24 rows 19-20), which the kernel walks: required on a CUDA
     device, not read on the CPU; solids: the scene's SolidPacks (quads,
-    boxes, a light: the kernel's solid-family variant) or None.
-    Returns (radiance sums (P,3) f32 in scan-line order, traced-ray
+    boxes, a light: the kernel's solid-family variant) or None; tex:
+    the scene's TexPack (perlin or image textures: the texture variant)
+    or None. Returns (radiance sums (P,3) f32 in scan-line order, traced-ray
     counts (P,) int32), P = width * height, on the packs' device.
 
     CUDA tensors launch the kernel (and count the launch in
@@ -398,9 +497,10 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids)
+              moving=moving, solids=solids, tex=tex)
     device = sph24.device
     solid_arg = _check_solids(solids, device)
+    tex_arg = _check_tex(tex, device)
     if device.type == "cpu":
         return render_tiles_reference(sph24, cam24, bg8, **kw)
     if device.type != "cuda":
@@ -419,10 +519,9 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rrt_tile_render(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
-            *tree, solid_arg, s0, s1, sample_lo & rng.MASK32, width,
-            height, spp,
-            max_depth, t_min, int(moving), rad.data_ptr(), traced.data_ptr(),
-            stream)
+            *tree, solid_arg, tex_arg, s0, s1, sample_lo & rng.MASK32,
+            width, height, spp, max_depth, t_min, int(moving),
+            rad.data_ptr(), traced.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("tile_render launch failed: "
                            + lib.rrt_error_string(err).decode())
@@ -438,7 +537,8 @@ render_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
+def _scene_from_packs(sph24, bg8, moving: bool, solids=None,
+                      tex=None) -> SceneArrays:
     """The scene the packs describe, with one material and one texture
     per slot (the packs hold each slot's resolved material: the
     spheres', then the active quads', then the active boxes'). moving:
@@ -447,13 +547,17 @@ def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
     otherwise the scene is static. solids: SolidPacks, whose active
     slots become the quad, box and medium families (and whose presence
     turns on the lights' emission, as in the kernels' solid-family
-    variant), a medium's material isotropic with its packed albedo.
-    Without bg8 the background is the default sky (intersection only)."""
+    variant), a medium's material isotropic with its packed albedo. tex:
+    the TexPack, whose atlas becomes the scene's images and whose flags
+    its has_perlin and has_images (a slot's image index is its pack's
+    row 19, a quad's row 20). Without bg8 the background is the default
+    sky (intersection only)."""
     dev = sph24.device
     n = sph24.shape[1]
     if bg8 is None:
         bg8 = torch.zeros((8,), device=dev)
     mats = [sph24[8:18]]
+    images = [sph24[19]]
     fam = {name: torch.zeros((0,), device=dev) for name in tensor_fields()
            if name.startswith(("quad_", "box_", "med_"))}
     counts = dict(n_quads_active=0, n_boxes_active=0)
@@ -467,6 +571,7 @@ def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
                    box_half=box[3:6].T, box_cos=box[6], box_sin=box[7],
                    box_mat=ids[nq:], box_valid=box[8] > 0.5)
         mats += [quad[10:20], box[9:19]]
+        images += [quad[20], torch.zeros((nb,), device=dev)]
         counts = dict(n_quads_active=nq, n_boxes_active=nb, has_quads=nq > 0,
                       has_boxes=nb > 0, has_emissive=True)
         nm = solids.n_media
@@ -484,6 +589,7 @@ def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
             iso[0] = MAT_ISOTROPIC
             iso[2:5] = med[:, 19:22].T
             mats.append(iso)
+            images.append(torch.zeros((nm,), device=dev))
             counts.update(has_media=True, n_media_active=nm)
     mat = torch.cat(mats, dim=1)
     slots = torch.arange(mat.shape[1], dtype=torch.int32, device=dev)
@@ -502,9 +608,11 @@ def _scene_from_packs(sph24, bg8, moving: bool, solids=None) -> SceneArrays:
         mat_ior=torch.where(is_die, mat[1], 1.0),
         tex_type=mat[8].to(torch.int32), tex_color1=mat[2:5].T,
         tex_color2=mat[5:8].T, tex_scale=mat[9],
-        tex_image=torch.cat([sph24[19], torch.full(
-            (mat.shape[1] - n,), -1.0, device=dev)]).to(torch.int32),
-        images=torch.zeros((1, 1, 1, 3), device=dev),
+        tex_image=torch.cat(images).to(torch.int32),
+        images=(torch.zeros((1, 1, 1, 3), device=dev) if tex is None
+                else tex.images()),
+        has_perlin=tex is not None and tex.has_perlin,
+        has_images=tex is not None and tex.has_images,
         bg_mode=bg8[6].to(torch.int32), bg_bottom=bg8[0:3],
         bg_top=bg8[3:6], n_spheres_active=n, has_moving=moving, **counts,
         **fam)
@@ -520,7 +628,7 @@ PLAIN_CHUNK = 1 << 19
 def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
                            sample_lo: int, width: int, height: int,
                            spp: int, max_depth: int, t_min: float,
-                           moving: bool, solids=None,
+                           moving: bool, solids=None, tex=None,
                            chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of `render_tiles`, same inputs and outputs.
 
@@ -535,14 +643,14 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
     rad, traced, _, _ = trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
-        t_min=t_min, moving=moving, solids=solids, chunk=chunk)
+        t_min=t_min, moving=moving, solids=solids, tex=tex, chunk=chunk)
     return rad, traced
 
 
 def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                           width: int, height: int, spp: int,
                           max_depth: int, t_min: float, moving: bool,
-                          solids=None, win_cap: int = 0,
+                          solids=None, tex=None, win_cap: int = 0,
                           chunk: int = PLAIN_CHUNK):
     """render_tiles_reference's loop, also returning each path's bounce
     count and the first win_cap segments' winners of each pixel: (rad
@@ -556,7 +664,7 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     from ..render import _bounce  # render imports this module
 
     dev = sph24.device
-    scene = _scene_from_packs(sph24, bg8, moving, solids)
+    scene = _scene_from_packs(sph24, bg8, moving, solids, tex)
     basis = tuple(cam24[3 * i:3 * i + 3] for i in range(6))
     n_pix = width * height
     n_rays = n_pix * spp
@@ -665,7 +773,8 @@ def _launch_error(lib, err, what):
 
 
 def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
-                 t_min: float, moving: bool, bvh=None, solids=None):
+                 t_min: float, moving: bool, bvh=None, solids=None,
+                 tex=None):
     """Run k_steps bounce steps on every live lane of a queue state.
 
     state: (16, Q) f32 (pack_state's rows), updated IN PLACE and
@@ -675,7 +784,7 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     moving: the moving-sphere variant, which reads each lane's time (row
     6). bvh: the sphere pack's accel.BvhPack on its device, its shutter
     covering the lanes' times, which the kernel walks: required on a
-    CUDA device, not read on the CPU. solids: as render_tiles'.
+    CUDA device, not read on the CPU. solids, tex: as render_tiles'.
 
     Per live lane and step, as rrt_tpu's _one_bounce: traced += 1; a
     miss adds throughput x background to the pending radiance and kills
@@ -697,8 +806,9 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     if k_steps < 1 or max_depth < 0:
         raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth}")
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids)
+              moving=moving, solids=solids, tex=tex)
     solid_arg = _check_solids(solids, device)
+    tex_arg = _check_tex(tex, device)
     if device.type == "cpu":
         return bounce_steps_reference(state, keys, sph24, bg8, **kw)
     tree = _check_bvh(bvh, sph24, "bounce_steps")
@@ -706,8 +816,8 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     with torch.cuda.device(device):
         err = lib.rrt_bounce_steps(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(),
-            sph24.shape[1], *tree, solid_arg, bg8.data_ptr(), k_steps,
-            max_depth, t_min, int(moving),
+            sph24.shape[1], *tree, solid_arg, tex_arg, bg8.data_ptr(),
+            k_steps, max_depth, t_min, int(moving),
             torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "bounce_steps")
     bounce_steps.launches += 1
@@ -719,14 +829,14 @@ bounce_steps.launches = 0
 
 def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
                            max_depth: int, t_min: float,
-                           moving: bool, solids=None):
+                           moving: bool, solids=None, tex=None):
     """Plain PyTorch version of `bounce_steps`, same inputs and outputs
     (the state is updated in place and returned): each step runs
     render._shade on the live lanes, with their own bounce counts, the
     families' exact ties as in the kernel (quad, box, sphere)."""
     from ..render import _shade  # render imports this module
 
-    scene = _scene_from_packs(sph24, bg8, moving, solids)
+    scene = _scene_from_packs(sph24, bg8, moving, solids, tex)
     keys = rng.from_u32_bits(keys)
     for _ in range(k_steps):
         lanes = (state[ROW_ALIVE] > 0.5).nonzero()[:, 0]

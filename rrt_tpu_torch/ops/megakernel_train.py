@@ -2,13 +2,14 @@
 
 The counterpart of rrt_tpu's `ops/megakernel_train.py` for the tile
 kernel's scenes (stationary and moving spheres, quads, boxes rotated
-about Y, up to MAX_TRAIN_MEDIA constant media, solid / checker
-textures, lambertian / metal / dielectric / diffuse_light / isotropic,
-sky or solid background, a thin-lens camera with a shutter, no Russian
-roulette: `train_scope_gap`). `TileTrainChain` is the render as a
+about Y, up to MAX_TRAIN_MEDIA constant media, solid / checker /
+perlin-marble / image textures, lambertian / metal / dielectric /
+diffuse_light / isotropic, sky or solid background, a thin-lens camera
+with a shutter, no Russian roulette: `train_scope_gap`).
+`TileTrainChain` is the render as a
 torch.autograd.Function over the packs (sph24, cam24, bg8, and for a
 scene with quads, boxes, media or a light its quad, box and medium
-packs):
+packs, and for a scene with textures the atlas):
 
   forward   `render_tiles_train`: the CUDA kernel train_fwd
             (csrc/train.cu), which renders exactly as tile_render, each
@@ -28,7 +29,8 @@ packs):
             megakernel_vjp.diff_step, into the cotangents of the packs
             (a quad's through its plane frame's n and d_plane, which the
             wrapper takes to q, u, v: geometry.quad_frame_vjp; a
-            medium's into its MED_COLS).
+            medium's into its MED_COLS; a marble's texture scale into
+            its pack row) and of the atlas (an image's texels).
 
 On the TPU the residual was the 24-row loop carry at segment
 boundaries, because one lane ran many pixels' samples in one loop. A
@@ -41,16 +43,19 @@ CUDA tensors launch the kernels; CPU tensors run the plain versions
 `render_tiles_train_reference` and `tiles_adjoint_reference`.
 """
 
+import dataclasses
+
 import torch
 
 from .. import rng
 from . import _build
 from . import megakernel as mk
-from .megakernel_vjp import (MAX_RECORDS, SLOT_COLS, camera_ray_rows,
+from .megakernel_vjp import (MAX_RECORDS, SLOT_COLS, SPHERE_TEX_SCALE_ROW,
+                             TEX_SCALE_COL, atlas_leaf, camera_ray_rows,
                              check_backward_slots, count_mismatches,
                              diff_step, grad_rows, kernel_solid_grads,
                              replay_steps, solid_grads, solid_leaves,
-                             step_constants, winner_rows)
+                             step_constants, unpack_inputs, winner_rows)
 from ..camera import thin_lens_rays
 
 
@@ -63,13 +68,10 @@ MAX_TRAIN_MEDIA = 8
 
 def train_scope_gap(scene, rr_depth: int = 0):
     """The train kernels' scope (rrt_tpu's supports_train): None when
-    they cover the scene and option, otherwise (what is outside, the
-    ROADMAP Queue A item), with rrt_tpu's reasons first: an image
-    texture on a medium, more than MAX_TRAIN_MEDIA media; then the
-    forward kernels' (mk.scope_gap)."""
-    if scene.has_images_on_media:
-        return ("an image texture on a constant medium (media albedo must "
-                "pack to a solid)", "#9.5")
+    they cover the scene and option, otherwise (what is outside, its
+    ROADMAP item: mk.roadmap_ref), with rrt_tpu's reasons: the forward kernels'
+    (mk.scope_gap: an image texture on a medium first), then more than
+    MAX_TRAIN_MEDIA media."""
     gap = mk.scope_gap(scene, rr_depth)
     if gap is None and scene.n_media_active > MAX_TRAIN_MEDIA:
         return (f"{scene.n_media_active} constant media, past the train "
@@ -89,7 +91,7 @@ def check_train_scope(where: str, scene, rr_depth: int = 0):
     if gap is not None:
         raise NotImplementedError(
             f"{where}: {gap[0]} is outside the train kernels' scope "
-            f"(ROADMAP Queue A {gap[1]})")
+            f"({mk.roadmap_ref(gap[1])})")
 
 
 def _check_train_media(solids):
@@ -144,7 +146,7 @@ def _raise_on(lib, err, what):
 
 def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                        width: int, height: int, spp: int, max_depth: int,
-                       t_min: float, moving: bool, solids=None):
+                       t_min: float, moving: bool, solids=None, tex=None):
     """Render samples [sample_lo, sample_lo + spp) as render_tiles does,
     and keep the residual. Returns (radiance sums (P,3) f32, traced
     counts (P,) i32, lengths (spp, P) uint8: the bounces each path
@@ -154,7 +156,8 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     offset by mk.QUAD_CODE, mk.BOX_CODE or mk.MEDIUM_CODE; -1 on a
     miss)); moving: the moving-sphere variant; solids: the scene's
     SolidPacks (the solid-family variant; at most MAX_TRAIN_MEDIA
-    media) or None. The kernel leaves the entries past a
+    media) or None; tex: its TexPack (the texture variant) or None. The
+    kernel leaves the entries past a
     pixel's segments unwritten; the plain version sets them to -2.
 
     CUDA tensors launch train_fwd (counted in
@@ -162,12 +165,13 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     render_tiles_train_reference."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids)
+              moving=moving, solids=solids, tex=tex)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving)
     _check_train_media(solids)
     device = sph24.device
     solid_arg = mk._check_solids(solids, device)
+    tex_arg = mk._check_tex(tex, device)
     if device.type == "cpu":
         return render_tiles_train_reference(sph24, cam24, bg8, **kw)
     if device.type != "cuda":
@@ -184,9 +188,10 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     with torch.cuda.device(device):
         err = lib.rrt_train_fwd(
             sph24.data_ptr(), sph24.shape[1], cam24.data_ptr(),
-            bg8.data_ptr(), solid_arg, s0, s1, sample_lo & rng.MASK32, width,
-            height, spp, max_depth, t_min, int(moving), cap, rad.data_ptr(),
-            traced.data_ptr(), lengths.data_ptr(), winners.data_ptr(),
+            bg8.data_ptr(), solid_arg, tex_arg, s0, s1,
+            sample_lo & rng.MASK32, width, height, spp, max_depth, t_min,
+            int(moving), cap, rad.data_ptr(), traced.data_ptr(),
+            lengths.data_ptr(), winners.data_ptr(),
             _stream(device))
     _raise_on(lib, err, "train_fwd")
     render_tiles_train.launches += 1
@@ -199,26 +204,31 @@ render_tiles_train.launches = 0
 def render_tiles_train_reference(sph24, cam24, bg8, *, seed_words,
                                  sample_lo: int, width: int, height: int,
                                  spp: int, max_depth: int, t_min: float,
-                                 moving: bool, solids=None):
+                                 moving: bool, solids=None, tex=None):
     """Plain version of render_tiles_train: render_tiles_reference plus
     the lengths and the winners (mk.trace_paths_reference)."""
     return mk.trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
-        t_min=t_min, moving=moving, solids=solids,
+        t_min=t_min, moving=moving, solids=solids, tex=tex,
         win_cap=winner_capacity(spp))
 
 
 def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
                   seed_words, sample_lo: int, width: int, height: int,
                   spp: int, max_depth: int, t_min: float, moving: bool,
-                  solids=None):
+                  solids=None, tex=None):
     """Cotangents of the packs for the radiance cotangent d_rad (P,3):
     (d_sph24 (24,S), d_cam24 (24,), d_bg8 (8,), replay mismatches (1,)
     int32: the paths whose replayed length differs from `lengths`, and
     the stored winners the replay does not find; d_solids: with solids
     (the scene's SolidPacks: the solid-family variant) the SolidPacks of
-    the quad, box and medium packs' cotangents, else None). With moving spheres
+    the quad, box and medium packs' cotangents, else None; d_atlas: with
+    tex (the scene's TexPack: the texture variant) holding images, the
+    atlas's cotangent (T, 4), float atomics on the card, so it repeats
+    within a spread; else None). A marble's texture scale gets its
+    gradient in its pack row (17 of a sphere's, 19 of a quad's, 18 of a
+    box's). With moving spheres
     the velocity rows 4-6 get cotangents, and the shutter rows 19-20 of
     the camera through each ray's time. `winners` is
     render_tiles_train's (any number of entries a pixel, int16), or None:
@@ -232,7 +242,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     would give wrong gradients."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids)
+              moving=moving, solids=solids, tex=tex)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving)
     n_pix = width * height
@@ -254,6 +264,10 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
                          "device")
     _check_train_media(solids)
     solid_arg = mk._check_solids(solids, device)
+    d_atlas = (torch.zeros_like(tex.atlas)
+               if tex is not None and tex.has_images
+               and device.type == "cuda" else None)
+    tex_arg = mk._check_tex(tex, device, d_atlas)
     d_rad = d_rad.contiguous()
     if device.type == "cpu":
         out = tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
@@ -282,7 +296,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     with torch.cuda.device(device):
         err = lib.rrt_train_bwd(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
-            solid_arg, d_rad.data_ptr(), lengths.data_ptr(),
+            solid_arg, tex_arg, d_rad.data_ptr(), lengths.data_ptr(),
             None if winners is None else winners.data_ptr(),
             0 if winners is None else winners.shape[0], s0, s1,
             sample_lo & rng.MASK32, width, height, spp, max_depth, t_min,
@@ -294,10 +308,11 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     g = sums[:-32].reshape(n_slots + n_solid, SLOT_COLS)
     d_sph24 = torch.zeros_like(sph24)
     d_sph24[list(rows)] = g[:n_slots, :len(rows)].T
+    d_sph24[SPHERE_TEX_SCALE_ROW] = g[:n_slots, TEX_SCALE_COL]
     d_solids = (None if solids is None
                 else kernel_solid_grads(g[n_slots:], solids))
     return (d_sph24, sums[-32:-8].clone(), sums[-8:].clone(), mismatches,
-            d_solids)
+            d_solids, d_atlas)
 
 
 tiles_adjoint.launches = 0
@@ -308,7 +323,7 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                             winners, *, seed_words, sample_lo: int,
                             width: int, height: int, spp: int,
                             max_depth: int, t_min: float, moving: bool,
-                            solids=None, chunk: int = 1 << 16):
+                            solids=None, tex=None, chunk: int = 1 << 16):
     """Plain version of tiles_adjoint, same inputs and outputs.
 
     For each chunk of (pixel, sample) paths: 1. replay the decisions and
@@ -323,15 +338,16 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
     3. take torch.autograd.grad of sum(d_rad[pixel] . contribution)."""
     dev = sph24.device
     scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving,
-                                 solids)
+                                 solids, tex)
     basis = tuple(cam24.detach()[3 * i:3 * i + 3] for i in range(6))
     sph = sph24.detach().requires_grad_()
     cam = cam24.detach().requires_grad_()
     bg = bg8.detach().requires_grad_()
     quads, boxes, media = solid_leaves(solids)
+    atlas = atlas_leaf(tex)
     leaves = {k: x for k, x in (("sph", sph), ("cam", cam), ("bg", bg),
                                 ("quad", quads), ("box", boxes),
-                                ("med", media))
+                                ("med", media), ("atlas", atlas))
               if x is not None}
     grads = {k: torch.zeros_like(x) for k, x in leaves.items()}
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -368,9 +384,10 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
             for r in records:
                 state = tuple(row[r["sel"]] for row in state)
                 zero = torch.zeros_like(state[0])
-                sel, flags = winner_rows(r, sph, frames, boxes, media)
+                sel, flags = winner_rows(r, sph, frames, boxes, media, tex)
                 out = diff_step(step_constants(r, sph24, bg8, solids),
                                 *state, zero, zero, zero, *sel, *bg[:6],
+                                *(() if atlas is None else (atlas,)),
                                 moving=moving, t_min=t_min, **flags)
                 dr = d_rad[pix[r["cur"]]]
                 total = total + (dr[:, 0] * out[10] + dr[:, 1] * out[11]
@@ -383,7 +400,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                 grads[k] += g
     d_solids = None if solids is None else solid_grads(
         solids, grads.get("quad"), grads.get("box"), grads.get("med"))
-    return grads["sph"], grads["cam"], grads["bg"], mismatches, d_solids
+    return (grads["sph"], grads["cam"], grads["bg"], mismatches, d_solids,
+            grads.get("atlas"))
 
 
 def _stored_winner_faults(records, ray, winners, first, flat_lengths,
@@ -407,11 +425,11 @@ def _stored_winner_faults(records, ray, winners, first, flat_lengths,
 class TileTrainChain(torch.autograd.Function):
     """The tile render as a differentiable function of the packs:
     apply(sph24, cam24, bg8, seed_words, sample_lo, width, height, spp,
-    max_depth, t_min, moving, *solid_inputs(solids)) -> (radiance sums
-    (P,3), traced counts (P,) i32), the last four arguments the quad
-    and box packs, their active slot counts and the medium pack (or
-    None) of a scene with quads, boxes, media or a light
-    (megakernel_vjp.solid_inputs).
+    max_depth, t_min, moving, *solid_inputs(solids, tex)) -> (radiance
+    sums (P,3), traced counts (P,) i32), the last arguments the quad and
+    box packs, their active slot counts and the medium pack (or None) of
+    a scene with quads, boxes, media or a light, and the atlas of a
+    scene with textures (megakernel_vjp.solid_inputs).
     Forward: one render_tiles_train, whose lengths and winners it saves;
     backward: one tiles_adjoint on them, seeded by the radiance
     cotangent (P,3). The traced counts carry no gradient."""
@@ -419,32 +437,33 @@ class TileTrainChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
                 height, spp, max_depth, t_min, moving, quad24=None,
-                box24=None, counts=None, med24=None):
+                box24=None, counts=None, med24=None, atlas=None, tex=None):
         kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
                   height=height, spp=spp, max_depth=max_depth, t_min=t_min,
                   moving=moving)
-        solids = None if counts is None else mk.SolidPacks(
-            quad24, box24, *counts, med24)
+        solids, tex = unpack_inputs(quad24, box24, counts, med24, atlas, tex)
         rad, traced, lengths, winners = render_tiles_train(
-            sph24, cam24, bg8, solids=solids, **kw)
+            sph24, cam24, bg8, solids=solids, tex=tex, **kw)
         ctx.save_for_backward(sph24, cam24, bg8, lengths, winners, quad24,
-                              box24, med24)
+                              box24, med24, atlas)
         ctx.kw = kw
         ctx.counts = counts
+        ctx.tex = None if tex is None else dataclasses.replace(tex,
+                                                                atlas=None)
         ctx.mark_non_differentiable(traced)
         return rad, traced
 
     @staticmethod
     def backward(ctx, d_rad, _d_traced):
-        sph24, cam24, bg8, lengths, winners, quad24, box24, med24 = \
-            ctx.saved_tensors
-        solids = None if ctx.counts is None else mk.SolidPacks(
-            quad24, box24, *ctx.counts, med24)
-        d_sph, d_cam, d_bg, _, d_solids = tiles_adjoint(
+        (sph24, cam24, bg8, lengths, winners, quad24, box24, med24,
+         atlas) = ctx.saved_tensors
+        solids, tex = unpack_inputs(quad24, box24, ctx.counts, med24, atlas,
+                                    ctx.tex)
+        d_sph, d_cam, d_bg, _, d_solids, d_atlas = tiles_adjoint(
             sph24, cam24, bg8, d_rad.to(torch.float32), lengths, winners,
-            solids=solids, **ctx.kw)
+            solids=solids, tex=tex, **ctx.kw)
         d_quad, d_box, d_med = ((None, None, None) if d_solids is None
                                 else (d_solids.quad24, d_solids.box24,
                                       d_solids.med24))
         return ((d_sph, d_cam, d_bg) + (None,) * 8
-                + (d_quad, d_box, None, d_med))
+                + (d_quad, d_box, None, d_med, d_atlas, None))

@@ -2,14 +2,16 @@
 
 `diff_step` is the counterpart of rrt_tpu's
 `ops/megakernel_vjp.py::_make_diff_step` for spheres, quads, boxes,
-lights and constant media: one bounce as a function of the 13 state
-rows (origin, direction, time, throughput, pending radiance), the
+lights, constant media and the perlin and image textures: one bounce
+as a function of the 13 state rows (origin, direction, time,
+throughput, pending radiance), the
 winner's 24 sphere-pack rows (with moving spheres, the winner's center
 at the ray's time, so the velocity rows and the time get gradients
-too), its quad, box and medium rows (rrt_tpu's layouts) and the 6
-background rows, with every discrete decision (root, box face, front
-face, checker parity, degenerate lambertian, reflect-vs-refract, which
-medium and whether it scatters, hit / miss / light / survival) and
+too), its quad, box and medium rows (rrt_tpu's layouts), the 6
+background rows and the texture atlas, with every discrete decision
+(root, box face, front face, checker parity, which texture and which
+texel, degenerate lambertian, reflect-vs-refract, which medium and
+whether it scatters, hit / miss / light / survival) and
 every random draw supplied as a replayed constant. It is
 the math the CUDA backwards transpose by hand (csrc/adjoint.cuh, shared
 by train.cu and chain.cu), and the body of their plain versions
@@ -39,15 +41,17 @@ counterpart of rrt_tpu's `bounce_chain` custom_vjp:
             `chain_adjoint_reference`, which CPU tensors run.
 """
 
+import dataclasses
+
 import torch
 
-from .. import rng
+from .. import rng, textures
 from . import _build
 from . import megakernel as mk
 from ..geometry import (FAM_BOX, FAM_MEDIUM, FAM_QUAD, FAM_SPHERE, INF,
                         quad_frame_vjp)
 from ..scene import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC,
-                     MAT_LAMBERTIAN, MAT_METAL)
+                     MAT_LAMBERTIAN, MAT_METAL, TEX_IMAGE, TEX_PERLIN)
 
 # The backward kernels keep one record per replayed bounce in
 # per-thread storage of this many entries (csrc/adjoint.cuh kMaxRecords).
@@ -63,8 +67,13 @@ GRAD_ROWS = (0, 1, 2, 3, 9, 10, 11, 12, 13, 14, 15, 18, 4, 5, 6)
 # hold; the pack cotangents now go to device memory).
 MAX_SLOTS_MOVING = 2048
 # Pack cotangent floats a slot in the CUDA backwards' per-block partials
-# and sums (csrc/adjoint.cuh kSlotCols): grad_rows(moving), then zeros.
+# and sums (csrc/adjoint.cuh kSlotCols): grad_rows(moving), then zeros,
+# but for the last: TEX_SCALE_COL holds a sphere's, quad's or box's
+# texture scale (a marble's; a checker's keeps gradient 0), pack rows
+# 17, 19 and 18 (csrc/adjoint.cuh kAccTexScale).
 SLOT_COLS = 16
+TEX_SCALE_COL = 15
+SPHERE_TEX_SCALE_ROW, QUAD_TEX_SCALE_ROW, BOX_TEX_SCALE_ROW = 17, 19, 18
 
 
 def grad_rows(moving: bool):
@@ -81,12 +90,6 @@ def check_backward_slots(sph24, moving: bool):
                          f"backward kernels' {cap}"
                          + (" with moving spheres" if moving else ""))
 
-
-# The families and options outside the backwards' scope, by flag: the
-# ROADMAP Queue A item that ports each.
-_NOT_PORTED = (("has_perlin", "perlin textures", "#9.5"),
-               ("has_images", "image textures", "#9.5"),
-               ("rr_depth", "Russian roulette", "#9.6"))
 
 # The quad and box cotangents the CUDA backwards accumulate, kSlotCols
 # floats a slot as the spheres' (csrc/adjoint.cuh): a quad's frame n xyz
@@ -112,7 +115,8 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     (its quad column in rrt_tpu's layout: ops.megakernel.quad_frame_pack),
     with has_boxes sel_b (24, N) (its box-pack column), with has_media
     sel_m (24, N) (its medium-pack row, transposed), then 6 background
-    rows (bottom rgb, top rgb). Returns the 13 state rows after the
+    rows (bottom rgb, top rgb), then with has_images the atlas (T, 4)
+    (ops.megakernel.pack_atlas). Returns the 13 state rows after the
     bounce.
 
     c: the replayed constants, (N,) bool tensors t_hit (float), hit,
@@ -130,15 +134,17 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     t_min and 0 (rrt_tpu's rule: the boundary type, the rotation, which
     slab and whether it scatters are replayed), its normal the constant
     (1, 0, 0), its albedo its pack's columns 19-21, its new direction the
-    in-sphere draw. Perlin and image textures and Russian roulette raise
-    NotImplementedError naming their ROADMAP items."""
-    flags = dict(has_perlin=has_perlin, has_images=has_images,
-                 rr_depth=rr_depth)
-    for flag, what, item in _NOT_PORTED:
-        if flags[flag]:
-            raise NotImplementedError(
-                f"diff_step: {what} are not ported to rrt_tpu_torch yet "
-                f"(ROADMAP Queue A {item})")
+    in-sphere draw. With has_perlin, is_per (the winner's texture is a
+    marble: its albedo is textures.marble(scale, p) x color1, p the hit
+    point, so the texture scale, color1 and through p the hit's t get
+    gradients); with has_images, is_img and texel (the texel the winner's
+    uv reads, a replayed constant: its albedo is the atlas row, which
+    gets the gradient, and nothing flows to uv). Russian roulette raises
+    NotImplementedError naming its ROADMAP item."""
+    if rr_depth:
+        raise NotImplementedError(
+            "diff_step: Russian roulette is not ported to rrt_tpu_torch "
+            "yet (ROADMAP Queue A #9.6)")
     (ox, oy, oz, dx, dy, dz, time, thx, thy, thz,
      pex, pey, pez) = ins[:13]
     sel_s = ins[13]
@@ -153,6 +159,7 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         sel_m = ins[i]
         i += 1
     bg6 = ins[i:i + 6]
+    atlas = ins[i + 6] if has_images else None
     where = torch.where
 
     a = dx * dx + dy * dy + dz * dz
@@ -231,6 +238,7 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     aux_v = sel_s[9]
     c1 = (sel_s[10], sel_s[11], sel_s[12])
     c2 = (sel_s[13], sel_s[14], sel_s[15])
+    texscale = sel_s[17]
     if has_boxes:
         # The axis whose |q_k| - h_k is largest at the hit point, and its
         # sign, are discrete; the rotation rows carry the gradient.
@@ -253,6 +261,7 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         aux_v = where(ub, sel_b[10], aux_v)
         c1 = tuple(where(ub, sel_b[11 + j], c1[j]) for j in range(3))
         c2 = tuple(where(ub, sel_b[14 + j], c2[j]) for j in range(3))
+        texscale = where(ub, sel_b[18], texscale)
     if has_quads:
         nn = nqx * nqx + nqy * nqy + nqz * nqz
         qinv = torch.rsqrt(where(nn > 1e-20, nn, 1.0))
@@ -263,6 +272,7 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         aux_v = where(uq, sel_q[15], aux_v)
         c1 = tuple(where(uq, sel_q[16 + j], c1[j]) for j in range(3))
         c2 = tuple(where(uq, sel_q[19 + j], c2[j]) for j in range(3))
+        texscale = where(uq, sel_q[23], texscale)
     sgn = where(c["front"], 1.0, -1.0)
     nx_, ny_, nz_ = outx * sgn, outy * sgn, outz * sgn
     if has_media:  # a medium's normal: a constant (isotropic ignores it)
@@ -270,8 +280,15 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         nx_, ny_, nz_ = where(um, 1.0, nx_), where(um, 0.0, ny_), \
             where(um, 0.0, nz_)
 
-    # --- albedo (checker parity replayed).
-    albr, albg, albb = (where(c["use_c2"], c2[j], c1[j]) for j in range(3))
+    # --- albedo (checker parity, texture type and texel replayed).
+    alb = tuple(where(c["use_c2"], c2[j], c1[j]) for j in range(3))
+    if has_perlin:
+        m = textures.marble(texscale, torch.stack([px_, py_, pz_]))
+        alb = tuple(where(c["is_per"], m * c1[j], alb[j]) for j in range(3))
+    if has_images:
+        img = atlas[c["texel"]]
+        alb = tuple(where(c["is_img"], img[:, j], alb[j]) for j in range(3))
+    albr, albg, albb = alb
     if has_media:
         albr, albg, albb = (where(um, sel_m[19 + j], alb)
                             for j, alb in enumerate((albr, albg, albb)))
@@ -424,8 +441,8 @@ def check_backward_scope(where: str, scene, rr_depth: int = 0):
     gap = backward_scope_gap(scene, rr_depth)
     if gap is not None:
         raise NotImplementedError(
-            f"{where}: {gap[0]} is outside chain_bwd's scope (ROADMAP "
-            f"Queue A {gap[1]})")
+            f"{where}: {gap[0]} is outside chain_bwd's scope "
+            f"({mk.roadmap_ref(gap[1])})")
 
 
 def supports_backward(scene) -> bool:
@@ -473,7 +490,9 @@ def replay_steps(scene, o, d, time, keys, bounce0, n_steps: int, *,
             front=b.hit.front_face, degen=sc.degenerate,
             do_reflect=sc.reflected, use_c2=b.use_c2,
             draws=(*sc.unit_rand, *sc.sphere_rand, torch.zeros_like(b.t)),
-            med_logu=_winner_logu(b)))
+            med_logu=_winner_logu(b),
+            texel=(torch.zeros_like(b.win) if b.texel is None
+                   else b.texel)))
         keep = b.survives.nonzero()[:, 0]
         if keep.numel() == 0:
             break
@@ -496,10 +515,12 @@ def _winner_logu(b):
 def step_constants(record, sph24, bg8, solids=None):
     """diff_step's replayed constants for one record of replay_steps;
     solids: the replayed scene's SolidPacks (the quads' and boxes'
-    material types, a medium's isotropic one, and the use_q, use_b,
-    use_med and is_light constants)."""
+    material and texture types, a medium's isotropic one and solid
+    albedo, and the use_q, use_b, use_med and is_light constants). The
+    winner's texture type gives is_per and is_img."""
     fam, win = record["fam"], record["win"]
-    mtype = sph24.detach()[8, torch.where(fam == FAM_SPHERE, win, 0)]
+    col = sph24.detach()[:, torch.where(fam == FAM_SPHERE, win, 0)]
+    mtype, ttype = col[8], col[16]
     c = dict(record, is_sky=bg8.detach()[6] < 0.5)
     if solids is not None:
         for f, pack, n, row in ((FAM_QUAD, solids.quad24, solids.n_quads,
@@ -507,24 +528,28 @@ def step_constants(record, sph24, bg8, solids=None):
                                 (FAM_BOX, solids.box24, solids.n_boxes, 9)):
             if n:
                 use = fam == f
-                mtype = torch.where(use, pack.detach()[
-                    row, torch.where(use, win, 0)], mtype)
+                sel = pack.detach()[:, torch.where(use, win, 0)]
+                mtype = torch.where(use, sel[row], mtype)
+                ttype = torch.where(use, sel[row + 8], ttype)
         use_med = fam == FAM_MEDIUM
         mtype = torch.where(use_med, float(MAT_ISOTROPIC), mtype)
+        ttype = torch.where(use_med, 0.0, ttype)
         c.update(use_q=fam == FAM_QUAD, use_b=fam == FAM_BOX, use_med=use_med,
                  is_light=mtype == MAT_DIFFUSE_LIGHT)
     c.update(is_lam=mtype == MAT_LAMBERTIAN, is_met=mtype == MAT_METAL,
-             is_die=mtype == MAT_DIELECTRIC)
+             is_die=mtype == MAT_DIELECTRIC, is_per=ttype == TEX_PERLIN,
+             is_img=ttype == TEX_IMAGE)
     return c
 
 
-def winner_rows(record, sph, quads=None, boxes=None, media=None):
+def winner_rows(record, sph, quads=None, boxes=None, media=None, tex=None):
     """diff_step's winner inputs for a record of replay_steps: (sel_s,
     [sel_q], [sel_b], [sel_m]) from the sphere pack sph (24, S), the
     active quads' frame pack quads (mk.quad_frame_pack, (24, nq); None
     without quads), the active boxes' pack boxes ((24, nb); None without)
     and the active media's pack media ((nm, 24); None without), each a
-    column a ray; and diff_step's has_quads, has_boxes, has_media."""
+    column a ray; and diff_step's has_quads, has_boxes, has_media, and
+    has_perlin and has_images from the scene's TexPack tex (or None)."""
     fam, win = record["fam"], record["win"]
     sel = [sph[:, torch.where(fam == FAM_SPHERE, win, 0)]]
     for f, pack in ((FAM_QUAD, quads), (FAM_BOX, boxes)):
@@ -533,7 +558,17 @@ def winner_rows(record, sph, quads=None, boxes=None, media=None):
     if media is not None:
         sel.append(media[torch.where(fam == FAM_MEDIUM, win, 0)].T)
     return sel, dict(has_quads=quads is not None, has_boxes=boxes is not None,
-                     has_media=media is not None)
+                     has_media=media is not None,
+                     has_perlin=tex is not None and tex.has_perlin,
+                     has_images=tex is not None and tex.has_images)
+
+
+def atlas_leaf(tex):
+    """A gradient leaf of the atlas of a TexPack with images (a detached
+    copy), None otherwise; diff_step's has_images input."""
+    if tex is None or not tex.has_images:
+        return None
+    return tex.atlas.detach().clone().requires_grad_()
 
 
 def solid_leaves(solids):
@@ -594,6 +629,8 @@ def kernel_solid_grads(g, solids):
         d_box[row, :nb] = gb[:, i]
     for i, col in enumerate(MED_COLS if nm else ()):
         d_med[:nm, col] = gm[:, i]
+    d_quad[QUAD_TEX_SCALE_ROW, :nq] = gq[:, TEX_SCALE_COL]
+    d_box[BOX_TEX_SCALE_ROW, :nb] = gb[:, TEX_SCALE_COL]
     return mk.SolidPacks(d_quad, d_box, nq, nb, nm, d_med)
 
 
@@ -620,11 +657,11 @@ def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
 
 def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                   k_steps: int, max_depth: int, t_min: float,
-                  moving: bool, bvh=None, solids=None):
+                  moving: bool, bvh=None, solids=None, tex=None):
     """The backward of k_steps bounce steps (ops.megakernel.bounce_steps)
     of a lane state; moving: the moving-sphere variant; solids: the
     scene's SolidPacks (quads, boxes, lights: the solid-family variant)
-    or None.
+    or None; tex: the scene's TexPack (the texture variant) or None.
 
     state: the chain's input state (16, Q) f32; keys (2, Q) int32 (the
     lanes' u32 words); sph24 (24, S), bg8 (8,): the packs; d_out (16, Q)
@@ -635,7 +672,12 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     d_sph24 (24, S), the grad_rows(moving) filled; d_bg8 (8,); replay
     mismatches (1,) int32: the lanes whose replayed bounce row differs
     from out_bounce; d_solids: the SolidPacks of the quad and box packs'
-    cotangents, None without solids).
+    cotangents, None without solids; d_atlas (T, 4): the atlas's
+    cotangent, the sum of the albedo cotangents of the bounces that read
+    each texel (float atomics on the card, so it repeats within a
+    spread), None without images). A marble's texture scale gets its
+    gradient in its pack row (17 of a sphere's, 19 of a quad's, 18 of a
+    box's).
 
     CUDA tensors launch chain_bwd (counted in `chain_adjoint.launches`);
     CPU tensors run chain_adjoint_reference. Either way the mismatches
@@ -647,12 +689,16 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                                   f"chain_bwd's scope (ROADMAP Queue A #9.4)")
     solid_arg = mk._check_solids(solids, device)
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids)
+              moving=moving, solids=solids, tex=tex)
     if device.type == "cpu":
+        mk._check_tex(tex, device)
         out = chain_adjoint_reference(state, keys, sph24, bg8, d_out,
                                       out_bounce, **kw)
         count_mismatches(chain_adjoint, out[3])
         return out
+    d_atlas = (torch.zeros_like(tex.atlas)
+               if tex is not None and tex.has_images else None)
+    tex_arg = mk._check_tex(tex, device, d_atlas)
     tree = mk._check_bvh(bvh, sph24, "chain_adjoint")
     lib = _build.load()
     q, n_slots = state.shape[1], sph24.shape[1]
@@ -671,7 +717,7 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     with torch.cuda.device(device):
         err = lib.rrt_chain_bwd(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(), n_slots,
-            *tree, solid_arg, bg8.data_ptr(), d_out.data_ptr(),
+            *tree, solid_arg, tex_arg, bg8.data_ptr(), d_out.data_ptr(),
             out_bounce.data_ptr(), k_steps, max_depth, t_min, int(moving),
             d_state.data_ptr(), partials.data_ptr(), sums.data_ptr(),
             mismatches.data_ptr(),
@@ -685,9 +731,11 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     g = sums[:-8].view(n_slots + n_solid, SLOT_COLS)
     for i, row in enumerate(grad_rows(moving)):
         d_sph24[row] = g[:n_slots, i]
+    d_sph24[SPHERE_TEX_SCALE_ROW] = g[:n_slots, TEX_SCALE_COL]
     d_solids = (None if solids is None
                 else kernel_solid_grads(g[n_slots:], solids))
-    return d_state, d_sph24, sums[-8:].clone(), mismatches, d_solids
+    return (d_state, d_sph24, sums[-8:].clone(), mismatches, d_solids,
+            d_atlas)
 
 
 chain_adjoint.launches = 0
@@ -696,7 +744,7 @@ chain_adjoint.replay_mismatches = 0
 
 def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
                             k_steps: int, max_depth: int, t_min: float,
-                            moving: bool, solids=None):
+                            moving: bool, solids=None, tex=None):
     """Plain version of chain_adjoint, same inputs and outputs.
 
     1. replay the live lanes' steps under no_grad with the port's plain
@@ -712,14 +760,16 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
     sph = sph24.detach().requires_grad_()
     bg = bg8.detach().requires_grad_()
     quads, boxes, _ = solid_leaves(solids)
+    atlas = atlas_leaf(tex)
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
     lanes = (st[mk.ROW_ALIVE] > 0.5).nonzero()[:, 0]
     no_solids = None if solids is None else solid_grads(solids, None, None)
     if lanes.numel() == 0:
         return (d_state, torch.zeros_like(sph24), torch.zeros_like(bg8),
-                mismatches, no_solids)
+                mismatches, no_solids,
+                None if atlas is None else torch.zeros_like(atlas))
     scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving,
-                                 solids)
+                                 solids, tex)
     bounce0 = st[mk.ROW_BOUNCE, lanes].long()
     with torch.no_grad():
         records, _, n_scattered = replay_steps(
@@ -730,7 +780,8 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
                        != out_bounce[lanes]).sum().to(torch.int32)
     seed = d_out[:13, lanes]
     leaves = {k: x for k, x in (("sph", sph), ("bg", bg), ("quad", quads),
-                                ("box", boxes)) if x is not None}
+                                ("box", boxes), ("atlas", atlas))
+              if x is not None}
     with torch.enable_grad():
         frames = None if quads is None else mk.quad_frame_pack(quads)
         rows_in = tuple(st[r, lanes].clone().requires_grad_()
@@ -738,10 +789,11 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
         rows, total = rows_in, 0.0
         for i, r in enumerate(records):
             rows = tuple(x[r["sel"]] for x in rows)
-            sel, flags = winner_rows(r, sph, frames, boxes)
+            sel, flags = winner_rows(r, sph, frames, boxes, tex=tex)
             rows = diff_step(step_constants(r, sph24, bg8, solids), *rows,
-                             *sel, *bg[:6], moving=moving, t_min=t_min,
-                             **flags)
+                             *sel, *bg[:6], *(() if atlas is None
+                                              else (atlas,)),
+                             moving=moving, t_min=t_min, **flags)
             # A lane's chain ends at its last step, or where it stops.
             ends = (torch.ones_like(r["survives"]) if i + 1 == len(records)
                     else ~r["survives"])
@@ -756,17 +808,30 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
            for (k, x), g in zip(leaves.items(), grads[13:])}
     d_solids = None if solids is None else solid_grads(
         solids, got.get("quad"), got.get("box"))
-    return d_state, got["sph"], got["bg"], mismatches, d_solids
+    return (d_state, got["sph"], got["bg"], mismatches, d_solids,
+            got.get("atlas"))
 
 
-def solid_inputs(solids) -> tuple:
+def solid_inputs(solids, tex=None) -> tuple:
     """The trailing arguments of BounceChain.apply and
-    TileTrainChain.apply for a scene's SolidPacks: (quad24, box24,
-    (n_quads, n_boxes, n_media), med24 or None), or none for None."""
-    if solids is None:
-        return ()
-    return (solids.quad24, solids.box24,
-            (solids.n_quads, solids.n_boxes, solids.n_media), solids.med24)
+    TileTrainChain.apply for a scene's SolidPacks and TexPack: (quad24,
+    box24, (n_quads, n_boxes, n_media), med24 or None, atlas, tex
+    without its atlas), the first four None without solids, the last
+    two absent without tex."""
+    out = ((None,) * 4 if solids is None else (
+        solids.quad24, solids.box24,
+        (solids.n_quads, solids.n_boxes, solids.n_media), solids.med24))
+    if tex is None:
+        return () if solids is None else out
+    return out + (tex.atlas, dataclasses.replace(tex, atlas=None))
+
+
+def unpack_inputs(quad24, box24, counts, med24, atlas, tex):
+    """The SolidPacks and TexPack of solid_inputs' arguments."""
+    solids = None if counts is None else mk.SolidPacks(
+        quad24, box24, *counts, med24)
+    return solids, (None if tex is None
+                    else dataclasses.replace(tex, atlas=atlas))
 
 
 class BounceChain(torch.autograd.Function):
@@ -774,10 +839,11 @@ class BounceChain(torch.autograd.Function):
     the state and the packs: apply(state (16,Q), keys (2,Q) int32,
     sph24, bg8, k_steps, max_depth, t_min, moving, bvh,
     *solid_inputs(solids)) -> state' (16,Q), bvh the sphere pack's
-    accel.BvhPack (required on a CUDA device), the last four arguments
-    the quad and box packs, their active slot counts and the medium pack
-    (None: the chain takes no media) of a scene with quads, boxes or a
-    light.
+    accel.BvhPack (required on a CUDA device), the last arguments
+    solid_inputs(solids, tex): the quad and box packs, their active slot
+    counts and the medium pack (None: the chain takes no media) of a
+    scene with quads, boxes or a light, and the atlas of a scene with
+    textures.
     Forward: one bounce_steps launch on a copy of the state
     (bounce_steps updates in place, and the input is the backward's
     residual); backward: one chain_adjoint on the same BVH, seeded with
@@ -787,42 +853,45 @@ class BounceChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min,
                 moving, bvh, quad24=None, box24=None, counts=None,
-                med24=None):
-        solids = None if counts is None else mk.SolidPacks(
-            quad24, box24, *counts, med24)
+                med24=None, atlas=None, tex=None):
+        solids, tex = unpack_inputs(quad24, box24, counts, med24, atlas, tex)
         kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
                   moving=moving, bvh=bvh)
         out = mk.bounce_steps(state.clone(), keys, sph24, bg8, solids=solids,
-                              **kw)
+                              tex=tex, **kw)
         ctx.save_for_backward(state, keys, sph24, bg8,
-                              out[mk.ROW_BOUNCE].clone(), quad24, box24)
+                              out[mk.ROW_BOUNCE].clone(), quad24, box24,
+                              atlas)
         ctx.kw = kw
         ctx.counts = counts
+        ctx.tex = None if tex is None else dataclasses.replace(tex,
+                                                                atlas=None)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        state, keys, sph24, bg8, out_bounce, quad24, box24 = \
+        state, keys, sph24, bg8, out_bounce, quad24, box24, atlas = \
             ctx.saved_tensors
-        solids = None if ctx.counts is None else mk.SolidPacks(
-            quad24, box24, *ctx.counts)
-        d_state, d_sph, d_bg, _, d_solids = chain_adjoint(
+        solids, tex = unpack_inputs(quad24, box24, ctx.counts, None, atlas,
+                                    ctx.tex)
+        d_state, d_sph, d_bg, _, d_solids, d_atlas = chain_adjoint(
             state, keys, sph24, bg8, d_out.contiguous(), out_bounce,
-            solids=solids, **ctx.kw)
+            solids=solids, tex=tex, **ctx.kw)
         d_quad, d_box = ((None, None) if d_solids is None
                          else (d_solids.quad24, d_solids.box24))
         return ((d_state, None, d_sph, d_bg) + (None,) * 5
-                + (d_quad, d_box, None, None))
+                + (d_quad, d_box, None, None, d_atlas, None))
 
 
 def bounce_chain(k_steps: int, max_depth: int, t_min: float,
                  moving: bool):
-    """chain(state, keys, sph24, bg8, bvh=None, solids=None) -> state':
-    BounceChain with its step count and options bound, as rrt_tpu's
-    bounce_chain returns; bvh: the sphere pack's accel.BvhPack, which
-    both kernels walk (required on a CUDA device); solids: the scene's
-    SolidPacks, or None."""
-    def chain(state, keys, sph24, bg8, bvh=None, solids=None):
+    """chain(state, keys, sph24, bg8, bvh=None, solids=None, tex=None)
+    -> state': BounceChain with its step count and options bound, as
+    rrt_tpu's bounce_chain returns; bvh: the sphere pack's
+    accel.BvhPack, which both kernels walk (required on a CUDA device);
+    solids, tex: the scene's SolidPacks and TexPack, or None."""
+    def chain(state, keys, sph24, bg8, bvh=None, solids=None, tex=None):
         return BounceChain.apply(state, keys, sph24, bg8, k_steps, max_depth,
-                                 t_min, moving, bvh, *solid_inputs(solids))
+                                 t_min, moving, bvh,
+                                 *solid_inputs(solids, tex))
     return chain

@@ -20,10 +20,11 @@ bounce chains (ops/megakernel_vjp.BounceChain: forward
 ops/megakernel.bounce_steps, backward the chain_bwd kernel) with
 differentiable lane compaction between them. The train kernels take
 every scene the forward kernels take (spheres, quads, boxes, lights,
-up to MAX_TRAIN_MEDIA constant media); the chain takes them but the
-media, which rrt_tpu's chain leaves out too. A scene outside a route's
-scope (perlin and image textures, Russian roulette; more media, or any
-on the chain) raises there on a CUDA device, naming the ROADMAP item.
+perlin and image textures, up to MAX_TRAIN_MEDIA constant media); the
+chain takes them but the media, which rrt_tpu's chain leaves out too. A
+scene outside a route's scope (Russian roulette; an image texture on a
+medium, whose eager route is the CPU's; more media, or any on the chain)
+raises there on a CUDA device, naming its ROADMAP entry.
 `trace_batch`'s checkpointed scan is a CPU route only.
 `_bounce` is one bounce of the plain physics (intersect, shade,
 scatter), shared by the plain versions, the batch driver and the tests.
@@ -49,7 +50,7 @@ from .ops import megakernel as ops_mega
 from .ops import megakernel_train as ops_train
 from .ops import megakernel_vjp as ops_vjp
 from .scene import BG_SKY, SceneArrays
-from .textures import use_color2
+from .textures import scene_texel, use_color2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +103,9 @@ class Bounce:
     # (n_media, N) the media's STREAM_MEDIUM uniforms (rng.medium_draws),
     # drawn where the bounce intersects without a kernel; else None.
     u_med: torch.Tensor | None = None
+    # (N,) int64 the texel an image texture reads at the hit
+    # (textures.scene_texel) in a scene with images; else None.
+    texel: torch.Tensor | None = None
 
 
 def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
@@ -114,8 +118,10 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
     ops.megakernel.intersect_only (the kernel on a CUDA device, its plain
     version on the CPU), as the batch driver does; None intersects
     through geometry.intersect_all, as the kernels' plain versions and
-    the differentiable scan do, which must launch no kernel."""
-    ops_mega.check_scope(scene)
+    the differentiable scan do, which must launch no kernel. The shading
+    is eager: it takes an image texture on a medium as rrt_tpu's eager
+    code does (uv 0), which only the CPU's routes reach."""
+    ops_mega.check_scope(scene, eager=True)
     u_med = None
     if packed is None:
         if scene.has_media:
@@ -147,13 +153,18 @@ def _bounce(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
     # scattering (src/lib.rs:58-60); misses at that depth still see the
     # sky.
     survives = hit_mask & sc.scattered & (bounce < max_depth)
+    texel = None
+    if scene.has_images:
+        texel = scene_texel(scene, scene.mat_tex[hit.mat_id.long()], hit.u,
+                            hit.v)
     return Bounce(
         t=t, win=idx, fam=fam, hit=hit, scatter=sc, hit_mask=hit_mask,
         miss_mask=miss_mask,
         use_c2=use_color2(scene, scene.mat_tex[hit.mat_id.long()], hit.p),
         contribution=contribution, survives=survives,
         new_o=torch.where(survives, hit.p, o),
-        new_d=torch.where(survives, sc.direction, d), u_med=u_med)
+        new_d=torch.where(survives, sc.direction, d), u_med=u_med,
+        texel=texel)
 
 
 def _shade(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
@@ -206,7 +217,8 @@ def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
         sample_lo=sample_lo, width=cfg.width, height=cfg.height,
         spp=cfg.spp if n_samples is None else n_samples,
         max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving,
-        bvh=bvh, solids=ops_mega.pack_solids(scene, device))
+        bvh=bvh, solids=ops_mega.pack_solids(scene, device),
+        tex=ops_mega.pack_textures(scene, device))
     return rad, traced.sum()
 
 
@@ -233,8 +245,8 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
     ops.megakernel_train.train_scope_gap)."""
     gap = ops_train.train_scope_gap(scene, cfg.rr_depth)
     if gap is not None:
-        return (f"{gap[0]} is outside the train kernels' scope (ROADMAP "
-                f"Queue A {gap[1]})")
+        return (f"{gap[0]} is outside the train kernels' scope "
+                f"({ops_mega.roadmap_ref(gap[1])})")
     if cfg.max_depth + 1 > ops_vjp.MAX_RECORDS:
         return (f"max_depth {cfg.max_depth} is past the train kernels' "
                 f"{ops_vjp.MAX_RECORDS} bounce records a path")
@@ -248,7 +260,7 @@ def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
     if gap is not None:
         raise NotImplementedError(
             f"{where}: {gap[0]} is outside the train kernels' scope "
-            f"(ROADMAP Queue A {gap[1]})")
+            f"({ops_mega.roadmap_ref(gap[1])})")
 
 
 def _check_card_scope(where: str, scene: SceneArrays, rr_depth: int,
@@ -309,13 +321,14 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     budget = sample_budget or DIFF_SAMPLE_BUDGET
     n_samples = cfg.spp if n_samples is None else n_samples
     packs = _packs(scene, camera, cfg, device)
-    solids = ops_mega.pack_solids(scene, device)
+    extra = ops_vjp.solid_inputs(ops_mega.pack_solids(scene, device),
+                                 ops_mega.pack_textures(scene, device))
     rad, n_traced = None, 0
     for lo in range(0, n_samples, budget):
         r, traced = ops_train.TileTrainChain.apply(
             *packs, rng.key_words(seed), sample_lo + lo, cfg.width,
             cfg.height, min(budget, n_samples - lo), cfg.max_depth,
-            cfg.t_min, scene.has_moving, *ops_vjp.solid_inputs(solids))
+            cfg.t_min, scene.has_moving, *extra)
         rad = r if rad is None else rad + r
         n_traced = n_traced + traced.sum()
     return rad, n_traced
@@ -352,12 +365,15 @@ def pack_scene(scene: SceneArrays, device, shutter=None):
     over `shutter` (time0, time1), the interval of the rays' times
     (required when the scene moves), and the quad and box families'
     ops.megakernel.SolidPacks, the media's among them (None for a scene
-    of spheres alone without a light or a medium). Built once a render
+    of spheres alone without a light or a medium), and its
+    ops.megakernel.TexPack ("tex", None without perlin or image
+    textures). Built once a render
     and passed to every bounce's intersect_only; a pack of changed
     spheres needs a new one."""
     sph24 = ops_mega.pack_spheres_full(scene).to(device)
     return {"sph24": sph24, "bvh": accel.pack_bvh(sph24, shutter),
-            "solids": ops_mega.pack_solids(scene, device)}
+            "solids": ops_mega.pack_solids(scene, device),
+            "tex": ops_mega.pack_textures(scene, device)}
 
 
 def chain_bvh(sph24, time, moving: bool):
@@ -460,6 +476,7 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
         bvh = chain_bvh(sph24, time, scene.has_moving)
     bg8 = ops_mega.pack_bg(scene).to(dev)
     solids = ops_mega.pack_solids(scene, dev)
+    tex = ops_mega.pack_textures(scene, dev)
     ones = torch.ones((n,), dtype=torch.float32, device=dev)
     zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
     st = ops_mega.pack_state(o, d, time, ones.expand(3, n),
@@ -468,7 +485,7 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     lane = torch.arange(n, device=dev)
     for j, k in enumerate(schedule):
         st = ops_vjp.bounce_chain(k, max_depth, t_min, scene.has_moving)(
-            st, keys, sph24, bg8, bvh, solids)
+            st, keys, sph24, bg8, bvh, solids, tex)
         if j < len(schedule) - 1:
             st, keys, lane = _compact_lanes(st, keys, lane)
     # Undo the compactions: callers index by the rays' order.
@@ -513,7 +530,7 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
         return trace_batch_fused(scene, o, d, time, keys, max_depth, t_min,
                                  rr_depth=rr_depth,
                                  bvh=None if packed is None else packed["bvh"])
-    ops_mega.check_scope(scene, rr_depth)
+    ops_mega.check_scope(scene, rr_depth, eager=not o.is_cuda)
     if differentiable:
         if o.is_cuda:
             _check_chain_card_scope("trace_batch", scene, rr_depth, o.device)
@@ -602,8 +619,11 @@ def render_image(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     all cfg.spp. differentiable: the image is a differentiable function
     of the scene's and camera's tensors (render_tile). Returns (image
     (H,W,3) mean radiance over the rendered samples, n_traced). The queue
-    and tile drivers render the same image faster."""
-    ops_mega.check_scope(scene, cfg.rr_depth)
+    and tile drivers render the same image faster. On the CPU it takes
+    an image texture on a medium as rrt_tpu's eager route does; on a
+    CUDA device such a scene raises."""
+    ops_mega.check_scope(scene, cfg.rr_depth,
+                         eager=torch.device(device).type == "cpu")
     if differentiable:
         _check_chain_card_scope("render_image(differentiable=True)", scene,
                                 cfg.rr_depth, device)
@@ -664,7 +684,8 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
     q = min(queue_size or cfg.queue_size, total)
     k_steps = max(1, cfg.bounces_per_refill)
     packed = pack_scene(scene, device, _shutter(camera))
-    sph24, bvh, solids = packed["sph24"], packed["bvh"], packed["solids"]
+    sph24, bvh, solids, tex = (packed["sph24"], packed["bvh"],
+                               packed["solids"], packed["tex"])
     bg8 = ops_mega.pack_bg(scene).to(device)
     seed_words = rng.key_words(seed)
     pixel_gid = py * cfg.width + px
@@ -699,7 +720,8 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
             next_s += n_issue
         ops_mega.bounce_steps(st, keys, sph24, bg8, k_steps=k_steps,
                               max_depth=cfg.max_depth, t_min=cfg.t_min,
-                              moving=scene.has_moving, bvh=bvh, solids=solids)
+                              moving=scene.has_moving, bvh=bvh, solids=solids,
+                              tex=tex)
         trace_queue.outer_steps += 1
         n_alive = int((st[ops_mega.ROW_ALIVE] > 0.5).sum())
     acc.index_add_(1, pix, st[10:13])  # the final flush

@@ -11,10 +11,11 @@ This port builds the sphere family (stationary and moving spheres), the
 quad family, the box family (rrt_tpu's slab-test box, with its
 rotation about the world Y axis baked into cos/sin) and the
 constant-medium family (a sphere or an oriented box boundary, padded to
-8 slots), with solid and checker textures, the lambertian, metal,
-dielectric, diffuse_light and isotropic materials and either
-background. The perlin and image textures raise NotImplementedError
-naming the ROADMAP item that ports them.
+8 slots), with solid, checker, perlin-marble and image textures (the
+images resampled onto one atlas grid, `resample_image`; a box whose
+material carries an image is built as the books' six quads), the
+lambertian, metal, dielectric, diffuse_light and isotropic materials
+and either background.
 """
 
 import dataclasses
@@ -142,17 +143,40 @@ def _pad_to(n: int, lane: int = _LANE) -> int:
     return max(lane, ((n + lane - 1) // lane) * lane)
 
 
+def resample_image(im: np.ndarray, ah: int, aw: int,
+                   method: str = "nearest") -> np.ndarray:
+    """Host-side (h,w,3) -> (ah,aw,3) resample onto the atlas grid
+    (rrt_tpu.scene.resample_image, the same arithmetic): "nearest" keeps
+    the texel values, "bilinear" smooths a photograph."""
+    f32 = np.float32
+    im = np.asarray(im, f32)
+    h, w = im.shape[:2]
+    if (h, w) == (ah, aw):
+        return im
+    if method == "bilinear":
+        yf = (np.arange(ah, dtype=np.float64) + 0.5) * h / ah - 0.5
+        xf = (np.arange(aw, dtype=np.float64) + 0.5) * w / aw - 0.5
+        y0 = np.clip(np.floor(yf).astype(np.int64), 0, h - 1)
+        x0 = np.clip(np.floor(xf).astype(np.int64), 0, w - 1)
+        y1 = np.minimum(y0 + 1, h - 1)
+        x1 = np.minimum(x0 + 1, w - 1)
+        ty = np.clip(yf - y0, 0.0, 1.0).astype(f32)[:, None, None]
+        tx = np.clip(xf - x0, 0.0, 1.0).astype(f32)[None, :, None]
+        top = (im[y0[:, None], x0[None, :]] * (1 - tx)
+               + im[y0[:, None], x1[None, :]] * tx)
+        bot = (im[y1[:, None], x0[None, :]] * (1 - tx)
+               + im[y1[:, None], x1[None, :]] * tx)
+        return top * (1 - ty) + bot * ty
+    yi = (np.arange(ah) * h // ah).clip(0, h - 1)
+    xi = (np.arange(aw) * w // aw).clip(0, w - 1)
+    return im[yi[:, None], xi[None, :]]
+
+
 def _rot_y(deg: float) -> np.ndarray:
     r = math.radians(deg)
     c, s = math.cos(r), math.sin(r)
     return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]],
                     dtype=np.float32)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to rrt_tpu_torch yet (ROADMAP Queue A "
-        f"{item})")
 
 
 class SceneBuilder:
@@ -168,6 +192,7 @@ class SceneBuilder:
         self._media = []  # (btype, center, radius, half, rot, -1/density, mat)
         self._materials = []  # (type, tex_id, fuzz, ior)
         self._textures = []  # (type, c1, c2, scale, image_idx)
+        self._images = []  # ((h,w,3) float32 array, resample)
         self.bg_mode = BG_SKY
         self.bg_bottom = (1.0, 1.0, 1.0)
         self.bg_top = (0.5, 0.7, 1.0)
@@ -188,10 +213,20 @@ class SceneBuilder:
         return self._add_texture(TEX_CHECKER, c1=even, c2=odd, scale=scale)
 
     def perlin(self, scale: float = 1.0) -> int:
-        _not_ported("the perlin texture", "#9.5")
+        """The marble of RTTNW ch. 5.7: color1 white, `scale` the sine's
+        frequency along z."""
+        return self._add_texture(TEX_PERLIN, c1=(1, 1, 1), scale=scale)
 
     def image(self, pixels, resample: str = "nearest") -> int:
-        _not_ported("the image texture", "#9.5")
+        """pixels: (h,w,3) float in [0,1]; `resample` ("nearest" or
+        "bilinear") fits it onto the atlas grid at build time when its
+        size differs from the largest image's."""
+        if resample not in ("nearest", "bilinear"):
+            raise ValueError(f"resample must be nearest|bilinear, "
+                             f"got {resample!r}")
+        self._images.append((np.asarray(pixels, dtype=np.float32),
+                             resample))
+        return self._add_texture(TEX_IMAGE, image_idx=len(self._images) - 1)
 
     def _as_tex(self, color_or_tex) -> int:
         if isinstance(color_or_tex, int):
@@ -250,11 +285,13 @@ class SceneBuilder:
     def box(self, corner0, corner1, mat_id: int, rotate_y_deg: float = 0.0,
             translate=(0.0, 0.0, 0.0)):
         """Axis-aligned box [corner0, corner1], rotated about world Y and
-        then translated, into the box family (one slab test). rrt_tpu
-        builds a box whose material carries an image texture as the
-        books' 6 quads instead; image textures are not ported."""
+        then translated, into the box family (one slab test); a box whose
+        material carries an image texture becomes the books' six quads
+        instead, so that its faces have their uv (RTTNW listing 6.2)."""
         if self._textures[self._materials[mat_id][1]][0] == TEX_IMAGE:
-            _not_ported("a box with an image texture", "#9.5")
+            self._box_as_quads(corner0, corner1, mat_id, rotate_y_deg,
+                               translate)
+            return
         a = np.minimum(np.asarray(corner0, np.float32),
                        np.asarray(corner1, np.float32))
         b = np.maximum(np.asarray(corner0, np.float32),
@@ -266,6 +303,30 @@ class SceneBuilder:
         self._boxes.append((center.astype(np.float32),
                             (0.5 * (b - a)).astype(np.float32), c, s,
                             mat_id))
+
+    def _box_as_quads(self, corner0, corner1, mat_id, rotate_y_deg,
+                      translate):
+        """The six faces of the box [corner0, corner1] as quads, in
+        rrt_tpu's order and corners (front, right, left, back, top,
+        bottom)."""
+        a = np.minimum(np.asarray(corner0, np.float32),
+                       np.asarray(corner1, np.float32))
+        b = np.maximum(np.asarray(corner0, np.float32),
+                       np.asarray(corner1, np.float32))
+        dx = np.array([b[0] - a[0], 0, 0], np.float32)
+        dy = np.array([0, b[1] - a[1], 0], np.float32)
+        dz = np.array([0, 0, b[2] - a[2]], np.float32)
+        faces = [
+            (np.array([a[0], a[1], b[2]], np.float32), dx, dy),
+            (np.array([b[0], a[1], b[2]], np.float32), -dz, dy),
+            (np.array([a[0], a[1], a[2]], np.float32), dz, dy),
+            (np.array([b[0], a[1], a[2]], np.float32), -dx, dy),
+            (np.array([a[0], b[1], b[2]], np.float32), dx, -dz),
+            (np.array([a[0], a[1], a[2]], np.float32), dx, dz),
+        ]
+        for q, u, v in faces:
+            self.quad(q, u, v, mat_id, rotate_y_deg=rotate_y_deg,
+                      translate=translate)
 
     def medium_sphere(self, center, radius: float, density: float,
                       albedo) -> None:
@@ -383,6 +444,18 @@ class SceneBuilder:
         tex_scale = np.array([t[3] for t in self._textures], f32)
         tex_image = np.array([t[4] for t in self._textures], i32)
 
+        if self._images:
+            # One atlas grid, the largest image's: a lookup needs no
+            # per-image shape.
+            ah = max(im.shape[0] for im, _ in self._images)
+            aw = max(im.shape[1] for im, _ in self._images)
+            images = np.zeros((len(self._images), ah, aw, 3), f32)
+            for i, (im, resample) in enumerate(self._images):
+                images[i] = resample_image(im, ah, aw, resample)
+        else:
+            images = np.zeros((1, 1, 1, 3), f32)
+        img_tex = set(np.nonzero(tex_type == TEX_IMAGE)[0].tolist())
+
         t = torch.from_numpy
         return SceneArrays(
             sphere_c0=t(sphere_c0), sphere_dc=t(sphere_dc),
@@ -403,7 +476,7 @@ class SceneBuilder:
             tex_type=t(tex_type), tex_color1=t(tex_color1),
             tex_color2=t(tex_color2), tex_scale=t(tex_scale),
             tex_image=t(tex_image),
-            images=torch.zeros((1, 1, 1, 3)),
+            images=t(images),
             bg_mode=torch.tensor(self.bg_mode, dtype=torch.int32),
             bg_bottom=torch.tensor(self.bg_bottom, dtype=torch.float32),
             bg_top=torch.tensor(self.bg_top, dtype=torch.float32),
@@ -412,12 +485,13 @@ class SceneBuilder:
             has_rot_boxes=any(abs(float(b[3])) > 0.0 for b in self._boxes),
             has_media=bool(self._media),
             has_perlin=bool((tex_type == TEX_PERLIN).any()),
+            has_images=bool(self._images),
             has_emissive=bool((mat_type == MAT_DIFFUSE_LIGHT).any()),
             has_moving=bool(np.abs(sphere_dc).max() > 0.0)
             if len(self._spheres) else False,
-            # Image textures are not ported (#9.5), so none lies on a
-            # medium (rrt_tpu's _has_images_on_media).
-            has_images_on_media=False,
+            has_images_on_media=any(
+                self._materials[int(m)][1] in img_tex
+                for m in med_mat[med_valid]),
             n_media_active=len(self._media),
             n_spheres_active=len(self._spheres),
             n_quads_active=len(self._quads),

@@ -2,7 +2,8 @@
 
 from .book1 import (book2chap2_scene, chap11_scene, chap12_scene,
                     diffuse_scene)
-from .book2 import cornell_box_scene, cornell_smoke_scene
+from .book2 import (cornell_box_scene, cornell_smoke_scene, earth_scene,
+                    simple_light_scene)
 
 SCENES = {
     "diffuse": diffuse_scene,
@@ -11,4 +12,6 @@ SCENES = {
     "book2chap2": book2chap2_scene,
     "cornell": cornell_box_scene,
     "cornell_smoke": cornell_smoke_scene,
+    "simple_light": simple_light_scene,
+    "earth": earth_scene,
 }

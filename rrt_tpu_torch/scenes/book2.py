@@ -1,13 +1,61 @@
 """RTTNW (book 2) scenes, with rrt_tpu.scenes.book2's geometry and
-constants. The Cornell box and its smoke version are ported;
-simple_light waits for the perlin texture (ROADMAP Queue A #9.5), earth
-and rttnw_final for the image texture (#9.5). mixed_scene and
+constants: simple_light (perlin marble, a quad and a sphere light),
+earth (an image texture), the Cornell box and its smoke version;
+rttnw_final waits for its 400 ground boxes (ROADMAP Queue A #9.5, its
+rest). mixed_scene and
 media_scene are test data (the solid families beside spheres; both
 constant-medium boundaries where the sky gives them a gradient), not
 book scenes. Returns (SceneArrays, Camera)."""
 
+import numpy as np
+
 from ..camera import Camera
 from ..scene import SceneBuilder
+
+
+def simple_light_scene(nx: int, ny: int):
+    """Two perlin-marble spheres, a quad light and a sphere light on a
+    black background (RTTNW ch. 7.1)."""
+    b = SceneBuilder()
+    b.solid_background((0.0, 0.0, 0.0))
+    marble = b.lambertian(b.perlin(scale=4.0))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, marble)
+    b.sphere((0.0, 2.0, 0.0), 2.0, marble)
+    light = b.diffuse_light((4.0, 4.0, 4.0))
+    b.quad((3.0, 1.0, -2.0), (2.0, 0.0, 0.0), (0.0, 2.0, 0.0), light)
+    b.sphere((0.0, 7.0, 0.0), 2.0, light)
+    cam = Camera.create(look_from=(26.0, 3.0, 6.0), look_at=(0.0, 2.0, 0.0),
+                        fov_deg=20.0, aspect=nx / ny)
+    return b.build(), cam
+
+
+def _default_earth_image() -> np.ndarray:
+    """The procedural stand-in for the book's earthmap.jpg (nothing is
+    bundled or downloaded): latitude-banded land and sea, 128x256,
+    rrt_tpu's."""
+    h, w = 128, 256
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    u, v = u / (w - 1), v / (h - 1)
+    land = (np.sin(u * 19.0) * np.sin(v * 13.0 + 2.0)) > 0.2
+    img = np.empty((h, w, 3), np.float32)
+    img[..., 0] = np.where(land, 0.2, 0.05)
+    img[..., 1] = np.where(land, 0.55, 0.15)
+    img[..., 2] = np.where(land, 0.2, 0.5)
+    return img
+
+
+def earth_scene(nx: int, ny: int, image: np.ndarray | None = None,
+                image_resample: str = "nearest"):
+    """One image-textured sphere under the default sky (RTTNW ch. 6).
+    `image` replaces the stand-in with an (h,w,3) float array in [0,1];
+    `image_resample` picks the atlas fit."""
+    b = SceneBuilder()
+    tex = b.image(_default_earth_image() if image is None else image,
+                  resample=image_resample)
+    b.sphere((0.0, 0.0, 0.0), 2.0, b.lambertian(tex))
+    cam = Camera.create(look_from=(13.0, 2.0, 3.0), look_at=(0.0, 0.0, 0.0),
+                        fov_deg=20.0, aspect=nx / ny)
+    return b.build(), cam
 
 
 def _cornell_walls(b: SceneBuilder, light_emit, light_q, light_u, light_v):

@@ -175,18 +175,19 @@ def _leaves(obj):
 
 @pytest.mark.parametrize("driver", ["batch", "queue"])
 def test_out_of_scope_raises(driver):
-    """Russian roulette and a perlin-textured scene (simple_light) raise
-    NotImplementedError naming their ROADMAP items, in both new drivers
-    (constant media are ported since #9.4)."""
-    j_scene, j_cam = jscenes.SCENES["simple_light"](8, 8)
-    perlin = convert.scene_from_numpy(_leaves(j_scene))
+    """Russian roulette and rttnw_final's 400 ground boxes (past
+    SOLID_CAP) raise NotImplementedError naming their ROADMAP items, in
+    both new drivers (constant media are ported since #9.4, the perlin
+    and image textures since #9.5's first part)."""
+    j_scene, j_cam = jscenes.SCENES["rttnw_final"](8, 8)
+    boxes = convert.scene_from_numpy(_leaves(j_scene))
     cam = convert.camera_from_numpy(_leaves(j_cam))
     spheres, _ = tscenes.SCENES["chap11"](8, 8)
     fn = (render.render_image if driver == "batch"
           else render.render_image_queue)
     base = dict(width=8, height=8, spp=2, samples_per_pass=2)
     for scene, cfg, item in (
-            (perlin, render.RenderConfig(**base), "#9.5"),
+            (boxes, render.RenderConfig(**base), "#9.5"),
             (spheres, render.RenderConfig(**base, rr_depth=4), "#9.6")):
         with pytest.raises(NotImplementedError, match=item):
             fn(scene, cam, cfg, 0, device="cpu")

@@ -105,14 +105,26 @@ def test_scene_matches_reference(name):
         assert tscenes.SCENES["cornell"] is tscenes.cornell_box_scene
 
 
-def test_box_with_an_image_texture_raises():
-    """rrt_tpu builds such a box as six quads; image textures are not
-    ported (ROADMAP Queue A #9.5)."""
-    from rrt_tpu_torch.scene import TEX_IMAGE, SceneBuilder
-    b = SceneBuilder()
-    mat = b.lambertian(b._add_texture(TEX_IMAGE, image_idx=0))
-    with pytest.raises(NotImplementedError, match="#9.5"):
-        b.box((0, 0, 0), (1, 1, 1), mat)
+def test_box_with_an_image_texture_builds_six_quads():
+    """A box whose material carries an image builds rrt_tpu's six quads
+    (RTTNW listing 6.2, rotated and translated), bit for bit, and their
+    quad pack carries the image index in row 20."""
+    from rrt_tpu_torch.scene import tensor_fields
+    img = np.random.default_rng(2).uniform(0, 1, (4, 8, 3)).astype(
+        np.float32)
+    built = []
+    for b in (SceneBuilder(), JBuilder()):
+        b.sphere((0.0, 0.0, 0.0), 1.0, b.lambertian(b.image(img * 0.5)))
+        b.box((0, 0, 0), (1, 2, 3), b.lambertian(b.image(img)),
+              rotate_y_deg=-18.0, translate=(1.0, 0.0, 2.0))
+        built.append(b.build())
+    got, exp = built
+    assert (got.n_quads_active, got.n_boxes_active) == (6, 0)
+    for f in tensor_fields():
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(exp, f)), err_msg=f)
+    quad24 = tmk.pack_quads_full(got)
+    assert quad24[20, :6].tolist() == [1.0] * 6
 
 
 def _rel_close(a, b, rtol=1e-6):
@@ -425,10 +437,11 @@ def _no_spheres(sph24):
 
 def test_scopes():
     """The forward kernels, the train kernels and chain_bwd take cornell
-    (#9.7 is ported): its gradients need no fallback. The book-2 scenes
-    whose textures are not ported raise naming #9.5, in every driver and
-    in the backward scope; cornell_smoke (#9.4) is in SCENES, and in
-    every scope but chain_bwd's."""
+    (#9.7 is ported): its gradients need no fallback. rttnw_final, whose
+    400 ground boxes pass SOLID_CAP, raises naming #9.5 (its rest) in
+    every driver and in the backward scope; cornell_smoke (#9.4) is in
+    SCENES, and in every scope but chain_bwd's; simple_light and earth
+    (#9.5's first part) are in SCENES and in every scope."""
     scene, cam = tscenes.cornell_box_scene(8, 8)
     assert tmk.scope_gap(scene) is None
     assert tmkv.backward_scope_gap(scene) is None
@@ -442,7 +455,12 @@ def test_scopes():
     assert tmk.scope_gap(smoke) is None
     assert render.diff_fallback_reason(smoke, cfg) is None
     assert tmkv.backward_scope_gap(smoke)[1] == "#9.4"
-    items = {"simple_light": "#9.5", "earth": "#9.5", "rttnw_final": "#9.5"}
+    for name in ("simple_light", "earth"):
+        t_scene, _ = tscenes.SCENES[name](8, 8)
+        assert tmk.scope_gap(t_scene) is None, name
+        assert tmkv.backward_scope_gap(t_scene) is None, name
+        assert render.diff_fallback_reason(t_scene, cfg) is None, name
+    items = {"rttnw_final": "#9.5"}
     for name, item in items.items():
         j_scene, j_cam = jscenes.SCENES[name](8, 8)
         t_scene = convert.scene_from_numpy(_leaves(j_scene))

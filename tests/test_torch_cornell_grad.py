@@ -375,15 +375,16 @@ def test_light_emits_from_behind():
 
 def test_out_of_scope_still_raises():
     """Media on chain_bwd and more than MAX_TRAIN_MEDIA media on the
-    train kernels, perlin textures and Russian roulette stay outside the
-    backwards, raising with their ROADMAP items."""
+    train kernels, more quads than SOLID_CAP (rttnw_final's boxes, #9.5's
+    rest; the perlin and image textures are ported) and Russian roulette
+    stay outside the backwards, raising with their ROADMAP items."""
     (_, _), (smoke, smoke_cam) = _both("cornell_smoke", 8, 8)
     cornell, cornell_cam = tscenes.cornell_box_scene(8, 8)
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
     assert tmkv.backward_scope_gap(smoke)[1] == "#9.4"
     assert tmkt.train_scope_gap(smoke) is None
     assert tmkv.backward_scope_gap(cornell, rr_depth=2)[1] == "#9.6"
-    perlin = dataclasses.replace(cornell, has_perlin=True)
+    perlin = dataclasses.replace(cornell, n_quads_active=tmk.SOLID_CAP + 1)
     assert tmkv.backward_scope_gap(perlin)[1] == "#9.5"
     fog = SceneBuilder()
     for i in range(tmkt.MAX_TRAIN_MEDIA + 1):

@@ -250,7 +250,7 @@ def test_albedo_finite_difference(device):
     mix = torch.tensor(_MIX, device=device)
     rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
     d_rad = mix.expand_as(rad).contiguous()
-    d_sph, d_cam, d_bg, _, _ = tmkt.tiles_adjoint(*packs, d_rad, lengths,
+    d_sph, d_cam, d_bg, _, _, _ = tmkt.tiles_adjoint(*packs, d_rad, lengths,
                                                winners, **kw)
     gp, _ = diff.field_grads(scene, cam, cfg, d_sph, d_cam, d_bg,
                              device=device)
@@ -330,7 +330,7 @@ def test_train_bwd_unchanged_by_the_shared_header(device):
     import hashlib
     _, _, _, packs, kw = _train_case(device, "chap12")
     rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
-    d_sph, d_cam, d_bg, mism, _ = tmkt.tiles_adjoint(
+    d_sph, d_cam, d_bg, mism, _, _ = tmkt.tiles_adjoint(
         *packs, torch.ones_like(rad), lengths, winners, **kw)
     assert int(mism) == 0
     assert [float(x).hex() for x in d_bg[:6].cpu()] == [
@@ -671,7 +671,7 @@ def test_chain_bwd_determinism(device, name):
 def test_chain_bwd_dead_lanes_pass_through(device):
     st, keys, sph, bg, _, d_out, kw, bvh = _chain_case(device)
     st[tmk.ROW_ALIVE] = 0.0
-    d_st, d_sph, d_bg, mism, _ = tmkv.chain_adjoint(
+    d_st, d_sph, d_bg, mism, _, _ = tmkv.chain_adjoint(
         st, keys, sph, bg, d_out, st[tmk.ROW_BOUNCE].clone(), bvh=bvh, **kw)
     assert torch.equal(d_st[:13], d_out[:13]) and not d_st[13:].any()
     assert not d_sph.any() and not d_bg.any() and int(mism) == 0
@@ -1350,3 +1350,222 @@ def test_cli_renders_cornell_smoke_through_the_kernels(device, tmp_path):
                          "-o", str(tmp_path / f"{driver}.png"),
                          "--quiet"]) == 0
         assert wrapper.launches > before
+
+
+# ---------------------------------------------------------------------------
+# Perlin-marble and image textures (simple_light, earth)
+# ---------------------------------------------------------------------------
+
+
+def _texture_case(device, name, w=64, h=36, spp=4, depth=8):
+    """_solid_case's tuple for simple_light or earth, the keywords with
+    the scene's TexPack, and the scene and camera."""
+    from rrt_tpu_torch import render
+    scene, cam = tscenes.SCENES[name](w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    solids = tmk.pack_solids(scene, device)
+    tex = tmk.pack_textures(scene, device)
+    return scene, cam, cfg, packs, bvh, _kw(
+        width=w, height=h, spp=spp, max_depth=depth, solids=solids, tex=tex)
+
+
+@pytest.mark.parametrize("name", ["simple_light", "earth"])
+def test_texture_tile_render_matches_plain_version(device, name):
+    """tile_render's texture variant against its plain version, the
+    tolerance of tests/test_torch_slice.py, at depth 50; the marble and
+    the image give every hit pixel a colour."""
+    *_, packs, bvh, kw = _texture_case(device, name, depth=50)
+    before = tmk.render_tiles.launches
+    out = tmk.render_tiles(*packs, bvh=bvh, **kw)
+    torch.cuda.synchronize(device)
+    assert tmk.render_tiles.launches == before + 1
+    _assert_close(out, tmk.render_tiles_reference(*packs, **kw), 4)
+    assert out[0].max() > 0
+
+
+@pytest.mark.parametrize("name", ["simple_light", "earth"])
+def test_texture_bounce_steps_matches_plain_version(device, name):
+    """bounce_steps' texture variant against its plain version on camera
+    rays and after 1-4 bounces: alive rows and counts agree on >= 99.9%
+    of the lanes, throughput and radiance within 1e-4 there."""
+    from rrt_tpu_torch import render, rng
+    scene, cam, _, packs, _, kw = _texture_case(device, name)
+    w, h = 64, 36
+    n = w * h
+    ids = torch.arange(n, device=device)
+    keys = rng.sample_keys(rng.key_words(0), ids, 0)
+    o, d, tm = render.generate_rays(cam.to(device), ids % w, ids // w, w, h,
+                                    keys)
+    one, zero = torch.ones((n,), device=device), torch.zeros((n,),
+                                                             device=device)
+    st = tmk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                        one, zero)
+    keys = rng.u32_bits(keys)
+    packed = render.pack_scene(scene, device, render._shutter(cam))
+    skw = dict(k_steps=1, max_depth=50, t_min=1e-3, moving=False,
+               solids=kw["solids"], tex=kw["tex"])
+    for _ in range(5):
+        out = tmk.bounce_steps(st.clone(), keys, packed["sph24"], packs[2],
+                               bvh=packed["bvh"], **skw)
+        plain = tmk.bounce_steps_reference(st.clone(), keys, packed["sph24"],
+                                           packs[2], **skw)
+        agree = ((out[14] > 0.5) == (plain[14] > 0.5)) \
+            & (out[13] == plain[13]) & (out[15] == plain[15])
+        assert agree.float().mean() >= 0.999
+        err = (out[7:13] - plain[7:13]).abs().amax(dim=0)[agree]
+        assert (err <= 1e-4).float().mean() >= 0.999
+        st = out
+
+
+@pytest.mark.parametrize("name", ["simple_light", "earth"])
+def test_texture_train_kernels_match_plain_versions(device, name):
+    """train_fwd's texture variant gives tile_render's outputs bit for
+    bit; train_bwd's against its plain version by gradcheck's rule on the
+    agreeing pixels, no replay mismatch, the marble's texture scale with
+    a gradient; earth's atlas cotangent within 1e-4 of the plain
+    version's largest (float atomics)."""
+    from rrt_tpu_torch import diff, gradcheck
+    scene, cam, cfg, packs, bvh, kw = _texture_case(device, name)
+    kw = dict(kw, spp=2)
+    cfg = dataclasses.replace(cfg, spp=2)
+    rad, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    ref, ref_traced = tmk.render_tiles(*packs, bvh=bvh, **kw)
+    assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.agree.float().mean() >= 0.95
+    weight = torch.sin(torch.arange(cfg.width * cfg.height, device=device)
+                       * 0.1) * agreement.agree
+    d_rad = (weight[:, None] * torch.tensor(_MIX, device=device)).contiguous()
+    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths, None,
+                                     **kw)
+    assert int(k[3]) == 0 and int(p[3]) == 0
+    kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], k[4], device=device)
+    pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], p[4], device=device)
+    faults, _ = gradcheck.field_grad_faults(kp, kc, pp, pc)
+    assert not faults, faults
+    if name == "simple_light":
+        assert pp["tex_scale"].abs().max() > 0 and k[5] is None
+    else:
+        assert p[5].abs().max() > 0
+        torch.testing.assert_close(k[5], p[5], rtol=0,
+                                   atol=1e-4 * p[5].abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["simple_light", "earth"])
+def test_texture_chain_bwd_matches_plain_version(device, name):
+    """chain_bwd's texture variant against its plain version by
+    test_solid_chain_bwd_matches_plain_version's rule; earth's atlas
+    cotangent within 1e-3 of its largest."""
+    from rrt_tpu_torch import render, rng
+    scene, cam, _, packs, _, kw = _texture_case(device, name)
+    w, h = 64, 36
+    n = w * h
+    ids = torch.arange(n, device=device)
+    keys = rng.sample_keys(rng.key_words(0), ids, 0)
+    o, d, tm = render.generate_rays(cam.to(device), ids % w, ids // w, w, h,
+                                    keys)
+    one, zero = torch.ones((n,), device=device), torch.zeros((n,),
+                                                             device=device)
+    st = tmk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                        one, zero)
+    keys = rng.u32_bits(keys)
+    sph, bg = packs[0], packs[2]
+    bvh = render.chain_bvh(sph, st[6], False)
+    ckw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False,
+               solids=kw["solids"], tex=kw["tex"])
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **ckw)
+    ref_out = tmk.bounce_steps_reference(st.clone(), keys, sph, bg, **ckw)
+    agree = ((out[13] == ref_out[13])
+             & ((out[14] > 0.5) == (ref_out[14] > 0.5))
+             & ((out[:13] - ref_out[:13]).abs()
+                <= 1e-3 * ref_out[:13].abs() + 1e-3).all(dim=0))
+    assert agree.float().mean() >= 0.999
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d_out = torch.randn((16, n), generator=gen).to(device) * agree
+    before = tmkv.chain_adjoint.launches
+    k = tmkv.chain_adjoint(st, keys, sph, bg, d_out,
+                           out[tmk.ROW_BOUNCE].clone(), bvh=bvh, **ckw)
+    torch.cuda.synchronize(device)
+    assert tmkv.chain_adjoint.launches == before + 1
+    p = tmkv.chain_adjoint_reference(st, keys, sph, bg, d_out,
+                                     ref_out[tmk.ROW_BOUNCE].clone(), **ckw)
+    assert int(k[3]) == 0 and int(p[3]) == 0
+    scale = p[0][:13].abs().amax(dim=1, keepdim=True).clamp(min=1e-6)
+    lane_ok = ((k[0][:13] - p[0][:13]).abs() <= 1e-3 * scale).all(dim=0)
+    assert lane_ok.float().mean() >= 0.995
+    pairs = list(zip(k[1:3], p[1:3]))
+    if k[5] is not None:
+        pairs.append((k[5], p[5]))
+        assert p[5].abs().max() > 0
+    for got, exp in pairs:
+        torch.testing.assert_close(got, exp, rtol=0,
+                                   atol=1e-3 * exp.abs().max().item())
+    if name == "simple_light":
+        assert p[1][17].abs().max() > 0  # the marble's texture scale
+
+
+@pytest.mark.parametrize("name", ["simple_light", "earth"])
+def test_texture_train_step_and_cli_launch_the_kernels(device, name, tmp_path):
+    """make_train_step runs train_fwd and train_bwd, render_image(
+    differentiable=True) bounce_steps and chain_bwd, with no replay
+    mismatch; the CLI renders the scene through the tile, queue and
+    batch drivers' kernels."""
+    from rrt_tpu_torch import diff, render
+    scene, cam = tscenes.SCENES[name](16, 16)
+    cfg = render.RenderConfig(width=16, height=16, spp=2, max_depth=8,
+                              samples_per_pass=2)
+    tmkt.tiles_adjoint.replay_mismatches = 0
+    tmkv.chain_adjoint.replay_mismatches = 0
+    before = (tmkt.render_tiles_train.launches, tmkt.tiles_adjoint.launches,
+              tmkv.chain_adjoint.launches)
+    _, _, loss = diff.make_train_step(cfg, device=device)(
+        scene, cam, torch.zeros((16, 16, 3), device=device), 0)
+    color = scene.tex_color1.clone().requires_grad_()
+    img, _ = render.render_image(dataclasses.replace(scene, tex_color1=color),
+                                 cam, cfg, 0, differentiable=True,
+                                 device=device)
+    (g,) = torch.autograd.grad(img.sum(), color)
+    assert tmkt.render_tiles_train.launches > before[0]
+    assert tmkt.tiles_adjoint.launches > before[1]
+    assert tmkv.chain_adjoint.launches > before[2]
+    assert int(tmkt.tiles_adjoint.replay_mismatches) == 0
+    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
+    assert bool(torch.isfinite(loss)) and torch.isfinite(g).all()
+    for driver, kernel in (("auto", "render_tiles"),
+                           ("queue", "bounce_steps"),
+                           ("batch", "intersect_only")):
+        wrapper = getattr(tmk, kernel)
+        launched = wrapper.launches
+        assert cli.main(["--scene", name, "-r", "32x18", "-s", "4",
+                         "--max-depth", "8", "--driver", driver,
+                         "--device", str(device),
+                         "-o", str(tmp_path / f"{driver}.png"),
+                         "--quiet"]) == 0
+        assert wrapper.launches > launched
+
+
+def test_image_on_a_medium_raises_on_the_card(device):
+    """A constant medium whose albedo is an image texture raises on a
+    CUDA device before any launch, naming its ROADMAP entry (rrt_tpu
+    sends it to its eager route, the port's CPU route)."""
+    import numpy as np
+    from rrt_tpu_torch import render
+    b = SceneBuilder()
+    b.medium_sphere((0.0, 0.0, 0.0), 1.0, 0.5, b.image(np.ones((4, 8, 3))))
+    scene = b.build()
+    cam = Camera.create(look_from=(0.0, 0.0, 5.0), look_at=(0.0, 0.0, 0.0),
+                        fov_deg=30.0, aspect=1.0)
+    cfg = render.RenderConfig(width=8, height=8, spp=2, max_depth=4,
+                              samples_per_pass=2)
+    launches = (tmk.render_tiles.launches, tmk.intersect_only.launches,
+                tmkt.render_tiles_train.launches)
+    for fn in (render.render_image_tiles, render.render_image,
+               render.render_image_diff):
+        with pytest.raises(NotImplementedError, match="Not ported by "
+                                                      "decision"):
+            fn(scene, cam, cfg, 0, device=device)
+    assert launches == (tmk.render_tiles.launches,
+                        tmk.intersect_only.launches,
+                        tmkt.render_tiles_train.launches)

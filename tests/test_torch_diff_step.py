@@ -155,12 +155,13 @@ def test_diff_step_has_gradient_power():
 
 
 def test_diff_step_other_families_raise():
-    """Perlin and image textures and Russian roulette raise naming their
-    ROADMAP items; quads, boxes and lights are diff_step's since #9.7
+    """Russian roulette raises naming its ROADMAP item, with or without
+    textures; quads, boxes and lights are diff_step's since #9.7
     (tests/test_torch_cornell_grad.py), media since #9.4
-    (tests/test_torch_media_grad.py)."""
-    for kw, item in ((dict(has_perlin=True), "#9.5"),
-                     (dict(has_images=True), "#9.5"),
+    (tests/test_torch_media_grad.py), the perlin and image textures since
+    #9.5's first part (tests/test_torch_textures_grad.py)."""
+    for kw, item in ((dict(rr_depth=2, has_perlin=True), "#9.6"),
+                     (dict(rr_depth=2, has_images=True), "#9.6"),
                      (dict(rr_depth=2), "#9.6")):
         with pytest.raises(NotImplementedError, match=item):
             diff_step({}, moving=False, **kw)

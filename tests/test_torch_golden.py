@@ -17,7 +17,14 @@ paths that reach the light run long; the box is dark, so only 3% of its
 rays carry radiance (4 of the 128, measured), and every ray must
 match (none parted). cornell_smoke (its boxes constant media, which the
 golden samples with the same STREAM_MEDIUM draws) has cornell's rule;
-9 of its 128 rays carry radiance (measured)."""
+9 of its 128 rays carry radiance (measured). simple_light (perlin
+marbles, a quad and a sphere light on black) and earth (an image
+texture under the sky), depth 50, have it too: the golden evaluates the
+same hashed-lattice noise and the same atlas texel (its sphere angles
+from exact arccos and arctan2, the port's from rrt_tpu's kernel
+polynomials: no ray of the 128 reads another texel); 8 of simple_light's
+128 rays carry radiance (a share of 0.0625; the gate is 0.03) and all
+of earth's, none parted (measured)."""
 
 import jax
 import jax.numpy as jnp
@@ -34,13 +41,15 @@ from rrt_tpu_torch import scenes as tscenes
 W, H, MAX_DEPTH = 16, 8, 8
 # Per scene: the depth traced, the share of rays that must carry
 # radiance, and the rays that may part from the golden.
-DEPTH = {"cornell": 50, "cornell_smoke": 50}
-LIT = {"cornell": 0.02, "cornell_smoke": 0.02}
-PARTED = {"cornell": 0, "cornell_smoke": 0}
+DEPTH = {"cornell": 50, "cornell_smoke": 50, "simple_light": 50,
+         "earth": 50}
+LIT = {"cornell": 0.02, "cornell_smoke": 0.02, "simple_light": 0.03,
+       "earth": 0.9}
+PARTED = {"cornell": 0, "cornell_smoke": 0, "simple_light": 0, "earth": 0}
 
 
 @pytest.mark.parametrize("name", ["chap12", "book2chap2", "cornell",
-                                  "cornell_smoke"])
+                                  "cornell_smoke", "simple_light", "earth"])
 def test_batch_radiance_matches_golden(name):
     n = W * H
     ids = torch.arange(n)

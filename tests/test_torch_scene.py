@@ -15,7 +15,7 @@ import rrt_tpu.ops.megakernel as jmk
 from rrt_tpu import scenes as jscenes
 from rrt_tpu_torch import convert, scenes as tscenes
 from rrt_tpu_torch.ops import megakernel as tmk
-from rrt_tpu_torch.scene import TEX_IMAGE, SceneBuilder, tensor_fields
+from rrt_tpu_torch.scene import SceneBuilder, tensor_fields
 from rrt_tpu_torch.xoshiro import Xoshiro128Plus
 
 SCENE_NAMES = ["diffuse", "chap11", "chap12"]
@@ -90,27 +90,65 @@ def test_xoshiro_seed_zero_stream():
         0xE9966C19, 0xB8F8985E, 0xC3536FC5, 0x97D6A8F6)
 
 
-def _image_textured_box(b):
-    """A box whose material holds an image texture (an id made by hand:
-    image() itself raises), which rrt_tpu builds as six quads."""
-    tex = b._add_texture(TEX_IMAGE, image_idx=0)
-    b.box((0, 0, 0), (1, 1, 1), b.lambertian(tex))
+def _texture_case(kind, b):
+    """A scene of the texture builders (rrt_tpu's or the port's
+    SceneBuilder `b`): perlin marbles, images onto one atlas grid (a
+    smaller image resampled, nearest or bilinear), an image-textured box
+    (the books' six quads), an image on a medium."""
+    rng = np.random.default_rng(7)
+    big = rng.uniform(0.0, 1.0, (6, 10, 3)).astype(np.float32)
+    small = rng.uniform(0.0, 1.0, (3, 4, 3)).astype(np.float32)
+    if kind in ("perlin", "perlin_scaled"):
+        tex = b.perlin() if kind == "perlin" else b.perlin(scale=4.0)
+        b.sphere((0.0, 1.0, 0.0), 1.0, b.lambertian(tex))
+        b.sphere((0.0, -100.0, 0.0), 100.0, b.metal(tex, fuzz=0.2))
+    elif kind in ("image_nearest", "image_bilinear"):
+        resample = kind.split("_")[1]
+        b.sphere((0.0, 1.0, 0.0), 1.0, b.lambertian(b.image(big)))
+        b.sphere((2.0, 1.0, 0.0), 1.0,
+                 b.lambertian(b.image(small, resample=resample)))
+    elif kind == "image_textured_box":
+        mat = b.lambertian(b.image(big))
+        b.box((0.0, 0.0, 0.0), (1.0, 2.0, 3.0), mat, rotate_y_deg=15.0,
+              translate=(1.0, 0.0, -2.0))
+        b.box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), b.lambertian((0.5, 0.5, 0.5)))
+    else:  # image_on_medium
+        b.medium_sphere((0.0, 0.0, 0.0), 1.0, 0.5, b.image(small))
+        b.sphere((0.0, 1.0, 0.0), 1.0, b.lambertian(b.image(big)))
+    return b.build()
 
 
-# The constant media and the isotropic material are ported since ROADMAP
-# Queue A #9.4 (tests/test_torch_media.py); the builders that still raise
-# are the textures' (#9.5).
-@pytest.mark.parametrize("call", [
-    lambda b: b.perlin(),
-    lambda b: b.image(np.zeros((2, 2, 3))),
-    lambda b: b.perlin(scale=4.0),
-    lambda b: b.image(np.ones((4, 8, 3)), resample="bilinear"),
-    _image_textured_box,
-], ids=["perlin", "image", "perlin_scaled", "image_bilinear",
-        "image_textured_box"])
-def test_unported_builders_name_their_roadmap_item(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A #9"):
-        call(SceneBuilder())
+# The perlin and image builders, once NotImplementedError (ROADMAP Queue A
+# #9.5, first part), build rrt_tpu's layout.
+@pytest.mark.parametrize("kind", ["perlin", "perlin_scaled", "image_nearest",
+                                  "image_bilinear", "image_textured_box",
+                                  "image_on_medium"])
+def test_texture_builders_build_rrt_tpus_layout(kind):
+    """Every SceneArrays field, the atlas and the static flags (has_perlin,
+    has_images, has_images_on_media) equal rrt_tpu's bit for bit."""
+    from rrt_tpu.scene import SceneBuilder as JBuilder
+    got = _texture_case(kind, SceneBuilder())
+    exp = _texture_case(kind, JBuilder())
+    _assert_scene_equal(got, _leaves(exp))
+    assert got.has_perlin == kind.startswith("perlin")
+    assert got.has_images == kind.startswith("image")
+    assert got.has_images_on_media == (kind == "image_on_medium")
+    if kind == "image_textured_box":
+        assert (got.n_quads_active, got.n_boxes_active) == (6, 1)
+
+
+def test_resample_image_matches_rrt_tpu():
+    """resample_image onto larger and smaller grids, nearest and
+    bilinear, and the identity, bit for bit against rrt_tpu's."""
+    from rrt_tpu.scene import resample_image as j_resample
+    from rrt_tpu_torch.scene import resample_image
+    im = np.random.default_rng(1).uniform(0, 1, (5, 7, 3)).astype(np.float32)
+    for ah, aw in ((5, 7), (8, 16), (3, 4), (11, 5)):
+        for method in ("nearest", "bilinear"):
+            np.testing.assert_array_equal(resample_image(im, ah, aw, method),
+                                          j_resample(im, ah, aw, method))
+    with pytest.raises(ValueError):
+        SceneBuilder().image(im, resample="cubic")
 
 
 def test_checker_and_solid_background_build():

@@ -139,13 +139,31 @@ def test_wrapper_rejects_bad_inputs(bad):
         tmk.render_tiles(sph, cam, bg, **KW)
 
 
-@pytest.mark.parametrize("name", ["simple_light", "earth"])
-def test_scenes_outside_the_kernel_scope_raise(name):
-    j_scene, j_cam = jscenes.SCENES[name](16, 8)
+def _image_on_medium():
+    """A medium whose albedo is an image, with rrt_tpu's builder."""
+    from rrt_tpu.camera import Camera as JCamera
+    from rrt_tpu.scene import SceneBuilder as JBuilder
+    b = JBuilder()
+    b.medium_sphere((0.0, 0.0, 0.0), 1.0, 0.5, b.image(np.ones((4, 8, 3))))
+    return b.build(), JCamera.create(look_from=(0.0, 0.0, 5.0),
+                                     look_at=(0.0, 0.0, 0.0), fov_deg=30.0,
+                                     aspect=2.0)
+
+
+# simple_light and earth render since ROADMAP Queue A #9.5's first part
+# (tests/test_torch_textures.py); what stays outside the tile kernel:
+# rttnw_final's 400 ground boxes (#9.5, its rest) and an image on a
+# medium (a decision).
+@pytest.mark.parametrize("name,item", [
+    ("rttnw_final", "ROADMAP Queue A #9.5"),
+    ("image_on_medium", 'ROADMAP "Not ported by decision"')])
+def test_scenes_outside_the_kernel_scope_raise(name, item):
+    j_scene, j_cam = (_image_on_medium() if name == "image_on_medium"
+                      else jscenes.SCENES[name](16, 8))
     scene = convert.scene_from_numpy(_leaves(j_scene))
     cam = convert.camera_from_numpy(_leaves(j_cam))
     cfg = render.RenderConfig(width=16, height=8, spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A #9"):
+    with pytest.raises(NotImplementedError, match=item):
         render.render_image_tiles(scene, cam, cfg, 0, device="cpu")
 
 

@@ -376,16 +376,19 @@ def test_no_nan_gradients_on_masked_branches():
 def test_out_of_scope_scenes_raise():
     scene, cam = _chap12_small()
     cfg = render.RenderConfig(width=16, height=8, spp=1, max_depth=2)
+    # More boxes or quads than the kernels stage (rttnw_final's ground,
+    # #9.5's rest; the perlin and image textures are ported).
     with pytest.raises(NotImplementedError, match="#9.5"):
-        render.render_image_diff(dataclasses.replace(scene, has_perlin=True),
-                                 cam, cfg, 0, device="cpu")
+        render.render_image_diff(dataclasses.replace(
+            scene, n_boxes_active=tmk.SOLID_CAP + 1), cam, cfg, 0,
+            device="cpu")
     with pytest.raises(NotImplementedError, match="#9.6"):
         render.render_image_diff(scene, cam, dataclasses.replace(
             cfg, rr_depth=1), 0, device="cpu")
     step = diff.make_train_step(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="#9.5"):
-        step(dataclasses.replace(scene, has_images=True), cam,
-             torch.zeros((8, 16, 3)), 0)
+        step(dataclasses.replace(scene, n_quads_active=tmk.SOLID_CAP + 1),
+             cam, torch.zeros((8, 16, 3)), 0)
     with pytest.raises(NotImplementedError, match="#12"):
         diff.render_loss(diff.partition(scene), cam, scene,
                          torch.zeros((8, 16, 3)), cfg, 0, mesh=object(),

@@ -2,7 +2,7 @@
 
     python train_turns.py TREE_A [TREE_B ...] [--order ABBA] \
         [--north-star] [--check] [--forward] [--queue] [--cornell] \
-        [--no-train]
+        [--textures] [--no-train]
 
 Each turn is a fresh process on the card whose `rrt_tpu_torch` (and
 `chip_smoke.py`) come from that turn's tree, a directory holding a
@@ -44,7 +44,15 @@ train_fwd and train_bwd 400x400, 8 spp; chain_bwd on one pass of
 render_image(differentiable=True)'s first tile), each timed by CUDA
 events (bounce_steps, intersect_only and chain_bwd by graph replay, as
 [K1] and [K3] time them) with a digest of its output, and, in a tree that has the scene,
-the five media kernels on cornell_smoke at the same shapes.
+the five media kernels on cornell_smoke at the same shapes. With
+--textures, in a tree that has the scenes, the five shading kernels'
+texture variants on simple_light and earth at chip_smoke.py [T1]'s and
+[T2]'s shapes (tile_render 400x225, 32 spp; bounce_steps 131,072 lanes,
+4 steps; train_fwd and train_bwd 400x225, 8 spp; chain_bwd on one pass
+of render_image(differentiable=True)'s first tile, 4 steps), timed as
+--cornell times them, with digests of what each writes in a fixed order
+(train_bwd's d_bg, chain_bwd's input cotangent; the atlas and pack
+cotangents are float atomics and get none).
 --no-train skips the train kernels. The default order is ABBA for two
 trees and AAA for one, so that two versions are compared within one
 call, on one card; with more trees, --order names them (A, B, C, ...).
@@ -206,6 +214,73 @@ def _cornell(out: dict) -> None:
         out[name] = res
 
 
+def _textures(out: dict) -> None:
+    """--textures: the texture variants on simple_light and earth at
+    chip_smoke.py [T1]'s and [T2]'s shapes, into out[name]; a tree
+    without the scenes records nothing."""
+    import torch
+    import chip_smoke as cs
+    from rrt_tpu_torch import render, scenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+
+    dev = torch.device("cuda:0")
+    w, h = 400, 225
+    for name in ("simple_light", "earth"):
+        if name not in scenes.SCENES:
+            continue
+        scene, cam = scenes.SCENES[name](w, h)
+        cfg = render.RenderConfig(width=w, height=h, spp=32, max_depth=50)
+        *packs, bvh = render._packs(scene, cam, cfg, dev, bvh=True)
+        packs = [p.detach() for p in packs]
+        solids = mk.pack_solids(scene, dev)
+        tex = mk.pack_textures(scene, dev)
+        kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=32,
+                  max_depth=50, t_min=1e-3, moving=False, solids=solids,
+                  tex=tex)
+        rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
+        tile_ms = cs.cuda_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw),
+                             3)
+        st, keys, sph, bg = cs.lane_state(scene, cam, w, h, cs.QUEUE_LANES,
+                                          dev)
+        qbvh = render.pack_scene(scene, dev, render._shutter(cam))["bvh"]
+        qkw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=False,
+                   bvh=qbvh, solids=solids, tex=tex)
+        work = st.clone()
+        mk.bounce_steps(work, keys, sph, bg, **qkw)
+        state_digest = _digest(work)
+        steps_ms = cs.launch_copy_ms(
+            lambda: mk.bounce_steps(work, keys, sph, bg, **qkw), work, st,
+            mk.bounce_steps)
+        tkw = dict(kw, spp=8)
+        fwd = mkt.render_tiles_train(*packs, **tkw)
+        fwd_ms = cs.cuda_ms(lambda: mkt.render_tiles_train(*packs, **tkw), 3)
+        weight = torch.sin(torch.arange(w * h, device=dev) * 0.1)
+        d_rad = (weight[:, None] * torch.tensor(MIX, device=dev)).contiguous()
+        bwd = mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **tkw)
+        bwd_ms = cs.cuda_ms(
+            lambda: mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **tkw), 3)
+        cst, ckeys = cs.cornell_chain_lanes(scene, cam, w, h, dev)
+        ckw = dict(qkw, bvh=render.chain_bvh(sph, cst[6], False))
+        out_st = mk.bounce_steps(cst.clone(), ckeys, sph, bg, **ckw)
+        d_out = torch.zeros_like(cst)
+        gen = torch.Generator().manual_seed(4)
+        d_out[10:13] = torch.randn((3, cst.shape[1]), generator=gen).to(dev)
+        ob = out_st[mk.ROW_BOUNCE].clone()
+        g = mkv.chain_adjoint(cst, ckeys, sph, bg, d_out, ob, **ckw)
+        chain_ms = cs.graph_ms(lambda: mkv.chain_adjoint(
+            cst, ckeys, sph, bg, d_out, ob, **ckw), mkv.chain_adjoint)
+        out[name] = dict(
+            tile_ms=tile_ms, tile_traced=int(traced.sum()),
+            tile_digest=_digest(rad), bounce_steps_ms=steps_ms,
+            state_digest=state_digest, fwd_ms=fwd_ms,
+            fwd_digest=_digest(fwd[0]), bwd_ms=bwd_ms,
+            bwd_mismatches=int(bwd[3]), d_bg_digest=_digest(bwd[2]),
+            chain_ms=chain_ms, chain_digest=_digest(g[0]),
+            chain_mismatches=int(g[3]))
+
+
 def _digest(t) -> str:
     """A digest of a tensor's bytes."""
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
@@ -318,7 +393,7 @@ def _queue(out: dict, save: str) -> None:
 
 def _turn(tree: str, north_star: bool, check: bool, forward: bool,
           train: bool, queue: str | None = None,
-          cornell: bool = False) -> dict:
+          cornell: bool = False, textures: bool = False) -> dict:
     sys.path.insert(0, tree)  # ahead of this script's own directory
     import torch
     import chip_smoke as cs
@@ -335,6 +410,8 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
         _queue(out, queue)
     if cornell:
         _cornell(out)
+    if textures:
+        _textures(out)
     if not train:
         return out
     cfg = render.RenderConfig(**SHAPE)
@@ -396,6 +473,7 @@ def main(argv=None) -> int:
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--queue", action="store_true")
     ap.add_argument("--cornell", action="store_true")
+    ap.add_argument("--textures", action="store_true")
     ap.add_argument("--no-train", action="store_true")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
@@ -404,7 +482,7 @@ def main(argv=None) -> int:
         print("TURN " + json.dumps(
             _turn(os.path.abspath(args.trees[0]), args.north_star,
                   args.check, args.forward, not args.no_train, args.save,
-                  args.cornell),
+                  args.cornell, args.textures),
             default=str), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees]
@@ -413,6 +491,7 @@ def main(argv=None) -> int:
                              ("--check", args.check),
                              ("--forward", args.forward),
                              ("--cornell", args.cornell),
+                             ("--textures", args.textures),
                              ("--no-train", args.no_train)) if on]
     with tempfile.TemporaryDirectory() as tmp:
         for i, letter in enumerate(order):
