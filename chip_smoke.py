@@ -124,6 +124,29 @@ variants (kTex), one scene after the other:
        mismatch; simple_light's camera and geometry held, TEXTURE_TRAINED)
        and render_image(differentiable=True) on a 64x36 view.
 
+Then the RTTNW final scene (rttnw_final: 400 ground boxes past
+SOLID_CAP, a quad light, 1,006 spheres, one moving, two media, the
+marble and the image; bench.py's 400x267, depth 50), through the
+forward kernels' walks over the solid families' trees (kWalk):
+
+  [F1] tile_render (32 spp, timed with the trees staged and in device
+       memory, and as the solid scan; held to its plain version at
+       RTTNW_PLAIN_SPP), bounce_steps ([Q1]'s 131,072 lanes) and
+       intersect_only (131,072 rays, camera rays and after 1-4 bounces)
+       against their plain versions (bounce_steps by [Q1]'s rule,
+       intersect_only bit for bit), and all three
+       walks against the solid scan (accel.solid_scan) bit for bit; the
+       walks' node, box and sphere tests a segment beside the scan's
+       1,407; blocks an SM; then the main path: the CLI on the tile,
+       queue and batch drivers, held against the tile image; and the
+       gradient's routes (render_image_diff, make_train_step,
+       render_image(differentiable=True)) raising naming #9.5 before any
+       launch;
+  [F2] scenes.book2.many_solids_scene (81 boxes rotated about Y and 82
+       quads under the sky, and its moving and marble variant): the
+       three walks over both trees against the solid scan bit for bit,
+       intersect_only against its plain version.
+
 [2] prints ptxas's registers and spills of every kernel; [7], [8] and
 [M3] print the train kernels' times beside the step's least time
 (`step_bound_ms`: one scan a segment, the backward's adjoint, the bytes)
@@ -981,14 +1004,17 @@ def lane_state(scene, cam, w, h, n, device):
             mk.pack_bg(scene).to(device))
 
 
-def intersect_vs_plain(what, o, d, tm, sph, moving, bvh, solids=None):
+def intersect_vs_plain(what, o, d, tm, sph, moving, bvh, solids=None,
+                       media=None):
     """intersect_only against its plain version on the rays (o, d): fam
     and idx equal on >= 99.9% of rays (the card's own spread: they agreed
     on every camera ray at full size), t within 1e-5 relative where they
-    agree on a hit (both round every product), misses equal. Returns
+    agree on a hit (both round every product), misses equal; media: the
+    keys and bounce of a scene with media (medium_inputs). Returns
     (share of rays agreeing, max |t delta| on agreeing hits, plain ms)."""
     from rrt_tpu_torch.ops import megakernel as mk
-    kw = dict(t_min=1e-3, time=tm if moving else None, solids=solids)
+    kw = dict(t_min=1e-3, time=tm if moving else None, solids=solids,
+              **(media or {}))
     t, fam, idx = mk.intersect_only(o, d, sph, bvh=bvh, **kw)
     (rt, rfam, ridx), plain_ms = wall_ms(
         lambda: mk.intersect_only_reference(o, d, sph, **kw))
@@ -1786,13 +1812,14 @@ def tile_vs_plain(what, packs, bvh, kw, card, *, min_close):
 
 
 def bounce_vs_plain(what, st, keys, sph, bg, bvh, solids, card,
-                    exact=False, tex=None):
+                    exact=False, tex=None, moving=False):
     """bounce_steps (4 steps, depth 50) against its plain version, [Q1]'s
-    rule; with `exact`, bit for bit; tex: the scene's TexPack or None.
-    Returns (out, kernel ms, plain ms, max |delta|)."""
+    rule; with `exact`, bit for bit; tex: the scene's TexPack or None;
+    moving: the moving variant. Returns (out, kernel ms, plain ms, max
+    |delta|)."""
     from rrt_tpu_torch.ops import megakernel as mk
     kw = dict(k_steps=4, max_depth=MAIN["max_depth"], t_min=1e-3,
-              moving=False, solids=solids, tex=tex)
+              moving=moving, solids=solids, tex=tex)
     out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     ref, plain_ms = wall_ms(
         lambda: mk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw))
@@ -2851,18 +2878,20 @@ def texture_kernels_phase(name, device, card):
                            bound=q_bound))
 
 
-def texture_cli_phase(name, device, card):
+def texture_cli_phase(name, device, card, size=TEXTURE, min_lit=None):
     """[T1]'s main path: python -m rrt_tpu_torch.cli --scene `name` -r
-    400x225 -s 32 on the tile driver (auto), then the queue driver (four
-    passes of 8 spp) and the batch driver (4 spp), each held against the
-    tile image of its samples by [Q2]'s and [Q3]'s rule (hold_to_tile),
-    launches counted from 0 for each. Returns (tile_render,
-    bounce_steps, intersect_only) launches."""
+    400x225 -s 32 (`size`) on the tile driver (auto), then the queue
+    driver (four passes of 8 spp) and the batch driver (4 spp), each
+    held against the tile image of its samples by [Q2]'s and [Q3]'s rule
+    (hold_to_tile), launches counted from 0 for each; the tile image's
+    lit share above min_lit (default TEXTURE_MIN_LIT's). Returns
+    (tile_render, bounce_steps, intersect_only) launches."""
     from rrt_tpu_torch import cli, render, scenes as tscenes
     from rrt_tpu_torch.ops import megakernel as mk
-    w, h, spp = TEXTURE["width"], TEXTURE["height"], TEXTURE["spp"]
+    w, h, spp = size["width"], size["height"], size["spp"]
+    min_lit = TEXTURE_MIN_LIT[name] if min_lit is None else min_lit
     argv = ["--scene", name, "-r", f"{w}x{h}", "-s", str(spp), "-e", "0",
-            "--max-depth", str(TEXTURE["max_depth"]), "--device", "cuda:0",
+            "--max-depth", str(size["max_depth"]), "--device", "cuda:0",
             "--quiet"]
     os.makedirs(OUT_DIR, exist_ok=True)
 
@@ -2886,8 +2915,7 @@ def texture_cli_phase(name, device, card):
     lit = (res.image.amax(dim=2) > 0).float().mean().item()
     print(f"  {name} tile image: lit pixels {lit:.4f}, mean "
           f"{res.image.mean().item():.6f}", flush=True)
-    check(res.driver == "tile" and lit > TEXTURE_MIN_LIT[name],
-          (name, res.driver, lit))
+    check(res.driver == "tile" and lit > min_lit, (name, res.driver, lit))
     res_q, q_launches = run(["--driver", "queue", "--spp-chunk",
                              str(QUEUE_CHUNK)], f"chip_smoke_{name}_queue.png",
                             mk.bounce_steps)
@@ -2897,7 +2925,7 @@ def texture_cli_phase(name, device, card):
                             f"chip_smoke_{name}_batch.png", mk.intersect_only)
     scene, cam = tscenes.SCENES[name](w, h)
     cfg_b = render.RenderConfig(width=w, height=h, spp=BATCH_SPP,
-                                max_depth=TEXTURE["max_depth"])
+                                max_depth=size["max_depth"])
     tile_b, tile_b_n = render.render_image_tiles(scene, cam, cfg_b, 0,
                                                  device=device)
     hold_to_tile(f"{name} batch", res_b.image, res_b.n_traced, tile_b,
@@ -3185,6 +3213,393 @@ def probe_phase(device, card):
         chain_err=chain_err, chain_plain_ms=plain_ms[0][0],
         relayout_plain_ms=plain_ms[0][1], rng_plain_ms=rng_plain_ms,
         rng_err=float(rng_err), relayout_err=relayout_err)
+
+
+# [F1]-[F2]: the RTTNW final scene (rrt_tpu/scenes/book2.py, RTTNW ch.
+# 10; bench.py's second scene, uncut: 400x267, 32 spp, depth 50): 1,006
+# spheres (one moving), a quad light, 400 ground boxes past SOLID_CAP,
+# two constant media, the marble and the earth image, in Morton order.
+# The forward kernels walk the boxes' tree (accel.SolidBvh); the train
+# kernels and chain_bwd keep SOLID_CAP (ROADMAP Queue A #9.5, its
+# backward part), so its gradient raises on the card. [F2]: a test
+# scene of 81 rotated boxes and 82 quads under the sky
+# (scenes.book2.many_solids_scene).
+RTTNW = dict(scene="rttnw_final", width=400, height=267, spp=32, max_depth=50)
+# [F1]: tile_render against its plain version at this many spp (the
+# plain version's time grows with them), by the slice rule: 98.5% of
+# pixels within 1e-3, image means and traced totals within 1%.
+RTTNW_PLAIN_SPP = 2
+RTTNW_MIN_CLOSE = 0.985
+# [F1]: the rays the walk's tests are counted on (accel's plain walks,
+# eager on the card), a stride of [Q1]'s lanes.
+RTTNW_COUNT_RAYS = 16384
+# [F1]: the lit share of the CLI's tile image, 0.3826 on an H100 80GB
+# HBM3 at 700 W (a black background: the pixels whose paths miss the
+# light stay black); the gate half of it.
+RTTNW_MIN_LIT = 0.19
+MANY = dict(width=320, height=240, spp=4, max_depth=50)
+# The scan's tests a segment of rttnw_final: its active quads, boxes and
+# spheres.
+RTTNW_SCAN_TESTS = 1 + 400 + 1006
+
+
+def medium_inputs(st, keys):
+    """intersect_only's media arguments for the lanes of a queue state
+    st (16, Q) and their key bits: keys and the bounce row as int32."""
+    return dict(keys=keys, bounce=st[13].to(torch.int32).contiguous())
+
+
+def solid_walk_counts(scene, cam, st, keys, sph, bg, bvh, solids, tex,
+                      depth):
+    """The walks' tests a segment on a stride of RTTNW_COUNT_RAYS of the
+    lanes of st: camera rays, then the live ones after 1-4 bounce steps
+    (the kernel's), through accel.solid_closest_reference (quads, boxes)
+    and accel.bvh_closest_reference seeded by the solids' t (spheres).
+    Returns {"segments", "nodes", "solids", "spheres": tests a segment,
+    "depth": [(segments, node, solid and sphere tests) a depth]}."""
+    from rrt_tpu_torch import accel
+    from rrt_tpu_torch.ops import megakernel as mk
+    stride = max(1, st.shape[1] // RTTNW_COUNT_RAYS)
+    st, keys = st[:, ::stride].clone(), keys[:, ::stride].contiguous()
+    rows = []
+    for k in range(5):
+        if k:
+            mk.bounce_steps(st, keys, sph, bg, k_steps=1, max_depth=depth,
+                            t_min=1e-3, moving=scene.has_moving, bvh=bvh,
+                            solids=solids, tex=tex)
+        live = (st[14] > 0.5).nonzero()[:, 0]
+        o, d = st[0:3, live].contiguous(), st[3:6, live].contiguous()
+        ts, _, _, s_nodes, s_tests = accel.solid_closest_reference(
+            o, d, solids.quad24, solids.box24, solids.tree, t_min=1e-3)
+        _, _, _, b_nodes, b_tests = accel.bvh_closest_reference(
+            o, d, sph, bvh, t_min=1e-3, time=st[6, live].contiguous()
+            if scene.has_moving else None, seed=ts)
+        rows.append((live.numel(), int(s_nodes.sum() + b_nodes.sum()),
+                     int(s_tests.sum()), int(b_tests.sum())))
+    n = sum(r[0] for r in rows)
+    return dict(segments=n, depth=rows, nodes=sum(r[1] for r in rows) / n,
+                solids=sum(r[2] for r in rows) / n,
+                spheres=sum(r[3] for r in rows) / n)
+
+
+def rttnw_flops(segments, counts, moving: bool, n_media: int) -> float:
+    """FP32 operations of `segments` segments of rttnw_final at counts'
+    tests a segment: the walks' node, box and sphere tests, and the
+    media's (sphere boundaries)."""
+    return segments * (WALK_RAY_FLOPS + counts["nodes"] * NODE_FLOPS
+                       + counts["solids"] * BOX_TEST_FLOPS
+                       + counts["spheres"] * slot_flops(moving)
+                       + n_media * MEDIUM_SPHERE_FLOPS + 2)
+
+
+def rttnw_bound(segments, paths, counts, scene, tex, n_bytes):
+    """(bound_ms, by) of `segments` segments of `paths` paths on
+    rttnw_final: the walks' tests at counts', the media, the texture of
+    each scattering segment (the marble's or the image's, whichever
+    costs less: a lower bound), the Threefry draws and the media's, and
+    n_bytes."""
+    hits = segments - paths
+    flops = rttnw_flops(segments, counts, scene.has_moving,
+                        scene.n_media_active) + hits * IMAGE_FLOPS
+    ints = THREEFRY_OPS * (THREEFRY_PER_HIT * hits + THREEFRY_PER_PATH * paths
+                           + segments * ((scene.n_media_active + 1) // 2))
+    return bound(flops, n_bytes, ints)
+
+
+def blocks_line(mk, kernel, sph, bvh, moving, solids, tex) -> str:
+    """The blocks an SM of a forward kernel's instantiation at the shared
+    memory its launch takes (mk.forward_blocks)."""
+    b = mk.forward_blocks(kernel, sph, bvh, moving=moving, solids=solids,
+                          tex=tex)
+    return (f"  {kernel} blocks an SM: {b['blocks']}, {b['smem_bytes']} B "
+            f"of shared memory")
+
+
+def parting_families(st, keys, sph, bg, bvh, solids, tex, depth):
+    """[F1]: the lanes of st where one bounce_steps step and its plain
+    version part (any row's bits), by the family of the segment's winner
+    (intersect_only's, held bit for bit to its plain version on these
+    lanes in [F1]). Requires every such lane's winner to be a sphere: the
+    winners agree, and the plain version's sphere shading rounds
+    otherwise (as on chap12), so the walk over the boxes parts no lane.
+    Returns {family: lanes}."""
+    from rrt_tpu_torch import geometry
+    from rrt_tpu_torch.ops import megakernel as mk
+    kw = dict(k_steps=1, max_depth=depth, t_min=1e-3, moving=True,
+              solids=solids, tex=tex)
+    out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
+    ref = mk.bounce_steps_reference(st.clone(), keys, sph, bg, **kw)
+    parted = (out.view(torch.int32) != ref.view(torch.int32)).any(dim=0)
+    _, fam, _ = mk.intersect_only(
+        st[0:3].contiguous(), st[3:6].contiguous(), sph, bvh=bvh,
+        t_min=1e-3, time=st[6].contiguous(), solids=solids,
+        **medium_inputs(st, keys))
+    names = ((geometry.FAM_SPHERE, "sphere"), (geometry.FAM_QUAD, "quad"),
+             (geometry.FAM_BOX, "box"), (geometry.FAM_MEDIUM, "medium"),
+             (geometry.FAM_NONE, "miss"))
+    live = st[14] > 0.5
+    won = {name: int((live & (fam == f)).sum()) for f, name in names}
+    part = {name: int((parted & (fam == f)).sum()) for f, name in names}
+    print(f"  bounce_steps rttnw_final, one step, kernel vs plain: "
+          f"{int(parted.sum())} of {st.shape[1]} lanes part; by their "
+          f"winner {part}, of the live lanes' winners {won}", flush=True)
+    check(int(parted.sum()) == part["sphere"],
+          ("bounce_steps rttnw_final lanes parted off a sphere", part))
+    return part
+
+
+def rttnw_kernels_phase(device, card, resources):
+    """[F1] rttnw_final's forward kernels (kMoving, kSolids, kTex) on the
+    card: tile_render at 32 spp timed by graph replay and held to its
+    plain version at RTTNW_PLAIN_SPP by the slice rule, the solid scan's
+    time beside it; bounce_steps at [Q1]'s 131,072 lanes, 4 steps, and
+    intersect_only on 131,072 rays (camera rays and after 1-4 bounces)
+    against their plain versions, bounce_steps by [Q1]'s rule (the
+    sphere hits' shading rounds otherwise in the plain version, as on
+    chap12: parting_families holds every lane it parts on one step to a
+    sphere winner), intersect_only bit for bit; the three walks against
+    the solid scan (accel.solid_scan) bit for bit; the walks' tests a
+    segment beside the scan's; blocks an SM."""
+    from rrt_tpu_torch import accel, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    w, h, spp = RTTNW["width"], RTTNW["height"], RTTNW["spp"]
+    depth = RTTNW["max_depth"]
+    scene, cam = tscenes.SCENES["rttnw_final"](w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    solids = mk.pack_solids(scene, device)
+    tex = mk.pack_textures(scene, device)
+    scan = dataclasses.replace(solids, tree=accel.solid_scan(solids.tree))
+    tree = solids.tree
+    print(f"  rttnw_final: {scene.n_spheres_active} spheres (moving "
+          f"{scene.has_moving}), {solids.n_quads} quads, {solids.n_boxes} "
+          f"boxes, {solids.n_media} media, perlin {tex.has_perlin}, images "
+          f"{tex.has_images}; spheres' BVH {bvh.n_nodes} nodes, "
+          f"{bvh.n_rows} rows, {bvh.smem_bytes(True)} B; boxes' tree "
+          f"{tree.box.n_nodes} nodes, {tree.box.n_rows} rows, depth "
+          f"{tree.box.depth}, quads' {tree.quad.n_nodes} nodes (a loop "
+          f"up to {accel.SOLID_CAP}); the trees "
+          f"{tree.smem_bytes()} B", flush=True)
+    for tag in (" (moving, solids, tex, walk)", " (moving, solids, walk)",
+                " (moving, solids, tex)", " (moving, solids)"):
+        for k in ("tile_render_kernel", "bounce_steps_kernel",
+                  "intersect_kernel"):
+            if k + tag in resources:
+                r = resources[k + tag]
+                print(f"  {k}{tag}: {r.get('registers')} registers "
+                      f"({r.get('stack')}, {r.get('spill_stores')}, "
+                      f"{r.get('spill_loads')})", flush=True)
+    for kernel, t in (("tile_render", tex), ("bounce_steps", tex),
+                      ("intersect_only", None)):
+        print(blocks_line(mk, kernel, packs[0], bvh, True, solids, t),
+              flush=True)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
+              max_depth=depth, t_min=1e-3, moving=True, solids=solids,
+              tex=tex)
+    rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
+    ms = graph_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw),
+                  mk.render_tiles)
+    print(f"  tile_render rttnw_final {w}x{h} {spp}spp d{depth}: {ms:.3f} "
+          f"ms  [{card}]", flush=True)
+    scan_ms = graph_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **dict(
+        kw, solids=scan)), mk.render_tiles)
+    print(f"  tile_render rttnw_final, the solid scan (every quad and box "
+          f"a segment): {scan_ms:.3f} ms  [{card}]", flush=True)
+    kw2 = dict(kw, spp=RTTNW_PLAIN_SPP)
+    same_bits(f"tile_render rttnw_final {RTTNW_PLAIN_SPP}spp, the walk vs "
+              f"the solid scan", mk.render_tiles(*packs, bvh=bvh, **kw2),
+              mk.render_tiles(*packs, bvh=bvh, **dict(kw2, solids=scan)))
+    _, _, _, plain_ms, err = tile_vs_plain(
+        "rttnw_final", packs, bvh, kw2, card, min_close=RTTNW_MIN_CLOSE)
+
+    st, keys, sph, bg = lane_state(scene, cam, w, h, QUEUE_LANES, device)
+    q_bvh = render.pack_scene(scene, device, render._shutter(cam))["bvh"]
+    counts = solid_walk_counts(scene, cam, st, keys, sph, bg, q_bvh, solids,
+                               tex, depth)
+    per = ", ".join(f"{r[1] / r[0]:.2f}/{r[2] / r[0]:.2f}/{r[3] / r[0]:.2f}"
+                    for r in counts["depth"])
+    print(f"  the walks on {counts['segments']} segments (camera rays and "
+          f"1-4 bounces): node/box/sphere tests a segment {per} at depths "
+          f"0-4; over all {counts['nodes']:.3f} nodes, "
+          f"{counts['solids']:.3f} quads and boxes, {counts['spheres']:.3f} "
+          f"spheres, against the scan's {RTTNW_SCAN_TESTS} quad, box and "
+          f"sphere tests", flush=True)
+    segments, paths = int(traced.sum()), w * h * spp
+    t_bytes = pack_bytes(*packs, solids.quad24, solids.box24, solids.med24,
+                         tex.atlas) + 16 * w * h
+    t_bound = rttnw_bound(segments, paths, counts, scene, tex, t_bytes)
+    print(f"  tile_render rttnw_final: {segments} segments "
+          f"({segments / paths:.2f} a path), bound {t_bound[0]:.4f} ms "
+          f"({t_bound[1]}), kernel {ms:.3f} ms  [{card}]", flush=True)
+    tile = dict(ms=ms, plain_ms=plain_ms, err=err, bound=t_bound,
+                scan_ms=scan_ms)
+
+    # [Q1]'s rule: the sphere hits' shading rounds otherwise in the plain
+    # version (as on chap12; parting_families), so bit for bit only the
+    # walk vs the scan.
+    parting_families(st, keys, sph, bg, q_bvh, solids, tex, depth)
+    out, q_ms, q_plain_ms, q_err = bounce_vs_plain(
+        "rttnw_final", st, keys, sph, bg, q_bvh, solids, card, tex=tex,
+        moving=True)
+    kwq = dict(k_steps=4, max_depth=depth, t_min=1e-3, moving=True, tex=tex)
+    same_bits("bounce_steps rttnw_final, the walk vs the solid scan",
+              [mk.bounce_steps(st.clone(), keys, sph, bg, bvh=q_bvh,
+                               solids=solids, **kwq)],
+              [mk.bounce_steps(st.clone(), keys, sph, bg, bvh=q_bvh,
+                               solids=scan, **kwq)])
+    q_segments = int((out[15] - st[15]).sum())
+    q_bound = rttnw_bound(
+        q_segments, q_segments - drawing_segments(st, out), counts, scene,
+        tex, 4 * QUEUE_LANES * (16 + 2 + 16) + pack_bytes(
+            sph, bg, solids.quad24, solids.box24, solids.med24, tex.atlas))
+    print(f"  bounce_steps rttnw_final: {q_segments} segments, bound "
+          f"{q_bound[0]:.4f} ms ({q_bound[1]}), kernel {q_ms:.4f} ms  "
+          f"[{card}]", flush=True)
+    queue = dict(ms=q_ms, plain_ms=q_plain_ms, err=q_err, bound=q_bound)
+
+    st_b, keys_b = st.clone(), keys
+    i_plain = []
+    for k in range(5):
+        if k:
+            mk.bounce_steps(st_b, keys_b, sph, bg, k_steps=1, max_depth=depth,
+                            t_min=1e-3, moving=True, bvh=q_bvh, solids=solids,
+                            tex=tex)
+        ikw = dict(t_min=1e-3, time=st_b[6].contiguous(), solids=solids,
+                   **medium_inputs(st_b, keys_b))
+        o, d = st_b[0:3].contiguous(), st_b[3:6].contiguous()
+        got = mk.intersect_only(o, d, sph, bvh=q_bvh, **ikw)
+        ref, p_ms = wall_ms(lambda: mk.intersect_only_reference(o, d, sph,
+                                                                **ikw))
+        i_plain.append(p_ms)
+        same_bits(f"intersect_only rttnw_final, {QUEUE_LANES} rays after {k} "
+                  f"bounces, kernel vs plain", got, ref)
+        same_bits(f"intersect_only rttnw_final after {k} bounces, the walk "
+                  f"vs the solid scan", got, mk.intersect_only(
+                      o, d, sph, bvh=q_bvh, **dict(ikw, solids=scan)))
+    o, d = st[0:3].contiguous(), st[3:6].contiguous()
+    ikw = dict(t_min=1e-3, time=st[6].contiguous(), solids=solids,
+               **medium_inputs(st, keys))
+    i_ms = graph_ms(lambda: mk.intersect_only(o, d, sph, bvh=q_bvh, **ikw),
+                    mk.intersect_only)
+    i_flops = QUEUE_LANES * (WALK_RAY_FLOPS + counts["depth"][0][1]
+                             / counts["depth"][0][0] * NODE_FLOPS
+                             + counts["depth"][0][2] / counts["depth"][0][0]
+                             * BOX_TEST_FLOPS + counts["depth"][0][3]
+                             / counts["depth"][0][0] * slot_flops(True)
+                             + scene.n_media_active * MEDIUM_SPHERE_FLOPS)
+    i_bound = bound(i_flops, 4 * QUEUE_LANES * (3 + 3 + 1 + 2 + 1 + 3)
+                    + pack_bytes(sph, solids.quad24, solids.box24,
+                                 solids.med24),
+                    THREEFRY_OPS * QUEUE_LANES
+                    * ((scene.n_media_active + 1) // 2))
+    print(f"  intersect_only rttnw_final, {QUEUE_LANES} camera rays: kernel "
+          f"{i_ms:.4f} ms, bound {i_bound[0]:.4f} ms ({i_bound[1]})  "
+          f"[{card}]", flush=True)
+    inter = dict(ms=i_ms, plain_ms=i_plain[0], err=0.0, bound=i_bound)
+    return dict(tile=tile, queue=queue, inter=inter, counts=counts)
+
+
+def rttnw_gradient_raises(device, card):
+    """[F1]: rttnw_final's gradient on the card raises NotImplementedError
+    naming #9.5 before any launch, on each route (render_image_diff,
+    make_train_step, render_image(differentiable=True)); the forward
+    kernels' wrappers walk."""
+    from rrt_tpu_torch import diff, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    scene, cam = tscenes.SCENES["rttnw_final"](64, 43)
+    cfg = render.RenderConfig(width=64, height=43, spp=4, max_depth=8)
+    target = torch.zeros((43, 64, 3), device=device)
+    wrappers = (mk.render_tiles, mk.bounce_steps, mk.intersect_only,
+                mkt.render_tiles_train, mkt.tiles_adjoint, mkv.chain_adjoint)
+    before = [w.launches for w in wrappers]
+    routes = (
+        ("render_image_diff", lambda: render.render_image_diff(
+            scene, cam, cfg, 0, device=device)),
+        ("make_train_step", lambda: diff.make_train_step(cfg, device=device)(
+            scene, cam, target, 1)),
+        ("render_image(differentiable=True)", lambda: render.render_image(
+            scene, cam, cfg, 0, differentiable=True, device=device)))
+    for what, fn in routes:
+        try:
+            fn()
+        except NotImplementedError as e:
+            print(f"  {what} on the card raises: {e}", flush=True)
+            check("#9.5" in str(e), (what, str(e)))
+        else:
+            check(False, (what, "did not raise"))
+    after = [w.launches for w in wrappers]
+    print(f"  launches during the raises: {after} (before {before})",
+          flush=True)
+    check(after == before, ("launches during the raises", before, after))
+
+
+def rttnw_cli_phase(device, card):
+    """[F1]'s main path: python -m rrt_tpu_torch.cli --scene rttnw_final
+    -r 400x267 -s 32 on the tile driver (auto), then the queue driver
+    (four passes of 8 spp) and the batch driver (4 spp), each held to the
+    tile image of its samples (hold_to_tile). Returns the launches."""
+    return texture_cli_phase("rttnw_final", device, card, size=RTTNW,
+                             min_lit=RTTNW_MIN_LIT)
+
+
+def many_solids_phase(device, card):
+    """[F2] scenes.book2.many_solids_scene (81 boxes rotated about Y, 82
+    quads, spheres, under the sky) at MANY's size, its moving and marble
+    variants too: the three forward kernels' walks over both families'
+    trees against the solid scan (accel.solid_scan) bit for bit
+    (tile_render at 4 spp, bounce_steps 4 steps and intersect_only on
+    every pixel's camera ray and after 1-3 bounces), intersect_only
+    against its plain version by [Q1]'s rule."""
+    from rrt_tpu_torch import accel, render
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.scenes import book2
+    w, h = MANY["width"], MANY["height"]
+    depth = MANY["max_depth"]
+    for moving, marble in ((False, False), (True, True)):
+        scene, cam = book2.many_solids_scene(w, h, moving=moving,
+                                             marble=marble)
+        cfg = render.RenderConfig(width=w, height=h, spp=MANY["spp"],
+                                  max_depth=depth)
+        *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+        solids = mk.pack_solids(scene, device)
+        tex = mk.pack_textures(scene, device)
+        scan = dataclasses.replace(solids,
+                                   tree=accel.solid_scan(solids.tree))
+        what = f"many_solids (moving {moving}, marble {marble})"
+        print(f"  {what}: {solids.n_quads} quads ({solids.tree.quad.n_nodes}"
+              f" nodes), {solids.n_boxes} boxes ({solids.tree.box.n_nodes} "
+              f"nodes)", flush=True)
+        kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h,
+                  spp=MANY["spp"], max_depth=depth, t_min=1e-3, moving=moving,
+                  tex=tex)
+        same_bits(f"tile_render {what} {w}x{h} {MANY['spp']}spp d{depth}, "
+                  f"the walk vs the solid scan",
+                  mk.render_tiles(*packs, bvh=bvh, solids=solids, **kw),
+                  mk.render_tiles(*packs, bvh=bvh, solids=scan, **kw))
+        st, keys, sph, bg = lane_state(scene, cam, w, h, w * h, device)
+        q_bvh = render.pack_scene(scene, device, render._shutter(cam))["bvh"]
+        kwq = dict(k_steps=1, max_depth=depth, t_min=1e-3, moving=moving,
+                   tex=tex)
+        for k in range(4):
+            o, d = st[0:3].contiguous(), st[3:6].contiguous()
+            ikw = dict(t_min=1e-3, time=st[6].contiguous() if moving
+                       else None)
+            got = mk.intersect_only(o, d, sph, bvh=q_bvh, solids=solids,
+                                    **ikw)
+            same_bits(f"intersect_only {what} after {k} bounces, the walk "
+                      f"vs the solid scan", got, mk.intersect_only(
+                          o, d, sph, bvh=q_bvh, solids=scan, **ikw))
+            intersect_vs_plain(f"{what} after {k} bounces", o, d,
+                               ikw["time"], sph, moving, q_bvh, solids)
+            walked = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=q_bvh,
+                                     solids=solids, **kwq)
+            same_bits(f"bounce_steps {what} step {k + 1}, the walk vs the "
+                      f"solid scan", [walked],
+                      [mk.bounce_steps(st.clone(), keys, sph, bg, bvh=q_bvh,
+                                       solids=scan, **kwq)])
+            st = walked
 
 
 def main() -> int:
@@ -3601,6 +4016,20 @@ def main() -> int:
                      f"differences, then make_train_step and "
                      f"render_image(differentiable=True)")
         t2[name] = texture_train_phase(name, device, card, resources)
+    phases.start("F1", f"rttnw_final {RTTNW['width']}x{RTTNW['height']} "
+                 f"d{RTTNW['max_depth']}: the forward kernels' walks over "
+                 f"400 boxes vs their plain versions and the solid scan, "
+                 f"then the main path: python -m rrt_tpu_torch.cli --scene "
+                 f"rttnw_final -s {RTTNW['spp']} (tile), the queue and "
+                 f"batch drivers; the gradient's raises")
+    torch.cuda.reset_peak_memory_stats(device)
+    f1 = rttnw_kernels_phase(device, card, resources)
+    f1_launches = rttnw_cli_phase(device, card)
+    rttnw_gradient_raises(device, card)
+    peak_memory("[F1]", device, card)
+    phases.start("F2", f"many_solids {MANY['width']}x{MANY['height']}: 81 "
+                 f"boxes and 82 quads, the walks vs the solid scan")
+    many_solids_phase(device, card)
     phases.start("P1", "main path: the three probes at their full ITERS")
     p1 = probe_phase(device, card)
     phases.end()
@@ -3679,6 +4108,21 @@ def main() -> int:
                 out.update(t2[scene_name][part])
         return out
 
+    def rttnw(k, launches, name):
+        # The kernel's (moving, solids, tex) variant on rttnw_final ([F1]:
+        # tile_render's plain_ms and max_abs_err at RTTNW_PLAIN_SPP,
+        # launches on [F1]'s CLI main path; the walks' tests a segment).
+        c = f1["counts"]
+        return dict(rttnw_ms=k["ms"], rttnw_plain_ms=k["plain_ms"],
+                    rttnw_bound_ms=k["bound"][0],
+                    rttnw_bound_by=k["bound"][1],
+                    rttnw_max_abs_err=k["err"], rttnw_launches=launches,
+                    rttnw_walk_tests=[c["nodes"], c["solids"], c["spheres"]],
+                    rttnw_registers=resources.get(
+                        name + " (moving, solids"
+                        + (", tex" if name != "intersect_kernel" else "")
+                        + ", walk)"))
+
     def walk(scan_bnd, counts, moving_scan_bnd, moving_counts):
         # Every kernel but the train kernels walks the BVH: bound_ms is
         # the walk's; the scan's, which they ran before, beside it.
@@ -3709,6 +4153,7 @@ def main() -> int:
               **cornell(k1["tile"], k2_launches[0], "tile_render_kernel"),
               **smoke(s1["tile"], s1_launches[0], "tile_render_kernel"),
               **textured("tile_render", "tile", 0, "tile_render_kernel"),
+              **rttnw(f1["tile"], f1_launches[0], "tile_render_kernel"),
               registers=resources.get("tile_render_kernel")),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
@@ -3740,6 +4185,7 @@ def main() -> int:
               **cornell(k1["queue"], k2_launches[1], "bounce_steps_kernel"),
               **smoke(s1["queue"], s1_launches[1], "bounce_steps_kernel"),
               **textured("bounce_steps", "queue", 1, "bounce_steps_kernel"),
+              **rttnw(f1["queue"], f1_launches[1], "bounce_steps_kernel"),
               registers=resources.get("bounce_steps_kernel")),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
@@ -3748,7 +4194,8 @@ def main() -> int:
               **walk(q1["i_scan_bound"], q1["counts"], m_q["i_scan_bound"],
                      m_q["counts"]),
               **cornell(k1["inter"], k2_launches[2], "intersect_kernel"),
-              **smoke(s1["inter"], s1_launches[2], "intersect_kernel")),
+              **smoke(s1["inter"], s1_launches[2], "intersect_kernel"),
+              **rttnw(f1["inter"], f1_launches[2], "intersect_kernel")),
         entry("chain_bwd", csrc + "chain.cu",
               "rrt_tpu/ops/megakernel_vjp.py:487", c2_launches[1],
               max(c["err"] for c in c1), sum(c["ms"] for c in c1),

@@ -1,6 +1,8 @@
 """The closest-sphere BVH of the tile_render and intersect_only kernels:
 the host-side builder, the kernels' packed layout, and a plain walk
-over that layout.
+over that layout; and the trees of the quad and box families, which the
+forward kernels walk past SOLID_CAP active slots (`pack_solid_bvh`,
+`solid_closest_reference`; their rule below the spheres').
 
 `build_sphere_bvh` / `build_bvh` are rrt_tpu/accel.py's builder in
 numpy (its copy here: that module imports JAX): the reference's Middle
@@ -345,6 +347,77 @@ def _depth(bvh: BvhArrays) -> int:
 FAR_PAD = float(np.float32(1.0 + 2.0 * (3 * _U / (1 - 3 * _U))))
 
 
+def _walk_tree(o, d, bvh: BvhPack, t_min: float, t_best, test, node_tests,
+               rays=None):
+    """The kernels' walk over the tree of `bvh` (its nodes; the rows
+    tested by `test(ray, row)`, both (K,) long, which updates t_best),
+    one node a ray an iteration in the kernels' order, for the rays
+    `rays` (default all): the slab test of each node's box padded by
+    RAY_PAD times the ray origin's L1 norm, its far distance capped by
+    the best t so far times FAR_PAD; the near child first."""
+    dev = o.device
+    nodes = bvh.nodes.to(dev)
+    lo, hi = nodes[:, 0:3], nodes[:, 4:7]
+    w0 = nodes[:, 3].contiguous().view(torch.int32).long()
+    w1 = nodes[:, 7].contiguous().view(torch.int32).long()
+    n = o.shape[1]
+    pad = RAY_PAD * (o[0].abs() + o[1].abs() + o[2].abs())
+    inv_d = 1.0 / d
+    o_plus, o_minus = o + pad, o - pad
+    stack = torch.zeros((n, bvh.depth + 2), dtype=torch.long, device=dev)
+    sp = torch.zeros((n,), dtype=torch.long, device=dev)
+    sp[slice(None) if rays is None else rays] = 1  # the root pushed
+    while True:
+        ray = (sp > 0).nonzero()[:, 0]
+        if ray.numel() == 0:
+            break
+        sp[ray] -= 1
+        node = stack[ray, sp[ray]]
+        node_tests[ray] += 1
+        t0 = (lo[node].T - o_plus[:, ray]) * inv_d[:, ray]
+        t1 = (hi[node].T - o_minus[:, ray]) * inv_d[:, ray]
+        near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
+        t_near = torch.fmax(torch.fmax(near[0], near[1]),
+                            torch.fmax(near[2], torch.full_like(
+                                near[2], t_min)))
+        t_far = torch.fmin(torch.fmin(far[0], far[1]),
+                           torch.fmin(far[2], t_best[ray])) * FAR_PAD
+        hit = t_near <= t_far
+        inner = hit & (w1[node] < 0)
+        leaf = hit & (w1[node] > 0)
+        for k in range(LEAF_SIZE):
+            use = leaf & (k < w1[node])
+            test(ray[use], w0[node][use] + k)
+        # Inner: the far child under the near one (popped first).
+        r_in, n_in = ray[inner], node[inner]
+        axis = -1 - w1[n_in]
+        neg = d[axis, r_in] < 0.0
+        left, right = n_in + 1, w0[n_in]
+        stack[r_in, sp[r_in]] = torch.where(neg, left, right)
+        stack[r_in, sp[r_in] + 1] = torch.where(neg, right, left)
+        sp[r_in] += 2
+
+
+def _seeded(t_seed, n, dev):
+    """A walk's start: (t_best, win) INF and 0, or with a seed t the
+    seed and win -1 where it is finite, which no tie replaces."""
+    from .geometry import INF
+
+    if t_seed is None:
+        return (torch.full((n,), INF, dtype=torch.float32, device=dev),
+                torch.zeros((n,), dtype=torch.long, device=dev))
+    t_best = t_seed.to(torch.float32).clone()
+    return t_best, torch.where(t_best < INF, -1, 0)
+
+
+def _update(t_best, win, ray, t, slot):
+    """Keep each ray's first minimum in slot order: a strictly smaller
+    t, or an equal t of a lower slot."""
+    better = (t < t_best[ray]) | ((t == t_best[ray]) & (slot < win[ray]))
+    t_best[ray] = torch.where(better, t, t_best[ray])
+    win[ray] = torch.where(better, slot, win[ray])
+
+
 def bvh_closest_reference(o, d, sph24, bvh: BvhPack, *, t_min: float,
                           time=None, seed=None):
     """The kernels' walk (bounce.cuh closest_sphere_bvh) in plain
@@ -361,23 +434,14 @@ def bvh_closest_reference(o, d, sph24, bvh: BvhPack, *, t_min: float,
 
     dev = o.device
     n = o.shape[1]
-    f32 = torch.float32
     slot_of = bvh.rows.to(dev).long()
     c_rows = sph24[0:3][:, slot_of]  # (3, R)
     v_rows = sph24[4:7][:, slot_of]
     r_rows = sph24[18][slot_of]
-    nodes = bvh.nodes.to(dev)
-    lo, hi = nodes[:, 0:3], nodes[:, 4:7]
-    w0 = nodes[:, 3].contiguous().view(torch.int32).long()
-    w1 = nodes[:, 7].contiguous().view(torch.int32).long()
     a = dot(d, d)
     o_dot_d, o_dot_o = dot(o, d), dot(o, o)
     inv_a = 1.0 / a
-    t_best = torch.full((n,), INF, dtype=f32, device=dev)
-    win = torch.zeros((n,), dtype=torch.long, device=dev)
-    if seed is not None:  # win -1: the seed's family, which no tie beats
-        t_best = seed.to(f32).clone()
-        win = torch.where(t_best < INF, -1, 0)
+    t_best, win = _seeded(seed, n, dev)
     node_tests = torch.zeros((n,), dtype=torch.long, device=dev)
     slot_tests = torch.zeros((n,), dtype=torch.long, device=dev)
 
@@ -402,50 +466,274 @@ def bvh_closest_reference(o, d, sph24, bvh: BvhPack, *, t_min: float,
         in0 = ok & (root0 > t_min) & (root0 < INF)
         in1 = ok & (root1 > t_min) & (root1 < INF)
         t = torch.where(in0, root0, torch.where(in1, root1, INF))
-        slot = slot_of[row]
-        better = (t < t_best[ray]) | ((t == t_best[ray]) & (slot < win[ray]))
-        t_best[ray] = torch.where(better, t, t_best[ray])
-        win[ray] = torch.where(better, slot, win[ray])
+        _update(t_best, win, ray, t, slot_of[row])
         slot_tests[ray] += 1
 
     everyone = torch.arange(n, device=dev)
     for j in range(bvh.n_always):
         test(everyone, torch.full((n,), j, dtype=torch.long, device=dev))
     if bvh.n_nodes:
-        pad = RAY_PAD * (o[0].abs() + o[1].abs() + o[2].abs())
-        inv_d = 1.0 / d
-        o_plus, o_minus = o + pad, o - pad
-        stack = torch.zeros((n, bvh.depth + 2), dtype=torch.long,
-                            device=dev)
-        sp = torch.ones((n,), dtype=torch.long, device=dev)  # root pushed
-        while True:
-            ray = (sp > 0).nonzero()[:, 0]
-            if ray.numel() == 0:
-                break
-            sp[ray] -= 1
-            node = stack[ray, sp[ray]]
-            node_tests[ray] += 1
-            t0 = (lo[node].T - o_plus[:, ray]) * inv_d[:, ray]
-            t1 = (hi[node].T - o_minus[:, ray]) * inv_d[:, ray]
-            near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
-            t_near = torch.fmax(torch.fmax(near[0], near[1]),
-                                torch.fmax(near[2], torch.full_like(
-                                    near[2], t_min)))
-            t_far = torch.fmin(torch.fmin(far[0], far[1]),
-                               torch.fmin(far[2], t_best[ray])) * FAR_PAD
-            hit = t_near <= t_far
-            inner = hit & (w1[node] < 0)
-            leaf = hit & (w1[node] > 0)
-            for k in range(LEAF_SIZE):
-                use = leaf & (k < w1[node])
-                test(ray[use], w0[node][use] + k)
-            # Inner: the far child under the near one (popped first).
-            r_in, n_in = ray[inner], node[inner]
-            axis = -1 - w1[n_in]
-            neg = d[axis, r_in] < 0.0
-            left, right = n_in + 1, w0[n_in]
-            stack[r_in, sp[r_in]] = torch.where(neg, left, right)
-            stack[r_in, sp[r_in] + 1] = torch.where(neg, right, left)
-            sp[r_in] += 2
+        _walk_tree(o, d, bvh, t_min, t_best, test, node_tests)
     fam = torch.where((t_best < INF) & (win >= 0), 0, -1).to(torch.int32)
     return t_best, fam, win.to(torch.int32), node_tests, slot_tests
+
+
+# ---------------------------------------------------------------------------
+# The solid families' trees
+# ---------------------------------------------------------------------------
+#
+# The forward kernels test the active quads, then the active boxes, each
+# family seeded by the one before (ops/csrc/bounce.cuh closest_solid). A
+# family of more than SOLID_CAP active slots is walked over a tree of
+# its own (pack_solid_bvh), built by build_bvh over each slot's box and
+# laid out as a BvhPack (its rows the family's slots), which the walk
+# must leave with the loop's (t, slot) bit for bit, so a node may be
+# skipped only when no slot inside it can give a hit at or below the
+# best t under the kernels' arithmetic (quad_hit, box_hit). The rule:
+#
+#   * The hit a test reports at the computed t puts the exact point
+#     o + t d within E = C u (|o| + S) / sin of the primitive, where S
+#     is the primitive's size from the origin (a quad's |q|_1 + |u|_1 +
+#     |v|_1, a box's |center|_1 + |half|_1), sin is a quad's sine of the
+#     angle between its edges (1 for a box), and C is a few tens from the
+#     operation counts: a quad's t = (n.q - o.n) / (d.n) leaves the point
+#     within C u (|q| + |o| + |t d|) of the plane however grazing the ray
+#     (the residual n.p - n.q is the division's and the dot products'
+#     rounding), and its alpha, beta in [0, 1] within C u (...) |g| of
+#     the edges (|g| |u| = 1 / sin); a box's slab bounds (rrt_tpu's
+#     closed form -ob inv -/+ h |inv|) put the point's frame coordinates
+#     within C u (|ob| + h) of [-h, h], and |t d| <= |o| + |p|. An axis
+#     the ray is parallel to by slab's rule (|db| <= 1e-12, inv = 1e18)
+#     bounds nothing, and the point drifts along it by |t db| <= 1e-12
+#     |t|: a ray whose direction's largest component is below TINY_DIR
+#     tests every box (the loop) instead of the tree, so the drift is at
+#     most 1e-12 / TINY_DIR < 2^-19 of |p - o|.
+#   * A slot's box is its exact extent (a quad's four corners; a box's
+#     half extents turned by its cos and sin into world axes, divided by
+#     cos^2 + sin^2, which the stored pair misses 1 by ulps) padded by
+#     SOLID_K u S / sin, SOLID_K = 1024, rounded outward to float32; the
+#     walk pads every node by RAY_PAD |o|_1 (65,536 u |o|) as the
+#     spheres' walk does, which covers the |o| terms.
+#   * A quad whose sine is below SOLID_MIN_SIN is tested by every segment
+#     before the walk (its row among the first n_always), as the spheres'
+#     large slots are; so are a family's slots when all of them are.
+#   * The node test and the tie rule are the spheres' walk's: a node is
+#     skipped only when its near distance exceeds the best t times
+#     FAR_PAD; a slot replaces the best with a strictly smaller t or an
+#     equal t and a lower slot, the loop's first minimum; seeded by the
+#     quads' t, a box must beat it strictly.
+#
+# rttnw_final's 400 ground boxes share faces exactly (-1000 + 100 i is
+# exact in float32), so equal t's between neighbours are common there.
+
+# The active slots of a family the kernels loop over (at most this many,
+# in every kernel; ops/megakernel.SOLID_CAP, csrc/bounce.cuh kSolidCap):
+# the forward kernels walk a larger family's tree, the train kernels and
+# chain_bwd do not take it.
+SOLID_CAP = 64
+SOLID_K = 1024.0
+SOLID_MIN_SIN = 1.0 / 16.0
+TINY_DIR = 2.0 ** -20  # bounce.cuh kTinyDir
+
+
+@dataclasses.dataclass(frozen=True)
+class SolidBvh:
+    """The trees of a scene's active quads and boxes (rows: the family's
+    slots; a family of at most SOLID_CAP, or whose every slot is always
+    tested, has no node, and the kernels loop over it)."""
+
+    quad: BvhPack
+    box: BvhPack
+
+    def smem_bytes(self) -> int:
+        """Shared memory of the trees staged beside the solid rows: two
+        float4 a node and an int a row (bounce.cuh solid_tree_bytes)."""
+        return (32 * (self.quad.n_nodes + self.box.n_nodes)
+                + 4 * (self.quad.n_rows + self.box.n_rows))
+
+    def to(self, device) -> "SolidBvh":
+        return dataclasses.replace(self, quad=self.quad.to(device),
+                                   box=self.box.to(device))
+
+
+def quad_slot_boxes(quad24, n: int):
+    """The boxes of the first n quads of the quad pack (24, Q): (lo
+    (n,3) f32, hi (n,3) f32, always (n,) bool), by the rule above."""
+    p = quad24[:, :n].detach().cpu().to(torch.float64).numpy()
+    q, u, v = p[0:3].T, p[3:6].T, p[6:9].T
+    corners = np.stack([q, q + u, q + v, q + u + v])
+    norm_u, norm_v = np.linalg.norm(u, axis=1), np.linalg.norm(v, axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sin = np.linalg.norm(np.cross(u, v), axis=1) / (norm_u * norm_v)
+    always = ~(sin >= SOLID_MIN_SIN)  # NaN on a zero edge: always
+    size = (np.abs(q).sum(1) + np.abs(u).sum(1) + np.abs(v).sum(1))
+    pad = SOLID_K * _U * size / np.where(always, 1.0, sin)
+    return (_outward(corners.min(0) - pad[:, None], True),
+            _outward(corners.max(0) + pad[:, None], False), always)
+
+
+def box_slot_boxes(box24, n: int):
+    """The world boxes of the first n boxes of the box pack (24, B): (lo
+    (n,3) f32, hi (n,3) f32), by the rule above."""
+    p = box24[:, :n].detach().cpu().to(torch.float64).numpy()
+    c, h, cs, sn = p[0:3].T, p[3:6].T, p[6], p[7]
+    pad = SOLID_K * _U * (np.abs(c).sum(1) + np.abs(h).sum(1))
+    hx, hy, hz = h[:, 0] + pad, h[:, 1] + pad, h[:, 2] + pad
+    rho2 = cs * cs + sn * sn
+    ext = np.stack([(np.abs(cs) * hx + np.abs(sn) * hz) / rho2, hy,
+                    (np.abs(sn) * hx + np.abs(cs) * hz) / rho2], axis=1)
+    ext = ext + pad[:, None]
+    return _outward(c - ext, True), _outward(c + ext, False)
+
+
+def _loop_pack(n: int) -> BvhPack:
+    """The BvhPack of a family the kernels loop over: its n active slots,
+    no node and no row."""
+    return BvhPack(nodes=torch.zeros((0, 8), dtype=torch.float32),
+                   rows=torch.zeros((0,), dtype=torch.int32), n_always=0,
+                   depth=0, n_slots=n, shutter=None)
+
+
+def family_bvh(lo, hi, always) -> BvhPack:
+    """A family's tree over its slots' boxes lo, hi ((n, 3) f32, by the
+    rule above), whatever its size; `always` (n,) bool the slots every
+    segment tests before the walk (rows [0, n_always)). A family whose
+    every slot is always tested is a loop (no node)."""
+    n = lo.shape[0]
+    tree_ids = np.nonzero(~always)[0].astype(np.int32)
+    if tree_ids.size == 0:
+        return _loop_pack(n)
+    always_ids = np.nonzero(always)[0].astype(np.int32)
+    n_always = int(always_ids.size)
+    bvh = build_bvh(lo[tree_ids], hi[tree_ids], tree_ids)
+    leaf = bvh.left == -1
+    w0 = np.where(leaf, n_always + bvh.prim_start, bvh.right)
+    w1 = np.where(leaf, bvh.prim_count, -1 - bvh.axis)
+    nodes = np.concatenate([
+        bvh.node_min, w0.astype(np.int32).view(np.float32)[:, None],
+        bvh.node_max, w1.astype(np.int32).view(np.float32)[:, None]], axis=1)
+    depth = _depth(bvh)
+    if depth > BVH_STACK:
+        raise ValueError(f"a solid family's tree is {depth} levels deep, "
+                         f"past the kernels' stack of {BVH_STACK}")
+    return BvhPack(nodes=torch.from_numpy(np.ascontiguousarray(nodes)),
+                   rows=torch.from_numpy(np.concatenate(
+                       [always_ids, bvh.prim_order]).astype(np.int32)),
+                   n_always=n_always, depth=depth, n_slots=n, shutter=None)
+
+
+def pack_solid_bvh(quad24, box24, n_quads: int, n_boxes: int) -> SolidBvh:
+    """The kernels' SolidBvh over the first n_quads quads of the quad
+    pack (24, Q) and the first n_boxes boxes of the box pack (24, B),
+    built on the host, on quad24's device: the tree (family_bvh) of a
+    family past SOLID_CAP active slots; a smaller one stays a loop, and
+    its slots are not read."""
+    quad = _loop_pack(n_quads)
+    if n_quads > SOLID_CAP:
+        quad = family_bvh(*quad_slot_boxes(quad24, n_quads))
+    box = _loop_pack(n_boxes)
+    if n_boxes > SOLID_CAP:
+        box = family_bvh(*box_slot_boxes(box24, n_boxes),
+                         np.zeros(n_boxes, bool))
+    return SolidBvh(quad=quad, box=box).to(quad24.device)
+
+
+def solid_scan(tree: SolidBvh) -> SolidBvh:
+    """The SolidBvh whose families are loops over their active slots (no
+    node), on tree's device: the reference the trees' walks are held
+    to."""
+    return SolidBvh(quad=_loop_pack(tree.quad.n_slots),
+                    box=_loop_pack(tree.box.n_slots)).to(
+                        tree.quad.nodes.device)
+
+
+def solid_closest_reference(o, d, quad24, box24, tree: SolidBvh, *,
+                            t_min: float):
+    """The kernels' closest quad, then box (bounce.cuh closest_solid with
+    the trees of `tree`) in plain PyTorch, each slot tested with
+    geometry.quad_roots' and box_roots' arithmetic. o, d: (3, N).
+    Returns (t (N,), fam (N,) i32: FAM_QUAD, FAM_BOX or FAM_NONE, idx
+    (N,) i32, 0 on a miss: merge_solid's contract for the two families;
+    node_tests (N,) i64, solid_tests (N,) i64)."""
+    from .geometry import FAM_BOX, FAM_NONE, FAM_QUAD, INF, dot, quad_frames
+
+    dev = o.device
+    n = o.shape[1]
+    nq, nb = tree.quad.n_slots, tree.box.n_slots
+    fr = quad_frames(quad24[0:3, :nq], quad24[3:6, :nq], quad24[6:9, :nq])
+    box = box24[:, :nb]
+    d_len = torch.sqrt(dot(d, d))
+    node_tests = torch.zeros((n,), dtype=torch.long, device=dev)
+    solid_tests = torch.zeros((n,), dtype=torch.long, device=dev)
+
+    def quad_t(ray, slot):
+        oo, dd = o[:, ray], d[:, ray]
+        nn, g, h = fr.n[:, slot], fr.g[:, slot], fr.h[:, slot]
+        denom = dot(dd, nn)
+        not_par = torch.abs(denom) > fr.eps_n[slot] * d_len[ray]
+        t = (fr.d_plane[slot] - dot(oo, nn)) / torch.where(not_par, denom,
+                                                             1.0)
+        alpha = dot(oo, g) + t * dot(dd, g) - fr.q_g[slot]
+        beta = dot(oo, h) + t * dot(dd, h) - fr.q_h[slot]
+        ok = (not_par & (t > t_min) & (t < INF) & (alpha >= 0.0)
+              & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0))
+        return torch.where(ok, t, INF)
+
+    def box_t(ray, slot):
+        oo, dd = o[:, ray], d[:, ray]
+        c, hf = box[0:3, slot], box[3:6, slot]
+        cth, sth = box[6, slot], box[7, slot]
+        wx, wy, wz = oo[0] - c[0], oo[1] - c[1], oo[2] - c[2]
+        obs = (cth * wx - sth * wz, wy, sth * wx + cth * wz)
+        dbs = (cth * dd[0] - sth * dd[2], dd[1], sth * dd[0] + cth * dd[2])
+        lo = hi = None
+        for k in range(3):
+            par = torch.abs(dbs[k]) <= 1e-12
+            inv = torch.where(par, 1e18, 1.0 / torch.where(par, 1.0, dbs[k]))
+            a_t = obs[k] * inv
+            b_t = hf[k] * torch.abs(inv)
+            k_lo, k_hi = -a_t - b_t, b_t - a_t
+            lo = k_lo if lo is None else torch.maximum(lo, k_lo)
+            hi = k_hi if hi is None else torch.minimum(hi, k_hi)
+        t = torch.where(lo > t_min, lo, hi)
+        ok = (lo < hi) & (t > t_min) & (t < INF)
+        return torch.where(ok, t, INF)
+
+    def family(pack: BvhPack, slot_t, t_seed, n_slots):
+        t_best, win = _seeded(t_seed, n, dev)
+        slot_of = pack.rows.to(dev).long()
+
+        def test(ray, slot):
+            _update(t_best, win, ray, slot_t(ray, slot), slot)
+            solid_tests[ray] += 1
+
+        everyone = torch.arange(n, device=dev)
+        if pack.n_nodes == 0:  # the loop
+            for i in range(n_slots):
+                test(everyone, torch.full((n,), i, dtype=torch.long,
+                                          device=dev))
+            return t_best, win
+        for j in range(pack.n_always):
+            test(everyone, slot_of[j].expand(n))
+        if slot_t is box_t:  # a ray too short for the slabs' bound loops
+            tiny = torch.amax(d.abs(), dim=0) < TINY_DIR
+            for i in range(n_slots):
+                test(everyone[tiny], torch.full((int(tiny.sum()),), i,
+                                                dtype=torch.long, device=dev))
+            rays = (~tiny).nonzero()[:, 0]
+        else:
+            rays = everyone
+        _walk_tree(o, d, pack, t_min, t_best,
+                   lambda ray, row: test(ray, slot_of[row]), node_tests,
+                   rays=rays)
+        return t_best, win
+
+    tq, wq = family(tree.quad, quad_t, None, nq)
+    tb, wb = family(tree.box, box_t, tq, nb)
+    use_b = tb < tq
+    t = torch.where(use_b, tb, tq)
+    fam = torch.where(use_b, FAM_BOX, torch.where(tq < INF, FAM_QUAD,
+                                                  FAM_NONE))
+    idx = torch.where(use_b, wb, torch.where(tq < INF, wq, 0))
+    return (t, fam.to(torch.int32), idx.to(torch.int32), node_tests,
+            solid_tests)

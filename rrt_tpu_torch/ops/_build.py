@@ -47,9 +47,10 @@ class Build:
 
 def _kernel_name(mangled: str) -> str:
     """The kernel's name in a mangled entry name, with " (moving)",
-    " (solids)", " (tex)" or their combinations, such as " (moving,
-    solids)", for an instantiation whose first bool template argument
-    (kMoving), second (kSolids) or third (kTex) is true. A
+    " (solids)", " (tex)", " (walk)" or their combinations, such as "
+    (moving, solids)", for an instantiation whose first bool template
+    argument (kMoving), second (kSolids), third (kTex) or fourth (kWalk;
+    intersect_kernel's third) is true. A
     name's length prefix may follow other digits (the anonymous
     namespace's hash), so every split of a run of digits is tried."""
     for m in re.finditer(r"\d+", mangled):
@@ -60,8 +61,10 @@ def _kernel_name(mangled: str) -> str:
                                 mangled[m.end() + len(name):])
                 flags = re.findall(r"Lb([01])E", args.group(1)) if args \
                     else []
-                tags = [tag for tag, bit in zip(("moving", "solids", "tex"),
-                                                flags) if bit == "1"]
+                names = (("moving", "solids", "walk")
+                         if name == "intersect_kernel"
+                         else ("moving", "solids", "tex", "walk"))
+                tags = [tag for tag, bit in zip(names, flags) if bit == "1"]
                 return name + (f" ({', '.join(tags)})" if tags else "")
     return mangled
 
@@ -137,14 +140,23 @@ def build() -> Build:
 
 class SolidArgs(ctypes.Structure):
     """The solid families' C argument (csrc/bounce.cuh SolidArgs): the
-    quad and box packs, their widths and active slot counts, and the
-    medium pack and its active media; a null pointer in its place
-    launches the sphere variant."""
+    quad and box packs, their widths and active slot counts, the medium
+    pack and its active media, and for the forward kernels the families'
+    trees (accel.SolidBvh: each family's nodes, rows, node and row
+    counts and always-tested rows; zeros for a family they loop over); a
+    null pointer in its place launches the sphere variant."""
 
     _fields_ = [("quad", ctypes.c_void_p), ("quad_slots", ctypes.c_int),
                 ("n_quads", ctypes.c_int), ("box", ctypes.c_void_p),
                 ("box_slots", ctypes.c_int), ("n_boxes", ctypes.c_int),
-                ("med", ctypes.c_void_p), ("n_media", ctypes.c_int)]
+                ("med", ctypes.c_void_p), ("n_media", ctypes.c_int),
+                ("quad_nodes", ctypes.c_void_p),
+                ("quad_rows", ctypes.c_void_p),
+                ("quad_n_nodes", ctypes.c_int), ("quad_n_rows", ctypes.c_int),
+                ("quad_n_always", ctypes.c_int),
+                ("box_nodes", ctypes.c_void_p), ("box_rows", ctypes.c_void_p),
+                ("box_n_nodes", ctypes.c_int), ("box_n_rows", ctypes.c_int),
+                ("box_n_always", ctypes.c_int)]
 
 
 class TexArgs(ctypes.Structure):
@@ -184,6 +196,12 @@ def load() -> ctypes.CDLL:
     lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, s, t, p, p,
                                   p, i, i, f, i, p, p, p, p, p]
     lib.rrt_chain_bwd.restype = i
+    n = ctypes.POINTER(ctypes.c_int)
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.rrt_tile_render_blocks.argtypes = [i, i, i, s, i, n, ll]
+    lib.rrt_tile_render_blocks.restype = i
+    lib.rrt_queue_blocks.argtypes = [i, i, i, i, s, i, n, ll]
+    lib.rrt_queue_blocks.restype = i
     lib.rrt_probe_fma_chain.argtypes = [p, p, i, i, f, f, i, p]
     lib.rrt_probe_fma_chain.restype = i
     lib.rrt_probe_rng.argtypes = [p, p, i, i, i, p]

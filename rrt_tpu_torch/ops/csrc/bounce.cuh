@@ -24,6 +24,11 @@
 // seeded by the one before and won only by a strictly smaller t, so a
 // quad wins an exact tie, then a box; the sphere scan or BVH walk is
 // then seeded by that t (rrt_tpu's _one_bounce, megakernel.py:811-1150).
+// The forward kernels' kWalk instantiations (a scene with a family past
+// kSolidCap active slots, rttnw_final's 400 ground boxes) walk that
+// family's tree instead (solid_walk: the loop's (t, slot) bit for bit),
+// staged after the rows (stage_forward_solids); the other instantiations
+// never compile it.
 // A quad's normal is n / |n|, a box's the axis of its frame whose |q_k| -
 // h_k is largest at the hit point, rotated back; a hit on a diffuse_light
 // banks throughput x its color and ends the path (:1457-1489). Then the
@@ -71,9 +76,12 @@
 // The host's argument of the solid families (ops/_build.py SolidArgs):
 // the quad (24, quad_slots) and box (24, box_slots) packs in device
 // memory, whose first n_quads and n_boxes slots are tested; a null
-// pointer in its place launches the sphere variant. Outside the
-// anonymous namespace: the extern "C" entry points take it, and a type
-// of internal linkage in their signature would hide them.
+// pointer in its place launches the sphere variant. The forward kernels
+// also read the families' trees (rrt_tpu_torch/accel.py SolidBvh; none,
+// n_nodes 0, for a family they loop over, and for the train kernels and
+// chain_bwd, which loop). Outside the anonymous namespace: the extern "C"
+// entry points take it, and a type of internal linkage in their
+// signature would hide them.
 struct SolidArgs {
   const float* quad;
   int quad_slots, n_quads;
@@ -81,6 +89,12 @@ struct SolidArgs {
   int box_slots, n_boxes;
   const float* med;  // the (D, 24) medium pack, rows [0, n_media) tested
   int n_media;
+  const float* quad_nodes;  // (quad_n_nodes, 8) f32, accel.py's layout
+  const int* quad_rows;     // (quad_n_rows,) the quads' slots, walk order
+  int quad_n_nodes, quad_n_rows, quad_n_always;
+  const float* box_nodes;
+  const int* box_rows;
+  int box_n_nodes, box_n_rows, box_n_always;
 };
 
 // The host's argument of the textures (ops/_build.py TexArgs): the atlas
@@ -113,12 +127,16 @@ inline TexView tex_view(const TexArgs* t) {
 }
 
 // One of the 8 instantiations F<kMoving, kSolids, kTex> of a launch
-// function, chosen at run time.
+// function, chosen at run time; RRT_PICK_WALK one of the 4 with solid
+// trees to walk, F<kMoving, true, kTex, true> (a forward kernel's kWalk).
 #define RRT_PICK3(F, a, b, c)                                             \
   ((a) ? ((b) ? ((c) ? F<true, true, true> : F<true, true, false>)       \
               : ((c) ? F<true, false, true> : F<true, false, false>))    \
        : ((b) ? ((c) ? F<false, true, true> : F<false, true, false>)     \
               : ((c) ? F<false, false, true> : F<false, false, false>)))
+#define RRT_PICK_WALK(F, a, c)                                            \
+  ((a) ? ((c) ? F<true, true, true, true> : F<true, true, false, true>)  \
+       : ((c) ? F<false, true, true, true> : F<false, true, false, true>))
 
 namespace {
 
@@ -858,9 +876,26 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
 // plane frame (geometry.quad_frames' arithmetic: n = u x v, g, h,
 // d_plane, q.g, q.h, eps_n), each box's center, half extents, cos, sin.
 
-// The active slots a kernel stages (ops/megakernel.py SOLID_CAP).
+// The active slots of each family the kernels loop over (the forward
+// kernels walk a tree past it), which the train kernels' and chain_bwd's
+// winner codes hold (ops/megakernel.py SOLID_CAP).
 constexpr int kSolidCap = 64;
 
+// The blocks an SM the forward kernels' kWalk instantiations are built
+// for (__launch_bounds__, so up to 128 registers a thread): rttnw_final's
+// staged spheres, rows and trees (80 KB a block) leave room for 2.
+constexpr int kWalkBlocks = 2;
+
+
+// A solid family's tree as a walk reads it (SolidArgs' quad_* or box_*
+// fields): nodes, two float4 each (the spheres' BVH layout), and rows,
+// the family's slots in walk order, the first n_always tested by every
+// segment; n_nodes 0: the family is a loop over its active slots.
+struct SolidTree {
+  const float4* nodes;
+  const int* rows;
+  int n_nodes, n_always;
+};
 
 // A block's staged solid families and their packs in device memory.
 struct Solids {
@@ -878,6 +913,7 @@ struct Solids {
   const float* med;   // the (D, 24) medium pack in device memory
   int n_media;        // its rows [0, n_media) are tested
   TexView tex;        // the textures (kTex; every variant carries it)
+  SolidTree qt, bt;   // the quads' and boxes' trees (none: loops)
 };
 
 // Shared memory of the staged solids (after the BVH, 16-byte aligned).
@@ -901,7 +937,7 @@ __device__ __forceinline__ Solids stage_solids(const float* quad,
                                                float4* smem,
                                                const float* med = nullptr,
                                                int n_media = 0) {
-  Solids sv;
+  Solids sv{};
   float4* qn = smem;
   float4* qg = qn + n_quads;
   float4* qh = qg + n_quads;
@@ -948,6 +984,95 @@ __device__ __forceinline__ Solids stage_solids(const float* quad,
   sv.box = box; sv.box_slots = box_slots;
   sv.med = med; sv.n_media = n_media;
   return sv;
+}
+
+// Shared memory of the solid trees (accel.SolidBvh.smem_bytes): two
+// float4 a node, an int a row.
+__host__ __device__ inline size_t solid_tree_bytes(const SolidArgs& sa) {
+  return 32 * static_cast<size_t>(sa.quad_n_nodes + sa.box_n_nodes) +
+         4 * static_cast<size_t>(sa.quad_n_rows + sa.box_n_rows);
+}
+
+// The forward kernels' shared memory after the spheres' BVH: the solid
+// rows (solid_bytes), then the trees (ops/megakernel.py
+// forward_smem_bytes, which refuses a scene past what a block may opt
+// into before the launch).
+__host__ __device__ inline size_t forward_solid_bytes(const SolidArgs& sa) {
+  return aligned16(solid_bytes(sa.n_quads, sa.n_boxes)) + solid_tree_bytes(sa);
+}
+
+// The forward kernels' solid families (tile_render, bounce_steps,
+// intersect): stage_solids' rows in `smem`, then the trees of SolidArgs
+// (forward_solid_bytes). The caller syncs the block after.
+__device__ __forceinline__ Solids stage_forward_solids(const SolidArgs& sa,
+                                                       float4* smem) {
+  Solids sv = stage_solids(sa.quad, sa.quad_slots, sa.n_quads, sa.box,
+                           sa.box_slots, sa.n_boxes, smem, sa.med, sa.n_media);
+  const int q_nodes = sa.quad_n_nodes, b_nodes = sa.box_n_nodes;
+  float4* nodes =
+      smem + aligned16(solid_bytes(sa.n_quads, sa.n_boxes)) / sizeof(float4);
+  int* rows = reinterpret_cast<int*>(nodes + 2 * (q_nodes + b_nodes));
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  const float4* qn = reinterpret_cast<const float4*>(sa.quad_nodes);
+  const float4* bn = reinterpret_cast<const float4*>(sa.box_nodes);
+  for (int i = tid; i < 2 * (q_nodes + b_nodes); i += n_threads) {
+    nodes[i] = i < 2 * q_nodes ? qn[i] : bn[i - 2 * q_nodes];
+  }
+  const int q_rows = sa.quad_n_rows;
+  for (int j = tid; j < q_rows + sa.box_n_rows; j += n_threads) {
+    rows[j] = j < q_rows ? sa.quad_rows[j] : sa.box_rows[j - q_rows];
+  }
+  sv.qt = SolidTree{nodes, rows, q_nodes, sa.quad_n_always};
+  sv.bt = SolidTree{nodes + 2 * q_nodes, rows + q_rows, b_nodes,
+                    sa.box_n_always};
+  return sv;
+}
+
+// Whether a forward launch walks solid trees (its kWalk instantiation).
+__host__ __device__ inline bool has_tree(const SolidArgs* sa) {
+  return sa != nullptr && sa->quad_n_nodes + sa->box_n_nodes > 0;
+}
+
+// A forward launch's dynamic shared memory `smem`: `base` bytes (the
+// spheres' BVH), then with solids (sa non-null) forward_solid_bytes. Opts
+// `kernel` into smem. Returns a cudaError_t (0 on success).
+template <typename Kernel>
+int forward_smem(Kernel kernel, size_t base, const SolidArgs* sa,
+                 size_t& smem) {
+  smem = sa != nullptr ? aligned16(base) + forward_solid_bytes(*sa) : base;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+// A forward kernel's blocks an SM at a launch's shared memory
+// (forward_smem), for the host's report: blocks and the bytes.
+template <typename Kernel>
+int forward_blocks(Kernel kernel, int threads, size_t base,
+                   const SolidArgs* sa, int* blocks, long long* smem_out) {
+  size_t smem;
+  int err = forward_smem(kernel, base, sa, smem);
+  if (err == 0) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, threads, smem));
+  }
+  *smem_out = static_cast<long long>(smem);
+  return err;
+}
+
+// A forward kernel's solid families after the spheres' BVH (`smem` past
+// its bvh_bytes): with kWalk stage_forward_solids, else stage_solids'
+// rows of the loops, as the train kernels stage them.
+template <bool kWalk>
+__device__ __forceinline__ Solids stage_solids_of(const SolidArgs& sa,
+                                                  float4* smem) {
+  if constexpr (kWalk) {
+    return stage_forward_solids(sa, smem);
+  } else {
+    return stage_solids(sa.quad, sa.quad_slots, sa.n_quads, sa.box,
+                        sa.box_slots, sa.n_boxes, smem, sa.med, sa.n_media);
+  }
 }
 
 // One axis of the box slab test, rrt_tpu's closed form: with inv = 1/db
@@ -998,9 +1123,126 @@ __device__ __forceinline__ bool box_hit(const Solids& sv, int i,
   return lo < hi && t > t_min;
 }
 
-// The closest quad, then box, with a strict `<` running minimum over the
-// active slots in order (a quad wins an exact tie with a box): t (kInf
-// on a miss), its family (kFamNone on a miss) and slot.
+// The walks' per-thread stack of far children (a tree's depth may not
+// exceed it: accel.BVH_STACK); rrt_tpu's far pad float32(1 + 2 gamma(3)) of the
+// slab test; the ray's pad, times the L1 norm of its origin
+// (accel.RAY_PAD).
+constexpr int kBvhStack = 32;
+constexpr float kFarPad = 1.00000036f;
+constexpr float kRayPad = 0.00390625f;  // 2^-8
+
+// The walks' node test (the spheres' and the solid families'): the
+// ray's reciprocal direction and its origin moved out by the ray's pad
+// (kRayPad times the L1 norm of the origin) either way.
+struct NodeRay {
+  float ix, iy, iz, px, py, pz, mx, my, mz;
+};
+
+__device__ __forceinline__ NodeRay node_ray(const Ray& r) {
+  const float pad = kRayPad * (fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz));
+  return NodeRay{1.0f / r.dx, 1.0f / r.dy, 1.0f / r.dz,
+                 r.ox + pad,  r.oy + pad,  r.oz + pad,
+                 r.ox - pad,  r.oy - pad,  r.oz - pad};
+}
+
+// Whether a walk enters the node (lo, hi): the slab test of its box
+// padded by the ray's pad, the near distance clamped to t_min, the far
+// one to the best t so far, times kFarPad, so a slot tied with the best
+// is still reached.
+__device__ __forceinline__ bool node_enter(const float4& lo, const float4& hi,
+                                           const NodeRay& nr, float t_min,
+                                           float t_best) {
+  const float ax = (lo.x - nr.px) * nr.ix, bx = (hi.x - nr.mx) * nr.ix;
+  const float ay = (lo.y - nr.py) * nr.iy, by = (hi.y - nr.my) * nr.iy;
+  const float az = (lo.z - nr.pz) * nr.iz, bz = (hi.z - nr.mz) * nr.iz;
+  const float t_near = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)),
+                             fmaxf(fminf(az, bz), t_min));
+  const float t_far = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)),
+                            fminf(fmaxf(az, bz), t_best)) *
+                      kFarPad;
+  return t_near <= t_far;
+}
+
+// Solid `slot`'s test (a box's with kBox, else a quad's), kept when its t
+// is strictly below the best or equal to it on a lower slot: the loop's
+// first minimum in slot order, whatever order a walk tests them in.
+template <bool kBox>
+__device__ __forceinline__ void solid_row(const Solids& sv, int slot,
+                                          const Ray& r, float d_len,
+                                          float t_min, float& t_best,
+                                          int& win) {
+  float t;
+  const bool hit = kBox ? box_hit(sv, slot, r, t_min, t)
+                        : quad_hit(sv, slot, r, d_len, t_min, t);
+  if (hit && (t < t_best || (t == t_best && slot < win))) {
+    t_best = t;
+    win = slot;
+  }
+}
+
+// A ray whose direction's largest component is below it tests every box
+// instead of walking their tree (accel.TINY_DIR: past slab's 1e-12
+// parallel rule a hit's point drifts along the axis by up to 1e-12 t).
+constexpr float kTinyDir = 9.5367431640625e-07f;  // 2^-20
+
+// The closest solid of family kBox (boxes, else quads) by the walk over
+// its tree `tr` (accel.py's rule: a node is skipped only when no slot in
+// it can give a t at or below the best): closest_solid's loop's (t,
+// slot) bit for bit. Seeded by t_seed < kInf (the quads' t), a slot must
+// beat it strictly: win starts at -1, which no tie replaces, and stays
+// -1 (with t_seed returned) when none does.
+template <bool kBox>
+__device__ __forceinline__ float solid_walk(const Solids& sv,
+                                            const SolidTree& tr,
+                                            const Ray& r, float d_len,
+                                            float t_min, float t_seed,
+                                            int& win) {
+  float t_best = t_seed;
+  win = t_seed < kInf ? -1 : 0;
+  for (int j = 0; j < tr.n_always; ++j) {
+    solid_row<kBox>(sv, tr.rows[j], r, d_len, t_min, t_best, win);
+  }
+  if (kBox &&
+      fmaxf(fabsf(r.dx), fmaxf(fabsf(r.dy), fabsf(r.dz))) < kTinyDir) {
+    for (int i = 0; i < sv.n_boxes; ++i) {
+      solid_row<true>(sv, i, r, d_len, t_min, t_best, win);
+    }
+    return t_best;
+  }
+  const NodeRay nr = node_ray(r);
+  int stack[kBvhStack];
+  int sp = 0, node = 0;
+  for (;;) {
+    const float4 lo = tr.nodes[2 * node];
+    const float4 hi = tr.nodes[2 * node + 1];
+    if (node_enter(lo, hi, nr, t_min, t_best)) {
+      const int w0 = __float_as_int(lo.w), w1 = __float_as_int(hi.w);
+      if (w1 < 0) {  // inner: left child node + 1, right w0, axis -1 - w1
+        const int axis = -1 - w1;
+        const float dir = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+        stack[sp++] = dir < 0.0f ? node + 1 : w0;
+        node = dir < 0.0f ? w0 : node + 1;
+        continue;
+      }
+      for (int j = w0; j < w0 + w1; ++j) {  // leaf: rows w0 .. w0 + w1
+        solid_row<kBox>(sv, tr.rows[j], r, d_len, t_min, t_best, win);
+      }
+    }
+    if (sp == 0) break;
+    node = stack[--sp];
+  }
+  return t_best;
+}
+
+// The closest quad, then box: each family by a strict `<` running
+// minimum over its active slots in order, or with kWalk (the forward
+// kernels' instantiations for a scene whose families have trees) by the
+// walk over a family's tree when it has one (solid_walk, the same (t,
+// slot)), the boxes seeded by the quads' t (a quad wins an exact tie
+// with a box): t (kInf on a miss), its family (kFamNone on a miss) and
+// slot. Without kWalk the walk's code is not compiled, so the loops'
+// instantiations keep their registers.
+template <bool kWalk = false>
 __device__ __forceinline__ float closest_solid(const Solids& sv,
                                                const Ray& r, const RayDots& q,
                                                float t_min, int& fam,
@@ -1009,20 +1251,39 @@ __device__ __forceinline__ float closest_solid(const Solids& sv,
   fam = kFamNone;
   win = 0;
   const float d_len = sqrtf(q.a);
-  for (int i = 0; i < sv.n_quads; ++i) {
-    float t;
-    if (quad_hit(sv, i, r, d_len, t_min, t) && t < t_best) {
-      t_best = t;
+  if (!kWalk || sv.qt.n_nodes == 0) {
+    for (int i = 0; i < sv.n_quads; ++i) {
+      float t;
+      if (quad_hit(sv, i, r, d_len, t_min, t) && t < t_best) {
+        t_best = t;
+        fam = kFamQuad;
+        win = i;
+      }
+    }
+  } else {
+    int w;
+    t_best = solid_walk<false>(sv, sv.qt, r, d_len, t_min, kInf, w);
+    if (t_best < kInf) {
       fam = kFamQuad;
-      win = i;
+      win = w;
     }
   }
-  for (int i = 0; i < sv.n_boxes; ++i) {
-    float t;
-    if (box_hit(sv, i, r, t_min, t) && t < t_best) {
+  if (!kWalk || sv.bt.n_nodes == 0) {
+    for (int i = 0; i < sv.n_boxes; ++i) {
+      float t;
+      if (box_hit(sv, i, r, t_min, t) && t < t_best) {
+        t_best = t;
+        fam = kFamBox;
+        win = i;
+      }
+    }
+  } else {
+    int w;
+    const float t = solid_walk<true>(sv, sv.bt, r, d_len, t_min, t_best, w);
+    if (t < t_best) {
       t_best = t;
       fam = kFamBox;
-      win = i;
+      win = w;
     }
   }
   return t_best;
@@ -1353,7 +1614,8 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
 // the spheres alone. kMedia = false leaves the media out (a caller that
 // knows the scene has none). Returns t (kInf on a miss), the winner's
 // family `fam` and slot `win` (0 on a miss).
-template <bool kSolids, typename Closest, bool kMedia = true>
+template <bool kSolids, typename Closest, bool kMedia = true,
+          bool kWalk = false>
 __device__ __forceinline__ float closest_hit(const Closest& closest,
                                              const Solids* sv, const Ray& r,
                                              const RayDots& q, float t_min,
@@ -1365,7 +1627,7 @@ __device__ __forceinline__ float closest_hit(const Closest& closest,
     fam = t < kInf ? kFamSphere : kFamNone;
     return t;
   } else {
-    const float t_solid = closest_solid(*sv, r, q, t_min, fam, win);
+    const float t_solid = closest_solid<kWalk>(*sv, r, q, t_min, fam, win);
     int ws;
     float t = closest(r, q, t_min, ws, t_solid);
     if (t < t_solid) {
@@ -1392,7 +1654,7 @@ __device__ __forceinline__ float closest_hit(const Closest& closest,
 // is the winner, -1 on a miss (with kSolids its winner_code); `kept`: as
 // shade's; kTex: finish_bounce's.
 template <bool kMoving, bool kSolids = false, bool kTex = false,
-          typename Closest>
+          bool kWalk = false, typename Closest>
 __device__ __forceinline__ int bounce_step(const Closest& closest,
                                            const float* sph, int n_slots,
                                            const float* bg, bool sky,
@@ -1409,8 +1671,8 @@ __device__ __forceinline__ int bounce_step(const Closest& closest,
         win, kept, kFamSphere, sv);
   } else {
     int fam;
-    const float t_best = closest_hit<true>(closest, sv, p.ray, q, t_min, fam,
-                                           win, k0, k1, bounce);
+    const float t_best = closest_hit<true, Closest, true, kWalk>(
+        closest, sv, p.ray, q, t_min, fam, win, k0, k1, bounce);
     const int out = finish_bounce<kMoving, true, true, kTex>(
         sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, rad,
         win, kept, fam, sv);
@@ -1508,14 +1770,6 @@ struct SlotScan {
 // padded so that no slot inside a skipped node can produce a root below
 // the best t under this file's arithmetic. On chap12 a segment tests
 // some tens of nodes and slots instead of 512 slots.
-
-// The per-thread stack of far children (the tree's depth may not exceed
-// it: accel.BVH_STACK); rrt_tpu's far pad float32(1 + 2 gamma(3)) of the
-// slab test; the ray's pad, times the L1 norm of its origin
-// (accel.RAY_PAD).
-constexpr int kBvhStack = 32;
-constexpr float kFarPad = 1.00000036f;
-constexpr float kRayPad = 0.00390625f;  // 2^-8
 
 // A block's staged BVH (stage_bvh): nodes, two float4 each (lo.xyz and
 // w0, hi.xyz and w1, w0 and w1 int32 bits; accel.py's layout), and the
@@ -1622,24 +1876,13 @@ __device__ __forceinline__ float closest_sphere_bvh(const BvhView& b,
     bvh_test<kMoving>(b, j, r, q, t_min, t_best, win);
   }
   if (b.n_nodes == 0) return t_best;
-  const float pad = kRayPad * (fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz));
-  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
-  const float px = r.ox + pad, py = r.oy + pad, pz = r.oz + pad;
-  const float mx = r.ox - pad, my = r.oy - pad, mz = r.oz - pad;
+  const NodeRay nr = node_ray(r);
   int stack[kBvhStack];
   int sp = 0, node = 0;
   for (;;) {
     const float4 lo = b.nodes[2 * node];
     const float4 hi = b.nodes[2 * node + 1];
-    const float ax = (lo.x - px) * ix, bx = (hi.x - mx) * ix;
-    const float ay = (lo.y - py) * iy, by = (hi.y - my) * iy;
-    const float az = (lo.z - pz) * iz, bz = (hi.z - mz) * iz;
-    const float t_near = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)),
-                               fmaxf(fminf(az, bz), t_min));
-    const float t_far = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)),
-                              fminf(fmaxf(az, bz), t_best)) *
-                        kFarPad;
-    if (t_near <= t_far) {
+    if (node_enter(lo, hi, nr, t_min, t_best)) {
       const int w0 = __float_as_int(lo.w), w1 = __float_as_int(hi.w);
       if (w1 < 0) {  // inner: left child node + 1, right w0, axis -1 - w1
         const int axis = -1 - w1;
@@ -1691,7 +1934,7 @@ struct BvhWalk {
 // segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss;
 // with kSolids its winner_code). kTex: bounce_step's (sv given).
 template <bool kMoving, bool kResidual, bool kSolids = false,
-          bool kTex = false, typename Closest>
+          bool kTex = false, bool kWalk = false, typename Closest>
 __device__ __forceinline__ void trace_pixel(
     const Closest& closest, const float* sph, int n_slots, const float* cam,
     const float* bg, uint32_t s0, uint32_t s1, uint32_t lo, int px, int py,
@@ -1709,7 +1952,7 @@ __device__ __forceinline__ void trace_pixel(
   for (;;) {
     float c[3];
     int win;
-    const int out = bounce_step<kMoving, kSolids, kTex>(
+    const int out = bounce_step<kMoving, kSolids, kTex, kWalk>(
         closest, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, t_min, p,
         c, win, nullptr, sv);
     if (kResidual && n_traced < win_cap) {

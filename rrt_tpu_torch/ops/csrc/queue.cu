@@ -20,7 +20,8 @@
 // intersect takes the rays' times
 // as a (Q,) row beside the (3, Q) origins and directions; and a kSolids
 // one for scenes with quads, boxes or a light (bounce.cuh's, the solid
-// families staged after the BVH); bounce_steps also a kTex one for
+// families staged after the BVH), and a kWalk one for scenes whose quads
+// or boxes have a tree (tile_render's); bounce_steps also a kTex one for
 // scenes with perlin or image textures (intersect does not shade).
 // rrt_tpu_torch/ops/megakernel.py holds the wrappers
 // (bounce_steps, intersect_only) and the plain PyTorch versions
@@ -71,17 +72,15 @@ constexpr int kStO = 0, kStD = 3, kStTime = 6, kStThr = 7, kStPend = 10,
 constexpr int kThreads = 256;
 
 // The solid families as tile_render stages them: after the BVH's rows.
-template <bool kMoving, bool kSolids>
-__device__ __forceinline__ Solids stage_solids_after(
-    float4* smem, int n_nodes, int n_rows, const float* quad, int quad_slots,
-    int n_quads, const float* box, int box_slots, int n_boxes,
-    const float* med, int n_media) {
+template <bool kMoving, bool kSolids, bool kWalk>
+__device__ __forceinline__ Solids stage_solids_after(float4* smem,
+                                                     int n_nodes, int n_rows,
+                                                     const SolidArgs& sa) {
   Solids sv{};
   if constexpr (kSolids) {
-    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
-                      smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
-                                 sizeof(float4),
-                      med, n_media);
+    sv = stage_solids_of<kWalk>(
+        sa, smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
+                       sizeof(float4));
   }
   return sv;
 }
@@ -90,29 +89,26 @@ __device__ __forceinline__ Solids stage_solids_after(
 // solid families as tile_render's. At least 4 blocks an SM, 64
 // registers: with the media code the solid-family variant took 75
 // registers and 3 blocks, and cornell's 512 blocks two waves on 132 SMs
-// (30% slower in turns on an H100).
-template <bool kMoving, bool kSolids, bool kTex>
-__global__ void __launch_bounds__(kThreads, 4)
+// (30% slower in turns on an H100). The kWalk instantiations at
+// kWalkBlocks, as tile_render's.
+template <bool kMoving, bool kSolids, bool kTex, bool kWalk = false>
+__global__ void __launch_bounds__(kThreads, kWalk ? kWalkBlocks : 4)
     bounce_steps_kernel(float* __restrict__ st,
                         const uint32_t* __restrict__ keys, int q,
                         const float* __restrict__ sph, int n_slots,
                         const float* __restrict__ nodes_g,
                         const int* __restrict__ rows_g, int n_nodes,
-                        int n_rows, int n_always,
-                        const float* __restrict__ quad, int quad_slots,
-                        int n_quads, const float* __restrict__ box,
-                        int box_slots, int n_boxes,
-                        const float* __restrict__ med, int n_media,
-                        TexView tex, const float* __restrict__ bg_g,
+                        int n_rows, int n_always, const SolidArgs sa,
+                        TexView tex,
+                        const float* __restrict__ bg_g,
                         int k_steps,
                         int max_depth, float t_min) {
   extern __shared__ float4 smem[];
   __shared__ float bg[8];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
-  Solids sv = stage_solids_after<kMoving, kSolids>(
-      smem, n_nodes, n_rows, quad, quad_slots, n_quads, box, box_slots,
-      n_boxes, med, n_media);
+  Solids sv = stage_solids_after<kMoving, kSolids, kWalk>(smem, n_nodes,
+                                                         n_rows, sa);
   sv.tex = tex;
   if (threadIdx.x < 8) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
@@ -145,7 +141,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     traced += 1.0f;
     float c[3];
     int win;
-    const int out = bounce_step<kMoving, kSolids, kTex>(
+    const int out = bounce_step<kMoving, kSolids, kTex, kWalk>(
         walk, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, t_min, p, c,
         win, nullptr, &sv);
     if (out == kMissed || (kSolids && out == kEmitted)) {
@@ -180,9 +176,11 @@ __global__ void __launch_bounds__(kThreads, 4)
 // STREAM_MEDIUM draws); the BVH and the solid families as tile_render's.
 // The solid-family variant at 5 blocks an SM (51 registers at most), its
 // register count before media: at 64 cornell's rays ran 9-15% slower in
-// turns on an H100.
-template <bool kMoving, bool kSolids>
-__global__ void __launch_bounds__(kThreads, kSolids ? 5 : 1)
+// turns on an H100. The kWalk instantiations at kWalkBlocks, as
+// tile_render's.
+template <bool kMoving, bool kSolids, bool kWalk = false>
+__global__ void __launch_bounds__(kThreads,
+                                  kWalk ? kWalkBlocks : (kSolids ? 5 : 1))
     intersect_kernel(const float* __restrict__ o,
                      const float* __restrict__ d,
                      const float* __restrict__ time,
@@ -191,18 +189,14 @@ __global__ void __launch_bounds__(kThreads, kSolids ? 5 : 1)
                      const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ nodes_g,
                      const int* __restrict__ rows_g, int n_nodes, int n_rows,
-                     int n_always, const float* __restrict__ quad,
-                     int quad_slots, int n_quads,
-                     const float* __restrict__ box, int box_slots,
-                     int n_boxes, const float* __restrict__ med,
-                     int n_media, float t_min, float* __restrict__ t_out,
+                     int n_always, const SolidArgs sa, float t_min,
+                     float* __restrict__ t_out,
                      int* __restrict__ fam_out, int* __restrict__ idx_out) {
   extern __shared__ float4 smem[];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
-  const Solids sv = stage_solids_after<kMoving, kSolids>(
-      smem, n_nodes, n_rows, quad, quad_slots, n_quads, box, box_slots,
-      n_boxes, med, n_media);
+  const Solids sv = stage_solids_after<kMoving, kSolids, kWalk>(
+      smem, n_nodes, n_rows, sa);
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -220,76 +214,57 @@ __global__ void __launch_bounds__(kThreads, kSolids ? 5 : 1)
   float t;
   // A scene without media takes the closest hit without the media's code.
   if (kSolids && sv.n_media > 0) {
-    t = closest_hit<kSolids>(walk, &sv, r, ray_dots(r), t_min, fam, win,
-                             keys[lane], keys[n + lane], bounce[lane]);
+    t = closest_hit<kSolids, BvhWalk<kMoving>, true, kWalk>(
+        walk, &sv, r, ray_dots(r), t_min, fam, win, keys[lane],
+        keys[n + lane], bounce[lane]);
   } else {
-    t = closest_hit<kSolids, BvhWalk<kMoving>, false>(walk, &sv, r,
-                                                      ray_dots(r), t_min,
-                                                      fam, win);
+    t = closest_hit<kSolids, BvhWalk<kMoving>, false, kWalk>(
+        walk, &sv, r, ray_dots(r), t_min, fam, win);
   }
   t_out[lane] = t;
   fam_out[lane] = fam;  // kFamNone (-1) on a miss
   idx_out[lane] = win;  // 0 on a miss
 }
 
-// Opt the kernel into `smem` bytes of dynamic shared memory, the staged
-// BVH (bvh_bytes): past the 48 KB a block gets without the opt-in at
-// MAX_SLOTS (3072) slots.
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
-// The dynamic shared memory of a launch: the staged BVH, then the solid
-// families (kSolids).
-size_t launch_smem(int n_nodes, int n_rows, bool moving,
-                   const SolidArgs* solids) {
-  const size_t smem = bvh_bytes(n_nodes, n_rows, moving);
-  return solids != nullptr
-             ? aligned16(smem) + solid_bytes(solids->n_quads, solids->n_boxes)
-             : smem;
-}
-
-template <bool kMoving, bool kSolids, bool kTex>
-int launch_bounce_steps(size_t smem, cudaStream_t stream, float* st,
-                        const uint32_t* keys, int q, const float* sph,
-                        int n_slots, const float* nodes, const int* rows,
-                        int n_nodes, int n_rows, int n_always,
-                        const float* quad, int quad_slots, int n_quads,
-                        const float* box, int box_slots, int n_boxes,
-                        const float* med, int n_media, TexView tex,
-                        const float* bg, int k_steps, int max_depth,
-                        float t_min) {
-  auto kernel = bounce_steps_kernel<kMoving, kSolids, kTex>;
-  const int err = set_smem(kernel, smem);
+template <bool kMoving, bool kSolids, bool kTex, bool kWalk = false>
+int launch_bounce_steps(cudaStream_t stream, float* st, const uint32_t* keys,
+                        int q, const float* sph, int n_slots,
+                        const float* nodes, const int* rows, int n_nodes,
+                        int n_rows, int n_always, const SolidArgs* solids,
+                        TexView tex, const float* bg, int k_steps,
+                        int max_depth, float t_min) {
+  auto kernel = bounce_steps_kernel<kMoving, kSolids, kTex, kWalk>;
+  size_t smem;
+  const int err = forward_smem(kernel, bvh_bytes(n_nodes, n_rows, kMoving),
+                               solids, smem);
   if (err != 0) return err;
+  const SolidArgs none{};
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, stream>>>(
       st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
-      quad, quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, tex,
-      bg, k_steps, max_depth, t_min);
+      solids != nullptr ? *solids : none, tex, bg, k_steps, max_depth,
+      t_min);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMoving, bool kSolids>
-int launch_intersect(size_t smem, cudaStream_t stream, const float* o,
-                     const float* d, const float* time, const uint32_t* keys,
+template <bool kMoving, bool kSolids, bool kWalk = false>
+int launch_intersect(cudaStream_t stream, const float* o, const float* d,
+                     const float* time, const uint32_t* keys,
                      const int* bounce, int q, const float* sph, int n_slots,
                      const float* nodes, const int* rows, int n_nodes,
-                     int n_rows, int n_always, const float* quad,
-                     int quad_slots, int n_quads, const float* box,
-                     int box_slots, int n_boxes, const float* med,
-                     int n_media, float t_min, float* t, int* fam, int* idx) {
-  auto kernel = intersect_kernel<kMoving, kSolids>;
-  const int err = set_smem(kernel, smem);
+                     int n_rows, int n_always, const SolidArgs* solids,
+                     float t_min, float* t, int* fam, int* idx) {
+  auto kernel = intersect_kernel<kMoving, kSolids, kWalk>;
+  size_t smem;
+  const int err = forward_smem(kernel, bvh_bytes(n_nodes, n_rows, kMoving),
+                               solids, smem);
   if (err != 0) return err;
+  const SolidArgs none{};
   const int grid = (q + kThreads - 1) / kThreads;
   kernel<<<grid, kThreads, smem, stream>>>(
       o, d, time, keys, bounce, q, sph, n_slots, nodes, rows, n_nodes,
-      n_rows, n_always, quad, quad_slots, n_quads, box, box_slots, n_boxes,
-      med, n_media, t_min, t, fam, idx);
+      n_rows, n_always, solids != nullptr ? *solids : none, t_min, t, fam,
+      idx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,8 +273,8 @@ int launch_intersect(size_t smem, cudaStream_t stream, const float* o,
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // st: (16, q) f32, updated in place; keys: (2, q) u32; sph: (24, n_slots)
 // f32; the BVH, the solid families (solids, or null) and the textures
-// (tex, or null) as rrt_tile_render's; bg: (8,) f32; all on the device; moving: nonzero for
-// the moving-sphere variant.
+// (tex, or null) as rrt_tile_render's; bg: (8,) f32; all on the device;
+// moving: nonzero for the moving-sphere variant.
 extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 const float* sph, int n_slots,
                                 const float* nodes, const int* rows,
@@ -308,15 +283,14 @@ extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 const float* bg, int k_steps, int max_depth,
                                 float t_min, int moving, void* stream) {
   if (q == 0) return 0;
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
-  const SolidArgs& sa = solids != nullptr ? *solids : none;
-  auto go = RRT_PICK3(launch_bounce_steps, moving != 0, solids != nullptr,
-                      tex != nullptr);
-  return go(launch_smem(n_nodes, n_rows, moving != 0, solids),
-            static_cast<cudaStream_t>(stream), st, keys, q, sph, n_slots,
-            nodes, rows, n_nodes, n_rows, n_always, sa.quad, sa.quad_slots,
-            sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media,
-            tex_view(tex), bg, k_steps, max_depth, t_min);
+  auto go = has_tree(solids)
+                 ? RRT_PICK_WALK(launch_bounce_steps, moving != 0,
+                                 tex != nullptr)
+                 : RRT_PICK3(launch_bounce_steps, moving != 0,
+                             solids != nullptr, tex != nullptr);
+  return go(static_cast<cudaStream_t>(stream), st, keys, q, sph, n_slots,
+            nodes, rows, n_nodes, n_rows, n_always, solids, tex_view(tex), bg,
+            k_steps, max_depth, t_min);
 }
 
 // o, d: (3, q) f32; time: (q,) f32 when moving (else unused, may be
@@ -333,15 +307,38 @@ extern "C" int rrt_intersect(const float* o, const float* d,
                              int moving, float* t, int* fam, int* idx,
                              void* stream) {
   if (q == 0) return 0;
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
-  const SolidArgs& sa = solids != nullptr ? *solids : none;
-  auto go = moving ? (solids ? launch_intersect<true, true>
-                             : launch_intersect<true, false>)
-                   : (solids ? launch_intersect<false, true>
-                             : launch_intersect<false, false>);
-  return go(launch_smem(n_nodes, n_rows, moving != 0, solids),
-            static_cast<cudaStream_t>(stream), o, d, time, keys, bounce, q,
-            sph, n_slots, nodes, rows, n_nodes, n_rows, n_always, sa.quad,
-            sa.quad_slots, sa.n_quads, sa.box, sa.box_slots, sa.n_boxes,
-            sa.med, sa.n_media, t_min, t, fam, idx);
+  auto go = has_tree(solids)
+                 ? (moving ? launch_intersect<true, true, true>
+                           : launch_intersect<false, true, true>)
+                 : moving ? (solids ? launch_intersect<true, true>
+                                    : launch_intersect<true, false>)
+                          : (solids ? launch_intersect<false, true>
+                                    : launch_intersect<false, false>);
+  return go(static_cast<cudaStream_t>(stream), o, d, time, keys, bounce, q,
+            sph, n_slots, nodes, rows, n_nodes, n_rows, n_always, solids,
+            t_min, t, fam, idx);
+}
+
+// The blocks an SM of the instantiation rrt_bounce_steps (kernel 0) or
+// rrt_intersect (kernel 1, which has no texture variant) would launch, as
+// rrt_tile_render_blocks reports tile_render's.
+extern "C" int rrt_queue_blocks(int kernel, int n_nodes, int n_rows,
+                                int moving, const SolidArgs* solids, int tex,
+                                int* blocks, long long* smem) {
+  const size_t base = bvh_bytes(n_nodes, n_rows, moving != 0);
+  if (kernel == 0) {
+    auto k = has_tree(solids)
+                 ? RRT_PICK_WALK(bounce_steps_kernel, moving != 0, tex != 0)
+                 : RRT_PICK3(bounce_steps_kernel, moving != 0,
+                             solids != nullptr, tex != 0);
+    return forward_blocks(k, kThreads, base, solids, blocks, smem);
+  }
+  auto k = has_tree(solids)
+               ? (moving ? intersect_kernel<true, true, true>
+                         : intersect_kernel<false, true, true>)
+               : moving ? (solids ? intersect_kernel<true, true>
+                                  : intersect_kernel<true, false>)
+                        : (solids ? intersect_kernel<false, true>
+                                  : intersect_kernel<false, false>);
+  return forward_blocks(k, kThreads, base, solids, blocks, smem);
 }

@@ -16,7 +16,11 @@
 // the media against the closest solid's t, their rows read from the
 // medium pack in device memory (cornell_smoke: six quads, two media);
 // a scene with perlin or image textures the kTex one (simple_light:
-// kSolids and kTex; earth: kTex alone), which shades them (bounce.cuh).
+// kSolids and kTex; earth: kTex alone), which shades them (bounce.cuh);
+// a scene whose quads or boxes have a tree (SolidArgs' trees, past
+// kSolidCap of a family) the kWalk one, which walks it (rttnw_final:
+// kMoving, kSolids, kTex and kWalk; its 400 ground boxes' tree and rows
+// staged after the spheres' BVH, 80 KB, so 2 blocks an SM).
 // rrt_tpu_torch/ops/megakernel.py holds the wrapper (render_tiles), the
 // packs' layouts and the plain PyTorch version (render_tiles_reference).
 //
@@ -42,7 +46,9 @@
 //    large to box usefully (chap12's ground sphere); rrt_tpu's kernel
 //    culled whole tiles of slots by their boxes instead, the TPU's
 //    answer to the reference's BVH walk;
-//  * __launch_bounds__(256, 4): 64 registers, 4 blocks an SM;
+//  * __launch_bounds__(256, 4): 64 registers, 4 blocks an SM; the kWalk
+//    instantiations (256, kWalkBlocks): their staged trees leave room
+//    for 2 blocks on rttnw_final, and a cap of 64 registers only spilled;
 //  * sample s uses the key threefry2x32(s0, s1, gid, lo + s), the camera
 //    draws counter 0 and the scatter draws counter bounce*8+1, word pair
 //    p at pair*0x9E3779B9+pair: the same addressing as rrt_tpu.rng, so a
@@ -67,18 +73,14 @@
 
 namespace {
 
-template <bool kMoving, bool kSolids, bool kTex>
-__global__ void __launch_bounds__(256, 4)
+template <bool kMoving, bool kSolids, bool kTex, bool kWalk = false>
+__global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : 4)
     tile_render_kernel(const float* __restrict__ sph, int n_slots,
                        const float* __restrict__ cam_g,
                        const float* __restrict__ bg_g,
                        const float* __restrict__ nodes_g,
                        const int* __restrict__ rows_g, int n_nodes,
-                       int n_rows, int n_always,
-                       const float* __restrict__ quad, int quad_slots,
-                       int n_quads, const float* __restrict__ box,
-                       int box_slots, int n_boxes,
-                       const float* __restrict__ med, int n_media,
+                       int n_rows, int n_always, const SolidArgs sa,
                        TexView tex, uint32_t s0, uint32_t s1,
                        uint32_t lo, int width, int height, int spp,
                        int max_depth, float t_min, float* __restrict__ rad,
@@ -90,10 +92,9 @@ __global__ void __launch_bounds__(256, 4)
       sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
   Solids sv{};
   if constexpr (kSolids) {
-    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
-                      smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
-                                 sizeof(float4),
-                      med, n_media);
+    sv = stage_solids_of<kWalk>(
+        sa, smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
+                       sizeof(float4));
   }
   sv.tex = tex;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -104,31 +105,32 @@ __global__ void __launch_bounds__(256, 4)
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  trace_pixel<kMoving, false, kSolids, kTex>(
+  trace_pixel<kMoving, false, kSolids, kTex, kWalk>(
       walk, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
       spp, max_depth, t_min, 0, rad, traced, nullptr, nullptr, &sv);
 }
 
-template <bool kMoving, bool kSolids, bool kTex>
-int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
-           const float* sph, int n_slots, const float* cam, const float* bg,
+constexpr int kThreads = 256;  // a 16x16 block
+
+template <bool kMoving, bool kSolids, bool kTex, bool kWalk = false>
+int launch(dim3 grid, dim3 block, cudaStream_t stream, const float* sph,
+           int n_slots, const float* cam, const float* bg,
            const float* nodes, const int* rows, int n_nodes, int n_rows,
-           int n_always, const float* quad, int quad_slots, int n_quads,
-           const float* box, int box_slots, int n_boxes, const float* med,
-           int n_media, TexView tex, uint32_t s0, uint32_t s1, uint32_t lo, int width,
-           int height, int spp, int max_depth, float t_min, float* rad,
-           int* traced) {
+           int n_always, const SolidArgs* solids, TexView tex, uint32_t s0,
+           uint32_t s1, uint32_t lo, int width, int height, int spp,
+           int max_depth, float t_min, float* rad, int* traced) {
   // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
   // what the card allows.
-  auto kernel = tile_render_kernel<kMoving, kSolids, kTex>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = tile_render_kernel<kMoving, kSolids, kTex, kWalk>;
+  size_t smem;
+  const int err = forward_smem(kernel, bvh_bytes(n_nodes, n_rows, kMoving),
+                               solids, smem);
+  if (err != 0) return err;
+  const SolidArgs none{};
   kernel<<<grid, block, smem, stream>>>(
-      sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always, quad,
-      quad_slots, n_quads, box, box_slots, n_boxes, med, n_media, tex, s0, s1,
-      lo, width, height, spp, max_depth, t_min, rad, traced);
+      sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always,
+      solids != nullptr ? *solids : none, tex, s0, s1, lo, width,
+      height, spp, max_depth, t_min, rad, traced);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -139,11 +141,9 @@ int launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
 // (accel.BvhPack): nodes (n_nodes, 8) f32, rows (n_rows,) i32 of which
 // the first n_always are tested by every segment, all on the device;
 // moving: nonzero for the moving-sphere variant; solids: the quad and box
-// packs (at most kSolidCap active slots each) and the medium pack (any
-// number of media) for the solid-family variant, or null; tex: the atlas
-// for the texture variant, or null; rad:
-// (width*height, 3) f32 and traced:
-// (width*height,) i32 outputs.
+// packs, their trees and the medium pack for the solid-family variant, or
+// null; tex: the atlas for the texture variant, or null; rad:
+// (width*height, 3) f32 and traced: (width*height,) i32 outputs.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const float* cam, const float* bg,
                                const float* nodes, const int* rows,
@@ -157,17 +157,30 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
-  const SolidArgs& sa = solids != nullptr ? *solids : none;
-  size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
-  if (solids) smem = aligned16(smem) + solid_bytes(sa.n_quads, sa.n_boxes);
   const auto st = static_cast<cudaStream_t>(stream);
-  auto go = RRT_PICK3(launch, moving != 0, solids != nullptr, tex != nullptr);
-  return go(grid, block, smem, st, sph, n_slots, cam, bg, nodes, rows,
-            n_nodes, n_rows, n_always, sa.quad, sa.quad_slots, sa.n_quads,
-            sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media,
-            tex_view(tex), s0, s1, lo,
-            width, height, spp, max_depth, t_min, rad, traced);
+  auto go = has_tree(solids)
+                 ? RRT_PICK_WALK(launch, moving != 0, tex != nullptr)
+                 : RRT_PICK3(launch, moving != 0, solids != nullptr,
+                             tex != nullptr);
+  return go(grid, block, st, sph, n_slots, cam, bg, nodes, rows, n_nodes,
+            n_rows, n_always, solids, tex_view(tex), s0, s1, lo, width,
+            height, spp, max_depth, t_min, rad, traced);
+}
+
+// The blocks an SM of the instantiation rrt_tile_render would launch for
+// a BVH of n_nodes nodes and n_rows rows, `solids` (or null) and a
+// texture variant (tex nonzero), at the shared memory it would take:
+// blocks and the bytes. Returns a cudaError_t.
+extern "C" int rrt_tile_render_blocks(int n_nodes, int n_rows, int moving,
+                                      const SolidArgs* solids, int tex,
+                                      int* blocks, long long* smem) {
+  auto kernel = has_tree(solids)
+                    ? RRT_PICK_WALK(tile_render_kernel, moving != 0, tex != 0)
+                    : RRT_PICK3(tile_render_kernel, moving != 0,
+                                solids != nullptr, tex != 0);
+  return forward_blocks(kernel, kThreads,
+                        bvh_bytes(n_nodes, n_rows, moving != 0), solids,
+                        blocks, smem);
 }
 
 extern "C" const char* rrt_error_string(int err) {

@@ -60,11 +60,17 @@ the TPU kernel, the GPU kernel has no tile width to pad to. A scene with
 quads, boxes, constant media or a diffuse_light hands the kernels its
 quad, box and medium packs and their active slot counts (`SolidPacks`,
 `pack_solids`), and they run their solid-family variant: the quads, then
-the boxes, as loops over the active slots (at most SOLID_CAP of each),
-seeding the spheres' BVH walk; then every active medium, read from its
-pack in device memory (no cap), against the closest solid's t, each with
-its own STREAM_MEDIUM draw (a scene of media alone runs it with no quad
-or box).
+the boxes, seeding the spheres' BVH walk; then every active medium, read
+from its pack in device memory (no cap), against the closest solid's t,
+each with its own STREAM_MEDIUM draw (a scene of media alone runs it
+with no quad or box). The forward kernels walk a family of more than
+SOLID_CAP active slots over its tree (`pack_solids`' accel.SolidBvh,
+built on the host once a render; the loop's (t, slot) bit for bit),
+staged in shared memory after the rows (a scene whose rows and trees
+exceed what a block may opt into raises before any launch), and loop
+over a smaller one; the train kernels and chain_bwd loop over at most
+SOLID_CAP of each (rttnw_final's 400 ground boxes take the forward
+kernels alone).
 
 A scene with perlin or image textures hands the kernels its TexPack,
 and they run their texture variant (csrc/bounce.cuh kTex): the marble's
@@ -94,11 +100,17 @@ from ..scene import (MAT_DIELECTRIC, MAT_ISOTROPIC, SceneArrays,
 # Shared memory holds the intersection rows (0-3) of every slot, 16
 # bytes a slot, inside the 48 KB a block gets without opting in.
 MAX_SLOTS = 3072
-# Active quads and boxes a kernel stages (each; csrc/bounce.cuh
-# kSolidCap). rttnw_final's 400 ground boxes need more (ROADMAP Queue A
-# #9.5, its rest).
-SOLID_CAP = 64
+# Active quads and boxes the kernels loop over (each; csrc/bounce.cuh
+# kSolidCap), which the train kernels' and chain_bwd's int16 winner codes
+# hold. The forward kernels walk trees past it; rttnw_final's 400 ground
+# boxes in the backwards are ROADMAP Queue A #9.5's backward part.
+SOLID_CAP = accel.SOLID_CAP
 SOLID_CAP_ITEM = "#9.5"
+SOLID_CAP_WHAT = (f"more than {SOLID_CAP} quads or boxes (their walk in the "
+                  f"backwards, #9.5's backward part)")
+# Where a forward kernel's staged spheres, solid rows and solid trees
+# past a block's shared memory are recorded.
+FORWARD_SMEM_ITEM = 'Queue C, "A cap rrt_tpu does not have"'
 # A winner as one int16 (train_fwd's residual, the backwards' records):
 # a sphere's slot, QUAD_CODE + a quad's, BOX_CODE + a box's, MEDIUM_CODE
 # + a medium's; -1 a miss (csrc/bounce.cuh kQuadCode, kBoxCode,
@@ -163,11 +175,18 @@ def scope_gap(scene: SceneArrays, rr_depth: int = 0, eager: bool = False):
     outside = (
         (scene.has_images_on_media and not eager, *IMAGES_ON_MEDIA),
         (rr_depth > 0, "Russian roulette (rr_depth > 0)", "#9.6"),
-        (max(scene.n_quads_active, scene.n_boxes_active) > SOLID_CAP,
-         f"more than {SOLID_CAP} quads or boxes", SOLID_CAP_ITEM),
     )
     return next(((what, item) for flag, what, item in outside if flag),
                 None)
+
+
+def solid_cap_gap(scene: SceneArrays):
+    """(what, "#9.5") for a scene with more than SOLID_CAP active quads or
+    boxes, which the train kernels and chain_bwd do not take (the
+    forward kernels walk them); else None."""
+    if max(scene.n_quads_active, scene.n_boxes_active) > SOLID_CAP:
+        return SOLID_CAP_WHAT, SOLID_CAP_ITEM
+    return None
 
 
 def check_scope(scene: SceneArrays, rr_depth: int = 0, eager: bool = False):
@@ -186,7 +205,9 @@ class SolidPacks:
     of a scene with quads, boxes, media or a diffuse_light, and their
     active slot counts: the kernels test slots [0, n_quads), [0, n_boxes)
     and [0, n_media) (the builder puts a family's valid slots first).
-    med24 is None for a scene without media."""
+    med24 is None for a scene without media; tree the families'
+    accel.SolidBvh, which the forward kernels walk past SOLID_CAP active
+    slots of a family (required on a card there)."""
 
     quad24: torch.Tensor  # (24, Q)
     box24: torch.Tensor  # (24, B)
@@ -194,11 +215,13 @@ class SolidPacks:
     n_boxes: int
     n_media: int = 0
     med24: torch.Tensor | None = None  # (D, 24)
+    tree: accel.SolidBvh | None = None
 
     def to(self, device) -> "SolidPacks":
         return dataclasses.replace(
             self, quad24=self.quad24.to(device), box24=self.box24.to(device),
-            med24=None if self.med24 is None else self.med24.to(device))
+            med24=None if self.med24 is None else self.med24.to(device),
+            tree=None if self.tree is None else self.tree.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,15 +264,20 @@ def pack_textures(scene: SceneArrays, device=None):
 
 def pack_solids(scene: SceneArrays, device=None):
     """The scene's SolidPacks (on `device`, when given), differentiable
-    functions of its tensors; None for a scene of spheres alone without a
-    light or a medium, which the kernels' sphere variants render."""
+    functions of its tensors, with the families' accel.SolidBvh (built on
+    the host from the packs, empty for families the kernels loop over;
+    render builds it once a render); None for a scene of spheres alone
+    without a light or a medium, which the kernels' sphere variants
+    render."""
     if not (scene.has_quads or scene.has_boxes or scene.has_emissive
             or scene.has_media):
         return None
-    packs = SolidPacks(pack_quads_full(scene), pack_boxes_full(scene),
-                       scene.n_quads_active, scene.n_boxes_active,
-                       scene.n_media_active,
-                       pack_media(scene) if scene.has_media else None)
+    quad24, box24 = pack_quads_full(scene), pack_boxes_full(scene)
+    packs = SolidPacks(
+        quad24, box24, scene.n_quads_active, scene.n_boxes_active,
+        scene.n_media_active, pack_media(scene) if scene.has_media else None,
+        accel.pack_solid_bvh(quad24, box24, scene.n_quads_active,
+                             scene.n_boxes_active))
     return packs if device is None else packs.to(device)
 
 
@@ -414,13 +442,15 @@ def _check_bvh(bvh, sph24, what: str):
             bvh.n_rows, bvh.n_always)
 
 
-def _check_solids(solids, device):
+def _check_solids(solids, device, walk: bool = False):
     """The C argument of the solid families (a pointer to an
     _build.SolidArgs), checked: the quad and box packs float32 (24, n),
-    contiguous, on `device`, their active counts within their widths and
-    SOLID_CAP; the medium pack, with n_media > 0, float32 (D, 24),
-    contiguous, on `device`, D >= n_media; None (a null pointer: the
-    sphere variants) for None."""
+    contiguous, on `device`, their active counts within their widths; the
+    medium pack, with n_media > 0, float32 (D, 24), contiguous, on
+    `device`, D >= n_media; None (a null pointer: the sphere variants)
+    for None. walk: a forward kernel's, with the families' trees
+    (_check_tree); otherwise the train kernels' and chain_bwd's, which
+    raise NotImplementedError past SOLID_CAP active slots of a family."""
     if solids is None:
         return None
     for name, t, n in (("quad24", solids.quad24, solids.n_quads),
@@ -432,10 +462,11 @@ def _check_solids(solids, device):
                              f"tensor on {device}")
         if not 0 <= n <= t.shape[1]:
             raise ValueError(f"{n} active slots of {name}'s {t.shape[1]}")
-        if n > SOLID_CAP:
+        if n > SOLID_CAP and not walk:
             raise NotImplementedError(
-                f"{n} active slots of {name}: the kernels stage at most "
-                f"{SOLID_CAP} quads and {SOLID_CAP} boxes (ROADMAP Queue A "
+                f"{n} active slots of {name}: the train kernels and "
+                f"chain_bwd loop over at most {SOLID_CAP} quads and "
+                f"{SOLID_CAP} boxes ({SOLID_CAP_WHAT}: ROADMAP Queue A "
                 f"{SOLID_CAP_ITEM})")
     med = solids.med24
     if solids.n_media:
@@ -446,10 +477,105 @@ def _check_solids(solids, device):
             raise ValueError(f"med24 must be a contiguous (D, 24) float32 "
                              f"tensor on {device} with D >= n_media "
                              f"({solids.n_media})")
-    return ctypes.byref(_build.SolidArgs(
+    args = _build.SolidArgs(
         solids.quad24.data_ptr(), solids.quad24.shape[1], solids.n_quads,
         solids.box24.data_ptr(), solids.box24.shape[1], solids.n_boxes,
-        med.data_ptr() if solids.n_media else None, solids.n_media))
+        med.data_ptr() if solids.n_media else None, solids.n_media)
+    if walk and device.type == "cuda":
+        _check_tree(solids, device, args)
+    return ctypes.byref(args)
+
+
+def _check_tree(solids, device, args):
+    """Fill the trees' fields of the SolidArgs `args` from solids.tree
+    (accel.SolidBvh of these packs' active slots, on `device`); without a
+    tree the kernels loop, which they do up to SOLID_CAP slots of a
+    family."""
+    tree = solids.tree
+    if tree is None:
+        if max(solids.n_quads, solids.n_boxes) > SOLID_CAP:
+            raise ValueError(
+                f"{max(solids.n_quads, solids.n_boxes)} active quads or "
+                f"boxes on {device} need the families' trees (pack_solids)")
+        return
+    if (tree.quad.n_slots, tree.box.n_slots) != (solids.n_quads,
+                                                 solids.n_boxes):
+        raise ValueError(f"the solid trees are of {tree.quad.n_slots} quads "
+                         f"and {tree.box.n_slots} boxes, the packs' active "
+                         f"{solids.n_quads} and {solids.n_boxes}")
+    tensors = (tree.quad.nodes, tree.quad.rows, tree.box.nodes,
+               tree.box.rows)
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"the solid trees must be on {device}")
+    for f, fam in (("quad", tree.quad), ("box", tree.box)):
+        if fam.depth > accel.BVH_STACK:
+            raise ValueError(f"the {f} tree is {fam.depth} levels deep, past "
+                             f"the kernels' stack of {accel.BVH_STACK}")
+        setattr(args, f"{f}_nodes", fam.nodes.data_ptr())
+        setattr(args, f"{f}_rows", fam.rows.data_ptr())
+        setattr(args, f"{f}_n_nodes", fam.n_nodes)
+        setattr(args, f"{f}_n_rows", fam.n_rows)
+        setattr(args, f"{f}_n_always", fam.n_always)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def forward_smem_bytes(bvh, solids, moving: bool) -> int:
+    """A forward kernel's dynamic shared memory (csrc/bounce.cuh
+    forward_smem): the spheres' BVH (accel.BvhPack.smem_bytes), then with
+    solids their rows (three float4 and an int a quad, two float4 a box:
+    solid_bytes) and their trees (accel.SolidBvh.smem_bytes)."""
+    smem = bvh.smem_bytes(moving)
+    if solids is None:
+        return smem
+    rows = 16 * (3 * solids.n_quads + 2 * solids.n_boxes) + 4 * solids.n_quads
+    trees = 0 if solids.tree is None else solids.tree.smem_bytes()
+    return _align16(smem) + _align16(rows) + trees
+
+
+def _check_forward_smem(bvh, solids, moving: bool, what: str):
+    """Raise NotImplementedError, before a launch, when what a forward
+    kernel stages (forward_smem_bytes) exceeds the shared memory a block
+    may opt into (accel.BVH_SMEM)."""
+    need = forward_smem_bytes(bvh, solids, moving)
+    if need > accel.BVH_SMEM:
+        raise NotImplementedError(
+            f"{what} stages {need} bytes of spheres, solid rows and solid "
+            f"trees, past the {accel.BVH_SMEM} a block may opt into "
+            f"({solids.n_quads} quads, {solids.n_boxes} boxes: ROADMAP "
+            f"{FORWARD_SMEM_ITEM})")
+
+
+# The kernels forward_blocks reports, as the C entry points number them.
+_BLOCKS_KERNELS = ("tile_render", "bounce_steps", "intersect_only")
+
+
+def forward_blocks(kernel: str, sph24, bvh, *, moving: bool, solids=None,
+                   tex=None):
+    """The blocks an SM of the instantiation a forward kernel ("tile_render",
+    "bounce_steps" or "intersect_only") launches for these packs on their
+    CUDA device, at the dynamic shared memory the launch takes (the C
+    entry points' forward_smem): {"blocks", "smem_bytes"}."""
+    device = sph24.device
+    _, _, n_nodes, n_rows, _ = _check_bvh(bvh, sph24, kernel)
+    solid_arg = _check_solids(solids, device, walk=True)
+    _check_forward_smem(bvh, solids, moving, kernel)
+    lib = _build.load()
+    blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    out = (ctypes.byref(blocks), ctypes.byref(smem))
+    with torch.cuda.device(device):
+        if kernel == "tile_render":
+            err = lib.rrt_tile_render_blocks(n_nodes, n_rows, int(moving),
+                                             solid_arg, int(tex is not None),
+                                             *out)
+        else:
+            err = lib.rrt_queue_blocks(
+                _BLOCKS_KERNELS.index(kernel) - 1, n_nodes, n_rows,
+                int(moving), solid_arg, int(tex is not None), *out)
+    _launch_error(lib, err, f"{kernel}'s occupancy query")
+    return {"blocks": blocks.value, "smem_bytes": smem.value}
 
 
 def _check_tex(tex, device, d_atlas=None):
@@ -499,7 +625,7 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
               moving=moving, solids=solids, tex=tex)
     device = sph24.device
-    solid_arg = _check_solids(solids, device)
+    solid_arg = _check_solids(solids, device, walk=True)
     tex_arg = _check_tex(tex, device)
     if device.type == "cpu":
         return render_tiles_reference(sph24, cam24, bg8, **kw)
@@ -510,6 +636,7 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         raise ValueError(f"{n_slots} sphere slots exceed the kernel's "
                          f"{MAX_SLOTS}")
     tree = _check_bvh(bvh, sph24, "render_tiles")
+    _check_forward_smem(bvh, solids, moving, "render_tiles")
     lib = _build.load()
     n_pix = width * height
     rad = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
@@ -807,11 +934,12 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
         raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth}")
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
               moving=moving, solids=solids, tex=tex)
-    solid_arg = _check_solids(solids, device)
+    solid_arg = _check_solids(solids, device, walk=True)
     tex_arg = _check_tex(tex, device)
     if device.type == "cpu":
         return bounce_steps_reference(state, keys, sph24, bg8, **kw)
     tree = _check_bvh(bvh, sph24, "bounce_steps")
+    _check_forward_smem(bvh, solids, moving, "bounce_steps")
     lib = _build.load()
     with torch.cuda.device(device):
         err = lib.rrt_bounce_steps(
@@ -896,7 +1024,7 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None,
                    or time.device != device):
         raise ValueError(f"time must be a contiguous ({q},) float32 tensor "
                          f"on {device}")
-    solid_arg = _check_solids(solids, device)
+    solid_arg = _check_solids(solids, device, walk=True)
     media = solids is not None and solids.n_media > 0
     if media:
         _check_lanes("keys", keys, 2, torch.int32, device)
@@ -910,6 +1038,7 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None,
                                         solids=solids, keys=keys,
                                         bounce=bounce)
     tree = _check_bvh(bvh, sph24, "intersect_only")
+    _check_forward_smem(bvh, solids, moving, "intersect_only")
     t = torch.empty((q,), dtype=torch.float32, device=device)
     fam = torch.empty((q,), dtype=torch.int32, device=device)
     idx = torch.empty((q,), dtype=torch.int32, device=device)

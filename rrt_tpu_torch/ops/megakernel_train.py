@@ -69,10 +69,12 @@ MAX_TRAIN_MEDIA = 8
 def train_scope_gap(scene, rr_depth: int = 0):
     """The train kernels' scope (rrt_tpu's supports_train): None when
     they cover the scene and option, otherwise (what is outside, its
-    ROADMAP item: mk.roadmap_ref), with rrt_tpu's reasons: the forward kernels'
-    (mk.scope_gap: an image texture on a medium first), then more than
-    MAX_TRAIN_MEDIA media."""
-    gap = mk.scope_gap(scene, rr_depth)
+    ROADMAP item: mk.roadmap_ref), with rrt_tpu's reasons: the forward
+    kernels' (mk.scope_gap: an image texture on a medium first), then
+    more than mk.SOLID_CAP quads or boxes, which these kernels loop over
+    and their winner codes hold (mk.solid_cap_gap: #9.5's backward
+    part), then more than MAX_TRAIN_MEDIA media."""
+    gap = mk.scope_gap(scene, rr_depth) or mk.solid_cap_gap(scene)
     if gap is None and scene.n_media_active > MAX_TRAIN_MEDIA:
         return (f"{scene.n_media_active} constant media, past the train "
                 f"kernels' {MAX_TRAIN_MEDIA}-slot gradient scope", "#9.4")

@@ -426,10 +426,12 @@ CHAIN_MEDIA = ("constant media (rrt_tpu's chain leaves them out too; "
 def backward_scope_gap(scene, rr_depth: int = 0):
     """chain_bwd's scope (rrt_tpu's supports_backward): None when it
     covers the scene and option, otherwise (what is outside, the ROADMAP
-    Queue A item). The forward kernels' (mk.scope_gap) but the constant
-    media, which it leaves out by decision (#9.4; the train kernels take
-    them: megakernel_train.train_scope_gap)."""
-    gap = mk.scope_gap(scene, rr_depth)
+    Queue A item). The forward kernels' (mk.scope_gap) but more than
+    mk.SOLID_CAP quads or boxes (mk.solid_cap_gap: #9.5's backward part,
+    as the train kernels') and the constant media, which it leaves out by
+    decision (#9.4; the train kernels take them:
+    megakernel_train.train_scope_gap)."""
+    gap = mk.scope_gap(scene, rr_depth) or mk.solid_cap_gap(scene)
     if gap is None and scene.has_media:
         return CHAIN_MEDIA, "#9.4"
     return gap

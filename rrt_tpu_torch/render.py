@@ -21,10 +21,13 @@ ops/megakernel.bounce_steps, backward the chain_bwd kernel) with
 differentiable lane compaction between them. The train kernels take
 every scene the forward kernels take (spheres, quads, boxes, lights,
 perlin and image textures, up to MAX_TRAIN_MEDIA constant media); the
-chain takes them but the media, which rrt_tpu's chain leaves out too. A
-scene outside a route's scope (Russian roulette; an image texture on a
-medium, whose eager route is the CPU's; more media, or any on the chain)
-raises there on a CUDA device, naming its ROADMAP entry.
+chain takes them but the media, which rrt_tpu's chain leaves out too;
+both loop over at most ops.megakernel.SOLID_CAP quads and boxes, which
+the forward kernels walk past (rttnw_final's 400 ground boxes). A scene
+outside a route's scope (Russian roulette; an image texture on a medium,
+whose eager route is the CPU's; more media, or any on the chain; more
+quads or boxes) raises there on a CUDA device, naming its ROADMAP
+entry.
 `trace_batch`'s checkpointed scan is a CPU route only.
 `_bounce` is one bounce of the plain physics (intersect, shade,
 scatter), shared by the plain versions, the batch driver and the tests.
@@ -364,8 +367,9 @@ def pack_scene(scene: SceneArrays, device, shutter=None):
     sphere pack, its accel.BvhPack, whose boxes cover the moving spheres
     over `shutter` (time0, time1), the interval of the rays' times
     (required when the scene moves), and the quad and box families'
-    ops.megakernel.SolidPacks, the media's among them (None for a scene
-    of spheres alone without a light or a medium), and its
+    ops.megakernel.SolidPacks with their trees (accel.SolidBvh), the
+    media's among them (None for a scene of spheres alone without a light
+    or a medium), and its
     ops.megakernel.TexPack ("tex", None without perlin or image
     textures). Built once a render
     and passed to every bounce's intersect_only; a pack of changed

@@ -369,10 +369,34 @@ class SceneBuilder:
 
     # -- freeze -----------------------------------------------------------
 
-    def build(self) -> SceneArrays:
-        """Freeze to SceneArrays on the CPU. (rrt_tpu's
-        build(spatial_sort=True) comes with its only user, the RTTNW
-        final scene: ROADMAP Queue A #9.5.)"""
+    @staticmethod
+    def _morton_perm(centers: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """rrt_tpu.scene.SceneBuilder._morton_perm: the permutation that
+        puts the valid slots in Morton (Z-curve) order of their centers,
+        each axis quantized to 10 bits over the valid centers' range, the
+        invalid slots last (a stable sort, so equal codes keep their
+        order)."""
+        n = centers.shape[0]
+        if valid.sum() <= 1:
+            return np.arange(n)
+        c = centers[valid]
+        lo, hi = c.min(0), c.max(0)
+        q = np.clip((c - lo) / np.maximum(hi - lo, 1e-20) * 1023.0,
+                    0.0, 1023.0).astype(np.uint64)
+        code = np.zeros(len(c), np.uint64)
+        for b in range(10):
+            for a in range(3):
+                code |= ((q[:, a] >> np.uint64(b)) & np.uint64(1)) \
+                    << np.uint64(3 * b + a)
+        return np.concatenate([
+            np.flatnonzero(valid)[np.argsort(code, kind="stable")],
+            np.flatnonzero(~valid)])
+
+    def build(self, spatial_sort: bool = False) -> SceneArrays:
+        """Freeze to SceneArrays on the CPU. spatial_sort: the sphere,
+        quad and box families' slots in Morton order of their centers
+        (_morton_perm), as rrt_tpu's build(spatial_sort=True) lays out
+        the RTTNW final scene; the valid slots stay first."""
         f32, i32 = np.float32, np.int32
 
         ns = _pad_to(len(self._spheres))
@@ -414,6 +438,23 @@ class SceneBuilder:
             box_cos[i], box_sin[i] = cth, sth
             box_mat[i] = m
             box_valid[i] = True
+
+        if spatial_sort:
+            ps = self._morton_perm(sphere_c0 + 0.5 * sphere_dc,
+                                   sphere_valid)
+            sphere_c0, sphere_dc = sphere_c0[ps], sphere_dc[ps]
+            sphere_t0, sphere_inv_dt = sphere_t0[ps], sphere_inv_dt[ps]
+            sphere_radius, sphere_mat = sphere_radius[ps], sphere_mat[ps]
+            sphere_valid = sphere_valid[ps]
+            pq = self._morton_perm(quad_q + 0.5 * (quad_u + quad_v),
+                                   quad_valid)
+            quad_q, quad_u, quad_v = quad_q[pq], quad_u[pq], quad_v[pq]
+            quad_mat, quad_valid = quad_mat[pq], quad_valid[pq]
+            pb = self._morton_perm(box_center, box_valid)
+            box_center, box_half = box_center[pb], box_half[pb]
+            box_cos, box_sin = box_cos[pb], box_sin[pb]
+            box_mat, box_valid = box_mat[pb], box_valid[pb]
+
         nd = _pad_to(len(self._media), lane=8)
         med_btype = np.zeros((nd,), i32)
         med_center = np.zeros((nd, 3), f32)

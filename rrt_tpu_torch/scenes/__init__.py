@@ -3,7 +3,7 @@
 from .book1 import (book2chap2_scene, chap11_scene, chap12_scene,
                     diffuse_scene)
 from .book2 import (cornell_box_scene, cornell_smoke_scene, earth_scene,
-                    simple_light_scene)
+                    rttnw_final_scene, simple_light_scene)
 
 SCENES = {
     "diffuse": diffuse_scene,
@@ -14,4 +14,5 @@ SCENES = {
     "cornell_smoke": cornell_smoke_scene,
     "simple_light": simple_light_scene,
     "earth": earth_scene,
+    "rttnw_final": rttnw_final_scene,
 }

@@ -382,20 +382,25 @@ def test_bounce_chain_keeps_its_input():
 
 
 def test_render_image_diff_out_of_scope_still_raises(caplog, monkeypatch):
-    """An out-of-scope scene now routes to render_image(differentiable=
-    True), which logs the reason and raises naming the ROADMAP item (the
-    log's once-a-process memory starts empty, whatever ran before)."""
+    """A scene outside the train kernels' scope routes to
+    render_image(differentiable=True), which logs the reason (the log's
+    once-a-process memory starts empty, whatever ran before) and runs the
+    scan on the CPU; on a CUDA device it raises naming the ROADMAP
+    item."""
     monkeypatch.setattr(render, "_warned_fallbacks", set())
     scene, cam = _port_scene("chap12")
     cfg = render.RenderConfig(width=16, height=8, spp=2, max_depth=2,
                               samples_per_pass=2)
-    # More quads than the kernels stage (rttnw_final's boxes, #9.5's rest;
-    # the perlin and image textures are ported).
-    with pytest.raises(NotImplementedError, match="#9.5"):
-        render.render_image_diff(dataclasses.replace(
-            scene, n_quads_active=tmk.SOLID_CAP + 1), cam, cfg, 0,
-            device="cpu")
+    # More quads than the train kernels and chain_bwd loop over
+    # (rttnw_final's boxes, #9.5's backward part; the forward kernels
+    # walk them): on the CPU the scan renders it, on a CUDA device it
+    # raises before anything runs.
+    many = dataclasses.replace(scene, n_quads_active=tmk.SOLID_CAP + 1)
+    img, _ = render.render_image_diff(many, cam, cfg, 0, device="cpu")
+    assert torch.isfinite(img).all()
     assert "batch driver's differentiable path" in caplog.text
+    with pytest.raises(NotImplementedError, match="#9.5"):
+        render.render_image_diff(many, cam, cfg, 0, device="cuda")
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,16 @@ each test. Each kernel's solid-family variant (quads, boxes, lights) is
 held on cornell and scenes.book2.mixed_scene by the same rules, and its
 media (constant media, the isotropic material) on cornell_smoke and
 scenes.book2.media_scene: bounce_steps and intersect_only bit for bit on
-cornell_smoke."""
+cornell_smoke; the walks over the solid families' trees (the kWalk
+variants, with and without kMoving and kTex) on
+scenes.book2.many_solids_scene, past SOLID_CAP quads and boxes, each
+against its plain version (tile_render and bounce_steps by the rules
+above, intersect_only bit for bit), and all three the solid scan's
+outputs (accel.solid_scan: the same families as loops) bit for bit."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -1569,3 +1575,195 @@ def test_image_on_a_medium_raises_on_the_card(device):
     assert launches == (tmk.render_tiles.launches,
                         tmk.intersect_only.launches,
                         tmkt.render_tiles_train.launches)
+
+
+# ---------------------------------------------------------------------------
+# Quads and boxes past SOLID_CAP: the forward kernels' walks over the
+# solid families' trees (many_solids_scene, rttnw_final)
+# ---------------------------------------------------------------------------
+
+# (moving, marble): the kWalk instantiations with and without kMoving
+# and kTex.
+WALK_VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def _walk_case(device, moving, marble, w=64, h=48, spp=2, depth=8):
+    """many_solids_scene (82 quads and 81 boxes, rotated about Y, under
+    the sky) on the device: (packs, the sphere BVH, SolidPacks with their
+    trees, render_tiles keywords, the solid scan's SolidPacks: the same
+    packs, every family a loop)."""
+    from rrt_tpu_torch import render
+    scene, cam = book2.many_solids_scene(w, h, moving=moving, marble=marble)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    solids = tmk.pack_solids(scene, device)
+    assert solids.tree.quad.n_nodes and solids.tree.box.n_nodes
+    scan = dataclasses.replace(solids, tree=accel.solid_scan(solids.tree))
+    return packs, bvh, solids, _kw(
+        width=w, height=h, spp=spp, max_depth=depth, moving=moving,
+        solids=solids, tex=tmk.pack_textures(scene, device)), scan
+
+
+def _walk_lanes(device, moving, marble, w=64, h=48):
+    """_solid_lanes' tuple of many_solids_scene, its SolidPacks with
+    their trees, its TexPack and the solid scan's SolidPacks."""
+    from rrt_tpu_torch import render, rng
+    scene, cam = book2.many_solids_scene(w, h, moving=moving, marble=marble)
+    n = w * h
+    ids = torch.arange(n, device=device)
+    keys = rng.sample_keys(rng.key_words(0), ids, 0)
+    o, d, tm = render.generate_rays(cam.to(device), ids % w, ids // w, w, h,
+                                    keys)
+    one, zero = torch.ones((n,), device=device), torch.zeros((n,),
+                                                             device=device)
+    st = tmk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                        one, zero)
+    packed = render.pack_scene(scene, device, render._shutter(cam))
+    solids = packed["solids"]
+    scan = dataclasses.replace(solids, tree=accel.solid_scan(solids.tree))
+    return (st, rng.u32_bits(keys), packed["sph24"],
+            tmk.pack_bg(scene).to(device), packed["bvh"], solids,
+            packed["tex"], scan)
+
+
+@pytest.mark.parametrize("moving,marble", WALK_VARIANTS)
+def test_walk_tile_render_matches_plain_version(device, moving, marble):
+    """tile_render's kWalk variant on more than 64 quads and 64 boxes:
+    the tolerance of tests/test_torch_slice.py against its plain version
+    at depth 50, and the solid scan's outputs bit for bit."""
+    packs, bvh, solids, kw, scan = _walk_case(device, moving, marble,
+                                              depth=50)
+    before = tmk.render_tiles.launches
+    out = tmk.render_tiles(*packs, bvh=bvh, **kw)
+    assert tmk.render_tiles.launches == before + 1
+    _assert_close(out, tmk.render_tiles_reference(*packs, **kw), 2)
+    for a, b in zip(out, tmk.render_tiles(*packs, bvh=bvh,
+                                          **dict(kw, solids=scan))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("moving,marble", WALK_VARIANTS)
+def test_walk_bounce_steps_matches_plain_version(device, moving, marble):
+    """bounce_steps' kWalk variant, 4 steps from the camera rays at depth
+    50: the solid scan's state bit for bit, and its plain version's by
+    test_solid_bounce_steps_matches_plain_version's rule (a sphere hit's
+    shading rounds otherwise in the plain version)."""
+    st, keys, sph, bg, bvh, solids, tex, scan = _walk_lanes(device, moving,
+                                                            marble)
+    kw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=moving, tex=tex)
+    before = tmk.bounce_steps.launches
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, solids=solids,
+                           **kw)
+    assert tmk.bounce_steps.launches == before + 1
+    assert torch.equal(out, tmk.bounce_steps(st.clone(), keys, sph, bg,
+                                             bvh=bvh, solids=scan, **kw))
+    ref = tmk.bounce_steps_reference(st.clone(), keys, sph, bg,
+                                     solids=solids, **kw)
+    agree = (out[14] > 0.5) == (ref[14] > 0.5)
+    assert agree.float().mean() >= 0.999
+    assert torch.equal(out[15][agree], ref[15][agree])
+    assert torch.equal(out[13][agree], ref[13][agree])
+    close = ((out[7:13] - ref[7:13]).abs() < 1e-3).all(dim=0)[agree]
+    assert close.float().mean() >= 0.995
+
+
+@pytest.mark.parametrize("moving,marble", WALK_VARIANTS)
+def test_walk_intersect_only_matches_plain_version(device, moving, marble):
+    """intersect_only's kWalk variant on camera rays and after 2 bounces:
+    its plain version's (t, family, slot) bit for bit (the same
+    arithmetic; rttnw_final's 131,072 rays agree at every depth of
+    chip_smoke.py [F1]), and the solid scan's; quads, boxes and spheres
+    all win somewhere."""
+    st, keys, sph, bg, bvh, solids, tex, scan = _walk_lanes(device, moving,
+                                                            marble)
+    fams = set()
+    for bounces in (0, 2):
+        if bounces:
+            tmk.bounce_steps(st, keys, sph, bg, k_steps=bounces, max_depth=50,
+                             t_min=1e-3, moving=moving, bvh=bvh,
+                             solids=solids, tex=tex)
+        o, d = st[0:3].contiguous(), st[3:6].contiguous()
+        ikw = dict(t_min=1e-3, time=st[6].contiguous() if moving else None)
+        got = tmk.intersect_only(o, d, sph, bvh=bvh, solids=solids, **ikw)
+        ref = tmk.intersect_only_reference(o, d, sph, solids=solids, **ikw)
+        walked_scan = tmk.intersect_only(o, d, sph, bvh=bvh, solids=scan,
+                                         **ikw)
+        for a, b, c in zip(got, ref, walked_scan):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        fams |= set(got[1].tolist())
+    assert fams >= {0, 1, 3}
+
+
+def test_forward_smem_past_the_opt_in_raises_before_launch(device):
+    """forward_blocks reports the blocks an SM of many_solids_scene's
+    walk at forward_smem_bytes; 7,000 boxes, whose rows and tree exceed
+    what a block may opt into, raise NotImplementedError naming the
+    ROADMAP entry before any launch of the three forward kernels."""
+    packs, bvh, solids, kw, _ = _walk_case(device, True, True)
+    blocks = tmk.forward_blocks("tile_render", packs[0], bvh, moving=True,
+                                solids=solids, tex=kw["tex"])
+    assert blocks["blocks"] >= 1
+    assert blocks["smem_bytes"] == tmk.forward_smem_bytes(bvh, solids, True)
+    rs = np.random.RandomState(0)
+    box24 = torch.zeros((24, 7000))
+    box24[0:3] = torch.from_numpy(rs.uniform(-1000.0, 1000.0, (3, 7000)))
+    box24[3:6] = torch.from_numpy(rs.uniform(1.0, 10.0, (3, 7000)))
+    box24[6] = 1.0
+    box24 = box24.to(device)
+    big = dataclasses.replace(
+        solids, box24=box24, n_boxes=7000,
+        tree=accel.pack_solid_bvh(solids.quad24, box24, solids.n_quads,
+                                  7000))
+    wrappers = (tmk.render_tiles, tmk.bounce_steps, tmk.intersect_only)
+    launches = [w.launches for w in wrappers]
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        tmk.render_tiles(*packs, bvh=bvh, **dict(kw, solids=big))
+    st, keys, sph, bg, q_bvh, _, tex, _ = _walk_lanes(device, True, True)
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        tmk.bounce_steps(st, keys, sph, bg, k_steps=1, max_depth=8,
+                         t_min=1e-3, moving=True, bvh=q_bvh, solids=big,
+                         tex=tex)
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        tmk.intersect_only(st[0:3].contiguous(), st[3:6].contiguous(), sph,
+                           t_min=1e-3, time=st[6].contiguous(), bvh=q_bvh,
+                           solids=big)
+    assert launches == [w.launches for w in wrappers]
+
+
+def test_rttnw_final_renders_and_its_gradient_raises_on_the_card(device):
+    """rttnw_final (400 ground boxes) renders on the tile driver with the
+    kWalk variant; its gradient raises NotImplementedError naming #9.5
+    (the backward part) before any launch on make_train_step,
+    render_image_diff and render_image(differentiable=True), and the
+    train wrapper refuses its packs."""
+    from rrt_tpu_torch import diff, render
+    scene, cam = tscenes.SCENES["rttnw_final"](40, 27)
+    cfg = render.RenderConfig(width=40, height=27, spp=2, max_depth=8,
+                              samples_per_pass=2)
+    before = tmk.render_tiles.launches
+    img, n = render.render_image_tiles(scene, cam, cfg, 0, device=device)
+    assert tmk.render_tiles.launches == before + 1
+    assert torch.isfinite(img).all() and int(n) >= 40 * 27 * 2
+    target = torch.zeros((27, 40, 3), device=device)
+    wrappers = (tmk.render_tiles, tmk.bounce_steps, tmk.intersect_only,
+                tmkt.render_tiles_train, tmkt.tiles_adjoint,
+                tmkv.chain_adjoint)
+    launches = [w.launches for w in wrappers]
+    for fn in (lambda: diff.make_train_step(cfg, device=device)(
+                   scene, cam, target, 1),
+               lambda: render.render_image_diff(scene, cam, cfg, 0,
+                                                device=device),
+               lambda: render.render_image(scene, cam, cfg, 0,
+                                           differentiable=True,
+                                           device=device)):
+        with pytest.raises(NotImplementedError, match="#9.5"):
+            fn()
+    with pytest.raises(NotImplementedError, match="backward part"):
+        tmkt.render_tiles_train(
+            tmk.pack_spheres_full(scene).to(device),
+            tmk.pack_camera(cam, 40, 27).to(device),
+            tmk.pack_bg(scene).to(device), seed_words=(0, 0), sample_lo=0,
+            width=40, height=27, spp=1, max_depth=8, t_min=1e-3, moving=True,
+            solids=tmk.pack_solids(scene, device),
+            tex=tmk.pack_textures(scene, device))
+    assert launches == [w.launches for w in wrappers]

@@ -96,6 +96,6 @@ def test_cli_writes_the_rendered_png(tmp_path):
 
 
 def test_cli_rejects_unknown_scene(tmp_path, capsys):
-    assert cli.main(["--scene", "rttnw_final", "--device", "cpu",
+    assert cli.main(["--scene", "no_such_scene", "--device", "cpu",
                      "-o", str(tmp_path / "x.ppm")]) == 2
     assert "unknown scene" in capsys.readouterr().err

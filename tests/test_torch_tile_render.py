@@ -151,18 +151,27 @@ def _image_on_medium():
 
 
 # simple_light and earth render since ROADMAP Queue A #9.5's first part
-# (tests/test_torch_textures.py); what stays outside the tile kernel:
-# rttnw_final's 400 ground boxes (#9.5, its rest) and an image on a
-# medium (a decision).
+# (tests/test_torch_textures.py), rttnw_final's 400 ground boxes since
+# its rest's forward part (tests/test_torch_rttnw.py); what stays outside
+# the tile kernel: an image on a medium (a decision).
 @pytest.mark.parametrize("name,item", [
-    ("rttnw_final", "ROADMAP Queue A #9.5"),
+    ("rttnw_final", None),
     ("image_on_medium", 'ROADMAP "Not ported by decision"')])
 def test_scenes_outside_the_kernel_scope_raise(name, item):
+    """An image on a medium raises naming its ROADMAP entry; rttnw_final
+    (converted from rrt_tpu's build) renders, the CLI's auto choosing the
+    tile driver for it."""
     j_scene, j_cam = (_image_on_medium() if name == "image_on_medium"
                       else jscenes.SCENES[name](16, 8))
     scene = convert.scene_from_numpy(_leaves(j_scene))
     cam = convert.camera_from_numpy(_leaves(j_cam))
     cfg = render.RenderConfig(width=16, height=8, spp=1, max_depth=2)
+    if item is None:
+        from rrt_tpu_torch import cli
+        assert cli.resolve_driver("auto", scene) == "tile"
+        img, n = render.render_image_tiles(scene, cam, cfg, 0, device="cpu")
+        assert torch.isfinite(img).all() and int(n) >= 16 * 8
+        return
     with pytest.raises(NotImplementedError, match=item):
         render.render_image_tiles(scene, cam, cfg, 0, device="cpu")
 

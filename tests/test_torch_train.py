@@ -376,19 +376,23 @@ def test_no_nan_gradients_on_masked_branches():
 def test_out_of_scope_scenes_raise():
     scene, cam = _chap12_small()
     cfg = render.RenderConfig(width=16, height=8, spp=1, max_depth=2)
-    # More boxes or quads than the kernels stage (rttnw_final's ground,
-    # #9.5's rest; the perlin and image textures are ported).
+    # More boxes or quads than the train kernels loop over (rttnw_final's
+    # ground, #9.5's backward part; the forward kernels walk them): on a
+    # CUDA device the gradient raises before anything runs, on the CPU
+    # it takes the scan.
     with pytest.raises(NotImplementedError, match="#9.5"):
         render.render_image_diff(dataclasses.replace(
             scene, n_boxes_active=tmk.SOLID_CAP + 1), cam, cfg, 0,
-            device="cpu")
+            device="cuda")
     with pytest.raises(NotImplementedError, match="#9.6"):
         render.render_image_diff(scene, cam, dataclasses.replace(
             cfg, rr_depth=1), 0, device="cpu")
-    step = diff.make_train_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="#9.5"):
-        step(dataclasses.replace(scene, n_quads_active=tmk.SOLID_CAP + 1),
-             cam, torch.zeros((8, 16, 3)), 0)
+    step = diff.make_train_step(dataclasses.replace(cfg, samples_per_pass=1),
+                                device="cpu")
+    _, _, loss = step(dataclasses.replace(
+        scene, n_quads_active=tmk.SOLID_CAP + 1), cam,
+        torch.zeros((8, 16, 3)), 0)
+    assert torch.isfinite(loss)
     with pytest.raises(NotImplementedError, match="#12"):
         diff.render_loss(diff.partition(scene), cam, scene,
                          torch.zeros((8, 16, 3)), cfg, 0, mesh=object(),

@@ -2,7 +2,7 @@
 
     python train_turns.py TREE_A [TREE_B ...] [--order ABBA] \
         [--north-star] [--check] [--forward] [--queue] [--cornell] \
-        [--textures] [--no-train]
+        [--textures] [--final] [--no-train]
 
 Each turn is a fresh process on the card whose `rrt_tpu_torch` (and
 `chip_smoke.py`) come from that turn's tree, a directory holding a
@@ -52,7 +52,12 @@ texture variants on simple_light and earth at chip_smoke.py [T1]'s and
 of render_image(differentiable=True)'s first tile, 4 steps), timed as
 --cornell times them, with digests of what each writes in a fixed order
 (train_bwd's d_bg, chain_bwd's input cotangent; the atlas and pack
-cotangents are float atomics and get none).
+cotangents are float atomics and get none). With --final, in a tree
+that has the scene, the three forward kernels on rttnw_final at
+chip_smoke.py [F1]'s shapes (tile_render 400x267, 32 spp, depth 50;
+bounce_steps 131,072 lanes, 4 steps; intersect_only on those lanes'
+camera rays), timed as --textures times them (intersect_only by graph
+replay), with digests of their outputs.
 --no-train skips the train kernels. The default order is ABBA for two
 trees and AAA for one, so that two versions are compared within one
 call, on one card; with more trees, --order names them (A, B, C, ...).
@@ -281,6 +286,53 @@ def _textures(out: dict) -> None:
             chain_mismatches=int(g[3]))
 
 
+def _final(out: dict) -> None:
+    """--final: the forward kernels on rttnw_final at chip_smoke.py
+    [F1]'s shapes, into out["rttnw_final"]; a tree without the scene
+    records nothing."""
+    import torch
+    import chip_smoke as cs
+    from rrt_tpu_torch import render, scenes
+    from rrt_tpu_torch.ops import megakernel as mk
+
+    if "rttnw_final" not in scenes.SCENES:
+        return
+    dev = torch.device("cuda:0")
+    w, h = 400, 267
+    scene, cam = scenes.SCENES["rttnw_final"](w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=32, max_depth=50)
+    *packs, bvh = render._packs(scene, cam, cfg, dev, bvh=True)
+    packs = [p.detach() for p in packs]
+    solids = mk.pack_solids(scene, dev)
+    tex = mk.pack_textures(scene, dev)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=32,
+              max_depth=50, t_min=1e-3, moving=True, solids=solids, tex=tex)
+    rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
+    tile_ms = cs.cuda_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw), 3)
+    st, keys, sph, bg = cs.lane_state(scene, cam, w, h, cs.QUEUE_LANES, dev)
+    qbvh = render.pack_scene(scene, dev, render._shutter(cam))["bvh"]
+    qkw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=True, bvh=qbvh,
+               solids=solids, tex=tex)
+    work = st.clone()
+    mk.bounce_steps(work, keys, sph, bg, **qkw)
+    state_digest = _digest(work)
+    steps_ms = cs.launch_copy_ms(
+        lambda: mk.bounce_steps(work, keys, sph, bg, **qkw), work, st,
+        mk.bounce_steps)
+    o, d = st[0:3].contiguous(), st[3:6].contiguous()
+    ikw = dict(t_min=1e-3, time=st[6].contiguous(), bvh=qbvh, solids=solids,
+               **cs.medium_inputs(st, keys))
+    hit = mk.intersect_only(o, d, sph, **ikw)
+    inter_ms = cs.graph_ms(lambda: mk.intersect_only(o, d, sph, **ikw),
+                           mk.intersect_only)
+    out["rttnw_final"] = dict(
+        tile_ms=tile_ms, tile_traced=int(traced.sum()),
+        tile_digest=_digest(rad), bounce_steps_ms=steps_ms,
+        state_digest=state_digest, intersect_ms=inter_ms,
+        intersect_digest=_digest(torch.cat([x.view(torch.int32)
+                                            for x in hit])))
+
+
 def _digest(t) -> str:
     """A digest of a tensor's bytes."""
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
@@ -393,7 +445,8 @@ def _queue(out: dict, save: str) -> None:
 
 def _turn(tree: str, north_star: bool, check: bool, forward: bool,
           train: bool, queue: str | None = None,
-          cornell: bool = False, textures: bool = False) -> dict:
+          cornell: bool = False, textures: bool = False,
+          final: bool = False) -> dict:
     sys.path.insert(0, tree)  # ahead of this script's own directory
     import torch
     import chip_smoke as cs
@@ -412,6 +465,8 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
         _cornell(out)
     if textures:
         _textures(out)
+    if final:
+        _final(out)
     if not train:
         return out
     cfg = render.RenderConfig(**SHAPE)
@@ -474,6 +529,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queue", action="store_true")
     ap.add_argument("--cornell", action="store_true")
     ap.add_argument("--textures", action="store_true")
+    ap.add_argument("--final", action="store_true")
     ap.add_argument("--no-train", action="store_true")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
@@ -482,7 +538,7 @@ def main(argv=None) -> int:
         print("TURN " + json.dumps(
             _turn(os.path.abspath(args.trees[0]), args.north_star,
                   args.check, args.forward, not args.no_train, args.save,
-                  args.cornell, args.textures),
+                  args.cornell, args.textures, args.final),
             default=str), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees]
@@ -492,6 +548,7 @@ def main(argv=None) -> int:
                              ("--forward", args.forward),
                              ("--cornell", args.cornell),
                              ("--textures", args.textures),
+                             ("--final", args.final),
                              ("--no-train", args.no_train)) if on]
     with tempfile.TemporaryDirectory() as tmp:
         for i, letter in enumerate(order):
