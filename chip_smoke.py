@@ -2065,6 +2065,16 @@ def cornell_cli_phase(device, card, name="cornell"):
     return t_launches, q_launches, b_launches
 
 
+def replay_solid_flops(segments, stored, solids) -> float:
+    """train_bwd's quad and box tests over `segments` segments of which
+    `stored` have a stored winner: one test each of those (the families'
+    mean test), every active slot's for the rest (solid_flops)."""
+    per_test = (solids.n_quads * QUAD_TEST_FLOPS
+                + solids.n_boxes * BOX_TEST_FLOPS) / max(
+        solids.n_quads + solids.n_boxes, 1)
+    return stored * per_test + solid_flops(segments - stored, solids)
+
+
 def solid_train_bounds(traced, spp, solids, n_slots):
     """train_fwd's and train_bwd's least times on a solid-family scene
     without spheres ([K3]: cornell), each (ms, by), counted as [K1]'s:
@@ -2087,10 +2097,7 @@ def solid_train_bounds(traced, spp, solids, n_slots):
                        + solids.box24.shape[1]) + 24 + 8) \
         + (0 if med is None else 4 * med.numel())
     residual = paths + 2 * stored
-    per_test = (solids.n_quads * QUAD_TEST_FLOPS
-                + solids.n_boxes * BOX_TEST_FLOPS) / max(
-        solids.n_quads + solids.n_boxes, 1)
-    bwd_ops = (stored * per_test + solid_flops(segments - stored, solids)
+    bwd_ops = (replay_solid_flops(segments, stored, solids)
                + segments * BWD_SEGMENT_FLOPS)
     return (bound(solid_flops(segments, solids),
                   packs + n_pix * (12 + 4) + residual, draws),
@@ -2132,7 +2139,9 @@ def solid_chain_bound(c1, solids):
 
 
 def solid_train_vs_plain(what, scene, cam, cfg, device, card, *,
-                         min_pixels, fields=None):
+                         min_pixels, fields=None,
+                         max_winner_faults=MAX_WINNER_FAULTS,
+                         exclude_parted=False):
     """The train kernels' solid-family variants against tile_render and
     their plain versions on one scene, [5]'s rule (gradcheck): train_fwd
     gives tile_render's radiance and traced counts bit for bit, its
@@ -2143,7 +2152,13 @@ def solid_train_vs_plain(what, scene, cam, cfg, device, card, *,
     among them) follow gradcheck.field_grad_faults against the plain
     version's (fields: only these partition() fields, each within
     MIXED_FIELD_GATE of its largest, and no camera field); no replay
-    mismatch, from the winners or without them.
+    mismatch, from the winners or without them. max_winner_faults: the
+    share of the plain version's winners on agreeing paths that may
+    differ (a scene's own gate where it has one). exclude_parted: the
+    gate weights out, besides, the agreeing pixels whose stored winners
+    part from the plain version's (another way the agreement rule cannot
+    see: rttnw_final's), and the comparison with them weighted in is
+    printed beside it.
     Returns the numbers of the kernels line and the plain gradients."""
     from rrt_tpu_torch import diff, gradcheck, render
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
@@ -2159,51 +2174,93 @@ def solid_train_vs_plain(what, scene, cam, cfg, device, card, *,
     fwd_ms = cuda_ms(lambda: mkt.render_tiles_train(*packs, **kw), 3)
     agreement = gradcheck.sample_agreement(packs, kw)
     frac = agreement.agree.float().mean().item()
-    w_faults, w_compared, _ = gradcheck.winner_faults(winners, lengths,
-                                                      agreement)
+    w_faults, w_compared, differ = gradcheck.winner_faults(
+        winners, lengths, agreement)
     p_faults, p_compared = gradcheck.pool_faults(winners, lengths, agreement)
+    if w_faults:
+        firsts = gradcheck.first_differences(differ)
+        kf, _ = mk.decode_winner(firsts[:, 3])
+        pf, _ = mk.decode_winner(firsts[:, 4])
+        pairs, counts = torch.stack([kf, pf], 1).unique(dim=0,
+                                                       return_counts=True)
+        print(f"  {what}: the differing winners lie on {firsts.shape[0]} "
+              f"paths; at each one's first, (kernel's family, plain's "
+              f"family): " + ", ".join(
+                  f"{tuple(p_.tolist())} {int(c)}"
+                  for p_, c in zip(pairs, counts))
+              + " (-1 none, 0 sphere, 1 quad, 2 medium, 3 box)", flush=True)
     print(f"  {what} {cfg.width}x{cfg.height} {cfg.spp}spp "
           f"d{cfg.max_depth}: train_fwd == tile_render {same}; "
           f"{residual_line(traced, lengths, cfg.spp)}; {frac:.5f} of pixels "
           f"and {agreement.path_share:.5f} of paths agree with the plain "
           f"version (gate {min_pixels}); winner codes: {w_faults} of "
           f"{w_compared} differ from the plain version's (gate "
-          f"{MAX_WINNER_FAULTS:.0e}), {p_faults} of {p_compared} from each "
+          f"{max_winner_faults:.0e}), {p_faults} of {p_compared} from each "
           f"sample traced alone (gate 0)", flush=True)
     check(same, (what, "train_fwd vs tile_render"))
     check(frac >= min_pixels, (what, "agreement", frac))
-    check(w_compared > 0 and w_faults <= MAX_WINNER_FAULTS * w_compared,
+    check(w_compared > 0 and w_faults <= max_winner_faults * w_compared,
           (what, "winners", w_faults, w_compared))
     check(p_compared > 0 and p_faults == 0,
           (what, "pooled winners", p_faults, p_compared))
     n_pix = cfg.width * cfg.height
-    weight = torch.sin(torch.arange(n_pix, device=device) * 0.1) \
-        * agreement.agree
-    d_rad = (weight[:, None] * torch.tensor(MIX, device=device)).contiguous()
-    k = mkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    names = fields or ("quad_q", "quad_u", "quad_v", "box_center",
+                       "box_half", "tex_color1", "bg_bottom")
+
+    def backward(agree):
+        """The kernels' and the plain version's gradients for the loss
+        these pixels weight: (kernel's, without the winners', plain's,
+        faults, max |delta|, each field's worst over its largest, rule,
+        the plain field gradients, d_rad, the plain version's ms)."""
+        weight = torch.sin(torch.arange(n_pix, device=device) * 0.1) * agree
+        d_rad = (weight[:, None]
+                 * torch.tensor(MIX, device=device)).contiguous()
+        k = mkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+        scan = mkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
+        p, plain_ms = wall_ms(lambda: mkt.tiles_adjoint_reference(
+            *packs, d_rad, agreement.lengths, None, chunk=1 << 19, **kw))
+        kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], k[4],
+                                  device=device)
+        pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], p[4],
+                                  device=device)
+        worst = {f: ((kp[f] - pp[f]).abs().max()
+                     / pp[f].abs().max().clamp(min=1e-30)).item()
+                 for f in names}
+        if fields is None:
+            faults, err = gradcheck.field_grad_faults(kp, kc, pp, pc)
+            rule = "gradcheck's rule, 2e-3 of each field's largest"
+        else:
+            faults = [(f, v) for f, v in worst.items()
+                      if v > MIXED_FIELD_GATE]
+            err = max((kp[f] - pp[f]).abs().max().item() for f in fields)
+            rule = f"{MIXED_FIELD_GATE:g} of each field's largest"
+        return k, scan, p, faults, err, worst, rule, pp, d_rad, plain_ms
+
+    agree = agreement.agree
+    if exclude_parted:
+        parted = torch.zeros_like(agree)
+        if w_faults:
+            parted[differ[:, 2]] = True
+        parted &= agree
+        _, _, _, faults, err, worst, rule, _, _, _ = backward(agree)
+        print(f"  {what}: with the {int(parted.sum())} agreeing pixels whose "
+              f"stored winners part from the plain version's weighted in: "
+              f"field faults {faults} ({rule}); max |grad delta| {err:.3e}; "
+              f"over each field's largest: " + ", ".join(
+                  f"{f} {v:.2e}" for f, v in worst.items()), flush=True)
+        agree = agree & ~parted
+    k, scan, p, faults, err, worst, rule, pp, d_rad, bwd_plain_ms = \
+        backward(agree)
     bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, lengths,
                                                winners, **kw), 3)
-    scan = mkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
-    p, bwd_plain_ms = wall_ms(lambda: mkt.tiles_adjoint_reference(
-        *packs, d_rad, agreement.lengths, None, chunk=1 << 19, **kw))
     mism = (int(k[3]), int(scan[3]), int(p[3]))
-    kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], k[4], device=device)
-    pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], p[4], device=device)
-    worst = {f: ((kp[f] - pp[f]).abs().max()
-                 / pp[f].abs().max().clamp(min=1e-30)).item()
-             for f in fields or ("quad_q", "quad_u", "quad_v", "box_center",
-                                 "box_half", "tex_color1", "bg_bottom")}
-    if fields is None:
-        faults, err = gradcheck.field_grad_faults(kp, kc, pp, pc)
-        rule = "gradcheck's rule, 2e-3 of each field's largest"
-    else:
-        faults = [(f, v) for f, v in worst.items() if v > MIXED_FIELD_GATE]
-        err = max((kp[f] - pp[f]).abs().max().item() for f in fields)
-        rule = f"{MIXED_FIELD_GATE:g} of each field's largest"
     print(f"  {what}: replay_mismatches {mism} (gate 0); d_cam and d_bg "
           f"from the winners vs without bit-equal "
           f"{torch.equal(k[1], scan[1]) and torch.equal(k[2], scan[2])}; "
-          f"field faults {faults} ({rule}); max |grad delta| {err:.3e}; "
+          f"field faults {faults} ({rule}"
+          + (f"; the {int(parted.sum())} pixels weighted out"
+             if exclude_parted else "")
+          + f"); max |grad delta| {err:.3e}; "
           f"over each field's largest: " + ", ".join(f"{f} {v:.2e} (largest "
                                    f"{pp[f].abs().max().item():.3e})"
                                    for f, v in worst.items())
@@ -2807,20 +2864,26 @@ TEXTURE_TRAINED = {"simple_light": ("tex_color1", "tex_color2", "bg_bottom",
 TEXTURE_ATLAS_SPREAD = 1e-4
 
 
-def texture_bound(segments, paths, tex, solids, n_bytes):
+def texture_bound(segments, paths, tex, solids, n_bytes, stored=None):
     """(bound_ms, by) of `segments` traced segments of `paths` paths on a
     textured scene: each scattering segment (segments less paths, every
     surface of simple_light and earth but the lights) evaluates its
     texture once (MARBLE_FLOPS and MARBLE_INT_OPS, or IMAGE_FLOPS), the
     solid families' tests, the draws; n_bytes: the packs, the atlas and
-    the outputs."""
+    the outputs. With `stored` (the segments with a stored winner),
+    train_bwd's, counted as solid_train_bounds counts it: the same
+    texture work and draws once, the solid tests of the replay
+    (replay_solid_flops) and BWD_SEGMENT_FLOPS of adjoint a segment."""
     hits = segments - paths
     flops = hits * (MARBLE_FLOPS if tex.has_perlin else IMAGE_FLOPS)
     ints = THREEFRY_OPS * (THREEFRY_PER_HIT * hits + THREEFRY_PER_PATH * paths)
     if tex.has_perlin:
         ints += hits * MARBLE_INT_OPS
+    if stored is not None:
+        flops += segments * BWD_SEGMENT_FLOPS
     if solids is not None:
-        flops += solid_flops(segments, solids)
+        flops += (solid_flops(segments, solids) if stored is None
+                  else replay_solid_flops(segments, stored, solids))
     return bound(flops, n_bytes, ints)
 
 
@@ -3025,13 +3088,16 @@ def texture_train_phase(name, device, card, resources):
     tex, solids = kw["tex"], kw["solids"]
     segments, paths = int(fwd[1].sum()), w * h * cfg.spp
     solid_packs = () if solids is None else (solids.quad24, solids.box24)
-    n_bytes = pack_bytes(*packs, *solid_packs, tex.atlas) + w * h * 16 \
-        + paths * 33
-    fwd_bound = texture_bound(segments, paths, tex, solids, n_bytes)
-    # The backward replays each segment and differentiates its texture
-    # (about twice the marble's operations) and the bounce.
-    bwd_bound = texture_bound(2 * segments, 2 * paths, tex, solids,
-                              n_bytes + 4 * tex.atlas.numel())
+    all_packs = pack_bytes(*packs, *solid_packs, tex.atlas)
+    fwd_bound = texture_bound(segments, paths, tex, solids,
+                              all_packs + w * h * 16 + paths * 33)
+    # The backward reads the packs and writes their cotangents (the
+    # atlas's among them), reads d_rad, the lengths and the stored
+    # winners.
+    stored = int(fwd[1].long().clamp(max=mkt.winner_capacity(cfg.spp)).sum())
+    bwd_bound = texture_bound(segments, paths, tex, solids,
+                              2 * all_packs + w * h * 12 + paths + 2 * stored,
+                              stored=stored)
     print(f"  {name} {w}x{h} {cfg.spp}spp d{depth}: train_fwd {fwd_ms:.3f} "
           f"ms (bound {fwd_bound[0]:.4f}, {fwd_bound[1]}), train_bwd "
           f"{bwd_ms:.3f} ms (bound {bwd_bound[0]:.4f}, {bwd_bound[1]}); "
@@ -3215,14 +3281,15 @@ def probe_phase(device, card):
         rng_err=float(rng_err), relayout_err=relayout_err)
 
 
-# [F1]-[F2]: the RTTNW final scene (rrt_tpu/scenes/book2.py, RTTNW ch.
+# [F1]-[F3]: the RTTNW final scene (rrt_tpu/scenes/book2.py, RTTNW ch.
 # 10; bench.py's second scene, uncut: 400x267, 32 spp, depth 50): 1,006
 # spheres (one moving), a quad light, 400 ground boxes past SOLID_CAP,
 # two constant media, the marble and the earth image, in Morton order.
-# The forward kernels walk the boxes' tree (accel.SolidBvh); the train
-# kernels and chain_bwd keep SOLID_CAP (ROADMAP Queue A #9.5, its
-# backward part), so its gradient raises on the card. [F2]: a test
-# scene of 81 rotated boxes and 82 quads under the sky
+# The forward kernels and train_fwd walk the boxes' tree
+# (accel.SolidBvh), train_bwd loops over them ([F3]: its gradient on
+# the card); chain_bwd keeps SOLID_CAP (ROADMAP Queue A #9.5, its chain
+# part), so the chain's route raises on the card. [F2]: a test scene of
+# 81 rotated boxes and 82 quads under the sky
 # (scenes.book2.many_solids_scene).
 RTTNW = dict(scene="rttnw_final", width=400, height=267, spp=32, max_depth=50)
 # [F1]: tile_render against its plain version at this many spp (the
@@ -3241,6 +3308,28 @@ MANY = dict(width=320, height=240, spp=4, max_depth=50)
 # The scan's tests a segment of rttnw_final: its active quads, boxes and
 # spheres.
 RTTNW_SCAN_TESTS = 1 + 400 + 1006
+# [F3]: the train kernels against their plain versions at this many spp
+# (the plain backward's time grows with them), the agreeing pixels at
+# least [S2]'s share; timed, and the main path run, at
+# CORNELL_TRAIN_SPP. make_train_step's three steps keep the camera and
+# the geometry (each step gets the first step's camera, and from the
+# step's scene the fields RTTNW_TRAINED), as [T2] does on simple_light:
+# the marble's turbulence and the glass make the loss rough along them.
+RTTNW_TRAIN_PLAIN_SPP = 1
+RTTNW_MIN_AGREE = 0.98
+# [F3]: the winners of agreeing paths that may differ from the plain
+# version's. On an H100 80GB HBM3 at 700 W 82 of 363,013 did (2.26e-4,
+# [5]'s MAX_WINNER_FAULTS allows 1e-4), on 21 paths, each of whose first
+# differing winners names a sphere on one side: the plain version's
+# sphere shading rounds otherwise on rttnw_final ([F1]'s
+# parting_families, ROADMAP Queue C), and under its black background
+# two paths that part often bank the same radiance in as many bounces,
+# which the agreement rule cannot see. The gate allows 2.2 times the
+# reading; the pool's layout keeps its exact gate (pool_faults), train_bwd
+# checks every stored winner it replays, and the pixels of such paths
+# get no weight in the gradients' comparison.
+RTTNW_MAX_WINNER_FAULTS = 5e-4
+RTTNW_TRAINED = ("tex_color1", "tex_color2", "bg_bottom", "bg_top")
 
 
 def medium_inputs(st, keys):
@@ -3301,6 +3390,29 @@ def rttnw_bound(segments, paths, counts, scene, tex, n_bytes):
     hits = segments - paths
     flops = rttnw_flops(segments, counts, scene.has_moving,
                         scene.n_media_active) + hits * IMAGE_FLOPS
+    ints = THREEFRY_OPS * (THREEFRY_PER_HIT * hits + THREEFRY_PER_PATH * paths
+                           + segments * ((scene.n_media_active + 1) // 2))
+    return bound(flops, n_bytes, ints)
+
+
+def rttnw_bwd_bound(segments, stored, paths, families, counts, scene, tex,
+                    n_bytes):
+    """train_bwd's (bound_ms, by) on rttnw_final, counted as
+    solid_train_bounds counts it: one test of each stored winner (its
+    family's: families, the stored codes by family), the walk's tests
+    (rttnw_flops at counts') for the segments past the pool,
+    BWD_SEGMENT_FLOPS of adjoint a segment and the texture of each
+    scattering segment (rttnw_bound's IMAGE_FLOPS), the forward's draws
+    once (the replay draws them again; the sweep draws nothing but a
+    medium's, which rttnw_bound counts once a segment), and n_bytes."""
+    hits = segments - paths
+    tests = (families["sphere"] * slot_flops(scene.has_moving)
+             + families["quad"] * QUAD_TEST_FLOPS
+             + families["box"] * BOX_TEST_FLOPS
+             + families["medium"] * MEDIUM_SPHERE_FLOPS)
+    flops = (tests + rttnw_flops(segments - stored, counts, scene.has_moving,
+                                 scene.n_media_active)
+             + segments * BWD_SEGMENT_FLOPS + hits * IMAGE_FLOPS)
     ints = THREEFRY_OPS * (THREEFRY_PER_HIT * hits + THREEFRY_PER_PATH * paths
                            + segments * ((scene.n_media_active + 1) // 2))
     return bound(flops, n_bytes, ints)
@@ -3500,39 +3612,32 @@ def rttnw_kernels_phase(device, card, resources):
 
 
 def rttnw_gradient_raises(device, card):
-    """[F1]: rttnw_final's gradient on the card raises NotImplementedError
-    naming #9.5 before any launch, on each route (render_image_diff,
-    make_train_step, render_image(differentiable=True)); the forward
-    kernels' wrappers walk."""
-    from rrt_tpu_torch import diff, render, scenes as tscenes
+    """[F1]: the chain's route of rttnw_final's gradient on the card
+    (render_image(differentiable=True)) raises NotImplementedError naming
+    #9.5 (its chain part) before any launch; the train kernels take its
+    gradient ([F3])."""
+    from rrt_tpu_torch import render, scenes as tscenes
     from rrt_tpu_torch.ops import megakernel as mk
     from rrt_tpu_torch.ops import megakernel_train as mkt
     from rrt_tpu_torch.ops import megakernel_vjp as mkv
     scene, cam = tscenes.SCENES["rttnw_final"](64, 43)
     cfg = render.RenderConfig(width=64, height=43, spp=4, max_depth=8)
-    target = torch.zeros((43, 64, 3), device=device)
     wrappers = (mk.render_tiles, mk.bounce_steps, mk.intersect_only,
                 mkt.render_tiles_train, mkt.tiles_adjoint, mkv.chain_adjoint)
     before = [w.launches for w in wrappers]
-    routes = (
-        ("render_image_diff", lambda: render.render_image_diff(
-            scene, cam, cfg, 0, device=device)),
-        ("make_train_step", lambda: diff.make_train_step(cfg, device=device)(
-            scene, cam, target, 1)),
-        ("render_image(differentiable=True)", lambda: render.render_image(
-            scene, cam, cfg, 0, differentiable=True, device=device)))
-    for what, fn in routes:
-        try:
-            fn()
-        except NotImplementedError as e:
-            print(f"  {what} on the card raises: {e}", flush=True)
-            check("#9.5" in str(e), (what, str(e)))
-        else:
-            check(False, (what, "did not raise"))
+    what = "render_image(differentiable=True)"
+    try:
+        render.render_image(scene, cam, cfg, 0, differentiable=True,
+                            device=device)
+    except NotImplementedError as e:
+        print(f"  {what} on the card raises: {e}", flush=True)
+        check("#9.5" in str(e) and "chain part" in str(e), (what, str(e)))
+    else:
+        check(False, (what, "did not raise"))
     after = [w.launches for w in wrappers]
-    print(f"  launches during the raises: {after} (before {before})",
+    print(f"  launches during the raise: {after} (before {before})",
           flush=True)
-    check(after == before, ("launches during the raises", before, after))
+    check(after == before, ("launches during the raise", before, after))
 
 
 def rttnw_cli_phase(device, card):
@@ -3542,6 +3647,262 @@ def rttnw_cli_phase(device, card):
     tile image of its samples (hold_to_tile). Returns the launches."""
     return texture_cli_phase("rttnw_final", device, card, size=RTTNW,
                              min_lit=RTTNW_MIN_LIT)
+
+
+def box_albedo_scene(scene, slot: int):
+    """The scene with box `slot`'s material and texture copied into a
+    material and a texture of their own (the same values, so the same
+    render): (that scene, the new texture's row), whose tex_color1 row is
+    that box's albedo alone."""
+    mat = int(scene.box_mat[slot])
+    tex = int(scene.mat_tex[mat])
+    n_mat, n_tex = scene.mat_type.shape[0], scene.tex_type.shape[0]
+
+    def grow(name, row):
+        x = getattr(scene, name)
+        return torch.cat([x, x[row:row + 1]])
+
+    fields = {f: grow(f, mat) for f in ("mat_type", "mat_fuzz", "mat_ior")}
+    fields.update({f: grow(f, tex) for f in ("tex_type", "tex_color1",
+                                             "tex_color2", "tex_scale",
+                                             "tex_image")})
+    fields["mat_tex"] = torch.cat([scene.mat_tex,
+                                   scene.mat_tex.new_tensor([n_tex])])
+    box_mat = scene.box_mat.clone()
+    box_mat[slot] = n_mat
+    return dataclasses.replace(scene, box_mat=box_mat, **fields), n_tex
+
+
+def rttnw_finite_differences(t, scene, cam, cfg, device):
+    """d loss / d (the albedo, red, of the ground box past slot 63 that
+    the most camera rays of [F3]'s plain-spp forward hit first, given a
+    material of its own: box_albedo_scene) from train_bwd against
+    central differences of the train_fwd forward, loss = sum(MIX .
+    radiance) in float64, eps 1e-2 (the albedo scales the throughput of
+    the paths that bounce off that box and moves no path), the gate
+    [6]'s 1e-2. The box's own material renders as before, bit for bit.
+    Returns (the box's slot, the relative difference)."""
+    from rrt_tpu_torch import diff, render
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
+    first = t["winners"][0].long()
+    past = first[(first >= mk.BOX_CODE + mk.SOLID_CAP)
+                 & (first < mk.MEDIUM_CODE)] - mk.BOX_CODE
+    check(past.numel() > 0, "[F3] no camera ray hits a box past slot 63")
+    slot = int(torch.bincount(past).argmax())
+    own, row = box_albedo_scene(scene, slot)
+    kw = dict(t["kw"], spp=cfg.spp)
+    mix = torch.tensor(MIX, device=device)
+
+    def forward(s):
+        packs = [p.detach() for p in render._packs(s, cam, cfg, device)]
+        return packs, mkt.render_tiles_train(
+            *packs, **dict(kw, solids=mk.pack_solids(s, device)))
+
+    _, (base, _, _, _) = forward(scene)
+    packs, (rad, _, lengths, winners) = forward(own)
+    same = torch.equal(rad, base)
+    out = mkt.tiles_adjoint(*packs, mix.expand_as(rad).contiguous(), lengths,
+                            winners, **dict(kw, solids=mk.pack_solids(
+                                own, device)))
+    gp, _ = diff.field_grads(own, cam, cfg, *out[:3], out[4], device=device)
+    eps = 1e-2
+
+    def loss(delta):
+        v = own.tex_color1.clone()
+        v[row, 0] += delta
+        r = forward(diff.combine(own, {"tex_color1": v}))[1][0]
+        return (r.double() * mix.double()).sum().item()
+
+    fd = (loss(eps) - loss(-eps)) / (2.0 * eps)
+    auto = gp["tex_color1"][row, 0].item()
+    rel = abs(auto - fd) / max(abs(fd), 1e-30)
+    print(f"  d loss / d (box {slot}'s albedo, red), the box past slot 63 "
+          f"the most camera rays hit first ({int((past == slot).sum())} of "
+          f"{cfg.width * cfg.height}): train_bwd {auto:.6e}, central "
+          f"difference (eps {eps:g}) {fd:.6e}, {rel:.2e} apart (gate "
+          f"1e-2); its own material renders bit for bit as before {same}",
+          flush=True)
+    check(same, "[F3] the box's own material changed the render")
+    check(auto != 0.0 and rel < 1e-2, ("[F3] box albedo", slot, auto, fd))
+    return slot, rel
+
+
+def rttnw_train_phase(device, card, resources, counts):
+    """[F3] rttnw_final's gradient on the card at [F1]'s 400x267, depth
+    50: train_fwd's kWalk instantiation and train_bwd (its loop over the
+    400 boxes past the pool) against tile_render and their plain versions
+    at RTTNW_TRAIN_PLAIN_SPP (solid_train_vs_plain, gradcheck's rule),
+    then at CORNELL_TRAIN_SPP: train_fwd against tile_render bit for
+    bit, both timed by CUDA events beside their bounds (rttnw_bound, at
+    [F1]'s walk counts), the stored codes' families, the share of
+    segments past the pool, the ptxas lines and the blocks an SM; central
+    differences of a ground box's albedo past slot 63; then the main
+    path with the launch counts set to 0: make_train_step at 8 spp
+    (three SGD steps of RTTNW_TRAINED, the loss must fall) and
+    make_train_step_chunked (two chunks of 4 spp) within 1e-5 of the
+    one-shot loss, with no replay mismatch and no bounce_steps or
+    chain_bwd launch; render_image(differentiable=True) must raise
+    before any launch. Returns the numbers of the kernels line."""
+    from rrt_tpu_torch import diff, geometry, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    w, h, depth = RTTNW["width"], RTTNW["height"], RTTNW["max_depth"]
+    cfg = render.RenderConfig(width=w, height=h, spp=CORNELL_TRAIN_SPP,
+                              max_depth=depth)
+    scene, cam = tscenes.SCENES["rttnw_final"](w, h)
+    torch.cuda.reset_peak_memory_stats(device)
+    names = {"train_fwd": "train_fwd_kernel (moving, solids, tex, walk)",
+             "train_bwd": "train_bwd_kernel (moving, solids, tex)"}
+    for k in names.values():
+        r = resources.get(k, {})
+        print(f"  {k}: {r.get('registers')} registers ({r.get('stack')}, "
+              f"{r.get('spill_stores')}, {r.get('spill_loads')})",
+              flush=True)
+    t = solid_train_vs_plain(
+        "rttnw_final", scene, cam,
+        dataclasses.replace(cfg, spp=RTTNW_TRAIN_PLAIN_SPP), device, card,
+        min_pixels=RTTNW_MIN_AGREE, max_winner_faults=RTTNW_MAX_WINNER_FAULTS,
+        exclude_parted=True)
+    packs, kw = t["packs"], dict(t["kw"], spp=cfg.spp)
+    solids, tex = kw["solids"], kw["tex"]
+    fwd = mkt.render_tiles_train(*packs, **kw)
+    ref = mk.render_tiles(*packs, bvh=tile_bvh(packs), **kw)
+    same = torch.equal(fwd[0], ref[0]) and torch.equal(fwd[1], ref[1])
+    fwd_ms = cuda_ms(lambda: mkt.render_tiles_train(*packs, **kw), 3)
+    d_rad = torch.ones_like(fwd[0])
+    bwd = mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **kw)
+    bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, *fwd[2:],
+                                               **kw), 3)
+    # Without the winners every segment loops over every slot: what the
+    # segments past the pool cost, each.
+    scan_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, fwd[2], None,
+                                                **kw), 1)
+    segments, paths = int(fwd[1].sum()), w * h * cfg.spp
+    # The entries past each pixel's segments are not written.
+    cap = mkt.winner_capacity(cfg.spp)
+    kept = torch.arange(cap, device=device)[:, None] < fwd[1].long().clamp(
+        max=cap)[None, :]
+    stored = int(kept.sum())
+    codes = fwd[3][kept & (fwd[3] >= 0)]
+    fam, idx = mk.decode_winner(codes)
+    families = {name: int((fam == f).sum()) for f, name in (
+        (geometry.FAM_SPHERE, "sphere"), (geometry.FAM_QUAD, "quad"),
+        (geometry.FAM_BOX, "box"), (geometry.FAM_MEDIUM, "medium"))}
+    past63 = int(((fam == geometry.FAM_BOX) & (idx >= mk.SOLID_CAP)).sum())
+    past_pool = (segments - stored) / segments
+    all_packs = pack_bytes(*packs, solids.quad24, solids.box24, solids.med24,
+                           tex.atlas)
+    fwd_bound = rttnw_bound(segments, paths, counts, scene, tex,
+                            all_packs + w * h * 16 + paths * 33)
+    # The backward reads the packs and writes their cotangents (the
+    # atlas's among them), reads d_rad, the lengths and the stored
+    # winners.
+    bwd_bound = rttnw_bwd_bound(segments, stored, paths, families, counts,
+                                scene, tex, 2 * all_packs + w * h * 12
+                                + paths + 2 * stored)
+    blocks = {k: mkt.train_blocks(k, packs[0], moving=True, solids=solids,
+                                  tex=tex) for k in mkt.TRAIN_KERNELS}
+    print(f"  rttnw_final {w}x{h} {cfg.spp}spp d{depth}: train_fwd == "
+          f"tile_render {same}; {residual_line(fwd[1], fwd[2], cfg.spp)}; "
+          f"stored codes by family {families}, {past63} of them a box past "
+          f"slot {mk.SOLID_CAP - 1}; max code {int(codes.max())}",
+          flush=True)
+    for k, b in blocks.items():
+        print(f"  {k} blocks an SM: {b['blocks']}, {b['smem_bytes']} B of "
+              f"shared memory", flush=True)
+    print(f"  rttnw_final {w}x{h} {cfg.spp}spp d{depth}: train_fwd "
+          f"{fwd_ms:.3f} ms (bound {fwd_bound[0]:.4f}, {fwd_bound[1]}), "
+          f"train_bwd {bwd_ms:.3f} ms (bound {bwd_bound[0]:.4f}, "
+          f"{bwd_bound[1]}), {scan_ms:.3f} ms without the winners (every "
+          f"segment loops over {packs[0].shape[1]} sphere slots, "
+          f"{solids.n_quads + solids.n_boxes} quads and boxes, "
+          f"{solids.n_media} media); replay mismatches {int(bwd[3])}; "
+          f"{segments} segments  [{card}]", flush=True)
+    check(same, "[F3] train_fwd vs tile_render at 8 spp")
+    check(int(bwd[3]) == 0, ("[F3] replay_mismatches", int(bwd[3])))
+    check(past63 > 0, "[F3] no stored box past slot 63")
+    fd_slot, fd_rel = rttnw_finite_differences(t, scene, cam, cfg, device)
+    peak_memory("[F3] kernels vs plain versions", device, card)
+
+    # The main path, launches counted from 0.
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    n_tex = scene.tex_color1.shape[0]
+    start = diff.combine(scene, {"tex_color1": scene.tex_color1
+                                 * torch.linspace(0.8, 1.1, n_tex)[:, None]})
+    step = diff.make_train_step(cfg, device=device)
+    chunked = diff.make_train_step_chunked(cfg, spp_chunk=4, device=device)
+    chunked(start, cam, target, 0)  # warm-up
+    counters = (mkt.render_tiles_train, mkt.tiles_adjoint, mk.bounce_steps,
+                mkv.chain_adjoint, mk.render_tiles)
+    for c in counters:
+        c.launches = 0
+    mkt.tiles_adjoint.replay_mismatches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    s_scene, s_cam = start, cam
+    with chain_events() as (fwd_log, bwd_log):
+        for i in range(3):
+            fwd_log.clear()
+            bwd_log.clear()
+            (s_scene, s_cam, loss), ms = wall_ms(
+                lambda: step(s_scene, s_cam, target, 0))
+            s_scene = diff.combine(start, {k: getattr(s_scene, k)
+                                           for k in RTTNW_TRAINED})
+            s_cam = cam
+            losses.append(loss.item())
+            step_ms.append((events_ms(fwd_log), events_ms(bwd_log), ms))
+            print(f"  make_train_step {i}: loss {losses[-1]:.8e}, train_fwd "
+                  f"{step_ms[-1][0]:.3f} ms, train_bwd {step_ms[-1][1]:.3f} "
+                  f"ms, step {ms:.2f} ms  [{card}]", flush=True)
+        (_, _, c_loss), c_wall = wall_ms(lambda: chunked(start, cam, target,
+                                                         0))
+    print(f"  make_train_step_chunked (2 chunks of 4 spp): loss "
+          f"{c_loss.item():.8e} (one-shot's first {losses[0]:.8e}), step "
+          f"{c_wall:.2f} ms  [{card}]", flush=True)
+    launches = [c.launches for c in counters]
+    mism = int(mkt.tiles_adjoint.replay_mismatches)
+    raised = False
+    try:
+        render.render_image(start, cam, cfg, 0, differentiable=True,
+                            device=device)
+    except NotImplementedError as e:
+        raised = "#9.5" in str(e)
+        print(f"  render_image(differentiable=True) raises: {e}", flush=True)
+    after = [c.launches for c in counters]
+    print(f"  launches train_fwd {launches[0]}, train_bwd {launches[1]}, "
+          f"bounce_steps {launches[2]}, chain_bwd {launches[3]}, "
+          f"tile_render {launches[4]}; after the raise {after}; "
+          f"replay_mismatches {mism} (gate 0); losses {losses} (must "
+          f"fall)  [{card}]", flush=True)
+    peak_memory("[F3] main path", device, card)
+    check(launches[0] >= 5 and launches[1] >= 5 and launches[2] == 0
+          and launches[3] == 0, ("[F3] launches", launches))
+    check(raised and after == launches, ("[F3] the chain's raise", after))
+    check(mism == 0, ("[F3] replay_mismatches", mism))
+    check(all(math.isfinite(x) for x in losses)
+          and losses[2] < losses[1] < losses[0], ("[F3] the loss", losses))
+    check(abs(c_loss.item() - losses[0]) <= 1e-5 * losses[0],
+          ("[F3] chunked vs one-shot", c_loss.item(), losses[0]))
+    main = [sum(m_[j] for m_ in step_ms) / len(step_ms) for j in (0, 1)]
+
+    def numbers(ms, plain_ms, err, bnd, n_launch, kernel, main_ms):
+        return dict(rttnw_ms=ms, rttnw_plain_ms=plain_ms,
+                    rttnw_bound_ms=bnd[0], rttnw_bound_by=bnd[1],
+                    rttnw_max_abs_err=err, rttnw_launches=n_launch,
+                    rttnw_registers=resources.get(names[kernel]),
+                    rttnw_main_ms=main_ms,
+                    rttnw_blocks=blocks[kernel]["blocks"],
+                    rttnw_past_pool=past_pool,
+                    **({"rttnw_scan_ms": scan_ms}
+                       if kernel == "train_bwd" else {}))
+
+    return dict(
+        fd=(fd_slot, fd_rel),
+        train_fwd=numbers(fwd_ms, t["fwd_plain_ms"], t["fwd_err"], fwd_bound,
+                          launches[0], "train_fwd", main[0]),
+        train_bwd=numbers(bwd_ms, t["bwd_plain_ms"], t["bwd_err"], bwd_bound,
+                          launches[1], "train_bwd", main[1]))
 
 
 def many_solids_phase(device, card):
@@ -4021,12 +4382,19 @@ def main() -> int:
                  f"400 boxes vs their plain versions and the solid scan, "
                  f"then the main path: python -m rrt_tpu_torch.cli --scene "
                  f"rttnw_final -s {RTTNW['spp']} (tile), the queue and "
-                 f"batch drivers; the gradient's raises")
+                 f"batch drivers; the chain's raise")
     torch.cuda.reset_peak_memory_stats(device)
     f1 = rttnw_kernels_phase(device, card, resources)
     f1_launches = rttnw_cli_phase(device, card)
     rttnw_gradient_raises(device, card)
     peak_memory("[F1]", device, card)
+    phases.start("F3", f"rttnw_final's gradient on the card at "
+                 f"{RTTNW['width']}x{RTTNW['height']} {CORNELL_TRAIN_SPP}spp "
+                 f"d{RTTNW['max_depth']}: train_fwd's walk and train_bwd vs "
+                 f"tile_render and their plain versions, finite differences "
+                 f"of a box's albedo past slot 63, then make_train_step and "
+                 f"its chunked step; the chain's raise")
+    f3 = rttnw_train_phase(device, card, resources, f1["counts"])
     phases.start("F2", f"many_solids {MANY['width']}x{MANY['height']}: 81 "
                  f"boxes and 82 quads, the walks vs the solid scan")
     many_solids_phase(device, card)
@@ -4051,8 +4419,11 @@ def main() -> int:
     # of the probe's headline variant at the JAX probe's full ITERS (the
     # (1, 1024) row, Threefry, the reshape; every variant in `variants`),
     # plain_ms and max_abs_err at PROBE_CHECK_ITERS iterations
-    # (plain_iters). No single PyTorch call computes any of these
-    # functions.
+    # (plain_iters). The train kernels' rttnw_* fields: [F3] (ms at
+    # CORNELL_TRAIN_SPP, plain_ms and max_abs_err at
+    # RTTNW_TRAIN_PLAIN_SPP, launches and main_ms on its main path, the
+    # blocks an SM, the share of segments past the winner pool). No
+    # single PyTorch call computes any of these functions.
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -4163,6 +4534,7 @@ def main() -> int:
               registers=resources.get("train_fwd_kernel"),
               **k3["train_fwd"], **s2["train_fwd"],
               **textured("train_fwd", "train_fwd", 0, "train_fwd_kernel"),
+              **f3["train_fwd"],
               **moving(m_t["fwd_ms"], m_t["fwd_bound"],
                        moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
@@ -4174,6 +4546,7 @@ def main() -> int:
               registers=resources.get("train_bwd_kernel"),
               **k3["train_bwd"], **s2["train_bwd"],
               **textured("train_bwd", "train_bwd", 1, "train_bwd_kernel"),
+              **f3["train_bwd"],
               **moving(m_t["bwd_ms"], m_t["bwd_bound"],
                        moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",

@@ -141,9 +141,10 @@ def build() -> Build:
 class SolidArgs(ctypes.Structure):
     """The solid families' C argument (csrc/bounce.cuh SolidArgs): the
     quad and box packs, their widths and active slot counts, the medium
-    pack and its active media, and for the forward kernels the families'
-    trees (accel.SolidBvh: each family's nodes, rows, node and row
-    counts and always-tested rows; zeros for a family they loop over); a
+    pack and its active media, and for the forward kernels and train_fwd
+    the families' trees (accel.SolidBvh: each family's nodes, rows, node
+    and row counts and always-tested rows; zeros for a family they loop
+    over); a
     null pointer in its place launches the sphere variant."""
 
     _fields_ = [("quad", ctypes.c_void_p), ("quad_slots", ctypes.c_int),
@@ -202,6 +203,8 @@ def load() -> ctypes.CDLL:
     lib.rrt_tile_render_blocks.restype = i
     lib.rrt_queue_blocks.argtypes = [i, i, i, i, s, i, n, ll]
     lib.rrt_queue_blocks.restype = i
+    lib.rrt_train_blocks.argtypes = [i, i, i, s, i, n, ll, ll]
+    lib.rrt_train_blocks.restype = i
     lib.rrt_probe_fma_chain.argtypes = [p, p, i, i, f, f, i, p]
     lib.rrt_probe_fma_chain.restype = i
     lib.rrt_probe_rng.argtypes = [p, p, i, i, i, p]

@@ -24,8 +24,9 @@
 // seeded by the one before and won only by a strictly smaller t, so a
 // quad wins an exact tie, then a box; the sphere scan or BVH walk is
 // then seeded by that t (rrt_tpu's _one_bounce, megakernel.py:811-1150).
-// The forward kernels' kWalk instantiations (a scene with a family past
-// kSolidCap active slots, rttnw_final's 400 ground boxes) walk that
+// The forward kernels' and train_fwd's kWalk instantiations (a scene
+// with a family past kSolidCap active slots, rttnw_final's 400 ground
+// boxes) walk that
 // family's tree instead (solid_walk: the loop's (t, slot) bit for bit),
 // staged after the rows (stage_forward_solids); the other instantiations
 // never compile it.
@@ -77,11 +78,11 @@
 // the quad (24, quad_slots) and box (24, box_slots) packs in device
 // memory, whose first n_quads and n_boxes slots are tested; a null
 // pointer in its place launches the sphere variant. The forward kernels
-// also read the families' trees (rrt_tpu_torch/accel.py SolidBvh; none,
-// n_nodes 0, for a family they loop over, and for the train kernels and
-// chain_bwd, which loop). Outside the anonymous namespace: the extern "C"
-// entry points take it, and a type of internal linkage in their
-// signature would hide them.
+// and train_fwd also read the families' trees (rrt_tpu_torch/accel.py
+// SolidBvh; none, n_nodes 0, for a family they loop over, and for
+// train_bwd and chain_bwd, which loop). Outside the anonymous
+// namespace: the extern "C" entry points take it, and a type of internal
+// linkage in their signature would hide them.
 struct SolidArgs {
   const float* quad;
   int quad_slots, n_quads;
@@ -128,7 +129,7 @@ inline TexView tex_view(const TexArgs* t) {
 
 // One of the 8 instantiations F<kMoving, kSolids, kTex> of a launch
 // function, chosen at run time; RRT_PICK_WALK one of the 4 with solid
-// trees to walk, F<kMoving, true, kTex, true> (a forward kernel's kWalk).
+// trees to walk, F<kMoving, true, kTex, true> (a kWalk instantiation).
 #define RRT_PICK3(F, a, b, c)                                             \
   ((a) ? ((b) ? ((c) ? F<true, true, true> : F<true, true, false>)       \
               : ((c) ? F<true, false, true> : F<true, false, false>))    \
@@ -185,10 +186,13 @@ constexpr int kFamNone = -1, kFamSphere = 0, kFamQuad = 1, kFamMedium = 2,
 // A winner as one int (train_fwd's int16 residual, the backwards'
 // records; ops/megakernel.py encode_winner): a sphere's slot, kQuadCode
 // + a quad's, kBoxCode + a box's, kMediumCode + a medium's; -1 a miss.
-// kQuadCode is the most sphere slots a kernel stages (MAX_SLOTS),
-// kBoxCode adds the most quads (kSolidCap), kMediumCode the most boxes.
-constexpr int kQuadCode = 3072, kBoxCode = 3072 + 64,
-              kMediumCode = 3072 + 64 + 64;
+// kQuadCode is the most sphere slots a kernel stages (MAX_SLOTS); each
+// later family gets kCodeSpan codes (ops/megakernel.py CODE_SPAN), more
+// slots than a block's shared memory stages (32 bytes a box), and the
+// last code, kMediumCode + kCodeSpan - 1, fits an int16.
+constexpr int kCodeSpan = 8192;
+constexpr int kQuadCode = 3072, kBoxCode = kQuadCode + kCodeSpan,
+              kMediumCode = kBoxCode + kCodeSpan;
 
 __device__ __forceinline__ int winner_code(int fam, int win) {
   return fam == kFamQuad
@@ -877,13 +881,14 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
 // d_plane, q.g, q.h, eps_n), each box's center, half extents, cos, sin.
 
 // The active slots of each family the kernels loop over (the forward
-// kernels walk a tree past it), which the train kernels' and chain_bwd's
-// winner codes hold (ops/megakernel.py SOLID_CAP).
+// kernels and train_fwd walk a tree past it; chain_bwd takes no more:
+// ops/megakernel.py SOLID_CAP).
 constexpr int kSolidCap = 64;
 
-// The blocks an SM the forward kernels' kWalk instantiations are built
-// for (__launch_bounds__, so up to 128 registers a thread): rttnw_final's
-// staged spheres, rows and trees (80 KB a block) leave room for 2.
+// The blocks an SM the kWalk instantiations (the forward kernels' and
+// train_fwd's) are built for (__launch_bounds__, so up to 128 registers
+// a thread): rttnw_final's staged spheres, rows and trees (80 KB a
+// forward block) leave room for 2.
 constexpr int kWalkBlocks = 2;
 
 
@@ -1001,9 +1006,9 @@ __host__ __device__ inline size_t forward_solid_bytes(const SolidArgs& sa) {
   return aligned16(solid_bytes(sa.n_quads, sa.n_boxes)) + solid_tree_bytes(sa);
 }
 
-// The forward kernels' solid families (tile_render, bounce_steps,
-// intersect): stage_solids' rows in `smem`, then the trees of SolidArgs
-// (forward_solid_bytes). The caller syncs the block after.
+// The walking kernels' solid families (tile_render, bounce_steps,
+// intersect, train_fwd): stage_solids' rows in `smem`, then the trees
+// of SolidArgs (forward_solid_bytes). The caller syncs the block after.
 __device__ __forceinline__ Solids stage_forward_solids(const SolidArgs& sa,
                                                        float4* smem) {
   Solids sv = stage_solids(sa.quad, sa.quad_slots, sa.n_quads, sa.box,

@@ -21,13 +21,18 @@
 // to back through bounce.cuh's trace_pixel, tile_render's loop, with
 // the closest-sphere scan where tile_render walks its BVH (the same
 // winners and t bit for bit), so rad and traced are tile_render's bit
-// for bit. It keeps the residual the backward needs:
+// for bit. A scene with a solid family past kSolidCap active slots
+// (rttnw_final's 400 ground boxes) runs the kWalk instantiation, which
+// walks that family's tree as the forward kernels do (solid_walk, the
+// loop's (t, slot) bit for bit; the rows and trees staged after the
+// spheres, stage_forward_solids); the spheres keep the scan. It keeps
+// the residual the backward needs:
 //  * lengths[s * P + pixel], each path's executed bounce count (uint8);
 //  * winners[j * P + pixel], the winner of the pixel's j-th segment in
 //    trace order (int16: a sphere's slot, or with kSolids bounce.cuh's
 //    winner_code, kQuadCode + a quad's slot, kBoxCode + a box's or
-//    kMediumCode + a medium's; -1 on a miss: 3,072 sphere slots, 64 quads,
-//    64 boxes and the media fit), for j <
+//    kMediumCode + a medium's; -1 on a miss: 3,072 sphere slots and
+//    kCodeSpan (8,192) slots of each later family fit), for j <
 //    win_cap
 //    (the wrapper's WINNERS_PER_SAMPLE = 16 entries a sample, pooled
 //    over the pixel's samples so that a long path borrows what short
@@ -48,7 +53,9 @@
 //    same bits; a moving slot's center changes with the ray's time;
 //  * __launch_bounds__(256, kFwdMinBlocks) holds it to 64 registers and
 //    4 blocks an SM, tile_render's occupancy (left to itself ptxas took
-//    about 104 registers and 2 blocks).
+//    about 104 registers and 2 blocks); the kWalk instantiations
+//    (256, kWalkBlocks), as the forward kernels' walks, which spilled
+//    under a cap of 64 registers (PERF.md).
 //
 // train_bwd: one thread a pixel (16x16 blocks). For each sample it
 //  1. replays the path and keeps a record of each bounce in
@@ -66,7 +73,10 @@
 //     medium_slot_t, its recomputed STREAM_MEDIUM draw), the scan is
 //     seeded by the quads and boxes as the forward's was and followed by
 //     the media, and a light's hit ends the path (kEmitted) keeping its
-//     checker parity. Sample s's first entry is the sum of the forward's
+//     checker parity. The replay needs no tree: a stored solid winner is
+//     tested alone whatever its slot, and a segment past the pool loops
+//     over every active quad and box, whose (t, slot) is the walk's bit
+//     for bit. Sample s's first entry is the sum of the forward's
 //     lengths before it;
 //  2. counts in `mismatches` the paths whose replayed length differs
 //     from the forward's, and the stored winners that are no slot or
@@ -102,8 +112,7 @@
 // -1/density, albedo: megakernel_vjp.MED_COLS); the wrapper takes a
 // quad's frame cotangents to its q, u and v (geometry.quad_frame_vjp).
 // Accumulating on the staged frame rows keeps the transpose of
-// geometry.quad_frames out of every segment: it runs once, on at most
-// kSolidCap quads.
+// geometry.quad_frames out of every segment: it runs once a quad.
 //
 // Determinism: d_cam and d_bg are bit-identical from run to run, and
 // with or without the winners (the same replayed arithmetic). d_sph is
@@ -140,37 +149,35 @@ __host__ __device__ inline size_t fwd_smem(int n_slots, bool moving) {
 }
 
 // The staged solid families (kSolids) after a kernel's `base` bytes of
-// staged spheres at `smem`; the caller syncs the block after.
-template <bool kSolids>
-__device__ __forceinline__ Solids stage_solids_at(
-    float4* smem, size_t base, const float* quad, int quad_slots,
-    int n_quads, const float* box, int box_slots, int n_boxes,
-    const float* med, int n_media) {
+// staged spheres at `smem`: with kWalk their rows and trees
+// (stage_forward_solids), else the rows of the loops; the caller syncs
+// the block after.
+template <bool kSolids, bool kWalk = false>
+__device__ __forceinline__ Solids stage_solids_at(float4* smem, size_t base,
+                                                  const SolidArgs& sa) {
   Solids sv{};
   if constexpr (kSolids) {
-    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
-                      smem + aligned16(base) / sizeof(float4), med, n_media);
+    sv = stage_solids_of<kWalk>(sa, smem + aligned16(base) / sizeof(float4));
   }
   return sv;
 }
 
 // A launch's dynamic shared memory: `base` bytes of staged spheres, then
-// the solid families' (solids not null).
-inline size_t with_solids(size_t base, const SolidArgs* solids) {
-  return solids != nullptr
-             ? aligned16(base) + solid_bytes(solids->n_quads, solids->n_boxes)
-             : base;
+// the solid families' (solids not null): with their trees when `walk`
+// (forward_solid_bytes), else their rows.
+inline size_t with_solids(size_t base, const SolidArgs* solids,
+                          bool walk = false) {
+  if (solids == nullptr) return base;
+  return aligned16(base) + (walk ? forward_solid_bytes(*solids)
+                                 : solid_bytes(solids->n_quads,
+                                               solids->n_boxes));
 }
 
-template <bool kMoving, bool kSolids, bool kTex>
-__global__ void __launch_bounds__(256, kFwdMinBlocks)
+template <bool kMoving, bool kSolids, bool kTex, bool kWalk = false>
+__global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : kFwdMinBlocks)
     train_fwd_kernel(const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ cam_g,
-                     const float* __restrict__ bg_g,
-                     const float* __restrict__ quad, int quad_slots,
-                     int n_quads, const float* __restrict__ box,
-                     int box_slots, int n_boxes,
-                     const float* __restrict__ med, int n_media,
+                     const float* __restrict__ bg_g, const SolidArgs sa,
                      TexView tex, uint32_t s0, uint32_t s1, uint32_t lo,
                      int width, int height, int spp, int max_depth,
                      float t_min, int win_cap,
@@ -180,7 +187,7 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
   // Dynamic shared memory (fwd_smem): the staged rows of every slot
   // (float4: intersection rows, then velocity rows when moving), then,
   // for static spheres, every slot's center_sq; with kSolids, then the
-  // solid families (stage_solids).
+  // solid families (stage_solids_at; with kWalk their trees too).
   constexpr bool kHoist = !kMoving;
   extern __shared__ float4 sph4[];
   float4* vel4 = kMoving ? sph4 + n_slots : nullptr;
@@ -189,9 +196,8 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
   __shared__ float bg[8];
   stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
   if (kHoist) stage_center_sq(sph, n_slots, csq);
-  Solids sv = stage_solids_at<kSolids>(
-      sph4, fwd_smem(n_slots, kMoving), quad, quad_slots, n_quads, box,
-      box_slots, n_boxes, med, n_media);
+  Solids sv = stage_solids_at<kSolids, kWalk>(
+      sph4, fwd_smem(n_slots, kMoving), sa);
   sv.tex = tex;
   __syncthreads();
 
@@ -199,7 +205,7 @@ __global__ void __launch_bounds__(256, kFwdMinBlocks)
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
   const SlotScan<kMoving, kHoist> scan{sph4, vel4, csq, n_slots};
-  trace_pixel<kMoving, true, kSolids, kTex>(
+  trace_pixel<kMoving, true, kSolids, kTex, kWalk>(
       scan, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
       spp, max_depth, t_min, win_cap, rad, traced, lengths, winners, &sv);
 }
@@ -447,11 +453,7 @@ template <bool kMoving, bool kSolids, bool kTex>
 __global__ void __launch_bounds__(kBwdThreads)
     train_bwd_kernel(const float* __restrict__ sph, int n_slots,
                      const float* __restrict__ cam_g,
-                     const float* __restrict__ bg_g,
-                     const float* __restrict__ quad, int quad_slots,
-                     int n_quads, const float* __restrict__ box,
-                     int box_slots, int n_boxes,
-                     const float* __restrict__ med, int n_media,
+                     const float* __restrict__ bg_g, const SolidArgs sa,
                      TexView tex, const float* __restrict__ d_rad,
                      const uint8_t* __restrict__ lengths,
                      const int16_t* __restrict__ winners, int win_cap,
@@ -467,16 +469,17 @@ __global__ void __launch_bounds__(kBwdThreads)
   float4* sph4 = smem;
   float4* vel4 = kMoving ? smem + n_slots : nullptr;
   const int block = blockIdx.y * gridDim.x + blockIdx.x;
+  const int n_media = sa.n_media;
   const int n_acc =
-      kSlotCols * (kSolids ? n_slots + n_quads + n_boxes + n_media : n_slots);
+      kSlotCols *
+      (kSolids ? n_slots + sa.n_quads + sa.n_boxes + n_media : n_slots);
   float* out = partials + block * (static_cast<size_t>(n_acc) + kCamBgCols);
   __shared__ float cam[24];
   __shared__ float bg[8];
   __shared__ float warp_part[kBwdThreads / 32][kCamBgCols];
   stage_packs(sph, n_slots, cam_g, bg_g, sph4, vel4, cam, bg);
-  Solids sv = stage_solids_at<kSolids>(
-      smem, staged_bytes(n_slots, kMoving), quad, quad_slots, n_quads, box,
-      box_slots, n_boxes, med, n_media);
+  Solids sv = stage_solids_at<kSolids>(smem, staged_bytes(n_slots, kMoving),
+                                       sa);
   sv.tex = tex;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < n_acc; i += kBwdThreads) out[i] = 0.0f;
@@ -532,59 +535,81 @@ int launch_tiles(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
+// train_fwd's instantiation for a launch and its dynamic shared memory
+// (fwd_smem, then the solid families: with their trees for kWalk, which
+// a scene with a tree runs).
+auto fwd_kernel(int n_slots, bool moving, const SolidArgs* solids, bool tex,
+                size_t& smem) {
+  const bool walk = has_tree(solids);
+  smem = with_solids(fwd_smem(n_slots, moving), solids, walk);
+  return walk ? RRT_PICK_WALK(train_fwd_kernel, moving, tex)
+              : RRT_PICK3(train_fwd_kernel, moving, solids != nullptr, tex);
+}
+
+// train_bwd's instantiation and its dynamic shared memory (staged_bytes,
+// then the solid rows).
+auto bwd_kernel(int n_slots, bool moving, const SolidArgs* solids, bool tex,
+                size_t& smem) {
+  smem = with_solids(staged_bytes(n_slots, moving), solids);
+  return RRT_PICK3(train_bwd_kernel, moving, solids != nullptr, tex);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // sph: (24, n_slots) f32, cam: (24,) f32, bg: (8,) f32 on the device;
-// solids: the quad and box packs (at most kSolidCap active slots each)
-// for the solid-family variant, or null; tex: the atlas for the texture
-// variant, or null; moving: nonzero for the
-// moving-sphere variant; outputs rad: (width*height, 3) f32, traced:
-// (width*height,) i32, lengths: (spp, width*height) uint8, winners:
-// (win_cap, width*height) int16, winner codes (the entries past a
-// pixel's segments are left as they were).
+// solids: the quad, box and medium packs for the solid-family variant,
+// with the families' trees for the kWalk one (a family past kSolidCap
+// active slots must have its tree), or null; tex: the atlas for the
+// texture variant, or null; moving: nonzero for the moving-sphere
+// variant; outputs rad: (width*height, 3) f32, traced: (width*height,)
+// i32, lengths: (spp, width*height) uint8, winners: (win_cap,
+// width*height) int16, winner codes (the entries past a pixel's segments
+// are left as they were).
 extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
-                             const TexArgs* tex, uint32_t s0, uint32_t s1, uint32_t lo,
-                             int width, int height, int spp, int max_depth,
-                             float t_min, int moving, int win_cap,
-                             float* rad, int* traced, uint8_t* lengths,
-                             int16_t* winners, void* stream) {
+                             const TexArgs* tex, uint32_t s0, uint32_t s1,
+                             uint32_t lo, int width, int height, int spp,
+                             int max_depth, float t_min, int moving,
+                             int win_cap, float* rad, int* traced,
+                             uint8_t* lengths, int16_t* winners,
+                             void* stream) {
   const dim3 grid((width + 15) / 16, (height + 15) / 16);
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
-  const SolidArgs& sa = solids != nullptr ? *solids : none;
-  const size_t smem = with_solids(fwd_smem(n_slots, moving != 0), solids);
+  const SolidArgs none{};
+  size_t smem;
   // As tile_render: 3072 slots need the opt-in above 48 KB.
-  auto kernel = RRT_PICK3(train_fwd_kernel, moving != 0, solids != nullptr,
-                          tex != nullptr);
+  const auto kernel =
+      fwd_kernel(n_slots, moving != 0, solids, tex != nullptr, smem);
   return launch_tiles(kernel, grid, smem, static_cast<cudaStream_t>(stream),
-                      sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
-                      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med,
-                      sa.n_media, tex_view(tex), s0, s1, lo, width, height, spp, max_depth,
-                      t_min, win_cap, rad, traced, lengths, winners);
+                      sph, n_slots, cam, bg,
+                      solids != nullptr ? *solids : none, tex_view(tex), s0,
+                      s1, lo, width, height, spp, max_depth, t_min, win_cap,
+                      rad, traced, lengths, winners);
 }
 
 // The backward: train_bwd_kernel, then two fixed-order reductions of its
-// per-block partials. solids as rrt_train_fwd's; d_rad: (width*height,
-// 3) f32; lengths and winners as written by rrt_train_fwd with the same
-// win_cap and solids (win_cap 0: no winners, every segment scans;
-// winners may be null); scratch: (n_blocks + ceil(n_blocks / 64)) *
-// n_cols f32 with n_blocks = ceil(width/16) * ceil(height/16) and n_cols
-// = kSlotCols * (n_slots + n_quads + n_boxes + n_media) + 32; sums:
-// (n_cols,) f32 out (slot-major: kSlotCols floats a slot, a sphere's 12
-// (15 when moving) gradient rows then zeros, then the active quads',
-// boxes' and media's columns (adjoint.cuh kQuadAccPlane, kMedAccRadius
-// ...); then 24 camera rows, 6
-// background, 2 pad); mismatches: one int32, zeroed by the caller; tex:
-// as rrt_train_fwd's, its d_atlas (with images) the atlas cotangent,
-// zeroed by the caller, which a marble's texture scale does not use
-// (it goes to its slot's column kAccTexScale).
+// per-block partials. solids as rrt_train_fwd's (the trees are not
+// read: the replay tests a stored winner alone and loops over every
+// active quad and box past the pool); d_rad: (width*height, 3) f32;
+// lengths and winners as written by rrt_train_fwd with the same win_cap
+// and solids (win_cap 0: no winners, every segment scans; winners may be
+// null); scratch: (n_blocks + ceil(n_blocks / 64)) * n_cols f32 with
+// n_blocks = ceil(width/16) * ceil(height/16) and n_cols = kSlotCols *
+// (n_slots + n_quads + n_boxes + n_media) + 32; sums: (n_cols,) f32 out
+// (slot-major: kSlotCols floats a slot, a sphere's 12 (15 when moving)
+// gradient rows then zeros, then the active quads', boxes' and media's
+// columns (adjoint.cuh kQuadAccPlane, kMedAccRadius ...); then 24 camera
+// rows, 6 background, 2 pad); mismatches: one int32, zeroed by the
+// caller; tex: as rrt_train_fwd's, its d_atlas (with images) the atlas
+// cotangent, zeroed by the caller, which a marble's texture scale does
+// not use (it goes to its slot's column kAccTexScale).
 extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
-                             const TexArgs* tex, const float* d_rad, const uint8_t* lengths,
-                             const int16_t* winners, int win_cap, uint32_t s0,
-                             uint32_t s1, uint32_t lo, int width, int height,
-                             int spp, int max_depth, float t_min, int moving,
+                             const TexArgs* tex, const float* d_rad,
+                             const uint8_t* lengths, const int16_t* winners,
+                             int win_cap, uint32_t s0, uint32_t s1,
+                             uint32_t lo, int width, int height, int spp,
+                             int max_depth, float t_min, int moving,
                              float* scratch, float* sums, int* mismatches,
                              void* stream) {
   if (max_depth + 1 > kMaxRecords) {
@@ -592,22 +617,61 @@ extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((width + 15) / 16, (height + 15) / 16);
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
+  const SolidArgs none{};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   const int n_blocks = static_cast<int>(grid.x * grid.y);
   const int n_cols =
       kSlotCols * (n_slots + sa.n_quads + sa.n_boxes + sa.n_media) +
       kCamBgCols;
-  const size_t smem = with_solids(staged_bytes(n_slots, moving != 0), solids);
-  auto kernel = RRT_PICK3(train_bwd_kernel, moving != 0, solids != nullptr,
-                          tex != nullptr);
-  const int err = launch_tiles(
-      kernel, grid, smem, st, sph, n_slots, cam, bg, sa.quad, sa.quad_slots,
-      sa.n_quads, sa.box, sa.box_slots, sa.n_boxes, sa.med, sa.n_media,
-      tex_view(tex), d_rad,
-      lengths, winners, win_cap, s0, s1, lo, width, height, spp, max_depth,
-      t_min, scratch, mismatches);
+  size_t smem;
+  const auto kernel =
+      bwd_kernel(n_slots, moving != 0, solids, tex != nullptr, smem);
+  const int err = launch_tiles(kernel, grid, smem, st, sph, n_slots, cam, bg,
+                               sa, tex_view(tex), d_rad, lengths, winners,
+                               win_cap, s0, s1, lo, width, height, spp,
+                               max_depth, t_min, scratch, mismatches);
   if (err != 0) return err;
   return static_cast<int>(
       reduce_partials(scratch, n_blocks, n_cols, sums, st));
+}
+
+// The instantiation rrt_train_fwd (kernel 0) or rrt_train_bwd (kernel 1)
+// would launch for n_slots sphere slots, `solids` (or null) and a
+// texture variant (tex nonzero) on the current device: the dynamic shared
+// memory it would take (smem_out), what a block of it may opt into (the
+// device's opt-in limit less the kernel's static arrays: room_out), and
+// its blocks an SM at those bytes (0 when they pass the room). The
+// wrappers call it before every launch and raise when smem_out passes
+// room_out. Returns a cudaError_t.
+extern "C" int rrt_train_blocks(int kernel, int n_slots, int moving,
+                                const SolidArgs* solids, int tex,
+                                int* blocks, long long* smem_out,
+                                long long* room_out) {
+  size_t smem;
+  const void* fn =
+      kernel == 0 ? reinterpret_cast<const void*>(fwd_kernel(
+                        n_slots, moving != 0, solids, tex != 0, smem))
+                  : reinterpret_cast<const void*>(bwd_kernel(
+                        n_slots, moving != 0, solids, tex != 0, smem));
+  *smem_out = static_cast<long long>(smem);
+  int device = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *room_out = static_cast<long long>(optin) -
+              static_cast<long long>(attr.sharedSizeBytes);
+  *blocks = 0;
+  if (*smem_out > *room_out) return 0;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                        kBwdThreads, smem);
+  }
+  return static_cast<int>(err);
 }

@@ -63,14 +63,14 @@ quad, box and medium packs and their active slot counts (`SolidPacks`,
 the boxes, seeding the spheres' BVH walk; then every active medium, read
 from its pack in device memory (no cap), against the closest solid's t,
 each with its own STREAM_MEDIUM draw (a scene of media alone runs it
-with no quad or box). The forward kernels walk a family of more than
-SOLID_CAP active slots over its tree (`pack_solids`' accel.SolidBvh,
-built on the host once a render; the loop's (t, slot) bit for bit),
-staged in shared memory after the rows (a scene whose rows and trees
-exceed what a block may opt into raises before any launch), and loop
-over a smaller one; the train kernels and chain_bwd loop over at most
-SOLID_CAP of each (rttnw_final's 400 ground boxes take the forward
-kernels alone).
+with no quad or box). The forward kernels and train_fwd walk a family
+of more than SOLID_CAP active slots over its tree (`pack_solids`'
+accel.SolidBvh, built on the host once a render or a differentiable
+call; the loop's (t, slot) bit for bit), staged in shared memory after
+the rows (a scene whose rows and trees exceed what a block may opt into
+raises before any launch), and loop over a smaller one; train_bwd loops
+over any number (rttnw_final's 400 ground boxes), and chain_bwd over at
+most SOLID_CAP of each (ROADMAP Queue A #9.5's chain part).
 
 A scene with perlin or image textures hands the kernels its TexPack,
 and they run their texture variant (csrc/bounce.cuh kTex): the marble's
@@ -101,23 +101,26 @@ from ..scene import (MAT_DIELECTRIC, MAT_ISOTROPIC, SceneArrays,
 # bytes a slot, inside the 48 KB a block gets without opting in.
 MAX_SLOTS = 3072
 # Active quads and boxes the kernels loop over (each; csrc/bounce.cuh
-# kSolidCap), which the train kernels' and chain_bwd's int16 winner codes
-# hold. The forward kernels walk trees past it; rttnw_final's 400 ground
-# boxes in the backwards are ROADMAP Queue A #9.5's backward part.
+# kSolidCap). The forward kernels and train_fwd walk a larger family's
+# tree, train_bwd loops over any number; chain_bwd takes no more, which
+# ROADMAP Queue A #9.5's chain part lifts.
 SOLID_CAP = accel.SOLID_CAP
 SOLID_CAP_ITEM = "#9.5"
-SOLID_CAP_WHAT = (f"more than {SOLID_CAP} quads or boxes (their walk in the "
-                  f"backwards, #9.5's backward part)")
-# Where a forward kernel's staged spheres, solid rows and solid trees
-# past a block's shared memory are recorded.
+SOLID_CAP_WHAT = (f"more than {SOLID_CAP} quads or boxes (their walk in "
+                  f"chain_bwd, #9.5's chain part)")
+# Where a kernel's staged spheres, solid rows and solid trees past a
+# block's shared memory are recorded.
 FORWARD_SMEM_ITEM = 'Queue C, "A cap rrt_tpu does not have"'
 # A winner as one int16 (train_fwd's residual, the backwards' records):
 # a sphere's slot, QUAD_CODE + a quad's, BOX_CODE + a box's, MEDIUM_CODE
 # + a medium's; -1 a miss (csrc/bounce.cuh kQuadCode, kBoxCode,
-# kMediumCode).
+# kMediumCode, kCodeSpan). Each family after the spheres gets CODE_SPAN
+# codes, more slots than a block's shared memory stages, and the last
+# code fits an int16.
+CODE_SPAN = 8192
 QUAD_CODE = MAX_SLOTS
-BOX_CODE = MAX_SLOTS + SOLID_CAP
-MEDIUM_CODE = BOX_CODE + SOLID_CAP
+BOX_CODE = QUAD_CODE + CODE_SPAN
+MEDIUM_CODE = BOX_CODE + CODE_SPAN
 
 
 def encode_winner(fam, idx):
@@ -182,8 +185,8 @@ def scope_gap(scene: SceneArrays, rr_depth: int = 0, eager: bool = False):
 
 def solid_cap_gap(scene: SceneArrays):
     """(what, "#9.5") for a scene with more than SOLID_CAP active quads or
-    boxes, which the train kernels and chain_bwd do not take (the
-    forward kernels walk them); else None."""
+    boxes, which chain_bwd does not take (the forward kernels and
+    train_fwd walk them, train_bwd loops over them); else None."""
     if max(scene.n_quads_active, scene.n_boxes_active) > SOLID_CAP:
         return SOLID_CAP_WHAT, SOLID_CAP_ITEM
     return None
@@ -442,15 +445,24 @@ def _check_bvh(bvh, sph24, what: str):
             bvh.n_rows, bvh.n_always)
 
 
-def _check_solids(solids, device, walk: bool = False):
+# How a kernel takes the solid families (_check_solids' `scope`): "walk"
+# the forward kernels and train_fwd, which walk a family's tree past
+# SOLID_CAP active slots; "loop" train_bwd, which loops over any number;
+# "chain" chain_bwd, which loops over at most SOLID_CAP.
+SOLID_SCOPES = ("walk", "loop", "chain")
+
+
+def _check_solids(solids, device, scope: str = "chain"):
     """The C argument of the solid families (a pointer to an
     _build.SolidArgs), checked: the quad and box packs float32 (24, n),
     contiguous, on `device`, their active counts within their widths; the
     medium pack, with n_media > 0, float32 (D, 24), contiguous, on
     `device`, D >= n_media; None (a null pointer: the sphere variants)
-    for None. walk: a forward kernel's, with the families' trees
-    (_check_tree); otherwise the train kernels' and chain_bwd's, which
-    raise NotImplementedError past SOLID_CAP active slots of a family."""
+    for None. scope (SOLID_SCOPES): "walk" fills the families' trees on
+    a CUDA device (_check_tree); "chain" raises NotImplementedError past
+    SOLID_CAP active slots of a family."""
+    if scope not in SOLID_SCOPES:
+        raise ValueError(f"scope {scope!r} is none of {SOLID_SCOPES}")
     if solids is None:
         return None
     for name, t, n in (("quad24", solids.quad24, solids.n_quads),
@@ -462,12 +474,11 @@ def _check_solids(solids, device, walk: bool = False):
                              f"tensor on {device}")
         if not 0 <= n <= t.shape[1]:
             raise ValueError(f"{n} active slots of {name}'s {t.shape[1]}")
-        if n > SOLID_CAP and not walk:
+        if n > SOLID_CAP and scope == "chain":
             raise NotImplementedError(
-                f"{n} active slots of {name}: the train kernels and "
-                f"chain_bwd loop over at most {SOLID_CAP} quads and "
-                f"{SOLID_CAP} boxes ({SOLID_CAP_WHAT}: ROADMAP Queue A "
-                f"{SOLID_CAP_ITEM})")
+                f"{n} active slots of {name}: chain_bwd loops over at most "
+                f"{SOLID_CAP} quads and {SOLID_CAP} boxes ({SOLID_CAP_WHAT}: "
+                f"ROADMAP Queue A {SOLID_CAP_ITEM})")
     med = solids.med24
     if solids.n_media:
         if (not isinstance(med, torch.Tensor) or med.dtype != torch.float32
@@ -481,16 +492,30 @@ def _check_solids(solids, device, walk: bool = False):
         solids.quad24.data_ptr(), solids.quad24.shape[1], solids.n_quads,
         solids.box24.data_ptr(), solids.box24.shape[1], solids.n_boxes,
         med.data_ptr() if solids.n_media else None, solids.n_media)
-    if walk and device.type == "cuda":
+    if scope == "walk" and device.type == "cuda":
         _check_tree(solids, device, args)
     return ctypes.byref(args)
+
+
+def check_codes(solids):
+    """Raise NotImplementedError, before a launch, for a solid family
+    past the CODE_SPAN slots its winner codes hold (the train kernels'
+    and chain_bwd's int16 residual and records)."""
+    if solids is None:
+        return
+    for what, n in (("quads", solids.n_quads), ("boxes", solids.n_boxes),
+                    ("media", solids.n_media)):
+        if n > CODE_SPAN:
+            raise NotImplementedError(
+                f"{n} active {what}: the winner codes hold {CODE_SPAN} a "
+                f"family (ROADMAP {FORWARD_SMEM_ITEM})")
 
 
 def _check_tree(solids, device, args):
     """Fill the trees' fields of the SolidArgs `args` from solids.tree
     (accel.SolidBvh of these packs' active slots, on `device`); without a
-    tree the kernels loop, which they do up to SOLID_CAP slots of a
-    family."""
+    tree the walking kernels loop, which they do up to SOLID_CAP slots of
+    a family."""
     tree = solids.tree
     if tree is None:
         if max(solids.n_quads, solids.n_boxes) > SOLID_CAP:
@@ -560,7 +585,7 @@ def forward_blocks(kernel: str, sph24, bvh, *, moving: bool, solids=None,
     entry points' forward_smem): {"blocks", "smem_bytes"}."""
     device = sph24.device
     _, _, n_nodes, n_rows, _ = _check_bvh(bvh, sph24, kernel)
-    solid_arg = _check_solids(solids, device, walk=True)
+    solid_arg = _check_solids(solids, device, "walk")
     _check_forward_smem(bvh, solids, moving, kernel)
     lib = _build.load()
     blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
@@ -625,7 +650,7 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
               moving=moving, solids=solids, tex=tex)
     device = sph24.device
-    solid_arg = _check_solids(solids, device, walk=True)
+    solid_arg = _check_solids(solids, device, "walk")
     tex_arg = _check_tex(tex, device)
     if device.type == "cpu":
         return render_tiles_reference(sph24, cam24, bg8, **kw)
@@ -934,7 +959,7 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
         raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth}")
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
               moving=moving, solids=solids, tex=tex)
-    solid_arg = _check_solids(solids, device, walk=True)
+    solid_arg = _check_solids(solids, device, "walk")
     tex_arg = _check_tex(tex, device)
     if device.type == "cpu":
         return bounce_steps_reference(state, keys, sph24, bg8, **kw)
@@ -1024,7 +1049,7 @@ def intersect_only(o, d, sph24, *, t_min: float, time=None, bvh=None,
                    or time.device != device):
         raise ValueError(f"time must be a contiguous ({q},) float32 tensor "
                          f"on {device}")
-    solid_arg = _check_solids(solids, device, walk=True)
+    solid_arg = _check_solids(solids, device, "walk")
     media = solids is not None and solids.n_media > 0
     if media:
         _check_lanes("keys", keys, 2, torch.int32, device)

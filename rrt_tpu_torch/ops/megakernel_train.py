@@ -13,17 +13,21 @@ packs, and for a scene with textures the atlas):
 
   forward   `render_tiles_train`: the CUDA kernel train_fwd
             (csrc/train.cu), which renders exactly as tile_render, each
-            pixel's samples back to back, and keeps the residual the
+            pixel's samples back to back (a solid family past
+            mk.SOLID_CAP active slots, rttnw_final's 400 ground boxes,
+            over its tree: the SolidPacks' accel.SolidBvh, as the
+            forward kernels walk it), and keeps the residual the
             backward needs: each path's executed bounce count (uint8 a
             path) and the winner of each pixel's first
             WINNERS_PER_SAMPLE * spp segments (int16 a segment: a
             sphere's slot, or mk.QUAD_CODE + a quad's, mk.BOX_CODE + a
-            box's, mk.MEDIUM_CODE + a medium's; -1 a miss:
-            mk.encode_winner);
+            box's, mk.MEDIUM_CODE + a medium's, mk.CODE_SPAN slots a
+            family; -1 a miss: mk.encode_winner);
   backward  `tiles_adjoint`: the CUDA kernel train_bwd, which replays
             each path from its counter-addressed key, recomputing only
             the stored winner's test where there is one and scanning
-            every slot where there is none, checks its length
+            every slot where there is none (every active quad and box
+            in a loop: it reads no tree), checks its length
             against the forward's (`replay_mismatches`), and sweeps the
             bounces in reverse through the hand-written transpose of
             megakernel_vjp.diff_step, into the cotangents of the packs
@@ -43,6 +47,7 @@ CUDA tensors launch the kernels; CPU tensors run the plain versions
 `render_tiles_train_reference` and `tiles_adjoint_reference`.
 """
 
+import ctypes
 import dataclasses
 
 import torch
@@ -71,10 +76,11 @@ def train_scope_gap(scene, rr_depth: int = 0):
     they cover the scene and option, otherwise (what is outside, its
     ROADMAP item: mk.roadmap_ref), with rrt_tpu's reasons: the forward
     kernels' (mk.scope_gap: an image texture on a medium first), then
-    more than mk.SOLID_CAP quads or boxes, which these kernels loop over
-    and their winner codes hold (mk.solid_cap_gap: #9.5's backward
-    part), then more than MAX_TRAIN_MEDIA media."""
-    gap = mk.scope_gap(scene, rr_depth) or mk.solid_cap_gap(scene)
+    more than MAX_TRAIN_MEDIA media. Any number of quads and boxes:
+    train_fwd walks a family's tree past mk.SOLID_CAP, train_bwd loops
+    (a scene past what a block may opt into raises before the launch:
+    _check_train_smem)."""
+    gap = mk.scope_gap(scene, rr_depth)
     if gap is None and scene.n_media_active > MAX_TRAIN_MEDIA:
         return (f"{scene.n_media_active} constant media, past the train "
                 f"kernels' {MAX_TRAIN_MEDIA}-slot gradient scope", "#9.4")
@@ -101,6 +107,54 @@ def _check_train_media(solids):
         raise NotImplementedError(
             f"{solids.n_media} constant media: the train kernels take at "
             f"most {MAX_TRAIN_MEDIA} (ROADMAP Queue A #9.4)")
+
+
+# The kernels train_blocks takes, as csrc/train.cu's rrt_train_blocks
+# numbers them.
+TRAIN_KERNELS = ("train_fwd", "train_bwd")
+
+
+def _check_train_smem(kernel: str, n_slots: int, moving: bool, solids,
+                      solid_arg, tex):
+    """Raise NotImplementedError, before a launch, when what a train
+    kernel stages (the spheres, the solid rows and, for train_fwd's
+    walk, the solid trees: csrc/train.cu fwd_kernel and bwd_kernel)
+    passes what a block of it may opt into on the current CUDA device;
+    else rrt_train_blocks' (blocks an SM, the bytes, the room)."""
+    lib = _build.load()
+    blocks, smem, room = (ctypes.c_int(0), ctypes.c_longlong(0),
+                          ctypes.c_longlong(0))
+    err = lib.rrt_train_blocks(
+        TRAIN_KERNELS.index(kernel), n_slots, int(moving), solid_arg,
+        int(tex is not None), ctypes.byref(blocks), ctypes.byref(smem),
+        ctypes.byref(room))
+    _raise_on(lib, err, f"{kernel}'s shared-memory query")
+    blocks, need, room = blocks.value, smem.value, room.value
+    if need > room:
+        raise NotImplementedError(
+            f"{kernel} stages {need} bytes of spheres, solid rows and "
+            f"solid trees, past the {room} a block may opt into "
+            f"({n_slots} sphere slots"
+            + ("" if solids is None else
+               f", {solids.n_quads} quads, {solids.n_boxes} boxes")
+            + f": ROADMAP {mk.FORWARD_SMEM_ITEM})")
+    return blocks, need, room
+
+
+def train_blocks(kernel: str, sph24, *, moving: bool, solids=None,
+                 tex=None):
+    """The blocks an SM of the instantiation train_fwd ("train_fwd") or
+    train_bwd ("train_bwd") launches for these packs on their CUDA
+    device, at the dynamic shared memory the launch takes, and what a
+    block may opt into: {"blocks", "smem_bytes", "room"}. Raises as the
+    launch would when the bytes pass the room."""
+    device = sph24.device
+    scope = "walk" if kernel == "train_fwd" else "loop"
+    solid_arg = mk._check_solids(solids, device, scope)
+    with torch.cuda.device(device):
+        blocks, smem, room = _check_train_smem(
+            kernel, sph24.shape[1], moving, solids, solid_arg, tex)
+    return {"blocks": blocks, "smem_bytes": smem, "room": room}
 
 
 # Winner entries a sample, pooled over a pixel's samples (csrc/train.cu):
@@ -158,9 +212,11 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     offset by mk.QUAD_CODE, mk.BOX_CODE or mk.MEDIUM_CODE; -1 on a
     miss)); moving: the moving-sphere variant; solids: the scene's
     SolidPacks (the solid-family variant; at most MAX_TRAIN_MEDIA
-    media) or None; tex: its TexPack (the texture variant) or None. The
-    kernel leaves the entries past a
-    pixel's segments unwritten; the plain version sets them to -2.
+    media; on a CUDA device with the families' trees, mk.pack_solids',
+    which the kWalk instantiation walks past mk.SOLID_CAP active slots of
+    a family) or None; tex: its TexPack (the texture variant) or None.
+    The kernel leaves the entries past a pixel's segments unwritten; the
+    plain version sets them to -2.
 
     CUDA tensors launch train_fwd (counted in
     `render_tiles_train.launches`); CPU tensors run
@@ -171,14 +227,18 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving)
     _check_train_media(solids)
+    mk.check_codes(solids)
     device = sph24.device
-    solid_arg = mk._check_solids(solids, device)
+    solid_arg = mk._check_solids(solids, device, "walk")
     tex_arg = mk._check_tex(tex, device)
     if device.type == "cpu":
         return render_tiles_train_reference(sph24, cam24, bg8, **kw)
     if device.type != "cuda":
         raise ValueError(f"render_tiles_train runs on cuda or cpu, not "
                          f"{device}")
+    with torch.cuda.device(device):
+        _check_train_smem("train_fwd", sph24.shape[1], moving, solids,
+                          solid_arg, tex)
     lib = _build.load()
     n_pix = width * height
     cap = winner_capacity(spp)
@@ -265,7 +325,8 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
         raise ValueError("d_rad, lengths and winners must be on the packs' "
                          "device")
     _check_train_media(solids)
-    solid_arg = mk._check_solids(solids, device)
+    mk.check_codes(solids)
+    solid_arg = mk._check_solids(solids, device, "loop")
     d_atlas = (torch.zeros_like(tex.atlas)
                if tex is not None and tex.has_images
                and device.type == "cuda" else None)
@@ -278,6 +339,9 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
         return out
     if device.type != "cuda":
         raise ValueError(f"tiles_adjoint runs on cuda or cpu, not {device}")
+    with torch.cuda.device(device):
+        _check_train_smem("train_bwd", sph24.shape[1], moving, solids,
+                          solid_arg, tex)
     lib = _build.load()
     n_slots = sph24.shape[1]
     n_solid = 0 if solids is None else (solids.n_quads + solids.n_boxes
@@ -429,9 +493,10 @@ class TileTrainChain(torch.autograd.Function):
     apply(sph24, cam24, bg8, seed_words, sample_lo, width, height, spp,
     max_depth, t_min, moving, *solid_inputs(solids, tex)) -> (radiance
     sums (P,3), traced counts (P,) i32), the last arguments the quad and
-    box packs, their active slot counts and the medium pack (or None) of
-    a scene with quads, boxes, media or a light, and the atlas of a
-    scene with textures (megakernel_vjp.solid_inputs).
+    box packs, their layout (active slot counts and the trees, which
+    train_fwd walks) and the medium pack (or None) of a scene with
+    quads, boxes, media or a light, and the atlas of a scene with
+    textures (megakernel_vjp.solid_inputs).
     Forward: one render_tiles_train, whose lengths and winners it saves;
     backward: one tiles_adjoint on them, seeded by the radiance
     cotangent (P,3). The traced counts carry no gradient."""
@@ -439,17 +504,17 @@ class TileTrainChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
                 height, spp, max_depth, t_min, moving, quad24=None,
-                box24=None, counts=None, med24=None, atlas=None, tex=None):
+                box24=None, layout=None, med24=None, atlas=None, tex=None):
         kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
                   height=height, spp=spp, max_depth=max_depth, t_min=t_min,
                   moving=moving)
-        solids, tex = unpack_inputs(quad24, box24, counts, med24, atlas, tex)
+        solids, tex = unpack_inputs(quad24, box24, layout, med24, atlas, tex)
         rad, traced, lengths, winners = render_tiles_train(
             sph24, cam24, bg8, solids=solids, tex=tex, **kw)
         ctx.save_for_backward(sph24, cam24, bg8, lengths, winners, quad24,
                               box24, med24, atlas)
         ctx.kw = kw
-        ctx.counts = counts
+        ctx.layout = layout
         ctx.tex = None if tex is None else dataclasses.replace(tex,
                                                                 atlas=None)
         ctx.mark_non_differentiable(traced)
@@ -459,7 +524,7 @@ class TileTrainChain(torch.autograd.Function):
     def backward(ctx, d_rad, _d_traced):
         (sph24, cam24, bg8, lengths, winners, quad24, box24, med24,
          atlas) = ctx.saved_tensors
-        solids, tex = unpack_inputs(quad24, box24, ctx.counts, med24, atlas,
+        solids, tex = unpack_inputs(quad24, box24, ctx.layout, med24, atlas,
                                     ctx.tex)
         d_sph, d_cam, d_bg, _, d_solids, d_atlas = tiles_adjoint(
             sph24, cam24, bg8, d_rad.to(torch.float32), lengths, winners,

@@ -190,7 +190,10 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     t_hit = where(pick0, root0, root1)
 
     # --- a box winner's t: the face nearest the stored t (its axis and
-    # side replayed) of the slab test in the box's frame.
+    # side replayed) of the slab test in the box's frame, in the kernels'
+    # arithmetic (bounce.cuh slab: -ob/db -+ h/|db|), so that the rebuilt
+    # hit point is theirs and not a rounding away: a path's later hits
+    # amplify it (rttnw_final's marble, 1/64 of a unit a last octave).
     if has_boxes:
         cthb, sthb = sel_b[6], sel_b[7]
         bwx, bwy, bwz = ox - sel_b[0], oy - sel_b[1], oz - sel_b[2]
@@ -202,8 +205,9 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         for ob, db, hk in faces:
             ok_db = db.abs() > 1e-12
             inv_db = 1.0 / where(ok_db, db, 1.0)
-            for side in (-1.0, 1.0):
-                t_f = (side * hk - ob) * inv_db
+            a_t = ob * inv_db
+            b_t = hk * inv_db.abs()
+            for t_f in (-a_t - b_t, b_t - a_t):
                 err = where(ok_db, (t_f - c["t_hit"]).abs(), INF).detach()
                 take = err < best
                 best = where(take, err, best)
@@ -427,9 +431,9 @@ def backward_scope_gap(scene, rr_depth: int = 0):
     """chain_bwd's scope (rrt_tpu's supports_backward): None when it
     covers the scene and option, otherwise (what is outside, the ROADMAP
     Queue A item). The forward kernels' (mk.scope_gap) but more than
-    mk.SOLID_CAP quads or boxes (mk.solid_cap_gap: #9.5's backward part,
-    as the train kernels') and the constant media, which it leaves out by
-    decision (#9.4; the train kernels take them:
+    mk.SOLID_CAP quads or boxes (mk.solid_cap_gap: #9.5's chain part;
+    the train kernels take them) and the constant media, which it leaves
+    out by decision (#9.4; the train kernels take them:
     megakernel_train.train_scope_gap)."""
     gap = mk.scope_gap(scene, rr_depth) or mk.solid_cap_gap(scene)
     if gap is None and scene.has_media:
@@ -817,21 +821,25 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
 def solid_inputs(solids, tex=None) -> tuple:
     """The trailing arguments of BounceChain.apply and
     TileTrainChain.apply for a scene's SolidPacks and TexPack: (quad24,
-    box24, (n_quads, n_boxes, n_media), med24 or None, atlas, tex
-    without its atlas), the first four None without solids, the last
-    two absent without tex."""
+    box24, layout, med24 or None, atlas, tex without its atlas), the
+    first four None without solids, the last two absent without tex.
+    layout, which carries no gradient: (n_quads, n_boxes, n_media,
+    tree), the active counts and the families' accel.SolidBvh (or None),
+    which train_fwd walks past mk.SOLID_CAP active slots."""
     out = ((None,) * 4 if solids is None else (
         solids.quad24, solids.box24,
-        (solids.n_quads, solids.n_boxes, solids.n_media), solids.med24))
+        (solids.n_quads, solids.n_boxes, solids.n_media, solids.tree),
+        solids.med24))
     if tex is None:
         return () if solids is None else out
     return out + (tex.atlas, dataclasses.replace(tex, atlas=None))
 
 
-def unpack_inputs(quad24, box24, counts, med24, atlas, tex):
-    """The SolidPacks and TexPack of solid_inputs' arguments."""
-    solids = None if counts is None else mk.SolidPacks(
-        quad24, box24, *counts, med24)
+def unpack_inputs(quad24, box24, layout, med24, atlas, tex):
+    """The SolidPacks and TexPack of solid_inputs' arguments, the solid
+    trees among them."""
+    solids = None if layout is None else mk.SolidPacks(
+        quad24, box24, *layout[:3], med24, layout[3])
     return solids, (None if tex is None
                     else dataclasses.replace(tex, atlas=atlas))
 
@@ -842,8 +850,9 @@ class BounceChain(torch.autograd.Function):
     sph24, bg8, k_steps, max_depth, t_min, moving, bvh,
     *solid_inputs(solids)) -> state' (16,Q), bvh the sphere pack's
     accel.BvhPack (required on a CUDA device), the last arguments
-    solid_inputs(solids, tex): the quad and box packs, their active slot
-    counts and the medium pack (None: the chain takes no media) of a
+    solid_inputs(solids, tex): the quad and box packs, their layout
+    (active slot counts, trees) and the medium pack (None: the chain
+    takes no media) of a
     scene with quads, boxes or a light, and the atlas of a scene with
     textures.
     Forward: one bounce_steps launch on a copy of the state
@@ -854,9 +863,9 @@ class BounceChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min,
-                moving, bvh, quad24=None, box24=None, counts=None,
+                moving, bvh, quad24=None, box24=None, layout=None,
                 med24=None, atlas=None, tex=None):
-        solids, tex = unpack_inputs(quad24, box24, counts, med24, atlas, tex)
+        solids, tex = unpack_inputs(quad24, box24, layout, med24, atlas, tex)
         kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
                   moving=moving, bvh=bvh)
         out = mk.bounce_steps(state.clone(), keys, sph24, bg8, solids=solids,
@@ -865,7 +874,7 @@ class BounceChain(torch.autograd.Function):
                               out[mk.ROW_BOUNCE].clone(), quad24, box24,
                               atlas)
         ctx.kw = kw
-        ctx.counts = counts
+        ctx.layout = layout
         ctx.tex = None if tex is None else dataclasses.replace(tex,
                                                                 atlas=None)
         return out
@@ -874,7 +883,7 @@ class BounceChain(torch.autograd.Function):
     def backward(ctx, d_out):
         state, keys, sph24, bg8, out_bounce, quad24, box24, atlas = \
             ctx.saved_tensors
-        solids, tex = unpack_inputs(quad24, box24, ctx.counts, None, atlas,
+        solids, tex = unpack_inputs(quad24, box24, ctx.layout, None, atlas,
                                     ctx.tex)
         d_state, d_sph, d_bg, _, d_solids, d_atlas = chain_adjoint(
             state, keys, sph24, bg8, d_out.contiguous(), out_bounce,

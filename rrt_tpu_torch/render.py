@@ -20,14 +20,15 @@ bounce chains (ops/megakernel_vjp.BounceChain: forward
 ops/megakernel.bounce_steps, backward the chain_bwd kernel) with
 differentiable lane compaction between them. The train kernels take
 every scene the forward kernels take (spheres, quads, boxes, lights,
-perlin and image textures, up to MAX_TRAIN_MEDIA constant media); the
-chain takes them but the media, which rrt_tpu's chain leaves out too;
-both loop over at most ops.megakernel.SOLID_CAP quads and boxes, which
-the forward kernels walk past (rttnw_final's 400 ground boxes). A scene
-outside a route's scope (Russian roulette; an image texture on a medium,
-whose eager route is the CPU's; more media, or any on the chain; more
-quads or boxes) raises there on a CUDA device, naming its ROADMAP
-entry.
+perlin and image textures, up to MAX_TRAIN_MEDIA constant media; past
+ops.megakernel.SOLID_CAP quads or boxes train_fwd walks their trees as
+the forward kernels do, and train_bwd loops: rttnw_final's 400 ground
+boxes); the chain takes them but the media, which rrt_tpu's chain
+leaves out too, and loops over at most SOLID_CAP quads and boxes. A
+scene outside a route's scope (Russian roulette; an image texture on a
+medium, whose eager route is the CPU's; more media, or any on the
+chain; more quads or boxes on the chain) raises there on a CUDA device,
+naming its ROADMAP entry.
 `trace_batch`'s checkpointed scan is a CPU route only.
 `_bounce` is one bounce of the plain physics (intersect, shade,
 scatter), shared by the plain versions, the batch driver and the tests.
@@ -313,9 +314,11 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     Each launch is an ops.megakernel_train.TileTrainChain: forward one
     train_fwd kernel, backward one train_bwd kernel (their solid-family
     variant for a scene with quads, boxes, media or a light, whose packs
-    then get gradients too). Budgets above
-    `sample_budget` (default DIFF_SAMPLE_BUDGET) run as several chains
-    over consecutive sample ranges; autograd sums their gradients. The
+    then get gradients too; the packs and the families' trees, which
+    train_fwd walks past SOLID_CAP active slots, are built once a call
+    from the scene as it is, since training moves the boxes). Budgets
+    above `sample_budget` (default DIFF_SAMPLE_BUDGET) run as several
+    chains over consecutive sample ranges; autograd sums their gradients. The
     residual a chain keeps is 33 bytes a path (its length and its share
     of the winners: ops.megakernel_train.boundary_residual_bytes), so no
     chain is recomputed."""

@@ -7,7 +7,8 @@ those of tests/test_torch_queue.py: diffuse within 1e-5 with traced
 totals equal (as tests/test_queue.py holds rrt_tpu's drivers to each
 other); chap12 on 98.5% of pixels within 1e-3 and traced totals within
 1%, rrt_tpu's own eager-vs-jit spread. The port's batch and tile drivers
-trace the same paths through the same plain physics: within 1e-5."""
+trace the same paths through the same plain physics: within 1e-5. The
+passes' and the scope's tests are tests/test_torch_batch_passes.py."""
 
 import dataclasses
 
@@ -17,20 +18,13 @@ import torch
 
 from rrt_tpu import render as jrender
 from rrt_tpu import scenes as jscenes
-from rrt_tpu_torch import convert, render, rng, scenes as tscenes
+from rrt_tpu_torch import render, rng, scenes as tscenes
+
+import _torch_helpers as helpers
 
 W, H, SPP, DEPTH = 48, 27, 4, 8
+SIZE = dict(width=W, height=H, spp=SPP, max_depth=DEPTH)
 SCENE_SPP = {"diffuse": SPP, "chap12": 2}  # see tests/test_torch_queue.py
-
-
-def _cfgs(**kw):
-    # 432-pixel tiles: three, and 1296 = 3 x 432, so rrt_tpu pads no
-    # pixel (its n_traced counts the segments of padding repeats; the
-    # port's last tile is ragged instead).
-    base = dict(width=W, height=H, spp=SPP, max_depth=DEPTH,
-                tile_pixels=432, samples_per_pass=2)
-    base.update(kw)
-    return jrender.RenderConfig(**base), render.RenderConfig(**base)
 
 
 @pytest.fixture(scope="module")
@@ -38,14 +32,16 @@ def reference_batch():
     out = {}
     for name, spp in SCENE_SPP.items():
         j_scene, j_cam = jscenes.SCENES[name](W, H)
-        img, n = jrender.render_image(j_scene, j_cam, _cfgs(spp=spp)[0], 0)
+        img, n = jrender.render_image(
+            j_scene, j_cam, helpers.batch_cfgs(SIZE, spp=spp)[0], 0)
         out[name] = (np.asarray(img), float(n))
     return out
 
 
 def _port_batch(name, **kw):
     scene, cam = tscenes.SCENES[name](W, H)
-    img, n = render.render_image(scene, cam, _cfgs(**kw)[1], 0,
+    img, n = render.render_image(scene, cam,
+                                 helpers.batch_cfgs(SIZE, **kw)[1], 0,
                                  device="cpu")
     return img.numpy(), int(n)
 
@@ -69,36 +65,12 @@ def test_batch_chap12_matches_reference(reference_batch):
 @pytest.mark.parametrize("name", ["diffuse", "chap12"])
 def test_batch_matches_tile_driver(name):
     scene, cam = tscenes.SCENES[name](W, H)
-    cfg = _cfgs()[1]
+    cfg = helpers.batch_cfgs(SIZE)[1]
     tile, n_tile = render.render_image_tiles(scene, cam, cfg, 0,
                                              device="cpu")
     img, n = _port_batch(name)
     np.testing.assert_allclose(img, tile.numpy(), atol=1e-5, rtol=1e-5)
     assert n == int(n_tile)
-
-
-def test_pass_ranges_add_up():
-    """Passes [0,1) + [1,2) are the samples of passes [0,2)."""
-    scene, cam = tscenes.SCENES["chap11"](W, H)
-    cfg = _cfgs()[1]
-    full, n = render.render_image(scene, cam, cfg, 0, device="cpu")
-    parts = [render.render_image(scene, cam, cfg, 0, pass_start=i,
-                                 n_passes=1, device="cpu") for i in (0, 1)]
-    torch.testing.assert_close((parts[0][0] + parts[1][0]) / 2, full,
-                               atol=1e-6, rtol=1e-6)
-    assert int(parts[0][1]) + int(parts[1][1]) == int(n)
-
-
-def test_ragged_last_tile():
-    """Tiles of 500 pixels leave a ragged last tile of 296: the image and
-    the traced count equal the tile driver's, with no padding counted."""
-    scene, cam = tscenes.SCENES["chap11"](W, H)
-    cfg = _cfgs(tile_pixels=500)[1]
-    img, n = render.render_image(scene, cam, cfg, 0, device="cpu")
-    tile, n_tile = render.render_image_tiles(scene, cam, cfg, 0,
-                                             device="cpu")
-    torch.testing.assert_close(img, tile, atol=1e-5, rtol=1e-5)
-    assert int(n) == int(n_tile)
 
 
 def test_trace_batch_kernel_route_matches_broadcast_route():
@@ -168,27 +140,3 @@ def test_differentiable_batch_runs():
     assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
-def _leaves(obj):
-    return {f.name: np.asarray(getattr(obj, f.name))
-            for f in dataclasses.fields(obj)}
-
-
-@pytest.mark.parametrize("driver", ["batch", "queue"])
-def test_out_of_scope_raises(driver):
-    """Russian roulette raises NotImplementedError naming its ROADMAP
-    item in both new drivers; rttnw_final's 400 ground boxes (past
-    SOLID_CAP) render in both since #9.5's rest, its forward part (as
-    constant media since #9.4, the perlin and image textures since #9.5's
-    first part)."""
-    j_scene, j_cam = jscenes.SCENES["rttnw_final"](8, 8)
-    boxes = convert.scene_from_numpy(_leaves(j_scene))
-    cam = convert.camera_from_numpy(_leaves(j_cam))
-    spheres, _ = tscenes.SCENES["chap11"](8, 8)
-    fn = (render.render_image if driver == "batch"
-          else render.render_image_queue)
-    base = dict(width=8, height=8, spp=2, samples_per_pass=2)
-    img, n = fn(boxes, cam, render.RenderConfig(**base), 0, device="cpu")
-    assert torch.isfinite(img).all() and int(n) >= 8 * 8 * 2
-    with pytest.raises(NotImplementedError, match="#9.6"):
-        fn(spheres, cam, render.RenderConfig(**base, rr_depth=4), 0,
-           device="cpu")

@@ -30,10 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
-import rrt_tpu.ops.megakernel as jmk
-import rrt_tpu.ops.megakernel_vjp as jmkv
 from rrt_tpu import diff as jdiff
 from rrt_tpu import render as jrender
 from rrt_tpu import rng as jrng
@@ -41,30 +38,14 @@ from rrt_tpu import scenes as jscenes
 from rrt_tpu.camera import generate_rays as jgenerate_rays
 from rrt_tpu_torch import convert, diff, render, rng
 from rrt_tpu_torch.ops import megakernel as tmk
+from rrt_tpu_torch.ops import megakernel_train as tmkt
 from rrt_tpu_torch.ops import megakernel_vjp as tmkv
+
+import _torch_helpers as helpers
+from _torch_helpers import interpret_pallas  # noqa: F401 (a fixture)
 
 W, H, N, DEPTH, SCHEDULE = 32, 18, 1024, 3, (2, 2)
 MIX = (1.0, 0.7, 0.3)
-
-
-@pytest.fixture(scope="module")
-def interpret_pallas():
-    mp = pytest.MonkeyPatch()
-    orig = pl.pallas_call
-
-    def interp(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    mp.setattr(jmk.pl, "pallas_call", interp)
-    mp.setattr(jmkv.pl, "pallas_call", interp)
-    yield
-    mp.undo()
-
-
-def _leaves(obj):
-    return {f.name: np.asarray(getattr(obj, f.name))
-            for f in dataclasses.fields(obj)}
 
 
 def _lanes():
@@ -112,16 +93,10 @@ def reference(interpret_pallas):
     return get
 
 
-def _port_scene(name):
-    j_scene, j_cam = jscenes.SCENES[name](W, H)
-    return (convert.scene_from_numpy(_leaves(j_scene)),
-            convert.camera_from_numpy(_leaves(j_cam)))
-
-
 def _port_rad(name, path):
     """The port's radiance (3, N) of the lanes through its chain or its
     scan, and the gradient leaves (params, camera) it depends on."""
-    scene, cam = _port_scene(name)
+    scene, cam = helpers.port_scene(name, W, H)
     params = {k: v.detach().clone().requires_grad_()
               for k, v in diff.partition(scene).items()}
     camera = dataclasses.replace(cam, **{
@@ -140,50 +115,9 @@ def _port_rad(name, path):
     return rad, params, camera
 
 
-def _port_grads(rad, params, camera, cot):
-    leaves = list(params.values()) + [getattr(camera, f.name)
-                                      for f in dataclasses.fields(camera)]
-    gs = torch.autograd.grad(rad, leaves, torch.from_numpy(cot),
-                             allow_unused=True)
-    gs = [np.zeros(x.shape, np.float32) if g is None else g.numpy()
-          for x, g in zip(leaves, gs)]
-    names = list(params) + ["camera." + f.name
-                            for f in dataclasses.fields(camera)]
-    return dict(zip(names, gs))
-
-
 def _cotangent(mask=None):
     w = _weight() if mask is None else _weight() * mask
     return (np.asarray(MIX, np.float32)[:, None] * w).astype(np.float32)
-
-
-def _assert_grads_close(got, exp, *, share=1.0, cam_slack=0.0):
-    """test_mk_grad's rule: partition() fields within 2e-3 of their
-    largest gradient (for tables above 64 elements on at least `share`
-    of the elements), Camera fields within 3e-2 of their own plus
-    `cam_slack` of the largest Camera gradient."""
-    cam_max = max(np.abs(v).max() for k, v in exp.items()
-                  if k.startswith("camera."))
-    for k, b in exp.items():
-        a = got[k]
-        assert np.isfinite(a).all(), k
-        if k.startswith("camera."):
-            atol = 3e-2 * max(np.abs(b).max(), 1e-4) + cam_slack * cam_max
-            assert (np.abs(a - b) <= atol).all(), (k, a, b)
-            continue
-        close = np.abs(a - b) <= 2e-3 * max(np.abs(b).max(), 1e-4)
-        if a.size > 64:
-            assert close.mean() >= share, (k, close.mean())
-        else:
-            assert close.all(), (k, a, b)
-
-
-def _jax_grads(vjp, cot):
-    gp, gc = vjp(jnp.asarray(cot))
-    out = {k: np.asarray(v) for k, v in gp.items()}
-    out.update({"camera." + f.name: np.asarray(getattr(gc, f.name))
-                for f in dataclasses.fields(gc)})
-    return out
 
 
 @pytest.mark.parametrize("depth", [0, 1, 3, 8, 9, 12, 50])
@@ -220,7 +154,7 @@ def test_compact_lanes_matches_reference():
 
 @pytest.mark.parametrize("name", ["chap12", "diffuse"])
 def test_fused_forward_matches_nondiff(name):
-    scene, cam = _port_scene(name)
+    scene, cam = helpers.port_scene(name, W, H)
     px, py = (torch.from_numpy(a) for a in _lanes())
     keys = rng.sample_keys(rng.key_words(3), py * W + px, 0)
     o, d, tm = render.generate_rays(cam, px, py, W, H, keys)
@@ -241,9 +175,10 @@ def test_chain_matches_scan():
     lc = float((torch.from_numpy(cot) * rad_c.detach()).sum())
     ls = float((torch.from_numpy(cot) * rad_s.detach()).sum())
     assert lc == pytest.approx(ls, rel=1e-5)
-    got, exp = _port_grads(rad_c, pc, cc, cot), _port_grads(rad_s, ps, cs, cot)
+    got, exp = (helpers.field_grads(rad_c, pc, cc, cot),
+                helpers.field_grads(rad_s, ps, cs, cot))
     assert np.abs(exp["sphere_radius"]).max() > 0
-    _assert_grads_close(got, exp)
+    helpers.assert_grads_close(got, exp)
     assert int(tmkv.chain_adjoint.replay_mismatches) == 0
 
 
@@ -270,10 +205,10 @@ def test_matches_reference(reference, name, port_path, ref_path):
     cot = _cotangent(agree)
     loss = float((cot * rad.detach().numpy()).sum())
     assert loss == pytest.approx(float((cot * ref_rad).sum()), rel=1e-4)
-    got = _port_grads(rad, params, camera, cot)
-    exp = _jax_grads(vjp, cot)
+    got = helpers.field_grads(rad, params, camera, cot)
+    exp = helpers.jax_grads(vjp, cot)
     assert np.abs(exp["sphere_radius"]).max() > 0
-    _assert_grads_close(got, exp, share=0.995,
+    helpers.assert_grads_close(got, exp, share=0.995,
                         cam_slack=2e-2 if name == "chap12" else 0.0)
 
 
@@ -299,8 +234,8 @@ def test_render_image_differentiable_matches_reference():
                                     j_cfg, 0, differentiable=True)[0]
 
     ref, vjp = jax.vjp(j_image, jdiff.partition(j_scene), j_cam)
-    scene, cam = (convert.scene_from_numpy(_leaves(j_scene)),
-                  convert.camera_from_numpy(_leaves(j_cam)))
+    scene, cam = (convert.scene_from_numpy(helpers.leaves(j_scene)),
+                  convert.camera_from_numpy(helpers.leaves(j_cam)))
     params = {k: v.detach().clone().requires_grad_()
               for k, v in diff.partition(scene).items()}
     camera = dataclasses.replace(cam, **{
@@ -312,10 +247,10 @@ def test_render_image_differentiable_matches_reference():
     np.testing.assert_allclose(img.detach().numpy(), np.asarray(ref),
                                atol=1e-5, rtol=0)
     assert int(n) > 16 * 8 * 2
-    got = _port_grads(img, params, camera, w)
-    exp = _jax_grads(vjp, w)
+    got = helpers.field_grads(img, params, camera, w)
+    exp = helpers.jax_grads(vjp, w)
     assert np.abs(exp["tex_color1"]).max() > 0
-    _assert_grads_close(got, exp)
+    helpers.assert_grads_close(got, exp)
     assert tmkv.chain_adjoint.launches == before  # plain versions on the CPU
 
 
@@ -323,7 +258,7 @@ def test_differentiable_image_equals_forward():
     """The differentiable image is the forward image: the batch driver's
     chain and its intersect-kernel route trace the same paths."""
     _, cfg = _image_cfgs(tile_pixels=40)
-    scene, cam = _port_scene("chap12")
+    scene, cam = helpers.port_scene("chap12", W, H)
     img, n = render.render_image(scene, cam, cfg, 0, differentiable=True,
                                  device="cpu")
     fwd, n_fwd = render.render_image(scene, cam, cfg, 0, device="cpu")
@@ -332,7 +267,7 @@ def test_differentiable_image_equals_forward():
 
 
 def _chain_inputs(alive=True):
-    scene, cam = _port_scene("chap12")
+    scene, cam = helpers.port_scene("chap12", W, H)
     px, py = (torch.from_numpy(a) for a in _lanes())
     keys = rng.sample_keys(rng.key_words(0), py * W + px, 0)
     o, d, tm = render.generate_rays(cam, px, py, W, H, keys)
@@ -388,18 +323,24 @@ def test_render_image_diff_out_of_scope_still_raises(caplog, monkeypatch):
     scan on the CPU; on a CUDA device it raises naming the ROADMAP
     item."""
     monkeypatch.setattr(render, "_warned_fallbacks", set())
-    scene, cam = _port_scene("chap12")
+    scene, cam = helpers.port_scene("chap12", W, H)
     cfg = render.RenderConfig(width=16, height=8, spp=2, max_depth=2,
                               samples_per_pass=2)
-    # More quads than the train kernels and chain_bwd loop over
-    # (rttnw_final's boxes, #9.5's backward part; the forward kernels
-    # walk them): on the CPU the scan renders it, on a CUDA device it
-    # raises before anything runs.
-    many = dataclasses.replace(scene, n_quads_active=tmk.SOLID_CAP + 1)
+    # More constant media than the train kernels take (#9.4; the chain
+    # leaves media out): on the CPU the scan renders it, on a CUDA device
+    # it raises before anything runs. (More quads or boxes than
+    # SOLID_CAP, which this test once used, now take the train kernels:
+    # tests/test_torch_rttnw_grad.py.)
+    from rrt_tpu_torch.scene import SceneBuilder
+    fog = SceneBuilder()
+    for i in range(tmkt.MAX_TRAIN_MEDIA + 1):
+        fog.medium_sphere((float(i), 0.0, 0.0), 0.4, 0.5, (0.5, 0.5, 0.5))
+    many = fog.build()
+    assert render.diff_fallback_reason(many, cfg) is not None
     img, _ = render.render_image_diff(many, cam, cfg, 0, device="cpu")
     assert torch.isfinite(img).all()
     assert "batch driver's differentiable path" in caplog.text
-    with pytest.raises(NotImplementedError, match="#9.5"):
+    with pytest.raises(NotImplementedError, match="#9.4"):
         render.render_image_diff(many, cam, cfg, 0, device="cuda")
 
 
@@ -424,130 +365,3 @@ def test_fused_schedule_splits_long_tails(depth):
         assert schedule == (4, 4, 64, 28)
 
 
-def _deep_cfg(**kw):
-    base = dict(width=16, height=8, spp=1, max_depth=80, samples_per_pass=1,
-                tile_pixels=128)
-    base.update(kw)
-    return render.RenderConfig(**base)
-
-
-def test_chain_matches_scan_at_depth_80():
-    """trace_batch(differentiable=True, fused_vjp=True) at depth 80, chains
-    (4, 4, 64, 9), against the checkpointed scan (fused_vjp=False) at
-    16x8, 1 spp: the same plain physics, so the loss within 1e-5
-    relative; the gradients by test_chain_matches_scan's rule, lanes
-    whose radiance parts by 1e-3 relative (gradcheck.sample_agreement's
-    rule) weighted 0."""
-    cfg = _deep_cfg()
-    scene, cam = _port_scene("chap12")
-    n = cfg.width * cfg.height
-    ids = torch.arange(n)
-    px, py = ids % cfg.width, ids // cfg.width
-    keys = rng.sample_keys(rng.key_words(0), py * cfg.width + px, 0)
-    assert render._fused_schedule(cfg.max_depth) == (4, 4, 64, 9)
-    tmkv.chain_adjoint.replay_mismatches = 0
-    out = {}
-    for fused in (True, False):
-        params = {k: v.detach().clone().requires_grad_()
-                  for k, v in diff.partition(scene).items()}
-        camera = dataclasses.replace(cam, **{
-            f.name: getattr(cam, f.name).detach().clone().requires_grad_()
-            for f in dataclasses.fields(cam)})
-        o, d, tm = render.generate_rays(camera, px, py, cfg.width,
-                                        cfg.height, keys)
-        rad, _ = render.trace_batch(diff.combine(scene, params), o, d, tm,
-                                    keys, cfg.max_depth, 1e-3,
-                                    differentiable=True, fused_vjp=fused)
-        out[fused] = (rad, params, camera)
-    a, b = out[True][0].detach(), out[False][0].detach()
-    agree = ((a - b).abs() <= 1e-3 * b.abs() + 1e-6).all(dim=0).numpy()
-    assert agree.mean() >= 0.985, agree.mean()
-    w = np.sin(np.arange(n) * 0.1).astype(np.float32) * agree
-    cot = (np.asarray(MIX, np.float32)[:, None] * w).astype(np.float32)
-    lc = float((torch.from_numpy(cot) * a).sum())
-    ls = float((torch.from_numpy(cot) * b).sum())
-    assert lc == pytest.approx(ls, rel=1e-5)
-    got, exp = (_port_grads(*out[f], cot) for f in (True, False))
-    assert np.abs(exp["sphere_radius"]).max() > 0
-    _assert_grads_close(got, exp)
-    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
-
-
-def test_matches_reference_at_depth_80(interpret_pallas):
-    """trace_batch(differentiable=True, fused_vjp=True) at depth 80, where
-    the port splits its tail into chains (4, 4, 64, 9), against rrt_tpu's
-    trace_batch(differentiable=True) under jax.vjp, chap12 16x8, 1 spp:
-    lanes whose radiance parts by gradcheck.sample_agreement's rule (1e-3
-    relative) weighted 0; at most 3 of the 128 lanes may be (2 are,
-    measured: 80 bounces give a last-bit decision flip more chances than
-    the module's 4); then the module's rule for the two packages."""
-    w, h, depth = 16, 8, 80
-    j_scene, j_cam = jscenes.SCENES["chap12"](w, h)
-    scene = convert.scene_from_numpy(_leaves(j_scene))
-    cam = convert.camera_from_numpy(_leaves(j_cam))
-    ids = np.arange(w * h)
-    px, py = ids % w, ids // w
-
-    def j_rad(params, camera):
-        jpx, jpy = jnp.asarray(px, jnp.int32), jnp.asarray(py, jnp.int32)
-        keys = jrng.sample_keys(jax.random.key(0),
-                                (jpy * w + jpx).astype(jnp.uint32), 0)
-        o, d, tm = jgenerate_rays(camera, jpx, jpy, w, h, keys)
-        r, _ = jrender.trace_batch(jdiff.combine(j_scene, params), o, d, tm,
-                                   keys, depth, 1e-3, differentiable=True)
-        return jnp.stack([r.x, r.y, r.z])
-
-    ref_rad, vjp = jax.vjp(jax.jit(j_rad), jdiff.partition(j_scene), j_cam)
-    ref_rad = np.asarray(ref_rad)
-    params = {k: v.detach().clone().requires_grad_()
-              for k, v in diff.partition(scene).items()}
-    camera = dataclasses.replace(cam, **{
-        f.name: getattr(cam, f.name).detach().clone().requires_grad_()
-        for f in dataclasses.fields(cam)})
-    tpx, tpy = torch.from_numpy(px), torch.from_numpy(py)
-    keys = rng.sample_keys(rng.key_words(0), tpy * w + tpx, 0)
-    o, d, tm = render.generate_rays(camera, tpx, tpy, w, h, keys)
-    assert render._fused_schedule(depth) == (4, 4, 64, 9)
-    tmkv.chain_adjoint.replay_mismatches = 0
-    rad, _ = render.trace_batch(diff.combine(scene, params), o, d, tm, keys,
-                                depth, 1e-3, differentiable=True,
-                                fused_vjp=True)
-    a = rad.detach().numpy()
-    agree = (np.abs(a - ref_rad) <= 1e-3 * np.abs(ref_rad) + 1e-6).all(axis=0)
-    assert (~agree).sum() <= 3, agree.mean()
-    weight = np.sin(ids * 0.1).astype(np.float32) * agree
-    cot = (np.asarray(MIX, np.float32)[:, None] * weight).astype(np.float32)
-    loss = float((cot * a).sum())
-    assert loss == pytest.approx(float((cot * ref_rad).sum()), rel=1e-4)
-    got = _port_grads(rad, params, camera, cot)
-    exp = _jax_grads(vjp, cot)
-    assert np.abs(exp["sphere_radius"]).max() > 0
-    _assert_grads_close(got, exp, share=0.995, cam_slack=2e-2)
-    assert int(tmkv.chain_adjoint.replay_mismatches) == 0
-
-
-def test_render_image_diff_and_train_step_at_depth_80(caplog):
-    """Past the train kernels' records (max_depth + 1 > MAX_RECORDS)
-    render_image_diff routes to render_image(differentiable=True), whose
-    chains split the depth, after one log line, as rrt_tpu's scope
-    fallback does; make_train_step takes the same route, at 100 too."""
-    scene, cam = _port_scene("chap12")
-    cfg = _deep_cfg()
-    reason = render.diff_fallback_reason(scene, cfg)
-    assert reason is not None and "records" in reason
-    assert render.diff_fallback_reason(
-        scene, dataclasses.replace(cfg, max_depth=63)) is None
-    before = tmkv.chain_adjoint.launches
-    img, n = render.render_image_diff(scene, cam, cfg, 0, device="cpu")
-    fwd, n_fwd = render.render_image(scene, cam, cfg, 0, device="cpu")
-    torch.testing.assert_close(img, fwd, atol=2e-4, rtol=0)
-    assert int(n) == int(n_fwd)
-    assert "batch driver's differentiable path" in caplog.text
-    assert tmkv.chain_adjoint.launches == before  # plain versions here
-    for depth in (80, 100):
-        step = diff.make_train_step(dataclasses.replace(cfg,
-                                                        max_depth=depth),
-                                    lr=0.5, device="cpu")
-        new, new_cam, loss = step(scene, cam, torch.full((8, 16, 3), 0.2), 0)
-        assert torch.isfinite(loss)
-        assert not torch.equal(new.tex_color1, scene.tex_color1)

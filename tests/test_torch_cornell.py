@@ -438,10 +438,11 @@ def _no_spheres(sph24):
 def test_scopes():
     """The forward kernels, the train kernels and chain_bwd take cornell
     (#9.7 is ported): its gradients need no fallback. rttnw_final, whose
-    400 ground boxes pass SOLID_CAP, is in SCENES and the forward
-    kernels' scope (#9.5's rest, its forward part), and outside the
-    train kernels' and chain_bwd's, naming #9.5 (its backward part): on
-    the CPU render_image_diff takes the scan; cornell_smoke (#9.4) is in
+    400 ground boxes pass SOLID_CAP, is in SCENES and the forward and
+    train kernels' scopes (#9.5's rest: its forward part, and the train
+    kernels of its backward part), and outside chain_bwd's, naming #9.5
+    (its chain part): on the CPU render_image_diff takes the train
+    kernels' plain versions; cornell_smoke (#9.4) is in
     SCENES, and in every scope but chain_bwd's; simple_light and earth
     (#9.5's first part) are in SCENES and in every scope."""
     scene, cam = tscenes.cornell_box_scene(8, 8)
@@ -468,19 +469,21 @@ def test_scopes():
         t_scene = convert.scene_from_numpy(_leaves(j_scene))
         t_cam = convert.camera_from_numpy(_leaves(j_cam))
         assert tmk.scope_gap(t_scene) is None, name
-        assert tmkt.train_scope_gap(t_scene)[1] == item, name
+        assert tmkt.train_scope_gap(t_scene) is None, name
         assert tmkv.backward_scope_gap(t_scene)[1] == item, name
-        assert "backward part" in tmkv.backward_scope_gap(t_scene)[0]
+        assert "chain part" in tmkv.backward_scope_gap(t_scene)[0]
         assert name in tscenes.SCENES
         img, _ = render.render_image_tiles(t_scene, t_cam, cfg, 0,
                                            device="cpu")
-        assert render.diff_fallback_reason(t_scene, cfg) is not None
+        assert render.diff_fallback_reason(t_scene, cfg) is None
         diff_img, _ = render.render_image_diff(
             t_scene, t_cam, dataclasses.replace(cfg, samples_per_pass=1), 0,
             device="cpu")
         assert torch.isfinite(img).all() and torch.isfinite(diff_img).all()
         with pytest.raises(NotImplementedError, match=item):
-            render.render_image_diff(t_scene, t_cam, cfg, 0, device="cuda")
+            render.render_image(t_scene, t_cam, dataclasses.replace(
+                cfg, samples_per_pass=1), 0, differentiable=True,
+                device="cuda")
 
 
 def test_cornell_gradient_raises_for_a_cuda_device():
@@ -512,26 +515,33 @@ def test_cornell_gradient_raises_for_a_cuda_device():
 
 
 def test_solid_cap_raises():
-    """Past SOLID_CAP active quads or boxes the train wrappers raise
-    naming the item that lifts their cap (rttnw_final's 400 ground boxes
-    in the backwards, #9.5's backward part); the forward kernels' plain
-    versions take them."""
+    """Past SOLID_CAP active quads or boxes chain_adjoint raises naming the
+    item that lifts its cap (#9.5's chain part); the train wrappers take
+    them (train_fwd walks a family's tree on the card, train_bwd loops),
+    as the forward kernels' plain versions do."""
     scene, cam = tscenes.cornell_box_scene(8, 8)
     solids = dataclasses.replace(tmk.pack_solids(scene),
                                  n_boxes=tmk.SOLID_CAP + 1)
     sph24 = tmk.pack_spheres_full(scene)
+    rad, _, lengths, winners = tmkt.render_tiles_train(
+        sph24, tmk.pack_camera(cam, 8, 8), tmk.pack_bg(scene),
+        seed_words=(0, 0), sample_lo=0, width=8, height=8, spp=1,
+        max_depth=2, t_min=1e-3, moving=False, solids=solids)
+    assert torch.isfinite(rad).all()
+    state = torch.zeros((tmk.STATE_ROWS, 4))
     with pytest.raises(NotImplementedError, match="#9.5"):
-        tmkt.render_tiles_train(
-            sph24, tmk.pack_camera(cam, 8, 8), tmk.pack_bg(scene),
-            seed_words=(0, 0), sample_lo=0, width=8, height=8, spp=1,
-            max_depth=2, t_min=1e-3, moving=False, solids=solids)
+        tmkv.chain_adjoint(state, torch.zeros((2, 4), dtype=torch.int32),
+                           sph24, tmk.pack_bg(scene), state, torch.zeros(4),
+                           k_steps=1, max_depth=2, t_min=1e-3, moving=False,
+                           solids=solids)
     o = torch.zeros((3, 4))
     t, _, _ = tmk.intersect_only(o, o + 1.0, sph24, t_min=1e-3,
                                  solids=solids)
     assert t.shape == (4,)
     big = dataclasses.replace(scene, n_boxes_active=tmk.SOLID_CAP + 1)
     assert tmk.scope_gap(big) is None
-    assert tmkt.train_scope_gap(big)[1] == "#9.5"
+    assert tmkt.train_scope_gap(big) is None
+    assert tmkv.backward_scope_gap(big)[1] == "#9.5"
 
 
 DEPTH, N = 4, 256

@@ -210,14 +210,15 @@ def test_quad_frame_vjp_matches_autograd():
 
 def test_winner_codes_round_trip():
     """A sphere's slot, QUAD_CODE + a quad's, BOX_CODE + a box's, -1 a
-    miss: every code fits an int16 and decodes to its family and slot."""
+    miss (CODE_SPAN codes a family after the spheres'): every code fits
+    an int16 and decodes to its family and slot."""
     fam = torch.tensor([geometry.FAM_SPHERE, geometry.FAM_SPHERE,
                         geometry.FAM_QUAD, geometry.FAM_QUAD, geometry.FAM_BOX,
                         geometry.FAM_BOX, geometry.FAM_NONE])
-    idx = torch.tensor([0, tmk.MAX_SLOTS - 1, 0, tmk.SOLID_CAP - 1, 0,
-                        tmk.SOLID_CAP - 1, 0])
+    idx = torch.tensor([0, tmk.MAX_SLOTS - 1, 0, tmk.CODE_SPAN - 1, 0,
+                        tmk.CODE_SPAN - 1, 0])
     code = tmk.encode_winner(fam, idx)
-    assert code.tolist() == [0, 3071, 3072, 3135, 3136, 3199, -1]
+    assert code.tolist() == [0, 3071, 3072, 11263, 11264, 19455, -1]
     assert int(code.max()) <= torch.iinfo(torch.int16).max
     f2, i2 = tmk.decode_winner(code.to(torch.int16))
     assert torch.equal(f2, fam)
@@ -375,9 +376,10 @@ def test_light_emits_from_behind():
 
 def test_out_of_scope_still_raises():
     """Media on chain_bwd and more than MAX_TRAIN_MEDIA media on the
-    train kernels, more quads than SOLID_CAP (rttnw_final's boxes, #9.5's
-    rest; the perlin and image textures are ported) and Russian roulette
-    stay outside the backwards, raising with their ROADMAP items."""
+    train kernels, more quads than SOLID_CAP on chain_bwd (rttnw_final's
+    boxes, #9.5's chain part; the train kernels take them, and the perlin
+    and image textures are ported) and Russian roulette stay outside the
+    backwards, raising with their ROADMAP items."""
     (_, _), (smoke, smoke_cam) = _both("cornell_smoke", 8, 8)
     cornell, cornell_cam = tscenes.cornell_box_scene(8, 8)
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
@@ -386,6 +388,10 @@ def test_out_of_scope_still_raises():
     assert tmkv.backward_scope_gap(cornell, rr_depth=2)[1] == "#9.6"
     perlin = dataclasses.replace(cornell, n_quads_active=tmk.SOLID_CAP + 1)
     assert tmkv.backward_scope_gap(perlin)[1] == "#9.5"
+    assert tmkt.train_scope_gap(perlin) is None
+    with pytest.raises(NotImplementedError, match="#9.5"):
+        render.render_image(perlin, cornell_cam, dataclasses.replace(
+            cfg, samples_per_pass=1), 0, differentiable=True, device="cuda")
     fog = SceneBuilder()
     for i in range(tmkt.MAX_TRAIN_MEDIA + 1):
         fog.medium_sphere((float(i), 0.0, 0.0), 0.4, 0.5, (0.5, 0.5, 0.5))
@@ -393,7 +399,6 @@ def test_out_of_scope_still_raises():
     assert tmkt.train_scope_gap(fog)[1] == "#9.4"
     for scene, camera, c, item in (
             (fog, smoke_cam, cfg, "#9.4"),
-            (perlin, cornell_cam, cfg, "#9.5"),
             (cornell, cornell_cam, dataclasses.replace(cfg, rr_depth=2),
              "#9.6")):
         with pytest.raises(NotImplementedError, match=item):

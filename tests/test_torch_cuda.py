@@ -23,7 +23,10 @@ variants, with and without kMoving and kTex) on
 scenes.book2.many_solids_scene, past SOLID_CAP quads and boxes, each
 against its plain version (tile_render and bounce_steps by the rules
 above, intersect_only bit for bit), and all three the solid scan's
-outputs (accel.solid_scan: the same families as loops) bit for bit."""
+outputs (accel.solid_scan: the same families as loops) bit for bit;
+train_fwd's kWalk variant tile_render's outputs bit for bit, and
+train_bwd's loop past SOLID_CAP against its plain version, on
+rttnw_final and many_solids_scene."""
 
 import dataclasses
 
@@ -1732,10 +1735,12 @@ def test_forward_smem_past_the_opt_in_raises_before_launch(device):
 
 def test_rttnw_final_renders_and_its_gradient_raises_on_the_card(device):
     """rttnw_final (400 ground boxes) renders on the tile driver with the
-    kWalk variant; its gradient raises NotImplementedError naming #9.5
-    (the backward part) before any launch on make_train_step,
-    render_image_diff and render_image(differentiable=True), and the
-    train wrapper refuses its packs."""
+    kWalk variant; its gradient runs on train_fwd and train_bwd
+    (make_train_step, render_image_diff) with no replay mismatch and no
+    launch of bounce_steps or chain_bwd; the chain's route
+    (render_image(differentiable=True)) still raises NotImplementedError
+    naming #9.5 (its chain part) before any launch, and chain_adjoint
+    refuses its packs."""
     from rrt_tpu_torch import diff, render
     scene, cam = tscenes.SCENES["rttnw_final"](40, 27)
     cfg = render.RenderConfig(width=40, height=27, spp=2, max_depth=8,
@@ -1749,21 +1754,168 @@ def test_rttnw_final_renders_and_its_gradient_raises_on_the_card(device):
                 tmkt.render_tiles_train, tmkt.tiles_adjoint,
                 tmkv.chain_adjoint)
     launches = [w.launches for w in wrappers]
-    for fn in (lambda: diff.make_train_step(cfg, device=device)(
-                   scene, cam, target, 1),
-               lambda: render.render_image_diff(scene, cam, cfg, 0,
-                                                device=device),
-               lambda: render.render_image(scene, cam, cfg, 0,
-                                           differentiable=True,
-                                           device=device)):
-        with pytest.raises(NotImplementedError, match="#9.5"):
-            fn()
-    with pytest.raises(NotImplementedError, match="backward part"):
-        tmkt.render_tiles_train(
-            tmk.pack_spheres_full(scene).to(device),
-            tmk.pack_camera(cam, 40, 27).to(device),
-            tmk.pack_bg(scene).to(device), seed_words=(0, 0), sample_lo=0,
-            width=40, height=27, spp=1, max_depth=8, t_min=1e-3, moving=True,
-            solids=tmk.pack_solids(scene, device),
-            tex=tmk.pack_textures(scene, device))
-    assert launches == [w.launches for w in wrappers]
+    tmkt.tiles_adjoint.replay_mismatches = 0
+    _, _, loss = diff.make_train_step(cfg, device=device)(scene, cam, target,
+                                                          1)
+    d_img, _ = render.render_image_diff(scene, cam, cfg, 0, device=device)
+    after = [w.launches for w in wrappers]
+    assert bool(torch.isfinite(loss)) and torch.isfinite(d_img).all()
+    assert after[3] == launches[3] + 2 and after[4] == launches[4] + 1
+    assert after[1] == launches[1] and after[5] == launches[5]
+    assert int(tmkt.tiles_adjoint.replay_mismatches) == 0
+    with pytest.raises(NotImplementedError, match="#9.5"):
+        render.render_image(scene, cam, cfg, 0, differentiable=True,
+                            device=device)
+    st, keys, sph, bg = _lane_state(device)
+    solids = dataclasses.replace(tmk.pack_solids(scene, device), n_media=0,
+                                 med24=None)
+    with pytest.raises(NotImplementedError, match="chain part"):
+        tmkv.chain_adjoint(st, keys, sph, bg, torch.zeros_like(st),
+                           st[tmk.ROW_BOUNCE].clone(), k_steps=1, max_depth=8,
+                           t_min=1e-3, moving=False, bvh=_tree(sph),
+                           solids=solids)
+    assert after == [w.launches for w in wrappers]
+
+
+# ---------------------------------------------------------------------------
+# The train kernels past SOLID_CAP: train_fwd's kWalk instantiations walk
+# the solid families' trees, train_bwd loops over every active quad and
+# box (rttnw_final, many_solids_scene)
+# ---------------------------------------------------------------------------
+
+
+def _walk_train_case(device, name, spp=2, depth=50):
+    """(scene, camera, RenderConfig, packs, render_tiles_train keywords
+    with the SolidPacks and their trees, the sphere BVH) of rttnw_final
+    at 40x27 or of many_solids_scene ("many", moving and marbled) at
+    64x48."""
+    from rrt_tpu_torch import render
+    if name == "rttnw_final":
+        w, h = 40, 27
+        scene, cam = tscenes.SCENES[name](w, h)
+    else:
+        w, h = 64, 48
+        scene, cam = book2.many_solids_scene(w, h, moving=True, marble=True)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    packs = [p.detach() for p in packs]
+    solids = tmk.pack_solids(scene, device)
+    assert solids.tree.box.n_nodes > 0
+    return scene, cam, cfg, packs, _kw(
+        width=w, height=h, spp=spp, max_depth=depth,
+        moving=scene.has_moving, solids=solids,
+        tex=tmk.pack_textures(scene, device)), bvh
+
+
+@pytest.mark.parametrize("name", ["rttnw_final", "many"])
+def test_walk_train_fwd_equals_tile_render(device, name):
+    """train_fwd's kWalk variant gives tile_render's radiance and traced
+    counts bit for bit (both walk the solid trees, the loop's winners
+    bit for bit); its pooled winner codes are each sample's traced alone
+    (pool_faults 0) and the plain version's on every agreeing path, boxes
+    past slot 63 among them; the train kernels' blocks an SM at their
+    shared memory."""
+    from rrt_tpu_torch import gradcheck
+    _, _, _, packs, kw, bvh = _walk_train_case(device, name)
+    before = tmkt.render_tiles_train.launches
+    rad, traced, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    assert tmkt.render_tiles_train.launches == before + 1
+    ref, ref_traced = tmk.render_tiles(*packs, bvh=bvh, **kw)
+    assert torch.equal(rad, ref) and torch.equal(traced, ref_traced)
+    assert torch.equal(lengths.sum(dim=0, dtype=torch.int32), traced)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.agree.float().mean() >= 0.98
+    faults, compared = gradcheck.pool_faults(winners, lengths, agreement)
+    assert compared > 0 and faults == 0
+    faults, compared, _ = gradcheck.winner_faults(winners, lengths,
+                                                  agreement)
+    assert compared > 0 and faults <= 1e-3 * compared
+    fam, idx = tmk.decode_winner(winners[winners >= 0])
+    assert bool(((fam == 3) & (idx >= tmk.SOLID_CAP)).any())
+    # rttnw_final's 1,024 moving sphere slots at 32 bytes, 1 quad and 400
+    # boxes' rows (16 * (3 + 2 * 400) + 4 bytes), and train_fwd's trees.
+    smem = {"train_fwd": 32 * 1024 + 16 * 803 + 4 + 12
+            + kw["solids"].tree.smem_bytes(),
+            "train_bwd": 32 * 1024 + 16 * 803 + 4}
+    for kernel in tmkt.TRAIN_KERNELS:
+        b = tmkt.train_blocks(kernel, packs[0], moving=kw["moving"],
+                              solids=kw["solids"], tex=kw["tex"])
+        assert b["blocks"] >= 1
+        assert 0 < b["smem_bytes"] <= b["room"]
+        if name == "rttnw_final":
+            assert b["smem_bytes"] == smem[kernel]
+
+
+@pytest.mark.parametrize("name", ["rttnw_final", "many"])
+def test_walk_train_bwd_matches_plain_version(device, name):
+    """train_bwd past SOLID_CAP (a stored box winner tested alone, the
+    segments past the pool looping over every box) against its plain
+    version by test_train_bwd_matches_plain_version's rule (gradcheck),
+    box_center and box_half among the fields; no replay mismatch, from
+    the winners or without them; the gradients not all 0."""
+    from rrt_tpu_torch import diff, gradcheck
+    scene, cam, cfg, packs, kw, _ = _walk_train_case(device, name)
+    _, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    agreement = gradcheck.sample_agreement(packs, kw)
+    assert agreement.agree.float().mean() >= 0.98
+    n = kw["width"] * kw["height"]
+    weight = torch.sin(torch.arange(n, device=device) * 0.1) * agreement.agree
+    d_rad = (weight[:, None] * torch.tensor(_MIX, device=device)).contiguous()
+    before = tmkt.tiles_adjoint.launches
+    k = tmkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
+    scan = tmkt.tiles_adjoint(*packs, d_rad, lengths, None, **kw)
+    p = tmkt.tiles_adjoint_reference(*packs, d_rad, agreement.lengths, None,
+                                     **kw)
+    assert tmkt.tiles_adjoint.launches == before + 2
+    assert int(k[3]) == 0 and int(scan[3]) == 0 and int(p[3]) == 0
+    assert torch.equal(k[1], scan[1]) and torch.equal(k[2], scan[2])
+    kp, kc = diff.field_grads(scene, cam, cfg, *k[:3], k[4], device=device)
+    pp, pc = diff.field_grads(scene, cam, cfg, *p[:3], p[4], device=device)
+    faults, _ = gradcheck.field_grad_faults(kp, kc, pp, pc)
+    assert not faults, faults
+    # rttnw_final's ground is solid under a black background, so its
+    # boxes' positions get no gradient (as cornell's walls): its albedos
+    # do; many_solids_scene's sky gives the boxes past slot 63 one.
+    field = "tex_color1" if name == "rttnw_final" else "box_center"
+    rows = pp[field] if name == "rttnw_final" else pp[field][tmk.SOLID_CAP:]
+    assert rows.abs().max() > 0
+
+
+def test_train_smem_past_the_opt_in_raises_before_launch(device):
+    """7,000 boxes, whose rows (and train_fwd's tree) exceed what a block
+    may opt into, raise NotImplementedError naming the ROADMAP entry
+    before any launch of the train kernels."""
+    _, _, _, packs, kw, _ = _walk_train_case(device, "many", spp=1,
+                                             depth=8)
+    solids = kw["solids"]
+    rs = np.random.RandomState(0)
+    box24 = torch.zeros((24, 7000))
+    box24[0:3] = torch.from_numpy(rs.uniform(-1000.0, 1000.0, (3, 7000)))
+    box24[3:6] = torch.from_numpy(rs.uniform(1.0, 10.0, (3, 7000)))
+    box24[6] = 1.0
+    box24 = box24.to(device)
+    big = dataclasses.replace(
+        solids, box24=box24, n_boxes=7000,
+        tree=accel.pack_solid_bvh(solids.quad24, box24, solids.n_quads,
+                                  7000))
+    wrappers = (tmkt.render_tiles_train, tmkt.tiles_adjoint)
+    launches = [w.launches for w in wrappers]
+    rad, _, lengths, winners = tmkt.render_tiles_train(*packs, **kw)
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        tmkt.render_tiles_train(*packs, **dict(kw, solids=big))
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        tmkt.tiles_adjoint(*packs, torch.ones_like(rad), lengths, winners,
+                           **dict(kw, solids=big))
+    assert [w.launches for w in wrappers] == [launches[0] + 1, launches[1]]
+
+
+def test_walk_train_fwd_needs_the_trees(device):
+    """On the card train_fwd walks a family past SOLID_CAP or raises: no
+    loop stands in for a missing tree."""
+    _, _, _, packs, kw, _ = _walk_train_case(device, "rttnw_final", spp=1,
+                                             depth=8)
+    before = tmkt.render_tiles_train.launches
+    with pytest.raises(ValueError, match="trees"):
+        tmkt.render_tiles_train(*packs, **dict(
+            kw, solids=dataclasses.replace(kw["solids"], tree=None)))
+    assert tmkt.render_tiles_train.launches == before

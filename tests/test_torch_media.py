@@ -292,16 +292,16 @@ def test_drivers_agree_and_match_reference(interpret_pallas, name):
 
 
 def test_medium_winners_are_coded():
-    """A medium winner's code is MEDIUM_CODE + its slot (3,200, after the
-    spheres', quads' and boxes'), and the plain train forward stores them
-    on cornell_smoke."""
+    """A medium winner's code is MEDIUM_CODE + its slot (19,456, after the
+    spheres' 3,072 codes and the quads' and boxes' CODE_SPAN each), and
+    the plain train forward stores them on cornell_smoke."""
     fam = torch.tensor([geometry.FAM_MEDIUM, geometry.FAM_MEDIUM,
                         geometry.FAM_BOX, geometry.FAM_QUAD,
                         geometry.FAM_SPHERE, geometry.FAM_NONE])
     idx = torch.tensor([0, 7, 3, 5, 9, 0])
     code = tmk.encode_winner(fam, idx)
-    assert tmk.MEDIUM_CODE == 3200
-    assert code.tolist() == [3200, 3207, 3139, 3077, 9, -1]
+    assert tmk.MEDIUM_CODE == 19456
+    assert code.tolist() == [19456, 19463, 11267, 3077, 9, -1]
     f2, i2 = tmk.decode_winner(code)
     assert f2.tolist() == fam.tolist()
     assert i2.tolist()[:5] == idx.tolist()[:5]

@@ -390,38 +390,46 @@ def test_many_solids_scene_equals_rrt_tpu():
 
 
 def test_gradient_scopes():
-    """The forward kernels take rttnw_final; the train kernels and
-    chain_bwd keep SOLID_CAP (#9.5's backward part): on the CPU its
-    gradient runs on the scan (render_image_diff through
-    render_image(differentiable=True)); on a CUDA device the two routes
-    raise before anything runs (make_train_step's on the card:
-    tests/test_torch_cuda.py); the train wrappers raise on its 400
-    boxes."""
+    """The forward kernels and the train kernels take rttnw_final (train_fwd
+    walks its boxes' tree, train_bwd loops over them); chain_bwd keeps
+    SOLID_CAP (#9.5's chain part). On the CPU its gradient runs on the
+    train kernels' plain versions (render_image_diff through
+    trace_tiles_diff); on a CUDA device the train route passes its scope
+    check and the chain's route raises before anything runs; the train
+    wrappers take its packs, and chain_adjoint raises on its 400 boxes
+    (make_train_step's on the card: tests/test_torch_cuda.py)."""
     from rrt_tpu_torch.ops import megakernel_train as tmkt
     from rrt_tpu_torch.ops import megakernel_vjp as tmkv
     scene, cam = tscenes.SCENES["rttnw_final"](8, 4)
     assert tmk.scope_gap(scene) is None
-    assert tmkt.train_scope_gap(scene)[1] == "#9.5"
+    assert tmkt.train_scope_gap(scene) is None
     assert tmkv.backward_scope_gap(scene)[1] == "#9.5"
     cfg = render.RenderConfig(width=8, height=4, spp=1, max_depth=2,
                               samples_per_pass=1)
+    assert render.diff_fallback_reason(scene, cfg) is None
     leaf = scene.sphere_c0.clone().requires_grad_(True)
     img, _ = render.render_image_diff(
         dataclasses.replace(scene, sphere_c0=leaf), cam, cfg, 0,
         device="cpu")
     img.sum().backward()
     assert torch.isfinite(leaf.grad).all()
-    for fn in (lambda: render.render_image_diff(scene, cam, cfg, 0,
-                                                device="cuda"),
-               lambda: render.render_image(scene, cam, cfg, 0,
-                                           differentiable=True,
-                                           device="cuda")):
-        with pytest.raises(NotImplementedError, match="#9.5"):
-            fn()
+    render._check_card_scope("render_image_diff", scene, 0, "cuda")
+    with pytest.raises(NotImplementedError, match="#9.5"):
+        render.render_image(scene, cam, cfg, 0, differentiable=True,
+                            device="cuda")
     sph24 = tmk.pack_spheres_full(scene)
-    with pytest.raises(NotImplementedError, match="backward part"):
-        tmkt.render_tiles_train(
-            sph24, tmk.pack_camera(cam, 8, 4), tmk.pack_bg(scene),
-            seed_words=(0, 0), sample_lo=0, width=8, height=4, spp=1,
-            max_depth=2, t_min=T_MIN, moving=True,
-            solids=tmk.pack_solids(scene), tex=tmk.pack_textures(scene))
+    solids, tex = tmk.pack_solids(scene), tmk.pack_textures(scene)
+    rad, _, lengths, _ = tmkt.render_tiles_train(
+        sph24, tmk.pack_camera(cam, 8, 4), tmk.pack_bg(scene),
+        seed_words=(0, 0), sample_lo=0, width=8, height=4, spp=1,
+        max_depth=2, t_min=T_MIN, moving=True, solids=solids, tex=tex)
+    assert torch.isfinite(rad).all() and int(lengths.sum()) >= 8 * 4
+    state = torch.zeros((tmk.STATE_ROWS, 4))
+    with pytest.raises(NotImplementedError, match="chain part"):
+        tmkv.chain_adjoint(state, torch.zeros((2, 4), dtype=torch.int32),
+                           sph24, tmk.pack_bg(scene), state,
+                           torch.zeros(4), k_steps=1, max_depth=2,
+                           t_min=T_MIN, moving=True,
+                           solids=dataclasses.replace(solids, n_media=0,
+                                                      med24=None),
+                           tex=tex)

@@ -57,7 +57,10 @@ that has the scene, the three forward kernels on rttnw_final at
 chip_smoke.py [F1]'s shapes (tile_render 400x267, 32 spp, depth 50;
 bounce_steps 131,072 lanes, 4 steps; intersect_only on those lanes'
 camera rays), timed as --textures times them (intersect_only by graph
-replay), with digests of their outputs.
+replay), with digests of their outputs, and in a tree whose train
+kernels take the scene train_fwd and train_bwd at [F3]'s shape (400x267,
+8 spp, depth 50; digests of train_fwd's radiance and winners and of
+train_bwd's d_cam and d_bg, which sum in a fixed order).
 --no-train skips the train kernels. The default order is ABBA for two
 trees and AAA for one, so that two versions are compared within one
 call, on one card; with more trees, --order names them (A, B, C, ...).
@@ -288,12 +291,14 @@ def _textures(out: dict) -> None:
 
 def _final(out: dict) -> None:
     """--final: the forward kernels on rttnw_final at chip_smoke.py
-    [F1]'s shapes, into out["rttnw_final"]; a tree without the scene
-    records nothing."""
+    [F1]'s shapes, and in a tree whose train kernels take the scene
+    train_fwd and train_bwd at [F3]'s (8 spp), into out["rttnw_final"];
+    a tree without the scene records nothing."""
     import torch
     import chip_smoke as cs
     from rrt_tpu_torch import render, scenes
     from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
 
     if "rttnw_final" not in scenes.SCENES:
         return
@@ -331,6 +336,20 @@ def _final(out: dict) -> None:
         state_digest=state_digest, intersect_ms=inter_ms,
         intersect_digest=_digest(torch.cat([x.view(torch.int32)
                                             for x in hit])))
+    if mkt.supports_train(scene):
+        tkw = dict(kw, spp=8)
+        fwd = mkt.render_tiles_train(*packs, **tkw)
+        fwd_ms = cs.cuda_ms(lambda: mkt.render_tiles_train(*packs, **tkw), 3)
+        weight = torch.sin(torch.arange(w * h, device=dev) * 0.1)
+        d_rad = (weight[:, None] * torch.tensor(MIX, device=dev)).contiguous()
+        bwd = mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **tkw)
+        bwd_ms = cs.cuda_ms(
+            lambda: mkt.tiles_adjoint(*packs, d_rad, *fwd[2:], **tkw), 3)
+        out["rttnw_final"].update(
+            fwd_ms=fwd_ms, fwd_traced=int(fwd[1].sum()),
+            fwd_digest=_digest(fwd[0]), winners_digest=_digest(fwd[3]),
+            bwd_ms=bwd_ms, bwd_mismatches=int(bwd[3]),
+            d_cam_digest=_digest(bwd[1]), d_bg_digest=_digest(bwd[2]))
 
 
 def _digest(t) -> str:
