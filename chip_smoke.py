@@ -147,6 +147,22 @@ forward kernels' walks over the solid families' trees (kWalk):
        three walks over both trees against the solid scan bit for bit,
        intersect_only against its plain version.
 
+Then Russian roulette (RenderConfig.rr_depth = RR_DEPTH, 4: the coin
+from bounce 4 on, the detached 1 / p weight), through the five shading
+kernels' runtime argument:
+
+  [R1] tile_render on chap12 at MAIN and cornell at 400x400, 32 spp:
+       its ms and traced totals beside rr_depth 0's, the image means'
+       relative difference (RR_MEAN_GATE), the plain version at
+       RR_PLAIN_SPP by the slice rule; bounce_steps by [Q1]'s rule on
+       131,072 lanes after 4 steps; then the main path: the CLI with
+       --rr-depth 4 on the tile and queue drivers, held to each other;
+  [R2] the train kernels by [5]'s checks at 240x160, 2 spp, their ms at
+       [7]'s shape beside rr_depth 0's, no replay mismatch, one
+       make_train_step step (the main path) and one 500-spp step at
+       rr_depth 0 and 4 (printed, no gate); chain_bwd on [C2]'s three
+       chains against its plain version, then [C2]'s gradient step.
+
 [2] prints ptxas's registers and spills of every kernel; [7], [8] and
 [M3] print the train kernels' times beside the step's least time
 (`step_bound_ms`: one scan a segment, the backward's adjoint, the bytes)
@@ -304,6 +320,29 @@ MAX_WINNER_FAULTS = 1e-4
 PLAIN_CHUNK = 65536
 # Launches captured in one CUDA graph to time a kernel (graph_ms).
 GRAPH_LAUNCHES = 20
+# [R1]-[R2]: Russian roulette from this bounce (bench.py's rr4 cells:
+# north_star_500spp_rr4_s, rttnw_final_rr4_wall_s), and the spp at which
+# [R1] holds tile_render's plain version to it by the slice rule (the
+# plain loop's time grows with the samples).
+RR_DEPTH = 4
+RR_PLAIN_SPP = 2
+# [R1]: the image means' largest relative difference (over the three
+# channels) between rr_depth RR_DEPTH and 0 on the same keys: the
+# roulette changes the estimator's variance, not its mean. On an H100
+# 80GB HBM3 at 700 W: 1.8e-5 on chap12 at 1200x800, 3.2e-4 on cornell at
+# 400x400, 32 spp; the gate allows 60 times the worst.
+RR_MEAN_GATE = 2e-2
+# [R2]: the share of the stored winners of agreeing paths that may differ
+# from the plain version's at rr_depth RR_DEPTH. A path the roulette kills
+# banks nothing, so two paths that parted (by drift or an earlier
+# decision) agree in radiance and length when the coin kills both at the
+# same bounce (chap12's light is the sky, which neither reached), and
+# gradcheck.sample_agreement keeps them: at 240x160, 2 spp, depth 50, 32
+# of 191,971 entries differed (1.67e-4) on 23 paths, none at a near-tie
+# (gradcheck.tie_gaps), where rr_depth 0 parted none there ([5]; an H100
+# 80GB HBM3 at 700 W). The gate allows 3 times it, and those paths'
+# pixels get loss weight 0 ([F3]'s exclude_parted).
+RR_MAX_WINNER_FAULTS = 5e-4
 # [K1]-[K3]: the Cornell box (rrt_tpu/scenes/book2.py, RTTNW ch. 8.2,
 # BASELINE.json config #4's scene) at the size bench.py's scene phase
 # renders it (bench.py:427-440); [K3]'s train step at bench.py's
@@ -684,7 +723,9 @@ def wall_ms(fn):
 
 
 def train_vs_plain(name, w, h, spp, depth, device, card, *,
-                   min_pixels=0.99, min_paths=0.0, plain_chunk=1 << 16):
+                   min_pixels=0.99, min_paths=0.0, plain_chunk=1 << 16,
+                   rr_depth=0, max_winner_faults=MAX_WINNER_FAULTS,
+                   exclude_parted=False):
     """[5] The train kernels against tile_render and their plain
     versions on one configuration, by rrt_tpu_torch.gradcheck's rule:
     at least `min_pixels` of pixels and `min_paths` of paths agree
@@ -693,7 +734,11 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     and its winners the plain version's on every agreeing path; the
     backward from the winners gives the camera and background
     cotangents of the scan alone (winners=None) bit for bit, and the
-    pack's within PACK_SPREAD of their largest."""
+    pack's within PACK_SPREAD of their largest. rr_depth: Russian
+    roulette's first bounce in every kernel and plain version ([R2]);
+    max_winner_faults: the share of agreeing paths' stored winners that
+    may differ; exclude_parted: the pixels holding such a winner get loss
+    weight 0 too (solid_train_vs_plain's rule)."""
     from rrt_tpu_torch import diff, gradcheck, render, scenes as tscenes
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
     build = checker_scene if name == "checker" else tscenes.SCENES[name]
@@ -701,7 +746,8 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
     packs = [p.detach() for p in render._packs(scene, cam, cfg, device)]
     kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
-              max_depth=depth, t_min=1e-3, moving=scene.has_moving)
+              max_depth=depth, t_min=1e-3, moving=scene.has_moving,
+              rr_depth=rr_depth)
     rad, traced, lengths, winners = mkt.render_tiles_train(*packs, **kw)
     ref_rad, ref_traced = mk.render_tiles(*packs, bvh=tile_bvh(packs), **kw)
     # tile_render walks the BVH, train_fwd scans: the walk's exact gate.
@@ -726,7 +772,7 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
     print(f"  winners: {w_faults} of {w_compared} stored entries of agreeing "
           f"paths differ from the plain version's "
           f"({w_faults / max(w_compared, 1):.2e}, gate "
-          f"{MAX_WINNER_FAULTS:.0e}); by bounce "
+          f"{max_winner_faults:.0e}); by bounce "
           f"{torch.bincount(differ[:, 1]).tolist()}, most often (bounce, "
           f"kernel's, plain's): {top}", flush=True)
     firsts = gradcheck.first_differences(differ)
@@ -747,12 +793,19 @@ def train_vs_plain(name, w, h, spp, depth, device, card, *,
           f"{p_compared} differ (rule: 0)", flush=True)
     check(torch.equal(ties.replayed, firsts[:, 4]),
           "tie_gaps' replay differs from the plain version's winners")
-    check(w_compared > 0 and w_faults <= MAX_WINNER_FAULTS * w_compared,
+    check(w_compared > 0 and w_faults <= max_winner_faults * w_compared,
           ("winners vs the plain version", w_faults, w_compared))
     check(p_compared > 0 and p_faults == 0,
           ("pooled winners vs each sample alone", p_faults, p_compared))
-    weight = torch.sin(torch.arange(w * h, device=device) * 0.1) \
-        * agreement.agree
+    agree = agreement.agree
+    if exclude_parted and w_faults:
+        parted = torch.zeros_like(agree)
+        parted[differ[:, 2]] = True
+        print(f"  the {int((parted & agree).sum())} agreeing pixels whose "
+              f"stored winners part from the plain version's get loss "
+              f"weight 0", flush=True)
+        agree = agree & ~parted
+    weight = torch.sin(torch.arange(w * h, device=device) * 0.1) * agree
     d_rad = (weight[:, None] * torch.tensor(MIX, device=device)).contiguous()
     k = mkt.tiles_adjoint(*packs, d_rad, lengths, winners, **kw)
     bwd_ms = cuda_ms(lambda: mkt.tiles_adjoint(*packs, d_rad, lengths,
@@ -1167,7 +1220,8 @@ def by_lanes(fn, *lane_args):
 
 
 def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
-                   device, card, solids=None, radiance_only=False, tex=None):
+                   device, card, solids=None, radiance_only=False, tex=None,
+                   rr_depth=0):
     """[C1] chain_bwd against chain_adjoint_reference on one chain input.
     A lane agrees when the two forwards (bounce_steps and its plain
     version) end it with equal bounce and alive rows and rows 0-12
@@ -1199,12 +1253,14 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     throughput). tex: the scene's TexPack (the texture variants), or
     None; with images the atlas cotangents of the kernel and the plain
     version are held within PACK_SPREAD of their largest (`atlas`).
-    Returns the kernel's forward output and the numbers of the kernels
-    line."""
+    rr_depth: Russian roulette's first bounce, in both forwards and both
+    backwards ([R2]). Returns the kernel's forward output and the numbers
+    of the kernels line."""
     from rrt_tpu_torch import diff, gradcheck
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
     kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3,
-              moving=scene.has_moving, solids=solids, tex=tex)
+              moving=scene.has_moving, solids=solids, tex=tex,
+              rr_depth=rr_depth)
     out = mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh, **kw)
     ref_out = torch.cat(by_lanes(
         lambda s, k: mk.bounce_steps_reference(s, k, sph, bg, **kw), st,
@@ -1414,13 +1470,14 @@ def partial_bytes(c1) -> int:
                for c in c1)
 
 
-def chain_kernel_phase(device, card, counts, name="chap12"):
+def chain_kernel_phase(device, card, counts, name="chap12", rr_depth=0):
     """[C1] chain_bwd against its plain version on each chain of [C2]'s
     path on the scene (the kernels' forward gives each chain's input;
     both walk the BVH render.trace_batch_fused builds, over the rays'
-    own times) and, on chap12, on chain_small_cases. counts: [Q1]'s
-    walk_counts on the scene, for the walk's bound. Returns (per-chain
-    numbers, [C2]'s inputs)."""
+    own times) and, on chap12 without Russian roulette, on
+    chain_small_cases; rr_depth: the roulette's first bounce ([R2]).
+    counts: [Q1]'s walk_counts on the scene, for the walk's bound.
+    Returns (per-chain numbers, [C2]'s inputs)."""
     from rrt_tpu_torch import render, rng
     from rrt_tpu_torch.ops import megakernel as mk
     scene, cam, cfg, px, py, keys = chain_rays(device, name)
@@ -1440,15 +1497,16 @@ def chain_kernel_phase(device, card, counts, name="chap12"):
     for j, k_steps in enumerate(schedule):
         out, numbers = chain_vs_plain(
             f"chain {j + 1} of {schedule}", st, kbits, sph, bg, bvh,
-            k_steps, scene, cam, cfg, device, card)
+            k_steps, scene, cam, cfg, device, card, rr_depth=rr_depth)
         c1.append(numbers)
         if j < len(schedule) - 1:
             st, kbits, lane = render._compact_lanes(out, kbits, lane)
-    if name == "chap12":
+    if name == "chap12" and not rr_depth:
         chain_small_cases(device, card)
     (b_ms, b_by), scan = chain_bound(c1, counts)
     ms = sum(c["ms"] for c in c1)
-    print(f"  {name}'s three chains: chain_bwd {ms:.4f} ms "
+    rr_tag = f" at rr_depth {rr_depth}" if rr_depth else ""
+    print(f"  {name}'s three chains{rr_tag}: chain_bwd {ms:.4f} ms "
           f"({ms / len(c1):.4f} a launch), plain "
           f"{sum(c['plain_ms'] for c in c1):.1f} ms, bound {b_ms:.4f} ms "
           f"({b_by}; the walk at {counts['nodes']:.2f} node and "
@@ -3963,6 +4021,309 @@ def many_solids_phase(device, card):
             st = walked
 
 
+def rr_tile_phase(name, w, h, device, card, counts=None):
+    """[R1] tile_render with rr_depth RR_DEPTH on `name` at w x h, MAIN's
+    spp and depth: its ms beside rr_depth 0's (CUDA events, in turns),
+    both traced totals and the image means' relative difference
+    (RR_MEAN_GATE); then, at RR_PLAIN_SPP, against its plain version by
+    the slice rule (tests/test_torch_slice.py: per-pixel max |delta| <
+    1e-3 on >= 98.5% of pixels, traced totals within 1%). counts: [3]'s
+    walk_counts on chap12 for the walk's bound (tile_bounds: a lower
+    bound, which leaves out the coin's Threefry call a scattering segment
+    past RR_DEPTH, as it leaves out the shading), or None. Returns the
+    kernels line's numbers."""
+    from rrt_tpu_torch import render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    spp, depth = MAIN["spp"], MAIN["max_depth"]
+    scene, cam = tscenes.SCENES[name](w, h)
+    cfg = render.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
+    *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=spp,
+              max_depth=depth, t_min=1e-3, moving=scene.has_moving,
+              solids=mk.pack_solids(scene, device),
+              tex=mk.pack_textures(scene, device))
+
+    def run(rr, **over):
+        return mk.render_tiles(*packs, bvh=bvh, **dict(kw, rr_depth=rr,
+                                                       **over))
+
+    outs = {rr: run(rr) for rr in (0, RR_DEPTH)}  # and the warm-ups
+    times = {rr: [] for rr in outs}
+    for _ in range(3):
+        for rr in times:
+            times[rr].append(cuda_ms(lambda: run(rr), 1))
+    ms = {rr: sorted(t)[1] for rr, t in times.items()}
+    traced = {rr: int(o[1].sum()) for rr, o in outs.items()}
+    means = {rr: o[0].mean(dim=0) / spp for rr, o in outs.items()}
+    rel = ((means[RR_DEPTH] - means[0]).abs() / means[0]).max().item()
+    print(f"  tile_render {name} {w}x{h} {spp}spp d{depth}: rr_depth "
+          f"{RR_DEPTH} {ms[RR_DEPTH]:.3f} ms (in turns {times[RR_DEPTH]}), "
+          f"{traced[RR_DEPTH]} traced; rr_depth 0 {ms[0]:.3f} ms "
+          f"({times[0]}), {traced[0]} traced; wall {ms[RR_DEPTH] / ms[0]:.4f}"
+          f" and traced {traced[RR_DEPTH] / traced[0]:.4f} of rr_depth 0's; "
+          f"image means {means[RR_DEPTH].tolist()} vs {means[0].tolist()}, "
+          f"{rel:.4e} apart (gate {RR_MEAN_GATE:g})  [{card}]", flush=True)
+    small = dict(kw, spp=RR_PLAIN_SPP, rr_depth=RR_DEPTH)
+    k_out = mk.render_tiles(*packs, bvh=bvh, **small)
+    ref, plain_ms = wall_ms(lambda: mk.render_tiles_reference(*packs,
+                                                              **small))
+    err = (k_out[0] - ref[0]).abs().max(dim=1).values / RR_PLAIN_SPP
+    close = (err < 1e-3).float().mean().item()
+    nt, nr = int(k_out[1].sum()), int(ref[1].sum())
+    print(f"  vs the plain version at {RR_PLAIN_SPP} spp: {close:.5f} of "
+          f"pixels within 1e-3 (rule 0.985), traced {nt} vs {nr} "
+          f"({abs(nt - nr) / nr:.4%}, rule 1%), max pixel |delta| "
+          f"{err.max().item():.4f}; plain {plain_ms:.1f} ms  [{card}]",
+          flush=True)
+    check(traced[RR_DEPTH] < traced[0], ("[R1] roulette", name, traced))
+    check(rel < RR_MEAN_GATE, ("[R1] image mean", name, rel))
+    check(close >= 0.985 and abs(nt - nr) / nr < 1e-2,
+          ("[R1] tile_render vs plain", name, close, nt, nr))
+    bnd = None if counts is None else tile_bounds(
+        traced[RR_DEPTH], w * h * spp, packs[0].shape[1], counts,
+        scene.has_moving)[0]
+    if bnd is not None:
+        print(f"  bound at rr_depth {RR_DEPTH}: {bnd[0]:.4f} ms ({bnd[1]}; "
+              f"{traced[RR_DEPTH]} segments at the walk's tests a segment)",
+              flush=True)
+    return dict(ms=ms[RR_DEPTH], off_ms=ms[0], plain_ms=plain_ms,
+                err=err.max().item(), traced=traced[RR_DEPTH],
+                off_traced=traced[0], mean_rel=rel, bound=bnd)
+
+
+def rr_bounce_phase(name, w, h, device, card, counts=None):
+    """[R1] bounce_steps with rr_depth RR_DEPTH against its plain version
+    by [Q1]'s rule, on QUEUE_LANES lanes of `name`'s camera rays after
+    RR_DEPTH bounce steps, so that the roulette acts at each of the 4
+    steps; its ms beside rr_depth 0's from the same state (CUDA events,
+    in turns). counts: [Q1]'s walk_counts for the bound (chap12, whose
+    sky shows every miss to hits()), or None."""
+    from rrt_tpu_torch import render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    scene, cam = tscenes.SCENES[name](w, h)
+    st, keys, sph, bg = lane_state(scene, cam, w, h, QUEUE_LANES, device)
+    packed = render.pack_scene(scene, device, render._shutter(cam))
+    bvh = packed["bvh"]
+    kw = dict(max_depth=MAIN["max_depth"], t_min=1e-3,
+              moving=scene.has_moving, solids=packed["solids"],
+              tex=packed["tex"])
+    mk.bounce_steps(st, keys, sph, bg, bvh=bvh, k_steps=RR_DEPTH, **kw)
+    step = dict(kw, k_steps=4)
+    outs = {rr: mk.bounce_steps(st.clone(), keys, sph, bg, bvh=bvh,
+                                rr_depth=rr, **step) for rr in (0, RR_DEPTH)}
+    out = outs[RR_DEPTH]
+    ref, plain_ms = wall_ms(lambda: mk.bounce_steps_reference(
+        st.clone(), keys, sph, bg, rr_depth=RR_DEPTH, **step))
+    agree = (out[14] > 0.5) == (ref[14] > 0.5)
+    frac = agree.float().mean().item()
+    equal = (torch.equal(out[13][agree], ref[13][agree])
+             and torch.equal(out[15][agree], ref[15][agree]))
+    err = (out[7:13] - ref[7:13]).abs().amax(dim=0)[agree]
+    close = (err < 1e-3).float().mean().item()
+    work, logs = torch.empty_like(st), {rr: [] for rr in outs}
+    for _ in range(5):  # in place: each launch starts from the same state
+        for rr, log in logs.items():
+            work.copy_(st)
+            timed(mk.bounce_steps, log)(work, keys, sph, bg, bvh=bvh,
+                                        rr_depth=rr, **step)
+    torch.cuda.synchronize()
+    ms = {rr: events_ms(log) / len(log) for rr, log in logs.items()}
+    segments = {rr: int((o[15] - st[15]).sum()) for rr, o in outs.items()}
+    live = int((st[14] > 0.5).sum())
+    print(f"  bounce_steps {name}, {QUEUE_LANES} lanes ({live} alive after "
+          f"{RR_DEPTH} steps), 4 steps at rr_depth {RR_DEPTH}: alive agrees "
+          f"on {frac:.5f} of lanes, counts equal there {equal}, {close:.5f} "
+          f"within 1e-3 (max {err.max().item():.3e}); {segments[RR_DEPTH]} "
+          f"segments, kernel {ms[RR_DEPTH]:.4f} ms; rr_depth 0: "
+          f"{segments[0]} segments, {ms[0]:.4f} ms; plain {plain_ms:.1f} ms"
+          f"  [{card}]", flush=True)
+    check(frac >= 0.999 and equal and close >= 0.995,
+          ("[R1] bounce_steps", name, frac, equal, close))
+    check(segments[RR_DEPTH] < segments[0], ("[R1] roulette", name, segments))
+    bnd = None
+    if counts is not None:
+        s_bytes = 4 * (QUEUE_LANES * (16 + 2 + 16) + 24 * sph.shape[1] + 8)
+        bnd = bound(walk_flops(segments[RR_DEPTH], counts, scene.has_moving),
+                    s_bytes, THREEFRY_OPS * THREEFRY_PER_HIT * hits(st, out))
+        print(f"  bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return dict(ms=ms[RR_DEPTH], off_ms=ms[0], plain_ms=plain_ms,
+                err=err.max().item(), bound=bnd)
+
+
+def rr_cli_phase(device, card):
+    """[R1] the main paths with --rr-depth RR_DEPTH through the CLI,
+    chap12 at MAIN: the tile driver (render_tiles' launches counted from
+    0) and the queue driver in four passes (bounce_steps'), held to the
+    tile image by [Q2]'s rule (hold_to_tile: the same paths). Returns
+    the launches (tile_render, bounce_steps)."""
+    from rrt_tpu_torch import cli
+    from rrt_tpu_torch.ops import megakernel as mk
+    argv = ["--scene", MAIN["scene"], "-r",
+            f"{MAIN['width']}x{MAIN['height']}", "-s", str(MAIN["spp"]),
+            "-e", "0", "--max-depth", str(MAIN["max_depth"]), "--rr-depth",
+            str(RR_DEPTH), "--device", "cuda:0", "--quiet"]
+    results, launches = {}, []
+    for driver, wrapper in (("tile", mk.render_tiles),
+                            ("queue", mk.bounce_steps)):
+        extra = ["--driver", driver, "--spp-chunk",
+                 str(QUEUE_CHUNK if driver == "queue" else MAIN["spp"])]
+        with tempfile.TemporaryDirectory() as tmp:
+            cli.render(cli.build_parser().parse_args(  # warm-up
+                argv + extra + ["-o", os.path.join(tmp, "warm.png")]))
+            wrapper.launches = 0
+            res = cli.render(cli.build_parser().parse_args(
+                argv + extra + ["-o", os.path.join(tmp, "o.png")]))
+        launches.append(wrapper.launches)
+        results[driver] = res
+        print(f"  {driver}: {res.seconds:.4f} s wall, {res.passes} passes, "
+              f"{res.n_traced} rays ({res.n_traced / MAIN_TRACED:.4f} of "
+              f"[4]'s at rr_depth 0), {res.n_traced / res.seconds / 1e6:.2f} "
+              f"Mrays/s, {wrapper.__name__} launches {launches[-1]}  "
+              f"[{card}]", flush=True)
+        check(launches[-1] >= 1 and bool(torch.isfinite(res.image).all()),
+              ("[R1]", driver, launches[-1]))
+        check(res.n_traced < MAIN_TRACED, ("[R1] roulette", driver))
+    hold_to_tile("queue at rr_depth 4", results["queue"].image,
+                 results["queue"].n_traced, results["tile"].image,
+                 results["tile"].n_traced)
+    return launches
+
+
+def rr_train_phase(device, card, counts):
+    """[R2] the train kernels and chain_bwd with rr_depth RR_DEPTH: [5]'s
+    checks on chap12 at 240x160, 2 spp, depth 50 (train_vs_plain: the
+    kernels against tile_render and their plain versions, the gradients
+    by gradcheck's rule, no replay mismatch); train_fwd's and train_bwd's
+    ms at [7]'s 1200x800, 8 spp beside rr_depth 0's (CUDA events, in
+    turns) with their traced totals and no replay mismatch; the main
+    path: one make_train_step step at [7]'s shape with the launch counts
+    from 0; one 500-spp step at rr_depth 0 and at RR_DEPTH (printed, no
+    gate); [C1] on [C2]'s three chains (chain_kernel_phase) and the main
+    path: one [C2] gradient step, both at RR_DEPTH. counts: [Q1]'s
+    walk_counts, for chain_bwd's bound. Returns the kernels line's
+    numbers."""
+    from rrt_tpu_torch import diff, render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    crop = train_vs_plain("chap12", 240, 160, 2, MAIN["max_depth"], device,
+                          card, rr_depth=RR_DEPTH,
+                          max_winner_faults=RR_MAX_WINNER_FAULTS,
+                          exclude_parted=True)
+    cfg = render.RenderConfig(**TRAIN)
+    scene, cam = tscenes.chap12_scene(cfg.width, cfg.height)
+    packs = [p.detach() for p in render._packs(scene, cam, cfg, device)]
+    kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
+              height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
+              t_min=cfg.t_min, moving=False)
+    d_rad = torch.tensor(MIX, device=device).expand(
+        cfg.width * cfg.height, 3).contiguous()
+    fwd = {rr: mkt.render_tiles_train(*packs, rr_depth=rr, **kw)
+           for rr in (0, RR_DEPTH)}
+    f_log, b_log = {rr: [] for rr in fwd}, {rr: [] for rr in fwd}
+    mism = {rr: torch.zeros((1,), dtype=torch.int32, device=device)
+            for rr in fwd}
+    for _ in range(3):
+        for rr, out in fwd.items():
+            timed(mkt.render_tiles_train, f_log[rr])(*packs, rr_depth=rr,
+                                                     **kw)
+            k = timed(mkt.tiles_adjoint, b_log[rr])(
+                *packs, d_rad, out[2], out[3], rr_depth=rr, **kw)
+            mism[rr] += k[3]
+    torch.cuda.synchronize()
+
+    def median(log):
+        return sorted(s.elapsed_time(e) for s, e in log)[len(log) // 2]
+
+    f_ms = {rr: median(log) for rr, log in f_log.items()}
+    b_ms = {rr: median(log) for rr, log in b_log.items()}
+    traced = {rr: int(out[1].sum()) for rr, out in fwd.items()}
+    mism = {rr: int(m) for rr, m in mism.items()}
+    f_bnd, b_bnd, _ = train_bounds(fwd[RR_DEPTH][1], cfg.spp,
+                                   packs[0].shape[1], False)
+    print(f"  chap12 {cfg.width}x{cfg.height} {cfg.spp}spp: rr_depth "
+          f"{RR_DEPTH}: train_fwd {f_ms[RR_DEPTH]:.3f} ms, train_bwd "
+          f"{b_ms[RR_DEPTH]:.3f} ms, {traced[RR_DEPTH]} traced, "
+          f"replay_mismatches {mism[RR_DEPTH]}; rr_depth 0: train_fwd "
+          f"{f_ms[0]:.3f} ms, train_bwd {b_ms[0]:.3f} ms, {traced[0]} "
+          f"traced, replay_mismatches {mism[0]}; traced "
+          f"{traced[RR_DEPTH] / traced[0]:.4f} of rr_depth 0's; bounds at "
+          f"rr_depth {RR_DEPTH}: train_fwd {f_bnd[0]:.4f} ms ({f_bnd[1]}), "
+          f"train_bwd {b_bnd[0]:.4f} ms ({b_bnd[1]})  [{card}]", flush=True)
+    check(mism == {0: 0, RR_DEPTH: 0}, ("[R2] replay_mismatches", mism))
+    check(traced[RR_DEPTH] < traced[0], ("[R2] roulette", traced))
+
+    cfg_rr = dataclasses.replace(cfg, rr_depth=RR_DEPTH)
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    step = diff.make_train_step(cfg_rr, device=device)
+    step(scene, cam, target, 0)  # warm-up
+    fwd_fn, bwd_fn = mkt.render_tiles_train, mkt.tiles_adjoint
+    fwd_fn.launches = bwd_fn.launches = 0
+    bwd_fn.replay_mismatches = 0
+    (_, _, loss), ms = wall_ms(lambda: step(scene, cam, target, 0))
+    step_launches = (fwd_fn.launches, bwd_fn.launches)
+    step_mism = int(bwd_fn.replay_mismatches)
+    print(f"  make_train_step at rr_depth {RR_DEPTH}: loss "
+          f"{loss.item():.6e}, {ms:.2f} ms wall, launches train_fwd "
+          f"{step_launches[0]}, train_bwd {step_launches[1]}, "
+          f"replay_mismatches {step_mism}  [{card}]", flush=True)
+    check(bool(torch.isfinite(loss)) and min(step_launches) >= 1
+          and step_mism == 0, ("[R2] train step", step_launches, step_mism))
+    for rr in (0, RR_DEPTH):
+        step_ns = diff.make_train_step(dataclasses.replace(
+            cfg, spp=NORTH_STAR_SPP, rr_depth=rr), device=device)
+        (_, _, loss_ns), ns_ms = wall_ms(
+            lambda: step_ns(scene, cam, target, 0))
+        print(f"  {NORTH_STAR_SPP}-spp make_train_step at rr_depth {rr}: "
+              f"{ns_ms / 1e3:.3f} s wall, loss {loss_ns.item():.6e}  "
+              f"[{card}]", flush=True)
+
+    c1, chain = chain_kernel_phase(device, card, counts, rr_depth=RR_DEPTH)
+    c_scene, c_cam, c_cfg, px, py, keys = chain
+
+    def chain_step(rr):
+        scene_d, params, camera = diff._leaves(c_scene, c_cam, device)
+        o, d, tm = render.generate_rays(camera, px, py, c_cfg.width,
+                                        c_cfg.height, keys)
+        rad, n = render.trace_batch(scene_d, o, d, tm, keys,
+                                    c_cfg.max_depth, 1e-3,
+                                    differentiable=True, fused_vjp=True,
+                                    rr_depth=rr)
+        loss = rad[0].mean() + rad[1].mean() + rad[2].mean()
+        gp, gc = diff._grads(loss, params, camera)
+        return loss.detach(), gp, gc, int(n)
+
+    chain_step(RR_DEPTH)  # warm-up
+    mk.bounce_steps.launches = mkv.chain_adjoint.launches = 0
+    mkv.chain_adjoint.replay_mismatches = 0
+    (c_loss, gp, gc, c_traced), c_ms = wall_ms(lambda: chain_step(RR_DEPTH))
+    chain_launches = (mk.bounce_steps.launches, mkv.chain_adjoint.launches)
+    c_mism = int(mkv.chain_adjoint.replay_mismatches)
+    (_, _, _, off_traced), off_ms = wall_ms(lambda: chain_step(0))
+    print(f"  [C2]'s gradient step at rr_depth {RR_DEPTH}: loss "
+          f"{c_loss.item():.6e}, {c_traced} traced, {c_ms:.2f} ms wall "
+          f"(rr_depth 0: {off_traced} traced, {off_ms:.2f} ms), launches "
+          f"bounce_steps {chain_launches[0]}, chain_bwd {chain_launches[1]},"
+          f" replay_mismatches {c_mism}  [{card}]", flush=True)
+    check(min(chain_launches) >= 1 and c_mism == 0
+          and c_traced < off_traced, ("[R2] chain step", chain_launches,
+                                      c_mism, c_traced, off_traced))
+    grads_check("[R2]", gp, gc)
+    (cb_ms, cb_by), _ = chain_bound(c1, counts)
+    return dict(
+        train_fwd=dict(ms=f_ms[RR_DEPTH], off_ms=f_ms[0],
+                       plain_ms=crop["fwd_plain_ms"], err=crop["fwd_err"],
+                       bound=f_bnd, launches=step_launches[0],
+                       traced=traced[RR_DEPTH], off_traced=traced[0]),
+        train_bwd=dict(ms=b_ms[RR_DEPTH], off_ms=b_ms[0],
+                       plain_ms=crop["bwd_plain_ms"], err=crop["bwd_err"],
+                       bound=b_bnd, launches=step_launches[1]),
+        chain_bwd=dict(ms=sum(c["ms"] for c in c1),
+                       plain_ms=sum(c["plain_ms"] for c in c1),
+                       err=max(c["err"] for c in c1), bound=(cb_ms, cb_by),
+                       launches=chain_launches[1]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4398,6 +4759,29 @@ def main() -> int:
     phases.start("F2", f"many_solids {MANY['width']}x{MANY['height']}: 81 "
                  f"boxes and 82 quads, the walks vs the solid scan")
     many_solids_phase(device, card)
+    phases.start("R1", f"Russian roulette at rr_depth {RR_DEPTH}: tile_render "
+                 f"and bounce_steps vs rr_depth 0 and their plain versions "
+                 f"on chap12 {MAIN['width']}x{MAIN['height']} and cornell "
+                 f"{CORNELL['width']}x{CORNELL['height']}, then the main "
+                 f"path: the CLI's tile and queue drivers")
+    torch.cuda.reset_peak_memory_stats(device)
+    r1 = {"tile": rr_tile_phase("chap12", MAIN["width"], MAIN["height"],
+                                device, card, counts3),
+          "queue": rr_bounce_phase("chap12", MAIN["width"], MAIN["height"],
+                                   device, card, q1["counts"])}
+    rr_tile_phase("cornell", CORNELL["width"], CORNELL["height"], device,
+                  card)
+    rr_bounce_phase("cornell", CORNELL["width"], CORNELL["height"], device,
+                    card)
+    r1_launches = rr_cli_phase(device, card)
+    peak_memory("[R1]", device, card)
+    phases.start("R2", f"Russian roulette's gradient at rr_depth {RR_DEPTH}: "
+                 f"the train kernels vs their plain versions and rr_depth 0, "
+                 f"make_train_step at 8 and {NORTH_STAR_SPP} spp, chain_bwd "
+                 f"on [C2]'s chains and the [C2] step")
+    torch.cuda.reset_peak_memory_stats(device)
+    r2 = rr_train_phase(device, card, q1["counts"])
+    peak_memory("[R2]", device, card)
     phases.start("P1", "main path: the three probes at their full ITERS")
     p1 = probe_phase(device, card)
     phases.end()
@@ -4494,6 +4878,18 @@ def main() -> int:
                         + (", tex" if name != "intersect_kernel" else "")
                         + ", walk)"))
 
+    def rr(k, launches):
+        # The kernel at rr_depth RR_DEPTH ([R1]: tile_render at MAIN,
+        # plain_ms and max_abs_err at RR_PLAIN_SPP, launches on [R1]'s CLI
+        # main path; bounce_steps on [Q1]'s lanes after RR_DEPTH steps;
+        # [R2]: the train kernels at [7]'s shape, plain_ms and max_abs_err
+        # at [R2]'s 240x160, launches on its make_train_step step; chain_bwd
+        # on [C2]'s chains, launches on its [C2] step).
+        return dict(rr_depth=RR_DEPTH, rr_ms=k["ms"],
+                    rr_off_ms=k.get("off_ms"), rr_plain_ms=k["plain_ms"],
+                    rr_max_abs_err=k["err"], rr_bound_ms=k["bound"][0],
+                    rr_bound_by=k["bound"][1], rr_launches=launches)
+
     def walk(scan_bnd, counts, moving_scan_bnd, moving_counts):
         # Every kernel but the train kernels walks the BVH: bound_ms is
         # the walk's; the scan's, which they ran before, beside it.
@@ -4525,6 +4921,7 @@ def main() -> int:
               **smoke(s1["tile"], s1_launches[0], "tile_render_kernel"),
               **textured("tile_render", "tile", 0, "tile_render_kernel"),
               **rttnw(f1["tile"], f1_launches[0], "tile_render_kernel"),
+              **rr(r1["tile"], r1_launches[0]),
               registers=resources.get("tile_render_kernel")),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
@@ -4534,7 +4931,8 @@ def main() -> int:
               registers=resources.get("train_fwd_kernel"),
               **k3["train_fwd"], **s2["train_fwd"],
               **textured("train_fwd", "train_fwd", 0, "train_fwd_kernel"),
-              **f3["train_fwd"],
+              **f3["train_fwd"], **rr(r2["train_fwd"],
+                                      r2["train_fwd"]["launches"]),
               **moving(m_t["fwd_ms"], m_t["fwd_bound"],
                        moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
@@ -4546,7 +4944,8 @@ def main() -> int:
               registers=resources.get("train_bwd_kernel"),
               **k3["train_bwd"], **s2["train_bwd"],
               **textured("train_bwd", "train_bwd", 1, "train_bwd_kernel"),
-              **f3["train_bwd"],
+              **f3["train_bwd"], **rr(r2["train_bwd"],
+                                      r2["train_bwd"]["launches"]),
               **moving(m_t["bwd_ms"], m_t["bwd_bound"],
                        moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",
@@ -4559,6 +4958,7 @@ def main() -> int:
               **smoke(s1["queue"], s1_launches[1], "bounce_steps_kernel"),
               **textured("bounce_steps", "queue", 1, "bounce_steps_kernel"),
               **rttnw(f1["queue"], f1_launches[1], "bounce_steps_kernel"),
+              **rr(r1["queue"], r1_launches[1]),
               registers=resources.get("bounce_steps_kernel")),
         entry("intersect_only", csrc + "queue.cu",
               "rrt_tpu/ops/megakernel.py:1683", b_launches, q1["i_err"],
@@ -4577,7 +4977,8 @@ def main() -> int:
               **walk(c1_bound[1], q1["counts"], m_c1_bound[1],
                      m_q["counts"]),
               registers=resources.get("chain_bwd_kernel"),
-              **k3["chain_bwd"],
+              **k3["chain_bwd"], **rr(r2["chain_bwd"],
+                                      r2["chain_bwd"]["launches"]),
               **textured("chain_bwd", "chain_bwd", 3, "chain_bwd_kernel")),
         probe("fma_chain", "benchmarks/probe_row_layout.py:38",
               p1["launches"][0], p1["chain_err"], p1["row"],

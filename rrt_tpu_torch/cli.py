@@ -1,8 +1,9 @@
 """Command-line renderer on one device.
 
 A subset of rrt_tpu's CLI (itself covering the reference's
-src/main.rs:12-46): resolution, samples, seed, scene, output path and
-maximum depth; the driver (`--driver`: `tile`, one kernel launch for
+src/main.rs:12-46): resolution, samples, seed, scene, output path,
+maximum depth and Russian roulette's first bounce (`--rr-depth`); the
+driver (`--driver`: `tile`, one kernel launch for
 all pixels; `queue`, the persistent ray queue; `batch`, fixed ray
 batches in eager PyTorch; `auto` picks `tile` for every scene in the
 kernels' scope), the queue size, progressive passes of `--spp-chunk`
@@ -62,6 +63,9 @@ def build_parser():
     p.add_argument("-o", "--output", default="o.ppm",
                    help="output path; .png or .ppm by extension")
     p.add_argument("--max-depth", type=int, default=50)
+    p.add_argument("--rr-depth", type=int, default=0,
+                   help="Russian roulette from this bounce (0 = off, "
+                   "the books' exact termination; every driver takes it)")
     p.add_argument("--driver", choices=("auto", "tile", "queue", "batch"),
                    default="auto",
                    help="auto (default): tile for scenes in the kernels' "
@@ -127,8 +131,8 @@ def render(args) -> RenderResult:
     spp = args.samples
     device = torch.device(args.device)
     log(f"rrt-tpu-torch: {args.scene} {width}x{height} @ {spp}spp "
-        f"seed={args.seed} depth={args.max_depth} driver={args.driver} "
-        f"device={device}")
+        f"seed={args.seed} depth={args.max_depth} rr_depth={args.rr_depth} "
+        f"driver={args.driver} device={device}")
     scene, camera = SCENES[args.scene](width, height)
     driver = resolve_driver(args.driver, scene)
     if driver != args.driver:
@@ -147,7 +151,7 @@ def render(args) -> RenderResult:
     cfg = RenderConfig(
         width=width, height=height, spp=spp, max_depth=args.max_depth,
         queue_size=min(args.queue_size, width * height * spp),
-        samples_per_pass=spc)
+        samples_per_pass=spc, rr_depth=args.rr_depth)
 
     n_pix = width * height
     ids = torch.arange(n_pix)
@@ -158,8 +162,9 @@ def render(args) -> RenderResult:
     # rrt_tpu's keys and the values its CLI writes for the same render,
     # so a checkpoint of either package resumes in the other.
     ck_meta = {"scene": args.scene, "width": width, "height": height,
-               "max_depth": args.max_depth, "rr_depth": 0, "texture": "",
-               "texture_filter": "nearest", "texture_max": "512x256"}
+               "max_depth": args.max_depth, "rr_depth": args.rr_depth,
+               "texture": "", "texture_filter": "nearest",
+               "texture_max": "512x256"}
     if args.checkpoint:
         try:
             acc_l, spp_done, seed_ck, meta = load_checkpoint(args.checkpoint)

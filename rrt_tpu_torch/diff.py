@@ -218,7 +218,8 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
             cfg.width, cfg.height, chunk, cfg.max_depth, cfg.t_min,
             scene.has_moving,
             *solid_inputs(ops_mega.pack_solids(scene_d, device),
-                          ops_mega.pack_textures(scene_d, device)))
+                          ops_mega.pack_textures(scene_d, device),
+                          cfg.rr_depth))
         return rad
 
     rad0 = chain(0)
@@ -233,7 +234,8 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
                 *packs, seed_words=key_words(seed), sample_lo=lo,
                 width=cfg.width, height=cfg.height, spp=chunk,
                 max_depth=cfg.max_depth, t_min=cfg.t_min,
-                moving=scene.has_moving, bvh=bvh, solids=solids, tex=tex)
+                moving=scene.has_moving, bvh=bvh, solids=solids, tex=tex,
+                rr_depth=cfg.rr_depth)
             rad_sum = rad_sum + r
     rs = rad_sum.requires_grad_()
     img = rs.reshape(cfg.height, cfg.width, 3) / float(cfg.spp)
@@ -264,8 +266,7 @@ def make_train_step_chunked(cfg: RenderConfig, lr: float = 1e-2,
         # runs the one-shot step (render_image_diff's route), with one
         # log line naming why (on a CUDA device a scene outside the
         # kernels' backward scope raises instead).
-        _check_card_scope("make_train_step_chunked", scene, cfg.rr_depth,
-                          device)
+        _check_card_scope("make_train_step_chunked", scene, device)
         reason = diff_fallback_reason(scene, cfg)
         if reason is not None:
             _warn_diff_fallback("make_train_step_chunked", reason)

@@ -180,22 +180,22 @@ def load() -> ctypes.CDLL:
     s = ctypes.POINTER(SolidArgs)
     t = ctypes.POINTER(TexArgs)
     lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, s, t, u, u, u,
-                                    i, i, i, i, f, i, p, p, p]
+                                    i, i, i, i, i, f, i, p, p, p]
     lib.rrt_tile_render.restype = i
-    lib.rrt_train_fwd.argtypes = [p, i, p, p, s, t, u, u, u, i, i, i, i, f,
-                                  i, i, p, p, p, p, p]
+    lib.rrt_train_fwd.argtypes = [p, i, p, p, s, t, u, u, u, i, i, i, i, i,
+                                  f, i, i, p, p, p, p, p]
     lib.rrt_train_fwd.restype = i
     lib.rrt_train_bwd.argtypes = [p, i, p, p, s, t, p, p, p, i, u, u, u, i,
-                                  i, i, i, f, i, p, p, p, p]
+                                  i, i, i, i, f, i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
     lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, s, t, p,
-                                     i, i, f, i, p]
+                                     i, i, i, f, i, p]
     lib.rrt_bounce_steps.restype = i
     lib.rrt_intersect.argtypes = [p, p, p, p, p, i, p, i, p, p, i, i, i, s,
                                   f, i, p, p, p, p]
     lib.rrt_intersect.restype = i
     lib.rrt_chain_bwd.argtypes = [p, p, i, p, i, p, p, i, i, i, s, t, p, p,
-                                  p, i, i, f, i, p, p, p, p, p]
+                                  p, i, i, i, f, i, p, p, p, p, p]
     lib.rrt_chain_bwd.restype = i
     n = ctypes.POINTER(ctypes.c_int)
     ll = ctypes.POINTER(ctypes.c_longlong)

@@ -3,7 +3,8 @@
 // rrt_tpu_torch/ops/megakernel_vjp.py diff_step for a miss, a light's
 // emission and a scattering bounce on a sphere, a quad, a box or in a
 // constant medium, with (kTex) the marble's and the image's albedo, the
-// atlas cotangent by float atomics into device memory, the
+// atlas cotangent by float atomics into device memory, Russian
+// roulette's detached 1 / p on a surviving throughput (rr_inv_p), the
 // four-float reductions of the pack cotangents into per-block partials
 // in device memory (add_slot), and the fixed-order reduction of those
 // partials.
@@ -184,13 +185,15 @@ __device__ __forceinline__ void miss_adjoint(const Record& r,
 // kKept the shading is recomputed without the scatter draws, from what
 // the replay's shade() kept of them (`kept`: shade's kForAdjoint). kTex:
 // the albedo's texture (albedo_adjoint; `tex` the atlas and its
-// cotangent). A light's emission (thr * albedo) has this adjoint with
-// the pending radiance's cotangent in gt and none in go and gd
-// (emit_adjoint_tex).
+// cotangent). From bounce rr_depth on (rr_depth > 0) the new throughput
+// is thr * att / p, p detached (bounce.cuh rr_inv_p). A light's emission
+// (thr * albedo) has this adjoint with the pending radiance's cotangent
+// in gt, none in go and gd, and rr_depth 0 (emit_adjoint_tex).
 template <bool kMoving, class Sink, bool kKept = false, bool kTex = false>
 __device__ __forceinline__ void scatter_adjoint(
     const float* sph, int n_slots, const Record& rec, uint32_t k0,
-    uint32_t k1, int bounce, float t_min, float time, float* go, float* gd,
+    uint32_t k1, int bounce, int rr_depth, float t_min, float time,
+    float* go, float* gd,
     float* gt, Sink& sink, float& g_time, float* kept = nullptr,
     const TexView* tex = nullptr) {
   Ray ray;
@@ -220,12 +223,17 @@ __device__ __forceinline__ void scatter_adjoint(
   const bool is_die = sh.mtype == kMatDielectric;
   const float* n = sh.n;
 
-  // --- throughput: thr' = thr * att, att = albedo (1 on dielectrics).
+  // --- throughput: thr' = thr * att * inv_p, att = albedo (1 on
+  // dielectrics), inv_p the detached RR weight (1 where RR is off).
+  const float att[3] = {is_die ? 1.0f : sh.alb[0], is_die ? 1.0f : sh.alb[1],
+                        is_die ? 1.0f : sh.alb[2]};
+  const float inv_p = rr_inv_p(rec.thr, att, bounce, rr_depth);
   float g_alb[3] = {0.0f, 0.0f, 0.0f};
   float g_thr[3];
   for (int j = 0; j < 3; ++j) {
-    g_thr[j] = is_die ? gt[j] : gt[j] * sh.alb[j];
-    if (!is_die) g_alb[j] = gt[j] * rec.thr[j];
+    const float g = gt[j] * inv_p;
+    g_thr[j] = is_die ? g : g * sh.alb[j];
+    if (!is_die) g_alb[j] = g * rec.thr[j];
   }
 
   // --- direction.
@@ -402,12 +410,15 @@ __device__ __forceinline__ int winner_column(int n_slots, const Solids* sv,
 // splits them (measure zero). In: go, gd, gt, the cotangents of the new
 // origin, direction and throughput; out: those of the bounce's input.
 // The medium's 11 cotangents go to `sink` (zeroed by the caller) in its
-// columns (kMedAccRadius ...).
+// columns (kMedAccRadius ...). From bounce rr_depth on the throughput
+// takes the detached 1 / p of the albedo-attenuated throughput, the
+// albedo folded in before the coin, as in the forward.
 template <class Sink>
 __device__ __forceinline__ void medium_adjoint(const Solids& sv, int slot,
                                                const Record& rec,
                                                uint32_t k0, uint32_t k1,
-                                               int bounce, float t_min,
+                                               int bounce, int rr_depth,
+                                               float t_min,
                                                float* go, float* gd,
                                                float* gt, Sink& sink) {
   const float* m = sv.med + slot * kMedCols;
@@ -458,10 +469,12 @@ __device__ __forceinline__ void medium_adjoint(const Solids& sv, int slot,
   const float hit_dist = m[kMedNid] * logu;
   const float t = te + hit_dist * inv_dlen;
 
-  // --- throughput: thr' = thr * albedo.
+  // --- throughput: thr' = thr * albedo * inv_p.
+  const float inv_p = rr_inv_p(rec.thr, m + kMedAlbedo, bounce, rr_depth);
   for (int j = 0; j < 3; ++j) {
-    sink.add(kMedAccAlbedo + j, gt[j] * rec.thr[j]);
-    gt[j] = gt[j] * m[kMedAlbedo + j];
+    const float g = gt[j] * inv_p;
+    sink.add(kMedAccAlbedo + j, g * rec.thr[j]);
+    gt[j] = g * m[kMedAlbedo + j];
   }
   // --- the new origin h = o + t d.
   float g_o[3], g_d[3], g_oc[3] = {0.0f, 0.0f, 0.0f};
@@ -542,19 +555,25 @@ __device__ __forceinline__ void emit_adjoint(const float* sph, int n_slots,
 // cotangents of the new direction and throughput, the throughput's
 // (g_thr), the albedo's (g_alb), the face normal's (g_n), the incoming
 // direction's through its unit vector (g_d) and |d|^2 (g_a), and aux's
-// (g_aux). scatter_adjoint's arithmetic; the sphere's copy there stays
-// as it was, so that the sphere variants compile unchanged.
+// (g_aux); the throughput's and the albedo's take Russian roulette's
+// detached 1 / p from bounce rr_depth on. scatter_adjoint's arithmetic;
+// the sphere's copy there stays as it was, so that the sphere variants
+// compile unchanged.
 __device__ __forceinline__ void material_adjoint(
-    const Shade& sh, const Record& rec, float a, const float* gd,
-    const float* gt, float* g_thr, float* g_alb, float* g_n, float* g_d,
-    float& g_a, float& g_aux) {
+    const Shade& sh, const Record& rec, float a, int bounce, int rr_depth,
+    const float* gd, const float* gt, float* g_thr, float* g_alb, float* g_n,
+    float* g_d, float& g_a, float& g_aux) {
   const bool is_lam = sh.mtype == kMatLambertian;
   const bool is_met = sh.mtype == kMatMetal;
   const bool is_die = sh.mtype == kMatDielectric;
   const float* n = sh.n;
+  const float att[3] = {is_die ? 1.0f : sh.alb[0], is_die ? 1.0f : sh.alb[1],
+                        is_die ? 1.0f : sh.alb[2]};
+  const float inv_p = rr_inv_p(rec.thr, att, bounce, rr_depth);
   for (int j = 0; j < 3; ++j) {
-    g_thr[j] = is_die ? gt[j] : gt[j] * sh.alb[j];
-    g_alb[j] = is_die ? 0.0f : gt[j] * rec.thr[j];
+    const float g = gt[j] * inv_p;
+    g_thr[j] = is_die ? g : g * sh.alb[j];
+    g_alb[j] = is_die ? 0.0f : g * rec.thr[j];
     g_n[j] = 0.0f;
     g_d[j] = 0.0f;
   }
@@ -636,13 +655,13 @@ __device__ __forceinline__ void material_adjoint(
 // are detached. In: go, gd, gt, the cotangents of the new origin,
 // direction and throughput; out: those of the bounce's input. The
 // winner's cotangents go to `sink` (zeroed by the caller) in the quad's
-// or box's columns (kQuadAccPlane, kBoxAccCos, ...). kTex: as
-// scatter_adjoint's (the atlas sv.tex).
+// or box's columns (kQuadAccPlane, kBoxAccCos, ...). kTex and rr_depth:
+// as scatter_adjoint's (the atlas sv.tex).
 template <class Sink, bool kTex = false>
 __device__ __forceinline__ void solid_scatter_adjoint(
     const Solids& sv, int fam, int slot, const Record& rec, uint32_t k0,
-    uint32_t k1, int bounce, float t_min, float* go, float* gd, float* gt,
-    Sink& sink, float* kept) {
+    uint32_t k1, int bounce, int rr_depth, float t_min, float* go, float* gd,
+    float* gt, Sink& sink, float* kept) {
   Ray ray;
   ray.ox = rec.o[0]; ray.oy = rec.o[1]; ray.oz = rec.o[2];
   ray.dx = rec.d[0]; ray.dy = rec.d[1]; ray.dz = rec.d[2];
@@ -659,8 +678,8 @@ __device__ __forceinline__ void solid_scatter_adjoint(
                                     bounce, sh, kept, &sv.tex);
 
   float g_thr[3], g_alb[3], g_n[3], g_d[3], g_a, g_aux;
-  material_adjoint(sh, rec, q.a, gd, gt, g_thr, g_alb, g_n, g_d, g_a,
-                   g_aux);
+  material_adjoint(sh, rec, q.a, bounce, rr_depth, gd, gt, g_thr, g_alb, g_n,
+                   g_d, g_a, g_aux);
   // The hit point's cotangent: the new origin's, and the texture's.
   float g_h[3] = {go[0], go[1], go[2]};
   albedo_adjoint<kTex>(sh, mat, stride, g_alb, &sv.tex, g_h, sink);
@@ -782,8 +801,9 @@ __device__ __forceinline__ void solid_scatter_adjoint(
 // is a scatter's throughput thr * albedo, so this is the winner's
 // scatter adjoint with the pending radiance's cotangent dr in the
 // throughput's place and none for the new origin and direction, which
-// the path does not take: a textured light's albedo depends on the hit
-// point, whose cotangent reaches t, the ray and the geometry. Its
+// the path does not take (nor Russian roulette's weight: rr_depth 0): a
+// textured light's albedo depends on the hit point, whose cotangent
+// reaches t, the ray and the geometry. Its
 // results are ADDED to go, gd, gt (and g_time), the winner's cotangents
 // to its columns of `acc` (the block's row of the partials).
 template <bool kMoving>
@@ -799,13 +819,13 @@ __device__ __forceinline__ void emit_adjoint_tex(
   if (fam == kFamSphere) {
     RowSums<sphere_rows(kMoving, true)> sums{};
     scatter_adjoint<kMoving, decltype(sums), true, true>(
-        sph, n_slots, rec, k0, k1, bounce, t_min, time, eo, ed, et, sums,
+        sph, n_slots, rec, k0, k1, bounce, 0, t_min, time, eo, ed, et, sums,
         g_time, kept, &sv.tex);
     add_slot<sphere_rows(kMoving, true)>(acc + slot * kSlotCols, sums.g);
   } else {
     RowSums<kTexRows> sums{};
     solid_scatter_adjoint<decltype(sums), true>(sv, fam, slot, rec, k0, k1,
-                                                bounce, t_min, eo, ed, et,
+                                                bounce, 0, t_min, eo, ed, et,
                                                 sums, kept);
     add_slot<kTexRows>(acc + winner_column(n_slots, &sv, fam, slot),
                        sums.g);

@@ -14,8 +14,8 @@
 // Subset of rrt_tpu/ops/megakernel.py::_one_bounce: stationary and
 // moving spheres, quads, boxes and constant media, solid, checker,
 // perlin-marble and image textures, lambertian / metal / dielectric /
-// diffuse_light / isotropic materials, sky or solid background, no
-// Russian roulette.
+// diffuse_light / isotropic materials, sky or solid background, and
+// Russian roulette (finish_bounce: rr_depth, a runtime argument).
 //
 // The solid families (kSolids = true: quads, boxes and emission, which
 // the scenes with quads, boxes or a diffuse_light launch): each segment
@@ -147,6 +147,7 @@ constexpr uint32_t kPairStep = 0x9E3779B9u;
 constexpr uint32_t kNumStreams = 8u;
 constexpr uint32_t kStreamScatter = 1u;
 constexpr uint32_t kStreamMedium = 2u;
+constexpr uint32_t kStreamRr = 3u;
 
 // Sphere pack rows (row-major (24, S)).
 constexpr int kRowR2 = 3;  // r^2 (-1 on invalid slots)
@@ -259,6 +260,61 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
 __device__ __forceinline__ float to_uniform(uint32_t bits) {
   return static_cast<float>(static_cast<int32_t>(bits >> 8)) *
          (1.0f / 16777216.0f);
+}
+
+// Russian roulette (rrt_tpu's _one_bounce RR block, render._apply_rr):
+// from bounce rr_depth on (rr_depth > 0), a path that scatters below
+// max_depth goes on with probability p = clip(max(tn), 0.05, 1) of its
+// throughput after the attenuation, tn = thr * att, and its throughput
+// becomes tn * (1 / p); otherwise it is absorbed where it stands.
+__host__ __device__ __forceinline__ bool rr_on(int bounce, int rr_depth) {
+  return rr_depth > 0 && bounce >= rr_depth;
+}
+
+__device__ __forceinline__ float rr_p(const float* tn) {
+  return fminf(fmaxf(fmaxf(tn[0], fmaxf(tn[1], tn[2])), 0.05f), 1.0f);
+}
+
+// The coin at `bounce`: word a of threefry2x32(k0, k1, bounce * 8 +
+// STREAM_RR, 0) (rng.rr_draw), threefry2x32's arithmetic in rolled loops
+// (the key words rotate through the five injections). Inlined unrolled,
+// the coin's 20 rounds slowed chap12's train_fwd by 4-6% on an H100
+// although an rr_depth 0 launch never draws it; rolled, by 0-2% (PERF.md
+// §6, Russian roulette).
+__device__ __forceinline__ float rr_uniform(uint32_t k0, uint32_t k1,
+                                            int bounce) {
+  uint32_t ka = k1, kb = k0 ^ k1 ^ 0x1BD11BDAu, kc = k0;
+  uint32_t x0 = static_cast<uint32_t>(bounce) * kNumStreams + kStreamRr + k0;
+  uint32_t x1 = k1;
+#pragma unroll 1
+  for (uint32_t i = 0; i < 5; ++i) {
+    // Rotations 13, 15, 26, 6 after even injections, 17, 29, 16, 24 after
+    // odd ones, a byte each.
+    const uint32_t rot = (i & 1u) ? 0x18101D11u : 0x061A0F0Du;
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const int r = static_cast<int>((rot >> (8 * j)) & 0xFFu);
+      x0 += x1;
+      x1 = rotl(x1, r) ^ x0;
+    }
+    x0 += ka;
+    x1 += kb + i + 1u;
+    const uint32_t t = ka;
+    ka = kb;
+    kb = kc;
+    kc = t;
+  }
+  return to_uniform(x0);
+}
+
+// The 1 / p a surviving bounce's throughput took (1 where RR does not
+// act), recomputed from its input throughput thr and attenuation att in
+// the forward's order: the backwards' detached weight.
+__device__ __forceinline__ float rr_inv_p(const float* thr, const float* att,
+                                          int bounce, int rr_depth) {
+  if (!rr_on(bounce, rr_depth)) return 1.0f;
+  const float tn[3] = {thr[0] * att[0], thr[1] * att[1], thr[2] * att[2]};
+  return 1.0f / rr_p(tn);
 }
 
 // 2*n_pairs uniforms of one counter (rrt_tpu/rng.py _words).
@@ -1547,7 +1603,10 @@ struct Path {
 // on a diffuse_light banks throughput x its color into `rad` and ends
 // the path (kEmitted). kMedia = false leaves the media's shade out (a
 // caller that knows the scene has none). kTex: textures, sv->tex (sv is
-// then given with or without kSolids). Returns the Outcome; on
+// then given with or without kSolids). From bounce rr_depth on (rr_depth
+// > 0) a scatter below max_depth draws Russian roulette's coin (rr_on):
+// a loss absorbs the path (kAbsorbed, so every caller's bookkeeping holds),
+// a survivor's throughput takes the weight 1 / p. Returns the Outcome; on
 // kScattered the path has moved on (its time stays).
 template <bool kMoving, bool kSolids = false, bool kMedia = true,
           bool kTex = false>
@@ -1555,6 +1614,7 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
                                              const float* bg, bool sky,
                                              uint32_t k0, uint32_t k1,
                                              int bounce, int max_depth,
+                                             int rr_depth,
                                              const RayDots& q, float t_best,
                                              Path& p, float* rad, int& win,
                                              float* kept = nullptr,
@@ -1601,7 +1661,18 @@ __device__ __forceinline__ int finish_bounce(const float* sph, int n_slots,
                                        kTex ? &sv->tex : nullptr);
   }
   if (!sh.scattered || bounce >= max_depth) return kAbsorbed;
-  if (sh.mtype != kMatDielectric) {  // dielectrics attenuate by 1
+  if (rr_on(bounce, rr_depth)) {
+    const bool die = sh.mtype == kMatDielectric;
+    const float tn[3] = {p.thr[0] * (die ? 1.0f : sh.alb[0]),
+                         p.thr[1] * (die ? 1.0f : sh.alb[1]),
+                         p.thr[2] * (die ? 1.0f : sh.alb[2])};
+    const float pr = rr_p(tn);
+    if (!(rr_uniform(k0, k1, bounce) < pr)) return kAbsorbed;
+    const float inv_p = 1.0f / pr;  // the reciprocal, then the product
+    p.thr[0] = tn[0] * inv_p;
+    p.thr[1] = tn[1] * inv_p;
+    p.thr[2] = tn[2] * inv_p;
+  } else if (sh.mtype != kMatDielectric) {  // dielectrics attenuate by 1
     p.thr[0] *= sh.alb[0];
     p.thr[1] *= sh.alb[1];
     p.thr[2] *= sh.alb[2];
@@ -1657,7 +1728,7 @@ __device__ __forceinline__ float closest_hit(const Closest& closest,
 // BvhWalk, below: the same (t, win) bit for bit; with kSolids seeded by
 // the quads and boxes of `sv`, closest_hit), then finish_bounce. `win`
 // is the winner, -1 on a miss (with kSolids its winner_code); `kept`: as
-// shade's; kTex: finish_bounce's.
+// shade's; kTex and rr_depth: finish_bounce's.
 template <bool kMoving, bool kSolids = false, bool kTex = false,
           bool kWalk = false, typename Closest>
 __device__ __forceinline__ int bounce_step(const Closest& closest,
@@ -1665,6 +1736,7 @@ __device__ __forceinline__ int bounce_step(const Closest& closest,
                                            const float* bg, bool sky,
                                            uint32_t k0, uint32_t k1,
                                            int bounce, int max_depth,
+                                           int rr_depth,
                                            float t_min, Path& p, float* rad,
                                            int& win, float* kept = nullptr,
                                            const Solids* sv = nullptr) {
@@ -1672,15 +1744,15 @@ __device__ __forceinline__ int bounce_step(const Closest& closest,
   if constexpr (!kSolids) {
     const float t_best = closest(p.ray, q, t_min, win);
     return finish_bounce<kMoving, false, true, kTex>(
-        sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, rad,
-        win, kept, kFamSphere, sv);
+        sph, n_slots, bg, sky, k0, k1, bounce, max_depth, rr_depth, q, t_best,
+        p, rad, win, kept, kFamSphere, sv);
   } else {
     int fam;
     const float t_best = closest_hit<true, Closest, true, kWalk>(
         closest, sv, p.ray, q, t_min, fam, win, k0, k1, bounce);
     const int out = finish_bounce<kMoving, true, true, kTex>(
-        sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, rad,
-        win, kept, fam, sv);
+        sph, n_slots, bg, sky, k0, k1, bounce, max_depth, rr_depth, q, t_best,
+        p, rad, win, kept, fam, sv);
     win = winner_code(fam, win);
     return out;
   }
@@ -1937,15 +2009,17 @@ struct BvhWalk {
 // (train_fwd) it keeps the backward's residual: each path's bounce
 // count in lengths[s * n_pix + gid], and the winner of the pixel's j-th
 // segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss;
-// with kSolids its winner_code). kTex: bounce_step's (sv given).
+// with kSolids its winner_code). kTex: bounce_step's (sv given);
+// rr_depth: Russian roulette's first bounce (0: off; finish_bounce), whose
+// kill ends a sample as an absorption does.
 template <bool kMoving, bool kResidual, bool kSolids = false,
           bool kTex = false, bool kWalk = false, typename Closest>
 __device__ __forceinline__ void trace_pixel(
     const Closest& closest, const float* sph, int n_slots, const float* cam,
     const float* bg, uint32_t s0, uint32_t s1, uint32_t lo, int px, int py,
-    int width, int n_pix, int spp, int max_depth, float t_min, int win_cap,
-    float* rad, int* traced, uint8_t* lengths, int16_t* winners,
-    const Solids* sv = nullptr) {
+    int width, int n_pix, int spp, int max_depth, int rr_depth, float t_min,
+    int win_cap, float* rad, int* traced, uint8_t* lengths,
+    int16_t* winners, const Solids* sv = nullptr) {
   const uint32_t gid = static_cast<uint32_t>(py * width + px);
   const bool sky = bg[6] < 0.5f;  // BG_SKY == 0
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -1958,8 +2032,8 @@ __device__ __forceinline__ void trace_pixel(
     float c[3];
     int win;
     const int out = bounce_step<kMoving, kSolids, kTex, kWalk>(
-        closest, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, t_min, p,
-        c, win, nullptr, sv);
+        closest, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, rr_depth,
+        t_min, p, c, win, nullptr, sv);
     if (kResidual && n_traced < win_cap) {
       winners[static_cast<size_t>(n_traced) * n_pix + gid] =
           static_cast<int16_t>(win);

@@ -10,7 +10,10 @@
 // (a kTex instantiation: a marble's cotangents reach its color1, texture
 // scale and, through the turbulence's gradient, the hit point; an
 // image's go to its texel of the atlas cotangent, four-float atomics in
-// device memory; a light's emission then takes emit_adjoint_tex).
+// device memory; a light's emission then takes emit_adjoint_tex), and
+// Russian roulette from bounce rr_depth (0 off): the replay redraws the
+// coin at the state's bounce row plus its step, and the sweep gives a
+// surviving throughput the detached 1 / p (adjoint.cuh).
 // rrt_tpu_torch/ops/megakernel_vjp.py holds the wrapper
 // (chain_adjoint), its plain PyTorch version (chain_adjoint_reference)
 // and the autograd.Function BounceChain, whose forward is queue.cu's
@@ -98,8 +101,8 @@ __device__ __forceinline__ void adjoint_lane(
     const Solids& sv, const float* bg, const float* st,
     const uint32_t* keys, size_t n,
     int lane, const float* d_out, const float* out_bounce, int k_steps,
-    int max_depth, float t_min, float* d_in, float* acc, float* g_bg,
-    int* mismatches) {
+    int max_depth, int rr_depth, float t_min, float* d_in, float* acc,
+    float* g_bg, int* mismatches) {
   const float* row = st + lane;
   const float* dso = d_out + lane;
   float* dsi = d_in + lane;
@@ -134,8 +137,8 @@ __device__ __forceinline__ void adjoint_lane(
     float c[3];
     last = bounce_step<kMoving, kSolids, kTex>(walk, sph, n_slots, bg, sky,
                                                k0, k1, bounce0 + k, max_depth,
-                                               t_min, p, c, r.win, kept[k],
-                                               &sv);
+                                               rr_depth, t_min, p, c, r.win,
+                                               kept[k], &sv);
     if (last != kScattered) break;
   }
   // 2. the replay must end on the forward's bounce row.
@@ -178,8 +181,8 @@ __device__ __forceinline__ void adjoint_lane(
         constexpr int kRows = kTex ? kTexRows : kSolidRows;
         RowSums<kRows> sums{};
         solid_scatter_adjoint<decltype(sums), kTex>(sv, fam, slot, rec[k], k0,
-                                                    k1, bounce0 + k, t_min,
-                                                    go, gd, gt, sums,
+                                                    k1, bounce0 + k, rr_depth,
+                                                    t_min, go, gd, gt, sums,
                                                     kept[k]);
         add_slot<kRows>(acc + winner_column(n_slots, &sv, fam, slot),
                         sums.g);
@@ -190,8 +193,8 @@ __device__ __forceinline__ void adjoint_lane(
     RowSums<kRows> sums;
     if constexpr (kTex) sums = RowSums<kRows>{};
     scatter_adjoint<kMoving, decltype(sums), true, kTex>(
-        sph, n_slots, rec[k], k0, k1, bounce0 + k, t_min, p.ray.time, go, gd,
-        gt, sums, g_time, kept[k], &sv.tex);
+        sph, n_slots, rec[k], k0, k1, bounce0 + k, rr_depth, t_min,
+        p.ray.time, go, gd, gt, sums, g_time, kept[k], &sv.tex);
     add_slot<kRows>(acc + rec[k].win * kSlotCols, sums.g);
   }
   for (int j = 0; j < 3; ++j) {
@@ -217,7 +220,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ bg_g,
                      const float* __restrict__ d_out,
                      const float* __restrict__ out_bounce, int k_steps,
-                     int max_depth, float t_min, float* __restrict__ d_in,
+                     int max_depth, int rr_depth, float t_min,
+                     float* __restrict__ d_in,
                      float* __restrict__ partials,
                      int* __restrict__ mismatches) {
   // Dynamic shared memory (bvh_bytes): the staged BVH, then with kSolids
@@ -250,8 +254,8 @@ __global__ void __launch_bounds__(kThreads)
     adjoint_lane<kMoving, kSolids, kTex>(walk, sph, n_slots, sv, bg, st,
                                          keys, static_cast<size_t>(q), lane,
                                          d_out, out_bounce, k_steps,
-                                         max_depth, t_min, d_in, out, g_bg,
-                                         mismatches);
+                                         max_depth, rr_depth, t_min, d_in,
+                                         out, g_bg, mismatches);
   }
 
   // Background: warp sums, then warps in order.
@@ -285,15 +289,15 @@ __global__ void __launch_bounds__(kThreads)
 // kQuadAccPlane ...); then 6 background rows, 2 pad); mismatches: one
 // int32, zeroed by the caller; tex: the atlas for the texture variant,
 // or null, its d_atlas (with images) the atlas cotangent, zeroed by the
-// caller.
+// caller; rr_depth: the forward's Russian roulette (0: off).
 extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
                              const float* sph, int n_slots,
                              const float* nodes, const int* rows,
                              int n_nodes, int n_rows, int n_always,
                              const SolidArgs* solids, const TexArgs* tex,
                              const float* bg, const float* d_out, const float* out_bounce,
-                             int k_steps, int max_depth, float t_min,
-                             int moving, float* d_in, float* scratch,
+                             int k_steps, int max_depth, int rr_depth,
+                             float t_min, int moving, float* d_in, float* scratch,
                              float* sums, int* mismatches, void* stream) {
   if (k_steps < 1 || k_steps > kMaxRecords) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -319,8 +323,8 @@ extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
   kernel<<<n_blocks, kThreads, smem, s>>>(
       st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
       sa.quad, sa.quad_slots, sa.n_quads, sa.box, sa.box_slots, sa.n_boxes,
-      tex_view(tex), bg, d_out, out_bounce, k_steps, max_depth, t_min, d_in, scratch,
-      mismatches);
+      tex_view(tex), bg, d_out, out_bounce, k_steps, max_depth, rr_depth, t_min,
+      d_in, scratch, mismatches);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_partials(scratch, n_blocks, n_cols, sums, s));

@@ -7,7 +7,9 @@
 // tile_render.cu (stationary and moving spheres, quads, boxes and
 // constant media, solid, checker, perlin-marble and image textures,
 // lambertian / metal / dielectric / diffuse_light / isotropic, sky or
-// solid background, no Russian roulette). intersect_kernel replaces _intersect_kernel
+// solid background, Russian roulette from bounce rr_depth, 0 off, the
+// coin drawn at each lane's bounce row). intersect_kernel replaces
+// _intersect_kernel
 // (launched by intersect_only): the closest hit (t, family, slot) of each
 // ray over the spheres and, in its kSolids instantiation, the quads,
 // boxes and media (rrt_tpu's megakernel.py:1804-1840), a medium's draw
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(kThreads, kWalk ? kWalkBlocks : 4)
                         TexView tex,
                         const float* __restrict__ bg_g,
                         int k_steps,
-                        int max_depth, float t_min) {
+                        int max_depth, int rr_depth, float t_min) {
   extern __shared__ float4 smem[];
   __shared__ float bg[8];
   const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
@@ -142,8 +144,8 @@ __global__ void __launch_bounds__(kThreads, kWalk ? kWalkBlocks : 4)
     float c[3];
     int win;
     const int out = bounce_step<kMoving, kSolids, kTex, kWalk>(
-        walk, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, t_min, p, c,
-        win, nullptr, &sv);
+        walk, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, rr_depth,
+        t_min, p, c, win, nullptr, &sv);
     if (out == kMissed || (kSolids && out == kEmitted)) {
       pend[0] += c[0];
       pend[1] += c[1];
@@ -232,7 +234,7 @@ int launch_bounce_steps(cudaStream_t stream, float* st, const uint32_t* keys,
                         const float* nodes, const int* rows, int n_nodes,
                         int n_rows, int n_always, const SolidArgs* solids,
                         TexView tex, const float* bg, int k_steps,
-                        int max_depth, float t_min) {
+                        int max_depth, int rr_depth, float t_min) {
   auto kernel = bounce_steps_kernel<kMoving, kSolids, kTex, kWalk>;
   size_t smem;
   const int err = forward_smem(kernel, bvh_bytes(n_nodes, n_rows, kMoving),
@@ -243,7 +245,7 @@ int launch_bounce_steps(cudaStream_t stream, float* st, const uint32_t* keys,
   kernel<<<grid, kThreads, smem, stream>>>(
       st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
       solids != nullptr ? *solids : none, tex, bg, k_steps, max_depth,
-      t_min);
+      rr_depth, t_min);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -274,14 +276,16 @@ int launch_intersect(cudaStream_t stream, const float* o, const float* d,
 // st: (16, q) f32, updated in place; keys: (2, q) u32; sph: (24, n_slots)
 // f32; the BVH, the solid families (solids, or null) and the textures
 // (tex, or null) as rrt_tile_render's; bg: (8,) f32; all on the device;
-// moving: nonzero for the moving-sphere variant.
+// rr_depth: Russian roulette's first bounce (0: off); moving: nonzero
+// for the moving-sphere variant.
 extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                                 const float* sph, int n_slots,
                                 const float* nodes, const int* rows,
                                 int n_nodes, int n_rows, int n_always,
                                 const SolidArgs* solids, const TexArgs* tex,
                                 const float* bg, int k_steps, int max_depth,
-                                float t_min, int moving, void* stream) {
+                                int rr_depth, float t_min, int moving,
+                                void* stream) {
   if (q == 0) return 0;
   auto go = has_tree(solids)
                  ? RRT_PICK_WALK(launch_bounce_steps, moving != 0,
@@ -290,7 +294,7 @@ extern "C" int rrt_bounce_steps(float* st, const uint32_t* keys, int q,
                              solids != nullptr, tex != nullptr);
   return go(static_cast<cudaStream_t>(stream), st, keys, q, sph, n_slots,
             nodes, rows, n_nodes, n_rows, n_always, solids, tex_view(tex), bg,
-            k_steps, max_depth, t_min);
+            k_steps, max_depth, rr_depth, t_min);
 }
 
 // o, d: (3, q) f32; time: (q,) f32 when moving (else unused, may be

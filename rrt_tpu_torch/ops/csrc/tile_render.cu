@@ -6,7 +6,8 @@
 // and moving spheres, quads, boxes and constant media, solid, checker,
 // perlin-marble and image textures, lambertian / metal / dielectric / diffuse_light / isotropic
 // materials, sky or solid background, a thin-lens camera with a shutter,
-// no Russian roulette. A
+// and Russian roulette from bounce rr_depth (a runtime argument, 0 off:
+// bounce.cuh finish_bounce). A
 // scene with moving spheres launches the kMoving instantiation
 // (bounce.cuh), which stages the velocity rows too and tests each slot's
 // center at the ray's time; a scene with quads, boxes or a light the
@@ -83,8 +84,8 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : 4)
                        int n_rows, int n_always, const SolidArgs sa,
                        TexView tex, uint32_t s0, uint32_t s1,
                        uint32_t lo, int width, int height, int spp,
-                       int max_depth, float t_min, float* __restrict__ rad,
-                       int* __restrict__ traced) {
+                       int max_depth, int rr_depth, float t_min,
+                       float* __restrict__ rad, int* __restrict__ traced) {
   extern __shared__ float4 smem[];
   __shared__ float cam[24];
   __shared__ float bg[8];
@@ -107,7 +108,7 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : 4)
   if (px >= width || py >= height) return;
   trace_pixel<kMoving, false, kSolids, kTex, kWalk>(
       walk, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
-      spp, max_depth, t_min, 0, rad, traced, nullptr, nullptr, &sv);
+      spp, max_depth, rr_depth, t_min, 0, rad, traced, nullptr, nullptr, &sv);
 }
 
 constexpr int kThreads = 256;  // a 16x16 block
@@ -118,7 +119,8 @@ int launch(dim3 grid, dim3 block, cudaStream_t stream, const float* sph,
            const float* nodes, const int* rows, int n_nodes, int n_rows,
            int n_always, const SolidArgs* solids, TexView tex, uint32_t s0,
            uint32_t s1, uint32_t lo, int width, int height, int spp,
-           int max_depth, float t_min, float* rad, int* traced) {
+           int max_depth, int rr_depth, float t_min, float* rad,
+           int* traced) {
   // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
   // what the card allows.
   auto kernel = tile_render_kernel<kMoving, kSolids, kTex, kWalk>;
@@ -130,7 +132,7 @@ int launch(dim3 grid, dim3 block, cudaStream_t stream, const float* sph,
   kernel<<<grid, block, smem, stream>>>(
       sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always,
       solids != nullptr ? *solids : none, tex, s0, s1, lo, width,
-      height, spp, max_depth, t_min, rad, traced);
+      height, spp, max_depth, rr_depth, t_min, rad, traced);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,8 +144,9 @@ int launch(dim3 grid, dim3 block, cudaStream_t stream, const float* sph,
 // the first n_always are tested by every segment, all on the device;
 // moving: nonzero for the moving-sphere variant; solids: the quad and box
 // packs, their trees and the medium pack for the solid-family variant, or
-// null; tex: the atlas for the texture variant, or null; rad:
-// (width*height, 3) f32 and traced: (width*height,) i32 outputs.
+// null; tex: the atlas for the texture variant, or null; rr_depth:
+// Russian roulette's first bounce (0: off); rad: (width*height, 3) f32
+// and traced: (width*height,) i32 outputs.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const float* cam, const float* bg,
                                const float* nodes, const int* rows,
@@ -152,7 +155,8 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const TexArgs* tex, uint32_t s0,
                                uint32_t s1, uint32_t lo, int width,
                                int height, int spp, int max_depth,
-                               float t_min, int moving, float* rad,
+                               int rr_depth, float t_min, int moving,
+                               float* rad,
                                int* traced, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x,
@@ -164,7 +168,7 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
                              tex != nullptr);
   return go(grid, block, st, sph, n_slots, cam, bg, nodes, rows, n_nodes,
             n_rows, n_always, solids, tex_view(tex), s0, s1, lo, width,
-            height, spp, max_depth, t_min, rad, traced);
+            height, spp, max_depth, rr_depth, t_min, rad, traced);
 }
 
 // The blocks an SM of the instantiation rrt_tile_render would launch for

@@ -12,7 +12,11 @@
 // instantiation of each: simple_light's and earth's; the backward adds
 // a marble's cotangents to its color1, texture scale and hit point, and
 // an image's to its texel of the atlas cotangent in device memory with
-// four-float atomics, so that output repeats only within a spread).
+// four-float atomics, so that output repeats only within a spread), and
+// Russian roulette from bounce rr_depth (a runtime argument, 0 off): the
+// forward draws its coin in finish_bounce, the replay redraws it, and
+// the sweep gives a surviving throughput the detached 1 / p (adjoint.cuh
+// rr_inv_p, recomputed from the record's throughput and attenuation).
 // rrt_tpu_torch/ops/megakernel_train.py holds the wrappers
 // (render_tiles_train, tiles_adjoint, the autograd.Function
 // TileTrainChain) and their plain PyTorch versions.
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : kFwdMinBlocks)
                      const float* __restrict__ bg_g, const SolidArgs sa,
                      TexView tex, uint32_t s0, uint32_t s1, uint32_t lo,
                      int width, int height, int spp, int max_depth,
-                     float t_min, int win_cap,
+                     int rr_depth, float t_min, int win_cap,
                      float* __restrict__ rad, int* __restrict__ traced,
                      uint8_t* __restrict__ lengths,
                      int16_t* __restrict__ winners) {
@@ -207,7 +211,8 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : kFwdMinBlocks)
   const SlotScan<kMoving, kHoist> scan{sph4, vel4, csq, n_slots};
   trace_pixel<kMoving, true, kSolids, kTex, kWalk>(
       scan, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
-      spp, max_depth, t_min, win_cap, rad, traced, lengths, winners, &sv);
+      spp, max_depth, rr_depth, t_min, win_cap, rad, traced, lengths, winners,
+      &sv);
 }
 
 // Adjoint of camera_ray: the cotangents of the bounce-0 origin,
@@ -255,14 +260,15 @@ constexpr int kUnstored = -2;
 // stored (-1: the forward missed), recomputed alone (slot_t), otherwise
 // the scan. A stored winner that is no slot, or gives no root beyond
 // t_min, counts in `bad`, and the bounce scans instead. `win` gets the
-// winner (-1 on a miss). Returns the Outcome, as bounce_step. kTex: the
+// winner (-1 on a miss). Returns the Outcome, as bounce_step (with
+// Russian roulette's coin redrawn from bounce rr_depth on). kTex: the
 // textures of sv.
 template <bool kMoving, bool kTex>
 __device__ __forceinline__ int replay_step(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* bg, bool sky, uint32_t k0, uint32_t k1,
-    int bounce, int max_depth, float t_min, int stored, Path& p, int& win,
-    int& bad, float* kept) {
+    int bounce, int max_depth, int rr_depth, float t_min, int stored, Path& p,
+    int& win, int& bad, float* kept) {
   const RayDots q = ray_dots(p.ray);
   float t_best = kInf;
   win = stored;
@@ -283,8 +289,8 @@ __device__ __forceinline__ int replay_step(
   }
   float c[3];
   return finish_bounce<kMoving, false, true, kTex>(
-      sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, c, win,
-      kept, kFamSphere, &sv);
+      sph, n_slots, bg, sky, k0, k1, bounce, max_depth, rr_depth, q, t_best, p,
+      c, win, kept, kFamSphere, &sv);
 }
 
 // replay_step of the solid-family variant: `stored` is a winner_code,
@@ -298,8 +304,8 @@ template <bool kMoving, bool kMedia, bool kTex>
 __device__ __forceinline__ int replay_solid_step(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* bg, bool sky, uint32_t k0, uint32_t k1,
-    int bounce, int max_depth, float t_min, int stored, Path& p, int& win,
-    int& bad, float* kept) {
+    int bounce, int max_depth, int rr_depth, float t_min, int stored, Path& p,
+    int& win, int& bad, float* kept) {
   const RayDots q = ray_dots(p.ray);
   float t_best = kInf;
   int fam = kFamNone, slot = -1;
@@ -331,8 +337,8 @@ __device__ __forceinline__ int replay_solid_step(
   }
   float c[3];
   const int out = finish_bounce<kMoving, true, kMedia, kTex>(
-      sph, n_slots, bg, sky, k0, k1, bounce, max_depth, q, t_best, p, c, slot,
-      kept, fam, &sv);
+      sph, n_slots, bg, sky, k0, k1, bounce, max_depth, rr_depth, q, t_best, p,
+      c, slot, kept, fam, &sv);
   win = winner_code(fam, slot);
   return out;
 }
@@ -342,13 +348,16 @@ __device__ __forceinline__ int replay_solid_step(
 // the spheres', then with kSolids the active quads', boxes' and media's),
 // camera and background ones into g_cam / g_bg. kMedia = false: sv has
 // no media, and their code is left out. kTex: sv's textures (a light's
-// emission then through emit_adjoint_tex).
+// emission then through emit_adjoint_tex). rr_depth: Russian roulette's
+// first bounce (0: off), whose coin the replay redraws and whose weight
+// the sweep transposes.
 template <bool kMoving, bool kSolids, bool kMedia, bool kTex>
 __device__ __forceinline__ void adjoint_pixel(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* cam, const float* bg, uint32_t s0,
     uint32_t s1, uint32_t lo, int px, int py, int width, int n_pix, int spp,
-    int max_depth, float t_min, const float* d_rad, const uint8_t* lengths,
+    int max_depth, int rr_depth, float t_min, const float* d_rad,
+    const uint8_t* lengths,
     const int16_t* winners, int win_cap, float* acc, float* g_cam,
     float* g_bg, int* mismatches) {
   const uint32_t gid = static_cast<uint32_t>(py * width + px);
@@ -382,12 +391,12 @@ __device__ __forceinline__ void adjoint_pixel(
       if constexpr (kSolids) {
         last = replay_solid_step<kMoving, kMedia, kTex>(
             sph, sph4, vel4, n_slots, sv, bg, sky, k0, k1, bounce, max_depth,
-            t_min, stored, p, r.win, bad, kept[n - 1]);
+            rr_depth, t_min, stored, p, r.win, bad, kept[n - 1]);
       } else {
         last = replay_step<kMoving, kTex>(sph, sph4, vel4, n_slots, sv, bg,
                                           sky, k0, k1, bounce, max_depth,
-                                          t_min, stored, p, r.win, bad,
-                                          kept[n - 1]);
+                                          rr_depth, t_min, stored, p, r.win,
+                                          bad, kept[n - 1]);
       }
       if (last != kScattered) break;
     }
@@ -418,8 +427,8 @@ __device__ __forceinline__ void adjoint_pixel(
         const int fam = code_family(rec[k].win, slot);
         if (kMedia && fam == kFamMedium) {
           RowSums<kMediumRows> sums{};
-          medium_adjoint(sv, slot, rec[k], k0, k1, k, t_min, go, gd, gt,
-                         sums);
+          medium_adjoint(sv, slot, rec[k], k0, k1, k, rr_depth, t_min, go, gd,
+                         gt, sums);
           add_slot<kMediumRows>(acc + winner_column(n_slots, &sv, fam, slot),
                                 sums.g);
           continue;
@@ -428,8 +437,9 @@ __device__ __forceinline__ void adjoint_pixel(
           constexpr int kRows = kTex ? kTexRows : kSolidRows;
           RowSums<kRows> sums{};
           solid_scatter_adjoint<decltype(sums), kTex>(sv, fam, slot, rec[k],
-                                                      k0, k1, k, t_min, go,
-                                                      gd, gt, sums, kept[k]);
+                                                      k0, k1, k, rr_depth,
+                                                      t_min, go, gd, gt, sums,
+                                                      kept[k]);
           add_slot<kRows>(acc + winner_column(n_slots, &sv, fam, slot),
                           sums.g);
           continue;
@@ -439,8 +449,8 @@ __device__ __forceinline__ void adjoint_pixel(
       RowSums<kRows> sums;
       if constexpr (kTex) sums = RowSums<kRows>{};
       scatter_adjoint<kMoving, decltype(sums), true, kTex>(
-          sph, n_slots, rec[k], k0, k1, k, t_min, p.ray.time, go, gd, gt,
-          sums, g_time, kept[k], &sv.tex);
+          sph, n_slots, rec[k], k0, k1, k, rr_depth, t_min, p.ray.time, go,
+          gd, gt, sums, g_time, kept[k], &sv.tex);
       add_slot<kRows>(acc + rec[k].win * kSlotCols, sums.g);
     }
     camera_adjoint<kMoving>(cam, cd, static_cast<float>(px),
@@ -458,8 +468,8 @@ __global__ void __launch_bounds__(kBwdThreads)
                      const uint8_t* __restrict__ lengths,
                      const int16_t* __restrict__ winners, int win_cap,
                      uint32_t s0, uint32_t s1, uint32_t lo, int width,
-                     int height, int spp, int max_depth, float t_min,
-                     float* __restrict__ partials,
+                     int height, int spp, int max_depth, int rr_depth,
+                     float t_min, float* __restrict__ partials,
                      int* __restrict__ mismatches) {
   // Dynamic shared memory (staged_bytes): the staged rows of every slot
   // (float4: intersection rows, then velocity rows when moving); with
@@ -497,13 +507,13 @@ __global__ void __launch_bounds__(kBwdThreads)
     if (kSolids && n_media > 0) {
       adjoint_pixel<kMoving, kSolids, true, kTex>(
           sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
-          width * height, spp, max_depth, t_min, d_rad, lengths, winners,
-          win_cap, out, g_cam, g_bg, mismatches);
+          width * height, spp, max_depth, rr_depth, t_min, d_rad, lengths,
+          winners, win_cap, out, g_cam, g_bg, mismatches);
     } else {
       adjoint_pixel<kMoving, kSolids, false, kTex>(
           sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
-          width * height, spp, max_depth, t_min, d_rad, lengths, winners,
-          win_cap, out, g_cam, g_bg, mismatches);
+          width * height, spp, max_depth, rr_depth, t_min, d_rad, lengths,
+          winners, win_cap, out, g_cam, g_bg, mismatches);
     }
   }
 
@@ -565,12 +575,14 @@ auto bwd_kernel(int n_slots, bool moving, const SolidArgs* solids, bool tex,
 // variant; outputs rad: (width*height, 3) f32, traced: (width*height,)
 // i32, lengths: (spp, width*height) uint8, winners: (win_cap,
 // width*height) int16, winner codes (the entries past a pixel's segments
-// are left as they were).
+// are left as they were); rr_depth: Russian roulette's first bounce (0:
+// off).
 extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
                              const TexArgs* tex, uint32_t s0, uint32_t s1,
                              uint32_t lo, int width, int height, int spp,
-                             int max_depth, float t_min, int moving,
+                             int max_depth, int rr_depth, float t_min,
+                             int moving,
                              int win_cap, float* rad, int* traced,
                              uint8_t* lengths, int16_t* winners,
                              void* stream) {
@@ -583,8 +595,8 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
   return launch_tiles(kernel, grid, smem, static_cast<cudaStream_t>(stream),
                       sph, n_slots, cam, bg,
                       solids != nullptr ? *solids : none, tex_view(tex), s0,
-                      s1, lo, width, height, spp, max_depth, t_min, win_cap,
-                      rad, traced, lengths, winners);
+                      s1, lo, width, height, spp, max_depth, rr_depth, t_min,
+                      win_cap, rad, traced, lengths, winners);
 }
 
 // The backward: train_bwd_kernel, then two fixed-order reductions of its
@@ -602,14 +614,16 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
 // rows, 6 background, 2 pad); mismatches: one int32, zeroed by the
 // caller; tex: as rrt_train_fwd's, its d_atlas (with images) the atlas
 // cotangent, zeroed by the caller, which a marble's texture scale does
-// not use (it goes to its slot's column kAccTexScale).
+// not use (it goes to its slot's column kAccTexScale); rr_depth: the
+// forward's.
 extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
                              const TexArgs* tex, const float* d_rad,
                              const uint8_t* lengths, const int16_t* winners,
                              int win_cap, uint32_t s0, uint32_t s1,
                              uint32_t lo, int width, int height, int spp,
-                             int max_depth, float t_min, int moving,
+                             int max_depth, int rr_depth, float t_min,
+                             int moving,
                              float* scratch, float* sums, int* mismatches,
                              void* stream) {
   if (max_depth + 1 > kMaxRecords) {
@@ -629,7 +643,8 @@ extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
   const int err = launch_tiles(kernel, grid, smem, st, sph, n_slots, cam, bg,
                                sa, tex_view(tex), d_rad, lengths, winners,
                                win_cap, s0, s1, lo, width, height, spp,
-                               max_depth, t_min, scratch, mismatches);
+                               max_depth, rr_depth, t_min, scratch,
+                               mismatches);
   if (err != 0) return err;
   return static_cast<int>(
       reduce_partials(scratch, n_blocks, n_cols, sums, st));

@@ -84,6 +84,13 @@ A scene with moving spheres (`SceneArrays.has_moving`, the wrappers'
 ray's time is base + time * vel (pack rows 0-2 and 4-6), and every ray
 carries its time (the camera's shutter draw; state row 6). A static
 scene runs the static variant, whose arithmetic reads no time.
+
+Russian roulette (the wrappers' `rr_depth`, RenderConfig.rr_depth; 0
+off) is a runtime argument of every shading kernel, not an
+instantiation: from bounce rr_depth on, a path that scatters below
+max_depth draws the STREAM_RR coin (rng.rr_draw) and goes on with
+probability p = clip(max(thr * att), 0.05, 1), its throughput weighted
+by 1 / p (render._apply_rr; csrc/bounce.cuh finish_bounce).
 """
 
 import ctypes
@@ -162,25 +169,22 @@ IMAGES_ON_MEDIA = ("an image texture on a constant medium",
 
 def roadmap_ref(item: str) -> str:
     """Where ROADMAP.md places a scope gap's item: "ROADMAP Queue A
-    #9.6" for a queued item ("#9.6"), else "ROADMAP" and the entry."""
+    #9.5" for a queued item ("#9.5"), else "ROADMAP" and the entry."""
     return (f"ROADMAP Queue A {item}" if item.startswith("#")
             else f"ROADMAP {item}")
 
 
-def scope_gap(scene: SceneArrays, rr_depth: int = 0, eager: bool = False):
-    """None when the forward kernels cover the scene and option;
-    otherwise (what is outside, its ROADMAP item: "#9.6", or a decision;
-    roadmap_ref names its place). eager: the scope of the eager
-    shading on the CPU (the batch driver, the scan), which takes an
-    image on a medium as rrt_tpu's eager code does. The train kernels'
-    scope is narrower (megakernel_vjp.train_scope_gap), and chain_bwd's
-    narrower still (megakernel_vjp.backward_scope_gap)."""
-    outside = (
-        (scene.has_images_on_media and not eager, *IMAGES_ON_MEDIA),
-        (rr_depth > 0, "Russian roulette (rr_depth > 0)", "#9.6"),
-    )
-    return next(((what, item) for flag, what, item in outside if flag),
-                None)
+def scope_gap(scene: SceneArrays, eager: bool = False):
+    """None when the forward kernels cover the scene; otherwise (what is
+    outside, its ROADMAP entry: a decision, which roadmap_ref places).
+    eager: the scope of the eager shading on the CPU (the batch driver,
+    the scan), which takes an image on a medium as rrt_tpu's eager code
+    does. The train kernels' scope is narrower
+    (megakernel_train.train_scope_gap), and chain_bwd's narrower still
+    (megakernel_vjp.backward_scope_gap)."""
+    if scene.has_images_on_media and not eager:
+        return IMAGES_ON_MEDIA
+    return None
 
 
 def solid_cap_gap(scene: SceneArrays):
@@ -192,10 +196,10 @@ def solid_cap_gap(scene: SceneArrays):
     return None
 
 
-def check_scope(scene: SceneArrays, rr_depth: int = 0, eager: bool = False):
-    """Raise NotImplementedError for a scene or option the tile kernel
-    does not cover (scope_gap), naming its ROADMAP entry."""
-    gap = scope_gap(scene, rr_depth, eager)
+def check_scope(scene: SceneArrays, eager: bool = False):
+    """Raise NotImplementedError for a scene the tile kernel does not
+    cover (scope_gap), naming its ROADMAP entry."""
+    gap = scope_gap(scene, eager)
     if gap is not None:
         raise NotImplementedError(
             f"{gap[0]}: outside the rrt_tpu_torch tile kernel's scope "
@@ -407,7 +411,8 @@ def pack_bg(scene: SceneArrays):
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth):
+def _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth,
+                  rr_depth=0):
     packs = (("sph24", sph24), ("cam24", cam24), ("bg8", bg8))
     for name, t in packs:
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
@@ -422,9 +427,9 @@ def _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth):
     if tuple(cam24.shape) != (24,) or tuple(bg8.shape) != (8,):
         raise ValueError(f"cam24 must be (24,) and bg8 (8,), got "
                          f"{tuple(cam24.shape)} and {tuple(bg8.shape)}")
-    if width < 1 or height < 1 or spp < 1 or max_depth < 0:
+    if width < 1 or height < 1 or spp < 1 or max_depth < 0 or rr_depth < 0:
         raise ValueError(f"bad render size {width}x{height} spp={spp} "
-                         f"max_depth={max_depth}")
+                         f"max_depth={max_depth} rr_depth={rr_depth}")
 
 
 def _check_bvh(bvh, sph24, what: str):
@@ -628,7 +633,7 @@ def _check_tex(tex, device, d_atlas=None):
 def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                  width: int, height: int, spp: int, max_depth: int,
                  t_min: float, moving: bool, bvh=None, solids=None,
-                 tex=None):
+                 tex=None, rr_depth: int = 0):
     """Render samples [sample_lo, sample_lo + spp) of every pixel.
 
     sph24 (24,S), cam24 (24,) and bg8 (8,) are the packs, all on one
@@ -639,16 +644,19 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     device, not read on the CPU; solids: the scene's SolidPacks (quads,
     boxes, a light: the kernel's solid-family variant) or None; tex:
     the scene's TexPack (perlin or image textures: the texture variant)
-    or None. Returns (radiance sums (P,3) f32 in scan-line order, traced-ray
-    counts (P,) int32), P = width * height, on the packs' device.
+    or None; rr_depth: Russian roulette's first bounce (0: off; the
+    module docstring). Returns (radiance sums (P,3) f32 in scan-line
+    order, traced-ray counts (P,) int32), P = width * height, on the
+    packs' device.
 
     CUDA tensors launch the kernel (and count the launch in
     `render_tiles.launches`); CPU tensors run render_tiles_reference,
     whose linear scan gives the walk's winners."""
-    _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
+    _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth,
+                  rr_depth)
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex)
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     device = sph24.device
     solid_arg = _check_solids(solids, device, "walk")
     tex_arg = _check_tex(tex, device)
@@ -672,7 +680,7 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         err = lib.rrt_tile_render(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
             *tree, solid_arg, tex_arg, s0, s1, sample_lo & rng.MASK32,
-            width, height, spp, max_depth, t_min, int(moving),
+            width, height, spp, max_depth, rr_depth, t_min, int(moving),
             rad.data_ptr(), traced.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("tile_render launch failed: "
@@ -781,7 +789,7 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
                            sample_lo: int, width: int, height: int,
                            spp: int, max_depth: int, t_min: float,
                            moving: bool, solids=None, tex=None,
-                           chunk: int = PLAIN_CHUNK):
+                           rr_depth: int = 0, chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of `render_tiles`, same inputs and outputs.
 
     A wavefront loop over (pixel, sample) rays, `chunk` rays at a time in
@@ -791,11 +799,13 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
     sample of each pixel, so radiance is summed into each pixel in the
     kernel's order: sample by sample, bounce by bounce. Differentiable
     by plain autograd (slowly: every bounce keeps its (N,S) broadcast).
-    Its families' exact ties go as in the kernel (quad, box, sphere)."""
+    Its families' exact ties go as in the kernel (quad, box, sphere), and
+    Russian roulette is render._apply_rr's."""
     rad, traced, _, _ = trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
-        t_min=t_min, moving=moving, solids=solids, tex=tex, chunk=chunk)
+        t_min=t_min, moving=moving, solids=solids, tex=tex,
+        rr_depth=rr_depth, chunk=chunk)
     return rad, traced
 
 
@@ -803,7 +813,7 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                           width: int, height: int, spp: int,
                           max_depth: int, t_min: float, moving: bool,
                           solids=None, tex=None, win_cap: int = 0,
-                          chunk: int = PLAIN_CHUNK):
+                          rr_depth: int = 0, chunk: int = PLAIN_CHUNK):
     """render_tiles_reference's loop, also returning each path's bounce
     count and the first win_cap segments' winners of each pixel: (rad
     (P,3), traced (P,) i32, lengths (spp, P) uint8, winners (win_cap, P)
@@ -813,7 +823,7 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     pixel traces them: sample by sample, bounce by bounce; a winner is
     its encode_winner code (a quad's or box's slot offset by QUAD_CODE or
     BOX_CODE)."""
-    from ..render import _bounce  # render imports this module
+    from ..render import _apply_rr, _bounce  # render imports this module
 
     dev = sph24.device
     scene = _scene_from_packs(sph24, bg8, moving, solids, tex)
@@ -851,8 +861,9 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
             rad[:, pix] += thr * b.contribution
             traced[pix] += 1
             lengths[ray] += 1
-            survives = b.survives
-            thr = torch.where(survives, thr * b.scatter.attenuation, thr)
+            thr, survives = _apply_rr(keys, bounce, thr,
+                                      b.scatter.attenuation, b.survives,
+                                      rr_depth)
             o, d = b.new_o, b.new_d
             keep = survives.nonzero()[:, 0]
             if keep.numel() == 0:
@@ -926,7 +937,7 @@ def _launch_error(lib, err, what):
 
 def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
                  t_min: float, moving: bool, bvh=None, solids=None,
-                 tex=None):
+                 tex=None, rr_depth: int = 0):
     """Run k_steps bounce steps on every live lane of a queue state.
 
     state: (16, Q) f32 (pack_state's rows), updated IN PLACE and
@@ -936,15 +947,18 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     moving: the moving-sphere variant, which reads each lane's time (row
     6). bvh: the sphere pack's accel.BvhPack on its device, its shutter
     covering the lanes' times, which the kernel walks: required on a
-    CUDA device, not read on the CPU. solids, tex: as render_tiles'.
+    CUDA device, not read on the CPU. solids, tex, rr_depth: as
+    render_tiles'.
 
     Per live lane and step, as rrt_tpu's _one_bounce: traced += 1; a
     miss adds throughput x background to the pending radiance and kills
     the lane, as does a hit on a diffuse_light, with throughput x its
     color; a scatter below max_depth multiplies the throughput by the
     albedo (a dielectric's by 1), moves o and d, and adds 1 to bounce;
-    an absorption, or a hit at max_depth, kills the lane. A dead lane
-    (alive row 0) passes through unchanged.
+    an absorption, or a hit at max_depth, kills the lane, and from the
+    lane's bounce row rr_depth on (rr_depth > 0) so does a lost Russian
+    roulette coin, a won one weighting the throughput by 1 / p. A dead
+    lane (alive row 0) passes through unchanged.
 
     CUDA tensors launch the kernel (counted in `bounce_steps.launches`);
     CPU tensors run bounce_steps_reference, whose linear scan gives the
@@ -955,10 +969,11 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
     q = state.shape[1]
     if keys.shape[1] != q:
         raise ValueError(f"keys has {keys.shape[1]} lanes, state {q}")
-    if k_steps < 1 or max_depth < 0:
-        raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth}")
+    if k_steps < 1 or max_depth < 0 or rr_depth < 0:
+        raise ValueError(f"bad k_steps={k_steps} max_depth={max_depth} "
+                         f"rr_depth={rr_depth}")
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex)
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     solid_arg = _check_solids(solids, device, "walk")
     tex_arg = _check_tex(tex, device)
     if device.type == "cpu":
@@ -970,7 +985,7 @@ def bounce_steps(state, keys, sph24, bg8, *, k_steps: int, max_depth: int,
         err = lib.rrt_bounce_steps(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(),
             sph24.shape[1], *tree, solid_arg, tex_arg, bg8.data_ptr(),
-            k_steps, max_depth, t_min, int(moving),
+            k_steps, max_depth, rr_depth, t_min, int(moving),
             torch.cuda.current_stream(device).cuda_stream)
     _launch_error(lib, err, "bounce_steps")
     bounce_steps.launches += 1
@@ -982,12 +997,14 @@ bounce_steps.launches = 0
 
 def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
                            max_depth: int, t_min: float,
-                           moving: bool, solids=None, tex=None):
+                           moving: bool, solids=None, tex=None,
+                           rr_depth: int = 0):
     """Plain PyTorch version of `bounce_steps`, same inputs and outputs
     (the state is updated in place and returned): each step runs
-    render._shade on the live lanes, with their own bounce counts, the
-    families' exact ties as in the kernel (quad, box, sphere)."""
-    from ..render import _shade  # render imports this module
+    render._shade and render._apply_rr on the live lanes, with their own
+    bounce counts, the families' exact ties as in the kernel (quad, box,
+    sphere)."""
+    from ..render import _apply_rr, _shade  # render imports this module
 
     scene = _scene_from_packs(sph24, bg8, moving, solids, tex)
     keys = rng.from_u32_bits(keys)
@@ -997,13 +1014,17 @@ def bounce_steps_reference(state, keys, sph24, bg8, *, k_steps: int,
             break
         st = state[:, lanes]
         o, d, time, thr, pend, bounce, alive, traced = unpack_state(st)
+        lane_keys = keys[:, lanes]
         contrib, new_o, new_d, att, survives = _shade(
-            scene, o, d, time, keys[:, lanes], bounce, alive, t_min,
-            max_depth)
+            scene, o, d, time, lane_keys, bounce, alive, t_min, max_depth)
+        new_thr, survives = _apply_rr(lane_keys, bounce, thr, att, survives,
+                                      rr_depth)
+        if rr_depth:  # a lane the roulette kills keeps its ray, as in the kernel
+            new_o = torch.where(survives, new_o, o)
+            new_d = torch.where(survives, new_d, d)
         state[:, lanes] = pack_state(
-            new_o, new_d, time, torch.where(survives, thr * att, thr),
-            pend + thr * contrib, bounce + survives.to(torch.int32),
-            survives, traced + 1.0)
+            new_o, new_d, time, new_thr, pend + thr * contrib,
+            bounce + survives.to(torch.int32), survives, traced + 1.0)
     return state
 
 

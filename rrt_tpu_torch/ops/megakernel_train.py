@@ -5,7 +5,7 @@ kernel's scenes (stationary and moving spheres, quads, boxes rotated
 about Y, up to MAX_TRAIN_MEDIA constant media, solid / checker /
 perlin-marble / image textures, lambertian / metal / dielectric /
 diffuse_light / isotropic, sky or solid background, a thin-lens camera
-with a shutter, no Russian roulette: `train_scope_gap`).
+with a shutter, Russian roulette: `train_scope_gap`).
 `TileTrainChain` is the render as a
 torch.autograd.Function over the packs (sph24, cam24, bg8, and for a
 scene with quads, boxes, media or a light its quad, box and medium
@@ -30,7 +30,9 @@ packs, and for a scene with textures the atlas):
             in a loop: it reads no tree), checks its length
             against the forward's (`replay_mismatches`), and sweeps the
             bounces in reverse through the hand-written transpose of
-            megakernel_vjp.diff_step, into the cotangents of the packs
+            megakernel_vjp.diff_step (a surviving throughput's Russian
+            roulette weight 1 / p detached, p recomputed from the
+            record), into the cotangents of the packs
             (a quad's through its plane frame's n and d_plane, which the
             wrapper takes to q, u, v: geometry.quad_frame_vjp; a
             medium's into its MED_COLS; a marble's texture scale into
@@ -71,16 +73,16 @@ from ..camera import thin_lens_rays
 MAX_TRAIN_MEDIA = 8
 
 
-def train_scope_gap(scene, rr_depth: int = 0):
+def train_scope_gap(scene):
     """The train kernels' scope (rrt_tpu's supports_train): None when
-    they cover the scene and option, otherwise (what is outside, its
-    ROADMAP item: mk.roadmap_ref), with rrt_tpu's reasons: the forward
-    kernels' (mk.scope_gap: an image texture on a medium first), then
-    more than MAX_TRAIN_MEDIA media. Any number of quads and boxes:
-    train_fwd walks a family's tree past mk.SOLID_CAP, train_bwd loops
-    (a scene past what a block may opt into raises before the launch:
-    _check_train_smem)."""
-    gap = mk.scope_gap(scene, rr_depth)
+    they cover the scene, otherwise (what is outside, its ROADMAP item:
+    mk.roadmap_ref), with rrt_tpu's reasons: the forward kernels'
+    (mk.scope_gap: an image texture on a medium), then more than
+    MAX_TRAIN_MEDIA media. Any number of quads and boxes: train_fwd
+    walks a family's tree past mk.SOLID_CAP, train_bwd loops (a scene
+    past what a block may opt into raises before the launch:
+    _check_train_smem). Russian roulette is in every scope."""
+    gap = mk.scope_gap(scene)
     if gap is None and scene.n_media_active > MAX_TRAIN_MEDIA:
         return (f"{scene.n_media_active} constant media, past the train "
                 f"kernels' {MAX_TRAIN_MEDIA}-slot gradient scope", "#9.4")
@@ -92,10 +94,10 @@ def supports_train(scene) -> bool:
     return train_scope_gap(scene) is None
 
 
-def check_train_scope(where: str, scene, rr_depth: int = 0):
+def check_train_scope(where: str, scene):
     """Raise NotImplementedError naming the ROADMAP item for a scene
     outside train_scope_gap's scope."""
-    gap = train_scope_gap(scene, rr_depth)
+    gap = train_scope_gap(scene)
     if gap is not None:
         raise NotImplementedError(
             f"{where}: {gap[0]} is outside the train kernels' scope "
@@ -178,8 +180,9 @@ def boundary_residual_bytes(n_pix: int, chunk: int) -> int:
 
 
 def _check_train_inputs(sph24, cam24, bg8, *, width, height, spp, max_depth,
-                        moving):
-    mk._check_inputs(sph24, cam24, bg8, width, height, spp, max_depth)
+                        moving, rr_depth=0):
+    mk._check_inputs(sph24, cam24, bg8, width, height, spp, max_depth,
+                     rr_depth)
     if sph24.shape[1] > mk.MAX_SLOTS:
         raise ValueError(f"{sph24.shape[1]} sphere slots exceed the "
                          f"kernels' {mk.MAX_SLOTS}")
@@ -202,7 +205,8 @@ def _raise_on(lib, err, what):
 
 def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                        width: int, height: int, spp: int, max_depth: int,
-                       t_min: float, moving: bool, solids=None, tex=None):
+                       t_min: float, moving: bool, solids=None, tex=None,
+                       rr_depth: int = 0):
     """Render samples [sample_lo, sample_lo + spp) as render_tiles does,
     and keep the residual. Returns (radiance sums (P,3) f32, traced
     counts (P,) i32, lengths (spp, P) uint8: the bounces each path
@@ -214,7 +218,9 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     SolidPacks (the solid-family variant; at most MAX_TRAIN_MEDIA
     media; on a CUDA device with the families' trees, mk.pack_solids',
     which the kWalk instantiation walks past mk.SOLID_CAP active slots of
-    a family) or None; tex: its TexPack (the texture variant) or None.
+    a family) or None; tex: its TexPack (the texture variant) or None;
+    rr_depth: Russian roulette's first bounce (0: off), a lost coin
+    ending a path as an absorption does (its length counts the bounce).
     The kernel leaves the entries past a pixel's segments unwritten; the
     plain version sets them to -2.
 
@@ -223,9 +229,10 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     render_tiles_train_reference."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex)
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
-                        spp=spp, max_depth=max_depth, moving=moving)
+                        spp=spp, max_depth=max_depth, moving=moving,
+                        rr_depth=rr_depth)
     _check_train_media(solids)
     mk.check_codes(solids)
     device = sph24.device
@@ -251,8 +258,8 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         err = lib.rrt_train_fwd(
             sph24.data_ptr(), sph24.shape[1], cam24.data_ptr(),
             bg8.data_ptr(), solid_arg, tex_arg, s0, s1,
-            sample_lo & rng.MASK32, width, height, spp, max_depth, t_min,
-            int(moving), cap, rad.data_ptr(), traced.data_ptr(),
+            sample_lo & rng.MASK32, width, height, spp, max_depth, rr_depth,
+            t_min, int(moving), cap, rad.data_ptr(), traced.data_ptr(),
             lengths.data_ptr(), winners.data_ptr(),
             _stream(device))
     _raise_on(lib, err, "train_fwd")
@@ -266,20 +273,21 @@ render_tiles_train.launches = 0
 def render_tiles_train_reference(sph24, cam24, bg8, *, seed_words,
                                  sample_lo: int, width: int, height: int,
                                  spp: int, max_depth: int, t_min: float,
-                                 moving: bool, solids=None, tex=None):
+                                 moving: bool, solids=None, tex=None,
+                                 rr_depth: int = 0):
     """Plain version of render_tiles_train: render_tiles_reference plus
     the lengths and the winners (mk.trace_paths_reference)."""
     return mk.trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
         t_min=t_min, moving=moving, solids=solids, tex=tex,
-        win_cap=winner_capacity(spp))
+        win_cap=winner_capacity(spp), rr_depth=rr_depth)
 
 
 def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
                   seed_words, sample_lo: int, width: int, height: int,
                   spp: int, max_depth: int, t_min: float, moving: bool,
-                  solids=None, tex=None):
+                  solids=None, tex=None, rr_depth: int = 0):
     """Cotangents of the packs for the radiance cotangent d_rad (P,3):
     (d_sph24 (24,S), d_cam24 (24,), d_bg8 (8,), replay mismatches (1,)
     int32: the paths whose replayed length differs from `lengths`, and
@@ -296,6 +304,8 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     render_tiles_train's (any number of entries a pixel, int16), or None:
     then every bounce scans every slot, with the same d_cam and d_bg bit
     for bit and several times the time; callers pass it explicitly.
+    rr_depth: the forward's; the replay redraws Russian roulette's coin,
+    and a surviving throughput's 1 / p is a constant of the gradient.
 
     CUDA tensors launch train_bwd (counted in `tiles_adjoint.launches`);
     CPU tensors run tiles_adjoint_reference. Either way the mismatches
@@ -304,9 +314,10 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     would give wrong gradients."""
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex)
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
-                        spp=spp, max_depth=max_depth, moving=moving)
+                        spp=spp, max_depth=max_depth, moving=moving,
+                        rr_depth=rr_depth)
     n_pix = width * height
     if d_rad.dtype != torch.float32 or tuple(d_rad.shape) != (n_pix, 3):
         raise ValueError(f"d_rad must be ({n_pix}, 3) float32, got "
@@ -365,8 +376,8 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
             solid_arg, tex_arg, d_rad.data_ptr(), lengths.data_ptr(),
             None if winners is None else winners.data_ptr(),
             0 if winners is None else winners.shape[0], s0, s1,
-            sample_lo & rng.MASK32, width, height, spp, max_depth, t_min,
-            int(moving), partials.data_ptr(), sums.data_ptr(),
+            sample_lo & rng.MASK32, width, height, spp, max_depth, rr_depth,
+            t_min, int(moving), partials.data_ptr(), sums.data_ptr(),
             mismatches.data_ptr(), _stream(device))
     _raise_on(lib, err, "train_bwd")
     tiles_adjoint.launches += 1
@@ -389,7 +400,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                             winners, *, seed_words, sample_lo: int,
                             width: int, height: int, spp: int,
                             max_depth: int, t_min: float, moving: bool,
-                            solids=None, tex=None, chunk: int = 1 << 16):
+                            solids=None, tex=None, rr_depth: int = 0,
+                            chunk: int = 1 << 16):
     """Plain version of tiles_adjoint, same inputs and outputs.
 
     For each chunk of (pixel, sample) paths: 1. replay the decisions and
@@ -400,7 +412,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
     replay's; 2. rebuild every
     bounce with diff_step under autograd, from the winners' pack columns
     only (no (N,S) broadcast; the quads' through mk.quad_frame_pack, the
-    media's rows of their pack);
+    media's rows of their pack; Russian roulette's kills replayed and its
+    1 / p detached);
     3. take torch.autograd.grad of sum(d_rad[pixel] . contribution)."""
     dev = sph24.device
     scene = mk._scene_from_packs(sph24.detach(), bg8.detach(), moving,
@@ -434,7 +447,7 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                                       width, height, keys)
             records, n_seg, _ = replay_steps(
                 scene, o, d, tm, keys, torch.zeros_like(pix), max_depth + 1,
-                max_depth=max_depth, t_min=t_min)
+                max_depth=max_depth, t_min=t_min, rr_depth=rr_depth)
             mismatches += (n_seg != flat_lengths[ray]).sum().to(
                 torch.int32)
             if winners is not None:
@@ -454,7 +467,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                 out = diff_step(step_constants(r, sph24, bg8, solids),
                                 *state, zero, zero, zero, *sel, *bg[:6],
                                 *(() if atlas is None else (atlas,)),
-                                moving=moving, t_min=t_min, **flags)
+                                moving=moving, t_min=t_min,
+                                rr_depth=rr_depth, **flags)
                 dr = d_rad[pix[r["cur"]]]
                 total = total + (dr[:, 0] * out[10] + dr[:, 1] * out[11]
                                  + dr[:, 2] * out[12]).sum()
@@ -491,12 +505,12 @@ def _stored_winner_faults(records, ray, winners, first, flat_lengths,
 class TileTrainChain(torch.autograd.Function):
     """The tile render as a differentiable function of the packs:
     apply(sph24, cam24, bg8, seed_words, sample_lo, width, height, spp,
-    max_depth, t_min, moving, *solid_inputs(solids, tex)) -> (radiance
-    sums (P,3), traced counts (P,) i32), the last arguments the quad and
-    box packs, their layout (active slot counts and the trees, which
-    train_fwd walks) and the medium pack (or None) of a scene with
-    quads, boxes, media or a light, and the atlas of a scene with
-    textures (megakernel_vjp.solid_inputs).
+    max_depth, t_min, moving, *solid_inputs(solids, tex, rr_depth)) ->
+    (radiance sums (P,3), traced counts (P,) i32), the last arguments the
+    quad and box packs, their layout (active slot counts and the trees,
+    which train_fwd walks) and the medium pack (or None) of a scene with
+    quads, boxes, media or a light, the atlas of a scene with textures,
+    and Russian roulette's first bounce (megakernel_vjp.solid_inputs).
     Forward: one render_tiles_train, whose lengths and winners it saves;
     backward: one tiles_adjoint on them, seeded by the radiance
     cotangent (P,3). The traced counts carry no gradient."""
@@ -504,10 +518,11 @@ class TileTrainChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
                 height, spp, max_depth, t_min, moving, quad24=None,
-                box24=None, layout=None, med24=None, atlas=None, tex=None):
+                box24=None, layout=None, med24=None, atlas=None, tex=None,
+                rr_depth=0):
         kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
                   height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-                  moving=moving)
+                  moving=moving, rr_depth=rr_depth)
         solids, tex = unpack_inputs(quad24, box24, layout, med24, atlas, tex)
         rad, traced, lengths, winners = render_tiles_train(
             sph24, cam24, bg8, solids=solids, tex=tex, **kw)
@@ -533,4 +548,4 @@ class TileTrainChain(torch.autograd.Function):
                                 else (d_solids.quad24, d_solids.box24,
                                       d_solids.med24))
         return ((d_sph, d_cam, d_bg) + (None,) * 8
-                + (d_quad, d_box, None, d_med, d_atlas, None))
+                + (d_quad, d_box, None, d_med, d_atlas, None, None))

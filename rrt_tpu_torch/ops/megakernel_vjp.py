@@ -11,8 +11,9 @@ too), its quad, box and medium rows (rrt_tpu's layouts), the 6
 background rows and the texture atlas, with every discrete decision
 (root, box face, front face, checker parity, which texture and which
 texel, degenerate lambertian, reflect-vs-refract, which medium and
-whether it scatters, hit / miss / light / survival) and
-every random draw supplied as a replayed constant. It is
+whether it scatters, hit / miss / light / survival, Russian roulette's
+kill) and every random draw supplied as a replayed constant, Russian
+roulette's weight 1 / p detached. It is
 the math the CUDA backwards transpose by hand (csrc/adjoint.cuh, shared
 by train.cu and chain.cu), and the body of their plain versions
 (megakernel_train.tiles_adjoint_reference, chain_adjoint_reference),
@@ -139,12 +140,11 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
     point, so the texture scale, color1 and through p the hit's t get
     gradients); with has_images, is_img and texel (the texel the winner's
     uv reads, a replayed constant: its albedo is the atlas row, which
-    gets the gradient, and nothing flows to uv). Russian roulette raises
-    NotImplementedError naming its ROADMAP item."""
-    if rr_depth:
-        raise NotImplementedError(
-            "diff_step: Russian roulette is not ported to rrt_tpu_torch "
-            "yet (ROADMAP Queue A #9.6)")
+    gets the gradient, and nothing flows to uv). With rr_depth, rr_on
+    (Russian roulette acts at this bounce: its bounce >= rr_depth; its
+    kill is in survives): a surviving throughput is tn / p, tn = thr *
+    att and p = clip(max(tn), 0.05, 1) detached, in rrt_tpu's op order
+    (render._apply_rr)."""
     (ox, oy, oz, dx, dy, dz, time, thx, thy, thz,
      pex, pey, pez) = ins[:13]
     sel_s = ins[13]
@@ -356,10 +356,16 @@ def diff_step(c, *ins, moving, has_quads=False, has_boxes=False,
         pez = pez + thz * (bgb * missf)
 
     sv = c["survives"]
+    tnx, tny, tnz = thx * atr, thy * atg, thz * atb
+    if rr_depth:
+        p_rr = torch.clamp(torch.maximum(tnx, torch.maximum(tny, tnz)),
+                           0.05, 1.0).detach()
+        inv_p = where(c["rr_on"], 1.0 / p_rr, 1.0)
+        tnx, tny, tnz = tnx * inv_p, tny * inv_p, tnz * inv_p
     return (where(sv, px_, ox), where(sv, py_, oy), where(sv, pz_, oz),
             where(sv, ndx, dx), where(sv, ndy, dy), where(sv, ndz, dz),
-            time, where(sv, thx * atr, thx), where(sv, thy * atg, thy),
-            where(sv, thz * atb, thz), pex, pey, pez)
+            time, where(sv, tnx, thx), where(sv, tny, thy),
+            where(sv, tnz, thz), pex, pey, pez)
 
 
 def _medium_t(sel_m, ox, oy, oz, dx, dy, dz, a, inv_a, d_len, t_min,
@@ -427,24 +433,24 @@ CHAIN_MEDIA = ("constant media (rrt_tpu's chain leaves them out too; "
                "on the train kernels)")
 
 
-def backward_scope_gap(scene, rr_depth: int = 0):
+def backward_scope_gap(scene):
     """chain_bwd's scope (rrt_tpu's supports_backward): None when it
-    covers the scene and option, otherwise (what is outside, the ROADMAP
-    Queue A item). The forward kernels' (mk.scope_gap) but more than
+    covers the scene, otherwise (what is outside, the ROADMAP Queue A
+    item). The forward kernels' (mk.scope_gap) but more than
     mk.SOLID_CAP quads or boxes (mk.solid_cap_gap: #9.5's chain part;
     the train kernels take them) and the constant media, which it leaves
     out by decision (#9.4; the train kernels take them:
-    megakernel_train.train_scope_gap)."""
-    gap = mk.scope_gap(scene, rr_depth) or mk.solid_cap_gap(scene)
+    megakernel_train.train_scope_gap). Russian roulette is in scope."""
+    gap = mk.scope_gap(scene) or mk.solid_cap_gap(scene)
     if gap is None and scene.has_media:
         return CHAIN_MEDIA, "#9.4"
     return gap
 
 
-def check_backward_scope(where: str, scene, rr_depth: int = 0):
+def check_backward_scope(where: str, scene):
     """Raise NotImplementedError naming the ROADMAP item for a scene
     outside backward_scope_gap's scope."""
-    gap = backward_scope_gap(scene, rr_depth)
+    gap = backward_scope_gap(scene)
     if gap is not None:
         raise NotImplementedError(
             f"{where}: {gap[0]} is outside chain_bwd's scope "
@@ -469,41 +475,56 @@ def count_mismatches(wrapper, mismatches):
 
 
 def replay_steps(scene, o, d, time, keys, bounce0, n_steps: int, *,
-                 max_depth, t_min):
+                 max_depth, t_min, thr=None, rr_depth: int = 0):
     """Replay up to n_steps bounces of rays (o, d (3,N), time (N,), keys
-    (2,N) u32 words in int64, bounce0 (N,) their bounce counters) under
-    no_grad with the plain physics (render._bounce). Per bounce, a
-    record of the rays still traced (`sel`: positions among the previous
-    bounce's, `cur`: among the N) with their winners and decisions.
-    Returns
+    (2,N) u32 words in int64, bounce0 (N,) their bounce counters, thr
+    (3,N) their throughputs, ones when None, which Russian roulette from
+    bounce rr_depth on weighs (0: off, thr unread)) under no_grad with
+    the plain physics (render._bounce, render._apply_rr). Per bounce, a
+    record of
+    the rays still traced (`sel`: positions among the previous bounce's,
+    `cur`: among the N) with their winners and decisions (with rr_depth,
+    rr_on: the roulette acts there; survives holds its kill). Returns
     (records, bounces traced per ray, bounces scattered per ray)."""
-    from ..render import _bounce  # render imports this package
+    from ..render import _apply_rr, _bounce  # render imports this package
 
     cur = torch.arange(o.shape[1], device=o.device)
     sel = cur
     n_seg = torch.zeros_like(cur)
     n_scattered = torch.zeros_like(cur)
+    if rr_depth and thr is None:
+        thr = torch.ones_like(o)
     records = []
     for k in range(n_steps):
-        b = _bounce(scene, o, d, time[cur], keys[:, cur], bounce0[cur] + k,
+        bounce, k_cur = bounce0[cur] + k, keys[:, cur]
+        b = _bounce(scene, o, d, time[cur], k_cur, bounce,
                     torch.ones_like(cur, dtype=torch.bool), t_min, max_depth)
+        survives = b.survives
+        if rr_depth:  # the throughput matters only to the roulette
+            thr, survives = _apply_rr(k_cur, bounce, thr,
+                                      b.scatter.attenuation, survives,
+                                      rr_depth)
         n_seg[cur] += 1
-        n_scattered[cur] += b.survives.long()
+        n_scattered[cur] += survives.long()
         sc = b.scatter
         records.append(dict(
             sel=sel, cur=cur, win=b.win, fam=b.fam, t_hit=b.t,
-            hit=b.hit_mask, miss=b.miss_mask, survives=b.survives,
+            hit=b.hit_mask, miss=b.miss_mask, survives=survives,
             front=b.hit.front_face, degen=sc.degenerate,
             do_reflect=sc.reflected, use_c2=b.use_c2,
             draws=(*sc.unit_rand, *sc.sphere_rand, torch.zeros_like(b.t)),
             med_logu=_winner_logu(b),
             texel=(torch.zeros_like(b.win) if b.texel is None
                    else b.texel)))
-        keep = b.survives.nonzero()[:, 0]
+        if rr_depth:
+            records[-1]["rr_on"] = bounce >= rr_depth
+        keep = survives.nonzero()[:, 0]
         if keep.numel() == 0:
             break
         sel, cur = keep, cur[keep]
         o, d = b.new_o[:, keep], b.new_d[:, keep]
+        if rr_depth:
+            thr = thr[:, keep]
     return records, n_seg, n_scattered
 
 
@@ -663,11 +684,14 @@ def _check_chain_inputs(state, keys, sph24, bg8, d_out, out_bounce,
 
 def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                   k_steps: int, max_depth: int, t_min: float,
-                  moving: bool, bvh=None, solids=None, tex=None):
+                  moving: bool, bvh=None, solids=None, tex=None,
+                  rr_depth: int = 0):
     """The backward of k_steps bounce steps (ops.megakernel.bounce_steps)
     of a lane state; moving: the moving-sphere variant; solids: the
     scene's SolidPacks (quads, boxes, lights: the solid-family variant)
-    or None; tex: the scene's TexPack (the texture variant) or None.
+    or None; tex: the scene's TexPack (the texture variant) or None;
+    rr_depth: the forward's Russian roulette (0: off), its coin redrawn
+    at each lane's bounce row plus the step, its 1 / p detached.
 
     state: the chain's input state (16, Q) f32; keys (2, Q) int32 (the
     lanes' u32 words); sph24 (24, S), bg8 (8,): the packs; d_out (16, Q)
@@ -693,9 +717,11 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     if solids is not None and solids.n_media:
         raise NotImplementedError(f"chain_adjoint: {CHAIN_MEDIA} are outside "
                                   f"chain_bwd's scope (ROADMAP Queue A #9.4)")
+    if rr_depth < 0:
+        raise ValueError(f"rr_depth {rr_depth} < 0")
     solid_arg = mk._check_solids(solids, device)
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex)
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     if device.type == "cpu":
         mk._check_tex(tex, device)
         out = chain_adjoint_reference(state, keys, sph24, bg8, d_out,
@@ -724,9 +750,9 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
         err = lib.rrt_chain_bwd(
             state.data_ptr(), keys.data_ptr(), q, sph24.data_ptr(), n_slots,
             *tree, solid_arg, tex_arg, bg8.data_ptr(), d_out.data_ptr(),
-            out_bounce.data_ptr(), k_steps, max_depth, t_min, int(moving),
-            d_state.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-            mismatches.data_ptr(),
+            out_bounce.data_ptr(), k_steps, max_depth, rr_depth, t_min,
+            int(moving), d_state.data_ptr(), partials.data_ptr(),
+            sums.data_ptr(), mismatches.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     mk._launch_error(lib, err, "chain_bwd")
     chain_adjoint.launches += 1
@@ -750,7 +776,8 @@ chain_adjoint.replay_mismatches = 0
 
 def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
                             k_steps: int, max_depth: int, t_min: float,
-                            moving: bool, solids=None, tex=None):
+                            moving: bool, solids=None, tex=None,
+                            rr_depth: int = 0):
     """Plain version of chain_adjoint, same inputs and outputs.
 
     1. replay the live lanes' steps under no_grad with the port's plain
@@ -781,7 +808,8 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
         records, _, n_scattered = replay_steps(
             scene, st[0:3, lanes], st[3:6, lanes], st[mk.ROW_TIME, lanes],
             rng.from_u32_bits(keys[:, lanes]), bounce0, k_steps,
-            max_depth=max_depth, t_min=t_min)
+            max_depth=max_depth, t_min=t_min, thr=st[7:10, lanes],
+            rr_depth=rr_depth)
         mismatches += ((bounce0 + n_scattered).float()
                        != out_bounce[lanes]).sum().to(torch.int32)
     seed = d_out[:13, lanes]
@@ -799,7 +827,8 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
             rows = diff_step(step_constants(r, sph24, bg8, solids), *rows,
                              *sel, *bg[:6], *(() if atlas is None
                                               else (atlas,)),
-                             moving=moving, t_min=t_min, **flags)
+                             moving=moving, t_min=t_min, rr_depth=rr_depth,
+                             **flags)
             # A lane's chain ends at its last step, or where it stops.
             ends = (torch.ones_like(r["survives"]) if i + 1 == len(records)
                     else ~r["survives"])
@@ -818,21 +847,22 @@ def chain_adjoint_reference(state, keys, sph24, bg8, d_out, out_bounce, *,
             got.get("atlas"))
 
 
-def solid_inputs(solids, tex=None) -> tuple:
+def solid_inputs(solids, tex=None, rr_depth: int = 0) -> tuple:
     """The trailing arguments of BounceChain.apply and
-    TileTrainChain.apply for a scene's SolidPacks and TexPack: (quad24,
-    box24, layout, med24 or None, atlas, tex without its atlas), the
-    first four None without solids, the last two absent without tex.
-    layout, which carries no gradient: (n_quads, n_boxes, n_media,
-    tree), the active counts and the families' accel.SolidBvh (or None),
-    which train_fwd walks past mk.SOLID_CAP active slots."""
-    out = ((None,) * 4 if solids is None else (
+    TileTrainChain.apply for a scene's SolidPacks and TexPack and
+    Russian roulette's first bounce: (quad24, box24, layout, med24 or
+    None, atlas, tex without its atlas, rr_depth), the first four None
+    without solids, the next two without tex. layout, which carries no
+    gradient: (n_quads, n_boxes, n_media, tree), the active counts and
+    the families' accel.SolidBvh (or None), which train_fwd walks past
+    mk.SOLID_CAP active slots."""
+    packs = ((None,) * 4 if solids is None else (
         solids.quad24, solids.box24,
         (solids.n_quads, solids.n_boxes, solids.n_media, solids.tree),
         solids.med24))
-    if tex is None:
-        return () if solids is None else out
-    return out + (tex.atlas, dataclasses.replace(tex, atlas=None))
+    atlas = ((None, None) if tex is None
+             else (tex.atlas, dataclasses.replace(tex, atlas=None)))
+    return packs + atlas + (rr_depth,)
 
 
 def unpack_inputs(quad24, box24, layout, med24, atlas, tex):
@@ -848,13 +878,12 @@ class BounceChain(torch.autograd.Function):
     """K bounce steps of a lane state as a differentiable function of
     the state and the packs: apply(state (16,Q), keys (2,Q) int32,
     sph24, bg8, k_steps, max_depth, t_min, moving, bvh,
-    *solid_inputs(solids)) -> state' (16,Q), bvh the sphere pack's
-    accel.BvhPack (required on a CUDA device), the last arguments
-    solid_inputs(solids, tex): the quad and box packs, their layout
-    (active slot counts, trees) and the medium pack (None: the chain
-    takes no media) of a
-    scene with quads, boxes or a light, and the atlas of a scene with
-    textures.
+    *solid_inputs(solids, tex, rr_depth)) -> state' (16,Q), bvh the
+    sphere pack's accel.BvhPack (required on a CUDA device), the last
+    arguments the quad and box packs, their layout (active slot counts,
+    trees) and the medium pack (None: the chain takes no media) of a
+    scene with quads, boxes or a light, the atlas of a scene with
+    textures, and Russian roulette's first bounce.
     Forward: one bounce_steps launch on a copy of the state
     (bounce_steps updates in place, and the input is the backward's
     residual); backward: one chain_adjoint on the same BVH, seeded with
@@ -864,10 +893,10 @@ class BounceChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, state, keys, sph24, bg8, k_steps, max_depth, t_min,
                 moving, bvh, quad24=None, box24=None, layout=None,
-                med24=None, atlas=None, tex=None):
+                med24=None, atlas=None, tex=None, rr_depth=0):
         solids, tex = unpack_inputs(quad24, box24, layout, med24, atlas, tex)
         kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
-                  moving=moving, bvh=bvh)
+                  moving=moving, bvh=bvh, rr_depth=rr_depth)
         out = mk.bounce_steps(state.clone(), keys, sph24, bg8, solids=solids,
                               tex=tex, **kw)
         ctx.save_for_backward(state, keys, sph24, bg8,
@@ -891,18 +920,19 @@ class BounceChain(torch.autograd.Function):
         d_quad, d_box = ((None, None) if d_solids is None
                          else (d_solids.quad24, d_solids.box24))
         return ((d_state, None, d_sph, d_bg) + (None,) * 5
-                + (d_quad, d_box, None, None, d_atlas, None))
+                + (d_quad, d_box, None, None, d_atlas, None, None))
 
 
 def bounce_chain(k_steps: int, max_depth: int, t_min: float,
-                 moving: bool):
+                 moving: bool, rr_depth: int = 0):
     """chain(state, keys, sph24, bg8, bvh=None, solids=None, tex=None)
-    -> state': BounceChain with its step count and options bound, as
-    rrt_tpu's bounce_chain returns; bvh: the sphere pack's
-    accel.BvhPack, which both kernels walk (required on a CUDA device);
-    solids, tex: the scene's SolidPacks and TexPack, or None."""
+    -> state': BounceChain with its step count and options bound (its
+    Russian roulette from bounce rr_depth, 0 off), as rrt_tpu's
+    bounce_chain returns; bvh: the sphere pack's accel.BvhPack, which
+    both kernels walk (required on a CUDA device); solids, tex: the
+    scene's SolidPacks and TexPack, or None."""
     def chain(state, keys, sph24, bg8, bvh=None, solids=None, tex=None):
         return BounceChain.apply(state, keys, sph24, bg8, k_steps, max_depth,
                                  t_min, moving, bvh,
-                                 *solid_inputs(solids, tex))
+                                 *solid_inputs(solids, tex, rr_depth))
     return chain

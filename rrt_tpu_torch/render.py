@@ -25,10 +25,11 @@ ops.megakernel.SOLID_CAP quads or boxes train_fwd walks their trees as
 the forward kernels do, and train_bwd loops: rttnw_final's 400 ground
 boxes); the chain takes them but the media, which rrt_tpu's chain
 leaves out too, and loops over at most SOLID_CAP quads and boxes. A
-scene outside a route's scope (Russian roulette; an image texture on a
-medium, whose eager route is the CPU's; more media, or any on the
-chain; more quads or boxes on the chain) raises there on a CUDA device,
-naming its ROADMAP entry.
+scene outside a route's scope (an image texture on a medium, whose
+eager route is the CPU's; more media, or any on the chain; more quads
+or boxes on the chain) raises there on a CUDA device, naming its
+ROADMAP entry. Every route takes Russian roulette
+(RenderConfig.rr_depth; `_apply_rr`).
 `trace_batch`'s checkpointed scan is a CPU route only.
 `_bounce` is one bounce of the plain physics (intersect, shade,
 scatter), shared by the plain versions, the batch driver and the tests.
@@ -71,8 +72,16 @@ class RenderConfig:
     tile_pixels: int = 16384
     samples_per_pass: int = 4
     t_min: float = 1.0e-3
-    # Russian roulette from this bounce; 0 = off (the books' method).
-    # Only 0 is ported (ROADMAP Queue A #9.6).
+    # Russian roulette: past this bounce, continue with probability
+    # p = clamp(max throughput component, 0.05, 1) and divide the
+    # survivor's throughput by p (unbiased; shortens the depth-50
+    # straggler tail). 0 = off (the books' method and the default —
+    # golden comparisons use exact depth-termination; rr changes the
+    # estimator's variance, not its mean). Honored by every driver,
+    # including the differentiable paths: the kill decision replays like
+    # other discrete decisions and the 1/p weight is detached, so
+    # scene/camera gradients stay in the same detached-sampling class as
+    # reflect-vs-refract.
     rr_depth: int = 0
 
 
@@ -182,6 +191,31 @@ def _shade(scene: SceneArrays, o, d, time, keys, bounce, alive, t_min,
             b.survives)
 
 
+def _apply_rr(keys, bounce, throughput, attenuation, survives,
+              rr_depth: int):
+    """Unbiased Russian roulette (rrt_tpu's render._apply_rr), draw for
+    draw the kernels' (csrc/bounce.cuh finish_bounce: the STREAM_RR
+    coin, rng.rr_draw; the same clip and op order). From bounce rr_depth
+    on (rr_depth > 0) a surviving lane continues with p = clamp(max
+    post-attenuation throughput component, 0.05, 1), and the survivor's
+    throughput takes 1 / p, detached: under differentiation the
+    acceptance probability is a replayed sampling constant, like the
+    discrete decisions. keys (2,N), bounce an int or (N,), throughput
+    and attenuation (3,N), survives (N,) bool. Returns (new throughput,
+    new survives)."""
+    t_new = throughput * attenuation
+    if not rr_depth:
+        return torch.where(survives, t_new, throughput), survives
+    p = torch.clamp(torch.maximum(t_new[0], torch.maximum(t_new[1],
+                                                          t_new[2])),
+                    0.05, 1.0)
+    u = rng.rr_draw(keys, bounce)
+    rr_on = torch.as_tensor(bounce, device=survives.device) >= rr_depth
+    survives = survives & (~rr_on | (u < p))
+    inv_p = torch.where(rr_on, 1.0 / p.detach(), 1.0)
+    return torch.where(survives, t_new * inv_p, throughput), survives
+
+
 def _check_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -213,7 +247,7 @@ def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     """Render samples [sample_lo, sample_lo + n_samples) of every pixel
     on `device` (n_samples defaults to cfg.spp). Returns (radiance sums
     (P,3) in scan-line order, n_traced) with P = width * height."""
-    ops_mega.check_scope(scene, cfg.rr_depth)
+    ops_mega.check_scope(scene)
     device = _check_device(device)
     sph24, cam24, bg8, bvh = _packs(scene, camera, cfg, device, bvh=True)
     rad, traced = ops_mega.render_tiles(
@@ -222,7 +256,7 @@ def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
         spp=cfg.spp if n_samples is None else n_samples,
         max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving,
         bvh=bvh, solids=ops_mega.pack_solids(scene, device),
-        tex=ops_mega.pack_textures(scene, device))
+        tex=ops_mega.pack_textures(scene, device), rr_depth=cfg.rr_depth)
     return rad, traced.sum()
 
 
@@ -247,7 +281,7 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
     The train backward keeps one record a bounce, at most MAX_RECORDS a
     path, and at most MAX_TRAIN_MEDIA media (rrt_tpu's reasons:
     ops.megakernel_train.train_scope_gap)."""
-    gap = ops_train.train_scope_gap(scene, cfg.rr_depth)
+    gap = ops_train.train_scope_gap(scene)
     if gap is not None:
         return (f"{gap[0]} is outside the train kernels' scope "
                 f"({ops_mega.roadmap_ref(gap[1])})")
@@ -260,26 +294,24 @@ def diff_fallback_reason(scene: SceneArrays, cfg: RenderConfig):
 def _check_diff_scope(where: str, scene: SceneArrays, cfg: RenderConfig):
     """Raise for a scene outside the train kernels' scope (a depth past
     their records raises ValueError in the kernels' wrappers)."""
-    gap = ops_train.train_scope_gap(scene, cfg.rr_depth)
+    gap = ops_train.train_scope_gap(scene)
     if gap is not None:
         raise NotImplementedError(
             f"{where}: {gap[0]} is outside the train kernels' scope "
             f"({ops_mega.roadmap_ref(gap[1])})")
 
 
-def _check_card_scope(where: str, scene: SceneArrays, rr_depth: int,
-                      device):
+def _check_card_scope(where: str, scene: SceneArrays, device):
     """On a CUDA device a differentiable render runs the train kernels or
     the bounce chain, never the checkpointed scan (a CPU route): a scene
     outside the train kernels' scope (render_image_diff, the train
     steps) raises there before anything runs, naming the ROADMAP item
     (ops.megakernel_train.train_scope_gap)."""
     if torch.device(device).type == "cuda":
-        ops_train.check_train_scope(where, scene, rr_depth)
+        ops_train.check_train_scope(where, scene)
 
 
-def _check_chain_card_scope(where: str, scene: SceneArrays, rr_depth: int,
-                            device):
+def _check_chain_card_scope(where: str, scene: SceneArrays, device):
     """_check_card_scope for the bounce chain's route
     (render_image(differentiable=True), trace_batch): chain_bwd's scope,
     which leaves out the constant media, as rrt_tpu's does
@@ -287,7 +319,7 @@ def _check_chain_card_scope(where: str, scene: SceneArrays, rr_depth: int,
     there; the port keeps the scan off the card, so a media scene raises,
     naming the train kernels' route, which takes its gradient."""
     if torch.device(device).type == "cuda":
-        ops_vjp.check_backward_scope(where, scene, rr_depth)
+        ops_vjp.check_backward_scope(where, scene)
 
 
 _logger = logging.getLogger("rrt_tpu_torch.render")
@@ -328,7 +360,8 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     n_samples = cfg.spp if n_samples is None else n_samples
     packs = _packs(scene, camera, cfg, device)
     extra = ops_vjp.solid_inputs(ops_mega.pack_solids(scene, device),
-                                 ops_mega.pack_textures(scene, device))
+                                 ops_mega.pack_textures(scene, device),
+                                 cfg.rr_depth)
     rad, n_traced = None, 0
     for lo in range(0, n_samples, budget):
         r, traced = ops_train.TileTrainChain.apply(
@@ -350,7 +383,7 @@ def render_image_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     (image (H,W,3) mean radiance, n_traced). A media scene whose depth
     is past the train kernels' records raises there, since the bounce
     chain leaves media out."""
-    _check_card_scope("render_image_diff", scene, cfg.rr_depth, device)
+    _check_card_scope("render_image_diff", scene, device)
     reason = diff_fallback_reason(scene, cfg)
     if reason is not None:
         _warn_diff_fallback("render_image_diff", reason)
@@ -407,14 +440,16 @@ def _shutter(camera):
 
 
 def _bounce_body(scene: SceneArrays, t_min, keys, o, d, time, thr, rad,
-                 alive, bounce, max_depth, packed=None):
+                 alive, bounce, max_depth, packed=None, rr_depth: int = 0):
     """One bounce of trace_batch's carry (o, d, time, throughput,
-    radiance, alive) -> the next (rrt_tpu's _bounce_body)."""
+    radiance, alive) -> the next (rrt_tpu's _bounce_body, Russian
+    roulette from bounce rr_depth on: _apply_rr)."""
     contrib, o, d, att, survives = _shade(
         scene, o, d, time, keys, bounce, alive, t_min, max_depth,
         packed=packed)
-    return (o, d, time, torch.where(survives, thr * att, thr),
-            rad + thr * contrib, survives)
+    new_thr, survives = _apply_rr(keys, bounce, thr, att, survives,
+                                  rr_depth)
+    return o, d, time, new_thr, rad + thr * contrib, survives
 
 
 def _fused_schedule(max_depth: int):
@@ -474,7 +509,7 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     (2,N) sample key words (rng.sample_keys). The kernels
     take any N (no tile alignment). Returns (radiance (3,N) in the rays'
     order, n_traced () int64: exact, from the traced row)."""
-    ops_vjp.check_backward_scope("trace_batch_fused", scene, rr_depth)
+    ops_vjp.check_backward_scope("trace_batch_fused", scene)
     if schedule is None:
         schedule = _fused_schedule(max_depth)
     n, dev = o.shape[1], o.device
@@ -491,7 +526,8 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     keys = rng.u32_bits(keys)
     lane = torch.arange(n, device=dev)
     for j, k in enumerate(schedule):
-        st = ops_vjp.bounce_chain(k, max_depth, t_min, scene.has_moving)(
+        st = ops_vjp.bounce_chain(k, max_depth, t_min, scene.has_moving,
+                                  rr_depth)(
             st, keys, sph24, bg8, bvh, solids, tex)
         if j < len(schedule) - 1:
             st, keys, lane = _compact_lanes(st, keys, lane)
@@ -537,10 +573,10 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
         return trace_batch_fused(scene, o, d, time, keys, max_depth, t_min,
                                  rr_depth=rr_depth,
                                  bvh=None if packed is None else packed["bvh"])
-    ops_mega.check_scope(scene, rr_depth, eager=not o.is_cuda)
+    ops_mega.check_scope(scene, eager=not o.is_cuda)
     if differentiable:
         if o.is_cuda:
-            _check_chain_card_scope("trace_batch", scene, rr_depth, o.device)
+            _check_chain_card_scope("trace_batch", scene, o.device)
             raise ValueError("trace_batch: on a CUDA device the "
                              "differentiable batch runs the bounce chain "
                              "(fused_vjp=True); the checkpointed scan is "
@@ -550,7 +586,8 @@ def trace_batch(scene: SceneArrays, o, d, time, keys, max_depth: int,
         packed = pack_scene(scene, o.device, (time.min(), time.max())
                             if scene.has_moving else None)
     body = functools.partial(_bounce_body, scene, t_min, keys,
-                             max_depth=max_depth, packed=packed)
+                             max_depth=max_depth, packed=packed,
+                             rr_depth=rr_depth)
     alive = torch.ones((o.shape[1],), dtype=torch.bool, device=o.device)
     carry = (o, d, time, torch.ones_like(o), torch.zeros_like(o), alive)
     n_traced = torch.zeros((), dtype=torch.int64, device=o.device)
@@ -629,11 +666,10 @@ def render_image(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     and tile drivers render the same image faster. On the CPU it takes
     an image texture on a medium as rrt_tpu's eager route does; on a
     CUDA device such a scene raises."""
-    ops_mega.check_scope(scene, cfg.rr_depth,
-                         eager=torch.device(device).type == "cpu")
+    ops_mega.check_scope(scene, eager=torch.device(device).type == "cpu")
     if differentiable:
         _check_chain_card_scope("render_image(differentiable=True)", scene,
-                                cfg.rr_depth, device)
+                                device)
     if cfg.spp % cfg.samples_per_pass != 0:
         raise ValueError("spp must be a multiple of samples_per_pass")
     device = _check_device(device)
@@ -683,7 +719,7 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
 
     Returns (radiance sums (P,3), n_traced () int64: exact, where rrt_tpu
     sums the traced row in f32)."""
-    ops_mega.check_scope(scene, cfg.rr_depth)
+    ops_mega.check_scope(scene)
     device = _check_device(device)
     camera, px, py = camera.to(device), px.to(device), py.to(device)
     p_count = px.shape[0]
@@ -728,7 +764,7 @@ def trace_queue(scene: SceneArrays, camera, px, py, cfg: RenderConfig, seed,
         ops_mega.bounce_steps(st, keys, sph24, bg8, k_steps=k_steps,
                               max_depth=cfg.max_depth, t_min=cfg.t_min,
                               moving=scene.has_moving, bvh=bvh, solids=solids,
-                              tex=tex)
+                              tex=tex, rr_depth=cfg.rr_depth)
         trace_queue.outer_steps += 1
         n_alive = int((st[ops_mega.ROW_ALIVE] > 0.5).sum())
     acc.index_add_(1, pix, st[10:13])  # the final flush

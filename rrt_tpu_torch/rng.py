@@ -26,11 +26,10 @@ import torch
 
 # Stream ids: every distinct consumer of randomness inside one bounce gets
 # its own stream (the bounce/stream counter is bounce * 8 + stream).
-# rrt_tpu also uses 3 (Russian roulette), which comes with that feature
-# (ROADMAP Queue A #9.6).
 STREAM_CAMERA = 0  # pixel jitter (2) + lens disc (2) + shutter time (1)
 STREAM_SCATTER = 1  # lambertian/metal/isotropic dirs + dielectric choice
 STREAM_MEDIUM = 2  # constant-medium distance sampling
+STREAM_RR = 3  # the Russian-roulette continuation test
 
 _NUM_STREAMS = 8
 
@@ -186,3 +185,10 @@ def medium_draws(keys, bounce, n_media: int):
     pairs: medium i reads word i % 2 of pair i // 2 of the counter
     bounce * 8 + STREAM_MEDIUM."""
     return uniform_words(keys, bounce, STREAM_MEDIUM, n_media)
+
+
+def rr_draw(keys, bounce):
+    """(N,) uniform for the Russian-roulette continuation test at this
+    bounce (STREAM_RR): word a of threefry2x32(k0, k1, bounce * 8 + 3,
+    0), the word the kernels draw (csrc/bounce.cuh rr_uniform)."""
+    return uniform_words(keys, bounce, STREAM_RR, 1)[0]

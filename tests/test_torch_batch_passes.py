@@ -42,20 +42,22 @@ def test_ragged_last_tile():
 
 @pytest.mark.parametrize("driver", ["batch", "queue"])
 def test_out_of_scope_raises(driver):
-    """Russian roulette raises NotImplementedError naming its ROADMAP
-    item in both new drivers; rttnw_final's 400 ground boxes (past
-    SOLID_CAP) render in both since #9.5's rest, its forward part (as
-    constant media since #9.4, the perlin and image textures since #9.5's
-    first part)."""
+    """Nothing these scenes need is out of scope in either driver any
+    more: rttnw_final's 400 ground boxes (past SOLID_CAP) render since
+    #9.5's rest, its forward part (as constant media since #9.4, the
+    perlin and image textures since #9.5's first part), and Russian
+    roulette since #9.6, with fewer traced segments than without it."""
     j_scene, j_cam = jscenes.SCENES["rttnw_final"](8, 8)
     boxes = convert.scene_from_numpy(helpers.leaves(j_scene))
     cam = convert.camera_from_numpy(helpers.leaves(j_cam))
-    spheres, _ = tscenes.SCENES["chap11"](8, 8)
+    spheres, s_cam = tscenes.SCENES["chap11"](8, 8)
     fn = (render.render_image if driver == "batch"
           else render.render_image_queue)
     base = dict(width=8, height=8, spp=2, samples_per_pass=2)
     img, n = fn(boxes, cam, render.RenderConfig(**base), 0, device="cpu")
     assert torch.isfinite(img).all() and int(n) >= 8 * 8 * 2
-    with pytest.raises(NotImplementedError, match="#9.6"):
-        fn(spheres, cam, render.RenderConfig(**base, rr_depth=4), 0,
-           device="cpu")
+    short = dict(base, max_depth=8)
+    _, n0 = fn(spheres, s_cam, render.RenderConfig(**short), 0, device="cpu")
+    img, n1 = fn(spheres, s_cam, render.RenderConfig(**short, rr_depth=1), 0,
+                 device="cpu")
+    assert torch.isfinite(img).all() and int(n1) < int(n0)

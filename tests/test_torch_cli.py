@@ -117,3 +117,28 @@ def test_resumes_an_rrt_tpu_checkpoint(tmp_path, capsys, tile_image):
                 "-o", str(tmp_path / "o.png")]))
     assert "resumed checkpoint at 2/4" in capsys.readouterr().err
     torch.testing.assert_close(res.image, tile_image, atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def rr_tile(tmp_path_factory):
+    """The tile driver's render with --rr-depth 2, and the traced count
+    of the same render without the roulette."""
+    tmp = tmp_path_factory.mktemp("rr")
+    off = _render(tmp, "--driver", "tile")
+    return _render(tmp, "--driver", "tile", "--rr-depth", 2), off.n_traced
+
+
+@pytest.mark.parametrize("driver", ["tile", "queue", "batch"])
+def test_rr_depth(tmp_path, rr_tile, driver):
+    """--rr-depth goes into RenderConfig on every driver (the tile
+    driver's image, fewer segments than without it) and into the
+    checkpoint's meta, as rrt_tpu's CLI writes it, so a render without
+    the roulette does not resume it (test_incompatible_checkpoint_starts_
+    fresh)."""
+    tile, n_off = rr_tile
+    ck = tmp_path / "ck.npz"
+    res = _render(tmp_path, "--driver", driver, "--rr-depth", 2,
+                  "--queue-size", 512, "--checkpoint", ck)
+    torch.testing.assert_close(res.image, tile.image, atol=1e-5, rtol=1e-5)
+    assert res.n_traced == tile.n_traced < n_off
+    assert tio.load_checkpoint(str(ck))[3]["rr_depth"] == 2

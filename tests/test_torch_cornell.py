@@ -496,11 +496,11 @@ def test_cornell_gradient_raises_for_a_cuda_device():
     MAX_TRAIN_MEDIA media on the train kernels' (tests/test_torch_cuda.py
     runs the gradients on the card)."""
     cornell, _ = tscenes.cornell_box_scene(8, 8)
-    render._check_card_scope("cornell", cornell, 0, "cuda")
+    render._check_card_scope("cornell", cornell, "cuda")
     j_scene, j_cam = jscenes.SCENES["cornell_smoke"](8, 8)
     scene = convert.scene_from_numpy(_leaves(j_scene))
     cam = convert.camera_from_numpy(_leaves(j_cam))
-    render._check_card_scope("cornell_smoke", scene, 0, "cuda")
+    render._check_card_scope("cornell_smoke", scene, "cuda")
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
     fog = SceneBuilder()
     for i in range(tmkt.MAX_TRAIN_MEDIA + 1):
@@ -511,7 +511,7 @@ def test_cornell_gradient_raises_for_a_cuda_device():
         render.render_image(scene, cam, cfg, 0, differentiable=True,
                             device="cuda")
     spheres, _ = tscenes.chap12_scene(8, 8)
-    render._check_card_scope("chap12", spheres, 0, "cuda")
+    render._check_card_scope("chap12", spheres, "cuda")
 
 
 def test_solid_cap_raises():

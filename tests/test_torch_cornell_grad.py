@@ -376,16 +376,18 @@ def test_light_emits_from_behind():
 
 def test_out_of_scope_still_raises():
     """Media on chain_bwd and more than MAX_TRAIN_MEDIA media on the
-    train kernels, more quads than SOLID_CAP on chain_bwd (rttnw_final's
+    train kernels, and more quads than SOLID_CAP on chain_bwd (rttnw_final's
     boxes, #9.5's chain part; the train kernels take them, and the perlin
-    and image textures are ported) and Russian roulette stay outside the
-    backwards, raising with their ROADMAP items."""
+    and image textures are ported) stay outside the backwards, raising
+    with their ROADMAP items; Russian roulette is in both backwards'
+    scopes since #9.6, and cornell's train route renders with it."""
     (_, _), (smoke, smoke_cam) = _both("cornell_smoke", 8, 8)
     cornell, cornell_cam = tscenes.cornell_box_scene(8, 8)
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
     assert tmkv.backward_scope_gap(smoke)[1] == "#9.4"
     assert tmkt.train_scope_gap(smoke) is None
-    assert tmkv.backward_scope_gap(cornell, rr_depth=2)[1] == "#9.6"
+    assert tmkv.backward_scope_gap(cornell) is None
+    assert tmkt.train_scope_gap(cornell) is None
     perlin = dataclasses.replace(cornell, n_quads_active=tmk.SOLID_CAP + 1)
     assert tmkv.backward_scope_gap(perlin)[1] == "#9.5"
     assert tmkt.train_scope_gap(perlin) is None
@@ -397,11 +399,11 @@ def test_out_of_scope_still_raises():
         fog.medium_sphere((float(i), 0.0, 0.0), 0.4, 0.5, (0.5, 0.5, 0.5))
     fog = fog.build()
     assert tmkt.train_scope_gap(fog)[1] == "#9.4"
-    for scene, camera, c, item in (
-            (fog, smoke_cam, cfg, "#9.4"),
-            (cornell, cornell_cam, dataclasses.replace(cfg, rr_depth=2),
-             "#9.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            render.trace_tiles_diff(scene, camera, c, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            render.render_image_diff(scene, camera, c, 0, device="cuda")
+    with pytest.raises(NotImplementedError, match="#9.4"):
+        render.trace_tiles_diff(fog, smoke_cam, cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="#9.4"):
+        render.render_image_diff(fog, smoke_cam, cfg, 0, device="cuda")
+    rad, n = render.trace_tiles_diff(
+        cornell, cornell_cam, dataclasses.replace(cfg, rr_depth=1), 0,
+        device="cpu")
+    assert torch.isfinite(rad).all() and int(n) >= 8 * 8

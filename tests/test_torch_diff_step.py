@@ -76,8 +76,13 @@ def _lanes(seed):
     return state, sel.astype(f32), bg6, consts, draws
 
 
-def _run_both(seed, is_sky, cot_seed, moving=False):
+def _run_both(seed, is_sky, cot_seed, moving=False, rr_depth=0):
+    """rrt_tpu's _make_diff_step and the port's diff_step on _lanes(seed)
+    under jax.vjp and autograd; with rr_depth, a random rr_on (Russian
+    roulette acts at the lane's bounce)."""
     state, sel, bg6, consts, draws = _lanes(seed)
+    if rr_depth:
+        consts["rr_on"] = np.random.default_rng(seed + 2).random(N) < 0.7
     if moving:  # the same centers at each lane's time, reached by motion
         rs = np.random.default_rng(seed + 1)
         vel = rs.uniform(-0.5, 0.5, (3, N)).astype(np.float32)
@@ -89,7 +94,7 @@ def _run_both(seed, is_sky, cot_seed, moving=False):
     g = jmkv._make_diff_step(jc, moving=moving, has_quads=False,
                              has_boxes=False, has_rot_boxes=False,
                              has_perlin=False, has_images=False, img_ah=1,
-                             img_aw=1)
+                             img_aw=1, rr_depth=rr_depth)
     j_ins = [jnp.asarray(x) for x in state] + [jnp.asarray(sel)] + [
         jnp.asarray(x) for x in bg6]
     j_out, vjp = jax.vjp(g, *j_ins)
@@ -104,7 +109,7 @@ def _run_both(seed, is_sky, cot_seed, moving=False):
     t_ins = [torch.from_numpy(x.copy()).requires_grad_() for x in state] + [
         torch.from_numpy(sel).requires_grad_()] + [
         torch.from_numpy(x.copy()).requires_grad_() for x in bg6]
-    t_out = diff_step(tc, *t_ins, moving=moving)
+    t_out = diff_step(tc, *t_ins, moving=moving, rr_depth=rr_depth)
     t_grads = torch.autograd.grad(
         t_out, t_ins, [torch.from_numpy(x) for x in cot], allow_unused=True)
     return j_out, t_out, j_grads, t_grads, t_ins
@@ -155,16 +160,38 @@ def test_diff_step_has_gradient_power():
 
 
 def test_diff_step_other_families_raise():
-    """Russian roulette raises naming its ROADMAP item, with or without
-    textures; quads, boxes and lights are diff_step's since #9.7
-    (tests/test_torch_cornell_grad.py), media since #9.4
+    """Nothing raises any more: quads, boxes and lights are diff_step's
+    since #9.7 (tests/test_torch_cornell_grad.py), media since #9.4
     (tests/test_torch_media_grad.py), the perlin and image textures since
-    #9.5's first part (tests/test_torch_textures_grad.py)."""
-    for kw, item in ((dict(rr_depth=2, has_perlin=True), "#9.6"),
-                     (dict(rr_depth=2, has_images=True), "#9.6"),
-                     (dict(rr_depth=2), "#9.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            diff_step({}, moving=False, **kw)
+    #9.5's first part (tests/test_torch_textures_grad.py), and Russian
+    roulette since #9.6 (tests/test_torch_rr_grad.py holds it against
+    rrt_tpu). Where rr_on is false the step is rr_depth 0's bit for bit;
+    where it is true a surviving lane's throughput is divided by the
+    detached p, so its cotangent is scaled by 1 / p and no more."""
+    state, sel, _, consts, draws = _lanes(0)
+    tc = {k: torch.from_numpy(v) for k, v in consts.items()}
+    tc.update(draws=tuple(torch.from_numpy(x) for x in draws),
+              is_sky=torch.tensor(True))
+    ins = [torch.from_numpy(x.copy()).requires_grad_() for x in state] + [
+        torch.from_numpy(sel)] + [torch.full((N,), 0.5)] * 6
+    off = diff_step(tc, *ins, moving=False)
+    no = diff_step(dict(tc, rr_on=torch.zeros(N, dtype=torch.bool)), *ins,
+                   moving=False, rr_depth=2)
+    for a, b in zip(off, no):
+        assert torch.equal(a, b)
+    on = diff_step(dict(tc, rr_on=torch.ones(N, dtype=torch.bool)), *ins,
+                   moving=False, rr_depth=2)
+    sv = tc["survives"]
+    tn = torch.stack(off[7:10]).detach()
+    p = torch.clamp(tn.max(dim=0).values, 0.05, 1.0)
+    expect = torch.where(sv, tn * (1.0 / p), tn)
+    torch.testing.assert_close(torch.stack(on[7:10]).detach(), expect,
+                               rtol=1e-6, atol=0)
+    g_on = torch.autograd.grad(on[7].sum(), ins[7])[0]
+    g_off = torch.autograd.grad(off[7].sum(), ins[7])[0]
+    torch.testing.assert_close(g_on, torch.where(sv, g_off / p, g_off),
+                               rtol=1e-6, atol=0)
+    assert (sv & (p < 1.0)).any()
 
 
 def test_camera_ray_rows_matches_reference():

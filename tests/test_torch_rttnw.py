@@ -413,7 +413,7 @@ def test_gradient_scopes():
         device="cpu")
     img.sum().backward()
     assert torch.isfinite(leaf.grad).all()
-    render._check_card_scope("render_image_diff", scene, 0, "cuda")
+    render._check_card_scope("render_image_diff", scene, "cuda")
     with pytest.raises(NotImplementedError, match="#9.5"):
         render.render_image(scene, cam, cfg, 0, differentiable=True,
                             device="cuda")

@@ -177,7 +177,16 @@ def test_scenes_outside_the_kernel_scope_raise(name, item):
 
 
 def test_russian_roulette_raises():
+    """No longer raises (#9.6): the tile driver renders with the
+    roulette, and with rr_depth past every path's length as without it,
+    bit for bit."""
     scene, cam = tscenes.chap11_scene(8, 4)
-    cfg = render.RenderConfig(width=8, height=4, spp=1, rr_depth=4)
-    with pytest.raises(NotImplementedError, match="#9.6"):
-        render.render_image_tiles(scene, cam, cfg, 0, device="cpu")
+    cfg = render.RenderConfig(width=8, height=4, spp=2, rr_depth=1)
+    img, n = render.render_image_tiles(scene, cam, cfg, 0, device="cpu")
+    off, n_off = render.render_image_tiles(
+        scene, cam, dataclasses.replace(cfg, rr_depth=0), 0, device="cpu")
+    assert torch.isfinite(img).all() and int(n) < int(n_off)
+    late, n_late = render.render_image_tiles(
+        scene, cam, dataclasses.replace(cfg, rr_depth=cfg.max_depth + 1), 0,
+        device="cpu")
+    assert torch.equal(late, off) and int(n_late) == int(n_off)

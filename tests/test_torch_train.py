@@ -289,13 +289,17 @@ def test_out_of_scope_scenes_raise():
     # check on a CUDA device, and the chain's route raises there before
     # anything runs; on the CPU the train step runs.
     many = dataclasses.replace(scene, n_boxes_active=tmk.SOLID_CAP + 1)
-    render._check_card_scope("render_image_diff", many, 0, "cuda")
+    render._check_card_scope("render_image_diff", many, "cuda")
     with pytest.raises(NotImplementedError, match="#9.5"):
         render.render_image(many, cam, dataclasses.replace(
             cfg, samples_per_pass=1), 0, differentiable=True, device="cuda")
-    with pytest.raises(NotImplementedError, match="#9.6"):
-        render.render_image_diff(scene, cam, dataclasses.replace(
-            cfg, rr_depth=1), 0, device="cpu")
+    # Russian roulette (#9.6) takes the train kernels' route: no fallback,
+    # and the roulette kills paths.
+    rr = dataclasses.replace(cfg, rr_depth=1)
+    assert render.diff_fallback_reason(scene, rr) is None
+    img, n = render.render_image_diff(scene, cam, rr, 0, device="cpu")
+    _, n0 = render.render_image_diff(scene, cam, cfg, 0, device="cpu")
+    assert torch.isfinite(img).all() and int(n) < int(n0)
     step = diff.make_train_step(dataclasses.replace(cfg, samples_per_pass=1),
                                 device="cpu")
     _, _, loss = step(dataclasses.replace(

@@ -2,7 +2,7 @@
 
     python train_turns.py TREE_A [TREE_B ...] [--order ABBA] \
         [--north-star] [--check] [--forward] [--queue] [--cornell] \
-        [--textures] [--final] [--no-train]
+        [--textures] [--final] [--no-train] [--rr-depth N]
 
 Each turn is a fresh process on the card whose `rrt_tpu_torch` (and
 `chip_smoke.py`) come from that turn's tree, a directory holding a
@@ -61,7 +61,12 @@ replay), with digests of their outputs, and in a tree whose train
 kernels take the scene train_fwd and train_bwd at [F3]'s shape (400x267,
 8 spp, depth 50; digests of train_fwd's radiance and winners and of
 train_bwd's d_cam and d_bg, which sum in a fixed order).
---no-train skips the train kernels. The default order is ABBA for two
+--no-train skips the train kernels. --rr-depth N times every kernel
+these options run but the cornell and texture ones (tile_render,
+bounce_steps, chain_bwd, the train kernels, the steps) with Russian
+roulette from bounce N; without it (or at 0) no kernel is handed the
+argument, so a tree from before the roulette times as it did. The
+default order is ABBA for two
 trees and AAA for one, so that two versions are compared within one
 call, on one card; with more trees, --order names them (A, B, C, ...).
 
@@ -85,6 +90,9 @@ SHAPE = dict(width=1200, height=800, spp=8, max_depth=50)
 FORWARD_SHAPE = dict(width=1200, height=800, spp=32, max_depth=50)
 CAPACITIES = (4, 8, 12, 16, 24)
 MIX = (1.0, 0.7, 0.3)
+# The turn's Russian roulette, {"rr_depth": N} with --rr-depth N > 0, else
+# empty: the keywords every timed wrapper and RenderConfig take.
+RR: dict = {}
 
 
 def _forward(out: dict) -> None:
@@ -109,7 +117,7 @@ def _forward(out: dict) -> None:
                                           bvh=True)[3])
         kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
                   height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
-                  t_min=cfg.t_min, moving=scene.has_moving, **tree)
+                  t_min=cfg.t_min, moving=scene.has_moving, **tree, **RR)
         rad, traced = mk.render_tiles(*packs, **kw)
         tile_ms = cs.cuda_ms(lambda: mk.render_tiles(*packs, **kw), 3)
         st, keys, sph, bg = cs.lane_state(scene, cam, cfg.width, cfg.height,
@@ -311,13 +319,14 @@ def _final(out: dict) -> None:
     solids = mk.pack_solids(scene, dev)
     tex = mk.pack_textures(scene, dev)
     kw = dict(seed_words=(0, 0), sample_lo=0, width=w, height=h, spp=32,
-              max_depth=50, t_min=1e-3, moving=True, solids=solids, tex=tex)
+              max_depth=50, t_min=1e-3, moving=True, solids=solids, tex=tex,
+              **RR)
     rad, traced = mk.render_tiles(*packs, bvh=bvh, **kw)
     tile_ms = cs.cuda_ms(lambda: mk.render_tiles(*packs, bvh=bvh, **kw), 3)
     st, keys, sph, bg = cs.lane_state(scene, cam, w, h, cs.QUEUE_LANES, dev)
     qbvh = render.pack_scene(scene, dev, render._shutter(cam))["bvh"]
     qkw = dict(k_steps=4, max_depth=50, t_min=1e-3, moving=True, bvh=qbvh,
-               solids=solids, tex=tex)
+               solids=solids, tex=tex, **RR)
     work = st.clone()
     mk.bounce_steps(work, keys, sph, bg, **qkw)
     state_digest = _digest(work)
@@ -381,7 +390,7 @@ def _queue(out: dict, save: str) -> None:
             tree = dict(bvh=render.pack_scene(
                 scene, dev, render._shutter(cam))["bvh"])
         kw = dict(k_steps=4, max_depth=cs.MAIN["max_depth"], t_min=1e-3,
-                  moving=moving, **tree)
+                  moving=moving, **tree, **RR)
         work, log = st.clone(), []
         mk.bounce_steps(work, keys, sph, bg, **kw)
         state_digest = _digest(work)
@@ -427,7 +436,8 @@ def _queue(out: dict, save: str) -> None:
                                             cfg.height, kc)
             rad, n = render.trace_batch(scene_d, o, d, tm, kc,
                                         cfg.max_depth, 1e-3,
-                                        differentiable=True, fused_vjp=True)
+                                        differentiable=True, fused_vjp=True,
+                                        **RR)
             loss = rad[0].mean() + rad[1].mean() + rad[2].mean()
             diff._grads(loss, params, camera)
             return loss.detach(), int(n)
@@ -465,8 +475,9 @@ def _queue(out: dict, save: str) -> None:
 def _turn(tree: str, north_star: bool, check: bool, forward: bool,
           train: bool, queue: str | None = None,
           cornell: bool = False, textures: bool = False,
-          final: bool = False) -> dict:
+          final: bool = False, rr_depth: int = 0) -> dict:
     sys.path.insert(0, tree)  # ahead of this script's own directory
+    RR.update({"rr_depth": rr_depth} if rr_depth else {})
     import torch
     import chip_smoke as cs
     from rrt_tpu_torch import diff, render, scenes
@@ -474,7 +485,7 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
 
     dev = torch.device("cuda:0")
     resources = getattr(_build, "kernel_resources", None)
-    out = dict(card=cs.card_line(),
+    out = dict(card=cs.card_line(), rr_depth=rr_depth,
                ptxas=resources(_build.build().log) if resources else None)
     if forward:
         _forward(out)
@@ -488,13 +499,13 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
         _final(out)
     if not train:
         return out
-    cfg = render.RenderConfig(**SHAPE)
+    cfg = render.RenderConfig(**SHAPE, **RR)
     for name in ("chap12", "book2chap2"):
         scene, cam = scenes.SCENES[name](cfg.width, cfg.height)
         packs = [p.detach() for p in render._packs(scene, cam, cfg, dev)]
         kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
                   height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
-                  t_min=cfg.t_min, moving=scene.has_moving)
+                  t_min=cfg.t_min, moving=scene.has_moving, **RR)
         fwd = mkt.render_tiles_train(*packs, **kw)
         lengths = fwd[2]
         fwd_ms = cs.cuda_ms(lambda: mkt.render_tiles_train(*packs, **kw), 3)
@@ -510,7 +521,7 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
                 for k in CAPACITIES}
         out.setdefault(name, {}).update(
             fwd_ms=fwd_ms, bwd_ms=bwd_ms, mismatches=int(bwd[3]),
-            segments=segments,
+            segments=segments, fwd_digest=_digest(fwd[0]),
             histogram=torch.bincount(lengths.flatten().long()).tolist(),
             past_capacity=past)
         del fwd, bwd
@@ -550,6 +561,7 @@ def main(argv=None) -> int:
     ap.add_argument("--textures", action="store_true")
     ap.add_argument("--final", action="store_true")
     ap.add_argument("--no-train", action="store_true")
+    ap.add_argument("--rr-depth", type=int, default=0)
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -557,7 +569,7 @@ def main(argv=None) -> int:
         print("TURN " + json.dumps(
             _turn(os.path.abspath(args.trees[0]), args.north_star,
                   args.check, args.forward, not args.no_train, args.save,
-                  args.cornell, args.textures, args.final),
+                  args.cornell, args.textures, args.final, args.rr_depth),
             default=str), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees]
@@ -569,6 +581,8 @@ def main(argv=None) -> int:
                              ("--textures", args.textures),
                              ("--final", args.final),
                              ("--no-train", args.no_train)) if on]
+    if args.rr_depth:
+        flags += ["--rr-depth", str(args.rr_depth)]
     with tempfile.TemporaryDirectory() as tmp:
         for i, letter in enumerate(order):
             tree = trees[ord(letter) - ord("A")]
