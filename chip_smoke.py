@@ -139,13 +139,25 @@ forward kernels' walks over the solid families' trees (kWalk):
        walks' node, box and sphere tests a segment beside the scan's
        1,407; blocks an SM; then the main path: the CLI on the tile,
        queue and batch drivers, held against the tile image; and the
-       gradient's routes (render_image_diff, make_train_step,
-       render_image(differentiable=True)) raising naming #9.5 before any
-       launch;
+       chain's route of its gradient (render_image(differentiable=True))
+       raising naming its constant media (#9.4) before any launch;
   [F2] scenes.book2.many_solids_scene (81 boxes rotated about Y and 82
        quads under the sky, and its moving and marble variant): the
        three walks over both trees against the solid scan bit for bit,
-       intersect_only against its plain version.
+       intersect_only against its plain version;
+  [F4] chain_bwd's kWalk variants (its replay walks the solid trees):
+       the four on many_solids_scene at [F2]'s size against their plain
+       version ([C1]'s rule) and the solid scan; the (moving, solids,
+       tex, walk) one on [C2]'s three chains of rttnw_final without its
+       media at 400x267, timed beside its bound, held to its plain
+       version on a stride of the lanes; then the main path:
+       render_image(differentiable=True) on that scene at 400x267, 4
+       spp, depth 50, with the gradient of an L2 loss (bounce_steps and
+       chain_bwd launched, the train kernels not; no replay mismatch;
+       the image the forward batch driver's; boxes past slot 63 with
+       gradients; a box albedo past slot 63 against central
+       differences), and render_image_diff at depth 80, which takes the
+       chain.
 
 Then Russian roulette (RenderConfig.rr_depth = RR_DEPTH, 4: the coin
 from bounce 4 on, the detached 1 / p weight), through the five shading
@@ -1221,7 +1233,7 @@ def by_lanes(fn, *lane_args):
 
 def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
                    device, card, solids=None, radiance_only=False, tex=None,
-                   rr_depth=0):
+                   rr_depth=0, min_agree=MIN_FORWARD_AGREE, scan=None):
     """[C1] chain_bwd against chain_adjoint_reference on one chain input.
     A lane agrees when the two forwards (bounce_steps and its plain
     version) end it with equal bounce and alive rows and rows 0-12
@@ -1254,8 +1266,13 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     None; with images the atlas cotangents of the kernel and the plain
     version are held within PACK_SPREAD of their largest (`atlas`).
     rr_depth: Russian roulette's first bounce, in both forwards and both
-    backwards ([R2]). Returns the kernel's forward output and the numbers
-    of the kernels line."""
+    backwards ([R2]). min_agree: the share of lanes whose forwards must
+    agree. scan: the solid scan's SolidPacks (accel.solid_scan: the same
+    packs, every family a loop) of a walking variant's solids ([F4]),
+    whose kernel run must give the walk's input and background
+    cotangents bit for bit and its pack cotangents within PACK_SPREAD.
+    Returns the kernel's forward output and the numbers of the kernels
+    line."""
     from rrt_tpu_torch import diff, gradcheck
     from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
     kw = dict(k_steps=k_steps, max_depth=MAIN["max_depth"], t_min=1e-3,
@@ -1300,6 +1317,21 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
                  else [(k[4].quad24, k2[4].quad24),
                        (k[4].box24, k2[4].box24)]))
     same = torch.equal(k2[0], k[0]) and torch.equal(k2[2], k[2])
+    if scan is not None:
+        ks = mkv.chain_adjoint(st, keys, sph, bg, d_out, ob, bvh=bvh,
+                               **dict(kw, solids=scan))
+        scan_spread = max(
+            ((b - a).abs().max() / a.abs().max().clamp(min=1e-30)).item()
+            for a, b in ((k[1], ks[1]), (k[4].quad24, ks[4].quad24),
+                         (k[4].box24, ks[4].box24)))
+        scan_same = (torch.equal(ks[0], k[0]) and torch.equal(ks[2], k[2])
+                     and int(ks[3]) == 0)
+        print(f"  chain_bwd {what}: the walk vs the solid scan, input and "
+              f"background cotangents bit-equal and no mismatch "
+              f"{scan_same}, the pack's within {scan_spread:.2e} (rule "
+              f"{PACK_SPREAD:g})", flush=True)
+        check(scan_same and scan_spread <= PACK_SPREAD,
+              ("chain_bwd", what, "walk vs scan", scan_same, scan_spread))
     mism = (int(k[3]), int(p[3]))
     live = st[mk.ROW_ALIVE] > 0.5
     scale = p[0][:13].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
@@ -1325,7 +1357,7 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
     segments = int((out[mk.ROW_TRACED] - st[mk.ROW_TRACED]).sum())
     print(f"  chain_bwd {what}, {st.shape[1]} lanes ({int(live.sum())} "
           f"alive), k={k_steps}: forwards agree on {frac:.5f} of lanes "
-          f"(rule {MIN_FORWARD_AGREE}), input cotangent within 1e-3 on "
+          f"(rule {min_agree}), input cotangent within 1e-3 on "
           f"{lanes:.5f} of live lanes (rule 0.995), dead lanes pass d_out "
           f"{dead_equal}, replay_mismatches {mism}, max |field grad delta| "
           f"{err:.3e} (largest over a field's largest gradient: {rel:.3e}, "
@@ -1333,7 +1365,7 @@ def chain_vs_plain(what, st, keys, sph, bg, bvh, k_steps, scene, cam, cfg,
           f"{same}, the pack's within {repeat:.2e} (rule {PACK_SPREAD:g}); "
           f"{segments} segments; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
           f"([C1] peak so far {plain_gb:.3f} GB)  [{card}]", flush=True)
-    check(frac >= MIN_FORWARD_AGREE and lanes >= 0.995 and dead_equal
+    check(frac >= min_agree and lanes >= 0.995 and dead_equal
           and not faults and mism == (0, 0) and not k[0][13:].any() and same
           and repeat <= PACK_SPREAD,
           ("chain_bwd", what, frac, lanes, dead_equal, faults, mism, same,
@@ -3345,8 +3377,9 @@ def probe_phase(device, card):
 # two constant media, the marble and the earth image, in Morton order.
 # The forward kernels and train_fwd walk the boxes' tree
 # (accel.SolidBvh), train_bwd loops over them ([F3]: its gradient on
-# the card); chain_bwd keeps SOLID_CAP (ROADMAP Queue A #9.5, its chain
-# part), so the chain's route raises on the card. [F2]: a test scene of
+# the card); chain_bwd walks them too ([F4]), but leaves the constant
+# media out (#9.4), so the chain's route raises on the card for this
+# scene and takes it without its media. [F2]: a test scene of
 # 81 rotated boxes and 82 quads under the sky
 # (scenes.book2.many_solids_scene).
 RTTNW = dict(scene="rttnw_final", width=400, height=267, spp=32, max_depth=50)
@@ -3672,8 +3705,9 @@ def rttnw_kernels_phase(device, card, resources):
 def rttnw_gradient_raises(device, card):
     """[F1]: the chain's route of rttnw_final's gradient on the card
     (render_image(differentiable=True)) raises NotImplementedError naming
-    #9.5 (its chain part) before any launch; the train kernels take its
-    gradient ([F3])."""
+    its constant media (#9.4: the chain leaves them out, as rrt_tpu's
+    does) before any launch; the train kernels take its gradient ([F3]),
+    and the chain takes the scene without its media ([F4])."""
     from rrt_tpu_torch import render, scenes as tscenes
     from rrt_tpu_torch.ops import megakernel as mk
     from rrt_tpu_torch.ops import megakernel_train as mkt
@@ -3689,7 +3723,8 @@ def rttnw_gradient_raises(device, card):
                             device=device)
     except NotImplementedError as e:
         print(f"  {what} on the card raises: {e}", flush=True)
-        check("#9.5" in str(e) and "chain part" in str(e), (what, str(e)))
+        check("#9.4" in str(e) and "constant media" in str(e),
+              (what, str(e)))
     else:
         check(False, (what, "did not raise"))
     after = [w.launches for w in wrappers]
@@ -3925,7 +3960,7 @@ def rttnw_train_phase(device, card, resources, counts):
         render.render_image(start, cam, cfg, 0, differentiable=True,
                             device=device)
     except NotImplementedError as e:
-        raised = "#9.5" in str(e)
+        raised = "#9.4" in str(e)
         print(f"  render_image(differentiable=True) raises: {e}", flush=True)
     after = [c.launches for c in counters]
     print(f"  launches train_fwd {launches[0]}, train_bwd {launches[1]}, "
@@ -4019,6 +4054,342 @@ def many_solids_phase(device, card):
                       [mk.bounce_steps(st.clone(), keys, sph, bg, bvh=q_bvh,
                                        solids=scan, **kwq)])
             st = walked
+
+
+# [F4]: chain_bwd's kWalk instantiations (its replay walks the solid
+# trees past SOLID_CAP, as bounce_steps' kWalk does) on many_solids_scene
+# at MANY's size and on rttnw_final without its media (RTTNW_NO_MEDIA:
+# its constant media stay off the chain, #9.4), whose gradient's main
+# path at RTTNW_DIFF is render_image(differentiable=True).
+RTTNW_NO_MEDIA = frozenset({"media"})
+RTTNW_DIFF = dict(width=400, height=267, spp=4, max_depth=50)
+# [F4]: the plain chain runs on every RTTNW_CHAIN_STRIDE-th lane of [C2]'s
+# chains of rttnw_final (the plain replay scans its 1,407 quads, boxes
+# and spheres a segment); the kernel is timed on all of them.
+RTTNW_CHAIN_STRIDE = 16
+# [F4]: the share of those lanes whose forwards (bounce_steps and its
+# plain version) must agree: the plain version's sphere shading rounds
+# otherwise on rttnw_final (Queue C; [F1]'s parting_families), more
+# often than on chap12's ground ([C1]'s MIN_FORWARD_AGREE). Worst
+# reading on an H100 80GB HBM3 at 700 W: 0.99866 on chain 1 at this
+# stride (a parted share of 1.34e-3; chains 2 and 3 0.99969 and
+# 0.99957; every 8th lane 0.99893); the gate allows 3e-3, 2.2 times it.
+RTTNW_CHAIN_MIN_AGREE = 0.997
+# [F4]: the differentiable image against the forward batch driver's
+# image of the same seed (tests/test_torch_chain.py's
+# test_differentiable_image_equals_forward, which holds on the CPU within
+# 2e-4 with equal traced counts): on the card the chain shades in
+# bounce_steps and the forward batch driver eagerly, whose sphere
+# shading rounds otherwise on rttnw_final (Queue C), so a path may part:
+# the share of pixels within 2e-4 and the traced counts' relative gap.
+# On an H100 80GB HBM3 at 700 W, over the whole image, 144 of 106,800
+# pixels parted (0.998652 within 2e-4; the largest |delta| 1.75, a path
+# that found the light in one version) and the traced counts 1,237,125
+# and 1,236,653 (3.8e-4 apart); the gates allow 3e-3 of pixels (2.2
+# times) and 1e-3 (2.6 times). [F4] holds the first tile to them.
+RTTNW_DIFF_MIN_CLOSE = 0.997
+RTTNW_DIFF_TRACED_GAP = 1e-3
+# [F4]: a box's albedo past slot 63: the chain's gradient against central
+# differences of the same differentiable render's loss, [F3]'s gate (the
+# first reading 2.3e-4).
+RTTNW_FD_GATE = 1e-2
+
+
+def walk_chain_many_solids(device, card):
+    """[F4] chain_bwd's four kWalk variants on many_solids_scene at MANY's
+    size (static, moving, marble, both; every pixel's camera ray after
+    one bounce step, a chain of 4) against chain_adjoint_reference by
+    chain_vs_plain's rule ([C1]'s), and against the same kernel walking
+    the solid scan (accel.solid_scan). Returns {variant: numbers}."""
+    from rrt_tpu_torch import accel, render
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.scenes import book2
+    w, h = MANY["width"], MANY["height"]
+    out = {}
+    for moving, marble in ((False, False), (True, False), (False, True),
+                           (True, True)):
+        scene, cam = book2.many_solids_scene(w, h, moving=moving,
+                                             marble=marble)
+        cfg = render.RenderConfig(width=w, height=h, spp=1,
+                                  max_depth=MANY["max_depth"])
+        st, keys, sph, bg = lane_state(scene, cam, w, h, w * h, device)
+        packed = render.pack_scene(scene, device, render._shutter(cam))
+        solids, tex, bvh = packed["solids"], packed["tex"], packed["bvh"]
+        scan = dataclasses.replace(solids, tree=accel.solid_scan(solids.tree))
+        mk.bounce_steps(st, keys, sph, bg, k_steps=1,
+                        max_depth=MANY["max_depth"], t_min=1e-3,
+                        moving=moving, bvh=bvh, solids=solids, tex=tex)
+        tag = "solids" + (", moving" if moving else "") + (
+            ", tex" if marble else "")
+        _, numbers = chain_vs_plain(
+            f"many_solids ({tag}, walk) after 1 bounce", st, keys, sph, bg,
+            bvh, 4, scene, cam, cfg, device, card, solids=solids, tex=tex,
+            scan=scan)
+        out[(moving, marble)] = numbers
+    return out
+
+
+def rttnw_chain_rays(device):
+    """[C2]'s CHAIN_LANES lanes on rttnw_final without its media at
+    RTTNW_DIFF's size: lane i at pixel i mod (w h), sample i div (w h), so
+    every pixel's first samples. Returns (scene, cam, cfg, px, py, keys)
+    as chain_rays does."""
+    from rrt_tpu_torch import render, rng
+    from rrt_tpu_torch.scenes import book2
+    w, h = RTTNW_DIFF["width"], RTTNW_DIFF["height"]
+    scene, cam = book2.rttnw_final_scene(w, h, ablate=RTTNW_NO_MEDIA)
+    cfg = render.RenderConfig(width=w, height=h, spp=1,
+                              max_depth=RTTNW_DIFF["max_depth"])
+    ids = torch.arange(CHAIN_LANES, device=device)
+    px, py = ids % w, (ids // w) % h
+    keys = rng.sample_keys(rng.key_words(0), py * w + px, ids // (w * h))
+    return scene, cam, cfg, px, py, keys
+
+
+def walk_chain_bound(c1, counts, scene, solids, tex):
+    """chain_bwd's least time over [F4]'s chains of rttnw_final without
+    media, (ms, by), as chain_bound counts [C1]'s: each replayed segment's
+    walks at counts' tests a segment (rttnw_flops) and ADJOINT_FLOPS, the
+    texture of each scattering segment (rttnw_bound's IMAGE_FLOPS), the
+    draws of the segments that scatter; the lanes' bytes and the packs
+    read and their cotangents written, each chain. The per-block partials
+    stay out, as in chain_bound."""
+    segments = sum(c["segments"] for c in c1)
+    drawing = sum(c["drawing"] for c in c1)
+    packs = pack_bytes(c1[0]["sph"], solids.quad24, solids.box24)
+    lane_bytes = sum(4 * c["q"] * (16 + 2 + 16 + 1 + 16) for c in c1) \
+        + len(c1) * (2 * packs + pack_bytes(tex.atlas))
+    flops = (rttnw_flops(segments, counts, scene.has_moving, 0)
+             + segments * ADJOINT_FLOPS + drawing * IMAGE_FLOPS)
+    return bound(flops, lane_bytes, THREEFRY_OPS * THREEFRY_PER_HIT * drawing)
+
+
+def walk_chain_rttnw(device, card):
+    """[F4] chain_bwd's (moving, solids, tex, walk) variant on [C2]'s three
+    chains of rttnw_final without its media (rttnw_chain_rays, chains 4,
+    4, 43, each chain's input the kernels' forward of the one before,
+    compacted): each timed by graph replay on all its lanes, and held to
+    its plain version by chain_vs_plain on every RTTNW_CHAIN_STRIDE-th
+    lane (forwards agreeing on RTTNW_CHAIN_MIN_AGREE, the solid scan's
+    cotangents as the walk's); the walks' tests a segment
+    (solid_walk_counts) and the bound (walk_chain_bound). Returns the
+    kernels line's numbers."""
+    from rrt_tpu_torch import accel, render, rng
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_vjp as mkv
+    scene, cam, cfg, px, py, keys = rttnw_chain_rays(device)
+    sph = mk.pack_spheres_full(scene).to(device)
+    bg = mk.pack_bg(scene).to(device)
+    solids = mk.pack_solids(scene, device)
+    tex = mk.pack_textures(scene, device)
+    scan = dataclasses.replace(solids, tree=accel.solid_scan(solids.tree))
+    n = px.shape[0]
+    o, d, tm = render.generate_rays(cam.to(device), px, py, cfg.width,
+                                    cfg.height, keys)
+    bvh = render.chain_bvh(sph, tm, scene.has_moving)
+    one = torch.ones((n,), device=device)
+    zero = torch.zeros((n,), device=device)
+    st = mk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n), zero,
+                       one, zero)
+    kbits, lane = rng.u32_bits(keys), torch.arange(n, device=device)
+    counts = solid_walk_counts(scene, cam, st, kbits, sph, bg, bvh, solids,
+                               tex, cfg.max_depth)
+    schedule = render._fused_schedule(cfg.max_depth)
+    kw = dict(max_depth=cfg.max_depth, t_min=1e-3, moving=scene.has_moving,
+              solids=solids, tex=tex)
+    c1 = []
+    for j, k_steps in enumerate(schedule):
+        out = mk.bounce_steps(st.clone(), kbits, sph, bg, bvh=bvh,
+                              k_steps=k_steps, **kw)
+        gen = torch.Generator().manual_seed(k_steps)
+        d_out = torch.randn(tuple(st.shape), generator=gen).to(device)
+        ob = out[mk.ROW_BOUNCE].clone()
+        ms = graph_ms(lambda: mkv.chain_adjoint(
+            st, kbits, sph, bg, d_out, ob, bvh=bvh, k_steps=k_steps, **kw),
+            mkv.chain_adjoint)
+        sub = slice(None, None, RTTNW_CHAIN_STRIDE)
+        _, numbers = chain_vs_plain(
+            f"rttnw_final without media, chain {j + 1} of {schedule}, every "
+            f"{RTTNW_CHAIN_STRIDE}th lane", st[:, sub].contiguous(),
+            kbits[:, sub].contiguous(), sph, bg, bvh, k_steps, scene, cam,
+            cfg, device, card, solids=solids, tex=tex,
+            min_agree=RTTNW_CHAIN_MIN_AGREE, scan=scan)
+        c1.append(dict(numbers, ms=ms, q=n, sph=sph,
+                       segments=int((out[mk.ROW_TRACED]
+                                     - st[mk.ROW_TRACED]).sum()),
+                       drawing=drawing_segments(st, out),
+                       sub_ms=numbers["ms"], sub_q=numbers["q"]))
+        print(f"  chain {j + 1}: chain_bwd on all {n} lanes {ms:.4f} ms, "
+              f"{c1[-1]['segments']} replayed segments  [{card}]",
+              flush=True)
+        if j < len(schedule) - 1:
+            st, kbits, lane = render._compact_lanes(out, kbits, lane)
+    b = walk_chain_bound(c1, counts, scene, solids, tex)
+    ms = sum(c["ms"] for c in c1)
+    part = sum(2 * 4 * -(-c["q"] // 256)
+               * (mkv.SLOT_COLS * (sph.shape[1] + solids.n_quads
+                                   + solids.n_boxes) + 8) for c in c1)
+    print(f"  rttnw_final without media, the three chains: chain_bwd "
+          f"{ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; the walks at "
+          f"{counts['nodes']:.3f} node, {counts['solids']:.3f} quad and box "
+          f"and {counts['spheres']:.3f} sphere tests a segment), plain "
+          f"{sum(c['plain_ms'] for c in c1):.1f} ms on every "
+          f"{RTTNW_CHAIN_STRIDE}th lane; the kernel's partials "
+          f"{part / 1e6:.1f} MB (outside the bound)  [{card}]", flush=True)
+    return dict(ms=ms, plain_ms=sum(c["plain_ms"] for c in c1),
+                err=max(c["err"] for c in c1), bound=b, counts=counts,
+                partial_mb=part / 1e6)
+
+
+def walk_chain_main_path(device, card):
+    """[F4] the main path: render_image(differentiable=True) on rttnw_final
+    without its media at RTTNW_DIFF (one pass of BATCH_SPP samples, 7
+    tiles), the gradient of an L2 loss against the tile driver's image at
+    seed 1, the launch counts set to 0 just before: bounce_steps and
+    chain_bwd launched, the train kernels not, no replay mismatch; on the
+    first tile the image is the chain's render of that tile bit for bit,
+    and the forward batch driver's of the same seed on
+    RTTNW_DIFF_MIN_CLOSE of its pixels, the traced counts within
+    RTTNW_DIFF_TRACED_GAP; the box fields past
+    slot 63 finite, some not 0; the albedo of the box past slot 63 that
+    the most camera rays hit first (given a material of its own:
+    box_albedo_scene) against central differences of the same render's
+    loss under no_grad (the albedo moves no path), RTTNW_FD_GATE. Then one
+    render_image_diff at depth 80 at 64x43, 2 spp: the chain's route, one
+    fallback line, chain_bwd launched. Returns (launches, numbers)."""
+    import logging
+    from rrt_tpu_torch import diff, geometry, render
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_train as mkt
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+    from rrt_tpu_torch.scenes import book2
+    w, h = RTTNW_DIFF["width"], RTTNW_DIFF["height"]
+    cfg = render.RenderConfig(**RTTNW_DIFF, samples_per_pass=BATCH_SPP)
+    scene, cam = book2.rttnw_final_scene(w, h, ablate=RTTNW_NO_MEDIA)
+    target, _ = render.render_image_tiles(scene, cam, cfg, 1, device=device)
+    counters = (mk.bounce_steps, mkv.chain_adjoint, mkt.render_tiles_train,
+                mkt.tiles_adjoint, mk.intersect_only, mk.render_tiles)
+    for c in counters:
+        c.launches = 0
+    mkv.chain_adjoint.replay_mismatches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    (img, n, loss, gp, gc), ms = wall_ms(lambda: batch_loss_and_grads(
+        cfg, scene, cam, target, 0, device))
+    launches = [c.launches for c in counters]
+    mism = int(mkv.chain_adjoint.replay_mismatches)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"  [F4] main path: render_image(differentiable=True) "
+          f"rttnw_final without media {w}x{h} {cfg.spp}spp "
+          f"d{cfg.max_depth}: loss {loss.item():.6e}, {n} traced segments, "
+          f"forward and backward {ms / 1e3:.3f} s wall, peak memory "
+          f"{peak:.3f} GB; launches bounce_steps {launches[0]}, chain_bwd "
+          f"{launches[1]}, train_fwd {launches[2]}, train_bwd {launches[3]}, "
+          f"intersect_only {launches[4]}, tile_render {launches[5]}; "
+          f"replay_mismatches {mism}  [{card}]", flush=True)
+    check(launches[0] >= 3 and launches[1] >= 3 and launches[2] == 0
+          and launches[3] == 0 and mism == 0,
+          ("[F4] launches", launches, mism))
+    for key, g in list(gp.items()) + [("camera", g) for g in gc]:
+        check(bool(torch.isfinite(g).all()), ("[F4] non-finite", key))
+    # The box fields past slot 63 (their albedos are their materials').
+    past = {k: gp[k][mk.SOLID_CAP:] for k in ("box_center", "box_half")}
+    nonzero = {k: int((v.abs().amax(dim=1) > 0).sum()) for k, v in
+               past.items()}
+    print(f"  [F4] boxes past slot 63 with a gradient: {nonzero} of "
+          f"{scene.n_boxes_active - mk.SOLID_CAP}", flush=True)
+    check(sum(nonzero.values()) > 0, ("[F4] box fields past slot 63", nonzero))
+
+    # The first tile (the forward batch driver's eager shading is what
+    # costs): the main path's pixels there are the chain's render of the
+    # tile bit for bit, which is held to the forward's.
+    px, py = render._tile_coords(cfg, device)[0]
+    s_dev, c_dev = scene.to(device), cam.to(device)
+    with torch.no_grad():
+        packed = render.pack_scene(s_dev, device, render._shutter(c_dev))
+        tiles = [render.render_tile(s_dev, c_dev, px, py, cfg, 0, 0, 1,
+                                    differentiable=d, packed=packed)
+                 for d in (True, False)]
+    (chain, n_chain), (fwd, n_fwd) = [(r / cfg.spp, int(t)) for r, t in tiles]
+    same = torch.equal(img.reshape(-1, 3)[py * w + px], chain)
+    delta = (chain - fwd).abs().amax(dim=1)
+    err = delta.max().item()
+    close = (delta <= 2e-4).float().mean().item()
+    gap = abs(n_chain - n_fwd) / n_fwd
+    print(f"  [F4] the differentiable render's first tile ({px.numel()} "
+          f"pixels; the main path's image there bit for bit {same}) vs the "
+          f"forward batch driver's: {close:.6f} of pixels within 2e-4 (gate "
+          f"{RTTNW_DIFF_MIN_CLOSE}), {int((delta > 2e-4).sum())} not; max "
+          f"pixel |delta| {err:.3e}; traced {n_chain} vs {n_fwd} ({gap:.2e} "
+          f"apart, gate {RTTNW_DIFF_TRACED_GAP:g})", flush=True)
+    check(same and close >= RTTNW_DIFF_MIN_CLOSE
+          and gap <= RTTNW_DIFF_TRACED_GAP,
+          ("[F4] image vs forward", same, close, err, n_chain, n_fwd))
+
+    # The box past slot 63 that the most camera rays hit first.
+    st, _, sph, _ = lane_state(scene, cam, w, h, w * h, device)
+    packed = render.pack_scene(scene, device, render._shutter(cam))
+    _, fam, idx = mk.intersect_only(
+        st[0:3].contiguous(), st[3:6].contiguous(), sph, t_min=1e-3,
+        time=st[6].contiguous(), bvh=packed["bvh"], solids=packed["solids"])
+    first = idx[(fam == geometry.FAM_BOX) & (idx >= mk.SOLID_CAP)]
+    check(first.numel() > 0, "[F4] no camera ray hits a box past slot 63")
+    slot = int(torch.bincount(first).argmax())
+    own, row = box_albedo_scene(scene, slot)
+    _, _, _, gp_own, _ = batch_loss_and_grads(cfg, own, cam, target, 0,
+                                              device)
+    eps = 1e-2
+
+    def fd_loss(delta):
+        v = own.tex_color1.clone()
+        v[row, 0] += delta
+        with torch.no_grad():
+            image, _ = render.render_image(
+                diff.combine(own, {"tex_color1": v}), cam, cfg, 0,
+                differentiable=True, device=device)
+        return torch.mean((image.double() - target.double()) ** 2).item()
+
+    fd = (fd_loss(eps) - fd_loss(-eps)) / (2.0 * eps)
+    auto = gp_own["tex_color1"][row, 0].item()
+    rel = abs(auto - fd) / max(abs(fd), 1e-30)
+    print(f"  [F4] d loss / d (box {slot}'s albedo, red): chain_bwd "
+          f"{auto:.6e}, central difference (eps {eps:g}) of the "
+          f"differentiable render's forward {fd:.6e}, {rel:.2e} apart (gate "
+          f"{RTTNW_FD_GATE:g})", flush=True)
+    check(auto != 0.0 and rel < RTTNW_FD_GATE, ("[F4] box albedo", slot,
+                                                auto, fd))
+
+    deep = render.RenderConfig(width=64, height=43, spp=2, max_depth=80,
+                               samples_per_pass=2)
+    small, small_cam = book2.rttnw_final_scene(64, 43, ablate=RTTNW_NO_MEDIA)
+    lines = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Catch()
+    logger = logging.getLogger("rrt_tpu_torch.render")
+    logger.addHandler(handler)
+    render._warned_fallbacks.clear()
+    before = [c.launches for c in counters]
+    try:
+        scene_d, params, camera = diff._leaves(small, small_cam, device)
+        d_img, _ = render.render_image_diff(scene_d, camera, deep, 0,
+                                            device=device)
+        d_img.sum().backward()
+    finally:
+        logger.removeHandler(handler)
+    after = [c.launches for c in counters]
+    fallback = [m for m in lines if "batch driver's differentiable" in m]
+    print(f"  [F4] render_image_diff at depth 80 (64x43, 2 spp): "
+          f"{len(fallback)} fallback line ({fallback[:1]}), launches "
+          f"{before} -> {after}", flush=True)
+    check(len(fallback) == 1 and after[1] > before[1]
+          and after[2:4] == before[2:4]
+          and bool(torch.isfinite(d_img).all()),
+          ("[F4] render_image_diff at depth 80", fallback, before, after))
+    return launches, dict(fd=(slot, rel), image_err=err, image_close=close,
+                          traced_gap=gap,
+                          past_cap=nonzero, wall_ms=ms)
 
 
 def rr_tile_phase(name, w, h, device, card, counts=None):
@@ -4759,6 +5130,18 @@ def main() -> int:
     phases.start("F2", f"many_solids {MANY['width']}x{MANY['height']}: 81 "
                  f"boxes and 82 quads, the walks vs the solid scan")
     many_solids_phase(device, card)
+    phases.start("F4", f"chain_bwd's walks: many_solids "
+                 f"{MANY['width']}x{MANY['height']} vs the plain version and "
+                 f"the solid scan, rttnw_final without media on [C2]'s "
+                 f"chains, then the main path: render_image("
+                 f"differentiable=True) {RTTNW_DIFF['width']}x"
+                 f"{RTTNW_DIFF['height']} {RTTNW_DIFF['spp']}spp "
+                 f"d{RTTNW_DIFF['max_depth']}, render_image_diff at depth 80")
+    torch.cuda.reset_peak_memory_stats(device)
+    f4_many = walk_chain_many_solids(device, card)
+    f4 = walk_chain_rttnw(device, card)
+    f4_launches, f4_main = walk_chain_main_path(device, card)
+    peak_memory("[F4]", device, card)
     phases.start("R1", f"Russian roulette at rr_depth {RR_DEPTH}: tile_render "
                  f"and bounce_steps vs rr_depth 0 and their plain versions "
                  f"on chap12 {MAIN['width']}x{MAIN['height']} and cornell "
@@ -4899,6 +5282,29 @@ def main() -> int:
                     moving_walk_tests=[moving_counts["nodes"],
                                        moving_counts["slots"]])
 
+    def walked():
+        # chain_bwd's kWalk variants ([F4]): walk_ms, walk_bound_ms the
+        # (moving, solids, tex, walk) one summed over [C2]'s three chains
+        # of rttnw_final without media (device time by graph_ms on all
+        # lanes), walk_plain_ms and walk_max_abs_err on every
+        # RTTNW_CHAIN_STRIDE-th lane, walk_launches on [F4]'s main path;
+        # walk_many_ms each variant on a chain of 4 of many_solids at
+        # MANY's size, the plain version's beside it.
+        tags = {(False, False): " (solids, walk)",
+                (True, False): " (moving, solids, walk)",
+                (False, True): " (solids, tex, walk)",
+                (True, True): " (moving, solids, tex, walk)"}
+        return dict(
+            walk_ms=f4["ms"], walk_plain_ms=f4["plain_ms"],
+            walk_bound_ms=f4["bound"][0], walk_bound_by=f4["bound"][1],
+            walk_max_abs_err=f4["err"], walk_launches=f4_launches[1],
+            walk_partials_mb=f4["partial_mb"],
+            walk_many_ms={tags[v][2:-1]: {"ms": c["ms"],
+                                          "plain_ms": c["plain_ms"]}
+                          for v, c in f4_many.items()},
+            walk_registers={tags[v][2:-1]: resources.get(
+                "chain_bwd_kernel" + tags[v]) for v in tags})
+
     def probe(name, replaces, launches, err, rows, plain_ms):
         return entry(name, csrc + "probes.cu", replaces, launches, err,
                      rows[0][1], plain_ms, (rows[0][2], "operations"),
@@ -4979,7 +5385,8 @@ def main() -> int:
               registers=resources.get("chain_bwd_kernel"),
               **k3["chain_bwd"], **rr(r2["chain_bwd"],
                                       r2["chain_bwd"]["launches"]),
-              **textured("chain_bwd", "chain_bwd", 3, "chain_bwd_kernel")),
+              **textured("chain_bwd", "chain_bwd", 3, "chain_bwd_kernel"),
+              **walked()),
         probe("fma_chain", "benchmarks/probe_row_layout.py:38",
               p1["launches"][0], p1["chain_err"], p1["row"],
               p1["chain_plain_ms"]),

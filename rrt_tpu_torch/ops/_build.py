@@ -23,9 +23,9 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("tile_render.cu", "train.cu", "queue.cu", "chain.cu",
-            "probes.cu")
+            "chain_walk.cu", "probes.cu")
 # Hashed with the sources, not compiled alone.
-_HEADERS = ("bounce.cuh", "adjoint.cuh")
+_HEADERS = ("bounce.cuh", "adjoint.cuh", "chain.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rrt_tpu_torch"
 # -fmad=false: no mul+add contraction into FMA; see the note on floats
 # in csrc/tile_render.cu. The train kernels need it too: the backward

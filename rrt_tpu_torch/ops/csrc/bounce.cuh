@@ -24,9 +24,9 @@
 // seeded by the one before and won only by a strictly smaller t, so a
 // quad wins an exact tie, then a box; the sphere scan or BVH walk is
 // then seeded by that t (rrt_tpu's _one_bounce, megakernel.py:811-1150).
-// The forward kernels' and train_fwd's kWalk instantiations (a scene
-// with a family past kSolidCap active slots, rttnw_final's 400 ground
-// boxes) walk that
+// The forward kernels', train_fwd's and chain_bwd's kWalk
+// instantiations (a scene with a family past kSolidCap active slots,
+// rttnw_final's 400 ground boxes) walk that
 // family's tree instead (solid_walk: the loop's (t, slot) bit for bit),
 // staged after the rows (stage_forward_solids); the other instantiations
 // never compile it.
@@ -77,10 +77,10 @@
 // The host's argument of the solid families (ops/_build.py SolidArgs):
 // the quad (24, quad_slots) and box (24, box_slots) packs in device
 // memory, whose first n_quads and n_boxes slots are tested; a null
-// pointer in its place launches the sphere variant. The forward kernels
-// and train_fwd also read the families' trees (rrt_tpu_torch/accel.py
-// SolidBvh; none, n_nodes 0, for a family they loop over, and for
-// train_bwd and chain_bwd, which loop). Outside the anonymous
+// pointer in its place launches the sphere variant. The forward kernels,
+// train_fwd and chain_bwd also read the families' trees
+// (rrt_tpu_torch/accel.py SolidBvh; none, n_nodes 0, for a family they
+// loop over, and for train_bwd, which loops). Outside the anonymous
 // namespace: the extern "C" entry points take it, and a type of internal
 // linkage in their signature would hide them.
 struct SolidArgs {
@@ -937,8 +937,8 @@ __device__ __forceinline__ void shade(const float* col, int n_slots,
 // d_plane, q.g, q.h, eps_n), each box's center, half extents, cos, sin.
 
 // The active slots of each family the kernels loop over (the forward
-// kernels and train_fwd walk a tree past it; chain_bwd takes no more:
-// ops/megakernel.py SOLID_CAP).
+// kernels, train_fwd and chain_bwd walk a tree past it, train_bwd loops
+// over any number: ops/megakernel.py SOLID_CAP).
 constexpr int kSolidCap = 64;
 
 // The blocks an SM the kWalk instantiations (the forward kernels' and

@@ -13,7 +13,19 @@
 // device memory; a light's emission then takes emit_adjoint_tex), and
 // Russian roulette from bounce rr_depth (0 off): the replay redraws the
 // coin at the state's bounce row plus its step, and the sweep gives a
-// surviving throughput the detached 1 / p (adjoint.cuh).
+// surviving throughput the detached 1 / p (adjoint.cuh). A scene with a
+// solid family past kSolidCap active slots (rttnw_final's 400 ground
+// boxes, without its constant media, which the chain leaves out as
+// rrt_tpu's does) runs the kWalk instantiation: its replay walks the
+// families' trees (accel.SolidBvh), staged in shared memory after the
+// rows exactly as bounce_steps_kernel's kWalk instantiation stages and
+// walks them (stage_solids_of, bounce_step<..., kWalk>), so its winners
+// are the forward's bit for bit and the sweep is unchanged; the records
+// hold winner codes of kCodeSpan slots a family, and the partials a
+// column of every active quad and box (winner_column), whatever their
+// number. chain.cuh holds the kernel and its launch; this file the
+// loops' instantiations and the entry point, chain_walk.cu the kWalk
+// ones (one nvcc each, side by side: ops/_build.py).
 // rrt_tpu_torch/ops/megakernel_vjp.py holds the wrapper
 // (chain_adjoint), its plain PyTorch version (chain_adjoint_reference)
 // and the autograd.Function BounceChain, whose forward is queue.cu's
@@ -22,7 +34,8 @@
 // One thread a lane, 256 lanes a block. A lane that is alive on entry
 //  1. replays up to k_steps bounces through bounce.cuh's bounce_step with
 //     the BVH walk (BvhWalk over the tree the forward walked, staged in
-//     shared memory), the function bounce_steps_kernel runs, from the
+//     shared memory; with kWalk the solid trees' walk too), the function
+//     bounce_steps_kernel runs, from the
 //     chain's saved input state and the lane's key, with the bounce
 //     counter of state row 13, so its decisions are the forward's bit for
 //     bit (with kSolids the walk seeded by the quads and boxes, as the
@@ -80,199 +93,8 @@
 // kernels (ops/_build.py): the replay must repeat the forward's
 // arithmetic.
 
-#include "adjoint.cuh"
 
-namespace {
-
-// Rows of the (16, Q) lane state (rrt_tpu/ops/megakernel.py pack_state).
-constexpr int kStO = 0, kStD = 3, kStTime = 6, kStThr = 7, kStPend = 10,
-              kStBounce = 13, kStAlive = 14, kStRows = 16;
-constexpr int kDiffRows = 13;  // o, d, time, throughput, pending radiance
-constexpr int kThreads = 256;
-constexpr int kBgCols = 8;  // 6 background rows, 2 pad
-
-// The backward of one lane: writes its rows of d_in, adds its pack
-// cotangents to `acc` (its block's row of the partials, kSlotCols floats
-// a slot: the spheres', then with kSolids the active quads' and boxes')
-// and its background ones to g_bg. kTex: sv's textures.
-template <bool kMoving, bool kSolids, bool kTex>
-__device__ __forceinline__ void adjoint_lane(
-    const BvhWalk<kMoving>& walk, const float* sph, int n_slots,
-    const Solids& sv, const float* bg, const float* st,
-    const uint32_t* keys, size_t n,
-    int lane, const float* d_out, const float* out_bounce, int k_steps,
-    int max_depth, int rr_depth, float t_min, float* d_in, float* acc,
-    float* g_bg, int* mismatches) {
-  const float* row = st + lane;
-  const float* dso = d_out + lane;
-  float* dsi = d_in + lane;
-  for (int r = kDiffRows; r < kStRows; ++r) dsi[r * n] = 0.0f;
-  if (!(row[kStAlive * n] > 0.5f)) {  // dead: the chain was the identity
-    for (int r = 0; r < kDiffRows; ++r) dsi[r * n] = dso[r * n];
-    return;
-  }
-  const uint32_t k0 = keys[lane], k1 = keys[n + lane];
-  const bool sky = bg[6] < 0.5f;  // BG_SKY == 0
-  Path p;
-  p.ray.ox = row[(kStO + 0) * n];
-  p.ray.oy = row[(kStO + 1) * n];
-  p.ray.oz = row[(kStO + 2) * n];
-  p.ray.dx = row[(kStD + 0) * n];
-  p.ray.dy = row[(kStD + 1) * n];
-  p.ray.dz = row[(kStD + 2) * n];
-  p.ray.time = kMoving ? row[kStTime * n] : 0.0f;
-  for (int c = 0; c < 3; ++c) p.thr[c] = row[(kStThr + c) * n];
-  const int bounce0 = static_cast<int>(row[kStBounce * n]);
-
-  // 1. replay, keeping each bounce's input, winner and what its draws
-  // decided.
-  Record rec[kMaxRecords];
-  float kept[kMaxRecords][3];
-  int n_rec = 0, last = kScattered;
-  for (int k = 0; k < k_steps; ++k) {
-    Record& r = rec[n_rec++];
-    r.o[0] = p.ray.ox; r.o[1] = p.ray.oy; r.o[2] = p.ray.oz;
-    r.d[0] = p.ray.dx; r.d[1] = p.ray.dy; r.d[2] = p.ray.dz;
-    r.thr[0] = p.thr[0]; r.thr[1] = p.thr[1]; r.thr[2] = p.thr[2];
-    float c[3];
-    last = bounce_step<kMoving, kSolids, kTex>(walk, sph, n_slots, bg, sky,
-                                               k0, k1, bounce0 + k, max_depth,
-                                               rr_depth, t_min, p, c, r.win,
-                                               kept[k], &sv);
-    if (last != kScattered) break;
-  }
-  // 2. the replay must end on the forward's bounce row.
-  const int n_scattered = last == kScattered ? n_rec : n_rec - 1;
-  if (static_cast<float>(bounce0 + n_scattered) != out_bounce[lane]) {
-    atomicAdd(mismatches, 1);
-  }
-
-  // 3. reverse sweep.
-  float go[3], gd[3], gt[3], gp[3];
-  for (int j = 0; j < 3; ++j) {
-    go[j] = dso[(kStO + j) * n];
-    gd[j] = dso[(kStD + j) * n];
-    gt[j] = dso[(kStThr + j) * n];
-    gp[j] = dso[(kStPend + j) * n];
-  }
-  float g_time = dso[kStTime * n];
-  int k = n_rec - 1;
-  if (last == kMissed) {
-    miss_adjoint(rec[k], gp, bg, sky, gd, gt, g_bg);
-  }
-  if constexpr (kSolids) {
-    if (last == kEmitted) {
-      if constexpr (kTex) {
-        emit_adjoint_tex<kMoving>(sph, n_slots, sv, rec[k], k0, k1,
-                                  bounce0 + k, t_min, p.ray.time, kept[k], gp,
-                                  go, gd, gt, g_time, acc);
-      } else {
-        emit_adjoint(sph, n_slots, sv, rec[k], kept[k], gp, gt, acc);
-      }
-    }
-  }
-  // A surface that absorbs or ends the depth: the identity.
-  if (last != kScattered) --k;
-  for (; k >= 0; --k) {
-    if constexpr (kSolids) {
-      int slot;
-      const int fam = code_family(rec[k].win, slot);
-      if (fam != kFamSphere) {
-        constexpr int kRows = kTex ? kTexRows : kSolidRows;
-        RowSums<kRows> sums{};
-        solid_scatter_adjoint<decltype(sums), kTex>(sv, fam, slot, rec[k], k0,
-                                                    k1, bounce0 + k, rr_depth,
-                                                    t_min, go, gd, gt, sums,
-                                                    kept[k]);
-        add_slot<kRows>(acc + winner_column(n_slots, &sv, fam, slot),
-                        sums.g);
-        continue;
-      }
-    }
-    constexpr int kRows = sphere_rows(kMoving, kTex);
-    RowSums<kRows> sums;
-    if constexpr (kTex) sums = RowSums<kRows>{};
-    scatter_adjoint<kMoving, decltype(sums), true, kTex>(
-        sph, n_slots, rec[k], k0, k1, bounce0 + k, rr_depth, t_min,
-        p.ray.time, go, gd, gt, sums, g_time, kept[k], &sv.tex);
-    add_slot<kRows>(acc + rec[k].win * kSlotCols, sums.g);
-  }
-  for (int j = 0; j < 3; ++j) {
-    dsi[(kStO + j) * n] = go[j];
-    dsi[(kStD + j) * n] = gd[j];
-    dsi[(kStThr + j) * n] = gt[j];
-    dsi[(kStPend + j) * n] = gp[j];
-  }
-  dsi[kStTime * n] = g_time;
-}
-
-template <bool kMoving, bool kSolids, bool kTex>
-__global__ void __launch_bounds__(kThreads)
-    chain_bwd_kernel(const float* __restrict__ st,
-                     const uint32_t* __restrict__ keys, int q,
-                     const float* __restrict__ sph, int n_slots,
-                     const float* __restrict__ nodes_g,
-                     const int* __restrict__ rows_g, int n_nodes, int n_rows,
-                     int n_always, const float* __restrict__ quad,
-                     int quad_slots, int n_quads,
-                     const float* __restrict__ box, int box_slots,
-                     int n_boxes, TexView tex,
-                     const float* __restrict__ bg_g,
-                     const float* __restrict__ d_out,
-                     const float* __restrict__ out_bounce, int k_steps,
-                     int max_depth, int rr_depth, float t_min,
-                     float* __restrict__ d_in,
-                     float* __restrict__ partials,
-                     int* __restrict__ mismatches) {
-  // Dynamic shared memory (bvh_bytes): the staged BVH, then with kSolids
-  // the solid families (as bounce_steps_kernel stages them). The pack
-  // cotangents go to this block's row of the partials, zeroed here.
-  extern __shared__ float4 smem[];
-  __shared__ float bg[8];
-  __shared__ float warp_part[kThreads / 32][kBgCols];
-  const BvhWalk<kMoving> walk{stage_bvh<kMoving>(
-      sph, n_slots, nodes_g, rows_g, n_nodes, n_rows, n_always, smem)};
-  Solids sv{};
-  if constexpr (kSolids) {
-    sv = stage_solids(quad, quad_slots, n_quads, box, box_slots, n_boxes,
-                      smem + aligned16(bvh_bytes(n_nodes, n_rows, kMoving)) /
-                                 sizeof(float4));
-  }
-  sv.tex = tex;
-  const int tid = threadIdx.x;
-  if (tid < 8) bg[tid] = bg_g[tid];
-  const int n_acc =
-      kSlotCols * (kSolids ? n_slots + n_quads + n_boxes : n_slots);
-  float* out =
-      partials + blockIdx.x * (static_cast<size_t>(n_acc) + kBgCols);
-  for (int i = tid; i < n_acc; i += kThreads) out[i] = 0.0f;
-  __syncthreads();
-
-  float g_bg[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  const int lane = blockIdx.x * blockDim.x + tid;
-  if (lane < q) {  // no early return: all threads sync below
-    adjoint_lane<kMoving, kSolids, kTex>(walk, sph, n_slots, sv, bg, st,
-                                         keys, static_cast<size_t>(q), lane,
-                                         d_out, out_bounce, k_steps,
-                                         max_depth, rr_depth, t_min, d_in,
-                                         out, g_bg, mismatches);
-  }
-
-  // Background: warp sums, then warps in order.
-  const int warp_lane = tid & 31, warp = tid >> 5;
-  for (int j = 0; j < kBgCols; ++j) {
-    const float w = warp_sum(j < 6 ? g_bg[j] : 0.0f);
-    if (warp_lane == 0) warp_part[warp][j] = w;
-  }
-  __syncthreads();
-  if (tid < kBgCols) {
-    float v = 0.0f;
-    for (int w = 0; w < kThreads / 32; ++w) v += warp_part[w][tid];
-    out[n_acc + tid] = v;
-  }
-}
-
-}  // namespace
+#include "chain.cuh"
 
 // The chain's backward on `stream`; returns cudaGetLastError() (0 on
 // success). st: the chain's input state (16, q) f32; keys: (2, q) u32;
@@ -303,7 +125,7 @@ extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const SolidArgs none{nullptr, 0, 0, nullptr, 0, 0};
+  const SolidArgs none{};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   const int n_cols = kSlotCols * (n_slots + sa.n_quads + sa.n_boxes) +
                      kBgCols;
@@ -311,21 +133,20 @@ extern "C" int rrt_chain_bwd(const float* st, const uint32_t* keys, int q,
     return static_cast<int>(
         cudaMemsetAsync(sums, 0, sizeof(float) * n_cols, s));
   }
-  size_t smem = bvh_bytes(n_nodes, n_rows, moving != 0);
-  if (solids) smem = aligned16(smem) + solid_bytes(sa.n_quads, sa.n_boxes);
-  auto kernel = RRT_PICK3(chain_bwd_kernel, moving != 0, solids != nullptr,
-                          tex != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err =
+      has_tree(solids)
+          ? chain_bwd_walk(moving != 0, tex != nullptr, s, st, keys, q, sph,
+                           n_slots, nodes, rows, n_nodes, n_rows, n_always,
+                           solids, tex_view(tex), bg, d_out, out_bounce,
+                           k_steps, max_depth, rr_depth, t_min, d_in, scratch,
+                           mismatches)
+          : RRT_PICK3(launch_chain_bwd, moving != 0, solids != nullptr,
+                      tex != nullptr)(
+                s, st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows,
+                n_always, solids, tex_view(tex), bg, d_out, out_bounce,
+                k_steps, max_depth, rr_depth, t_min, d_in, scratch,
+                mismatches);
+  if (err != 0) return err;
   const int n_blocks = (q + kThreads - 1) / kThreads;
-  kernel<<<n_blocks, kThreads, smem, s>>>(
-      st, keys, q, sph, n_slots, nodes, rows, n_nodes, n_rows, n_always,
-      sa.quad, sa.quad_slots, sa.n_quads, sa.box, sa.box_slots, sa.n_boxes,
-      tex_view(tex), bg, d_out, out_bounce, k_steps, max_depth, rr_depth, t_min,
-      d_in, scratch, mismatches);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_partials(scratch, n_blocks, n_cols, sums, s));
 }

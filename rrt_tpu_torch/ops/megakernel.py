@@ -63,14 +63,13 @@ quad, box and medium packs and their active slot counts (`SolidPacks`,
 the boxes, seeding the spheres' BVH walk; then every active medium, read
 from its pack in device memory (no cap), against the closest solid's t,
 each with its own STREAM_MEDIUM draw (a scene of media alone runs it
-with no quad or box). The forward kernels and train_fwd walk a family
-of more than SOLID_CAP active slots over its tree (`pack_solids`'
-accel.SolidBvh, built on the host once a render or a differentiable
-call; the loop's (t, slot) bit for bit), staged in shared memory after
-the rows (a scene whose rows and trees exceed what a block may opt into
-raises before any launch), and loop over a smaller one; train_bwd loops
-over any number (rttnw_final's 400 ground boxes), and chain_bwd over at
-most SOLID_CAP of each (ROADMAP Queue A #9.5's chain part).
+with no quad or box). The forward kernels, train_fwd and chain_bwd
+walk a family of more than SOLID_CAP active slots over its tree
+(`pack_solids`' accel.SolidBvh, built on the host once a render or a
+differentiable call; the loop's (t, slot) bit for bit), staged in shared
+memory after the rows (a scene whose rows and trees exceed what a block
+may opt into raises before any launch), and loop over a smaller one;
+train_bwd loops over any number (rttnw_final's 400 ground boxes).
 
 A scene with perlin or image textures hands the kernels its TexPack,
 and they run their texture variant (csrc/bounce.cuh kTex): the marble's
@@ -108,13 +107,9 @@ from ..scene import (MAT_DIELECTRIC, MAT_ISOTROPIC, SceneArrays,
 # bytes a slot, inside the 48 KB a block gets without opting in.
 MAX_SLOTS = 3072
 # Active quads and boxes the kernels loop over (each; csrc/bounce.cuh
-# kSolidCap). The forward kernels and train_fwd walk a larger family's
-# tree, train_bwd loops over any number; chain_bwd takes no more, which
-# ROADMAP Queue A #9.5's chain part lifts.
+# kSolidCap). The forward kernels, train_fwd and chain_bwd walk a larger
+# family's tree, train_bwd loops over any number.
 SOLID_CAP = accel.SOLID_CAP
-SOLID_CAP_ITEM = "#9.5"
-SOLID_CAP_WHAT = (f"more than {SOLID_CAP} quads or boxes (their walk in "
-                  f"chain_bwd, #9.5's chain part)")
 # Where a kernel's staged spheres, solid rows and solid trees past a
 # block's shared memory are recorded.
 FORWARD_SMEM_ITEM = 'Queue C, "A cap rrt_tpu does not have"'
@@ -169,7 +164,7 @@ IMAGES_ON_MEDIA = ("an image texture on a constant medium",
 
 def roadmap_ref(item: str) -> str:
     """Where ROADMAP.md places a scope gap's item: "ROADMAP Queue A
-    #9.5" for a queued item ("#9.5"), else "ROADMAP" and the entry."""
+    #9.4" for a queued item ("#9.4"), else "ROADMAP" and the entry."""
     return (f"ROADMAP Queue A {item}" if item.startswith("#")
             else f"ROADMAP {item}")
 
@@ -184,15 +179,6 @@ def scope_gap(scene: SceneArrays, eager: bool = False):
     (megakernel_vjp.backward_scope_gap)."""
     if scene.has_images_on_media and not eager:
         return IMAGES_ON_MEDIA
-    return None
-
-
-def solid_cap_gap(scene: SceneArrays):
-    """(what, "#9.5") for a scene with more than SOLID_CAP active quads or
-    boxes, which chain_bwd does not take (the forward kernels and
-    train_fwd walk them, train_bwd loops over them); else None."""
-    if max(scene.n_quads_active, scene.n_boxes_active) > SOLID_CAP:
-        return SOLID_CAP_WHAT, SOLID_CAP_ITEM
     return None
 
 
@@ -451,21 +437,20 @@ def _check_bvh(bvh, sph24, what: str):
 
 
 # How a kernel takes the solid families (_check_solids' `scope`): "walk"
-# the forward kernels and train_fwd, which walk a family's tree past
-# SOLID_CAP active slots; "loop" train_bwd, which loops over any number;
-# "chain" chain_bwd, which loops over at most SOLID_CAP.
-SOLID_SCOPES = ("walk", "loop", "chain")
+# the forward kernels, train_fwd and chain_bwd, which walk a family's
+# tree past SOLID_CAP active slots; "loop" train_bwd, which loops over
+# any number.
+SOLID_SCOPES = ("walk", "loop")
 
 
-def _check_solids(solids, device, scope: str = "chain"):
+def _check_solids(solids, device, scope: str):
     """The C argument of the solid families (a pointer to an
     _build.SolidArgs), checked: the quad and box packs float32 (24, n),
     contiguous, on `device`, their active counts within their widths; the
     medium pack, with n_media > 0, float32 (D, 24), contiguous, on
     `device`, D >= n_media; None (a null pointer: the sphere variants)
     for None. scope (SOLID_SCOPES): "walk" fills the families' trees on
-    a CUDA device (_check_tree); "chain" raises NotImplementedError past
-    SOLID_CAP active slots of a family."""
+    a CUDA device (_check_tree)."""
     if scope not in SOLID_SCOPES:
         raise ValueError(f"scope {scope!r} is none of {SOLID_SCOPES}")
     if solids is None:
@@ -479,11 +464,6 @@ def _check_solids(solids, device, scope: str = "chain"):
                              f"tensor on {device}")
         if not 0 <= n <= t.shape[1]:
             raise ValueError(f"{n} active slots of {name}'s {t.shape[1]}")
-        if n > SOLID_CAP and scope == "chain":
-            raise NotImplementedError(
-                f"{n} active slots of {name}: chain_bwd loops over at most "
-                f"{SOLID_CAP} quads and {SOLID_CAP} boxes ({SOLID_CAP_WHAT}: "
-                f"ROADMAP Queue A {SOLID_CAP_ITEM})")
     med = solids.med24
     if solids.n_media:
         if (not isinstance(med, torch.Tensor) or med.dtype != torch.float32
@@ -553,10 +533,11 @@ def _align16(n: int) -> int:
 
 
 def forward_smem_bytes(bvh, solids, moving: bool) -> int:
-    """A forward kernel's dynamic shared memory (csrc/bounce.cuh
-    forward_smem): the spheres' BVH (accel.BvhPack.smem_bytes), then with
-    solids their rows (three float4 and an int a quad, two float4 a box:
-    solid_bytes) and their trees (accel.SolidBvh.smem_bytes)."""
+    """A forward kernel's, or chain_bwd's, dynamic shared memory
+    (csrc/bounce.cuh forward_smem): the spheres' BVH
+    (accel.BvhPack.smem_bytes), then with solids their rows (three float4
+    and an int a quad, two float4 a box: solid_bytes) and their trees
+    (accel.SolidBvh.smem_bytes)."""
     smem = bvh.smem_bytes(moving)
     if solids is None:
         return smem
@@ -567,8 +548,8 @@ def forward_smem_bytes(bvh, solids, moving: bool) -> int:
 
 def _check_forward_smem(bvh, solids, moving: bool, what: str):
     """Raise NotImplementedError, before a launch, when what a forward
-    kernel stages (forward_smem_bytes) exceeds the shared memory a block
-    may opt into (accel.BVH_SMEM)."""
+    kernel, or chain_bwd, stages (forward_smem_bytes) exceeds the shared
+    memory a block may opt into (accel.BVH_SMEM)."""
     need = forward_smem_bytes(bvh, solids, moving)
     if need > accel.BVH_SMEM:
         raise NotImplementedError(

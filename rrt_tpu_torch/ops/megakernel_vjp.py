@@ -36,9 +36,10 @@ counterpart of rrt_tpu's `bounce_chain` custom_vjp:
             the packs, the BVH pack and the output's bounce row;
   backward  `chain_adjoint`: the CUDA kernel chain_bwd (csrc/chain.cu),
             the counterpart of rrt_tpu's `_bwd_kernel`, which replays
-            the K steps from the input state, walking the forward's BVH,
-            and sweeps them in reverse through the hand-written
-            transpose of diff_step. Its plain version is
+            the K steps from the input state, walking the forward's BVH
+            (and, past SOLID_CAP quads or boxes, its solid trees), and
+            sweeps them in reverse through the hand-written transpose of
+            diff_step. Its plain version is
             `chain_adjoint_reference`, which CPU tensors run.
 """
 
@@ -436,12 +437,12 @@ CHAIN_MEDIA = ("constant media (rrt_tpu's chain leaves them out too; "
 def backward_scope_gap(scene):
     """chain_bwd's scope (rrt_tpu's supports_backward): None when it
     covers the scene, otherwise (what is outside, the ROADMAP Queue A
-    item). The forward kernels' (mk.scope_gap) but more than
-    mk.SOLID_CAP quads or boxes (mk.solid_cap_gap: #9.5's chain part;
-    the train kernels take them) and the constant media, which it leaves
-    out by decision (#9.4; the train kernels take them:
+    item). The forward kernels' (mk.scope_gap), any number of quads and
+    boxes among them (past mk.SOLID_CAP its replay walks their trees, as
+    bounce_steps does), but the constant media, which it leaves out by
+    decision (#9.4; the train kernels take them:
     megakernel_train.train_scope_gap). Russian roulette is in scope."""
-    gap = mk.scope_gap(scene) or mk.solid_cap_gap(scene)
+    gap = mk.scope_gap(scene)
     if gap is None and scene.has_media:
         return CHAIN_MEDIA, "#9.4"
     return gap
@@ -698,7 +699,12 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
     f32: the output state's cotangent; out_bounce (Q,) f32: the forward
     output's bounce row; bvh: the sphere pack's accel.BvhPack that the
     forward walked, which the replay walks: required on a CUDA device,
-    not read on the CPU. Returns (d_state (16, Q), rows 13-15 zero;
+    not read on the CPU. A solid family past mk.SOLID_CAP active slots
+    is walked over solids.tree, as bounce_steps walks it (the kernel's
+    kWalk instantiation; required on a CUDA device, where what the block
+    stages must fit its shared memory: mk._check_forward_smem); on the
+    CPU the plain version scans every slot, which gives the walk's
+    winners. Returns (d_state (16, Q), rows 13-15 zero;
     d_sph24 (24, S), the grad_rows(moving) filled; d_bg8 (8,); replay
     mismatches (1,) int32: the lanes whose replayed bounce row differs
     from out_bounce; d_solids: the SolidPacks of the quad and box packs'
@@ -719,7 +725,7 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                                   f"chain_bwd's scope (ROADMAP Queue A #9.4)")
     if rr_depth < 0:
         raise ValueError(f"rr_depth {rr_depth} < 0")
-    solid_arg = mk._check_solids(solids, device)
+    solid_arg = mk._check_solids(solids, device, "walk")
     kw = dict(k_steps=k_steps, max_depth=max_depth, t_min=t_min,
               moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     if device.type == "cpu":
@@ -732,6 +738,7 @@ def chain_adjoint(state, keys, sph24, bg8, d_out, out_bounce, *,
                if tex is not None and tex.has_images else None)
     tex_arg = mk._check_tex(tex, device, d_atlas)
     tree = mk._check_bvh(bvh, sph24, "chain_adjoint")
+    mk._check_forward_smem(bvh, solids, moving, "chain_adjoint")
     lib = _build.load()
     q, n_slots = state.shape[1], sph24.shape[1]
     n_solid = 0 if solids is None else solids.n_quads + solids.n_boxes
@@ -854,8 +861,8 @@ def solid_inputs(solids, tex=None, rr_depth: int = 0) -> tuple:
     None, atlas, tex without its atlas, rr_depth), the first four None
     without solids, the next two without tex. layout, which carries no
     gradient: (n_quads, n_boxes, n_media, tree), the active counts and
-    the families' accel.SolidBvh (or None), which train_fwd walks past
-    mk.SOLID_CAP active slots."""
+    the families' accel.SolidBvh (or None), which train_fwd,
+    bounce_steps and chain_bwd walk past mk.SOLID_CAP active slots."""
     packs = ((None,) * 4 if solids is None else (
         solids.quad24, solids.box24,
         (solids.n_quads, solids.n_boxes, solids.n_media, solids.tree),

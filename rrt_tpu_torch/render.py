@@ -24,11 +24,11 @@ perlin and image textures, up to MAX_TRAIN_MEDIA constant media; past
 ops.megakernel.SOLID_CAP quads or boxes train_fwd walks their trees as
 the forward kernels do, and train_bwd loops: rttnw_final's 400 ground
 boxes); the chain takes them but the media, which rrt_tpu's chain
-leaves out too, and loops over at most SOLID_CAP quads and boxes. A
-scene outside a route's scope (an image texture on a medium, whose
-eager route is the CPU's; more media, or any on the chain; more quads
-or boxes on the chain) raises there on a CUDA device, naming its
-ROADMAP entry. Every route takes Russian roulette
+leaves out too (past SOLID_CAP quads or boxes bounce_steps and
+chain_bwd walk their trees: rttnw_final without its media). A scene
+outside a route's scope (an image texture on a medium, whose eager
+route is the CPU's; more media, or any on the chain) raises there on a
+CUDA device, naming its ROADMAP entry. Every route takes Russian roulette
 (RenderConfig.rr_depth; `_apply_rr`).
 `trace_batch`'s checkpointed scan is a CPU route only.
 `_bounce` is one bounce of the plain physics (intersect, shade,
@@ -314,7 +314,8 @@ def _check_card_scope(where: str, scene: SceneArrays, device):
 def _check_chain_card_scope(where: str, scene: SceneArrays, device):
     """_check_card_scope for the bounce chain's route
     (render_image(differentiable=True), trace_batch): chain_bwd's scope,
-    which leaves out the constant media, as rrt_tpu's does
+    which takes any number of quads and boxes and leaves out the
+    constant media, as rrt_tpu's does
     (ops.megakernel_vjp.backward_scope_gap). rrt_tpu runs its scan
     there; the port keeps the scan off the card, so a media scene raises,
     naming the train kernels' route, which takes its gradient."""
@@ -503,7 +504,10 @@ def trace_batch_fused(scene: SceneArrays, o, d, time, keys, max_depth: int,
     these spheres whose shutter covers the rays' times: render_image
     builds one an image), otherwise chain_bvh's, built here over the
     rays' own range of times (one device-to-host read and a host build a
-    call).
+    call). The quad and box packs and their trees, which both kernels
+    walk past SOLID_CAP active slots, are built here once a call from
+    the scene as it is (ops.megakernel.pack_solids), since training
+    moves the boxes.
     _compact_lanes packs the live lanes first between chains. o, d: (3,N)
     rays; time: (N,) their times (state row 6, differentiable); keys:
     (2,N) sample key words (rng.sample_keys). The kernels

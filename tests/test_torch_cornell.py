@@ -439,10 +439,10 @@ def test_scopes():
     """The forward kernels, the train kernels and chain_bwd take cornell
     (#9.7 is ported): its gradients need no fallback. rttnw_final, whose
     400 ground boxes pass SOLID_CAP, is in SCENES and the forward and
-    train kernels' scopes (#9.5's rest: its forward part, and the train
-    kernels of its backward part), and outside chain_bwd's, naming #9.5
-    (its chain part): on the CPU render_image_diff takes the train
-    kernels' plain versions; cornell_smoke (#9.4) is in
+    train kernels' scopes (#9.5's rest), and outside chain_bwd's for its
+    constant media alone, naming #9.4 (chain_bwd walks its boxes' tree):
+    on the CPU render_image_diff takes the train kernels' plain
+    versions; cornell_smoke (#9.4) is in
     SCENES, and in every scope but chain_bwd's; simple_light and earth
     (#9.5's first part) are in SCENES and in every scope."""
     scene, cam = tscenes.cornell_box_scene(8, 8)
@@ -463,7 +463,7 @@ def test_scopes():
         assert tmk.scope_gap(t_scene) is None, name
         assert tmkv.backward_scope_gap(t_scene) is None, name
         assert render.diff_fallback_reason(t_scene, cfg) is None, name
-    items = {"rttnw_final": "#9.5"}
+    items = {"rttnw_final": "#9.4"}
     for name, item in items.items():
         j_scene, j_cam = jscenes.SCENES[name](8, 8)
         t_scene = convert.scene_from_numpy(_leaves(j_scene))
@@ -471,7 +471,7 @@ def test_scopes():
         assert tmk.scope_gap(t_scene) is None, name
         assert tmkt.train_scope_gap(t_scene) is None, name
         assert tmkv.backward_scope_gap(t_scene)[1] == item, name
-        assert "chain part" in tmkv.backward_scope_gap(t_scene)[0]
+        assert "constant media" in tmkv.backward_scope_gap(t_scene)[0]
         assert name in tscenes.SCENES
         img, _ = render.render_image_tiles(t_scene, t_cam, cfg, 0,
                                            device="cpu")
@@ -515,10 +515,11 @@ def test_cornell_gradient_raises_for_a_cuda_device():
 
 
 def test_solid_cap_raises():
-    """Past SOLID_CAP active quads or boxes chain_adjoint raises naming the
-    item that lifts its cap (#9.5's chain part); the train wrappers take
-    them (train_fwd walks a family's tree on the card, train_bwd loops),
-    as the forward kernels' plain versions do."""
+    """Past SOLID_CAP active quads or boxes no wrapper raises any more:
+    chain_adjoint takes them (its replay walks a family's tree on the
+    card, as bounce_steps does; #9.5's chain part is ported), as the
+    train wrappers (train_fwd walks, train_bwd loops) and the forward
+    kernels' plain versions do, and no scope names #9.5."""
     scene, cam = tscenes.cornell_box_scene(8, 8)
     solids = dataclasses.replace(tmk.pack_solids(scene),
                                  n_boxes=tmk.SOLID_CAP + 1)
@@ -529,11 +530,12 @@ def test_solid_cap_raises():
         max_depth=2, t_min=1e-3, moving=False, solids=solids)
     assert torch.isfinite(rad).all()
     state = torch.zeros((tmk.STATE_ROWS, 4))
-    with pytest.raises(NotImplementedError, match="#9.5"):
-        tmkv.chain_adjoint(state, torch.zeros((2, 4), dtype=torch.int32),
-                           sph24, tmk.pack_bg(scene), state, torch.zeros(4),
-                           k_steps=1, max_depth=2, t_min=1e-3, moving=False,
-                           solids=solids)
+    d_state, _, _, mism, d_solids, _ = tmkv.chain_adjoint(
+        state, torch.zeros((2, 4), dtype=torch.int32), sph24,
+        tmk.pack_bg(scene), state, torch.zeros(4), k_steps=1, max_depth=2,
+        t_min=1e-3, moving=False, solids=solids)
+    assert not d_state.any() and int(mism) == 0
+    assert d_solids.n_boxes == tmk.SOLID_CAP + 1
     o = torch.zeros((3, 4))
     t, _, _ = tmk.intersect_only(o, o + 1.0, sph24, t_min=1e-3,
                                  solids=solids)
@@ -541,7 +543,7 @@ def test_solid_cap_raises():
     big = dataclasses.replace(scene, n_boxes_active=tmk.SOLID_CAP + 1)
     assert tmk.scope_gap(big) is None
     assert tmkt.train_scope_gap(big) is None
-    assert tmkv.backward_scope_gap(big)[1] == "#9.5"
+    assert tmkv.backward_scope_gap(big) is None
 
 
 DEPTH, N = 4, 256

@@ -376,11 +376,11 @@ def test_light_emits_from_behind():
 
 def test_out_of_scope_still_raises():
     """Media on chain_bwd and more than MAX_TRAIN_MEDIA media on the
-    train kernels, and more quads than SOLID_CAP on chain_bwd (rttnw_final's
-    boxes, #9.5's chain part; the train kernels take them, and the perlin
-    and image textures are ported) stay outside the backwards, raising
-    with their ROADMAP items; Russian roulette is in both backwards'
-    scopes since #9.6, and cornell's train route renders with it."""
+    train kernels stay outside the backwards, raising with their ROADMAP
+    items; more quads than SOLID_CAP are in both backwards' scopes (the
+    train kernels' since #9.5's rest, chain_bwd's since its chain part),
+    as the perlin and image textures are, and Russian roulette since
+    #9.6; cornell's train route renders with it."""
     (_, _), (smoke, smoke_cam) = _both("cornell_smoke", 8, 8)
     cornell, cornell_cam = tscenes.cornell_box_scene(8, 8)
     cfg = render.RenderConfig(width=8, height=8, spp=1, max_depth=2)
@@ -389,11 +389,10 @@ def test_out_of_scope_still_raises():
     assert tmkv.backward_scope_gap(cornell) is None
     assert tmkt.train_scope_gap(cornell) is None
     perlin = dataclasses.replace(cornell, n_quads_active=tmk.SOLID_CAP + 1)
-    assert tmkv.backward_scope_gap(perlin)[1] == "#9.5"
+    assert tmkv.backward_scope_gap(perlin) is None
     assert tmkt.train_scope_gap(perlin) is None
-    with pytest.raises(NotImplementedError, match="#9.5"):
-        render.render_image(perlin, cornell_cam, dataclasses.replace(
-            cfg, samples_per_pass=1), 0, differentiable=True, device="cuda")
+    render._check_chain_card_scope("render_image(differentiable=True)",
+                                   perlin, "cuda")
     fog = SceneBuilder()
     for i in range(tmkt.MAX_TRAIN_MEDIA + 1):
         fog.medium_sphere((float(i), 0.0, 0.0), 0.4, 0.5, (0.5, 0.5, 0.5))

@@ -1739,8 +1739,9 @@ def test_rttnw_final_renders_and_its_gradient_raises_on_the_card(device):
     (make_train_step, render_image_diff) with no replay mismatch and no
     launch of bounce_steps or chain_bwd; the chain's route
     (render_image(differentiable=True)) still raises NotImplementedError
-    naming #9.5 (its chain part) before any launch, and chain_adjoint
-    refuses its packs."""
+    before any launch, now naming its media (#9.4): chain_adjoint takes
+    its packs without the media, walking the boxes' tree (#9.5's chain
+    part), with no replay mismatch."""
     from rrt_tpu_torch import diff, render
     scene, cam = tscenes.SCENES["rttnw_final"](40, 27)
     cfg = render.RenderConfig(width=40, height=27, spp=2, max_depth=8,
@@ -1763,18 +1764,23 @@ def test_rttnw_final_renders_and_its_gradient_raises_on_the_card(device):
     assert after[3] == launches[3] + 2 and after[4] == launches[4] + 1
     assert after[1] == launches[1] and after[5] == launches[5]
     assert int(tmkt.tiles_adjoint.replay_mismatches) == 0
-    with pytest.raises(NotImplementedError, match="#9.5"):
+    with pytest.raises(NotImplementedError, match="#9.4"):
         render.render_image(scene, cam, cfg, 0, differentiable=True,
                             device=device)
+    assert after == [w.launches for w in wrappers]
     st, keys, sph, bg = _lane_state(device)
     solids = dataclasses.replace(tmk.pack_solids(scene, device), n_media=0,
                                  med24=None)
-    with pytest.raises(NotImplementedError, match="chain part"):
-        tmkv.chain_adjoint(st, keys, sph, bg, torch.zeros_like(st),
-                           st[tmk.ROW_BOUNCE].clone(), k_steps=1, max_depth=8,
-                           t_min=1e-3, moving=False, bvh=_tree(sph),
-                           solids=solids)
-    assert after == [w.launches for w in wrappers]
+    out = tmk.bounce_steps(st.clone(), keys, sph, bg, k_steps=1,
+                           max_depth=8, t_min=1e-3, moving=False,
+                           bvh=_tree(sph), solids=solids)
+    k = tmkv.chain_adjoint(st, keys, sph, bg, torch.zeros_like(st),
+                           out[tmk.ROW_BOUNCE].clone(), k_steps=1,
+                           max_depth=8, t_min=1e-3, moving=False,
+                           bvh=_tree(sph), solids=solids)
+    torch.cuda.synchronize(device)
+    assert int(k[3]) == 0
+    assert tmkv.chain_adjoint.launches == after[5] + 1
 
 
 # ---------------------------------------------------------------------------

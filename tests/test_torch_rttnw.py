@@ -391,19 +391,20 @@ def test_many_solids_scene_equals_rrt_tpu():
 
 def test_gradient_scopes():
     """The forward kernels and the train kernels take rttnw_final (train_fwd
-    walks its boxes' tree, train_bwd loops over them); chain_bwd keeps
-    SOLID_CAP (#9.5's chain part). On the CPU its gradient runs on the
-    train kernels' plain versions (render_image_diff through
-    trace_tiles_diff); on a CUDA device the train route passes its scope
-    check and the chain's route raises before anything runs; the train
-    wrappers take its packs, and chain_adjoint raises on its 400 boxes
+    walks its boxes' tree, train_bwd loops over them); chain_bwd takes its
+    400 boxes (its replay walks their tree on a card) but not its media
+    (#9.4). On the CPU its gradient runs on the train kernels' plain
+    versions (render_image_diff through trace_tiles_diff); on a CUDA
+    device the train route passes its scope check and the chain's route
+    raises before anything runs, naming the media; the train wrappers
+    take its packs, and chain_adjoint takes them without the media
     (make_train_step's on the card: tests/test_torch_cuda.py)."""
     from rrt_tpu_torch.ops import megakernel_train as tmkt
     from rrt_tpu_torch.ops import megakernel_vjp as tmkv
     scene, cam = tscenes.SCENES["rttnw_final"](8, 4)
     assert tmk.scope_gap(scene) is None
     assert tmkt.train_scope_gap(scene) is None
-    assert tmkv.backward_scope_gap(scene)[1] == "#9.5"
+    assert tmkv.backward_scope_gap(scene)[1] == "#9.4"
     cfg = render.RenderConfig(width=8, height=4, spp=1, max_depth=2,
                               samples_per_pass=1)
     assert render.diff_fallback_reason(scene, cfg) is None
@@ -414,7 +415,7 @@ def test_gradient_scopes():
     img.sum().backward()
     assert torch.isfinite(leaf.grad).all()
     render._check_card_scope("render_image_diff", scene, "cuda")
-    with pytest.raises(NotImplementedError, match="#9.5"):
+    with pytest.raises(NotImplementedError, match="#9.4"):
         render.render_image(scene, cam, cfg, 0, differentiable=True,
                             device="cuda")
     sph24 = tmk.pack_spheres_full(scene)
@@ -425,11 +426,11 @@ def test_gradient_scopes():
         max_depth=2, t_min=T_MIN, moving=True, solids=solids, tex=tex)
     assert torch.isfinite(rad).all() and int(lengths.sum()) >= 8 * 4
     state = torch.zeros((tmk.STATE_ROWS, 4))
-    with pytest.raises(NotImplementedError, match="chain part"):
-        tmkv.chain_adjoint(state, torch.zeros((2, 4), dtype=torch.int32),
-                           sph24, tmk.pack_bg(scene), state,
-                           torch.zeros(4), k_steps=1, max_depth=2,
-                           t_min=T_MIN, moving=True,
-                           solids=dataclasses.replace(solids, n_media=0,
-                                                      med24=None),
-                           tex=tex)
+    d_out = torch.ones_like(state)
+    d_state, _, _, mism, d_solids, _ = tmkv.chain_adjoint(
+        state, torch.zeros((2, 4), dtype=torch.int32), sph24,
+        tmk.pack_bg(scene), d_out, torch.zeros(4), k_steps=1, max_depth=2,
+        t_min=T_MIN, moving=True,
+        solids=dataclasses.replace(solids, n_media=0, med24=None), tex=tex)
+    assert torch.equal(d_state[:13], d_out[:13]) and int(mism) == 0
+    assert d_solids.box24.shape == solids.box24.shape

@@ -54,7 +54,8 @@ def test_plain_train_forward_pools_the_replay_winners():
 
 def test_train_route_takes_rttnw_final(caplog, monkeypatch):
     """The train kernels' scope takes rttnw_final and chain_bwd's does
-    not (#9.5's chain part): on the CPU render_image_diff and the train
+    not, for its media alone (#9.4; its boxes past SOLID_CAP are in
+    chain_bwd's scope): on the CPU render_image_diff and the train
     steps run the train kernels' plain versions (no fallback line), and
     the chunked step's loss is the one-shot step's within 1e-5."""
     scene, cam = tscenes.SCENES["rttnw_final"](8, 4)
@@ -63,7 +64,7 @@ def test_train_route_takes_rttnw_final(caplog, monkeypatch):
     assert tmkt.train_scope_gap(scene) is None
     assert render.diff_fallback_reason(scene, cfg) is None
     gap = tmkv.backward_scope_gap(scene)
-    assert gap[1] == "#9.5" and "chain part" in gap[0]
+    assert gap[1] == "#9.4" and "constant media" in gap[0]
     target = torch.zeros((4, 8, 3))
     apply = tmkt.TileTrainChain.apply
     calls = []

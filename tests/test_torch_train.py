@@ -51,6 +51,7 @@ from rrt_tpu.scene import SceneBuilder as JBuilder
 from rrt_tpu_torch import convert, diff, render
 from rrt_tpu_torch.ops import megakernel as tmk
 from rrt_tpu_torch.ops import megakernel_train as tmkt
+from rrt_tpu_torch.ops import megakernel_vjp as tmkv
 from rrt_tpu_torch.scene import SceneBuilder
 
 import _torch_helpers as helpers
@@ -283,16 +284,16 @@ def test_no_nan_gradients_on_masked_branches():
 def test_out_of_scope_scenes_raise():
     scene, cam = helpers.chap12_small()
     cfg = render.RenderConfig(width=16, height=8, spp=1, max_depth=2)
-    # More boxes or quads than chain_bwd loops over (rttnw_final's ground,
-    # #9.5's chain part): the train kernels take them (train_fwd walks
-    # their tree, train_bwd loops), so the train route passes its scope
-    # check on a CUDA device, and the chain's route raises there before
-    # anything runs; on the CPU the train step runs.
+    # More boxes or quads than SOLID_CAP (rttnw_final's ground): the train
+    # kernels take them (train_fwd walks their tree, train_bwd loops), and
+    # so does the chain (its replay walks their tree, #9.5's chain part),
+    # so both routes pass their scope checks on a CUDA device; on the CPU
+    # the train step runs.
     many = dataclasses.replace(scene, n_boxes_active=tmk.SOLID_CAP + 1)
     render._check_card_scope("render_image_diff", many, "cuda")
-    with pytest.raises(NotImplementedError, match="#9.5"):
-        render.render_image(many, cam, dataclasses.replace(
-            cfg, samples_per_pass=1), 0, differentiable=True, device="cuda")
+    render._check_chain_card_scope("render_image(differentiable=True)",
+                                   many, "cuda")
+    assert tmkv.backward_scope_gap(many) is None
     # Russian roulette (#9.6) takes the train kernels' route: no fallback,
     # and the roulette kills paths.
     rr = dataclasses.replace(cfg, rr_depth=1)

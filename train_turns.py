@@ -2,13 +2,14 @@
 
     python train_turns.py TREE_A [TREE_B ...] [--order ABBA] \
         [--north-star] [--check] [--forward] [--queue] [--cornell] \
-        [--textures] [--final] [--no-train] [--rr-depth N]
+        [--textures] [--final] [--chain] [--no-train] [--rr-depth N]
 
 Each turn is a fresh process on the card whose `rrt_tpu_torch` (and
 `chip_smoke.py`) come from that turn's tree, a directory holding a
 checkout (for another commit: `git archive <commit>` unpacked into a
 directory that .gitignore lists). It builds that tree's kernels and
-prints one JSON line: ptxas's registers and spills of each kernel
+prints one JSON line: the build's seconds (0 for a build reused from
+the tree's build directory), ptxas's registers and spills of each kernel
 (`_build.kernel_resources`, where the tree has it); train_fwd
 and train_bwd at the train step's shape (1200x800, 8 spp, depth 50,
 seed 0) on chap12 and book2chap2, by CUDA events (the mean of 3 launches
@@ -61,6 +62,11 @@ replay), with digests of their outputs, and in a tree whose train
 kernels take the scene train_fwd and train_bwd at [F3]'s shape (400x267,
 8 spp, depth 50; digests of train_fwd's radiance and winners and of
 train_bwd's d_cam and d_bg, which sum in a fixed order).
+With --chain, chain_bwd alone on [C1]'s three chains of chap12 and
+book2chap2, as --queue times them, and in a tree whose chip_smoke.py has
+[F4]'s rttnw_chain_rays on the three chains of rttnw_final without its
+media (262,144 lanes of 400x267, its kWalk variant), each with the same
+digests, the pack cotangents held against the first turn's.
 --no-train skips the train kernels. --rr-depth N times every kernel
 these options run but the cornell and texture ones (tile_render,
 bounce_steps, chain_bwd, the train kernels, the steps) with Russian
@@ -370,12 +376,10 @@ def _queue(out: dict, save: str) -> None:
     """bounce_steps at [Q1]'s shape, chain_bwd at [C1]'s three chains and
     [C2]'s step, on chap12 and book2chap2, into out[name]; each chain's
     pack cotangents saved as save/<name>_<chain>.npy."""
-    import numpy as np
     import torch
     import chip_smoke as cs
-    from rrt_tpu_torch import diff, render, rng, scenes
+    from rrt_tpu_torch import diff, render, scenes
     from rrt_tpu_torch.ops import megakernel as mk
-    from rrt_tpu_torch.ops import megakernel_vjp as mkv
 
     dev = torch.device("cuda:0")
     walks = "bvh" in inspect.signature(mk.bounce_steps).parameters
@@ -401,34 +405,7 @@ def _queue(out: dict, save: str) -> None:
         steps_ms = cs.events_ms(log) / len(log)
 
         scene, cam, cfg, px, py, kc = cs.chain_rays(dev, name)
-        sph = mk.pack_spheres_full(scene).to(dev)
-        n = px.shape[0]
-        o, d, tm = render.generate_rays(cam.to(dev), px, py, cfg.width,
-                                        cfg.height, kc)
-        if walks:
-            tree = dict(bvh=render.chain_bvh(sph, tm, moving))
-        one = torch.ones((n,), device=dev)
-        zero = torch.zeros((n,), device=dev)
-        cst = mk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n),
-                            zero, one, zero)
-        kbits, lane = rng.u32_bits(kc), torch.arange(n, device=dev)
-        chains = []
-        for j, k_steps in enumerate(render._fused_schedule(cfg.max_depth)):
-            ckw = dict(kw, k_steps=k_steps, **tree)
-            res = mk.bounce_steps(cst.clone(), kbits, sph, bg, **ckw)
-            gen = torch.Generator().manual_seed(k_steps)
-            d_out = torch.randn(tuple(cst.shape), generator=gen).to(dev)
-            ob = res[mk.ROW_BOUNCE].clone()
-            g = mkv.chain_adjoint(cst, kbits, sph, bg, d_out, ob, **ckw)
-            ms = cs.graph_ms(lambda: mkv.chain_adjoint(
-                cst, kbits, sph, bg, d_out, ob, **ckw), mkv.chain_adjoint)
-            np.save(os.path.join(save, f"{name}_{j}.npy"),
-                    g[1].cpu().numpy())
-            chains.append(dict(k=k_steps, ms=ms, d_state=_digest(g[0]),
-                               d_bg=_digest(g[2]), mismatches=int(g[3]),
-                               segments=int((res[mk.ROW_TRACED]
-                                             - cst[mk.ROW_TRACED]).sum())))
-            cst, kbits, lane = render._compact_lanes(res, kbits, lane)
+        chains = _chains(scene, cam, cfg, px, py, kc, kw, walks, save, name)
 
         def step():
             scene_d, params, camera = diff._leaves(scene, cam, dev)
@@ -472,10 +449,88 @@ def _queue(out: dict, save: str) -> None:
             c3_loss=float(c3[2]).hex(), c3_ms=c3_ms)
 
 
+def _chains(scene, cam, cfg, px, py, kc, kw, walks, save, name,
+            solids=None) -> list:
+    """chain_bwd on [C1]'s three chains of the lanes (px, py, keys kc) of
+    scene (each chain's input the kernels' forward of the one before,
+    compacted), by graph replay, with digests of its input and
+    background cotangents; each chain's sphere-pack cotangent saved as
+    save/<name>_<chain>.npy. kw: the bounce_steps keywords but k_steps
+    and bvh; walks: the tree's wrappers take the BVH; solids: the
+    scene's SolidPacks (their trees), or None."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from rrt_tpu_torch import render, rng
+    from rrt_tpu_torch.ops import megakernel as mk
+    from rrt_tpu_torch.ops import megakernel_vjp as mkv
+
+    dev = torch.device("cuda:0")
+    sph = mk.pack_spheres_full(scene).to(dev)
+    bg = mk.pack_bg(scene).to(dev)
+    n = px.shape[0]
+    o, d, tm = render.generate_rays(cam.to(dev), px, py, cfg.width,
+                                    cfg.height, kc)
+    tree = {}
+    if walks:
+        tree = dict(bvh=render.chain_bvh(sph, tm, scene.has_moving))
+    if solids is not None:
+        tree.update(solids=solids, tex=mk.pack_textures(scene, dev))
+    one = torch.ones((n,), device=dev)
+    zero = torch.zeros((n,), device=dev)
+    cst = mk.pack_state(o, d, tm, one.expand(3, n), zero.expand(3, n),
+                        zero, one, zero)
+    kbits, lane = rng.u32_bits(kc), torch.arange(n, device=dev)
+    chains = []
+    for j, k_steps in enumerate(render._fused_schedule(cfg.max_depth)):
+        ckw = dict(kw, k_steps=k_steps, **tree)
+        res = mk.bounce_steps(cst.clone(), kbits, sph, bg, **ckw)
+        gen = torch.Generator().manual_seed(k_steps)
+        d_out = torch.randn(tuple(cst.shape), generator=gen).to(dev)
+        ob = res[mk.ROW_BOUNCE].clone()
+        g = mkv.chain_adjoint(cst, kbits, sph, bg, d_out, ob, **ckw)
+        ms = cs.graph_ms(lambda: mkv.chain_adjoint(
+            cst, kbits, sph, bg, d_out, ob, **ckw), mkv.chain_adjoint)
+        np.save(os.path.join(save, f"{name}_{j}.npy"), g[1].cpu().numpy())
+        chains.append(dict(k=k_steps, ms=ms, d_state=_digest(g[0]),
+                           d_bg=_digest(g[2]), mismatches=int(g[3]),
+                           segments=int((res[mk.ROW_TRACED]
+                                         - cst[mk.ROW_TRACED]).sum())))
+        cst, kbits, lane = render._compact_lanes(res, kbits, lane)
+    return chains
+
+
+def _chain(out: dict, save: str) -> None:
+    """--chain: chain_bwd alone on [C1]'s three chains of chap12 and
+    book2chap2 (its sphere variants), and, in a tree whose chip_smoke.py
+    has [F4]'s rttnw_chain_rays, on the three chains of rttnw_final
+    without media (its (moving, solids, tex, walk) variant), into
+    out[name]["chains"] and out[name]["chain_ms"]."""
+    import torch
+    import chip_smoke as cs
+    from rrt_tpu_torch.ops import megakernel as mk
+
+    dev = torch.device("cuda:0")
+    for name in ("chap12", "book2chap2", "rttnw_final_no_media"):
+        if name == "rttnw_final_no_media":
+            if not hasattr(cs, "rttnw_chain_rays"):
+                continue
+            rays = cs.rttnw_chain_rays(dev)
+            solids = mk.pack_solids(rays[0], dev)
+        else:
+            rays, solids = cs.chain_rays(dev, name), None
+        kw = dict(max_depth=rays[2].max_depth, t_min=1e-3,
+                  moving=rays[0].has_moving, **RR)
+        chains = _chains(*rays, kw, True, save, name, solids=solids)
+        out.setdefault(name, {}).update(
+            chains=chains, chain_ms=sum(c["ms"] for c in chains))
+
+
 def _turn(tree: str, north_star: bool, check: bool, forward: bool,
           train: bool, queue: str | None = None,
           cornell: bool = False, textures: bool = False,
-          final: bool = False, rr_depth: int = 0) -> dict:
+          final: bool = False, rr_depth: int = 0,
+          chain: str | None = None) -> dict:
     sys.path.insert(0, tree)  # ahead of this script's own directory
     RR.update({"rr_depth": rr_depth} if rr_depth else {})
     import torch
@@ -485,8 +540,10 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
 
     dev = torch.device("cuda:0")
     resources = getattr(_build, "kernel_resources", None)
+    built = _build.build()
     out = dict(card=cs.card_line(), rr_depth=rr_depth,
-               ptxas=resources(_build.build().log) if resources else None)
+               build_s=built.seconds,
+               ptxas=resources(built.log) if resources else None)
     if forward:
         _forward(out)
     if queue:
@@ -497,6 +554,8 @@ def _turn(tree: str, north_star: bool, check: bool, forward: bool,
         _textures(out)
     if final:
         _final(out)
+    if chain:
+        _chain(out, chain)
     if not train:
         return out
     cfg = render.RenderConfig(**SHAPE, **RR)
@@ -562,14 +621,17 @@ def main(argv=None) -> int:
     ap.add_argument("--final", action="store_true")
     ap.add_argument("--no-train", action="store_true")
     ap.add_argument("--rr-depth", type=int, default=0)
+    ap.add_argument("--chain", action="store_true")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.turn:
         print("TURN " + json.dumps(
             _turn(os.path.abspath(args.trees[0]), args.north_star,
-                  args.check, args.forward, not args.no_train, args.save,
-                  args.cornell, args.textures, args.final, args.rr_depth),
+                  args.check, args.forward, not args.no_train,
+                  args.save if args.queue else None, args.cornell,
+                  args.textures, args.final, args.rr_depth,
+                  args.save if args.chain else None),
             default=str), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees]
@@ -580,6 +642,7 @@ def main(argv=None) -> int:
                              ("--cornell", args.cornell),
                              ("--textures", args.textures),
                              ("--final", args.final),
+                             ("--chain", args.chain),
                              ("--no-train", args.no_train)) if on]
     if args.rr_depth:
         flags += ["--rr-depth", str(args.rr_depth)]
@@ -587,7 +650,7 @@ def main(argv=None) -> int:
         for i, letter in enumerate(order):
             tree = trees[ord(letter) - ord("A")]
             save = os.path.join(tmp, str(i))
-            queue = ["--save", save] if args.queue else []
+            queue = ["--save", save] if args.queue or args.chain else []
             if queue:
                 os.mkdir(save)
             t0 = time.perf_counter()
