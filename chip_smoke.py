@@ -175,6 +175,22 @@ kernels' runtime argument:
        rr_depth 0 and 4 (printed, no gate); chain_bwd on [C2]'s three
        chains against its plain version, then [C2]'s gradient step.
 
+Then sharding (rrt_tpu_torch/parallel/mesh.py: dp over bands of rows,
+sp over samples, one all_reduce assembling the image):
+
+  [D1] the row window: tile_render at MAIN and train_fwd at TRAIN on two
+       bands of rows, each the full launch's rows bit for bit, train_bwd's
+       cotangents summed over the bands within PACK_SPREAD of the full
+       launch's, each timed beside the full launch; then the main paths
+       with ranks sharing the card under gloo, each rank a process
+       started with a time limit: the CLI on chap12 at MAIN over the
+       meshes 2x1 (the image bit for bit), 1x2 and 2x2 (within
+       D1_SP_TOL), and one train step at TRAIN on 2x2 (the gradients
+       within the larger of 1e-5 and twice two single-process runs'
+       spread, every rank's parameters the same bit for bit), with each
+       rank's wall, peak memory, launches and backend. Four ranks on one
+       card measure nothing about scaling across cards.
+
 [2] prints ptxas's registers and spills of every kernel; [7], [8] and
 [M3] print the train kernels' times beside the step's least time
 (`step_bound_ms`: one scan a segment, the backward's adjoint, the bytes)
@@ -213,6 +229,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -4695,6 +4712,232 @@ def rr_train_phase(device, card, counts):
                        launches=chain_launches[1]))
 
 
+# [D1]: the row window and ranks sharing the card (parallel/mesh.py).
+# The forward kernels' bands are the full launch's rows bit for bit by
+# construction (a pixel's keys are its id in the whole image); train_bwd's
+# cotangents summed over bands are held to PACK_SPREAD, its atomics'
+# spread. The bands: two halves of MAIN's 800 rows.
+D1_BANDS = ((0, 400), (400, 800))
+# The meshes of the forward through the CLI, ranks sharing the one card
+# under gloo; the train step's mesh.
+D1_MESHES = ("2x1", "1x2", "2x2")
+D1_TRAIN_MESH = "2x2"
+# A rank's time limit (the ranks of a run share it): a rank reaches the
+# card in about 8 s, loads the built kernels and renders in well under a
+# second; 120 s is several times a run.
+D1_TIMEOUT = 120
+# Under sp > 1 a pixel's samples are summed in another order than in one
+# process: every pixel of the mean image within D1_SP_TOL x max(1, |v|).
+# Worst reading on an H100 80GB HBM3 at 700 W: 4.8e-7 (1x2 and 2x2), the
+# sums' order; the gate is 21 times it.
+D1_SP_TOL = 1e-5
+# The sharded train step's gradients against one process's: within the
+# larger of 1e-5 of each field's largest (at least 1e-6, the gradient
+# rules' floor in tests/_torch_helpers.py) and twice the spread two
+# single-process runs of the same step show (train_bwd's atomics). On an
+# H100 80GB HBM3 at 700 W: two single-process steps 1.07e-7 apart, the
+# 2x2 step's worst field (tex_color1) 6.64e-6 from one process's, nearly
+# all of it the order of its sums over bands and sample shares, which
+# runs repeat (so the reading moves by about the 1.07e-7 spread).
+D1_GRAD_FLOOR = 1e-5
+
+
+def window_phase(device, card):
+    """[D1] tile_render (MAIN), train_fwd and train_bwd (TRAIN) on the two
+    bands of D1_BANDS against the full launch, each timed by CUDA events
+    beside it."""
+    from rrt_tpu_torch import render, scenes as tscenes
+    from rrt_tpu_torch.ops import megakernel as mk, megakernel_train as mkt
+    scene, cam = tscenes.SCENES["chap12"](MAIN["width"], MAIN["height"])
+    out = {}
+    for what, spec in (("tile", MAIN), ("train", TRAIN)):
+        cfg = render.RenderConfig(width=spec["width"], height=spec["height"],
+                                  spp=spec["spp"],
+                                  max_depth=spec["max_depth"])
+        *packs, bvh = render._packs(scene, cam, cfg, device, bvh=True)
+        packs = [p.detach() for p in packs]
+        kw = dict(seed_words=(0, 0), sample_lo=0, width=cfg.width,
+                  height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
+                  t_min=1e-3, moving=False)
+        if what == "tile":
+            def fwd(**win):
+                return mk.render_tiles(*packs, bvh=bvh, **kw, **win)
+        else:
+            def fwd(**win):
+                return mkt.render_tiles_train(*packs, **kw, **win)
+        full = fwd()
+        parts = [fwd(row_lo=lo, row_hi=hi) for lo, hi in D1_BANDS]
+        same = [torch.equal(torch.cat([p[i] for p in parts]), full[i])
+                for i in range(2)]
+        if what == "train":
+            same.append(torch.equal(torch.cat([p[2] for p in parts], dim=1),
+                                    full[2]))
+            written = (torch.arange(full[3].shape[0], device=device)[:, None]
+                       < full[1][None, :])
+            same.append(torch.equal(
+                torch.cat([p[3] for p in parts], dim=1)[written],
+                full[3][written]))
+        full_ms = cuda_ms(fwd, 3)
+        band_ms = [cuda_ms(lambda lo=lo, hi=hi: fwd(row_lo=lo, row_hi=hi), 3)
+                   for lo, hi in D1_BANDS]
+        name = "tile_render" if what == "tile" else "train_fwd"
+        print(f"  {name} {cfg.width}x{cfg.height} {cfg.spp}spp "
+              f"d{cfg.max_depth}: bands {list(D1_BANDS)} are the full "
+              f"launch's rows bit for bit {same}; {full_ms:.3f} ms full, "
+              f"{band_ms[0]:.3f} + {band_ms[1]:.3f} ms banded  [{card}]",
+              flush=True)
+        check(all(same), (f"[D1] {name} bands", same))
+        out[name] = dict(full_ms=full_ms, band_ms=band_ms)
+        if what != "train":
+            continue
+        weight = torch.sin(torch.arange(cfg.width * cfg.height,
+                                        device=device) * 0.1)
+        d_rad = (weight[:, None] * torch.tensor(MIX, device=device))
+        w = cfg.width
+
+        def bwd(lo=0, hi=cfg.height, res=full):
+            return mkt.tiles_adjoint(*packs, d_rad[lo * w:hi * w].contiguous(),
+                                     res[2], res[3], **kw, row_lo=lo,
+                                     row_hi=hi)
+        k = bwd()
+        bands = [bwd(lo, hi, p) for (lo, hi), p in zip(D1_BANDS, parts)]
+        spreads = [((sum(b[i] for b in bands) - k[i]).abs().max()
+                    / k[i].abs().max().clamp(min=1e-30)).item()
+                   for i in range(3)]
+        mism = [int(k[3])] + [int(b[3]) for b in bands]
+        full_ms = cuda_ms(bwd, 3)
+        band_ms = [cuda_ms(lambda lo=lo, hi=hi, p=p: bwd(lo, hi, p), 3)
+                   for (lo, hi), p in zip(D1_BANDS, parts)]
+        print(f"  train_bwd: the bands' d_sph, d_cam, d_bg summed against the "
+              f"full launch's: {', '.join(f'{s:.2e}' for s in spreads)} of "
+              f"their largest (gate {PACK_SPREAD:.0e}); replay_mismatches "
+              f"{mism}; {full_ms:.3f} ms full, {band_ms[0]:.3f} + "
+              f"{band_ms[1]:.3f} ms banded  [{card}]", flush=True)
+        check(max(spreads) <= PACK_SPREAD and not any(mism),
+              ("[D1] train_bwd bands", spreads, mism))
+        out["train_bwd"] = dict(full_ms=full_ms, band_ms=band_ms,
+                                spread=max(spreads))
+    return out
+
+
+def _rank_env():
+    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+
+
+def sharded_forward_phase(device, card):
+    """[D1] the main path: python -m rrt_tpu_torch.cli on chap12 at MAIN
+    over each mesh of D1_MESHES, its ranks sharing the card (gloo),
+    against one process's image; each rank's wall, peak memory and
+    tile_render launches. Returns {mesh: tile_render launches a rank}."""
+    from rrt_tpu_torch import cli, io as tio
+    from rrt_tpu_torch.parallel.launch import launch
+    argv = ["--scene", MAIN["scene"], "-r",
+            f"{MAIN['width']}x{MAIN['height']}", "-s", str(MAIN["spp"]),
+            "--max-depth", str(MAIN["max_depth"]), "--device", "cuda"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        one = os.path.join(tmp, "one.npz")
+        cli.main(argv + ["--quiet", "--checkpoint", one, "-o",
+                         os.path.join(tmp, "one.png")])
+        ref = tio.load_checkpoint(one)[0] / MAIN["spp"]
+        for mesh in D1_MESHES:
+            dp, sp = map(int, mesh.split("x"))
+            ck = os.path.join(tmp, f"{mesh}.npz")
+            t0 = time.perf_counter()
+            logs = launch(["rrt_tpu_torch.cli", *argv, "--mesh", mesh,
+                           "--checkpoint", ck, "-o",
+                           os.path.join(tmp, f"{mesh}.png")], dp * sp,
+                          timeout=D1_TIMEOUT, env=_rank_env(), cwd=REPO)
+            wall = time.perf_counter() - t0
+            lines = [ln for log in logs for ln in log.splitlines()
+                     if ln.startswith(("backend", "rank "))]
+            for ln in lines:
+                print(f"    {ln}")
+            launches = [int(ln.split("render_tiles ")[1].split(",")[0])
+                        for ln in lines if ln.startswith("rank ")]
+            img = tio.load_checkpoint(ck)[0] / MAIN["spp"]
+            err = np.abs(img - ref) / np.maximum(1.0, np.abs(ref))
+            same = bool(np.array_equal(img, ref))
+            print(f"  mesh {mesh}: {dp * sp} ranks on one card, {wall:.1f} s "
+                  f"wall with the ranks' start; the image bit for bit "
+                  f"{same}, largest |delta| / max(1, |v|) {err.max():.3e}; "
+                  f"tile_render launches a rank {launches}  [{card}]",
+                  flush=True)
+            check(len(launches) == dp * sp and min(launches) >= 1,
+                  ("[D1] launches", mesh, launches))
+            check(same if sp == 1 else err.max() <= D1_SP_TOL,
+                  ("[D1] sharded image", mesh, same, float(err.max())))
+            check(any("backend gloo" in ln for ln in lines),
+                  ("[D1] backend", mesh))
+            out[mesh] = launches
+    return out
+
+
+def sharded_train_phase(device, card):
+    """[D1] the main path: one make_train_step step (and loss_and_grads)
+    of chap12 at TRAIN on D1_TRAIN_MESH's ranks sharing the card, through
+    python -m rrt_tpu_torch.parallel.train_step, against the same step
+    in this process, run twice for the spread. Returns the train kernels'
+    launches a rank."""
+    from rrt_tpu_torch import render
+    from rrt_tpu_torch.parallel import train_step
+    from rrt_tpu_torch.parallel.launch import launch
+    cfg = render.RenderConfig(width=TRAIN["width"], height=TRAIN["height"],
+                              spp=TRAIN["spp"], max_depth=TRAIN["max_depth"])
+    one = [train_step.run(cfg, "chap12", device) for _ in range(2)]
+    keys = [k for k in one[0] if k.startswith("grad/")]
+
+    def rel(a, b, k):
+        return float(np.abs(a[k] - b[k]).max()
+                     / max(np.abs(b[k]).max(), 1e-6))
+    spread = {k: rel(one[1], one[0], k) for k in keys}
+    worst = max(spread, key=spread.get)
+    print(f"  two single-process steps: gradients apart by up to "
+          f"{spread[worst]:.3e} of a field's largest ({worst}); "
+          f"{one[0]['wall_s']:.3f} s, {one[1]['wall_s']:.3f} s, peak "
+          f"{one[0]['peak_bytes'] / 1e9:.3f} GB  [{card}]", flush=True)
+    gate = {k: max(D1_GRAD_FLOOR, 2.0 * s) for k, s in spread.items()}
+    dp, sp = map(int, D1_TRAIN_MESH.split("x"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        logs = launch(["rrt_tpu_torch.parallel.train_step", "--scene",
+                       "chap12", "-r", f"{cfg.width}x{cfg.height}", "-s",
+                       str(cfg.spp), "--max-depth", str(cfg.max_depth),
+                       "--device", "cuda", "--mesh", D1_TRAIN_MESH, "--out",
+                       tmp], dp * sp, timeout=D1_TIMEOUT, env=_rank_env(),
+                      cwd=REPO)
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{i}.npz")))
+                 for i in range(dp * sp)]
+    print(f"    {logs[0].splitlines()[-1] if logs[0] else ''}")
+    for i, r in enumerate(ranks):
+        print(f"    rank {i}: backend {r['backend']}, loss "
+              f"{float(r['loss']):.6e}"
+              f" (one process {float(one[0]['loss']):.6e}), "
+              f"{float(r['wall_s']):.3f} s, peak "
+              f"{int(r['peak_bytes']) / 1e9:.3f} GB, launches train_fwd "
+              f"{int(r['launches'][0])}, train_bwd {int(r['launches'][1])}",
+              flush=True)
+    err = {k: max(rel(r, one[0], k) for r in ranks) for k in keys}
+    over = {k: (e, gate[k]) for k, e in err.items() if e > gate[k]}
+    worst = max(err, key=err.get)
+    params = [k for k in ranks[0] if k.startswith("param/")]
+    same = all(np.array_equal(r[k], ranks[0][k])
+               for r in ranks for k in params)
+    print(f"  mesh {D1_TRAIN_MESH}: {dp * sp} ranks, {wall:.1f} s wall with "
+          f"the ranks' start; gradients within {err[worst]:.3e} of a field's "
+          f"largest of one process's ({worst}), over their gates: {over}; "
+          f"every rank's parameters the same bit for bit {same}  [{card}]",
+          flush=True)
+    launches = [int(r["launches"][0]) for r in ranks] + [
+        int(r["launches"][1]) for r in ranks]
+    check(not over and same and min(launches) >= 1,
+          ("[D1] sharded train step", over, same, launches))
+    check(all(str(r["backend"]) == "gloo" for r in ranks), "[D1] backend")
+    return [int(r["launches"][0]) for r in ranks], [
+        int(r["launches"][1]) for r in ranks]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5165,6 +5408,18 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(device)
     r2 = rr_train_phase(device, card, q1["counts"])
     peak_memory("[R2]", device, card)
+    phases.start("D1", f"the row window: tile_render, train_fwd and "
+                 f"train_bwd on bands {list(D1_BANDS)} vs the full launch; "
+                 f"then the main paths over ranks sharing the card: the CLI "
+                 f"on meshes {', '.join(D1_MESHES)}, the train step on "
+                 f"{D1_TRAIN_MESH}")
+    torch.cuda.reset_peak_memory_stats(device)
+    d1 = window_phase(device, card)
+    d1_fwd = sharded_forward_phase(device, card)
+    d1_train = sharded_train_phase(device, card)
+    print("  [D1] ranks that share one card measure nothing about scaling "
+          "across cards: they take turns on its SMs", flush=True)
+    peak_memory("[D1]", device, card)
     phases.start("P1", "main path: the three probes at their full ITERS")
     p1 = probe_phase(device, card)
     phases.end()
@@ -5305,6 +5560,15 @@ def main() -> int:
             walk_registers={tags[v][2:-1]: resources.get(
                 "chain_bwd_kernel" + tags[v]) for v in tags})
 
+    def windowed(name, launches):
+        # [D1]: the kernel on D1_BANDS' two bands (window_band_ms) beside
+        # its full launch (window_full_ms), tile_render at MAIN, the train
+        # kernels at TRAIN; sharded_launches: each rank's launches on
+        # [D1]'s main paths (the CLI's meshes, the train step's ranks).
+        return dict(window_full_ms=d1[name]["full_ms"],
+                    window_band_ms=d1[name]["band_ms"],
+                    sharded_launches=launches)
+
     def probe(name, replaces, launches, err, rows, plain_ms):
         return entry(name, csrc + "probes.cu", replaces, launches, err,
                      rows[0][1], plain_ms, (rows[0][2], "operations"),
@@ -5328,6 +5592,7 @@ def main() -> int:
               **textured("tile_render", "tile", 0, "tile_render_kernel"),
               **rttnw(f1["tile"], f1_launches[0], "tile_render_kernel"),
               **rr(r1["tile"], r1_launches[0]),
+              **windowed("tile_render", d1_fwd),
               registers=resources.get("tile_render_kernel")),
         entry("train_fwd", csrc + "train.cu",
               "rrt_tpu/ops/megakernel_train.py:376", fwd_launches,
@@ -5339,6 +5604,7 @@ def main() -> int:
               **textured("train_fwd", "train_fwd", 0, "train_fwd_kernel"),
               **f3["train_fwd"], **rr(r2["train_fwd"],
                                       r2["train_fwd"]["launches"]),
+              **windowed("train_fwd", d1_train[0]),
               **moving(m_t["fwd_ms"], m_t["fwd_bound"],
                        moving_launches=m3_launches[0])),
         entry("train_bwd", csrc + "train.cu",
@@ -5352,6 +5618,8 @@ def main() -> int:
               **textured("train_bwd", "train_bwd", 1, "train_bwd_kernel"),
               **f3["train_bwd"], **rr(r2["train_bwd"],
                                       r2["train_bwd"]["launches"]),
+              **windowed("train_bwd", d1_train[1]),
+              window_spread=d1["train_bwd"]["spread"],
               **moving(m_t["bwd_ms"], m_t["bwd_bound"],
                        moving_launches=m3_launches[1])),
         entry("bounce_steps", csrc + "queue.cu",

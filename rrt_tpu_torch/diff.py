@@ -11,7 +11,10 @@ The counterpart of rrt_tpu's `diff.py` on the train kernels
 Discrete sampling decisions (winners, roots, branches, checker parity)
 are booleans replayed by the backward, so sampling is detached as
 path-replay backprop prescribes: gradients flow only through continuous
-quantities. Sharding (`mesh`) is ROADMAP Queue A #12.
+quantities. With a `mesh` (parallel/mesh.py: a (dp, sp) mesh of
+processes, every rank calling the same step) each rank renders its band
+of rows and its share of the samples, and every rank ends with the
+whole gradient and the same parameters.
 """
 
 import dataclasses
@@ -24,6 +27,7 @@ from .camera import Camera
 from .ops import megakernel as ops_mega
 from .ops import megakernel_train as ops_train
 from .ops.megakernel_vjp import solid_inputs
+from .parallel import mesh as _mesh
 from .render import (DIFF_SAMPLE_BUDGET, RenderConfig, _check_card_scope,
                      _check_device, _check_diff_scope, _packs,
                      _warn_diff_fallback, diff_fallback_reason,
@@ -61,26 +65,38 @@ def combine(scene: SceneArrays, params: dict) -> SceneArrays:
     return dataclasses.replace(scene, **params)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (mesh) is not ported to rrt_tpu_torch yet "
-            "(ROADMAP Queue A #12)")
+def _check_mesh(mesh, device):
+    """The device a step runs on: the mesh's, which must be `device`'s
+    type, with a mesh; `device` without."""
+    if mesh is None:
+        return _check_device(device)
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} differs from the mesh's "
+                         f"{mesh.device}")
+    return _check_device(mesh.device)
 
 
 def render_loss(params: dict, camera: Camera, scene: SceneArrays, target,
                 cfg: RenderConfig, seed, mesh=None, *, device):
-    """MSE between a differentiable render and a target image (H,W,3)."""
-    _no_mesh(mesh)
-    img, _ = render_image_diff(combine(scene, params), camera, cfg, seed,
-                               device=device)
-    return torch.mean((img - target) ** 2)
+    """MSE between a differentiable render and a target image (H,W,3).
+    With a mesh (parallel.mesh.Mesh; every rank calls it) the render is
+    parallel.mesh.render_image_diff_sharded on the mesh's device, and a
+    backward leaves every rank the whole gradient."""
+    if mesh is None:
+        img, _ = render_image_diff(combine(scene, params), camera, cfg, seed,
+                                   device=device)
+    else:
+        _check_mesh(mesh, device)
+        img, _ = _mesh.render_image_diff_sharded(
+            combine(scene, params), camera, cfg, seed, mesh)
+    return torch.mean((img - target.to(img.device)) ** 2)
 
 
-def _residual_budget_bytes(device) -> int:
+def _residual_budget_bytes(device, share: int = 1) -> int:
     """Device memory one train launch's residual may take. Half the free
     memory of the card (torch.cuda.mem_get_info), or of the host for
-    the CPU; RRT_RESIDUAL_BUDGET_GB overrides it."""
+    the CPU, divided among the `share` ranks that drive the same device;
+    RRT_RESIDUAL_BUDGET_GB overrides it."""
     env = os.environ.get("RRT_RESIDUAL_BUDGET_GB")
     if env:
         return int(float(env) * 1e9)
@@ -89,27 +105,41 @@ def _residual_budget_bytes(device) -> int:
         free, _ = torch.cuda.mem_get_info(device)
     else:
         free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    return free // 2
+    return free // 2 // share
 
 
 def resolve_spp_chunk(cfg: RenderConfig, spp_chunk: int | None = None,
-                      *, device) -> int:
-    """The chunked trainer's samples per chunk: a divisor of cfg.spp
-    whose residual (ops_train.boundary_residual_bytes) fits the budget
-    (_residual_budget_bytes). Without a request it is cfg.spp when that
-    fits (one chunk, no re-render), otherwise the largest admissible
-    divisor; a request is honoured, or adjusted to the largest
-    admissible divisor below it with a one-time warning."""
-    budget = _residual_budget_bytes(device)
-    n_pix = cfg.width * cfg.height
+                      *, device, mesh=None) -> int:
+    """The chunked trainer's samples per chunk: a divisor of cfg.spp,
+    a multiple of the mesh's sp (each chunk splits evenly over the sample
+    axis), whose residual on one rank (ops_train.boundary_residual_bytes
+    of the tallest dp band's pixels and chunk / sp samples: the dp-aware
+    cap rrt_tpu's lacks) fits the budget (_residual_budget_bytes, shared
+    among the ranks on one device). Without a request it is cfg.spp when
+    that fits (one chunk, no re-render), otherwise the largest
+    admissible chunk; a request is honoured, or adjusted to the largest
+    admissible chunk below it with a one-time warning."""
+    sp = 1 if mesh is None else mesh.sp
+    budget = _residual_budget_bytes(
+        device if mesh is None else mesh.device,
+        1 if mesh is None else mesh.share)
+    rows = cfg.height if mesh is None else _mesh.max_band_rows(mesh,
+                                                                cfg.height)
+    n_pix = cfg.width * rows
     chunk = min(spp_chunk, cfg.spp) if spp_chunk else cfg.spp
-    eff = next((c for c in range(chunk, 0, -1) if cfg.spp % c == 0
-                and ops_train.boundary_residual_bytes(n_pix, c) <= budget),
-               None)
+    eff = next((c for c in range(chunk, 0, -1)
+                if cfg.spp % c == 0 and c % sp == 0
+                and ops_train.boundary_residual_bytes(n_pix, c // sp)
+                <= budget), None)
     if eff is None:
+        if not any(cfg.spp % c == 0 and c % sp == 0
+                   for c in range(chunk, 0, -1)):
+            raise ValueError(
+                f"no admissible spp chunk: cfg.spp={cfg.spp} must have a "
+                f"divisor that is a multiple of sp={sp}")
         raise ValueError(
             f"no admissible spp chunk: even one sample's residual at "
-            f"{cfg.width}x{cfg.height} exceeds the {budget / 1e9:.3f} GB "
+            f"{cfg.width}x{rows} exceeds the {budget / 1e9:.3f} GB "
             "budget (RRT_RESIDUAL_BUDGET_GB raises it)")
     if spp_chunk and eff != spp_chunk:
         _warn_chunk_adjusted(spp_chunk, eff, budget)
@@ -181,20 +211,23 @@ def field_grads(scene: SceneArrays, camera: Camera, cfg: RenderConfig,
 
 
 def loss_and_grads(cfg: RenderConfig, scene: SceneArrays, camera: Camera,
-                   target, seed, *, device):
+                   target, seed, mesh=None, *, device):
     """The one-shot step's work before its update: (loss, gradients of
     the partition() fields (dict), gradients of the nine Camera fields
-    (list)) of the MSE render loss."""
+    (list)) of the MSE render loss; with a mesh, on its device, the whole
+    gradient on every rank (render_loss)."""
+    device = _check_mesh(mesh, device)
     scene_d, params, cam = _leaves(scene, camera, device)
     loss = render_loss(params, cam, scene_d, target.to(device), cfg, seed,
-                       device=device)
+                       mesh, device=device)
     gp, gc = _grads(loss, params, cam)
     return loss.detach(), gp, gc
 
 
 def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
                            camera: Camera, target, seed,
-                           spp_chunk: int | None = None, *, device):
+                           spp_chunk: int | None = None, mesh=None, *,
+                           device):
     """loss_and_grads in sample chunks (resolve_spp_chunk), exploiting
     the image's linearity in per-chunk radiance:
 
@@ -207,19 +240,31 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
               same cotangent; gradients add up.
 
     Its gradient is the one-shot one on the same keys, up to f32
-    summation order."""
+    summation order. With a mesh every rank renders its dp band's rows
+    and its sp share (chunk / sp) of each chunk's samples; the image is
+    the world's sum (parallel.mesh.assemble), every rank takes the loss
+    and its band's rows of the cotangent, and the leaves' gradients are
+    summed over the world (parallel.mesh.replicate_leaves), so every rank
+    returns the whole gradient."""
     _check_diff_scope("make_train_step_chunked", scene, cfg)
+    device = _check_mesh(mesh, device)
     scene_d, params, cam = _leaves(scene, camera, device)
-    chunk = resolve_spp_chunk(cfg, spp_chunk, device=device)
+    chunk = resolve_spp_chunk(cfg, spp_chunk, device=device, mesh=mesh)
+    if mesh is None:
+        window, share, scene_r, cam_r = None, (0, chunk), scene_d, cam
+    else:
+        window = _mesh.band(mesh, cfg.height)
+        share = _mesh.sample_range(mesh, chunk)
+        scene_r, cam_r = _mesh.replicate_leaves(mesh, scene_d, cam)
 
     def chain(lo):
         rad, _ = ops_train.TileTrainChain.apply(
-            *_packs(scene_d, cam, cfg, device), key_words(seed), lo,
-            cfg.width, cfg.height, chunk, cfg.max_depth, cfg.t_min,
-            scene.has_moving,
-            *solid_inputs(ops_mega.pack_solids(scene_d, device),
-                          ops_mega.pack_textures(scene_d, device),
-                          cfg.rr_depth))
+            *_packs(scene_r, cam_r, cfg, device), key_words(seed),
+            lo + share[0], cfg.width, cfg.height, share[1], cfg.max_depth,
+            cfg.t_min, scene.has_moving,
+            *solid_inputs(ops_mega.pack_solids(scene_r, device),
+                          ops_mega.pack_textures(scene_r, device),
+                          cfg.rr_depth), window)
         return rad
 
     rad0 = chain(0)
@@ -231,16 +276,21 @@ def loss_and_grads_chunked(cfg: RenderConfig, scene: SceneArrays,
             tex = ops_mega.pack_textures(scene_d, device)
         for lo in range(chunk, cfg.spp, chunk):
             r, _ = ops_mega.render_tiles(
-                *packs, seed_words=key_words(seed), sample_lo=lo,
-                width=cfg.width, height=cfg.height, spp=chunk,
+                *packs, seed_words=key_words(seed), sample_lo=lo + share[0],
+                width=cfg.width, height=cfg.height, spp=share[1],
                 max_depth=cfg.max_depth, t_min=cfg.t_min,
                 moving=scene.has_moving, bvh=bvh, solids=solids, tex=tex,
-                rr_depth=cfg.rr_depth)
+                rr_depth=cfg.rr_depth, **({} if window is None else dict(
+                    row_lo=window[0], row_hi=window[1])))
             rad_sum = rad_sum + r
+        if mesh is not None:
+            rad_sum = _mesh.assemble(mesh, rad_sum, *window, cfg)
     rs = rad_sum.requires_grad_()
     img = rs.reshape(cfg.height, cfg.width, 3) / float(cfg.spp)
     loss = torch.mean((img - target.to(device)) ** 2)
     (cot,) = torch.autograd.grad(loss, rs)
+    if window is not None:  # the band's rows of the image's cotangent
+        cot = cot[window[0] * cfg.width:window[1] * cfg.width]
     gp, gc = _grads(rad0, params, cam, cot)
     del rad0  # chunk 0's residual goes before the next chunk's
     for lo in range(chunk, cfg.spp, chunk):
@@ -254,10 +304,11 @@ def make_train_step_chunked(cfg: RenderConfig, lr: float = 1e-2,
                             spp_chunk: int | None = None, mesh=None, *,
                             device):
     """Full-spp MSE training step through loss_and_grads_chunked, then
-    SGD on the parameters and the camera. Returns step(scene, camera,
-    target, seed) -> (scene', camera', loss)."""
-    _no_mesh(mesh)
-    device = _check_device(device)
+    SGD on the parameters and the camera; with a mesh (every rank
+    calling the step) sharded as loss_and_grads_chunked says, every
+    rank's new parameters the same. Returns step(scene, camera, target,
+    seed) -> (scene', camera', loss)."""
+    device = _check_mesh(mesh, device)
 
     fallback = []
 
@@ -271,11 +322,12 @@ def make_train_step_chunked(cfg: RenderConfig, lr: float = 1e-2,
         if reason is not None:
             _warn_diff_fallback("make_train_step_chunked", reason)
             if not fallback:
-                fallback.append(_make_train_step_oneshot(cfg, lr,
-                                                         device=device))
+                fallback.append(_make_train_step_oneshot(
+                    cfg, lr, mesh, device=device))
             return fallback[0](scene, camera, target, seed)
         loss, gp, gc = loss_and_grads_chunked(cfg, scene, camera, target,
-                                              seed, spp_chunk, device=device)
+                                              seed, spp_chunk, mesh,
+                                              device=device)
         return (*_sgd(scene, camera, gp, gc, lr, device), loss)
 
     return step
@@ -285,21 +337,24 @@ def make_train_step(cfg: RenderConfig, lr: float = 1e-2, mesh=None, *,
                     device):
     """Full training step: differentiable render + backward + SGD update
     of the parameters and the camera. Sample budgets beyond
-    4 * DIFF_SAMPLE_BUDGET go through make_train_step_chunked, as in
-    rrt_tpu. Returns step(scene, camera, target, seed) ->
-    (scene', camera', loss)."""
-    _no_mesh(mesh)
-    if cfg.spp > 4 * DIFF_SAMPLE_BUDGET:
-        return make_train_step_chunked(cfg, lr=lr, device=device)
-    return _make_train_step_oneshot(cfg, lr, device=device)
+    4 * DIFF_SAMPLE_BUDGET a rank (spp / sp on a mesh) go through
+    make_train_step_chunked, as in rrt_tpu. With a mesh every rank calls
+    the step (render_loss), and every rank's new parameters are the
+    same. Returns step(scene, camera, target, seed) -> (scene', camera',
+    loss)."""
+    sp = 1 if mesh is None else mesh.sp
+    if cfg.spp > 4 * DIFF_SAMPLE_BUDGET * sp:
+        return make_train_step_chunked(cfg, lr=lr, mesh=mesh, device=device)
+    return _make_train_step_oneshot(cfg, lr, mesh, device=device)
 
 
-def _make_train_step_oneshot(cfg: RenderConfig, lr: float, *, device):
-    device = _check_device(device)
+def _make_train_step_oneshot(cfg: RenderConfig, lr: float, mesh=None, *,
+                             device):
+    device = _check_mesh(mesh, device)
 
     def step(scene: SceneArrays, camera: Camera, target, seed):
         loss, gp, gc = loss_and_grads(cfg, scene, camera, target, seed,
-                                      device=device)
+                                      mesh, device=device)
         return (*_sgd(scene, camera, gp, gc, lr, device), loss)
 
     return step

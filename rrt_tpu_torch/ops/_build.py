@@ -6,11 +6,15 @@ build/rrt_tpu_torch/ at the root of the checkout: one nvcc per source,
 all started together, then one link. The file name carries a hash of
 the sources, the header and the flags, so an edited file builds anew
 and an unchanged one is reused. Nothing is built when this module is
-imported.
+imported. Processes that load the kernels at once (the ranks of a
+sharded run) build them once: the first takes a lock file beside the
+library and builds in a temporary directory, renamed into place, while
+the others wait on the lock and then load its library.
 """
 
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -112,6 +116,17 @@ def build() -> Build:
         return Build(out, 0.0,
                      log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if out.exists():  # another process built it while this one waited
+            return Build(out, 0.0, log_path.read_text()
+                         if log_path.exists() else "")
+        return _compile(srcs, out, log_path)
+
+
+def _compile(srcs, out: Path, log_path: Path) -> Build:
+    """nvcc each source in parallel into a temporary directory, link,
+    write the log, then rename the library into place."""
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
@@ -133,8 +148,10 @@ def build() -> Build:
         log += link.stdout + link.stderr
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees a part
+        log_tmp = Path(tmp_dir) / log_path.name
+        log_tmp.write_text(log)
+        os.replace(log_tmp, log_path)
+        os.replace(tmp, out)  # atomic: a concurrent load never sees a part
     return Build(out, time.perf_counter() - t0, log)
 
 
@@ -180,13 +197,13 @@ def load() -> ctypes.CDLL:
     s = ctypes.POINTER(SolidArgs)
     t = ctypes.POINTER(TexArgs)
     lib.rrt_tile_render.argtypes = [p, i, p, p, p, p, i, i, i, s, t, u, u, u,
-                                    i, i, i, i, i, f, i, p, p, p]
+                                    i, i, i, i, i, i, f, i, p, p, p]
     lib.rrt_tile_render.restype = i
     lib.rrt_train_fwd.argtypes = [p, i, p, p, s, t, u, u, u, i, i, i, i, i,
-                                  f, i, i, p, p, p, p, p]
+                                  i, f, i, i, p, p, p, p, p]
     lib.rrt_train_fwd.restype = i
     lib.rrt_train_bwd.argtypes = [p, i, p, p, s, t, p, p, p, i, u, u, u, i,
-                                  i, i, i, i, f, i, p, p, p, p]
+                                  i, i, i, i, i, f, i, p, p, p, p]
     lib.rrt_train_bwd.restype = i
     lib.rrt_bounce_steps.argtypes = [p, p, i, p, i, p, p, i, i, i, s, t, p,
                                      i, i, i, f, i, p]

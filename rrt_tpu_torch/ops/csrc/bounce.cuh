@@ -1995,32 +1995,40 @@ struct BvhWalk {
 // ---------------------------------------------------------------------------
 
 // Trace samples [lo, lo + spp) of pixel (px, py), gid = py * width + px,
-// back to back: one loop over segments that starts sample s + 1's
-// camera ray as soon as sample s misses, is absorbed or reaches
-// max_depth, as the TPU kernel regenerates a dead path, so a warp waits
-// for its slowest pixel's total rather than for each sample's longest
-// path. Sample s uses the key threefry2x32(s0, s1, gid, lo + s), the
-// camera draws counter 0 and the scatter draws counter bounce*8+1
-// (rrt_tpu.rng's addressing, so a path's random numbers are
-// bit-identical to the reference's). Radiance is summed in sample order,
-// bounce by bounce. `closest` finds each segment's closest hit
-// (SlotScan or BvhWalk: the same (t, win) bit for bit; with kSolids
-// seeded by the quads and boxes of `sv`). With kResidual
-// (train_fwd) it keeps the backward's residual: each path's bounce
-// count in lengths[s * n_pix + gid], and the winner of the pixel's j-th
-// segment in winners[j * n_pix + gid] for j < win_cap (-1 on a miss;
-// with kSolids its winner_code). kTex: bounce_step's (sv given);
-// rr_depth: Russian roulette's first bounce (0: off; finish_bounce), whose
-// kill ends a sample as an absorption does.
+// into output slot (py - row_lo) * width + px (a band of rows from
+// row_lo; n_pix its pixels, the residual's stride), back to back: one
+// loop over segments that starts sample s + 1's camera ray as soon as
+// sample s misses, is absorbed or reaches max_depth, as the TPU kernel
+// regenerates a dead path, so a warp waits for its slowest pixel's total
+// rather than for each sample's longest path. Sample s uses the key
+// threefry2x32(s0, s1, gid, lo + s), the camera draws counter 0 and the
+// scatter draws counter bounce*8+1 (rrt_tpu.rng's addressing, so a
+// path's random numbers are bit-identical to the reference's). Radiance
+// is summed in sample order, bounce by bounce. `closest` finds each
+// segment's closest hit (SlotScan or BvhWalk: the same (t, win) bit for
+// bit; with kSolids seeded by the quads and boxes of `sv`). With
+// kResidual (train_fwd) it keeps the backward's residual: each path's
+// bounce count in lengths[s * n_pix + slot], and the winner of the
+// pixel's j-th segment in winners[j * n_pix + slot] for j < win_cap (-1
+// on a miss; with kSolids its winner_code); the two pointers move to the
+// pixel's column once, so the loop keeps one pixel id live (gid, the
+// key's). kTex: bounce_step's (sv given); rr_depth: Russian roulette's
+// first bounce (0: off; finish_bounce), whose kill ends a sample as an
+// absorption does.
 template <bool kMoving, bool kResidual, bool kSolids = false,
           bool kTex = false, bool kWalk = false, typename Closest>
 __device__ __forceinline__ void trace_pixel(
     const Closest& closest, const float* sph, int n_slots, const float* cam,
     const float* bg, uint32_t s0, uint32_t s1, uint32_t lo, int px, int py,
-    int width, int n_pix, int spp, int max_depth, int rr_depth, float t_min,
-    int win_cap, float* rad, int* traced, uint8_t* lengths,
+    int width, int row_lo, int n_pix, int spp, int max_depth, int rr_depth,
+    float t_min, int win_cap, float* rad, int* traced, uint8_t* lengths,
     int16_t* winners, const Solids* sv = nullptr) {
   const uint32_t gid = static_cast<uint32_t>(py * width + px);
+  if constexpr (kResidual) {  // this pixel's column of the residual
+    const uint32_t col = static_cast<uint32_t>((py - row_lo) * width + px);
+    lengths += col;
+    winners += col;
+  }
   const bool sky = bg[6] < 0.5f;  // BG_SKY == 0
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int n_traced = 0;  // also the next segment's winner entry
@@ -2035,7 +2043,7 @@ __device__ __forceinline__ void trace_pixel(
         closest, sph, n_slots, bg, sky, k0, k1, bounce, max_depth, rr_depth,
         t_min, p, c, win, nullptr, sv);
     if (kResidual && n_traced < win_cap) {
-      winners[static_cast<size_t>(n_traced) * n_pix + gid] =
+      winners[static_cast<size_t>(n_traced) * n_pix] =
           static_cast<int16_t>(win);
     }
     ++n_traced;
@@ -2049,7 +2057,7 @@ __device__ __forceinline__ void trace_pixel(
       continue;
     }
     if (kResidual) {
-      lengths[static_cast<size_t>(s) * n_pix + gid] =
+      lengths[static_cast<size_t>(s) * n_pix] =
           static_cast<uint8_t>(bounce + 1);
     }
     if (++s == spp) break;
@@ -2057,10 +2065,11 @@ __device__ __forceinline__ void trace_pixel(
     start_path(cam, s0, s1, gid, lo + static_cast<uint32_t>(s), px, py, k0,
                k1, p);
   }
-  rad[3 * gid + 0] = acc_r;
-  rad[3 * gid + 1] = acc_g;
-  rad[3 * gid + 2] = acc_b;
-  traced[gid] = n_traced;
+  const uint32_t slot = static_cast<uint32_t>((py - row_lo) * width + px);
+  rad[3 * slot + 0] = acc_r;
+  rad[3 * slot + 1] = acc_g;
+  rad[3 * slot + 2] = acc_b;
+  traced[slot] = n_traced;
 }
 
 }  // namespace

@@ -83,8 +83,8 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : 4)
                        const int* __restrict__ rows_g, int n_nodes,
                        int n_rows, int n_always, const SolidArgs sa,
                        TexView tex, uint32_t s0, uint32_t s1,
-                       uint32_t lo, int width, int height, int spp,
-                       int max_depth, int rr_depth, float t_min,
+                       uint32_t lo, int width, int row_lo, int row_hi,
+                       int spp, int max_depth, int rr_depth, float t_min,
                        float* __restrict__ rad, int* __restrict__ traced) {
   extern __shared__ float4 smem[];
   __shared__ float cam[24];
@@ -103,12 +103,16 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : 4)
   if (tid < 8) bg[tid] = bg_g[tid];
   __syncthreads();
 
+  // The grid covers the rows [row_lo, row_hi); a pixel's key is its id
+  // in the whole image, its output slot its id in the band.
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
+  const int py = row_lo + static_cast<int>(blockIdx.y * blockDim.y +
+                                           threadIdx.y);
+  if (px >= width || py >= row_hi) return;
   trace_pixel<kMoving, false, kSolids, kTex, kWalk>(
-      walk, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
-      spp, max_depth, rr_depth, t_min, 0, rad, traced, nullptr, nullptr, &sv);
+      walk, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, row_lo,
+      width * (row_hi - row_lo), spp, max_depth, rr_depth, t_min, 0, rad,
+      traced, nullptr, nullptr, &sv);
 }
 
 constexpr int kThreads = 256;  // a 16x16 block
@@ -118,8 +122,8 @@ int launch(dim3 grid, dim3 block, cudaStream_t stream, const float* sph,
            int n_slots, const float* cam, const float* bg,
            const float* nodes, const int* rows, int n_nodes, int n_rows,
            int n_always, const SolidArgs* solids, TexView tex, uint32_t s0,
-           uint32_t s1, uint32_t lo, int width, int height, int spp,
-           int max_depth, int rr_depth, float t_min, float* rad,
+           uint32_t s1, uint32_t lo, int width, int row_lo, int row_hi,
+           int spp, int max_depth, int rr_depth, float t_min, float* rad,
            int* traced) {
   // Past 48 KB only after the opt-in; accel.pack_bvh keeps a pack within
   // what the card allows.
@@ -131,8 +135,8 @@ int launch(dim3 grid, dim3 block, cudaStream_t stream, const float* sph,
   const SolidArgs none{};
   kernel<<<grid, block, smem, stream>>>(
       sph, n_slots, cam, bg, nodes, rows, n_nodes, n_rows, n_always,
-      solids != nullptr ? *solids : none, tex, s0, s1, lo, width,
-      height, spp, max_depth, rr_depth, t_min, rad, traced);
+      solids != nullptr ? *solids : none, tex, s0, s1, lo, width, row_lo,
+      row_hi, spp, max_depth, rr_depth, t_min, rad, traced);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,8 +149,12 @@ int launch(dim3 grid, dim3 block, cudaStream_t stream, const float* sph,
 // moving: nonzero for the moving-sphere variant; solids: the quad and box
 // packs, their trees and the medium pack for the solid-family variant, or
 // null; tex: the atlas for the texture variant, or null; rr_depth:
-// Russian roulette's first bounce (0: off); rad: (width*height, 3) f32
-// and traced: (width*height,) i32 outputs.
+// Russian roulette's first bounce (0: off); the rows [row_lo, row_hi)
+// of a width-wide image are rendered (0 <= row_lo < row_hi <= the
+// image's height, checked by the wrapper), each pixel keyed by its id
+// in the whole image: rad: ((row_hi-row_lo)*width, 3) f32 and traced:
+// ((row_hi-row_lo)*width,) i32 outputs, the band's pixels in scan-line
+// order.
 extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const float* cam, const float* bg,
                                const float* nodes, const int* rows,
@@ -154,13 +162,13 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
                                const SolidArgs* solids,
                                const TexArgs* tex, uint32_t s0,
                                uint32_t s1, uint32_t lo, int width,
-                               int height, int spp, int max_depth,
-                               int rr_depth, float t_min, int moving,
-                               float* rad,
+                               int row_lo, int row_hi, int spp,
+                               int max_depth, int rr_depth, float t_min,
+                               int moving, float* rad,
                                int* traced, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
+                  (row_hi - row_lo + block.y - 1) / block.y);
   const auto st = static_cast<cudaStream_t>(stream);
   auto go = has_tree(solids)
                  ? RRT_PICK_WALK(launch, moving != 0, tex != nullptr)
@@ -168,7 +176,7 @@ extern "C" int rrt_tile_render(const float* sph, int n_slots,
                              tex != nullptr);
   return go(grid, block, st, sph, n_slots, cam, bg, nodes, rows, n_nodes,
             n_rows, n_always, solids, tex_view(tex), s0, s1, lo, width,
-            height, spp, max_depth, rr_depth, t_min, rad, traced);
+            row_lo, row_hi, spp, max_depth, rr_depth, t_min, rad, traced);
 }
 
 // The blocks an SM of the instantiation rrt_tile_render would launch for

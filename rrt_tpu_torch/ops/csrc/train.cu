@@ -183,8 +183,8 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : kFwdMinBlocks)
                      const float* __restrict__ cam_g,
                      const float* __restrict__ bg_g, const SolidArgs sa,
                      TexView tex, uint32_t s0, uint32_t s1, uint32_t lo,
-                     int width, int height, int spp, int max_depth,
-                     int rr_depth, float t_min, int win_cap,
+                     int width, int row_lo, int row_hi, int spp,
+                     int max_depth, int rr_depth, float t_min, int win_cap,
                      float* __restrict__ rad, int* __restrict__ traced,
                      uint8_t* __restrict__ lengths,
                      int16_t* __restrict__ winners) {
@@ -205,14 +205,16 @@ __global__ void __launch_bounds__(256, kWalk ? kWalkBlocks : kFwdMinBlocks)
   sv.tex = tex;
   __syncthreads();
 
+  // The grid covers the rows [row_lo, row_hi), as tile_render's.
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
+  const int py = row_lo + static_cast<int>(blockIdx.y * blockDim.y +
+                                           threadIdx.y);
+  if (px >= width || py >= row_hi) return;
   const SlotScan<kMoving, kHoist> scan{sph4, vel4, csq, n_slots};
   trace_pixel<kMoving, true, kSolids, kTex, kWalk>(
-      scan, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, width * height,
-      spp, max_depth, rr_depth, t_min, win_cap, rad, traced, lengths, winners,
-      &sv);
+      scan, sph, n_slots, cam, bg, s0, s1, lo, px, py, width, row_lo,
+      width * (row_hi - row_lo), spp, max_depth, rr_depth, t_min, win_cap,
+      rad, traced, lengths, winners, &sv);
 }
 
 // Adjoint of camera_ray: the cotangents of the bounce-0 origin,
@@ -346,7 +348,10 @@ __device__ __forceinline__ int replay_solid_step(
 // The backward of one pixel's samples [lo, lo + spp): pack cotangents
 // into `acc` (the block's row of the partials, kSlotCols floats a slot:
 // the spheres', then with kSolids the active quads', boxes' and media's),
-// camera and background ones into g_cam / g_bg. kMedia = false: sv has
+// camera and background ones into g_cam / g_bg. The pixel's key is its
+// id in the whole image, gid = py * width + px; its d_rad, lengths and
+// winners are at band_id = (py - row_lo) * width + px of the band of
+// rows from row_lo (n_pix its pixels). kMedia = false: sv has
 // no media, and their code is left out. kTex: sv's textures (a light's
 // emission then through emit_adjoint_tex). rr_depth: Russian roulette's
 // first bounce (0: off), whose coin the replay redraws and whose weight
@@ -355,15 +360,19 @@ template <bool kMoving, bool kSolids, bool kMedia, bool kTex>
 __device__ __forceinline__ void adjoint_pixel(
     const float* sph, const float4* sph4, const float4* vel4, int n_slots,
     const Solids& sv, const float* cam, const float* bg, uint32_t s0,
-    uint32_t s1, uint32_t lo, int px, int py, int width, int n_pix, int spp,
-    int max_depth, int rr_depth, float t_min, const float* d_rad,
-    const uint8_t* lengths,
-    const int16_t* winners, int win_cap, float* acc, float* g_cam,
-    float* g_bg, int* mismatches) {
+    uint32_t s1, uint32_t lo, int px, int py, int width, int row_lo,
+    int n_pix, int spp, int max_depth, int rr_depth, float t_min,
+    const float* d_rad, const uint8_t* lengths, const int16_t* winners,
+    int win_cap, float* acc, float* g_cam, float* g_bg, int* mismatches) {
   const uint32_t gid = static_cast<uint32_t>(py * width + px);
+  const uint32_t band_id = static_cast<uint32_t>((py - row_lo) * width + px);
   const bool sky = bg[6] < 0.5f;
-  const float dr[3] = {d_rad[3 * gid], d_rad[3 * gid + 1],
-                       d_rad[3 * gid + 2]};
+  const float dr[3] = {d_rad[3 * band_id], d_rad[3 * band_id + 1],
+                       d_rad[3 * band_id + 2]};
+  // The pixel's columns of the residual, so that the loops below keep
+  // one pixel id live (gid, the key's).
+  lengths += band_id;
+  winners = winners != nullptr ? winners + band_id : winners;
   Record rec[kMaxRecords];
   float kept[kMaxRecords][3];  // what each bounce's draws decided (shade)
   int first = 0;  // the sample's first winner entry
@@ -374,7 +383,7 @@ __device__ __forceinline__ void adjoint_pixel(
     const CamDraws cd = start_path(cam, s0, s1, gid,
                                    lo + static_cast<uint32_t>(s), px, py,
                                    k0, k1, p);
-    const int length = lengths[static_cast<size_t>(s) * n_pix + gid];
+    const int length = lengths[static_cast<size_t>(s) * n_pix];
 
     // 1. replay, keeping each bounce's input state and winner.
     int n = 0, last = kAbsorbed;
@@ -386,7 +395,7 @@ __device__ __forceinline__ void adjoint_pixel(
       const int j = first + bounce;
       const int stored =
           bounce < length && j < win_cap
-              ? winners[static_cast<size_t>(j) * n_pix + gid]
+              ? winners[static_cast<size_t>(j) * n_pix]
               : kUnstored;
       if constexpr (kSolids) {
         last = replay_solid_step<kMoving, kMedia, kTex>(
@@ -468,8 +477,8 @@ __global__ void __launch_bounds__(kBwdThreads)
                      const uint8_t* __restrict__ lengths,
                      const int16_t* __restrict__ winners, int win_cap,
                      uint32_t s0, uint32_t s1, uint32_t lo, int width,
-                     int height, int spp, int max_depth, int rr_depth,
-                     float t_min, float* __restrict__ partials,
+                     int row_lo, int row_hi, int spp, int max_depth,
+                     int rr_depth, float t_min, float* __restrict__ partials,
                      int* __restrict__ mismatches) {
   // Dynamic shared memory (staged_bytes): the staged rows of every slot
   // (float4: intersection rows, then velocity rows when moving); with
@@ -499,21 +508,22 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int j = 0; j < 24; ++j) g_cam[j] = 0.0f;
   for (int j = 0; j < 6; ++j) g_bg[j] = 0.0f;
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px < width && py < height) {  // no early return: all sync below
+  const int py = row_lo + static_cast<int>(blockIdx.y * blockDim.y +
+                                           threadIdx.y);
+  if (px < width && py < row_hi) {  // no early return: all sync below
     // A scene without media takes the pixel's backward without the media's
     // code, the kernel's before media: with it, cornell's backward ran 5%
     // slower in turns on an H100 (more spills in the sweep).
     if (kSolids && n_media > 0) {
       adjoint_pixel<kMoving, kSolids, true, kTex>(
           sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
-          width * height, spp, max_depth, rr_depth, t_min, d_rad, lengths,
-          winners, win_cap, out, g_cam, g_bg, mismatches);
+          row_lo, width * (row_hi - row_lo), spp, max_depth, rr_depth, t_min,
+          d_rad, lengths, winners, win_cap, out, g_cam, g_bg, mismatches);
     } else {
       adjoint_pixel<kMoving, kSolids, false, kTex>(
           sph, sph4, vel4, n_slots, sv, cam, bg, s0, s1, lo, px, py, width,
-          width * height, spp, max_depth, rr_depth, t_min, d_rad, lengths,
-          winners, win_cap, out, g_cam, g_bg, mismatches);
+          row_lo, width * (row_hi - row_lo), spp, max_depth, rr_depth, t_min,
+          d_rad, lengths, winners, win_cap, out, g_cam, g_bg, mismatches);
     }
   }
 
@@ -572,21 +582,24 @@ auto bwd_kernel(int n_slots, bool moving, const SolidArgs* solids, bool tex,
 // with the families' trees for the kWalk one (a family past kSolidCap
 // active slots must have its tree), or null; tex: the atlas for the
 // texture variant, or null; moving: nonzero for the moving-sphere
-// variant; outputs rad: (width*height, 3) f32, traced: (width*height,)
-// i32, lengths: (spp, width*height) uint8, winners: (win_cap,
-// width*height) int16, winner codes (the entries past a pixel's segments
+// variant; the rows [row_lo, row_hi) of a width-wide image are traced
+// (0 <= row_lo < row_hi <= the image's height, checked by the wrapper),
+// each pixel keyed by its id in the whole image, and with P =
+// (row_hi-row_lo)*width the band's pixels in scan-line order: outputs
+// rad: (P, 3) f32, traced: (P,) i32, lengths: (spp, P) uint8, winners:
+// (win_cap, P) int16, winner codes (the entries past a pixel's segments
 // are left as they were); rr_depth: Russian roulette's first bounce (0:
 // off).
 extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
                              const float* bg, const SolidArgs* solids,
                              const TexArgs* tex, uint32_t s0, uint32_t s1,
-                             uint32_t lo, int width, int height, int spp,
-                             int max_depth, int rr_depth, float t_min,
-                             int moving,
+                             uint32_t lo, int width, int row_lo,
+                             int row_hi, int spp, int max_depth,
+                             int rr_depth, float t_min, int moving,
                              int win_cap, float* rad, int* traced,
                              uint8_t* lengths, int16_t* winners,
                              void* stream) {
-  const dim3 grid((width + 15) / 16, (height + 15) / 16);
+  const dim3 grid((width + 15) / 16, (row_hi - row_lo + 15) / 16);
   const SolidArgs none{};
   size_t smem;
   // As tile_render: 3072 slots need the opt-in above 48 KB.
@@ -595,19 +608,22 @@ extern "C" int rrt_train_fwd(const float* sph, int n_slots, const float* cam,
   return launch_tiles(kernel, grid, smem, static_cast<cudaStream_t>(stream),
                       sph, n_slots, cam, bg,
                       solids != nullptr ? *solids : none, tex_view(tex), s0,
-                      s1, lo, width, height, spp, max_depth, rr_depth, t_min,
-                      win_cap, rad, traced, lengths, winners);
+                      s1, lo, width, row_lo, row_hi, spp, max_depth,
+                      rr_depth, t_min, win_cap, rad, traced, lengths,
+                      winners);
 }
 
 // The backward: train_bwd_kernel, then two fixed-order reductions of its
 // per-block partials. solids as rrt_train_fwd's (the trees are not
 // read: the replay tests a stored winner alone and loops over every
-// active quad and box past the pool); d_rad: (width*height, 3) f32;
+// active quad and box past the pool); the rows [row_lo, row_hi) as
+// rrt_train_fwd's, with P its pixels: d_rad: (P, 3) f32;
 // lengths and winners as written by rrt_train_fwd with the same win_cap
 // and solids (win_cap 0: no winners, every segment scans; winners may be
 // null); scratch: (n_blocks + ceil(n_blocks / 64)) * n_cols f32 with
-// n_blocks = ceil(width/16) * ceil(height/16) and n_cols = kSlotCols *
-// (n_slots + n_quads + n_boxes + n_media) + 32; sums: (n_cols,) f32 out
+// n_blocks = ceil(width/16) * ceil((row_hi-row_lo)/16) and n_cols =
+// kSlotCols * (n_slots + n_quads + n_boxes + n_media) + 32; sums:
+// (n_cols,) f32 out
 // (slot-major: kSlotCols floats a slot, a sphere's 12 (15 when moving)
 // gradient rows then zeros, then the active quads', boxes' and media's
 // columns (adjoint.cuh kQuadAccPlane, kMedAccRadius ...); then 24 camera
@@ -621,16 +637,16 @@ extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
                              const TexArgs* tex, const float* d_rad,
                              const uint8_t* lengths, const int16_t* winners,
                              int win_cap, uint32_t s0, uint32_t s1,
-                             uint32_t lo, int width, int height, int spp,
-                             int max_depth, int rr_depth, float t_min,
-                             int moving,
+                             uint32_t lo, int width, int row_lo,
+                             int row_hi, int spp, int max_depth,
+                             int rr_depth, float t_min, int moving,
                              float* scratch, float* sums, int* mismatches,
                              void* stream) {
   if (max_depth + 1 > kMaxRecords) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((width + 15) / 16, (height + 15) / 16);
+  const dim3 grid((width + 15) / 16, (row_hi - row_lo + 15) / 16);
   const SolidArgs none{};
   const SolidArgs& sa = solids != nullptr ? *solids : none;
   const int n_blocks = static_cast<int>(grid.x * grid.y);
@@ -642,8 +658,8 @@ extern "C" int rrt_train_bwd(const float* sph, int n_slots, const float* cam,
       bwd_kernel(n_slots, moving != 0, solids, tex != nullptr, smem);
   const int err = launch_tiles(kernel, grid, smem, st, sph, n_slots, cam, bg,
                                sa, tex_view(tex), d_rad, lengths, winners,
-                               win_cap, s0, s1, lo, width, height, spp,
-                               max_depth, rr_depth, t_min, scratch,
+                               win_cap, s0, s1, lo, width, row_lo, row_hi,
+                               spp, max_depth, rr_depth, t_min, scratch,
                                mismatches);
   if (err != 0) return err;
   return static_cast<int>(

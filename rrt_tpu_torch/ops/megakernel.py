@@ -397,6 +397,17 @@ def pack_bg(scene: SceneArrays):
 # ---------------------------------------------------------------------------
 
 
+def check_window(height: int, row_lo: int = 0, row_hi: int | None = None):
+    """The band of rows [row_lo, row_hi) a tile launch traces (row_hi
+    None: the image's last row), checked: 0 <= row_lo < row_hi <= height.
+    Returns (row_lo, row_hi)."""
+    row_hi = height if row_hi is None else row_hi
+    if not 0 <= row_lo < row_hi <= height:
+        raise ValueError(f"row window [{row_lo}, {row_hi}) is outside the "
+                         f"image's rows [0, {height})")
+    return int(row_lo), int(row_hi)
+
+
 def _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth,
                   rr_depth=0):
     packs = (("sph24", sph24), ("cam24", cam24), ("bg8", bg8))
@@ -614,8 +625,10 @@ def _check_tex(tex, device, d_atlas=None):
 def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                  width: int, height: int, spp: int, max_depth: int,
                  t_min: float, moving: bool, bvh=None, solids=None,
-                 tex=None, rr_depth: int = 0):
-    """Render samples [sample_lo, sample_lo + spp) of every pixel.
+                 tex=None, rr_depth: int = 0, row_lo: int = 0,
+                 row_hi: int | None = None):
+    """Render samples [sample_lo, sample_lo + spp) of every pixel of
+    the rows [row_lo, row_hi) (default all; check_window).
 
     sph24 (24,S), cam24 (24,) and bg8 (8,) are the packs, all on one
     device; seed_words: the (s0, s1) u32 key words of the seed; moving:
@@ -627,17 +640,20 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     the scene's TexPack (perlin or image textures: the texture variant)
     or None; rr_depth: Russian roulette's first bounce (0: off; the
     module docstring). Returns (radiance sums (P,3) f32 in scan-line
-    order, traced-ray counts (P,) int32), P = width * height, on the
-    packs' device.
+    order, traced-ray counts (P,) int32), P = width * (row_hi - row_lo),
+    on the packs' device. A pixel's keys are those of its id in the
+    whole image, so a band is the full launch's rows bit for bit.
 
     CUDA tensors launch the kernel (and count the launch in
     `render_tiles.launches`); CPU tensors run render_tiles_reference,
     whose linear scan gives the walk's winners."""
     _check_inputs(sph24, cam24, bg8, width, height, spp, max_depth,
                   rr_depth)
+    row_lo, row_hi = check_window(height, row_lo, row_hi)
     kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
               height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth,
+              row_lo=row_lo, row_hi=row_hi)
     device = sph24.device
     solid_arg = _check_solids(solids, device, "walk")
     tex_arg = _check_tex(tex, device)
@@ -652,7 +668,7 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     tree = _check_bvh(bvh, sph24, "render_tiles")
     _check_forward_smem(bvh, solids, moving, "render_tiles")
     lib = _build.load()
-    n_pix = width * height
+    n_pix = width * (row_hi - row_lo)
     rad = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
     traced = torch.empty((n_pix,), dtype=torch.int32, device=device)
     s0, s1 = rng._seed_words(tuple(seed_words))
@@ -661,8 +677,8 @@ def render_tiles(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         err = lib.rrt_tile_render(
             sph24.data_ptr(), n_slots, cam24.data_ptr(), bg8.data_ptr(),
             *tree, solid_arg, tex_arg, s0, s1, sample_lo & rng.MASK32,
-            width, height, spp, max_depth, rr_depth, t_min, int(moving),
-            rad.data_ptr(), traced.data_ptr(), stream)
+            width, row_lo, row_hi, spp, max_depth, rr_depth, t_min,
+            int(moving), rad.data_ptr(), traced.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("tile_render launch failed: "
                            + lib.rrt_error_string(err).decode())
@@ -770,7 +786,9 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
                            sample_lo: int, width: int, height: int,
                            spp: int, max_depth: int, t_min: float,
                            moving: bool, solids=None, tex=None,
-                           rr_depth: int = 0, chunk: int = PLAIN_CHUNK):
+                           rr_depth: int = 0, row_lo: int = 0,
+                           row_hi: int | None = None,
+                           chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of `render_tiles`, same inputs and outputs.
 
     A wavefront loop over (pixel, sample) rays, `chunk` rays at a time in
@@ -786,7 +804,7 @@ def render_tiles_reference(sph24, cam24, bg8, *, seed_words,
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
         t_min=t_min, moving=moving, solids=solids, tex=tex,
-        rr_depth=rr_depth, chunk=chunk)
+        rr_depth=rr_depth, row_lo=row_lo, row_hi=row_hi, chunk=chunk)
     return rad, traced
 
 
@@ -794,9 +812,13 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                           width: int, height: int, spp: int,
                           max_depth: int, t_min: float, moving: bool,
                           solids=None, tex=None, win_cap: int = 0,
-                          rr_depth: int = 0, chunk: int = PLAIN_CHUNK):
-    """render_tiles_reference's loop, also returning each path's bounce
-    count and the first win_cap segments' winners of each pixel: (rad
+                          rr_depth: int = 0, row_lo: int = 0,
+                          row_hi: int | None = None,
+                          chunk: int = PLAIN_CHUNK):
+    """render_tiles_reference's loop over the rows [row_lo, row_hi)
+    (check_window; P their pixels, each keyed by its id in the whole
+    image), also returning each path's bounce count and the first
+    win_cap segments' winners of each pixel: (rad
     (P,3), traced (P,) i32, lengths (spp, P) uint8, winners (win_cap, P)
     int16), where lengths[s, p] is the number of bounces sample s of
     pixel p traced, and winners[j, p] the slot that pixel p's j-th
@@ -809,7 +831,8 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     dev = sph24.device
     scene = _scene_from_packs(sph24, bg8, moving, solids, tex)
     basis = tuple(cam24[3 * i:3 * i + 3] for i in range(6))
-    n_pix = width * height
+    row_lo, row_hi = check_window(height, row_lo, row_hi)
+    n_pix = width * (row_hi - row_lo)
     n_rays = n_pix * spp
     chunk = min(chunk, n_pix)
     rad = torch.zeros((3, n_pix), dtype=torch.float32, device=dev)
@@ -819,11 +842,12 @@ def trace_paths_reference(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                          device=dev)
     for lo in range(0, n_rays, chunk):
         ray = torch.arange(lo, min(lo + chunk, n_rays), device=dev)
-        pix = ray % n_pix
-        keys = rng.sample_keys(tuple(seed_words), pix,
+        pix = ray % n_pix  # the band's; keyed by the image's id
+        gid = pix + row_lo * width
+        keys = rng.sample_keys(tuple(seed_words), gid,
                                sample_lo + ray // n_pix)
         o, d, tm = thin_lens_rays(basis, cam24[18], cam24[19], cam24[20],
-                                  pix % width, pix // width, width, height,
+                                  gid % width, gid // width, width, height,
                                   keys)
         thr = torch.ones_like(o)
         for bounce in range(max_depth + 1):

@@ -206,9 +206,12 @@ def _raise_on(lib, err, what):
 def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
                        width: int, height: int, spp: int, max_depth: int,
                        t_min: float, moving: bool, solids=None, tex=None,
-                       rr_depth: int = 0):
-    """Render samples [sample_lo, sample_lo + spp) as render_tiles does,
-    and keep the residual. Returns (radiance sums (P,3) f32, traced
+                       rr_depth: int = 0, row_lo: int = 0,
+                       row_hi: int | None = None):
+    """Render samples [sample_lo, sample_lo + spp) of the rows [row_lo,
+    row_hi) (default all: mk.check_window; P their pixels, each keyed by
+    its id in the whole image) as render_tiles does, and keep the
+    residual. Returns (radiance sums (P,3) f32, traced
     counts (P,) i32, lengths (spp, P) uint8: the bounces each path
     traced, winners (winner_capacity(spp), P) int16: winners[j, p] the
     code of the winner of pixel p's j-th segment, in trace order
@@ -227,12 +230,14 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
     CUDA tensors launch train_fwd (counted in
     `render_tiles_train.launches`); CPU tensors run
     render_tiles_train_reference."""
-    kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
-              height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving,
                         rr_depth=rr_depth)
+    row_lo, row_hi = mk.check_window(height, row_lo, row_hi)
+    kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
+              height=height, spp=spp, max_depth=max_depth, t_min=t_min,
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth,
+              row_lo=row_lo, row_hi=row_hi)
     _check_train_media(solids)
     mk.check_codes(solids)
     device = sph24.device
@@ -247,7 +252,7 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         _check_train_smem("train_fwd", sph24.shape[1], moving, solids,
                           solid_arg, tex)
     lib = _build.load()
-    n_pix = width * height
+    n_pix = width * (row_hi - row_lo)
     cap = winner_capacity(spp)
     rad = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
     traced = torch.empty((n_pix,), dtype=torch.int32, device=device)
@@ -258,9 +263,9 @@ def render_tiles_train(sph24, cam24, bg8, *, seed_words, sample_lo: int,
         err = lib.rrt_train_fwd(
             sph24.data_ptr(), sph24.shape[1], cam24.data_ptr(),
             bg8.data_ptr(), solid_arg, tex_arg, s0, s1,
-            sample_lo & rng.MASK32, width, height, spp, max_depth, rr_depth,
-            t_min, int(moving), cap, rad.data_ptr(), traced.data_ptr(),
-            lengths.data_ptr(), winners.data_ptr(),
+            sample_lo & rng.MASK32, width, row_lo, row_hi, spp, max_depth,
+            rr_depth, t_min, int(moving), cap, rad.data_ptr(),
+            traced.data_ptr(), lengths.data_ptr(), winners.data_ptr(),
             _stream(device))
     _raise_on(lib, err, "train_fwd")
     render_tiles_train.launches += 1
@@ -274,23 +279,28 @@ def render_tiles_train_reference(sph24, cam24, bg8, *, seed_words,
                                  sample_lo: int, width: int, height: int,
                                  spp: int, max_depth: int, t_min: float,
                                  moving: bool, solids=None, tex=None,
-                                 rr_depth: int = 0):
+                                 rr_depth: int = 0, row_lo: int = 0,
+                                 row_hi: int | None = None):
     """Plain version of render_tiles_train: render_tiles_reference plus
     the lengths and the winners (mk.trace_paths_reference)."""
     return mk.trace_paths_reference(
         sph24, cam24, bg8, seed_words=seed_words, sample_lo=sample_lo,
         width=width, height=height, spp=spp, max_depth=max_depth,
         t_min=t_min, moving=moving, solids=solids, tex=tex,
-        win_cap=winner_capacity(spp), rr_depth=rr_depth)
+        win_cap=winner_capacity(spp), rr_depth=rr_depth, row_lo=row_lo,
+        row_hi=row_hi)
 
 
 def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
                   seed_words, sample_lo: int, width: int, height: int,
                   spp: int, max_depth: int, t_min: float, moving: bool,
-                  solids=None, tex=None, rr_depth: int = 0):
-    """Cotangents of the packs for the radiance cotangent d_rad (P,3):
-    (d_sph24 (24,S), d_cam24 (24,), d_bg8 (8,), replay mismatches (1,)
-    int32: the paths whose replayed length differs from `lengths`, and
+                  solids=None, tex=None, rr_depth: int = 0, row_lo: int = 0,
+                  row_hi: int | None = None):
+    """Cotangents of the packs for the radiance cotangent d_rad (P,3) of
+    the rows [row_lo, row_hi) (default all: mk.check_window; P their
+    pixels, with render_tiles_train's lengths and winners of the same
+    rows): (d_sph24 (24,S), d_cam24 (24,), d_bg8 (8,), replay mismatches
+    (1,) int32: the paths whose replayed length differs from `lengths`, and
     the stored winners the replay does not find; d_solids: with solids
     (the scene's SolidPacks: the solid-family variant) the SolidPacks of
     the quad, box and medium packs' cotangents, else None; d_atlas: with
@@ -312,13 +322,15 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     are added to `tiles_adjoint.replay_mismatches`
     (megakernel_vjp.count_mismatches): a replay off the forward's path
     would give wrong gradients."""
-    kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
-              height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth)
     _check_train_inputs(sph24, cam24, bg8, width=width, height=height,
                         spp=spp, max_depth=max_depth, moving=moving,
                         rr_depth=rr_depth)
-    n_pix = width * height
+    row_lo, row_hi = mk.check_window(height, row_lo, row_hi)
+    kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
+              height=height, spp=spp, max_depth=max_depth, t_min=t_min,
+              moving=moving, solids=solids, tex=tex, rr_depth=rr_depth,
+              row_lo=row_lo, row_hi=row_hi)
+    n_pix = width * (row_hi - row_lo)
     if d_rad.dtype != torch.float32 or tuple(d_rad.shape) != (n_pix, 3):
         raise ValueError(f"d_rad must be ({n_pix}, 3) float32, got "
                          f"{tuple(d_rad.shape)} {d_rad.dtype}")
@@ -363,7 +375,7 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
     # and, below them, the first reduction's groups of 64 blocks
     # (csrc/train.cu rrt_train_bwd).
     rows = grad_rows(moving)
-    n_blocks = -(-width // 16) * -(-height // 16)
+    n_blocks = -(-width // 16) * -(-(row_hi - row_lo) // 16)
     n_cols = SLOT_COLS * (n_slots + n_solid) + 32
     partials = torch.empty((n_blocks + -(-n_blocks // 64), n_cols),
                            dtype=torch.float32, device=device)
@@ -376,9 +388,9 @@ def tiles_adjoint(sph24, cam24, bg8, d_rad, lengths, winners, *,
             solid_arg, tex_arg, d_rad.data_ptr(), lengths.data_ptr(),
             None if winners is None else winners.data_ptr(),
             0 if winners is None else winners.shape[0], s0, s1,
-            sample_lo & rng.MASK32, width, height, spp, max_depth, rr_depth,
-            t_min, int(moving), partials.data_ptr(), sums.data_ptr(),
-            mismatches.data_ptr(), _stream(device))
+            sample_lo & rng.MASK32, width, row_lo, row_hi, spp, max_depth,
+            rr_depth, t_min, int(moving), partials.data_ptr(),
+            sums.data_ptr(), mismatches.data_ptr(), _stream(device))
     _raise_on(lib, err, "train_bwd")
     tiles_adjoint.launches += 1
     count_mismatches(tiles_adjoint, mismatches)
@@ -401,6 +413,7 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
                             width: int, height: int, spp: int,
                             max_depth: int, t_min: float, moving: bool,
                             solids=None, tex=None, rr_depth: int = 0,
+                            row_lo: int = 0, row_hi: int | None = None,
                             chunk: int = 1 << 16):
     """Plain version of tiles_adjoint, same inputs and outputs.
 
@@ -430,7 +443,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
               if x is not None}
     grads = {k: torch.zeros_like(x) for k, x in leaves.items()}
     mismatches = torch.zeros((1,), dtype=torch.int32, device=dev)
-    n_pix = width * height
+    row_lo, row_hi = mk.check_window(height, row_lo, row_hi)
+    n_pix = width * (row_hi - row_lo)
     n_rays = n_pix * spp
     chunk = min(chunk, n_pix)
     flat_lengths = lengths.reshape(-1).long()
@@ -438,12 +452,13 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
         first = (lengths.long().cumsum(dim=0) - lengths.long()).reshape(-1)
     for lo in range(0, n_rays, chunk):
         ray = torch.arange(lo, min(lo + chunk, n_rays), device=dev)
-        pix = ray % n_pix
-        keys = rng.sample_keys(tuple(seed_words), pix,
+        pix = ray % n_pix  # the band's; keyed by the image's id
+        gid = pix + row_lo * width
+        keys = rng.sample_keys(tuple(seed_words), gid,
                                sample_lo + ray // n_pix)
         with torch.no_grad():
             o, d, tm = thin_lens_rays(basis, cam24[18], cam24[19],
-                                      cam24[20], pix % width, pix // width,
+                                      cam24[20], gid % width, gid // width,
                                       width, height, keys)
             records, n_seg, _ = replay_steps(
                 scene, o, d, tm, keys, torch.zeros_like(pix), max_depth + 1,
@@ -456,8 +471,8 @@ def tiles_adjoint_reference(sph24, cam24, bg8, d_rad, lengths,
         with torch.enable_grad():
             frames = None if quads is None else mk.quad_frame_pack(quads)
             state = camera_ray_rows(
-                cam, (pix % width).to(torch.float32),
-                (pix // width).to(torch.float32), rng.camera_draws(keys))
+                cam, (gid % width).to(torch.float32),
+                (gid // width).to(torch.float32), rng.camera_draws(keys))
             state = state + (torch.ones_like(state[0]),) * 3
             total = 0.0
             for r in records:
@@ -510,7 +525,9 @@ class TileTrainChain(torch.autograd.Function):
     quad and box packs, their layout (active slot counts and the trees,
     which train_fwd walks) and the medium pack (or None) of a scene with
     quads, boxes, media or a light, the atlas of a scene with textures,
-    and Russian roulette's first bounce (megakernel_vjp.solid_inputs).
+    and Russian roulette's first bounce (megakernel_vjp.solid_inputs),
+    then an optional `window`, the band of rows (row_lo, row_hi) to
+    render (None: every row; P the band's pixels).
     Forward: one render_tiles_train, whose lengths and winners it saves;
     backward: one tiles_adjoint on them, seeded by the radiance
     cotangent (P,3). The traced counts carry no gradient."""
@@ -519,10 +536,12 @@ class TileTrainChain(torch.autograd.Function):
     def forward(ctx, sph24, cam24, bg8, seed_words, sample_lo, width,
                 height, spp, max_depth, t_min, moving, quad24=None,
                 box24=None, layout=None, med24=None, atlas=None, tex=None,
-                rr_depth=0):
+                rr_depth=0, window=None):
+        row_lo, row_hi = (0, None) if window is None else window
         kw = dict(seed_words=seed_words, sample_lo=sample_lo, width=width,
                   height=height, spp=spp, max_depth=max_depth, t_min=t_min,
-                  moving=moving, rr_depth=rr_depth)
+                  moving=moving, rr_depth=rr_depth, row_lo=row_lo,
+                  row_hi=row_hi)
         solids, tex = unpack_inputs(quad24, box24, layout, med24, atlas, tex)
         rad, traced, lengths, winners = render_tiles_train(
             sph24, cam24, bg8, solids=solids, tex=tex, **kw)
@@ -548,4 +567,4 @@ class TileTrainChain(torch.autograd.Function):
                                 else (d_solids.quad24, d_solids.box24,
                                       d_solids.med24))
         return ((d_sph, d_cam, d_bg) + (None,) * 8
-                + (d_quad, d_box, None, d_med, d_atlas, None, None))
+                + (d_quad, d_box, None, d_med, d_atlas, None, None, None))

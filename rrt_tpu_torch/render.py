@@ -243,10 +243,12 @@ def _packs(scene: SceneArrays, camera, cfg: RenderConfig, device, *,
 
 def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
                 sample_lo: int = 0, n_samples: int | None = None, *,
-                device):
+                device, row_lo: int = 0, row_hi: int | None = None):
     """Render samples [sample_lo, sample_lo + n_samples) of every pixel
-    on `device` (n_samples defaults to cfg.spp). Returns (radiance sums
-    (P,3) in scan-line order, n_traced) with P = width * height."""
+    of the rows [row_lo, row_hi) (default all) on `device` (n_samples
+    defaults to cfg.spp). Returns (radiance sums (P,3) in scan-line
+    order, n_traced) with P = width * (row_hi - row_lo); a band is the
+    whole image's rows bit for bit (keys are the image's pixel ids)."""
     ops_mega.check_scope(scene)
     device = _check_device(device)
     sph24, cam24, bg8, bvh = _packs(scene, camera, cfg, device, bvh=True)
@@ -256,7 +258,8 @@ def trace_tiles(scene: SceneArrays, camera, cfg: RenderConfig, seed,
         spp=cfg.spp if n_samples is None else n_samples,
         max_depth=cfg.max_depth, t_min=cfg.t_min, moving=scene.has_moving,
         bvh=bvh, solids=ops_mega.pack_solids(scene, device),
-        tex=ops_mega.pack_textures(scene, device), rr_depth=cfg.rr_depth)
+        tex=ops_mega.pack_textures(scene, device), rr_depth=cfg.rr_depth,
+        row_lo=row_lo, row_hi=row_hi)
     return rad, traced.sum()
 
 
@@ -339,10 +342,12 @@ def _warn_diff_fallback(where: str, reason: str):
 
 def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
                      sample_lo: int = 0, n_samples: int | None = None,
-                     sample_budget: int | None = None, *, device):
+                     sample_budget: int | None = None, *, device,
+                     row_lo: int = 0, row_hi: int | None = None):
     """Differentiable render of samples [sample_lo, sample_lo +
-    n_samples): (radiance sums (P,3), n_traced), as trace_tiles, with
-    gradients to the scene's and camera's tensors through the packs.
+    n_samples) of the rows [row_lo, row_hi) (default all): (radiance sums
+    (P,3), n_traced), as trace_tiles, with gradients to the scene's and
+    camera's tensors through the packs.
 
     Each launch is an ops.megakernel_train.TileTrainChain: forward one
     train_fwd kernel, backward one train_bwd kernel (their solid-family
@@ -357,6 +362,7 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
     chain is recomputed."""
     _check_diff_scope("trace_tiles_diff", scene, cfg)
     device = _check_device(device)
+    window = ops_mega.check_window(cfg.height, row_lo, row_hi)
     budget = sample_budget or DIFF_SAMPLE_BUDGET
     n_samples = cfg.spp if n_samples is None else n_samples
     packs = _packs(scene, camera, cfg, device)
@@ -368,7 +374,7 @@ def trace_tiles_diff(scene: SceneArrays, camera, cfg: RenderConfig, seed,
         r, traced = ops_train.TileTrainChain.apply(
             *packs, rng.key_words(seed), sample_lo + lo, cfg.width,
             cfg.height, min(budget, n_samples - lo), cfg.max_depth,
-            cfg.t_min, scene.has_moving, *extra)
+            cfg.t_min, scene.has_moving, *extra, window)
         rad = r if rad is None else rad + r
         n_traced = n_traced + traced.sum()
     return rad, n_traced

@@ -52,6 +52,7 @@ from rrt_tpu_torch import convert, diff, render
 from rrt_tpu_torch.ops import megakernel as tmk
 from rrt_tpu_torch.ops import megakernel_train as tmkt
 from rrt_tpu_torch.ops import megakernel_vjp as tmkv
+from rrt_tpu_torch.parallel import mesh as pmesh
 from rrt_tpu_torch.scene import SceneBuilder
 
 import _torch_helpers as helpers
@@ -307,9 +308,12 @@ def test_out_of_scope_scenes_raise():
         scene, n_quads_active=tmk.SOLID_CAP + 1), cam,
         torch.zeros((8, 16, 3)), 0)
     assert torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="#12"):
+    # With a mesh, what raises is a mesh whose world is not the process
+    # group's (here no group: a world of one).
+    with pytest.raises(ValueError, match="world of 1"):
         diff.render_loss(diff.partition(scene), cam, scene,
-                         torch.zeros((8, 16, 3)), cfg, 0, mesh=object(),
+                         torch.zeros((8, 16, 3)), cfg, 0,
+                         mesh=pmesh.Mesh(2, 1, 0, 0, torch.device("cpu")),
                          device="cpu")
     assert render.diff_fallback_reason(scene, cfg) is None
 
